@@ -1,0 +1,1 @@
+"""models of rtfs_tpu_torch (see the package docstring)."""

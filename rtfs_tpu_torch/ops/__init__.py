@@ -1,0 +1,1 @@
+"""ops of rtfs_tpu_torch (see the package docstring)."""
