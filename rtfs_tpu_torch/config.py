@@ -1,4 +1,5 @@
-"""Config loading and the AVNet builder (counterpart of ``rtfs_tpu/config.py``).
+"""Config loading, the AVNet builder and the lip backbone's (counterparts
+of ``rtfs_tpu/config.py`` and ``rtfs_tpu/models/video.py:make_video_model``).
 
 Presets ship as JSON copies of the JAX package's YAML files, read with the
 standard library; a ``.yaml`` path is accepted only where PyYAML imports.
@@ -8,11 +9,12 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from .models.avnet import AVNet, init_weights
+from .models.video import FRCNNVideoModel
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 
@@ -43,6 +45,16 @@ def list_presets() -> list[str]:
     )
 
 
+def _device(device, who: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: CUDA requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' for the CPU path"
+        )
+    return device
+
+
 def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
                 seed: int = 0) -> AVNet:
     """Build the AVNet from a full config (its ``audionet`` group), draw its
@@ -52,12 +64,7 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     Raises if ``device`` is CUDA and no GPU is present: there is no CPU
     fallback. Pass ``device="cpu"`` for the CPU path.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_avnet: CUDA requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' for the CPU path"
-        )
+    device = _device(device, "build_avnet")
     a = conf["audionet"]
     if a.get("compute_dtype", "float32") != "float32":
         raise NotImplementedError("rtfs_tpu_torch serves float32 only")
@@ -76,3 +83,30 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+def build_video_model(conf: Dict[str, Any],
+                      device: str | torch.device = "cuda",
+                      seed: int = 0) -> Optional[FRCNNVideoModel]:
+    """The frozen lip backbone of a full config (its ``videonet`` group),
+    eval mode, no gradients, on ``device``; None for an audio-only config.
+
+    The weights are drawn from ``seed``, the JAX trainer's smoke mode
+    (``train.py:135-139``): loading a pretrained checkpoint named by
+    ``videonet.pretrain`` is not ported, so such a name only warns.
+    """
+    vconf = conf.get("videonet")
+    if not vconf:
+        return None
+    device = _device(device, "build_video_model")
+    if vconf.get("model_name", "FRCNNVideoModel") != "FRCNNVideoModel":
+        raise NotImplementedError(
+            f"video model {vconf['model_name']!r} is not ported")
+    model = FRCNNVideoModel(vconf.get("backbone_type", "resnet"),
+                            vconf.get("relu_type", "prelu"))
+    if vconf.get("pretrain"):
+        print(f"WARNING: videonet.pretrain={vconf['pretrain']} is not "
+              "loaded by the port; the frozen lip backbone is drawn from the "
+              "seed (smoke mode)")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model.to(device).eval().requires_grad_(False)

@@ -32,11 +32,13 @@ def sinusoidal_pe(max_len: int, channels: int) -> np.ndarray:
 
 class TorchMHA(nn.Module):
     """``nn.MultiheadAttention`` parameters (packed QKV) and math, written
-    as plain matmul + softmax. Input (B, T, C)."""
+    as plain matmul + softmax, with dropout on the attention weights in
+    train mode. Input (B, T, C)."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = L.Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -56,20 +58,23 @@ class TorchMHA(nn.Module):
         q, k, v = (z.reshape(b, t, h, c // h).transpose(1, 2)
                    for z in qkv.chunk(3, dim=-1))
         attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(c // h), -1)
-        out = (attn @ v).transpose(1, 2).reshape(b, t, c)
+        out = (self.attn_drop(attn) @ v).transpose(1, 2).reshape(b, t, c)
         return self.out_proj(out)
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """1-D MHSA block: LN -> +PE -> MHA -> +residual -> LN -> +outer
-    residual (reference ``attention.py:28-73``). Input (B, C, T)."""
+    """1-D MHSA block: LN -> +PE -> MHA -> dropout + residual -> LN ->
+    DropPath + outer residual (reference ``attention.py:28-73``; dropouts as
+    ``rtfs_tpu/models/attention.py:75-78,111,113``). Input (B, C, T)."""
 
-    def __init__(self, in_chan, n_head=8, positional_encoding=True,
-                 max_len=10000):
+    def __init__(self, in_chan, n_head=8, dropout=0.1,
+                 positional_encoding=True, max_len=10000):
         super().__init__()
         self.norm1 = nn.LayerNorm(in_chan, eps=1e-5)
-        self.attention = TorchMHA(in_chan, n_head)
+        self.attention = TorchMHA(in_chan, n_head, dropout)
+        self.dropout = L.Dropout(dropout)
         self.norm2 = nn.LayerNorm(in_chan, eps=1e-5)
+        self.drop_path = L.DropPath(dropout)
         self.positional_encoding = positional_encoding
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_pe(max_len, in_chan)),
@@ -81,8 +86,8 @@ class MultiHeadSelfAttention(nn.Module):
         x = self.norm1(x.transpose(1, 2))  # (B, T, C)
         if self.positional_encoding:
             x = x + self.pe[: x.shape[1]]
-        x = self.norm2(self.attention(x) + x)
-        return x.transpose(1, 2) + res
+        x = self.norm2(self.dropout(self.attention(x)) + x)
+        return self.drop_path(x).transpose(1, 2) + res
 
 
 class GlobalAttention(nn.Module):
@@ -92,7 +97,7 @@ class GlobalAttention(nn.Module):
                  dropout=0.1, pos_enc=True):
         super().__init__()
         hid = hid_chan if hid_chan is not None else 2 * in_chan
-        self.MHSA = MultiHeadSelfAttention(in_chan, n_head, pos_enc)
+        self.MHSA = MultiHeadSelfAttention(in_chan, n_head, dropout, pos_enc)
         self.FFN = L.FeedForwardNetwork(in_chan, hid, kernel_size,
                                         dropout=dropout)
 

@@ -50,7 +50,7 @@ class STFTEncoder(nn.Module):
                                   xavier_init=True, bias=bias, is2d=True)
 
     def forward(self, x):
-        window = stft_ops.hann_window(self.win, device=x.device)
+        window = stft_ops.hann_window(self.win, device=x.device, dtype=x.dtype)
         spec = stft_ops.stft(x, self.win, self.hop_length, window)  # (B, F, T)
         spec = torch.stack([spec.real, spec.imag], dim=1).transpose(2, 3)
         return self.conv(spec)
@@ -75,7 +75,7 @@ class STFTDecoder(nn.Module):
         b, n_src = x.shape[:2]
         x = self.decoder(x.reshape(b * n_src, *x.shape[2:]))  # (B*n, 2, T, F)
         spec = torch.complex(x[:, 0], x[:, 1]).transpose(1, 2)  # (B*n, F, T)
-        window = stft_ops.hann_window(self.win, device=x.device)
+        window = stft_ops.hann_window(self.win, device=x.device, dtype=x.dtype)
         wav = stft_ops.istft(spec, self.win, self.hop_length, window, length)
         return wav.reshape(b, n_src, length)
 

@@ -19,6 +19,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops import convops
 
@@ -26,6 +27,54 @@ from ..ops import convops
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
+
+
+# --------------------------------------------------------------------------
+# Dropout: masks from the train step's generator
+# --------------------------------------------------------------------------
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Every dropout and DropPath of ``model`` draws its masks from
+    ``generator`` (the train step's, as ``rngs={"dropout": rng}`` feeds the
+    JAX model)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (flax ``nn.Dropout``): identity in eval mode. In
+    train mode its mask comes from ``self.generator`` (set by
+    ``set_dropout_generator``); there is no implicit global generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def mask_shape(self, x):
+        return x.shape
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode needs a generator: "
+                               "call layers.set_dropout_generator first")
+        keep = 1.0 - self.rate
+        gen = self.generator
+        mask = torch.rand(self.mask_shape(x), generator=gen,
+                          device=gen.device) < keep
+        return x * mask.to(device=x.device, dtype=x.dtype) / keep
+
+
+class DropPath(Dropout):
+    """timm DropPath (``rtfs_tpu/models/layers.py:DropPath``): drops the
+    whole residual branch per sample in train mode."""
+
+    def mask_shape(self, x):
+        return (x.shape[0],) + (1,) * (x.ndim - 1)
 
 
 # --------------------------------------------------------------------------
@@ -78,8 +127,18 @@ class LayerNormalization4D(nn.Module):
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
-    """torch BatchNorm1d/2d for any rank >= 2 (channel axis 1); in eval mode
-    it normalises with the running statistics."""
+    """BatchNorm over channel axis 1 for any rank >= 2, with flax's
+    train-mode update.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch mean and biased variance and moves the running
+    statistics as flax's ``nn.BatchNorm(momentum=0.9)`` behind
+    ``rtfs_tpu/models/layers.py:BatchNorm`` does: ``running = 0.9 * running
+    + 0.1 * batch`` with the BIASED batch variance (torch's own BatchNorm
+    puts the unbiased variance into ``running_var``). Names and buffers are
+    torch's (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``).
+    """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
@@ -87,6 +146,22 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     def _check_input_dim(self, x):
         if x.dim() < 2:
             raise ValueError(f"BatchNorm expects rank >= 2, got {x.dim()}")
+
+    def forward(self, x):
+        self._check_input_dim(x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        var, mean = torch.var_mean(x, dim=[0, *range(2, x.ndim)],
+                                   unbiased=False)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.reshape(shape)) * scale.reshape(shape)
+                + self.bias.reshape(shape))
 
 
 def make_norm(norm_type: Optional[str], features: int, n_freqs: int = -1):
@@ -257,8 +332,9 @@ class ConvActNorm(nn.Module):
 
 
 class FeedForwardNetwork(nn.Module):
-    """Conv FFN: 1x1 -> depthwise k -> 1x1, residual (conv_layers.py:218).
-    DropPath is the identity in inference and is left out."""
+    """Conv FFN: 1x1 -> depthwise k -> DropPath -> 1x1 -> DropPath,
+    residual (conv_layers.py:218; ``rtfs_tpu/models/layers.py:804-810``).
+    The DropPaths hold no parameters and are the identity in eval mode."""
 
     def __init__(self, in_chan, hid_chan, kernel_size=5, norm_type="gLN",
                  act_type="ReLU", dropout=0.0, is2d=False):
@@ -270,6 +346,8 @@ class FeedForwardNetwork(nn.Module):
                                    is2d=is2d)
         self.decoder = ConvNormAct(hid_chan, in_chan, 1, norm_type=norm_type,
                                    bias=False, is2d=is2d)
+        self.drop_path = DropPath(dropout)
 
     def forward(self, x):
-        return self.decoder(self.refiner(self.encoder(x))) + x
+        y = self.drop_path(self.refiner(self.encoder(x)))
+        return self.drop_path(self.decoder(y)) + x

@@ -30,14 +30,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points per library: (pointer args, int args); every function
-# also takes the stream last and returns cudaGetLastError().
+# also takes the stream last and returns cudaGetLastError(). A pointer may
+# be None (NULL) where the source says so (the forwards' c outputs).
 _SIGNATURES = {
     "sru_fused": {
-        "sru_dual_recurrence_fwd": (5, 3),
-        "sru_hidden_layer_fwd": (6, 4),
+        "sru_dual_recurrence_fwd": (7, 3),
+        "sru_dual_recurrence_bwd": (10, 3),
+        "sru_hidden_layer_fwd": (8, 4),
+        "sru_hidden_layer_bwd": (12, 4),
     },
     "convt_tm": {
         "convt1d_ola_tm_fwd": (3, 5),
+        "convt1d_ola_tm_bwd": (5, 6),
     },
 }
 

@@ -3,7 +3,8 @@
 ``load_jax_params(model, variables)`` takes the ``{"params", "batch_stats"}``
 tree of an ``rtfs_tpu`` module (nested dicts of numpy arrays) and fills the
 parameters and buffers of the matching port module. It is the inverse of
-``rtfs_tpu/utils/torch_import.py:convert_avnet``: the mapping follows the
+``rtfs_tpu/utils/torch_import.py:convert_avnet`` (and, for the lip
+backbone, of ``convert_frcnn_video``): the mapping follows the
 port's module tree, names the flax path of each tensor, and converts the
 layout (flax channels-last kernels -> torch (C_out, C_in/g, *k), and so
 on). It raises on any flax leaf left unused and on any port tensor left
@@ -25,6 +26,7 @@ from ..models.avnet import ATTNFusion, AVNet, MultiModalFusion
 from ..models.fusion_layers import ATTNFusionCell, InjectionMultiSum
 from ..models.rnn_blocks import DualPathRNN
 from ..models.separators import Separator, TDANetBlock
+from ..models.video import FRCNNVideoModel
 from ..ops.sru import SRU
 
 
@@ -79,12 +81,8 @@ def _conv_norm_act(f, mod, path, t):
             f.put(f"{k}.norm.weight", path + [name, "scale"])
             f.put(f"{k}.norm.bias", path + [name, "bias"])
         elif isinstance(m, L.BatchNorm):
-            p = path + [f"BatchNorm_{n['bn']}", "BatchNorm_0"]
+            _bn(f, k, path + [f"BatchNorm_{n['bn']}"])
             n["bn"] += 1
-            f.put(f"{k}.weight", p + ["scale"])
-            f.put(f"{k}.bias", p + ["bias"])
-            f.put(f"{k}.running_mean", p + ["mean"], stats=True)
-            f.put(f"{k}.running_var", p + ["var"], stats=True)
         elif isinstance(m, nn.PReLU):
             f.put(f"{k}.weight", path + [f"PReLU_{n['prelu']}", "alpha"])
             n["prelu"] += 1
@@ -250,7 +248,44 @@ def _avnet(f, mod, path, t):
             f.put(_key(t, "decoder.decoder.bias"), p + ["bias"])
 
 
+def _bn(f, key, path):
+    """torch BatchNorm ``key`` <- flax ``L.BatchNorm`` at ``path``."""
+    p = path + ["BatchNorm_0"]
+    f.put(f"{key}.weight", p + ["scale"])
+    f.put(f"{key}.bias", p + ["bias"])
+    f.put(f"{key}.running_mean", p + ["mean"], stats=True)
+    f.put(f"{key}.running_var", p + ["var"], stats=True)
+
+
+def _frcnn_video(f, mod, path, t):
+    """The inverse of ``torch_import.convert_frcnn_video`` (resnet)."""
+    prelu = isinstance(mod.frontend3D[2], nn.PReLU)
+    f.put(_key(t, "frontend3D.0.weight"), path + ["frontend_conv"],
+          _conv_kernel)
+    _bn(f, _key(t, "frontend3D.1"), path + ["BatchNorm_0"])
+    if prelu:
+        f.put(_key(t, "frontend3D.2.weight"), path + ["ChannelPReLU_0", "alpha"])
+    blk = 0
+    for n in range(1, 5):
+        for i, block in enumerate(getattr(mod.trunk, f"layer{n}")):
+            k = _key(t, f"trunk.layer{n}.{i}")
+            p = path + ["ResNetTrunk_0", f"BasicBlock_{blk}"]
+            f.put(f"{k}.conv1.weight", p + ["Conv_0", "kernel"], _conv_kernel)
+            _bn(f, f"{k}.bn1", p + ["BatchNorm_0"])
+            f.put(f"{k}.conv2.weight", p + ["Conv_1", "kernel"], _conv_kernel)
+            _bn(f, f"{k}.bn2", p + ["BatchNorm_1"])
+            if prelu:
+                f.put(f"{k}.relu1.weight", p + ["ChannelPReLU_0", "alpha"])
+                f.put(f"{k}.relu2.weight", p + ["ChannelPReLU_1", "alpha"])
+            if block.downsample is not None:
+                f.put(f"{k}.downsample.0.weight",
+                      p + ["_ConvBN_0", "Conv_0", "kernel"], _conv_kernel)
+                _bn(f, f"{k}.downsample.1", p + ["_ConvBN_0", "BatchNorm_0"])
+            blk += 1
+
+
 _MAPPERS = {
+    FRCNNVideoModel: _frcnn_video,
     AVNet: _avnet,
     Separator: _separator,
     TDANetBlock: _tdanet_block,

@@ -9,6 +9,7 @@ the check runs in a fresh interpreter and looks at what the imports add to
 
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -45,10 +46,32 @@ def _probe():
 def test_port_imports_no_jax_and_no_rtfs_tpu():
     res = _probe()
     for mod in ("rtfs_tpu_torch.ops.sru_fused", "rtfs_tpu_torch.ops.convt_tm",
-                "rtfs_tpu_torch.models.avnet", "rtfs_tpu_torch.utils.weights"):
+                "rtfs_tpu_torch.models.avnet", "rtfs_tpu_torch.utils.weights",
+                "rtfs_tpu_torch.models.video", "rtfs_tpu_torch.losses.sdr",
+                "rtfs_tpu_torch.losses.pit", "rtfs_tpu_torch.train.optim",
+                "rtfs_tpu_torch.train.system", "rtfs_tpu_torch.train.main",
+                "rtfs_tpu_torch.train.checkpoints",
+                "rtfs_tpu_torch.data.synthetic",
+                "rtfs_tpu_torch.utils.parser"):
         assert mod in res["modules"]
     bad = [m for m in res["added"] if m.split(".")[0] in FORBIDDEN]
     assert bad == [], bad
+
+
+def test_no_import_statement_names_jax_or_rtfs_tpu():
+    """No line of the port or chip_smoke.py imports a forbidden package,
+    not even inside a function that the probe above does not run."""
+    pattern = re.compile(
+        r"^\s*(import|from) (jax|jaxlib|flax|optax|rtfs_tpu)\b(?!_torch)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "rtfs_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = []
+    for path in files:
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, line in enumerate(f, 1)
+                     if pattern.match(line)]
+    assert len(files) > 20 and hits == [], hits
 
 
 @pytest.mark.parametrize("name", ["lrs2_RTFSNet_4_layer"])
