@@ -36,6 +36,22 @@ one or outside the repository. Phases, any failure of which ends the run:
    and backward 8/24/8, every loss finite and the parameters moved; it
    prints ms per step, peak memory, and one profiled step's device time,
    idle share and top kernels.
+7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
+   pw_proj_packed, K7 pw_unproj_packed, K8 spatial_down_packed and K9
+   spatial_up_packed at the packed serving shapes (STFT 251 x 129, 64
+   hid channels, bottleneck 256, pooled 125 x 64) at batch 1 and 8, each
+   against its plain version on the same card inputs, timed with CUDA
+   events beside its bound, its plain version and one PyTorch call of the
+   same function (on the layout that call takes).
+8. Serving from files (after phase 4): a seed-0 bundle, a 2 s wav and 50
+   mouth frames go through ``rtfs_tpu_torch.inference.main`` on the card
+   with and without ``--packed-tf`` and on the CPU with it. The packed run
+   must launch K5 16 / K6 4 / K7 4 / K8 8 / K9 16 and K1 8 / K2 24 / K3 8;
+   its output must match the card's standard output and the CPU's packed
+   output. Then ``separate_sample`` latency at batch 1 and 8, packed and
+   standard in turns on one model, and one profiled batch-1 forward of
+   each; and a packed op on a CUDA tensor that requires grad must raise
+   ``NotImplementedError``.
 
 The last lines are the ``kernels`` JSON object, the card line, and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and
@@ -98,6 +114,14 @@ TRAIN_GRAD_CUDNN_REL_TOL = 1e-2
 TRAIN_STAT_TOL = 1e-4
 TRAIN_BATCH = 4  # the preset's training.batch_size
 TRAIN_STEPS = 6
+# packed-TF kernels against their plain versions on the card, max abs
+# error on N(0, 1) inputs: K5 sums 16 taps in another order; K6/K7 dot
+# products of 64 and 256 terms in another order; K8 averages up to 3 x 3
+# terms; K9 (nearest) copies each value times 1, exactly
+PACKED_TOL = {"dw_conv_packed": 1e-5, "pw_proj_packed": 1e-4,
+              "pw_unproj_packed": 1e-4, "spatial_down_packed": 1e-5,
+              "spatial_up_packed": 0.0}
+MOUTH_SIZE = 96  # raw mouth frames, center-cropped to 88 x 88
 
 
 def card_line() -> str:
@@ -151,6 +175,161 @@ def main_path_geometry(conf, samples: int = SAMPLES) -> dict:
         "H": lay["hid_chan"], "C": ap["hid_chan"], "k": win,
         "layers": lay["num_layers"],
     }
+
+
+def packed_launches(conf) -> dict:
+    """Launches of each packed-TF kernel per packed forward, from the
+    preset. Every 2-D audio TDANet block with stride 2 and k > 1 (one per
+    repeat) enters the packed layout at its projection (K6), runs the
+    full-resolution depthwise conv and the stride-2 conv's stride-1 pass
+    (K5 x 2) with its select (K8), pools the full-resolution map (K8),
+    feeds the first level's fusion and concat cells (each a local K5 and
+    two upsamples, K9) and leaves through the residual conv (K7).
+    tests/test_torch_packed_tf.py holds it against a forward."""
+    ap = conf["audionet"]["audio_params"]
+    if not (ap.get("is2d") and ap["kernel_size"] > 1 and ap["stride"] == 2):
+        return {}
+    if ap["upsampling_depth"] < 2:
+        raise ValueError("packed_tf needs upsampling_depth >= 2")
+    r = ap["repeats"]
+    return {"dw_conv_packed_fwd": 4 * r, "pw_proj_packed_fwd": r,
+            "pw_unproj_packed_fwd": r, "spatial_down_packed_fwd": 2 * r,
+            "spatial_up_packed_fwd": 4 * r}
+
+
+def packed_geometry(conf, samples: int = SAMPLES) -> dict:
+    """Shapes of the packed segment: STFT (T, F), hid channels C, bottleneck
+    Cb, kernel k, and the stride-2 level (T2, F2) the pool targets."""
+    a = conf["audionet"]
+    edp, ap = a["enc_dec_params"], a["audio_params"]
+    t, f, k = 1 + samples // edp["hop_length"], edp["win"] // 2 + 1, \
+        ap["kernel_size"]
+    pad = (k - 1) // 2
+    return {"T": t, "F": f, "C": ap["hid_chan"],
+            "Cb": a["audio_bn_params"]["out_chan"], "k": k,
+            "T2": (t + 2 * pad - k) // 2 + 1, "F2": (f + 2 * pad - k) // 2 + 1}
+
+
+def _map_cost(smap, c: int, bs: int) -> tuple:
+    """(bytes, flops) of a separable map: the distinct input values it
+    reads (weight-0 entries are skipped), the output, the map itself;
+    two flops a term."""
+    ts, tw = smap.compact_t()
+    rows = np.unique(ts[tw != 0])
+    cols = np.unique(smap.fs[smap.fw != 0])
+    n_t = (tw != 0).sum(1)          # terms per output row
+    n_f = (smap.fw != 0).sum(1)     # terms per output column
+    nbytes = 4 * bs * c * (len(rows) * len(cols) + smap.t_out * smap.f_out) \
+        + 8 * (ts.size + smap.fs.size)
+    return nbytes, 2 * bs * c * int(n_t.sum()) * int(n_f.sum())
+
+
+def check_packed_kernels(conf, rng) -> dict:
+    """Phase 7: K5-K9 against their plain versions at the packed serving
+    shapes, batch 1 and 8; returns per kernel the max error and per-forward
+    (batch 1) sums of kernel, plain, bound and library times."""
+    import torch.nn.functional as Fn
+
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    T, Fq, C, Cb, k, T2, F2 = (g[n] for n in ("T", "F", "C", "Cb", "k",
+                                              "T2", "F2"))
+    dev = torch.device("cuda")
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
+    pool = P.cached_map("pool", T, T2, Fq, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, Fq)
+    res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
+           for name in PACKED_TOL}
+    for bs in (1, 8):
+        xp = t((bs, T, Fq * C))
+        x_cl = xp.view(bs, T, Fq, C).permute(0, 3, 1, 2)  # channels_last
+        xs = t((bs, t_conv, f_conv * C))
+        xs_cl = xs.view(bs, t_conv, f_conv, C).permute(0, 3, 1, 2)
+        x4 = t((bs, Cb, T, Fq))
+        x2 = t((bs, C, T2, F2))
+        w_dw, b_dw = t((C, 1, k, k), 1.0 / k), t((C,))
+        w_in, b_in = t((C, Cb, 1, 1), Cb ** -0.5), t((C,))
+        w_out, b_out = t((Cb, C, 1, 1), C ** -0.5), t((Cb,))
+        w_v = w_dw[:, 0].permute(1, 2, 0)  # (kT, kF, C) view, as Conv passes
+        n_x, n_s = bs * T * Fq * C, bs * t_conv * f_conv * C
+        dw_w = 4 * (k * k * C + C)
+        m_pw = bs * T * Fq
+        # (kernel, site, launches per forward, kernel call, plain call,
+        #  bytes, flops, library call)
+        cases = [
+            ("dw_conv_packed", "same", 12,
+             lambda: P.dw_conv_packed(xp, w_v, b_dw, Fq, C, same, same),
+             lambda: P.dw_conv_packed_plain(xp, w_v, b_dw, Fq, C, same, same),
+             4 * 2 * n_x + dw_w, 2 * k * k * n_x,
+             lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding="same", groups=C)),
+            ("dw_conv_packed", "pre-select", 4,
+             lambda: P.dw_conv_packed(xp, w_v, b_dw, Fq, C, pre, pre),
+             lambda: P.dw_conv_packed_plain(xp, w_v, b_dw, Fq, C, pre, pre),
+             4 * (n_x + n_s) + dw_w, 2 * k * k * n_s,
+             lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding=pre[0], groups=C)),
+            ("pw_proj_packed", "projection", 4,
+             lambda: P.pw_proj_packed(x4, w_in[:, :, 0, 0].t(), b_in),
+             lambda: P.pw_proj_packed_plain(x4, w_in[:, :, 0, 0].t(), b_in),
+             4 * (m_pw * (Cb + C) + Cb * C + C), 2 * m_pw * Cb * C,
+             lambda: Fn.conv2d(x4, w_in, b_in)),
+            ("pw_unproj_packed", "residual", 4,
+             lambda: P.pw_unproj_packed(xp, w_out[:, :, 0, 0].t(), b_out, Fq),
+             lambda: P.pw_unproj_packed_plain(xp, w_out[:, :, 0, 0].t(),
+                                              b_out, Fq),
+             4 * (m_pw * (Cb + C) + Cb * C + Cb), 2 * m_pw * Cb * C,
+             lambda: Fn.conv2d(x_cl, w_out, b_out)),
+            ("spatial_down_packed", "pool", 4,
+             lambda: P.spatial_down_packed(xp, pool, C),
+             lambda: P.spatial_down_packed_plain(xp, pool, C),
+             *_map_cost(pool, C, bs),
+             lambda: Fn.adaptive_avg_pool2d(x_cl, (T2, F2))),
+            ("spatial_down_packed", "select", 4,
+             lambda: P.spatial_down_packed(xs, sel, C),
+             lambda: P.spatial_down_packed_plain(xs, sel, C),
+             *_map_cost(sel, C, bs),
+             lambda: xs_cl[:, :, ::2, ::2].contiguous()),
+            ("spatial_up_packed", "nearest", 16,
+             lambda: P.spatial_up_packed(x2, up),
+             lambda: P.spatial_up_packed_plain(x2, up),
+             *_map_cost(up, C, bs),
+             lambda: Fn.interpolate(x2, size=(T, Fq), mode="nearest")),
+        ]
+        for name, site, n, kern, plain, nbytes, nops, lib in cases:
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ms = time_cuda(kern, 50)
+            plain_ms = time_cuda(plain, 3, warmup=1)
+            lib_ms = time_cuda(lib, 50)
+            b_ms, b_by = bound_ms(nbytes, nops)
+            print(f"kernel {name} bs={bs} site={site}: max_abs_err={err:.3e} "
+                  f"(tol {PACKED_TOL[name]:.0e}) ms={ms:.5f} plain_ms="
+                  f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}, {nbytes} B, "
+                  f"{nops} flop) library_ms={lib_ms:.5f}")
+            if not err <= PACKED_TOL[name]:
+                raise AssertionError(
+                    f"{name} ({site}) disagrees with its plain version: "
+                    f"{err:.3e} > {PACKED_TOL[name]:.0e}")
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if bs == 1:  # per-forward sums at batch 1
+                r["ms"] += n * ms
+                r["plain_ms"] += n * plain_ms
+                r["bound_ms"] += n * b_ms
+                r["library_ms"] += n * lib_ms
+                r["bound_by"] = b_by
+    return res
 
 
 def check_kernels(geo, rng) -> dict:
@@ -313,6 +492,133 @@ def serve(conf, rng) -> dict:
               f"peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return launches
+
+
+def serve_packed(conf, rng) -> dict:
+    """Phase 8: the serving entry from files on the card, packed and
+    standard, and on the CPU packed; returns the launch counts of the
+    card's packed run (the main path of the packed kernels)."""
+    import os
+    import tempfile
+
+    from rtfs_tpu_torch import inference
+    from rtfs_tpu_torch.config import build_avnet, build_video_model
+    from rtfs_tpu_torch.data.wav import write_wav
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.train.checkpoints import export_model
+
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "conf.json"), "w") as f:
+            json.dump(conf, f)
+        export_model(os.path.join(root, "best_model.pt"), conf["audionet"],
+                     build_avnet(conf, device="cpu", seed=0).state_dict(),
+                     build_video_model(conf, device="cpu", seed=0).state_dict())
+        wav = (rng.standard_normal(SAMPLES) * 0.1).astype(np.float32)
+        write_wav(os.path.join(root, "mix.wav"), wav, 16000)
+        mouth = rng.integers(0, 256, (VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE),
+                             dtype=np.uint8)
+        np.savez(os.path.join(root, "mouth.npz"), data=mouth)
+
+        def run(*extra):
+            t0 = time.perf_counter()
+            out = inference.main([
+                "--conf-dir", os.path.join(root, "conf.json"),
+                "--wav", os.path.join(root, "mix.wav"),
+                "--mouth", os.path.join(root, "mouth.npz"),
+                "--out-dir", os.path.join(root, "out"), *extra])
+            return out, time.perf_counter() - t0
+
+        std, std_s = run()
+        # the main path of K5-K9: counts from 0, the packed entry run, read
+        kernel_lib.reset_launches()
+        packed, packed_s = run("--packed-tf")
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)
+        cpu, cpu_s = run("--packed-tf", "--cpu")
+    expect = {"sru_dual_recurrence_fwd": 2 * REPEATS,
+              "sru_hidden_layer_fwd": 2 * REPEATS * 3,
+              "convt1d_ola_tm_fwd": 2 * REPEATS, **packed_launches(conf)}
+    print(f"serving from files: packed entry launches {launches} (expected "
+          f"{expect}); entry wall s: card {std_s:.3f}, card packed "
+          f"{packed_s:.3f}, cpu packed {cpu_s:.3f}")
+    if launches != expect:
+        raise AssertionError(f"packed entry launches {launches} != {expect}")
+    if packed.shape != (1, SAMPLES) or not np.isfinite(packed).all():
+        raise AssertionError(f"packed entry: bad output {packed.shape}")
+    for label, want in (("card standard", std), ("cpu packed", cpu)):
+        err = float(np.abs(packed - want).max())
+        scale = float(np.abs(want).max())
+        print(f"serving from files: card packed vs {label} max_abs_err="
+              f"{err:.3e} max|out|={scale:.3e} (tol {SERVE_REL_TOL:.0e} * "
+              "max|out|)")
+        if not err <= SERVE_REL_TOL * scale:
+            raise AssertionError(f"card packed and {label} outputs disagree")
+    return launches
+
+
+def packed_latency(conf, rng) -> None:
+    """Phase 8, continued: ``separate_sample`` latency of one model on the
+    card, packed and standard in turns, at batch 1 and 8; one profiled
+    batch-1 forward of each; and the refusal of a packed op that autograd
+    would record on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtfs_tpu_torch.config import build_avnet
+    from rtfs_tpu_torch.ops import packed_tf as P
+    from rtfs_tpu_torch.utils.separator import separate_sample
+
+    model = build_avnet(conf, device="cuda", seed=0)
+    for bs, iters in ((1, 20), (8, 10)):
+        wav = (rng.standard_normal((bs, SAMPLES)) * 0.1).astype(np.float32)
+        mouth = rng.standard_normal((bs, VIDEO_FRAMES, 512)).astype(np.float32)
+        times = {False: [], True: []}
+        for packed in (False, True):  # warm
+            model.packed_tf = packed
+            separate_sample(model, wav, mouth)
+        for i in range(2 * iters):  # standard, packed, packed, standard, ...
+            packed = (i % 4) in (1, 2)
+            model.packed_tf = packed
+            t0 = time.perf_counter()
+            separate_sample(model, wav, mouth)
+            times[packed].append(time.perf_counter() - t0)
+        for packed in (False, True):
+            ts = times[packed]
+            med = statistics.median(ts)
+            print(f"serving latency: bs={bs} {'packed' if packed else 'standard'}"
+                  f" median={med * 1e3:.3f} ms min={min(ts) * 1e3:.3f} ms "
+                  f"max={max(ts) * 1e3:.3f} ms over {len(ts)}; audio s/s="
+                  f"{bs * SAMPLES / 16000 / med:.3f}")
+
+    wav = (rng.standard_normal((1, SAMPLES)) * 0.1).astype(np.float32)
+    mouth = rng.standard_normal((1, VIDEO_FRAMES, 512)).astype(np.float32)
+    for packed in (False, True):
+        model.packed_tf = packed
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            separate_sample(model, wav, mouth)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        evs.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        print(f"serving profile: bs=1 {'packed' if packed else 'standard'} "
+              f"forward wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms, idle "
+              f"share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
+        for e in evs[:8]:
+            print(f"serving profile: top kernel "
+                  f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+                  f"{e.key[:90]}")
+
+    x = torch.zeros(1, 9, 5 * 4, device="cuda", requires_grad=True)
+    try:
+        P.dw_conv_packed(x, torch.zeros(3, 3, 4, device="cuda"), None, 5, 4,
+                         (1, 1), (1, 1))
+    except NotImplementedError as e:
+        print(f"packed training on the card refused: {e}")
+    else:
+        raise AssertionError("a packed op recorded autograd on the card")
 
 
 def _max_err(got, want) -> tuple:
@@ -683,7 +989,10 @@ def main() -> int:
     print(f"geometry: {geo}")
     rng = np.random.default_rng(0)
     kernels = check_kernels(geo, rng)
+    packed_kernels = check_packed_kernels(conf, rng)
     launches = serve(conf, rng)
+    packed_run = serve_packed(conf, rng)
+    packed_latency(conf, rng)
     bwd = check_backward_kernels(geo, rng, kernels)
     train_launches = train(conf)
 
@@ -706,12 +1015,30 @@ def main() -> int:
         "convt1d_ola_tm_bwd": ("rtfs_tpu_torch/csrc/convt_tm.cu",
                                "rtfs_tpu/ops/convt_tm.py:59",
                                "convt1d_ola_tm_bwd"),
+        "dw_conv_packed": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                           "rtfs_tpu/ops/packed_tf.py:228",
+                           "dw_conv_packed_fwd"),
+        "pw_proj_packed": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                           "rtfs_tpu/ops/packed_tf.py:435",
+                           "pw_proj_packed_fwd"),
+        "pw_unproj_packed": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                             "rtfs_tpu/ops/packed_tf.py:476",
+                             "pw_unproj_packed_fwd"),
+        "spatial_down_packed": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                                "rtfs_tpu/ops/packed_tf.py:667",
+                                "spatial_down_packed_fwd"),
+        "spatial_up_packed": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                              "rtfs_tpu/ops/packed_tf.py:712",
+                              "spatial_up_packed_fwd"),
     }
     line = {"kernels": []}
     for name, (src, rep, fn) in sources.items():
         if name in kernels:  # forward: the serving run, per forward at bs 8
             entry = {"launches": launches.get(fn, 0), **kernels[name],
                      "per_forward_at_batch": 8}
+        elif name in packed_kernels:  # packed: the packed entry's forward
+            entry = {"launches": packed_run.get(fn, 0), **packed_kernels[name],
+                     "per_forward_at_batch": 1}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],
                      "per_train_step_at_batch": TRAIN_BATCH}

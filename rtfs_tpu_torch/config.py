@@ -68,8 +68,8 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     a = conf["audionet"]
     if a.get("compute_dtype", "float32") != "float32":
         raise NotImplementedError("rtfs_tpu_torch serves float32 only")
-    if a.get("packed_tf", False) or a.get("batch_fold", 1) != 1:
-        raise NotImplementedError("packed_tf / batch_fold are not ported")
+    if a.get("batch_fold", 1) != 1:
+        raise NotImplementedError("batch_fold is not ported")
     model = AVNet(
         n_src=a["n_src"],
         enc_dec_params=a["enc_dec_params"],
@@ -80,6 +80,7 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
         video_bn_params=a.get("video_bn_params", {}),
         video_params=a.get("video_params", {}),
         fusion_params=a.get("fusion_params", {}),
+        packed_tf=a.get("packed_tf", False),
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -1,3 +1,4 @@
-"""Datasets (counterpart of ``rtfs_tpu.data``): the synthetic set only."""
+"""Data (counterpart of ``rtfs_tpu.data``): the synthetic set, the mouth
+preprocessing (``transforms``) and WAV files (``wav``)."""
 
 from .synthetic import SyntheticAVDataset  # noqa: F401

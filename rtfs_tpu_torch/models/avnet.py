@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..ops import packed_tf as P
 from ..ops import stft as stft_ops
 from . import layers as L
 from .fusion_layers import ATTNFusionCell
@@ -193,12 +194,21 @@ class RefinementModule(nn.Module):
 class AVNet(nn.Module):
     """Top model (reference ``tdavnet.py:14-108``) for STFT encoder/decoder
     configs. ``forward(audio_mixture (B, L), mouth_embedding (B, T2, C2) or
-    None) -> (B, n_src, L)``."""
+    None) -> (B, n_src, L)``.
+
+    ``packed_tf`` (settable on a built model, as ``inference.py
+    --packed-tf`` sets it) runs the refinement module inside
+    ``packed_scope``: each 2-D stride-2 TDANet block's full-resolution
+    segment goes through the packed-TF kernels K5-K9. Parameters and the
+    ``state_dict`` are the same either way; serving only (the packed
+    backward is not ported to CUDA)."""
 
     def __init__(self, n_src, enc_dec_params, audio_bn_params, audio_params,
                  mask_generation_params, pretrained_vout_chan=-1,
-                 video_bn_params=None, video_params=None, fusion_params=None):
+                 video_bn_params=None, video_params=None, fusion_params=None,
+                 packed_tf=False):
         super().__init__()
+        self.packed_tf = bool(packed_tf)
         video_bn_params = dict(video_bn_params or {})
         edp = dict(enc_dec_params)
         enc_type, dec_type = edp.pop("encoder_type"), edp.pop("decoder_type")
@@ -247,6 +257,7 @@ class AVNet(nn.Module):
         video = None
         if mouth_embedding is not None:
             video = self.video_bottleneck(mouth_embedding.transpose(1, 2))
-        refined = self.refinement_module(audio, video)
+        with P.packed_scope(self.packed_tf):
+            refined = self.refinement_module(audio, video)
         separated = self.mask_generator(refined, embedding)
         return self.decoder(separated, length)

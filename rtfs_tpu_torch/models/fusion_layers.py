@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import convops
+from ..ops import packed_tf as P
 from . import layers as L
 
 
@@ -35,6 +36,18 @@ class InjectionMultiSum(nn.Module):
     def forward(self, local_features, global_features):
         new_shape = local_features.shape[2:]
         local_emb = self.local_embedding(local_features)
+        if isinstance(local_features, P.PackedTF):
+            # packed full-res local + rank-4 pooled global: embed and gate
+            # at the pooled resolution (the reference's prod(new) >
+            # prod(old) branch), then nearest-upsample into the packed map
+            if math.prod(new_shape) <= math.prod(global_features.shape[2:]):
+                raise NotImplementedError(
+                    "packed_tf: the global map must be the smaller one")
+            global_emb = P.spatial_up_to(
+                self.global_embedding(global_features), *new_shape)
+            gate = P.spatial_up_to(self.global_gate(global_features),
+                                   *new_shape)
+            return local_emb * gate + global_emb
         if math.prod(new_shape) > math.prod(global_features.shape[2:]):
             global_emb = convops.interp_nearest(
                 self.global_embedding(global_features), new_shape)

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import convops
+from ..ops import packed_tf as P
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
@@ -96,6 +97,10 @@ class GlobalLayerNorm(nn.Module):
         self.norm = nn.GroupNorm(1, features, eps=eps)
 
     def forward(self, x):
+        if isinstance(x, P.PackedTF):
+            return P.PackedTF(P.gln_packed(x.data, self.norm.weight,
+                                           self.norm.bias, x.f, self.norm.eps),
+                              x.f, x.c)
         var, mean = torch.var_mean(x.reshape(x.shape[0], -1), dim=1,
                                    unbiased=False)
         shape = (-1,) + (1,) * (x.ndim - 1)
@@ -237,9 +242,60 @@ class Conv(nn.Module):
             uniform_(self.bias, 1.0 / math.sqrt(fan_in), generator)
 
     def forward(self, x):
+        if isinstance(x, (P.PackedTF, P.PackRequest)):
+            return self._packed_call(x)
         return convops.conv(x, self.weight, stride=self.stride,
                             padding=self.padding, dilation=self.dilation,
                             groups=self.groups, bias=self.bias)
+
+    def _packed_call(self, x):
+        """Packed-TF dispatch (``rtfs_tpu/models/layers.py:_packed_call``):
+        the same parameters through the packed kernels, for exactly the
+        convs of the RTFS block's full-resolution segment."""
+        out_chan, kernel = self.weight.shape[0], tuple(self.weight.shape[2:])
+        in_chan = self.weight.shape[1] * self.groups
+        stride = self.stride
+        stride = stride[0] if hasattr(stride, "__len__") else stride
+        if self.dilation not in (1, (1, 1)):
+            raise NotImplementedError("packed_tf: dilation unsupported")
+        pointwise = (len(kernel) == 2 and self.groups == 1
+                     and all(k == 1 for k in kernel) and stride == 1)
+        w1x1 = self.weight[:, :, 0, 0].t() if pointwise else None
+        if isinstance(x, P.PackRequest):
+            # packed-world entry: 1x1 dense projection, emit packed
+            if not pointwise:
+                raise NotImplementedError(
+                    f"packed_tf: a packed projection needs a 2-D 1x1 dense "
+                    f"conv, got k={kernel} groups={self.groups}")
+            out = P.pw_proj_packed(x.data, w1x1, self.bias)
+            return P.PackedTF(out, x.shape[3], out_chan)
+        if pointwise:
+            # 1x1 dense on a packed map: packed-world exit to rank-4
+            return P.pw_unproj_packed(x.data, w1x1, self.bias, x.f)
+        if (self.groups == in_chan == out_chan and len(kernel) == 2
+                and all(k > 1 for k in kernel)):
+            # depthwise kT x kF conv (stride 1 'same' or stride-2 int pad)
+            kt, kf = kernel
+            if self.padding == "same":
+                pads_t, pads_f = convops.same_pads(kernel, (1, 1))
+            elif isinstance(self.padding, int):
+                pads_t = pads_f = (self.padding, self.padding)
+            else:
+                raise NotImplementedError(f"packed_tf: padding {self.padding}")
+            out = P.dw_conv_packed(x.data, self.weight[:, 0].permute(1, 2, 0),
+                                   self.bias, x.f, x.c, pads_t, pads_f)
+            _, _, t, f = x.shape
+            t_conv, f_conv = P.dw_geometry(t, f, kt, kf, pads_t, pads_f)
+            y = P.PackedTF(out, f_conv, x.c)
+            if stride == 1:
+                return y
+            if stride == 2:
+                # torch output size, then select conv_s1[2 i]
+                return P.dw_stride2_from(y, (t_conv - 1) // 2 + 1,
+                                         (f_conv - 1) // 2 + 1)
+        raise NotImplementedError(
+            f"packed_tf: conv k={kernel} groups={self.groups} "
+            f"stride={self.stride} has no packed lowering")
 
 
 class ConvTranspose(nn.Module):
@@ -305,7 +361,35 @@ class ConvNormAct(nn.Module):
         )
 
     def forward(self, x):
-        return self.full_layer(x)
+        if not isinstance(x, (P.PackedTF, P.PackRequest)):
+            return self.full_layer(x)
+        for layer in self.full_layer:
+            x = _packed_apply(layer, x)
+        return x
+
+
+# activations that act elementwise, so on a packed map's data directly
+_ELEMENTWISE = (nn.ReLU, nn.Tanh, nn.Sigmoid, nn.GELU, nn.SiLU)
+
+
+def _packed_apply(layer: nn.Module, x):
+    """One slot of a ConvNormAct on a packed map or a pack request
+    (``rtfs_tpu/models/layers.py:_apply_norm`` / ``_apply_act``): the conv
+    and gLN take it, an elementwise activation runs on the data, anything
+    else raises. A plain tensor (after a packed-world exit) goes through
+    as usual."""
+    if not isinstance(x, (P.PackedTF, P.PackRequest)) or isinstance(
+            layer, (nn.Identity, Conv)):
+        return layer(x)
+    if isinstance(x, P.PackedTF):
+        if isinstance(layer, GlobalLayerNorm):
+            return layer(x)
+        if isinstance(layer, _ELEMENTWISE) or (
+                isinstance(layer, nn.PReLU) and layer.num_parameters == 1):
+            return P.PackedTF(layer(x.data), x.f, x.c)
+    raise NotImplementedError(
+        f"packed_tf: {type(layer).__name__} on a "
+        f"{'packed map' if isinstance(x, P.PackedTF) else 'pack request'}")
 
 
 class ConvActNorm(nn.Module):

@@ -15,6 +15,7 @@ from typing import Any, Dict
 import torch.nn as nn
 
 from ..ops import convops
+from ..ops import packed_tf as P
 from . import layers as L
 from .attention import GlobalAttention, MultiHeadSelfAttention2D
 from .fusion_layers import InjectionMultiSum
@@ -50,6 +51,7 @@ class TDANetBlock(nn.Module):
                  layers=(), is2d=False):
         super().__init__()
         depth = upsampling_depth
+        self.kernel_size, self.stride, self.is2d = kernel_size, stride, is2d
         self.gateway = L.ConvNormAct(in_chan, in_chan, 1, groups=in_chan,
                                      act_type=act_type, is2d=is2d)
         self.projection = L.ConvNormAct(in_chan, hid_chan, 1, is2d=is2d)
@@ -72,13 +74,22 @@ class TDANetBlock(nn.Module):
 
     def forward(self, x):
         residual = self.gateway(x)
-        downsampled = [self.downsample_layers[0](self.projection(residual))]
+        # Packed-TF layout (ops/packed_tf.py), inside AVNet's packed_scope:
+        # the full-resolution segment runs on packed (B, T, F*C) maps,
+        # entered at the projection, left at the stride-2 downsample, the
+        # pool and the residual conv. Parameters are the same.
+        packed = (P.packed_enabled() and self.is2d
+                  and not isinstance(x, P.PackedTF)
+                  and self.kernel_size > 1 and self.stride == 2)
+        x_enc = self.projection(P.PackRequest(residual) if packed else residual)
+        downsampled = [self.downsample_layers[0](x_enc)]
         for layer in self.downsample_layers[1:]:
             downsampled.append(layer(downsampled[-1]))
 
         target = downsampled[-1].shape[2:]
-        global_features = sum(convops.adaptive_avg_pool(f, target)
-                              for f in downsampled)
+        global_features = sum(
+            P.adaptive_pool_from(f, *target) if isinstance(f, P.PackedTF)
+            else convops.adaptive_avg_pool(f, target) for f in downsampled)
         for layer in self.globalatt:
             global_features = layer(global_features)
 

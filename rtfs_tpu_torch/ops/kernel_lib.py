@@ -25,13 +25,14 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-SOURCES = ("sru_fused", "convt_tm")
+SOURCES = ("sru_fused", "convt_tm", "packed_tf")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points per library: (pointer args, int args); every function
 # also takes the stream last and returns cudaGetLastError(). A pointer may
-# be None (NULL) where the source says so (the forwards' c outputs).
+# be None (NULL) where the source says so (the forwards' c outputs, the
+# packed kernels' bias).
 _SIGNATURES = {
     "sru_fused": {
         "sru_dual_recurrence_fwd": (7, 3),
@@ -42,6 +43,13 @@ _SIGNATURES = {
     "convt_tm": {
         "convt1d_ola_tm_fwd": (3, 5),
         "convt1d_ola_tm_bwd": (5, 6),
+    },
+    "packed_tf": {
+        "dw_conv_packed_fwd": (4, 13),
+        "pw_proj_packed_fwd": (4, 6),
+        "pw_unproj_packed_fwd": (4, 6),
+        "spatial_down_packed_fwd": (6, 8),
+        "spatial_up_packed_fwd": (6, 8),
     },
 }
 

@@ -1,0 +1,513 @@
+"""Packed time-frequency layout: kernels K5-K9 and the packed carriers.
+
+Counterpart of ``rtfs_tpu/ops/packed_tf.py`` (forward). A packed map is
+``(B, T, F*C)`` with the channel fastest, exactly the JAX packed layout;
+the port's rank-4 maps are channels-first ``(B, C, T, F)``, so the rank-4
+side of K6-K9 is that layout. On this card the packed form is plain
+channels-last storage: the TPU's reason for it (64-channel minor dims
+padded to 128 lanes) does not exist here, and the port keeps it because
+the JAX package's packed path runs through these ops.
+
+- ``dw_conv_packed`` (K5): depthwise kT x kF conv, packed -> packed,
+  stride 1, static (lo, hi) pads; CUDA ``dw_conv_packed_fwd``.
+- ``pw_proj_packed`` (K6): 1x1 dense conv, rank-4 -> packed, + bias; CUDA
+  ``pw_proj_packed_fwd``.
+- ``pw_unproj_packed`` (K7): 1x1 dense conv, packed -> rank-4, + bias;
+  CUDA ``pw_unproj_packed_fwd``.
+- ``spatial_down_packed`` (K8): separable static map, packed -> rank-4
+  (adaptive average pool, stride-2 select); CUDA
+  ``spatial_down_packed_fwd``.
+- ``spatial_up_packed`` (K9): separable static map, rank-4 -> packed
+  (torch-nearest upsample); CUDA ``spatial_up_packed_fwd``.
+
+On a CPU tensor each op runs its plain PyTorch version, which autograd
+differentiates. On a CUDA tensor it launches its kernel or raises; the
+packed backward (the weight-gradient kernels of ``packed_tf.py:305`` and
+``:533`` and the dx passes) is not ported, so a CUDA call that autograd
+would record raises ``NotImplementedError``. Serving runs under
+``torch.inference_mode()`` and never records.
+
+The model layers dispatch on ``PackedTF`` (a packed map flowing through a
+module) and ``PackRequest`` (a rank-4 map handed to the 1x1 projection
+that enters the packed world), inside ``packed_scope(True)``, which
+``AVNet`` opens when its ``packed_tf`` switch is on.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import kernel_lib
+
+# ---------------------------------------------------------------------------
+# Layout helpers
+# ---------------------------------------------------------------------------
+
+
+def pack_tf(x4: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, F) -> packed (B, T, F*C)."""
+    b, c, t, f = x4.shape
+    return x4.permute(0, 2, 3, 1).reshape(b, t, f * c)
+
+
+def unpack_tf(xp: torch.Tensor, f: int, c: int) -> torch.Tensor:
+    """Packed (B, T, F*C) -> (B, C, T, F)."""
+    b, t, n = xp.shape
+    if n != f * c:
+        raise ValueError(f"unpack_tf: {n} columns are not F {f} x C {c}")
+    return xp.reshape(b, t, f, c).permute(0, 3, 1, 2)
+
+
+def gln_packed(xp, gamma, beta, f: int, eps: float = 1e-5):
+    """GlobalLayerNorm on a packed map: statistics over (T, F*C) of each
+    batch row (gLN's statistics), the per-channel affine broadcast over the
+    innermost C."""
+    b, t, n = xp.shape
+    c = n // f
+    var, mean = torch.var_mean(xp.reshape(b, -1), dim=1, unbiased=False)
+    scale = torch.rsqrt(var + eps).reshape(b, 1, 1, 1)
+    y = (xp.reshape(b, t, f, c) - mean.reshape(b, 1, 1, 1)) * scale
+    return (y * gamma + beta).reshape(b, t, n)
+
+
+def _check_serving(name: str, x, w=None, bias=None) -> None:
+    """Raise unless autograd would not record the call, x (and bias) are
+    contiguous float32 on one CUDA device, and w (read through its
+    strides) is float32 there too."""
+    given = [t for t in (x, w, bias) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+        raise NotImplementedError(
+            f"{name}: the packed-TF backward is not ported to CUDA (the "
+            "weight-gradient kernels of rtfs_tpu/ops/packed_tf.py:305 and "
+            ":533 and the dx passes); serve under torch.inference_mode() or "
+            "train with packed_tf off")
+    kernel_lib.check_cuda_f32(name, *[t for t in (x, bias) if t is not None])
+    if w is not None and (w.device != x.device or w.dtype != torch.float32):
+        raise TypeError(f"{name}: w must be float32 on {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# K5: depthwise conv, packed -> packed
+# ---------------------------------------------------------------------------
+#
+# out[b, t, f*C + c] = bias[c] + sum_{dt, df} w[dt, df, c]
+#                      * x[b, t + dt - pt_lo, (f + df - pf_lo)*C + c]
+# with x = 0 outside [0, T_in) x [0, F_in).
+
+
+def dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f):
+    """Output (T, F) of a stride-1 conv with (lo, hi) pads."""
+    return (t_in + pads_t[0] + pads_t[1] - kt + 1,
+            f_in + pads_f[0] + pads_f[1] - kf + 1)
+
+
+def dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f):
+    """Explicit tap loop over the zero-padded (B, T, F, C) view."""
+    b, t_in, _ = xp.shape
+    kt, kf, _ = w.shape
+    t_out, f_out = dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f)
+    x4 = F.pad(xp.reshape(b, t_in, f_in, c),
+               (0, 0, pads_f[0], pads_f[1], pads_t[0], pads_t[1]))
+    out = 0.0
+    for dt in range(kt):
+        for df in range(kf):
+            out = out + w[dt, df] * x4[:, dt:dt + t_out, df:df + f_out]
+    if bias is not None:
+        out = out + bias
+    return out.reshape(b, t_out, f_out * c)
+
+
+def dw_conv_packed(xp, w, bias, f_in: int, c: int, pads_t, pads_f):
+    """Depthwise conv on packed (B, T_in, F_in*C), stride 1.
+
+    Args:
+      xp: packed map.
+      w: (kT, kF, C) taps (a torch depthwise weight (C, 1, kT, kF) is
+        ``weight[:, 0].permute(1, 2, 0)``; any strides).
+      bias: (C,) or None.
+      pads_t, pads_f: (lo, hi) zero pads (torch 'same' for k 4 is (1, 2)).
+
+    Returns:
+      packed (B, T_out, F_out*C) with torch Conv2d's output sizes.
+    """
+    kt, kf, cw = w.shape
+    if cw != c or xp.shape[2] != f_in * c:
+        raise ValueError(f"dw_conv_packed: x {tuple(xp.shape)}, F {f_in}, "
+                         f"C {c}, w {tuple(w.shape)}")
+    if xp.device.type == "cpu":
+        return dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f)
+    _check_serving("dw_conv_packed", xp, w, bias)
+    b, t_in, _ = xp.shape
+    t_out, f_out = dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f)
+    if min(b, t_out, f_out, c) <= 0:
+        raise ValueError(f"dw_conv_packed: empty output {t_out} x {f_out}")
+    out = torch.empty(b, t_out, f_out * c, device=xp.device)
+    kernel_lib.launch(
+        "packed_tf", "dw_conv_packed_fwd", xp.device,
+        xp.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        b, t_in, f_in, c, t_out, f_out, kt, kf, pads_t[0], pads_f[0],
+        *w.stride(),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: 1x1 dense convs, rank-4 <-> packed
+# ---------------------------------------------------------------------------
+
+
+def pw_proj_packed_plain(x4, w, bias):
+    b, _, t, f = x4.shape
+    out = torch.einsum("bitf,io->btfo", x4, w)
+    if bias is not None:
+        out = out + bias
+    return out.reshape(b, t, f * w.shape[1])
+
+
+def pw_unproj_packed_plain(xp, w, bias, f: int):
+    b, t, n = xp.shape
+    out = torch.einsum("btfi,io->botf", xp.reshape(b, t, f, n // f), w)
+    if bias is not None:
+        out = out + bias[:, None, None]
+    return out
+
+
+def _pw_launch(fn, x, w, bias, m, k, n, out):
+    kernel_lib.launch(
+        "packed_tf", fn, x.device, x.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        x.shape[0], m, k, n, *w.stride())
+    return out
+
+
+def pw_proj_packed(x4, w, bias):
+    """1x1 dense conv (B, Ci, T, F) x (Ci, Co) -> packed (B, T, F*Co).
+
+    ``w`` may be any strided (Ci, Co) view (a torch weight (Co, Ci, 1, 1)
+    gives ``weight[:, :, 0, 0].t()``)."""
+    b, ci, t, f = x4.shape
+    if w.shape[0] != ci:
+        raise ValueError(f"pw_proj_packed: x {tuple(x4.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if x4.device.type == "cpu":
+        return pw_proj_packed_plain(x4, w, bias)
+    _check_serving("pw_proj_packed", x4, w, bias)
+    co = w.shape[1]
+    out = torch.empty(b, t, f * co, device=x4.device)
+    return _pw_launch("pw_proj_packed_fwd", x4, w, bias, t * f, ci, co, out)
+
+
+def pw_unproj_packed(xp, w, bias, f: int):
+    """1x1 dense conv packed (B, T, F*Ci) x (Ci, Co) -> (B, Co, T, F)."""
+    b, t, n = xp.shape
+    ci, co = w.shape
+    if n != f * ci:
+        raise ValueError(f"pw_unproj_packed: x {tuple(xp.shape)}, F {f}, w "
+                         f"{tuple(w.shape)}")
+    if xp.device.type == "cpu":
+        return pw_unproj_packed_plain(xp, w, bias, f)
+    _check_serving("pw_unproj_packed", xp, w, bias)
+    out = torch.empty(b, co, t, f, device=xp.device)
+    return _pw_launch("pw_unproj_packed_fwd", xp, w, bias, t * f, ci, co, out)
+
+
+# ---------------------------------------------------------------------------
+# K8 / K9: separable static spatial maps
+# ---------------------------------------------------------------------------
+#
+# down: y[b, c, t2, f2] = sum_t M[t2, t] sum_i fw[f2, i] x[b, t, fs[f2, i]*C + c]
+# up:   y[b, t, f*C + c] = sum_t2 M[t, t2] sum_i fw[f, i] x[b, c, t2, fs[f, i]]
+
+
+def _nearest_axis_idx(in_sz: int, out_sz: int) -> np.ndarray:
+    # torch computes src = floor(float32(i) * (float32(in)/float32(out)))
+    # in single precision (upsample_nearest CPU/CUDA kernels); double
+    # precision floor(i * in/out) is 1 ulp off at exact multiples
+    # (e.g. 3280->25 at i=15). Match torch bit-for-bit.
+    scale = np.float32(in_sz) / np.float32(out_sz)
+    idx = np.floor(
+        np.arange(out_sz, dtype=np.float32) * scale
+    ).astype(np.int64)
+    return np.minimum(idx, in_sz - 1)
+
+
+def _adaptive_pool_matrix(in_sz: int, out_sz: int) -> np.ndarray:
+    """(out, in) averaging matrix with torch adaptive_avg_pool boundaries."""
+    m = np.zeros((out_sz, in_sz), dtype=np.float32)
+    for o in range(out_sz):
+        start = (o * in_sz) // out_sz
+        end = -((-(o + 1) * in_sz) // out_sz)  # ceil((o+1)*in/out)
+        m[o, start:end] = 1.0 / (end - start)
+    return m
+
+
+def nearest_up_maps(t_in: int, t_out: int, f_in: int, f_out: int):
+    """torch F.interpolate(nearest) as (M_T, fs, fw) for spatial_up."""
+    ti = _nearest_axis_idx(t_in, t_out)
+    m = np.zeros((t_out, t_in), np.float32)
+    m[np.arange(t_out), ti] = 1.0
+    fj = _nearest_axis_idx(f_in, f_out)
+    fs = fj.reshape(-1, 1).astype(np.int32)
+    fw = np.ones((f_out, 1), np.float32)
+    return m, fs, fw
+
+
+def adaptive_pool_maps(t_in: int, t_out: int, f_in: int, f_out: int):
+    """torch adaptive_avg_pool2d as (M_T, fs, fw) for spatial_down."""
+    m = _adaptive_pool_matrix(t_in, t_out)
+    buckets = []
+    for o in range(f_out):
+        start = (o * f_in) // f_out
+        end = -((-(o + 1) * f_in) // f_out)
+        buckets.append([(i, 1.0 / (end - start)) for i in range(start, end)])
+    nnz = max(len(b) for b in buckets)
+    fs = np.zeros((f_out, nnz), np.int32)
+    fw = np.zeros((f_out, nnz), np.float32)
+    for o, b in enumerate(buckets):
+        for i, (src, w) in enumerate(b):
+            fs[o, i] = src
+            fw[o, i] = w
+    return m, fs, fw
+
+
+def stride2_select_maps(t_conv: int, t_out: int, f_conv: int, f_out: int):
+    """Row/block selectors turning a stride-1 conv output into the
+    stride-2 conv output (out[i] = conv_s1[2 i])."""
+    m = np.zeros((t_out, t_conv), np.float32)
+    m[np.arange(t_out), 2 * np.arange(t_out)] = 1.0
+    fs = (2 * np.arange(f_out)).reshape(-1, 1).astype(np.int32)
+    fw = np.ones((f_out, 1), np.float32)
+    return m, fs, fw
+
+
+class SpatialMap:
+    """A separable static map: the dense T side ``m`` (T_out, T_in) and the
+    F side as (F_out, nnz) source blocks ``fs`` and weights ``fw``, as the
+    JAX builders give them. The kernels take the T side in the same
+    compact form, ``ts``/``tw`` (T_out, nnz) from the rows of ``m``; the
+    tensors are made once per device and kept."""
+
+    def __init__(self, m, fs, fw):
+        self.m = np.asarray(m, np.float32)
+        self.fs = np.asarray(fs, np.int32)
+        self.fw = np.asarray(fw, np.float32)
+        self._on = {}
+
+    @property
+    def t_in(self) -> int:
+        return self.m.shape[1]
+
+    @property
+    def t_out(self) -> int:
+        return self.m.shape[0]
+
+    @property
+    def f_out(self) -> int:
+        return self.fs.shape[0]
+
+    def compact_t(self):
+        """(ts, tw) (T_out, nnz): the nonzero entries of each row of m,
+        padded with weight-0 entries."""
+        rows = [np.flatnonzero(r) for r in self.m]
+        nnz = max(1, max(len(r) for r in rows))
+        ts = np.zeros((self.t_out, nnz), np.int32)
+        tw = np.zeros((self.t_out, nnz), np.float32)
+        for o, r in enumerate(rows):
+            ts[o, :len(r)] = r
+            tw[o, :len(r)] = self.m[o, r]
+        return ts, tw
+
+    def tensors(self, device) -> dict:
+        key = str(torch.device(device))
+        if key not in self._on:
+            ts, tw = self.compact_t()
+            self._on[key] = {
+                name: torch.from_numpy(a).to(device)
+                for name, a in (("m", self.m), ("ts", ts), ("tw", tw),
+                                ("fs", self.fs), ("fw", self.fw))}
+        return self._on[key]
+
+
+@functools.lru_cache(maxsize=None)
+def cached_map(kind: str, t_in: int, t_out: int, f_in: int,
+               f_out: int) -> SpatialMap:
+    """The map of one geometry, built once: ``kind`` is "pool", "select"
+    or "nearest"."""
+    build = {"pool": adaptive_pool_maps, "select": stride2_select_maps,
+             "nearest": nearest_up_maps}[kind]
+    return SpatialMap(*build(t_in, t_out, f_in, f_out))
+
+
+def _f_side(x, fs, fw, axis):
+    """sum_i fw[o, i] * x[..., fs[o, i], ...] along ``axis`` (an F axis)."""
+    g = x.index_select(axis, fs.reshape(-1).long())
+    shape = list(x.shape)
+    shape[axis:axis + 1] = list(fs.shape)
+    g = g.reshape(shape)
+    wshape = [1] * len(shape)
+    wshape[axis:axis + 2] = list(fw.shape)
+    return (g * fw.reshape(wshape)).sum(axis + 1)
+
+
+def spatial_down_packed_plain(xp, smap: SpatialMap, c: int):
+    """F side by gather, T side by the dense M (einsum)."""
+    b, t, n = xp.shape
+    tens = smap.tensors(xp.device)
+    col = _f_side(xp.reshape(b, t, n // c, c), tens["fs"], tens["fw"], 2)
+    return torch.einsum("st,btfc->bcsf", tens["m"], col)
+
+
+def spatial_up_packed_plain(x4, smap: SpatialMap):
+    b, c = x4.shape[:2]
+    tens = smap.tensors(x4.device)
+    y = torch.einsum("ts,bcsu->btuc", tens["m"], x4)
+    y = _f_side(y, tens["fs"], tens["fw"], 2)  # (B, T, F, C)
+    return y.reshape(b, smap.t_out, smap.f_out * c)
+
+
+def _spatial_launch(fn, x, smap, out, t_in, f_in, c):
+    tens = smap.tensors(x.device)
+    kernel_lib.launch(
+        "packed_tf", fn, x.device, x.data_ptr(), tens["ts"].data_ptr(),
+        tens["tw"].data_ptr(), tens["fs"].data_ptr(), tens["fw"].data_ptr(),
+        out.data_ptr(), x.shape[0], t_in, f_in, c, smap.t_out, smap.f_out,
+        tens["ts"].shape[1], tens["fs"].shape[1])
+    return out
+
+
+def spatial_down_packed(xp, smap: SpatialMap, c: int):
+    """Packed (B, T, F*C) -> rank-4 (B, C, T2, F2) through ``smap``."""
+    b, t, n = xp.shape
+    if t != smap.t_in or n % c or int(smap.fs.max()) >= n // c:
+        raise ValueError(f"spatial_down_packed: x {tuple(xp.shape)}, C {c}, "
+                         f"map T {smap.t_in}")
+    if xp.device.type == "cpu":
+        return spatial_down_packed_plain(xp, smap, c)
+    _check_serving("spatial_down_packed", xp)
+    out = torch.empty(b, c, smap.t_out, smap.f_out, device=xp.device)
+    return _spatial_launch("spatial_down_packed_fwd", xp, smap, out, t,
+                           n // c, c)
+
+
+def spatial_up_packed(x4, smap: SpatialMap):
+    """Rank-4 (B, C, T2, F2) -> packed (B, T, F*C) through ``smap``."""
+    b, c, t2, f2 = x4.shape
+    if t2 != smap.t_in or int(smap.fs.max()) >= f2:
+        raise ValueError(f"spatial_up_packed: x {tuple(x4.shape)}, map T "
+                         f"{smap.t_in}")
+    if x4.device.type == "cpu":
+        return spatial_up_packed_plain(x4, smap)
+    _check_serving("spatial_up_packed", x4)
+    out = torch.empty(b, smap.t_out, smap.f_out * c, device=x4.device)
+    return _spatial_launch("spatial_up_packed_fwd", x4, smap, out, t2, f2, c)
+
+
+# ---------------------------------------------------------------------------
+# Model integration: the packed carriers and the scope
+# ---------------------------------------------------------------------------
+
+_PACKED_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def packed_scope(on: bool):
+    """Enable the packed-TF layout for module calls in scope."""
+    old = getattr(_PACKED_STATE, "on", False)
+    _PACKED_STATE.on = bool(on)
+    try:
+        yield
+    finally:
+        _PACKED_STATE.on = old
+
+
+def packed_enabled() -> bool:
+    return getattr(_PACKED_STATE, "on", False)
+
+
+class PackedTF:
+    """A packed (B, T, F*C) map carrying its (F, C) split.
+
+    ``.shape`` is the port's logical (B, C, T, F), so module code comparing
+    ``shape[2:]`` works unchanged; ``+``, ``*`` and ``-`` with another
+    PackedTF of the same geometry, or a number, act on the data.
+    """
+
+    __slots__ = ("data", "f", "c")
+
+    def __init__(self, data, f, c):
+        self.data = data
+        self.f = int(f)
+        self.c = int(c)
+
+    @property
+    def shape(self):
+        b, t, _ = self.data.shape
+        return torch.Size((b, self.c, t, self.f))
+
+    def unpack(self):
+        return unpack_tf(self.data, self.f, self.c)
+
+    def _binop(self, other, op):
+        if isinstance(other, PackedTF):
+            if (other.f, other.c) != (self.f, self.c):
+                raise ValueError("PackedTF geometries differ")
+            other = other.data
+        elif not isinstance(other, (int, float)):
+            raise TypeError(f"PackedTF with {type(other).__name__}: unpack "
+                            "first")
+        return PackedTF(op(self.data, other), self.f, self.c)
+
+    def __add__(self, other):
+        return self._binop(other, lambda a, b: a + b)
+
+    __radd__ = __add__
+
+    def __mul__(self, other):
+        return self._binop(other, lambda a, b: a * b)
+
+    __rmul__ = __mul__
+
+    def __sub__(self, other):
+        return self._binop(other, lambda a, b: a - b)
+
+
+class PackRequest:
+    """Marker: a rank-4 input to a 1x1 projection that should emit packed."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data):
+        self.data = data
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+
+def spatial_up_to(x4, t_out: int, f_out: int) -> PackedTF:
+    """torch-nearest upsample of a rank-4 pooled map into a packed map."""
+    _, c, t2, f2 = x4.shape
+    smap = cached_map("nearest", t2, t_out, f2, f_out)
+    return PackedTF(spatial_up_packed(x4, smap), f_out, c)
+
+
+def adaptive_pool_from(xp: PackedTF, t_out: int, f_out: int):
+    """torch adaptive_avg_pool2d of a packed map -> rank-4 pooled map."""
+    _, c, t, f = xp.shape
+    return spatial_down_packed(xp.data, cached_map("pool", t, t_out, f, f_out),
+                               c)
+
+
+def dw_stride2_from(xp_conv: PackedTF, t_out: int, f_out: int):
+    """Select the stride-2 conv output from a stride-1 packed conv
+    (out[i] = conv_s1[2 i] when both pad by dilation*(k-1)//2)."""
+    _, c, t_conv, f_conv = xp_conv.shape
+    smap = cached_map("select", t_conv, t_out, f_conv, f_out)
+    return spatial_down_packed(xp_conv.data, smap, c)

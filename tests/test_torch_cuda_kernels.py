@@ -173,3 +173,115 @@ def test_dual_path_rnn_card_matches_cpu(dev):
                                    "sru_hidden_layer_fwd": 2,
                                    "convt1d_ola_tm_fwd": 1}
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# ------------------------------------------------------------- K5-K9
+# one ragged small shape and the packed serving shapes (2 s of audio: STFT
+# 251 x 129, hid 64 channels, bottleneck 256, pooled 125 x 64)
+PACKED_SHAPES = {"ragged": (2, 13, 7, 4, 6), "serving": (1, 251, 129, 64, 256)}
+
+
+@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+@pytest.mark.parametrize("pads,with_bias", [((1, 2), True), ((1, 1), True),
+                                            ((1, 2), False)])
+def test_k5_matches_plain(dev, shape, pads, with_bias):
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, _ = PACKED_SHAPES[shape]
+    rng = np.random.default_rng(6)
+    xp = _t(rng, (b, t, f * c), dev)
+    weight = _t(rng, (c, 1, 4, 4), dev, 0.25)  # torch depthwise layout
+    w = weight[:, 0].permute(1, 2, 0)          # (kT, kF, C), strided
+    bias = _t(rng, (c,), dev) if with_bias else None
+    got = P.dw_conv_packed(xp, w, bias, f, c, pads, pads)
+    want = P.dw_conv_packed_plain(xp, w, bias, f, c, pads, pads)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+def test_k6_k7_match_plain(dev, shape):
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PACKED_SHAPES[shape]
+    rng = np.random.default_rng(7)
+    x4 = _t(rng, (b, ci, t, f), dev)
+    w_in = _t(rng, (c, ci, 1, 1), dev, ci ** -0.5)[:, :, 0, 0].t()
+    b_in = _t(rng, (c,), dev)
+    got = P.pw_proj_packed(x4, w_in, b_in)
+    torch.testing.assert_close(got, P.pw_proj_packed_plain(x4, w_in, b_in),
+                               atol=1e-4, rtol=0)
+    w_out = _t(rng, (ci, c, 1, 1), dev, c ** -0.5)[:, :, 0, 0].t()
+    back = P.pw_unproj_packed(got, w_out, None, f)
+    torch.testing.assert_close(back, P.pw_unproj_packed_plain(got, w_out,
+                                                              None, f),
+                               atol=1e-4, rtol=0)
+    assert back.shape == x4.shape
+
+
+@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+def test_k8_k9_match_plain(dev, shape):
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, _ = PACKED_SHAPES[shape]
+    t2, f2 = (t - 2) // 2 + 1, (f - 2) // 2 + 1  # the stride-2 k-4 conv
+    rng = np.random.default_rng(8)
+    xp = _t(rng, (b, t, f * c), dev)
+    pool = P.cached_map("pool", t, t2, f, f2)
+    torch.testing.assert_close(P.spatial_down_packed(xp, pool, c),
+                               P.spatial_down_packed_plain(xp, pool, c),
+                               atol=1e-5, rtol=0)
+    xs = _t(rng, (b, t - 1, (f - 1) * c), dev)  # a (1, 1)-padded k-4 conv
+    sel = P.cached_map("select", t - 1, t2, f - 1, f2)
+    torch.testing.assert_close(P.spatial_down_packed(xs, sel, c),
+                               P.spatial_down_packed_plain(xs, sel, c),
+                               atol=0, rtol=0)
+    x4 = _t(rng, (b, c, t2, f2), dev)
+    up = P.cached_map("nearest", t2, t, f2, f)
+    torch.testing.assert_close(P.spatial_up_packed(x4, up),
+                               P.spatial_up_packed_plain(x4, up),
+                               atol=0, rtol=0)
+
+
+def test_packed_ops_refuse_autograd_on_the_card(dev):
+    """The packed backward is not ported: a CUDA call autograd would record
+    raises, and a serving call does not."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    rng = np.random.default_rng(9)
+    xp = _t(rng, (1, 9, 5 * 4), dev).requires_grad_()
+    w = _t(rng, (3, 3, 4), dev)
+    with pytest.raises(NotImplementedError, match="backward"):
+        P.dw_conv_packed(xp, w, None, 5, 4, (1, 1), (1, 1))
+    with pytest.raises(NotImplementedError, match="backward"):
+        P.spatial_down_packed(xp, P.cached_map("pool", 9, 4, 5, 2), 4)
+    with torch.inference_mode():
+        P.dw_conv_packed(xp, w, None, 5, 4, (1, 1), (1, 1))
+    x4 = _t(rng, (1, 6, 9, 5), dev)
+    wp = _t(rng, (6, 4), dev).requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        P.pw_proj_packed(x4, wp, None)
+
+
+def test_packed_tdanet_block_card_matches_cpu(dev):
+    """A packed TDANet block on the card (K5-K9 and the library's ops)
+    against the same block on the CPU (the plain versions)."""
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.separators import TDANetBlock
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    m = TDANetBlock(16, 8, kernel_size=4, upsampling_depth=2, is2d=True)
+    init_weights(m, torch.Generator().manual_seed(0))
+    m.eval()
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 16, 21, 17)).astype(np.float32))
+    with torch.no_grad(), P.packed_scope(True):
+        want = m(x)
+        kernel_lib.reset_launches()
+        got = m.to(dev)(x.to(dev)).cpu()
+    assert kernel_lib.LAUNCHES == {
+        "dw_conv_packed_fwd": 4, "pw_proj_packed_fwd": 1,
+        "pw_unproj_packed_fwd": 1, "spatial_down_packed_fwd": 2,
+        "spatial_up_packed_fwd": 4}
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
