@@ -50,8 +50,21 @@ one or outside the repository. Phases, any failure of which ends the run:
    its output must match the card's standard output and the CPU's packed
    output. Then ``separate_sample`` latency at batch 1 and 8, packed and
    standard in turns on one model, and one profiled batch-1 forward of
-   each; and a packed op on a CUDA tensor that requires grad must raise
-   ``NotImplementedError``.
+   each.
+9. Packed training (after phase 6): K5-wgrad ``dw_conv_packed_wgrad`` and
+   pw-wgrad ``pw_packed_wgrad`` at the packed training shapes (batch 4)
+   against their plain versions, twice (bit-identical), timed beside
+   bound, plain and one PyTorch call; each packed op's autograd Function
+   (dx, dW, db through the kernels) against autograd through its plain
+   forward on the same card inputs; one packed ``train_step`` at batch 1
+   with dropout 0, with cuDNN and with it off, through phase 6's gates
+   against phase 6's float64 and float32 CPU steps; then the train
+   system with ``audionet.packed_tf`` on and the standard one take
+   ``TRAIN_STEPS`` steps each at batch 4, in turns: every packed step
+   must launch exactly the counts ``packed_train_launches`` derives (and
+   K1/K2/K3 8/24/8 forward and backward), every loss be finite and the
+   parameters move; it prints ms per step of both, peak memory, and one
+   profiled packed step's device time, idle share and top kernels.
 
 The last lines are the ``kernels`` JSON object, the card line, and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and
@@ -60,6 +73,7 @@ matmuls before any comparison, so every float32 product is full float32.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -121,6 +135,14 @@ TRAIN_STEPS = 6
 PACKED_TOL = {"dw_conv_packed": 1e-5, "pw_proj_packed": 1e-4,
               "pw_unproj_packed": 1e-4, "spatial_down_packed": 1e-5,
               "spatial_up_packed": 0.0}
+# the packed weight gradients against their plain versions and the library
+# call, relative to max |dW|: sums of B*T*F = 129,516 products (bs 4) in
+# another order
+PACKED_WGRAD_REL_TOL = 1e-4
+# each packed op's Function backward (kernels) against autograd through its
+# plain forward on the same card inputs, relative to each output's max:
+# the same reductions as the forward and the weight gradients
+PACKED_FN_REL_TOL = 1e-4
 MOUTH_SIZE = 96  # raw mouth frames, center-cropped to 88 x 88
 
 
@@ -195,6 +217,27 @@ def packed_launches(conf) -> dict:
     return {"dw_conv_packed_fwd": 4 * r, "pw_proj_packed_fwd": r,
             "pw_unproj_packed_fwd": r, "spatial_down_packed_fwd": 2 * r,
             "spatial_up_packed_fwd": 4 * r}
+
+
+def packed_train_launches(conf) -> dict:
+    """Launches of each packed-TF C entry per packed train step, from the
+    preset: the forward's (``packed_launches``) and the backward's. Each K5
+    gets its dx (K5 on the flipped taps) and its dW (K5-wgrad); K6 and K7
+    each launch the other for their dx and pw-wgrad for their dW; K8's dx
+    is K9 and K9's is K8, through the transposed maps. Every packed op's
+    inputs need gradients (each comes from the block's parameters), so no
+    backward launch is skipped. tests/test_torch_packed_train.py holds it
+    against a train step."""
+    f = packed_launches(conf)
+    if not f:
+        return {}
+    pw = f["pw_proj_packed_fwd"] + f["pw_unproj_packed_fwd"]
+    maps = f["spatial_down_packed_fwd"] + f["spatial_up_packed_fwd"]
+    return {"dw_conv_packed_fwd": 2 * f["dw_conv_packed_fwd"],
+            "dw_conv_packed_wgrad": f["dw_conv_packed_fwd"],
+            "pw_proj_packed_fwd": pw, "pw_unproj_packed_fwd": pw,
+            "pw_packed_wgrad": pw,
+            "spatial_down_packed_fwd": maps, "spatial_up_packed_fwd": maps}
 
 
 def packed_geometry(conf, samples: int = SAMPLES) -> dict:
@@ -558,13 +601,11 @@ def serve_packed(conf, rng) -> dict:
 
 def packed_latency(conf, rng) -> None:
     """Phase 8, continued: ``separate_sample`` latency of one model on the
-    card, packed and standard in turns, at batch 1 and 8; one profiled
-    batch-1 forward of each; and the refusal of a packed op that autograd
-    would record on the card."""
+    card, packed and standard in turns, at batch 1 and 8, and one profiled
+    batch-1 forward of each."""
     from torch.profiler import ProfilerActivity, profile
 
     from rtfs_tpu_torch.config import build_avnet
-    from rtfs_tpu_torch.ops import packed_tf as P
     from rtfs_tpu_torch.utils.separator import separate_sample
 
     model = build_avnet(conf, device="cuda", seed=0)
@@ -611,14 +652,6 @@ def packed_latency(conf, rng) -> None:
                   f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
                   f"{e.key[:90]}")
 
-    x = torch.zeros(1, 9, 5 * 4, device="cuda", requires_grad=True)
-    try:
-        P.dw_conv_packed(x, torch.zeros(3, 3, 4, device="cuda"), None, 5, 4,
-                         (1, 1), (1, 1))
-    except NotImplementedError as e:
-        print(f"packed training on the card refused: {e}")
-    else:
-        raise AssertionError("a packed op recorded autograd on the card")
 
 
 def _max_err(got, want) -> tuple:
@@ -803,30 +836,51 @@ def _train_step_at(conf, batch, dev, dtype, cudnn=True) -> tuple:
     return loss, grads, stats, secs
 
 
-def compare_train_step(conf, batch) -> None:
-    """One train step at batch 1 with dropout 0 on the card (with cuDNN
-    and with it off) and on the CPU in float32, each held against the
-    CPU's float64 step, and the card's against the CPU's; a repeat of the
-    card step shows its run-to-run spread. The tolerances are at
-    ``TRAIN_GRAD_*``."""
+def _train_runs(conf, batch, runs) -> dict:
+    """``{run: _train_step_at(...)}`` for ``runs`` ``{run: (device, dtype,
+    cuDNN)}``, with dropout 0."""
     conf0 = _no_dropout(conf)
-    runs = {"card": ("cuda", torch.float32, True),
-            "card again": ("cuda", torch.float32, True),
-            "card, cuDNN off": ("cuda", torch.float32, False),
-            "cpu": ("cpu", torch.float32, True),
-            "cpu float64": ("cpu", torch.float64, True)}
     res = {}
     for run, (dev, dtype, cudnn) in runs.items():
         res[run] = _train_step_at(conf0, batch, dev, dtype, cudnn)
         print(f"training: {run} step at batch 1 (dropout 0) "
               f"loss={res[run][0]:.9f} in {res[run][3]:.3f} s")
-    loss64, g64, stats64, _ = res.pop("cpu float64")
+    return res
+
+
+def compare_train_step(conf, batch) -> dict:
+    """One train step at batch 1 with dropout 0 on the card (with cuDNN
+    and with it off) and on the CPU in float32, each held against the
+    CPU's float64 step, and the card's against the CPU's; a repeat of the
+    card step shows its run-to-run spread. The tolerances are at
+    ``TRAIN_GRAD_*``. Returns the card's, the CPU's and the float64 steps
+    for the packed phase to reuse."""
+    res = _train_runs(conf, batch, {
+        "card": ("cuda", torch.float32, True),
+        "card again": ("cuda", torch.float32, True),
+        "card, cuDNN off": ("cuda", torch.float32, False),
+        "cpu": ("cpu", torch.float32, True),
+        "cpu float64": ("cpu", torch.float64, True)})
+    ref = {"float64": res.pop("cpu float64"), "cpu": res["cpu"],
+           "card": res["card"]}
+    spread = max((g - res["card again"][1][n]).abs().max().item()
+                 for n, g in res["card"][1].items())
+    hold_train_step(res, ref, "card", "card, cuDNN off")
+    print(f"training: card vs card max abs {spread:.3e}")
+    return ref
+
+
+def hold_train_step(res, ref, on: str, off: str) -> None:
+    """Hold the card's steps ``res[on]`` (cuDNN) and ``res[off]`` (cuDNN
+    off) and the CPU's float32 step ``ref["cpu"]`` against the float64
+    step ``ref["float64"]``: loss, gradients through the ``TRAIN_GRAD_*``
+    gates, and the card's BatchNorm statistics."""
+    loss64, g64, stats64, _ = ref["float64"]
+    res = {on: res[on], off: res[off], "cpu": ref["cpu"]}
     scale = {n: g.abs().max().item() for n, g in g64.items()}
     g_max = max(scale.values())
     err = {run: {n: (g - g64[n]).abs().max().item()
                  for n, g in r[1].items()} for run, r in res.items()}
-    spread = max((g - res["card again"][1][n]).abs().max().item()
-                 for n, g in res["card"][1].items())
 
     for run, r in res.items():
         rel_l2 = statistics.median(
@@ -841,49 +895,95 @@ def compare_train_step(conf, batch) -> None:
             raise AssertionError(f"train loss {run} {r[0]} vs float64 "
                                  f"{loss64}")
     gates = {
-        "card, cuDNN off": (
+        off: (
             lambda n: TRAIN_GRAD_CPU_FACTOR * err["cpu"][n]
             + TRAIN_GRAD_REL_TOL * scale[n] + 1e-5 * g_max,
             f"{TRAIN_GRAD_CPU_FACTOR} * cpu error + {TRAIN_GRAD_REL_TOL:.0e}"
             f" * max|grad| + 1e-5 * {g_max:.3e}"),
-        "card": (
+        on: (
             lambda n: TRAIN_GRAD_CUDNN_REL_TOL * scale[n] + 1e-5 * g_max,
             f"{TRAIN_GRAD_CUDNN_REL_TOL:.0e} * max|grad| + 1e-5 * "
             f"{g_max:.3e}"),
     }
-    gates["card vs cpu"] = gates["card"]
-    err["card vs cpu"] = {n: (g - res["cpu"][1][n]).abs().max().item()
-                          for n, g in res["card"][1].items()}
+    gates[f"{on} vs cpu"] = gates[on]
+    err[f"{on} vs cpu"] = {n: (g - res["cpu"][1][n]).abs().max().item()
+                           for n, g in res[on][1].items()}
     for run, (tol, text) in gates.items():
         rows = sorted(((err[run][n] / tol(n), n) for n in g64), reverse=True)
         for r, n in rows[:4]:
             print(f"training: {run}: grad {n}: max|grad|={scale[n]:.3e}, max "
                   f"abs error {err[run][n]:.3e} ({r:.3f} of the tolerance); "
-                  f"against float64: card {err['card'][n]:.3e}, card with "
-                  f"cuDNN off {err['card, cuDNN off'][n]:.3e}, cpu "
-                  f"{err['cpu'][n]:.3e}")
+                  f"against float64: {on} {err[on][n]:.3e}, {off} "
+                  f"{err[off][n]:.3e}, cpu {err['cpu'][n]:.3e}")
         print(f"training: {run}: {len(rows)} gradients, worst at "
               f"{rows[0][0]:.3f} of its tolerance ({text})")
         if rows[0][0] > 1.0:
             raise AssertionError(f"{rows[0][1]}: {run}: gradient error "
                                  f"{err[run][rows[0][1]]:.3e}")
-    print(f"training: card vs card max abs {spread:.3e}")
     stat_err = max((((s - stats64[n]).abs() / stats64[n].abs().clamp(min=1.0))
-                    .max().item() for n, s in res["card"][2].items()),
+                    .max().item() for n, s in res[on][2].items()),
                    default=math.inf)
-    print(f"training: {len(stats64)} BatchNorm statistics, card against "
+    print(f"training: {len(stats64)} BatchNorm statistics, {on} against "
           f"float64 max rel error {stat_err:.3e} (tol {TRAIN_STAT_TOL:.0e})")
     if not stat_err <= TRAIN_STAT_TOL:
         raise AssertionError(f"BatchNorm statistics: {len(stats64)} buffers, "
                              f"max rel error {stat_err:.3e}")
 
 
-def train(conf) -> dict:
-    """Phase 6: one train step on the card against float64 on the CPU, then
-    the train system's steps at batch 4; returns the launch counts of those
-    steps."""
+def profile_step(system, batch, generator, label: str,
+                 also=()) -> None:
+    """One more train step under the profiler: wall and device time, idle
+    share, the top kernels by device time and every kernel whose name
+    holds one of ``also``, with their sum."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.train_step(batch, generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+
+    kernels = sorted((e for e in prof.key_averages() if dev_us(e) > 0
+                      and e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    print(f"{label}: profiled step wall {wall_ms:.3f} ms, device "
+          f"{dev_ms:.3f} ms, idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
+    for e in kernels[:12]:
+        print(f"{label}: top kernel {dev_us(e) / 1e3:9.3f} ms "
+              f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<5d} {e.key[:90]}")
+    picked = [e for e in kernels if any(a in e.key for a in also)]
+    for e in picked:
+        print(f"{label}: kernel {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    if picked:
+        print(f"{label}: those {len(picked)} kernels together "
+              f"{sum(dev_us(e) for e in picked) / 1e3:.3f} ms of the step")
+
+
+# the device kernels of csrc/packed_tf.cu, as the profiler names them
+PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_packed_kernel<",
+                       "spatial_down_kernel", "spatial_up_kernel",
+                       "dw_wgrad_partial_kernel", "pw_wgrad_partial_kernel",
+                       "sum_partials_kernel")
+
+# launches of K1/K2/K3 per train step, forward and backward
+TRAIN_LAUNCHES = {"sru_dual_recurrence_fwd": 2 * REPEATS,
+                  "sru_hidden_layer_fwd": 2 * REPEATS * 3,
+                  "convt1d_ola_tm_fwd": 2 * REPEATS,
+                  "sru_dual_recurrence_bwd": 2 * REPEATS,
+                  "sru_hidden_layer_bwd": 2 * REPEATS * 3,
+                  "convt1d_ola_tm_bwd": 2 * REPEATS}
+
+
+def train(conf) -> tuple:
+    """Phase 6: one train step on the card against float64 on the CPU, then
+    the train system's steps at batch 4; returns the launch counts of those
+    steps and the batch-1 steps for phase 9."""
     from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.train.main import build_system
@@ -891,7 +991,7 @@ def train(conf) -> dict:
 
     data = SyntheticAVDataset(n_samples=TRAIN_BATCH * TRAIN_STEPS, seed=0)
 
-    compare_train_step(conf, data.collate([data[0]]))
+    ref = compare_train_step(conf, data.collate([data[0]]))
 
     # the main path: the train system's steps at batch 4, preset dropout
     system = build_system(conf, "cuda", seed=0)
@@ -909,15 +1009,9 @@ def train(conf) -> dict:
         times.append(time.perf_counter() - t0)
     launches = dict(kernel_lib.LAUNCHES)
     n = len(batches)
-    expect = {"sru_dual_recurrence_fwd": 2 * REPEATS,
-              "sru_hidden_layer_fwd": 2 * REPEATS * 3,
-              "convt1d_ola_tm_fwd": 2 * REPEATS,
-              "sru_dual_recurrence_bwd": 2 * REPEATS,
-              "sru_hidden_layer_bwd": 2 * REPEATS * 3,
-              "convt1d_ola_tm_bwd": 2 * REPEATS}
     print(f"training: launches over {n} steps: {launches}; per step "
           f"{ {k: v / n for k, v in launches.items()} }")
-    for name, per in expect.items():
+    for name, per in TRAIN_LAUNCHES.items():
         if launches.get(name, 0) != n * per:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
                                  f"in {n} steps, expected {per} per step")
@@ -935,29 +1029,262 @@ def train(conf) -> dict:
           f"min={min(times[1:]) * 1e3:.3f} max={max(times[1:]) * 1e3:.3f} "
           f"(first step {times[0] * 1e3:.3f}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    profile_step(system, batches[0], generator, "training")
+    return launches, ref
 
-    # one more step under the profiler: device time and idle share
-    batch = batches[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        system.train_step(batch, generator)
+
+def check_packed_wgrad_kernels(conf, rng) -> dict:
+    """Phase 9, first: K5-wgrad and pw-wgrad against their plain versions
+    at the packed training shapes (batch 4), each called twice (the two dW
+    must be bit-identical), timed with CUDA events beside its bound, its
+    plain version and one PyTorch call; returns per kernel the max relative
+    error and per-train-step sums of kernel, plain, bound and library
+    times."""
+    import torch.nn.functional as Fn
+
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    T, Fq, C, Cb, k = (g[n] for n in ("T", "F", "C", "Cb", "k"))
+    r = conf["audionet"]["audio_params"]["repeats"]
+    bs, dev = TRAIN_BATCH, torch.device("cuda")
+
+    def t(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def cl(x, t_len, f_len):  # a packed map as a channels-last (B, C, T, F)
+        return x.view(bs, t_len, f_len, C).permute(0, 3, 1, 2)
+
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
+    xp, g_same, g_pre = t((bs, T, Fq * C)), t((bs, T, Fq * C)), t(
+        (bs, t_conv, f_conv * C))
+    x4, gp = t((bs, Cb, T, Fq)), t((bs, T, Fq * C))   # K6's dW
+    xq, g4 = t((bs, T, Fq * C)), t((bs, Cb, T, Fq))   # K7's dW
+    # the library's dW of a depthwise conv reads x padded beforehand (the
+    # 'same' pads of an even kernel are uneven), channels-last as packed
+    padded = {pads: Fn.pad(cl(xp, T, Fq), (*pads, *pads)).contiguous(
+        memory_format=torch.channels_last) for pads in (same, pre)}
+    n_x, n_s, m = bs * T * Fq * C, bs * t_conv * f_conv * C, bs * T * Fq
+
+    def dw_lib(pads, gg, t_len, f_len):
+        return lambda: torch.nn.grad.conv2d_weight(
+            padded[pads], (C, 1, k, k), cl(gg, t_len, f_len),
+            groups=C)[:, 0].permute(1, 2, 0)
+
+    # (kernel, site, launches per step, kernel call, plain call, bytes,
+    #  flops, library call)
+    cases = [
+        ("dw_conv_packed_wgrad", "same", 3 * r,
+         lambda: P.dw_conv_packed_wgrad(xp, g_same, Fq, C, (k, k), same,
+                                        same),
+         lambda: P.dw_conv_packed_wgrad_plain(xp, g_same, Fq, C, (k, k),
+                                              same, same),
+         4 * (2 * n_x + k * k * C), 2 * k * k * n_x,
+         dw_lib(same, g_same, T, Fq)),
+        ("dw_conv_packed_wgrad", "pre-select", r,
+         lambda: P.dw_conv_packed_wgrad(xp, g_pre, Fq, C, (k, k), pre, pre),
+         lambda: P.dw_conv_packed_wgrad_plain(xp, g_pre, Fq, C, (k, k), pre,
+                                              pre),
+         4 * (n_x + n_s + k * k * C), 2 * k * k * n_s,
+         dw_lib(pre, g_pre, t_conv, f_conv)),
+        ("pw_packed_wgrad", "K6 dW", r,
+         lambda: P.pw_packed_wgrad(x4, gp),
+         lambda: P.pw_packed_wgrad_plain(x4, gp),
+         4 * (m * (Cb + C) + Cb * C), 2 * m * Cb * C,
+         lambda: torch.einsum("bitf,btfo->io", x4, gp.view(bs, T, Fq, C))),
+        ("pw_packed_wgrad", "K7 dW", r,
+         lambda: P.pw_packed_wgrad(xq, g4),
+         lambda: P.pw_packed_wgrad_plain(xq, g4),
+         4 * (m * (Cb + C) + Cb * C), 2 * m * Cb * C,
+         lambda: torch.einsum("btfi,botf->io", xq.view(bs, T, Fq, C), g4)),
+    ]
+    res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
+           for name in ("dw_conv_packed_wgrad", "pw_packed_wgrad")}
+    for name, site, n, kern, plain, nbytes, nops, lib in cases:
+        got, again, want, lib_out = kern(), kern(), plain(), lib()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        lib_err = (lib_out - want).abs().max().item()
+        ms = time_cuda(kern, 50)
+        plain_ms = time_cuda(plain, 3, warmup=1)
+        lib_ms = time_cuda(lib, 50)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        print(f"kernel {name} bs={bs} site={site}: max_abs_err={err:.3e} "
+              f"max|dW|={scale:.3e} (tol {PACKED_WGRAD_REL_TOL:.0e} * max|dW|)"
+              f"; library vs plain {lib_err:.3e}; two calls bit-identical "
+              f"{torch.equal(got, again)}; ms={ms:.5f} plain_ms="
+              f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}, {nbytes} B, "
+              f"{nops} flop) library_ms={lib_ms:.5f}")
+        if not max(err, lib_err) <= PACKED_WGRAD_REL_TOL * scale:
+            raise AssertionError(f"{name} ({site}) disagrees with its plain "
+                                 f"version or the library: {err:.3e}, "
+                                 f"{lib_err:.3e} on max {scale:.3e}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} ({site}): two calls differ")
+        e = res[name]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["ms"] += n * ms
+        e["plain_ms"] += n * plain_ms
+        e["bound_ms"] += n * b_ms
+        e["library_ms"] += n * lib_ms
+        e["bound_by"] = b_by
+    return res
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
 
-    kernels = sorted((e for e in prof.key_averages() if dev_us(e) > 0
-                      and e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=dev_us, reverse=True)
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-    print(f"training: profiled step wall {wall_ms:.3f} ms, device "
-          f"{dev_ms:.3f} ms, idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
-    for e in kernels[:12]:
-        print(f"training: top kernel {dev_us(e) / 1e3:9.3f} ms "
-              f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<5d} {e.key[:90]}")
-    return launches
+def check_packed_functions(conf, rng) -> None:
+    """Phase 9, second: each packed op's autograd Function on the card (its
+    backward through the kernels) against autograd through the op's plain
+    forward on the same card inputs and cotangent, at the packed training
+    shapes (batch 4): every input's gradient to ``PACKED_FN_REL_TOL`` of
+    its max. The weights enter as the Conv passes them, views of the torch
+    weight, so the gradients also cross the views."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    T, Fq, C, Cb, k, T2, F2 = (g[n] for n in ("T", "F", "C", "Cb", "k",
+                                              "T2", "F2"))
+    bs, dev = TRAIN_BATCH, torch.device("cuda")
+
+    def leaf(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).requires_grad_()
+
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
+    xp, xs = leaf((bs, T, Fq * C)), leaf((bs, t_conv, f_conv * C))
+    x4, x2 = leaf((bs, Cb, T, Fq)), leaf((bs, C, T2, F2))
+    w_dw, b_dw = leaf((C, 1, k, k), 1.0 / k), leaf((C,))
+    w_in, b_in = leaf((C, Cb, 1, 1), Cb ** -0.5), leaf((C,))
+    w_out, b_out = leaf((Cb, C, 1, 1), C ** -0.5), leaf((Cb,))
+    pool = P.cached_map("pool", T, T2, Fq, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, Fq)
+    taps = lambda: w_dw[:, 0].permute(1, 2, 0)  # noqa: E731
+    # (op, site, inputs, call of the op or its plain version)
+    cases = [
+        ("dw_conv_packed", "same", (xp, w_dw, b_dw),
+         lambda f: f(xp, taps(), b_dw, Fq, C, same, same)),
+        ("dw_conv_packed", "pre-select", (xp, w_dw, b_dw),
+         lambda f: f(xp, taps(), b_dw, Fq, C, pre, pre)),
+        ("dw_conv_packed", "no bias", (xp, w_dw),
+         lambda f: f(xp, taps(), None, Fq, C, same, same)),
+        ("pw_proj_packed", "projection", (x4, w_in, b_in),
+         lambda f: f(x4, w_in[:, :, 0, 0].t(), b_in)),
+        ("pw_unproj_packed", "residual", (xp, w_out, b_out),
+         lambda f: f(xp, w_out[:, :, 0, 0].t(), b_out, Fq)),
+        ("spatial_down_packed", "pool", (xp,), lambda f: f(xp, pool, C)),
+        ("spatial_down_packed", "select", (xs,), lambda f: f(xs, sel, C)),
+        ("spatial_up_packed", "nearest", (x2,), lambda f: f(x2, up)),
+    ]
+    for name, site, ins, call in cases:
+        out = call(getattr(P, name))
+        cot = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+            np.float32)).to(dev)
+        got = torch.autograd.grad(out, ins, cot)
+        want = torch.autograd.grad(call(getattr(P, f"{name}_plain")), ins,
+                                   cot)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            print(f"backward {name} site={site} input {i} "
+                  f"{tuple(b.shape)}: Function vs autograd of the plain "
+                  f"forward max_abs_err={err:.3e} max|grad|={scale:.3e} "
+                  f"(tol {PACKED_FN_REL_TOL:.0e} * max|grad|)")
+            if not err <= PACKED_FN_REL_TOL * scale:
+                raise AssertionError(f"{name} ({site}) input {i}: backward "
+                                     f"{err:.3e} > tol on {scale:.3e}")
+
+
+def train_packed(conf, rng, ref) -> tuple:
+    """Phase 9: packed training. The kernels and the Functions, one packed
+    bs-1 step held as phase 6's, then the packed and the standard train
+    systems in turns at batch 4; returns the wgrad kernels' results and
+    the launch counts of the packed steps (the main path)."""
+    from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.train.main import build_system
+    from rtfs_tpu_torch.train.system import make_generator
+
+    wgrads = check_packed_wgrad_kernels(conf, rng)
+    check_packed_functions(conf, rng)
+
+    # as --audionet.packed_tf true sets it
+    pconf = dict(conf, audionet=dict(conf["audionet"], packed_tf=True))
+    data = SyntheticAVDataset(n_samples=TRAIN_BATCH * TRAIN_STEPS, seed=0)
+    res = _train_runs(pconf, data.collate([data[0]]), {
+        "card packed": ("cuda", torch.float32, True),
+        "card packed, cuDNN off": ("cuda", torch.float32, False)})
+    hold_train_step(res, ref, "card packed", "card packed, cuDNN off")
+    std, packed = ref["card"], res["card packed"]
+    dist = max((g - std[1][n]).abs().max().item()
+               for n, g in packed[1].items())
+    g_max = max(g.abs().max().item() for g in std[1].values())
+    print(f"packed training: card packed vs card standard step: loss "
+          f"{packed[0]:.9f} / {std[0]:.9f}, gradients max abs {dist:.3e} "
+          f"(max|grad| {g_max:.3e})")
+
+    # the main path: packed and standard systems in turns (standard,
+    # packed, packed, standard, ...), each on the same batches; the counts
+    # are set to 0 before each packed step and read after it
+    systems = {False: build_system(conf, "cuda", seed=0),
+               True: build_system(pconf, "cuda", seed=0)}
+    gens = {p: make_generator(0, "cuda") for p in systems}
+    batches = list(data.batches(TRAIN_BATCH, seed=0, epoch=0))
+    before = [p.detach().clone() for p in systems[True].model.parameters()]
+    times = {False: [], True: []}
+    losses = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    launches = collections.Counter()
+    for i in range(2 * len(batches)):
+        packed = (i % 4) in (1, 2)
+        batch = batches[len(times[packed])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_lib.reset_launches()
+        t0 = time.perf_counter()
+        losses[packed].append(
+            systems[packed].train_step(batch, gens[packed])["train_loss"])
+        torch.cuda.synchronize()
+        times[packed].append(time.perf_counter() - t0)
+        if packed:
+            launches.update(kernel_lib.LAUNCHES)
+        peak[packed] = max(peak[packed], torch.cuda.max_memory_allocated())
+    launches = dict(launches)
+    n = len(batches)
+    expect = {**TRAIN_LAUNCHES, **packed_train_launches(conf)}
+    print(f"packed training: launches over {n} packed steps: {launches}; "
+          f"per step { {k: v / n for k, v in launches.items()} }")
+    if launches != {k: n * v for k, v in expect.items()}:
+        raise AssertionError(f"packed steps launched {launches}, expected "
+                             f"{expect} per step")
+    for packed in (False, True):
+        ls = [v.item() for v in losses[packed]]
+        if not all(math.isfinite(v) for v in ls):
+            raise AssertionError(f"non-finite train loss: {ls}")
+        ts = times[packed][1:]
+        print(f"packed training: {'packed' if packed else 'standard'} "
+              f"{n} steps at batch {TRAIN_BATCH}, losses "
+              f"{[round(v, 4) for v in ls]}; ms per step median="
+              f"{statistics.median(ts) * 1e3:.3f} min={min(ts) * 1e3:.3f} "
+              f"max={max(ts) * 1e3:.3f} (first step "
+              f"{times[packed][0] * 1e3:.3f}); peak device memory "
+              f"{peak[packed] / 2**20:.1f} MiB")
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(before, systems[True].model.parameters()))
+    print(f"packed training: {moved} of {len(before)} parameter tensors "
+          "moved")
+    if moved == 0:
+        raise AssertionError("no parameter changed in packed training")
+    del systems[False]
+    profile_step(systems[True], batches[0], gens[True], "packed training",
+                 also=PACKED_KERNEL_NAMES)
+    return wgrads, launches
 
 
 def main() -> int:
@@ -988,13 +1315,24 @@ def main() -> int:
     geo = main_path_geometry(conf)
     print(f"geometry: {geo}")
     rng = np.random.default_rng(0)
-    kernels = check_kernels(geo, rng)
-    packed_kernels = check_packed_kernels(conf, rng)
-    launches = serve(conf, rng)
-    packed_run = serve_packed(conf, rng)
-    packed_latency(conf, rng)
-    bwd = check_backward_kernels(geo, rng, kernels)
-    train_launches = train(conf)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    kernels = phase("3 forward kernels", check_kernels, geo, rng)
+    packed_kernels = phase("7 packed kernels", check_packed_kernels, conf,
+                           rng)
+    launches = phase("4 serving", serve, conf, rng)
+    packed_run = phase("8 serving from files", serve_packed, conf, rng)
+    phase("8 packed latency", packed_latency, conf, rng)
+    bwd = phase("5 backward kernels", check_backward_kernels, geo, rng,
+                kernels)
+    train_launches, ref = phase("6 training", train, conf)
+    wgrads, packed_train = phase("9 packed training", train_packed, conf,
+                                 rng, ref)
 
     sources = {
         "sru_dual_recurrence": ("rtfs_tpu_torch/csrc/sru_fused.cu",
@@ -1030,6 +1368,12 @@ def main() -> int:
         "spatial_up_packed": ("rtfs_tpu_torch/csrc/packed_tf.cu",
                               "rtfs_tpu/ops/packed_tf.py:712",
                               "spatial_up_packed_fwd"),
+        "dw_conv_packed_wgrad": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                                 "rtfs_tpu/ops/packed_tf.py:305",
+                                 "dw_conv_packed_wgrad"),
+        "pw_packed_wgrad": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                            "rtfs_tpu/ops/packed_tf.py:533",
+                            "pw_packed_wgrad"),
     }
     line = {"kernels": []}
     for name, (src, rep, fn) in sources.items():
@@ -1038,7 +1382,11 @@ def main() -> int:
                      "per_forward_at_batch": 8}
         elif name in packed_kernels:  # packed: the packed entry's forward
             entry = {"launches": packed_run.get(fn, 0), **packed_kernels[name],
-                     "per_forward_at_batch": 1}
+                     "per_forward_at_batch": 1,
+                     "launches_in_packed_training": packed_train.get(fn, 0)}
+        elif name in wgrads:  # packed dW: the packed steps, per step at bs 4
+            entry = {"launches": packed_train.get(fn, 0), **wgrads[name],
+                     "per_train_step_at_batch": TRAIN_BATCH}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],
                      "per_train_step_at_batch": TRAIN_BATCH}

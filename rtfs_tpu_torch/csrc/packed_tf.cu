@@ -1,8 +1,12 @@
-// Packed time-frequency kernels for Hopper (sm_90a), float32, forward.
+// Packed time-frequency kernels for Hopper (sm_90a), float32, forward and
+// weight gradients. The backward's dx passes are the forward kernels
+// themselves (K5 with flipped taps, K6 <-> K7, K8 <-> K9 through the
+// transposed maps); see rtfs_tpu_torch/ops/packed_tf.py.
 //
 // A packed map is (B, T, F*C) with the channel fastest (the JAX packed
 // layout); the port's rank-4 maps are channels-first (B, C, T, F). Each C
-// entry launches one kernel on the caller's stream and returns
+// entry launches its kernel on the caller's stream (the weight-gradient
+// entries two: the per-block partials, then their sum) and returns
 // cudaGetLastError().
 //
 // K5  dw_conv_packed_fwd      replaces the Pallas kernel _make_dw_kernel
@@ -49,6 +53,34 @@
 //     computes its 32 x C outputs in the order that reads its input
 //     contiguously, keeps them in a shared tile and writes them in the order
 //     that stores contiguously (a transpose through shared memory).
+//
+// K5-wgrad dw_conv_packed_wgrad replaces _make_dw_wgrad_kernel
+//     (pallas_call in _dw_conv_wgrad_impl), folded over F as the JAX
+//     backward folds it outside the kernel:
+//       dW[dt,df,c] = sum_{b,t,f} g[b,t,f*C+c]
+//                     * x[b, t+dt-pt_lo, (f+df-pf_lo)*C+c]
+//     with x = 0 off the map. Bound on the H100: bytes (x and g read once,
+//     2*kT*kF flops per 8 bytes). The TPU carries one accumulator through
+//     its sequential grid; here blocks run in parallel, so each block (32
+//     output rows x 512 / C f positions x a batch row) sums its share into
+//     one (kT, kF, C) partial, and a second kernel adds the partials in a
+//     fixed order: no float atomics, two runs give bit-identical dW. Inside
+//     a block, each 8-row tile stages its x window as K5 does (zero-filled
+//     off the map) and its g rows in shared memory; each thread owns
+//     (tap, channel) pairs, neighbouring threads on neighbouring channels,
+//     and sums over the tile's rows and f positions in a register.
+//
+// pw-wgrad  pw_packed_wgrad     replaces _make_pw_wgrad_kernel
+//     (pallas_call in _pw_wgrad_impl): dW (Ca, Cb) = sum_p a[p,:]^T g[p,:]
+//     over the B*T*F positions, one side channel-planar (B, C, M) and the
+//     other channel-innermost (B, M, C): K6's dW reads the rank-4 x and the
+//     packed g, K7's the packed x and the rank-4 g. Bound on the H100:
+//     float32 operations (2*Ca*Cb flops per (Ca+Cb)*4 bytes). Design: K6/K7's
+//     tiled product turned over: a block owns a 64 x 64 tile of dW and 1024
+//     positions of a batch row, stages 32-position slices of both sides in
+//     shared memory (loads in each side's contiguous order) and keeps a 4 x 4
+//     register tile a thread; it writes its tile's partial, and the same
+//     fixed-order second kernel sums the partials.
 
 #include <cuda_runtime.h>
 
@@ -59,6 +91,9 @@ constexpr int kDwRows = 8;     // K5 output rows per block
 constexpr int kDwCols = 512;   // K5 output columns per block (whole f positions)
 constexpr int kBM = 64, kBN = 64, kBK = 16;  // K6/K7 tile
 constexpr int kMapF = 32;      // K8/K9 f positions per block
+constexpr int kWgRows = 32;    // K5-wgrad output rows per block (4 tiles of 8)
+constexpr int kPwPos = 1024;   // pw-wgrad positions per block
+constexpr int kPwK = 32;       // pw-wgrad positions per staged slice
 constexpr long long kMaxSmem = 227 * 1024;
 
 __global__ void __launch_bounds__(kThreads)
@@ -251,6 +286,169 @@ spatial_up_kernel(const float* __restrict__ x, const int* __restrict__ ts,
     orow[e] = tile[(e / C) * (C + 1) + e % C];
 }
 
+// grid (ceil(F_out / FT), ceil(T_out / kWgRows), B). x packed (B, T_in,
+// F_in*C), g packed (B, T_out, F_out*C); each block writes its (KT*KF*C)
+// partial of dW to its row of partial.
+__global__ void __launch_bounds__(kThreads)
+dw_wgrad_partial_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g,
+                        float* __restrict__ partial, int T_in, int F_in,
+                        int C, int T_out, int F_out, int KT, int KF,
+                        int pt_lo, int pf_lo, int FT) {
+  extern __shared__ float smem[];
+  const int rows_in = kDwRows + KT - 1;
+  const int cols_in = (FT + KF - 1) * C;
+  const int cols = FT * C;
+  const int n_acc = KT * KF * C;
+  float* x_s = smem;                     // (rows_in, cols_in)
+  float* g_s = x_s + rows_in * cols_in;  // (kDwRows, cols)
+  float* acc_s = g_s + kDwRows * cols;   // (KT * KF, C), entry e owned by
+                                         // thread e % kThreads
+  const int b = blockIdx.z, f0 = blockIdx.x * FT, tid = threadIdx.x;
+  const int t_begin = blockIdx.y * kWgRows;
+  const int t_end = min(T_out, t_begin + kWgRows);
+  const float* xb = x + (long long)b * T_in * F_in * C;
+  const float* gb = g + (long long)b * T_out * F_out * C;
+  for (int e = tid; e < n_acc; e += kThreads) acc_s[e] = 0.f;
+
+  for (int t0 = t_begin; t0 < t_end; t0 += kDwRows) {
+    __syncthreads();  // the previous tile's shared reads are done
+    for (int e = tid; e < rows_in * cols_in; e += kThreads) {
+      const int r = e / cols_in, j = e % cols_in;
+      const int t = t0 - pt_lo + r, f = f0 - pf_lo + j / C;
+      float v = 0.f;
+      if (t >= 0 && t < T_in && f >= 0 && f < F_in)
+        v = xb[((long long)t * F_in + f) * C + j % C];
+      x_s[e] = v;
+    }
+    for (int e = tid; e < kDwRows * cols; e += kThreads) {
+      const int r = e / cols, col = e % cols;
+      const int t = t0 + r, f = f0 + col / C;
+      g_s[e] = (t < t_end && f < F_out)
+                   ? gb[((long long)t * F_out + f) * C + col % C]
+                   : 0.f;
+    }
+    __syncthreads();
+    for (int e = tid; e < n_acc; e += kThreads) {
+      const int c = e % C, tap = e / C, dt = tap / KF, df = tap % KF;
+      float s = 0.f;
+      for (int r = 0; r < kDwRows; ++r) {
+        const float* gr = g_s + r * cols + c;
+        const float* xr = x_s + (r + dt) * cols_in + df * C + c;
+        for (int fl = 0; fl < FT; ++fl) s = fmaf(gr[fl * C], xr[fl * C], s);
+      }
+      acc_s[e] += s;
+    }
+  }
+  float* pb = partial +
+              ((long long)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+               blockIdx.x) * n_acc;
+  for (int e = tid; e < n_acc; e += kThreads) pb[e] = acc_s[e];
+}
+
+// grid (ceil(M / kPwPos), ceil(Ca / 64) * ceil(Cb / 64), B), 256 threads.
+// kAPlanar (K6's dW): a (B, Ca, M), g (B, M, Cb); otherwise (K7's): a
+// (B, M, Ca), g (B, Cb, M). partial (B * gridDim.x, Ca, Cb).
+template <bool kAPlanar>
+__global__ void __launch_bounds__(kThreads)
+pw_wgrad_partial_kernel(const float* __restrict__ a,
+                        const float* __restrict__ g,
+                        float* __restrict__ partial, int M, int Ca, int Cb) {
+  __shared__ float a_s[kPwK][kBM + 1];
+  __shared__ float g_s[kPwK][kBN + 1];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tiles_b = (Cb + kBN - 1) / kBN;
+  const int ca0 = (blockIdx.y / tiles_b) * kBM;
+  const int cb0 = (blockIdx.y % tiles_b) * kBN;
+  const int p_begin = blockIdx.x * kPwPos;
+  const int p_end = min(M, p_begin + kPwPos);
+  const float* ab = a + (long long)blockIdx.z * M * Ca;
+  const float* gb = g + (long long)blockIdx.z * M * Cb;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int p0 = p_begin; p0 < p_end; p0 += kPwK) {
+    // the planar side loads positions fastest, the innermost side channels
+    for (int e = tid; e < kPwK * kBM; e += kThreads) {
+      const int pp = kAPlanar ? e % kPwK : e / kBM;
+      const int cc = kAPlanar ? e / kPwK : e % kBM;
+      const int p = p0 + pp, ch = ca0 + cc;
+      float v = 0.f;
+      if (p < p_end && ch < Ca)
+        v = kAPlanar ? ab[(long long)ch * M + p] : ab[(long long)p * Ca + ch];
+      a_s[pp][cc] = v;
+    }
+    for (int e = tid; e < kPwK * kBN; e += kThreads) {
+      const int pp = kAPlanar ? e / kBN : e % kPwK;
+      const int cc = kAPlanar ? e % kBN : e / kPwK;
+      const int p = p0 + pp, ch = cb0 + cc;
+      float v = 0.f;
+      if (p < p_end && ch < Cb)
+        v = kAPlanar ? gb[(long long)p * Cb + ch] : gb[(long long)ch * M + p];
+      g_s[pp][cc] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int pp = 0; pp < kPwK; ++pp) {
+      float av[4], gv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a_s[pp][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gv[j] = g_s[pp][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* pb =
+      partial + ((long long)blockIdx.z * gridDim.x + blockIdx.x) * Ca * Cb;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ca = ca0 + ty + 16 * i;
+    if (ca >= Ca) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cb = cb0 + tx + 16 * j;
+      if (cb < Cb) pb[(long long)ca * Cb + cb] = acc[i][j];
+    }
+  }
+}
+
+// out[e] = sum_p partial[p, e] in a fixed order: thread row y sums the
+// partials p = y, y + kSumY, ... and the kSumY row sums are added in order
+constexpr int kSumX = 32, kSumY = 8;
+
+__global__ void __launch_bounds__(kSumX * kSumY)
+sum_partials_kernel(const float* __restrict__ partial,
+                    float* __restrict__ out, int n_part, int n) {
+  __shared__ float s[kSumY][kSumX];
+  const int e = blockIdx.x * kSumX + threadIdx.x;
+  float acc = 0.f;
+  if (e < n)
+    for (int p = threadIdx.y; p < n_part; p += kSumY)
+      acc += partial[(long long)p * n + e];
+  s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < n) {
+    float t = 0.f;
+    for (int y = 0; y < kSumY; ++y) t += s[y][threadIdx.x];
+    out[e] = t;
+  }
+}
+
+int launch_sum(const void* partial, void* out, int n_part, int n,
+               void* stream) {
+  sum_partials_kernel<<<(n + kSumX - 1) / kSumX, dim3(kSumX, kSumY), 0,
+                        (cudaStream_t)stream>>>((const float*)partial,
+                                                (float*)out, n_part, n);
+  return (int)cudaGetLastError();
+}
+
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if ((long long)bytes > kMaxSmem) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -349,4 +547,57 @@ extern "C" int spatial_up_packed_fwd(const void* x, const void* ts,
                                      int F_out, int NT, int NF, void* stream) {
   return launch_map(spatial_up_kernel, x, ts, tw, fs, fw, out, B, T_in, F_in,
                     C, T_out, F_out, NT, NF, stream);
+}
+
+// x (B, T_in, F_in*C), g (B, T_out, F_out*C) packed; out (KT, KF, C);
+// partial holds n_part rows of KT*KF*C, one a block (the wrapper sizes it,
+// and a grid of another size is refused)
+extern "C" int dw_conv_packed_wgrad(const void* x, const void* g,
+                                    void* partial, void* out, int B,
+                                    int T_in, int F_in, int C, int T_out,
+                                    int F_out, int KT, int KF, int pt_lo,
+                                    int pf_lo, int n_part, void* stream) {
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1)
+    return (int)cudaErrorInvalidValue;
+  const int FT = C >= kDwCols ? 1 : kDwCols / C;
+  const long long tiles_t = (T_out + kWgRows - 1) / kWgRows;
+  const long long tiles_f = (F_out + FT - 1) / FT;
+  if (!grid_ok(tiles_t, B) || tiles_f * tiles_t * B != n_part)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)(kDwRows + KT - 1) * (FT + KF - 1) * C +
+                       (size_t)kDwRows * FT * C + (size_t)KT * KF * C) *
+                      sizeof(float);
+  cudaError_t e = allow_smem((const void*)dw_wgrad_partial_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)tiles_f, (unsigned)tiles_t, B);
+  dw_wgrad_partial_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)g, (float*)partial, T_in, F_in, C,
+      T_out, F_out, KT, KF, pt_lo, pf_lo, FT);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_sum(partial, out, n_part, KT * KF * C, stream);
+}
+
+// a_planar: a (B, Ca, M) rank-4 and g (B, M, Cb) packed (K6's dW), else a
+// (B, M, Ca) packed and g (B, Cb, M) rank-4 (K7's); out (Ca, Cb); partial
+// holds n_part = B * ceil(M / 1024) rows of Ca*Cb
+extern "C" int pw_packed_wgrad(const void* a, const void* g, void* partial,
+                               void* out, int B, int M, int Ca, int Cb,
+                               int a_planar, int n_part, void* stream) {
+  if (B < 1 || M < 1 || Ca < 1 || Cb < 1) return (int)cudaErrorInvalidValue;
+  const long long chunks = (M + kPwPos - 1) / kPwPos;
+  const long long tiles =
+      (long long)((Ca + kBM - 1) / kBM) * ((Cb + kBN - 1) / kBN);
+  if (!grid_ok(tiles, B) || chunks * B != n_part)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)chunks, (unsigned)tiles, B);
+  if (a_planar)
+    pw_wgrad_partial_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)g, (float*)partial, M, Ca, Cb);
+  else
+    pw_wgrad_partial_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)g, (float*)partial, M, Ca, Cb);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_sum(partial, out, n_part, Ca * Cb, stream);
 }

@@ -199,9 +199,9 @@ class AVNet(nn.Module):
     ``packed_tf`` (settable on a built model, as ``inference.py
     --packed-tf`` sets it) runs the refinement module inside
     ``packed_scope``: each 2-D stride-2 TDANet block's full-resolution
-    segment goes through the packed-TF kernels K5-K9. Parameters and the
-    ``state_dict`` are the same either way; serving only (the packed
-    backward is not ported to CUDA)."""
+    segment goes through the packed-TF kernels K5-K9, forward and
+    backward, so it trains too (``audionet.packed_tf`` in the config).
+    Parameters and the ``state_dict`` are the same either way."""
 
     def __init__(self, n_src, enc_dec_params, audio_bn_params, audio_params,
                  mask_generation_params, pretrained_vout_chan=-1,

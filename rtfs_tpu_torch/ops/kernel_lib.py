@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points per library: (pointer args, int args); every function
 # also takes the stream last and returns cudaGetLastError(). A pointer may
 # be None (NULL) where the source says so (the forwards' c outputs, the
-# packed kernels' bias).
+# packed kernels' bias). The weight-gradient entries take a scratch buffer
+# for their per-block partials, which the wrapper allocates.
 _SIGNATURES = {
     "sru_fused": {
         "sru_dual_recurrence_fwd": (7, 3),
@@ -50,6 +51,8 @@ _SIGNATURES = {
         "pw_unproj_packed_fwd": (4, 6),
         "spatial_down_packed_fwd": (6, 8),
         "spatial_up_packed_fwd": (6, 8),
+        "dw_conv_packed_wgrad": (4, 11),
+        "pw_packed_wgrad": (4, 6),
     },
 }
 

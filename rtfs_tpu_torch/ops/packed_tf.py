@@ -1,10 +1,10 @@
 """Packed time-frequency layout: kernels K5-K9 and the packed carriers.
 
-Counterpart of ``rtfs_tpu/ops/packed_tf.py`` (forward). A packed map is
-``(B, T, F*C)`` with the channel fastest, exactly the JAX packed layout;
-the port's rank-4 maps are channels-first ``(B, C, T, F)``, so the rank-4
-side of K6-K9 is that layout. On this card the packed form is plain
-channels-last storage: the TPU's reason for it (64-channel minor dims
+Counterpart of ``rtfs_tpu/ops/packed_tf.py``, forward and backward. A
+packed map is ``(B, T, F*C)`` with the channel fastest, exactly the JAX
+packed layout; the port's rank-4 maps are channels-first ``(B, C, T, F)``,
+so the rank-4 side of K6-K9 is that layout. On this card the packed form
+is plain channels-last storage: the TPU's reason for it (64-channel minor dims
 padded to 128 lanes) does not exist here, and the port keeps it because
 the JAX package's packed path runs through these ops.
 
@@ -20,12 +20,22 @@ the JAX package's packed path runs through these ops.
 - ``spatial_up_packed`` (K9): separable static map, rank-4 -> packed
   (torch-nearest upsample); CUDA ``spatial_up_packed_fwd``.
 
-On a CPU tensor each op runs its plain PyTorch version, which autograd
-differentiates. On a CUDA tensor it launches its kernel or raises; the
-packed backward (the weight-gradient kernels of ``packed_tf.py:305`` and
-``:533`` and the dx passes) is not ported, so a CUDA call that autograd
-would record raises ``NotImplementedError``. Serving runs under
-``torch.inference_mode()`` and never records.
+The backward (the JAX custom VJPs) reuses the forward kernels and adds
+two weight-gradient kernels:
+
+- K5: dx is K5 on the cotangent with the taps flipped and complementary
+  pads; dW is ``dw_conv_packed_wgrad`` (CUDA ``dw_conv_packed_wgrad``).
+- K6 / K7: dx of K6 is K7 with ``w.t()`` and dx of K7 is K6; dW of both
+  is ``pw_packed_wgrad`` (CUDA ``pw_packed_wgrad``).
+- K8 / K9: each map's transpose (``SpatialMap.transposed``) is its VJP,
+  so dx of K8 is K9 and dx of K9 is K8, one launch each.
+- Biases: a plain sum of the cotangent.
+
+When autograd records (grad enabled and an input requires grad) an op runs
+through its ``torch.autograd.Function`` on either device. The device picks
+the implementation, forward and backward: on a CPU tensor the plain
+PyTorch versions run, on a CUDA tensor the kernels launch or the call
+raises.
 
 The model layers dispatch on ``PackedTF`` (a packed map flowing through a
 module) and ``PackRequest`` (a rank-4 map handed to the 1x1 projection
@@ -76,20 +86,18 @@ def gln_packed(xp, gamma, beta, f: int, eps: float = 1e-5):
     return (y * gamma + beta).reshape(b, t, n)
 
 
-def _check_serving(name: str, x, w=None, bias=None) -> None:
-    """Raise unless autograd would not record the call, x (and bias) are
-    contiguous float32 on one CUDA device, and w (read through its
-    strides) is float32 there too."""
-    given = [t for t in (x, w, bias) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
-        raise NotImplementedError(
-            f"{name}: the packed-TF backward is not ported to CUDA (the "
-            "weight-gradient kernels of rtfs_tpu/ops/packed_tf.py:305 and "
-            ":533 and the dx passes); serve under torch.inference_mode() or "
-            "train with packed_tf off")
+def _check_cuda(name: str, x, w=None, bias=None) -> None:
+    """Raise unless x (and bias) are contiguous float32 on one CUDA device
+    and w (read through its strides) is float32 there too."""
     kernel_lib.check_cuda_f32(name, *[t for t in (x, bias) if t is not None])
     if w is not None and (w.device != x.device or w.dtype != torch.float32):
         raise TypeError(f"{name}: w must be float32 on {x.device}")
+
+
+def _records(*tensors) -> bool:
+    """True when autograd would record a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +131,97 @@ def dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f):
     return out.reshape(b, t_out, f_out * c)
 
 
+def dw_conv_packed_wgrad_plain(xp, g, f_in, c, kt_kf, pads_t, pads_f):
+    """dW (kT, kF, C) of K5, tap by tap over the zero-padded (B, T, F, C)
+    view: dW[dt, df] = sum_{b,t,f} g[b,t,f] * x[b, t+dt-pt_lo, f+df-pf_lo]."""
+    b, t_out, n_out = g.shape
+    f_out = n_out // c
+    x4 = F.pad(xp.reshape(b, xp.shape[1], f_in, c),
+               (0, 0, pads_f[0], pads_f[1], pads_t[0], pads_t[1]))
+    g4 = g.reshape(b, t_out, f_out, c)
+    return torch.stack([
+        torch.stack([torch.einsum("btfc,btfc->c", g4,
+                                  x4[:, dt:dt + t_out, df:df + f_out])
+                     for df in range(kt_kf[1])])
+        for dt in range(kt_kf[0])])
+
+
+# K5-wgrad's split, as csrc/packed_tf.cu launches it: a block per (32 output
+# rows, 512 / C f positions, batch row) writes one (kT, kF, C) partial
+DW_WGRAD_ROWS, DW_COLS = 32, 512
+
+
+def dw_conv_packed_wgrad(xp, g, f_in: int, c: int, kt_kf, pads_t, pads_f):
+    """The weight gradient of ``dw_conv_packed`` (``_dw_conv_wgrad_impl``
+    folded over F): (kT, kF, C) from the input xp (B, T_in, F_in*C) and
+    the output's cotangent g (B, T_out, F_out*C)."""
+    if xp.device.type == "cpu":
+        return dw_conv_packed_wgrad_plain(xp, g, f_in, c, kt_kf, pads_t,
+                                          pads_f)
+    kernel_lib.check_cuda_f32("dw_conv_packed_wgrad", xp, g)
+    b, t_in, _ = xp.shape
+    t_out, n_out = g.shape[1:]
+    f_out = n_out // c
+    ft = max(1, DW_COLS // c)
+    n_part = b * -(-t_out // DW_WGRAD_ROWS) * -(-f_out // ft)
+    partial = torch.empty(n_part, kt_kf[0] * kt_kf[1] * c, device=xp.device)
+    out = torch.empty(kt_kf[0], kt_kf[1], c, device=xp.device)
+    kernel_lib.launch(
+        "packed_tf", "dw_conv_packed_wgrad", xp.device,
+        xp.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        b, t_in, f_in, c, t_out, f_out, *kt_kf, pads_t[0], pads_f[0], n_part)
+    return out
+
+
+def _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f):
+    if xp.device.type == "cpu":
+        return dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f)
+    _check_cuda("dw_conv_packed", xp, w, bias)
+    kt, kf, _ = w.shape
+    b, t_in, _ = xp.shape
+    t_out, f_out = dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f)
+    if min(b, t_out, f_out, c) <= 0:
+        raise ValueError(f"dw_conv_packed: empty output {t_out} x {f_out}")
+    out = torch.empty(b, t_out, f_out * c, device=xp.device)
+    kernel_lib.launch(
+        "packed_tf", "dw_conv_packed_fwd", xp.device,
+        xp.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        b, t_in, f_in, c, t_out, f_out, kt, kf, pads_t[0], pads_f[0],
+        *w.stride(),
+    )
+    return out
+
+
+class _DwConv(torch.autograd.Function):
+    """K5 with its backward (``_dw_conv_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, bias, f_in, c, pads_t, pads_f):
+        ctx.save_for_backward(xp, w)
+        ctx.geometry = (f_in, c, pads_t, pads_f)
+        return _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        f_in, c, pads_t, pads_f = ctx.geometry
+        g = g.contiguous()
+        kt, kf, _ = w.shape
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            # the full correlation: K5 on g, taps flipped, pads k-1-lo/hi
+            dx = _dw_forward(g, torch.flip(w, (0, 1)), None, g.shape[2] // c,
+                             c, (kt - 1 - pads_t[0], kt - 1 - pads_t[1]),
+                             (kf - 1 - pads_f[0], kf - 1 - pads_f[1]))
+        if ctx.needs_input_grad[1]:
+            dw = dw_conv_packed_wgrad(xp, g, f_in, c, (kt, kf), pads_t,
+                                      pads_f)
+        if ctx.needs_input_grad[2]:
+            db = g.reshape(-1, c).sum(0)
+        return dx, dw, db, None, None, None, None
+
+
 def dw_conv_packed(xp, w, bias, f_in: int, c: int, pads_t, pads_f):
     """Depthwise conv on packed (B, T_in, F_in*C), stride 1.
 
@@ -140,22 +239,10 @@ def dw_conv_packed(xp, w, bias, f_in: int, c: int, pads_t, pads_f):
     if cw != c or xp.shape[2] != f_in * c:
         raise ValueError(f"dw_conv_packed: x {tuple(xp.shape)}, F {f_in}, "
                          f"C {c}, w {tuple(w.shape)}")
-    if xp.device.type == "cpu":
-        return dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f)
-    _check_serving("dw_conv_packed", xp, w, bias)
-    b, t_in, _ = xp.shape
-    t_out, f_out = dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f)
-    if min(b, t_out, f_out, c) <= 0:
-        raise ValueError(f"dw_conv_packed: empty output {t_out} x {f_out}")
-    out = torch.empty(b, t_out, f_out * c, device=xp.device)
-    kernel_lib.launch(
-        "packed_tf", "dw_conv_packed_fwd", xp.device,
-        xp.data_ptr(), w.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, t_in, f_in, c, t_out, f_out, kt, kf, pads_t[0], pads_f[0],
-        *w.stride(),
-    )
-    return out
+    if _records(xp, w, bias):
+        return _DwConv.apply(xp, w, bias, f_in, c, tuple(pads_t),
+                             tuple(pads_f))
+    return _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +266,47 @@ def pw_unproj_packed_plain(xp, w, bias, f: int):
     return out
 
 
+def pw_packed_wgrad_plain(a, g):
+    """dW (Ca, Cb) = sum over (b, t, f) of a[.., ca] g[.., cb], one einsum;
+    one side is rank-4 (B, C, T, F), the other packed (B, T, F*C')."""
+    if a.dim() == 4:
+        b, _, t, f = a.shape
+        return torch.einsum("bitf,btfo->io", a, g.reshape(b, t, f, -1))
+    b, _, t, f = g.shape
+    return torch.einsum("btfi,botf->io", a.reshape(b, t, f, -1), g)
+
+
+# pw-wgrad's split, as csrc/packed_tf.cu launches it: a block per (1024
+# positions, batch row) writes one (Ca, Cb) partial
+PW_WGRAD_POSITIONS = 1024
+
+
+def pw_packed_wgrad(a, g):
+    """The weight gradient of the packed 1x1 convs (``_pw_wgrad_impl``):
+    dW (Ca, Cb) = sum over positions of a^T g. K6's is (x4 rank-4, g
+    packed), K7's (xp packed, g rank-4)."""
+    a_planar = a.dim() == 4
+    four, packed = (a, g) if a_planar else (g, a)
+    b, c4, t, f = four.shape
+    if packed.shape[:2] != (b, t) or packed.shape[2] % f:
+        raise ValueError(f"pw_packed_wgrad: a {tuple(a.shape)}, g "
+                         f"{tuple(g.shape)}")
+    if a.device.type == "cpu":
+        return pw_packed_wgrad_plain(a, g)
+    kernel_lib.check_cuda_f32("pw_packed_wgrad", a, g)
+    cp = packed.shape[2] // f
+    ca, cb = (c4, cp) if a_planar else (cp, c4)
+    m = t * f
+    n_part = b * -(-m // PW_WGRAD_POSITIONS)
+    partial = torch.empty(n_part, ca * cb, device=a.device)
+    out = torch.empty(ca, cb, device=a.device)
+    kernel_lib.launch(
+        "packed_tf", "pw_packed_wgrad", a.device, a.data_ptr(), g.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), b, m, ca, cb, int(a_planar),
+        n_part)
+    return out
+
+
 def _pw_launch(fn, x, w, bias, m, k, n, out):
     kernel_lib.launch(
         "packed_tf", fn, x.device, x.data_ptr(), w.data_ptr(),
@@ -187,35 +315,93 @@ def _pw_launch(fn, x, w, bias, m, k, n, out):
     return out
 
 
-def pw_proj_packed(x4, w, bias):
-    """1x1 dense conv (B, Ci, T, F) x (Ci, Co) -> packed (B, T, F*Co).
-
-    ``w`` may be any strided (Ci, Co) view (a torch weight (Co, Ci, 1, 1)
-    gives ``weight[:, :, 0, 0].t()``)."""
-    b, ci, t, f = x4.shape
-    if w.shape[0] != ci:
-        raise ValueError(f"pw_proj_packed: x {tuple(x4.shape)}, w "
-                         f"{tuple(w.shape)}")
+def _proj_forward(x4, w, bias):
     if x4.device.type == "cpu":
         return pw_proj_packed_plain(x4, w, bias)
-    _check_serving("pw_proj_packed", x4, w, bias)
+    _check_cuda("pw_proj_packed", x4, w, bias)
+    b, ci, t, f = x4.shape
     co = w.shape[1]
     out = torch.empty(b, t, f * co, device=x4.device)
     return _pw_launch("pw_proj_packed_fwd", x4, w, bias, t * f, ci, co, out)
 
 
-def pw_unproj_packed(xp, w, bias, f: int):
-    """1x1 dense conv packed (B, T, F*Ci) x (Ci, Co) -> (B, Co, T, F)."""
-    b, t, n = xp.shape
-    ci, co = w.shape
-    if n != f * ci:
-        raise ValueError(f"pw_unproj_packed: x {tuple(xp.shape)}, F {f}, w "
-                         f"{tuple(w.shape)}")
+def _unproj_forward(xp, w, bias, f):
     if xp.device.type == "cpu":
         return pw_unproj_packed_plain(xp, w, bias, f)
-    _check_serving("pw_unproj_packed", xp, w, bias)
+    _check_cuda("pw_unproj_packed", xp, w, bias)
+    b, t, _ = xp.shape
+    ci, co = w.shape
     out = torch.empty(b, co, t, f, device=xp.device)
     return _pw_launch("pw_unproj_packed_fwd", xp, w, bias, t * f, ci, co, out)
+
+
+class _PwProj(torch.autograd.Function):
+    """K6 with its backward (``_pw_proj_bwd``): dx is K7 with w^T, dW is
+    pw-wgrad."""
+
+    @staticmethod
+    def forward(ctx, x4, w, bias):
+        ctx.save_for_backward(x4, w)
+        return _proj_forward(x4, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x4, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _unproj_forward(g, w.t(), None, x4.shape[3])
+        if ctx.needs_input_grad[1]:
+            dw = pw_packed_wgrad(x4, g)
+        if ctx.needs_input_grad[2]:
+            db = g.reshape(-1, w.shape[1]).sum(0)
+        return dx, dw, db
+
+
+class _PwUnproj(torch.autograd.Function):
+    """K7 with its backward (``_pw_unproj_bwd``): dx is K6 with w^T, dW is
+    pw-wgrad."""
+
+    @staticmethod
+    def forward(ctx, xp, w, bias, f):
+        ctx.save_for_backward(xp, w)
+        return _unproj_forward(xp, w, bias, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _proj_forward(g, w.t(), None)
+        if ctx.needs_input_grad[1]:
+            dw = pw_packed_wgrad(xp, g)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 2, 3))
+        return dx, dw, db, None
+
+
+def pw_proj_packed(x4, w, bias):
+    """1x1 dense conv (B, Ci, T, F) x (Ci, Co) -> packed (B, T, F*Co).
+
+    ``w`` may be any strided (Ci, Co) view (a torch weight (Co, Ci, 1, 1)
+    gives ``weight[:, :, 0, 0].t()``)."""
+    if w.shape[0] != x4.shape[1]:
+        raise ValueError(f"pw_proj_packed: x {tuple(x4.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if _records(x4, w, bias):
+        return _PwProj.apply(x4, w, bias)
+    return _proj_forward(x4, w, bias)
+
+
+def pw_unproj_packed(xp, w, bias, f: int):
+    """1x1 dense conv packed (B, T, F*Ci) x (Ci, Co) -> (B, Co, T, F)."""
+    if xp.shape[2] != f * w.shape[0]:
+        raise ValueError(f"pw_unproj_packed: x {tuple(xp.shape)}, F {f}, w "
+                         f"{tuple(w.shape)}")
+    if _records(xp, w, bias):
+        return _PwUnproj.apply(xp, w, bias, f)
+    return _unproj_forward(xp, w, bias, f)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +473,26 @@ def stride2_select_maps(t_conv: int, t_out: int, f_conv: int, f_out: int):
     return m, fs, fw
 
 
+def transpose_fmap(fs, fw, f_in: int):
+    """Transpose an F side (F_out, nnz) -> (f_in, nnz'): row f lists the
+    output blocks that read input block f, with their weights
+    (``_transpose_fmap``; weight-0 entries dropped, rows padded with
+    weight-0 entries)."""
+    rows = [[] for _ in range(f_in)]
+    for o in range(fs.shape[0]):
+        for i in range(fs.shape[1]):
+            if fw[o, i] != 0.0:
+                rows[int(fs[o, i])].append((o, float(fw[o, i])))
+    nnz = max(1, max(len(r) for r in rows))
+    tfs = np.zeros((f_in, nnz), np.int32)
+    tfw = np.zeros((f_in, nnz), np.float32)
+    for f, row in enumerate(rows):
+        for i, (o, w) in enumerate(row):
+            tfs[f, i] = o
+            tfw[f, i] = w
+    return tfs, tfw
+
+
 class SpatialMap:
     """A separable static map: the dense T side ``m`` (T_out, T_in) and the
     F side as (F_out, nnz) source blocks ``fs`` and weights ``fw``, as the
@@ -295,10 +501,20 @@ class SpatialMap:
     tensors are made once per device and kept."""
 
     def __init__(self, m, fs, fw):
-        self.m = np.asarray(m, np.float32)
+        self.m = np.ascontiguousarray(m, np.float32)
         self.fs = np.asarray(fs, np.int32)
         self.fw = np.asarray(fw, np.float32)
         self._on = {}
+        self._transposed = {}
+
+    def transposed(self, f_in: int) -> "SpatialMap":
+        """The linear transpose of this map onto an input F side of
+        ``f_in`` blocks, its VJP: T side ``m.T``, F side
+        ``transpose_fmap``; built once per ``f_in`` and kept."""
+        if f_in not in self._transposed:
+            self._transposed[f_in] = SpatialMap(
+                self.m.T, *transpose_fmap(self.fs, self.fw, f_in))
+        return self._transposed[f_in]
 
     @property
     def t_in(self) -> int:
@@ -357,17 +573,17 @@ def _f_side(x, fs, fw, axis):
 
 
 def spatial_down_packed_plain(xp, smap: SpatialMap, c: int):
-    """F side by gather, T side by the dense M (einsum)."""
+    """F side by gather, T side by the dense M (einsum), in xp's dtype."""
     b, t, n = xp.shape
     tens = smap.tensors(xp.device)
     col = _f_side(xp.reshape(b, t, n // c, c), tens["fs"], tens["fw"], 2)
-    return torch.einsum("st,btfc->bcsf", tens["m"], col)
+    return torch.einsum("st,btfc->bcsf", tens["m"].to(col.dtype), col)
 
 
 def spatial_up_packed_plain(x4, smap: SpatialMap):
     b, c = x4.shape[:2]
     tens = smap.tensors(x4.device)
-    y = torch.einsum("ts,bcsu->btuc", tens["m"], x4)
+    y = torch.einsum("ts,bcsu->btuc", tens["m"].to(x4.dtype), x4)
     y = _f_side(y, tens["fs"], tens["fw"], 2)  # (B, T, F, C)
     return y.reshape(b, smap.t_out, smap.f_out * c)
 
@@ -382,31 +598,76 @@ def _spatial_launch(fn, x, smap, out, t_in, f_in, c):
     return out
 
 
-def spatial_down_packed(xp, smap: SpatialMap, c: int):
-    """Packed (B, T, F*C) -> rank-4 (B, C, T2, F2) through ``smap``."""
-    b, t, n = xp.shape
-    if t != smap.t_in or n % c or int(smap.fs.max()) >= n // c:
-        raise ValueError(f"spatial_down_packed: x {tuple(xp.shape)}, C {c}, "
-                         f"map T {smap.t_in}")
+def _down_forward(xp, smap, c):
     if xp.device.type == "cpu":
         return spatial_down_packed_plain(xp, smap, c)
-    _check_serving("spatial_down_packed", xp)
+    _check_cuda("spatial_down_packed", xp)
+    b, t, n = xp.shape
     out = torch.empty(b, c, smap.t_out, smap.f_out, device=xp.device)
     return _spatial_launch("spatial_down_packed_fwd", xp, smap, out, t,
                            n // c, c)
 
 
+def _up_forward(x4, smap):
+    if x4.device.type == "cpu":
+        return spatial_up_packed_plain(x4, smap)
+    _check_cuda("spatial_up_packed", x4)
+    b, c, t2, f2 = x4.shape
+    out = torch.empty(b, smap.t_out, smap.f_out * c, device=x4.device)
+    return _spatial_launch("spatial_up_packed_fwd", x4, smap, out, t2, f2, c)
+
+
+class _SpatialDown(torch.autograd.Function):
+    """K8 with its backward (``_spatial_down_bwd``): K9 through the
+    transposed map, one launch whatever the rows' source count."""
+
+    @staticmethod
+    def forward(ctx, xp, smap, c):
+        ctx.smap, ctx.f_in = smap, xp.shape[2] // c
+        return _down_forward(xp, smap, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_up_forward(g.contiguous(), ctx.smap.transposed(ctx.f_in)),
+                None, None)
+
+
+class _SpatialUp(torch.autograd.Function):
+    """K9 with its backward (``_spatial_up_bwd``): K8 through the
+    transposed map."""
+
+    @staticmethod
+    def forward(ctx, x4, smap):
+        ctx.smap, ctx.f_in = smap, x4.shape[3]
+        return _up_forward(x4, smap)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = g.shape[2] // ctx.smap.f_out
+        return (_down_forward(g.contiguous(), ctx.smap.transposed(ctx.f_in),
+                              c), None)
+
+
+def spatial_down_packed(xp, smap: SpatialMap, c: int):
+    """Packed (B, T, F*C) -> rank-4 (B, C, T2, F2) through ``smap``."""
+    _, t, n = xp.shape
+    if t != smap.t_in or n % c or int(smap.fs.max()) >= n // c:
+        raise ValueError(f"spatial_down_packed: x {tuple(xp.shape)}, C {c}, "
+                         f"map T {smap.t_in}")
+    if _records(xp):
+        return _SpatialDown.apply(xp, smap, c)
+    return _down_forward(xp, smap, c)
+
+
 def spatial_up_packed(x4, smap: SpatialMap):
     """Rank-4 (B, C, T2, F2) -> packed (B, T, F*C) through ``smap``."""
-    b, c, t2, f2 = x4.shape
+    _, _, t2, f2 = x4.shape
     if t2 != smap.t_in or int(smap.fs.max()) >= f2:
         raise ValueError(f"spatial_up_packed: x {tuple(x4.shape)}, map T "
                          f"{smap.t_in}")
-    if x4.device.type == "cpu":
-        return spatial_up_packed_plain(x4, smap)
-    _check_serving("spatial_up_packed", x4)
-    out = torch.empty(b, smap.t_out, smap.f_out * c, device=x4.device)
-    return _spatial_launch("spatial_up_packed_fwd", x4, smap, out, t2, f2, c)
+    if _records(x4):
+        return _SpatialUp.apply(x4, smap)
+    return _up_forward(x4, smap)
 
 
 # ---------------------------------------------------------------------------

@@ -243,24 +243,127 @@ def test_k8_k9_match_plain(dev, shape):
                                atol=0, rtol=0)
 
 
-def test_packed_ops_refuse_autograd_on_the_card(dev):
-    """The packed backward is not ported: a CUDA call autograd would record
-    raises, and a serving call does not."""
+@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+@pytest.mark.parametrize("kt,pads", [(4, (1, 2)), (4, (1, 1)), (3, (1, 1))])
+def test_k5_wgrad_matches_plain_and_repeats_exactly(dev, shape, kt, pads):
     from rtfs_tpu_torch.ops import packed_tf as P
 
-    rng = np.random.default_rng(9)
-    xp = _t(rng, (1, 9, 5 * 4), dev).requires_grad_()
-    w = _t(rng, (3, 3, 4), dev)
-    with pytest.raises(NotImplementedError, match="backward"):
-        P.dw_conv_packed(xp, w, None, 5, 4, (1, 1), (1, 1))
-    with pytest.raises(NotImplementedError, match="backward"):
-        P.spatial_down_packed(xp, P.cached_map("pool", 9, 4, 5, 2), 4)
-    with torch.inference_mode():
-        P.dw_conv_packed(xp, w, None, 5, 4, (1, 1), (1, 1))
-    x4 = _t(rng, (1, 6, 9, 5), dev)
-    wp = _t(rng, (6, 4), dev).requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        P.pw_proj_packed(x4, wp, None)
+    b, t, f, c, _ = PACKED_SHAPES[shape]
+    b = 4 if shape == "serving" else b  # the training batch
+    rng = np.random.default_rng(11)
+    t_out, f_out = P.dw_geometry(t, f, kt, kt, pads, pads)
+    xp, g = _t(rng, (b, t, f * c), dev), _t(rng, (b, t_out, f_out * c), dev)
+    got = P.dw_conv_packed_wgrad(xp, g, f, c, (kt, kt), pads, pads)
+    want = P.dw_conv_packed_wgrad_plain(xp, g, f, c, (kt, kt), pads, pads)
+    _close((got,), (want,), rel=1e-4)  # sums of B*T*F products
+    assert torch.equal(got, P.dw_conv_packed_wgrad(xp, g, f, c, (kt, kt),
+                                                   pads, pads))
+
+
+@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+def test_pw_wgrad_matches_plain_and_repeats_exactly(dev, shape):
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PACKED_SHAPES[shape]
+    b = 4 if shape == "serving" else b
+    rng = np.random.default_rng(12)
+    for a, g in (((b, ci, t, f), (b, t, f * c)),   # K6's dW
+                 ((b, t, f * c), (b, ci, t, f))):  # K7's dW
+        a, g = _t(rng, a, dev), _t(rng, g, dev)
+        got = P.pw_packed_wgrad(a, g)
+        _close((got,), (P.pw_packed_wgrad_plain(a, g),), rel=1e-4)
+        assert torch.equal(got, P.pw_packed_wgrad(a, g))
+
+
+def test_packed_tdanet_block_gradients_card_match_cpu(dev):
+    """A packed TDANet block's backward on the card (K5-K9 as dx, the two
+    wgrad kernels) against the same block's on the CPU (plain versions):
+    the input's and every parameter's gradient."""
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.separators import TDANetBlock
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    m = TDANetBlock(16, 8, kernel_size=4, upsampling_depth=2, is2d=True)
+    init_weights(m, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (2, 16, 21, 17)).astype(np.float32)).requires_grad_()
+    with P.packed_scope(True):
+        m(x).square().sum().backward()
+        want = {n: p.grad.clone() for n, p in m.named_parameters()}
+        want["x"] = x.grad
+        m.zero_grad()
+        m.to(dev)
+        xd = x.detach().to(dev).requires_grad_()
+        kernel_lib.reset_launches()
+        m(xd).square().sum().backward()
+    assert kernel_lib.LAUNCHES == {
+        "dw_conv_packed_fwd": 8, "dw_conv_packed_wgrad": 4,
+        "pw_proj_packed_fwd": 2, "pw_unproj_packed_fwd": 2,
+        "pw_packed_wgrad": 2, "spatial_down_packed_fwd": 6,
+        "spatial_up_packed_fwd": 6}
+    got = {n: p.grad for n, p in m.named_parameters()}
+    got["x"] = xd.grad
+    assert got.keys() == want.keys()
+    for n, w in want.items():
+        assert got[n] is not None, n
+        torch.testing.assert_close(got[n].cpu(), w, rtol=0, msg=n,
+                                   atol=1e-4 * w.abs().max().item() + 1e-7)
+
+
+def test_packed_wrappers_give_every_parameter_a_gradient(dev):
+    """With packed_tf, every parameter of a micro AVNet (2-D TDANet blocks
+    with a DualPathRNN, CAF fusion) gets a finite gradient on the card,
+    through K1-K3 and K5-K9 forward and backward."""
+    from rtfs_tpu_torch.config import build_avnet
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    model = build_avnet({"audionet": MICRO_PACKED_AUDIONET}, device=dev,
+                        seed=0)
+    assert model.packed_tf
+    rng = np.random.default_rng(14)
+    wav = _t(rng, (2, 1024), dev, 0.1)
+    mouth = _t(rng, (2, 8, 32), dev)
+    kernel_lib.reset_launches()
+    model(wav, mouth).square().mean().backward()
+    for fn in ("dw_conv_packed_wgrad", "pw_packed_wgrad",
+               "spatial_up_packed_fwd", "sru_hidden_layer_bwd"):
+        assert kernel_lib.LAUNCHES[fn] > 0, fn
+    for n, p in model.named_parameters():
+        assert p.grad is not None, n
+        assert torch.isfinite(p.grad).all(), n
+
+
+# a micro AVNet whose audio TDANet blocks take the packed layout (2-D,
+# stride 2, kernel 4): STFT 33 x 33, hid 8, one DualPathRNN
+MICRO_PACKED_AUDIONET = {
+    "n_src": 1, "pretrained_vout_chan": 32, "packed_tf": True,
+    "video_bn_params": {"kernel_size": -1},
+    "audio_bn_params": {"pre_norm_type": "gLN", "pre_act_type": "ReLU",
+                        "out_chan": 16, "kernel_size": 1, "is2d": True},
+    "enc_dec_params": {
+        "encoder_type": "STFTEncoder", "decoder_type": "STFTDecoder",
+        "win": 64, "hop_length": 32, "out_chan": 16, "kernel_size": 3,
+        "stride": 1, "bias": False, "act_type": None, "norm_type": None},
+    "audio_params": {
+        "audio_net": "TDANet", "hid_chan": 8, "kernel_size": 4, "stride": 2,
+        "norm_type": "gLN", "act_type": "PReLU", "upsampling_depth": 2,
+        "repeats": 2, "shared": True, "is2d": True,
+        "layers": {"layer_1": {
+            "layer_type": "DualPathRNN", "hid_chan": 4, "dim": 4,
+            "kernel_size": 4, "stride": 1, "rnn_type": "SRU",
+            "num_layers": 2, "bidirectional": True}}},
+    "video_params": {
+        "video_net": "TDANet", "hid_chan": 8, "kernel_size": 3, "stride": 2,
+        "norm_type": "BatchNorm1d", "act_type": "PReLU",
+        "upsampling_depth": 2, "repeats": 1, "shared": True, "is2d": False,
+        "layers": {}},
+    "fusion_params": {"fusion_type": "ATTNFusion", "fusion_shared": True,
+                      "kernel_size": 4, "is2d": True},
+    "mask_generation_params": {"mask_generator_type": "MaskGenerator",
+                               "mask_act": "ReLU", "RI_split": True,
+                               "is2d": True},
+}
 
 
 def test_packed_tdanet_block_card_matches_cpu(dev):
