@@ -65,15 +65,33 @@ one or outside the repository. Phases, any failure of which ends the run:
    K1/K2/K3 8/24/8 forward and backward), every loss be finite and the
    parameters move; it prints ms per step of both, peak memory, and one
    profiled packed step's device time, idle share and top kernels.
+10. Unidirectional (after phase 9): the preset with both DualPathRNNs'
+   ``bidirectional`` false (``UNI_OVERRIDES``, applied by
+   ``utils/parser.parse_overrides`` as the entries apply them), the path of
+   K4 ``sru_recurrence`` (``csrc/sru_pallas.cu``). (a) K4 forward at the
+   serving shapes (batch 1 and 8) and with c at batch 4, and its backward
+   at batch 4, against the plain versions and autograd through the plain
+   forward (the backward twice, bit-identical), timed beside bound and
+   plain; (b) ``separate_sample`` at batch 1 and 8 launching exactly
+   ``k4_launches`` K4 per forward and no other kernel, against the CPU;
+   (c) the train entry with the overrides (8 synthetic samples, one
+   epoch), then the serving entry on that run's ``conf.json`` and
+   ``best_model.pt``, whose forward launches K4 ``k4_launches`` times;
+   (d) one bs-1 step through phase 6's gates against this model's own
+   float64 step, then ``TRAIN_STEPS`` steps at batch 4 launching exactly
+   ``k4_launches`` K4 forward and backward each per step, with ms per
+   step, peak memory and one profiled step's K4 share.
 
-The last lines are the ``kernels`` JSON object, the card line, and
-``{"ok": true, "device": {...}}``. TF32 is switched off for cuDNN and
-matmuls before any comparison, so every float32 product is full float32.
+The last lines are the ``kernels`` JSON object (15 kernels), the card
+line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
+cuDNN and matmuls before any comparison, so every float32 product is full
+float32.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import statistics
@@ -122,6 +140,11 @@ BWD_REL_TOL = {"sru_dual_recurrence_bwd": 1e-4, "sru_hidden_layer_bwd": 1e-4,
 # up to 25x the CPU's error from float64 (0.57% of max on the audio
 # bottleneck's weight), where the same step with cuDNN off matched the CPU.
 TRAIN_LOSS_REL_TOL = 1e-4
+# K4 (gen-1 SRU recurrence) against its plain version on the card: the
+# forward elementwise gate math only, as K1 (max abs error); the backward
+# relative to each output's max, as K1's (BWD_REL_TOL)
+K4_TOL = 1e-5
+K4_BWD_REL_TOL = 1e-4
 TRAIN_GRAD_CPU_FACTOR = 3.0
 TRAIN_GRAD_REL_TOL = 1e-4
 TRAIN_GRAD_CUDNN_REL_TOL = 1e-2
@@ -167,6 +190,14 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def phase(name, fn, *args):
+    """Run one phase, print its seconds, return its result."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    return out
 
 
 def bound_ms(bytes_moved: float, ops: float):
@@ -217,6 +248,25 @@ def packed_launches(conf) -> dict:
     return {"dw_conv_packed_fwd": 4 * r, "pw_proj_packed_fwd": r,
             "pw_unproj_packed_fwd": r, "spatial_down_packed_fwd": 2 * r,
             "spatial_up_packed_fwd": 4 * r}
+
+
+def k4_launches(conf) -> int:
+    """Launches of K4 (``sru_recurrence_fwd``) per forward, from the preset:
+    every SRU of an audio DualPathRNN that the fused stack does not take
+    (unidirectional, or bidirectional with input width 2H) runs K4 once a
+    layer and direction, once a repeat of the shared block. A train step
+    launches as many K4 backwards. tests/test_torch_avnet_uni.py holds it
+    against a forward and a train step."""
+    ap = conf["audionet"]["audio_params"]
+    n = 0
+    for lay in ap["layers"].values():
+        if lay["layer_type"] != "DualPathRNN" or lay["rnn_type"] != "SRU":
+            continue
+        bidir, h = lay["bidirectional"], lay["hid_chan"]
+        if bidir and ap["hid_chan"] * lay["kernel_size"] != 2 * h:
+            continue  # the fused stack, K1/K2
+        n += (2 if bidir else 1) * lay["num_layers"]
+    return n * ap["repeats"]
 
 
 def packed_train_launches(conf) -> dict:
@@ -466,9 +516,16 @@ def check_kernels(geo, rng) -> dict:
     return res
 
 
-def serve(conf, rng) -> dict:
-    """Phase 4: the port's serving entry on the card, held against the
-    same model on the CPU; returns launch counts and end-to-end times."""
+# launches of K1/K2/K3 per standard forward
+SERVE_LAUNCHES = {"sru_dual_recurrence_fwd": 2 * REPEATS,
+                  "sru_hidden_layer_fwd": 2 * REPEATS * 3,
+                  "convt1d_ola_tm_fwd": 2 * REPEATS}
+
+
+def serve(conf, rng, expect, label="serving") -> dict:
+    """Phase 4 (and 10): the port's serving entry on the card, held
+    against the same model on the CPU; the launches per forward must be
+    exactly ``expect``. Returns the launch counts."""
     from rtfs_tpu_torch.config import build_avnet
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.utils.separator import separate_sample
@@ -476,7 +533,7 @@ def serve(conf, rng) -> dict:
     t0 = time.perf_counter()
     model = build_avnet(conf, device="cuda", seed=0)
     cpu_model = build_avnet(conf, device="cpu", seed=0)
-    print(f"serving: built RTFS-Net-4 ({REPEATS} repeats, "
+    print(f"{label}: built RTFS-Net-4 ({REPEATS} repeats, "
           f"{sum(p.numel() for p in model.parameters())} params) on cuda and "
           f"cpu in {time.perf_counter() - t0:.3f} s")
     requests = {}
@@ -491,16 +548,11 @@ def serve(conf, rng) -> dict:
     torch.cuda.synchronize()
     launches = dict(kernel_lib.LAUNCHES)
     n_fwd = len(requests)
-    expect = {"sru_dual_recurrence_fwd": 2 * REPEATS,
-              "sru_hidden_layer_fwd": 2 * REPEATS * 3,
-              "convt1d_ola_tm_fwd": 2 * REPEATS}
-    print(f"serving: launches over {n_fwd} forwards: {launches}; per forward "
+    print(f"{label}: launches over {n_fwd} forwards: {launches}; per forward "
           f"{ {k: v / n_fwd for k, v in launches.items()} }")
-    for name, per in expect.items():
-        if launches.get(name, 0) != n_fwd * per:
-            raise AssertionError(
-                f"{name}: {launches.get(name, 0)} launches, expected "
-                f"{n_fwd * per} ({per} per forward)")
+    if launches != {k: n_fwd * v for k, v in expect.items()}:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect} per forward")
 
     for bs, (wav, mouth) in requests.items():
         got = outs[bs]
@@ -511,11 +563,12 @@ def serve(conf, rng) -> dict:
         cpu_s = time.perf_counter() - t0
         err = float(np.abs(got - want).max())
         scale = float(np.abs(want).max())
-        print(f"serving: bs={bs} card vs cpu max_abs_err={err:.3e} "
+        print(f"{label}: bs={bs} card vs cpu max_abs_err={err:.3e} "
               f"max|out|={scale:.3e} (tol {SERVE_REL_TOL:.0e} * max|out|); "
               f"cpu forward {cpu_s:.3f} s")
         if not err <= SERVE_REL_TOL * scale:
-            raise AssertionError(f"bs {bs}: card and CPU outputs disagree")
+            raise AssertionError(f"{label} bs {bs}: card and CPU outputs "
+                                 "disagree")
 
     timing = {}
     for bs, iters in ((1, 20), (8, 10)):
@@ -529,7 +582,7 @@ def serve(conf, rng) -> dict:
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
         timing[bs] = med
-        print(f"serving: bs={bs} request latency median={med * 1e3:.3f} ms "
+        print(f"{label}: bs={bs} request latency median={med * 1e3:.3f} ms "
               f"min={min(times) * 1e3:.3f} ms max={max(times) * 1e3:.3f} ms "
               f"over {iters}; audio s/s={bs * SAMPLES / 16000 / med:.3f}; "
               f"peak device memory "
@@ -578,9 +631,7 @@ def serve_packed(conf, rng) -> dict:
         torch.cuda.synchronize()
         launches = dict(kernel_lib.LAUNCHES)
         cpu, cpu_s = run("--packed-tf", "--cpu")
-    expect = {"sru_dual_recurrence_fwd": 2 * REPEATS,
-              "sru_hidden_layer_fwd": 2 * REPEATS * 3,
-              "convt1d_ola_tm_fwd": 2 * REPEATS, **packed_launches(conf)}
+    expect = {**SERVE_LAUNCHES, **packed_launches(conf)}
     print(f"serving from files: packed entry launches {launches} (expected "
           f"{expect}); entry wall s: card {std_s:.3f}, card packed "
           f"{packed_s:.3f}, cpu packed {cpu_s:.3f}")
@@ -848,25 +899,25 @@ def _train_runs(conf, batch, runs) -> dict:
     return res
 
 
-def compare_train_step(conf, batch) -> dict:
+def compare_train_step(conf, batch, tag="") -> dict:
     """One train step at batch 1 with dropout 0 on the card (with cuDNN
     and with it off) and on the CPU in float32, each held against the
     CPU's float64 step, and the card's against the CPU's; a repeat of the
     card step shows its run-to-run spread. The tolerances are at
-    ``TRAIN_GRAD_*``. Returns the card's, the CPU's and the float64 steps
-    for the packed phase to reuse."""
+    ``TRAIN_GRAD_*``; ``tag`` prefixes the runs' names. Returns the card's,
+    the CPU's and the float64 steps for the packed phase to reuse."""
     res = _train_runs(conf, batch, {
-        "card": ("cuda", torch.float32, True),
-        "card again": ("cuda", torch.float32, True),
-        "card, cuDNN off": ("cuda", torch.float32, False),
-        "cpu": ("cpu", torch.float32, True),
-        "cpu float64": ("cpu", torch.float64, True)})
-    ref = {"float64": res.pop("cpu float64"), "cpu": res["cpu"],
-           "card": res["card"]}
-    spread = max((g - res["card again"][1][n]).abs().max().item()
-                 for n, g in res["card"][1].items())
-    hold_train_step(res, ref, "card", "card, cuDNN off")
-    print(f"training: card vs card max abs {spread:.3e}")
+        f"{tag}card": ("cuda", torch.float32, True),
+        f"{tag}card again": ("cuda", torch.float32, True),
+        f"{tag}card, cuDNN off": ("cuda", torch.float32, False),
+        f"{tag}cpu": ("cpu", torch.float32, True),
+        f"{tag}cpu float64": ("cpu", torch.float64, True)})
+    ref = {"float64": res.pop(f"{tag}cpu float64"), "cpu": res[f"{tag}cpu"],
+           "card": res[f"{tag}card"]}
+    spread = max((g - res[f"{tag}card again"][1][n]).abs().max().item()
+                 for n, g in res[f"{tag}card"][1].items())
+    hold_train_step(res, ref, f"{tag}card", f"{tag}card, cuDNN off")
+    print(f"training: {tag}card vs {tag}card max abs {spread:.3e}")
     return ref
 
 
@@ -961,8 +1012,10 @@ def profile_step(system, batch, generator, label: str,
         print(f"{label}: kernel {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
     if picked:
+        picked_ms = sum(dev_us(e) for e in picked) / 1e3
         print(f"{label}: those {len(picked)} kernels together "
-              f"{sum(dev_us(e) for e in picked) / 1e3:.3f} ms of the step")
+              f"{picked_ms:.3f} ms of the step, share "
+              f"{picked_ms / dev_ms:.3f} of its device time")
 
 
 # the device kernels of csrc/packed_tf.cu, as the profiler names them
@@ -980,10 +1033,12 @@ TRAIN_LAUNCHES = {"sru_dual_recurrence_fwd": 2 * REPEATS,
                   "convt1d_ola_tm_bwd": 2 * REPEATS}
 
 
-def train(conf) -> tuple:
-    """Phase 6: one train step on the card against float64 on the CPU, then
-    the train system's steps at batch 4; returns the launch counts of those
-    steps and the batch-1 steps for phase 9."""
+def train(conf, expect, label="training", also=()) -> tuple:
+    """Phase 6 (and 10): one train step on the card against float64 on the
+    CPU, then the train system's steps at batch 4, each launching exactly
+    ``expect``; one more step profiled (``also``: kernel names whose device
+    time it sums). Returns the launch counts of those steps and the batch-1
+    steps for phase 9."""
     from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.train.main import build_system
@@ -991,7 +1046,8 @@ def train(conf) -> tuple:
 
     data = SyntheticAVDataset(n_samples=TRAIN_BATCH * TRAIN_STEPS, seed=0)
 
-    ref = compare_train_step(conf, data.collate([data[0]]))
+    tag = "" if label == "training" else f"{label} "
+    ref = compare_train_step(conf, data.collate([data[0]]), tag)
 
     # the main path: the train system's steps at batch 4, preset dropout
     system = build_system(conf, "cuda", seed=0)
@@ -1009,12 +1065,11 @@ def train(conf) -> tuple:
         times.append(time.perf_counter() - t0)
     launches = dict(kernel_lib.LAUNCHES)
     n = len(batches)
-    print(f"training: launches over {n} steps: {launches}; per step "
+    print(f"{label}: launches over {n} steps: {launches}; per step "
           f"{ {k: v / n for k, v in launches.items()} }")
-    for name, per in TRAIN_LAUNCHES.items():
-        if launches.get(name, 0) != n * per:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
-                                 f"in {n} steps, expected {per} per step")
+    if launches != {k: n * v for k, v in expect.items()}:
+        raise AssertionError(f"{label}: {n} steps launched {launches}, "
+                             f"expected {expect} per step")
     losses = [v.item() for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
@@ -1023,13 +1078,13 @@ def train(conf) -> tuple:
     if moved == 0:
         raise AssertionError("no parameter changed in training")
     med = statistics.median(times[1:])
-    print(f"training: {n} steps at batch {TRAIN_BATCH}, losses "
+    print(f"{label}: {n} steps at batch {TRAIN_BATCH}, losses "
           f"{[round(v, 4) for v in losses]}; {moved} of {len(before)} "
           f"parameter tensors moved; ms per step median={med * 1e3:.3f} "
           f"min={min(times[1:]) * 1e3:.3f} max={max(times[1:]) * 1e3:.3f} "
           f"(first step {times[0] * 1e3:.3f}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    profile_step(system, batches[0], generator, "training")
+    profile_step(system, batches[0], generator, label, also=also)
     return launches, ref
 
 
@@ -1287,6 +1342,192 @@ def train_packed(conf, rng, ref) -> tuple:
     return wgrads, launches
 
 
+def check_k4_kernels(geo, rng) -> dict:
+    """Phase 10, first: K4 forward at the serving shapes (batch 1 and 8,
+    both sites), the training forward with c and the backward at batch 4,
+    each against its plain version on the same card inputs; the backward
+    also against autograd through the plain forward, twice (bit-identical),
+    and the Function's gradients (u, xhw, v, b) against the same autograd.
+    Returns per kernel the max error and the per-forward (batch 8) or
+    per-train-step (batch 4) sums of kernel, plain and bound times."""
+    from rtfs_tpu_torch.ops import sru_pallas as S
+
+    H, dev = geo["H"], torch.device("cuda")
+    per_site = REPEATS * geo["layers"]  # K4 calls per site, one direction
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+
+    v, b = t((2, H), math.sqrt(1.0 / H)), t((2, H), 0.1)
+    vb = torch.cat([v, b])
+    res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": None, "library_ms": None}
+           for name in ("sru_recurrence", "sru_recurrence_bwd")}
+    for bs in (1, 8, TRAIN_BATCH):
+        with_c = bs == TRAIN_BATCH  # the training forward keeps c
+        for site in ("freq", "time"):
+            length, per_item = geo[site]
+            B = bs * per_item
+            u, x = t((length, 3 * H, B)), t((length, H, B))
+            kern = functools.partial(S._k4_forward, u, x, vb, False, with_c)
+            plain = functools.partial(S.sru_recurrence_plain, u, x, vb, False,
+                                      with_c)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if with_c else (got,)
+            want = want if with_c else (want,)
+            err, _ = _max_err(got, want)
+            ms = time_cuda(kern, 50)
+            plain_ms = time_cuda(plain, 3, warmup=1)
+            # u, xhw read, h (and c) written, once each; ~20 flops a
+            # (step, unit, column)
+            b_ms, b_by = bound_ms(4 * (length * B * (5 + with_c) * H + 4 * H),
+                                  20 * length * H * B)
+            what = " (training, with c)" if with_c else ""
+            print(f"kernel sru_recurrence{what} bs={bs} site={site} "
+                  f"L={length} B={B}: max_abs_err="
+                  f"{err:.3e} (tol {K4_TOL:.0e}) ms={ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
+                  "library_ms=None")
+            if not err <= K4_TOL:
+                raise AssertionError("sru_recurrence disagrees with its "
+                                     f"plain version: {err:.3e}")
+            r = res["sru_recurrence"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if bs == 8:  # per-forward sums at batch 8
+                r["ms"] += per_site * ms
+                r["plain_ms"] += per_site * plain_ms
+                r["bound_ms"] += per_site * b_ms
+                r["bound_by"] = b_by
+            if not with_c:
+                continue
+
+            c, dh = got[1], t((length, H, B))
+            kern = functools.partial(S._k4_backward, u, x, vb, c, dh, False)
+            plain = functools.partial(S.sru_recurrence_bwd_plain, u, x, vb, c,
+                                      dh)
+            leaves = [a.clone().requires_grad_() for a in (u, x, v, b)]
+            auto = torch.autograd.grad(S.sru_recurrence_plain(
+                leaves[0], leaves[1], torch.cat(leaves[2:])), leaves, dh)
+            fn = torch.autograd.grad(S.sru_recurrence(*leaves), leaves, dh)
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            auto_k = (auto[0], auto[1], torch.cat(auto[2:]))
+            worst = 0.0
+            for label, out, ref in (("kernel vs plain backward", got, want),
+                                    ("kernel vs autograd", got, auto_k),
+                                    ("Function vs autograd", fn, auto)):
+                for i, (g, w) in enumerate(zip(out, ref)):
+                    e, scale = (g - w).abs().max().item(), w.abs().max().item()
+                    worst = max(worst, e)
+                    print(f"kernel sru_recurrence_bwd site={site} L={length} "
+                          f"B={B} output {i}, {label}: max_abs_err={e:.3e} "
+                          f"max|ref|={scale:.3e} (tol "
+                          f"{K4_BWD_REL_TOL:.0e} * max|ref|)")
+                    if not e <= K4_BWD_REL_TOL * scale:
+                        raise AssertionError(
+                            f"sru_recurrence_bwd output {i} ({label}): "
+                            f"{e:.3e} on {scale:.3e}")
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            ms = time_cuda(kern, 30)
+            plain_ms = time_cuda(plain, 3, warmup=1)
+            # u, xhw, c, dh read, du, dxhw written; ~35 flops a (step, unit,
+            # column)
+            b_ms, b_by = bound_ms(4 * (length * B * 10 * H + 8 * H),
+                                  35 * length * H * B)
+            print(f"kernel sru_recurrence_bwd site={site} L={length} B={B}: "
+                  f"two calls bit-identical {same}; ms={ms:.5f} plain_ms="
+                  f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
+                  "library_ms=None")
+            if not same:
+                raise AssertionError("sru_recurrence_bwd: two calls differ")
+            r = res["sru_recurrence_bwd"]
+            r["max_abs_err"] = max(r["max_abs_err"], worst)
+            r["ms"] += per_site * ms
+            r["plain_ms"] += per_site * plain_ms
+            r["bound_ms"] += per_site * b_ms
+            r["bound_by"] = b_by
+    return res
+
+
+# the two overrides that make both DualPathRNNs unidirectional
+UNI_OVERRIDES = ("--audionet.audio_params.layers.layer_1.bidirectional",
+                 "false",
+                 "--audionet.audio_params.layers.layer_2.bidirectional",
+                 "false")
+
+
+def uni_entries(conf_uni, rng) -> dict:
+    """Phase 10, entries: the train entry with the overrides on 8 synthetic
+    samples for one epoch, then the serving entry on the run's
+    ``conf.json`` and ``best_model.pt`` with a 2 s wav and 50 mouth frames,
+    on the card; returns the inference forward's launches."""
+    import os
+    import tempfile
+
+    from rtfs_tpu_torch import inference
+    from rtfs_tpu_torch.data.wav import write_wav
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()
+        row = train_main.cli(["--conf-dir", PRESET, *UNI_OVERRIDES,
+                              "--data.synthetic", "true",
+                              "--data.synthetic_samples", "8",
+                              "--training.epochs", "1", "--log.path", root])
+        torch.cuda.synchronize()
+        print(f"uni entries: train entry {time.perf_counter() - t0:.3f} s, "
+              f"last row {row}, launches {dict(kernel_lib.LAUNCHES)}")
+        if row is None or not math.isfinite(row["val_loss"]):
+            raise AssertionError(f"uni train entry: {row}")
+        exp_dir = os.path.join(root, conf_uni["log"]["exp_name"])
+        wav = (rng.standard_normal(SAMPLES) * 0.1).astype(np.float32)
+        write_wav(os.path.join(root, "mix.wav"), wav, 16000)
+        mouth = rng.integers(0, 256, (VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE),
+                             dtype=np.uint8)
+        np.savez(os.path.join(root, "mouth.npz"), data=mouth)
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()
+        est = inference.main([
+            "--conf-dir", os.path.join(exp_dir, "conf.json"),
+            "--wav", os.path.join(root, "mix.wav"),
+            "--mouth", os.path.join(root, "mouth.npz"),
+            "--out-dir", os.path.join(root, "out")])
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)
+    expect = {"sru_recurrence_fwd": k4_launches(conf_uni)}
+    print(f"uni entries: inference entry {time.perf_counter() - t0:.3f} s, "
+          f"launches {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"uni inference launches {launches} != {expect}")
+    if est.shape != (1, SAMPLES) or not np.isfinite(est).all():
+        raise AssertionError(f"uni inference entry: bad output {est.shape}")
+    return launches
+
+
+def unidirectional(conf_uni, geo, rng) -> tuple:
+    """Phase 10: RTFS-Net-4 with both DualPathRNNs unidirectional, the K4
+    path. (a) K4 against its plain versions; (b) serving at batch 1 and 8,
+    exactly ``k4_launches`` K4 per forward and no other kernel, against the
+    CPU; (c) the train and serving entries; (d) one bs-1 step through phase
+    6's gates with its own float64 reference, then ``TRAIN_STEPS`` steps at
+    batch 4 launching exactly K4 forward and backward ``k4_launches`` each
+    per step. Returns K4's results and the launches of (b) and (d)."""
+    k4 = phase("10a K4 kernels", check_k4_kernels, geo, rng)
+    per_fwd = k4_launches(conf_uni)
+    served = phase("10b uni serving", serve, conf_uni, rng,
+                        {"sru_recurrence_fwd": per_fwd}, "uni serving")
+    phase("10c uni entries", uni_entries, conf_uni, rng)
+    trained, _ = phase(
+        "10d uni training", train, conf_uni,
+        {"sru_recurrence_fwd": per_fwd, "sru_recurrence_bwd": per_fwd},
+        "uni training", ("sru_rec_",))
+    return k4, served, trained
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1294,6 +1535,7 @@ def main() -> int:
         return 1
     from rtfs_tpu_torch.config import load_config
     from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.utils.parser import parse_overrides
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1316,23 +1558,20 @@ def main() -> int:
     print(f"geometry: {geo}")
     rng = np.random.default_rng(0)
 
-    def phase(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        print(f"phase {name}: {time.perf_counter() - t0:.3f} s")
-        return out
-
     kernels = phase("3 forward kernels", check_kernels, geo, rng)
     packed_kernels = phase("7 packed kernels", check_packed_kernels, conf,
                            rng)
-    launches = phase("4 serving", serve, conf, rng)
+    launches = phase("4 serving", serve, conf, rng, SERVE_LAUNCHES)
     packed_run = phase("8 serving from files", serve_packed, conf, rng)
     phase("8 packed latency", packed_latency, conf, rng)
     bwd = phase("5 backward kernels", check_backward_kernels, geo, rng,
                 kernels)
-    train_launches, ref = phase("6 training", train, conf)
+    train_launches, ref = phase("6 training", train, conf, TRAIN_LAUNCHES)
     wgrads, packed_train = phase("9 packed training", train_packed, conf,
                                  rng, ref)
+    conf_uni = parse_overrides(load_config(PRESET), list(UNI_OVERRIDES))
+    k4, uni_served, uni_trained = phase("10 unidirectional", unidirectional,
+                                        conf_uni, geo, rng)
 
     sources = {
         "sru_dual_recurrence": ("rtfs_tpu_torch/csrc/sru_fused.cu",
@@ -1374,6 +1613,12 @@ def main() -> int:
         "pw_packed_wgrad": ("rtfs_tpu_torch/csrc/packed_tf.cu",
                             "rtfs_tpu/ops/packed_tf.py:533",
                             "pw_packed_wgrad"),
+        "sru_recurrence": ("rtfs_tpu_torch/csrc/sru_pallas.cu",
+                           "rtfs_tpu/ops/sru_pallas.py:53",
+                           "sru_recurrence_fwd"),
+        "sru_recurrence_bwd": ("rtfs_tpu_torch/csrc/sru_pallas.cu",
+                               "rtfs_tpu/ops/sru_pallas.py:91",
+                               "sru_recurrence_bwd"),
     }
     line = {"kernels": []}
     for name, (src, rep, fn) in sources.items():
@@ -1386,6 +1631,13 @@ def main() -> int:
                      "launches_in_packed_training": packed_train.get(fn, 0)}
         elif name in wgrads:  # packed dW: the packed steps, per step at bs 4
             entry = {"launches": packed_train.get(fn, 0), **wgrads[name],
+                     "per_train_step_at_batch": TRAIN_BATCH}
+        elif name == "sru_recurrence":  # K4: the uni serving run, bs 8
+            entry = {"launches": uni_served.get(fn, 0), **k4[name],
+                     "per_forward_at_batch": 8,
+                     "launches_in_uni_training": uni_trained.get(fn, 0)}
+        elif name == "sru_recurrence_bwd":  # K4: the uni steps, bs 4
+            entry = {"launches": uni_trained.get(fn, 0), **k4[name],
                      "per_train_step_at_batch": TRAIN_BATCH}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],

@@ -1,15 +1,17 @@
 """DualPathRNN: the windowed SRU scan over one TF axis (RTFS-Net's core).
 
 Counterpart of ``rtfs_tpu/models/rnn_blocks.py`` (``DualPathRNN``, SRU
-branch, inference). Input (B, C, T, F). Pipeline:
+branch), serving and training alike. Input (B, C, T, F). Pipeline:
 
   pad -> LN4D -> fold the other axis into batch -> SRU over windows of the
   scan axis (k, stride 1) -> ConvTranspose1d back -> + residual -> crop
 
 With the fused stack (bidirectional SRU, stride 1) the tail stays
 time-major: the stack emits (L', 2H, B*other), kernel K3 back-projects it,
-the bias is added, and one transpose lands in (B, C, T, F). On the CPU the
-same path runs the kernels' plain versions.
+the bias is added, and one transpose lands in (B, C, T, F). Every other SRU
+(unidirectional: K4 per layer, ``ops.sru_pallas``) emits (B*other, L',
+dirs*H) and the tail is the library ConvTranspose1d (dirs*H -> C), as JAX's
+non-fused tail. On the CPU the same paths run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class DualPathRNN(nn.Module):
             y = convt1d_ola_tm(h, w) + self.linear.bias[None, :, None]
             y = y.reshape(new_t, c, b, new_f).permute(2, 1, 0, 3)
         else:
-            h = self.rnn(x)  # (B*F, L', 2H)
+            h = self.rnn(x)  # (B*F, L', dirs*H)
             y = self.linear(h.transpose(1, 2))  # (B*F, C, T)
             y = y.reshape(b, new_f, c, new_t).permute(0, 2, 3, 1)
         x = (y + residual)[:, :, :old_t, :old_f]

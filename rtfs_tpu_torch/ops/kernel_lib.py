@@ -25,7 +25,7 @@ import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-SOURCES = ("sru_fused", "convt_tm", "packed_tf")
+SOURCES = ("sru_fused", "convt_tm", "packed_tf", "sru_pallas")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +53,10 @@ _SIGNATURES = {
         "spatial_up_packed_fwd": (6, 8),
         "dw_conv_packed_wgrad": (4, 11),
         "pw_packed_wgrad": (4, 6),
+    },
+    "sru_pallas": {
+        "sru_recurrence_fwd": (5, 4),
+        "sru_recurrence_bwd": (8, 4),
     },
 }
 

@@ -11,11 +11,15 @@ input width differs from dirs*H, else 3):
 
 with x_hw = U3 (k = 4) or the layer input's slice of the direction (k = 3).
 
-``sru_layer`` is the plain scan, batch-major (B, L, D). The ``SRU`` module
+``sru_layer`` is the plain scan, batch-major (B, L, D), kept as the
+reference the tests hold the kernels' paths against. The ``SRU`` module
 takes the fused stack (``ops.sru_fused``: kernels K1 and K2) whenever it
 applies, bidirectional with k = 4 on layer 0, as every RTFS-Net preset is.
-Other configurations run the plain scan on the CPU; on the GPU they would
-need the gen-1 recurrence kernel, which is not ported yet.
+Every other configuration (unidirectional, or input width 2H on layer 0)
+runs layer by layer through the gen-1 recurrence K4 (``ops.sru_pallas``),
+time-major, layer 0 windowed when ``window`` is set, as JAX's Pallas
+backend does. The device picks the implementation: the plain versions on a
+CPU tensor, the CUDA kernels on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .convops import unfold_1d
 from .sru_fused import scan_direction, sru_stack
+from .sru_pallas import sru_layer_tpu, sru_layer_tpu_windowed
 
 
 def sru_layer(x, weight, weight_c, bias, hidden: int, bidirectional: bool):
@@ -106,13 +110,13 @@ class SRU(nn.Module):
                              window=self.window, time_major=time_major)
         if time_major:
             raise ValueError("time_major output needs the fused stack")
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "this SRU configuration needs the gen-1 recurrence kernel "
-                "(rtfs_tpu/ops/sru_pallas.py), not ported to CUDA yet"
-            )
+        args = (self.hidden_size, self.bidirectional)
+        w, wc, b = self.weights[0], self.weight_cs[0], self.biases[0]
         if self.window is not None:
-            x = unfold_1d(x.transpose(1, 2), *self.window).transpose(1, 2)
-        for w, wc, b in zip(self.weights, self.weight_cs, self.biases):
-            x = sru_layer(x, w, wc, b, self.hidden_size, self.bidirectional)
-        return x
+            h = sru_layer_tpu_windowed(x, w, wc, b, *args, *self.window)
+        else:
+            h = sru_layer_tpu(x.permute(1, 2, 0), w, wc, b, *args)
+        for w, wc, b in zip(self.weights[1:], self.weight_cs[1:],
+                            self.biases[1:]):
+            h = sru_layer_tpu(h, w, wc, b, *args)  # (L', dirs*H, B)
+        return h.permute(2, 0, 1)

@@ -1,0 +1,175 @@
+"""Gen-1 SRU recurrence (kernel K4) and the layer functions that reach it.
+
+Counterpart of ``rtfs_tpu/ops/sru_pallas.py``, forward and backward:
+
+- ``sru_recurrence`` (K4): one direction of one SRU layer over a
+  precomputed projection u (T, 3H, B) = [x~, f, r] and highway xhw
+  (T, H, B); CUDA kernels ``csrc/sru_pallas.cu:sru_recurrence_fwd`` and
+  ``..._bwd``. ``reverse=True`` walks t = T-1 .. 0 (the kernel's flag),
+  where the JAX layers flip u, xhw and h in memory around the call.
+- ``sru_layer_tpu`` / ``sru_layer_tpu_windowed``: one SRU layer, the
+  projection (``matmul``, or for layer 0 over the raw sequence a windowed
+  ``conv1d``, ``sru_fused.layer0_projection``) outside the kernel as JAX
+  leaves it to XLA, then K4 per direction.
+
+Every SRU that the fused stack (``ops.sru_fused``) does not take runs here:
+unidirectional, or bidirectional with input width 2H on layer 0.
+
+Layout: the layer functions are time-major, (L, D, B) in and (L, dirs*H, B)
+out, where JAX's take and return (B, L, D) and transpose around every
+call; ``ops.sru.SRU`` transposes once into the stack and once out of it.
+The windowed one takes the raw sequence batch-major (B, T, C), as
+``layer0_projection`` does.
+
+When autograd records (grad enabled and an input requires grad) K4 runs
+through a ``torch.autograd.Function`` whose forward also keeps the cell
+states c and whose backward is the BPTT kernel; otherwise (serving) the
+forward writes no c. On a CPU tensor the plain versions below run, forward
+and backward, through the same Function; on a CUDA tensor the kernels
+launch or the call raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernel_lib
+from .sru_fused import (_grad, _records, layer0_projection, scan_direction,
+                        scan_direction_bwd)
+
+# K4 block size, ``kThreads`` in csrc/sru_pallas.cu: the backward writes
+# one dvb partial a block
+THREADS = 128
+
+
+def sru_recurrence_plain(u, xhw, vb, reverse=False, with_c=False):
+    """K4's plain version: h (T, H, B), and with ``with_c`` (h, c)."""
+    return scan_direction(u, xhw, vb, reverse, with_c)
+
+
+def sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse=False):
+    """K4 backward's plain version: du (T, 3H, B), dxhw (T, H, B) and
+    d(v_f, v_r, b_f, b_r) (4, H)."""
+    return scan_direction_bwd(u, xhw, vb, c, dh, reverse)
+
+
+def _k4_forward(u, xhw, vb, reverse, with_c):
+    if u.device.type == "cpu":
+        return sru_recurrence_plain(u, xhw, vb, reverse, with_c)
+    kernel_lib.check_cuda_f32("sru_recurrence", u, xhw, vb)
+    t_len, gh, bsz = u.shape
+    if min(u.shape) == 0:
+        raise ValueError("sru_recurrence: empty input")
+    h = torch.empty_like(xhw)
+    c = torch.empty_like(xhw) if with_c else None
+    kernel_lib.launch(
+        "sru_pallas", "sru_recurrence_fwd", u.device, u.data_ptr(),
+        xhw.data_ptr(), vb.data_ptr(), h.data_ptr(),
+        c.data_ptr() if with_c else None, t_len, gh // 3, bsz, int(reverse),
+    )
+    return (h, c) if with_c else h
+
+
+def _k4_backward(u, xhw, vb, c, dh, reverse):
+    if u.device.type == "cpu":
+        return sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse)
+    kernel_lib.check_cuda_f32("sru_recurrence backward", u, xhw, vb, c, dh)
+    t_len, gh, bsz = u.shape
+    du, dxhw = torch.empty_like(u), torch.empty_like(xhw)
+    dvb_part = torch.empty(-(-bsz // THREADS), 4, gh // 3, device=u.device)
+    kernel_lib.launch(
+        "sru_pallas", "sru_recurrence_bwd", u.device, u.data_ptr(),
+        xhw.data_ptr(), vb.data_ptr(), c.data_ptr(), dh.data_ptr(),
+        du.data_ptr(), dxhw.data_ptr(), dvb_part.data_ptr(), t_len, gh // 3,
+        bsz, int(reverse),
+    )
+    return du, dxhw, dvb_part.sum(0)
+
+
+class _Recurrence(torch.autograd.Function):
+    """K4 with its BPTT backward (``_sru_vjp_fwd`` / ``_sru_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, u, xhw, vb, reverse):
+        h, c = _k4_forward(u, xhw, vb, reverse, with_c=True)
+        ctx.save_for_backward(u, xhw, vb, c)
+        ctx.reverse = reverse
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        u, xhw, vb, c = ctx.saved_tensors
+        return (*_k4_backward(u, xhw, vb, c, _grad(dh, c), ctx.reverse),
+                None)
+
+
+def sru_recurrence(u: torch.Tensor, xhw: torch.Tensor, v: torch.Tensor,
+                   b: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """SRU recurrence, one direction.
+
+    Args:
+      u: (T, 3H, B) gate pre-activations [x~, f, r].
+      xhw: (T, H, B) highway input.
+      v, b: (2, H) recurrence vectors [v_f, v_r] and biases [b_f, b_r].
+      reverse: walk t = T-1 .. 0.
+
+    Returns:
+      h (T, H, B); its gradients reach u, xhw, v and b.
+    """
+    t_len, gh, bsz = u.shape
+    hdim = gh // 3
+    if (gh != 3 * hdim or xhw.shape != (t_len, hdim, bsz)
+            or v.shape != (2, hdim) or b.shape != (2, hdim)):
+        raise ValueError(
+            f"sru_recurrence: u {tuple(u.shape)}, xhw {tuple(xhw.shape)}, "
+            f"v {tuple(v.shape)}, b {tuple(b.shape)}"
+        )
+    vb = torch.cat([v, b]).contiguous()  # (4, H) [v_f, v_r, b_f, b_r]
+    if _records(u, xhw, vb):
+        return _Recurrence.apply(u, xhw, vb, reverse)
+    return _k4_forward(u, xhw, vb, reverse, with_c=False)
+
+
+def _directions(u, x, weight_c, bias, hidden, dirs, k):
+    """K4 per direction over the projection u (L, dirs*k*H, B), highway
+    the projection's 4th chunk (k = 4) or the direction's slice of the
+    layer input x (L, dirs*H, B) (k = 3); returns (L, dirs*H, B)."""
+    outs = []
+    for d in range(dirs):
+        u_d = u[:, d * k * hidden:(d + 1) * k * hidden]
+        x_hw = (u_d[:, 3 * hidden:] if k == 4
+                else x[:, d * hidden:(d + 1) * hidden])
+        outs.append(sru_recurrence(
+            u_d[:, :3 * hidden].contiguous(), x_hw.contiguous(),
+            weight_c[d], bias[d], reverse=d == 1))
+    return torch.cat(outs, dim=1) if dirs > 1 else outs[0]
+
+
+def sru_layer_tpu(x, weight, weight_c, bias, hidden: int,
+                  bidirectional: bool) -> torch.Tensor:
+    """One SRU layer through K4, time-major.
+
+    x: (L, D_in, B); weight (D_in, dirs*k*H); weight_c, bias (dirs, 2, H).
+    Returns (L, dirs*H, B).
+    """
+    dirs = 2 if bidirectional else 1
+    k = 4 if x.shape[1] != dirs * hidden else 3
+    u = torch.matmul(weight.t(), x)  # (L, dirs*k*H, B)
+    return _directions(u, x, weight_c, bias, hidden, dirs, k)
+
+
+def sru_layer_tpu_windowed(x, weight, weight_c, bias, hidden: int,
+                           bidirectional: bool, kernel: int,
+                           stride: int = 1) -> torch.Tensor:
+    """First SRU layer fused with the DualPathRNN window: the projection of
+    the unfolded windows as a ``conv1d`` over the raw sequence.
+
+    x: (B, T, C) raw sequence; weight (C*kernel, dirs*4*H).
+    Returns (L', dirs*H, B) with L' = (T - kernel) // stride + 1.
+    """
+    dirs = 2 if bidirectional else 1
+    if weight.shape[1] != dirs * 4 * hidden:
+        raise ValueError("the windowed SRU layer needs a projected highway "
+                         f"(k = 4): weight {tuple(weight.shape)}")
+    u = layer0_projection(x, weight, (kernel, stride))
+    return _directions(u, None, weight_c, bias, hidden, dirs, 4)

@@ -104,6 +104,11 @@ def test_sru_stack_matches_fused_interpret(time_major):
         ("scan", 20, 4, 2, None, True),         # fused stack, no window
         ("scan", 16, 8, 2, None, True),         # k = 3 on layer 0: plain scan
         ("scan", 12, 8, 2, None, False),        # unidirectional: plain scan
+        # K4 (ops/sru_pallas.py) against JAX's Pallas gen-1 path
+        ("interpret", 24, 8, 3, (4, 1), False),  # unidirectional, windowed
+        ("interpret", 12, 8, 2, None, False),    # unidirectional, k = 4
+        ("interpret", 8, 8, 2, None, False),     # unidirectional, k = 3
+        ("interpret", 16, 8, 2, None, True),     # bidirectional, input 2H
     ],
 )
 def test_sru_module_matches_jax(backend, input_size, hidden, layers, window,

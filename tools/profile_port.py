@@ -4,10 +4,12 @@ Builds the full model (weights from seed 0, float32, TF32 off as in
 ``chip_smoke.py``), warms it up, then traces ``--iters`` forwards of
 ``--batch`` 2 s requests with ``torch.profiler`` and prints: the wall time
 per forward, the device time per forward, the device idle share, and the
-``--top`` kernels by device time with the share of the three hand-written
-kernels. Needs one CUDA card.
+``--top`` kernels by device time with the share of the hand-written
+kernels. Dotted overrides merge onto the preset as in the entries, e.g. the
+unidirectional model (every SRU layer through K4). Needs one CUDA card.
 
-    python3 tools/profile_port.py --batch 8
+    python3 tools/profile_port.py --batch 8 \
+        [--audionet.audio_params.layers.layer_1.bidirectional false ...]
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 OWN_KERNELS = ("sru_lay0_fwd_kernel", "sru_hidden_fwd_kernel",
-               "convt1d_tm_fwd_kernel")
+               "convt1d_tm_kernel", "sru_rec_fwd_kernel")
 
 
 def _device_us(evt) -> float:
@@ -39,16 +41,18 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args()
+    args, overrides = ap.parse_known_args()
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 1
     from chip_smoke import card_line
     from rtfs_tpu_torch.config import build_avnet, load_config
+    from rtfs_tpu_torch.utils.parser import parse_overrides
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_avnet(load_config("lrs2_RTFSNet_4_layer"), device="cuda")
+    conf = parse_overrides(load_config("lrs2_RTFSNet_4_layer"), overrides)
+    model = build_avnet(conf, device="cuda")
     rng = np.random.default_rng(0)
     wav = torch.from_numpy((rng.standard_normal((args.batch, 32000)) * 0.1)
                            .astype(np.float32)).cuda()
