@@ -22,7 +22,9 @@ one or outside the repository. Phases, any failure of which ends the run:
    states c) and the backward kernels of K1, K2 and K3 run against the
    plain forward + plain backward and against torch autograd through the
    plain forward, on the same inputs on the card; the backward is timed
-   beside its bound and, for K3, beside autograd of ``conv_transpose1d``.
+   per call and per step beside its bound, its plain version and, for
+   K3, autograd of ``conv_transpose1d``; two calls must give the same
+   bits.
 6. Training: RTFS-Net-4 and the lip backbone are built on the card and on
    the CPU; one ``AVSystem.train_step`` at batch 1 with dropout 0, on the
    card and on the CPU in float32, is held against the same step in
@@ -35,7 +37,7 @@ one or outside the repository. Phases, any failure of which ends the run:
    on synthetic batches: launches per step must be K1/K2/K3 forward 8/24/8
    and backward 8/24/8, every loss finite and the parameters moved; it
    prints ms per step, peak memory, and one profiled step's device time,
-   idle share and top kernels.
+   idle share, top kernels and K2 backward's share.
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
    pw_proj_packed, K7 pw_unproj_packed, K8 spatial_down_packed and K9
    spatial_up_packed at the packed serving shapes (STFT 251 x 129, 64
@@ -805,11 +807,14 @@ def check_backward_kernels(geo, rng, fwd_res) -> dict:
                 fwd_res[fwd_name]["max_abs_err"] = max(
                     fwd_res[fwd_name]["max_abs_err"], err)
             got = kern()
+            again = kern()
             want = plain()
             outs = plain_fwd()
             outs = outs if isinstance(outs, tuple) else (outs,)
             auto = torch.autograd.grad(outs, ins, cots)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two calls differ")
             tol = BWD_REL_TOL[name]
             worst = 0.0
             for label, ref in (("plain backward", want), ("autograd", auto)):
@@ -835,9 +840,9 @@ def check_backward_kernels(geo, rng, fwd_res) -> dict:
                 g_lib = g3.permute(2, 1, 0).contiguous()
                 lib_ms = time_cuda(lambda: torch.autograd.grad(
                     y_lib, (x_lib, w_lib), g_lib, retain_graph=True), 30)
-            print(f"kernel {name} site={site} L={length} B={B}: ms={ms:.5f} "
-                  f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
-                  f"library_ms={lib_ms}")
+            print(f"kernel {name} site={site} L={length} B={B}: per call "
+                  f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} "
+                  f"({b_by}) library_ms={lib_ms}; two calls bit-identical")
             r = res[name]
             n = per_site[name]
             r["max_abs_err"] = max(r["max_abs_err"], worst)
@@ -847,6 +852,10 @@ def check_backward_kernels(geo, rng, fwd_res) -> dict:
             r["bound_by"] = b_by
             if lib_ms is not None:
                 r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+    for name, r in res.items():
+        print(f"kernel {name}: per bs-{TRAIN_BATCH} step ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} plain_ms={r['plain_ms']:.2f} "
+              f"library_ms={r['library_ms']}")
     return res
 
 
@@ -1013,7 +1022,8 @@ def profile_step(system, batch, generator, label: str,
               f"{e.key[:90]}")
     if picked:
         picked_ms = sum(dev_us(e) for e in picked) / 1e3
-        print(f"{label}: those {len(picked)} kernels together "
+        print(f"{label}: those {len(picked)} kernels ({', '.join(also)}) "
+              f"together "
               f"{picked_ms:.3f} ms of the step, share "
               f"{picked_ms / dev_ms:.3f} of its device time")
 
@@ -1023,6 +1033,10 @@ PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_packed_kernel<",
                        "spatial_down_kernel", "spatial_up_kernel",
                        "dw_wgrad_partial_kernel", "pw_wgrad_partial_kernel",
                        "sum_partials_kernel")
+
+# the device kernels of K2's backward (csrc/sru_fused.cu), as the profiler
+# names them
+K2_BWD_KERNEL_NAMES = ("sru_hid_bwd_", "sru_scan_bwd_kernel<2>")
 
 # launches of K1/K2/K3 per train step, forward and backward
 TRAIN_LAUNCHES = {"sru_dual_recurrence_fwd": 2 * REPEATS,
@@ -1566,7 +1580,8 @@ def main() -> int:
     phase("8 packed latency", packed_latency, conf, rng)
     bwd = phase("5 backward kernels", check_backward_kernels, geo, rng,
                 kernels)
-    train_launches, ref = phase("6 training", train, conf, TRAIN_LAUNCHES)
+    train_launches, ref = phase("6 training", train, conf, TRAIN_LAUNCHES,
+                                "training", K2_BWD_KERNEL_NAMES)
     wgrads, packed_train = phase("9 packed training", train_packed, conf,
                                  rng, ref)
     conf_uni = parse_overrides(load_config(PRESET), list(UNI_OVERRIDES))

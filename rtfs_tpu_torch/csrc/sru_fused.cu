@@ -37,42 +37,73 @@
 //   df = dc (c_prev - u0); da = df f (1 - f)
 //   du = [dc (1 - f), da, dm, dh (1 - r)]; dc_prev = dc f + da v_f
 //   d(v_f, v_r, b_f, b_r) += (da c_prev, dm c_t, da, dm)
-// Reductions over the batch (dv, db, dW) are written as one partial per
-// block and summed by the wrapper in a fixed order: no float atomics, so
-// gradients are the same from run to run.
+// Reductions (dv, db, dW) are written as per-block partials and summed in
+// a fixed order: no float atomics, so two calls give the same bits.
 //
 // What bounds them on the H100. K1 moves 20 bytes per (step, unit, column)
 // for ~15 flops (its backward 44 bytes for ~30), so by the roofline it is
-// bound by memory bytes; in practice it is bound by latency, because each
-// thread walks T dependent steps and the launch has only 2*H*B threads.
-// The design keeps c (dc) in a register, makes neighbouring threads read
-// neighbouring batch columns (coalesced), and unrolls the time loop so the
-// loads of later steps issue before the dependent gate chain. K2 does
-// 2*3H*2H flops per column, step and direction for ~16H bytes (its backward
-// three such products: U, dx = W du and dW += x du^T), so by the roofline
-// it is bound by float32 operations; in practice it is bound by the
-// latency of its per-step chain (load x_t, barrier, 2H-long dot products,
-// gates), T times over. A block owns one direction and a tile of batch
-// columns (8 at H = 32, so the grid has many blocks even at batch 1); it
-// keeps that direction's (3H x 2H) weight slice in shared memory (rows
-// padded to 2H+1 floats against bank conflicts), stages x_t = [h_f; h_r]_t
-// (2H x tile) per step into one of two buffers while the next step's x is
-// already loading, and each thread forms the three dot products of its
-// hidden unit and column (two accumulator chains each), then the gate
-// update. The projection never leaves the kernel, as in the Pallas kernel;
-// the backward recomputes it the same way and keeps its dW partial in
-// registers. (A register-tiled forward variant, 32 columns a block, 4 a
-// thread, measured 7-50% slower at the serving shapes: it has 4x fewer
-// blocks; see PERF.md.)
+// bound by memory bytes; in practice by latency, because each thread walks
+// T dependent steps and the launch has only 2*H*B threads. The design
+// keeps c (dc) in a register and makes neighbouring threads read
+// neighbouring batch columns (coalesced); the forward unrolls the time
+// loop, and the backward scan issues the loads of kScanAhead steps
+// together before the adjoint chain runs over them (none of them depends
+// on the chain), so many loads are in flight per thread. K2 does 2*3H*2H
+// flops per column, step and direction for ~16H bytes, so by the roofline
+// it is bound by float32 operations. Its forward keeps the projection
+// inside the recurrence, as the Pallas kernel does: a block owns one
+// direction and a tile of batch columns, keeps that direction's (3H x 2H)
+// weight slice in shared memory (rows padded to 2H+1 floats), stages x_t =
+// [h_f; h_r]_t per step into one of two buffers while the next step's x
+// loads, and each thread forms the three dot products of its unit and
+// column, then the gate update; it is bound by the latency of that
+// per-step chain.
+//
+// K2's backward is three products and a scan: U = W^T x, dx = W du and
+// dW = sum_t du x^T (3 x 2*6H*2H flops a column and step), and the gate
+// adjoints. Only the adjoint chain in (c, dc) depends across time steps,
+// yet a kernel that walks the products step by step inside that chain
+// leaves them latency-bound on a few blocks. So the entry splits the op at
+// the recurrence into launches on the caller's stream:
+//   1. U for all T*B columns at once (sru_hid_bwd_gemm_kernel), C_t = W^T
+//      X_t per step, written to the scratch ud (T, 6H, B);
+//   2. the adjoint scan (sru_scan_bwd_kernel<2>): one thread per (column,
+//      unit, direction), as K1's backward, reading U and writing du over
+//      it in place and the highway term dh (1 - r) into dx;
+//   3. dx += W du for all columns (the same product, W^T read transposed);
+//   4. dW by split-K over the T*B columns (sru_hid_bwd_wgrad_kernel): each
+//      block a 64 x 64 tile of dW over one chunk of columns, a partial
+//      each;
+//   5. the dW and (v, b) partials summed in a fixed order
+//      (sru_hid_bwd_sum_kernel).
+// The products are 64 x 64 tiles of 256 threads, each a 4 x 4 register
+// tile, in full float32 on the SIMT units; operand stages of 16 reduction
+// rows (U, dx) or 32 columns (dW) in shared memory, the next stage's
+// global loads issued into registers before the current stage's FMAs.
+// The products are bound by float32 operations, the scan by its bytes
+// and the latency of its loads. Nothing holds dW in registers across the
+// sequence, so any H is taken. Scratch: ud, one dW partial a chunk (about
+// two blocks an SM), one (v, b) partial a scan block; the wrapper
+// allocates them.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxDwPerThread = 32;  // K2 backward dW registers per thread
-// K1 block size, forward and backward (the backward writes one dvb partial
-// a block; ops/sru_fused.py sizes that buffer with the same constant)
+// K1 block size, forward and backward, and the K2 scan's (the backward
+// scans write one dvb partial a block; ops/sru_fused.py sizes that buffer
+// with the same constant)
 constexpr int kLay0Threads = 128;
+// backward scans: steps whose loads are issued together
+constexpr int kScanAhead = 8;
+// K2 backward products (ops/sru_fused.py mirrors them): tiles of kTile x
+// kTile outputs, kGemmThreads threads of 4 x 4; kStage reduction rows a
+// stage of U and dx, kWgCols (t, b) columns a stage of dW
+constexpr int kTile = 64;
+constexpr int kGemmThreads = 256;
+constexpr int kStage = 16;
+constexpr int kWgCols = 32;
+
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
@@ -130,18 +161,33 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// One direction's operands of the adjoint scan: row j of step t of u (rows
+// [x~, f, r]), of the highway input, of du (rows [x~, f, r]) and of the
+// highway term's adjoint start at ptr + t * step + j * B. K1 reads u (T,
+// 4H, B) with the highway as its row block 3 and writes du likewise; K2
+// reads U from the scratch ud (T, 6H, B), the highway from x, writes du
+// over U and the highway term into dx.
+struct ScanIO {
+  const float* u;
+  const float* xhw;
+  float* du;
+  float* dhw;
+  long long u_step, xhw_step, du_step, dhw_step;
+};
+
 // grid (ceil(B / blockDim.x), H, 2), one thread per (column, unit, dir);
-// blockDim.x a multiple of 32. Writes du and, per block, the partial sums
-// dvb_part[blockIdx.x][dir*4 + k][j] over the block's columns.
-__global__ void sru_lay0_bwd_kernel(const float* __restrict__ u_f,
-                                    const float* __restrict__ u_r,
+// blockDim.x a multiple of 32. Writes du, the highway adjoint and, per
+// block, the partial sums dvb_part[blockIdx.x][dir*4 + k][j] over the
+// block's columns. Kernel tells K1's launches (1) from K2's (2) in a
+// profile. u and du may be the same memory (K2): each thread reads its
+// rows of a step before it writes them.
+template <int Kernel>
+__global__ void sru_scan_bwd_kernel(ScanIO io_f, ScanIO io_r,
                                     const float* __restrict__ vb,
                                     const float* __restrict__ c_f,
                                     const float* __restrict__ c_r,
                                     const float* __restrict__ dh_f,
                                     const float* __restrict__ dh_r,
-                                    float* __restrict__ du_f,
-                                    float* __restrict__ du_r,
                                     float* __restrict__ dvb_part,
                                     int T, int H, int B) {
   __shared__ float red[32];
@@ -149,10 +195,9 @@ __global__ void sru_lay0_bwd_kernel(const float* __restrict__ u_f,
   const int j = blockIdx.y;
   const int dir = blockIdx.z;
   const bool live = b < B;
-  const float* u = dir == 0 ? u_f : u_r;
+  const ScanIO io = dir == 0 ? io_f : io_r;
   const float* cs = dir == 0 ? c_f : c_r;
   const float* dh = dir == 0 ? dh_f : dh_r;
-  float* du = dir == 0 ? du_f : du_r;
   const float v_f = vb[(dir * 4 + 0) * H + j];
   const float v_r = vb[(dir * 4 + 1) * H + j];
   const float b_f = vb[(dir * 4 + 2) * H + j];
@@ -162,33 +207,49 @@ __global__ void sru_lay0_bwd_kernel(const float* __restrict__ u_f,
   float dc = 0.f, a_vf = 0.f, a_vr = 0.f, a_bf = 0.f, a_br = 0.f;
   if (live) {
     // reverse scan order: the forward direction from t = T-1 down, the
-    // reverse direction from t = 0 up; c_t of a step is c_prev of the last
+    // reverse direction from t = 0 up; c_t of a step is c_prev of the last.
+    // The loads do not depend on the adjoint chain: those of kScanAhead
+    // steps are issued together, before the chain runs over them.
     float c_t = cs[(long long)(dir == 0 ? T - 1 : 0) * row + col];
-#pragma unroll 2
-    for (int i = 0; i < T; ++i) {
-      const int t = dir == 0 ? T - 1 - i : i;
-      const int tp = dir == 0 ? t - 1 : t + 1;
-      const float c_prev = i + 1 < T ? cs[(long long)tp * row + col] : 0.f;
-      const float* ut = u + (long long)t * 4 * row + col;
-      const float u0 = ut[0], u1 = ut[row], u2 = ut[2 * row];
-      const float xhw = ut[3 * row];
-      const float g = dh[(long long)t * row + col];
-      const float f = sigmoid_f(u1 + v_f * c_prev + b_f);
-      const float r = sigmoid_f(u2 + v_r * c_t + b_r);
-      const float dm = g * (c_t - xhw) * r * (1.f - r);
-      dc = g * r + dm * v_r + dc;
-      const float da = dc * (c_prev - u0) * f * (1.f - f);
-      float* dut = du + (long long)t * 4 * row + col;
-      dut[0] = dc * (1.f - f);
-      dut[row] = da;
-      dut[2 * row] = dm;
-      dut[3 * row] = g * (1.f - r);
-      a_vf += da * c_prev;
-      a_vr += dm * c_t;
-      a_bf += da;
-      a_br += dm;
-      dc = dc * f + da * v_f;
-      c_t = c_prev;
+    for (int i0 = 0; i0 < T; i0 += kScanAhead) {
+      float u0[kScanAhead], u1[kScanAhead], u2[kScanAhead];
+      float xhw[kScanAhead], g[kScanAhead], c_prev[kScanAhead];
+#pragma unroll
+      for (int s = 0; s < kScanAhead; ++s) {
+        const int i = i0 + s;
+        if (i >= T) break;
+        const int t = dir == 0 ? T - 1 - i : i;
+        const int tp = dir == 0 ? t - 1 : t + 1;
+        c_prev[s] = i + 1 < T ? cs[(long long)tp * row + col] : 0.f;
+        const float* ut = io.u + t * io.u_step + col;
+        u0[s] = ut[0];
+        u1[s] = ut[row];
+        u2[s] = ut[2 * row];
+        xhw[s] = io.xhw[t * io.xhw_step + col];
+        g[s] = dh[(long long)t * row + col];
+      }
+#pragma unroll
+      for (int s = 0; s < kScanAhead; ++s) {
+        const int i = i0 + s;
+        if (i >= T) break;
+        const int t = dir == 0 ? T - 1 - i : i;
+        const float f = sigmoid_f(u1[s] + v_f * c_prev[s] + b_f);
+        const float r = sigmoid_f(u2[s] + v_r * c_t + b_r);
+        const float dm = g[s] * (c_t - xhw[s]) * r * (1.f - r);
+        dc = g[s] * r + dm * v_r + dc;
+        const float da = dc * (c_prev[s] - u0[s]) * f * (1.f - f);
+        float* dut = io.du + t * io.du_step + col;
+        dut[0] = dc * (1.f - f);
+        dut[row] = da;
+        dut[2 * row] = dm;
+        io.dhw[t * io.dhw_step + col] = g[s] * (1.f - r);
+        a_vf += da * c_prev[s];
+        a_vr += dm * c_t;
+        a_bf += da;
+        a_br += dm;
+        dc = dc * f + da * v_f;
+        c_t = c_prev[s];
+      }
     }
   }
   float* part = dvb_part + (long long)blockIdx.x * 8 * H + dir * 4 * H + j;
@@ -282,163 +343,179 @@ __global__ void sru_hidden_fwd_kernel(const float* __restrict__ x_f,
   }
 }
 
-// grid (ceil(B / bt), 2), block (bt, H): thread (column tx, unit j), one
-// direction per block, walking its time in reverse scan order. Per step:
-//   1. stage x_t = [x_f; x_r]_t (2H x bt) (prefetched a step ahead), sync;
-//   2. recompute u = W_d^T x_t for unit j, the gate adjoints, stage du
-//      (3H x bt) in shared memory, sync;
-//   3. dx_t = W_d du for rows j and H+j (+ the highway term on the
-//      direction's own half), written to this direction's dx buffer
-//      (T, 2H, B); the wrapper adds the two directions' buffers;
-//   4. dW_d += x_t du^T over the block's columns: thread tid owns the
-//      entries e = tid + k*nthreads of the (3H, 2H) block of dwt, in
-//      registers.
-// Shared rows are padded (weights 2H+1, x and du bt+1 floats) against bank
-// conflicts. Outputs per block: dwt_part[blockIdx.x][dir*3H + o][i] and
-// dvb_part[blockIdx.x][dir*4 + k][j].
-__global__ void sru_hidden_bwd_kernel(const float* __restrict__ x_f,
-                                      const float* __restrict__ x_r,
-                                      const float* __restrict__ wt,
-                                      const float* __restrict__ vb,
-                                      const float* __restrict__ c_f,
-                                      const float* __restrict__ c_r,
-                                      const float* __restrict__ dh_f,
-                                      const float* __restrict__ dh_r,
-                                      float* __restrict__ dx_a,
-                                      float* __restrict__ dx_b,
-                                      float* __restrict__ dwt_part,
-                                      float* __restrict__ dvb_part,
-                                      int T, int H, int B) {
-  extern __shared__ float smem[];
-  const int dir = blockIdx.y;
-  const int tx = threadIdx.x, j = threadIdx.y;
-  const int bt = blockDim.x, bs = bt + 1;
-  const int tid = j * bt + tx, nthreads = bt * H;
-  const int b = blockIdx.x * bt + tx;
-  const int h2 = 2 * H, h3 = 3 * H, ws = h2 + 1;
-  float* w_s = smem;                 // (3H, 2H+1)
-  float* x_s = w_s + h3 * ws;        // 2 x (2H, bt+1)
-  float* du_s = x_s + 2 * h2 * bs;   // (3H, bt+1)
-  float* red = du_s + h3 * bs;       // (H, bt+1)
-
-  const float* wd = wt + (long long)dir * h3 * h2;
-  for (int e = tid; e < h3 * h2; e += nthreads)
-    w_s[(e / h2) * ws + e % h2] = wd[e];
-
-  const float v_f = vb[(dir * 4 + 0) * H + j];
-  const float v_r = vb[(dir * 4 + 1) * H + j];
-  const float b_f = vb[(dir * 4 + 2) * H + j];
-  const float b_r = vb[(dir * 4 + 3) * H + j];
-  const float* cs = dir == 0 ? c_f : c_r;
-  const float* dh = dir == 0 ? dh_f : dh_r;
-  float* dx = dir == 0 ? dx_a : dx_b;
-  const long long row = (long long)H * B;
-  const bool live = b < B;
-  const long long col = (long long)j * B + (live ? b : 0);
-  const float* w0 = w_s + j * ws;
-  const float* w1 = w_s + (H + j) * ws;
-  const float* w2 = w_s + (2 * H + j) * ws;
-
-  float acc[kMaxDwPerThread];
-#pragma unroll
-  for (int k = 0; k < kMaxDwPerThread; ++k) acc[k] = 0.f;
-  float a_vf = 0.f, a_vr = 0.f, a_bf = 0.f, a_br = 0.f;
-
-  int t = dir == 0 ? T - 1 : 0;
-  float next_f = live ? x_f[t * row + col] : 0.f;
-  float next_r = live ? x_r[t * row + col] : 0.f;
-  float c_t = live ? cs[t * row + col] : 0.f;
-  float dc = 0.f;
-  for (int i = 0; i < T; ++i) {
-    const float cur_f = next_f, cur_r = next_r;
-    float* xb = x_s + (i & 1) * h2 * bs;
-    xb[j * bs + tx] = cur_f;
-    xb[(H + j) * bs + tx] = cur_r;
-    const int tp = dir == 0 ? t - 1 : t + 1;  // the previous step in scan order
-    if (i + 1 < T && live) {
-      next_f = x_f[tp * row + col];
-      next_r = x_r[tp * row + col];
-    }
-    const float c_prev = (i + 1 < T && live) ? cs[tp * row + col] : 0.f;
-    const float g = live ? dh[t * row + col] : 0.f;
-    __syncthreads();  // x_t is in (and, at i = 0, the weights)
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, e0 = 0.f, e1 = 0.f, e2 = 0.f;
-    for (int k = 0; k < h2; k += 2) {
-      const float xv = xb[k * bs + tx], xw = xb[(k + 1) * bs + tx];
-      a0 += w0[k] * xv;
-      a1 += w1[k] * xv;
-      a2 += w2[k] * xv;
-      e0 += w0[k + 1] * xw;
-      e1 += w1[k + 1] * xw;
-      e2 += w2[k + 1] * xw;
-    }
-    a0 += e0;
-    a1 += e1;
-    a2 += e2;
-    const float xhw = dir == 0 ? cur_f : cur_r;
-    const float f = sigmoid_f(a1 + v_f * c_prev + b_f);
-    const float r = sigmoid_f(a2 + v_r * c_t + b_r);
-    const float dm = g * (c_t - xhw) * r * (1.f - r);
-    dc = g * r + dm * v_r + dc;
-    const float da = dc * (c_prev - a0) * f * (1.f - f);
-    const float du0 = dc * (1.f - f);
-    du_s[j * bs + tx] = du0;
-    du_s[(H + j) * bs + tx] = da;
-    du_s[(2 * H + j) * bs + tx] = dm;
-    const float dxhw = g * (1.f - r);
-    a_vf += da * c_prev;
-    a_vr += dm * c_t;
-    a_bf += da;
-    a_br += dm;
-    dc = dc * f + da * v_f;
-    c_t = c_prev;
-    __syncthreads();  // du is in
-    // dx rows j (x_f half) and H + j (x_r half)
-    float d0 = 0.f, d1 = 0.f;
-    for (int o = 0; o < h3; ++o) {
-      const float duo = du_s[o * bs + tx];
-      d0 += w_s[o * ws + j] * duo;
-      d1 += w_s[o * ws + H + j] * duo;
-    }
-    if (dir == 0) d0 += dxhw; else d1 += dxhw;
-    if (live) {
-      float* dxt = dx + (long long)t * 2 * row + col;
-      dxt[0] = d0;
-      dxt[row] = d1;
-    }
-    // dW: entry e -> (o, i) of this direction's (3H, 2H) block of dwt
-#pragma unroll
-    for (int k = 0; k < kMaxDwPerThread; ++k) {
-      const int e = tid + k * nthreads;
-      if (e < h3 * h2) {
-        const float* xi = xb + (e % h2) * bs;
-        const float* duo = du_s + (e / h2) * bs;
-        float s = 0.f;
-        for (int q = 0; q < bt; ++q) s += xi[q] * duo[q];
-        acc[k] += s;
-      }
-    }
-    t = tp;
+// Rows of a time-major (T, R, B) operand, each a row of B floats: rows
+// [0, r0) of step t at p0 + (t * step0 + r) * B, rows [r0, R) at p1 + (t *
+// step1 + r - r0) * B. X = [x_f; x_r] is two such halves; U, du and dx's
+// halves are one each (r0 >= R).
+struct Rows {
+  float* p0;
+  float* p1;
+  int r0, step0, step1;
+  __device__ __forceinline__ float* row(int t, int r, int B) const {
+    return r < r0 ? p0 + ((long long)t * step0 + r) * B
+                  : p1 + ((long long)t * step1 + r - r0) * B;
   }
-  float* dw = dwt_part + ((long long)blockIdx.x * 2 + dir) * h3 * h2;
+};
+
+// C_t = op(A) B_t for every step t = blockIdx.z, where op(A)[m][k] is
+// A[m * lda + k], or A[k * lda + m] with TransA, B_t is (K, N) and C_t
+// (M, N) with N = B columns; with Accum, C_t += op(A) B_t. grid (ceil(N /
+// 64), ceil(M / 64), T), kGemmThreads threads: thread (tx, ty) = (tid %
+// 16, tid / 16) owns rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of
+// the tile. Each stage stages kStage rows of the reduction, the next
+// stage's loads in flight in registers while this one's FMAs run.
+template <bool TransA, bool Accum>
+__global__ void __launch_bounds__(kGemmThreads)
+sru_hid_bwd_gemm_kernel(const float* __restrict__ A, int lda, Rows b, Rows c,
+                        int M, int K, int N) {
+  __shared__ __align__(16) float a_s[kStage][kTile + 4];  // a_s[k][m]
+  __shared__ __align__(16) float b_s[kStage][kTile];      // b_s[k][n]
+  constexpr int kPer = kStage * kTile / kGemmThreads;     // loads a thread
+  const int t = blockIdx.z, m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4];
 #pragma unroll
-  for (int k = 0; k < kMaxDwPerThread; ++k) {
-    const int e = tid + k * nthreads;
-    if (e < h3 * h2) dw[e] = acc[k];
-  }
-  // dvb: sum the bt columns of each unit through shared memory
-  float* part = dvb_part + (long long)blockIdx.x * 8 * H + dir * 4 * H + j;
-  const float vals[4] = {a_vf, a_vr, a_bf, a_br};
-  for (int k = 0; k < 4; ++k) {
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+  float ra[kPer], rb[kPer];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int e = tid + r * kGemmThreads;
+      // A: element (m, k) of the tile, k fastest in memory unless TransA
+      const int m = TransA ? e % kTile : e / kStage;
+      const int k = TransA ? e / kTile : e % kStage;
+      const int gm = m0 + m, gk = k0 + k;
+      const long long ia = TransA ? (long long)gk * lda + gm
+                                  : (long long)gm * lda + gk;
+      ra[r] = gm < M && gk < K ? A[ia] : 0.f;
+      const int kb = k0 + e / kTile, gn = n0 + e % kTile;
+      rb[r] = kb < K && gn < N ? b.row(t, kb, N)[gn] : 0.f;
+    }
+  };
+  const int n_stages = (K + kStage - 1) / kStage;
+  load(0);
+  for (int s = 0; s < n_stages; ++s) {
+    __syncthreads();  // the last stage's reads are done
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int e = tid + r * kGemmThreads;
+      const int m = TransA ? e % kTile : e / kStage;
+      const int k = TransA ? e / kTile : e % kStage;
+      a_s[k][m] = ra[r];
+      b_s[e / kTile][e % kTile] = rb[r];
+    }
     __syncthreads();
-    red[j * bs + tx] = vals[k];
-    __syncthreads();
-    if (tx == 0) {
-      float s = 0.f;
-      for (int q = 0; q < bt; ++q) s += red[j * bs + q];
-      part[k * H] = s;
+    if (s + 1 < n_stages) load((s + 1) * kStage);
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&a_s[k][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&b_s[k][4 * tx]);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] += a4[p] * b4[q];
     }
   }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int gm = m0 + 4 * ty + p;
+    if (gm >= M) continue;
+    float* out = c.row(t, gm, N);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int gn = n0 + 4 * tx + q;
+      if (gn < N) out[gn] = Accum ? out[gn] + acc[p][q] : acc[p][q];
+    }
+  }
+}
+
+// part[chunk][m][n] = sum over the columns col in [chunk * cols,
+// min((chunk + 1) * cols, T * B)), (t, b) = divmod(col, B), of a_t[m][b] *
+// b_t[n][b]: one chunk of the split-K product dW = sum_t du_t X_t^T. grid
+// (ceil(N / 64), ceil(M / 64), n_chunks), kGemmThreads threads, each a 4 x
+// 4 register tile as in the product above. A stage stages kWgCols columns
+// of both operands transposed (column-major, rows of 68 floats); a thread
+// loads one column (tid % 32) of rows tid / 32 + 8 r, so it splits one
+// column index into (t, b) a stage, and a warp reads 32 consecutive
+// columns.
+__global__ void __launch_bounds__(kGemmThreads)
+sru_hid_bwd_wgrad_kernel(Rows a, Rows b, float* __restrict__ part, int M,
+                         int N, int T, int B, int cols) {
+  __shared__ __align__(16) float a_s[kWgCols][kTile + 4];  // a_s[col][m]
+  __shared__ __align__(16) float b_s[kWgCols][kTile + 4];  // b_s[col][n]
+  constexpr int kPer = kWgCols * kTile / kGemmThreads;
+  constexpr int kRowStep = kGemmThreads / kWgCols;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const long long c0 = (long long)blockIdx.z * cols;
+  const long long c1 = min(c0 + cols, (long long)T * B);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q = tid % kWgCols, r0 = tid / kWgCols;
+  float acc[4][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) acc[p][s] = 0.f;
+  float ra[kPer], rb[kPer];
+  auto load = [&](long long s0) {
+    const long long col = s0 + q;
+    const bool ok = col < c1;
+    const int t = ok ? (int)(col / B) : 0;
+    const int bb = ok ? (int)(col - (long long)t * B) : 0;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int gm = m0 + r0 + kRowStep * r, gn = n0 + r0 + kRowStep * r;
+      ra[r] = ok && gm < M ? a.row(t, gm, B)[bb] : 0.f;
+      rb[r] = ok && gn < N ? b.row(t, gn, B)[bb] : 0.f;
+    }
+  };
+  load(c0);
+  for (long long s0 = c0; s0 < c1; s0 += kWgCols) {
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      a_s[q][r0 + kRowStep * r] = ra[r];
+      b_s[q][r0 + kRowStep * r] = rb[r];
+    }
+    __syncthreads();
+    if (s0 + kWgCols < c1) load(s0 + kWgCols);
+#pragma unroll 8
+    for (int k = 0; k < kWgCols; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&a_s[k][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&b_s[k][4 * tx]);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) acc[p][s] += a4[p] * b4[s];
+    }
+  }
+  float* out = part + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int gm = m0 + 4 * ty + p;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int gn = n0 + 4 * tx + s;
+      if (gn < N) out[(long long)gm * N + gn] = acc[p][s];
+    }
+  }
+}
+
+// out[e] = sum_{p < n_parts} part[p][e], p in order.
+__global__ void sru_hid_bwd_sum_kernel(const float* __restrict__ part,
+                                       float* __restrict__ out, int n_parts,
+                                       int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < n_parts; ++p) s += part[(long long)p * n + e];
+  out[e] = s;
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -447,6 +524,8 @@ cudaError_t set_smem(const void* kernel, size_t smem) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
+
+int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 }  // namespace
 
@@ -468,12 +547,15 @@ extern "C" int sru_dual_recurrence_bwd(const void* u_f, const void* u_r,
                                        const void* dh_r, void* du_f,
                                        void* du_r, void* dvb_part, int T,
                                        int H, int B, void* stream) {
+  const long long step = 4LL * H * B, hw = 3LL * H * B;
+  const ScanIO io_f{(const float*)u_f, (const float*)u_f + hw, (float*)du_f,
+                    (float*)du_f + hw, step, step, step, step};
+  const ScanIO io_r{(const float*)u_r, (const float*)u_r + hw, (float*)du_r,
+                    (float*)du_r + hw, step, step, step, step};
   dim3 grid((B + kLay0Threads - 1) / kLay0Threads, H, 2);
-  sru_lay0_bwd_kernel<<<grid, kLay0Threads, 0, (cudaStream_t)stream>>>(
-      (const float*)u_f, (const float*)u_r, (const float*)vb,
-      (const float*)c_f, (const float*)c_r, (const float*)dh_f,
-      (const float*)dh_r, (float*)du_f, (float*)du_r, (float*)dvb_part, T, H,
-      B);
+  sru_scan_bwd_kernel<1><<<grid, kLay0Threads, 0, (cudaStream_t)stream>>>(
+      io_f, io_r, (const float*)vb, (const float*)c_f, (const float*)c_r,
+      (const float*)dh_f, (const float*)dh_r, (float*)dvb_part, T, H, B);
   return (int)cudaGetLastError();
 }
 
@@ -493,28 +575,48 @@ extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
   return (int)cudaGetLastError();
 }
 
-// dx_a, dx_b: (T, 2H, B) per direction; dwt_part: (ceil(B / bt), 6H, 2H);
-// dvb_part: (ceil(B / bt), 8, H).
-extern "C" int sru_hidden_layer_bwd(const void* x_f, const void* x_r,
-                                    const void* wt, const void* vb,
-                                    const void* c_f, const void* c_r,
-                                    const void* dh_f, const void* dh_r,
-                                    void* dx_a, void* dx_b, void* dwt_part,
-                                    void* dvb_part, int T, int H, int B,
-                                    int bt, void* stream) {
-  if ((6 * H * H + bt * H - 1) / (bt * H) > kMaxDwPerThread)
-    return (int)cudaErrorInvalidValue;
-  const int bs = bt + 1;
-  const size_t smem = (size_t)(3 * H * (2 * H + 1) + 4 * H * bs + 3 * H * bs
-                               + H * bs) * sizeof(float);
-  cudaError_t e = set_smem((const void*)sru_hidden_bwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + bt - 1) / bt, 2);
-  dim3 block(bt, H);
-  sru_hidden_bwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const float*)x_f, (const float*)x_r, (const float*)wt,
-      (const float*)vb, (const float*)c_f, (const float*)c_r,
-      (const float*)dh_f, (const float*)dh_r, (float*)dx_a, (float*)dx_b,
-      (float*)dwt_part, (float*)dvb_part, T, H, B);
+// Outputs dx_f, dx_r (T, H, B), dwt (6H, 2H), dvb (8, H). Scratch from the
+// wrapper: ud (T, 6H, B); dw_part (ceil(T * B / cols), 6H, 2H), one per
+// chunk of cols (t, b) columns; dvb_part (ceil(B / kLay0Threads), 8, H).
+extern "C" int sru_hidden_layer_bwd(
+    const void* x_f, const void* x_r, const void* wt, const void* vb,
+    const void* c_f, const void* c_r, const void* dh_f, const void* dh_r,
+    void* dx_f, void* dx_r, void* dwt, void* dvb, void* ud, void* dw_part,
+    void* dvb_part, int T, int H, int B, int cols, void* stream) {
+  if (cols < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int h2 = 2 * H, h6 = 6 * H;
+  const Rows x{(float*)x_f, (float*)x_r, H, H, H};
+  const Rows u{(float*)ud, nullptr, h6, h6, 0};
+  const Rows dx{(float*)dx_f, (float*)dx_r, H, H, H};
+  // 1. U = W^T X for every step
+  sru_hid_bwd_gemm_kernel<false, false>
+      <<<dim3(ceil_div(B, kTile), ceil_div(h6, kTile), T), kGemmThreads, 0,
+         st>>>((const float*)wt, h2, x, u, h6, h2, B);
+  // 2. the adjoint scan: du over U, the highway term into dx
+  const long long hb = (long long)H * B, step = 6LL * hb;
+  const ScanIO io_f{(const float*)ud, (const float*)x_f, (float*)ud,
+                    (float*)dx_f, step, hb, step, hb};
+  const ScanIO io_r{(const float*)ud + 3 * hb, (const float*)x_r,
+                    (float*)ud + 3 * hb, (float*)dx_r, step, hb, step, hb};
+  sru_scan_bwd_kernel<2>
+      <<<dim3(ceil_div(B, kLay0Threads), H, 2), kLay0Threads, 0, st>>>(
+          io_f, io_r, (const float*)vb, (const float*)c_f, (const float*)c_r,
+          (const float*)dh_f, (const float*)dh_r, (float*)dvb_part, T, H, B);
+  // 3. dx += W du (both directions in one sum over 6H)
+  sru_hid_bwd_gemm_kernel<true, true>
+      <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
+         st>>>((const float*)wt, h2, u, dx, h2, h6, B);
+  // 4. dW partials by split-K over the T * B columns
+  const int n_chunks = ceil_div((long long)T * B, cols);
+  sru_hid_bwd_wgrad_kernel<<<dim3(ceil_div(h2, kTile), ceil_div(h6, kTile),
+                                  n_chunks),
+                             kGemmThreads, 0, st>>>(u, x, (float*)dw_part, h6,
+                                                    h2, T, B, cols);
+  // 5. the partials, in order
+  sru_hid_bwd_sum_kernel<<<ceil_div(h6 * h2, 256), 256, 0, st>>>(
+      (const float*)dw_part, (float*)dwt, n_chunks, h6 * h2);
+  sru_hid_bwd_sum_kernel<<<ceil_div(8 * H, 256), 256, 0, st>>>(
+      (const float*)dvb_part, (float*)dvb, ceil_div(B, kLay0Threads), 8 * H);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,9 @@ reads the SRU stack's native time-major ``(L, C_in, B)`` output and writes
 
 with W stored ``(k, C_out, C_in)`` (not flipped), stride 1, padding 0. The
 bias is added by the caller. CUDA kernels ``csrc/convt_tm.cu:
-convt1d_ola_tm_fwd`` and ``..._bwd`` (dx by the mirrored stencil, dW as
-per-block partials); when autograd records, the op runs through a
+convt1d_ola_tm_fwd`` and ``..._bwd`` (dx with W resident in shared memory
+and a ring of g rows, dW as a split-K product whose partials are summed in
+a fixed order); when autograd records, the op runs through a
 ``torch.autograd.Function`` whose backward is the kernel. On a CPU tensor
 the plain versions below run, forward and backward.
 """
@@ -69,10 +70,37 @@ def _forward(x_tm, w):
     return out
 
 
-def dw_steps_per_block(length: int, k: int) -> int:
-    """Steps of L per dW block: about 256 blocks over (steps, taps)."""
-    chunks = max(1, min(length, 256 // max(k, 1)))
-    return -(-length // chunks)
+# K3 backward's geometry, the constants of csrc/convt_tm.cu: dx blocks of
+# 32 batch columns (``kDxCols``) in 4 tap groups (``kDxGroups``) and C_in
+# <= 64 (``kMaxIn``, also W's row stride in shared memory); dW tiles of
+# 128 x 64 (``kWgRows`` x ``kMaxIn``), stages of 32 columns (``kWgCols``)
+DX_COLS = 32
+DX_GROUPS = 4
+MAX_IN = 64
+WGRAD_ROWS = 128
+WGRAD_COLS = 32
+
+
+def bwd_geometry(length: int, c_in: int, c_out: int, k: int,
+                 bsz: int) -> dict:
+    """K3 backward's launch geometry, as ``convt1d_ola_tm_bwd`` launches it:
+    the dx blocks (column tiles x runs of ``steps`` consecutive steps, one
+    wave over the card's SMs), their dynamic shared memory in bytes (all
+    of W, the ring of k+1 g rows, the tap groups' exchange tiles), and the
+    dW split-K over the L*B columns (``cols`` a chunk, one partial each)."""
+    col_tiles = -(-bsz // DX_COLS)
+    runs = max(1, min(length, kernel_lib.SMS // col_tiles))  # one block an SM
+    steps = -(-length // runs)
+    wgrad_tiles = -(-k * c_out // WGRAD_ROWS) * -(-c_in // MAX_IN)
+    cols, chunks = kernel_lib.split_k(length * bsz, wgrad_tiles, WGRAD_COLS)
+    return {
+        "dx_grid": (col_tiles, -(-length // steps)), "steps": steps,
+        "dx_smem": 4 * (k * c_out * MAX_IN + (k + 1) * c_out * DX_COLS
+                        + (DX_GROUPS - 1) * MAX_IN * DX_COLS),
+        "wgrad_grid": (-(-c_in // MAX_IN), -(-k * c_out // WGRAD_ROWS),
+                       chunks),
+        "cols": cols, "chunks": chunks,
+    }
 
 
 def _backward(g, x_tm, w):
@@ -81,19 +109,21 @@ def _backward(g, x_tm, w):
     kernel_lib.check_cuda_f32("convt1d_ola_tm backward", g, x_tm, w)
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
-    if c_in > 64 or c_out > 64:
-        raise ValueError(f"convt1d_ola_tm backward: channels {c_in}, {c_out} "
-                         "> 64 are not supported")
-    steps = dw_steps_per_block(length, k)
+    geo = bwd_geometry(length, c_in, c_out, k, bsz)
+    if (min(x_tm.shape) == 0 or k == 0 or c_in > MAX_IN
+            or geo["dx_smem"] > kernel_lib.SMEM_PER_BLOCK):
+        raise ValueError(f"convt1d_ola_tm backward: unsupported shape x "
+                         f"{tuple(x_tm.shape)}, w {tuple(w.shape)}")
     dx = torch.empty_like(x_tm)
-    dw_part = torch.empty(-(-length // steps), k, c_out, c_in,
-                          device=x_tm.device)
+    dw = torch.empty_like(w)
+    dw_part = torch.empty(geo["chunks"], k, c_out, c_in, device=x_tm.device)
     kernel_lib.launch(
         "convt_tm", "convt1d_ola_tm_bwd", x_tm.device,
         g.data_ptr(), w.data_ptr(), x_tm.data_ptr(), dx.data_ptr(),
-        dw_part.data_ptr(), length, c_in, c_out, k, bsz, steps,
+        dw.data_ptr(), dw_part.data_ptr(), length, c_in, c_out, k, bsz,
+        geo["steps"], geo["cols"],
     )
-    return dx, dw_part.sum(0)
+    return dx, dw
 
 
 class _ConvTranspose(torch.autograd.Function):

@@ -39,11 +39,11 @@ _SIGNATURES = {
         "sru_dual_recurrence_fwd": (7, 3),
         "sru_dual_recurrence_bwd": (10, 3),
         "sru_hidden_layer_fwd": (8, 4),
-        "sru_hidden_layer_bwd": (12, 4),
+        "sru_hidden_layer_bwd": (15, 4),
     },
     "convt_tm": {
         "convt1d_ola_tm_fwd": (3, 5),
-        "convt1d_ola_tm_bwd": (5, 6),
+        "convt1d_ola_tm_bwd": (6, 7),
     },
     "packed_tf": {
         "dw_conv_packed_fwd": (4, 13),
@@ -61,6 +61,22 @@ _SIGNATURES = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+# the H100 SXM: streaming multiprocessors, and the shared memory one block
+# may use (bytes)
+SMS = 132
+SMEM_PER_BLOCK = 232_448
+
+
+def split_k(n_cols: int, tiles: int, stage: int) -> tuple:
+    """(columns per chunk, chunks) of a split-K product that reduces over
+    ``n_cols`` columns into ``tiles`` output tiles: about two blocks an SM,
+    each chunk a multiple of ``stage`` columns. Chunk c reduces the columns
+    [c * cols, min((c + 1) * cols, n_cols)) into its own partial."""
+    want = max(1, 2 * SMS // max(tiles, 1))
+    cols = -(-n_cols // want)
+    cols = max(stage, -(-cols // stage) * stage)
+    return cols, -(-n_cols // cols)
 
 
 def reset_launches() -> None:

@@ -6,9 +6,10 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
   over a precomputed U = [x~, f, r, highway]; CUDA kernels
   ``csrc/sru_fused.cu:sru_dual_recurrence_fwd`` and ``..._bwd``.
 - ``sru_hidden_layer`` (K2): one hidden layer (k = 3, highway = input) with
-  the projection U_t = W^T [h_f; h_r]_t inside the kernel (the backward
-  recomputes it there); CUDA kernels ``csrc/sru_fused.cu:
-  sru_hidden_layer_fwd`` and ``..._bwd``.
+  the projection U_t = W^T [h_f; h_r]_t inside the forward kernel; the
+  backward is split at the recurrence into U, the adjoint scan, dx and a
+  split-K dW, launched by one C entry on scratch the wrapper allocates;
+  CUDA kernels ``csrc/sru_fused.cu: sru_hidden_layer_fwd`` and ``..._bwd``.
 - ``sru_stack``: layer 0's projection as a windowed ``conv1d`` over the raw
   sequence, one entry transpose to time-major, K1, then K2 per hidden layer,
   with the (h_f, h_r) pair chained in (T, H, B).
@@ -29,8 +30,8 @@ import torch.nn.functional as F
 
 from . import kernel_lib
 
-# K1 block size, ``kLay0Threads`` in csrc/sru_fused.cu: the backward writes
-# one dvb partial a block
+# K1 block size and K2's scan's, ``kLay0Threads`` in csrc/sru_fused.cu:
+# each backward scan writes one dvb partial a block
 LAY0_THREADS = 128
 
 
@@ -249,8 +250,36 @@ def sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
 
 
 def hidden_tile(hdim: int) -> int:
-    """Batch columns per K2 block: (tile x H) threads, about 256."""
+    """Batch columns per K2 forward block: (tile x H) threads, about 256."""
     return max(1, min(32, 256 // hdim))
+
+
+# K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in
+# csrc/sru_fused.cu: output tiles of 64 x 64, U and dx stages of 16
+# reduction rows, dW stages of 32 (t, b) columns
+GEMM_TILE = 64
+GEMM_STAGE = 16
+WGRAD_COLS = 32
+
+
+def k2_bwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+    """K2 backward's launch geometry, as ``sru_hidden_layer_bwd`` launches
+    it: the (column, row, step) tiles of the U and dx products, the dW
+    split-K over the T*B columns (``cols`` a chunk, one partial each), the
+    scan's blocks (one (v, b) partial each) and each kernel's static shared
+    memory in bytes."""
+    tiles = lambda n: -(-n // GEMM_TILE)  # noqa: E731
+    wgrad_tiles = tiles(6 * hdim) * tiles(2 * hdim)
+    cols, chunks = kernel_lib.split_k(t_len * bsz, wgrad_tiles, WGRAD_COLS)
+    return {
+        "u_grid": (tiles(bsz), tiles(6 * hdim), t_len),
+        "dx_grid": (tiles(bsz), tiles(2 * hdim), t_len),
+        "wgrad_grid": (tiles(2 * hdim), tiles(6 * hdim), chunks),
+        "cols": cols, "chunks": chunks,
+        "scan_blocks": -(-bsz // LAY0_THREADS),
+        "gemm_smem": 4 * GEMM_STAGE * (2 * GEMM_TILE + 4),
+        "wgrad_smem": 4 * 2 * WGRAD_COLS * (GEMM_TILE + 4),
+    }
 
 
 def _k2_forward(x_f, x_r, wt, vb, with_c):
@@ -280,23 +309,24 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
     kernel_lib.check_cuda_f32("sru_hidden_layer backward", x_f, x_r, wt, vb,
                               c_f, c_r, dh_f, dh_r)
     t_len, hdim, bsz = x_f.shape
-    tile = hidden_tile(hdim)
-    if -(-6 * hdim * hdim // (tile * hdim)) > 32:
-        raise ValueError(f"sru_hidden_layer backward: H {hdim} > 32 is not "
-                         "supported (dW registers)")
-    n_blocks = -(-bsz // tile)
-    dx = torch.empty(2, t_len, 2 * hdim, bsz, device=x_f.device)
-    dwt_part = torch.empty(n_blocks, 6 * hdim, 2 * hdim, device=x_f.device)
-    dvb_part = torch.empty(n_blocks, 8, hdim, device=x_f.device)
+    if min(x_f.shape) == 0:
+        raise ValueError("sru_hidden_layer backward: empty input")
+    geo = k2_bwd_geometry(t_len, hdim, bsz)
+    dev = x_f.device
+    dx_f, dx_r = torch.empty_like(x_f), torch.empty_like(x_r)
+    dwt, dvb = torch.empty_like(wt), torch.empty_like(vb)
+    ud = torch.empty(t_len, 6 * hdim, bsz, device=dev)  # U, then du
+    dw_part = torch.empty(geo["chunks"], 6 * hdim, 2 * hdim, device=dev)
+    dvb_part = torch.empty(geo["scan_blocks"], 8, hdim, device=dev)
     kernel_lib.launch(
-        "sru_fused", "sru_hidden_layer_bwd", x_f.device,
+        "sru_fused", "sru_hidden_layer_bwd", dev,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         c_f.data_ptr(), c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(),
-        dx[0].data_ptr(), dx[1].data_ptr(), dwt_part.data_ptr(),
-        dvb_part.data_ptr(), t_len, hdim, bsz, tile,
+        dx_f.data_ptr(), dx_r.data_ptr(), dwt.data_ptr(), dvb.data_ptr(),
+        ud.data_ptr(), dw_part.data_ptr(), dvb_part.data_ptr(),
+        t_len, hdim, bsz, geo["cols"],
     )
-    dx = dx[0] + dx[1]  # the two directions' parts, as ``dxa + dxb``
-    return dx[:, :hdim], dx[:, hdim:], dwt_part.sum(0), dvb_part.sum(0)
+    return dx_f, dx_r, dwt, dvb
 
 
 class _HiddenLayer(torch.autograd.Function):

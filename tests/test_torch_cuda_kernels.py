@@ -55,10 +55,14 @@ def _close(got, want, rel=None):
         torch.testing.assert_close(g, w, atol=atol, rtol=0)
 
 
+# the two training geometries at bs 4, a ragged B that is a multiple of no
+# tile (64, 32, 128), T = 1, and H above 32
 @pytest.mark.parametrize("t_len,h,bsz", [(21, 8, 5), (57, 32, 500),
-                                         (118, 32, 256)])
+                                         (118, 32, 256), (37, 32, 131),
+                                         (1, 32, 77), (23, 48, 131)])
 def test_k1_k2_backward_match_plain(dev, t_len, h, bsz):
-    """Forward with c and the BPTT kernels against the plain versions."""
+    """Forward with c and the BPTT kernels against the plain versions; two
+    K2 backward calls give the same bits."""
     from rtfs_tpu_torch.ops import sru_fused as S
 
     rng = np.random.default_rng(3)
@@ -81,12 +85,41 @@ def test_k1_k2_backward_match_plain(dev, t_len, h, bsz):
                                         dh_f, dh_r)
     _close(got[:2], want[:2])
     _close(got[2:], want[2:], rel=1e-4)
+    again = S._k2_backward(x_f, x_r, wt, vb, fwd[2], fwd[3], dh_f, dh_r)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("h", [32, 48])
+def test_k2_function_matches_autograd_of_plain(dev, h):
+    """K2's Function (forward with c, the backward kernel) against autograd
+    through the plain forward on the same card inputs, at the preset's H
+    and above 32."""
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(18)
+    t_len, bsz = 29, 131
+
+    def leaf(shape, scale=1.0):
+        return _t(rng, shape, dev, scale).requires_grad_()
+
+    ins = (leaf((t_len, h, bsz), 0.5), leaf((t_len, h, bsz), 0.5),
+           leaf((6 * h, 2 * h), (2 * h) ** -0.5), leaf((8, h), 0.3))
+    dh = (_t(rng, (t_len, h, bsz), dev), _t(rng, (t_len, h, bsz), dev))
+    got = torch.autograd.grad(S.sru_hidden_layer(*ins), ins, dh)
+    plain = S.sru_hidden_layer_plain(*ins)
+    _close(got, torch.autograd.grad(plain, ins, dh), rel=1e-4)
+
+
+# the two training geometries at bs 4, small channels and taps, a ragged B
+# that is a multiple of no tile (32, 64), T = 1
 @pytest.mark.parametrize("length,c_in,c_out,bsz,k",
                          [(57, 64, 64, 500, 8), (118, 64, 64, 256, 8),
-                          (13, 32, 48, 17, 5)])
+                          (13, 32, 48, 17, 5), (37, 64, 64, 131, 8),
+                          (1, 64, 64, 77, 8)])
 def test_k3_backward_matches_plain(dev, length, c_in, c_out, bsz, k):
+    """K3 backward against the plain version; two calls give the same
+    bits."""
     from rtfs_tpu_torch.ops import convt_tm as K
 
     rng = np.random.default_rng(4)
@@ -97,6 +130,8 @@ def test_k3_backward_matches_plain(dev, length, c_in, c_out, bsz, k):
     rx, rw = K.convt1d_ola_tm_bwd_plain(g, x, w)
     torch.testing.assert_close(dx, rx, atol=ATOL, rtol=0)
     _close((dw,), (rw,), rel=1e-4)  # dW sums L * B products
+    dx2, dw2 = K._backward(g, x, w)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 def test_wrappers_give_every_parameter_a_gradient(dev):
