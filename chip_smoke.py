@@ -10,8 +10,11 @@ one or outside the repository. Phases, any failure of which ends the run:
    parallel.
 3. Forward kernels: each kernel of the serving path (K1 sru_dual_recurrence,
    K2 sru_hidden_layer, K3 convt1d_ola_tm) runs at the shapes the RTFS-Net-4
-   forward gives it at batch 1 and 8, against its plain PyTorch version on
-   the same inputs on the card, and is timed with CUDA events.
+   forward gives it at batch 1 and 8, twice (the two outputs must be
+   bit-identical), against its plain PyTorch version on the same inputs on
+   the card, and is timed with CUDA events beside its float32 bound and,
+   for K2 and K3, whose products run in 3xTF32 on the tensor cores, the
+   bound of that route.
 4. Serving: the full RTFS-Net-4 (4 repeats, published widths, weights from
    seed 0) answers ``separate_sample`` requests of 2 s at batch 1 and 8 on
    the card. The launch counts of that run must be K1 8 / K2 24 / K3 8 per
@@ -37,7 +40,8 @@ one or outside the repository. Phases, any failure of which ends the run:
    on synthetic batches: launches per step must be K1/K2/K3 forward 8/24/8
    and backward 8/24/8, every loss finite and the parameters moved; it
    prints ms per step, peak memory, and one profiled step's device time,
-   idle share, top kernels and K2 backward's share.
+   idle share, top kernels and the shares of K2 forward, K3 forward and
+   K2 backward.
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
    pw_proj_packed, K7 pw_unproj_packed, K8 spatial_down_packed and K9
    spatial_up_packed at the packed serving shapes (STFT 251 x 129, 64
@@ -108,6 +112,9 @@ import torch
 # float32 (non-tensor-core) operations/s. The kernels compute in float32.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# dense TF32 tensor-core operations/s; a 3xTF32 product (K2 and K3
+# forward, rtfs_tpu_torch/csrc/tf32x3.cuh) issues three a float32 one
+TF32_OPS_PER_S = 495e12
 
 PRESET = "lrs2_RTFSNet_4_layer"
 SAMPLES = 32000  # 2 s at 16 kHz
@@ -205,6 +212,17 @@ def phase(name, fn, *args):
 def bound_ms(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32x3_bound_ms(bytes_moved: float, ops: float, product_ops: float):
+    """The bound of a kernel whose ``product_ops`` of its ``ops`` run as
+    3xTF32 products on the tensor cores, the rest in float32 on the SIMT
+    units: the two kinds of unit work at once, so the larger of their
+    times."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(3 * product_ops / TF32_OPS_PER_S,
+                (ops - product_ops) / F32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -429,8 +447,10 @@ def check_packed_kernels(conf, rng) -> dict:
 
 def check_kernels(geo, rng) -> dict:
     """Phase 3: every forward kernel against its plain version at the main
-    path's shapes; returns per kernel the max error and per-forward (batch 8)
-    sums of kernel, plain, bound and library times."""
+    path's shapes, called twice (the two outputs must be bit-identical);
+    returns per kernel the max error and per-forward (batch 8) sums of
+    kernel, plain, bound and library times, and for K2 and K3 the bound
+    of their 3xTF32 products."""
     from rtfs_tpu_torch.ops import convt_tm, sru_fused
 
     H, C, k = geo["H"], geo["C"], geo["k"]
@@ -447,6 +467,9 @@ def check_kernels(geo, rng) -> dict:
     res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": None, "bound_by": None}
            for name in TOL}
+    # K2/K3 forward run their products in 3xTF32 on the tensor cores: their
+    # bound_ms is that route's bound; the SIMT-f32 one is only printed
+    simt_ms = {"sru_hidden_layer": 0.0, "convt1d_ola_tm": 0.0}
     per_forward = {"sru_dual_recurrence": REPEATS,
                    "sru_hidden_layer": REPEATS * (geo["layers"] - 1),
                    "convt1d_ola_tm": REPEATS}
@@ -455,20 +478,23 @@ def check_kernels(geo, rng) -> dict:
         for site in ("freq", "time"):
             length, per_item = geo[site]
             bsz = bs * per_item
+            # (kernel, plain, inputs, bytes, flops, of those the products'
+            #  flops, library call)
             cases = {
                 "sru_dual_recurrence": (
                     sru_fused.sru_dual_recurrence,
                     sru_fused.sru_dual_recurrence_plain,
                     (t((length, 4 * H, bsz)), t((length, 4 * H, bsz)), vb),
                     4 * (2 * length * 4 * H * bsz + 2 * length * H * bsz),
-                    2 * length * H * bsz * 20, None),
+                    2 * length * H * bsz * 20, None, None),
                 "sru_hidden_layer": (
                     sru_fused.sru_hidden_layer,
                     sru_fused.sru_hidden_layer_plain,
                     (t((length, H, bsz), 0.5), t((length, H, bsz), 0.5),
                      wt, vb),
                     4 * (4 * length * H * bsz + wt.numel() + vb.numel()),
-                    2 * length * bsz * (3 * H * 2 * H * 2 + 20 * H), None),
+                    2 * length * bsz * (3 * H * 2 * H * 2 + 20 * H),
+                    2 * length * bsz * 3 * H * 2 * H * 2, None),
                 "convt1d_ola_tm": (
                     convt_tm.convt1d_ola_tm,
                     convt_tm.convt1d_ola_tm_plain,
@@ -476,19 +502,28 @@ def check_kernels(geo, rng) -> dict:
                     4 * (length * 2 * H * bsz + w3.numel()
                          + (length + k - 1) * C * bsz),
                     2 * length * k * 2 * H * C * bsz,
+                    2 * length * k * 2 * H * C * bsz,
                     "conv_transpose1d"),
             }
-            for name, (kern, plain, args, nbytes, nops, lib) in cases.items():
+            for name, (kern, plain, args, nbytes, nops, mm_ops,
+                       lib) in cases.items():
                 got = kern(*args)
+                again = kern(*args)
                 want = plain(*args)
                 torch.cuda.synchronize()
                 got = torch.stack(got) if isinstance(got, tuple) else got
+                again = (torch.stack(again) if isinstance(again, tuple)
+                         else again)
                 want = torch.stack(want) if isinstance(want, tuple) else want
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: two calls differ")
                 err = (got - want).abs().max().item()
                 rel = err / max(want.abs().max().item(), 1e-30)
                 ms = time_cuda(lambda: kern(*args), 50)
                 plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
-                b_ms, b_by = bound_ms(nbytes, nops)
+                f32_ms = bound_ms(nbytes, nops)[0]
+                b_ms, b_by = (bound_ms(nbytes, nops) if mm_ops is None
+                              else tf32x3_bound_ms(nbytes, nops, mm_ops))
                 lib_ms = None
                 if lib:
                     x_lib = args[0].permute(2, 1, 0).contiguous()
@@ -496,11 +531,13 @@ def check_kernels(geo, rng) -> dict:
                     lib_ms = time_cuda(
                         lambda: torch.nn.functional.conv_transpose1d(
                             x_lib, w_lib), 50)
+                route = ("" if mm_ops is None
+                         else f", 3xTF32; SIMT-f32 bound_ms={f32_ms:.5f}")
                 print(f"kernel {name} bs={bs} site={site} L={length} "
                       f"B={bsz}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
                       f"(tol {TOL[name]:.0e}) ms={ms:.5f} plain_ms="
-                      f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
-                      f"library_ms={lib_ms}")
+                      f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}{route}) "
+                      f"library_ms={lib_ms}; two calls bit-identical")
                 if not err <= TOL[name]:
                     raise AssertionError(
                         f"{name} disagrees with its plain version: "
@@ -513,8 +550,16 @@ def check_kernels(geo, rng) -> dict:
                     r["plain_ms"] += n * plain_ms
                     r["bound_ms"] += n * b_ms
                     r["bound_by"] = b_by
+                    if name in simt_ms:
+                        simt_ms[name] += n * f32_ms
                     if lib_ms is not None:
                         r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+    for name, r in res.items():
+        route = ("" if name not in simt_ms else
+                 f", 3xTF32; SIMT-f32 bound_ms={simt_ms[name]:.4f}")
+        print(f"kernel {name}: per bs-8 forward ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}{route}) "
+              f"plain_ms={r['plain_ms']:.2f} library_ms={r['library_ms']}")
     return res
 
 
@@ -991,10 +1036,11 @@ def hold_train_step(res, ref, on: str, off: str) -> None:
 
 
 def profile_step(system, batch, generator, label: str,
-                 also=()) -> None:
+                 also=None) -> None:
     """One more train step under the profiler: wall and device time, idle
-    share, the top kernels by device time and every kernel whose name
-    holds one of ``also``, with their sum."""
+    share, the top kernels by device time and, for each group of ``also``
+    ({group: kernel name parts}), every kernel whose name holds one of its
+    parts, with their sum and share of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1016,16 +1062,15 @@ def profile_step(system, batch, generator, label: str,
     for e in kernels[:12]:
         print(f"{label}: top kernel {dev_us(e) / 1e3:9.3f} ms "
               f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<5d} {e.key[:90]}")
-    picked = [e for e in kernels if any(a in e.key for a in also)]
-    for e in picked:
-        print(f"{label}: kernel {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
-              f"{e.key[:90]}")
-    if picked:
+    for group, parts in (also or {}).items():
+        picked = [e for e in kernels if any(a in e.key for a in parts)]
+        for e in picked:
+            print(f"{label}: {group} kernel {dev_us(e) / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:90]}")
         picked_ms = sum(dev_us(e) for e in picked) / 1e3
-        print(f"{label}: those {len(picked)} kernels ({', '.join(also)}) "
-              f"together "
-              f"{picked_ms:.3f} ms of the step, share "
-              f"{picked_ms / dev_ms:.3f} of its device time")
+        print(f"{label}: {group} ({len(picked)} kernels: "
+              f"{', '.join(parts)}) together {picked_ms:.3f} ms of the "
+              f"step, share {picked_ms / dev_ms:.3f} of its device time")
 
 
 # the device kernels of csrc/packed_tf.cu, as the profiler names them
@@ -1034,9 +1079,14 @@ PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_packed_kernel<",
                        "dw_wgrad_partial_kernel", "pw_wgrad_partial_kernel",
                        "sum_partials_kernel")
 
-# the device kernels of K2's backward (csrc/sru_fused.cu), as the profiler
-# names them
-K2_BWD_KERNEL_NAMES = ("sru_hid_bwd_", "sru_scan_bwd_kernel<2>")
+# the device kernels of the main path whose share phase 6 prints, as the
+# profiler names them: K2 forward and K3 forward (one kernel each), K2
+# backward (csrc/sru_fused.cu)
+MAIN_KERNEL_GROUPS = {
+    "K2 forward": ("sru_hid_fwd_kernel",),
+    "K3 forward": ("convt1d_tm_fwd_kernel",),
+    "K2 backward": ("sru_hid_bwd_", "sru_scan_bwd_kernel<2>"),
+}
 
 # launches of K1/K2/K3 per train step, forward and backward
 TRAIN_LAUNCHES = {"sru_dual_recurrence_fwd": 2 * REPEATS,
@@ -1047,12 +1097,12 @@ TRAIN_LAUNCHES = {"sru_dual_recurrence_fwd": 2 * REPEATS,
                   "convt1d_ola_tm_bwd": 2 * REPEATS}
 
 
-def train(conf, expect, label="training", also=()) -> tuple:
+def train(conf, expect, label="training", also=None) -> tuple:
     """Phase 6 (and 10): one train step on the card against float64 on the
     CPU, then the train system's steps at batch 4, each launching exactly
-    ``expect``; one more step profiled (``also``: kernel names whose device
-    time it sums). Returns the launch counts of those steps and the batch-1
-    steps for phase 9."""
+    ``expect``; one more step profiled (``also``: {group: kernel name
+    parts} whose device time it sums). Returns the launch counts of those
+    steps and the batch-1 steps for phase 9."""
     from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.train.main import build_system
@@ -1352,7 +1402,7 @@ def train_packed(conf, rng, ref) -> tuple:
         raise AssertionError("no parameter changed in packed training")
     del systems[False]
     profile_step(systems[True], batches[0], gens[True], "packed training",
-                 also=PACKED_KERNEL_NAMES)
+                 also={"packed kernels": PACKED_KERNEL_NAMES})
     return wgrads, launches
 
 
@@ -1538,7 +1588,7 @@ def unidirectional(conf_uni, geo, rng) -> tuple:
     trained, _ = phase(
         "10d uni training", train, conf_uni,
         {"sru_recurrence_fwd": per_fwd, "sru_recurrence_bwd": per_fwd},
-        "uni training", ("sru_rec_",))
+        "uni training", {"K4": ("sru_rec_",)})
     return k4, served, trained
 
 
@@ -1581,7 +1631,7 @@ def main() -> int:
     bwd = phase("5 backward kernels", check_backward_kernels, geo, rng,
                 kernels)
     train_launches, ref = phase("6 training", train, conf, TRAIN_LAUNCHES,
-                                "training", K2_BWD_KERNEL_NAMES)
+                                "training", MAIN_KERNEL_GROUPS)
     wgrads, packed_train = phase("9 packed training", train_packed, conf,
                                  rng, ref)
     conf_uni = parse_overrides(load_config(PRESET), list(UNI_OVERRIDES))

@@ -18,13 +18,33 @@
 // What bounds it on the H100: 2*k*C_in*C_out flops per output column
 // against (C_in + C_out)*4 bytes, ~128 flops a byte at the DualPathRNN
 // geometry (k 8, C 64), far above the card's float32 ratio, so all three
-// products are bound by float32 operations; the design's job is to keep
-// the FMA units fed from shared memory and registers.
+// products are bound by operations: the backward's by float32 ones on the
+// SIMT units, the forward's by the tensor cores' rate in 3xTF32 (three
+// TF32 products a float32 one, tf32x3.cuh); the design's job is to keep
+// those units fed from shared memory and registers.
 //
-// Forward: one block per (output step t, tile of 64 batch columns),
-// 16 x 8 threads, each a register tile of 8 output channels x 4 columns;
-// per tap j the block stages W[j] (rows padded to 68 floats) and the input
-// tile x[t-j] in shared memory (taps off the sequence skipped).
+// Forward (convt1d_tm_fwd_kernel), the dx kernel's design transposed.
+// x is time-major, so out[t] = W_flat window_t, a product of depth
+// k*C_in = 512 with W_flat = W as (C_out x k*C_in), W_flat[o][j*C_in + i]
+// = W[j][o][i], and window_t the k rows x[t-j] stacked (the Pallas
+// kernel's windowed dot). Each block keeps W_flat (128 KB at the preset,
+// each tap's C_in padded to a multiple of 8, rows padded to a stride of
+// 4 mod 8 floats) in shared memory, brought in by cp.async with its
+// first x rows, and walks a run of consecutive output steps t for one
+// tile of 16 batch columns, 8 steps a pass, keeping a ring of k+15
+// time-major x rows (C_in x 16 each, swizzled; rows outside [0, L)
+// zero-filled by the copy): a pass reads rows t-k+1 .. t+7 while cp.async
+// brings the next pass's 8 rows into the free slots, so each x row is
+// read from memory once per block. The product runs on the tensor cores
+// in 3xTF32 (tf32x3.cuh): the 8 warps split the output tile (C_out x 16)
+// as 4 m16 x 2 n8 tiles, a warp one tile for all 8 steps of the pass, so
+// that each W fragment it splits serves 8 products and each x fragment
+// serves up to 8 (the row step t+p reads at tap j is the one step t+p-1
+// read at tap j-1), and the tensor cores see 8 independent accumulators a
+// warp; no partial sum crosses warps and the order of every sum is
+// fixed. One block an SM (221 KB of shared memory at the preset); the
+// blocks are the column tiles times runs of steps that fill the 132 SMs
+// once.
 //
 // Backward. g is time-major, so g[l : l+k] is one contiguous (k*C_out, B)
 // slab, and dx[l] = W_cat^T slab_l, a product of depth k*C_out = 512 with
@@ -50,15 +70,25 @@
 //     thread an 8 x 4 register tile; one partial a chunk, summed in a
 //     fixed order (convt1d_tm_sum_kernel): no float atomics, so two calls
 //     give the same bits.
-// All products run in full float32 on the SIMT units.
+// The backward's products run in full float32 on the SIMT units.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kCols = 64;    // forward: batch columns per block
-constexpr int kMaxOut = 64;  // forward: output-channel limit (8 x 8)
-constexpr int kWs = kMaxOut + 4;
+using hk::cp_async16;
+using hk::cp_async4;
+using hk::cp_async_commit;
+using hk::cp_async_wait_all;
+
+// forward (ops/convt_tm.py mirrors these): the C_out limit (4 m16 tiles),
+// batch columns a block (2 n8 tiles; also an x row's stride in shared
+// memory, swizzled) and output steps a pass
+constexpr int kMaxOut = 64;
+constexpr int kFwdCols = 16;
+constexpr int kFwdPass = 8;
 // backward (ops/convt_tm.py mirrors these): dx columns per block, the
 // dx block's tap groups, the C_in limit and W's row stride in shared
 // memory (8 thread rows x 8), threads a block, dW tile rows (16 thread
@@ -70,86 +100,167 @@ constexpr int kThreads = 256;
 constexpr int kWgRows = 128;
 constexpr int kWgCols = 32;
 
-// grid (ceil(B / 64), L + K - 1), block (16, 8). x (L, Ci, B), out
-// (L + K - 1, Co, B), w W (K, Co, Ci).
-__global__ void convt1d_tm_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ w,
-                                  float* __restrict__ out, int L, int Ci,
-                                  int Co, int K, int B) {
+__host__ __device__ __forceinline__ int round_up(int a, int m) {
+  return (a + m - 1) / m * m;
+}
+
+// Shared memory of the forward kernel in floats: W_flat (C_out padded to
+// 16 rows of k * C_in' + 4, C_in' = C_in padded to 8) and the ring of K +
+// 2 kFwdPass - 1 x rows (C_in' x kFwdCols each).
+__host__ __device__ __forceinline__ int fwd_smem_floats(int K, int Ci,
+                                                        int Co) {
+  const int cp = round_up(Ci, 8);
+  return round_up(Co, 16) * (K * cp + 4)
+         + (K + 2 * kFwdPass - 1) * cp * kFwdCols;
+}
+
+// Element (i, c) of an x row in its ring slot: rows of kFwdCols floats,
+// column c XOR 8 on rows 2, 3 mod 4, so that a B fragment (rows q and q+4
+// of 8, columns g of 8) meets 32 distinct banks; 4-float groups stay
+// together.
+__device__ __forceinline__ int ring_at(int i, int c) {
+  return i * kFwdCols + (c ^ (((i >> 1) & 1) << 3));
+}
+
+// grid (ceil(B / kFwdCols), ceil((L + K - 1) / steps)), kThreads threads.
+// Block (tile, run) writes out[t][:][b0 .. b0+15] for t in [run * steps,
+// min(L + K - 1, (run + 1) * steps)), kFwdPass steps a pass. Warp w owns
+// output channels 16 (w / 2) .. + 15 and columns 8 (w % 2) .. + 7 of the
+// tile, for every step of a pass: tap j's W fragment serves them all, and
+// step t+p at tap j reads the x row that step t+p-1 read at tap j-1, so
+// each fragment is split once a pass. The next tap's operands are loaded
+// from shared memory before this tap's products are issued.
+// KT > 0 fixes the tap count at compile time (the preset's 8), so that
+// the tap loop unrolls and the x fragments pass from step to step by
+// register renaming; KT = 0 takes any K.
+template <int KT>
+__global__ void __launch_bounds__(kThreads)
+convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      float* __restrict__ out, int L, int Ci, int Co,
+                      int k_taps, int B, int steps) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int t = blockIdx.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * blockDim.x + tx, nthreads = blockDim.x * blockDim.y;
-  const int b0 = blockIdx.x * kCols;
-  float* w_s = smem;              // (Ci, kWs): w_s[q][p] = W[j][p][q]
-  float* x_s = smem + Ci * kWs;   // (Ci, kCols)
-  float acc[8][4];
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[q][c] = 0.f;
+  const int K = KT > 0 ? KT : k_taps;
+  const int cp = round_up(Ci, 8), kt = K * cp, ws = kt + 4;
+  const int rows = round_up(Co, 16), slots = K + 2 * kFwdPass - 1;
+  float* w_s = reinterpret_cast<float*>(smem4);  // w_s[o * ws + j*cp + i]
+  float* ring = w_s + rows * ws;                 // (slots, cp, kFwdCols)
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kFwdCols;
+  const int t_out = L + K - 1;
+  const int t0 = blockIdx.y * steps, t1 = min(t_out, t0 + steps);
+  const int slot_len = cp * kFwdCols;
+  const bool vec_x = B % 4 == 0;
 
-  for (int j = 0; j < K; ++j) {
-    const int l = t - j;
-    if (l < 0 || l >= L) continue;  // uniform over the block
-    __syncthreads();
-    const float* wj = w + (long long)j * Co * Ci;
-    for (int e = tid; e < kMaxOut * Ci; e += nthreads) {
-      const int p = e / Ci, q = e % Ci;
-      w_s[q * kWs + p] = p < Co ? wj[p * Ci + q] : 0.f;
+  // x row r (zero outside [0, L)) into its ring slot (r + slots) % slots
+  auto load_row = [&](int r) {
+    float* dst = ring + (r + slots) % slots * slot_len;
+    const bool on = r >= 0 && r < L;
+    const float* src = x + (long long)(on ? r : 0) * Ci * B + b0;
+    const int per = vec_x ? 4 : 1;
+    for (int e = per * tid; e < cp * kFwdCols; e += per * kThreads) {
+      const int i = e / kFwdCols, c = e % kFwdCols;
+      const bool ok = on && i < Ci && b0 + c < B;
+      const float* s = ok ? src + (long long)i * B + c : x;
+      if (vec_x)
+        hk::cp_async16(dst + ring_at(i, c), s, ok);
+      else
+        hk::cp_async4(dst + ring_at(i, c), s, ok);
     }
-    for (int e = tid; e < Ci * kCols; e += nthreads) {
-      const int i = e / kCols, b = b0 + e % kCols;
-      x_s[e] = b < B ? x[((long long)l * Ci + i) * B + b] : 0.f;
-    }
-    __syncthreads();
-    for (int i = 0; i < Ci; ++i) {
-      const float4 xv4 = *reinterpret_cast<const float4*>(x_s + i * kCols + 4 * tx);
-      const float4 wa = *reinterpret_cast<const float4*>(w_s + i * kWs + 8 * ty);
-      const float4 wb = *reinterpret_cast<const float4*>(w_s + i * kWs + 8 * ty + 4);
-      const float xv[4] = {xv4.x, xv4.y, xv4.z, xv4.w};
-      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[q][c] += wv[q] * xv[c];
-    }
+  };
+  // W_flat, zero-padded, and the first window's rows t0-K+1 .. t0+P-1,
+  // all in flight at once
+  const int per_w = Ci % 4 == 0 ? 4 : 1;
+  for (int e = per_w * tid; e < rows * kt; e += per_w * kThreads) {
+    const int o = e / kt, j = e % kt / cp, i = e % cp;
+    const bool ok = o < Co && i < Ci;
+    const float* s = ok ? w + ((long long)j * Co + o) * Ci + i : w;
+    if (per_w == 4)
+      hk::cp_async16(w_s + o * ws + e % kt, s, ok);
+    else
+      hk::cp_async4(w_s + o * ws + e % kt, s, ok);
   }
+  for (int r = t0 - K + 1; r < t0 + kFwdPass; ++r) load_row(r);
+  hk::cp_async_commit();
+  hk::cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = tid >> 5, m0 = (warp >> 1) * 16, n0 = (warp & 1) * 8;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  // the lane's A elements (rows m0+g, m0+g+8; columns q, q+4 of a k8
+  // block) and B elements (rows q, q+4 of a k8 block; column n0+g)
+  const float* wl = w_s + (m0 + g) * ws + q;
+  const int w8 = 8 * ws;
+  const int xb0 = ring_at(q, n0 + g), xb1 = ring_at(q + 4, n0 + g);
+  for (int t = t0; t < t1; t += kFwdPass) {
+    // the next pass's rows, into the slots rows t-K-P+1 .. t-K left
+    if (t + kFwdPass < t1)
+      for (int r = t + kFwdPass; r < t + 2 * kFwdPass; ++r) load_row(r);
+    hk::cp_async_commit();
+    if (m0 < Co) {  // uniform over the warp
+      float acc[kFwdPass][4];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int o = 8 * ty + q;
-    if (o >= Co) continue;
+      for (int p = 0; p < kFwdPass; ++p)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int b = b0 + 4 * tx + c;
-      if (b < B) out[((long long)t * Co + o) * B + b] = acc[q][c];
+        for (int v = 0; v < 4; ++v) acc[p][v] = 0.f;
+      const int s_t = (t + slots) % slots;  // row t's slot
+      for (int i0 = 0; i0 < cp; i0 += 8) {
+        // step p >= 1 at tap 0 reads row t+p
+        hk::FragB xb[kFwdPass];
+#pragma unroll
+        for (int p = 1; p < kFwdPass; ++p) {
+          const int sp = s_t + p < slots ? s_t + p : s_t + p - slots;
+          const float* r = ring + sp * slot_len + i0 * kFwdCols;
+          hk::split(r[xb0], xb[p].big[0], xb[p].small[0]);
+          hk::split(r[xb1], xb[p].big[1], xb[p].small[1]);
+        }
+        // tap j: W[j] and row t-j (slot sj); the next tap's loaded ahead
+        int sj = s_t;
+        const float* rx = ring + sj * slot_len + i0 * kFwdCols;
+        const float* ra = wl + i0;
+        float a_raw[4] = {ra[0], ra[w8], ra[4], ra[w8 + 4]};
+        float b_raw[2] = {rx[xb0], rx[xb1]};
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          hk::FragA a;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) hk::split(a_raw[v], a.big[v], a.small[v]);
+          hk::split(b_raw[0], xb[0].big[0], xb[0].small[0]);
+          hk::split(b_raw[1], xb[0].big[1], xb[0].small[1]);
+          if (j + 1 < K) {
+            sj = sj == 0 ? slots - 1 : sj - 1;
+            rx = ring + sj * slot_len + i0 * kFwdCols;
+            ra = wl + (j + 1) * cp + i0;
+            a_raw[0] = ra[0];
+            a_raw[1] = ra[w8];
+            a_raw[2] = ra[4];
+            a_raw[3] = ra[w8 + 4];
+            b_raw[0] = rx[xb0];
+            b_raw[1] = rx[xb1];
+          }
+#pragma unroll
+          for (int p = 0; p < kFwdPass; ++p) hk::mma3(acc[p], a, xb[p]);
+#pragma unroll
+          for (int p = kFwdPass - 1; p > 0; --p) xb[p] = xb[p - 1];
+        }
+      }
+      // c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
+      const int c = b0 + n0 + 2 * q;
+#pragma unroll
+      for (int p = 0; p < kFwdPass; ++p) {
+        if (t + p >= t1) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = m0 + g + 8 * h;
+          if (o >= Co) continue;
+          float* dst = out + ((long long)(t + p) * Co + o) * B + c;
+          if (c < B) dst[0] = acc[p][2 * h];
+          if (c + 1 < B) dst[1] = acc[p][2 * h + 1];
+        }
+      }
     }
+    hk::cp_async_wait_all();
+    __syncthreads();  // the next pass's rows are in; this pass's are free
   }
-}
-
-// 4-byte asynchronous copy global -> shared, zero-filled when !ok.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-// 16-byte asynchronous copy global -> shared, zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 // Shared memory of the dx kernel in floats: W (K*Co rows of kMaxIn), the
@@ -366,17 +477,23 @@ int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 }  // namespace
 
+// steps: consecutive output steps t per block.
 extern "C" int convt1d_ola_tm_fwd(const void* x, const void* w, void* out,
                                   int L, int Ci, int Co, int K, int B,
-                                  void* stream) {
-  if (Co > kMaxOut) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(Ci * (kWs + kCols)) * sizeof(float);
-  cudaError_t e = set_smem((const void*)convt1d_tm_kernel, smem);
+                                  int steps, void* stream) {
+  if (Co > kMaxOut || steps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)fwd_smem_floats(K, Ci, Co) * sizeof(float);
+  const void* kernel = K == 8 ? (const void*)convt1d_tm_fwd_kernel<8>
+                              : (const void*)convt1d_tm_fwd_kernel<0>;
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + kCols - 1) / kCols, L + K - 1);
-  dim3 block(kCols / 4, 8);
-  convt1d_tm_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)out, L, Ci, Co, K, B);
+  dim3 grid(ceil_div(B, kFwdCols), ceil_div(L + K - 1, steps));
+  if (K == 8)
+    convt1d_tm_fwd_kernel<8><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)w, (float*)out, L, Ci, Co, K, B, steps);
+  else
+    convt1d_tm_fwd_kernel<0><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)w, (float*)out, L, Ci, Co, K, B, steps);
   return (int)cudaGetLastError();
 }
 

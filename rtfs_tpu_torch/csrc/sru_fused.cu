@@ -50,14 +50,26 @@
 // together before the adjoint chain runs over them (none of them depends
 // on the chain), so many loads are in flight per thread. K2 does 2*3H*2H
 // flops per column, step and direction for ~16H bytes, so by the roofline
-// it is bound by float32 operations. Its forward keeps the projection
-// inside the recurrence, as the Pallas kernel does: a block owns one
-// direction and a tile of batch columns, keeps that direction's (3H x 2H)
-// weight slice in shared memory (rows padded to 2H+1 floats), stages x_t =
-// [h_f; h_r]_t per step into one of two buffers while the next step's x
-// loads, and each thread forms the three dot products of its unit and
-// column, then the gate update; it is bound by the latency of that
-// per-step chain.
+// it is bound by operations. The projection's input is the previous
+// layer's output, complete before the launch, so only c is sequential:
+// the forward (sru_hid_fwd_kernel) takes the projection off the per-step
+// chain and keeps it on chip. A block owns one direction and a tile of
+// bt batch columns, keeps that direction's (3H x 2H) weight slice W_d in
+// shared memory, and walks T in chunks of S steps in its scan order
+// (t ascending for the forward direction, descending for the reverse one;
+// nothing is flipped in memory). Per chunk: cp.async brings the next
+// chunk's X = [h_f; h_r] columns (2H x S*bt, column s*bt + c for scan
+// step s and batch column c) into one of two slots; the 8 warps form U^T
+// = X^T W_d^T (S*bt x 3H, depth 2H) on the tensor cores in 3xTF32
+// (tf32x3.cuh) into one of two U slots in shared memory; then one thread
+// per (unit, column) walks the chunk's S steps from U with c in a
+// register, the highway term (the direction's own input row) read from
+// memory kFwdAhead steps ahead, and writes h (and c when training). One
+// barrier a chunk. U never goes to device memory. Two blocks an SM at H
+// 32, so that one block's product can overlap another's scan.
+// ops/sru_fused.k2_fwd_geometry picks bt and S so that the grid fills the
+// card where B allows. The scan's chain (two sigmoids a step) and the
+// product take about as long each at bs 8 (PERF.md).
 //
 // K2's backward is three products and a scan: U = W^T x, dx = W du and
 // dW = sum_t du x^T (3 x 2*6H*2H flops a column and step), and the gate
@@ -88,6 +100,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 // K1 block size, forward and backward, and the K2 scan's (the backward
@@ -103,10 +117,28 @@ constexpr int kTile = 64;
 constexpr int kGemmThreads = 256;
 constexpr int kStage = 16;
 constexpr int kWgCols = 32;
+// K2 forward (ops/sru_fused.py mirrors them): threads a block; a warp's
+// job in the product, kFwdMT m16 tiles of U^T's columns by kFwdNB n8 tiles
+// of its rows (each A fragment serves kFwdNB products, each B fragment
+// kFwdMT); scan steps whose highway loads are issued together
+constexpr int kFwdThreads = 256;
+constexpr int kFwdMT = 2;
+constexpr int kFwdNB = 3;
+constexpr int kFwdAhead = 8;
 
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The K2 forward scan's sigmoid: the hardware exp2 and reciprocal, a few
+// ulp from sigmoid_f and free of the branch that the IEEE division takes
+// on its slow path; it shortens the scan's per-step chain (PERF.md).
+// K2's backward recomputes the gates with sigmoid_f from a U of its own,
+// formed in SIMT float32 rather than 3xTF32, so it differentiates a
+// forward a few ulp from this one (within the gradient gates).
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
 }
 
 // grid (ceil(B / blockDim.x), H, 2), one thread per (column, unit, dir).
@@ -263,83 +295,218 @@ __global__ void sru_scan_bwd_kernel(ScanIO io_f, ScanIO io_r,
   if (threadIdx.x == 0) part[3 * H] = s3;
 }
 
-// grid (ceil(B / bt), 2), block (bt, H): thread (column tx, unit j).
-// Thread (tx, j) loads rows j of x_f and x_r for its column, so the block
-// stages all 2H rows of x_t. The loads of step i+1 are issued before step
-// i's dot products (they do not depend on the recurrence), into a second
-// x_s buffer, so one barrier per step suffices.
-__global__ void sru_hidden_fwd_kernel(const float* __restrict__ x_f,
-                                      const float* __restrict__ x_r,
-                                      const float* __restrict__ wt,
-                                      const float* __restrict__ vb,
-                                      float* __restrict__ h_f,
-                                      float* __restrict__ h_r,
-                                      float* __restrict__ c_f,
-                                      float* __restrict__ c_r,
-                                      int T, int H, int B) {
-  extern __shared__ float smem[];
-  const int dir = blockIdx.y;
-  const int tx = threadIdx.x, j = threadIdx.y;
-  const int bt = blockDim.x;
-  const int b = blockIdx.x * bt + tx;
-  const int h2 = 2 * H, ws = h2 + 1;
-  float* w_s = smem;               // (3H, 2H+1)
-  float* x_s = smem + 3 * H * ws;  // 2 x (2H, bt)
+__host__ __device__ __forceinline__ int round_up(int a, int m) {
+  return (a + m - 1) / m * m;
+}
 
-  const float* wd = wt + (long long)dir * 3 * H * h2;
-  for (int e = j * bt + tx; e < 3 * H * h2; e += bt * H)
-    w_s[(e / h2) * ws + e % h2] = wd[e];
+// Shared memory of the K2 forward in floats, N = S * bt columns a chunk:
+// W_d (3H rows padded to 8 * kFwdNB, of 2H padded to 8, + 4), two X
+// slots (2H' rows of N + 8) and two U slots (3H' rows of N + 4).
+__host__ __device__ __forceinline__ int hid_fwd_smem_floats(int H, int N) {
+  const int k8 = round_up(2 * H, 8), rows = round_up(3 * H, 8 * kFwdNB);
+  return rows * (k8 + 4) + 2 * k8 * (N + 8) + 2 * rows * (N + 4);
+}
 
-  const float v_f = vb[(dir * 4 + 0) * H + j];
-  const float v_r = vb[(dir * 4 + 1) * H + j];
-  const float b_f = vb[(dir * 4 + 2) * H + j];
-  const float b_r = vb[(dir * 4 + 3) * H + j];
+// grid (ceil(B / bt), 2), kFwdThreads threads; S * bt a multiple of 32,
+// H * bt <= kFwdThreads, S a multiple of min(S, kFwdAhead). Thread p <
+// H * bt scans unit j = p / bt of column b0 + p % bt. Per chunk n: the
+// copy of chunk n+1 is issued, the warps project chunk n into U slot n %
+// 2, one barrier, then the scan of chunk n; the next chunk's product
+// writes the other U slot, so the scan needs no second barrier.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
+                   const float* __restrict__ wt, const float* __restrict__ vb,
+                   float* __restrict__ h_f, float* __restrict__ h_r,
+                   float* __restrict__ c_f, float* __restrict__ c_r, int T,
+                   int H, int B, int bt, int S) {
+  extern __shared__ float4 smem4[];
+  const int dir = blockIdx.y, b0 = blockIdx.x * bt, tid = threadIdx.x;
+  const int N = S * bt, h2 = 2 * H, h3 = 3 * H;
+  const int k8 = round_up(h2, 8), rows = round_up(h3, 8 * kFwdNB);
+  const int ws = k8 + 4, xs = N + 8, us = N + 4;
+  float* w_s = reinterpret_cast<float*>(smem4);  // (rows, ws): W_d[o][k]
+  float* x_s = w_s + rows * ws;                  // 2 x (k8, xs): X[k][col]
+  float* u_s = x_s + 2 * k8 * xs;                // 2 x (rows, us): U[o][col]
+  const int n_chunks = (T + S - 1) / S;
+  const bool vec_x = bt % 4 == 0 && B % 4 == 0;
+  const int warp = tid >> 5;
+
+  // W_d, zero-padded (rows >= 3H, columns >= 2H)
+  const float* wd = wt + (long long)dir * h3 * h2;
+  for (int e = tid; e < rows * k8; e += kFwdThreads) {
+    const int o = e / k8, k = e % k8;
+    const bool ok = o < h3 && k < h2;
+    hk::cp_async4(w_s + o * ws + k, ok ? wd + o * h2 + k : wt, ok);
+  }
+  // chunk n's X (rows >= 2H, steps past T and columns past B zero) into
+  // slot n % 2
+  auto load_chunk = [&](int n) {
+    float* dst = x_s + (n & 1) * k8 * xs;
+    const int per = vec_x ? 4 : 1;
+    for (int e = per * tid; e < k8 * N; e += per * kFwdThreads) {
+      const int r = e / N, col = e % N, s = col / bt, c = col % bt;
+      const int ii = n * S + s;
+      const int t = dir == 0 ? ii : T - 1 - ii;
+      const bool ok = r < h2 && ii < T && b0 + c < B;
+      const float* src =
+          ok ? (r < H ? x_f : x_r) + ((long long)t * H + r % H) * B + b0 + c
+             : x_f;
+      if (vec_x)
+        hk::cp_async16(dst + r * xs + col, src, ok);
+      else
+        hk::cp_async4(dst + r * xs + col, src, ok);
+    }
+  };
+  // U^T = X^T W_d^T of chunk n: warp job = (16 kFwdMT
+  // columns, 8 kFwdNB rows of U); the lane's elements of a k8 step: X
+  // (rows q, q+4; columns g, g+8 of each m16 tile), W_d (row g of each
+  // n8 tile; columns q, q+4), the next step's loaded before this step's
+  // products
+  const int g = hk::lane_g(), q = hk::lane_q();
+  const int m_jobs = N / (16 * kFwdMT);
+  const int n_jobs = m_jobs * (rows / (8 * kFwdNB));
+  auto project = [&](int n) {
+    const float* xc = x_s + (n & 1) * k8 * xs;
+    float* uc = u_s + (n & 1) * rows * us;
+    for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
+      const int m0 = jb % m_jobs * 16 * kFwdMT;
+      const int r0 = jb / m_jobs * 8 * kFwdNB;
+      float acc[kFwdMT][kFwdNB][4];
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mt][nb][v] = 0.f;
+      const float* xl = xc + q * xs + m0 + g;
+      const float* wl = w_s + (r0 + g) * ws + q;
+      float a_raw[kFwdMT][4], b_raw[kFwdNB][2];
+      auto load_raw = [&](int k0) {
+#pragma unroll
+        for (int mt = 0; mt < kFwdMT; ++mt) {
+          const float* p = xl + k0 * xs + 16 * mt;
+          a_raw[mt][0] = p[0];
+          a_raw[mt][1] = p[8];
+          a_raw[mt][2] = p[4 * xs];
+          a_raw[mt][3] = p[4 * xs + 8];
+        }
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb) {
+          const float* p = wl + 8 * nb * ws + k0;
+          b_raw[nb][0] = p[0];
+          b_raw[nb][1] = p[4];
+        }
+      };
+      load_raw(0);
+      for (int k0 = 0; k0 < k8; k0 += 8) {
+        hk::FragA a[kFwdMT];
+        hk::FragB bf[kFwdNB];
+#pragma unroll
+        for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            hk::split(a_raw[mt][v], a[mt].big[v], a[mt].small[v]);
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+          for (int v = 0; v < 2; ++v)
+            hk::split(b_raw[nb][v], bf[nb].big[v], bf[nb].small[v]);
+        if (k0 + 8 < k8) load_raw(k0 + 8);
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+          for (int mt = 0; mt < kFwdMT; ++mt)
+            hk::mma3(acc[mt][nb], a[mt], bf[nb]);
+      }
+      // D (column m, row o): c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q),
+      // c3 (g+8, 2q+1); stored as U[o][m]
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb) {
+          float* u = uc + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
+          u[0] = acc[mt][nb][0];
+          u[us] = acc[mt][nb][1];
+          u[8] = acc[mt][nb][2];
+          u[us + 8] = acc[mt][nb][3];
+        }
+    }
+  };
+
+  // the scan thread: unit j, column b
+  const int j = tid / bt, b = b0 + tid % bt;
+  const bool live = tid < H * bt && b < B;
+  const float* xd = dir == 0 ? x_f : x_r;  // the highway: own input
   float* h = dir == 0 ? h_f : h_r;
   float* cs = dir == 0 ? c_f : c_r;  // null when serving
   const long long row = (long long)H * B;
-  const long long col = (long long)j * B + b;
-  const float* w0 = w_s + j * ws;
-  const float* w1 = w_s + (H + j) * ws;
-  const float* w2 = w_s + (2 * H + j) * ws;
-  const bool live = b < B;
-  int t = dir == 0 ? 0 : T - 1;
-  float next_f = live ? x_f[t * row + col] : 0.f;
-  float next_r = live ? x_r[t * row + col] : 0.f;
+  const long long col0 = (long long)j * B + b;
+  float v_f = 0.f, v_r = 0.f, b_f = 0.f, b_r = 0.f;
+  if (live) {
+    v_f = vb[(dir * 4 + 0) * H + j];
+    v_r = vb[(dir * 4 + 1) * H + j];
+    b_f = vb[(dir * 4 + 2) * H + j];
+    b_r = vb[(dir * 4 + 3) * H + j];
+  }
+  const int G = min(S, kFwdAhead);  // steps a group; S is a multiple
+  // highway of the G steps from scan index i0 on
+  auto load_hw = [&](int i0, float (&dst)[kFwdAhead]) {
+#pragma unroll
+    for (int s = 0; s < kFwdAhead; ++s) {
+      const int i = i0 + s;
+      const int t = dir == 0 ? i : T - 1 - i;
+      dst[s] = live && s < G && i < T ? xd[t * row + col0] : 0.f;
+    }
+  };
+  float hw[kFwdAhead];
+  load_hw(0, hw);
   float c = 0.f;
-  for (int i = 0; i < T; ++i) {
-    const float cur_f = next_f, cur_r = next_r;
-    float* xb = x_s + (i & 1) * h2 * bt;
-    xb[j * bt + tx] = cur_f;
-    xb[(H + j) * bt + tx] = cur_r;
-    if (i + 1 < T && live) {
-      const int tn = dir == 0 ? i + 1 : T - 2 - i;
-      next_f = x_f[tn * row + col];
-      next_r = x_r[tn * row + col];
+  auto scan = [&](int n) {
+    const float* u = u_s + (n & 1) * rows * us + j * us + tid % bt;
+    for (int s0 = 0; s0 < S; s0 += G) {
+      const int i0 = n * S + s0;
+      if (i0 >= T) break;
+      float hw_next[kFwdAhead];  // the next group's, across chunks
+      load_hw(i0 + G, hw_next);
+      float u0[kFwdAhead], u1[kFwdAhead], u2[kFwdAhead];
+#pragma unroll
+      for (int s = 0; s < kFwdAhead; ++s) {
+        if (s >= G) break;
+        const int off = (s0 + s) * bt;
+        u0[s] = u[off];
+        u1[s] = u[H * us + off];
+        u2[s] = u[2 * H * us + off];
+      }
+#pragma unroll
+      for (int s = 0; s < kFwdAhead; ++s) {
+        const int i = i0 + s;
+        if (s >= G || i >= T) break;
+        const int t = dir == 0 ? i : T - 1 - i;
+        const float f = sigmoid_fast(u1[s] + v_f * c + b_f);
+        c = f * c + (1.f - f) * u0[s];
+        const float r = sigmoid_fast(u2[s] + v_r * c + b_r);
+        h[t * row + col0] = r * c + (1.f - r) * hw[s];
+        if (cs) cs[t * row + col0] = c;
+      }
+#pragma unroll
+      for (int s = 0; s < kFwdAhead; ++s) hw[s] = hw_next[s];
     }
-    __syncthreads();  // x_t is in (and, at i = 0, the weights)
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, e0 = 0.f, e1 = 0.f, e2 = 0.f;
-    for (int k = 0; k < h2; k += 2) {
-      const float xv = xb[k * bt + tx], xw = xb[(k + 1) * bt + tx];
-      a0 += w0[k] * xv;
-      a1 += w1[k] * xv;
-      a2 += w2[k] * xv;
-      e0 += w0[k + 1] * xw;
-      e1 += w1[k + 1] * xw;
-      e2 += w2[k + 1] * xw;
-    }
-    a0 += e0;
-    a1 += e1;
-    a2 += e2;
-    // highway: this direction's own input h
-    const float xhw = dir == 0 ? cur_f : cur_r;
-    const float f = sigmoid_f(a1 + v_f * c + b_f);
-    c = f * c + (1.f - f) * a0;
-    const float r = sigmoid_f(a2 + v_r * c + b_r);
-    if (live) {
-      h[t * row + col] = r * c + (1.f - r) * xhw;
-      if (cs) cs[t * row + col] = c;
-    }
-    t = dir == 0 ? i + 1 : T - 2 - i;
+  };
+
+  load_chunk(0);  // with W_d
+  hk::cp_async_commit();
+  hk::cp_async_wait_all();
+  __syncthreads();
+  for (int n = 0; n < n_chunks; ++n) {
+    // chunk n+1 into the slot chunk n-1's product read (before the last
+    // barrier)
+    if (n + 1 < n_chunks) load_chunk(n + 1);
+    hk::cp_async_commit();
+    project(n);
+    hk::cp_async_wait_all();
+    __syncthreads();  // U of chunk n and X of chunk n+1 are in; the scan
+                      // of chunk n-1 is done with the other U slot
+    if (live) scan(n);
   }
 }
 
@@ -559,19 +726,24 @@ extern "C" int sru_dual_recurrence_bwd(const void* u_f, const void* u_r,
   return (int)cudaGetLastError();
 }
 
+// bt batch columns a block, chunks of S steps (ops/sru_fused.py
+// k2_fwd_geometry).
 extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
                                     const void* wt, const void* vb, void* h_f,
                                     void* h_r, void* c_f, void* c_r, int T,
-                                    int H, int B, int bt, void* stream) {
-  const size_t smem = (size_t)(3 * H * (2 * H + 1) + 4 * H * bt) * sizeof(float);
-  cudaError_t e = set_smem((const void*)sru_hidden_fwd_kernel, smem);
+                                    int H, int B, int bt, int S,
+                                    void* stream) {
+  if (bt < 1 || S < 1 || (S * bt) % (16 * kFwdMT) != 0 || H * bt > kFwdThreads
+      || S % min(S, kFwdAhead) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)hid_fwd_smem_floats(H, S * bt) * sizeof(float);
+  cudaError_t e = set_smem((const void*)sru_hid_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + bt - 1) / bt, 2);
-  dim3 block(bt, H);
-  sru_hidden_fwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  sru_hid_fwd_kernel<<<dim3(ceil_div(B, bt), 2), kFwdThreads, smem,
+                       (cudaStream_t)stream>>>(
       (const float*)x_f, (const float*)x_r, (const float*)wt,
       (const float*)vb, (float*)h_f, (float*)h_r, (float*)c_f, (float*)c_r,
-      T, H, B);
+      T, H, B, bt, S);
   return (int)cudaGetLastError();
 }
 

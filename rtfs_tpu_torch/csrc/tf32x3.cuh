@@ -1,0 +1,129 @@
+// Device helpers shared by the hand-written Hopper kernels (sm_90a):
+// float32 products on the tensor cores in 3xTF32, and cp.async copies.
+// Every inline PTX instruction of the sources that include it is here.
+//
+// 3xTF32. TF32 keeps 10 of float32's 23 mantissa bits, so one TF32
+// product per float32 one would not hold the kernels' 1e-4 gates. Each
+// operand value x is split on the fly into big = x rounded to TF32 and
+// small = x - big, which together keep about 21-22 bits of x, and a
+// product a b is issued as three TF32 products, a_small b_big, a_big
+// b_small and a_big b_big, into one f32 accumulator (a_small b_small,
+// below 2^-21 of a b, is dropped). The split reads the float32 operand as
+// it lies in shared memory: there is no pre-split copy.
+//
+// The split's cost. big is rounded to nearest, ties away from zero, the
+// rounding of cvt.rna.tf32.f32, written as the integer add and mask that
+// the instruction performs: sm_90 has no single instruction for it, and
+// nvcc lowers cvt.rna.tf32.f32 to that add and mask behind an inf/NaN
+// test and a select (four instructions a value for two). small = x - big
+// is exact and is not rounded: the tensor core reads only the top 10
+// mantissa bits of a TF32 operand, so small enters truncated, within
+// 2^-21 |x|. Three instructions a value, not eleven with cvt for both
+// halves (PERF.md). A NaN in x gives a NaN small, so NaN still
+// reaches the output.
+//
+// What bounds a 3xTF32 product on the H100: three tensor-core products a
+// float32 one, so at most 495 / 3 = 165 TFLOP/s of float32 work against
+// 67 TFLOP/s on the SIMT units. mma.sync, the warp-level instruction of
+// earlier generations, reaches only part of the tensor cores' peak on
+// Hopper: tools/mma_rate.py measures about 320 TFLOP/s of TF32 at two or
+// more warps a scheduler with two or more independent accumulators a
+// warp, and 25 cycles from one dependent mma.sync to the next, so 3xTF32
+// this way tops out near 107 TFLOP/s of float32 work. Each operand
+// element a warp loads costs three ALU instructions to split, so a tile
+// that reuses its fragments little is bound by those instructions and
+// the shared-memory loads, not by the tensor cores: the kernels make
+// each fragment serve several products.
+//
+// Why mma.sync and not wgmma: wgmma takes B (and A, unless it is in
+// registers) from shared memory in its own layout, 64-row tiles for a
+// warpgroup and asynchronous fences; a 3xTF32 wgmma would need B's big
+// and small halves stored in shared memory, a second copy of the
+// operand. At these depths (64 for K2's projection, 512 for K3) and
+// these tile sizes, register-fed m16n8k8 products are the simple route;
+// wgmma is a later lever.
+//
+// Fragments of mma.sync.m16n8k8 (.tf32), lane = 4 g + q: A (16 x 8) a0
+// (g, q), a1 (g+8, q), a2 (g, q+4), a3 (g+8, q+4); B (8 x 8, k x n) b0
+// (q, g), b1 (q+4, g); C/D (16 x 8) c0 (g, 2q), c1 (g, 2q+1), c2 (g+8,
+// 2q), c3 (g+8, 2q+1). Each kernel reads its fragments from shared
+// memory in its own layout, with the padded row stride or swizzle that
+// keeps them free of bank conflicts stated beside it, and splits them
+// with split().
+
+#pragma once
+
+#include <cstdint>
+
+namespace hk {
+
+// ------------------------------------------------------------ 3xTF32
+
+// x rounded to TF32 (nearest, ties away), in a 32-bit container
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small; the tensor core truncates small to TF32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b, one m16n8k8 TF32 product with a float32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// acc += a b in 3xTF32: the two cross terms, then the big product, into
+// one float32 accumulator fragment
+__device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(acc, a.small, b.big);
+  mma_tf32(acc, a.big, b.small);
+  mma_tf32(acc, a.big, b.big);
+}
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_q() { return threadIdx.x & 3; }
+
+// ------------------------------------------------------------ cp.async
+
+// 4-byte asynchronous copy global -> shared, zero-filled when !ok.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// 16-byte asynchronous copy global -> shared, zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+}  // namespace hk

@@ -8,11 +8,12 @@ reads the SRU stack's native time-major ``(L, C_in, B)`` output and writes
 
 with W stored ``(k, C_out, C_in)`` (not flipped), stride 1, padding 0. The
 bias is added by the caller. CUDA kernels ``csrc/convt_tm.cu:
-convt1d_ola_tm_fwd`` and ``..._bwd`` (dx with W resident in shared memory
-and a ring of g rows, dW as a split-K product whose partials are summed in
-a fixed order); when autograd records, the op runs through a
-``torch.autograd.Function`` whose backward is the kernel. On a CPU tensor
-the plain versions below run, forward and backward.
+convt1d_ola_tm_fwd`` (W resident in shared memory, a ring of x rows, the
+product on the tensor cores in 3xTF32) and ``..._bwd`` (dx with W resident
+in shared memory and a ring of g rows, dW as a split-K product whose
+partials are summed in a fixed order); when autograd records, the op runs
+through a ``torch.autograd.Function`` whose backward is the kernel. On a
+CPU tensor the plain versions below run, forward and backward.
 """
 
 from __future__ import annotations
@@ -52,20 +53,52 @@ def _check(x_tm, w):
                          f"{tuple(w.shape)}")
 
 
+# K3 forward's geometry, the constants of csrc/convt_tm.cu: C_out <= 64
+# (``kMaxOut``, four m16 tiles), blocks of 16 batch columns
+# (``kFwdCols``, also an x row's stride in shared memory) and 8 output
+# steps a pass (``kFwdPass``)
+MAX_OUT = 64
+FWD_COLS = 16
+FWD_PASS = 8
+
+
+def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
+                 bsz: int) -> dict:
+    """K3 forward's launch geometry, as ``convt1d_ola_tm_fwd`` launches it:
+    the blocks (column tiles x runs of ``steps`` consecutive output steps,
+    a multiple of ``FWD_PASS``, one wave over the card's SMs) and their
+    dynamic shared memory in bytes (W_flat, its C_out padded to 16 rows of
+    k * C_in' + 4 floats with C_in' = C_in padded to 8, and the ring of
+    k + 2 FWD_PASS - 1 x rows)."""
+    t_out = length + k - 1
+    col_tiles = -(-bsz // FWD_COLS)
+    runs = max(1, min(t_out, kernel_lib.SMS // col_tiles))  # one block an SM
+    steps = -(-t_out // runs)
+    steps = -(-steps // FWD_PASS) * FWD_PASS
+    c_pad = -(-c_in // 8) * 8
+    return {
+        "grid": (col_tiles, -(-t_out // steps)), "steps": steps,
+        "smem": 4 * (-(-c_out // 16) * 16 * (k * c_pad + 4)
+                     + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS),
+    }
+
+
 def _forward(x_tm, w):
     if x_tm.device.type == "cpu":
         return convt1d_ola_tm_plain(x_tm, w)
     kernel_lib.check_cuda_f32("convt1d_ola_tm", x_tm, w)
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
-    if min(x_tm.shape) == 0 or k == 0 or c_out > 64:
+    geo = fwd_geometry(length, c_in, c_out, k, bsz)
+    if (min(x_tm.shape) == 0 or k == 0 or c_out > MAX_OUT
+            or geo["smem"] > kernel_lib.SMEM_PER_BLOCK):
         raise ValueError(f"convt1d_ola_tm: unsupported shape x "
                          f"{tuple(x_tm.shape)}, w {tuple(w.shape)}")
     out = torch.empty(length + k - 1, c_out, bsz, device=x_tm.device)
     kernel_lib.launch(
         "convt_tm", "convt1d_ola_tm_fwd", x_tm.device,
         x_tm.data_ptr(), w.data_ptr(), out.data_ptr(),
-        length, c_in, c_out, k, bsz,
+        length, c_in, c_out, k, bsz, geo["steps"],
     )
     return out
 

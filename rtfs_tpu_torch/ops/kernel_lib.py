@@ -3,8 +3,9 @@
 Each ``rtfs_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, at first
 use, into ``rtfs_tpu_torch/_build/`` (git-ignored), and loaded with
-``ctypes``. A library's file name carries a hash of its source, so an edited
-source is rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
+``ctypes``. A library's file name carries a hash of its source and of the
+``csrc/`` headers it includes (``tf32x3.cuh``), so an edit to either is
+rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
 
 ``LAUNCHES`` counts, per kernel, the launches that the wrappers made;
 each wrapper adds one where it launches its kernel and nowhere else.
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,11 +40,11 @@ _SIGNATURES = {
     "sru_fused": {
         "sru_dual_recurrence_fwd": (7, 3),
         "sru_dual_recurrence_bwd": (10, 3),
-        "sru_hidden_layer_fwd": (8, 4),
+        "sru_hidden_layer_fwd": (8, 5),
         "sru_hidden_layer_bwd": (15, 4),
     },
     "convt_tm": {
-        "convt1d_ola_tm_fwd": (3, 5),
+        "convt1d_ola_tm_fwd": (3, 6),
         "convt1d_ola_tm_bwd": (6, 7),
     },
     "packed_tf": {
@@ -90,10 +92,31 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    quotes, directly or through another header, in the order met."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(os.path.join(CSRC_DIR, path), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and the headers
+    it includes, so that an edit to either rebuilds it."""
+    digest = hashlib.sha1()
+    for path in _sources(name):
+        with open(os.path.join(CSRC_DIR, path), "rb") as f:
+            digest.update(path.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str):

@@ -5,11 +5,13 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
 - ``sru_dual_recurrence`` (K1): the layer-0 recurrence of both directions
   over a precomputed U = [x~, f, r, highway]; CUDA kernels
   ``csrc/sru_fused.cu:sru_dual_recurrence_fwd`` and ``..._bwd``.
-- ``sru_hidden_layer`` (K2): one hidden layer (k = 3, highway = input) with
-  the projection U_t = W^T [h_f; h_r]_t inside the forward kernel; the
-  backward is split at the recurrence into U, the adjoint scan, dx and a
-  split-K dW, launched by one C entry on scratch the wrapper allocates;
-  CUDA kernels ``csrc/sru_fused.cu: sru_hidden_layer_fwd`` and ``..._bwd``.
+- ``sru_hidden_layer`` (K2): one hidden layer (k = 3, highway = input); the
+  forward kernel projects U = W^T [h_f; h_r] a chunk of steps at a time on
+  the tensor cores (3xTF32) into shared memory and scans the chunk from
+  there (``k2_fwd_geometry``); the backward is split at the recurrence
+  into U, the adjoint scan, dx and a split-K dW, launched by one C entry
+  on scratch the wrapper allocates; CUDA kernels ``csrc/sru_fused.cu:
+  sru_hidden_layer_fwd`` and ``..._bwd``.
 - ``sru_stack``: layer 0's projection as a windowed ``conv1d`` over the raw
   sequence, one entry transpose to time-major, K1, then K2 per hidden layer,
   with the (h_f, h_r) pair chained in (T, H, B).
@@ -249,9 +251,58 @@ def sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
             torch.cat([dvb_f, dvb_r]))
 
 
-def hidden_tile(hdim: int) -> int:
-    """Batch columns per K2 forward block: (tile x H) threads, about 256."""
-    return max(1, min(32, 256 // hdim))
+# K2 forward, ``kFwdThreads``, ``kFwdMT``, ``kFwdNB`` and ``kFwdAhead`` in
+# csrc/sru_fused.cu: threads a block (one scan thread a unit and column);
+# a warp's job in the product, m16 tiles of a chunk's columns by n8 tiles
+# of U's rows; scan steps whose highway loads go together
+FWD_THREADS = 256
+FWD_MT = 2
+FWD_NB = 3
+FWD_AHEAD = 8
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def k2_fwd_smem(hdim: int, cols: int) -> int:
+    """K2 forward's dynamic shared memory in bytes (``hid_fwd_smem_floats``
+    in csrc/sru_fused.cu) at ``cols`` = S * bt columns a chunk: W_d, two
+    X slots, two U slots, rows padded for conflict-free fragments."""
+    k8, rows = _round_up(2 * hdim, 8), _round_up(3 * hdim, 8 * FWD_NB)
+    return 4 * (rows * (k8 + 4) + 2 * k8 * (cols + 8)
+                + 2 * rows * (cols + 4))
+
+
+def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+    """K2 forward's launch geometry, as ``sru_hidden_layer_fwd`` launches it.
+
+    A block owns one direction and ``bt`` batch columns and walks T in
+    chunks of ``steps`` (S) steps, S * bt = ``cols`` columns a chunk (a
+    multiple of 16 * FWD_MT: the product's m16 tiles run over (step,
+    column) pairs). ``bt`` is the largest of 8, 4, 2, 1 whose grid
+    (ceil(B / bt) tiles x 2 directions) fills the card's SMs, or 1 where
+    none does, and at most ``FWD_THREADS // H`` (one scan thread a unit
+    and column); ``cols`` 64, or 32 where 64 does not fit a block's shared
+    memory. Raises ``ValueError`` where neither fits (H above 64)."""
+    cap = FWD_THREADS // hdim if hdim > 0 else 0
+    choices = [bt for bt in (8, 4, 2, 1) if bt <= cap]
+    if not choices:
+        raise ValueError(f"sru_hidden_layer: H {hdim} above "
+                         f"{FWD_THREADS} units a block")
+    bt = next((bt for bt in choices
+               if 2 * -(-bsz // bt) >= kernel_lib.SMS), choices[-1])
+    for cols in (64, 32):
+        smem = k2_fwd_smem(hdim, cols)
+        if smem <= kernel_lib.SMEM_PER_BLOCK:
+            break
+    else:
+        raise ValueError(f"sru_hidden_layer: H {hdim} needs {smem} bytes of "
+                         f"shared memory, above {kernel_lib.SMEM_PER_BLOCK}")
+    steps = cols // bt
+    return {"bt": bt, "steps": steps, "cols": cols,
+            "grid": (-(-bsz // bt), 2), "chunks": -(-t_len // steps),
+            "smem": smem}
 
 
 # K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in
@@ -287,9 +338,9 @@ def _k2_forward(x_f, x_r, wt, vb, with_c):
         return sru_hidden_layer_plain(x_f, x_r, wt, vb, with_c)
     kernel_lib.check_cuda_f32("sru_hidden_layer", x_f, x_r, wt, vb)
     t_len, hdim, bsz = x_f.shape
-    tile = hidden_tile(hdim)
-    if min(x_f.shape) == 0 or tile * hdim > 1024:
-        raise ValueError(f"sru_hidden_layer: unsupported shape {x_f.shape}")
+    if min(x_f.shape) == 0:
+        raise ValueError("sru_hidden_layer: empty input")
+    geo = k2_fwd_geometry(t_len, hdim, bsz)
     outs = [torch.empty_like(x_f) for _ in range(4 if with_c else 2)]
     c_ptrs = ((outs[2].data_ptr(), outs[3].data_ptr()) if with_c
               else (None, None))
@@ -297,7 +348,7 @@ def _k2_forward(x_f, x_r, wt, vb, with_c):
         "sru_fused", "sru_hidden_layer_fwd", x_f.device,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), *c_ptrs,
-        t_len, hdim, bsz, tile,
+        t_len, hdim, bsz, geo["bt"], geo["steps"],
     )
     return tuple(outs)
 

@@ -30,8 +30,15 @@ def _t(rng, shape, dev, scale=1.0):
         (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("t_len,h,bsz", [(21, 8, 5), (57, 32, 125), (3, 32, 300)])
+# small H, the serving shapes at bs 1 and 8 (freq L 57 / B 125 per item,
+# time L 118 / B 64), T 1, a ragged B that is a multiple of no tile and T
+# a multiple of no chunk, H 48 and 64
+@pytest.mark.parametrize("t_len,h,bsz", [
+    (21, 8, 5), (57, 32, 125), (3, 32, 300), (118, 32, 64), (57, 32, 1000),
+    (118, 32, 512), (1, 32, 77), (37, 32, 131), (23, 48, 131), (19, 64, 50)])
 def test_k1_k2_match_plain(dev, t_len, h, bsz):
+    """K1 and K2 forward (serving, and K2 with c) against their plain
+    versions; two K2 calls give the same bits."""
     from rtfs_tpu_torch.ops import sru_fused as S
 
     rng = np.random.default_rng(0)
@@ -42,9 +49,16 @@ def test_k1_k2_match_plain(dev, t_len, h, bsz):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
     x_f, x_r = _t(rng, (t_len, h, bsz), dev, 0.5), _t(rng, (t_len, h, bsz), dev, 0.5)
     wt = _t(rng, (6 * h, 2 * h), dev, 0.2)
-    for g, w in zip(S.sru_hidden_layer(x_f, x_r, wt, vb),
-                    S.sru_hidden_layer_plain(x_f, x_r, wt, vb)):
+    got = S.sru_hidden_layer(x_f, x_r, wt, vb)
+    for g, w in zip(got, S.sru_hidden_layer_plain(x_f, x_r, wt, vb)):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    with_c = S._k2_forward(x_f, x_r, wt, vb, with_c=True)
+    for g, w in zip(with_c, S.sru_hidden_layer_plain(x_f, x_r, wt, vb, True)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    for a, b in zip(got, with_c[:2]):  # c written or not, the same h
+        assert torch.equal(a, b)
+    for a, b in zip(got, S.sru_hidden_layer(x_f, x_r, wt, vb)):
+        assert torch.equal(a, b)
 
 
 def _close(got, want, rel=None):
@@ -167,16 +181,27 @@ def test_wrappers_give_every_parameter_a_gradient(dev):
                                    rtol=0, msg=n)
 
 
+# the serving shapes at bs 1 and 8, small channels and taps, C_in 32 and
+# one that is no multiple of 8, a ragged B (no multiple of 32 or 4), L 1
+# and L < k
 @pytest.mark.parametrize("length,c_in,c_out,bsz,k",
-                         [(57, 64, 64, 125, 8), (13, 32, 48, 17, 5)])
+                         [(57, 64, 64, 125, 8), (13, 32, 48, 17, 5),
+                          (118, 64, 64, 64, 8), (57, 64, 64, 1000, 8),
+                          (118, 64, 64, 512, 8), (37, 32, 64, 131, 8),
+                          (9, 12, 20, 33, 3), (1, 64, 64, 77, 8),
+                          (3, 32, 64, 131, 8)])
 def test_k3_matches_plain(dev, length, c_in, c_out, bsz, k):
+    """K3 forward against its plain version; two calls give the same
+    bits."""
     from rtfs_tpu_torch.ops import convt_tm as K
 
     rng = np.random.default_rng(1)
     x = _t(rng, (length, c_in, bsz), dev)
     w = _t(rng, (k, c_out, c_in), dev, 0.1)
-    torch.testing.assert_close(K.convt1d_ola_tm(x, w),
-                               K.convt1d_ola_tm_plain(x, w), atol=ATOL, rtol=0)
+    got = K.convt1d_ola_tm(x, w)
+    torch.testing.assert_close(got, K.convt1d_ola_tm_plain(x, w), atol=ATOL,
+                               rtol=0)
+    assert torch.equal(got, K.convt1d_ola_tm(x, w))
 
 
 def test_wrappers_reject_bad_input(dev):

@@ -1,0 +1,292 @@
+"""The K2 and K3 forward kernels' geometry and numerics, on the CPU.
+
+``ops/sru_fused.k2_fwd_geometry`` and ``ops/convt_tm.fwd_geometry`` size
+the grids, chunks and shared memory that ``csrc/sru_fused.cu`` and
+``csrc/convt_tm.cu`` launch their forwards with. These tests walk the
+blocks as the kernels do and check that every output is written exactly
+once, in the scan order the recurrence needs, and that the shared memory
+fits one Hopper block. They also emulate the kernels' 3xTF32 products
+(``csrc/tf32x3.cuh``) in plain torch and hold them to the gates the card
+runs under, and check that a library is rebuilt when a header it
+includes changes. About 10 s alone.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rtfs_tpu_torch.ops import convt_tm, kernel_lib, sru_fused
+
+# (T or L, B) of the two DualPathRNN sites at the preset's bs 4, ragged,
+# single-step and single-column cases, and bs 1 and 8 of both serving
+# sites
+SITES = [(57, 500), (118, 256), (37, 131), (1, 77), (5, 1),
+         (57, 125), (118, 64), (57, 1000), (118, 512)]
+
+
+@pytest.mark.parametrize("t_len,bsz", SITES)
+@pytest.mark.parametrize("hdim", [32, 48, 64, 8])
+def test_k2_forward_geometry(t_len, bsz, hdim):
+    geo = sru_fused.k2_fwd_geometry(t_len, hdim, bsz)
+    bt, steps = geo["bt"], geo["steps"]
+    n_tiles, n_dirs = geo["grid"]
+    assert n_dirs == 2 and n_tiles == -(-bsz // bt)
+    # the kernel's requirements (the C entry refuses anything else)
+    assert steps * bt == geo["cols"]
+    assert geo["cols"] % (16 * sru_fused.FWD_MT) == 0
+    assert hdim * bt <= sru_fused.FWD_THREADS
+    assert steps % min(steps, sru_fused.FWD_AHEAD) == 0
+    assert geo["smem"] == sru_fused.k2_fwd_smem(hdim, geo["cols"])
+    assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    # the grid fills the card where B allows, with the widest tile that
+    # does; where none does, one column a block
+    allowed = [w for w in (8, 4, 2, 1) if hdim * w <= sru_fused.FWD_THREADS]
+    if 2 * n_tiles < kernel_lib.SMS:
+        assert bt == 1
+    for wider in (w for w in allowed if w > bt):
+        assert 2 * -(-bsz // wider) < kernel_lib.SMS
+    # walk every block's chunks and scan threads: each (step, unit,
+    # column, direction) is written once, and each direction's steps come
+    # in its scan order (t ascending forward, descending reverse)
+    written = np.zeros((t_len, bsz, 2), dtype=np.int64)
+    for d in range(2):
+        for tile in range(n_tiles):
+            b0 = tile * bt
+            order = []
+            for n in range(geo["chunks"]):
+                for s in range(steps):
+                    i = n * steps + s
+                    if i >= t_len:
+                        break
+                    order.append(i if d == 0 else t_len - 1 - i)
+            want = list(range(t_len)) if d == 0 else list(
+                range(t_len - 1, -1, -1))
+            assert order == want
+            cols = [b0 + c for c in range(bt) if b0 + c < bsz]
+            assert cols  # no empty block
+            for t in order:
+                written[t, cols, d] += 1
+    assert (written == 1).all()  # every unit j < H of these: H * bt threads
+
+
+@pytest.mark.parametrize("hdim", [4, 8, 20, 32, 48, 64])
+def test_k2_forward_takes_every_h_up_to_64(hdim):
+    geo = sru_fused.k2_fwd_geometry(118, hdim, 512)
+    assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    # the product's jobs (16 FWD_MT columns x 8 FWD_NB rows of U) cover U
+    rows = -(-3 * hdim // (8 * sru_fused.FWD_NB)) * 8 * sru_fused.FWD_NB
+    assert rows >= 3 * hdim and geo["cols"] % (16 * sru_fused.FWD_MT) == 0
+
+
+def test_k2_forward_preset_geometry():
+    """H 32: two blocks an SM (W_d, two X and two U slots of 64 columns),
+    bt 8 where B allows the card to fill, narrower at the time site."""
+    geo = sru_fused.k2_fwd_geometry(57, 32, 1000)
+    assert (geo["bt"], geo["steps"], geo["grid"]) == (8, 8, (125, 2))
+    assert geo["smem"] == 4 * (96 * 68 + 2 * 64 * 72 + 2 * 96 * 68)
+    # an SM's 228 KB of shared memory holds two such blocks, 1 KB each
+    # besides
+    assert 2 * (geo["smem"] + 1024) <= 228 * 1024 < 3 * (geo["smem"] + 1024)
+    assert sru_fused.k2_fwd_geometry(118, 32, 512)["bt"] == 4
+    assert sru_fused.k2_fwd_geometry(118, 32, 64)["bt"] == 1
+
+
+def test_k2_forward_refuses_h_above_the_limit():
+    with pytest.raises(ValueError):
+        sru_fused.k2_fwd_geometry(57, 80, 500)
+    with pytest.raises(ValueError):
+        sru_fused.k2_fwd_geometry(57, 300, 500)
+
+
+@pytest.mark.parametrize("length,bsz", SITES)
+@pytest.mark.parametrize("c_in,c_out,k", [(64, 64, 8), (32, 48, 5),
+                                          (12, 20, 3)])
+def test_k3_forward_geometry(length, bsz, c_in, c_out, k):
+    geo = convt_tm.fwd_geometry(length, c_in, c_out, k, bsz)
+    steps, (tiles, runs) = geo["steps"], geo["grid"]
+    t_out = length + k - 1
+    written = np.zeros((t_out, bsz), dtype=np.int64)
+    for tile in range(tiles):
+        for run in range(runs):
+            t0, t1 = run * steps, min(t_out, (run + 1) * steps)
+            b0, b1 = tile * convt_tm.FWD_COLS, min(
+                bsz, (tile + 1) * convt_tm.FWD_COLS)
+            assert t0 < t1 and b0 < b1  # no empty block
+            written[t0:t1, b0:b1] += 1
+            # the ring of k + 2P - 1 slots: rows t0-k+1 .. t0+P-1 first,
+            # then P rows a pass, each once; pass t's window t-k+1 ..
+            # t+P-1 is in the ring while the next pass's rows load
+            p_, n_slots = convt_tm.FWD_PASS, k + 2 * convt_tm.FWD_PASS - 1
+            first = list(range(t0 - k + 1, t0 + p_))
+            slots = {(r + n_slots) % n_slots: r for r in first}
+            assert len(slots) == len(first)
+            loaded = list(first)
+            for t in range(t0, t1, p_):
+                nxt = (list(range(t + p_, t + 2 * p_)) if t + p_ < t1
+                       else [])
+                loading = {(r + n_slots) % n_slots for r in nxt}
+                for j in range(k):
+                    for p in range(p_):
+                        s = (t + p - j + n_slots) % n_slots
+                        assert slots[s] == t + p - j and s not in loading
+                for r in nxt:
+                    slots[(r + n_slots) % n_slots] = r
+                loaded += nxt
+            assert len(set(loaded)) == len(loaded)  # each row read once
+    assert (written == 1).all()
+    assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    if tiles <= kernel_lib.SMS:
+        assert tiles * runs <= kernel_lib.SMS  # one block an SM
+
+
+def test_k3_forward_shared_memory_at_the_preset():
+    """W_flat (64 rows of 8 * 64 + 4 floats) and the ring of 23 x rows of
+    64 x 16: 226,304 of the 232,448 bytes a block may use; C_in 72 at k 8
+    no longer fits; C_in 32 at k 16 does."""
+    geo = convt_tm.fwd_geometry(57, 64, 64, 8, 1000)
+    assert geo["smem"] == 4 * (64 * 516 + 23 * 64 * 16) == 226_304
+    assert geo["steps"] % convt_tm.FWD_PASS == 0
+    assert convt_tm.fwd_geometry(57, 72, 64, 8, 1000)["smem"] > \
+        kernel_lib.SMEM_PER_BLOCK
+    assert convt_tm.fwd_geometry(57, 32, 64, 16, 1000)["smem"] <= \
+        kernel_lib.SMEM_PER_BLOCK
+
+
+# ------------------------------------------------------------ numerics
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by round to nearest, ties away from zero (the
+    rounding of ``cvt.rna.tf32.f32``, as ``tf32x3.cuh`` writes it): add
+    half of the 13 dropped bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by truncation, as the tensor core reads an operand
+    whose low 13 bits are set."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels compute it: each operand split into big =
+    tf32(x) and small = x - big (which the tensor core truncates), three
+    products accumulated in float32."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = trunc(a - a_big), trunc(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in single-pass TF32."""
+    return tf32(a) @ tf32(b)
+
+
+def _k2(x_f, x_r, wt, vb, mm):
+    h = x_f.shape[1]
+    x = torch.cat([x_f, x_r], dim=1)  # (T, 2H, B)
+    u = torch.stack([mm(wt, x[t]) for t in range(x.shape[0])])
+    return torch.stack([
+        sru_fused.scan_direction(u[:, :3 * h], x_f, vb[0:4], False),
+        sru_fused.scan_direction(u[:, 3 * h:], x_r, vb[4:8], True)])
+
+
+def _k3(x, w, mm):
+    length, k = x.shape[0], w.shape[0]
+    out = x.new_zeros(length + k - 1, w.shape[1], x.shape[2])
+    for t in range(out.shape[0]):
+        for j in range(k):
+            if 0 <= t - j < length:
+                out[t] += mm(w[j], x[t - j])
+    return out
+
+
+def _inputs(which):
+    rng = np.random.default_rng(7)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+
+    if which == "k2":  # T 118, B 64, H 32: chip_smoke's phase 3 scales
+        h, t_len, bsz = 32, 118, 64
+        vb = torch.cat([t((2, 2, h), h ** -0.5), t((2, 2, h), 0.1)],
+                       dim=1).reshape(8, h)
+        return (t((t_len, h, bsz), 0.5), t((t_len, h, bsz), 0.5),
+                t((6 * h, 2 * h), (2 * h) ** -0.5), vb), _k2
+    # L 118, C 64, k 8, B 64
+    return (t((118, 64, 64)), t((8, 64, 64), (64 * 8) ** -0.5)), _k3
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test (the suite runs six workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("which", ["k2", "k3"])
+def test_3xtf32_holds_the_gates_and_single_pass_tf32_does_not(which,
+                                                               one_thread):
+    """Through the emulated split, K2's and K3's forwards stay within
+    chip_smoke's TOL (1e-4) of the plain float32 versions and within 1e-5
+    of their max of float64; single-pass TF32 breaks that bound."""
+    args, fn = _inputs(which)
+    exact = fn(*(a.double() for a in args), lambda a, b: a @ b)
+    plain = (sru_fused.sru_hidden_layer_plain(*args) if which == "k2"
+             else convt_tm.convt1d_ola_tm_plain(*args))
+    plain = torch.stack(plain) if which == "k2" else plain
+    scale = exact.abs().max().item()
+    got = fn(*args, mm3)
+    assert (got - plain).abs().max().item() <= 1e-4
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
+    one = fn(*args, mm1)
+    assert (one.double() - exact).abs().max().item() > 1e-5 * scale
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10  # TF32's ulp at 1.0
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + one_ulp / 4, 3.0], dtype=torch.float32)
+    assert tf32(x).tolist() == [1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 3.0]
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    big = tf32(y)
+    assert ((big.view(torch.int32) & 0x1fff) == 0).all()
+    assert ((y - big).abs() <= big.abs() * 2.0 ** -11).all()
+    rest = y - big - trunc(y - big)
+    assert (rest.abs() <= y.abs() * 2.0 ** -21).all()
+
+
+# ------------------------------------------------------------ kernel_lib
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and the csrc/ headers it
+    includes: an edit to the header alone names a new library, so it is
+    rebuilt; a header it does not include changes nothing."""
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "h.cuh"\nint f();\n')
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\n// one\n')
+    (tmp_path / "g.cuh").write_text("// nested\n")
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    monkeypatch.setattr(kernel_lib, "CSRC_DIR", str(tmp_path))
+    assert kernel_lib._sources("k") == ["k.cu", "h.cuh", "g.cuh"]
+    first = kernel_lib._lib_path("k")
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert kernel_lib._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\n// two\n')
+    second = kernel_lib._lib_path("k")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// nested, edited\n")
+    assert kernel_lib._lib_path("k") not in (first, second)
+
+
+def test_the_two_sources_include_the_shared_header():
+    for name in ("sru_fused", "convt_tm"):
+        assert "tf32x3.cuh" in kernel_lib._sources(name)
+    assert os.path.exists(os.path.join(kernel_lib.CSRC_DIR, "tf32x3.cuh"))

@@ -1,4 +1,5 @@
-"""The launch geometry of the K2 and K3 backward kernels, on the CPU.
+"""The launch geometry of the K2 and K3 backward kernels, on the CPU
+(the forwards' is in ``test_torch_fwd_geometry.py``).
 
 The wrappers (``ops/sru_fused.k2_bwd_geometry``, ``ops/convt_tm.
 bwd_geometry``, ``ops/kernel_lib.split_k``) size the grids, the split-K
@@ -128,11 +129,18 @@ def _constants(name):
     ("sru_fused", {"kLay0Threads": sru_fused.LAY0_THREADS,
                    "kTile": sru_fused.GEMM_TILE,
                    "kStage": sru_fused.GEMM_STAGE,
-                   "kWgCols": sru_fused.WGRAD_COLS}),
+                   "kWgCols": sru_fused.WGRAD_COLS,
+                   "kFwdThreads": sru_fused.FWD_THREADS,
+                   "kFwdMT": sru_fused.FWD_MT,
+                   "kFwdNB": sru_fused.FWD_NB,
+                   "kFwdAhead": sru_fused.FWD_AHEAD}),
     ("convt_tm", {"kDxCols": convt_tm.DX_COLS, "kMaxIn": convt_tm.MAX_IN,
                   "kDxGroups": convt_tm.DX_GROUPS,
                   "kWgRows": convt_tm.WGRAD_ROWS,
-                  "kWgCols": convt_tm.WGRAD_COLS}),
+                  "kWgCols": convt_tm.WGRAD_COLS,
+                  "kMaxOut": convt_tm.MAX_OUT,
+                  "kFwdCols": convt_tm.FWD_COLS,
+                  "kFwdPass": convt_tm.FWD_PASS}),
 ])
 def test_python_constants_match_the_sources(source, pairs):
     consts = _constants(source)

@@ -25,8 +25,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-OWN_KERNELS = ("sru_lay0_fwd_kernel", "sru_hidden_fwd_kernel",
-               "convt1d_tm_kernel", "sru_rec_fwd_kernel")
+OWN_KERNELS = ("sru_lay0_fwd_kernel", "sru_hid_fwd_kernel",
+               "convt1d_tm_fwd_kernel", "sru_rec_fwd_kernel")
 
 
 def _device_us(evt) -> float:
