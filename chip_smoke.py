@@ -43,12 +43,17 @@ one or outside the repository. Phases, any failure of which ends the run:
    idle share, top kernels and the shares of K2 forward, K3 forward and
    K2 backward.
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
-   pw_proj_packed, K7 pw_unproj_packed, K8 spatial_down_packed and K9
-   spatial_up_packed at the packed serving shapes (STFT 251 x 129, 64
-   hid channels, bottleneck 256, pooled 125 x 64) at batch 1 and 8, each
-   against its plain version on the same card inputs, timed with CUDA
-   events beside its bound, its plain version and one PyTorch call of the
-   same function (on the layout that call takes).
+   pw_proj_packed and K7 pw_unproj_packed at the packed serving shapes
+   (STFT 251 x 129, 64 hid channels, bottleneck 256, pooled 125 x 64) at
+   batch 1 and 8, each against its plain version on the same card inputs,
+   timed with CUDA events beside its bound, its plain version and one
+   PyTorch call of the same function (on the layout that call takes).
+   K8 spatial_down_packed and K9 spatial_up_packed at all six sites of
+   their maps (pool, select, nearest and the three transposes, each the
+   other kernel's dx) at batch 1, 4 and 8: against the plain version,
+   two calls bit-identical, timed the same way, with the wrapper's host
+   time per call; (7b, after phase 10) the profiler's device time per
+   launch of each.
 8. Serving from files (after phase 4): a seed-0 bundle, a 2 s wav and 50
    mouth frames go through ``rtfs_tpu_torch.inference.main`` on the card
    with and without ``--packed-tf`` and on the CPU with it. The packed run
@@ -162,11 +167,20 @@ TRAIN_BATCH = 4  # the preset's training.batch_size
 TRAIN_STEPS = 6
 # packed-TF kernels against their plain versions on the card, max abs
 # error on N(0, 1) inputs: K5 sums 16 taps in another order; K6/K7 dot
-# products of 64 and 256 terms in another order; K8 averages up to 3 x 3
-# terms; K9 (nearest) copies each value times 1, exactly
+# products of 64 and 256 terms in another order
 PACKED_TOL = {"dw_conv_packed": 1e-5, "pw_proj_packed": 1e-4,
-              "pw_unproj_packed": 1e-4, "spatial_down_packed": 1e-5,
-              "spatial_up_packed": 0.0}
+              "pw_unproj_packed": 1e-4}
+# K8 / K9 at each site of their maps, forward and transposed (the other's
+# dx), max abs error against the plain version: the pool and the
+# transposed nearest (K8) and the transposed pool (K9) sum up to 3 x 3
+# terms in another order; select, nearest and the transposed select copy
+# each value times 1 (or write 0), exactly
+MAP_SITE_TOL = {"pool": 1e-5, "select": 0.0, "nearest": 0.0,
+                "transposed nearest": 1e-5, "transposed pool": 1e-5,
+                "transposed select": 0.0}
+# the device kernels of K8 and K9, as the profiler names them
+MAP_KERNEL_NAMES = {"spatial_down_packed": "spatial_down_kernel",
+                    "spatial_up_packed": "spatial_up_kernel"}
 # the packed weight gradients against their plain versions and the library
 # call, relative to max |dW|: sums of B*T*F = 129,516 products (bs 4) in
 # another order
@@ -338,16 +352,16 @@ def _map_cost(smap, c: int, bs: int) -> tuple:
 
 
 def check_packed_kernels(conf, rng) -> dict:
-    """Phase 7: K5-K9 against their plain versions at the packed serving
-    shapes, batch 1 and 8; returns per kernel the max error and per-forward
-    (batch 1) sums of kernel, plain, bound and library times."""
+    """Phase 7: K5-K7 against their plain versions at the packed serving
+    shapes, batch 1 and 8, then K8 and K9 (``check_map_kernels``); returns
+    per kernel the max error and per-forward (batch 1) sums of kernel,
+    plain, bound and library times."""
     import torch.nn.functional as Fn
 
     from rtfs_tpu_torch.ops import packed_tf as P
 
     g = packed_geometry(conf)
-    T, Fq, C, Cb, k, T2, F2 = (g[n] for n in ("T", "F", "C", "Cb", "k",
-                                              "T2", "F2"))
+    T, Fq, C, Cb, k = (g[n] for n in ("T", "F", "C", "Cb", "k"))
     dev = torch.device("cuda")
 
     def t(shape, scale=1.0):
@@ -357,19 +371,13 @@ def check_packed_kernels(conf, rng) -> dict:
     same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
     pre = ((k - 1) // 2,) * 2
     t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
-    pool = P.cached_map("pool", T, T2, Fq, F2)
-    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
-    up = P.cached_map("nearest", T2, T, F2, Fq)
     res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
-           for name in PACKED_TOL}
+           for name in (*PACKED_TOL, *MAP_KERNEL_NAMES)}
     for bs in (1, 8):
         xp = t((bs, T, Fq * C))
         x_cl = xp.view(bs, T, Fq, C).permute(0, 3, 1, 2)  # channels_last
-        xs = t((bs, t_conv, f_conv * C))
-        xs_cl = xs.view(bs, t_conv, f_conv, C).permute(0, 3, 1, 2)
         x4 = t((bs, Cb, T, Fq))
-        x2 = t((bs, C, T2, F2))
         w_dw, b_dw = t((C, 1, k, k), 1.0 / k), t((C,))
         w_in, b_in = t((C, Cb, 1, 1), Cb ** -0.5), t((C,))
         w_out, b_out = t((Cb, C, 1, 1), C ** -0.5), t((Cb,))
@@ -401,21 +409,6 @@ def check_packed_kernels(conf, rng) -> dict:
                                               b_out, Fq),
              4 * (m_pw * (Cb + C) + Cb * C + Cb), 2 * m_pw * Cb * C,
              lambda: Fn.conv2d(x_cl, w_out, b_out)),
-            ("spatial_down_packed", "pool", 4,
-             lambda: P.spatial_down_packed(xp, pool, C),
-             lambda: P.spatial_down_packed_plain(xp, pool, C),
-             *_map_cost(pool, C, bs),
-             lambda: Fn.adaptive_avg_pool2d(x_cl, (T2, F2))),
-            ("spatial_down_packed", "select", 4,
-             lambda: P.spatial_down_packed(xs, sel, C),
-             lambda: P.spatial_down_packed_plain(xs, sel, C),
-             *_map_cost(sel, C, bs),
-             lambda: xs_cl[:, :, ::2, ::2].contiguous()),
-            ("spatial_up_packed", "nearest", 16,
-             lambda: P.spatial_up_packed(x2, up),
-             lambda: P.spatial_up_packed_plain(x2, up),
-             *_map_cost(up, C, bs),
-             lambda: Fn.interpolate(x2, size=(T, Fq), mode="nearest")),
         ]
         for name, site, n, kern, plain, nbytes, nops, lib in cases:
             got = kern()
@@ -442,7 +435,187 @@ def check_packed_kernels(conf, rng) -> dict:
                 r["bound_ms"] += n * b_ms
                 r["library_ms"] += n * lib_ms
                 r["bound_by"] = b_by
+    check_map_kernels(conf, rng, res)
     return res
+
+
+def _host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call over ``iters`` back-to-back calls, not
+    waiting for the card: what a call costs before its kernel can start."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def profile_map_kernels(conf, rng) -> None:
+    """Phase 7b, last: the profiler's device microseconds per launch of
+    K8/K9 at each site and batch of phase 7 (on fresh inputs), after every
+    timed phase, so that none of these profiler sessions runs before a
+    host-clock or event timing."""
+    for bs in (1, 4, 8):
+        for name, site, _, smap, x, _, _ in _map_sites(conf, rng, bs):
+            kern, _ = _map_calls(name, x, smap, packed_geometry(conf)["C"])
+            print(f"kernel {name} bs={bs} site={site}: device_us="
+                  f"{_device_us(kern, MAP_KERNEL_NAMES[name]):.3f}")
+
+
+def _device_us(fn, kernel: str, iters: int = 20) -> float:
+    """The profiler's device microseconds per launch of ``kernel`` over
+    ``iters`` calls of ``fn``; nan (not measured) when the profiler saw
+    none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key
+           and e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in evs)
+    if count != iters:
+        print(f"profiler: saw {count} launches of {kernel} in {iters} calls")
+    if not count:
+        return math.nan
+    return sum(float(e.self_device_time_total) for e in evs) / count
+
+
+def _map_sites(conf, rng, bs) -> list:
+    """K8 and K9's six sites at the packed shapes and batch ``bs``, on
+    fresh N(0, 1) inputs: the three forward maps (pool 251 x 129 -> 125 x
+    64, the stride-2 select 250 x 128 -> 125 x 64, nearest 125 x 64 -> 251
+    x 129) and their transposes (each the other kernel's dx in training),
+    as (kernel, site, launches per packed forward, map, input, one PyTorch
+    call of the same function and its result in the kernel's layout, or
+    None where there is none)."""
+    import torch.nn.functional as Fn
+
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    T, Fq, C, k, T2, F2 = (g[n] for n in ("T", "F", "C", "k", "T2", "F2"))
+    pre = ((k - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
+    pool = P.cached_map("pool", T, T2, Fq, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, Fq)
+    dev = torch.device("cuda")
+    aten = torch.ops.aten
+
+    def t(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def cl(xp, tt, ff):  # a packed map as the channels-last (B, C, T, F)
+        return xp.view(xp.shape[0], tt, ff, C).permute(0, 3, 1, 2)
+
+    def packed(y):  # a library's (B, C, T, F) result in the packed layout
+        return y.permute(0, 2, 3, 1).reshape(y.shape[0], y.shape[2], -1)
+
+    xp, xs, x2 = t((bs, T, Fq * C)), t((bs, t_conv, f_conv * C)), \
+        t((bs, C, T2, F2))
+    gp, g2 = t((bs, T, Fq * C)), t((bs, C, T2, F2))
+    return [
+        ("spatial_down_packed", "pool", 4, pool, xp,
+         lambda: Fn.adaptive_avg_pool2d(cl(xp, T, Fq), (T2, F2)),
+         lambda y: y),
+        ("spatial_down_packed", "select", 4, sel, xs,
+         lambda: cl(xs, t_conv, f_conv)[:, :, ::2, ::2].contiguous(),
+         lambda y: y),
+        ("spatial_up_packed", "nearest", 16, up, x2,
+         lambda: Fn.interpolate(x2, size=(T, Fq), mode="nearest"), packed),
+        ("spatial_down_packed", "transposed nearest", 0, up.transposed(F2),
+         gp, lambda: aten.upsample_nearest2d_backward(
+             cl(gp, T, Fq), [T, Fq], [bs, C, T2, F2]),
+         lambda y: y),
+        ("spatial_up_packed", "transposed pool", 0, pool.transposed(Fq), g2,
+         lambda: aten._adaptive_avg_pool2d_backward(g2, cl(xp, T, Fq)),
+         packed),
+        ("spatial_up_packed", "transposed select", 0,
+         sel.transposed(f_conv), g2, None, None),
+    ]
+
+
+def _map_calls(name, x, smap, c) -> tuple:
+    """(the op's call, its plain version's call) of K8 or K9 on ``x``."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    if name == "spatial_up_packed":
+        return (functools.partial(P.spatial_up_packed, x, smap),
+                functools.partial(P.spatial_up_packed_plain, x, smap))
+    return (functools.partial(P.spatial_down_packed, x, smap, c),
+            functools.partial(P.spatial_down_packed_plain, x, smap, c))
+
+
+def check_map_kernels(conf, rng, res) -> None:
+    """Phase 7, K8 and K9: each site of ``_map_sites`` at batch 1, 4 and
+    8: against the plain version to ``MAP_SITE_TOL``, two calls
+    bit-identical; timed per call with CUDA events beside the bound, the
+    plain version, the wrapper's host time per call (and that of
+    ``kernel_lib.launch`` alone) and the PyTorch call (and its host
+    time). Adds the forward sites' bs-1 sums per packed forward to
+    ``res``."""
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    C = packed_geometry(conf)["C"]
+    dev = torch.device("cuda")
+    for bs in (1, 4, 8):
+        for name, site, n, smap, x, lib, lib_out in _map_sites(conf, rng,
+                                                               bs):
+            up_ = name == "spatial_up_packed"
+            kern, plain = _map_calls(name, x, smap, C)
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            same = torch.equal(got, again)
+            ms = time_cuda(kern, 50)
+            plain_ms = time_cuda(plain, 3, warmup=1)
+            host_us = _host_us(kern)
+            # kernel_lib.launch alone (the ctypes call and the stream), its
+            # arguments made once, into the same output
+            ptrs, ints = smap.launch_args(
+                up_, C, x.shape[3] if up_ else x.shape[2] // C, dev)
+            launch_us = _host_us(functools.partial(
+                kernel_lib.launch, "packed_tf",
+                "spatial_up_packed_fwd" if up_ else "spatial_down_packed_fwd",
+                dev, x.data_ptr(), got.data_ptr(), *ptrs, bs, *ints))
+            nbytes, nops = _map_cost(smap, C, bs)
+            b_ms, b_by = bound_ms(nbytes, nops)
+            if lib is None:
+                lib_ms, lib_txt = None, "library_ms=none (no PyTorch call)"
+            else:
+                lib_err = (lib_out(lib()) - want).abs().max().item()
+                lib_ms = time_cuda(lib, 50)
+                lib_txt = (f"library_ms={lib_ms:.5f} library_host_us="
+                           f"{_host_us(lib):.2f} (library vs plain "
+                           f"{lib_err:.3e})")
+            print(f"kernel {name} bs={bs} site={site}: max_abs_err={err:.3e}"
+                  f" (tol {MAP_SITE_TOL[site]:.0e}) bit-identical={same} "
+                  f"ms={ms:.5f} host_us={host_us:.2f}"
+                  f" launch_host_us={launch_us:.2f}"
+                  f" plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}, "
+                  f"{nbytes} B, {nops} flop) {lib_txt}")
+            if not err <= MAP_SITE_TOL[site]:
+                raise AssertionError(
+                    f"{name} ({site}, bs {bs}) disagrees with its plain "
+                    f"version: {err:.3e} > {MAP_SITE_TOL[site]:.0e}")
+            if not same:
+                raise AssertionError(f"{name} ({site}, bs {bs}): two calls "
+                                     "differ")
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if bs == 1 and n:  # per-forward sums at batch 1
+                r["ms"] += n * ms
+                r["plain_ms"] += n * plain_ms
+                r["bound_ms"] += n * b_ms
+                r["library_ms"] += n * lib_ms
+                r["bound_by"] = b_by
 
 
 def check_kernels(geo, rng) -> dict:
@@ -1637,6 +1810,7 @@ def main() -> int:
     conf_uni = parse_overrides(load_config(PRESET), list(UNI_OVERRIDES))
     k4, uni_served, uni_trained = phase("10 unidirectional", unidirectional,
                                         conf_uni, geo, rng)
+    phase("7b K8/K9 device time", profile_map_kernels, conf, rng)
 
     sources = {
         "sru_dual_recurrence": ("rtfs_tpu_torch/csrc/sru_fused.cu",

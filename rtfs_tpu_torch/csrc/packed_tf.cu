@@ -48,12 +48,39 @@
 //     The TPU takes the T side as a dense matrix on its matrix unit; here it
 //     is the same (T_out, nnz) index/weight form as the F side (entries of
 //     weight 0 are skipped, as the TPU kernel skips them), so the sums are
-//     the dense product's without its zeros. Bound on the H100: bytes. Design:
-//     one block per (output row, tile of 32 f positions, batch row); the block
-//     computes its 32 x C outputs in the order that reads its input
-//     contiguously, keeps them in a shared tile and writes them in the order
-//     that stores contiguously (a transpose through shared memory).
-//
+//     the dense product's without its zeros. Each is the other's dx through
+//     the transposed map. Bound on the H100: bytes (one or two flops a
+//     value). Both turn the layout round (channels fastest on one side, f
+//     on the other) through one shared tile, each side of it read or
+//     written in 16-byte chunks: the channel-innermost side a chunk of 4
+//     channels of one f, neighbouring threads on neighbouring chunks (whole
+//     256-byte channel blocks at C 64); the channels-first side a chunk of
+//     4 f of one channel, lanes 4 chunks x 8 channels, so a warp touches
+//     64 contiguous bytes of each of 8 rows and the tile's stride
+//     (round_up(C, 4) + kMapPad) keeps its scalar accesses at most two to
+//     a bank. A block first loads its map rows (ts/tw, all of fs/fw) into
+//     shared memory. The map's term counts are template arguments where
+//     both are 1-3 (every map the model builds), so the loops over them
+//     unroll and each K8 thread has its 2 chunks' NT x NF loads in flight
+//     (K9: 4 chunks' NT); the kernels are held to 64 registers so that 4
+//     blocks share an SM (faster at bs 4-8; 6 blocks spilled, and so did 4
+//     K8 chunks with the loops unrolled). Where C
+//     or the row length is not a multiple of 4, or a pointer not 16-byte
+//     aligned, the chunks go as scalars.
+//     K8: a block owns one output row t2 of a batch row: it reads the
+//     column blocks fs names (select: every other one) of the NT source
+//     rows, applies both sides on the way in (129 -> 64 halves the tile),
+//     and writes the C rows of F_out as 16-byte chunks. (Staging the
+//     T-combined source row and applying the F side from the tile instead
+//     was slower at every site but the bs-4 pool.)
+//     K9: a block owns a run of consecutive output rows whose T rows are
+//     equal (the nearest map's pairs; rows with no source), at most
+//     MAP_ROWS (ops/packed_tf.py): it stages the T-combined input
+//     sum_i tw[i] x[b, :, ts[i], :] as an (F_in, C) tile once, then forms
+//     each packed chunk from the tile through the F side and stores it to
+//     every row of the run. A run with no source writes 0 without reading
+//     x. The wrapper refuses a tile larger than a block's shared memory.
+
 // K5-wgrad dw_conv_packed_wgrad replaces _make_dw_wgrad_kernel
 //     (pallas_call in _dw_conv_wgrad_impl), folded over F as the JAX
 //     backward folds it outside the kernel:
@@ -90,7 +117,10 @@ constexpr int kThreads = 256;
 constexpr int kDwRows = 8;     // K5 output rows per block
 constexpr int kDwCols = 512;   // K5 output columns per block (whole f positions)
 constexpr int kBM = 64, kBN = 64, kBK = 16;  // K6/K7 tile
-constexpr int kMapF = 32;      // K8/K9 f positions per block
+constexpr int kMapPad = 4;     // K8/K9 tile: floats past round_up(C, 4) a row
+constexpr int kMapBlocks = 4;  // K8/K9 blocks an SM: at most 64 registers
+constexpr int kK8Items = 2;   // K8: chunks a thread loads at once
+constexpr int kK9Items = 4;   // K9: chunks a thread loads at once
 constexpr int kWgRows = 32;    // K5-wgrad output rows per block (4 tiles of 8)
 constexpr int kPwPos = 1024;   // pw-wgrad positions per block
 constexpr int kPwK = 32;       // pw-wgrad positions per staged slice
@@ -215,75 +245,250 @@ pw_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// sum_i tw[i] sum_j fw[j] src[ts[i] * row_stride + fs[j] * col_stride],
-// skipping weight-0 entries
-__device__ __forceinline__ float separable_sum(
-    const float* src, const int* ts, const float* tw, const int* fs,
-    const float* fw, int NT, int NF, long long row_stride, int col_stride) {
-  float acc = 0.f;
-  for (int i = 0; i < NT; ++i) {
-    const float wt = tw[i];
-    if (wt == 0.f) continue;
-    const float* row = src + (long long)ts[i] * row_stride;
-    float s = 0.f;
-    for (int j = 0; j < NF; ++j) {
-      const float wf = fw[j];
-      if (wf == 0.f) continue;
-      s = fmaf(wf, row[(long long)fs[j] * col_stride], s);
+// a chunk of 4 floats at p: one 16-byte access where vec (every chunk of
+// the row whole and 16-byte aligned), else the first n as scalars
+__device__ __forceinline__ float4 load_chunk(const float* p, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = __ldg(p);
+  if (n > 1) v.y = __ldg(p + 1);
+  if (n > 2) v.z = __ldg(p + 2);
+  if (n > 3) v.w = __ldg(p + 3);
+  return v;
+}
+
+__device__ __forceinline__ void store_chunk(float* p, float4 v, int n,
+                                            bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  if (n > 0) p[0] = v.x;
+  if (n > 1) p[1] = v.y;
+  if (n > 2) p[2] = v.z;
+  if (n > 3) p[3] = v.w;
+}
+
+__device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
+  return make_float4(fmaf(w, v.x, a.x), fmaf(w, v.y, a.y), fmaf(w, v.z, a.z),
+                     fmaf(w, v.w, a.w));
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// item e of a (rows, chunks) walk over a channels-first side, in groups of
+// 32 lanes: 4 neighbouring chunks of 8 neighbouring rows
+__device__ __forceinline__ void planar_item(int e, int rows, int& r, int& p) {
+  const int lane = e & 31, grp = e >> 5, row_groups = (rows + 7) >> 3;
+  r = (grp % row_groups) * 8 + (lane >> 2);
+  p = (grp / row_groups) * 4 + (lane & 3);
+}
+
+__device__ __forceinline__ int planar_items(int rows, int chunks) {
+  return 32 * ((rows + 7) >> 3) * ((chunks + 3) >> 2);
+}
+
+// the block's map rows into shared memory: fs/fw (F_out, NF) whole, ts/tw
+// the T row t; returns whether that row has a source
+__device__ __forceinline__ bool stage_map(
+    const int* ts, const float* tw, const int* fs, const float* fw, int t,
+    int F_out, int NT, int NF, int* fs_s, float* fw_s, int* ts_s,
+    float* tw_s) {
+  for (int e = threadIdx.x; e < F_out * NF; e += kThreads) {
+    fs_s[e] = fs[e];
+    fw_s[e] = fw[e];
+  }
+  for (int e = threadIdx.x; e < NT; e += kThreads) {
+    ts_s[e] = ts[(long long)t * NT + e];
+    tw_s[e] = tw[(long long)t * NT + e];
+  }
+  __syncthreads();
+  bool any = false;
+  for (int i = 0; i < NT; ++i) any |= tw_s[i] != 0.f;
+  return any;
+}
+
+// grid (T_out, B). x packed (B, T_in, F_in*C), out (B, C, T_out, F_out).
+// tile (round_up(F_out, 4), CS): the row's sums, channels fastest.
+template <int kNT, int kNF>
+__global__ void __launch_bounds__(kThreads, kMapBlocks)
+spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    const int* __restrict__ ts, const float* __restrict__ tw,
+                    const int* __restrict__ fs, const float* __restrict__ fw,
+                    int T_in, int F_in, int C, int T_out, int F_out, int nt,
+                    int nf) {
+  const int NT = kNT > 0 ? kNT : nt, NF = kNF > 0 ? kNF : nf;
+  extern __shared__ float4 smem4[];
+  const int CS = ((C + 3) & ~3) + kMapPad, CQ = (C + 3) >> 2;
+  const int FQ = (F_out + 3) >> 2;
+  float* tile = reinterpret_cast<float*>(smem4);
+  int* fs_s = reinterpret_cast<int*>(tile + 4 * FQ * CS);
+  float* fw_s = reinterpret_cast<float*>(fs_s + F_out * NF);
+  int* ts_s = reinterpret_cast<int*>(fw_s + F_out * NF);
+  float* tw_s = reinterpret_cast<float*>(ts_s + NT);
+  const int b = blockIdx.y, t2 = blockIdx.x, tid = threadIdx.x;
+  const bool any = stage_map(ts, tw, fs, fw, t2, F_out, NT, NF, fs_s, fw_s,
+                             ts_s, tw_s);
+
+  // in: chunk (f2, q) = channels 4q.. of output f2, both sides applied
+  if (any) {
+    const float* xb = x + (long long)b * T_in * F_in * C;
+    const bool vec = (C & 3) == 0 && aligned16(x);
+    const int n = F_out * CQ;
+    for (int e0 = tid; e0 < n; e0 += kK8Items * kThreads) {
+      float4 acc[kK8Items];
+#pragma unroll
+      for (int u = 0; u < kK8Items; ++u)
+        acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const float wt = tw_s[i];
+        if (wt == 0.f) continue;
+        const float* row = xb + (long long)ts_s[i] * F_in * C;
+        float4 s[kK8Items];
+#pragma unroll
+        for (int u = 0; u < kK8Items; ++u)
+          s[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          float wf[kK8Items];
+          float4 v[kK8Items];
+#pragma unroll
+          for (int u = 0; u < kK8Items; ++u) {
+            const int e = e0 + u * kThreads, f2 = e / CQ, q = e % CQ;
+            wf[u] = e < n ? fw_s[f2 * NF + j] : 0.f;
+            v[u] = wf[u] != 0.f
+                       ? load_chunk(row + (long long)fs_s[f2 * NF + j] * C +
+                                        4 * q,
+                                    C - 4 * q, vec)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < kK8Items; ++u)
+            if (wf[u] != 0.f) s[u] = fma4(wf[u], v[u], s[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kK8Items; ++u) acc[u] = fma4(wt, s[u], acc[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kK8Items; ++u) {
+        const int e = e0 + u * kThreads;
+        if (e < n)
+          *reinterpret_cast<float4*>(tile + (e / CQ) * CS + 4 * (e % CQ)) =
+              acc[u];
+      }
     }
-    acc = fmaf(wt, s, acc);
-  }
-  return acc;
-}
-
-// grid (ceil(F_out / 32), T_out, B). x packed (B, T_in, F_in*C), out
-// (B, C, T_out, F_out).
-__global__ void __launch_bounds__(kThreads)
-spatial_down_kernel(const float* __restrict__ x, const int* __restrict__ ts,
-                    const float* __restrict__ tw, const int* __restrict__ fs,
-                    const float* __restrict__ fw, float* __restrict__ out,
-                    int T_in, int F_in, int C, int T_out, int F_out, int NT,
-                    int NF) {
-  extern __shared__ float tile[];  // (kMapF, C + 1)
-  const int b = blockIdx.z, t2 = blockIdx.y, f20 = blockIdx.x * kMapF;
-  const int nf = min(kMapF, F_out - f20);
-  const float* xb = x + (long long)b * T_in * F_in * C;
-  for (int e = threadIdx.x; e < nf * C; e += kThreads) {  // c fastest
-    const int fl = e / C, c = e % C, f2 = f20 + fl;
-    tile[fl * (C + 1) + c] =
-        separable_sum(xb + c, ts + t2 * NT, tw + t2 * NT, fs + f2 * NF,
-                      fw + f2 * NF, NT, NF, (long long)F_in * C, C);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < nf * C; e += kThreads) {  // f fastest
-    const int c = e / nf, fl = e % nf;
-    out[(((long long)b * C + c) * T_out + t2) * F_out + f20 + fl] =
-        tile[fl * (C + 1) + c];
+
+  // out: chunk (c, p) = f2 4p.. of channel c
+  const bool vec = (F_out & 3) == 0 && aligned16(out);
+  const int n = planar_items(C, FQ);
+  for (int e = tid; e < n; e += kThreads) {
+    int c, p;
+    planar_item(e, C, c, p);
+    if (c >= C || p >= FQ) continue;
+    const float* col = tile + 4 * p * CS + c;
+    const float4 v = any ? make_float4(col[0], col[CS], col[2 * CS],
+                                       col[3 * CS])
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    store_chunk(out + (((long long)b * C + c) * T_out + t2) * F_out + 4 * p,
+                v, F_out - 4 * p, vec);
   }
 }
 
-// grid (ceil(F_out / 32), T_out, B). x (B, C, T_in, F_in), out packed
-// (B, T_out, F_out*C).
-__global__ void __launch_bounds__(kThreads)
-spatial_up_kernel(const float* __restrict__ x, const int* __restrict__ ts,
-                  const float* __restrict__ tw, const int* __restrict__ fs,
-                  const float* __restrict__ fw, float* __restrict__ out,
-                  int T_in, int F_in, int C, int T_out, int F_out, int NT,
-                  int NF) {
-  extern __shared__ float tile[];  // (kMapF, C + 1)
-  const int b = blockIdx.z, t = blockIdx.y, f0 = blockIdx.x * kMapF;
-  const int nf = min(kMapF, F_out - f0);
-  const float* xb = x + (long long)b * C * T_in * F_in;
-  for (int e = threadIdx.x; e < nf * C; e += kThreads) {  // f fastest
-    const int c = e / nf, fl = e % nf, f = f0 + fl;
-    tile[fl * (C + 1) + c] =
-        separable_sum(xb + (long long)c * T_in * F_in, ts + t * NT,
-                      tw + t * NT, fs + f * NF, fw + f * NF, NT, NF, F_in, 1);
+// grid (G, B): block g writes the output rows [rows[g], rows[g+1]), which
+// share one T row of the map. x (B, C, T_in, F_in), out packed
+// (B, T_out, F_out*C). tile (round_up(F_in, 4), CS): the T-combined input,
+// channels fastest.
+template <int kNT, int kNF>
+__global__ void __launch_bounds__(kThreads, kMapBlocks)
+spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  const int* __restrict__ ts, const float* __restrict__ tw,
+                  const int* __restrict__ fs, const float* __restrict__ fw,
+                  const int* __restrict__ rows, int T_in, int F_in, int C,
+                  int T_out, int F_out, int nt, int nf) {
+  const int NT = kNT > 0 ? kNT : nt, NF = kNF > 0 ? kNF : nf;
+  extern __shared__ float4 smem4[];
+  const int CS = ((C + 3) & ~3) + kMapPad, CQ = (C + 3) >> 2;
+  const int FP = (F_in + 3) >> 2;
+  float* tile = reinterpret_cast<float*>(smem4);
+  int* fs_s = reinterpret_cast<int*>(tile + 4 * FP * CS);
+  float* fw_s = reinterpret_cast<float*>(fs_s + F_out * NF);
+  int* ts_s = reinterpret_cast<int*>(fw_s + F_out * NF);
+  float* tw_s = reinterpret_cast<float*>(ts_s + NT);
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int t0 = rows[blockIdx.x], t1 = rows[blockIdx.x + 1];
+  const bool any = stage_map(ts, tw, fs, fw, t0, F_out, NT, NF, fs_s, fw_s,
+                             ts_s, tw_s);
+
+  // in: chunk (c, p) = f 4p.. of channel c, summed over the T row
+  if (any) {
+    const long long plane = (long long)T_in * F_in;
+    const float* xb = x + (long long)b * C * plane;
+    const bool vec = (F_in & 3) == 0 && aligned16(x);
+    const int n = planar_items(C, FP);
+    for (int e0 = tid; e0 < n; e0 += kK9Items * kThreads) {
+      int c[kK9Items], p[kK9Items];
+      bool ok[kK9Items];
+      float4 acc[kK9Items];
+#pragma unroll
+      for (int u = 0; u < kK9Items; ++u) {
+        const int e = e0 + u * kThreads;
+        planar_item(e, C, c[u], p[u]);
+        ok[u] = e < n && c[u] < C && p[u] < FP;
+        acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const float wt = tw_s[i];
+        if (wt == 0.f) continue;
+        const float* row = xb + (long long)ts_s[i] * F_in;
+        float4 v[kK9Items];
+#pragma unroll
+        for (int u = 0; u < kK9Items; ++u)
+          v[u] = ok[u] ? load_chunk(row + c[u] * plane + 4 * p[u],
+                                    F_in - 4 * p[u], vec)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < kK9Items; ++u) acc[u] = fma4(wt, v[u], acc[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kK9Items; ++u) {
+        if (!ok[u]) continue;
+        float* d = tile + 4 * p[u] * CS + c[u];
+        d[0] = acc[u].x;
+        d[CS] = acc[u].y;
+        d[2 * CS] = acc[u].z;
+        d[3 * CS] = acc[u].w;
+      }
+    }
   }
   __syncthreads();
-  float* orow = out + (((long long)b * T_out + t) * F_out + f0) * C;
-  for (int e = threadIdx.x; e < nf * C; e += kThreads)  // c fastest
-    orow[e] = tile[(e / C) * (C + 1) + e % C];
+
+  // out: chunk (f, q) = channels 4q.. of f, through the F side, to every
+  // row of the run
+  const bool vec = (C & 3) == 0 && aligned16(out);
+  const long long row_len = (long long)F_out * C;
+  for (int e = tid; e < F_out * CQ; e += kThreads) {
+    const int f = e / CQ, q = e % CQ;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (any)
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const float wf = fw_s[f * NF + j];
+        if (wf == 0.f) continue;
+        s = fma4(wf,
+                 *reinterpret_cast<const float4*>(
+                     tile + fs_s[f * NF + j] * CS + 4 * q),
+                 s);
+      }
+    float* o = out + ((long long)b * T_out + t0) * row_len +
+               (long long)f * C + 4 * q;
+    for (int t = t0; t < t1; ++t, o += row_len) store_chunk(o, s, C - 4 * q, vec);
+  }
 }
 
 // grid (ceil(F_out / FT), ceil(T_out / kWgRows), B). x packed (B, T_in,
@@ -471,22 +676,22 @@ int launch_pw(const void* x, const void* w, const void* bias, void* out,
   return (int)cudaGetLastError();
 }
 
+// K8/K9's instantiation for a map of NT and NF terms a row: the counts as
+// template arguments where both are 1, 2 or 3 (every map the packed model
+// builds), so that their loops unroll; the generic kernel otherwise
 template <typename Kernel>
-int launch_map(Kernel kernel, const void* x, const void* ts, const void* tw,
-               const void* fs, const void* fw, void* out, int B, int T_in,
-               int F_in, int C, int T_out, int F_out, int NT, int NF,
-               void* stream) {
-  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || NT < 1 || NF < 1 ||
-      !grid_ok(T_out, B))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kMapF * (C + 1) * sizeof(float);
-  cudaError_t e = allow_smem((const void*)kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((F_out + kMapF - 1) / kMapF, T_out, B);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)ts, (const float*)tw, (const int*)fs,
-      (const float*)fw, (float*)out, T_in, F_in, C, T_out, F_out, NT, NF);
-  return (int)cudaGetLastError();
+Kernel pick_map_kernel(int NT, int NF, Kernel generic, Kernel k1, Kernel k2,
+                       Kernel k3) {
+  if (NT != NF || NT > 3) return generic;
+  return NT == 1 ? k1 : NT == 2 ? k2 : k3;
+}
+
+// shared bytes of a K8/K9 block: the (tile_rows, CS) tile, then fs/fw and
+// ts/tw (ops/packed_tf.map_smem)
+size_t map_smem(int tile_rows, int C, int F_out, int NT, int NF) {
+  const size_t cs = (size_t)((C + 3) & ~3) + kMapPad;
+  return ((size_t)tile_rows * cs + 2 * (size_t)F_out * NF + 2 * (size_t)NT) *
+         sizeof(float);
 }
 
 }  // namespace
@@ -530,23 +735,51 @@ extern "C" int pw_unproj_packed_fwd(const void* x, const void* w,
 }
 
 // maps: ts/tw (T_out, NT), fs/fw (F_out, NF), int32 / float32
-extern "C" int spatial_down_packed_fwd(const void* x, const void* ts,
-                                       const void* tw, const void* fs,
-                                       const void* fw, void* out, int B,
+extern "C" int spatial_down_packed_fwd(const void* x, void* out,
+                                       const void* ts, const void* tw,
+                                       const void* fs, const void* fw, int B,
                                        int T_in, int F_in, int C, int T_out,
                                        int F_out, int NT, int NF,
                                        void* stream) {
-  return launch_map(spatial_down_kernel, x, ts, tw, fs, fw, out, B, T_in,
-                    F_in, C, T_out, F_out, NT, NF, stream);
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || NT < 1 || NF < 1 ||
+      !grid_ok(B, 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = map_smem(4 * ((F_out + 3) / 4), C, F_out, NT, NF);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_down_kernel<0, 0>,
+                                      spatial_down_kernel<1, 1>,
+                                      spatial_down_kernel<2, 2>,
+                                      spatial_down_kernel<3, 3>);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(T_out, B), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (const int*)ts, (const float*)tw,
+      (const int*)fs, (const float*)fw, T_in, F_in, C, T_out, F_out, NT, NF);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int spatial_up_packed_fwd(const void* x, const void* ts,
+// rows (G + 1): the starts of the runs of output rows one block writes,
+// then T_out (ops/packed_tf.row_runs)
+extern "C" int spatial_up_packed_fwd(const void* x, void* out, const void* ts,
                                      const void* tw, const void* fs,
-                                     const void* fw, void* out, int B,
+                                     const void* fw, const void* rows, int B,
                                      int T_in, int F_in, int C, int T_out,
-                                     int F_out, int NT, int NF, void* stream) {
-  return launch_map(spatial_up_kernel, x, ts, tw, fs, fw, out, B, T_in, F_in,
-                    C, T_out, F_out, NT, NF, stream);
+                                     int F_out, int NT, int NF, int G,
+                                     void* stream) {
+  if (B < 1 || C < 1 || F_in < 1 || T_out < 1 || F_out < 1 || NT < 1 ||
+      NF < 1 || G < 1 || G > T_out || !grid_ok(B, 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = map_smem(4 * ((F_in + 3) / 4), C, F_out, NT, NF);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_up_kernel<0, 0>,
+                                      spatial_up_kernel<1, 1>,
+                                      spatial_up_kernel<2, 2>,
+                                      spatial_up_kernel<3, 3>);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(G, B), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (const int*)ts, (const float*)tw,
+      (const int*)fs, (const float*)fw, (const int*)rows, T_in, F_in, C,
+      T_out, F_out, NT, NF);
+  return (int)cudaGetLastError();
 }
 
 // x (B, T_in, F_in*C), g (B, T_out, F_out*C) packed; out (KT, KF, C);

@@ -52,7 +52,7 @@ _SIGNATURES = {
         "pw_proj_packed_fwd": (4, 6),
         "pw_unproj_packed_fwd": (4, 6),
         "spatial_down_packed_fwd": (6, 8),
-        "spatial_up_packed_fwd": (6, 8),
+        "spatial_up_packed_fwd": (7, 9),
         "dw_conv_packed_wgrad": (4, 11),
         "pw_packed_wgrad": (4, 6),
     },
@@ -173,12 +173,23 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _function(lib_name: str, fn: str):
+    return getattr(library(lib_name), fn)
+
+
 def launch(lib_name: str, fn: str, device: torch.device, *args) -> None:
     """Call ``fn`` of library ``lib_name`` on ``device``'s current stream
-    and count the launch; raises on a non-zero launch status."""
-    kernel = getattr(library(lib_name), fn)
-    with torch.cuda.device(device):
-        status = kernel(*args, torch.cuda.current_stream(device).cuda_stream)
+    and count the launch; raises on a non-zero launch status. The ctypes
+    function is looked up once; ``device`` is made current only when it is
+    not already."""
+    kernel = _function(lib_name, fn)
+    if device.index is None or device.index == torch.cuda.current_device():
+        status = kernel(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            status = kernel(*args,
+                            torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {status}")
     LAUNCHES[fn] += 1

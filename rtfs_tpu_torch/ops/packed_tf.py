@@ -498,13 +498,16 @@ class SpatialMap:
     F side as (F_out, nnz) source blocks ``fs`` and weights ``fw``, as the
     JAX builders give them. The kernels take the T side in the same
     compact form, ``ts``/``tw`` (T_out, nnz) from the rows of ``m``; the
-    tensors are made once per device and kept."""
+    tensors, and the kernels' launch arguments, are made once per device
+    and kept."""
 
     def __init__(self, m, fs, fw):
         self.m = np.ascontiguousarray(m, np.float32)
         self.fs = np.asarray(fs, np.int32)
         self.fw = np.asarray(fw, np.float32)
+        self.fs_max = int(self.fs.max())
         self._on = {}
+        self._launch = {}
         self._transposed = {}
 
     def transposed(self, f_in: int) -> "SpatialMap":
@@ -540,15 +543,35 @@ class SpatialMap:
             tw[o, :len(r)] = self.m[o, r]
         return ts, tw
 
-    def tensors(self, device) -> dict:
-        key = str(torch.device(device))
-        if key not in self._on:
+    def tensors(self, device: torch.device) -> dict:
+        if device not in self._on:
             ts, tw = self.compact_t()
-            self._on[key] = {
+            self._on[device] = {
                 name: torch.from_numpy(a).to(device)
                 for name, a in (("m", self.m), ("ts", ts), ("tw", tw),
-                                ("fs", self.fs), ("fw", self.fw))}
-        return self._on[key]
+                                ("fs", self.fs), ("fw", self.fw),
+                                ("rows", row_runs(ts, tw)))}
+        return self._on[device]
+
+    def launch_args(self, up: bool, c: int, f_in: int,
+                    device: torch.device) -> tuple:
+        """The map's part of a K9 (``up``) or K8 launch for ``c`` channels
+        and an input F side of ``f_in`` blocks on ``device``: (pointers into
+        ``tensors(device)``, ints after the batch size), as
+        ``spatial_{up,down}_packed_fwd`` take them; built once, after
+        ``map_geometry`` has checked that the tile fits."""
+        key = (up, c, f_in, device)
+        if key not in self._launch:
+            map_geometry(self, up, c, f_in)
+            tens = self.tensors(device)
+            names = ("ts", "tw", "fs", "fw") + (("rows",) if up else ())
+            ints = (self.t_in, f_in, c, self.t_out, self.f_out,
+                    tens["ts"].shape[1], self.fs.shape[1])
+            if up:
+                ints += (tens["rows"].numel() - 1,)
+            self._launch[key] = (tuple(tens[n].data_ptr() for n in names),
+                                 ints)
+        return self._launch[key]
 
 
 @functools.lru_cache(maxsize=None)
@@ -588,33 +611,82 @@ def spatial_up_packed_plain(x4, smap: SpatialMap):
     return y.reshape(b, smap.t_out, smap.f_out * c)
 
 
-def _spatial_launch(fn, x, smap, out, t_in, f_in, c):
-    tens = smap.tensors(x.device)
-    kernel_lib.launch(
-        "packed_tf", fn, x.device, x.data_ptr(), tens["ts"].data_ptr(),
-        tens["tw"].data_ptr(), tens["fs"].data_ptr(), tens["fw"].data_ptr(),
-        out.data_ptr(), x.shape[0], t_in, f_in, c, smap.t_out, smap.f_out,
-        tens["ts"].shape[1], tens["fs"].shape[1])
-    return out
+# K8 / K9 launch geometry: MAP_PAD mirrors kMapPad of csrc/packed_tf.cu
+MAP_PAD = 4   # floats past round_up(C, 4) in a row of the shared tile
+MAP_ROWS = 4  # K9: the most output rows one block writes
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def map_smem(tile_rows: int, c: int, f_out: int, nt: int, nf: int) -> int:
+    """Shared bytes of a K8/K9 block (``map_smem`` in the source): the
+    (tile_rows, round_up(c, 4) + MAP_PAD) tile, then fs/fw (f_out, nf) and
+    ts/tw (nt)."""
+    return 4 * (tile_rows * (_round4(c) + MAP_PAD) + 2 * f_out * nf + 2 * nt)
+
+
+def row_runs(ts, tw, limit: int = MAP_ROWS) -> np.ndarray:
+    """K9's blocks over a compact T side: the first output row of each run
+    of consecutive rows whose (ts, tw) rows are equal, at most ``limit``
+    rows a run, then T_out. A block stages its run's source rows once."""
+    starts = [0]
+    for t in range(1, ts.shape[0]):
+        if (t - starts[-1] >= limit or not np.array_equal(ts[t], ts[t - 1])
+                or not np.array_equal(tw[t], tw[t - 1])):
+            starts.append(t)
+    starts.append(ts.shape[0])
+    return np.asarray(starts, np.int32)
+
+
+def map_geometry(smap: SpatialMap, up: bool, c: int, f_in: int) -> dict:
+    """K9's (``up``) or K8's launch on ``smap`` for ``c`` channels and an
+    input F side of ``f_in`` blocks, as csrc/packed_tf.cu runs it: ``rows``
+    holds the first output row of each block, then T_out (K9: the runs of
+    ``row_runs``; K8: one row a block); ``tile_rows`` the tile's rows
+    (round_up(f_in, 4) for K9, round_up(F_out, 4) for K8); ``smem`` a
+    block's shared bytes. Raises ValueError when they exceed one block's
+    shared memory."""
+    ts, tw = smap.compact_t()
+    if up:
+        rows, tile_rows = row_runs(ts, tw), _round4(f_in)
+    else:
+        rows = np.arange(smap.t_out + 1, dtype=np.int32)
+        tile_rows = _round4(smap.f_out)
+    smem = map_smem(tile_rows, c, smap.f_out, ts.shape[1], smap.fs.shape[1])
+    if smem > kernel_lib.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"spatial_{'up' if up else 'down'}_packed: C {c}, F in {f_in} / "
+            f"out {smap.f_out} need {smem} bytes of shared memory a block, "
+            f"more than {kernel_lib.SMEM_PER_BLOCK}")
+    return {"rows": rows, "tile_rows": tile_rows, "smem": smem}
 
 
 def _down_forward(xp, smap, c):
-    if xp.device.type == "cpu":
+    dev = xp.device
+    if dev.type == "cpu":
         return spatial_down_packed_plain(xp, smap, c)
     _check_cuda("spatial_down_packed", xp)
-    b, t, n = xp.shape
-    out = torch.empty(b, c, smap.t_out, smap.f_out, device=xp.device)
-    return _spatial_launch("spatial_down_packed_fwd", xp, smap, out, t,
-                           n // c, c)
+    b, _, n = xp.shape
+    ptrs, ints = smap.launch_args(False, c, n // c, dev)
+    out = torch.empty(b, c, smap.t_out, smap.f_out, device=dev)
+    kernel_lib.launch("packed_tf", "spatial_down_packed_fwd", dev,
+                      xp.data_ptr(), out.data_ptr(), *ptrs, b, *ints)
+    return out
 
 
 def _up_forward(x4, smap):
-    if x4.device.type == "cpu":
+    dev = x4.device
+    if dev.type == "cpu":
         return spatial_up_packed_plain(x4, smap)
     _check_cuda("spatial_up_packed", x4)
-    b, c, t2, f2 = x4.shape
-    out = torch.empty(b, smap.t_out, smap.f_out * c, device=x4.device)
-    return _spatial_launch("spatial_up_packed_fwd", x4, smap, out, t2, f2, c)
+    b, c, _, f2 = x4.shape
+    ptrs, ints = smap.launch_args(True, c, f2, dev)
+    out = torch.empty(b, smap.t_out, smap.f_out * c, device=dev)
+    kernel_lib.launch("packed_tf", "spatial_up_packed_fwd", dev,
+                      x4.data_ptr(), out.data_ptr(), *ptrs, b, *ints)
+    return out
 
 
 class _SpatialDown(torch.autograd.Function):
@@ -651,7 +723,7 @@ class _SpatialUp(torch.autograd.Function):
 def spatial_down_packed(xp, smap: SpatialMap, c: int):
     """Packed (B, T, F*C) -> rank-4 (B, C, T2, F2) through ``smap``."""
     _, t, n = xp.shape
-    if t != smap.t_in or n % c or int(smap.fs.max()) >= n // c:
+    if t != smap.t_in or n % c or smap.fs_max >= n // c:
         raise ValueError(f"spatial_down_packed: x {tuple(xp.shape)}, C {c}, "
                          f"map T {smap.t_in}")
     if _records(xp):
@@ -662,7 +734,7 @@ def spatial_down_packed(xp, smap: SpatialMap, c: int):
 def spatial_up_packed(x4, smap: SpatialMap):
     """Rank-4 (B, C, T2, F2) -> packed (B, T, F*C) through ``smap``."""
     _, _, t2, f2 = x4.shape
-    if t2 != smap.t_in or int(smap.fs.max()) >= f2:
+    if t2 != smap.t_in or smap.fs_max >= f2:
         raise ValueError(f"spatial_up_packed: x {tuple(x4.shape)}, map T "
                          f"{smap.t_in}")
     if _records(x4):

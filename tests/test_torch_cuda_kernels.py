@@ -363,28 +363,57 @@ def test_k6_k7_match_plain(dev, shape):
     assert back.shape == x4.shape
 
 
-@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+# (B, T, F, C) of a packed map; the pooled level is the stride-2 k-4 conv's
+# output. "ragged": C and every F side not a multiple of 4; "odd-c": C 37
+MAP_SHAPES = {"ragged": (3, 13, 7, 6), "serving": (1, 251, 129, 64),
+              "serving-bs8": (8, 251, 129, 64), "odd-c": (1, 21, 18, 37)}
+
+
+@pytest.mark.parametrize("shape", sorted(MAP_SHAPES))
 def test_k8_k9_match_plain(dev, shape):
+    """K8 and K9 at the three maps and their transposes (each the other's
+    dx; the transposed select has rows and f blocks with no source)
+    against their plain versions, two calls bit-identical; the ragged
+    case also from inputs 4 bytes off 16-byte alignment (scalar chunks)."""
     from rtfs_tpu_torch.ops import packed_tf as P
 
-    b, t, f, c, _ = PACKED_SHAPES[shape]
-    t2, f2 = (t - 2) // 2 + 1, (f - 2) // 2 + 1  # the stride-2 k-4 conv
-    rng = np.random.default_rng(8)
-    xp = _t(rng, (b, t, f * c), dev)
+    b, t, f, c = MAP_SHAPES[shape]
+    t2, f2 = (t - 2) // 2 + 1, (f - 2) // 2 + 1
     pool = P.cached_map("pool", t, t2, f, f2)
-    torch.testing.assert_close(P.spatial_down_packed(xp, pool, c),
-                               P.spatial_down_packed_plain(xp, pool, c),
-                               atol=1e-5, rtol=0)
-    xs = _t(rng, (b, t - 1, (f - 1) * c), dev)  # a (1, 1)-padded k-4 conv
-    sel = P.cached_map("select", t - 1, t2, f - 1, f2)
-    torch.testing.assert_close(P.spatial_down_packed(xs, sel, c),
-                               P.spatial_down_packed_plain(xs, sel, c),
-                               atol=0, rtol=0)
-    x4 = _t(rng, (b, c, t2, f2), dev)
+    sel = P.cached_map("select", t - 1, t2, f - 1, f2)  # (1, 1)-padded conv
     up = P.cached_map("nearest", t2, t, f2, f)
-    torch.testing.assert_close(P.spatial_up_packed(x4, up),
-                               P.spatial_up_packed_plain(x4, up),
-                               atol=0, rtol=0)
+    rng = np.random.default_rng(8)
+    down_fn = (P.spatial_down_packed, P.spatial_down_packed_plain)
+    up_fn = (P.spatial_up_packed, P.spatial_up_packed_plain)
+    for off in ((0, 1) if shape == "ragged" else (0,)):
+        def x(*dims):
+            flat = _t(rng, (int(np.prod(dims)) + off,), dev)
+            return flat[off:].view(dims)
+
+        cases = [  # (kernel and plain, arguments, max abs error)
+            (down_fn, (x(b, t, f * c), pool, c), 1e-5),
+            (down_fn, (x(b, t - 1, (f - 1) * c), sel, c), 0.0),
+            (up_fn, (x(b, c, t2, f2), up), 0.0),
+            (down_fn, (x(b, t, f * c), up.transposed(f2), c), 1e-5),
+            (up_fn, (x(b, c, t2, f2), pool.transposed(f)), 1e-5),
+            (up_fn, (x(b, c, t2, f2), sel.transposed(f - 1)), 0.0),
+        ]
+        for (kern, plain), args, tol in cases:
+            got = kern(*args)
+            torch.testing.assert_close(got, plain(*args), atol=tol, rtol=0)
+            assert torch.equal(got, kern(*args))
+
+
+def test_k8_k9_refuse_a_tile_larger_than_shared_memory(dev):
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    up = P.cached_map("nearest", 2, 3, 1024, 1024)  # a (1024, 68) tile
+    with pytest.raises(ValueError, match="shared memory"):
+        P.spatial_up_packed(torch.zeros(1, 64, 2, 1024, device=dev), up)
+    pool = P.cached_map("pool", 2, 1, 2048, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        P.spatial_down_packed(torch.zeros(1, 2, 2048 * 64, device=dev),
+                              pool, 64)
 
 
 @pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
