@@ -14,7 +14,8 @@ one or outside the repository. Phases, any failure of which ends the run:
    bit-identical), against its plain PyTorch version on the same inputs on
    the card, and is timed with CUDA events beside its float32 bound and,
    for K2 and K3, whose products run in 3xTF32 on the tensor cores, the
-   bound of that route.
+   bound of that route; per site, per bs-8 and per bs-1 forward, with the
+   share of the bound each reaches.
 4. Serving: the full RTFS-Net-4 (4 repeats, published widths, weights from
    seed 0) answers ``separate_sample`` requests of 2 s at batch 1 and 8 on
    the card. The launch counts of that run must be K1 8 / K2 24 / K3 8 per
@@ -40,20 +41,23 @@ one or outside the repository. Phases, any failure of which ends the run:
    on synthetic batches: launches per step must be K1/K2/K3 forward 8/24/8
    and backward 8/24/8, every loss finite and the parameters moved; it
    prints ms per step, peak memory, and one profiled step's device time,
-   idle share, top kernels and the shares of K2 forward, K3 forward and
-   K2 backward.
+   idle share, top kernels and the shares of K1 forward, K2 forward, K3
+   forward and K2 backward.
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
    pw_proj_packed and K7 pw_unproj_packed at the packed serving shapes
    (STFT 251 x 129, 64 hid channels, bottleneck 256, pooled 125 x 64) at
-   batch 1 and 8, each against its plain version on the same card inputs,
-   timed with CUDA events beside its bound, its plain version and one
-   PyTorch call of the same function (on the layout that call takes).
+   batch 1 and 8, and K6 as K7's dx (contiguous w, no bias) at batch 4,
+   each against its plain version on the same card inputs and called
+   twice (bit-identical), timed with CUDA events beside its bound (K6,
+   whose product runs in 3xTF32 on the tensor cores: that route's, the
+   SIMT-f32 one printed beside it), its plain version and one PyTorch call
+   of the same function (on the layout that call takes).
    K8 spatial_down_packed and K9 spatial_up_packed at all six sites of
    their maps (pool, select, nearest and the three transposes, each the
    other kernel's dx) at batch 1, 4 and 8: against the plain version,
    two calls bit-identical, timed the same way, with the wrapper's host
    time per call; (7b, after phase 10) the profiler's device time per
-   launch of each.
+   launch of each, and of K6 at its three sites.
 8. Serving from files (after phase 4): a seed-0 bundle, a 2 s wav and 50
    mouth frames go through ``rtfs_tpu_torch.inference.main`` on the card
    with and without ``--packed-tf`` and on the CPU with it. The packed run
@@ -75,7 +79,8 @@ one or outside the repository. Phases, any failure of which ends the run:
    must launch exactly the counts ``packed_train_launches`` derives (and
    K1/K2/K3 8/24/8 forward and backward), every loss be finite and the
    parameters move; it prints ms per step of both, peak memory, and one
-   profiled packed step's device time, idle share and top kernels.
+   profiled packed step's device time, idle share, top kernels and the
+   shares of the packed kernels, of K6 and of K1 forward.
 10. Unidirectional (after phase 9): the preset with both DualPathRNNs'
    ``bidirectional`` false (``UNI_OVERRIDES``, applied by
    ``utils/parser.parse_overrides`` as the entries apply them), the path of
@@ -117,7 +122,7 @@ import torch
 # float32 (non-tensor-core) operations/s. The kernels compute in float32.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# dense TF32 tensor-core operations/s; a 3xTF32 product (K2 and K3
+# dense TF32 tensor-core operations/s; a 3xTF32 product (K2, K3 and K6
 # forward, rtfs_tpu_torch/csrc/tf32x3.cuh) issues three a float32 one
 TF32_OPS_PER_S = 495e12
 
@@ -353,9 +358,11 @@ def _map_cost(smap, c: int, bs: int) -> tuple:
 
 def check_packed_kernels(conf, rng) -> dict:
     """Phase 7: K5-K7 against their plain versions at the packed serving
-    shapes, batch 1 and 8, then K8 and K9 (``check_map_kernels``); returns
-    per kernel the max error and per-forward (batch 1) sums of kernel,
-    plain, bound and library times."""
+    shapes, batch 1 and 8, and K6 at its training site as K7's dx (batch
+    4), each called twice (bit-identical), then K8 and K9
+    (``check_map_kernels``); returns per kernel the max error and
+    per-forward (batch 1) sums of kernel, plain, bound and library
+    times."""
     import torch.nn.functional as Fn
 
     from rtfs_tpu_torch.ops import packed_tf as P
@@ -374,7 +381,10 @@ def check_packed_kernels(conf, rng) -> dict:
     res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
            for name in (*PACKED_TOL, *MAP_KERNEL_NAMES)}
-    for bs in (1, 8):
+    # K6 runs its product in 3xTF32 on the tensor cores: its bound_ms is
+    # that route's bound; the SIMT-f32 one is only printed
+    simt_ms = {}
+    for bs in (1, 8, 4):
         xp = t((bs, T, Fq * C))
         x_cl = xp.view(bs, T, Fq, C).permute(0, 3, 1, 2)  # channels_last
         x4 = t((bs, Cb, T, Fq))
@@ -386,43 +396,61 @@ def check_packed_kernels(conf, rng) -> dict:
         dw_w = 4 * (k * k * C + C)
         m_pw = bs * T * Fq
         # (kernel, site, launches per forward, kernel call, plain call,
-        #  bytes, flops, library call)
+        #  bytes, flops, of those the 3xTF32 products' flops, library call)
         cases = [
             ("dw_conv_packed", "same", 12,
              lambda: P.dw_conv_packed(xp, w_v, b_dw, Fq, C, same, same),
              lambda: P.dw_conv_packed_plain(xp, w_v, b_dw, Fq, C, same, same),
-             4 * 2 * n_x + dw_w, 2 * k * k * n_x,
+             4 * 2 * n_x + dw_w, 2 * k * k * n_x, None,
              lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding="same", groups=C)),
             ("dw_conv_packed", "pre-select", 4,
              lambda: P.dw_conv_packed(xp, w_v, b_dw, Fq, C, pre, pre),
              lambda: P.dw_conv_packed_plain(xp, w_v, b_dw, Fq, C, pre, pre),
-             4 * (n_x + n_s) + dw_w, 2 * k * k * n_s,
+             4 * (n_x + n_s) + dw_w, 2 * k * k * n_s, None,
              lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding=pre[0], groups=C)),
             ("pw_proj_packed", "projection", 4,
              lambda: P.pw_proj_packed(x4, w_in[:, :, 0, 0].t(), b_in),
              lambda: P.pw_proj_packed_plain(x4, w_in[:, :, 0, 0].t(), b_in),
              4 * (m_pw * (Cb + C) + Cb * C + C), 2 * m_pw * Cb * C,
-             lambda: Fn.conv2d(x4, w_in, b_in)),
+             2 * m_pw * Cb * C, lambda: Fn.conv2d(x4, w_in, b_in)),
             ("pw_unproj_packed", "residual", 4,
              lambda: P.pw_unproj_packed(xp, w_out[:, :, 0, 0].t(), b_out, Fq),
              lambda: P.pw_unproj_packed_plain(xp, w_out[:, :, 0, 0].t(),
                                               b_out, Fq),
-             4 * (m_pw * (Cb + C) + Cb * C + Cb), 2 * m_pw * Cb * C,
+             4 * (m_pw * (Cb + C) + Cb * C + Cb), 2 * m_pw * Cb * C, None,
              lambda: Fn.conv2d(x_cl, w_out, b_out)),
         ]
-        for name, site, n, kern, plain, nbytes, nops, lib in cases:
+        if bs == 4:  # training: only K6 as K7's dx, w contiguous, no bias
+            w_dx = w_out[:, :, 0, 0].contiguous()  # (Cb, C) = (w_out^T)^T
+            w_lib = w_dx.t().contiguous()[:, :, None, None]
+            cases = [
+                ("pw_proj_packed", "K7 dx", 0,
+                 lambda: P.pw_proj_packed(x4, w_dx, None),
+                 lambda: P.pw_proj_packed_plain(x4, w_dx, None),
+                 4 * (m_pw * (Cb + C) + Cb * C), 2 * m_pw * Cb * C,
+                 2 * m_pw * Cb * C, lambda: Fn.conv2d(x4, w_lib))]
+        for name, site, n, kern, plain, nbytes, nops, mm_ops, lib in cases:
             got = kern()
+            again = kern()
             want = plain()
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} ({site}, bs {bs}): two calls "
+                                     "differ")
             ms = time_cuda(kern, 50)
             plain_ms = time_cuda(plain, 3, warmup=1)
             lib_ms = time_cuda(lib, 50)
-            b_ms, b_by = bound_ms(nbytes, nops)
+            f32_ms = bound_ms(nbytes, nops)[0]
+            b_ms, b_by = (bound_ms(nbytes, nops) if mm_ops is None
+                          else tf32x3_bound_ms(nbytes, nops, mm_ops))
+            route = ("" if mm_ops is None
+                     else f", 3xTF32; SIMT-f32 bound_ms={f32_ms:.5f}")
             print(f"kernel {name} bs={bs} site={site}: max_abs_err={err:.3e} "
-                  f"(tol {PACKED_TOL[name]:.0e}) ms={ms:.5f} plain_ms="
-                  f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}, {nbytes} B, "
-                  f"{nops} flop) library_ms={lib_ms:.5f}")
+                  f"(tol {PACKED_TOL[name]:.0e}) bit-identical=True "
+                  f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} "
+                  f"({b_by}{route}, {nbytes} B, {nops} flop) share of bound="
+                  f"{b_ms / ms:.3f} library_ms={lib_ms:.5f}")
             if not err <= PACKED_TOL[name]:
                 raise AssertionError(
                     f"{name} ({site}) disagrees with its plain version: "
@@ -435,6 +463,14 @@ def check_packed_kernels(conf, rng) -> dict:
                 r["bound_ms"] += n * b_ms
                 r["library_ms"] += n * lib_ms
                 r["bound_by"] = b_by
+                if mm_ops is not None:
+                    simt_ms[name] = simt_ms.get(name, 0.0) + n * f32_ms
+    for name, f32 in simt_ms.items():
+        r = res[name]
+        print(f"kernel {name}: per bs-1 packed forward ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, 3xTF32; "
+              f"SIMT-f32 bound_ms={f32:.4f}) library_ms="
+              f"{r['library_ms']:.4f}")
     check_map_kernels(conf, rng, res)
     return res
 
@@ -453,9 +489,27 @@ def _host_us(fn, iters: int = 200) -> float:
 
 def profile_map_kernels(conf, rng) -> None:
     """Phase 7b, last: the profiler's device microseconds per launch of
-    K8/K9 at each site and batch of phase 7 (on fresh inputs), after every
-    timed phase, so that none of these profiler sessions runs before a
-    host-clock or event timing."""
+    K6 (its serving site at batch 1 and 8, its K7-dx site at batch 4) and
+    of K8/K9 at each site and batch of phase 7 (on fresh inputs), after
+    every timed phase, so that none of these profiler sessions runs before
+    a host-clock or event timing."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    dev = torch.device("cuda")
+    w = torch.from_numpy(rng.standard_normal((g["Cb"], g["C"])).astype(
+        np.float32) * g["Cb"] ** -0.5).to(dev)
+    bias = torch.zeros(g["C"], device=dev)
+    w_view = w.t().contiguous().t()  # strides (1, Cb), as the layer's view
+    for bs, site, w_bs, b_bs in ((1, "projection", w_view, bias),
+                                 (8, "projection", w_view, bias),
+                                 (4, "K7 dx", w, None)):
+        x4 = torch.from_numpy(rng.standard_normal(
+            (bs, g["Cb"], g["T"], g["F"])).astype(np.float32)).to(dev)
+        us = _device_us(functools.partial(P.pw_proj_packed, x4, w_bs, b_bs),
+                        "pw_proj_kernel")
+        print(f"kernel pw_proj_packed bs={bs} site={site}: device_us="
+              f"{us:.3f}")
     for bs in (1, 4, 8):
         for name, site, _, smap, x, _, _ in _map_sites(conf, rng, bs):
             kern, _ = _map_calls(name, x, smap, packed_geometry(conf)["C"])
@@ -646,6 +700,7 @@ def check_kernels(geo, rng) -> dict:
     per_forward = {"sru_dual_recurrence": REPEATS,
                    "sru_hidden_layer": REPEATS * (geo["layers"] - 1),
                    "convt1d_ola_tm": REPEATS}
+    bs1 = {}  # per bs-1 forward: (ms, bound_ms)
 
     for bs in (1, 8):
         for site in ("freq", "time"):
@@ -710,13 +765,18 @@ def check_kernels(geo, rng) -> dict:
                       f"B={bsz}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
                       f"(tol {TOL[name]:.0e}) ms={ms:.5f} plain_ms="
                       f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}{route}) "
-                      f"library_ms={lib_ms}; two calls bit-identical")
+                      f"share of bound={b_ms / ms:.3f} library_ms={lib_ms}; "
+                      "two calls bit-identical")
                 if not err <= TOL[name]:
                     raise AssertionError(
                         f"{name} disagrees with its plain version: "
                         f"{err:.3e} > {TOL[name]:.0e}")
                 r = res[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
+                if bs == 1:
+                    ms_sum, b_sum = bs1.get(name, (0.0, 0.0))
+                    bs1[name] = (ms_sum + per_forward[name] * ms,
+                                 b_sum + per_forward[name] * b_ms)
                 if bs == 8:  # per-forward sums at batch 8
                     n = per_forward[name]
                     r["ms"] += n * ms
@@ -732,7 +792,10 @@ def check_kernels(geo, rng) -> dict:
                  f", 3xTF32; SIMT-f32 bound_ms={simt_ms[name]:.4f}")
         print(f"kernel {name}: per bs-8 forward ms={r['ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}{route}) "
-              f"plain_ms={r['plain_ms']:.2f} library_ms={r['library_ms']}")
+              f"share of bound={r['bound_ms'] / r['ms']:.3f} "
+              f"plain_ms={r['plain_ms']:.2f} library_ms={r['library_ms']}; "
+              f"per bs-1 forward ms={bs1[name][0]:.4f} "
+              f"bound_ms={bs1[name][1]:.4f}")
     return res
 
 
@@ -1247,15 +1310,17 @@ def profile_step(system, batch, generator, label: str,
 
 
 # the device kernels of csrc/packed_tf.cu, as the profiler names them
-PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_packed_kernel<",
+PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_proj_kernel",
+                       "pw_unproj_kernel",
                        "spatial_down_kernel", "spatial_up_kernel",
                        "dw_wgrad_partial_kernel", "pw_wgrad_partial_kernel",
                        "sum_partials_kernel")
 
 # the device kernels of the main path whose share phase 6 prints, as the
-# profiler names them: K2 forward and K3 forward (one kernel each), K2
+# profiler names them: K1, K2 and K3 forward (one kernel each), K2
 # backward (csrc/sru_fused.cu)
 MAIN_KERNEL_GROUPS = {
+    "K1 forward": ("sru_lay0_fwd_kernel",),
     "K2 forward": ("sru_hid_fwd_kernel",),
     "K3 forward": ("convt1d_tm_fwd_kernel",),
     "K2 backward": ("sru_hid_bwd_", "sru_scan_bwd_kernel<2>"),
@@ -1575,7 +1640,9 @@ def train_packed(conf, rng, ref) -> tuple:
         raise AssertionError("no parameter changed in packed training")
     del systems[False]
     profile_step(systems[True], batches[0], gens[True], "packed training",
-                 also={"packed kernels": PACKED_KERNEL_NAMES})
+                 also={"packed kernels": PACKED_KERNEL_NAMES,
+                       "K6 pw_proj_packed": ("pw_proj_kernel",),
+                       "K1 forward": MAIN_KERNEL_GROUPS["K1 forward"]})
     return wgrads, launches
 
 
@@ -1810,7 +1877,7 @@ def main() -> int:
     conf_uni = parse_overrides(load_config(PRESET), list(UNI_OVERRIDES))
     k4, uni_served, uni_trained = phase("10 unidirectional", unidirectional,
                                         conf_uni, geo, rng)
-    phase("7b K8/K9 device time", profile_map_kernels, conf, rng)
+    phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
 
     sources = {
         "sru_dual_recurrence": ("rtfs_tpu_torch/csrc/sru_fused.cu",

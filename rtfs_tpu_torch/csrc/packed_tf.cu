@@ -25,19 +25,44 @@
 //
 // K6  pw_proj_packed_fwd      replaces _make_pw_proj_kernel
 //     (pallas_call in _pw_proj_impl): out[b, p, n] = bias[n] + sum_k
-//     x[b, k, p] w[k, n], p = t*F + f, rank-4 in, packed out.
+//     x[b, k, p] w[k, n], p = t*F + f, rank-4 in, packed out; also K7's
+//     dx. Bound on the H100: bytes (2*K*N flops per (K+N)*4 bytes, ~26 a
+//     byte at K 256, N 64; 3xTF32 at 495 / 3 TFLOP/s would bind above
+//     ~49). Design (pw_proj_kernel): the product on the tensor cores in
+//     3xTF32 (tf32x3.cuh), one persistent block an SM, W resident, x
+//     streamed. A block splits the (K, 64) slice of W of its N tile once
+//     into big and small halves in shared memory, in the order the B
+//     fragments are read (one 16-byte load a lane, no split in the loop),
+//     then walks the (batch row, 128 positions) tiles gridDim.x apart. x
+//     comes through a cp.async ring of kProjStages stages of (32 k rows x
+//     128 positions) in 16-byte blocks: a row of x starts anywhere (M =
+//     251 * 129 at the preset is odd), so each row is copied from the
+//     16-byte block that holds its first position and the A fragments
+//     read it at that offset; the loads of the next stages run while the
+//     warps multiply this one. 16 warps as 8 (positions) x 2 (channels),
+//     each a 16 x 32 tile of m16n8k8 products, with 4 warps a scheduler to
+//     hide the products' latency. The tensor core rounds its sums toward
+//     zero, so the big products are summed on it one stage (32 k) at a
+//     time and the stages' sums added in float32 on the SIMT units
+//     (hk::mma3_apart): summed on the tensor core over all of K, the
+//     outputs came out small enough to fail a packed step's gradient
+//     gate. The epilogue adds the bias and stages the (128, 64) tile in
+//     shared memory, so each packed row of 64 channels (256 bytes) is
+//     written as 16-byte chunks. Each output is summed by one warp in one
+//     fixed order: two calls give the same bits. W's split slice takes
+//     128 floats a k, so K is at most 256 (ops/packed_tf.pw_proj_geometry
+//     mirrors the grid and the shared memory, and refuses a larger K).
 // K7  pw_unproj_packed_fwd    replaces _make_pw_unproj_kernel
 //     (pallas_call in _pw_unproj_impl): out[b, n, p] = bias[n] + sum_k
-//     x[b, p, k] w[k, n], packed in, rank-4 out.
-//     Bound on the H100: float32 operations (2*K*N flops per (K+N)*4 bytes,
-//     ~26 flops a byte at K 256, N 64; no tensor cores: full float32 with
-//     TF32 off). Design: one template, a tiled product over M = T*F
-//     positions: a block owns 64 positions x 64 outputs, stages 16-deep
-//     slices of x and w in shared memory and each of its 256 threads keeps a
-//     4 x 4 register tile. The template parameter says which side is
-//     channel-planar (C, T*F) and which channel-innermost (T*F, C); it picks
-//     the loads' and the stores' order so both stay contiguous. w is read
-//     through its strides, so the caller passes a view of the torch weight.
+//     x[b, p, k] w[k, n], packed in, rank-4 out; also K6's dx.
+//     Bound on the H100: float32 operations (2*K*N flops per (K+N)*4
+//     bytes; no tensor cores: full float32 with TF32 off). Design
+//     (pw_unproj_kernel): a tiled product over M = T*F positions: a block
+//     owns 64 positions x 64 outputs, stages 16-deep slices of x and w in
+//     shared memory and each of its 256 threads keeps a 4 x 4 register
+//     tile; the loads run along x's channels and the stores along the
+//     output's positions, both contiguous. w is read through its strides,
+//     so the caller passes a view of the torch weight.
 //
 // K8  spatial_down_packed_fwd replaces _make_spatial_down_kernel
 //     (pallas_call in _spatial_down_impl): packed in, rank-4 out,
@@ -102,7 +127,7 @@
 //     over the B*T*F positions, one side channel-planar (B, C, M) and the
 //     other channel-innermost (B, M, C): K6's dW reads the rank-4 x and the
 //     packed g, K7's the packed x and the rank-4 g. Bound on the H100:
-//     float32 operations (2*Ca*Cb flops per (Ca+Cb)*4 bytes). Design: K6/K7's
+//     float32 operations (2*Ca*Cb flops per (Ca+Cb)*4 bytes). Design: K7's
 //     tiled product turned over: a block owns a 64 x 64 tile of dW and 1024
 //     positions of a batch row, stages 32-position slices of both sides in
 //     shared memory (loads in each side's contiguous order) and keeps a 4 x 4
@@ -111,12 +136,24 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kDwRows = 8;     // K5 output rows per block
 constexpr int kDwCols = 512;   // K5 output columns per block (whole f positions)
-constexpr int kBM = 64, kBN = 64, kBK = 16;  // K6/K7 tile
+constexpr int kBM = 64, kBN = 64, kBK = 16;  // K7 tile
+// K6 (ops/packed_tf.py mirrors them): kProjThreads threads a block, a
+// tile of kProjM positions x kProjN channels, kProjK rows of x a stage in
+// a ring of kProjStages; staged rows padded by kProjPad floats (a stride
+// of 8 mod 32 banks: the 8 g x 4 q lanes of a fragment read hit 32 banks)
+constexpr int kProjThreads = 512;  // 16 warps, each 16 positions x 32
+constexpr int kProjM = 128;
+constexpr int kProjN = 64;
+constexpr int kProjK = 32;
+constexpr int kProjStages = 3;
+constexpr int kProjPad = 8;
 constexpr int kMapPad = 4;     // K8/K9 tile: floats past round_up(C, 4) a row
 constexpr int kMapBlocks = 4;  // K8/K9 blocks an SM: at most 64 registers
 constexpr int kK8Items = 2;   // K8: chunks a thread loads at once
@@ -175,11 +212,10 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// grid (ceil(M / 64), ceil(N / 64), B), 256 threads. kProj (K6): x is
-// (B, K, M), out (B, M, N); otherwise (K7): x (B, M, K), out (B, N, M).
-template <bool kProj>
+// grid (ceil(M / 64), ceil(N / 64), B), 256 threads. x (B, M, K) packed,
+// out (B, N, M) rank-4.
 __global__ void __launch_bounds__(kThreads)
-pw_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
+pw_unproj_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ out,
                  int M, int K, int N, int wsk, int wsn) {
   __shared__ float a_s[kBK][kBM + 1];
@@ -189,7 +225,7 @@ pw_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const float* xb = x + (long long)blockIdx.z * M * K;
   float* ob = out + (long long)blockIdx.z * M * N;
   // the thread's rows and columns: the store's contiguous side on tx
-  const int mb = kProj ? ty : tx, nb = kProj ? tx : ty;
+  const int mb = tx, nb = ty;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -198,13 +234,9 @@ pw_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
     for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int mm = kProj ? e % kBM : e / kBK;
-      const int kk = kProj ? e / kBM : e % kBK;
+      const int mm = e / kBK, kk = e % kBK;
       const int m = m0 + mm, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < K)
-        v = kProj ? xb[(long long)k * M + m] : xb[(long long)m * K + k];
-      a_s[kk][mm] = v;
+      a_s[kk][mm] = m < M && k < K ? xb[(long long)m * K + k] : 0.f;
     }
     for (int e = tid; e < kBK * kBN; e += kThreads) {
       const int nn = e % kBN, kk = e / kBN;
@@ -236,11 +268,7 @@ pw_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + nb + 16 * j;
       if (n >= N) continue;
-      const float v = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
-      if (kProj)
-        ob[(long long)m * N + n] = v;
-      else
-        ob[(long long)n * M + m] = v;
+      ob[(long long)n * M + m] = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
     }
   }
 }
@@ -276,6 +304,246 @@ __device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+__host__ __device__ __forceinline__ int round_up(int a, int m) {
+  return (a + m - 1) / m * m;
+}
+
+// K6's shared floats for a reduction depth K: W's slice split into big
+// and small halves in B-fragment order (K padded to whole stages, 128
+// floats a k), the ring, the output tile (ops/packed_tf.pw_proj_smem)
+__host__ __device__ __forceinline__ int proj_smem_floats(int K) {
+  return round_up(K, kProjK) * 2 * kProjN +
+         kProjStages * kProjK * (kProjM + kProjPad) +
+         kProjM * (kProjN + kProjPad);
+}
+
+// A place in a K6 block's sequence of stages: the tile (its batch row b
+// and first position m0), the k stage within it and the ring slot. Stage
+// s + 1 follows s: the next k stage, or the block's next tile (gridDim.x
+// tiles on); the slot goes round the ring.
+struct ProjCursor {
+  int b, mt, kst, slot;  // mt: the tile's index among its row's M tiles
+  __device__ __forceinline__ void next(int ks, int m_tiles) {
+    if (++slot == kProjStages) slot = 0;
+    if (++kst < ks) return;
+    kst = 0;
+    mt += gridDim.x;
+    b += mt / m_tiles;
+    mt %= m_tiles;
+  }
+};
+
+// grid (blocks, ceil(N / kProjN)), kProjThreads threads, one block an SM.
+// x (B, K, M), w (K, N) through its strides, out (B, M, N). Block (x, y)
+// keeps W[:, n0 .. n0 + kProjN) and walks the tiles x, x + gridDim.x, ...
+// of the B * ceil(M / kProjM) (batch row, positions) tiles. Its stages
+// run in one sequence over its tiles (ProjCursor): stage s is k rows
+// kst * kProjK .. of its tile, in ring slot s % kProjStages; iteration s
+// waits for stage s, issues stage s + kProjStages - 1 into the slot
+// iteration s - 1 read, then multiplies stage s.
+//
+// W's slice is split once, as the block starts: entry e = (k step, n8
+// tile, lane) of w4 holds the lane's B fragment of that step and tile,
+// (b0, b1) big then small, so a warp reads a fragment in one 16-byte load
+// a lane with no split. A row of x starts anywhere (M = 251 * 129 at the
+// preset is odd): a stage copies each k row's 128 positions as the 33
+// 16-byte blocks that hold them, from the block of the first, so the row
+// lands shifted by the first's offset in it, 0-3 floats, the same for
+// rows 4 apart (4 M is a multiple of 4). A thread copies the same (row,
+// block) pairs every stage. The big products' sums are added to acc once
+// a stage (hk::mma3_apart).
+__global__ void __launch_bounds__(kProjThreads, 1)
+pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, float* __restrict__ out,
+               int B, int M, int K, int N, int wsk, int wsn) {
+  constexpr int WS = kProjN + kProjPad, XS = kProjM + kProjPad;
+  constexpr int kChunks = kProjM / 4 + 1;  // 16-byte blocks a staged row
+  constexpr int kCopies =
+      (kProjK * kChunks + kProjThreads - 1) / kProjThreads;
+  static_assert(4 * kChunks <= XS, "a staged row holds its blocks");
+  extern __shared__ float4 smem4[];
+  const int kp = round_up(K, kProjK), ks = kp / kProjK;
+  const int w_entries = kp / 8 * (kProjN / 8) * 32;
+  float4* w4 = smem4;  // (kp / 8, kProjN / 8, 32 lanes): B fragments
+  float* x_s = reinterpret_cast<float*>(w4 + w_entries);
+  float* o_s = x_s + kProjStages * kProjK * XS;  // (kProjM, WS): out[m][n]
+  const int tid = threadIdx.x, n0 = blockIdx.y * kProjN;
+  const int m_tiles = (M + kProjM - 1) / kProjM, tiles = B * m_tiles;
+  const int my_tiles =
+      (int)blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * ks;
+  // x's float index mod 4 at row 0, position 0: with a row's start, its
+  // shift in the slot
+  const uint32_t x4 = (uint32_t)(reinterpret_cast<uintptr_t>(x) >> 2);
+
+  // the ring zeroed: the rows past K and the positions past M that no
+  // copy reaches read 0 or a stale x value, never a NaN
+  for (int e = tid; e < kProjStages * kProjK * XS; e += kProjThreads)
+    x_s[e] = 0.f;
+  __syncthreads();
+  // the thread's copies of a stage: (row r, block c) = divmod(tid + i *
+  // kProjThreads, kChunks); its offsets in x from the row's start and in
+  // the slot
+  int cr[kCopies];
+  long long c_src[kCopies];
+  int c_dst[kCopies];
+#pragma unroll
+  for (int i = 0; i < kCopies; ++i) {
+    const int e = tid + i * kProjThreads;
+    cr[i] = e < kProjK * kChunks ? e / kChunks : 1 << 30;  // past any K
+    c_src[i] = (long long)cr[i] * M;
+    c_dst[i] = cr[i] * XS + 4 * (e % kChunks);
+  }
+  // the stage at `at` into its slot, one commit group (empty past the
+  // block's last stage)
+  ProjCursor ld{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
+  auto load_stage = [&](int s, const ProjCursor& at) {
+    if (s < total) {
+      float* dst = x_s + at.slot * kProjK * XS;
+      const int k0 = at.kst * kProjK, m0 = at.mt * kProjM;
+      const int span = min(kProjM, M - m0);  // needed positions a row
+      const float* base = x + ((long long)at.b * K + k0) * M + m0;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        if (k0 + cr[i] >= K) continue;
+        const float* p = base + c_src[i];  // the row's position m0
+        const float* src =
+            reinterpret_cast<const float*>(
+                reinterpret_cast<uintptr_t>(p) & ~uintptr_t(15)) +
+            (c_dst[i] - cr[i] * XS);
+        // a block holding a needed position; the last may reach past
+        // x's end into the same 16-byte block
+        if (src < p + span) hk::cp_async16(dst + c_dst[i], src, true);
+      }
+    }
+    hk::cp_async_commit();
+  };
+  for (int s = 0; s < kProjStages - 1; ++s) {
+    load_stage(s, ld);
+    ld.next(ks, m_tiles);
+  }
+
+  // W's slice split into B fragments: entry e = (k step, n8 tile, lane
+  // (g, q)) holds W[k][n], W[k + 4][n], k = 8 step + q, n = n0 + 8 tile + g;
+  // unrolled so that a thread's loads (16 entries at K 256) are in flight
+  // together
+#pragma unroll 16
+  for (int e = tid; e < w_entries; e += kProjThreads) {
+    const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
+    const int k = (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
+    const int n = n0 + 8 * tile8 + (lane >> 2);
+    float v[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      v[h] = k + 4 * h < K && n < N
+                 ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
+                 : 0.f;
+    uint32_t big[2], small[2];
+    hk::split(v[0], big[0], small[0]);
+    hk::split(v[1], big[1], small[1]);
+    w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                        __uint_as_float(small[0]), __uint_as_float(small[1]));
+  }
+
+  // the warp's 16 x 32 tile: positions wm * 16 .., channels wn * 32 ..;
+  // the lane's bias for its accumulators' columns
+  const int warp = tid >> 5, wm = warp & 7, wn = warp >> 3;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  float bias_r[4][2];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int n = n0 + wn * 32 + nb * 8 + 2 * q + v;
+      bias_r[nb][v] = bias != nullptr && n < N ? bias[n] : 0.f;
+    }
+  // acc: the float32 sum of the stages' big products (part, on the tensor
+  // core a stage); corr: the cross terms, on the tensor core throughout
+  float acc[1][4][4], part[1][4][4], corr[1][4][4];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      acc[0][nb][v] = part[0][nb][v] = corr[0][nb][v] = 0.f;
+
+  // the tile's sums + bias through o_s to out, 16-byte chunks of the
+  // packed rows; the sums back to 0
+  const bool vec_out = (N & 3) == 0 && aligned16(out);
+  auto epilogue = [&](const ProjCursor& at) {
+    // D: c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      float* o = o_s + (wm * 16 + g) * WS + wn * 32 + nb * 8 + 2 * q;
+      float v4[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        v4[v] = acc[0][nb][v] + corr[0][nb][v] + bias_r[nb][v & 1];
+        acc[0][nb][v] = corr[0][nb][v] = 0.f;
+      }
+      *reinterpret_cast<float2*>(o) = make_float2(v4[0], v4[1]);
+      *reinterpret_cast<float2*>(o + 8 * WS) = make_float2(v4[2], v4[3]);
+    }
+    __syncthreads();
+    const int m0 = at.mt * kProjM;
+    float* ob = out + ((long long)at.b * M + m0) * N + n0;
+    for (int e = tid; e < kProjM * kProjN / 4; e += kProjThreads) {
+      const int r = e / (kProjN / 4), c = 4 * (e % (kProjN / 4));
+      if (m0 + r >= M || n0 + c >= N) continue;
+      store_chunk(ob + (long long)r * N + c,
+                  *reinterpret_cast<const float4*>(o_s + r * WS + c),
+                  N - n0 - c, vec_out);
+    }
+    // the next write of o_s comes after the next stage's barrier
+  };
+
+  // the lane's A fragment elements (x[k][m]): rows q, q+4 and columns g,
+  // g+8 of the warp's m16 tile, each row shifted as it landed
+  const float* xl = x_s + q * XS + wm * 16 + g;
+  const float4* wl = w4 + wn * 4 * 32 + (tid & 31);
+  ProjCursor at{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
+  for (int s = 0; s < total; ++s) {
+    hk::cp_async_wait<kProjStages - 2>();
+    __syncthreads();  // stage s (and W's split) is in; every warp is done
+                      // with stage s - 1
+    load_stage(s + kProjStages - 1, ld);
+    ld.next(ks, m_tiles);
+    const int k0 = at.kst * kProjK;
+    const uint32_t shift = (x4 + (uint32_t)(at.b * K + k0 + q) * (uint32_t)M +
+                            (uint32_t)(at.mt * kProjM)) & 3u;
+    const float* xa = xl + at.slot * kProjK * XS + shift;
+    const float4* wb = wl + at.kst * (kProjK / 8) * (kProjN / 8) * 32;
+#pragma unroll
+    for (int kk = 0; kk < kProjK; kk += 8) {
+      hk::FragA a[1];
+      hk::FragB b[4];
+      const float* p = xa + kk * XS;
+      hk::split(p[0], a[0].big[0], a[0].small[0]);
+      hk::split(p[8], a[0].big[1], a[0].small[1]);
+      hk::split(p[4 * XS], a[0].big[2], a[0].small[2]);
+      hk::split(p[4 * XS + 8], a[0].big[3], a[0].small[3]);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float4 f = wb[(kk / 8 * (kProjN / 8) + nb) * 32];
+        b[nb].big[0] = __float_as_uint(f.x);
+        b[nb].big[1] = __float_as_uint(f.y);
+        b[nb].small[0] = __float_as_uint(f.z);
+        b[nb].small[1] = __float_as_uint(f.w);
+      }
+      hk::mma3_apart(part, corr, a, b);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        acc[0][nb][v] += part[0][nb][v];
+        part[0][nb][v] = 0.f;
+      }
+    if (at.kst == ks - 1) epilogue(at);
+    at.next(ks, m_tiles);
+  }
+  hk::cp_async_wait_all();
 }
 
 // item e of a (rows, chunks) walk over a channels-first side, in groups of
@@ -664,16 +932,10 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 
 bool grid_ok(long long y, long long z) { return y < 65536 && z < 65536; }
 
-template <bool kProj>
-int launch_pw(const void* x, const void* w, const void* bias, void* out,
-              int B, int M, int K, int N, int wsk, int wsn, void* stream) {
-  if (B < 1 || M < 1 || K < 1 || N < 1 || !grid_ok((N + kBN - 1) / kBN, B))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, B);
-  pw_packed_kernel<kProj><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias, (float*)out, M, K,
-      N, wsk, wsn);
-  return (int)cudaGetLastError();
+// the tiles of K6 (B * ceil(M / kProjM)), or -1 past the int range
+long long proj_tiles(int B, int M) {
+  const long long t = (long long)B * ((M + kProjM - 1) / kProjM);
+  return t < (1LL << 31) ? t : -1;
 }
 
 // K8/K9's instantiation for a map of NT and NF terms a row: the counts as
@@ -718,12 +980,25 @@ extern "C" int dw_conv_packed_fwd(const void* x, const void* w,
   return (int)cudaGetLastError();
 }
 
-// x (B, K, M) rank-4 with M = T*F, w (K, N) through strides, out (B, M, N)
+// x (B, K, M) rank-4 with M = T*F, w (K, N) through strides, out (B, M, N);
+// blocks: the persistent blocks of an N tile, at most the tiles
+// (ops/packed_tf.pw_proj_geometry)
 extern "C" int pw_proj_packed_fwd(const void* x, const void* w,
                                   const void* bias, void* out, int B, int M,
-                                  int K, int N, int wsk, int wsn,
+                                  int K, int N, int wsk, int wsn, int blocks,
                                   void* stream) {
-  return launch_pw<true>(x, w, bias, out, B, M, K, N, wsk, wsn, stream);
+  const long long tiles = B < 1 || M < 1 ? 0 : proj_tiles(B, M);
+  if (tiles < 1 || K < 1 || N < 1 || blocks < 1 || blocks > tiles ||
+      !grid_ok((N + kProjN - 1) / kProjN, 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)proj_smem_floats(K) * sizeof(float);
+  cudaError_t e = allow_smem((const void*)pw_proj_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  pw_proj_kernel<<<dim3(blocks, (N + kProjN - 1) / kProjN), kProjThreads, smem,
+                   (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, (const float*)bias, (float*)out, B, M,
+      K, N, wsk, wsn);
+  return (int)cudaGetLastError();
 }
 
 // x (B, M, K) packed, w (K, N) through strides, out (B, N, M) rank-4
@@ -731,7 +1006,13 @@ extern "C" int pw_unproj_packed_fwd(const void* x, const void* w,
                                     const void* bias, void* out, int B, int M,
                                     int K, int N, int wsk, int wsn,
                                     void* stream) {
-  return launch_pw<false>(x, w, bias, out, B, M, K, N, wsk, wsn, stream);
+  if (B < 1 || M < 1 || K < 1 || N < 1 || !grid_ok((N + kBN - 1) / kBN, B))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, B);
+  pw_unproj_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, (const float*)bias, (float*)out, M, K,
+      N, wsk, wsn);
+  return (int)cudaGetLastError();
 }
 
 // maps: ts/tw (T_out, NT), fs/fw (F_out, NF), int32 / float32

@@ -45,10 +45,16 @@
 // bound by memory bytes; in practice by latency, because each thread walks
 // T dependent steps and the launch has only 2*H*B threads. The design
 // keeps c (dc) in a register and makes neighbouring threads read
-// neighbouring batch columns (coalesced); the forward unrolls the time
-// loop, and the backward scan issues the loads of kScanAhead steps
-// together before the adjoint chain runs over them (none of them depends
-// on the chain), so many loads are in flight per thread. K2 does 2*3H*2H
+// neighbouring batch columns (coalesced). None of the loads depends on
+// the chain: the forward keeps the cp.async copies of the next kLay0Ahead
+// steps in flight, refilling a ring in shared memory as the chain empties
+// it, so a step costs the chain's latency (two dependent sigmoid_f, ~275
+// ns), not a load's; its blocks (columns x units,
+// ops/sru_fused.k1_fwd_geometry) are as small as it takes to spread the
+// grid over the SMs, so that at bs 1 the few threads run on many SMs and
+// no block is half idle. The backward scan issues the loads of kScanAhead
+// steps together before the adjoint chain runs over them, so many loads
+// are in flight per thread. K2 does 2*3H*2H
 // flops per column, step and direction for ~16H bytes, so by the roofline
 // it is bound by operations. The projection's input is the previous
 // layer's output, complete before the launch, so only c is sequential:
@@ -110,6 +116,9 @@ namespace {
 constexpr int kLay0Threads = 128;
 // backward scans: steps whose loads are issued together
 constexpr int kScanAhead = 8;
+// K1 forward (ops/sru_fused.py mirrors it): steps whose copies are in
+// flight ahead of the recurrence (8 was as fast as 16 and 24)
+constexpr int kLay0Ahead = 8;
 // K2 backward products (ops/sru_fused.py mirrors them): tiles of kTile x
 // kTile outputs, kGemmThreads threads of 4 x 4; kStage reduction rows a
 // stage of U and dx, kWgCols (t, b) columns a stage of dW
@@ -141,19 +150,28 @@ __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }
 
-// grid (ceil(B / blockDim.x), H, 2), one thread per (column, unit, dir).
-__global__ void sru_lay0_fwd_kernel(const float* __restrict__ u_f,
-                                    const float* __restrict__ u_r,
-                                    const float* __restrict__ vb,
-                                    float* __restrict__ h_f,
-                                    float* __restrict__ h_r,
-                                    float* __restrict__ c_f,
-                                    float* __restrict__ c_r,
-                                    int T, int H, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
+// grid (ceil(B / cols), ceil(H / units), 2), cols * units threads, cols a
+// multiple of 32 (ops/sru_fused.k1_fwd_geometry): thread (column b0 + tid
+// % cols, unit j0 + tid / cols, direction blockIdx.z). The step loads go
+// through a ring of kLay0Ahead slots in shared memory, each thread its own
+// column of it (no thread reads another's, so no barrier): the thread
+// keeps the cp.async copies of the next kLay0Ahead steps in flight, one
+// commit group a step, waits for step i's group, takes its four values and
+// issues step i + kLay0Ahead into the slot they came from. The same ring
+// held in registers (plain loads kLay0Ahead steps ahead) was slower at
+// bs 8 at every depth tried; cp.async's groups track the copies' arrival
+// without holding registers.
+__global__ void __launch_bounds__(kLay0Threads)
+sru_lay0_fwd_kernel(const float* __restrict__ u_f,
+                    const float* __restrict__ u_r,
+                    const float* __restrict__ vb, float* __restrict__ h_f,
+                    float* __restrict__ h_r, float* __restrict__ c_f,
+                    float* __restrict__ c_r, int T, int H, int B, int cols) {
+  extern __shared__ float ring[];  // (kLay0Ahead, 4, blockDim.x)
+  const int b = blockIdx.x * cols + threadIdx.x % cols;
+  const int j = blockIdx.y * (blockDim.x / cols) + threadIdx.x / cols;
   const int dir = blockIdx.z;
-  if (b >= B) return;
+  if (b >= B || j >= H) return;
   const float* u = dir == 0 ? u_f : u_r;
   float* h = dir == 0 ? h_f : h_r;
   float* cs = dir == 0 ? c_f : c_r;  // null when serving
@@ -163,18 +181,34 @@ __global__ void sru_lay0_fwd_kernel(const float* __restrict__ u_f,
   const float b_r = vb[(dir * 4 + 3) * H + j];
   const long long row = (long long)H * B;  // one gate block per step
   const long long col = (long long)j * B + b;
+  const int nt = blockDim.x;
+  float* mine = ring + threadIdx.x;  // slot s, gate row g: mine[(4 s + g) nt]
+  // scan step i (t = i forward, T-1-i reverse) into slot i % kLay0Ahead,
+  // one commit group (empty past T)
+  auto issue = [&](int i) {
+    if (i < T) {
+      const int t = dir == 0 ? i : T - 1 - i;
+      const float* ut = u + (long long)t * 4 * row + col;
+      float* d = mine + (i % kLay0Ahead) * 4 * nt;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) hk::cp_async4(d + g * nt, ut + g * row, true);
+    }
+    hk::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kLay0Ahead; ++i) issue(i);
   float c = 0.f;
-#pragma unroll 4
   for (int i = 0; i < T; ++i) {
+    hk::cp_async_wait<kLay0Ahead - 1>();  // step i's group is in
+    const float* d = mine + (i % kLay0Ahead) * 4 * nt;
+    const float a0 = d[0], a1 = d[nt], a2 = d[2 * nt], hw = d[3 * nt];
     const int t = dir == 0 ? i : T - 1 - i;
-    const float* ut = u + (long long)t * 4 * row + col;
-    const float u0 = ut[0], u1 = ut[row], u2 = ut[2 * row];
-    const float xhw = ut[3 * row];
-    const float f = sigmoid_f(u1 + v_f * c + b_f);
-    c = f * c + (1.f - f) * u0;
-    const float r = sigmoid_f(u2 + v_r * c + b_r);
-    h[(long long)t * row + col] = r * c + (1.f - r) * xhw;
+    const float f = sigmoid_f(a1 + v_f * c + b_f);
+    c = f * c + (1.f - f) * a0;
+    const float r = sigmoid_f(a2 + v_r * c + b_r);
+    h[(long long)t * row + col] = r * c + (1.f - r) * hw;
     if (cs) cs[(long long)t * row + col] = c;
+    issue(i + kLay0Ahead);  // into the slot just read (its values used)
   }
 }
 
@@ -696,14 +730,22 @@ int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 }  // namespace
 
+// cols x units threads a block (ops/sru_fused.k1_fwd_geometry)
 extern "C" int sru_dual_recurrence_fwd(const void* u_f, const void* u_r,
                                        const void* vb, void* h_f, void* h_r,
                                        void* c_f, void* c_r, int T, int H,
-                                       int B, void* stream) {
-  dim3 grid((B + kLay0Threads - 1) / kLay0Threads, H, 2);
-  sru_lay0_fwd_kernel<<<grid, kLay0Threads, 0, (cudaStream_t)stream>>>(
+                                       int B, int cols, int units,
+                                       void* stream) {
+  if (T < 1 || H < 1 || B < 1 || cols < 32 || cols % 32 != 0 || units < 1 ||
+      cols * units > kLay0Threads)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(ceil_div(B, cols), ceil_div(H, units), 2);
+  const size_t smem = (size_t)kLay0Ahead * 4 * cols * units * sizeof(float);
+  const cudaError_t e = set_smem((const void*)sru_lay0_fwd_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sru_lay0_fwd_kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
       (const float*)u_f, (const float*)u_r, (const float*)vb, (float*)h_f,
-      (float*)h_r, (float*)c_f, (float*)c_r, T, H, B);
+      (float*)h_r, (float*)c_f, (float*)c_r, T, H, B, cols);
   return (int)cudaGetLastError();
 }
 

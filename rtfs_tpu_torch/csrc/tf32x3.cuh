@@ -97,6 +97,37 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a,
   mma_tf32(acc, a.big, b.big);
 }
 
+// 3xTF32 with the big products kept apart, for every tile pair: corr[i][j]
+// += a_small b_big + a_big b_small, big[i][j] += a_big b_big, issued pass
+// by pass over the pairs so that consecutive mma.sync write different
+// accumulators (a dependent one waits ~25 cycles for the last). Why apart:
+// the tensor core rounds its sums toward zero, so a float32 sum kept in
+// its accumulator over a long K drifts toward zero by up to an ulp a step,
+// and every output comes out slightly small (a bias that a later sum over
+// many outputs, a weight gradient, adds up: 25x the float32 error on one
+// packed weight gradient at K 256). The caller adds big to a float32 sum
+// on the SIMT units, which round to nearest, every few k steps, and
+// zeroes it; corr, 2^-11 of the sum, drifts below float32's rounding of
+// it and is added once at the end.
+template <int MI, int NJ>
+__device__ __forceinline__ void mma3_apart(float (&big)[MI][NJ][4],
+                                           float (&corr)[MI][NJ][4],
+                                           const FragA (&a)[MI],
+                                           const FragB (&b)[NJ]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(corr[i][j], a[i].small, b[j].big);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(corr[i][j], a[i].big, b[j].small);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(big[i][j], a[i].big, b[j].big);
+}
+
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_q() { return threadIdx.x & 3; }
 
@@ -124,6 +155,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// wait until at most N of the committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace hk

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # for their per-block partials, which the wrapper allocates.
 _SIGNATURES = {
     "sru_fused": {
-        "sru_dual_recurrence_fwd": (7, 3),
+        "sru_dual_recurrence_fwd": (7, 5),
         "sru_dual_recurrence_bwd": (10, 3),
         "sru_hidden_layer_fwd": (8, 5),
         "sru_hidden_layer_bwd": (15, 4),
@@ -49,7 +49,7 @@ _SIGNATURES = {
     },
     "packed_tf": {
         "dw_conv_packed_fwd": (4, 13),
-        "pw_proj_packed_fwd": (4, 6),
+        "pw_proj_packed_fwd": (4, 7),
         "pw_unproj_packed_fwd": (4, 6),
         "spatial_down_packed_fwd": (6, 8),
         "spatial_up_packed_fwd": (7, 9),

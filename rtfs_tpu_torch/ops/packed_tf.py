@@ -11,7 +11,8 @@ the JAX package's packed path runs through these ops.
 - ``dw_conv_packed`` (K5): depthwise kT x kF conv, packed -> packed,
   stride 1, static (lo, hi) pads; CUDA ``dw_conv_packed_fwd``.
 - ``pw_proj_packed`` (K6): 1x1 dense conv, rank-4 -> packed, + bias; CUDA
-  ``pw_proj_packed_fwd``.
+  ``pw_proj_packed_fwd``, a 3xTF32 tensor-core product with W resident
+  and x streamed (``pw_proj_geometry``; K at most 256).
 - ``pw_unproj_packed`` (K7): 1x1 dense conv, packed -> rank-4, + bias;
   CUDA ``pw_unproj_packed_fwd``.
 - ``spatial_down_packed`` (K8): separable static map, packed -> rank-4
@@ -307,22 +308,71 @@ def pw_packed_wgrad(a, g):
     return out
 
 
-def _pw_launch(fn, x, w, bias, m, k, n, out):
-    kernel_lib.launch(
-        "packed_tf", fn, x.device, x.data_ptr(), w.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        x.shape[0], m, k, n, *w.stride())
-    return out
+# K6's kernel, ``kProj*`` in csrc/packed_tf.cu: PROJ_THREADS threads a
+# block; tiles of PROJ_M positions x PROJ_N output channels; x staged
+# PROJ_K reduction rows a stage in a ring of PROJ_STAGES, a staged row
+# padded by PROJ_PAD floats
+PROJ_THREADS = 512
+PROJ_M, PROJ_N, PROJ_K = 128, 64, 32
+PROJ_STAGES = 3
+PROJ_PAD = 8
+
+
+def pw_proj_smem(k: int) -> int:
+    """K6's shared bytes for a reduction depth ``k`` (``proj_smem_floats``
+    in the source): the slice of W, round_up(k, PROJ_K) rows of PROJ_N
+    channels split into big and small halves (2 PROJ_N floats a k), the
+    ring of (PROJ_K, PROJ_M + PROJ_PAD) stages and the (PROJ_M, PROJ_N +
+    PROJ_PAD) output tile."""
+    kp = -(-k // PROJ_K) * PROJ_K
+    return 4 * (kp * 2 * PROJ_N
+                + PROJ_STAGES * PROJ_K * (PROJ_M + PROJ_PAD)
+                + PROJ_M * (PROJ_N + PROJ_PAD))
+
+
+@functools.lru_cache(maxsize=None)
+def pw_proj_geometry(b: int, m: int, k: int, n: int) -> dict:
+    """K6's launch, as ``pw_proj_packed_fwd`` runs it for x (b, k, m) and
+    w (k, n): ``tiles`` = b * ceil(m / PROJ_M) (batch row, positions)
+    tiles; ``blocks`` persistent blocks an N tile (one an SM, at most the
+    tiles), block x walking the tiles x, x + blocks, ...; ``grid`` (blocks,
+    ceil(n / PROJ_N)); ``stages`` k stages a tile; ``smem`` a block's
+    shared bytes. Raises ValueError when W's split slice does not fit one
+    block's shared memory (k above 256)."""
+    if min(b, m, k, n) < 1:
+        raise ValueError(f"pw_proj_packed: B {b}, M {m}, K {k}, N {n}")
+    smem = pw_proj_smem(k)
+    if smem > kernel_lib.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"pw_proj_packed: K {k} needs {smem} bytes of shared memory a "
+            f"block, more than {kernel_lib.SMEM_PER_BLOCK}")
+    tiles = b * -(-m // PROJ_M)
+    blocks = min(tiles, kernel_lib.SMS)
+    return {"tiles": tiles, "blocks": blocks,
+            "grid": (blocks, -(-n // PROJ_N)), "stages": -(-k // PROJ_K),
+            "smem": smem}
+
+
+def pw_proj_launch_ints(x4, w) -> tuple:
+    """The ints of K6's launch on x4 (B, K, T, F) and w (K, N): B, M, K,
+    N, w's strides and the blocks of ``pw_proj_geometry``."""
+    b, k, t, f = x4.shape
+    n = w.shape[1]
+    geo = pw_proj_geometry(b, t * f, k, n)
+    return (b, t * f, k, n, *w.stride(), geo["blocks"])
 
 
 def _proj_forward(x4, w, bias):
     if x4.device.type == "cpu":
         return pw_proj_packed_plain(x4, w, bias)
     _check_cuda("pw_proj_packed", x4, w, bias)
-    b, ci, t, f = x4.shape
-    co = w.shape[1]
-    out = torch.empty(b, t, f * co, device=x4.device)
-    return _pw_launch("pw_proj_packed_fwd", x4, w, bias, t * f, ci, co, out)
+    b, _, t, f = x4.shape
+    out = torch.empty(b, t, f * w.shape[1], device=x4.device)
+    kernel_lib.launch(
+        "packed_tf", "pw_proj_packed_fwd", x4.device, x4.data_ptr(),
+        w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), *pw_proj_launch_ints(x4, w))
+    return out
 
 
 def _unproj_forward(xp, w, bias, f):
@@ -332,7 +382,11 @@ def _unproj_forward(xp, w, bias, f):
     b, t, _ = xp.shape
     ci, co = w.shape
     out = torch.empty(b, co, t, f, device=xp.device)
-    return _pw_launch("pw_unproj_packed_fwd", xp, w, bias, t * f, ci, co, out)
+    kernel_lib.launch(
+        "packed_tf", "pw_unproj_packed_fwd", xp.device, xp.data_ptr(),
+        w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), b, t * f, ci, co, *w.stride())
+    return out
 
 
 class _PwProj(torch.autograd.Function):

@@ -4,7 +4,9 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
 
 - ``sru_dual_recurrence`` (K1): the layer-0 recurrence of both directions
   over a precomputed U = [x~, f, r, highway]; CUDA kernels
-  ``csrc/sru_fused.cu:sru_dual_recurrence_fwd`` and ``..._bwd``.
+  ``csrc/sru_fused.cu:sru_dual_recurrence_fwd`` (its loads kept
+  LAY0_AHEAD steps ahead of the chain through a cp.async ring, blocks
+  from ``k1_fwd_geometry``) and ``..._bwd``.
 - ``sru_hidden_layer`` (K2): one hidden layer (k = 3, highway = input); the
   forward kernel projects U = W^T [h_f; h_r] a chunk of steps at a time on
   the tensor cores (3xTF32) into shared memory and scans the chunk from
@@ -27,14 +29,20 @@ a CUDA tensor the kernels launch or the call raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import kernel_lib
 
 # K1 block size and K2's scan's, ``kLay0Threads`` in csrc/sru_fused.cu:
-# each backward scan writes one dvb partial a block
+# each backward scan writes one dvb partial a block; the K1 forward's
+# blocks are at most this size (``k1_fwd_geometry``)
 LAY0_THREADS = 128
+# ``kLay0Ahead``: steps whose loads the K1 forward keeps in flight ahead
+# of its recurrence, each thread in its own ring of shared memory
+LAY0_AHEAD = 8
 
 
 def vb_pack(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -138,6 +146,32 @@ def sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
             torch.cat([dvb_f, dvb_r]))
 
 
+@functools.lru_cache(maxsize=None)
+def k1_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+    """K1 forward's launch geometry, as ``sru_dual_recurrence_fwd``
+    launches it: blocks of ``cols`` batch columns x ``units`` units (one
+    thread each, both directions in the grid's z), ``cols`` a multiple of
+    32 and at most LAY0_THREADS threads a block. Each thread walks its
+    T steps with the copies of the next LAY0_AHEAD steps in flight in its
+    own ring of shared memory (``smem`` bytes a block). The block is the
+    largest of 128, 64, 32 threads whose grid has at least one block an
+    SM, or 32 threads where none does: the few threads of a small batch
+    (4,096 at the bs-1 time site) spread over many SMs, and ``cols`` =
+    min(threads, round_up(B, 32)) leaves no block more than half idle
+    where B >= 32."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_dual_recurrence: T {t_len}, H {hdim}, "
+                         f"B {bsz}")
+    for threads in (LAY0_THREADS, LAY0_THREADS // 2, 32):
+        cols = min(threads, _round_up(bsz, 32))
+        units = threads // cols
+        grid = (-(-bsz // cols), -(-hdim // units), 2)
+        if grid[0] * grid[1] * grid[2] >= kernel_lib.SMS:
+            break
+    return {"cols": cols, "units": units, "grid": grid,
+            "ahead": LAY0_AHEAD, "smem": 4 * LAY0_AHEAD * 4 * cols * units}
+
+
 def _k1_forward(u_f, u_r, vb, with_c):
     if u_f.device.type == "cpu":
         return sru_dual_recurrence_plain(u_f, u_r, vb, with_c)
@@ -145,6 +179,7 @@ def _k1_forward(u_f, u_r, vb, with_c):
     t_len, gh, bsz = u_f.shape
     if min(u_f.shape) == 0:
         raise ValueError("sru_dual_recurrence: empty input")
+    geo = k1_fwd_geometry(t_len, gh // 4, bsz)
     outs = [torch.empty(t_len, gh // 4, bsz, device=u_f.device)
             for _ in range(4 if with_c else 2)]
     c_ptrs = ((outs[2].data_ptr(), outs[3].data_ptr()) if with_c
@@ -152,7 +187,8 @@ def _k1_forward(u_f, u_r, vb, with_c):
     kernel_lib.launch(
         "sru_fused", "sru_dual_recurrence_fwd", u_f.device,
         u_f.data_ptr(), u_r.data_ptr(), vb.data_ptr(), outs[0].data_ptr(),
-        outs[1].data_ptr(), *c_ptrs, t_len, gh // 4, bsz,
+        outs[1].data_ptr(), *c_ptrs, t_len, gh // 4, bsz, geo["cols"],
+        geo["units"],
     )
     return tuple(outs)
 

@@ -37,16 +37,21 @@ def _t(rng, shape, dev, scale=1.0):
     (21, 8, 5), (57, 32, 125), (3, 32, 300), (118, 32, 64), (57, 32, 1000),
     (118, 32, 512), (1, 32, 77), (37, 32, 131), (23, 48, 131), (19, 64, 50)])
 def test_k1_k2_match_plain(dev, t_len, h, bsz):
-    """K1 and K2 forward (serving, and K2 with c) against their plain
-    versions; two K2 calls give the same bits."""
+    """K1 and K2 forward (serving, and with c) against their plain
+    versions; two calls of each give the same bits."""
     from rtfs_tpu_torch.ops import sru_fused as S
 
     rng = np.random.default_rng(0)
     vb = _t(rng, (8, h), dev, 0.3)
     u_f, u_r = _t(rng, (t_len, 4 * h, bsz), dev), _t(rng, (t_len, 4 * h, bsz), dev)
-    for g, w in zip(S.sru_dual_recurrence(u_f, u_r, vb),
-                    S.sru_dual_recurrence_plain(u_f, u_r, vb)):
+    k1 = S.sru_dual_recurrence(u_f, u_r, vb)
+    for g, w in zip(k1, S.sru_dual_recurrence_plain(u_f, u_r, vb)):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    k1_c = S._k1_forward(u_f, u_r, vb, with_c=True)
+    for g, w in zip(k1_c, S.sru_dual_recurrence_plain(u_f, u_r, vb, True)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    for a, b in zip(k1 + k1_c[:2], S.sru_dual_recurrence(u_f, u_r, vb) * 2):
+        assert torch.equal(a, b)  # c written or not, the same h
     x_f, x_r = _t(rng, (t_len, h, bsz), dev, 0.5), _t(rng, (t_len, h, bsz), dev, 0.5)
     wt = _t(rng, (6 * h, 2 * h), dev, 0.2)
     got = S.sru_hidden_layer(x_f, x_r, wt, vb)
@@ -343,11 +348,22 @@ def test_k5_matches_plain(dev, shape, pads, with_bias):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+# K6/K7 also at bs 8, with an M (T * F) a multiple of 4 (K6's 16-byte x
+# path) and 1 off one tile of 128, and with N 70 (two N tiles of K6, no
+# 16-byte stores)
+PW_SHAPES = {**PACKED_SHAPES, "serving-bs8": (8, 251, 129, 64, 256),
+             "m-mod-4": (2, 16, 9, 64, 40), "m-129": (3, 3, 43, 64, 256),
+             "n-70": (2, 12, 12, 70, 40)}
+
+
+@pytest.mark.parametrize("shape", sorted(PW_SHAPES))
 def test_k6_k7_match_plain(dev, shape):
+    """K6 with the serving view of w (strides (1, K)) and bias, and as K7's
+    dx (a contiguous w, no bias), also from an x 4 bytes off 16-byte
+    alignment; two K6 calls give the same bits; K7 back to rank-4."""
     from rtfs_tpu_torch.ops import packed_tf as P
 
-    b, t, f, c, ci = PACKED_SHAPES[shape]
+    b, t, f, c, ci = PW_SHAPES[shape]
     rng = np.random.default_rng(7)
     x4 = _t(rng, (b, ci, t, f), dev)
     w_in = _t(rng, (c, ci, 1, 1), dev, ci ** -0.5)[:, :, 0, 0].t()
@@ -355,6 +371,13 @@ def test_k6_k7_match_plain(dev, shape):
     got = P.pw_proj_packed(x4, w_in, b_in)
     torch.testing.assert_close(got, P.pw_proj_packed_plain(x4, w_in, b_in),
                                atol=1e-4, rtol=0)
+    assert torch.equal(got, P.pw_proj_packed(x4, w_in, b_in))
+    w_dx = w_in.contiguous()
+    off = _t(rng, (x4.numel() + 1,), dev)[1:].view(x4.shape)
+    for x in (x4, off):
+        torch.testing.assert_close(P.pw_proj_packed(x, w_dx, None),
+                                   P.pw_proj_packed_plain(x, w_dx, None),
+                                   atol=1e-4, rtol=0)
     w_out = _t(rng, (ci, c, 1, 1), dev, c ** -0.5)[:, :, 0, 0].t()
     back = P.pw_unproj_packed(got, w_out, None, f)
     torch.testing.assert_close(back, P.pw_unproj_packed_plain(got, w_out,

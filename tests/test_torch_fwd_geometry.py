@@ -1,14 +1,15 @@
-"""The K2 and K3 forward kernels' geometry and numerics, on the CPU.
+"""The K1, K2 and K3 forward kernels' geometry and numerics, on the CPU.
 
-``ops/sru_fused.k2_fwd_geometry`` and ``ops/convt_tm.fwd_geometry`` size
-the grids, chunks and shared memory that ``csrc/sru_fused.cu`` and
-``csrc/convt_tm.cu`` launch their forwards with. These tests walk the
-blocks as the kernels do and check that every output is written exactly
-once, in the scan order the recurrence needs, and that the shared memory
-fits one Hopper block. They also emulate the kernels' 3xTF32 products
+``ops/sru_fused.k1_fwd_geometry``, ``k2_fwd_geometry`` and
+``ops/convt_tm.fwd_geometry`` size the grids, blocks, chunks and shared
+memory that ``csrc/sru_fused.cu`` and ``csrc/convt_tm.cu`` launch their
+forwards with. These tests walk the blocks as the kernels do and check
+that every output is written exactly once, in the scan order the
+recurrence needs (K1: through its ring of loads ahead of the chain), and
+that the shared memory fits one Hopper block. They also emulate the kernels' 3xTF32 products
 (``csrc/tf32x3.cuh``) in plain torch and hold them to the gates the card
 runs under, and check that a library is rebuilt when a header it
-includes changes. About 10 s alone.
+includes changes. About 12 s alone.
 """
 
 import os
@@ -69,6 +70,82 @@ def test_k2_forward_geometry(t_len, bsz, hdim):
             for t in order:
                 written[t, cols, d] += 1
     assert (written == 1).all()  # every unit j < H of these: H * bt threads
+
+
+@pytest.mark.parametrize("t_len,bsz", SITES)
+@pytest.mark.parametrize("hdim", [8, 32, 48, 64])
+def test_k1_forward_geometry(t_len, bsz, hdim):
+    """K1 forward's blocks (``k1_fwd_geometry``): every (unit, column,
+    direction) gets one thread; each thread's ring of LAY0_AHEAD slots in
+    shared memory hands the chain every step in its scan order, copied
+    before it is read and not overwritten until it is; the block is the
+    largest that fills the card, and at the bs-1 sites no block is more
+    than half idle."""
+    geo = sru_fused.k1_fwd_geometry(t_len, hdim, bsz)
+    cols, units, ahead = geo["cols"], geo["units"], geo["ahead"]
+    threads = cols * units
+    assert cols % 32 == 0 and threads in (32, 64, 128)
+    assert threads <= sru_fused.LAY0_THREADS and ahead == sru_fused.LAY0_AHEAD
+    assert cols == min(threads, -(-bsz // 32) * 32)
+    gx, gy, gz = geo["grid"]
+    assert (gx, gy, gz) == (-(-bsz // cols), -(-hdim // units), 2)
+    n_blocks = gx * gy * gz
+    assert n_blocks >= kernel_lib.SMS or threads == 32
+    if threads < sru_fused.LAY0_THREADS:  # a larger block would not fill
+        wider = 2 * threads
+        wc = min(wider, -(-bsz // 32) * 32)
+        assert -(-bsz // wc) * -(-hdim // (wider // wc)) * 2 < kernel_lib.SMS
+    # thread tid of block (x, y, z): column x * cols + tid % cols, unit
+    # y * units + tid / cols; live where both are in range
+    tid = np.arange(threads)
+    visited = np.zeros((hdim, bsz, 2), np.int64)
+    for x in range(gx):
+        for y in range(gy):
+            b, j = x * cols + tid % cols, y * units + tid // cols
+            live = (b < bsz) & (j < hdim)
+            assert live.any()
+            if (t_len, bsz) in ((57, 125), (118, 64)):  # bs-1 sites
+                assert 2 * live.sum() >= threads
+            for z in range(gz):
+                np.add.at(visited, (j[live], b[live], z), 1)
+    assert (visited == 1).all()
+    assert geo["smem"] == 4 * ahead * 4 * threads <= 48 * 1024
+    # one thread's ring: step i is copied into slot i % ahead as one commit
+    # group (groups past T empty); at step i the thread waits until at most
+    # ahead - 1 groups are pending (step i's is in), reads the slot, and
+    # after the step has used the values copies step i + ahead into it
+    for d in range(2):
+        groups = list(range(ahead))  # the prologue's: steps 0 .. ahead-1
+        slots = {i % ahead: i for i in range(min(ahead, t_len))}
+        order = []
+        for i in range(t_len):
+            done = groups[:len(groups) - (ahead - 1)]
+            assert i in done and slots.pop(i % ahead) == i
+            if i + ahead < t_len:
+                slots[i % ahead] = i + ahead
+            groups.append(i + ahead)
+            order.append(i if d == 0 else t_len - 1 - i)
+        assert not slots
+        assert order == (list(range(t_len)) if d == 0
+                         else list(range(t_len - 1, -1, -1)))
+
+
+def test_k1_forward_constants_and_entry():
+    path = os.path.join(kernel_lib.CSRC_DIR, "sru_fused.cu")
+    with open(path) as f:
+        src = f.read()
+    assert f"constexpr int kLay0Ahead = {sru_fused.LAY0_AHEAD};" in src
+    # pointers u_f, u_r, vb, h_f, h_r, c_f, c_r; T, H, B, cols, units
+    assert kernel_lib._SIGNATURES["sru_fused"]["sru_dual_recurrence_fwd"] \
+        == (7, 5)
+    # the serving sites at bs 1: 32-thread blocks over 128 and 256 SMs'
+    # worth of blocks; at bs 8: 128 threads, whole column tiles
+    assert sru_fused.k1_fwd_geometry(118, 32, 64)["grid"] == (2, 32, 2)
+    assert sru_fused.k1_fwd_geometry(57, 32, 125)["cols"] == 32
+    assert sru_fused.k1_fwd_geometry(118, 32, 512)["cols"] == 128
+    assert sru_fused.k1_fwd_geometry(57, 32, 1000)["grid"] == (8, 32, 2)
+    with pytest.raises(ValueError):
+        sru_fused.k1_fwd_geometry(0, 32, 64)
 
 
 @pytest.mark.parametrize("hdim", [4, 8, 20, 32, 48, 64])
