@@ -28,7 +28,9 @@ one or outside the repository. Phases, any failure of which ends the run:
    plain forward, on the same inputs on the card; the backward is timed
    per call and per step beside its bound, its plain version and, for
    K3, autograd of ``conv_transpose1d``; two calls must give the same
-   bits.
+   bits. For K1 and K2 backward, whose scan is ``csrc/sru_scan.cuh``'s,
+   it prints per site the scan's block, grid, ring depth and shared
+   memory and the share of the bound.
 6. Training: RTFS-Net-4 and the lip backbone are built on the card and on
    the CPU; one ``AVSystem.train_step`` at batch 1 with dropout 0, on the
    card and on the CPU in float32, is held against the same step in
@@ -42,7 +44,8 @@ one or outside the repository. Phases, any failure of which ends the run:
    and backward 8/24/8, every loss finite and the parameters moved; it
    prints ms per step, peak memory, and one profiled step's device time,
    idle share, top kernels and the shares of K1 forward, K2 forward, K3
-   forward and K2 backward.
+   forward, K1 backward and K2 backward, with each kernel's device time
+   a launch.
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
    pw_proj_packed and K7 pw_unproj_packed at the packed serving shapes
    (STFT 251 x 129, 64 hid channels, bottleneck 256, pooled 125 x 64) at
@@ -96,7 +99,9 @@ one or outside the repository. Phases, any failure of which ends the run:
    (d) one bs-1 step through phase 6's gates against this model's own
    float64 step, then ``TRAIN_STEPS`` steps at batch 4 launching exactly
    ``k4_launches`` K4 forward and backward each per step, with ms per
-   step, peak memory and one profiled step's K4 share.
+   step, peak memory and one profiled step's K4 share, together and for
+   the forward and the backward (the scan of ``csrc/sru_scan.cuh``) apart,
+   with their device time a launch.
 
 The last lines are the ``kernels`` JSON object (15 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
@@ -995,6 +1000,10 @@ def _max_err(got, want) -> tuple:
     return err, scale
 
 
+# the backward ops whose scan is csrc/sru_scan.cuh's, over both directions
+SCAN_DIRS = ("sru_dual_recurrence_bwd", "sru_hidden_layer_bwd")
+
+
 def check_backward_kernels(geo, rng, fwd_res) -> dict:
     """Phase 5: the training forward (with c) and the backward kernels at
     the training shapes against the plain versions and autograd; returns
@@ -1124,6 +1133,12 @@ def check_backward_kernels(geo, rng, fwd_res) -> dict:
             print(f"kernel {name} site={site} L={length} B={B}: per call "
                   f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} "
                   f"({b_by}) library_ms={lib_ms}; two calls bit-identical")
+            if name in SCAN_DIRS:  # the adjoint scan of csrc/sru_scan.cuh
+                sg = sru_fused.scan_bwd_geometry(length, H, B, 2)
+                print(f"kernel {name} site={site}: scan block {sg['cols']} "
+                      f"columns x {sg['units']} units, grid {sg['grid']}, "
+                      f"{sg['ahead']} steps ahead, {sg['smem']} bytes of "
+                      f"shared memory; share of the bound {b_ms / ms:.3f}")
             r = res[name]
             n = per_site[name]
             r["max_abs_err"] = max(r["max_abs_err"], worst)
@@ -1136,7 +1151,8 @@ def check_backward_kernels(geo, rng, fwd_res) -> dict:
     for name, r in res.items():
         print(f"kernel {name}: per bs-{TRAIN_BATCH} step ms={r['ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} plain_ms={r['plain_ms']:.2f} "
-              f"library_ms={r['library_ms']}")
+              f"library_ms={r['library_ms']} (share of the bound "
+              f"{r['bound_ms'] / r['ms']:.3f})")
     return res
 
 
@@ -1302,7 +1318,8 @@ def profile_step(system, batch, generator, label: str,
         picked = [e for e in kernels if any(a in e.key for a in parts)]
         for e in picked:
             print(f"{label}: {group} kernel {dev_us(e) / 1e3:9.3f} ms "
-                  f"x{e.count:<5d} {e.key[:90]}")
+                  f"x{e.count:<5d} {dev_us(e) / e.count:8.2f} us a launch "
+                  f"{e.key[:90]}")
         picked_ms = sum(dev_us(e) for e in picked) / 1e3
         print(f"{label}: {group} ({len(picked)} kernels: "
               f"{', '.join(parts)}) together {picked_ms:.3f} ms of the "
@@ -1317,13 +1334,24 @@ PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_proj_kernel",
                        "sum_partials_kernel")
 
 # the device kernels of the main path whose share phase 6 prints, as the
-# profiler names them: K1, K2 and K3 forward (one kernel each), K2
-# backward (csrc/sru_fused.cu)
+# profiler names them: K1, K2 and K3 forward (one kernel each), K1
+# backward (the adjoint scan of csrc/sru_scan.cuh) and K2 backward (its
+# products in csrc/sru_fused.cu and the same scan)
 MAIN_KERNEL_GROUPS = {
     "K1 forward": ("sru_lay0_fwd_kernel",),
     "K2 forward": ("sru_hid_fwd_kernel",),
     "K3 forward": ("convt1d_tm_fwd_kernel",),
+    "K1 backward": ("sru_scan_bwd_kernel<1>",),
     "K2 backward": ("sru_hid_bwd_", "sru_scan_bwd_kernel<2>"),
+}
+
+# K4's device kernels in phase 10's profiled step: the forward
+# (csrc/sru_pallas.cu) and the backward (the scan of csrc/sru_scan.cuh),
+# together and apart
+K4_KERNEL_GROUPS = {
+    "K4": ("sru_rec_", "sru_scan_bwd_kernel<4>"),
+    "K4 forward": ("sru_rec_fwd_kernel",),
+    "K4 backward": ("sru_scan_bwd_kernel<4>",),
 }
 
 # launches of K1/K2/K3 per train step, forward and backward
@@ -1654,6 +1682,7 @@ def check_k4_kernels(geo, rng) -> dict:
     and the Function's gradients (u, xhw, v, b) against the same autograd.
     Returns per kernel the max error and the per-forward (batch 8) or
     per-train-step (batch 4) sums of kernel, plain and bound times."""
+    from rtfs_tpu_torch.ops import sru_fused
     from rtfs_tpu_torch.ops import sru_pallas as S
 
     H, dev = geo["H"], torch.device("cuda")
@@ -1740,10 +1769,14 @@ def check_k4_kernels(geo, rng) -> dict:
             # column)
             b_ms, b_by = bound_ms(4 * (length * B * 10 * H + 8 * H),
                                   35 * length * H * B)
+            sg = sru_fused.scan_bwd_geometry(length, H, B, 1)
             print(f"kernel sru_recurrence_bwd site={site} L={length} B={B}: "
                   f"two calls bit-identical {same}; ms={ms:.5f} plain_ms="
                   f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
-                  "library_ms=None")
+                  f"library_ms=None; share of the bound {b_ms / ms:.3f}; "
+                  f"scan block {sg['cols']} columns x {sg['units']} units, "
+                  f"grid {sg['grid']}, {sg['ahead']} steps ahead, "
+                  f"{sg['smem']} bytes of shared memory")
             if not same:
                 raise AssertionError("sru_recurrence_bwd: two calls differ")
             r = res["sru_recurrence_bwd"]
@@ -1828,7 +1861,7 @@ def unidirectional(conf_uni, geo, rng) -> tuple:
     trained, _ = phase(
         "10d uni training", train, conf_uni,
         {"sru_recurrence_fwd": per_fwd, "sru_recurrence_bwd": per_fwd},
-        "uni training", {"K4": ("sru_rec_",)})
+        "uni training", K4_KERNEL_GROUPS)
     return k4, served, trained
 
 
@@ -1889,7 +1922,7 @@ def main() -> int:
         "convt1d_ola_tm": ("rtfs_tpu_torch/csrc/convt_tm.cu",
                            "rtfs_tpu/ops/convt_tm.py:38",
                            "convt1d_ola_tm_fwd"),
-        "sru_dual_recurrence_bwd": ("rtfs_tpu_torch/csrc/sru_fused.cu",
+        "sru_dual_recurrence_bwd": ("rtfs_tpu_torch/csrc/sru_scan.cuh",
                                     "rtfs_tpu/ops/sru_fused.py:159",
                                     "sru_dual_recurrence_bwd"),
         "sru_hidden_layer_bwd": ("rtfs_tpu_torch/csrc/sru_fused.cu",
@@ -1922,7 +1955,7 @@ def main() -> int:
         "sru_recurrence": ("rtfs_tpu_torch/csrc/sru_pallas.cu",
                            "rtfs_tpu/ops/sru_pallas.py:53",
                            "sru_recurrence_fwd"),
-        "sru_recurrence_bwd": ("rtfs_tpu_torch/csrc/sru_pallas.cu",
+        "sru_recurrence_bwd": ("rtfs_tpu_torch/csrc/sru_scan.cuh",
                                "rtfs_tpu/ops/sru_pallas.py:91",
                                "sru_recurrence_bwd"),
     }

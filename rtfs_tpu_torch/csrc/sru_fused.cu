@@ -29,21 +29,17 @@
 // here walks all of T with c in a register, so the only boundary value is
 // the zero state and no carry is stored.
 //
-// Backward (BPTT), the adjoints of the Pallas kernels, per step in reverse
-// scan order (forward direction t = T-1 .. 0 with c_prev = c[t-1]; reverse
-// direction t = 0 .. T-1 with c_prev = c[t+1]; c_prev = 0 at the scan's
-// start):
-//   dr = dh (c_t - hw); dm = dr r (1 - r); dc = dh r + dm v_r + dc_next
-//   df = dc (c_prev - u0); da = df f (1 - f)
-//   du = [dc (1 - f), da, dm, dh (1 - r)]; dc_prev = dc f + da v_f
-//   d(v_f, v_r, b_f, b_r) += (da c_prev, dm c_t, da, dm)
-// Reductions (dv, db, dW) are written as per-block partials and summed in
-// a fixed order: no float atomics, so two calls give the same bits.
+// Backward (BPTT): the adjoint scan of csrc/sru_scan.cuh (the adjoints of
+// the Pallas kernels, both directions in one launch, each walking its
+// steps in reverse scan order), which K4's backward shares. Reductions
+// (dv, db, dW) are written as per-block partials and summed in a fixed
+// order: no float atomics, so two calls give the same bits.
 //
 // What bounds them on the H100. K1 moves 20 bytes per (step, unit, column)
-// for ~15 flops (its backward 44 bytes for ~30), so by the roofline it is
-// bound by memory bytes; in practice by latency, because each thread walks
-// T dependent steps and the launch has only 2*H*B threads. The design
+// for ~15 flops (its backward 40 bytes for ~35), so by the roofline it is
+// bound by memory bytes; the forward in practice by latency, because each
+// thread walks T dependent steps and the launch has only 2*H*B threads.
+// The design
 // keeps c (dc) in a register and makes neighbouring threads read
 // neighbouring batch columns (coalesced). None of the loads depends on
 // the chain: the forward keeps the cp.async copies of the next kLay0Ahead
@@ -52,9 +48,10 @@
 // ns), not a load's; its blocks (columns x units,
 // ops/sru_fused.k1_fwd_geometry) are as small as it takes to spread the
 // grid over the SMs, so that at bs 1 the few threads run on many SMs and
-// no block is half idle. The backward scan issues the loads of kScanAhead
-// steps together before the adjoint chain runs over them, so many loads
-// are in flight per thread. K2 does 2*3H*2H
+// no block is half idle. The backward scan (sru_scan.cuh) is bound by its
+// bytes: it keeps each thread's next kScanAhead steps of copies in flight
+// in the same kind of ring, with blocks spread the same way
+// (ops/sru_fused.scan_bwd_geometry). K2 does 2*3H*2H
 // flops per column, step and direction for ~16H bytes, so by the roofline
 // it is bound by operations. The projection's input is the previous
 // layer's output, complete before the launch, so only c is sequential:
@@ -85,9 +82,10 @@
 // the recurrence into launches on the caller's stream:
 //   1. U for all T*B columns at once (sru_hid_bwd_gemm_kernel), C_t = W^T
 //      X_t per step, written to the scratch ud (T, 6H, B);
-//   2. the adjoint scan (sru_scan_bwd_kernel<2>): one thread per (column,
-//      unit, direction), as K1's backward, reading U and writing du over
-//      it in place and the highway term dh (1 - r) into dx;
+//   2. the adjoint scan (sru_scan.cuh, sru_scan_bwd_kernel<2>): one
+//      thread per (column, unit, direction), as K1's backward, reading U
+//      and writing du over it in place and the highway term dh (1 - r)
+//      into dx;
 //   3. dx += W du for all columns (the same product, W^T read transposed);
 //   4. dW by split-K over the T*B columns (sru_hid_bwd_wgrad_kernel): each
 //      block a 64 x 64 tile of dW over one chunk of columns, a partial
@@ -98,24 +96,22 @@
 // tile, in full float32 on the SIMT units; operand stages of 16 reduction
 // rows (U, dx) or 32 columns (dW) in shared memory, the next stage's
 // global loads issued into registers before the current stage's FMAs.
-// The products are bound by float32 operations, the scan by its bytes
-// and the latency of its loads. Nothing holds dW in registers across the
+// The products are bound by float32 operations, the scan by its bytes.
+// Nothing holds dW in registers across the
 // sequence, so any H is taken. Scratch: ud, one dW partial a chunk (about
 // two blocks an SM), one (v, b) partial a scan block; the wrapper
 // allocates them.
 
 #include <cuda_runtime.h>
 
+#include "sru_scan.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-// K1 block size, forward and backward, and the K2 scan's (the backward
-// scans write one dvb partial a block; ops/sru_fused.py sizes that buffer
-// with the same constant)
+// K1 forward's threads a block, at most (ops/sru_fused.py mirrors it; the
+// backward scans' blocks are sru_scan.cuh's)
 constexpr int kLay0Threads = 128;
-// backward scans: steps whose loads are issued together
-constexpr int kScanAhead = 8;
 // K1 forward (ops/sru_fused.py mirrors it): steps whose copies are in
 // flight ahead of the recurrence (8 was as fast as 16 and 24)
 constexpr int kLay0Ahead = 8;
@@ -135,10 +131,6 @@ constexpr int kFwdMT = 2;
 constexpr int kFwdNB = 3;
 constexpr int kFwdAhead = 8;
 
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
-}
 
 // The K2 forward scan's sigmoid: the hardware exp2 and reciprocal, a few
 // ulp from sigmoid_f and free of the branch that the IEEE division takes
@@ -210,123 +202,6 @@ sru_lay0_fwd_kernel(const float* __restrict__ u_f,
     if (cs) cs[(long long)t * row + col] = c;
     issue(i + kLay0Ahead);  // into the slot just read (its values used)
   }
-}
-
-// Sums v over the block's threads into out (one float) with warp shuffles
-// and a shared-memory pass over the warps; every thread must call it.
-// red must hold blockDim / 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red is free (a previous call may still read it)
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-  return s;
-}
-
-// One direction's operands of the adjoint scan: row j of step t of u (rows
-// [x~, f, r]), of the highway input, of du (rows [x~, f, r]) and of the
-// highway term's adjoint start at ptr + t * step + j * B. K1 reads u (T,
-// 4H, B) with the highway as its row block 3 and writes du likewise; K2
-// reads U from the scratch ud (T, 6H, B), the highway from x, writes du
-// over U and the highway term into dx.
-struct ScanIO {
-  const float* u;
-  const float* xhw;
-  float* du;
-  float* dhw;
-  long long u_step, xhw_step, du_step, dhw_step;
-};
-
-// grid (ceil(B / blockDim.x), H, 2), one thread per (column, unit, dir);
-// blockDim.x a multiple of 32. Writes du, the highway adjoint and, per
-// block, the partial sums dvb_part[blockIdx.x][dir*4 + k][j] over the
-// block's columns. Kernel tells K1's launches (1) from K2's (2) in a
-// profile. u and du may be the same memory (K2): each thread reads its
-// rows of a step before it writes them.
-template <int Kernel>
-__global__ void sru_scan_bwd_kernel(ScanIO io_f, ScanIO io_r,
-                                    const float* __restrict__ vb,
-                                    const float* __restrict__ c_f,
-                                    const float* __restrict__ c_r,
-                                    const float* __restrict__ dh_f,
-                                    const float* __restrict__ dh_r,
-                                    float* __restrict__ dvb_part,
-                                    int T, int H, int B) {
-  __shared__ float red[32];
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const int dir = blockIdx.z;
-  const bool live = b < B;
-  const ScanIO io = dir == 0 ? io_f : io_r;
-  const float* cs = dir == 0 ? c_f : c_r;
-  const float* dh = dir == 0 ? dh_f : dh_r;
-  const float v_f = vb[(dir * 4 + 0) * H + j];
-  const float v_r = vb[(dir * 4 + 1) * H + j];
-  const float b_f = vb[(dir * 4 + 2) * H + j];
-  const float b_r = vb[(dir * 4 + 3) * H + j];
-  const long long row = (long long)H * B;
-  const long long col = (long long)j * B + (live ? b : 0);
-  float dc = 0.f, a_vf = 0.f, a_vr = 0.f, a_bf = 0.f, a_br = 0.f;
-  if (live) {
-    // reverse scan order: the forward direction from t = T-1 down, the
-    // reverse direction from t = 0 up; c_t of a step is c_prev of the last.
-    // The loads do not depend on the adjoint chain: those of kScanAhead
-    // steps are issued together, before the chain runs over them.
-    float c_t = cs[(long long)(dir == 0 ? T - 1 : 0) * row + col];
-    for (int i0 = 0; i0 < T; i0 += kScanAhead) {
-      float u0[kScanAhead], u1[kScanAhead], u2[kScanAhead];
-      float xhw[kScanAhead], g[kScanAhead], c_prev[kScanAhead];
-#pragma unroll
-      for (int s = 0; s < kScanAhead; ++s) {
-        const int i = i0 + s;
-        if (i >= T) break;
-        const int t = dir == 0 ? T - 1 - i : i;
-        const int tp = dir == 0 ? t - 1 : t + 1;
-        c_prev[s] = i + 1 < T ? cs[(long long)tp * row + col] : 0.f;
-        const float* ut = io.u + t * io.u_step + col;
-        u0[s] = ut[0];
-        u1[s] = ut[row];
-        u2[s] = ut[2 * row];
-        xhw[s] = io.xhw[t * io.xhw_step + col];
-        g[s] = dh[(long long)t * row + col];
-      }
-#pragma unroll
-      for (int s = 0; s < kScanAhead; ++s) {
-        const int i = i0 + s;
-        if (i >= T) break;
-        const int t = dir == 0 ? T - 1 - i : i;
-        const float f = sigmoid_f(u1[s] + v_f * c_prev[s] + b_f);
-        const float r = sigmoid_f(u2[s] + v_r * c_t + b_r);
-        const float dm = g[s] * (c_t - xhw[s]) * r * (1.f - r);
-        dc = g[s] * r + dm * v_r + dc;
-        const float da = dc * (c_prev[s] - u0[s]) * f * (1.f - f);
-        float* dut = io.du + t * io.du_step + col;
-        dut[0] = dc * (1.f - f);
-        dut[row] = da;
-        dut[2 * row] = dm;
-        io.dhw[t * io.dhw_step + col] = g[s] * (1.f - r);
-        a_vf += da * c_prev[s];
-        a_vr += dm * c_t;
-        a_bf += da;
-        a_br += dm;
-        dc = dc * f + da * v_f;
-        c_t = c_prev[s];
-      }
-    }
-  }
-  float* part = dvb_part + (long long)blockIdx.x * 8 * H + dir * 4 * H + j;
-  const float s0 = block_sum(a_vf, red);
-  if (threadIdx.x == 0) part[0] = s0;
-  const float s1 = block_sum(a_vr, red);
-  if (threadIdx.x == 0) part[H] = s1;
-  const float s2 = block_sum(a_bf, red);
-  if (threadIdx.x == 0) part[2 * H] = s2;
-  const float s3 = block_sum(a_br, red);
-  if (threadIdx.x == 0) part[3 * H] = s3;
 }
 
 __host__ __device__ __forceinline__ int round_up(int a, int m) {
@@ -749,23 +624,26 @@ extern "C" int sru_dual_recurrence_fwd(const void* u_f, const void* u_r,
   return (int)cudaGetLastError();
 }
 
-// dvb_part: (ceil(B / kLay0Threads), 8, H).
+// cols x units threads a block (ops/sru_fused.scan_bwd_geometry);
+// dvb_part: (ceil(B / cols), 8, H).
 extern "C" int sru_dual_recurrence_bwd(const void* u_f, const void* u_r,
                                        const void* vb, const void* c_f,
                                        const void* c_r, const void* dh_f,
                                        const void* dh_r, void* du_f,
                                        void* du_r, void* dvb_part, int T,
-                                       int H, int B, void* stream) {
-  const long long step = 4LL * H * B, hw = 3LL * H * B;
+                                       int H, int B, int cols, int units,
+                                       void* stream) {
+  const long long hb = (long long)H * B, step = 4 * hb, hw = 3 * hb;
   const ScanIO io_f{(const float*)u_f, (const float*)u_f + hw, (float*)du_f,
-                    (float*)du_f + hw, step, step, step, step};
+                    (float*)du_f + hw, step, step, step, step,
+                    (const float*)c_f, (const float*)dh_f, (const float*)vb,
+                    (float*)dvb_part, 0};
   const ScanIO io_r{(const float*)u_r, (const float*)u_r + hw, (float*)du_r,
-                    (float*)du_r + hw, step, step, step, step};
-  dim3 grid((B + kLay0Threads - 1) / kLay0Threads, H, 2);
-  sru_scan_bwd_kernel<1><<<grid, kLay0Threads, 0, (cudaStream_t)stream>>>(
-      io_f, io_r, (const float*)vb, (const float*)c_f, (const float*)c_r,
-      (const float*)dh_f, (const float*)dh_r, (float*)dvb_part, T, H, B);
-  return (int)cudaGetLastError();
+                    (float*)du_r + hw, step, step, step, step,
+                    (const float*)c_r, (const float*)dh_r,
+                    (const float*)vb + 4 * H, (float*)dvb_part + 4 * H, 1};
+  return (int)launch_scan_bwd<1>(io_f, io_r, 2, T, H, B, cols, units, 8LL * H,
+                                 (cudaStream_t)stream);
 }
 
 // bt batch columns a block, chunks of S steps (ops/sru_fused.py
@@ -791,13 +669,17 @@ extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
 
 // Outputs dx_f, dx_r (T, H, B), dwt (6H, 2H), dvb (8, H). Scratch from the
 // wrapper: ud (T, 6H, B); dw_part (ceil(T * B / cols), 6H, 2H), one per
-// chunk of cols (t, b) columns; dvb_part (ceil(B / kLay0Threads), 8, H).
+// chunk of cols (t, b) columns; dvb_part (ceil(B / scan_cols), 8, H), the
+// scan's blocks scan_cols x scan_units threads
+// (ops/sru_fused.scan_bwd_geometry).
 extern "C" int sru_hidden_layer_bwd(
     const void* x_f, const void* x_r, const void* wt, const void* vb,
     const void* c_f, const void* c_r, const void* dh_f, const void* dh_r,
     void* dx_f, void* dx_r, void* dwt, void* dvb, void* ud, void* dw_part,
-    void* dvb_part, int T, int H, int B, int cols, void* stream) {
-  if (cols < 1) return (int)cudaErrorInvalidValue;
+    void* dvb_part, int T, int H, int B, int cols, int scan_cols,
+    int scan_units, void* stream) {
+  if (cols < 1 || !scan_layout_ok(T, H, B, scan_cols, scan_units))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int h2 = 2 * H, h6 = 6 * H;
   const Rows x{(float*)x_f, (float*)x_r, H, H, H};
@@ -810,13 +692,16 @@ extern "C" int sru_hidden_layer_bwd(
   // 2. the adjoint scan: du over U, the highway term into dx
   const long long hb = (long long)H * B, step = 6LL * hb;
   const ScanIO io_f{(const float*)ud, (const float*)x_f, (float*)ud,
-                    (float*)dx_f, step, hb, step, hb};
+                    (float*)dx_f, step, hb, step, hb, (const float*)c_f,
+                    (const float*)dh_f, (const float*)vb, (float*)dvb_part,
+                    0};
   const ScanIO io_r{(const float*)ud + 3 * hb, (const float*)x_r,
-                    (float*)ud + 3 * hb, (float*)dx_r, step, hb, step, hb};
-  sru_scan_bwd_kernel<2>
-      <<<dim3(ceil_div(B, kLay0Threads), H, 2), kLay0Threads, 0, st>>>(
-          io_f, io_r, (const float*)vb, (const float*)c_f, (const float*)c_r,
-          (const float*)dh_f, (const float*)dh_r, (float*)dvb_part, T, H, B);
+                    (float*)ud + 3 * hb, (float*)dx_r, step, hb, step, hb,
+                    (const float*)c_r, (const float*)dh_r,
+                    (const float*)vb + 4 * H, (float*)dvb_part + 4 * H, 1};
+  const cudaError_t e = launch_scan_bwd<2>(io_f, io_r, 2, T, H, B, scan_cols,
+                                           scan_units, 8LL * H, st);
+  if (e != cudaSuccess) return (int)e;
   // 3. dx += W du (both directions in one sum over 6H)
   sru_hid_bwd_gemm_kernel<true, true>
       <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
@@ -831,6 +716,6 @@ extern "C" int sru_hidden_layer_bwd(
   sru_hid_bwd_sum_kernel<<<ceil_div(h6 * h2, 256), 256, 0, st>>>(
       (const float*)dw_part, (float*)dwt, n_chunks, h6 * h2);
   sru_hid_bwd_sum_kernel<<<ceil_div(8 * H, 256), 256, 0, st>>>(
-      (const float*)dvb_part, (float*)dvb, ceil_div(B, kLay0Threads), 8 * H);
+      (const float*)dvb_part, (float*)dvb, ceil_div(B, scan_cols), 8 * H);
   return (int)cudaGetLastError();
 }

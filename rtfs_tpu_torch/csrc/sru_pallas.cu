@@ -30,17 +30,15 @@
 // cell states c are written only when the caller passes a c pointer
 // (training); serving passes null.
 //
-// Backward (BPTT), the adjoints of _bwd_kernel, per step in reverse scan
-// order with c_prev read from the saved c one step back in scan order
-// (zero at the scan's start) and carried to the next step in a register,
-// so the shifted c stream the Pallas op builds is not needed:
-//   dr = dh (c_t - xhw); dm = dr r (1 - r); dc = dh r + dm v_r + dc_next
-//   df = dc (c_prev - u0); da = df f (1 - f)
-//   du = [dc (1 - f), da, dm]; dxhw = dh (1 - r); dc_prev = dc f + da v_f
-//   d(v_f, v_r, b_f, b_r) += (da c_prev, dm c_t, da, dm)
-// dc and the four sums stay in f32 registers. Each block sums its columns'
-// (v, b) terms in a fixed order and writes one partial; the wrapper adds
-// the partials in a fixed order. No float atomics, so two calls give the
+// Backward (BPTT), the adjoints of _bwd_kernel: the adjoint scan of
+// csrc/sru_scan.cuh, which K1's and K2's backwards share, launched over
+// one direction with K4's layout in a ScanIO (u's rows [x~, f, r] a step
+// 3H x B apart, the highway xhw and its adjoint dxhw apart from u, vb's
+// and the (v, b) partials' rows (4, H)); reverse != 0 scans t = 0 .. T-1.
+// c_prev is read from the saved c one step on in scan order (zero at the
+// scan's end), so the shifted c stream the Pallas op builds is not
+// needed. The (v, b) partials, one per column block, are added in a
+// fixed order by the wrapper: no float atomics, so two calls give the
 // same bits.
 //
 // What bounds it on the H100. Per (step, column) over the H units the
@@ -49,25 +47,25 @@
 // du, dxhw) for ~35: by the roofline both are bound by memory bytes. At the
 // RTFS-Net-4 training shapes (freq scan T 57 over B 500, time scan T 118
 // over B 256, bs 4) that is 6.5-6.9 us forward with c and 10.9-11.5 us
-// backward at 3.35 TB/s. In practice the kernel is bound by the latency of
-// T dependent steps: each thread's gate chain (two sigmoids, the cell
-// update) cannot start before the previous step's c. At bs 1 the launch has
-// only H x B = 4000 threads, a few warps a SM, so nothing hides that chain.
-// The design unrolls the time loop so that the loads of later steps (which
-// do not depend on c) start ahead of the chain. Splitting units across more
-// threads, or several columns per thread, is left for later work.
+// backward at 3.35 TB/s. The forward is bound in practice by the latency
+// of T dependent steps: each thread's gate chain (two sigmoids, the cell
+// update) cannot start before the previous step's c. At bs 1 the launch
+// has only H x B = 4000 threads, a few warps a SM, so nothing hides that
+// chain. Its design unrolls the time loop so that the loads of later
+// steps (which do not depend on c) start ahead of the chain. The backward
+// carries only dc across steps, so it can run at its bytes bound if
+// enough loads are in flight: the scan keeps each thread's next kScanAhead
+// steps of copies in flight and spreads its 32-128 thread blocks over the SMs
+// (sru_scan.cuh).
 
 #include <cuda_runtime.h>
 
+#include "sru_scan.cuh"
+
 namespace {
 
-// block size, forward and backward; ops/sru_pallas.py sizes the backward's
-// dvb partial buffer with the same constant
+// the forward's block size
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
-}
 
 // grid (ceil(B / kThreads), H), one thread per (column b, unit j).
 __global__ void sru_rec_fwd_kernel(const float* __restrict__ u,
@@ -99,85 +97,6 @@ __global__ void sru_rec_fwd_kernel(const float* __restrict__ u,
   }
 }
 
-// Sums v over the block's threads with warp shuffles and a shared-memory
-// pass over the warps, in a fixed order; the result is valid in thread 0.
-// Every thread must call it; red holds blockDim / 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red is free (a previous call may still read it)
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-  return s;
-}
-
-// grid (ceil(B / kThreads), H), one thread per (column b, unit j). Writes
-// du, dxhw and, per block, dvb_part[blockIdx.x][k][j], the sums of the
-// block's columns.
-__global__ void sru_rec_bwd_kernel(const float* __restrict__ u,
-                                   const float* __restrict__ xhw,
-                                   const float* __restrict__ vb,
-                                   const float* __restrict__ cs,
-                                   const float* __restrict__ dh,
-                                   float* __restrict__ du,
-                                   float* __restrict__ dxhw,
-                                   float* __restrict__ dvb_part,
-                                   int T, int H, int B, int reverse) {
-  __shared__ float red[kThreads / 32];
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const bool live = b < B;
-  const float v_f = vb[j], v_r = vb[H + j];
-  const float b_f = vb[2 * H + j], b_r = vb[3 * H + j];
-  const long long row = (long long)H * B;
-  const long long col = (long long)j * B + (live ? b : 0);
-  float dc = 0.f, a_vf = 0.f, a_vr = 0.f, a_bf = 0.f, a_br = 0.f;
-  if (live) {
-    // reverse scan order: forward from t = T-1 down, reverse from t = 0
-    // up; the c_t of a step is the c_prev of the step before it
-    float c_t = cs[(long long)(reverse ? 0 : T - 1) * row + col];
-#pragma unroll 2
-    for (int i = 0; i < T; ++i) {
-      const int t = reverse ? i : T - 1 - i;
-      const int tp = reverse ? t + 1 : t - 1;
-      const float c_prev = i + 1 < T ? cs[(long long)tp * row + col] : 0.f;
-      const float* ut = u + (long long)t * 3 * row + col;
-      const float u0 = ut[0], u1 = ut[row], u2 = ut[2 * row];
-      const long long o = (long long)t * row + col;
-      const float x = xhw[o];
-      const float g = dh[o];
-      const float f = sigmoid_f(u1 + v_f * c_prev + b_f);
-      const float r = sigmoid_f(u2 + v_r * c_t + b_r);
-      const float dm = g * (c_t - x) * r * (1.f - r);
-      dc = g * r + dm * v_r + dc;
-      const float da = dc * (c_prev - u0) * f * (1.f - f);
-      float* dut = du + (long long)t * 3 * row + col;
-      dut[0] = dc * (1.f - f);
-      dut[row] = da;
-      dut[2 * row] = dm;
-      dxhw[o] = g * (1.f - r);
-      a_vf += da * c_prev;
-      a_vr += dm * c_t;
-      a_bf += da;
-      a_br += dm;
-      dc = dc * f + da * v_f;
-      c_t = c_prev;
-    }
-  }
-  float* part = dvb_part + (long long)blockIdx.x * 4 * H + j;
-  const float s0 = block_sum(a_vf, red);
-  if (threadIdx.x == 0) part[0] = s0;
-  const float s1 = block_sum(a_vr, red);
-  if (threadIdx.x == 0) part[H] = s1;
-  const float s2 = block_sum(a_bf, red);
-  if (threadIdx.x == 0) part[2 * H] = s2;
-  const float s3 = block_sum(a_br, red);
-  if (threadIdx.x == 0) part[3 * H] = s3;
-}
-
 }  // namespace
 
 // c may be null (serving).
@@ -191,16 +110,19 @@ extern "C" int sru_recurrence_fwd(const void* u, const void* xhw,
   return (int)cudaGetLastError();
 }
 
-// dvb_part: (ceil(B / kThreads), 4, H).
+// cols x units threads a block (ops/sru_fused.scan_bwd_geometry with one
+// direction); dvb_part: (ceil(B / cols), 4, H).
 extern "C" int sru_recurrence_bwd(const void* u, const void* xhw,
                                   const void* vb, const void* c,
                                   const void* dh, void* du, void* dxhw,
                                   void* dvb_part, int T, int H, int B,
-                                  int reverse, void* stream) {
-  dim3 grid((B + kThreads - 1) / kThreads, H);
-  sru_rec_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)xhw, (const float*)vb,
-      (const float*)c, (const float*)dh, (float*)du, (float*)dxhw,
-      (float*)dvb_part, T, H, B, reverse);
-  return (int)cudaGetLastError();
+                                  int reverse, int cols, int units,
+                                  void* stream) {
+  const long long hb = (long long)H * B;
+  const ScanIO io{(const float*)u, (const float*)xhw, (float*)du,
+                  (float*)dxhw, 3 * hb, hb, 3 * hb, hb, (const float*)c,
+                  (const float*)dh, (const float*)vb, (float*)dvb_part,
+                  reverse != 0};
+  return (int)launch_scan_bwd<4>(io, io, 1, T, H, B, cols, units, 4LL * H,
+                                 (cudaStream_t)stream);
 }

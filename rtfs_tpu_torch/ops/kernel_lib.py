@@ -4,8 +4,9 @@ Each ``rtfs_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, at first
 use, into ``rtfs_tpu_torch/_build/`` (git-ignored), and loaded with
 ``ctypes``. A library's file name carries a hash of its source and of the
-``csrc/`` headers it includes (``tf32x3.cuh``), so an edit to either is
-rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
+``csrc/`` headers it includes (``tf32x3.cuh``, ``sru_scan.cuh``), so an
+edit to either is rebuilt. ``build_all`` starts one ``nvcc`` per source
+at once.
 
 ``LAUNCHES`` counts, per kernel, the launches that the wrappers made;
 each wrapper adds one where it launches its kernel and nowhere else.
@@ -39,9 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SIGNATURES = {
     "sru_fused": {
         "sru_dual_recurrence_fwd": (7, 5),
-        "sru_dual_recurrence_bwd": (10, 3),
+        "sru_dual_recurrence_bwd": (10, 5),
         "sru_hidden_layer_fwd": (8, 5),
-        "sru_hidden_layer_bwd": (15, 4),
+        "sru_hidden_layer_bwd": (15, 6),
     },
     "convt_tm": {
         "convt1d_ola_tm_fwd": (3, 6),
@@ -58,7 +59,7 @@ _SIGNATURES = {
     },
     "sru_pallas": {
         "sru_recurrence_fwd": (5, 4),
-        "sru_recurrence_bwd": (8, 4),
+        "sru_recurrence_bwd": (8, 6),
     },
 }
 

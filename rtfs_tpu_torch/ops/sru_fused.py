@@ -6,7 +6,9 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
   over a precomputed U = [x~, f, r, highway]; CUDA kernels
   ``csrc/sru_fused.cu:sru_dual_recurrence_fwd`` (its loads kept
   LAY0_AHEAD steps ahead of the chain through a cp.async ring, blocks
-  from ``k1_fwd_geometry``) and ``..._bwd``.
+  from ``k1_fwd_geometry``) and ``..._bwd`` (the adjoint scan of
+  ``csrc/sru_scan.cuh``, shared with K2's backward and K4's, blocks from
+  ``scan_bwd_geometry``).
 - ``sru_hidden_layer`` (K2): one hidden layer (k = 3, highway = input); the
   forward kernel projects U = W^T [h_f; h_r] a chunk of steps at a time on
   the tensor cores (3xTF32) into shared memory and scans the chunk from
@@ -36,13 +38,19 @@ import torch.nn.functional as F
 
 from . import kernel_lib
 
-# K1 block size and K2's scan's, ``kLay0Threads`` in csrc/sru_fused.cu:
-# each backward scan writes one dvb partial a block; the K1 forward's
-# blocks are at most this size (``k1_fwd_geometry``)
+# ``kLay0Threads`` in csrc/sru_fused.cu: the K1 forward's blocks are at
+# most this size (``k1_fwd_geometry``)
 LAY0_THREADS = 128
 # ``kLay0Ahead``: steps whose loads the K1 forward keeps in flight ahead
 # of its recurrence, each thread in its own ring of shared memory
 LAY0_AHEAD = 8
+# the backward adjoint scan of K1, K2 and K4 (csrc/sru_scan.cuh):
+# ``kScanThreads``, its blocks' size at most; ``kScanAhead``, the steps
+# whose six loads each thread keeps in flight in its ring of shared
+# memory; ``kScanGroup``, the steps it takes per wait
+SCAN_THREADS = 128
+SCAN_AHEAD = 8
+SCAN_GROUP = 2
 
 
 def vb_pack(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -146,30 +154,57 @@ def sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
             torch.cat([dvb_f, dvb_r]))
 
 
+def _spread_blocks(hdim: int, bsz: int, dirs: int, most: int) -> tuple:
+    """(cols, units, grid) of a scan with one thread per (column, unit,
+    direction): blocks of ``cols`` batch columns x ``units`` units,
+    ``cols`` a multiple of 32; the largest of ``most``, ``most // 2`` and
+    32 threads whose grid (ceil(B / cols), ceil(H / units), dirs) has at
+    least one block an SM, or 32 threads where none does, so that the few
+    threads of a small batch spread over many SMs; ``cols`` =
+    min(threads, round_up(B, 32)) leaves no block more than half idle
+    where B >= 32."""
+    for threads in (most, most // 2, 32):
+        cols = min(threads, _round_up(bsz, 32))
+        units = threads // cols
+        grid = (-(-bsz // cols), -(-hdim // units), dirs)
+        if grid[0] * grid[1] * grid[2] >= kernel_lib.SMS:
+            break
+    return cols, units, grid
+
+
 @functools.lru_cache(maxsize=None)
 def k1_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     """K1 forward's launch geometry, as ``sru_dual_recurrence_fwd``
-    launches it: blocks of ``cols`` batch columns x ``units`` units (one
-    thread each, both directions in the grid's z), ``cols`` a multiple of
-    32 and at most LAY0_THREADS threads a block. Each thread walks its
-    T steps with the copies of the next LAY0_AHEAD steps in flight in its
-    own ring of shared memory (``smem`` bytes a block). The block is the
-    largest of 128, 64, 32 threads whose grid has at least one block an
-    SM, or 32 threads where none does: the few threads of a small batch
-    (4,096 at the bs-1 time site) spread over many SMs, and ``cols`` =
-    min(threads, round_up(B, 32)) leaves no block more than half idle
-    where B >= 32."""
+    launches it: blocks from ``_spread_blocks`` (both directions in the
+    grid's z, at most LAY0_THREADS threads; 4,096 threads at the bs-1
+    time site spread over many SMs). Each thread walks its T steps with
+    the copies of the next LAY0_AHEAD steps in flight in its own ring of
+    shared memory (``smem`` bytes a block)."""
     if min(t_len, hdim, bsz) < 1:
         raise ValueError(f"sru_dual_recurrence: T {t_len}, H {hdim}, "
                          f"B {bsz}")
-    for threads in (LAY0_THREADS, LAY0_THREADS // 2, 32):
-        cols = min(threads, _round_up(bsz, 32))
-        units = threads // cols
-        grid = (-(-bsz // cols), -(-hdim // units), 2)
-        if grid[0] * grid[1] * grid[2] >= kernel_lib.SMS:
-            break
+    cols, units, grid = _spread_blocks(hdim, bsz, 2, LAY0_THREADS)
     return {"cols": cols, "units": units, "grid": grid,
             "ahead": LAY0_AHEAD, "smem": 4 * LAY0_AHEAD * 4 * cols * units}
+
+
+@functools.lru_cache(maxsize=None)
+def scan_bwd_geometry(t_len: int, hdim: int, bsz: int, dirs: int) -> dict:
+    """The backward adjoint scan's launch geometry (``launch_scan_bwd`` in
+    csrc/sru_scan.cuh), for K1 and K2 (``dirs`` 2) and K4 (1): blocks
+    from ``_spread_blocks`` of at most SCAN_THREADS threads (at the K4
+    bs-4 time site, H 32 over B 256, 32-thread blocks: 256 blocks, not
+    64); each thread keeps the copies of its next SCAN_AHEAD steps (six
+    floats each) in flight in its own ring of shared memory (``smem``
+    bytes a block). Each block writes the (v, b) partial sums of its
+    ``cols`` columns for each of its units: ``parts`` = grid[0] partials
+    a unit and direction, which the caller adds in order."""
+    if min(t_len, hdim, bsz) < 1 or dirs not in (1, 2):
+        raise ValueError(f"SRU backward scan: T {t_len}, H {hdim}, "
+                         f"B {bsz}, directions {dirs}")
+    cols, units, grid = _spread_blocks(hdim, bsz, dirs, SCAN_THREADS)
+    return {"cols": cols, "units": units, "grid": grid, "parts": grid[0],
+            "ahead": SCAN_AHEAD, "smem": 4 * SCAN_AHEAD * 6 * cols * units}
 
 
 def _k1_forward(u_f, u_r, vb, with_c):
@@ -200,14 +235,15 @@ def _k1_backward(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
     kernel_lib.check_cuda_f32("sru_dual_recurrence backward", u_f, u_r, vb,
                               c_f, c_r, dh_f, dh_r)
     t_len, gh, bsz = u_f.shape
-    n_blocks = -(-bsz // LAY0_THREADS)
+    geo = scan_bwd_geometry(t_len, gh // 4, bsz, 2)
     du_f, du_r = torch.empty_like(u_f), torch.empty_like(u_r)
-    dvb_part = torch.empty(n_blocks, 8, gh // 4, device=u_f.device)
+    dvb_part = torch.empty(geo["parts"], 8, gh // 4, device=u_f.device)
     kernel_lib.launch(
         "sru_fused", "sru_dual_recurrence_bwd", u_f.device,
         u_f.data_ptr(), u_r.data_ptr(), vb.data_ptr(), c_f.data_ptr(),
         c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(), du_f.data_ptr(),
         du_r.data_ptr(), dvb_part.data_ptr(), t_len, gh // 4, bsz,
+        geo["cols"], geo["units"],
     )
     return du_f, du_r, dvb_part.sum(0)
 
@@ -353,17 +389,19 @@ def k2_bwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     """K2 backward's launch geometry, as ``sru_hidden_layer_bwd`` launches
     it: the (column, row, step) tiles of the U and dx products, the dW
     split-K over the T*B columns (``cols`` a chunk, one partial each), the
-    scan's blocks (one (v, b) partial each) and each kernel's static shared
-    memory in bytes."""
+    adjoint scan's geometry (``scan``, ``scan_bwd_geometry`` over both
+    directions; ``scan_blocks`` (v, b) partials a unit and direction) and
+    the products' static shared memory in bytes."""
     tiles = lambda n: -(-n // GEMM_TILE)  # noqa: E731
     wgrad_tiles = tiles(6 * hdim) * tiles(2 * hdim)
     cols, chunks = kernel_lib.split_k(t_len * bsz, wgrad_tiles, WGRAD_COLS)
+    scan = scan_bwd_geometry(t_len, hdim, bsz, 2)
     return {
         "u_grid": (tiles(bsz), tiles(6 * hdim), t_len),
         "dx_grid": (tiles(bsz), tiles(2 * hdim), t_len),
         "wgrad_grid": (tiles(2 * hdim), tiles(6 * hdim), chunks),
         "cols": cols, "chunks": chunks,
-        "scan_blocks": -(-bsz // LAY0_THREADS),
+        "scan": scan, "scan_blocks": scan["parts"],
         "gemm_smem": 4 * GEMM_STAGE * (2 * GEMM_TILE + 4),
         "wgrad_smem": 4 * 2 * WGRAD_COLS * (GEMM_TILE + 4),
     }
@@ -411,7 +449,8 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
         c_f.data_ptr(), c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(),
         dx_f.data_ptr(), dx_r.data_ptr(), dwt.data_ptr(), dvb.data_ptr(),
         ud.data_ptr(), dw_part.data_ptr(), dvb_part.data_ptr(),
-        t_len, hdim, bsz, geo["cols"],
+        t_len, hdim, bsz, geo["cols"], geo["scan"]["cols"],
+        geo["scan"]["units"],
     )
     return dx_f, dx_r, dwt, dvb
 

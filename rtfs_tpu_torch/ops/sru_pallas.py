@@ -5,8 +5,10 @@ Counterpart of ``rtfs_tpu/ops/sru_pallas.py``, forward and backward:
 - ``sru_recurrence`` (K4): one direction of one SRU layer over a
   precomputed projection u (T, 3H, B) = [x~, f, r] and highway xhw
   (T, H, B); CUDA kernels ``csrc/sru_pallas.cu:sru_recurrence_fwd`` and
-  ``..._bwd``. ``reverse=True`` walks t = T-1 .. 0 (the kernel's flag),
-  where the JAX layers flip u, xhw and h in memory around the call.
+  ``..._bwd`` (the adjoint scan of ``csrc/sru_scan.cuh``, shared with the
+  fused stack's backwards, blocks from ``sru_fused.scan_bwd_geometry``).
+  ``reverse=True`` walks t = T-1 .. 0 (the kernel's flag), where the JAX
+  layers flip u, xhw and h in memory around the call.
 - ``sru_layer_tpu`` / ``sru_layer_tpu_windowed``: one SRU layer, the
   projection (``matmul``, or for layer 0 over the raw sequence a windowed
   ``conv1d``, ``sru_fused.layer0_projection``) outside the kernel as JAX
@@ -34,12 +36,8 @@ from __future__ import annotations
 import torch
 
 from . import kernel_lib
-from .sru_fused import (_grad, _records, layer0_projection, scan_direction,
-                        scan_direction_bwd)
-
-# K4 block size, ``kThreads`` in csrc/sru_pallas.cu: the backward writes
-# one dvb partial a block
-THREADS = 128
+from .sru_fused import (_grad, _records, layer0_projection, scan_bwd_geometry,
+                        scan_direction, scan_direction_bwd)
 
 
 def sru_recurrence_plain(u, xhw, vb, reverse=False, with_c=False):
@@ -75,13 +73,14 @@ def _k4_backward(u, xhw, vb, c, dh, reverse):
         return sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse)
     kernel_lib.check_cuda_f32("sru_recurrence backward", u, xhw, vb, c, dh)
     t_len, gh, bsz = u.shape
+    geo = scan_bwd_geometry(t_len, gh // 3, bsz, 1)
     du, dxhw = torch.empty_like(u), torch.empty_like(xhw)
-    dvb_part = torch.empty(-(-bsz // THREADS), 4, gh // 3, device=u.device)
+    dvb_part = torch.empty(geo["parts"], 4, gh // 3, device=u.device)
     kernel_lib.launch(
         "sru_pallas", "sru_recurrence_bwd", u.device, u.data_ptr(),
         xhw.data_ptr(), vb.data_ptr(), c.data_ptr(), dh.data_ptr(),
         du.data_ptr(), dxhw.data_ptr(), dvb_part.data_ptr(), t_len, gh // 3,
-        bsz, int(reverse),
+        bsz, int(reverse), geo["cols"], geo["units"],
     )
     return du, dxhw, dvb_part.sum(0)
 

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from rtfs_tpu_torch.ops.sru_fused import SCAN_AHEAD
+
 pytestmark = pytest.mark.cuda
 
 # the kernels sum dot products in another order than the plain versions'
@@ -75,13 +77,15 @@ def _close(got, want, rel=None):
 
 
 # the two training geometries at bs 4, a ragged B that is a multiple of no
-# tile (64, 32, 128), T = 1, and H above 32
-@pytest.mark.parametrize("t_len,h,bsz", [(21, 8, 5), (57, 32, 500),
-                                         (118, 32, 256), (37, 32, 131),
-                                         (1, 32, 77), (23, 48, 131)])
+# tile (64, 32, 128), T = 1, H above 32; the scan's ring: T shorter than
+# it, as long, one step longer; one column
+@pytest.mark.parametrize("t_len,h,bsz", [
+    (21, 8, 5), (57, 32, 500), (118, 32, 256), (37, 32, 131), (1, 32, 77),
+    (23, 48, 131), (SCAN_AHEAD // 2, 32, 200), (SCAN_AHEAD, 48, 64),
+    (SCAN_AHEAD + 1, 32, 131), (23, 32, 1)])
 def test_k1_k2_backward_match_plain(dev, t_len, h, bsz):
     """Forward with c and the BPTT kernels against the plain versions; two
-    K2 backward calls give the same bits."""
+    K1 and two K2 backward calls give the same bits."""
     from rtfs_tpu_torch.ops import sru_fused as S
 
     rng = np.random.default_rng(3)
@@ -95,6 +99,9 @@ def test_k1_k2_backward_match_plain(dev, t_len, h, bsz):
     want = S.sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f, dh_r)
     _close(got[:2], want[:2])
     _close(got[2:], want[2:], rel=1e-4)
+    again = S._k1_backward(u_f, u_r, vb, c_f, c_r, dh_f, dh_r)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
     x_f, x_r = _t(rng, (t_len, h, bsz), dev, 0.5), _t(rng, (t_len, h, bsz), dev, 0.5)
     wt = _t(rng, (6 * h, 2 * h), dev, 0.2)
     fwd = S._k2_forward(x_f, x_r, wt, vb, with_c=True)
@@ -243,8 +250,12 @@ def test_dual_path_rnn_card_matches_cpu(dev):
 # ------------------------------------------------------------- K4
 
 
-@pytest.mark.parametrize("t_len,h,bsz", [(37, 8, 5), (57, 32, 125),
-                                         (118, 32, 300), (1, 32, 129)])
+# ragged shapes, the serving and bs-4 time sites; the scan's ring: T
+# shorter than it, one step longer; one column; H above 32
+@pytest.mark.parametrize("t_len,h,bsz", [
+    (37, 8, 5), (57, 32, 125), (118, 32, 300), (1, 32, 129), (118, 32, 256),
+    (SCAN_AHEAD // 2, 32, 200), (SCAN_AHEAD + 1, 32, 131), (23, 32, 1),
+    (29, 48, 131)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_k4_matches_plain_and_backward_repeats_exactly(dev, t_len, h, bsz,
                                                        reverse):

@@ -71,9 +71,11 @@ def test_k2_backward_geometry(t_len, bsz, hdim):
     seen = _split_k_columns(t_len * bsz, geo["cols"], geo["chunks"],
                             sru_fused.WGRAD_COLS)
     assert (seen == 1).all()
-    # the scan: one thread per column in blocks of LAY0_THREADS
-    assert ((geo["scan_blocks"] - 1) * sru_fused.LAY0_THREADS < bsz
-            <= geo["scan_blocks"] * sru_fused.LAY0_THREADS)
+    # the scan (csrc/sru_scan.cuh): one (v, b) partial a block of
+    # columns, as its geometry has them (tests/test_torch_scan_geometry.py)
+    cols = geo["scan"]["cols"]
+    assert geo["scan"] == sru_fused.scan_bwd_geometry(t_len, hdim, bsz, 2)
+    assert (geo["scan_blocks"] - 1) * cols < bsz <= geo["scan_blocks"] * cols
     # static shared memory, under the 48 KB a block gets without opting in
     assert geo["gemm_smem"] <= 48 * 1024 and geo["wgrad_smem"] <= 48 * 1024
 
