@@ -49,7 +49,8 @@ one or outside the repository. Phases, any failure of which ends the run:
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
    pw_proj_packed and K7 pw_unproj_packed at the packed serving shapes
    (STFT 251 x 129, 64 hid channels, bottleneck 256, pooled 125 x 64) at
-   batch 1 and 8, and K6 as K7's dx (contiguous w, no bias) at batch 4,
+   batch 1 and 8, K6 as K7's dx (contiguous w, no bias) at batch 4 and
+   K6 at a bottleneck of 512 (two slices of W) at batch 1,
    each against its plain version on the same card inputs and called
    twice (bit-identical), timed with CUDA events beside its bound (K6,
    whose product runs in 3xTF32 on the tensor cores: that route's, the
@@ -83,16 +84,20 @@ one or outside the repository. Phases, any failure of which ends the run:
    K1/K2/K3 8/24/8 forward and backward), every loss be finite and the
    parameters move; it prints ms per step of both, peak memory, and one
    profiled packed step's device time, idle share, top kernels and the
-   shares of the packed kernels, of K6 and of K1 forward.
+   shares of the packed kernels, of K6 and of K1 forward. (9b, last) the
+   profiler's device time per launch of K5-wgrad at its two sites, beside
+   its bound and the parent's figure.
 10. Unidirectional (after phase 9): the preset with both DualPathRNNs'
    ``bidirectional`` false (``UNI_OVERRIDES``, applied by
    ``utils/parser.parse_overrides`` as the entries apply them), the path of
    K4 ``sru_recurrence`` (``csrc/sru_pallas.cu``). (a) K4 forward at the
    serving shapes (batch 1 and 8) and with c at batch 4, and its backward
    at batch 4, against the plain versions and autograd through the plain
-   forward (the backward twice, bit-identical), timed beside bound and
-   plain; (b) ``separate_sample`` at batch 1 and 8 launching exactly
-   ``k4_launches`` K4 per forward and no other kernel, against the CPU;
+   forward (forward and backward twice, bit-identical), timed beside
+   bound and plain, and K4 forward at H 80 in both directions (the route
+   of an SRU wider than the fused stack takes); (b) ``separate_sample``
+   at batch 1 and 8 launching exactly ``k4_launches`` K4 per forward and
+   no other kernel, against the CPU;
    (c) the train entry with the overrides (8 synthetic samples, one
    epoch), then the serving entry on that run's ``conf.json`` and
    ``best_model.pt``, whose forward launches K4 ``k4_launches`` times;
@@ -101,7 +106,17 @@ one or outside the repository. Phases, any failure of which ends the run:
    ``k4_launches`` K4 forward and backward each per step, with ms per
    step, peak memory and one profiled step's K4 share, together and for
    the forward and the backward (the scan of ``csrc/sru_scan.cuh``) apart,
-   with their device time a launch.
+   with their device time a launch. (10e, last) the profiler's device time
+   per launch of K4 forward at the bs-8 and bs-4 sites, beside its bound
+   and the parent's figure.
+Wide (after phase 10): the routes of widths above the preset's. A pair of
+   DualPathRNNs (dim 4, dim 3) at the preset's in_chan 64, window 8 and 4
+   layers on the main path's pooled 125 x 64, at H 48 (the fused stack,
+   K1/K2, with the library ConvTranspose1d: K3 takes 2H up to 64) and H 80
+   (K4 a layer and direction: K2 forward takes H up to 68): a bs-1
+   forward against the CPU and a bs-4 train step through phase 6's
+   gradient gates, each launching exactly what the route predicates
+   (``rnn_launches``) derive.
 
 The last lines are the ``kernels`` JSON object (15 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
@@ -294,10 +309,34 @@ def packed_launches(conf) -> dict:
             "spatial_up_packed_fwd": 4 * r}
 
 
+def rnn_launches(c: int, h: int, k: int, layers: int,
+                 bidirectional: bool = True) -> dict:
+    """Launches of each SRU and ConvTranspose C entry in one forward of a
+    DualPathRNN (stride 1) of ``c`` channels, hid ``h``, window ``k``, from
+    the width-only route predicates the model takes: the fused stack (K1
+    once, K2 a hidden layer) where it applies (bidirectional, input c k
+    not 2h) and ``sru_fused.stack_fits(h)`` holds, with K3 as its tail
+    where ``convt_tm.fits(2h, c, k)`` holds (the library ConvTranspose1d
+    elsewhere); otherwise K4 a layer and direction. A train step launches
+    each entry's backward as often."""
+    from rtfs_tpu_torch.ops import convt_tm, sru_fused
+
+    dirs = 2 if bidirectional else 1
+    if not (bidirectional and c * k != 2 * h and sru_fused.stack_fits(h)):
+        return {"sru_recurrence_fwd": dirs * layers}
+    out = {"sru_dual_recurrence_fwd": 1}
+    if layers > 1:
+        out["sru_hidden_layer_fwd"] = layers - 1
+    if convt_tm.fits(2 * h, c, k):
+        out["convt1d_ola_tm_fwd"] = 1
+    return out
+
+
 def k4_launches(conf) -> int:
     """Launches of K4 (``sru_recurrence_fwd``) per forward, from the preset:
     every SRU of an audio DualPathRNN that the fused stack does not take
-    (unidirectional, or bidirectional with input width 2H) runs K4 once a
+    (unidirectional, bidirectional with input width 2H, or wider than
+    ``sru_fused.stack_fits`` admits; ``rnn_launches``) runs K4 once a
     layer and direction, once a repeat of the shared block. A train step
     launches as many K4 backwards. tests/test_torch_avnet_uni.py holds it
     against a forward and a train step."""
@@ -306,10 +345,9 @@ def k4_launches(conf) -> int:
     for lay in ap["layers"].values():
         if lay["layer_type"] != "DualPathRNN" or lay["rnn_type"] != "SRU":
             continue
-        bidir, h = lay["bidirectional"], lay["hid_chan"]
-        if bidir and ap["hid_chan"] * lay["kernel_size"] != 2 * h:
-            continue  # the fused stack, K1/K2
-        n += (2 if bidir else 1) * lay["num_layers"]
+        n += rnn_launches(ap["hid_chan"], lay["hid_chan"], lay["kernel_size"],
+                          lay["num_layers"], lay["bidirectional"]).get(
+                              "sru_recurrence_fwd", 0)
     return n * ap["repeats"]
 
 
@@ -434,6 +472,19 @@ def check_packed_kernels(conf, rng) -> dict:
                  lambda: P.pw_proj_packed_plain(x4, w_dx, None),
                  4 * (m_pw * (Cb + C) + Cb * C), 2 * m_pw * Cb * C,
                  2 * m_pw * Cb * C, lambda: Fn.conv2d(x4, w_lib))]
+        if bs == 1:  # K6 at K 512 (CTCNet's and TDFNet's bottleneck): W
+            # in two slices; no preset of the port runs it
+            k_big = 2 * P.PROJ_SLICE
+            x_big = t((bs, k_big, T, Fq))
+            w_big = t((C, k_big, 1, 1), k_big ** -0.5)
+            cases.append(
+                ("pw_proj_packed", f"K {k_big}", 0,
+                 lambda: P.pw_proj_packed(x_big, w_big[:, :, 0, 0].t(), b_in),
+                 lambda: P.pw_proj_packed_plain(x_big, w_big[:, :, 0, 0].t(),
+                                                b_in),
+                 4 * (m_pw * (k_big + C) + k_big * C + C),
+                 2 * m_pw * k_big * C, 2 * m_pw * k_big * C,
+                 lambda: Fn.conv2d(x_big, w_big, b_in)))
         for name, site, n, kern, plain, nbytes, nops, mm_ops, lib in cases:
             got = kern()
             again = kern()
@@ -520,6 +571,72 @@ def profile_map_kernels(conf, rng) -> None:
             kern, _ = _map_calls(name, x, smap, packed_geometry(conf)["C"])
             print(f"kernel {name} bs={bs} site={site}: device_us="
                   f"{_device_us(kern, MAP_KERNEL_NAMES[name]):.3f}")
+
+
+# the figures of the two kernels' previous designs (PERF.md section 6, on
+# an NVIDIA H100 80GB HBM3 at 700 W), printed beside their device time
+PARENT_FIGURES = {
+    "dw_conv_packed_wgrad": "3.2912 ms a packed bs-4 step by events, 16 "
+                            "launches (~206 us a launch)",
+    "sru_recurrence": "2.4664 ms a uni bs-8 forward by events, 32 launches;"
+                      " ~70 us a launch of device time in a uni bs-4 step",
+}
+
+
+def profile_redesigned(conf, geo, rng) -> None:
+    """Phases 9b and 10e, last: the profiler's device microseconds per
+    launch of K5-wgrad (``dw_wgrad_kernel`` and its ``sum_partials_kernel``)
+    at its two bs-4 sites and of K4 forward (``sru_rec_fwd_kernel``) at the
+    uni bs-8 serving sites and the bs-4 training sites (with c), beside
+    the bound of the call and the parent's figure; after every timed
+    phase, as 7b."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+    from rtfs_tpu_torch.ops import sru_pallas as S
+
+    dev = torch.device("cuda")
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+
+    g = packed_geometry(conf)
+    T, Fq, C, k = (g[n] for n in ("T", "F", "C", "k"))
+    bs = TRAIN_BATCH
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    xp = t((bs, T, Fq * C))
+    for site, pads in (("same", same), ("pre-select", pre)):
+        t_out, f_out = P.dw_geometry(T, Fq, k, k, pads, pads)
+        gg = t((bs, t_out, f_out * C))
+        fn = functools.partial(P.dw_conv_packed_wgrad, xp, gg, Fq, C, (k, k),
+                               pads, pads)
+        us = _device_us(fn, "dw_wgrad_kernel")
+        sum_us = _device_us(fn, "sum_partials_kernel")
+        b_ms, b_by = bound_ms(4 * (bs * (T * Fq + t_out * f_out) * C
+                                   + k * k * C), 2 * k * k * bs * t_out
+                              * f_out * C)
+        wg = P.dw_wgrad_geometry(bs, C, t_out, f_out, k, k)
+        print(f"kernel dw_conv_packed_wgrad bs={bs} site={site}: device_us="
+              f"{us:.3f} + sum {sum_us:.3f}, bound_us={b_ms * 1e3:.3f} "
+              f"({b_by}), share of the bound {b_ms * 1e3 / (us + sum_us):.3f}"
+              f"; grid {wg['grid']} of {wg['threads']} threads, "
+              f"{wg['smem']} bytes of shared memory; parent: "
+              f"{PARENT_FIGURES['dw_conv_packed_wgrad']}")
+    H = geo["H"]
+    vb = torch.cat([t((2, H), math.sqrt(1.0 / H)), t((2, H), 0.1)])
+    for bs, with_c in ((8, False), (TRAIN_BATCH, True)):
+        for site in ("freq", "time"):
+            length, per_item = geo[site]
+            B = bs * per_item
+            u, x = t((length, 3 * H, B)), t((length, H, B))
+            us = _device_us(functools.partial(S._k4_forward, u, x, vb, False,
+                                              with_c), "sru_rec_fwd_kernel")
+            b_ms, b_by = bound_ms(4 * (length * B * (5 + with_c) * H + 4 * H),
+                                  20 * length * H * B)
+            print(f"kernel sru_recurrence bs={bs} site={site} with_c="
+                  f"{with_c} L={length} B={B}: device_us={us:.3f}, bound_us="
+                  f"{b_ms * 1e3:.3f} ({b_by}), {us / length * 1e3:.1f} ns a "
+                  f"step; parent: {PARENT_FIGURES['sru_recurrence']}")
 
 
 def _device_us(fn, kernel: str, iters: int = 20) -> float:
@@ -1227,11 +1344,13 @@ def compare_train_step(conf, batch, tag="") -> dict:
     return ref
 
 
-def hold_train_step(res, ref, on: str, off: str) -> None:
+def hold_train_step(res, ref, on: str, off: str, label: str = "training",
+                    stats: bool = True) -> None:
     """Hold the card's steps ``res[on]`` (cuDNN) and ``res[off]`` (cuDNN
     off) and the CPU's float32 step ``ref["cpu"]`` against the float64
     step ``ref["float64"]``: loss, gradients through the ``TRAIN_GRAD_*``
-    gates, and the card's BatchNorm statistics."""
+    gates, and (``stats``) the card's BatchNorm statistics; ``label``
+    prefixes the lines."""
     loss64, g64, stats64, _ = ref["float64"]
     res = {on: res[on], off: res[off], "cpu": ref["cpu"]}
     scale = {n: g.abs().max().item() for n, g in g64.items()}
@@ -1244,7 +1363,7 @@ def hold_train_step(res, ref, on: str, off: str) -> None:
             ((g - g64[n]).norm() / g64[n].norm().clamp(min=1e-300)).item()
             for n, g in r[1].items())
         worst = max(g64, key=lambda n: err[run][n] / (scale[n] + 1e-5 * g_max))
-        print(f"training: {run} against float64: loss {r[0]:.9f} / "
+        print(f"{label}: {run} against float64: loss {r[0]:.9f} / "
               f"{loss64:.9f}; gradients median rel_l2 {rel_l2:.3e}, worst "
               f"{worst} {err[run][worst]:.3e} on max|grad| "
               f"{scale[worst]:.3e}")
@@ -1268,19 +1387,21 @@ def hold_train_step(res, ref, on: str, off: str) -> None:
     for run, (tol, text) in gates.items():
         rows = sorted(((err[run][n] / tol(n), n) for n in g64), reverse=True)
         for r, n in rows[:4]:
-            print(f"training: {run}: grad {n}: max|grad|={scale[n]:.3e}, max "
+            print(f"{label}: {run}: grad {n}: max|grad|={scale[n]:.3e}, max "
                   f"abs error {err[run][n]:.3e} ({r:.3f} of the tolerance); "
                   f"against float64: {on} {err[on][n]:.3e}, {off} "
                   f"{err[off][n]:.3e}, cpu {err['cpu'][n]:.3e}")
-        print(f"training: {run}: {len(rows)} gradients, worst at "
+        print(f"{label}: {run}: {len(rows)} gradients, worst at "
               f"{rows[0][0]:.3f} of its tolerance ({text})")
         if rows[0][0] > 1.0:
             raise AssertionError(f"{rows[0][1]}: {run}: gradient error "
                                  f"{err[run][rows[0][1]]:.3e}")
+    if not stats:
+        return
     stat_err = max((((s - stats64[n]).abs() / stats64[n].abs().clamp(min=1.0))
                     .max().item() for n, s in res[on][2].items()),
                    default=math.inf)
-    print(f"training: {len(stats64)} BatchNorm statistics, {on} against "
+    print(f"{label}: {len(stats64)} BatchNorm statistics, {on} against "
           f"float64 max rel error {stat_err:.3e} (tol {TRAIN_STAT_TOL:.0e})")
     if not stat_err <= TRAIN_STAT_TOL:
         raise AssertionError(f"BatchNorm statistics: {len(stats64)} buffers, "
@@ -1330,7 +1451,7 @@ def profile_step(system, batch, generator, label: str,
 PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_proj_kernel",
                        "pw_unproj_kernel",
                        "spatial_down_kernel", "spatial_up_kernel",
-                       "dw_wgrad_partial_kernel", "pw_wgrad_partial_kernel",
+                       "dw_wgrad_kernel", "pw_wgrad_partial_kernel",
                        "sum_partials_kernel")
 
 # the device kernels of the main path whose share phase 6 prints, as the
@@ -1706,11 +1827,15 @@ def check_k4_kernels(geo, rng) -> dict:
             kern = functools.partial(S._k4_forward, u, x, vb, False, with_c)
             plain = functools.partial(S.sru_recurrence_plain, u, x, vb, False,
                                       with_c)
-            got, want = kern(), plain()
+            got, again, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             got = got if with_c else (got,)
+            again = again if with_c else (again,)
             want = want if with_c else (want,)
             err, _ = _max_err(got, want)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError(f"sru_recurrence bs {bs} {site}: two "
+                                     "calls differ")
             ms = time_cuda(kern, 50)
             plain_ms = time_cuda(plain, 3, warmup=1)
             # u, xhw read, h (and c) written, once each; ~20 flops a
@@ -1718,11 +1843,15 @@ def check_k4_kernels(geo, rng) -> dict:
             b_ms, b_by = bound_ms(4 * (length * B * (5 + with_c) * H + 4 * H),
                                   20 * length * H * B)
             what = " (training, with c)" if with_c else ""
+            geo4 = S.k4_fwd_geometry(length, H, B)
             print(f"kernel sru_recurrence{what} bs={bs} site={site} "
                   f"L={length} B={B}: max_abs_err="
-                  f"{err:.3e} (tol {K4_TOL:.0e}) ms={ms:.5f} "
-                  f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
-                  "library_ms=None")
+                  f"{err:.3e} (tol {K4_TOL:.0e}) bit-identical=True "
+                  f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} "
+                  f"({b_by}) library_ms=None; block {geo4['cols']} columns "
+                  f"x {geo4['units']} units, grid {geo4['grid']}, "
+                  f"{geo4['ahead']} steps ahead; {ms / length * 1e6:.1f} ns "
+                  "a step")
             if not err <= K4_TOL:
                 raise AssertionError("sru_recurrence disagrees with its "
                                      f"plain version: {err:.3e}")
@@ -1785,6 +1914,31 @@ def check_k4_kernels(geo, rng) -> dict:
             r["plain_ms"] += per_site * plain_ms
             r["bound_ms"] += per_site * b_ms
             r["bound_by"] = b_by
+    # the route of an SRU wider than the fused stack takes (H 80, K4 a
+    # layer and direction) at the bs-8 serving sites, both directions
+    hw = WIDE_HIDDEN[-1]
+    vbw = torch.cat([t((2, hw), math.sqrt(1.0 / hw)), t((2, hw), 0.1)])
+    for site in ("freq", "time"):
+        length, per_item = geo[site]
+        B = 8 * per_item
+        u, x = t((length, 3 * hw, B)), t((length, hw, B))
+        for reverse in (False, True):
+            kern = functools.partial(S._k4_forward, u, x, vbw, reverse, False)
+            got, again = kern(), kern()
+            want = S.sru_recurrence_plain(u, x, vbw, reverse)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ms = time_cuda(kern, 30)
+            b_ms, b_by = bound_ms(4 * (length * B * 5 * hw + 4 * hw),
+                                  20 * length * hw * B)
+            print(f"kernel sru_recurrence H={hw} bs=8 site={site} "
+                  f"reverse={reverse} L={length} B={B}: max_abs_err="
+                  f"{err:.3e} (tol {K4_TOL:.0e}) bit-identical="
+                  f"{torch.equal(got, again)} ms={ms:.5f} bound_ms="
+                  f"{b_ms:.5f} ({b_by}); {ms / length * 1e6:.1f} ns a step")
+            if not (err <= K4_TOL and torch.equal(got, again)):
+                raise AssertionError(f"sru_recurrence H {hw} {site}: "
+                                     f"{err:.3e}, or two calls differ")
     return res
 
 
@@ -1865,6 +2019,100 @@ def unidirectional(conf_uni, geo, rng) -> tuple:
     return k4, served, trained
 
 
+# the "wide" phase's hid_chan: above what K3 takes (2H over 64 input
+# channels) and above what the fused stack takes (K2 forward: H up to 68)
+WIDE_HIDDEN = (48, 80)
+
+
+def _sum_launches(*counts) -> dict:
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
+
+
+def wide(geo, rng) -> None:
+    """Phase "wide": a pair of DualPathRNNs (dim 4, then dim 3) at the
+    preset's in_chan, window and layers and the main path's pooled (T, F),
+    at each H of ``WIDE_HIDDEN`` (weights from a seed): one bs-1 forward on
+    the card against the port's CPU run (``SERVE_REL_TOL`` of max), then
+    one bs-4 train step (mean square loss against a random target) on the
+    card with cuDNN and without it, held through phase 6's gates against
+    the same step in float32 and float64 on the CPU. The launches of the
+    card's forward and step must be those ``rnn_launches`` derives from
+    the route predicates."""
+    import copy
+
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    c, k, layers = geo["C"], geo["k"], geo["layers"]
+    t_len, f_len = geo["freq"][1], geo["time"][1]
+    for h in WIDE_HIDDEN:
+        cpu = torch.nn.Sequential(
+            DualPathRNN(c, h, dim=4, kernel_size=k, num_layers=layers),
+            DualPathRNN(c, h, dim=3, kernel_size=k, num_layers=layers))
+        init_weights(cpu, torch.Generator().manual_seed(h))
+        card = copy.deepcopy(cpu).to("cuda")
+        per_fwd = _sum_launches(
+            *[rnn_launches(c, h, k, layers) for _ in range(2)])
+        routes = [f"dim {m.dim}: fused stack {m.rnn.uses_fused_stack}, "
+                  f"K3 tail {m.uses_k3_tail}" for m in cpu]
+        print(f"wide H {h}: {'; '.join(routes)}; launches a forward "
+              f"{per_fwd}")
+        x = torch.from_numpy(rng.standard_normal((1, c, t_len, f_len)).astype(
+            np.float32))
+        kernel_lib.reset_launches()
+        with torch.no_grad():
+            got = card(x.cuda()).cpu()
+        launches = dict(kernel_lib.LAUNCHES)
+        with torch.no_grad():
+            want = cpu(x)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"wide H {h}: bs=1 card vs cpu max_abs_err={err:.3e} "
+              f"max|out|={scale:.3e} (tol {SERVE_REL_TOL:.0e} * max|out|); "
+              f"launches {launches}")
+        if launches != per_fwd:
+            raise AssertionError(f"wide H {h}: launches {launches} != "
+                                 f"{per_fwd}")
+        if not (got.shape == want.shape and err <= SERVE_REL_TOL * scale):
+            raise AssertionError(f"wide H {h}: card and CPU outputs disagree")
+
+        x = torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, c, t_len, f_len)).astype(np.float32))
+        tgt = torch.from_numpy(rng.standard_normal(x.shape).astype(
+            np.float32))
+
+        def step(dev, dtype, cudnn):
+            m = copy.deepcopy(cpu).to(dev, dtype)
+            torch.backends.cudnn.enabled = cudnn
+            try:
+                loss = (m(x.to(dev, dtype)) - tgt.to(dev, dtype)).square(
+                    ).mean()
+                loss.backward()
+            finally:
+                torch.backends.cudnn.enabled = True
+            return loss.item(), {n: p.grad.to("cpu", torch.float64)
+                                 for n, p in m.named_parameters()}, {}, 0.0
+
+        kernel_lib.reset_launches()
+        on, off = f"wide H {h} card", f"wide H {h} card, cuDNN off"
+        res = {on: step("cuda", torch.float32, True)}
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)
+        res[off] = step("cuda", torch.float32, False)
+        ref = {"cpu": step("cpu", torch.float32, True),
+               "float64": step("cpu", torch.float64, True)}
+        expect = _sum_launches(per_fwd, {n.replace("_fwd", "_bwd"): v
+                                         for n, v in per_fwd.items()})
+        print(f"wide H {h}: bs={TRAIN_BATCH} train step launches {launches} "
+              f"(expected {expect})")
+        if launches != expect:
+            raise AssertionError(f"wide H {h}: step launches {launches}")
+        hold_train_step(res, ref, on, off, label=f"wide H {h}", stats=False)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1910,7 +2158,10 @@ def main() -> int:
     conf_uni = parse_overrides(load_config(PRESET), list(UNI_OVERRIDES))
     k4, uni_served, uni_trained = phase("10 unidirectional", unidirectional,
                                         conf_uni, geo, rng)
+    phase("wide", wide, geo, rng)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
+    phase("9b, 10e K5-wgrad, K4 forward device time", profile_redesigned,
+          conf, geo, rng)
 
     sources = {
         "sru_dual_recurrence": ("rtfs_tpu_torch/csrc/sru_fused.cu",

@@ -50,8 +50,12 @@
 //     shared memory, so each packed row of 64 channels (256 bytes) is
 //     written as 16-byte chunks. Each output is summed by one warp in one
 //     fixed order: two calls give the same bits. W's split slice takes
-//     128 floats a k, so K is at most 256 (ops/packed_tf.pw_proj_geometry
-//     mirrors the grid and the shared memory, and refuses a larger K).
+//     128 floats a k, so a block holds at most kProjSlice = 256 k of it:
+//     a larger K (512 in the CTCNet and TDFNet presets' bottleneck) is
+//     walked a slice at a time, each slice over all the block's tiles, the
+//     later slices' epilogues adding to the output the earlier ones wrote
+//     (ops/packed_tf.pw_proj_geometry mirrors the grid and the shared
+//     memory).
 // K7  pw_unproj_packed_fwd    replaces _make_pw_unproj_kernel
 //     (pallas_call in _pw_unproj_impl): out[b, n, p] = bias[n] + sum_k
 //     x[b, p, k] w[k, n], packed in, rank-4 out; also K6's dx.
@@ -113,14 +117,22 @@
 //                     * x[b, t+dt-pt_lo, (f+df-pf_lo)*C+c]
 //     with x = 0 off the map. Bound on the H100: bytes (x and g read once,
 //     2*kT*kF flops per 8 bytes). The TPU carries one accumulator through
-//     its sequential grid; here blocks run in parallel, so each block (32
-//     output rows x 512 / C f positions x a batch row) sums its share into
-//     one (kT, kF, C) partial, and a second kernel adds the partials in a
-//     fixed order: no float atomics, two runs give bit-identical dW. Inside
-//     a block, each 8-row tile stages its x window as K5 does (zero-filled
-//     off the map) and its g rows in shared memory; each thread owns
-//     (tap, channel) pairs, neighbouring threads on neighbouring channels,
-//     and sums over the tile's rows and f positions in a register.
+//     its sequential grid; here blocks run in parallel, so each block sums
+//     its share into one (kT, kF, C) partial, and a second kernel adds the
+//     partials in a fixed order: no float atomics, two runs give
+//     bit-identical dW. Design (dw_wgrad_kernel): one wave of blocks, each
+//     owning a run of output rows (of all B*T_out), a tile of f positions
+//     and a block of 64 channels. A thread owns 4 consecutive channels,
+//     one tap row dt and kWgTaps taps along f: 4 kWgTaps sums in
+//     registers. It walks its positions of the tile with a window of
+//     kWgTaps x values in registers, so a position costs one 16-byte load
+//     of g and one of x from shared memory for 4 kWgTaps FMAs (the first
+//     design read two floats a FMA and ran at 1/8 of the FMA rate). The
+//     rows stream through a cp.async ring of 16-byte copies, the next
+//     row's in flight while the threads take this one: a row adds one x
+//     row (the tap rows before it are in the ring) and one g row. kT and
+//     kF are template arguments at the presets' 4 x 4, runtime values
+//     otherwise (kF in groups of kWgTaps taps).
 //
 // pw-wgrad  pw_packed_wgrad     replaces _make_pw_wgrad_kernel
 //     (pallas_call in _pw_wgrad_impl): dW (Ca, Cb) = sum_p a[p,:]^T g[p,:]
@@ -154,11 +166,17 @@ constexpr int kProjN = 64;
 constexpr int kProjK = 32;
 constexpr int kProjStages = 3;
 constexpr int kProjPad = 8;
+constexpr int kProjSlice = 256;  // k rows of W a block holds split at once
+constexpr int kSliceStages = kProjSlice / kProjK;
 constexpr int kMapPad = 4;     // K8/K9 tile: floats past round_up(C, 4) a row
 constexpr int kMapBlocks = 4;  // K8/K9 blocks an SM: at most 64 registers
 constexpr int kK8Items = 2;   // K8: chunks a thread loads at once
 constexpr int kK9Items = 4;   // K9: chunks a thread loads at once
-constexpr int kWgRows = 32;    // K5-wgrad output rows per block (4 tiles of 8)
+// K5-wgrad (ops/packed_tf.py mirrors them): threads a block when the taps
+// are template arguments, and at most; the taps of a thread's window
+constexpr int kWgThreads = 256;
+constexpr int kWgMaxThreads = 1024;
+constexpr int kWgTaps = 4;
 constexpr int kPwPos = 1024;   // pw-wgrad positions per block
 constexpr int kPwK = 32;       // pw-wgrad positions per staged slice
 constexpr long long kMaxSmem = 227 * 1024;
@@ -302,7 +320,7 @@ __device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
                      fmaf(w, v.w, a.w));
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
@@ -311,31 +329,52 @@ __host__ __device__ __forceinline__ int round_up(int a, int m) {
 }
 
 // K6's shared floats for a reduction depth K: W's slice split into big
-// and small halves in B-fragment order (K padded to whole stages, 128
-// floats a k), the ring, the output tile (ops/packed_tf.pw_proj_smem)
+// and small halves in B-fragment order (K padded to whole stages, at most
+// kProjSlice k, 128 floats a k), the ring, the output tile
+// (ops/packed_tf.pw_proj_smem)
 __host__ __device__ __forceinline__ int proj_smem_floats(int K) {
-  return round_up(K, kProjK) * 2 * kProjN +
+  return min(round_up(K, kProjK), kProjSlice) * 2 * kProjN +
          kProjStages * kProjK * (kProjM + kProjPad) +
          kProjM * (kProjN + kProjPad);
 }
 
 // A place in a K6 block's sequence of stages: the tile (its batch row b
-// and first position m0), the k stage within it and the ring slot. Stage
-// s + 1 follows s: the next k stage, or the block's next tile (gridDim.x
-// tiles on); the slot goes round the ring.
+// and first position m0), the k stage, the ring slot, and k_lo, the first
+// k stage of the slice of W (kSliceStages stages, the last one shorter)
+// that the stage multiplies. Stage s + 1 follows s: the slice's next k
+// stage, or the slice's first k stage of the block's next tile (gridDim.x
+// tiles on), or, past the block's last tile, the next slice's first k
+// stage at the block's first tile; the slot goes round the ring.
+// kSliced false (K <= kProjSlice, one slice): k_lo stays 0 and the next
+// stage after a tile's last is the block's next tile.
 struct ProjCursor {
-  int b, mt, kst, slot;  // mt: the tile's index among its row's M tiles
-  __device__ __forceinline__ void next(int ks, int m_tiles) {
+  int b, mt, kst, slot, k_lo;  // mt: the tile's index among its row's tiles
+  template <bool kSliced>
+  __device__ __forceinline__ void next(int ks, int m_tiles, int tiles) {
     if (++slot == kProjStages) slot = 0;
-    if (++kst < ks) return;
-    kst = 0;
-    mt += gridDim.x;
-    b += mt / m_tiles;
-    mt %= m_tiles;
+    if (!kSliced) {
+      if (++kst < ks) return;
+      kst = 0;
+      mt += gridDim.x;
+      b += mt / m_tiles;
+      mt %= m_tiles;
+      return;
+    }
+    if (++kst < min(k_lo + kSliceStages, ks)) return;
+    long long t = (long long)b * m_tiles + mt + gridDim.x;
+    if (t >= tiles) {
+      t = blockIdx.x;
+      k_lo += kSliceStages;
+    }
+    b = (int)(t / m_tiles);
+    mt = (int)(t - (long long)b * m_tiles);
+    kst = k_lo;
   }
 };
 
-// grid (blocks, ceil(N / kProjN)), kProjThreads threads, one block an SM.
+// grid (blocks, ceil(N / kProjN)), kProjThreads threads, one block an SM;
+// kSliced where K > kProjSlice (the one-slice instantiation keeps no
+// slice bookkeeping: measured 5-7% slower with it at K 256).
 // x (B, K, M), w (K, N) through its strides, out (B, M, N). Block (x, y)
 // keeps W[:, n0 .. n0 + kProjN) and walks the tiles x, x + gridDim.x, ...
 // of the B * ceil(M / kProjM) (batch row, positions) tiles. Its stages
@@ -344,16 +383,22 @@ struct ProjCursor {
 // waits for stage s, issues stage s + kProjStages - 1 into the slot
 // iteration s - 1 read, then multiplies stage s.
 //
-// W's slice is split once, as the block starts: entry e = (k step, n8
-// tile, lane) of w4 holds the lane's B fragment of that step and tile,
-// (b0, b1) big then small, so a warp reads a fragment in one 16-byte load
-// a lane with no split. A row of x starts anywhere (M = 251 * 129 at the
+// W is taken a slice of kProjSlice k rows at a time, so any K fits: the
+// block walks all its tiles with one slice, then all again with the next
+// (K <= kProjSlice, every preset's, is one slice and one walk). A slice is
+// split as the block reaches it: entry e = (k step, n8 tile, lane) of w4
+// holds the lane's B fragment of that step and tile, (b0, b1) big then
+// small, so a warp reads a fragment in one 16-byte load a lane with no
+// split. The first slice's epilogue writes bias + its sums, each later
+// slice's adds its sums to what the same thread wrote there before, so
+// every output is still summed in one fixed order. A row of x starts anywhere (M = 251 * 129 at the
 // preset is odd): a stage copies each k row's 128 positions as the 33
 // 16-byte blocks that hold them, from the block of the first, so the row
 // lands shifted by the first's offset in it, 0-3 floats, the same for
 // rows 4 apart (4 M is a multiple of 4). A thread copies the same (row,
 // block) pairs every stage. The big products' sums are added to acc once
 // a stage (hk::mma3_apart).
+template <bool kSliced>
 __global__ void __launch_bounds__(kProjThreads, 1)
 pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out,
@@ -365,8 +410,8 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   static_assert(4 * kChunks <= XS, "a staged row holds its blocks");
   extern __shared__ float4 smem4[];
   const int kp = round_up(K, kProjK), ks = kp / kProjK;
-  const int w_entries = kp / 8 * (kProjN / 8) * 32;
-  float4* w4 = smem4;  // (kp / 8, kProjN / 8, 32 lanes): B fragments
+  const int w_entries = min(kp, kProjSlice) / 8 * (kProjN / 8) * 32;
+  float4* w4 = smem4;  // (slice / 8, kProjN / 8, 32 lanes): B fragments
   float* x_s = reinterpret_cast<float*>(w4 + w_entries);
   float* o_s = x_s + kProjStages * kProjK * XS;  // (kProjM, WS): out[m][n]
   const int tid = threadIdx.x, n0 = blockIdx.y * kProjN;
@@ -398,7 +443,8 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   // the stage at `at` into its slot, one commit group (empty past the
   // block's last stage)
-  ProjCursor ld{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
+  ProjCursor ld{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0,
+                0};
   auto load_stage = [&](int s, const ProjCursor& at) {
     if (s < total) {
       float* dst = x_s + at.slot * kProjK * XS;
@@ -422,30 +468,35 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   };
   for (int s = 0; s < kProjStages - 1; ++s) {
     load_stage(s, ld);
-    ld.next(ks, m_tiles);
+    ld.next<kSliced>(ks, m_tiles, tiles);
   }
 
-  // W's slice split into B fragments: entry e = (k step, n8 tile, lane
-  // (g, q)) holds W[k][n], W[k + 4][n], k = 8 step + q, n = n0 + 8 tile + g;
-  // unrolled so that a thread's loads (16 entries at K 256) are in flight
-  // together
+  // W's slice from k stage k_lo split into B fragments: entry e = (k
+  // step, n8 tile, lane (g, q)) holds W[k][n], W[k + 4][n], k = k_lo *
+  // kProjK + 8 step + q, n = n0 + 8 tile + g; unrolled so that a thread's
+  // loads (16 entries at a whole slice) are in flight together
+  auto split_w = [&](int k_lo) {
+    const int k_base = k_lo * kProjK;
+    const int entries = min(kp - k_base, kProjSlice) / 8 * (kProjN / 8) * 32;
 #pragma unroll 16
-  for (int e = tid; e < w_entries; e += kProjThreads) {
-    const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
-    const int k = (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
-    const int n = n0 + 8 * tile8 + (lane >> 2);
-    float v[2];
+    for (int e = tid; e < entries; e += kProjThreads) {
+      const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
+      const int k = k_base + (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
+      const int n = n0 + 8 * tile8 + (lane >> 2);
+      float v[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      v[h] = k + 4 * h < K && n < N
-                 ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
-                 : 0.f;
-    uint32_t big[2], small[2];
-    hk::split(v[0], big[0], small[0]);
-    hk::split(v[1], big[1], small[1]);
-    w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
-                        __uint_as_float(small[0]), __uint_as_float(small[1]));
-  }
+      for (int h = 0; h < 2; ++h)
+        v[h] = k + 4 * h < K && n < N
+                   ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
+                   : 0.f;
+      uint32_t big[2], small[2];
+      hk::split(v[0], big[0], small[0]);
+      hk::split(v[1], big[1], small[1]);
+      w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                          __uint_as_float(small[0]), __uint_as_float(small[1]));
+    }
+  };
+  split_w(0);
 
   // the warp's 16 x 32 tile: positions wm * 16 .., channels wn * 32 ..;
   // the lane's bias for its accumulators' columns
@@ -468,10 +519,13 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int v = 0; v < 4; ++v)
       acc[0][nb][v] = part[0][nb][v] = corr[0][nb][v] = 0.f;
 
-  // the tile's sums + bias through o_s to out, 16-byte chunks of the
-  // packed rows; the sums back to 0
+  // the tile's sums through o_s to out, 16-byte chunks of the packed rows,
+  // + bias (the first slice) or + what the first slices wrote there (the
+  // same thread's earlier store: plain loads, not the read-only path); the
+  // sums back to 0
   const bool vec_out = (N & 3) == 0 && aligned16(out);
   auto epilogue = [&](const ProjCursor& at) {
+    const bool first = !kSliced || at.k_lo == 0;
     // D: c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
@@ -479,7 +533,8 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float v4[4];
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
-        v4[v] = acc[0][nb][v] + corr[0][nb][v] + bias_r[nb][v & 1];
+        v4[v] = acc[0][nb][v] + corr[0][nb][v] +
+                (first ? bias_r[nb][v & 1] : 0.f);
         acc[0][nb][v] = corr[0][nb][v] = 0.f;
       }
       *reinterpret_cast<float2*>(o) = make_float2(v4[0], v4[1]);
@@ -491,9 +546,17 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int e = tid; e < kProjM * kProjN / 4; e += kProjThreads) {
       const int r = e / (kProjN / 4), c = 4 * (e % (kProjN / 4));
       if (m0 + r >= M || n0 + c >= N) continue;
-      store_chunk(ob + (long long)r * N + c,
-                  *reinterpret_cast<const float4*>(o_s + r * WS + c),
-                  N - n0 - c, vec_out);
+      float* o = ob + (long long)r * N + c;
+      float4 v = *reinterpret_cast<const float4*>(o_s + r * WS + c);
+      if (!first) {
+        const int n = N - n0 - c;
+        const float4 was =
+            vec_out ? *reinterpret_cast<const float4*>(o)
+                    : make_float4(o[0], n > 1 ? o[1] : 0.f,
+                                  n > 2 ? o[2] : 0.f, n > 3 ? o[3] : 0.f);
+        v = make_float4(v.x + was.x, v.y + was.y, v.z + was.z, v.w + was.w);
+      }
+      store_chunk(o, v, N - n0 - c, vec_out);
     }
     // the next write of o_s comes after the next stage's barrier
   };
@@ -502,18 +565,25 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // g+8 of the warp's m16 tile, each row shifted as it landed
   const float* xl = x_s + q * XS + wm * 16 + g;
   const float4* wl = w4 + wn * 4 * 32 + (tid & 31);
-  ProjCursor at{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
+  ProjCursor at{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0,
+                0};
   for (int s = 0; s < total; ++s) {
     hk::cp_async_wait<kProjStages - 2>();
     __syncthreads();  // stage s (and W's split) is in; every warp is done
                       // with stage s - 1
     load_stage(s + kProjStages - 1, ld);
-    ld.next(ks, m_tiles);
+    ld.next<kSliced>(ks, m_tiles, tiles);
+    if (kSliced && at.k_lo > 0 && at.kst == at.k_lo &&
+        at.b * m_tiles + at.mt == (int)blockIdx.x) {
+      split_w(at.k_lo);  // a new slice: no warp reads the last one now
+      __syncthreads();
+    }
     const int k0 = at.kst * kProjK;
     const uint32_t shift = (x4 + (uint32_t)(at.b * K + k0 + q) * (uint32_t)M +
                             (uint32_t)(at.mt * kProjM)) & 3u;
     const float* xa = xl + at.slot * kProjK * XS + shift;
-    const float4* wb = wl + at.kst * (kProjK / 8) * (kProjN / 8) * 32;
+    const float4* wb = wl + (at.kst - (kSliced ? at.k_lo : 0)) *
+                                (kProjK / 8) * (kProjN / 8) * 32;
 #pragma unroll
     for (int kk = 0; kk < kProjK; kk += 8) {
       hk::FragA a[1];
@@ -540,8 +610,9 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
         acc[0][nb][v] += part[0][nb][v];
         part[0][nb][v] = 0.f;
       }
-    if (at.kst == ks - 1) epilogue(at);
-    at.next(ks, m_tiles);
+    if (at.kst + 1 == (kSliced ? min(at.k_lo + kSliceStages, ks) : ks))
+      epilogue(at);
+    at.next<kSliced>(ks, m_tiles, tiles);
   }
   hk::cp_async_wait_all();
 }
@@ -759,64 +830,165 @@ spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-// grid (ceil(F_out / FT), ceil(T_out / kWgRows), B). x packed (B, T_in,
-// F_in*C), g packed (B, T_out, F_out*C); each block writes its (KT*KF*C)
-// partial of dW to its row of partial.
-__global__ void __launch_bounds__(kThreads)
-dw_wgrad_partial_kernel(const float* __restrict__ x,
-                        const float* __restrict__ g,
-                        float* __restrict__ partial, int T_in, int F_in,
-                        int C, int T_out, int F_out, int KT, int KF,
-                        int pt_lo, int pf_lo, int FT) {
-  extern __shared__ float smem[];
-  const int rows_in = kDwRows + KT - 1;
-  const int cols_in = (FT + KF - 1) * C;
-  const int cols = FT * C;
-  const int n_acc = KT * KF * C;
-  float* x_s = smem;                     // (rows_in, cols_in)
-  float* g_s = x_s + rows_in * cols_in;  // (kDwRows, cols)
-  float* acc_s = g_s + kDwRows * cols;   // (KT * KF, C), entry e owned by
-                                         // thread e % kThreads
-  const int b = blockIdx.z, f0 = blockIdx.x * FT, tid = threadIdx.x;
-  const int t_begin = blockIdx.y * kWgRows;
-  const int t_end = min(T_out, t_begin + kWgRows);
-  const float* xb = x + (long long)b * T_in * F_in * C;
-  const float* gb = g + (long long)b * T_out * F_out * C;
-  for (int e = tid; e < n_acc; e += kThreads) acc_s[e] = 0.f;
+// K5-wgrad's shared floats: the ring of kt + 2 x rows of FT + 4 G - 1
+// positions and 3 g rows of FT positions, 4 QB channels a position, or the
+// end's exchange of every thread's 16 sums where that is more
+// (ops/packed_tf.dw_wgrad_geometry)
+__host__ __device__ __forceinline__ int wgrad_smem_floats(int KT, int KF,
+                                                          int QB, int S,
+                                                          int P) {
+  const int G = (KF + kWgTaps - 1) / kWgTaps, FT = S * P;
+  const int ring = ((KT + 2) * (FT + kWgTaps * G - 1) + 3 * FT) * 4 * QB;
+  return max(ring, QB * G * KT * S * 16);
+}
 
-  for (int t0 = t_begin; t0 < t_end; t0 += kDwRows) {
-    __syncthreads();  // the previous tile's shared reads are done
-    for (int e = tid; e < rows_in * cols_in; e += kThreads) {
-      const int r = e / cols_in, j = e % cols_in;
-      const int t = t0 - pt_lo + r, f = f0 - pf_lo + j / C;
-      float v = 0.f;
-      if (t >= 0 && t < T_in && f >= 0 && f < F_in)
-        v = xb[((long long)t * F_in + f) * C + j % C];
-      x_s[e] = v;
-    }
-    for (int e = tid; e < kDwRows * cols; e += kThreads) {
-      const int r = e / cols, col = e % cols;
-      const int t = t0 + r, f = f0 + col / C;
-      g_s[e] = (t < t_end && f < F_out)
-                   ? gb[((long long)t * F_out + f) * C + col % C]
-                   : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < n_acc; e += kThreads) {
-      const int c = e % C, tap = e / C, dt = tap / KF, df = tap % KF;
-      float s = 0.f;
-      for (int r = 0; r < kDwRows; ++r) {
-        const float* gr = g_s + r * cols + c;
-        const float* xr = x_s + (r + dt) * cols_in + df * C + c;
-        for (int fl = 0; fl < FT; ++fl) s = fmaf(gr[fl * C], xr[fl * C], s);
+// float4 a += g * w, channel by channel
+__device__ __forceinline__ void fma4v(float4 g, float4 w, float4& a) {
+  a.x = fmaf(g.x, w.x, a.x);
+  a.y = fmaf(g.y, w.y, a.y);
+  a.z = fmaf(g.z, w.z, a.z);
+  a.w = fmaf(g.w, w.w, a.w);
+}
+
+// grid (runs, ceil(F_out / FT), ceil(ceil(C / 4) / QB)), QB * G * KT * S
+// threads (G = ceil(KF / kWgTaps) tap groups, FT = S * P positions a
+// tile), KT_ / KF_ the kernel's taps or 0 (runtime KT, KF). x packed
+// (B, T_in, F_in*C), g packed (B, T_out, F_out*C); block (x, y, z) writes
+// its sums for the channels of its z to row y * gridDim.x + x of partial
+// (KT, KF, C).
+//
+// Block (x, y, z) owns the output rows [x R / runs, (x + 1) R / runs) of
+// the R = B * T_out rows in (b, t) order, the f tile y and the channel
+// block z (4 QB channels). Thread (quad, group, dt, seg), quad fastest,
+// owns channels 4 quad .. + 3 of the block, tap row dt and the taps df =
+// kWgTaps group .. + kWgTaps - 1 (those below KF), and positions seg * P
+// .. + P - 1 of the tile: 4 x kWgTaps sums in registers. A row's step
+// streams the x row the step adds and the g row through a cp.async ring
+// of 16-byte copies (4-byte ones where C % 4 != 0 or a pointer is not
+// 16-byte aligned), zero past the map and past C: kt + 2 x rows and 3 g
+// rows, the copies of the next step in flight while the threads walk
+// this one. A thread walks its positions with a window of kWgTaps x
+// values in registers (one 16-byte load of x and one of g a position for
+// 4 kWgTaps FMAs). Rows of another batch row start the ring again. At
+// the end the segments' sums meet in shared memory and the seg-0 threads
+// add them in order: every partial is summed in one fixed order.
+template <int KT_, int KF_>
+__global__ void __launch_bounds__(KT_ ? kWgThreads : kWgMaxThreads)
+dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                float* __restrict__ partial, int B, int T_in, int F_in,
+                int C, int T_out, int F_out, int KT, int KF, int pt_lo,
+                int pf_lo, int QB, int S, int P, int vec) {
+  extern __shared__ float4 smem4[];
+  const int kt = KT_ ? KT_ : KT, kf = KF_ ? KF_ : KF;
+  const int G = (kf + kWgTaps - 1) / kWgTaps, NX = kt + 2;
+  const int FT = S * P, XW = FT + kWgTaps * G - 1;
+  float4* xs = smem4;            // NX x rows of (XW, QB) float4
+  float4* gs = xs + NX * XW * QB;  // 3 g rows of (FT, QB) float4
+  const int tid = threadIdx.x, quad = tid % QB;
+  const int grp = tid / QB % G, dt = tid / (QB * G) % kt;
+  const int seg = tid / (QB * G * kt);
+  const int f0 = blockIdx.y * FT, c0 = blockIdx.z * 4 * QB;
+  const long long rows = (long long)B * T_out;
+  long long r = rows * blockIdx.x / gridDim.x;
+  const long long r_end = rows * (blockIdx.x + 1) / gridDim.x;
+
+  // one row of (positions, QB quads) from the packed row src (f of the
+  // slot's position 0 at f_lo, f_max positions in the map; ok false for a
+  // row off the map) into dst, zero off the map and past C
+  auto stage = [&](float4* dst, const float* src, int f_lo, int f_max,
+                   int positions, bool ok) {
+    float* d = reinterpret_cast<float*>(dst);
+    for (int e = tid; e < positions * QB; e += blockDim.x) {
+      const int p = e / QB, q = e - p * QB, f = f_lo + p, c = c0 + 4 * q;
+      const bool in = ok && f >= 0 && f < f_max;
+      const float* s = src + (long long)f * C + c;
+      if (vec) {
+        hk::cp_async16(d + 4 * e, in && c < C ? s : x, in && c < C);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          hk::cp_async4(d + 4 * e + k, in && c + k < C ? s + k : x,
+                        in && c + k < C);
       }
-      acc_s[e] += s;
     }
+  };
+
+  float4 acc[kWgTaps];
+#pragma unroll
+  for (int j = 0; j < kWgTaps; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  while (r < r_end) {  // a run of rows of one batch row
+    const int b = (int)(r / T_out), t_lo = (int)(r - (long long)b * T_out);
+    const int n = (int)min(r_end - r, (long long)(T_out - t_lo));
+    r += n;
+    const float* xb = x + (long long)b * T_in * F_in * C;
+    const float* gb = g + (long long)b * T_out * F_out * C;
+    // step i's group: x rows j = 0 .. kt-1 (i = 0) or j = i + kt - 1 (the
+    // input row t_lo - pt_lo + j, slot j % NX), and g row t_lo + i (slot
+    // i % 3); empty past the run
+    auto issue = [&](int i) {
+      if (i < n) {
+        for (int j = i ? i + kt - 1 : 0; j < i + kt; ++j) {
+          const int t = t_lo - pt_lo + j;
+          const bool ok = t >= 0 && t < T_in;
+          stage(xs + (j % NX) * XW * QB, xb + (long long)(ok ? t : 0) * F_in * C,
+                f0 - pf_lo, F_in, XW, ok);
+        }
+        stage(gs + (i % 3) * FT * QB, gb + (long long)(t_lo + i) * F_out * C,
+              f0, F_out, FT, true);
+      }
+      hk::cp_async_commit();
+    };
+    issue(0);
+    issue(1);
+    for (int i = 0; i < n; ++i) {
+      hk::cp_async_wait<1>();
+      __syncthreads();  // step i is in; every thread is done with step
+                        // i - 1, whose slots step i + 2 takes
+      issue(i + 2);
+      const float4* xr =
+          xs + ((i + dt) % NX) * XW * QB + (seg * P + kWgTaps * grp) * QB + quad;
+      const float4* gr = gs + (i % 3) * FT * QB + seg * P * QB + quad;
+      float4 w[kWgTaps];
+#pragma unroll
+      for (int j = 0; j < kWgTaps - 1; ++j) w[j] = xr[j * QB];
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        w[kWgTaps - 1] = xr[(p + kWgTaps - 1) * QB];
+        const float4 gv = gr[p * QB];
+#pragma unroll
+        for (int j = 0; j < kWgTaps; ++j) fma4v(gv, w[j], acc[j]);
+#pragma unroll
+        for (int j = 0; j < kWgTaps - 1; ++j) w[j] = w[j + 1];
+      }
+    }
+    hk::cp_async_wait_all();
+    __syncthreads();  // the ring is free for the next run
   }
-  float* pb = partial +
-              ((long long)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-               blockIdx.x) * n_acc;
-  for (int e = tid; e < n_acc; e += kThreads) pb[e] = acc_s[e];
+
+  // the segments' sums, added in order by the seg-0 threads
+  const int units = QB * G * kt;
+#pragma unroll
+  for (int j = 0; j < kWgTaps; ++j) smem4[tid * kWgTaps + j] = acc[j];
+  __syncthreads();
+  if (seg != 0) return;
+  float* pr = partial + (long long)(blockIdx.y * gridDim.x + blockIdx.x) *
+                            kt * kf * C;
+#pragma unroll
+  for (int j = 0; j < kWgTaps; ++j) {
+    float4 s = smem4[tid * kWgTaps + j];
+    for (int sg = 1; sg < S; ++sg) {
+      const float4 v = smem4[(sg * units + tid) * kWgTaps + j];
+      s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+    }
+    const int df = kWgTaps * grp + j, c = c0 + 4 * quad;
+    if (df >= kf) continue;
+    float* o = pr + (long long)(dt * kf + df) * C + c;
+    if (c < C) o[0] = s.x;
+    if (c + 1 < C) o[1] = s.y;
+    if (c + 2 < C) o[2] = s.z;
+    if (c + 3 < C) o[3] = s.w;
+  }
 }
 
 // grid (ceil(M / kPwPos), ceil(Ca / 64) * ceil(Cb / 64), B), 256 threads.
@@ -992,10 +1164,12 @@ extern "C" int pw_proj_packed_fwd(const void* x, const void* w,
       !grid_ok((N + kProjN - 1) / kProjN, 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)proj_smem_floats(K) * sizeof(float);
-  cudaError_t e = allow_smem((const void*)pw_proj_kernel, smem);
+  const auto kernel =
+      K > kProjSlice ? pw_proj_kernel<true> : pw_proj_kernel<false>;
+  cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  pw_proj_kernel<<<dim3(blocks, (N + kProjN - 1) / kProjN), kProjThreads, smem,
-                   (cudaStream_t)stream>>>(
+  kernel<<<dim3(blocks, (N + kProjN - 1) / kProjN), kProjThreads, smem,
+           (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const float*)bias, (float*)out, B, M,
       K, N, wsk, wsn);
   return (int)cudaGetLastError();
@@ -1064,29 +1238,40 @@ extern "C" int spatial_up_packed_fwd(const void* x, void* out, const void* ts,
 }
 
 // x (B, T_in, F_in*C), g (B, T_out, F_out*C) packed; out (KT, KF, C);
-// partial holds n_part rows of KT*KF*C, one a block (the wrapper sizes it,
-// and a grid of another size is refused)
+// QB quads a block's channels, S segments of P positions a tile, runs
+// blocks a tile and channel block (ops/packed_tf.dw_wgrad_geometry);
+// partial holds n_part = runs * ceil(F_out / (S * P)) rows of KT*KF*C, one
+// a (run, f tile) (the wrapper sizes it, and a grid of another size is
+// refused)
 extern "C" int dw_conv_packed_wgrad(const void* x, const void* g,
                                     void* partial, void* out, int B,
                                     int T_in, int F_in, int C, int T_out,
                                     int F_out, int KT, int KF, int pt_lo,
-                                    int pf_lo, int n_part, void* stream) {
-  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1)
+                                    int pf_lo, int QB, int S, int P, int runs,
+                                    int n_part, void* stream) {
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1 ||
+      QB < 1 || S < 1 || P < 1 || runs < 1)
     return (int)cudaErrorInvalidValue;
-  const int FT = C >= kDwCols ? 1 : kDwCols / C;
-  const long long tiles_t = (T_out + kWgRows - 1) / kWgRows;
-  const long long tiles_f = (F_out + FT - 1) / FT;
-  if (!grid_ok(tiles_t, B) || tiles_f * tiles_t * B != n_part)
+  const long long threads =
+      (long long)QB * ((KF + kWgTaps - 1) / kWgTaps) * KT * S;
+  const long long tiles_f = (F_out + S * P - 1) / (S * P);
+  const long long blocks_c = ((C + 3) / 4 + QB - 1) / QB;
+  if (threads > kWgMaxThreads || !grid_ok(tiles_f, blocks_c) ||
+      tiles_f * runs != n_part)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)(kDwRows + KT - 1) * (FT + KF - 1) * C +
-                       (size_t)kDwRows * FT * C + (size_t)KT * KF * C) *
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(g);
+  const size_t smem = (size_t)wgrad_smem_floats(KT, KF, QB, S, P) *
                       sizeof(float);
-  cudaError_t e = allow_smem((const void*)dw_wgrad_partial_kernel, smem);
+  // the taps of every preset as template arguments
+  const auto kernel = KT == 4 && KF == 4 && threads <= kWgThreads
+                          ? dw_wgrad_kernel<4, 4>
+                          : dw_wgrad_kernel<0, 0>;
+  cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)tiles_f, (unsigned)tiles_t, B);
-  dw_wgrad_partial_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (float*)partial, T_in, F_in, C,
-      T_out, F_out, KT, KF, pt_lo, pf_lo, FT);
+  kernel<<<dim3(runs, (unsigned)tiles_f, (unsigned)blocks_c), (int)threads,
+           smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)g, (float*)partial, B, T_in, F_in, C,
+      T_out, F_out, KT, KF, pt_lo, pf_lo, QB, S, P, (int)vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_sum(partial, out, n_part, KT * KF * C, stream);

@@ -28,7 +28,13 @@
 // it across its sequential grid's time chunks in a VMEM scratch); v_f, v_r,
 // b_f, b_r are per-unit scalars in registers (no lane-replicated vb). The
 // cell states c are written only when the caller passes a c pointer
-// (training); serving passes null.
+// (training); serving passes null. K1 forward's design (csrc/sru_fused.cu
+// sru_lay0_fwd_kernel) over one direction and four streams (u0, u1, u2 and
+// the highway xhw): the thread keeps the cp.async copies of its next
+// kRecFwdAhead steps in flight in its own ring in shared memory, so a step
+// waits for the gate chain, not for its loads; blocks of 32-128 threads
+// (columns x units, ops/sru_pallas.k4_fwd_geometry) spread the grid over
+// the SMs.
 //
 // Backward (BPTT), the adjoints of _bwd_kernel: the adjoint scan of
 // csrc/sru_scan.cuh, which K1's and K2's backwards share, launched over
@@ -51,8 +57,8 @@
 // of T dependent steps: each thread's gate chain (two sigmoids, the cell
 // update) cannot start before the previous step's c. At bs 1 the launch
 // has only H x B = 4000 threads, a few warps a SM, so nothing hides that
-// chain. Its design unrolls the time loop so that the loads of later
-// steps (which do not depend on c) start ahead of the chain. The backward
+// chain. Its design issues the loads of later steps (which do not depend
+// on c) ahead of the chain, through the ring. The backward
 // carries only dc across steps, so it can run at its bytes bound if
 // enough loads are in flight: the scan keeps each thread's next kScanAhead
 // steps of copies in flight and spreads its 32-128 thread blocks over the SMs
@@ -64,49 +70,82 @@
 
 namespace {
 
-// the forward's block size
-constexpr int kThreads = 128;
+// the forward's blocks are at most kRecFwdThreads threads; each thread
+// keeps the copies of its next kRecFwdAhead steps in flight
+// (ops/sru_pallas.py mirrors both)
+constexpr int kRecFwdThreads = 128;
+constexpr int kRecFwdAhead = 8;
 
-// grid (ceil(B / kThreads), H), one thread per (column b, unit j).
-__global__ void sru_rec_fwd_kernel(const float* __restrict__ u,
-                                   const float* __restrict__ xhw,
-                                   const float* __restrict__ vb,
-                                   float* __restrict__ h,
-                                   float* __restrict__ cs,
-                                   int T, int H, int B, int reverse) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  if (b >= B) return;
+// grid (ceil(B / cols), ceil(H / units)), cols * units threads, cols a
+// multiple of 32 (ops/sru_pallas.k4_fwd_geometry): thread (column b0 +
+// tid % cols, unit j0 + tid / cols). Scan step i is t = i, or T-1-i with
+// reverse. The step loads go through a ring of kRecFwdAhead slots in
+// shared memory, each thread its own column of it (no thread reads
+// another's, so no barrier): the thread keeps the copies of the next
+// kRecFwdAhead steps in flight, one commit group a step, waits for step
+// i's group, takes its four values and issues step i + kRecFwdAhead into
+// the slot they came from.
+__global__ void __launch_bounds__(kRecFwdThreads)
+sru_rec_fwd_kernel(const float* __restrict__ u, const float* __restrict__ xhw,
+                   const float* __restrict__ vb, float* __restrict__ h,
+                   float* __restrict__ cs, int T, int H, int B, int reverse,
+                   int cols) {
+  extern __shared__ float ring[];  // (kRecFwdAhead, 4, blockDim.x)
+  const int b = blockIdx.x * cols + threadIdx.x % cols;
+  const int j = blockIdx.y * (blockDim.x / cols) + threadIdx.x / cols;
+  if (b >= B || j >= H) return;
   const float v_f = vb[j], v_r = vb[H + j];
   const float b_f = vb[2 * H + j], b_r = vb[3 * H + j];
   const long long row = (long long)H * B;  // one gate block per step
   const long long col = (long long)j * B + b;
+  const int nt = blockDim.x;
+  float* mine = ring + threadIdx.x;  // slot s, stream g: mine[(4 s + g) nt]
+  // scan step i into slot i % kRecFwdAhead, one commit group (empty past
+  // T): u's three gate rows and the highway
+  auto issue = [&](int i) {
+    if (i < T) {
+      const int t = reverse ? T - 1 - i : i;
+      const float* ut = u + (long long)t * 3 * row + col;
+      float* d = mine + (i % kRecFwdAhead) * 4 * nt;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) hk::cp_async4(d + g * nt, ut + g * row, true);
+      hk::cp_async4(d + 3 * nt, xhw + (long long)t * row + col, true);
+    }
+    hk::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kRecFwdAhead; ++i) issue(i);
   float c = 0.f;
-#pragma unroll 4
   for (int i = 0; i < T; ++i) {
-    const int t = reverse ? T - 1 - i : i;
-    const float* ut = u + (long long)t * 3 * row + col;
-    const float u0 = ut[0], u1 = ut[row], u2 = ut[2 * row];
-    const long long o = (long long)t * row + col;
-    const float x = xhw[o];
+    hk::cp_async_wait<kRecFwdAhead - 1>();  // step i's group is in
+    const float* d = mine + (i % kRecFwdAhead) * 4 * nt;
+    const float u0 = d[0], u1 = d[nt], u2 = d[2 * nt], x = d[3 * nt];
+    const long long o = (long long)(reverse ? T - 1 - i : i) * row + col;
     const float f = sigmoid_f(u1 + v_f * c + b_f);
     c = f * c + (1.f - f) * u0;
     const float r = sigmoid_f(u2 + v_r * c + b_r);
     h[o] = r * c + (1.f - r) * x;
     if (cs) cs[o] = c;
+    issue(i + kRecFwdAhead);  // into the slot just read (its values used)
   }
 }
 
 }  // namespace
 
-// c may be null (serving).
+// c may be null (serving); cols x units threads a block
+// (ops/sru_pallas.k4_fwd_geometry).
 extern "C" int sru_recurrence_fwd(const void* u, const void* xhw,
                                   const void* vb, void* h, void* c, int T,
-                                  int H, int B, int reverse, void* stream) {
-  dim3 grid((B + kThreads - 1) / kThreads, H);
-  sru_rec_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                                  int H, int B, int reverse, int cols,
+                                  int units, void* stream) {
+  if (T < 1 || H < 1 || B < 1 || cols < 32 || cols % 32 != 0 || units < 1 ||
+      cols * units > kRecFwdThreads)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + cols - 1) / cols, (H + units - 1) / units);
+  const size_t smem = (size_t)kRecFwdAhead * 4 * cols * units * sizeof(float);
+  sru_rec_fwd_kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
       (const float*)u, (const float*)xhw, (const float*)vb, (float*)h,
-      (float*)c, T, H, B, reverse);
+      (float*)c, T, H, B, reverse, cols);
   return (int)cudaGetLastError();
 }
 

@@ -136,6 +136,20 @@ def bwd_geometry(length: int, c_in: int, c_out: int, k: int,
     }
 
 
+def fits(c_in: int, c_out: int, k: int) -> bool:
+    """True where K3 forward and backward both take these widths: C_out
+    <= MAX_OUT, C_in <= MAX_IN and both kernels' shared memory (which
+    depends on neither L nor B) within one block's. ``models/rnn_blocks``
+    takes the time-major K3 tail only where it holds, and the library
+    ConvTranspose1d (the JAX package's XLA tail) elsewhere, so a width that
+    the reference takes never reaches a refusal here."""
+    if min(c_in, c_out, k) < 1 or c_out > MAX_OUT or c_in > MAX_IN:
+        return False
+    return max(fwd_geometry(1, c_in, c_out, k, 1)["smem"],
+               bwd_geometry(1, c_in, c_out, k, 1)["dx_smem"]
+               ) <= kernel_lib.SMEM_PER_BLOCK
+
+
 def _backward(g, x_tm, w):
     if g.device.type == "cpu":
         return convt1d_ola_tm_bwd_plain(g, x_tm, w)

@@ -54,21 +54,22 @@ _SIGNATURES = {
         "pw_unproj_packed_fwd": (4, 6),
         "spatial_down_packed_fwd": (6, 8),
         "spatial_up_packed_fwd": (7, 9),
-        "dw_conv_packed_wgrad": (4, 11),
+        "dw_conv_packed_wgrad": (4, 15),
         "pw_packed_wgrad": (4, 6),
     },
     "sru_pallas": {
-        "sru_recurrence_fwd": (5, 4),
+        "sru_recurrence_fwd": (5, 6),
         "sru_recurrence_bwd": (8, 6),
     },
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-# the H100 SXM: streaming multiprocessors, and the shared memory one block
-# may use (bytes)
+# the H100 SXM: streaming multiprocessors, the shared memory one block may
+# use and one SM holds (bytes; each block also takes 1 KB of the SM's)
 SMS = 132
 SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
 
 
 def split_k(n_cols: int, tiles: int, stage: int) -> tuple:

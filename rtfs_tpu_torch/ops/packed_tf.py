@@ -12,7 +12,7 @@ the JAX package's packed path runs through these ops.
   stride 1, static (lo, hi) pads; CUDA ``dw_conv_packed_fwd``.
 - ``pw_proj_packed`` (K6): 1x1 dense conv, rank-4 -> packed, + bias; CUDA
   ``pw_proj_packed_fwd``, a 3xTF32 tensor-core product with W resident
-  and x streamed (``pw_proj_geometry``; K at most 256).
+  and x streamed (``pw_proj_geometry``; W held 256 k at a time).
 - ``pw_unproj_packed`` (K7): 1x1 dense conv, packed -> rank-4, + bias;
   CUDA ``pw_unproj_packed_fwd``.
 - ``spatial_down_packed`` (K8): separable static map, packed -> rank-4
@@ -147,9 +147,84 @@ def dw_conv_packed_wgrad_plain(xp, g, f_in, c, kt_kf, pads_t, pads_f):
         for dt in range(kt_kf[0])])
 
 
-# K5-wgrad's split, as csrc/packed_tf.cu launches it: a block per (32 output
-# rows, 512 / C f positions, batch row) writes one (kT, kF, C) partial
-DW_WGRAD_ROWS, DW_COLS = 32, 512
+# K5-wgrad's kernel, ``kWg*`` in csrc/packed_tf.cu: WGRAD_THREADS threads
+# a block (the most with the presets' 4 x 4 taps as template arguments),
+# WGRAD_MAX_THREADS at most; a thread's window of WGRAD_TAPS taps along f;
+# blocks of at most WGRAD_QUADS channel quads (64 channels) and segments
+# of at most WGRAD_POS positions a thread
+WGRAD_THREADS, WGRAD_MAX_THREADS = 256, 1024
+WGRAD_TAPS = 4
+WGRAD_QUADS = 16
+WGRAD_POS = 12
+
+
+def dw_wgrad_smem(kt: int, kf: int, qb: int, s: int, p: int) -> int:
+    """K5-wgrad's shared bytes (``wgrad_smem_floats`` in the source): the
+    ring of kt + 2 x rows of s p + WGRAD_TAPS G - 1 positions and 3 g rows
+    of s p positions, 4 qb floats a position (G = ceil(kf / WGRAD_TAPS)
+    tap groups), or the end's exchange of 16 sums a thread if larger."""
+    groups = -(-kf // WGRAD_TAPS)
+    ft = s * p
+    ring = ((kt + 2) * (ft + WGRAD_TAPS * groups - 1) + 3 * ft) * 4 * qb
+    return 4 * max(ring, qb * groups * kt * s * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_wgrad_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
+                      kf: int) -> dict:
+    """K5-wgrad's launch, as ``dw_conv_packed_wgrad`` runs it: a thread
+    owns a channel quad, a tap row and a group of WGRAD_TAPS taps (``units``
+    = qb quads x kt x G a block) and a segment of ``p`` positions of the f
+    tile (``s`` segments, ``ft`` = s p positions, ``tiles_f`` tiles); a
+    block owns the tile, ``qb`` quads (``blocks_c`` channel blocks) and a
+    run of the b * t_out output rows. ``runs`` blocks a tile and channel
+    block, so that the grid (runs, tiles_f, blocks_c) is one wave of
+    ``per_sm`` blocks an SM; ``parts`` = runs * tiles_f partials. ``p``
+    splits f_out evenly over the tiles' segments and is halved while the
+    ring does not fit one block. Raises ValueError where no block takes
+    the taps (kt G above WGRAD_MAX_THREADS, or the ring of 1 position a
+    thread above one block's shared memory)."""
+    if min(b, c, t_out, f_out, kt, kf) < 1:
+        raise ValueError(f"dw_conv_packed_wgrad: B {b}, C {c}, T {t_out}, "
+                         f"F {f_out}, taps {kt} x {kf}")
+    groups = -(-kf // WGRAD_TAPS)
+    quads = -(-c // 4)
+    qb = min(quads, WGRAD_QUADS, max(1, WGRAD_MAX_THREADS // (kt * groups)))
+    units = qb * kt * groups
+    if units > WGRAD_MAX_THREADS:
+        raise ValueError(f"dw_conv_packed_wgrad: {kt} x {kf} taps need "
+                         f"{units} threads a block")
+    s = max(1, min(WGRAD_THREADS // units, -(-f_out // WGRAD_POS)))
+    p = WGRAD_POS
+    while True:
+        tiles_f = -(-f_out // (s * p))
+        p = -(-f_out // (tiles_f * s))
+        smem = dw_wgrad_smem(kt, kf, qb, s, p)
+        if smem <= kernel_lib.SMEM_PER_BLOCK or p == 1:
+            break
+        p = -(-p // 2)
+    if smem > kernel_lib.SMEM_PER_BLOCK:
+        raise ValueError(f"dw_conv_packed_wgrad: {kt} x {kf} taps need "
+                         f"{smem} bytes of shared memory a block")
+    threads = units * s
+    blocks_c = -(-quads // qb)
+    per_sm = max(1, min(kernel_lib.SMEM_PER_SM // (smem + 1024),
+                        2048 // threads, 32))  # 32 blocks an SM at most
+    runs = max(1, min(b * t_out,
+                      per_sm * kernel_lib.SMS // (tiles_f * blocks_c)))
+    return {"qb": qb, "units": units, "s": s, "p": p, "ft": s * p,
+            "tiles_f": tiles_f, "blocks_c": blocks_c, "threads": threads,
+            "runs": runs, "grid": (runs, tiles_f, blocks_c),
+            "parts": runs * tiles_f, "per_sm": per_sm, "smem": smem}
+
+
+def dw_wgrad_launch_ints(b, t_in, f_in, c, t_out, f_out, kt_kf, pads_t,
+                         pads_f) -> tuple:
+    """The ints of K5-wgrad's launch: the shapes, taps, low pads, then
+    ``dw_wgrad_geometry``'s qb, s, p, runs and parts."""
+    geo = dw_wgrad_geometry(b, c, t_out, f_out, *kt_kf)
+    return (b, t_in, f_in, c, t_out, f_out, *kt_kf, pads_t[0], pads_f[0],
+            geo["qb"], geo["s"], geo["p"], geo["runs"], geo["parts"])
 
 
 def dw_conv_packed_wgrad(xp, g, f_in: int, c: int, kt_kf, pads_t, pads_f):
@@ -162,15 +237,15 @@ def dw_conv_packed_wgrad(xp, g, f_in: int, c: int, kt_kf, pads_t, pads_f):
     kernel_lib.check_cuda_f32("dw_conv_packed_wgrad", xp, g)
     b, t_in, _ = xp.shape
     t_out, n_out = g.shape[1:]
-    f_out = n_out // c
-    ft = max(1, DW_COLS // c)
-    n_part = b * -(-t_out // DW_WGRAD_ROWS) * -(-f_out // ft)
-    partial = torch.empty(n_part, kt_kf[0] * kt_kf[1] * c, device=xp.device)
+    ints = dw_wgrad_launch_ints(b, t_in, f_in, c, t_out, n_out // c, kt_kf,
+                                pads_t, pads_f)
+    partial = torch.empty(ints[-1], kt_kf[0] * kt_kf[1] * c,
+                          device=xp.device)
     out = torch.empty(kt_kf[0], kt_kf[1], c, device=xp.device)
     kernel_lib.launch(
         "packed_tf", "dw_conv_packed_wgrad", xp.device,
         xp.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        b, t_in, f_in, c, t_out, f_out, *kt_kf, pads_t[0], pads_f[0], n_part)
+        *ints)
     return out
 
 
@@ -311,20 +386,22 @@ def pw_packed_wgrad(a, g):
 # K6's kernel, ``kProj*`` in csrc/packed_tf.cu: PROJ_THREADS threads a
 # block; tiles of PROJ_M positions x PROJ_N output channels; x staged
 # PROJ_K reduction rows a stage in a ring of PROJ_STAGES, a staged row
-# padded by PROJ_PAD floats
+# padded by PROJ_PAD floats; W held split PROJ_SLICE k rows at a time
 PROJ_THREADS = 512
 PROJ_M, PROJ_N, PROJ_K = 128, 64, 32
 PROJ_STAGES = 3
 PROJ_PAD = 8
+PROJ_SLICE = 256
 
 
 def pw_proj_smem(k: int) -> int:
     """K6's shared bytes for a reduction depth ``k`` (``proj_smem_floats``
-    in the source): the slice of W, round_up(k, PROJ_K) rows of PROJ_N
-    channels split into big and small halves (2 PROJ_N floats a k), the
-    ring of (PROJ_K, PROJ_M + PROJ_PAD) stages and the (PROJ_M, PROJ_N +
-    PROJ_PAD) output tile."""
-    kp = -(-k // PROJ_K) * PROJ_K
+    in the source): the slice of W, min(round_up(k, PROJ_K), PROJ_SLICE)
+    rows of PROJ_N channels split into big and small halves (2 PROJ_N
+    floats a k), the ring of (PROJ_K, PROJ_M + PROJ_PAD) stages and the
+    (PROJ_M, PROJ_N + PROJ_PAD) output tile: the same for every k above
+    PROJ_SLICE."""
+    kp = min(-(-k // PROJ_K) * PROJ_K, PROJ_SLICE)
     return 4 * (kp * 2 * PROJ_N
                 + PROJ_STAGES * PROJ_K * (PROJ_M + PROJ_PAD)
                 + PROJ_M * (PROJ_N + PROJ_PAD))
@@ -336,21 +413,17 @@ def pw_proj_geometry(b: int, m: int, k: int, n: int) -> dict:
     w (k, n): ``tiles`` = b * ceil(m / PROJ_M) (batch row, positions)
     tiles; ``blocks`` persistent blocks an N tile (one an SM, at most the
     tiles), block x walking the tiles x, x + blocks, ...; ``grid`` (blocks,
-    ceil(n / PROJ_N)); ``stages`` k stages a tile; ``smem`` a block's
-    shared bytes. Raises ValueError when W's split slice does not fit one
-    block's shared memory (k above 256)."""
+    ceil(n / PROJ_N)); ``stages`` k stages a tile, walked in ``slices``
+    of at most PROJ_SLICE k (each slice over all the block's tiles before
+    the next); ``smem`` a block's shared bytes, within one block's at
+    every k."""
     if min(b, m, k, n) < 1:
         raise ValueError(f"pw_proj_packed: B {b}, M {m}, K {k}, N {n}")
-    smem = pw_proj_smem(k)
-    if smem > kernel_lib.SMEM_PER_BLOCK:
-        raise ValueError(
-            f"pw_proj_packed: K {k} needs {smem} bytes of shared memory a "
-            f"block, more than {kernel_lib.SMEM_PER_BLOCK}")
     tiles = b * -(-m // PROJ_M)
     blocks = min(tiles, kernel_lib.SMS)
     return {"tiles": tiles, "blocks": blocks,
             "grid": (blocks, -(-n // PROJ_N)), "stages": -(-k // PROJ_K),
-            "smem": smem}
+            "slices": -(-k // PROJ_SLICE), "smem": pw_proj_smem(k)}
 
 
 def pw_proj_launch_ints(x4, w) -> tuple:

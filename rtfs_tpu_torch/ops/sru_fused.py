@@ -356,7 +356,7 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     (ceil(B / bt) tiles x 2 directions) fills the card's SMs, or 1 where
     none does, and at most ``FWD_THREADS // H`` (one scan thread a unit
     and column); ``cols`` 64, or 32 where 64 does not fit a block's shared
-    memory. Raises ``ValueError`` where neither fits (H above 64)."""
+    memory. Raises ``ValueError`` where neither fits (H above 68)."""
     cap = FWD_THREADS // hdim if hdim > 0 else 0
     choices = [bt for bt in (8, 4, 2, 1) if bt <= cap]
     if not choices:
@@ -375,6 +375,21 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     return {"bt": bt, "steps": steps, "cols": cols,
             "grid": (-(-bsz // bt), 2), "chunks": -(-t_len // steps),
             "smem": smem}
+
+
+def stack_fits(hdim: int) -> bool:
+    """True where every kernel of the fused stack's path takes H, forward
+    and backward, at any T and B: K1 forward (``k1_fwd_geometry``), the
+    backward scan (``scan_bwd_geometry``) and K2 backward
+    (``k2_bwd_geometry``) refuse no width; K2 forward (``k2_fwd_geometry``)
+    refuses H above FWD_THREADS units a block and H whose weight slice and
+    chunks of 32 columns exceed one block's shared memory (H above 68),
+    neither depending on T or B. ``ops.sru.SRU`` takes the fused stack only
+    where this holds, and the gen-1 route (K4 per layer and direction)
+    elsewhere, as the JAX package does where its fused stack does not
+    apply."""
+    return (1 <= hdim <= FWD_THREADS
+            and k2_fwd_smem(hdim, 32) <= kernel_lib.SMEM_PER_BLOCK)
 
 
 # K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in

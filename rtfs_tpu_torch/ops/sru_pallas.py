@@ -4,9 +4,11 @@ Counterpart of ``rtfs_tpu/ops/sru_pallas.py``, forward and backward:
 
 - ``sru_recurrence`` (K4): one direction of one SRU layer over a
   precomputed projection u (T, 3H, B) = [x~, f, r] and highway xhw
-  (T, H, B); CUDA kernels ``csrc/sru_pallas.cu:sru_recurrence_fwd`` and
-  ``..._bwd`` (the adjoint scan of ``csrc/sru_scan.cuh``, shared with the
-  fused stack's backwards, blocks from ``sru_fused.scan_bwd_geometry``).
+  (T, H, B); CUDA kernels ``csrc/sru_pallas.cu:sru_recurrence_fwd`` (its
+  loads kept FWD_AHEAD steps ahead of the chain through a cp.async ring,
+  blocks from ``k4_fwd_geometry``) and ``..._bwd`` (the adjoint scan of
+  ``csrc/sru_scan.cuh``, shared with the fused stack's backwards, blocks
+  from ``sru_fused.scan_bwd_geometry``).
   ``reverse=True`` walks t = T-1 .. 0 (the kernel's flag), where the JAX
   layers flip u, xhw and h in memory around the call.
 - ``sru_layer_tpu`` / ``sru_layer_tpu_windowed``: one SRU layer, the
@@ -15,7 +17,8 @@ Counterpart of ``rtfs_tpu/ops/sru_pallas.py``, forward and backward:
   leaves it to XLA, then K4 per direction.
 
 Every SRU that the fused stack (``ops.sru_fused``) does not take runs here:
-unidirectional, or bidirectional with input width 2H on layer 0.
+unidirectional, bidirectional with input width 2H on layer 0, or wider
+than the fused stack takes (``sru_fused.stack_fits``).
 
 Layout: the layer functions are time-major, (L, D, B) in and (L, dirs*H, B)
 out, where JAX's take and return (B, L, D) and transpose around every
@@ -33,11 +36,19 @@ launch or the call raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import kernel_lib
-from .sru_fused import (_grad, _records, layer0_projection, scan_bwd_geometry,
-                        scan_direction, scan_direction_bwd)
+from .sru_fused import (_grad, _records, _spread_blocks, layer0_projection,
+                        scan_bwd_geometry, scan_direction, scan_direction_bwd)
+
+# ``kRecFwdThreads`` and ``kRecFwdAhead`` in csrc/sru_pallas.cu: the K4
+# forward's blocks are at most FWD_THREADS threads, and each thread keeps
+# the loads of its next FWD_AHEAD steps in flight in its own ring
+FWD_THREADS = 128
+FWD_AHEAD = 8
 
 
 def sru_recurrence_plain(u, xhw, vb, reverse=False, with_c=False):
@@ -51,6 +62,23 @@ def sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse=False):
     return scan_direction_bwd(u, xhw, vb, c, dh, reverse)
 
 
+@functools.lru_cache(maxsize=None)
+def k4_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+    """K4 forward's launch geometry, as ``sru_recurrence_fwd`` launches
+    it: K1 forward's (``sru_fused.k1_fwd_geometry``) over one direction,
+    blocks of ``cols`` columns x ``units`` units from
+    ``sru_fused._spread_blocks`` (at most FWD_THREADS threads; 4,000
+    threads at the bs-1 freq site spread over many SMs); each thread walks
+    its T steps with the copies of the next FWD_AHEAD steps (u's three gate
+    rows and the highway) in flight in its own ring of shared memory
+    (``smem`` bytes a block)."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_recurrence: T {t_len}, H {hdim}, B {bsz}")
+    cols, units, grid = _spread_blocks(hdim, bsz, 1, FWD_THREADS)
+    return {"cols": cols, "units": units, "grid": grid[:2],
+            "ahead": FWD_AHEAD, "smem": 4 * FWD_AHEAD * 4 * cols * units}
+
+
 def _k4_forward(u, xhw, vb, reverse, with_c):
     if u.device.type == "cpu":
         return sru_recurrence_plain(u, xhw, vb, reverse, with_c)
@@ -58,12 +86,14 @@ def _k4_forward(u, xhw, vb, reverse, with_c):
     t_len, gh, bsz = u.shape
     if min(u.shape) == 0:
         raise ValueError("sru_recurrence: empty input")
+    geo = k4_fwd_geometry(t_len, gh // 3, bsz)
     h = torch.empty_like(xhw)
     c = torch.empty_like(xhw) if with_c else None
     kernel_lib.launch(
         "sru_pallas", "sru_recurrence_fwd", u.device, u.data_ptr(),
         xhw.data_ptr(), vb.data_ptr(), h.data_ptr(),
         c.data_ptr() if with_c else None, t_len, gh // 3, bsz, int(reverse),
+        geo["cols"], geo["units"],
     )
     return (h, c) if with_c else h
 

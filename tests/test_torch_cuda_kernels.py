@@ -228,6 +228,65 @@ def test_wrappers_reject_bad_input(dev):
         S.sru_dual_recurrence(u, u, torch.zeros(8, 8, device=dev))
 
 
+def test_k5_wgrad_takes_other_taps_and_unaligned_inputs(dev):
+    """K5-wgrad's generic instantiation at 2 x 9 taps (three tap groups
+    of the window) and its 4-byte copies from x and g 4 bytes off 16-byte
+    alignment."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    rng = np.random.default_rng(13)
+    b, t, f, c = 2, 11, 13, 12
+    for (kt, kf), pads_t, pads_f in (((2, 9), (0, 1), (4, 4)),
+                                     ((4, 4), (1, 2), (1, 2))):
+        t_out, f_out = P.dw_geometry(t, f, kt, kf, pads_t, pads_f)
+        n_x, n_g = b * t * f * c, b * t_out * f_out * c
+        buf = _t(rng, (n_x + n_g + 2,), dev)
+        xp = buf[1:1 + n_x].view(b, t, f * c)
+        g = buf[2 + n_x:].view(b, t_out, f_out * c)
+        got = P.dw_conv_packed_wgrad(xp, g, f, c, (kt, kf), pads_t, pads_f)
+        want = P.dw_conv_packed_wgrad_plain(xp, g, f, c, (kt, kf), pads_t,
+                                            pads_f)
+        _close((got,), (want,), rel=1e-4)
+
+
+@pytest.mark.parametrize("h", [48, 80])
+def test_wide_dual_path_rnn_card_matches_cpu(dev, h):
+    """A DualPathRNN wider than K3 (H 48: K1/K2 and the library
+    ConvTranspose1d) and than the fused stack (H 80: K4 a layer and
+    direction) serves and takes gradients on the card as on the CPU, with
+    the launches its route predicts."""
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    m = DualPathRNN(16, h, dim=3, kernel_size=4, num_layers=3)
+    init_weights(m, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 16, 11, 13)).astype(np.float32))
+    xc = x.clone().requires_grad_()
+    want = m(xc)
+    want.square().sum().backward()
+    grads = {n: p.grad.clone() for n, p in m.named_parameters()}
+    m.zero_grad()
+    md = m.to(dev)
+    xd = x.to(dev).requires_grad_()
+    kernel_lib.reset_launches()
+    got = md(xd)
+    got.square().sum().backward()
+    route = ({"sru_dual_recurrence_fwd": 1, "sru_hidden_layer_fwd": 2}
+             if h == 48 else {"sru_recurrence_fwd": 6})
+    assert kernel_lib.LAUNCHES == {
+        **route, **{k.replace("_fwd", "_bwd"): v for k, v in route.items()}}
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=ATOL,
+                               rtol=0)
+    torch.testing.assert_close(xd.grad.cpu(), xc.grad, rtol=0,
+                               atol=1e-4 * xc.grad.abs().max().item())
+    for n, p in md.named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), grads[n], rtol=0, msg=n,
+                                   atol=1e-4 * grads[n].abs().max().item()
+                                   + 1e-7)
+
+
 def test_dual_path_rnn_card_matches_cpu(dev):
     from rtfs_tpu_torch.models.avnet import init_weights
     from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
@@ -250,17 +309,20 @@ def test_dual_path_rnn_card_matches_cpu(dev):
 # ------------------------------------------------------------- K4
 
 
-# ragged shapes, the serving and bs-4 time sites; the scan's ring: T
-# shorter than it, one step longer; one column; H above 32
+# ragged shapes, the serving and bs-4 time sites; the scans' rings: T
+# shorter than them, one step longer; one column; H above 32, and H 80 at
+# the bs-4 freq site (the route of an SRU wider than the fused stack
+# takes); H 300 (blocks of two units)
 @pytest.mark.parametrize("t_len,h,bsz", [
     (37, 8, 5), (57, 32, 125), (118, 32, 300), (1, 32, 129), (118, 32, 256),
     (SCAN_AHEAD // 2, 32, 200), (SCAN_AHEAD + 1, 32, 131), (23, 32, 1),
-    (29, 48, 131)])
+    (29, 48, 131), (57, 80, 500), (5, 300, 33)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_k4_matches_plain_and_backward_repeats_exactly(dev, t_len, h, bsz,
                                                        reverse):
     """K4 forward (serving, and with c) and backward against the plain
-    versions at ragged shapes; two backward calls give the same bits."""
+    versions at ragged shapes; two forward calls and two backward calls
+    give the same bits."""
     from rtfs_tpu_torch.ops import sru_pallas as S
 
     rng = np.random.default_rng(15)
@@ -268,8 +330,9 @@ def test_k4_matches_plain_and_backward_repeats_exactly(dev, t_len, h, bsz,
     vb = _t(rng, (4, h), dev, 0.3)
     dh = _t(rng, (t_len, h, bsz), dev)
     want_h, want_c = S.sru_recurrence_plain(u, x, vb, reverse, with_c=True)
-    torch.testing.assert_close(S._k4_forward(u, x, vb, reverse, False),
-                               want_h, atol=1e-5, rtol=0)
+    got_h = S._k4_forward(u, x, vb, reverse, False)
+    torch.testing.assert_close(got_h, want_h, atol=1e-5, rtol=0)
+    assert torch.equal(got_h, S._k4_forward(u, x, vb, reverse, False))
     h_c, c = S._k4_forward(u, x, vb, reverse, True)
     _close((h_c, c), (want_h, want_c))
     got = S._k4_backward(u, x, vb, c, dh, reverse)
@@ -364,7 +427,10 @@ def test_k5_matches_plain(dev, shape, pads, with_bias):
 # 16-byte stores)
 PW_SHAPES = {**PACKED_SHAPES, "serving-bs8": (8, 251, 129, 64, 256),
              "m-mod-4": (2, 16, 9, 64, 40), "m-129": (3, 3, 43, 64, 256),
-             "n-70": (2, 12, 12, 70, 40)}
+             "n-70": (2, 12, 12, 70, 40),
+             # K above one slice of W (256 k): the 512 bottleneck, and a
+             # last slice of 44 k with two N tiles
+             "k-512": (1, 251, 129, 64, 512), "k-300": (2, 9, 13, 70, 300)}
 
 
 @pytest.mark.parametrize("shape", sorted(PW_SHAPES))
@@ -450,12 +516,18 @@ def test_k8_k9_refuse_a_tile_larger_than_shared_memory(dev):
                               pool, 64)
 
 
-@pytest.mark.parametrize("shape", sorted(PACKED_SHAPES))
+# K5-wgrad also with C 37 (4-byte copies, a partial quad), C 72 (two
+# channel blocks) and the serving shape at bs 8
+WGRAD_SHAPES = {**PACKED_SHAPES, "odd-c": (2, 9, 11, 37, 0),
+                "c-72": (1, 6, 7, 72, 0), "serving-bs8": (8, 251, 129, 64, 0)}
+
+
+@pytest.mark.parametrize("shape", sorted(WGRAD_SHAPES))
 @pytest.mark.parametrize("kt,pads", [(4, (1, 2)), (4, (1, 1)), (3, (1, 1))])
 def test_k5_wgrad_matches_plain_and_repeats_exactly(dev, shape, kt, pads):
     from rtfs_tpu_torch.ops import packed_tf as P
 
-    b, t, f, c, _ = PACKED_SHAPES[shape]
+    b, t, f, c, _ = WGRAD_SHAPES[shape]
     b = 4 if shape == "serving" else b  # the training batch
     rng = np.random.default_rng(11)
     t_out, f_out = P.dw_geometry(t, f, kt, kt, pads, pads)

@@ -211,15 +211,21 @@ def test_ring_never_overwrites_or_reads_a_stage_too_early(stages):
 
 
 def test_shared_memory_fits_one_block_and_refuses_larger_k():
+    """The layout fits one block an SM at K 256, and a larger K, which K6
+    once refused, now fits the same bytes: W is held PROJ_SLICE k at a
+    time, so nothing is refused (the name is the test's from then)."""
     geo = P.pw_proj_geometry(1, 251 * 129, 256, 64)
     assert geo["smem"] == 4 * (256 * 128 + 3 * 32 * 136 + 128 * 72) == 220_160
     # one block an SM: two would need more than the SM's 228 KB
     assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK < 2 * geo["smem"]
     assert geo["grid"] == (132, 1) and geo["tiles"] == 253
+    assert geo["slices"] == 1
     assert P.pw_proj_geometry(8, 251 * 129, 256, 64)["tiles"] == 2024
-    with pytest.raises(ValueError, match="shared memory"):
-        P.pw_proj_geometry(1, 100, 257, 64)
-    # the same call takes the plain version on the CPU
+    for k, slices in ((257, 2), (512, 2), (513, 3), (4096, 16)):
+        big = P.pw_proj_geometry(1, 100, k, 64)
+        assert big["smem"] == P.pw_proj_smem(256) == 220_160
+        assert (big["slices"], big["stages"]) == (slices, -(-k // P.PROJ_K))
+    # the same call's plain version on the CPU
     x4 = torch.zeros(1, 257, 2, 3)
     assert P.pw_proj_packed(x4, torch.zeros(257, 5), None).shape == (1, 2, 15)
 
