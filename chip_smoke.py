@@ -94,8 +94,8 @@ one or outside the repository. Phases, any failure of which ends the run:
    serving shapes (batch 1 and 8) and with c at batch 4, and its backward
    at batch 4, against the plain versions and autograd through the plain
    forward (forward and backward twice, bit-identical), timed beside
-   bound and plain, and K4 forward at H 80 in both directions (the route
-   of an SRU wider than the fused stack takes); (b) ``separate_sample``
+   bound and plain, and K4 forward at H 80 in both directions (a
+   unidirectional SRU of that width); (b) ``separate_sample``
    at batch 1 and 8 launching exactly ``k4_launches`` K4 per forward and
    no other kernel, against the CPU;
    (c) the train entry with the overrides (8 synthetic samples, one
@@ -109,14 +109,16 @@ one or outside the repository. Phases, any failure of which ends the run:
    with their device time a launch. (10e, last) the profiler's device time
    per launch of K4 forward at the bs-8 and bs-4 sites, beside its bound
    and the parent's figure.
-Wide (after phase 10): the routes of widths above the preset's. A pair of
-   DualPathRNNs (dim 4, dim 3) at the preset's in_chan 64, window 8 and 4
-   layers on the main path's pooled 125 x 64, at H 48 (the fused stack,
-   K1/K2, with the library ConvTranspose1d: K3 takes 2H up to 64) and H 80
-   (K4 a layer and direction: K2 forward takes H up to 68): a bs-1
+Wide (after phase 10): widths above the preset's, on the same kernels.
+   A pair of DualPathRNNs (dim 4, dim 3) at the preset's in_chan 64,
+   window 8 and 4 layers on the main path's pooled 125 x 64, at H 48 (K3
+   splits its 96 input channels over the grid in two slices) and H 80
+   (K2 forward splits its units in two slices, K3 its 160 input channels
+   in three): K2 forward and K3 forward and backward at the bs-1 sites
+   against their plain versions (two calls bit-identical), a bs-1
    forward against the CPU and a bs-4 train step through phase 6's
-   gradient gates, each launching exactly what the route predicates
-   (``rnn_launches``) derive.
+   gradient gates, each launching exactly what ``rnn_launches`` derives
+   (K1 1 / K2 3 / K3 1 a DualPathRNN, as at the preset).
 
 The last lines are the ``kernels`` JSON object (15 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
@@ -312,31 +314,24 @@ def packed_launches(conf) -> dict:
 def rnn_launches(c: int, h: int, k: int, layers: int,
                  bidirectional: bool = True) -> dict:
     """Launches of each SRU and ConvTranspose C entry in one forward of a
-    DualPathRNN (stride 1) of ``c`` channels, hid ``h``, window ``k``, from
-    the width-only route predicates the model takes: the fused stack (K1
-    once, K2 a hidden layer) where it applies (bidirectional, input c k
-    not 2h) and ``sru_fused.stack_fits(h)`` holds, with K3 as its tail
-    where ``convt_tm.fits(2h, c, k)`` holds (the library ConvTranspose1d
-    elsewhere); otherwise K4 a layer and direction. A train step launches
-    each entry's backward as often."""
-    from rtfs_tpu_torch.ops import convt_tm, sru_fused
-
+    DualPathRNN (stride 1) of ``c`` channels, hid ``h``, window ``k``: the
+    fused stack (K1 once, K2 a hidden layer) and K3 as its tail where the
+    stack applies (bidirectional, input c k not 2h), at any width;
+    otherwise K4 a layer and direction. A train step launches each entry's
+    backward as often."""
     dirs = 2 if bidirectional else 1
-    if not (bidirectional and c * k != 2 * h and sru_fused.stack_fits(h)):
+    if not (bidirectional and c * k != 2 * h):
         return {"sru_recurrence_fwd": dirs * layers}
-    out = {"sru_dual_recurrence_fwd": 1}
+    out = {"sru_dual_recurrence_fwd": 1, "convt1d_ola_tm_fwd": 1}
     if layers > 1:
         out["sru_hidden_layer_fwd"] = layers - 1
-    if convt_tm.fits(2 * h, c, k):
-        out["convt1d_ola_tm_fwd"] = 1
     return out
 
 
 def k4_launches(conf) -> int:
     """Launches of K4 (``sru_recurrence_fwd``) per forward, from the preset:
     every SRU of an audio DualPathRNN that the fused stack does not take
-    (unidirectional, bidirectional with input width 2H, or wider than
-    ``sru_fused.stack_fits`` admits; ``rnn_launches``) runs K4 once a
+    (unidirectional, or bidirectional with input width 2H) runs K4 once a
     layer and direction, once a repeat of the shared block. A train step
     launches as many K4 backwards. tests/test_torch_avnet_uni.py holds it
     against a forward and a train step."""
@@ -345,9 +340,10 @@ def k4_launches(conf) -> int:
     for lay in ap["layers"].values():
         if lay["layer_type"] != "DualPathRNN" or lay["rnn_type"] != "SRU":
             continue
-        n += rnn_launches(ap["hid_chan"], lay["hid_chan"], lay["kernel_size"],
-                          lay["num_layers"], lay["bidirectional"]).get(
-                              "sru_recurrence_fwd", 0)
+        bidir, h = lay["bidirectional"], lay["hid_chan"]
+        if bidir and ap["hid_chan"] * lay["kernel_size"] != 2 * h:
+            continue  # the fused stack, K1/K2
+        n += (2 if bidir else 1) * lay["num_layers"]
     return n * ap["repeats"]
 
 
@@ -1914,8 +1910,9 @@ def check_k4_kernels(geo, rng) -> dict:
             r["plain_ms"] += per_site * plain_ms
             r["bound_ms"] += per_site * b_ms
             r["bound_by"] = b_by
-    # the route of an SRU wider than the fused stack takes (H 80, K4 a
-    # layer and direction) at the bs-8 serving sites, both directions
+    # K4 forward at the wide phase's H 80 (the route of a unidirectional
+    # SRU, or of one whose input is 2H, that wide) at the bs-8 serving
+    # sites, both directions
     hw = WIDE_HIDDEN[-1]
     vbw = torch.cat([t((2, hw), math.sqrt(1.0 / hw)), t((2, hw), 0.1)])
     for site in ("freq", "time"):
@@ -2019,8 +2016,9 @@ def unidirectional(conf_uni, geo, rng) -> tuple:
     return k4, served, trained
 
 
-# the "wide" phase's hid_chan: above what K3 takes (2H over 64 input
-# channels) and above what the fused stack takes (K2 forward: H up to 68)
+# the "wide" phase's hid_chan: 2H above the 64 input channels that one K3
+# block takes (48), and H above the 68 units whose W_d one K2 forward
+# block takes (80)
 WIDE_HIDDEN = (48, 80)
 
 
@@ -2039,16 +2037,71 @@ def wide(geo, rng) -> None:
     one bs-4 train step (mean square loss against a random target) on the
     card with cuDNN and without it, held through phase 6's gates against
     the same step in float32 and float64 on the CPU. The launches of the
-    card's forward and step must be those ``rnn_launches`` derives from
-    the route predicates."""
+    card's forward and step must be those ``rnn_launches`` derives. First,
+    K2 forward and K3 forward and backward at each H's bs-1 sites against
+    their plain versions (phase 3's and 5's tolerances), two calls
+    bit-identical, with their split over the grid printed."""
     import copy
 
     from rtfs_tpu_torch.models.avnet import init_weights
     from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
-    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import convt_tm, kernel_lib, sru_fused
 
     c, k, layers = geo["C"], geo["k"], geo["layers"]
     t_len, f_len = geo["freq"][1], geo["time"][1]
+    dev = torch.device("cuda")
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    for h in WIDE_HIDDEN:
+        vb = torch.cat([t((2, 2, h), math.sqrt(1.0 / h)), t((2, 2, h), 0.1)],
+                       dim=1).reshape(8, h)
+        wt = t((6 * h, 2 * h), math.sqrt(1.0 / (2 * h)))
+        w3 = t((k, c, 2 * h), math.sqrt(1.0 / (2 * h * k)))
+        for site in ("freq", "time"):
+            length, bsz = geo[site]
+            x = (t((length, h, bsz), 0.5), t((length, h, bsz), 0.5))
+            k2 = functools.partial(sru_fused._k2_forward, *x, wt, vb, True)
+            got, again = torch.stack(k2()), torch.stack(k2())
+            want = torch.stack(sru_fused.sru_hidden_layer_plain(*x, wt, vb,
+                                                                True))
+            x3, g3 = t((length, 2 * h, bsz)), t((length + k - 1, c, bsz))
+            k3 = functools.partial(convt_tm._forward, x3, w3)
+            k3b = functools.partial(convt_tm._backward, g3, x3, w3)
+            got3, again3, got3b, again3b = k3(), k3(), k3b(), k3b()
+            want3 = convt_tm.convt1d_ola_tm_plain(x3, w3)
+            want3b = convt_tm.convt1d_ola_tm_bwd_plain(g3, x3, w3)
+            torch.cuda.synchronize()
+            err2 = (got - want).abs().max().item()
+            err3 = (got3 - want3).abs().max().item()
+            err3b = max(((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip(got3b, want3b))
+            same = (torch.equal(got, again) and torch.equal(got3, again3)
+                    and all(torch.equal(a, b) for a, b in zip(got3b, again3b)))
+            g2 = sru_fused.k2_fwd_geometry(length, h, bsz)
+            f3 = convt_tm.fwd_geometry(length, 2 * h, c, k, bsz)
+            b3 = convt_tm.bwd_geometry(length, 2 * h, c, k, bsz)
+            print(f"wide H {h} site={site} L={length} B={bsz}: "
+                  f"sru_hidden_layer (units {g2['units']} x {g2['slices']} "
+                  f"slices, bt {g2['bt']}) max_abs_err={err2:.3e} (tol "
+                  f"{TOL['sru_hidden_layer']:.0e}) ms="
+                  f"{time_cuda(k2, 10):.5f}; convt1d_ola_tm (input "
+                  f"{f3['ci_slice']} x {f3['in_slices']} slices) "
+                  f"max_abs_err={err3:.3e} (tol "
+                  f"{TOL['convt1d_ola_tm']:.0e}) ms={time_cuda(k3, 10):.5f}; "
+                  f"backward (output {b3['co_slice']} x {b3['out_slices']}, "
+                  f"input {convt_tm.MAX_IN} x {b3['in_slices']}) max rel err "
+                  f"{err3b:.3e} (tol {BWD_REL_TOL['convt1d_ola_tm_bwd']:.0e}); "
+                  f"two calls bit-identical {same}")
+            if not (err2 <= TOL["sru_hidden_layer"]
+                    and err3 <= TOL["convt1d_ola_tm"]
+                    and err3b <= BWD_REL_TOL["convt1d_ola_tm_bwd"] and same):
+                raise AssertionError(f"wide H {h} {site}: a kernel disagrees "
+                                     "with its plain version, or two calls "
+                                     "differ")
+
     for h in WIDE_HIDDEN:
         cpu = torch.nn.Sequential(
             DualPathRNN(c, h, dim=4, kernel_size=k, num_layers=layers),
@@ -2057,8 +2110,8 @@ def wide(geo, rng) -> None:
         card = copy.deepcopy(cpu).to("cuda")
         per_fwd = _sum_launches(
             *[rnn_launches(c, h, k, layers) for _ in range(2)])
-        routes = [f"dim {m.dim}: fused stack {m.rnn.uses_fused_stack}, "
-                  f"K3 tail {m.uses_k3_tail}" for m in cpu]
+        routes = [f"dim {m.dim}: fused stack {m.rnn.uses_fused_stack}"
+                  for m in cpu]
         print(f"wide H {h}: {'; '.join(routes)}; launches a forward "
               f"{per_fwd}")
         x = torch.from_numpy(rng.standard_normal((1, c, t_len, f_len)).astype(

@@ -44,7 +44,13 @@
 // warp; no partial sum crosses warps and the order of every sum is
 // fixed. One block an SM (221 KB of shared memory at the preset); the
 // blocks are the column tiles times runs of steps that fill the 132 SMs
-// once.
+// once. Wider channels are split over the grid's z, so that every width
+// fits: output channels in blocks of 64 (the warps' four m16 tiles), input
+// channels in the fewest equal slices (multiples of 8) whose W_flat and
+// ring fit a block (ops/convt_tm.fwd_geometry; 2H 96 as two of 48, 160 as
+// three of at most 56). Each input slice's sums go to a partial of out,
+// and a second kernel adds the partials in a fixed order; one slice (C_in
+// <= 64 at k 8, the presets') writes out directly.
 //
 // Backward. g is time-major, so g[l : l+k] is one contiguous (k*C_out, B)
 // slab, and dx[l] = W_cat^T slab_l, a product of depth k*C_out = 512 with
@@ -63,6 +69,11 @@
 //     tiles are added in shared memory in a fixed order. One block an SM
 //     (224 KB of shared memory at the preset); the blocks are as many as
 //     the column tiles times runs of steps that fill the 132 SMs once.
+//     Wider channels are split over the grid's z: input channels in
+//     blocks of 64 (a thread's 8 x 8 rows), each writing its own rows of
+//     dx, and output channels, the reduction, in slices whose W and ring
+//     fit a block (64 at k 8), each writing a partial of dx that a second
+//     kernel adds in a fixed order (ops/convt_tm.bwd_geometry).
 //   dW (convt1d_tm_wgrad_kernel): split-K over the L*B columns; a block
 //     owns a 128 x 64 tile of dW_cat (k*C_out x C_in) and one chunk of
 //     columns, stages 32 columns of the slab rows and of x transposed in
@@ -83,16 +94,18 @@ using hk::cp_async4;
 using hk::cp_async_commit;
 using hk::cp_async_wait_all;
 
-// forward (ops/convt_tm.py mirrors these): the C_out limit (4 m16 tiles),
-// batch columns a block (2 n8 tiles; also an x row's stride in shared
-// memory, swizzled) and output steps a pass
+// forward (ops/convt_tm.py mirrors these): output channels a block (4 m16
+// tiles; a wider C_out is split over the grid), batch columns a block (2
+// n8 tiles; also an x row's stride in shared memory, swizzled) and output
+// steps a pass
 constexpr int kMaxOut = 64;
 constexpr int kFwdCols = 16;
 constexpr int kFwdPass = 8;
 // backward (ops/convt_tm.py mirrors these): dx columns per block, the
-// dx block's tap groups, the C_in limit and W's row stride in shared
-// memory (8 thread rows x 8), threads a block, dW tile rows (16 thread
-// rows x 8) and columns per dW stage
+// dx block's tap groups, the input channels a dx block and dW tile (a
+// wider C_in is split over the grid) and W's row stride in shared memory
+// (8 thread rows x 8), threads a block, dW tile rows (16 thread rows x 8)
+// and columns per dW stage
 constexpr int kDxCols = 32;
 constexpr int kDxGroups = 4;
 constexpr int kMaxIn = 64;
@@ -104,9 +117,10 @@ __host__ __device__ __forceinline__ int round_up(int a, int m) {
   return (a + m - 1) / m * m;
 }
 
-// Shared memory of the forward kernel in floats: W_flat (C_out padded to
-// 16 rows of k * C_in' + 4, C_in' = C_in padded to 8) and the ring of K +
-// 2 kFwdPass - 1 x rows (C_in' x kFwdCols each).
+// Shared memory of the forward kernel in floats at Ci input and Co output
+// channels a block: W_flat (C_out padded to 16 rows of k * C_in' + 4,
+// C_in' = C_in padded to 8) and the ring of K + 2 kFwdPass - 1 x rows
+// (C_in' x kFwdCols each).
 __host__ __device__ __forceinline__ int fwd_smem_floats(int K, int Ci,
                                                         int Co) {
   const int cp = round_up(Ci, 8);
@@ -122,14 +136,20 @@ __device__ __forceinline__ int ring_at(int i, int c) {
   return i * kFwdCols + (c ^ (((i >> 1) & 1) << 3));
 }
 
-// grid (ceil(B / kFwdCols), ceil((L + K - 1) / steps)), kThreads threads.
-// Block (tile, run) writes out[t][:][b0 .. b0+15] for t in [run * steps,
-// min(L + K - 1, (run + 1) * steps)), kFwdPass steps a pass. Warp w owns
-// output channels 16 (w / 2) .. + 15 and columns 8 (w % 2) .. + 7 of the
-// tile, for every step of a pass: tap j's W fragment serves them all, and
-// step t+p at tap j reads the x row that step t+p-1 read at tap j-1, so
-// each fragment is split once a pass. The next tap's operands are loaded
-// from shared memory before this tap's products are issued.
+// grid (ceil(B / kFwdCols), ceil((L + K - 1) / steps), n_in * n_out),
+// kThreads threads; n_in = ceil(Ci / ci_slice) slices of the input
+// channels, n_out = ceil(Co / kMaxOut) of the output channels. Block
+// (tile, run, z) takes input channels ci0 .. ci0 + ci_slice - 1 (ci0 =
+// (z % n_in) ci_slice) and writes its sums over them for output channels
+// co0 .. co0 + kMaxOut - 1 (co0 = (z / n_in) kMaxOut) at columns b0 ..
+// b0+15 and t in [run * steps, min(L + K - 1, (run + 1) * steps)) to
+// out's partial z % n_in (out itself where n_in is 1), kFwdPass steps a
+// pass. Warp w owns output channels 16 (w / 2) .. + 15 and columns
+// 8 (w % 2) .. + 7 of the tile, for every step of a pass: tap j's W
+// fragment serves them all, and step t+p at tap j reads the x row that
+// step t+p-1 read at tap j-1, so each fragment is split once a pass. The
+// next tap's operands are loaded from shared memory before this tap's
+// products are issued.
 // KT > 0 fixes the tap count at compile time (the preset's 8), so that
 // the tap loop unrolls and the x fragments pass from step to step by
 // register renaming; KT = 0 takes any K.
@@ -137,11 +157,15 @@ template <int KT>
 __global__ void __launch_bounds__(kThreads)
 convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       float* __restrict__ out, int L, int Ci, int Co,
-                      int k_taps, int B, int steps) {
+                      int k_taps, int B, int steps, int ci_slice) {
   extern __shared__ float4 smem4[];
   const int K = KT > 0 ? KT : k_taps;
-  const int cp = round_up(Ci, 8), kt = K * cp, ws = kt + 4;
-  const int rows = round_up(Co, 16), slots = K + 2 * kFwdPass - 1;
+  const int n_in = (Ci + ci_slice - 1) / ci_slice;
+  const int ci0 = blockIdx.z % n_in * ci_slice;
+  const int co0 = blockIdx.z / n_in * kMaxOut;
+  const int ci_n = min(ci_slice, Ci - ci0), co_n = min(kMaxOut, Co - co0);
+  const int cp = round_up(ci_n, 8), kt = K * cp, ws = kt + 4;
+  const int rows = round_up(co_n, 16), slots = K + 2 * kFwdPass - 1;
   float* w_s = reinterpret_cast<float*>(smem4);  // w_s[o * ws + j*cp + i]
   float* ring = w_s + rows * ws;                 // (slots, cp, kFwdCols)
   const int tid = threadIdx.x;
@@ -150,6 +174,9 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int t0 = blockIdx.y * steps, t1 = min(t_out, t0 + steps);
   const int slot_len = cp * kFwdCols;
   const bool vec_x = B % 4 == 0;
+  x += (long long)ci0 * B;  // x[r][ci0 + i][b] at x[(r Ci + i) B + b]
+  w += (long long)co0 * Ci + ci0;  // W[j][co0 + o][ci0 + i]
+  out += ((long long)(blockIdx.z % n_in) * t_out * Co + co0) * B;
 
   // x row r (zero outside [0, L)) into its ring slot (r + slots) % slots
   auto load_row = [&](int r) {
@@ -159,7 +186,7 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int per = vec_x ? 4 : 1;
     for (int e = per * tid; e < cp * kFwdCols; e += per * kThreads) {
       const int i = e / kFwdCols, c = e % kFwdCols;
-      const bool ok = on && i < Ci && b0 + c < B;
+      const bool ok = on && i < ci_n && b0 + c < B;
       const float* s = ok ? src + (long long)i * B + c : x;
       if (vec_x)
         hk::cp_async16(dst + ring_at(i, c), s, ok);
@@ -169,10 +196,10 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   };
   // W_flat, zero-padded, and the first window's rows t0-K+1 .. t0+P-1,
   // all in flight at once
-  const int per_w = Ci % 4 == 0 ? 4 : 1;
+  const int per_w = Ci % 4 == 0 ? 4 : 1;  // ci0 is a multiple of 8
   for (int e = per_w * tid; e < rows * kt; e += per_w * kThreads) {
     const int o = e / kt, j = e % kt / cp, i = e % cp;
-    const bool ok = o < Co && i < Ci;
+    const bool ok = o < co_n && i < ci_n;
     const float* s = ok ? w + ((long long)j * Co + o) * Ci + i : w;
     if (per_w == 4)
       hk::cp_async16(w_s + o * ws + e % kt, s, ok);
@@ -196,7 +223,7 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (t + kFwdPass < t1)
       for (int r = t + kFwdPass; r < t + 2 * kFwdPass; ++r) load_row(r);
     hk::cp_async_commit();
-    if (m0 < Co) {  // uniform over the warp
+    if (m0 < co_n) {  // uniform over the warp
       float acc[kFwdPass][4];
 #pragma unroll
       for (int p = 0; p < kFwdPass; ++p)
@@ -251,7 +278,7 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int o = m0 + g + 8 * h;
-          if (o >= Co) continue;
+          if (o >= co_n) continue;
           float* dst = out + ((long long)(t + p) * Co + o) * B + c;
           if (c < B) dst[0] = acc[p][2 * h];
           if (c + 1 < B) dst[1] = acc[p][2 * h + 1];
@@ -263,34 +290,48 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Shared memory of the dx kernel in floats: W (K*Co rows of kMaxIn), the
-// ring of K+1 g rows (Co x kDxCols each), the tap groups' exchange tiles.
-__host__ __device__ __forceinline__ int dx_smem_floats(int K, int Co) {
-  return K * Co * kMaxIn + (K + 1) * Co * kDxCols
+// Shared memory of the dx kernel in floats at co_slice output channels a
+// block: W's slice (K*co_slice rows of kMaxIn), the ring of K+1 g rows
+// (co_slice x kDxCols each), the tap groups' exchange tiles.
+__host__ __device__ __forceinline__ int dx_smem_floats(int K, int co_slice) {
+  return K * co_slice * kMaxIn + (K + 1) * co_slice * kDxCols
          + (kDxGroups - 1) * kMaxIn * kDxCols;
 }
 
-// grid (ceil(B / kDxCols), ceil(L / steps)), kThreads threads. Block
-// (tile, run) writes dx[l][:][b0 .. b0+31] for l in [run * steps,
-// min(L, (run + 1) * steps)). Thread tid: group q = tid / 64 takes the
+// grid (ceil(B / kDxCols), ceil(L / steps), n_in * n_out), kThreads
+// threads; n_in = ceil(Ci / kMaxIn) slices of the input channels, n_out =
+// ceil(Co / co_slice) of the output channels (the reduction). Block
+// (tile, run, z) writes dx[l][ci0 .. ci0+63][b0 .. b0+31] (ci0 = (z %
+// n_in) kMaxIn) for l in [run * steps, min(L, (run + 1) * steps)), summed
+// over output channels co0 .. co0 + co_slice - 1 (co0 = (z / n_in)
+// co_slice), into dx's partial z / n_in (dx itself where n_out is 1).
+// Thread tid: group q = tid / 64 takes the
 // taps j = q, q + 4, ...; within a group, (tx, ty) = (tid % 8, tid % 64 /
 // 8) owns C_in rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3. Group 0
 // adds the others' tiles in order and writes dx.
 __global__ void __launch_bounds__(kThreads)
 convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
                      float* __restrict__ dx, int L, int Ci, int Co, int K,
-                     int B, int steps) {
+                     int B, int steps, int co_slice) {
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // w_s[j*Co + o][i]
-  float* ring = w_s + K * Co * kMaxIn;           // (K+1, Co, kDxCols)
-  float* red = ring + (K + 1) * Co * kDxCols;    // (groups-1, kMaxIn, kDxCols)
+  const int n_in = (Ci + kMaxIn - 1) / kMaxIn;
+  const int ci0 = blockIdx.z % n_in * kMaxIn;
+  const int co0 = blockIdx.z / n_in * co_slice;
+  const int ci_n = min(kMaxIn, Ci - ci0), co_n = min(co_slice, Co - co0);
+  float* w_s = reinterpret_cast<float*>(smem4);  // w_s[j*co_n + o][i]
+  float* ring = w_s + K * co_slice * kMaxIn;     // (K+1, co_n, kDxCols)
+  float* red = ring + (K + 1) * co_slice * kDxCols;  // (groups-1, kMaxIn,
+                                                     // kDxCols)
   const int tid = threadIdx.x, grp = tid >> 6;
   const int tx = tid & 7, ty = (tid & 63) >> 3;
   const int b0 = blockIdx.x * kDxCols;
   const int l0 = blockIdx.y * steps, l1 = min(L, l0 + steps);
-  const int slot_len = Co * kDxCols;
+  const int slot_len = co_n * kDxCols;
+  g += (long long)co0 * B;  // g[r][co0 + o][b] at g[(r Co + o) B + b]
+  w += (long long)co0 * Ci + ci0;  // W[j][co0 + o][ci0 + i]
+  dx += (long long)(blockIdx.z / n_in) * L * Ci * B + (long long)ci0 * B;
 
-  // g row r (Co x the tile's columns) into its ring slot r % (K+1)
+  // g row r (co_n x the tile's columns) into its ring slot r % (K+1)
   auto load_row = [&](int r) {
     float* dst = ring + (r % (K + 1)) * slot_len;
     const float* src = g + (long long)r * Co * B + b0;
@@ -300,19 +341,25 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
       cp_async4(dst + e, ok ? src + (long long)o * B + c : g, ok);
     }
   };
-  // W, rows padded with zeros to kMaxIn, and the first K rows of g, all
-  // in flight at once
-  if (Ci % 4 == 0) {
-    for (int e = 4 * tid; e < K * Co * kMaxIn; e += 4 * kThreads) {
-      const int i = e % kMaxIn;
-      const bool ok = i < Ci;
-      cp_async16(w_s + e, ok ? w + (long long)(e / kMaxIn) * Ci + i : w, ok);
+  // W's slice, rows padded with zeros to kMaxIn, and the first K rows of
+  // g, all in flight at once; w_s row jo = j*co_n + o is W[j][co0 + o],
+  // row jo of W's (K*Co, Ci) view where one slice takes all of C_out.
+  // (On the H100 at the preset, dx took 80 us a call this way, 92 with a
+  // tap-by-tap loop and 84 with a division on every row.)
+  const int gap = Co - co_n;
+  if (Ci % 4 == 0) {  // ci0 is a multiple of kMaxIn
+    for (int e = 4 * tid; e < K * co_n * kMaxIn; e += 4 * kThreads) {
+      const int i = e % kMaxIn, jo = e / kMaxIn;
+      const int row = gap ? jo + jo / co_n * gap : jo;
+      const bool ok = i < ci_n;
+      cp_async16(w_s + e, ok ? w + (long long)row * Ci + i : w, ok);
     }
   } else {
-    for (int e = tid; e < K * Co * kMaxIn; e += kThreads) {
-      const int i = e % kMaxIn;
-      const bool ok = i < Ci;
-      cp_async4(w_s + e, ok ? w + (long long)(e / kMaxIn) * Ci + i : w, ok);
+    for (int e = tid; e < K * co_n * kMaxIn; e += kThreads) {
+      const int i = e % kMaxIn, jo = e / kMaxIn;
+      const int row = gap ? jo + jo / co_n * gap : jo;
+      const bool ok = i < ci_n;
+      cp_async4(w_s + e, ok ? w + (long long)row * Ci + i : w, ok);
     }
   }
   for (int r = l0; r < l0 + K; ++r) load_row(r);
@@ -331,9 +378,9 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
       for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
     for (int j = grp; j < K; j += kDxGroups) {
       const float* gr = ring + ((l + j) % (K + 1)) * slot_len + 4 * tx;
-      const float* wr = w_s + j * Co * kMaxIn + 8 * ty;
+      const float* wr = w_s + j * co_n * kMaxIn + 8 * ty;
 #pragma unroll 4
-      for (int o = 0; o < Co; ++o) {
+      for (int o = 0; o < co_n; ++o) {
         const float4 wa = *reinterpret_cast<const float4*>(wr + o * kMaxIn);
         const float4 wb = *reinterpret_cast<const float4*>(wr + o * kMaxIn + 4);
         const float4 gv = *reinterpret_cast<const float4*>(gr + o * kDxCols);
@@ -358,7 +405,7 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
 #pragma unroll
       for (int p = 0; p < 8; ++p) {
         const int i = 8 * ty + p;
-        if (i >= Ci) continue;
+        if (i >= ci_n) continue;
         float* out = dx + ((long long)l * Ci + i) * B + b0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -477,41 +524,75 @@ int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 }  // namespace
 
-// steps: consecutive output steps t per block.
+// steps: consecutive output steps t per block; ci_slice: input channels
+// a block (a multiple of 8, or all of Ci). Where ci_slice < Ci, part
+// ((L + K - 1) * Co * B floats a slice of the input channels) is scratch
+// for the slices' partial sums, added in order into out; else it may be
+// null.
 extern "C" int convt1d_ola_tm_fwd(const void* x, const void* w, void* out,
-                                  int L, int Ci, int Co, int K, int B,
-                                  int steps, void* stream) {
-  if (Co > kMaxOut || steps < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)fwd_smem_floats(K, Ci, Co) * sizeof(float);
+                                  void* part, int L, int Ci, int Co, int K,
+                                  int B, int steps, int ci_slice,
+                                  void* stream) {
+  if (steps < 1 || ci_slice < 1 || (ci_slice < Ci && ci_slice % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_in = ceil_div(Ci, ci_slice), n_out = ceil_div(Co, kMaxOut);
+  if (n_in > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  float* dst = n_in > 1 ? (float*)part : (float*)out;
+  const size_t smem =
+      (size_t)fwd_smem_floats(K, min(ci_slice, Ci), min(Co, kMaxOut)) *
+      sizeof(float);
   const void* kernel = K == 8 ? (const void*)convt1d_tm_fwd_kernel<8>
                               : (const void*)convt1d_tm_fwd_kernel<0>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(ceil_div(B, kFwdCols), ceil_div(L + K - 1, steps));
+  dim3 grid(ceil_div(B, kFwdCols), ceil_div(L + K - 1, steps), n_in * n_out);
   if (K == 8)
-    convt1d_tm_fwd_kernel<8><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (float*)out, L, Ci, Co, K, B, steps);
+    convt1d_tm_fwd_kernel<8><<<grid, kThreads, smem, st>>>(
+        (const float*)x, (const float*)w, dst, L, Ci, Co, K, B, steps,
+        ci_slice);
   else
-    convt1d_tm_fwd_kernel<0><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (float*)out, L, Ci, Co, K, B, steps);
+    convt1d_tm_fwd_kernel<0><<<grid, kThreads, smem, st>>>(
+        (const float*)x, (const float*)w, dst, L, Ci, Co, K, B, steps,
+        ci_slice);
+  if (n_in > 1) {
+    const int n = (L + K - 1) * Co * B;
+    convt1d_tm_sum_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
+        (const float*)part, (float*)out, n_in, n);
+  }
   return (int)cudaGetLastError();
 }
 
 // dx (L, C_in, B) and dw (K, C_out, C_in); dw_part (ceil(L * B / cols),
 // K, C_out, C_in) is scratch: one partial per chunk of cols (l, b) columns.
-// steps: consecutive steps l per dx block.
+// steps: consecutive steps l per dx block; co_slice: output channels a dx
+// block. Where co_slice < Co, dx_part (L * Ci * B floats a slice of the
+// output channels) is scratch for the dx blocks' partial sums, added in
+// order into dx; else it may be null.
 extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
-                                  void* dx, void* dw, void* dw_part, int L,
-                                  int Ci, int Co, int K, int B, int steps,
-                                  int cols, void* stream) {
-  if (Ci > kMaxIn || steps < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+                                  void* dx, void* dw, void* dw_part,
+                                  void* dx_part, int L, int Ci, int Co, int K,
+                                  int B, int steps, int cols, int co_slice,
+                                  void* stream) {
+  if (steps < 1 || cols < 1 || co_slice < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)dx_smem_floats(K, Co) * sizeof(float);
+  const int n_in = ceil_div(Ci, kMaxIn), n_out = ceil_div(Co, co_slice);
+  if (n_out > 1 && dx_part == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)dx_smem_floats(K, min(co_slice, Co)) * sizeof(float);
   cudaError_t e = set_smem((const void*)convt1d_tm_dx_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  convt1d_tm_dx_kernel<<<dim3(ceil_div(B, kDxCols), ceil_div(L, steps)),
+  convt1d_tm_dx_kernel<<<dim3(ceil_div(B, kDxCols), ceil_div(L, steps),
+                              n_in * n_out),
                          kThreads, smem, st>>>(
-      (const float*)g, (const float*)w, (float*)dx, L, Ci, Co, K, B, steps);
+      (const float*)g, (const float*)w,
+      n_out > 1 ? (float*)dx_part : (float*)dx, L, Ci, Co, K, B, steps,
+      min(co_slice, Co));
+  if (n_out > 1) {
+    const int n = L * Ci * B;
+    convt1d_tm_sum_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
+        (const float*)dx_part, (float*)dx, n_out, n);
+  }
   const int n_chunks = ceil_div((long long)L * B, cols);
   convt1d_tm_wgrad_kernel<<<dim3(ceil_div(Ci, kMaxIn),
                                  ceil_div(K * Co, kWgRows), n_chunks),

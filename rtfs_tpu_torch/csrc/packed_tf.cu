@@ -50,12 +50,12 @@
 //     shared memory, so each packed row of 64 channels (256 bytes) is
 //     written as 16-byte chunks. Each output is summed by one warp in one
 //     fixed order: two calls give the same bits. W's split slice takes
-//     128 floats a k, so a block holds at most kProjSlice = 256 k of it:
-//     a larger K (512 in the CTCNet and TDFNet presets' bottleneck) is
-//     walked a slice at a time, each slice over all the block's tiles, the
-//     later slices' epilogues adding to the output the earlier ones wrote
-//     (ops/packed_tf.pw_proj_geometry mirrors the grid and the shared
-//     memory).
+//     128 floats a k, so a launch takes at most kProjSlice = 256 k: the
+//     entry launches the kernel once for each slice of 256 k of a larger
+//     K (512 in the CTCNet and TDFNet presets' bottleneck), the first with
+//     the bias, each later one adding its sums to what the one before
+//     wrote (ops/packed_tf.pw_proj_geometry mirrors the grid, the slices
+//     and the shared memory).
 // K7  pw_unproj_packed_fwd    replaces _make_pw_unproj_kernel
 //     (pallas_call in _pw_unproj_impl): out[b, n, p] = bias[n] + sum_k
 //     x[b, p, k] w[k, n], packed in, rank-4 out; also K6's dx.
@@ -166,8 +166,7 @@ constexpr int kProjN = 64;
 constexpr int kProjK = 32;
 constexpr int kProjStages = 3;
 constexpr int kProjPad = 8;
-constexpr int kProjSlice = 256;  // k rows of W a block holds split at once
-constexpr int kSliceStages = kProjSlice / kProjK;
+constexpr int kProjSlice = 256;  // k rows of W a launch holds split
 constexpr int kMapPad = 4;     // K8/K9 tile: floats past round_up(C, 4) a row
 constexpr int kMapBlocks = 4;  // K8/K9 blocks an SM: at most 64 registers
 constexpr int kK8Items = 2;   // K8: chunks a thread loads at once
@@ -329,53 +328,34 @@ __host__ __device__ __forceinline__ int round_up(int a, int m) {
 }
 
 // K6's shared floats for a reduction depth K: W's slice split into big
-// and small halves in B-fragment order (K padded to whole stages, at most
-// kProjSlice k, 128 floats a k), the ring, the output tile
-// (ops/packed_tf.pw_proj_smem)
+// and small halves in B-fragment order (K padded to whole stages, 128
+// floats a k), the ring, the output tile (ops/packed_tf.pw_proj_smem)
 __host__ __device__ __forceinline__ int proj_smem_floats(int K) {
-  return min(round_up(K, kProjK), kProjSlice) * 2 * kProjN +
+  return round_up(K, kProjK) * 2 * kProjN +
          kProjStages * kProjK * (kProjM + kProjPad) +
          kProjM * (kProjN + kProjPad);
 }
 
 // A place in a K6 block's sequence of stages: the tile (its batch row b
-// and first position m0), the k stage, the ring slot, and k_lo, the first
-// k stage of the slice of W (kSliceStages stages, the last one shorter)
-// that the stage multiplies. Stage s + 1 follows s: the slice's next k
-// stage, or the slice's first k stage of the block's next tile (gridDim.x
-// tiles on), or, past the block's last tile, the next slice's first k
-// stage at the block's first tile; the slot goes round the ring.
-// kSliced false (K <= kProjSlice, one slice): k_lo stays 0 and the next
-// stage after a tile's last is the block's next tile.
+// and first position m0), the k stage within it and the ring slot. Stage
+// s + 1 follows s: the next k stage, or the block's next tile (gridDim.x
+// tiles on); the slot goes round the ring.
 struct ProjCursor {
-  int b, mt, kst, slot, k_lo;  // mt: the tile's index among its row's tiles
-  template <bool kSliced>
-  __device__ __forceinline__ void next(int ks, int m_tiles, int tiles) {
+  int b, mt, kst, slot;  // mt: the tile's index among its row's M tiles
+  __device__ __forceinline__ void next(int ks, int m_tiles) {
     if (++slot == kProjStages) slot = 0;
-    if (!kSliced) {
-      if (++kst < ks) return;
-      kst = 0;
-      mt += gridDim.x;
-      b += mt / m_tiles;
-      mt %= m_tiles;
-      return;
-    }
-    if (++kst < min(k_lo + kSliceStages, ks)) return;
-    long long t = (long long)b * m_tiles + mt + gridDim.x;
-    if (t >= tiles) {
-      t = blockIdx.x;
-      k_lo += kSliceStages;
-    }
-    b = (int)(t / m_tiles);
-    mt = (int)(t - (long long)b * m_tiles);
-    kst = k_lo;
+    if (++kst < ks) return;
+    kst = 0;
+    mt += gridDim.x;
+    b += mt / m_tiles;
+    mt %= m_tiles;
   }
 };
 
-// grid (blocks, ceil(N / kProjN)), kProjThreads threads, one block an SM;
-// kSliced where K > kProjSlice (the one-slice instantiation keeps no
-// slice bookkeeping: measured 5-7% slower with it at K 256).
-// x (B, K, M), w (K, N) through its strides, out (B, M, N). Block (x, y)
+// grid (blocks, ceil(N / kProjN)), kProjThreads threads, one block an SM.
+// x (B, K, M) with xk >= K k rows a batch row (one slice of a deeper x),
+// w (K, N) through its strides, out (B, M, N), written as bias + the sums,
+// or with accumulate as out + the sums (bias null). Block (x, y)
 // keeps W[:, n0 .. n0 + kProjN) and walks the tiles x, x + gridDim.x, ...
 // of the B * ceil(M / kProjM) (batch row, positions) tiles. Its stages
 // run in one sequence over its tiles (ProjCursor): stage s is k rows
@@ -383,26 +363,21 @@ struct ProjCursor {
 // waits for stage s, issues stage s + kProjStages - 1 into the slot
 // iteration s - 1 read, then multiplies stage s.
 //
-// W is taken a slice of kProjSlice k rows at a time, so any K fits: the
-// block walks all its tiles with one slice, then all again with the next
-// (K <= kProjSlice, every preset's, is one slice and one walk). A slice is
-// split as the block reaches it: entry e = (k step, n8 tile, lane) of w4
-// holds the lane's B fragment of that step and tile, (b0, b1) big then
-// small, so a warp reads a fragment in one 16-byte load a lane with no
-// split. The first slice's epilogue writes bias + its sums, each later
-// slice's adds its sums to what the same thread wrote there before, so
-// every output is still summed in one fixed order. A row of x starts anywhere (M = 251 * 129 at the
+// W's slice is split once, as the block starts: entry e = (k step, n8
+// tile, lane) of w4 holds the lane's B fragment of that step and tile,
+// (b0, b1) big then small, so a warp reads a fragment in one 16-byte load
+// a lane with no split. A row of x starts anywhere (M = 251 * 129 at the
 // preset is odd): a stage copies each k row's 128 positions as the 33
 // 16-byte blocks that hold them, from the block of the first, so the row
 // lands shifted by the first's offset in it, 0-3 floats, the same for
 // rows 4 apart (4 M is a multiple of 4). A thread copies the same (row,
 // block) pairs every stage. The big products' sums are added to acc once
 // a stage (hk::mma3_apart).
-template <bool kSliced>
 __global__ void __launch_bounds__(kProjThreads, 1)
 pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out,
-               int B, int M, int K, int N, int wsk, int wsn) {
+               int B, int M, int K, int N, int wsk, int wsn, int xk,
+               int accumulate) {
   constexpr int WS = kProjN + kProjPad, XS = kProjM + kProjPad;
   constexpr int kChunks = kProjM / 4 + 1;  // 16-byte blocks a staged row
   constexpr int kCopies =
@@ -410,8 +385,8 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   static_assert(4 * kChunks <= XS, "a staged row holds its blocks");
   extern __shared__ float4 smem4[];
   const int kp = round_up(K, kProjK), ks = kp / kProjK;
-  const int w_entries = min(kp, kProjSlice) / 8 * (kProjN / 8) * 32;
-  float4* w4 = smem4;  // (slice / 8, kProjN / 8, 32 lanes): B fragments
+  const int w_entries = kp / 8 * (kProjN / 8) * 32;
+  float4* w4 = smem4;  // (kp / 8, kProjN / 8, 32 lanes): B fragments
   float* x_s = reinterpret_cast<float*>(w4 + w_entries);
   float* o_s = x_s + kProjStages * kProjK * XS;  // (kProjM, WS): out[m][n]
   const int tid = threadIdx.x, n0 = blockIdx.y * kProjN;
@@ -443,14 +418,13 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   // the stage at `at` into its slot, one commit group (empty past the
   // block's last stage)
-  ProjCursor ld{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0,
-                0};
+  ProjCursor ld{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
   auto load_stage = [&](int s, const ProjCursor& at) {
     if (s < total) {
       float* dst = x_s + at.slot * kProjK * XS;
       const int k0 = at.kst * kProjK, m0 = at.mt * kProjM;
       const int span = min(kProjM, M - m0);  // needed positions a row
-      const float* base = x + ((long long)at.b * K + k0) * M + m0;
+      const float* base = x + ((long long)at.b * xk + k0) * M + m0;
 #pragma unroll
       for (int i = 0; i < kCopies; ++i) {
         if (k0 + cr[i] >= K) continue;
@@ -468,35 +442,30 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   };
   for (int s = 0; s < kProjStages - 1; ++s) {
     load_stage(s, ld);
-    ld.next<kSliced>(ks, m_tiles, tiles);
+    ld.next(ks, m_tiles);
   }
 
-  // W's slice from k stage k_lo split into B fragments: entry e = (k
-  // step, n8 tile, lane (g, q)) holds W[k][n], W[k + 4][n], k = k_lo *
-  // kProjK + 8 step + q, n = n0 + 8 tile + g; unrolled so that a thread's
-  // loads (16 entries at a whole slice) are in flight together
-  auto split_w = [&](int k_lo) {
-    const int k_base = k_lo * kProjK;
-    const int entries = min(kp - k_base, kProjSlice) / 8 * (kProjN / 8) * 32;
+  // W's slice split into B fragments: entry e = (k step, n8 tile, lane
+  // (g, q)) holds W[k][n], W[k + 4][n], k = 8 step + q, n = n0 + 8 tile + g;
+  // unrolled so that a thread's loads (16 entries at K 256) are in flight
+  // together
 #pragma unroll 16
-    for (int e = tid; e < entries; e += kProjThreads) {
-      const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
-      const int k = k_base + (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
-      const int n = n0 + 8 * tile8 + (lane >> 2);
-      float v[2];
+  for (int e = tid; e < w_entries; e += kProjThreads) {
+    const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
+    const int k = (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
+    const int n = n0 + 8 * tile8 + (lane >> 2);
+    float v[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        v[h] = k + 4 * h < K && n < N
-                   ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
-                   : 0.f;
-      uint32_t big[2], small[2];
-      hk::split(v[0], big[0], small[0]);
-      hk::split(v[1], big[1], small[1]);
-      w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
-                          __uint_as_float(small[0]), __uint_as_float(small[1]));
-    }
-  };
-  split_w(0);
+    for (int h = 0; h < 2; ++h)
+      v[h] = k + 4 * h < K && n < N
+                 ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
+                 : 0.f;
+    uint32_t big[2], small[2];
+    hk::split(v[0], big[0], small[0]);
+    hk::split(v[1], big[1], small[1]);
+    w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                        __uint_as_float(small[0]), __uint_as_float(small[1]));
+  }
 
   // the warp's 16 x 32 tile: positions wm * 16 .., channels wn * 32 ..;
   // the lane's bias for its accumulators' columns
@@ -519,13 +488,11 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int v = 0; v < 4; ++v)
       acc[0][nb][v] = part[0][nb][v] = corr[0][nb][v] = 0.f;
 
-  // the tile's sums through o_s to out, 16-byte chunks of the packed rows,
-  // + bias (the first slice) or + what the first slices wrote there (the
-  // same thread's earlier store: plain loads, not the read-only path); the
-  // sums back to 0
+  // the tile's sums + bias through o_s to out, 16-byte chunks of the
+  // packed rows, with accumulate added to what the launch of the slice
+  // before wrote there; the sums back to 0
   const bool vec_out = (N & 3) == 0 && aligned16(out);
   auto epilogue = [&](const ProjCursor& at) {
-    const bool first = !kSliced || at.k_lo == 0;
     // D: c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
@@ -533,8 +500,7 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float v4[4];
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
-        v4[v] = acc[0][nb][v] + corr[0][nb][v] +
-                (first ? bias_r[nb][v & 1] : 0.f);
+        v4[v] = acc[0][nb][v] + corr[0][nb][v] + bias_r[nb][v & 1];
         acc[0][nb][v] = corr[0][nb][v] = 0.f;
       }
       *reinterpret_cast<float2*>(o) = make_float2(v4[0], v4[1]);
@@ -548,13 +514,13 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (m0 + r >= M || n0 + c >= N) continue;
       float* o = ob + (long long)r * N + c;
       float4 v = *reinterpret_cast<const float4*>(o_s + r * WS + c);
-      if (!first) {
+      if (accumulate) {
         const int n = N - n0 - c;
         const float4 was =
             vec_out ? *reinterpret_cast<const float4*>(o)
                     : make_float4(o[0], n > 1 ? o[1] : 0.f,
                                   n > 2 ? o[2] : 0.f, n > 3 ? o[3] : 0.f);
-        v = make_float4(v.x + was.x, v.y + was.y, v.z + was.z, v.w + was.w);
+        v = make_float4(was.x + v.x, was.y + v.y, was.z + v.z, was.w + v.w);
       }
       store_chunk(o, v, N - n0 - c, vec_out);
     }
@@ -565,25 +531,18 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // g+8 of the warp's m16 tile, each row shifted as it landed
   const float* xl = x_s + q * XS + wm * 16 + g;
   const float4* wl = w4 + wn * 4 * 32 + (tid & 31);
-  ProjCursor at{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0,
-                0};
+  ProjCursor at{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
   for (int s = 0; s < total; ++s) {
     hk::cp_async_wait<kProjStages - 2>();
     __syncthreads();  // stage s (and W's split) is in; every warp is done
                       // with stage s - 1
     load_stage(s + kProjStages - 1, ld);
-    ld.next<kSliced>(ks, m_tiles, tiles);
-    if (kSliced && at.k_lo > 0 && at.kst == at.k_lo &&
-        at.b * m_tiles + at.mt == (int)blockIdx.x) {
-      split_w(at.k_lo);  // a new slice: no warp reads the last one now
-      __syncthreads();
-    }
+    ld.next(ks, m_tiles);
     const int k0 = at.kst * kProjK;
-    const uint32_t shift = (x4 + (uint32_t)(at.b * K + k0 + q) * (uint32_t)M +
+    const uint32_t shift = (x4 + (uint32_t)(at.b * xk + k0 + q) * (uint32_t)M +
                             (uint32_t)(at.mt * kProjM)) & 3u;
     const float* xa = xl + at.slot * kProjK * XS + shift;
-    const float4* wb = wl + (at.kst - (kSliced ? at.k_lo : 0)) *
-                                (kProjK / 8) * (kProjN / 8) * 32;
+    const float4* wb = wl + at.kst * (kProjK / 8) * (kProjN / 8) * 32;
 #pragma unroll
     for (int kk = 0; kk < kProjK; kk += 8) {
       hk::FragA a[1];
@@ -610,9 +569,8 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
         acc[0][nb][v] += part[0][nb][v];
         part[0][nb][v] = 0.f;
       }
-    if (at.kst + 1 == (kSliced ? min(at.k_lo + kSliceStages, ks) : ks))
-      epilogue(at);
-    at.next<kSliced>(ks, m_tiles, tiles);
+    if (at.kst == ks - 1) epilogue(at);
+    at.next(ks, m_tiles);
   }
   hk::cp_async_wait_all();
 }
@@ -1153,8 +1111,8 @@ extern "C" int dw_conv_packed_fwd(const void* x, const void* w,
 }
 
 // x (B, K, M) rank-4 with M = T*F, w (K, N) through strides, out (B, M, N);
-// blocks: the persistent blocks of an N tile, at most the tiles
-// (ops/packed_tf.pw_proj_geometry)
+// blocks: the persistent blocks of an N tile, at most the tiles; one
+// launch a slice of kProjSlice k (ops/packed_tf.pw_proj_geometry)
 extern "C" int pw_proj_packed_fwd(const void* x, const void* w,
                                   const void* bias, void* out, int B, int M,
                                   int K, int N, int wsk, int wsn, int blocks,
@@ -1163,16 +1121,23 @@ extern "C" int pw_proj_packed_fwd(const void* x, const void* w,
   if (tiles < 1 || K < 1 || N < 1 || blocks < 1 || blocks > tiles ||
       !grid_ok((N + kProjN - 1) / kProjN, 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)proj_smem_floats(K) * sizeof(float);
-  const auto kernel =
-      K > kProjSlice ? pw_proj_kernel<true> : pw_proj_kernel<false>;
-  cudaError_t e = allow_smem((const void*)kernel, smem);
+  const size_t smem =
+      (size_t)proj_smem_floats(min(K, kProjSlice)) * sizeof(float);
+  cudaError_t e = allow_smem((const void*)pw_proj_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(blocks, (N + kProjN - 1) / kProjN), kProjThreads, smem,
-           (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias, (float*)out, B, M,
-      K, N, wsk, wsn);
-  return (int)cudaGetLastError();
+  // one launch a slice of kProjSlice k, in order, each after the first
+  // adding to out
+  for (int k0 = 0; k0 < K; k0 += kProjSlice) {
+    pw_proj_kernel<<<dim3(blocks, (N + kProjN - 1) / kProjN), kProjThreads,
+                     smem, (cudaStream_t)stream>>>(
+        (const float*)x + (long long)k0 * M,
+        (const float*)w + (long long)k0 * wsk,
+        k0 == 0 ? (const float*)bias : nullptr, (float*)out, B, M,
+        min(K - k0, kProjSlice), N, wsk, wsn, K, k0 > 0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 // x (B, M, K) packed, w (K, N) through strides, out (B, N, M) rank-4

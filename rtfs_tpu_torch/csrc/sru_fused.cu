@@ -69,10 +69,15 @@
 // register, the highway term (the direction's own input row) read from
 // memory kFwdAhead steps ahead, and writes h (and c when training). One
 // barrier a chunk. U never goes to device memory. Two blocks an SM at H
-// 32, so that one block's product can overlap another's scan.
-// ops/sru_fused.k2_fwd_geometry picks bt and S so that the grid fills the
-// card where B allows. The scan's chain (two sigmoids a step) and the
-// product take about as long each at bs 8 (PERF.md).
+// 32, so that one block's product can overlap another's scan. The units
+// are independent but for the projection, so where W_d and the chunks do
+// not fit one block (H above 68) the grid also splits the units: a block
+// owns a slice of them, keeps only the 3 x slice rows of W_d that project
+// onto them, reads the whole of X and writes the U rows and h of its units
+// alone (H 80 as two slices of 40; one slice, all of H, at every preset).
+// ops/sru_fused.k2_fwd_geometry picks bt, S and the slice so that the
+// grid fills the card where B allows. The scan's chain (two sigmoids a
+// step) and the product take about as long each at bs 8 (PERF.md).
 //
 // K2's backward is three products and a scan: U = W^T x, dx = W du and
 // dW = sum_t du x^T (3 x 2*6H*2H flops a column and step), and the gate
@@ -208,17 +213,24 @@ __host__ __device__ __forceinline__ int round_up(int a, int m) {
   return (a + m - 1) / m * m;
 }
 
-// Shared memory of the K2 forward in floats, N = S * bt columns a chunk:
-// W_d (3H rows padded to 8 * kFwdNB, of 2H padded to 8, + 4), two X
-// slots (2H' rows of N + 8) and two U slots (3H' rows of N + 4).
-__host__ __device__ __forceinline__ int hid_fwd_smem_floats(int H, int N) {
-  const int k8 = round_up(2 * H, 8), rows = round_up(3 * H, 8 * kFwdNB);
+// Shared memory of the K2 forward in floats, N = S * bt columns a chunk,
+// U units a block: W_d's rows of those units (3U rows padded to 8 *
+// kFwdNB, of 2H padded to 8, + 4), two X slots (2H' rows of N + 8) and
+// two U slots (3U' rows of N + 4).
+__host__ __device__ __forceinline__ int hid_fwd_smem_floats(int H, int N,
+                                                            int U) {
+  const int k8 = round_up(2 * H, 8), rows = round_up(3 * U, 8 * kFwdNB);
   return rows * (k8 + 4) + 2 * k8 * (N + 8) + 2 * rows * (N + 4);
 }
 
-// grid (ceil(B / bt), 2), kFwdThreads threads; S * bt a multiple of 32,
-// H * bt <= kFwdThreads, S a multiple of min(S, kFwdAhead). Thread p <
-// H * bt scans unit j = p / bt of column b0 + p % bt. Per chunk n: the
+// grid (ceil(B / bt), 2, ceil(H / units)), kFwdThreads threads; S * bt a
+// multiple of 32, units * bt <= kFwdThreads, S a multiple of min(S,
+// kFwdAhead). Block (tile, dir, z) owns units j0 .. j0 + units - 1 (j0 =
+// z units; all of H where units = H, as at every preset): it keeps the
+// 3 units rows of W_d that project onto them (gate blocks of `units`
+// rows, rows past H zero) and projects and scans only those, from the
+// whole of X. Thread p < units * bt scans unit j0 + p / bt of column b0 +
+// p % bt. Per chunk n: the
 // copy of chunk n+1 is issued, the warps project chunk n into U slot n %
 // 2, one barrier, then the scan of chunk n; the next chunk's product
 // writes the other U slot, so the scan needs no second barrier.
@@ -227,11 +239,12 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
                    const float* __restrict__ wt, const float* __restrict__ vb,
                    float* __restrict__ h_f, float* __restrict__ h_r,
                    float* __restrict__ c_f, float* __restrict__ c_r, int T,
-                   int H, int B, int bt, int S) {
+                   int H, int B, int bt, int S, int units) {
   extern __shared__ float4 smem4[];
   const int dir = blockIdx.y, b0 = blockIdx.x * bt, tid = threadIdx.x;
+  const int j0 = blockIdx.z * units, hs = min(units, H - j0);
   const int N = S * bt, h2 = 2 * H, h3 = 3 * H;
-  const int k8 = round_up(h2, 8), rows = round_up(h3, 8 * kFwdNB);
+  const int k8 = round_up(h2, 8), rows = round_up(3 * units, 8 * kFwdNB);
   const int ws = k8 + 4, xs = N + 8, us = N + 4;
   float* w_s = reinterpret_cast<float*>(smem4);  // (rows, ws): W_d[o][k]
   float* x_s = w_s + rows * ws;                  // 2 x (k8, xs): X[k][col]
@@ -240,12 +253,21 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   const bool vec_x = bt % 4 == 0 && B % 4 == 0;
   const int warp = tid >> 5;
 
-  // W_d, zero-padded (rows >= 3H, columns >= 2H)
+  // W_d's rows of the block's units, a warp a row: row o = gate * units +
+  // jl is W_d's row gate * H + j0 + jl; zero-padded (units past H, rows >=
+  // 3 units, columns >= 2H). (gate, jl) steps with o, with no division.
   const float* wd = wt + (long long)dir * h3 * h2;
-  for (int e = tid; e < rows * k8; e += kFwdThreads) {
-    const int o = e / k8, k = e % k8;
-    const bool ok = o < h3 && k < h2;
-    hk::cp_async4(w_s + o * ws + k, ok ? wd + o * h2 + k : wt, ok);
+  {
+    int gate = warp / units, jl = warp % units;
+    for (int o = warp; o < rows; o += kFwdThreads / 32) {
+      const bool row_ok = gate < 3 && jl < hs;
+      const float* src = wd + (long long)(gate * H + j0 + jl) * h2;
+      for (int k = tid & 31; k < k8; k += 32) {
+        const bool ok = row_ok && k < h2;
+        hk::cp_async4(w_s + o * ws + k, ok ? src + k : wt, ok);
+      }
+      for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
+    }
   }
   // chunk n's X (rows >= 2H, steps past T and columns past B zero) into
   // slot n % 2
@@ -342,9 +364,9 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
     }
   };
 
-  // the scan thread: unit j, column b
-  const int j = tid / bt, b = b0 + tid % bt;
-  const bool live = tid < H * bt && b < B;
+  // the scan thread: unit j0 + jl, column b
+  const int jl = tid / bt, j = j0 + jl, b = b0 + tid % bt;
+  const bool live = tid < hs * bt && b < B;
   const float* xd = dir == 0 ? x_f : x_r;  // the highway: own input
   float* h = dir == 0 ? h_f : h_r;
   float* cs = dir == 0 ? c_f : c_r;  // null when serving
@@ -371,7 +393,7 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   load_hw(0, hw);
   float c = 0.f;
   auto scan = [&](int n) {
-    const float* u = u_s + (n & 1) * rows * us + j * us + tid % bt;
+    const float* u = u_s + (n & 1) * rows * us + jl * us + tid % bt;
     for (int s0 = 0; s0 < S; s0 += G) {
       const int i0 = n * S + s0;
       if (i0 >= T) break;
@@ -383,8 +405,8 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
         if (s >= G) break;
         const int off = (s0 + s) * bt;
         u0[s] = u[off];
-        u1[s] = u[H * us + off];
-        u2[s] = u[2 * H * us + off];
+        u1[s] = u[units * us + off];
+        u2[s] = u[2 * units * us + off];
       }
 #pragma unroll
       for (int s = 0; s < kFwdAhead; ++s) {
@@ -651,19 +673,20 @@ extern "C" int sru_dual_recurrence_bwd(const void* u_f, const void* u_r,
 extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
                                     const void* wt, const void* vb, void* h_f,
                                     void* h_r, void* c_f, void* c_r, int T,
-                                    int H, int B, int bt, int S,
+                                    int H, int B, int bt, int S, int units,
                                     void* stream) {
-  if (bt < 1 || S < 1 || (S * bt) % (16 * kFwdMT) != 0 || H * bt > kFwdThreads
-      || S % min(S, kFwdAhead) != 0)
+  if (bt < 1 || S < 1 || units < 1 || (S * bt) % (16 * kFwdMT) != 0 ||
+      units * bt > kFwdThreads || S % min(S, kFwdAhead) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)hid_fwd_smem_floats(H, S * bt) * sizeof(float);
+  const size_t smem =
+      (size_t)hid_fwd_smem_floats(H, S * bt, units) * sizeof(float);
   cudaError_t e = set_smem((const void*)sru_hid_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sru_hid_fwd_kernel<<<dim3(ceil_div(B, bt), 2), kFwdThreads, smem,
-                       (cudaStream_t)stream>>>(
+  sru_hid_fwd_kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)),
+                       kFwdThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x_f, (const float*)x_r, (const float*)wt,
       (const float*)vb, (float*)h_f, (float*)h_r, (float*)c_f, (float*)c_r,
-      T, H, B, bt, S);
+      T, H, B, bt, S, units);
   return (int)cudaGetLastError();
 }
 

@@ -6,16 +6,14 @@ branch), serving and training alike. Input (B, C, T, F). Pipeline:
   pad -> LN4D -> fold the other axis into batch -> SRU over windows of the
   scan axis (k, stride 1) -> ConvTranspose1d back -> + residual -> crop
 
-With the fused stack (bidirectional SRU, stride 1) and widths that K3
-takes (``convt_tm.fits``: 2H and C at most 64, as at every preset) the
-tail stays time-major: the stack emits (L', 2H, B*other), kernel K3
-back-projects it, the bias is added, and one transpose lands in (B, C, T,
-F). Every other SRU (unidirectional, or wider than the fused stack takes:
-K4 per layer and direction, ``ops.sru_pallas``) and every wider tail
-emits (B*other, L', dirs*H), and the tail is the library ConvTranspose1d
-(dirs*H -> C), as JAX's non-fused tail. The routes depend on the widths
-alone, never on L or B. On the CPU the same paths run the kernels' plain
-versions.
+With the fused stack (bidirectional SRU, stride 1) the tail stays
+time-major: the stack emits (L', 2H, B*other), kernel K3 back-projects it,
+the bias is added, and one transpose lands in (B, C, T, F), at any width
+(K3 splits wide channels over its grid, ``convt_tm.fwd_geometry``). Every
+other SRU (unidirectional: K4 per layer, ``ops.sru_pallas``) emits
+(B*other, L', dirs*H) and the tail is the library ConvTranspose1d (dirs*H
+-> C), as JAX's non-fused tail. On the CPU the same paths run the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.convt_tm import convt1d_ola_tm, fits as k3_fits
+from ..ops.convt_tm import convt1d_ola_tm
 from ..ops.sru import SRU
 from . import layers as L
 
@@ -55,14 +53,6 @@ class DualPathRNN(nn.Module):
         self.linear = L.ConvTranspose(hid_chan * num_dir, in_chan,
                                       kernel_size, stride=stride, nd=1)
 
-    @property
-    def uses_k3_tail(self) -> bool:
-        """The time-major tail through K3: the fused stack, stride 1, and
-        widths K3 takes."""
-        c_in, c_out, k = self.linear.weight.shape  # ConvTranspose (in, out, k)
-        return (self.rnn.uses_fused_stack and self.stride == 1
-                and k3_fits(c_in, c_out, k))
-
     def forward(self, x):
         if self.dim == 4:
             x = x.transpose(2, 3)  # the scan axis becomes axis 2
@@ -75,7 +65,7 @@ class DualPathRNN(nn.Module):
         x = self.norm(x)
         # fold F into batch: (B*F, T, C), batch-major sequences
         x = x.permute(0, 3, 2, 1).reshape(b * new_f, new_t, c)
-        if self.uses_k3_tail:
+        if self.rnn.uses_fused_stack and st == 1:
             h = self.rnn(x, time_major=True)  # (L', 2H, B*F)
             w = self.linear.weight.permute(2, 1, 0).contiguous()  # (k, C, 2H)
             y = convt1d_ola_tm(h, w) + self.linear.bias[None, :, None]

@@ -11,12 +11,17 @@ bias is added by the caller. CUDA kernels ``csrc/convt_tm.cu:
 convt1d_ola_tm_fwd`` (W resident in shared memory, a ring of x rows, the
 product on the tensor cores in 3xTF32) and ``..._bwd`` (dx with W resident
 in shared memory and a ring of g rows, dW as a split-K product whose
-partials are summed in a fixed order); when autograd records, the op runs
+partials are summed in a fixed order). Any width runs: channels wider than
+a block holds are split over the grid (``fwd_geometry``,
+``bwd_geometry``), the partial sums of a split reduction added in a fixed
+order. When autograd records, the op runs
 through a ``torch.autograd.Function`` whose backward is the kernel. On a
 CPU tensor the plain versions below run, forward and backward.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,33 +58,66 @@ def _check(x_tm, w):
                          f"{tuple(w.shape)}")
 
 
-# K3 forward's geometry, the constants of csrc/convt_tm.cu: C_out <= 64
-# (``kMaxOut``, four m16 tiles), blocks of 16 batch columns
-# (``kFwdCols``, also an x row's stride in shared memory) and 8 output
-# steps a pass (``kFwdPass``)
+# K3 forward's geometry, the constants of csrc/convt_tm.cu: output
+# channels a block (``kMaxOut``, four m16 tiles; a wider C_out is split
+# over the grid), blocks of 16 batch columns (``kFwdCols``, also an x
+# row's stride in shared memory) and 8 output steps a pass (``kFwdPass``)
 MAX_OUT = 64
 FWD_COLS = 16
 FWD_PASS = 8
 
 
+def fwd_smem(k: int, c_in: int, c_out: int) -> int:
+    """K3 forward's dynamic shared memory in bytes for a block of ``c_in``
+    input and ``c_out`` output channels (``fwd_smem_floats`` in the
+    source): W_flat, C_out padded to 16 rows of k * C_in' + 4 floats with
+    C_in' = C_in padded to 8, and the ring of k + 2 FWD_PASS - 1 x rows."""
+    c_pad = -(-c_in // 8) * 8
+    return 4 * (-(-c_out // 16) * 16 * (k * c_pad + 4)
+                + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS)
+
+
+def _slices(n: int, fits, align: int) -> int:
+    """The widest slice of ``n`` channels for which ``fits(width)`` holds:
+    all of ``n``, else the fewest equal slices, each a multiple of
+    ``align``. Raises ValueError where not even ``align`` channels fit."""
+    if fits(n):
+        return n
+    for parts in range(2, -(-n // align) + 1):
+        width = -(-(-(-n // parts)) // align) * align
+        if fits(width):
+            return width
+    raise ValueError(f"convt1d_ola_tm: {align} channels do not fit a block")
+
+
+@functools.lru_cache(maxsize=None)
 def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
                  bsz: int) -> dict:
     """K3 forward's launch geometry, as ``convt1d_ola_tm_fwd`` launches it:
-    the blocks (column tiles x runs of ``steps`` consecutive output steps,
-    a multiple of ``FWD_PASS``, one wave over the card's SMs) and their
-    dynamic shared memory in bytes (W_flat, its C_out padded to 16 rows of
-    k * C_in' + 4 floats with C_in' = C_in padded to 8, and the ring of
-    k + 2 FWD_PASS - 1 x rows)."""
+    the input channels split into ``in_slices`` of ``ci_slice`` (all of
+    C_in where W_flat and the ring fit one block's shared memory, else the
+    fewest equal slices, multiples of 8, that do), the output channels into
+    ``out_slices`` blocks of at most MAX_OUT; the blocks (column tiles x
+    runs of ``steps`` consecutive output steps, a multiple of
+    ``FWD_PASS``, x the slices, about one wave over the card's SMs) and
+    their dynamic shared memory in bytes. With more than one input slice
+    each writes a partial of out (``part`` floats each), summed in order."""
     t_out = length + k - 1
+    co_blk = min(c_out, MAX_OUT)
+    ci_slice = _slices(c_in, lambda w: fwd_smem(k, w, co_blk)
+                       <= kernel_lib.SMEM_PER_BLOCK, 8)
+    in_slices, out_slices = -(-c_in // ci_slice), -(-c_out // MAX_OUT)
     col_tiles = -(-bsz // FWD_COLS)
-    runs = max(1, min(t_out, kernel_lib.SMS // col_tiles))  # one block an SM
+    # one block an SM
+    runs = max(1, min(t_out, kernel_lib.SMS // (col_tiles * in_slices
+                                                * out_slices)))
     steps = -(-t_out // runs)
     steps = -(-steps // FWD_PASS) * FWD_PASS
-    c_pad = -(-c_in // 8) * 8
     return {
-        "grid": (col_tiles, -(-t_out // steps)), "steps": steps,
-        "smem": 4 * (-(-c_out // 16) * 16 * (k * c_pad + 4)
-                     + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS),
+        "grid": (col_tiles, -(-t_out // steps), in_slices * out_slices),
+        "steps": steps, "ci_slice": ci_slice, "in_slices": in_slices,
+        "out_slices": out_slices, "smem": fwd_smem(k, ci_slice, co_blk),
+        "part": t_out * c_out * bsz,
     }
 
 
@@ -89,24 +127,27 @@ def _forward(x_tm, w):
     kernel_lib.check_cuda_f32("convt1d_ola_tm", x_tm, w)
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
-    geo = fwd_geometry(length, c_in, c_out, k, bsz)
-    if (min(x_tm.shape) == 0 or k == 0 or c_out > MAX_OUT
-            or geo["smem"] > kernel_lib.SMEM_PER_BLOCK):
+    if min(x_tm.shape) == 0 or k == 0 or c_out == 0:
         raise ValueError(f"convt1d_ola_tm: unsupported shape x "
                          f"{tuple(x_tm.shape)}, w {tuple(w.shape)}")
+    geo = fwd_geometry(length, c_in, c_out, k, bsz)
     out = torch.empty(length + k - 1, c_out, bsz, device=x_tm.device)
+    part = (torch.empty(geo["in_slices"], geo["part"], device=x_tm.device)
+            if geo["in_slices"] > 1 else None)
     kernel_lib.launch(
         "convt_tm", "convt1d_ola_tm_fwd", x_tm.device,
         x_tm.data_ptr(), w.data_ptr(), out.data_ptr(),
-        length, c_in, c_out, k, bsz, geo["steps"],
+        None if part is None else part.data_ptr(),
+        length, c_in, c_out, k, bsz, geo["steps"], geo["ci_slice"],
     )
     return out
 
 
 # K3 backward's geometry, the constants of csrc/convt_tm.cu: dx blocks of
-# 32 batch columns (``kDxCols``) in 4 tap groups (``kDxGroups``) and C_in
-# <= 64 (``kMaxIn``, also W's row stride in shared memory); dW tiles of
-# 128 x 64 (``kWgRows`` x ``kMaxIn``), stages of 32 columns (``kWgCols``)
+# 32 batch columns (``kDxCols``) in 4 tap groups (``kDxGroups``) and 64
+# input channels (``kMaxIn``, also W's row stride in shared memory; a
+# wider C_in is split over the grid); dW tiles of 128 x 64 (``kWgRows`` x
+# ``kMaxIn``), stages of 32 columns (``kWgCols``)
 DX_COLS = 32
 DX_GROUPS = 4
 MAX_IN = 64
@@ -114,40 +155,44 @@ WGRAD_ROWS = 128
 WGRAD_COLS = 32
 
 
+def dx_smem(k: int, c_out: int) -> int:
+    """K3 dx's dynamic shared memory in bytes for a block of ``c_out``
+    output channels (``dx_smem_floats`` in the source): W's slice, the ring
+    of k + 1 g rows, the tap groups' exchange tiles."""
+    return 4 * (k * c_out * MAX_IN + (k + 1) * c_out * DX_COLS
+                + (DX_GROUPS - 1) * MAX_IN * DX_COLS)
+
+
+@functools.lru_cache(maxsize=None)
 def bwd_geometry(length: int, c_in: int, c_out: int, k: int,
                  bsz: int) -> dict:
     """K3 backward's launch geometry, as ``convt1d_ola_tm_bwd`` launches it:
-    the dx blocks (column tiles x runs of ``steps`` consecutive steps, one
-    wave over the card's SMs), their dynamic shared memory in bytes (all
-    of W, the ring of k+1 g rows, the tap groups' exchange tiles), and the
-    dW split-K over the L*B columns (``cols`` a chunk, one partial each)."""
+    the dx blocks (column tiles x runs of ``steps`` consecutive steps x
+    ``in_slices`` of MAX_IN input channels x ``out_slices`` of
+    ``co_slice`` output channels, about one wave over the card's SMs;
+    ``co_slice`` all of C_out where W's slice and the ring fit one block,
+    else the fewest equal slices that do), their dynamic shared memory in
+    bytes, and the dW split-K over the L*B columns (``cols`` a chunk, one
+    partial each). With more than one output slice each dx block writes a
+    partial of dx, summed in order."""
+    co_slice = _slices(c_out, lambda w: dx_smem(k, w)
+                       <= kernel_lib.SMEM_PER_BLOCK, 1)
+    in_slices, out_slices = -(-c_in // MAX_IN), -(-c_out // co_slice)
     col_tiles = -(-bsz // DX_COLS)
-    runs = max(1, min(length, kernel_lib.SMS // col_tiles))  # one block an SM
+    # one block an SM
+    runs = max(1, min(length, kernel_lib.SMS // (col_tiles * in_slices
+                                                 * out_slices)))
     steps = -(-length // runs)
     wgrad_tiles = -(-k * c_out // WGRAD_ROWS) * -(-c_in // MAX_IN)
     cols, chunks = kernel_lib.split_k(length * bsz, wgrad_tiles, WGRAD_COLS)
     return {
-        "dx_grid": (col_tiles, -(-length // steps)), "steps": steps,
-        "dx_smem": 4 * (k * c_out * MAX_IN + (k + 1) * c_out * DX_COLS
-                        + (DX_GROUPS - 1) * MAX_IN * DX_COLS),
+        "dx_grid": (col_tiles, -(-length // steps), in_slices * out_slices),
+        "steps": steps, "co_slice": co_slice, "in_slices": in_slices,
+        "out_slices": out_slices, "dx_smem": dx_smem(k, co_slice),
         "wgrad_grid": (-(-c_in // MAX_IN), -(-k * c_out // WGRAD_ROWS),
                        chunks),
         "cols": cols, "chunks": chunks,
     }
-
-
-def fits(c_in: int, c_out: int, k: int) -> bool:
-    """True where K3 forward and backward both take these widths: C_out
-    <= MAX_OUT, C_in <= MAX_IN and both kernels' shared memory (which
-    depends on neither L nor B) within one block's. ``models/rnn_blocks``
-    takes the time-major K3 tail only where it holds, and the library
-    ConvTranspose1d (the JAX package's XLA tail) elsewhere, so a width that
-    the reference takes never reaches a refusal here."""
-    if min(c_in, c_out, k) < 1 or c_out > MAX_OUT or c_in > MAX_IN:
-        return False
-    return max(fwd_geometry(1, c_in, c_out, k, 1)["smem"],
-               bwd_geometry(1, c_in, c_out, k, 1)["dx_smem"]
-               ) <= kernel_lib.SMEM_PER_BLOCK
 
 
 def _backward(g, x_tm, w):
@@ -156,19 +201,23 @@ def _backward(g, x_tm, w):
     kernel_lib.check_cuda_f32("convt1d_ola_tm backward", g, x_tm, w)
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
-    geo = bwd_geometry(length, c_in, c_out, k, bsz)
-    if (min(x_tm.shape) == 0 or k == 0 or c_in > MAX_IN
-            or geo["dx_smem"] > kernel_lib.SMEM_PER_BLOCK):
+    if min(x_tm.shape) == 0 or k == 0 or c_out == 0:
         raise ValueError(f"convt1d_ola_tm backward: unsupported shape x "
                          f"{tuple(x_tm.shape)}, w {tuple(w.shape)}")
+    geo = bwd_geometry(length, c_in, c_out, k, bsz)
+    dev = x_tm.device
     dx = torch.empty_like(x_tm)
     dw = torch.empty_like(w)
-    dw_part = torch.empty(geo["chunks"], k, c_out, c_in, device=x_tm.device)
+    dw_part = torch.empty(geo["chunks"], k, c_out, c_in, device=dev)
+    dx_part = (torch.empty(geo["out_slices"], *x_tm.shape, device=dev)
+               if geo["out_slices"] > 1 else None)
     kernel_lib.launch(
-        "convt_tm", "convt1d_ola_tm_bwd", x_tm.device,
+        "convt_tm", "convt1d_ola_tm_bwd", dev,
         g.data_ptr(), w.data_ptr(), x_tm.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), dw_part.data_ptr(), length, c_in, c_out, k, bsz,
-        geo["steps"], geo["cols"],
+        dw.data_ptr(), dw_part.data_ptr(),
+        None if dx_part is None else dx_part.data_ptr(),
+        length, c_in, c_out, k, bsz, geo["steps"], geo["cols"],
+        geo["co_slice"],
     )
     return dx, dw
 

@@ -35,18 +35,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points per library: (pointer args, int args); every function
 # also takes the stream last and returns cudaGetLastError(). A pointer may
 # be None (NULL) where the source says so (the forwards' c outputs, the
-# packed kernels' bias). The weight-gradient entries take a scratch buffer
-# for their per-block partials, which the wrapper allocates.
+# packed kernels' bias, K3's partials of an unsplit reduction). The
+# weight-gradient entries take a scratch buffer for their per-block
+# partials, and K3 one for the partials of a split reduction, which the
+# wrapper allocates.
 _SIGNATURES = {
     "sru_fused": {
         "sru_dual_recurrence_fwd": (7, 5),
         "sru_dual_recurrence_bwd": (10, 5),
-        "sru_hidden_layer_fwd": (8, 5),
+        "sru_hidden_layer_fwd": (8, 6),
         "sru_hidden_layer_bwd": (15, 6),
     },
     "convt_tm": {
-        "convt1d_ola_tm_fwd": (3, 6),
-        "convt1d_ola_tm_bwd": (6, 7),
+        "convt1d_ola_tm_fwd": (4, 7),
+        "convt1d_ola_tm_bwd": (7, 8),
     },
     "packed_tf": {
         "dw_conv_packed_fwd": (4, 13),

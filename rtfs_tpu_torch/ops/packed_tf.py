@@ -386,7 +386,7 @@ def pw_packed_wgrad(a, g):
 # K6's kernel, ``kProj*`` in csrc/packed_tf.cu: PROJ_THREADS threads a
 # block; tiles of PROJ_M positions x PROJ_N output channels; x staged
 # PROJ_K reduction rows a stage in a ring of PROJ_STAGES, a staged row
-# padded by PROJ_PAD floats; W held split PROJ_SLICE k rows at a time
+# padded by PROJ_PAD floats; one launch a slice of PROJ_SLICE k rows
 PROJ_THREADS = 512
 PROJ_M, PROJ_N, PROJ_K = 128, 64, 32
 PROJ_STAGES = 3
@@ -395,13 +395,12 @@ PROJ_SLICE = 256
 
 
 def pw_proj_smem(k: int) -> int:
-    """K6's shared bytes for a reduction depth ``k`` (``proj_smem_floats``
-    in the source): the slice of W, min(round_up(k, PROJ_K), PROJ_SLICE)
-    rows of PROJ_N channels split into big and small halves (2 PROJ_N
-    floats a k), the ring of (PROJ_K, PROJ_M + PROJ_PAD) stages and the
-    (PROJ_M, PROJ_N + PROJ_PAD) output tile: the same for every k above
-    PROJ_SLICE."""
-    kp = min(-(-k // PROJ_K) * PROJ_K, PROJ_SLICE)
+    """K6's shared bytes for a launch of reduction depth ``k`` at most
+    PROJ_SLICE (``proj_smem_floats`` in the source): W's slice,
+    round_up(k, PROJ_K) rows of PROJ_N channels split into big and small
+    halves (2 PROJ_N floats a k), the ring of (PROJ_K, PROJ_M + PROJ_PAD)
+    stages and the (PROJ_M, PROJ_N + PROJ_PAD) output tile."""
+    kp = -(-k // PROJ_K) * PROJ_K
     return 4 * (kp * 2 * PROJ_N
                 + PROJ_STAGES * PROJ_K * (PROJ_M + PROJ_PAD)
                 + PROJ_M * (PROJ_N + PROJ_PAD))
@@ -413,17 +412,19 @@ def pw_proj_geometry(b: int, m: int, k: int, n: int) -> dict:
     w (k, n): ``tiles`` = b * ceil(m / PROJ_M) (batch row, positions)
     tiles; ``blocks`` persistent blocks an N tile (one an SM, at most the
     tiles), block x walking the tiles x, x + blocks, ...; ``grid`` (blocks,
-    ceil(n / PROJ_N)); ``stages`` k stages a tile, walked in ``slices``
-    of at most PROJ_SLICE k (each slice over all the block's tiles before
-    the next); ``smem`` a block's shared bytes, within one block's at
-    every k."""
+    ceil(n / PROJ_N)); ``slices`` launches of this grid, one a slice of
+    at most PROJ_SLICE k (the first adds the bias, each later one adds its
+    sums to the output the one before wrote); ``stages`` k stages a tile
+    over all slices; ``smem`` a block's shared bytes, that of the first
+    (largest) slice."""
     if min(b, m, k, n) < 1:
         raise ValueError(f"pw_proj_packed: B {b}, M {m}, K {k}, N {n}")
     tiles = b * -(-m // PROJ_M)
     blocks = min(tiles, kernel_lib.SMS)
     return {"tiles": tiles, "blocks": blocks,
             "grid": (blocks, -(-n // PROJ_N)), "stages": -(-k // PROJ_K),
-            "slices": -(-k // PROJ_SLICE), "smem": pw_proj_smem(k)}
+            "slices": -(-k // PROJ_SLICE),
+            "smem": pw_proj_smem(min(k, PROJ_SLICE))}
 
 
 def pw_proj_launch_ints(x4, w) -> tuple:

@@ -14,14 +14,14 @@ with x_hw = U3 (k = 4) or the layer input's slice of the direction (k = 3).
 ``sru_layer`` is the plain scan, batch-major (B, L, D), kept as the
 reference the tests hold the kernels' paths against. The ``SRU`` module
 takes the fused stack (``ops.sru_fused``: kernels K1 and K2) whenever it
-applies, bidirectional with k = 4 on layer 0 and H within what K2 takes
-(``sru_fused.stack_fits``: H up to 68), as every RTFS-Net preset is
-(H 32). Every other configuration (unidirectional, input width 2H on
-layer 0, or a wider H) runs layer by layer through the gen-1 recurrence
-K4 (``ops.sru_pallas``), the reverse direction by K4's flag,
-time-major, layer 0 windowed when ``window`` is set, as JAX's Pallas
-backend does. The device picks the implementation: the plain versions on a
-CPU tensor, the CUDA kernels on a CUDA tensor.
+applies, bidirectional with k = 4 on layer 0, as every RTFS-Net preset is,
+at any H up to 268 (K2 forward splits a wide H over its grid,
+``sru_fused.k2_fwd_geometry``). Every other configuration
+(unidirectional, or input width 2H on layer 0) runs layer by layer
+through the gen-1 recurrence K4 (``ops.sru_pallas``), time-major, layer
+0 windowed when ``window`` is set, as JAX's Pallas backend does. The
+device picks the implementation: the plain versions on a CPU tensor, the
+CUDA kernels on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .sru_fused import scan_direction, sru_stack, stack_fits
+from .sru_fused import scan_direction, sru_stack
 from .sru_pallas import sru_layer_tpu, sru_layer_tpu_windowed
 
 
@@ -101,8 +101,7 @@ class SRU(nn.Module):
 
     @property
     def uses_fused_stack(self) -> bool:
-        return (self.bidirectional and self.input_size != 2 * self.hidden_size
-                and stack_fits(self.hidden_size))
+        return self.bidirectional and self.input_size != 2 * self.hidden_size
 
     def forward(self, x: torch.Tensor, time_major: bool = False):
         """x: (B, L, D). Returns (B, L', dirs*H), or (L', 2H, B) with

@@ -337,59 +337,57 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def k2_fwd_smem(hdim: int, cols: int) -> int:
+def k2_fwd_smem(hdim: int, cols: int, units: int | None = None) -> int:
     """K2 forward's dynamic shared memory in bytes (``hid_fwd_smem_floats``
-    in csrc/sru_fused.cu) at ``cols`` = S * bt columns a chunk: W_d, two
-    X slots, two U slots, rows padded for conflict-free fragments."""
-    k8, rows = _round_up(2 * hdim, 8), _round_up(3 * hdim, 8 * FWD_NB)
+    in csrc/sru_fused.cu) at ``cols`` = S * bt columns a chunk and
+    ``units`` units a block (all of H by default): the rows of W_d that
+    project onto them, two X slots, two U slots, rows padded for
+    conflict-free fragments."""
+    units = hdim if units is None else units
+    k8, rows = _round_up(2 * hdim, 8), _round_up(3 * units, 8 * FWD_NB)
     return 4 * (rows * (k8 + 4) + 2 * k8 * (cols + 8)
                 + 2 * rows * (cols + 4))
 
 
+@functools.lru_cache(maxsize=None)
 def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     """K2 forward's launch geometry, as ``sru_hidden_layer_fwd`` launches it.
 
-    A block owns one direction and ``bt`` batch columns and walks T in
-    chunks of ``steps`` (S) steps, S * bt = ``cols`` columns a chunk (a
-    multiple of 16 * FWD_MT: the product's m16 tiles run over (step,
-    column) pairs). ``bt`` is the largest of 8, 4, 2, 1 whose grid
-    (ceil(B / bt) tiles x 2 directions) fills the card's SMs, or 1 where
-    none does, and at most ``FWD_THREADS // H`` (one scan thread a unit
-    and column); ``cols`` 64, or 32 where 64 does not fit a block's shared
-    memory. Raises ``ValueError`` where neither fits (H above 68)."""
-    cap = FWD_THREADS // hdim if hdim > 0 else 0
-    choices = [bt for bt in (8, 4, 2, 1) if bt <= cap]
-    if not choices:
-        raise ValueError(f"sru_hidden_layer: H {hdim} above "
-                         f"{FWD_THREADS} units a block")
-    bt = next((bt for bt in choices
-               if 2 * -(-bsz // bt) >= kernel_lib.SMS), choices[-1])
-    for cols in (64, 32):
-        smem = k2_fwd_smem(hdim, cols)
-        if smem <= kernel_lib.SMEM_PER_BLOCK:
+    A block owns one direction, ``units`` units and ``bt`` batch columns
+    and walks T in chunks of ``steps`` (S) steps, S * bt = ``cols``
+    columns a chunk (a multiple of 16 * FWD_MT: the product's m16 tiles
+    run over (step, column) pairs). ``units`` is all of H where one scan
+    thread a unit fits the block and W_d with chunks of 32 columns fits its
+    shared memory (H up to 68, every preset), else the fewest equal
+    ``slices`` of H that do, each block keeping W_d's rows of its slice
+    alone. ``bt`` is the largest of 8, 4, 2, 1 whose grid (ceil(B / bt)
+    tiles x 2 directions x the slices) fills the card's SMs, or 1 where
+    none does, and at most ``FWD_THREADS // units``; ``cols`` 64, or 32
+    where 64 does not fit a block's shared memory. Raises ``ValueError``
+    where not even the narrowest slice fits (H above 268: X's two slots
+    alone nearly fill the block)."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}")
+    for slices in range(1, hdim + 1):
+        units = -(-hdim // slices)
+        if (units <= FWD_THREADS and k2_fwd_smem(hdim, 32, units)
+                <= kernel_lib.SMEM_PER_BLOCK):
             break
     else:
-        raise ValueError(f"sru_hidden_layer: H {hdim} needs {smem} bytes of "
-                         f"shared memory, above {kernel_lib.SMEM_PER_BLOCK}")
+        raise ValueError(f"sru_hidden_layer: H {hdim} needs "
+                         f"{k2_fwd_smem(hdim, 32, 1)} bytes of shared "
+                         f"memory, above {kernel_lib.SMEM_PER_BLOCK}")
+    slices = -(-hdim // units)
+    choices = [bt for bt in (8, 4, 2, 1) if bt <= FWD_THREADS // units]
+    bt = next((bt for bt in choices
+               if 2 * slices * -(-bsz // bt) >= kernel_lib.SMS), choices[-1])
+    cols = next(c for c in (64, 32)
+                if k2_fwd_smem(hdim, c, units) <= kernel_lib.SMEM_PER_BLOCK)
     steps = cols // bt
-    return {"bt": bt, "steps": steps, "cols": cols,
-            "grid": (-(-bsz // bt), 2), "chunks": -(-t_len // steps),
-            "smem": smem}
-
-
-def stack_fits(hdim: int) -> bool:
-    """True where every kernel of the fused stack's path takes H, forward
-    and backward, at any T and B: K1 forward (``k1_fwd_geometry``), the
-    backward scan (``scan_bwd_geometry``) and K2 backward
-    (``k2_bwd_geometry``) refuse no width; K2 forward (``k2_fwd_geometry``)
-    refuses H above FWD_THREADS units a block and H whose weight slice and
-    chunks of 32 columns exceed one block's shared memory (H above 68),
-    neither depending on T or B. ``ops.sru.SRU`` takes the fused stack only
-    where this holds, and the gen-1 route (K4 per layer and direction)
-    elsewhere, as the JAX package does where its fused stack does not
-    apply."""
-    return (1 <= hdim <= FWD_THREADS
-            and k2_fwd_smem(hdim, 32) <= kernel_lib.SMEM_PER_BLOCK)
+    return {"bt": bt, "steps": steps, "cols": cols, "units": units,
+            "slices": slices, "grid": (-(-bsz // bt), 2, slices),
+            "chunks": -(-t_len // steps),
+            "smem": k2_fwd_smem(hdim, cols, units)}
 
 
 # K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in
@@ -437,7 +435,7 @@ def _k2_forward(x_f, x_r, wt, vb, with_c):
         "sru_fused", "sru_hidden_layer_fwd", x_f.device,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), *c_ptrs,
-        t_len, hdim, bsz, geo["bt"], geo["steps"],
+        t_len, hdim, bsz, geo["bt"], geo["steps"], geo["units"],
     )
     return tuple(outs)
 

@@ -17,8 +17,7 @@ Counterpart of ``rtfs_tpu/ops/sru_pallas.py``, forward and backward:
   leaves it to XLA, then K4 per direction.
 
 Every SRU that the fused stack (``ops.sru_fused``) does not take runs here:
-unidirectional, bidirectional with input width 2H on layer 0, or wider
-than the fused stack takes (``sru_fused.stack_fits``).
+unidirectional, or bidirectional with input width 2H on layer 0.
 
 Layout: the layer functions are time-major, (L, D, B) in and (L, dirs*H, B)
 out, where JAX's take and return (B, L, D) and transpose around every

@@ -34,10 +34,12 @@ def _t(rng, shape, dev, scale=1.0):
 
 # small H, the serving shapes at bs 1 and 8 (freq L 57 / B 125 per item,
 # time L 118 / B 64), T 1, a ragged B that is a multiple of no tile and T
-# a multiple of no chunk, H 48 and 64
+# a multiple of no chunk, H 48 and 64, and H 80, 128 and 268, whose K2
+# forward splits its units over the grid
 @pytest.mark.parametrize("t_len,h,bsz", [
     (21, 8, 5), (57, 32, 125), (3, 32, 300), (118, 32, 64), (57, 32, 1000),
-    (118, 32, 512), (1, 32, 77), (37, 32, 131), (23, 48, 131), (19, 64, 50)])
+    (118, 32, 512), (1, 32, 77), (37, 32, 131), (23, 48, 131), (19, 64, 50),
+    (57, 80, 125), (9, 128, 40), (5, 268, 20)])
 def test_k1_k2_match_plain(dev, t_len, h, bsz):
     """K1 and K2 forward (serving, and with c) against their plain
     versions; two calls of each give the same bits."""
@@ -77,12 +79,13 @@ def _close(got, want, rel=None):
 
 
 # the two training geometries at bs 4, a ragged B that is a multiple of no
-# tile (64, 32, 128), T = 1, H above 32; the scan's ring: T shorter than
-# it, as long, one step longer; one column
+# tile (64, 32, 128), T = 1, H above 32 (H 80: K2 forward's units in two
+# slices); the scan's ring: T shorter than it, as long, one step longer;
+# one column
 @pytest.mark.parametrize("t_len,h,bsz", [
     (21, 8, 5), (57, 32, 500), (118, 32, 256), (37, 32, 131), (1, 32, 77),
     (23, 48, 131), (SCAN_AHEAD // 2, 32, 200), (SCAN_AHEAD, 48, 64),
-    (SCAN_AHEAD + 1, 32, 131), (23, 32, 1)])
+    (SCAN_AHEAD + 1, 32, 131), (23, 32, 1), (19, 80, 64)])
 def test_k1_k2_backward_match_plain(dev, t_len, h, bsz):
     """Forward with c and the BPTT kernels against the plain versions; two
     K1 and two K2 backward calls give the same bits."""
@@ -142,7 +145,8 @@ def test_k2_function_matches_autograd_of_plain(dev, h):
 @pytest.mark.parametrize("length,c_in,c_out,bsz,k",
                          [(57, 64, 64, 500, 8), (118, 64, 64, 256, 8),
                           (13, 32, 48, 17, 5), (37, 64, 64, 131, 8),
-                          (1, 64, 64, 77, 8)])
+                          (1, 64, 64, 77, 8), (57, 96, 64, 125, 8),
+                          (7, 160, 130, 40, 8)])
 def test_k3_backward_matches_plain(dev, length, c_in, c_out, bsz, k):
     """K3 backward against the plain version; two calls give the same
     bits."""
@@ -201,7 +205,8 @@ def test_wrappers_give_every_parameter_a_gradient(dev):
                           (118, 64, 64, 64, 8), (57, 64, 64, 1000, 8),
                           (118, 64, 64, 512, 8), (37, 32, 64, 131, 8),
                           (9, 12, 20, 33, 3), (1, 64, 64, 77, 8),
-                          (3, 32, 64, 131, 8)])
+                          (3, 32, 64, 131, 8), (57, 96, 64, 125, 8),
+                          (57, 160, 64, 125, 8), (7, 72, 130, 40, 16)])
 def test_k3_matches_plain(dev, length, c_in, c_out, bsz, k):
     """K3 forward against its plain version; two calls give the same
     bits."""
@@ -251,10 +256,10 @@ def test_k5_wgrad_takes_other_taps_and_unaligned_inputs(dev):
 
 @pytest.mark.parametrize("h", [48, 80])
 def test_wide_dual_path_rnn_card_matches_cpu(dev, h):
-    """A DualPathRNN wider than K3 (H 48: K1/K2 and the library
-    ConvTranspose1d) and than the fused stack (H 80: K4 a layer and
-    direction) serves and takes gradients on the card as on the CPU, with
-    the launches its route predicts."""
+    """A DualPathRNN wider than one K3 block takes (H 48: 2H 96 input
+    channels) and than one K2 forward block takes (H 80) serves and takes
+    gradients on the card as on the CPU, through K1, K2 and K3 as at the
+    preset."""
     from rtfs_tpu_torch.models.avnet import init_weights
     from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
     from rtfs_tpu_torch.ops import kernel_lib
@@ -273,8 +278,8 @@ def test_wide_dual_path_rnn_card_matches_cpu(dev, h):
     kernel_lib.reset_launches()
     got = md(xd)
     got.square().sum().backward()
-    route = ({"sru_dual_recurrence_fwd": 1, "sru_hidden_layer_fwd": 2}
-             if h == 48 else {"sru_recurrence_fwd": 6})
+    route = {"sru_dual_recurrence_fwd": 1, "sru_hidden_layer_fwd": 2,
+             "convt1d_ola_tm_fwd": 1}
     assert kernel_lib.LAUNCHES == {
         **route, **{k.replace("_fwd", "_bwd"): v for k, v in route.items()}}
     torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=ATOL,
@@ -311,8 +316,8 @@ def test_dual_path_rnn_card_matches_cpu(dev):
 
 # ragged shapes, the serving and bs-4 time sites; the scans' rings: T
 # shorter than them, one step longer; one column; H above 32, and H 80 at
-# the bs-4 freq site (the route of an SRU wider than the fused stack
-# takes); H 300 (blocks of two units)
+# the bs-4 freq site (a wide unidirectional SRU); H 300 (blocks of two
+# units)
 @pytest.mark.parametrize("t_len,h,bsz", [
     (37, 8, 5), (57, 32, 125), (118, 32, 300), (1, 32, 129), (118, 32, 256),
     (SCAN_AHEAD // 2, 32, 200), (SCAN_AHEAD + 1, 32, 131), (23, 32, 1),

@@ -28,30 +28,40 @@ SITES = [(57, 500), (118, 256), (37, 131), (1, 77), (5, 1),
 
 
 @pytest.mark.parametrize("t_len,bsz", SITES)
-@pytest.mark.parametrize("hdim", [32, 48, 64, 8])
+@pytest.mark.parametrize("hdim", [32, 48, 64, 8, 80, 128])
 def test_k2_forward_geometry(t_len, bsz, hdim):
     geo = sru_fused.k2_fwd_geometry(t_len, hdim, bsz)
-    bt, steps = geo["bt"], geo["steps"]
-    n_tiles, n_dirs = geo["grid"]
+    bt, steps, units = geo["bt"], geo["steps"], geo["units"]
+    n_tiles, n_dirs, n_slices = geo["grid"]
     assert n_dirs == 2 and n_tiles == -(-bsz // bt)
+    assert n_slices == geo["slices"] == -(-hdim // units)
     # the kernel's requirements (the C entry refuses anything else)
     assert steps * bt == geo["cols"]
     assert geo["cols"] % (16 * sru_fused.FWD_MT) == 0
-    assert hdim * bt <= sru_fused.FWD_THREADS
+    assert units * bt <= sru_fused.FWD_THREADS
     assert steps % min(steps, sru_fused.FWD_AHEAD) == 0
-    assert geo["smem"] == sru_fused.k2_fwd_smem(hdim, geo["cols"])
+    assert geo["smem"] == sru_fused.k2_fwd_smem(hdim, geo["cols"], units)
     assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    # all of H in one block where it fits (every H up to 68), else the
+    # fewest equal slices that do
+    if hdim <= 68:
+        assert units == hdim
+    else:
+        fewer = -(-hdim // (n_slices - 1))
+        assert sru_fused.k2_fwd_smem(hdim, 32, fewer) > \
+            kernel_lib.SMEM_PER_BLOCK
     # the grid fills the card where B allows, with the widest tile that
     # does; where none does, one column a block
-    allowed = [w for w in (8, 4, 2, 1) if hdim * w <= sru_fused.FWD_THREADS]
-    if 2 * n_tiles < kernel_lib.SMS:
+    allowed = [w for w in (8, 4, 2, 1) if units * w <= sru_fused.FWD_THREADS]
+    if 2 * n_slices * n_tiles < kernel_lib.SMS:
         assert bt == 1
     for wider in (w for w in allowed if w > bt):
-        assert 2 * -(-bsz // wider) < kernel_lib.SMS
+        assert 2 * n_slices * -(-bsz // wider) < kernel_lib.SMS
     # walk every block's chunks and scan threads: each (step, unit,
     # column, direction) is written once, and each direction's steps come
-    # in its scan order (t ascending forward, descending reverse)
-    written = np.zeros((t_len, bsz, 2), dtype=np.int64)
+    # in its scan order (t ascending forward, descending reverse); block
+    # z's threads p < units * bt scan unit z units + p // bt of its slice
+    written = np.zeros((t_len, hdim, bsz, 2), dtype=np.int64)
     for d in range(2):
         for tile in range(n_tiles):
             b0 = tile * bt
@@ -67,9 +77,22 @@ def test_k2_forward_geometry(t_len, bsz, hdim):
             assert order == want
             cols = [b0 + c for c in range(bt) if b0 + c < bsz]
             assert cols  # no empty block
-            for t in order:
-                written[t, cols, d] += 1
-    assert (written == 1).all()  # every unit j < H of these: H * bt threads
+            for z in range(n_slices):
+                j0 = z * units
+                hs = min(units, hdim - j0)
+                assert hs > 0  # no empty slice
+                # W_d's rows the block keeps: gate g, unit jl at g units
+                # + jl, each W_d row g H + j0 + jl once
+                rows = [g * hdim + j0 + jl for g in range(3)
+                        for jl in range(hs)]
+                assert len(set(rows)) == 3 * hs
+                assert 3 * units <= -(-3 * units // (
+                    8 * sru_fused.FWD_NB)) * 8 * sru_fused.FWD_NB
+                for p in range(hs * bt):
+                    j, b = j0 + p // bt, b0 + p % bt
+                    if b < bsz:
+                        written[order, j, b, d] += 1
+    assert (written == 1).all()
 
 
 @pytest.mark.parametrize("t_len,bsz", SITES)
@@ -161,7 +184,7 @@ def test_k2_forward_preset_geometry():
     """H 32: two blocks an SM (W_d, two X and two U slots of 64 columns),
     bt 8 where B allows the card to fill, narrower at the time site."""
     geo = sru_fused.k2_fwd_geometry(57, 32, 1000)
-    assert (geo["bt"], geo["steps"], geo["grid"]) == (8, 8, (125, 2))
+    assert (geo["bt"], geo["steps"], geo["grid"]) == (8, 8, (125, 2, 1))
     assert geo["smem"] == 4 * (96 * 68 + 2 * 64 * 72 + 2 * 96 * 68)
     # an SM's 228 KB of shared memory holds two such blocks, 1 KB each
     # besides
@@ -171,18 +194,37 @@ def test_k2_forward_preset_geometry():
 
 
 def test_k2_forward_refuses_h_above_the_limit():
-    with pytest.raises(ValueError):
-        sru_fused.k2_fwd_geometry(57, 80, 500)
-    with pytest.raises(ValueError):
-        sru_fused.k2_fwd_geometry(57, 300, 500)
+    """The limit is H 268, where even a slice of 8 units (24 rows of W_d)
+    no longer fits beside X's two slots; H 80, once refused, takes two
+    slices of 40."""
+    assert sru_fused.k2_fwd_geometry(57, 80, 500)["units"] == 40
+    assert sru_fused.k2_fwd_geometry(57, 268, 500)["units"] == 8
+    for hdim in (269, 300):
+        with pytest.raises(ValueError):
+            sru_fused.k2_fwd_geometry(57, hdim, 500)
 
 
 @pytest.mark.parametrize("length,bsz", SITES)
 @pytest.mark.parametrize("c_in,c_out,k", [(64, 64, 8), (32, 48, 5),
-                                          (12, 20, 3)])
+                                          (12, 20, 3), (96, 64, 8),
+                                          (160, 64, 8), (72, 130, 8)])
 def test_k3_forward_geometry(length, bsz, c_in, c_out, k):
     geo = convt_tm.fwd_geometry(length, c_in, c_out, k, bsz)
-    steps, (tiles, runs) = geo["steps"], geo["grid"]
+    steps, (tiles, runs, nz) = geo["steps"], geo["grid"]
+    ci_slice, n_in = geo["ci_slice"], geo["in_slices"]
+    assert nz == n_in * geo["out_slices"]
+    assert geo["out_slices"] == -(-c_out // convt_tm.MAX_OUT)
+    assert n_in == -(-c_in // ci_slice)
+    if n_in > 1:  # a multiple of 8 (W's 16-byte copies stay aligned)
+        assert ci_slice % 8 == 0
+    # block z: input channels (z % n_in) ci_slice .., output channels
+    # (z // n_in) MAX_OUT ..; each (input, output) channel pair once
+    pairs = np.zeros((c_in, c_out), dtype=np.int64)
+    for z in range(nz):
+        i0, o0 = z % n_in * ci_slice, z // n_in * convt_tm.MAX_OUT
+        assert i0 < c_in and o0 < c_out
+        pairs[i0:i0 + ci_slice, o0:o0 + convt_tm.MAX_OUT] += 1
+    assert (pairs == 1).all()
     t_out = length + k - 1
     written = np.zeros((t_out, bsz), dtype=np.int64)
     for tile in range(tiles):
@@ -214,19 +256,24 @@ def test_k3_forward_geometry(length, bsz, c_in, c_out, k):
             assert len(set(loaded)) == len(loaded)  # each row read once
     assert (written == 1).all()
     assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
-    if tiles <= kernel_lib.SMS:
-        assert tiles * runs <= kernel_lib.SMS  # one block an SM
+    assert geo["part"] == t_out * c_out * bsz
+    if tiles * nz <= kernel_lib.SMS:
+        assert tiles * runs * nz <= kernel_lib.SMS  # one block an SM
 
 
 def test_k3_forward_shared_memory_at_the_preset():
     """W_flat (64 rows of 8 * 64 + 4 floats) and the ring of 23 x rows of
-    64 x 16: 226,304 of the 232,448 bytes a block may use; C_in 72 at k 8
-    no longer fits; C_in 32 at k 16 does."""
+    64 x 16: 226,304 of the 232,448 bytes a block may use, one slice; C_in
+    72 at k 8 no longer fits one block and takes two slices of 40; C_in 32
+    at k 16 fits one."""
     geo = convt_tm.fwd_geometry(57, 64, 64, 8, 1000)
     assert geo["smem"] == 4 * (64 * 516 + 23 * 64 * 16) == 226_304
+    assert geo["grid"][2] == 1 and geo["ci_slice"] == 64
     assert geo["steps"] % convt_tm.FWD_PASS == 0
-    assert convt_tm.fwd_geometry(57, 72, 64, 8, 1000)["smem"] > \
-        kernel_lib.SMEM_PER_BLOCK
+    assert convt_tm.fwd_smem(8, 72, 64) > kernel_lib.SMEM_PER_BLOCK
+    wide = convt_tm.fwd_geometry(57, 72, 64, 8, 1000)
+    assert (wide["ci_slice"], wide["in_slices"]) == (40, 2)
+    assert wide["smem"] <= kernel_lib.SMEM_PER_BLOCK
     assert convt_tm.fwd_geometry(57, 32, 64, 16, 1000)["smem"] <= \
         kernel_lib.SMEM_PER_BLOCK
 

@@ -81,10 +81,24 @@ def test_k2_backward_geometry(t_len, bsz, hdim):
 
 
 @pytest.mark.parametrize("length,bsz", SITES)
-@pytest.mark.parametrize("c_in,c_out,k", [(64, 64, 8), (32, 48, 5)])
+@pytest.mark.parametrize("c_in,c_out,k", [(64, 64, 8), (32, 48, 5),
+                                          (96, 64, 8), (160, 130, 8)])
 def test_k3_backward_geometry(length, bsz, c_in, c_out, k):
     geo = convt_tm.bwd_geometry(length, c_in, c_out, k, bsz)
-    steps, (tiles, runs) = geo["steps"], geo["dx_grid"]
+    steps, (tiles, runs, nz) = geo["steps"], geo["dx_grid"]
+    co_slice, n_in = geo["co_slice"], geo["in_slices"]
+    assert n_in == -(-c_in // convt_tm.MAX_IN)
+    assert nz == n_in * geo["out_slices"]
+    assert geo["out_slices"] == -(-c_out // co_slice)
+    # block z: dx rows (z % n_in) MAX_IN .., summed over output channels
+    # (z // n_in) co_slice ..; each (input, output) pair once
+    pairs = np.zeros((c_in, c_out), dtype=np.int64)
+    for z in range(nz):
+        i0, o0 = z % n_in * convt_tm.MAX_IN, z // n_in * co_slice
+        assert i0 < c_in and o0 < c_out
+        pairs[i0:i0 + convt_tm.MAX_IN, o0:o0 + co_slice] += 1
+    assert (pairs == 1).all()
+    assert geo["dx_smem"] == convt_tm.dx_smem(k, co_slice)
     # every (l, b) of dx is written by exactly one block, and no block is
     # empty
     written = np.zeros((length, bsz), dtype=np.int64)
@@ -99,8 +113,8 @@ def test_k3_backward_geometry(length, bsz, c_in, c_out, k):
     # the dx blocks (one an SM: W alone is k * C_out * 256 bytes) fill the
     # card once where the columns allow it
     assert geo["dx_smem"] <= kernel_lib.SMEM_PER_BLOCK
-    if tiles <= kernel_lib.SMS:
-        assert tiles * runs <= kernel_lib.SMS
+    if tiles * nz <= kernel_lib.SMS:
+        assert tiles * runs * nz <= kernel_lib.SMS
     nx, ny, nz = geo["wgrad_grid"]
     assert (ny - 1) * convt_tm.WGRAD_ROWS < k * c_out <= ny * convt_tm.WGRAD_ROWS
     assert (nx - 1) * convt_tm.MAX_IN < c_in <= nx * convt_tm.MAX_IN

@@ -6,15 +6,16 @@ CPU.
 of channels) and threads (a channel quad, a tap row, a group of taps, a
 segment of positions); ``ops/sru_pallas.k4_fwd_geometry`` gives
 ``csrc/sru_pallas.cu``'s ``sru_rec_fwd_kernel`` its blocks of columns x
-units; ``pw_proj_geometry`` gives ``pw_proj_kernel`` its slices of W. These
+units; ``pw_proj_geometry`` gives ``pw_proj_kernel`` its launches, one a
+slice of W. These
 tests walk the blocks and threads as the kernels do, at the preset's sites
 and at ragged shapes: every term of dW is summed by exactly one thread of
 one block and every partial written once; the staged x value a window
 reads is the input value of its tap; the ring of rows never hands a step
 a slot that another row took, nor overwrites one a step still reads; K4
-forward's threads cover every (unit, column) once; K6's blocks multiply
-every (tile, k stage) once, split each slice before its first stage and
-write each tile once a slice. The constants and the C entries' signatures
+forward's threads cover every (unit, column) once; K6's launches
+multiply every (tile, k stage) once, the first adding the bias and each
+later one adding to the output. The constants and the C entries' signatures
 are held to the sources. About 4 s alone.
 """
 
@@ -277,23 +278,17 @@ def test_k4_forward_ring_hands_each_step_its_slot(t_len):
 # ------------------------------------------------------------- K6 slices
 
 
+def _proj_launches(k):
+    """The K6 entry's launches, as ``pw_proj_packed_fwd`` loops: (first k
+    row, depth, bias passed, accumulate) a slice of PROJ_SLICE k."""
+    return [(k0, min(k - k0, P.PROJ_SLICE), k0 == 0, k0 > 0)
+            for k0 in range(0, k, P.PROJ_SLICE)]
+
+
 def _proj_walk(tiles, blocks, ks, x):
-    """Block x's stage sequence, as ``ProjCursor.next`` steps it: (tile,
-    k stage, first k stage of the slice)."""
-    slice_stages = P.PROJ_SLICE // P.PROJ_K
-    t, kst, k_lo = x, 0, 0
-    mine = len(range(x, tiles, blocks))
-    out = []
-    for _ in range(mine * ks):
-        out.append((t, kst, k_lo))
-        kst += 1
-        if kst < min(k_lo + slice_stages, ks):
-            continue
-        t += blocks
-        if t >= tiles:
-            t, k_lo = x, k_lo + slice_stages
-        kst = k_lo
-    return out
+    """Block x's stage sequence in one launch, as ``ProjCursor.next``
+    steps it: (tile, k stage)."""
+    return [(t, kst) for t in range(x, tiles, blocks) for kst in range(ks)]
 
 
 @pytest.mark.parametrize("b,m,k,n", [(1, 251 * 129, 512, 64),
@@ -301,37 +296,33 @@ def _proj_walk(tiles, blocks, ks, x):
                                      (2, 300, 300, 70), (3, 1000, 520, 8),
                                      (1, 128, 800, 64)])
 def test_k6_blocks_walk_every_slice_of_every_tile_once(b, m, k, n):
-    """Each block multiplies every k stage of every tile it owns once,
-    slice by slice (all its tiles with one slice of W before the next); W
-    is split at the first stage of each slice (its first tile), the
-    epilogue runs at each tile's last stage of a slice, the first slice's
-    writing bias + sums and each later one's adding to them; the loader
-    runs PROJ_STAGES - 1 stages ahead on the same sequence."""
+    """One launch a slice of PROJ_SLICE k: each block of a launch
+    multiplies every k stage of its slice for every tile it owns once, the
+    first launch writing bias + sums and each later one adding its sums to
+    them (no bias); x rows are read at the slice's offset with the whole
+    tensor's K a batch row, so every (batch row, k row) of x is read by
+    exactly one launch; every launch fits the first one's shared memory."""
     geo = P.pw_proj_geometry(b, m, k, n)
-    tiles, blocks, ks = geo["tiles"], geo["blocks"], geo["stages"]
-    slice_stages = P.PROJ_SLICE // P.PROJ_K
-    seen = np.zeros((tiles, ks), np.int32)
-    for x in range(blocks):
-        walk = _proj_walk(tiles, blocks, ks, x)
-        mine = list(range(x, tiles, blocks))
-        assert walk == [(t, kst, lo) for lo in range(0, ks, slice_stages)
-                        for t in mine
-                        for kst in range(lo, min(lo + slice_stages, ks))]
-        for t, kst, _ in walk:
-            seen[t, kst] += 1
-        splits = [s for s, (t, kst, lo) in enumerate(walk)
-                  if lo > 0 and kst == lo and t == x]
-        assert len(splits) == geo["slices"] - 1
-        epilogues = [(t, lo) for t, kst, lo in walk
-                     if kst + 1 == min(lo + slice_stages, ks)]
-        assert sorted(epilogues) == sorted((t, lo) for t in mine for lo in
-                                           range(0, ks, slice_stages))
-        # the W entries a stage reads lie in its slice's split
-        for _, kst, lo in walk:
-            entries = min(ks * P.PROJ_K - lo * P.PROJ_K, P.PROJ_SLICE) // 8
-            assert (kst - lo + 1) * P.PROJ_K // 8 <= entries
-    assert (seen == 1).all()
-    assert geo["slices"] == -(-k // P.PROJ_SLICE)
+    tiles, blocks = geo["tiles"], geo["blocks"]
+    launches = _proj_launches(k)
+    assert len(launches) == geo["slices"] == -(-k // P.PROJ_SLICE)
+    assert [(bias, acc) for _, _, bias, acc in launches] == [
+        (True, False)] + [(False, True)] * (len(launches) - 1)
+    seen = np.zeros((tiles, geo["stages"]), np.int32)
+    rows = np.zeros((b, k), np.int32)
+    for k0, depth, _, _ in launches:
+        assert P.pw_proj_smem(depth) <= geo["smem"] <= \
+            kernel_lib.SMEM_PER_BLOCK
+        ks = -(-depth // P.PROJ_K)
+        for x in range(blocks):
+            for t, kst in _proj_walk(tiles, blocks, ks, x):
+                seen[t, k0 // P.PROJ_K + kst] += 1
+        for bb in range(b):
+            # row r of the launch's batch row bb: (bb * k + k0 + r) * m
+            starts = [(bb * k + k0 + r) for r in range(depth)]
+            for s in starts:
+                rows[s // k, s % k] += 1
+    assert (seen == 1).all() and (rows == 1).all()
 
 
 @functools.cache
@@ -348,6 +339,12 @@ def test_constants_and_entries_match_the_sources():
             consts["kWgTaps"], consts["kProjSlice"]) == (
         P.WGRAD_THREADS, P.WGRAD_MAX_THREADS, P.WGRAD_TAPS, P.PROJ_SLICE)
     assert "dw_wgrad_kernel<4, 4>" in src and "dw_wgrad_kernel<0, 0>" in src
+    # K6: one kernel body, launched once a slice, accumulating after the
+    # first
+    assert "template <bool" not in src.split("pw_proj_kernel(")[0][-200:]
+    assert re.search(r"for \(int k0 = 0; k0 < K; k0 \+= kProjSlice\)", src)
+    assert "k0 == 0 ? (const float*)bias : nullptr" in src
+    assert "K, k0 > 0);" in src
     entry = re.search(r'extern "C" int dw_conv_packed_wgrad\((.*?)\)', src,
                       re.S).group(1)
     args = [a.strip() for a in entry.split(",")]

@@ -1,17 +1,18 @@
-"""Widths above the preset's: the routes the port takes where a kernel
-does not take the width, against the JAX package, on the CPU.
+"""Widths above the preset's, on the same kernels, against the JAX
+package, on the CPU.
 
-``ops/convt_tm.fits`` says where K3 (forward and backward) takes a
-ConvTranspose1d's widths, ``ops/sru_fused.stack_fits`` where every kernel
-of the fused SRU stack takes H. Both depend on the widths alone. Where
-they do not hold, the DualPathRNN takes the library ConvTranspose1d and
-the SRU the gen-1 route (K4 a layer and direction), as the JAX package
-does outside its Pallas kernels. These tests pin the predicates to the
-geometry functions' refusals, hold the port's DualPathRNN at H 48 (fused
-stack, library tail) and H 80 (K4, library tail) to rtfs_tpu's (its fused
-stack and ConvT kernel in interpret mode) forward and gradients, and hold
+The JAX package takes its fused SRU stack and its time-major ConvT kernel
+at any width. The port does too: K3 splits channels wider than one block
+holds over its grid (``ops/convt_tm.fwd_geometry``, ``bwd_geometry``), K2
+forward splits an H whose weight does not fit one block into slices of
+units (``ops/sru_fused.k2_fwd_geometry``), and K6 takes any bottleneck
+width a launch a slice of W. These tests pin the splits at the widths
+once refused, check that no geometry function raises at any width from 8
+to 160, hold the port's DualPathRNN at H 48 and H 80 (fused stack and
+time-major tail, as at the preset) to rtfs_tpu's (its fused stack and
+ConvT kernel in interpret mode) forward and gradients, and hold
 ``chip_smoke.rnn_launches`` to a counted forward and train step. About
-20 s alone (the two JAX modules' jitted gradients, module-scoped).
+25 s alone (the two JAX modules' jitted gradients, module-scoped).
 
 Tolerances: ``tests/test_torch_sru.py``'s (atol 2e-5, rtol 1e-4) on the
 outputs; the gradients to 2e-4 of each tensor's largest, as
@@ -49,60 +50,58 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("c_in,fits", [(64, True), (80, False), (96, False),
-                                       (128, False)])
-def test_convt_fits_exactly_where_k3_takes_the_widths(c_in, fits):
-    """At the preset's C_out 64 and k 8: 2H 64 fits; 80, 96 and 128 (H 40,
-    48, 64) are refused by K3's backward (C_in above 64) and, from 80 on,
-    by its forward's shared memory."""
-    assert convt_tm.fits(c_in, 64, 8) is fits
+@pytest.mark.parametrize("c_in,in_slices", [(64, 1), (80, 2), (96, 2),
+                                             (128, 2), (160, 3), (512, 8)])
+def test_k3_splits_wide_input_channels_over_the_grid(c_in, in_slices):
+    """At the preset's C_out 64 and k 8: 2H 64 is one block (the preset's
+    launch); wider inputs, once refused, are split into the fewest equal
+    slices whose W_flat and ring fit a block (forward), and into blocks of
+    MAX_IN rows of dx (backward), the output channels one slice."""
     fwd = convt_tm.fwd_geometry(57, c_in, 64, 8, 500)
     bwd = convt_tm.bwd_geometry(57, c_in, 64, 8, 500)
-    assert fits == (fwd["smem"] <= kernel_lib.SMEM_PER_BLOCK
-                    and bwd["dx_smem"] <= kernel_lib.SMEM_PER_BLOCK
-                    and c_in <= convt_tm.MAX_IN)
-    assert (fwd["smem"] <= kernel_lib.SMEM_PER_BLOCK) == (c_in <= 64)
+    assert fwd["in_slices"] == in_slices == fwd["grid"][2]
+    assert fwd["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    if in_slices > 1:
+        assert convt_tm.fwd_smem(8, -(-c_in // (in_slices - 1)), 64) > \
+            kernel_lib.SMEM_PER_BLOCK
+    assert bwd["dx_grid"][2] == bwd["in_slices"] == -(-c_in // 64)
+    assert bwd["out_slices"] == 1 and bwd["co_slice"] == 64
+    assert bwd["dx_smem"] <= kernel_lib.SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("h,fits", [(32, True), (48, True), (64, True),
-                                    (80, False), (128, False)])
-def test_stack_fits_exactly_where_k2_forward_takes_h(h, fits):
-    assert sru_fused.stack_fits(h) is fits
-    if fits:
-        sru_fused.k2_fwd_geometry(57, h, 500)
-    else:
-        with pytest.raises(ValueError):
-            sru_fused.k2_fwd_geometry(57, h, 500)
+@pytest.mark.parametrize("h,units", [(32, 32), (48, 48), (64, 64), (68, 68),
+                                     (80, 40), (128, 32), (268, 8)])
+def test_k2_forward_splits_wide_h_over_the_grid(h, units):
+    """Every H up to 68 is one slice (the preset's H 32 unchanged); a wider
+    H, once refused, is split into the fewest equal slices of units whose
+    rows of W_d fit one block beside the chunks."""
+    geo = sru_fused.k2_fwd_geometry(57, h, 500)
+    assert geo["units"] == units and geo["slices"] == -(-h // units)
+    assert geo["grid"][2] == geo["slices"]
+    assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
 
 
 @settings(max_examples=60, deadline=None)
 @given(h=st.integers(8, 160), c_out=st.integers(8, 160),
        k=st.integers(1, 9), t_len=st.integers(1, 130),
        bsz=st.integers(1, 1100))
-def test_admitted_widths_never_raise_in_a_geometry(h, c_out, k, t_len, bsz):
-    """Where a predicate admits the widths, no geometry function of the
-    route raises or sizes a block above one block's shared memory, at any
-    T and B; where it refuses them, some geometry at these widths does
-    (so the predicates are exactly the refusals, not narrower)."""
-    if sru_fused.stack_fits(h):
-        sru_fused.k1_fwd_geometry(t_len, h, bsz)
-        assert sru_fused.k2_fwd_geometry(t_len, h, bsz)["smem"] <= \
-            kernel_lib.SMEM_PER_BLOCK
-        sru_fused.k2_bwd_geometry(t_len, h, bsz)
-    else:
-        with pytest.raises(ValueError):
-            sru_fused.k2_fwd_geometry(t_len, h, bsz)
-    for dirs in (1, 2):  # the scan and K4 forward take every H
+def test_every_width_fits_every_geometry(h, c_out, k, t_len, bsz):
+    """At any width from 8 to 160, any T and B, no geometry function of
+    the fused stack, K4, K3 or K6 raises or sizes a block above one
+    block's shared memory."""
+    assert sru_fused.k1_fwd_geometry(t_len, h, bsz)["smem"] <= \
+        kernel_lib.SMEM_PER_BLOCK
+    assert sru_fused.k2_fwd_geometry(t_len, h, bsz)["smem"] <= \
+        kernel_lib.SMEM_PER_BLOCK
+    sru_fused.k2_bwd_geometry(t_len, h, bsz)
+    for dirs in (1, 2):
         assert sru_fused.scan_bwd_geometry(t_len, h, bsz, dirs)["smem"] <= \
             kernel_lib.SMEM_PER_BLOCK
     assert sru_pallas.k4_fwd_geometry(t_len, h, bsz)["smem"] <= 48 * 1024
-    fwd = convt_tm.fwd_geometry(t_len, 2 * h, c_out, k, bsz)
-    bwd = convt_tm.bwd_geometry(t_len, 2 * h, c_out, k, bsz)
-    ok = (fwd["smem"] <= kernel_lib.SMEM_PER_BLOCK
-          and bwd["dx_smem"] <= kernel_lib.SMEM_PER_BLOCK
-          and 2 * h <= convt_tm.MAX_IN and c_out <= convt_tm.MAX_OUT)
-    assert convt_tm.fits(2 * h, c_out, k) == ok
-    # K6 takes every bottleneck width
+    assert convt_tm.fwd_geometry(t_len, 2 * h, c_out, k, bsz)["smem"] <= \
+        kernel_lib.SMEM_PER_BLOCK
+    assert convt_tm.bwd_geometry(t_len, 2 * h, c_out, k, bsz)["dx_smem"] <= \
+        kernel_lib.SMEM_PER_BLOCK
     assert packed_tf.pw_proj_geometry(1, 32379, 2 * h * k, c_out)["smem"] <= \
         kernel_lib.SMEM_PER_BLOCK
 
@@ -110,22 +109,23 @@ def test_admitted_widths_never_raise_in_a_geometry(h, c_out, k, t_len, bsz):
 def test_preset_routes_and_launch_counts_are_unchanged():
     """H 32 at in_chan 64, window 8, 4 layers: the fused stack with K3,
     K1 1 / K2 3 / K3 1 a DualPathRNN forward, K1/K2/K3 8/24/8 and no K4 a
-    preset forward, as phases 4 and 6 expect."""
+    preset forward, as phases 4 and 6 expect; the wide phase's H 48 and
+    H 80 launch the same."""
     import chip_smoke
     from rtfs_tpu_torch.config import load_config
 
-    assert chip_smoke.rnn_launches(64, 32, 8, 4) == {
-        "sru_dual_recurrence_fwd": 1, "sru_hidden_layer_fwd": 3,
-        "convt1d_ola_tm_fwd": 1}
+    for h in (32, *chip_smoke.WIDE_HIDDEN):
+        assert chip_smoke.rnn_launches(64, h, 8, 4) == {
+            "sru_dual_recurrence_fwd": 1, "sru_hidden_layer_fwd": 3,
+            "convt1d_ola_tm_fwd": 1}
+        m = DualPathRNN(64, h, dim=4, kernel_size=8, num_layers=4)
+        assert m.rnn.uses_fused_stack
     per_fwd = {n: 2 * chip_smoke.REPEATS * v
                for n, v in chip_smoke.rnn_launches(64, 32, 8, 4).items()}
     assert per_fwd == chip_smoke.SERVE_LAUNCHES
     assert chip_smoke.k4_launches(load_config(chip_smoke.PRESET)) == 0
-    m = DualPathRNN(64, 32, dim=4, kernel_size=8, num_layers=4)
-    assert m.rnn.uses_fused_stack and m.uses_k3_tail
-    assert chip_smoke.rnn_launches(64, 48, 8, 4) == {
-        "sru_dual_recurrence_fwd": 1, "sru_hidden_layer_fwd": 3}
-    assert chip_smoke.rnn_launches(64, 80, 8, 4) == {"sru_recurrence_fwd": 8}
+    assert chip_smoke.rnn_launches(64, 80, 8, 4, bidirectional=False) == {
+        "sru_recurrence_fwd": 4}
 
 
 @pytest.mark.parametrize("h", [48, 80])
@@ -203,9 +203,10 @@ def jax_rnn(request):
 
 @pytest.mark.parametrize("dim", [3, 4])
 def test_wide_dual_path_rnn_matches_jax(jax_rnn, dim):
-    """The port's DualPathRNN at H 48 (fused stack, library tail) and H 80
-    (K4 a layer and direction, library tail) against rtfs_tpu's, forward
-    and the gradients of every parameter and of the input."""
+    """The port's DualPathRNN at H 48 and H 80 (the fused stack and the
+    time-major tail, whose kernels split these widths over their grids on
+    the card) against rtfs_tpu's, forward and the gradients of every
+    parameter and of the input."""
     h, x, out = jax_rnn
     ref = out[dim]
 
@@ -215,8 +216,7 @@ def test_wide_dual_path_rnn_matches_jax(jax_rnn, dim):
                                ref["variables"])
 
     tmod = port()
-    assert tmod.rnn.uses_fused_stack == (h == 48)
-    assert not tmod.uses_k3_tail
+    assert tmod.rnn.uses_fused_stack
     xt = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1))
                           ).requires_grad_()
     y = tmod(xt)

@@ -1,20 +1,37 @@
 #!/usr/bin/env python3
-"""Device time of the SRU backward kernels, for the package of a given tree.
+"""Device time of redesigned kernels, for the package of a given tree.
 
 Imports ``rtfs_tpu_torch`` from ``--tree`` (default: this checkout),
 builds its kernels, and runs the backward wrappers of K1
-(``sru_fused._k1_backward``), K2 (``_k2_backward``) and K4
-(``sru_pallas._k4_backward``) at the RTFS-Net-4 bs-4 training sites
-(freq T 57 over B 500, time T 118 over B 256, H 32) on random inputs, the
-cell states from the tree's own training forward. For each it prints the
-profiler's device time a launch of the op's kernels and their sum per
-bs-4 step (K1 4 calls a site, K2 12, K4 16 in the unidirectional model),
+(``sru_fused._k1_backward``), K2 (``_k2_backward``), K3
+(``convt_tm._backward``, the DualPathRNN tail: 2H 64 -> 64 channels, 8
+taps) and K4 (``sru_pallas._k4_backward``) at the RTFS-Net-4 bs-4
+training sites (freq T 57 over B 500, time T 118 over B 256, H 32) on
+random inputs, the cell states from the tree's own training forward. For
+each it prints the profiler's device time a launch of the op's kernels
+and their sum per bs-4 step (K1 and K3 4 calls a site, K2 12, K4 16 in
+the unidirectional model),
 beside the CUDA-event time a call, which also counts the wrapper's host
-path. The wrappers' Python signatures are the same in every tree since
-K4 was ported, so two trees compare in turns in one call::
+path.
 
-    python3 tools/profile_backward.py --tree _scratch/parent
-    python3 tools/profile_backward.py
+``--packed`` runs the packed-TF kernels instead: K6 ``pw_proj_packed``
+at its serving site (bs 1 and 8: STFT 251 x 129, bottleneck 256 -> 64,
+the layer's strided w and a bias), its K7-dx site (bs 4, contiguous w, no
+bias) and at a bottleneck of 512 (bs 1; a tree whose K6 refuses it prints
+the refusal), and K5-wgrad ``dw_conv_packed_wgrad`` at its two bs-4 sites
+("same" and pre-select, 4 x 4 taps over 64 channels), each held to its
+plain version. ``--sweep`` (with ``--packed``, this tree's K5-wgrad
+launch interface) also launches K5-wgrad's C entry at the bs-4 "same"
+site with other positions a thread (``p``) and runs a tile (``runs``)
+than ``ops/packed_tf.dw_wgrad_geometry`` picks, each held to the plain
+version, beside the picked geometry's device time.
+
+The wrappers' Python signatures are the same in every tree since K4 was
+ported (the packed weight gradients for ``--packed``), so two trees
+compare in turns in one call::
+
+    python3 tools/profile_backward.py [--packed] --tree _scratch/parent
+    python3 tools/profile_backward.py [--packed]
 """
 
 from __future__ import annotations
@@ -28,14 +45,18 @@ import numpy as np
 import torch
 
 SITES = {"freq": (57, 500), "time": (118, 256)}
+T_PK, F_PK, C_PK, CB_PK = 251, 129, 64, 256  # the packed segment (2 s)
+K_PK = 4  # the packed TDANet block's depthwise taps
 H = 32
 # calls per bs-4 train step at each site: K1 and K2 per repeat (4) of the
 # bidirectional model, K4 per repeat and layer (16) of the unidirectional
-PER_SITE = {"K1": 4, "K2": 12, "K4": 16}
+PER_SITE = {"K1": 4, "K2": 12, "K3": 4, "K4": 16}
 # the device kernels of each op, as the profiler names them (either
 # tree's)
 KERNELS = {"K1": ("sru_scan_bwd_kernel<1>",),
            "K2": ("sru_hid_bwd_", "sru_scan_bwd_kernel<2>"),
+           "K3": ("convt1d_tm_dx_kernel", "convt1d_tm_wgrad_kernel",
+                  "convt1d_tm_sum_kernel"),
            "K4": ("sru_rec_bwd_kernel", "sru_scan_bwd_kernel<4>")}
 
 
@@ -73,30 +94,9 @@ def device_us(fn, parts, iters: int = 20) -> tuple:
     return total / iters, launches, names
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_backward: needs a CUDA card", file=sys.stderr)
-        return 1
-    tree = os.path.abspath(args.tree)
-    sys.path.insert(0, tree)
-    from rtfs_tpu_torch.ops import kernel_lib, sru_fused, sru_pallas
-
-    assert kernel_lib.__file__.startswith(tree), kernel_lib.__file__
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    kernel_lib.build_all()
-    rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
-
-    def t(shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
-            np.float32)).to(dev)
+def sru_backward(t, tree: str, card: str) -> None:
+    """The SRU backward wrappers at the bs-4 sites (the default mode)."""
+    from rtfs_tpu_torch.ops import convt_tm, sru_fused, sru_pallas
 
     step = {op: [0.0, 0.0] for op in PER_SITE}  # device ms, event ms
     for site, (T, B) in SITES.items():
@@ -106,6 +106,8 @@ def main() -> int:
         wt = t((6 * H, 2 * H), (2 * H) ** -0.5)
         dh_f, dh_r = t((T, H, B)), t((T, H, B))
         u4, x4, vb4 = t((T, 3 * H, B)), t((T, H, B)), t((4, H), 0.3)
+        x3, w3 = t((T, 2 * H, B)), t((8, 64, 2 * H), (16 * H) ** -0.5)
+        g3 = t((T + 7, 64, B))
         with torch.no_grad():
             c1 = sru_fused._k1_forward(u_f, u_r, vb, with_c=True)[2:]
             c2 = sru_fused._k2_forward(x_f, x_r, wt, vb, with_c=True)[2:]
@@ -115,6 +117,7 @@ def main() -> int:
                                                  dh_r),
             "K2": lambda: sru_fused._k2_backward(x_f, x_r, wt, vb, *c2, dh_f,
                                                  dh_r),
+            "K3": lambda: convt_tm._backward(g3, x3, w3),
             "K4": lambda: sru_pallas._k4_backward(u4, x4, vb4, c4, dh_f,
                                                   False),
         }
@@ -131,6 +134,121 @@ def main() -> int:
         print(f"{op} backward per bs-4 step: device {dev_ms:.4f} ms, events "
               f"{ev_ms:.4f} ms ({PER_SITE[op]} calls a site; tree {tree}; "
               f"{card})")
+
+
+def packed(t, sweep: bool) -> None:
+    """K6 and K5-wgrad at their sites (``--packed``), and K5-wgrad's
+    launch geometries (``--sweep``)."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    T, F, C, K = T_PK, F_PK, C_PK, K_PK
+    bias = t((C,))
+    for bs, site, k_in, strided, with_bias in (
+            (1, "projection", CB_PK, True, True),
+            (8, "projection", CB_PK, True, True),
+            (4, "K7 dx", CB_PK, False, False),
+            (1, "K 512", 2 * CB_PK, True, True)):
+        x4 = t((bs, k_in, T, F))
+        w = t((C, k_in), k_in ** -0.5)
+        w = w.t() if strided else w.t().contiguous()
+        b = bias if with_bias else None
+        fn = lambda: P.pw_proj_packed(x4, w, b)  # noqa: E731
+        try:
+            P.pw_proj_geometry(bs, T * F, k_in, C)
+        except ValueError as e:  # a tree whose K6 refuses this K
+            print(f"K6 bs={bs} site={site}: refused ({e})")
+            continue
+        err = (fn() - P.pw_proj_packed_plain(x4, w, b)).abs().max().item()
+        us, n, _ = device_us(fn, ("pw_proj_kernel",))
+        print(f"K6 bs={bs} site={site} K={k_in}: device {us:.2f} us a call "
+              f"({n:g} launches), events {event_ms(fn) * 1e3:.2f} us, max "
+              f"abs err {err:.3e}")
+    xp = t((4, T, F * C))
+    same = ((K - 1) // 2, K - 1 - (K - 1) // 2)
+    pre = ((K - 1) // 2,) * 2
+    for site, pads in (("same", same), ("pre-select", pre)):
+        t_out, f_out = P.dw_geometry(T, F, K, K, pads, pads)
+        g = t((4, t_out, f_out * C))
+        fn = lambda: P.dw_conv_packed_wgrad(  # noqa: E731
+            xp, g, F, C, (K, K), pads, pads)
+        want = P.dw_conv_packed_wgrad_plain(xp, g, F, C, (K, K), pads, pads)
+        err = (fn() - want).abs().max().item() / want.abs().max().item()
+        us, n, _ = device_us(fn, ("dw_wgrad", "sum_partials"))
+        print(f"K5-wgrad bs=4 site={site}: device {us:.2f} us a call ({n:g} "
+              f"launches, with the sum), events {event_ms(fn) * 1e3:.2f} "
+              f"us, max abs err {err:.3e} of max|dW|")
+    if not sweep:
+        return
+    dev = xp.device
+    t_out, f_out = P.dw_geometry(T, F, K, K, same, same)
+    g = t((4, t_out, f_out * C))
+    want = P.dw_conv_packed_wgrad_plain(xp, g, F, C, (K, K), same, same)
+    picked = P.dw_wgrad_geometry(4, C, t_out, f_out, K, K)
+    s = picked["s"]
+    for p in (6, 8, 11, 16, 22, 33):
+        tiles_f = -(-f_out // (s * p))
+        smem = P.dw_wgrad_smem(K, K, picked["qb"], s, p)
+        if smem > kernel_lib.SMEM_PER_BLOCK:
+            continue
+        per_sm = kernel_lib.SMEM_PER_SM // (smem + 1024)
+        for per in sorted({1, per_sm}):
+            runs = per * kernel_lib.SMS // tiles_f
+            ints = (4, T, F, C, t_out, f_out, K, K, same[0], same[0],
+                    picked["qb"], s, p, runs, runs * tiles_f)
+            part = torch.empty(ints[-1], K * K * C, device=dev)
+            out = torch.empty(K, K, C, device=dev)
+
+            def fn():
+                kernel_lib.launch(
+                    "packed_tf", "dw_conv_packed_wgrad", dev, xp.data_ptr(),
+                    g.data_ptr(), part.data_ptr(), out.data_ptr(), *ints)
+
+            fn()
+            err = (out - want).abs().max().item() / want.abs().max().item()
+            us, _, _ = device_us(fn, ("dw_wgrad", "sum_partials"))
+            mark = " (picked)" if (p, runs) == (picked["p"],
+                                                picked["runs"]) else ""
+            print(f"K5-wgrad sweep site=same p={p} tiles_f={tiles_f} "
+                  f"runs={runs} ({per} blocks an SM, {smem} B): device "
+                  f"{us:.2f} us a call, max abs err {err:.3e} of max|dW|"
+                  f"{mark}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--packed", action="store_true",
+                    help="K6 and K5-wgrad instead of the SRU backward")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --packed: K5-wgrad at other geometries")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_backward: needs a CUDA card", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    assert kernel_lib.__file__.startswith(tree), kernel_lib.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    kernel_lib.build_all()
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+
+    if args.packed:
+        packed(t, args.sweep)
+        print(f"tree {tree}; {card}")
+    else:
+        sru_backward(t, tree, card)
     return 0
 
 
