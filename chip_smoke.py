@@ -49,19 +49,25 @@ one or outside the repository. Phases, any failure of which ends the run:
 7. Packed-TF kernels (run right after phase 3): K5 dw_conv_packed, K6
    pw_proj_packed and K7 pw_unproj_packed at the packed serving shapes
    (STFT 251 x 129, 64 hid channels, bottleneck 256, pooled 125 x 64) at
-   batch 1 and 8, K6 as K7's dx (contiguous w, no bias) at batch 4 and
-   K6 at a bottleneck of 512 (two slices of W) at batch 1,
+   batch 1 and 8, at their batch-4 training sites (K5's "same" forward and
+   its dx: the flipped taps, pads (2, 1), no bias; K6 as K7's dx:
+   contiguous w, no bias; K7 as K6's dx: w^T of K6's strided weight, no
+   bias) and K6 at a bottleneck of 512 (two slices of W) at batch 1,
    each against its plain version on the same card inputs and called
-   twice (bit-identical), timed with CUDA events beside its bound (K6,
-   whose product runs in 3xTF32 on the tensor cores: that route's, the
-   SIMT-f32 one printed beside it), its plain version and one PyTorch call
-   of the same function (on the layout that call takes).
+   twice (bit-identical), timed with CUDA events beside its bound (K6 and
+   K7, whose products run in 3xTF32 on the tensor cores: that route's,
+   the SIMT-f32 one printed beside it), its plain version and one PyTorch
+   call of the same function (on the layout that call takes; none for
+   K5's dx, whose pads no single call takes).
    K8 spatial_down_packed and K9 spatial_up_packed at all six sites of
    their maps (pool, select, nearest and the three transposes, each the
    other kernel's dx) at batch 1, 4 and 8: against the plain version,
    two calls bit-identical, timed the same way, with the wrapper's host
    time per call; (7b, after phase 10) the profiler's device time per
-   launch of each, and of K6 at its three sites.
+   launch of each, and of K6 at its three sites; (7c, last) the
+   profiler's device time per launch of K5 at its training and serving
+   sites and of K7 at its serving sites and as K6's dx, beside the bound
+   and the parent design's figure.
 8. Serving from files (after phase 4): a seed-0 bundle, a 2 s wav and 50
    mouth frames go through ``rtfs_tpu_torch.inference.main`` on the card
    with and without ``--packed-tf`` and on the CPU with it. The packed run
@@ -118,7 +124,9 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    against their plain versions (two calls bit-identical), a bs-1
    forward against the CPU and a bs-4 train step through phase 6's
    gradient gates, each launching exactly what ``rnn_launches`` derives
-   (K1 1 / K2 3 / K3 1 a DualPathRNN, as at the preset).
+   (K1 1 / K2 3 / K3 1 a DualPathRNN, as at the preset). K2 forward also
+   at H 300 at the bs-1 sites (kernel only), where it streams its
+   projection's reduction through shared memory.
 
 The last lines are the ``kernels`` JSON object (15 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
@@ -456,18 +464,43 @@ def check_packed_kernels(conf, rng) -> dict:
              lambda: P.pw_unproj_packed(xp, w_out[:, :, 0, 0].t(), b_out, Fq),
              lambda: P.pw_unproj_packed_plain(xp, w_out[:, :, 0, 0].t(),
                                               b_out, Fq),
-             4 * (m_pw * (Cb + C) + Cb * C + Cb), 2 * m_pw * Cb * C, None,
-             lambda: Fn.conv2d(x_cl, w_out, b_out)),
+             4 * (m_pw * (Cb + C) + Cb * C + Cb), 2 * m_pw * Cb * C,
+             2 * m_pw * Cb * C, lambda: Fn.conv2d(x_cl, w_out, b_out)),
         ]
-        if bs == 4:  # training: only K6 as K7's dx, w contiguous, no bias
+        if bs == 4:  # training sites: K5's "same" forward and its dx (the
+            # flipped taps, pads (2, 1), no bias: no single library call
+            # takes those pads), K6 as K7's dx (w contiguous, no bias) and
+            # K7 as K6's dx (w^T of K6's strided weight, no bias)
             w_dx = w_out[:, :, 0, 0].contiguous()  # (Cb, C) = (w_out^T)^T
             w_lib = w_dx.t().contiguous()[:, :, None, None]
+            w_fl = torch.flip(w_v, (0, 1))
+            dx_pads = (k - 1 - same[0], k - 1 - same[1])
+            w_in_v = w_in[:, :, 0, 0].t()  # K6's (Cb, C) view
             cases = [
+                ("dw_conv_packed", "same", 0,
+                 lambda: P.dw_conv_packed(xp, w_v, b_dw, Fq, C, same, same),
+                 lambda: P.dw_conv_packed_plain(xp, w_v, b_dw, Fq, C, same,
+                                                same),
+                 4 * 2 * n_x + dw_w, 2 * k * k * n_x, None,
+                 lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding="same",
+                                   groups=C)),
+                ("dw_conv_packed", "same dx", 0,
+                 lambda: P.dw_conv_packed(xp, w_fl, None, Fq, C, dx_pads,
+                                          dx_pads),
+                 lambda: P.dw_conv_packed_plain(xp, w_fl, None, Fq, C,
+                                                dx_pads, dx_pads),
+                 4 * (2 * n_x + k * k * C), 2 * k * k * n_x, None, None),
                 ("pw_proj_packed", "K7 dx", 0,
                  lambda: P.pw_proj_packed(x4, w_dx, None),
                  lambda: P.pw_proj_packed_plain(x4, w_dx, None),
                  4 * (m_pw * (Cb + C) + Cb * C), 2 * m_pw * Cb * C,
-                 2 * m_pw * Cb * C, lambda: Fn.conv2d(x4, w_lib))]
+                 2 * m_pw * Cb * C, lambda: Fn.conv2d(x4, w_lib)),
+                ("pw_unproj_packed", "K6 dx", 0,
+                 lambda: P.pw_unproj_packed(xp, w_in_v.t(), None, Fq),
+                 lambda: P.pw_unproj_packed_plain(xp, w_in_v.t(), None, Fq),
+                 4 * (m_pw * (Cb + C) + Cb * C), 2 * m_pw * Cb * C,
+                 2 * m_pw * Cb * C,
+                 lambda: Fn.conv2d(x_cl, w_in.transpose(0, 1)))]
         if bs == 1:  # K6 at K 512 (CTCNet's and TDFNet's bottleneck): W
             # in two slices; no preset of the port runs it
             k_big = 2 * P.PROJ_SLICE
@@ -492,7 +525,7 @@ def check_packed_kernels(conf, rng) -> dict:
                                      "differ")
             ms = time_cuda(kern, 50)
             plain_ms = time_cuda(plain, 3, warmup=1)
-            lib_ms = time_cuda(lib, 50)
+            lib_ms = time_cuda(lib, 50) if lib is not None else math.nan
             f32_ms = bound_ms(nbytes, nops)[0]
             b_ms, b_by = (bound_ms(nbytes, nops) if mm_ops is None
                           else tf32x3_bound_ms(nbytes, nops, mm_ops))
@@ -502,7 +535,8 @@ def check_packed_kernels(conf, rng) -> dict:
                   f"(tol {PACKED_TOL[name]:.0e}) bit-identical=True "
                   f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} "
                   f"({b_by}{route}, {nbytes} B, {nops} flop) share of bound="
-                  f"{b_ms / ms:.3f} library_ms={lib_ms:.5f}")
+                  f"{b_ms / ms:.3f} library_ms="
+                  f"{'none' if lib is None else f'{lib_ms:.5f}'}")
             if not err <= PACKED_TOL[name]:
                 raise AssertionError(
                     f"{name} ({site}) disagrees with its plain version: "
@@ -569,9 +603,14 @@ def profile_map_kernels(conf, rng) -> None:
                   f"{_device_us(kern, MAP_KERNEL_NAMES[name]):.3f}")
 
 
-# the figures of the two kernels' previous designs (PERF.md section 6, on
-# an NVIDIA H100 80GB HBM3 at 700 W), printed beside their device time
+# the figures of the kernels' previous designs (PERF.md section 6, on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside their device time
 PARENT_FIGURES = {
+    "dw_conv_packed": "160.8 us of device a launch in a packed bs-4 step "
+                      "(32 launches, 5.146 ms); 46.6 us a bs-1 launch",
+    "pw_unproj_packed": "276.6 us of device a launch in a packed bs-4 step "
+                        "(8 launches, 2.213 ms); K6 at the mirrored site "
+                        "~106 us",
     "dw_conv_packed_wgrad": "3.2912 ms a packed bs-4 step by events, 16 "
                             "launches (~206 us a launch)",
     "sru_recurrence": "2.4664 ms a uni bs-8 forward by events, 32 launches;"
@@ -633,6 +672,66 @@ def profile_redesigned(conf, geo, rng) -> None:
                   f"{with_c} L={length} B={B}: device_us={us:.3f}, bound_us="
                   f"{b_ms * 1e3:.3f} ({b_by}), {us / length * 1e3:.1f} ns a "
                   f"step; parent: {PARENT_FIGURES['sru_recurrence']}")
+
+
+def profile_k5_k7(conf, rng) -> None:
+    """Phase 7c, last: the profiler's device microseconds per launch of K5
+    (``dw_conv_packed_kernel``) at its bs-4 training sites (the "same"
+    forward and its dx) and its bs-1 and bs-8 serving sites, and of K7
+    (``pw_unproj_kernel``) at its serving sites (bs 1 and 8) and as K6's dx
+    (bs 4), each beside the bound of the call and the parent's figure;
+    after every timed phase, as 7b."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    T, Fq, C, Cb, k = (g[n] for n in ("T", "F", "C", "Cb", "k"))
+    dev = torch.device("cuda")
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    w_v = t((C, k, k), 1.0 / k).permute(1, 2, 0)  # the layer's view
+    w_fl = torch.flip(w_v, (0, 1))
+    bias, bias_n = t((C,)), t((Cb,))
+    w_out = t((Cb, C), C ** -0.5).t()             # the layer's (C, Cb) view
+    w_k6dx = t((C, Cb), Cb ** -0.5)               # K6's w^T, contiguous
+    for bs, site in ((4, "same"), (4, "same dx"), (1, "same"),
+                     (1, "pre-select"), (8, "same"), (8, "pre-select")):
+        xp = t((bs, T, Fq * C))
+        if site == "same dx":
+            pads, w, b = (k - 1 - same[0], k - 1 - same[1]), w_fl, None
+        else:
+            pads, w, b = (same if site == "same" else pre), w_v, bias
+        t_out, f_out = P.dw_geometry(T, Fq, k, k, pads, pads)
+        geo = P.dw_conv_geometry(bs, C, t_out, f_out, k, k)
+        b_ms, b_by = bound_ms(4 * (bs * (T * Fq + t_out * f_out) * C
+                                   + (k * k + 1) * C),
+                              2 * k * k * bs * t_out * f_out * C)
+        us = _device_us(functools.partial(P.dw_conv_packed, xp, w, b, Fq, C,
+                                          pads, pads), "dw_conv_packed_kernel")
+        print(f"kernel dw_conv_packed bs={bs} site={site}: device_us="
+              f"{us:.3f}, bound_us={b_ms * 1e3:.3f} ({b_by}), share of the "
+              f"bound {b_ms * 1e3 / us:.3f}; grid {geo['grid']} of "
+              f"{geo['threads']} threads, {geo['smem']} bytes of shared "
+              f"memory; parent: {PARENT_FIGURES['dw_conv_packed']}")
+    for bs, site, w, b in ((1, "residual", w_out, bias_n),
+                           (8, "residual", w_out, bias_n),
+                           (4, "K6 dx", w_k6dx, None)):
+        xp = t((bs, T, Fq * C))
+        m = bs * T * Fq
+        b_ms, b_by = tf32x3_bound_ms(4 * (m * (Cb + C) + Cb * C),
+                                     2 * m * Cb * C, 2 * m * Cb * C)
+        geo = P.pw_unproj_geometry(bs, T * Fq, C, Cb)
+        us = _device_us(functools.partial(P.pw_unproj_packed, xp, w, b, Fq),
+                        "pw_unproj_kernel")
+        print(f"kernel pw_unproj_packed bs={bs} site={site}: device_us="
+              f"{us:.3f}, bound_us={b_ms * 1e3:.3f} ({b_by}, 3xTF32), share "
+              f"of the bound {b_ms * 1e3 / us:.3f}; grid {geo['grid']}, "
+              f"{geo['smem']} bytes of shared memory; parent: "
+              f"{PARENT_FIGURES['pw_unproj_packed']}")
 
 
 def _device_us(fn, kernel: str, iters: int = 20) -> float:
@@ -1422,8 +1521,12 @@ def profile_step(system, batch, generator, label: str,
     def dev_us(e):
         return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
 
+    # the device's kernels and copies; a region the code annotates (the
+    # optimizer's step) can also appear on the device's timeline, and
+    # would count its kernels twice
     kernels = sorted((e for e in prof.key_averages() if dev_us(e) > 0
-                      and e.device_type == torch.autograd.DeviceType.CUDA),
+                      and e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=dev_us, reverse=True)
     dev_ms = sum(dev_us(e) for e in kernels) / 1e3
     print(f"{label}: profiled step wall {wall_ms:.3f} ms, device "
@@ -2020,6 +2123,10 @@ def unidirectional(conf_uni, geo, rng) -> tuple:
 # block takes (48), and H above the 68 units whose W_d one K2 forward
 # block takes (80)
 WIDE_HIDDEN = (48, 80)
+# and H above 268, where K2 forward streams its projection's reduction
+# through shared memory (kernel only: no preset or DualPathRNN of the
+# phase reaches it)
+WIDE_STREAM_H = 300
 
 
 def _sum_launches(*counts) -> dict:
@@ -2101,6 +2208,31 @@ def wide(geo, rng) -> None:
                 raise AssertionError(f"wide H {h} {site}: a kernel disagrees "
                                      "with its plain version, or two calls "
                                      "differ")
+
+    h = WIDE_STREAM_H
+    vb = torch.cat([t((2, 2, h), math.sqrt(1.0 / h)), t((2, 2, h), 0.1)],
+                   dim=1).reshape(8, h)
+    wt = t((6 * h, 2 * h), math.sqrt(1.0 / (2 * h)))
+    for site in ("freq", "time"):
+        length, bsz = geo[site]
+        x = (t((length, h, bsz), 0.5), t((length, h, bsz), 0.5))
+        k2 = functools.partial(sru_fused._k2_forward, *x, wt, vb, True)
+        got, again = torch.stack(k2()), torch.stack(k2())
+        want = torch.stack(sru_fused.sru_hidden_layer_plain(*x, wt, vb, True))
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        same = torch.equal(got, again)
+        g2 = sru_fused.k2_fwd_geometry(length, h, bsz)
+        print(f"wide H {h} site={site} L={length} B={bsz}: sru_hidden_layer "
+              f"streamed {g2['stream']} (units {g2['units']} x "
+              f"{g2['slices']} slices, bt {g2['bt']}, {g2['kslices']} k "
+              f"slices a chunk, {g2['smem']} bytes of shared memory) "
+              f"max_abs_err={err:.3e} (tol {TOL['sru_hidden_layer']:.0e}) "
+              f"ms={time_cuda(k2, 10):.5f}; two calls bit-identical {same}")
+        if not (g2["stream"] and err <= TOL["sru_hidden_layer"] and same):
+            raise AssertionError(f"wide H {h} {site}: K2 forward disagrees "
+                                 "with its plain version, or two calls "
+                                 "differ")
 
     for h in WIDE_HIDDEN:
         cpu = torch.nn.Sequential(
@@ -2215,6 +2347,7 @@ def main() -> int:
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
     phase("9b, 10e K5-wgrad, K4 forward device time", profile_redesigned,
           conf, geo, rng)
+    phase("7c K5, K7 device time", profile_k5_k7, conf, rng)
 
     sources = {
         "sru_dual_recurrence": ("rtfs_tpu_torch/csrc/sru_fused.cu",

@@ -14,14 +14,19 @@
 //       out[b,t,f*C+c] = bias[c] + sum_{dt,df} w[dt,df,c]
 //                        * x[b, t+dt-pt_lo, (f+df-pf_lo)*C + c]
 //     with x = 0 outside [0,T_in) x [0,F_in) (the TPU folds that boundary
-//     into its weight vectors, _dw_wvecs). Bound on the H100: bytes (2*kT*kF
-//     flops per 8 bytes in and out). Design: one block per (tile of 8 output
-//     rows, tile of FT = 512 / C output f positions, batch row); the block
-//     stages the (8 + kT - 1) input rows x (FT + kF - 1)*C columns it reads,
-//     zero-filled off the map, and the (kT, kF, C) taps in shared memory, so
-//     each input value is read from device memory about once; one thread per
-//     output element, neighbouring threads on neighbouring channels, so the
-//     loads, the stores and the shared reads are all contiguous.
+//     into its weight vectors, _dw_wvecs); also its own dx (the flipped
+//     taps, complementary pads, no bias). Bound on the H100: bytes (2*kT*kF
+//     flops per 8 bytes in and out). Design (dw_conv_packed_kernel): a
+//     thread owns a 16-byte chunk of 4 channels at one f position and walks
+//     a run of output rows; each input row enters once, through a cp.async
+//     ring of 16-byte copies a few rows ahead, and with the presets' 4 x 4
+//     taps (template arguments) the thread's 16 tap chunks and 4
+//     accumulators stay in registers, so one 16-byte shared read of a row
+//     feeds the kT output rows it reaches (4 kT FMAs). Blocks are (channel
+//     quads, positions) 2-D, about two an SM (ops/packed_tf.
+//     dw_conv_geometry). The first design (one thread an output, 32
+//     scalar shared reads for 16 FMAs, divisions on every element, no
+//     overlap of loads and sums) took 5.7x as long (PERF.md).
 //
 // K6  pw_proj_packed_fwd      replaces _make_pw_proj_kernel
 //     (pallas_call in _pw_proj_impl): out[b, p, n] = bias[n] + sum_k
@@ -58,15 +63,17 @@
 //     and the shared memory).
 // K7  pw_unproj_packed_fwd    replaces _make_pw_unproj_kernel
 //     (pallas_call in _pw_unproj_impl): out[b, n, p] = bias[n] + sum_k
-//     x[b, p, k] w[k, n], packed in, rank-4 out; also K6's dx.
-//     Bound on the H100: float32 operations (2*K*N flops per (K+N)*4
-//     bytes; no tensor cores: full float32 with TF32 off). Design
-//     (pw_unproj_kernel): a tiled product over M = T*F positions: a block
-//     owns 64 positions x 64 outputs, stages 16-deep slices of x and w in
-//     shared memory and each of its 256 threads keeps a 4 x 4 register
-//     tile; the loads run along x's channels and the stores along the
-//     output's positions, both contiguous. w is read through its strides,
-//     so the caller passes a view of the torch weight.
+//     x[b, p, k] w[k, n], packed in, rank-4 out; also K6's dx (w^T, a
+//     strided view). Bound on the H100: bytes (as K6, mirrored). Design
+//     (pw_unproj_kernel): K6's 3xTF32 product turned round, on its warp
+//     tiles, W split, stage sequence and slices of 256 k: a stage copies
+//     the tile's positions' contiguous rows of x as 16-byte chunks, and the
+//     epilogue turns the (positions, channels) tile round through shared
+//     memory, a row a channel, shifted by the offset of its first position
+//     in out's 16-byte blocks (M is odd at the preset), so a warp writes a
+//     channel's run of positions as aligned 16-byte chunks, element by
+//     element at its two ends. The first design, SIMT float32 tiles, took
+//     1.5x as long (PERF.md).
 //
 // K8  spatial_down_packed_fwd replaces _make_spatial_down_kernel
 //     (pallas_call in _spatial_down_impl): packed in, rank-4 out,
@@ -153,9 +160,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kDwRows = 8;     // K5 output rows per block
-constexpr int kDwCols = 512;   // K5 output columns per block (whole f positions)
-constexpr int kBM = 64, kBN = 64, kBK = 16;  // K7 tile
+constexpr int kBM = 64, kBN = 64;  // pw-wgrad's tile of dW
+// K5 (ops/packed_tf.py mirrors them): channel quads a block (64
+// channels), threads a block at most, input rows in flight ahead of the
+// row a step takes
+constexpr int kDwQuads = 16;
+constexpr int kDwThreads = 256;
+constexpr int kDwAhead = 4;
 // K6 (ops/packed_tf.py mirrors them): kProjThreads threads a block, a
 // tile of kProjM positions x kProjN channels, kProjK rows of x a stage in
 // a ring of kProjStages; staged rows padded by kProjPad floats (a stride
@@ -167,6 +178,22 @@ constexpr int kProjK = 32;
 constexpr int kProjStages = 3;
 constexpr int kProjPad = 8;
 constexpr int kProjSlice = 256;  // k rows of W a launch holds split
+// K7 (ops/packed_tf.py mirrors them): a tile of kUnprojM positions x
+// kProjN channels, kUnprojThreads threads as (kUnprojM / 16) x 2 warps of
+// K6's 16 positions x 32 channels, kUnprojBlocks blocks an SM; x staged
+// kProjK k a stage in a ring of kUnprojStages, a staged position's kProjK
+// k padded to kUnprojXS floats (4 mod 32 banks: the 8 g x 4 q lanes of a
+// fragment read hit 32 banks); W split as K6's, kProjSlice k a launch;
+// the output tile staged a channel a row, rows of kUnprojOS floats (the
+// tile's positions, a row's shift of 0-3 and a pad; 4 mod 16 banks, so
+// the (g, 2q) lanes of a fragment write hit distinct banks but for the
+// rows' shifts)
+constexpr int kUnprojM = 128;
+constexpr int kUnprojThreads = kUnprojM / 16 * 2 * 32;
+constexpr int kUnprojStages = 3;
+constexpr int kUnprojBlocks = 1;
+constexpr int kUnprojXS = kProjK + 4;
+constexpr int kUnprojOS = kUnprojM + 4;
 constexpr int kMapPad = 4;     // K8/K9 tile: floats past round_up(C, 4) a row
 constexpr int kMapBlocks = 4;  // K8/K9 blocks an SM: at most 64 registers
 constexpr int kK8Items = 2;   // K8: chunks a thread loads at once
@@ -179,116 +206,6 @@ constexpr int kWgTaps = 4;
 constexpr int kPwPos = 1024;   // pw-wgrad positions per block
 constexpr int kPwK = 32;       // pw-wgrad positions per staged slice
 constexpr long long kMaxSmem = 227 * 1024;
-
-__global__ void __launch_bounds__(kThreads)
-dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int T_in, int F_in, int C, int T_out, int F_out, int KT,
-                      int KF, int pt_lo, int pf_lo, int ws0, int ws1, int ws2,
-                      int FT) {
-  extern __shared__ float smem[];
-  const int rows_in = kDwRows + KT - 1;
-  const int cols_in = (FT + KF - 1) * C;
-  float* x_s = smem;                      // (rows_in, cols_in)
-  float* w_s = smem + rows_in * cols_in;  // (KT * KF, C)
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.y * kDwRows;
-  const int f0 = blockIdx.x * FT;
-  const int tid = threadIdx.x;
-  const float* xb = x + (long long)b * T_in * F_in * C;
-
-  for (int e = tid; e < KT * KF * C; e += kThreads) {
-    const int c = e % C, tap = e / C;
-    w_s[e] = w[(long long)(tap / KF) * ws0 + (long long)(tap % KF) * ws1 +
-               (long long)c * ws2];
-  }
-  const int fin0 = f0 - pf_lo;  // input f of the tile's first column
-  for (int e = tid; e < rows_in * cols_in; e += kThreads) {
-    const int r = e / cols_in, j = e % cols_in;
-    const int t = t0 - pt_lo + r, f = fin0 + j / C;
-    float v = 0.f;
-    if (t >= 0 && t < T_in && f >= 0 && f < F_in)
-      v = xb[((long long)t * F_in + f) * C + j % C];
-    x_s[e] = v;
-  }
-  __syncthreads();
-
-  const int fcols = FT * C;
-  for (int e = tid; e < kDwRows * fcols; e += kThreads) {
-    const int r = e / fcols, col = e % fcols;
-    const int t = t0 + r, f = f0 + col / C, c = col % C;
-    if (t >= T_out || f >= F_out) continue;
-    float acc = 0.f;
-    for (int dt = 0; dt < KT; ++dt) {
-      const float* xr = x_s + (r + dt) * cols_in + col;
-      const float* wr = w_s + dt * KF * C + c;
-      for (int df = 0; df < KF; ++df) acc = fmaf(wr[df * C], xr[df * C], acc);
-    }
-    if (bias != nullptr) acc += bias[c];
-    out[(((long long)b * T_out + t) * F_out + f) * C + c] = acc;
-  }
-}
-
-// grid (ceil(M / 64), ceil(N / 64), B), 256 threads. x (B, M, K) packed,
-// out (B, N, M) rank-4.
-__global__ void __launch_bounds__(kThreads)
-pw_unproj_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int M, int K, int N, int wsk, int wsn) {
-  __shared__ float a_s[kBK][kBM + 1];
-  __shared__ float w_s[kBK][kBN];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const float* xb = x + (long long)blockIdx.z * M * K;
-  float* ob = out + (long long)blockIdx.z * M * N;
-  // the thread's rows and columns: the store's contiguous side on tx
-  const int mb = tx, nb = ty;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int mm = e / kBK, kk = e % kBK;
-      const int m = m0 + mm, k = k0 + kk;
-      a_s[kk][mm] = m < M && k < K ? xb[(long long)m * K + k] : 0.f;
-    }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int nn = e % kBN, kk = e / kBN;
-      const int n = n0 + nn, k = k0 + kk;
-      w_s[kk][nn] = (n < N && k < K)
-                        ? w[(long long)k * wsk + (long long)n * wsn]
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[kk][mb + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w_s[kk][nb + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + mb + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + nb + 16 * j;
-      if (n >= N) continue;
-      ob[(long long)n * M + m] = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
-    }
-  }
-}
 
 // a chunk of 4 floats at p: one 16-byte access where vec (every chunk of
 // the row whole and 16-byte aligned), else the first n as scalars
@@ -334,6 +251,35 @@ __host__ __device__ __forceinline__ int proj_smem_floats(int K) {
   return round_up(K, kProjK) * 2 * kProjN +
          kProjStages * kProjK * (kProjM + kProjPad) +
          kProjM * (kProjN + kProjPad);
+}
+
+// K6's and K7's slice of W (K, N) through its strides, split into B
+// fragments in shared memory: entry e = (k step, n8 tile, lane (g, q)) of
+// w4 holds W[k][n], W[k + 4][n], k = 8 step + q, n = n0 + 8 tile + g, big
+// halves then small (zero past K and N); a block of kThreads threads,
+// unrolled so that a thread's loads (16 entries at K 256) are in flight
+// together
+template <int kThreads_>
+__device__ __forceinline__ void split_w(float4* w4, const float* w, int K,
+                                        int N, int wsk, int wsn, int n0,
+                                        int w_entries, int tid) {
+#pragma unroll 16
+  for (int e = tid; e < w_entries; e += kThreads_) {
+    const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
+    const int k = (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
+    const int n = n0 + 8 * tile8 + (lane >> 2);
+    float v[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      v[h] = k + 4 * h < K && n < N
+                 ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
+                 : 0.f;
+    uint32_t big[2], small[2];
+    hk::split(v[0], big[0], small[0]);
+    hk::split(v[1], big[1], small[1]);
+    w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                        __uint_as_float(small[0]), __uint_as_float(small[1]));
+  }
 }
 
 // A place in a K6 block's sequence of stages: the tile (its batch row b
@@ -445,27 +391,7 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
     ld.next(ks, m_tiles);
   }
 
-  // W's slice split into B fragments: entry e = (k step, n8 tile, lane
-  // (g, q)) holds W[k][n], W[k + 4][n], k = 8 step + q, n = n0 + 8 tile + g;
-  // unrolled so that a thread's loads (16 entries at K 256) are in flight
-  // together
-#pragma unroll 16
-  for (int e = tid; e < w_entries; e += kProjThreads) {
-    const int lane = e & 31, tile8 = (e >> 5) % (kProjN / 8);
-    const int k = (e >> 5) / (kProjN / 8) * 8 + (lane & 3);
-    const int n = n0 + 8 * tile8 + (lane >> 2);
-    float v[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      v[h] = k + 4 * h < K && n < N
-                 ? w[(long long)(k + 4 * h) * wsk + (long long)n * wsn]
-                 : 0.f;
-    uint32_t big[2], small[2];
-    hk::split(v[0], big[0], small[0]);
-    hk::split(v[1], big[1], small[1]);
-    w4[e] = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
-                        __uint_as_float(small[0]), __uint_as_float(small[1]));
-  }
+  split_w<kProjThreads>(w4, w, K, N, wsk, wsn, n0, w_entries, tid);
 
   // the warp's 16 x 32 tile: positions wm * 16 .., channels wn * 32 ..;
   // the lane's bias for its accumulators' columns
@@ -552,6 +478,230 @@ pw_proj_kernel(const float* __restrict__ x, const float* __restrict__ w,
       hk::split(p[8], a[0].big[1], a[0].small[1]);
       hk::split(p[4 * XS], a[0].big[2], a[0].small[2]);
       hk::split(p[4 * XS + 8], a[0].big[3], a[0].small[3]);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float4 f = wb[(kk / 8 * (kProjN / 8) + nb) * 32];
+        b[nb].big[0] = __float_as_uint(f.x);
+        b[nb].big[1] = __float_as_uint(f.y);
+        b[nb].small[0] = __float_as_uint(f.z);
+        b[nb].small[1] = __float_as_uint(f.w);
+      }
+      hk::mma3_apart(part, corr, a, b);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        acc[0][nb][v] += part[0][nb][v];
+        part[0][nb][v] = 0.f;
+      }
+    if (at.kst == ks - 1) epilogue(at);
+    at.next(ks, m_tiles);
+  }
+  hk::cp_async_wait_all();
+}
+
+// K7's shared floats for a reduction depth K: W's slice split as K6's,
+// the ring of (kUnprojM, kUnprojXS) stages and the (kProjN, kUnprojOS)
+// output tile (ops/packed_tf.pw_unproj_smem)
+__host__ __device__ __forceinline__ int unproj_smem_floats(int K) {
+  return round_up(K, kProjK) * 2 * kProjN +
+         kUnprojStages * kUnprojM * kUnprojXS + kProjN * kUnprojOS;
+}
+
+// A place in a K7 block's sequence of stages, as ProjCursor in K6's
+struct UnprojCursor {
+  int b, mt, kst, slot;
+  __device__ __forceinline__ void next(int ks, int m_tiles) {
+    if (++slot == kUnprojStages) slot = 0;
+    if (++kst < ks) return;
+    kst = 0;
+    mt += gridDim.x;
+    b += mt / m_tiles;
+    mt %= m_tiles;
+  }
+};
+
+// grid (blocks, ceil(N / kProjN)), kUnprojThreads threads, kUnprojBlocks an SM.
+// x (B, M, xk) packed (a launch reads its K columns of each row from x's
+// first: one slice of a deeper x), w (K, N) through its strides, out (B,
+// N, M), written as bias + the sums, or with accumulate as out + the sums
+// (bias null); vec: xk % 4 == 0 and x 16-byte aligned.
+//
+// K6's product turned round: out^T = x w, positions x channels, with
+// K6's warp tiles, W split and stage sequence (see pw_proj_kernel). What differs is the layout on either side. A stage is
+// kProjK k of the tile's kUnprojM positions: each position's row of x is
+// contiguous, so the stage is kUnprojM runs of kProjK floats, copied as
+// 16-byte chunks (4-byte ones where not vec), zero past M and past K;
+// thread tid copies the same (position, chunk) pairs every stage. The A
+// fragments read x[m][k] from position rows of kUnprojXS floats. The
+// epilogue turns the (positions, channels) tile round through o_s, a row
+// a channel: out's rows are a channel's M positions, and M is odd at the
+// preset, so a row's tile of positions starts anywhere in a 16-byte
+// block. Row n of o_s holds position m at column m + sh(n), sh(n) the
+// tile's first position's offset in its 16-byte block of out, so each
+// 16-byte chunk of o_s's row is one aligned 16-byte block of out's: a
+// warp writes a row's chunks, a lane a chunk, the middle ones as one
+// 16-byte store each and the two at the run's ends element by element.
+// Each output is summed by one warp in one fixed order: two calls give
+// the same bits.
+__global__ void __launch_bounds__(kUnprojThreads, kUnprojBlocks)
+pw_unproj_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ out,
+                 int B, int M, int K, int N, int wsk, int wsn, int xk,
+                 int accumulate, int vec) {
+  constexpr int XS = kUnprojXS, OS = kUnprojOS;
+  constexpr int kChunks = kProjK / 4;  // 16-byte chunks a position a stage
+  constexpr int kCopies = kUnprojM * kChunks / kUnprojThreads;
+  static_assert(kUnprojM * kChunks % kUnprojThreads == 0, "whole copies");
+  static_assert(kUnprojM + 3 < OS, "a shifted row fits its o_s row");
+  extern __shared__ float4 smem4[];
+  const int kp = round_up(K, kProjK), ks = kp / kProjK;
+  const int w_entries = kp / 8 * (kProjN / 8) * 32;
+  float4* w4 = smem4;  // (kp / 8, kProjN / 8, 32 lanes): B fragments
+  float* x_s = reinterpret_cast<float*>(w4 + w_entries);  // x[m][k]
+  float* o_s = x_s + kUnprojStages * kUnprojM * XS;  // out[n][sh(n) + m]
+  const int tid = threadIdx.x, n0 = blockIdx.y * kProjN;
+  const int m_tiles = (M + kUnprojM - 1) / kUnprojM, tiles = B * m_tiles;
+  const int my_tiles =
+      (int)blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * ks;
+
+  // the stage at `at` into its slot, one commit group (empty past the
+  // block's last stage): copy i of thread tid is chunk (e & 7) of position
+  // e >> 3, e = tid + i kUnprojThreads
+  UnprojCursor ld{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
+  auto load_stage = [&](int s, const UnprojCursor& at) {
+    if (s < total) {
+      const int k0 = at.kst * kProjK, m0 = at.mt * kUnprojM;
+      const float* base = x + ((long long)at.b * M + m0) * xk + k0;
+      float* dst = x_s + at.slot * kUnprojM * XS;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int e = tid + i * kUnprojThreads, m = e / kChunks;
+        const int k = 4 * (e % kChunks);
+        const bool in = m0 + m < M;
+        const float* src = base + (long long)m * xk + k;
+        float* d = dst + m * XS + k;
+        if (vec) {
+          const bool ok = in && k0 + k < K;
+          hk::cp_async16(d, ok ? src : x, ok);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool ok = in && k0 + k + j < K;
+            hk::cp_async4(d + j, ok ? src + j : x, ok);
+          }
+        }
+      }
+    }
+    hk::cp_async_commit();
+  };
+  for (int s = 0; s < kUnprojStages - 1; ++s) {
+    load_stage(s, ld);
+    ld.next(ks, m_tiles);
+  }
+
+  split_w<kUnprojThreads>(w4, w, K, N, wsk, wsn, n0, w_entries, tid);
+
+  // the warp's 16 x 32 tile: positions wm * 16 .., channels wn * 32 ..;
+  // the lane's bias for its accumulators' columns
+  constexpr int kWarpsM = kUnprojM / 16;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  float bias_r[4][2];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int n = n0 + wn * 32 + nb * 8 + 2 * q + v;
+      bias_r[nb][v] = bias != nullptr && n < N ? bias[n] : 0.f;
+    }
+  // acc: the float32 sum of the stages' big products (part, on the tensor
+  // core a stage); corr: the cross terms, on the tensor core throughout
+  float acc[1][4][4], part[1][4][4], corr[1][4][4];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      acc[0][nb][v] = part[0][nb][v] = corr[0][nb][v] = 0.f;
+
+  // out's float index mod 4 at row 0, position 0: with a row's start, its
+  // shift sh in o_s
+  const uint32_t o4 = (uint32_t)(reinterpret_cast<uintptr_t>(out) >> 2);
+  // the tile's sums + bias through o_s to out, with accumulate added to
+  // what the launch of the slice before wrote there; the sums back to 0
+  auto epilogue = [&](const UnprojCursor& at) {
+    const int m0 = at.mt * kUnprojM, span = min(kUnprojM, M - m0);
+    const uint32_t row0 =
+        o4 + ((uint32_t)at.b * (uint32_t)N + (uint32_t)n0) * (uint32_t)M +
+        (uint32_t)m0;
+    // D: c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1) as
+    // (position, channel)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int n = wn * 32 + nb * 8 + 2 * q + (v & 1);
+        const int m = wm * 16 + g + 8 * (v >> 1);
+        const uint32_t sh = (row0 + (uint32_t)n * (uint32_t)M) & 3u;
+        o_s[n * OS + sh + m] =
+            acc[0][nb][v] + corr[0][nb][v] + bias_r[nb][v & 1];
+        acc[0][nb][v] = corr[0][nb][v] = 0.f;
+      }
+    __syncthreads();
+    for (int r = warp; r < kProjN && n0 + r < N; r += kUnprojThreads / 32) {
+      const int sh = (int)((row0 + (uint32_t)r * (uint32_t)M) & 3u);
+      // o_s's chunk j is out's 16-byte block at ob + 4 j
+      float* ob = out + ((long long)at.b * N + n0 + r) * M + m0 - sh;
+      const float* os = o_s + r * OS;
+      const int chunks = (sh + span + 3) >> 2;
+      for (int j = lane; j < chunks; j += 32) {
+        const int lo = 4 * j - sh;  // the chunk's first position
+        if (lo >= 0 && lo + 4 <= span) {
+          float4 v = *reinterpret_cast<const float4*>(os + 4 * j);
+          if (accumulate) {
+            const float4 was = *reinterpret_cast<const float4*>(ob + 4 * j);
+            v = make_float4(was.x + v.x, was.y + v.y, was.z + v.z,
+                            was.w + v.w);
+          }
+          *reinterpret_cast<float4*>(ob + 4 * j) = v;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (lo + k < 0 || lo + k >= span) continue;
+            const float v = os[4 * j + k];
+            ob[4 * j + k] = accumulate ? ob[4 * j + k] + v : v;
+          }
+        }
+      }
+    }
+    // the next write of o_s comes after the next stage's barrier
+  };
+
+  // the lane's A fragment elements (x[m][k]): columns q, q+4 of rows g,
+  // g+8 of the warp's m16 tile
+  const float* xl = x_s + (wm * 16 + g) * XS + q;
+  const float4* wl = w4 + wn * 4 * 32 + lane;
+  UnprojCursor at{(int)blockIdx.x / m_tiles, (int)blockIdx.x % m_tiles, 0, 0};
+  for (int s = 0; s < total; ++s) {
+    hk::cp_async_wait<kUnprojStages - 2>();
+    __syncthreads();  // stage s (and W's split) is in; every warp is done
+                      // with stage s - 1
+    load_stage(s + kUnprojStages - 1, ld);
+    ld.next(ks, m_tiles);
+    const float* xa = xl + at.slot * kUnprojM * XS;
+    const float4* wb = wl + at.kst * (kProjK / 8) * (kProjN / 8) * 32;
+#pragma unroll
+    for (int kk = 0; kk < kProjK; kk += 8) {
+      hk::FragA a[1];
+      hk::FragB b[4];
+      const float* p = xa + kk;
+      hk::split(p[0], a[0].big[0], a[0].small[0]);
+      hk::split(p[8 * XS], a[0].big[1], a[0].small[1]);
+      hk::split(p[4], a[0].big[2], a[0].small[2]);
+      hk::split(p[8 * XS + 4], a[0].big[3], a[0].small[3]);
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
         const float4 f = wb[(kk / 8 * (kProjN / 8) + nb) * 32];
@@ -949,6 +1099,181 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// K5's shared floats: the (kT kF, QB) taps, then the ring of NR input rows
+// of FT + kF - 1 positions, 4 QB floats a position; NR = kDwAhead + 1
+// where the taps are template arguments (a step reads its own row),
+// kDwAhead + kT otherwise (a step reads the kT rows of its output row)
+// (ops/packed_tf.dw_conv_geometry)
+__host__ __device__ __forceinline__ int dw_smem_floats(int KT, int KF, int QB,
+                                                       int FT, bool fixed) {
+  const int nr = kDwAhead + (fixed ? 1 : KT);
+  return (KT * KF + nr * (FT + KF - 1)) * 4 * QB;
+}
+
+// grid (runs, ceil(F_out / FT), B * blocks_c), block (QB, FT), KT_ / KF_
+// the taps or 0 (runtime KT, KF). x packed (B, T_in, F_in*C), w (KT, KF,
+// C) through its strides, bias (C) or null, out packed (B, T_out,
+// F_out*C); vec: C % 4 == 0 and x, out 16-byte aligned.
+//
+// Block (x, y, z) owns the output rows [x T_out / runs, (x + 1) T_out /
+// runs) of batch row b = z / blocks_c, the f tile y (FT positions from f0
+// = y FT) and channel block z % blocks_c (4 QB channels). Thread (quad, p)
+// owns channels c = c0 + 4 quad .. + 3 at f = f0 + p, one 16-byte chunk.
+// Step i takes input row r = t_lo - pt_lo + i, one of the n + kT - 1 rows
+// the block's n output rows read: its FT + kF - 1 positions (zero off the
+// map and past C) come through a cp.async ring of NR slots, the copies of
+// the next kDwAhead rows in flight while the threads take this one; each
+// thread copies its own quad at positions p, p + FT, .. of the row.
+// With the taps as template arguments (the presets' 4 x 4) the thread
+// keeps its kT x kF tap chunks and kT accumulators in registers, acc[j]
+// the output row r + pt_lo - kT + 1 + j: each of the row's kF chunks, one
+// 16-byte shared read, feeds kT products (tap row kT - 1 - j into acc[j]);
+// then acc[0]'s row has all its rows and is stored, and the accumulators
+// shift. Otherwise the thread forms an output row whole at the step that
+// brings its last input row, from the kT rows in the ring and the taps in
+// shared memory. Either way an output is bias + its sum over dt, then df,
+// in that order, and is written by one thread: two calls give the same
+// bits. No division in a loop: the layout is 2-D and the ring's slots go
+// round by counters.
+template <int KT_, int KF_>
+__global__ void __launch_bounds__(kDwThreads, 2)
+dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      int T_in, int F_in, int C, int T_out, int F_out, int KT,
+                      int KF, int pt_lo, int pf_lo, int ws0, int ws1, int ws2,
+                      int blocks_c, int vec) {
+  constexpr bool kFixed = KT_ > 0;
+  const int kt = kFixed ? KT_ : KT, kf = kFixed ? KF_ : KF;
+  extern __shared__ float4 smem4[];
+  const int QB = blockDim.x, FT = blockDim.y;
+  const int quad = threadIdx.x, p = threadIdx.y;
+  const int XW = FT + kf - 1, NR = kDwAhead + (kFixed ? 1 : kt);
+  float4* w_s = smem4;                // (kt kf, QB) taps
+  float4* ring = w_s + kt * kf * QB;  // NR rows of (XW, QB)
+  const int b = blockIdx.z / blocks_c;
+  const int c = (blockIdx.z - b * blocks_c) * 4 * QB + 4 * quad;
+  const int f0 = blockIdx.y * FT, f = f0 + p;
+  const int t_lo = (int)((long long)T_out * blockIdx.x / gridDim.x);
+  const int t_hi = (int)((long long)T_out * (blockIdx.x + 1) / gridDim.x);
+  const int steps = t_hi - t_lo + kt - 1;
+  const float* xb = x + (long long)b * T_in * F_in * C;
+
+  // the taps of the block's channels: thread (quad, p) stages taps p, p +
+  // FT, .. of its quad ((dt, df) stepped along, no division in the loop)
+  {
+    int dt = p / kf, df = p - dt * kf;
+    const int step_t = FT / kf, step_f = FT - step_t * kf;
+    for (int tap = p; tap < kt * kf; tap += FT) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = c + k < C ? w[(long long)dt * ws0 + (long long)df * ws1 +
+                             (long long)(c + k) * ws2]
+                         : 0.f;
+      w_s[tap * QB + quad] = make_float4(v[0], v[1], v[2], v[3]);
+      dt += step_t;
+      df += step_f;
+      if (df >= kf) {
+        df -= kf;
+        ++dt;
+      }
+    }
+  }
+  // input row t_lo - pt_lo + i into slot `slot`, one commit group (empty
+  // past the run's last row)
+  auto issue = [&](int i, int slot) {
+    if (i < steps) {
+      const int r = t_lo - pt_lo + i;
+      const bool row_ok = r >= 0 && r < T_in;
+      const float* src = xb + (long long)(row_ok ? r : 0) * F_in * C + c;
+      float* dst = reinterpret_cast<float*>(ring + (slot * XW + p) * QB +
+                                            quad);
+      for (int pp = p, fi = f0 - pf_lo + p; pp < XW;
+           pp += FT, fi += FT, dst += 4 * FT * QB) {
+        const bool ok = row_ok && fi >= 0 && fi < F_in;
+        const float* s = src + (long long)fi * C;
+        if (vec) {
+          hk::cp_async16(dst, ok && c < C ? s : x, ok && c < C);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            hk::cp_async4(dst + k, ok && c + k < C ? s + k : x,
+                          ok && c + k < C);
+        }
+      }
+    }
+    hk::cp_async_commit();
+  };
+
+  const bool live = f < F_out && c < C;
+  float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (bias != nullptr && live)
+    bv = make_float4(bias[c], c + 1 < C ? bias[c + 1] : 0.f,
+                     c + 2 < C ? bias[c + 2] : 0.f,
+                     c + 3 < C ? bias[c + 3] : 0.f);
+  float* o = out + (((long long)b * T_out + t_lo) * F_out + f) * C + c;
+  const long long o_row = (long long)F_out * C;
+  // output row t_lo + i - (kt - 1) of the thread's chunk
+  auto store = [&](float4 a, int i) {
+    if (!live) return;
+    if (bias != nullptr)
+      a = make_float4(a.x + bv.x, a.y + bv.y, a.z + bv.z, a.w + bv.w);
+    store_chunk(o + (long long)(i - (kt - 1)) * o_row, a, C - c, vec);
+  };
+
+  __syncthreads();  // the taps are in
+  float4 wr[kFixed ? KT_ : 1][kFixed ? KF_ : 1];
+  float4 acc[kFixed ? KT_ : 1];
+  if constexpr (kFixed) {
+#pragma unroll
+    for (int dt = 0; dt < KT_; ++dt) {
+#pragma unroll
+      for (int df = 0; df < KF_; ++df) wr[dt][df] = w_s[(dt * KF_ + df) * QB + quad];
+      acc[dt] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  int ld = 0;  // the slot of the next row issued
+  for (int i = 0; i < kDwAhead; ++i) {
+    issue(i, ld);
+    if (++ld == NR) ld = 0;
+  }
+  int rd = 0;  // the slot of step i's row
+  for (int i = 0; i < steps; ++i) {
+    hk::cp_async_wait<kDwAhead - 1>();
+    __syncthreads();  // row i is in; every thread is done with the slot
+                      // that row i + kDwAhead takes
+    issue(i + kDwAhead, ld);
+    if (++ld == NR) ld = 0;
+    const float4* xr = ring + (rd * XW + p) * QB + quad;
+    if constexpr (kFixed) {
+#pragma unroll
+      for (int df = 0; df < KF_; ++df) {
+        const float4 v = xr[df * QB];
+#pragma unroll
+        for (int j = 0; j < KT_; ++j) fma4v(v, wr[KT_ - 1 - j][df], acc[j]);
+      }
+      if (i >= KT_ - 1) store(acc[0], i);
+#pragma unroll
+      for (int j = 0; j < KT_ - 1; ++j) acc[j] = acc[j + 1];
+      acc[KT_ - 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (i >= kt - 1) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      int slot = rd - (kt - 1);
+      if (slot < 0) slot += NR;
+      const float4* wq = w_s + quad;
+      for (int dt = 0; dt < kt; ++dt) {
+        const float4* xq = ring + (slot * XW + p) * QB + quad;
+        for (int df = 0; df < kf; ++df, wq += QB)
+          fma4v(xq[df * QB], *wq, a);
+        if (++slot == NR) slot = 0;
+      }
+      store(a, i);
+    }
+    if (++rd == NR) rd = 0;
+  }
+  hk::cp_async_wait_all();
+}
+
 // grid (ceil(M / kPwPos), ceil(Ca / 64) * ceil(Cb / 64), B), 256 threads.
 // kAPlanar (K6's dW): a (B, Ca, M), g (B, M, Cb); otherwise (K7's): a
 // (B, M, Ca), g (B, Cb, M). partial (B * gridDim.x, Ca, Cb).
@@ -1089,24 +1414,35 @@ size_t map_smem(int tile_rows, int C, int F_out, int NT, int NF) {
 }  // namespace
 
 // w is (KT, KF, C) through its strides (ws0, ws1, ws2); bias may be NULL.
+// QB quads a block's channels, FT positions its f tile, runs blocks a
+// tile, batch row and channel block (ops/packed_tf.dw_conv_geometry)
 extern "C" int dw_conv_packed_fwd(const void* x, const void* w,
                                   const void* bias, void* out, int B, int T_in,
                                   int F_in, int C, int T_out, int F_out,
                                   int KT, int KF, int pt_lo, int pf_lo,
-                                  int ws0, int ws1, int ws2, void* stream) {
-  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1)
+                                  int ws0, int ws1, int ws2, int QB, int FT,
+                                  int runs, void* stream) {
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1 ||
+      QB < 1 || QB > kDwQuads || FT < 1 || QB * FT > kDwThreads ||
+      runs < 1 || runs > T_out)
     return (int)cudaErrorInvalidValue;
-  const int FT = C >= kDwCols ? 1 : kDwCols / C;
-  const size_t smem = ((size_t)(kDwRows + KT - 1) * (FT + KF - 1) * C +
-                       (size_t)KT * KF * C) * sizeof(float);
-  const long long tiles_t = (T_out + kDwRows - 1) / kDwRows;
-  if (!grid_ok(tiles_t, B)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem((const void*)dw_conv_packed_kernel, smem);
+  const long long tiles_f = (F_out + FT - 1) / FT;
+  const long long blocks_c = ((C + 3) / 4 + QB - 1) / QB;
+  if (!grid_ok(tiles_f, B * blocks_c)) return (int)cudaErrorInvalidValue;
+  // the taps of every preset as template arguments
+  const bool fixed = KT == 4 && KF == 4;
+  const auto kernel = fixed ? dw_conv_packed_kernel<4, 4>
+                            : dw_conv_packed_kernel<0, 0>;
+  const size_t smem =
+      (size_t)dw_smem_floats(KT, KF, QB, FT, fixed) * sizeof(float);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((F_out + FT - 1) / FT, (unsigned)tiles_t, B);
-  dw_conv_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out);
+  kernel<<<dim3(runs, (unsigned)tiles_f, (unsigned)(B * blocks_c)),
+           dim3(QB, FT), smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const float*)bias, (float*)out, T_in,
-      F_in, C, T_out, F_out, KT, KF, pt_lo, pf_lo, ws0, ws1, ws2, FT);
+      F_in, C, T_out, F_out, KT, KF, pt_lo, pf_lo, ws0, ws1, ws2,
+      (int)blocks_c, (int)vec);
   return (int)cudaGetLastError();
 }
 
@@ -1140,18 +1476,34 @@ extern "C" int pw_proj_packed_fwd(const void* x, const void* w,
   return (int)cudaSuccess;
 }
 
-// x (B, M, K) packed, w (K, N) through strides, out (B, N, M) rank-4
+// x (B, M, K) packed, w (K, N) through strides, out (B, N, M) rank-4;
+// blocks: the persistent blocks of an N tile, at most the tiles; one
+// launch a slice of kProjSlice k, as K6's entry
+// (ops/packed_tf.pw_unproj_geometry)
 extern "C" int pw_unproj_packed_fwd(const void* x, const void* w,
                                     const void* bias, void* out, int B, int M,
-                                    int K, int N, int wsk, int wsn,
+                                    int K, int N, int wsk, int wsn, int blocks,
                                     void* stream) {
-  if (B < 1 || M < 1 || K < 1 || N < 1 || !grid_ok((N + kBN - 1) / kBN, B))
+  const long long tiles =
+      B < 1 || M < 1 ? 0 : (long long)B * ((M + kUnprojM - 1) / kUnprojM);
+  if (tiles < 1 || K < 1 || N < 1 || blocks < 1 || blocks > tiles ||
+      !grid_ok((N + kProjN - 1) / kProjN, 1))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, B);
-  pw_unproj_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias, (float*)out, M, K,
-      N, wsk, wsn);
-  return (int)cudaGetLastError();
+  const size_t smem =
+      (size_t)unproj_smem_floats(min(K, kProjSlice)) * sizeof(float);
+  cudaError_t e = allow_smem((const void*)pw_unproj_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = K % 4 == 0 && aligned16(x);
+  for (int k0 = 0; k0 < K; k0 += kProjSlice) {
+    pw_unproj_kernel<<<dim3(blocks, (N + kProjN - 1) / kProjN),
+                       kUnprojThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)x + k0, (const float*)w + (long long)k0 * wsk,
+        k0 == 0 ? (const float*)bias : nullptr, (float*)out, B, M,
+        min(K - k0, kProjSlice), N, wsk, wsn, K, k0 > 0, (int)vec);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 // maps: ts/tw (T_out, NT), fs/fw (F_out, NF), int32 / float32

@@ -75,6 +75,10 @@
 // owns a slice of them, keeps only the 3 x slice rows of W_d that project
 // onto them, reads the whole of X and writes the U rows and h of its units
 // alone (H 80 as two slices of 40; one slice, all of H, at every preset).
+// Above H 268 not even 8 units' rows of W_d fit beside X's two slots: the
+// block then streams the projection's reduction (kFwdK rows of X and
+// columns of W_d a stage through a cp.async ring, U summed in shared
+// memory), so its shared memory no longer grows with H.
 // ops/sru_fused.k2_fwd_geometry picks bt, S and the slice so that the
 // grid fills the card where B allows. The scan's chain (two sigmoids a
 // step) and the product take about as long each at bs 8 (PERF.md).
@@ -135,6 +139,13 @@ constexpr int kFwdThreads = 256;
 constexpr int kFwdMT = 2;
 constexpr int kFwdNB = 3;
 constexpr int kFwdAhead = 8;
+// K2 forward where W_d's rows of a slice of units and X's two slots do not
+// fit one block (H above 268; ops/sru_fused.py mirrors them): the
+// projection's reduction streamed kFwdK rows of X and columns of W_d a
+// stage through a ring of kFwdStages
+constexpr int kFwdK = 32;
+constexpr int kFwdStages = 3;
+constexpr long long kMaxSmem = 227 * 1024;
 
 
 // The K2 forward scan's sigmoid: the hardware exp2 and reciprocal, a few
@@ -223,6 +234,17 @@ __host__ __device__ __forceinline__ int hid_fwd_smem_floats(int H, int N,
   return rows * (k8 + 4) + 2 * k8 * (N + 8) + 2 * rows * (N + 4);
 }
 
+// Shared memory of the streamed K2 forward in floats (N columns a chunk, U
+// units a block): one U slot (3U' rows of N + 4), then the ring of
+// kFwdStages stages, each kFwdK rows of X (of N + 8) and W_d's 3U' rows'
+// kFwdK columns (of kFwdK + 4). It does not grow with H.
+__host__ __device__ __forceinline__ int hid_fwd_stream_smem_floats(int N,
+                                                                   int U) {
+  const int rows = round_up(3 * U, 8 * kFwdNB);
+  return rows * (N + 4) +
+         kFwdStages * (kFwdK * (N + 8) + rows * (kFwdK + 4));
+}
+
 // grid (ceil(B / bt), 2, ceil(H / units)), kFwdThreads threads; S * bt a
 // multiple of 32, units * bt <= kFwdThreads, S a multiple of min(S,
 // kFwdAhead). Block (tile, dir, z) owns units j0 .. j0 + units - 1 (j0 =
@@ -234,6 +256,20 @@ __host__ __device__ __forceinline__ int hid_fwd_smem_floats(int H, int N,
 // copy of chunk n+1 is issued, the warps project chunk n into U slot n %
 // 2, one barrier, then the scan of chunk n; the next chunk's product
 // writes the other U slot, so the scan needs no second barrier.
+//
+// kStream (where W_d's rows of even 8 units and X's two slots do not fit
+// one block, H above 268): the block keeps one U slot and streams the
+// projection's reduction instead of holding W_d and a chunk of X whole.
+// Stage s is k slice s % ksl (kFwdK rows of X's chunk s / ksl, the same
+// kFwdK columns of the block's rows of W_d) in ring slot s % kFwdStages,
+// the copies of the next kFwdStages - 1 stages in flight while the warps
+// multiply this one; each warp adds its jobs' products of the slice to
+// their U entries in shared memory (a job's entries are its warp's alone,
+// and the sum runs over the slices in order), and after a chunk's last
+// slice a barrier, then the scan of the chunk. Its U slot is written
+// again only after the next stage's barrier, which every scan thread
+// reaches after its scan.
+template <bool kStream>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
                    const float* __restrict__ wt, const float* __restrict__ vb,
@@ -248,7 +284,8 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   const int ws = k8 + 4, xs = N + 8, us = N + 4;
   float* w_s = reinterpret_cast<float*>(smem4);  // (rows, ws): W_d[o][k]
   float* x_s = w_s + rows * ws;                  // 2 x (k8, xs): X[k][col]
-  float* u_s = x_s + 2 * k8 * xs;                // 2 x (rows, us): U[o][col]
+  // 2 x (rows, us): U[o][col]; kStream: one, first, then the ring
+  float* u_s = kStream ? w_s : x_s + 2 * k8 * xs;
   const int n_chunks = (T + S - 1) / S;
   const bool vec_x = bt % 4 == 0 && B % 4 == 0;
   const int warp = tid >> 5;
@@ -257,7 +294,7 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   // jl is W_d's row gate * H + j0 + jl; zero-padded (units past H, rows >=
   // 3 units, columns >= 2H). (gate, jl) steps with o, with no division.
   const float* wd = wt + (long long)dir * h3 * h2;
-  {
+  if constexpr (!kStream) {
     int gate = warp / units, jl = warp % units;
     for (int o = warp; o < rows; o += kFwdThreads / 32) {
       const bool row_ok = gate < 3 && jl < hs;
@@ -393,7 +430,8 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   load_hw(0, hw);
   float c = 0.f;
   auto scan = [&](int n) {
-    const float* u = u_s + (n & 1) * rows * us + jl * us + tid % bt;
+    const float* u =
+        u_s + (kStream ? 0 : (n & 1) * rows * us) + jl * us + tid % bt;
     for (int s0 = 0; s0 < S; s0 += G) {
       const int i0 = n * S + s0;
       if (i0 >= T) break;
@@ -424,20 +462,142 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
     }
   };
 
-  load_chunk(0);  // with W_d
-  hk::cp_async_commit();
-  hk::cp_async_wait_all();
-  __syncthreads();
-  for (int n = 0; n < n_chunks; ++n) {
-    // chunk n+1 into the slot chunk n-1's product read (before the last
-    // barrier)
-    if (n + 1 < n_chunks) load_chunk(n + 1);
+  if constexpr (!kStream) {
+    load_chunk(0);  // with W_d
     hk::cp_async_commit();
-    project(n);
     hk::cp_async_wait_all();
-    __syncthreads();  // U of chunk n and X of chunk n+1 are in; the scan
-                      // of chunk n-1 is done with the other U slot
-    if (live) scan(n);
+    __syncthreads();
+    for (int n = 0; n < n_chunks; ++n) {
+      // chunk n+1 into the slot chunk n-1's product read (before the last
+      // barrier)
+      if (n + 1 < n_chunks) load_chunk(n + 1);
+      hk::cp_async_commit();
+      project(n);
+      hk::cp_async_wait_all();
+      __syncthreads();  // U of chunk n and X of chunk n+1 are in; the scan
+                        // of chunk n-1 is done with the other U slot
+      if (live) scan(n);
+    }
+  } else {
+    static_assert(kFwdK == 32, "a lane copies a column of W_d's slice");
+    const int ksl = (h2 + kFwdK - 1) / kFwdK, total = n_chunks * ksl;
+    const int kws = kFwdK + 4;  // a row of W_d's slice: 4 mod 32 banks
+    const int slot_floats = kFwdK * xs + rows * kws;
+    float* ring = u_s + rows * us;  // slots of (kFwdK, xs) X, (rows, kws) W_d
+    const int lane = tid & 31;
+    // stage st into ring slot `slot`, one commit group (empty past the
+    // last): X's rows k0 .. k0 + kFwdK - 1 of chunk st / ksl (rows >= 2H,
+    // steps past T and columns past B zero) and those columns of W_d's
+    // rows of the block's units, a warp a row, a lane a column
+    auto load_stage = [&](int st, int slot) {
+      if (st < total) {
+        const int n = st / ksl, k0 = (st - n * ksl) * kFwdK;
+        float* xd = ring + slot * slot_floats;
+        float* wd_s = xd + kFwdK * xs;
+        const int per = vec_x ? 4 : 1;
+        for (int e = per * tid; e < kFwdK * N; e += per * kFwdThreads) {
+          const int r = e / N, col = e % N, s = col / bt, c = col % bt;
+          const int ii = n * S + s, k = k0 + r;
+          const int t = dir == 0 ? ii : T - 1 - ii;
+          const bool ok = k < h2 && ii < T && b0 + c < B;
+          const float* src =
+              ok ? (k < H ? x_f : x_r) + ((long long)t * H + k % H) * B + b0 + c
+                 : x_f;
+          if (vec_x)
+            hk::cp_async16(xd + r * xs + col, src, ok);
+          else
+            hk::cp_async4(xd + r * xs + col, src, ok);
+        }
+        int gate = warp / units, jl = warp % units;
+        for (int o = warp; o < rows; o += kFwdThreads / 32) {
+          const bool ok = gate < 3 && jl < hs && k0 + lane < h2;
+          const float* src =
+              wd + (long long)(gate * H + j0 + jl) * h2 + k0 + lane;
+          hk::cp_async4(wd_s + o * kws + lane, ok ? src : wt, ok);
+          for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
+        }
+      }
+      hk::cp_async_commit();
+    };
+    // U^T += X^T W_d^T over the slice in `slot`: project's jobs and
+    // fragments, the sums carried in U (from 0 at the chunk's first slice)
+    auto project_slice = [&](int slot, bool first) {
+      const float* xc = ring + slot * slot_floats;
+      const float* wc = xc + kFwdK * xs;
+      for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
+        const int m0 = jb % m_jobs * 16 * kFwdMT;
+        const int r0 = jb / m_jobs * 8 * kFwdNB;
+        float acc[kFwdMT][kFwdNB][4];
+#pragma unroll
+        for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+          for (int nb = 0; nb < kFwdNB; ++nb) {
+            const float* u = u_s + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
+            acc[mt][nb][0] = first ? 0.f : u[0];
+            acc[mt][nb][1] = first ? 0.f : u[us];
+            acc[mt][nb][2] = first ? 0.f : u[8];
+            acc[mt][nb][3] = first ? 0.f : u[us + 8];
+          }
+        const float* xl = xc + q * xs + m0 + g;
+        const float* wl = wc + (r0 + g) * kws + q;
+#pragma unroll
+        for (int k0 = 0; k0 < kFwdK; k0 += 8) {
+          hk::FragA a[kFwdMT];
+          hk::FragB bf[kFwdNB];
+#pragma unroll
+          for (int mt = 0; mt < kFwdMT; ++mt) {
+            const float* p = xl + k0 * xs + 16 * mt;
+            hk::split(p[0], a[mt].big[0], a[mt].small[0]);
+            hk::split(p[8], a[mt].big[1], a[mt].small[1]);
+            hk::split(p[4 * xs], a[mt].big[2], a[mt].small[2]);
+            hk::split(p[4 * xs + 8], a[mt].big[3], a[mt].small[3]);
+          }
+#pragma unroll
+          for (int nb = 0; nb < kFwdNB; ++nb) {
+            const float* p = wl + 8 * nb * kws + k0;
+            hk::split(p[0], bf[nb].big[0], bf[nb].small[0]);
+            hk::split(p[4], bf[nb].big[1], bf[nb].small[1]);
+          }
+#pragma unroll
+          for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+            for (int mt = 0; mt < kFwdMT; ++mt)
+              hk::mma3(acc[mt][nb], a[mt], bf[nb]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+          for (int nb = 0; nb < kFwdNB; ++nb) {
+            float* u = u_s + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
+            u[0] = acc[mt][nb][0];
+            u[us] = acc[mt][nb][1];
+            u[8] = acc[mt][nb][2];
+            u[us + 8] = acc[mt][nb][3];
+          }
+      }
+    };
+    int ld = 0, rd = 0, n = 0, kk = 0;  // ring slots; chunk and slice
+    for (int st = 0; st < kFwdStages - 1; ++st) {
+      load_stage(st, ld);
+      if (++ld == kFwdStages) ld = 0;
+    }
+    for (int st = 0; st < total; ++st) {
+      hk::cp_async_wait<kFwdStages - 2>();
+      __syncthreads();  // stage st is in; every warp is done with the slot
+                        // stage st + kFwdStages - 1 takes, and every scan
+                        // thread with U
+      load_stage(st + kFwdStages - 1, ld);
+      if (++ld == kFwdStages) ld = 0;
+      project_slice(rd, kk == 0);
+      if (++rd == kFwdStages) rd = 0;
+      if (++kk == ksl) {
+        kk = 0;
+        __syncthreads();  // U of chunk n is whole
+        if (live) scan(n);
+        ++n;
+      }
+    }
+    hk::cp_async_wait_all();
   }
 }
 
@@ -668,8 +828,10 @@ extern "C" int sru_dual_recurrence_bwd(const void* u_f, const void* u_r,
                                  (cudaStream_t)stream);
 }
 
-// bt batch columns a block, chunks of S steps (ops/sru_fused.py
-// k2_fwd_geometry).
+// bt batch columns a block, chunks of S steps, units a block
+// (ops/sru_fused.py k2_fwd_geometry): W_d's rows of the units held whole
+// where they and X's two slots fit one block, the reduction streamed
+// (sru_hid_fwd_kernel<true>) where they do not.
 extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
                                     const void* wt, const void* vb, void* h_f,
                                     void* h_r, void* c_f, void* c_r, int T,
@@ -678,12 +840,17 @@ extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
   if (bt < 1 || S < 1 || units < 1 || (S * bt) % (16 * kFwdMT) != 0 ||
       units * bt > kFwdThreads || S % min(S, kFwdAhead) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)hid_fwd_smem_floats(H, S * bt, units) * sizeof(float);
-  cudaError_t e = set_smem((const void*)sru_hid_fwd_kernel, smem);
+  size_t smem = (size_t)hid_fwd_smem_floats(H, S * bt, units) * sizeof(float);
+  const bool streamed = (long long)smem > kMaxSmem;
+  if (streamed)
+    smem = (size_t)hid_fwd_stream_smem_floats(S * bt, units) * sizeof(float);
+  if ((long long)smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      streamed ? sru_hid_fwd_kernel<true> : sru_hid_fwd_kernel<false>;
+  cudaError_t e = set_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sru_hid_fwd_kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)),
-                       kFwdThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)), kFwdThreads, smem,
+           (cudaStream_t)stream>>>(
       (const float*)x_f, (const float*)x_r, (const float*)wt,
       (const float*)vb, (float*)h_f, (float*)h_r, (float*)c_f, (float*)c_r,
       T, H, B, bt, S, units);

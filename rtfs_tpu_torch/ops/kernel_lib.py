@@ -51,9 +51,9 @@ _SIGNATURES = {
         "convt1d_ola_tm_bwd": (7, 8),
     },
     "packed_tf": {
-        "dw_conv_packed_fwd": (4, 13),
+        "dw_conv_packed_fwd": (4, 16),
         "pw_proj_packed_fwd": (4, 7),
-        "pw_unproj_packed_fwd": (4, 6),
+        "pw_unproj_packed_fwd": (4, 7),
         "spatial_down_packed_fwd": (6, 8),
         "spatial_up_packed_fwd": (7, 9),
         "dw_conv_packed_wgrad": (4, 15),

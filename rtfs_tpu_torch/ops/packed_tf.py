@@ -9,12 +9,15 @@ padded to 128 lanes) does not exist here, and the port keeps it because
 the JAX package's packed path runs through these ops.
 
 - ``dw_conv_packed`` (K5): depthwise kT x kF conv, packed -> packed,
-  stride 1, static (lo, hi) pads; CUDA ``dw_conv_packed_fwd``.
+  stride 1, static (lo, hi) pads; CUDA ``dw_conv_packed_fwd``, a thread's
+  taps and accumulators in registers over a ring of input rows
+  (``dw_conv_geometry``).
 - ``pw_proj_packed`` (K6): 1x1 dense conv, rank-4 -> packed, + bias; CUDA
   ``pw_proj_packed_fwd``, a 3xTF32 tensor-core product with W resident
   and x streamed (``pw_proj_geometry``; W held 256 k at a time).
 - ``pw_unproj_packed`` (K7): 1x1 dense conv, packed -> rank-4, + bias;
-  CUDA ``pw_unproj_packed_fwd``.
+  CUDA ``pw_unproj_packed_fwd``, K6's 3xTF32 product turned round
+  (``pw_unproj_geometry``).
 - ``spatial_down_packed`` (K8): separable static map, packed -> rank-4
   (adaptive average pool, stride-2 select); CUDA
   ``spatial_down_packed_fwd``.
@@ -249,6 +252,68 @@ def dw_conv_packed_wgrad(xp, g, f_in: int, c: int, kt_kf, pads_t, pads_f):
     return out
 
 
+# K5's kernel, ``kDw*`` in csrc/packed_tf.cu: blocks of at most DW_QUADS
+# channel quads (64 channels) and DW_THREADS threads; input rows in flight
+# ahead of the row a step takes; the taps as template arguments at DW_FIXED
+DW_QUADS, DW_THREADS, DW_AHEAD = 16, 256, 4
+DW_FIXED = (4, 4)
+DW_BLOCKS_PER_SM = 2  # the kernel's __launch_bounds__
+
+
+def dw_conv_smem(kt: int, kf: int, qb: int, ft: int, fixed: bool) -> int:
+    """K5's shared bytes (``dw_smem_floats`` in the source): the (kt kf,
+    qb) tap chunks, then the ring of ``nr`` input rows of ft + kf - 1
+    positions, qb 16-byte chunks a position; nr = DW_AHEAD + 1 with the
+    taps as template arguments, DW_AHEAD + kt otherwise."""
+    nr = DW_AHEAD + (1 if fixed else kt)
+    return 16 * qb * (kt * kf + nr * (ft + kf - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def dw_conv_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
+                     kf: int) -> dict:
+    """K5's launch, as ``dw_conv_packed_fwd`` runs it: a block of (``qb``
+    quads, ``ft`` positions) threads owns ``qb`` channel quads (``blocks_c``
+    channel blocks), an f tile of ``ft`` positions (``tiles_f`` tiles, split
+    evenly) and a run of the output rows of one batch row (``runs`` a tile,
+    batch row and channel block, the rows split evenly); ``grid`` (runs,
+    tiles_f, b blocks_c) is about DW_BLOCKS_PER_SM blocks an SM. ``fixed``:
+    the taps are the template's (registers); ``slots`` the ring's rows.
+    Raises ValueError on an empty output and where the ring and taps do
+    not fit one block's shared memory."""
+    if min(b, c, t_out, f_out, kt, kf) < 1:
+        raise ValueError(f"dw_conv_packed: B {b}, C {c}, T {t_out}, "
+                         f"F {f_out}, taps {kt} x {kf}")
+    fixed = (kt, kf) == DW_FIXED
+    quads = -(-c // 4)
+    qb = min(quads, DW_QUADS)
+    tiles_f = -(-f_out // (DW_THREADS // qb))
+    ft = -(-f_out // tiles_f)
+    smem = dw_conv_smem(kt, kf, qb, ft, fixed)
+    if smem > kernel_lib.SMEM_PER_BLOCK:
+        raise ValueError(f"dw_conv_packed: {kt} x {kf} taps need {smem} "
+                         "bytes of shared memory a block")
+    blocks_c = -(-quads // qb)
+    if tiles_f >= 65536 or b * blocks_c >= 65536:
+        raise ValueError(f"dw_conv_packed: B {b}, C {c}, F {f_out}: grid "
+                         "too large")
+    runs = max(1, min(t_out, DW_BLOCKS_PER_SM * kernel_lib.SMS
+                      // (tiles_f * b * blocks_c)))
+    return {"qb": qb, "ft": ft, "threads": qb * ft, "tiles_f": tiles_f,
+            "blocks_c": blocks_c, "runs": runs,
+            "grid": (runs, tiles_f, b * blocks_c), "fixed": fixed,
+            "slots": DW_AHEAD + (1 if fixed else kt), "smem": smem}
+
+
+def dw_conv_launch_ints(b, t_in, f_in, c, t_out, f_out, kt_kf, pads_t,
+                        pads_f, w_strides) -> tuple:
+    """The ints of K5's launch: the shapes, taps, low pads, w's strides,
+    then ``dw_conv_geometry``'s qb, ft and runs."""
+    geo = dw_conv_geometry(b, c, t_out, f_out, *kt_kf)
+    return (b, t_in, f_in, c, t_out, f_out, *kt_kf, pads_t[0], pads_f[0],
+            *w_strides, geo["qb"], geo["ft"], geo["runs"])
+
+
 def _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f):
     if xp.device.type == "cpu":
         return dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f)
@@ -263,8 +328,8 @@ def _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f):
         "packed_tf", "dw_conv_packed_fwd", xp.device,
         xp.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, t_in, f_in, c, t_out, f_out, kt, kf, pads_t[0], pads_f[0],
-        *w.stride(),
+        *dw_conv_launch_ints(b, t_in, f_in, c, t_out, f_out, (kt, kf),
+                             pads_t, pads_f, w.stride()),
     )
     return out
 
@@ -449,17 +514,74 @@ def _proj_forward(x4, w, bias):
     return out
 
 
+# K7's kernel (``kUnproj*`` in csrc/packed_tf.cu): tiles of UNPROJ_M
+# positions x PROJ_N channels, UNPROJ_THREADS threads (warps of K6's 16 x
+# 32), UNPROJ_BLOCKS blocks an SM; x staged PROJ_K k a stage in a ring of
+# UNPROJ_STAGES, a staged position's PROJ_K k padded to UNPROJ_XS floats;
+# W split as K6's, PROJ_SLICE k a launch; the output tile staged a channel
+# a row of UNPROJ_OS floats (UNPROJ_M positions, a shift of 0-3, a pad)
+UNPROJ_M = 128
+UNPROJ_THREADS = UNPROJ_M // 16 * 2 * 32
+UNPROJ_STAGES = 3
+UNPROJ_BLOCKS = 1
+UNPROJ_XS = PROJ_K + 4
+UNPROJ_OS = UNPROJ_M + 4
+
+
+def pw_unproj_smem(k: int) -> int:
+    """K7's shared bytes for a launch of reduction depth ``k`` at most
+    PROJ_SLICE (``unproj_smem_floats`` in the source): W's slice split as
+    K6's (2 PROJ_N floats a k), the ring of (UNPROJ_M, UNPROJ_XS) stages
+    and the (PROJ_N, UNPROJ_OS) output tile."""
+    kp = -(-k // PROJ_K) * PROJ_K
+    return 4 * (kp * 2 * PROJ_N + UNPROJ_STAGES * UNPROJ_M * UNPROJ_XS
+                + PROJ_N * UNPROJ_OS)
+
+
+@functools.lru_cache(maxsize=None)
+def pw_unproj_geometry(b: int, m: int, k: int, n: int) -> dict:
+    """K7's launch, as ``pw_unproj_packed_fwd`` runs it for x (b, m, k) and
+    w (k, n): ``tiles`` = b * ceil(m / UNPROJ_M) (batch row, positions)
+    tiles, ``n_tiles`` = ceil(n / PROJ_N) channel tiles; ``blocks``
+    persistent blocks an N tile, together about UNPROJ_BLOCKS an SM (at
+    most the tiles), block (x, y) walking the tiles x, x + blocks, ... of
+    channel tile y, so that the n_tiles blocks of one x read the same x
+    tiles at about the same time; ``grid`` (blocks, n_tiles); ``slices``
+    launches, one a slice of at most PROJ_SLICE k (the first adds the
+    bias, each later one adds its sums to the output); ``stages`` k stages a tile
+    over all slices; ``smem`` a block's shared bytes (the first slice's)."""
+    if min(b, m, k, n) < 1:
+        raise ValueError(f"pw_unproj_packed: B {b}, M {m}, K {k}, N {n}")
+    tiles = b * -(-m // UNPROJ_M)
+    n_tiles = -(-n // PROJ_N)
+    if n_tiles >= 65536:
+        raise ValueError(f"pw_unproj_packed: N {n}: grid too large")
+    blocks = max(1, min(tiles, UNPROJ_BLOCKS * kernel_lib.SMS // n_tiles))
+    return {"tiles": tiles, "n_tiles": n_tiles, "blocks": blocks,
+            "grid": (blocks, n_tiles), "stages": -(-k // PROJ_K),
+            "slices": -(-k // PROJ_SLICE),
+            "smem": pw_unproj_smem(min(k, PROJ_SLICE))}
+
+
+def pw_unproj_launch_ints(xp, w, f: int) -> tuple:
+    """The ints of K7's launch on xp (B, T, F*K) and w (K, N): B, M, K, N,
+    w's strides and the blocks of ``pw_unproj_geometry``."""
+    b, t, _ = xp.shape
+    k, n = w.shape
+    geo = pw_unproj_geometry(b, t * f, k, n)
+    return (b, t * f, k, n, *w.stride(), geo["blocks"])
+
+
 def _unproj_forward(xp, w, bias, f):
     if xp.device.type == "cpu":
         return pw_unproj_packed_plain(xp, w, bias, f)
     _check_cuda("pw_unproj_packed", xp, w, bias)
     b, t, _ = xp.shape
-    ci, co = w.shape
-    out = torch.empty(b, co, t, f, device=xp.device)
+    out = torch.empty(b, w.shape[1], t, f, device=xp.device)
     kernel_lib.launch(
         "packed_tf", "pw_unproj_packed_fwd", xp.device, xp.data_ptr(),
         w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b, t * f, ci, co, *w.stride())
+        out.data_ptr(), *pw_unproj_launch_ints(xp, w, f))
     return out
 
 

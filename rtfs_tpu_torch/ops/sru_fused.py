@@ -331,6 +331,11 @@ FWD_THREADS = 256
 FWD_MT = 2
 FWD_NB = 3
 FWD_AHEAD = 8
+# the streamed K2 forward (H above 268), ``kFwdK`` and ``kFwdStages``: the
+# projection's reduction FWD_K rows of X and columns of W_d a stage, in a
+# ring of FWD_STAGES
+FWD_K = 32
+FWD_STAGES = 3
 
 
 def _round_up(n: int, m: int) -> int:
@@ -349,6 +354,16 @@ def k2_fwd_smem(hdim: int, cols: int, units: int | None = None) -> int:
                 + 2 * rows * (cols + 4))
 
 
+def k2_fwd_stream_smem(cols: int, units: int) -> int:
+    """The streamed K2 forward's dynamic shared memory in bytes
+    (``hid_fwd_stream_smem_floats``): one U slot and the ring of
+    FWD_STAGES stages, each FWD_K rows of X's chunk and those columns of
+    W_d's rows of the block's units. It does not depend on H."""
+    rows = _round_up(3 * units, 8 * FWD_NB)
+    return 4 * (rows * (cols + 4)
+                + FWD_STAGES * (FWD_K * (cols + 8) + rows * (FWD_K + 4)))
+
+
 @functools.lru_cache(maxsize=None)
 def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     """K2 forward's launch geometry, as ``sru_hidden_layer_fwd`` launches it.
@@ -363,31 +378,39 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     alone. ``bt`` is the largest of 8, 4, 2, 1 whose grid (ceil(B / bt)
     tiles x 2 directions x the slices) fills the card's SMs, or 1 where
     none does, and at most ``FWD_THREADS // units``; ``cols`` 64, or 32
-    where 64 does not fit a block's shared memory. Raises ``ValueError``
-    where not even the narrowest slice fits (H above 268: X's two slots
-    alone nearly fill the block)."""
+    where 64 does not fit a block's shared memory.
+
+    Where not even a slice of 8 units fits beside X's two slots (H above
+    268), ``stream``: the kernel streams the projection's reduction
+    (``kslices`` stages of FWD_K rows a chunk) and keeps one U slot, and
+    ``units`` is the fewest equal slices whose U slot and ring fit
+    (``k2_fwd_stream_smem``, which does not grow with H), the rest as
+    above. The C entry streams exactly where the held geometry's shared
+    memory exceeds a block's."""
     if min(t_len, hdim, bsz) < 1:
         raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}")
+    limit = kernel_lib.SMEM_PER_BLOCK
+    stream = k2_fwd_smem(hdim, 32, 8) > limit
+
+    def smem(cols, units):
+        return (k2_fwd_stream_smem(cols, units) if stream
+                else k2_fwd_smem(hdim, cols, units))
+
     for slices in range(1, hdim + 1):
         units = -(-hdim // slices)
-        if (units <= FWD_THREADS and k2_fwd_smem(hdim, 32, units)
-                <= kernel_lib.SMEM_PER_BLOCK):
+        if units <= FWD_THREADS and smem(32, units) <= limit:
             break
-    else:
-        raise ValueError(f"sru_hidden_layer: H {hdim} needs "
-                         f"{k2_fwd_smem(hdim, 32, 1)} bytes of shared "
-                         f"memory, above {kernel_lib.SMEM_PER_BLOCK}")
     slices = -(-hdim // units)
     choices = [bt for bt in (8, 4, 2, 1) if bt <= FWD_THREADS // units]
     bt = next((bt for bt in choices
                if 2 * slices * -(-bsz // bt) >= kernel_lib.SMS), choices[-1])
-    cols = next(c for c in (64, 32)
-                if k2_fwd_smem(hdim, c, units) <= kernel_lib.SMEM_PER_BLOCK)
+    cols = next(c for c in (64, 32) if smem(c, units) <= limit)
     steps = cols // bt
     return {"bt": bt, "steps": steps, "cols": cols, "units": units,
             "slices": slices, "grid": (-(-bsz // bt), 2, slices),
-            "chunks": -(-t_len // steps),
-            "smem": k2_fwd_smem(hdim, cols, units)}
+            "chunks": -(-t_len // steps), "stream": stream,
+            "kslices": -(-2 * hdim // FWD_K) if stream else 0,
+            "smem": smem(cols, units)}
 
 
 # K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in

@@ -70,6 +70,29 @@ def test_k1_k2_match_plain(dev, t_len, h, bsz):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("t_len,h,bsz", [(57, 300, 125), (5, 300, 64),
+                                          (9, 512, 33), (3, 1024, 8)])
+def test_k2_forward_streams_a_wide_h(dev, t_len, h, bsz):
+    """K2 forward above H 268 (the reduction streamed through shared
+    memory) against its plain version, serving and with c; two calls give
+    the same bits."""
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    assert S.k2_fwd_geometry(t_len, h, bsz)["stream"]
+    rng = np.random.default_rng(11)
+    vb = _t(rng, (8, h), dev, 0.3)
+    x_f = _t(rng, (t_len, h, bsz), dev, 0.5)
+    x_r = _t(rng, (t_len, h, bsz), dev, 0.5)
+    wt = _t(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
+    got = S._k2_forward(x_f, x_r, wt, vb, with_c=True)
+    for g, w in zip(got, S.sru_hidden_layer_plain(x_f, x_r, wt, vb, True)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    for a, b in zip(got, S._k2_forward(x_f, x_r, wt, vb, with_c=True)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, S.sru_hidden_layer(x_f, x_r, wt, vb)):
+        assert torch.equal(a, b)  # c written or not, the same h
+
+
 def _close(got, want, rel=None):
     """Elementwise outputs to ATOL; reductions over T * B terms (dv, db,
     dW) to ``rel`` of their max |value| (chip_smoke.py's BWD_REL_TOL)."""
@@ -425,6 +448,83 @@ def test_k5_matches_plain(dev, shape, pads, with_bias):
     want = P.dw_conv_packed_plain(xp, w, bias, f, c, pads, pads)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# K5's four sites at the packed shapes (bs 1, 4 and 8: "same" and
+# pre-select with bias, their dx on the flipped taps without), and odd
+# shapes: C 6 (no 16-byte chunks) and 70 (two channel blocks), an x 4
+# bytes off 16-byte alignment, taps 3 x 3, 5 x 5 and 1 x 4 (the runtime
+# taps' kernel); (B, T, F, C, kT, kF, x offset in floats)
+K5_SITES = {"same": ((1, 2), True), "pre-select": ((1, 1), True),
+            "same dx": ((2, 1), False), "pre-select dx": ((2, 2), False)}
+K5_SHAPES = {"bs1": (1, 251, 129, 64, 4, 4, 0),
+             "bs4": (4, 251, 129, 64, 4, 4, 0),
+             "bs8": (8, 251, 129, 64, 4, 4, 0), "c6": (3, 13, 7, 6, 4, 4, 0),
+             "c70": (2, 11, 9, 70, 4, 4, 0), "off": (2, 17, 10, 64, 4, 4, 1),
+             "taps-3x3": (2, 19, 21, 12, 3, 3, 0),
+             "taps-5x5": (1, 23, 17, 64, 5, 5, 1),
+             "taps-1x4": (4, 9, 33, 8, 1, 4, 0)}
+
+
+@pytest.mark.parametrize("site", sorted(K5_SITES))
+@pytest.mark.parametrize("shape", sorted(K5_SHAPES))
+def test_k5_sites_match_plain_and_repeat_exactly(dev, shape, site):
+    """K5 (``dw_conv_kernel``) at each site and shape against its plain
+    version (1e-5, chip_smoke's gate); two calls give the same bits."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, kt, kf, off = K5_SHAPES[shape]
+    pads, with_bias = K5_SITES[site]
+    pads_t = tuple(min(p, kt - 1) for p in pads)
+    pads_f = tuple(min(p, kf - 1) for p in pads)
+    rng = np.random.default_rng(12)
+    xp = _t(rng, (b * t * f * c + off,), dev)[off:].view(b, t, f * c)
+    weight = _t(rng, (c, 1, kt, kf), dev, 1.0 / kt)
+    w = weight[:, 0].permute(1, 2, 0)  # (kT, kF, C), strided
+    if site.endswith("dx"):
+        w = torch.flip(w, (0, 1))  # as the backward passes it
+    bias = _t(rng, (c,), dev) if with_bias else None
+    got = P.dw_conv_packed(xp, w, bias, f, c, pads_t, pads_f)
+    want = P.dw_conv_packed_plain(xp, w, bias, f, c, pads_t, pads_f)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, P.dw_conv_packed(xp, w, bias, f, c, pads_t,
+                                             pads_f))
+
+
+# K7 at the packed sizes as the forward (bs 1 and 8: the layer's strided w,
+# bias) and as K6's dx (bs 4: w.t() of K6's strided weight, no bias), and
+# at M 129 (odd, one tile and one position), N 70 (a partial channel
+# tile), K 300 (two launches) and an x 4 bytes off alignment (4-byte
+# copies); (B, T, F, K, N, bias, x offset in floats)
+K7_SHAPES = {"bs1": (1, 251, 129, 64, 256, True, 0),
+             "bs4-k6-dx": (4, 251, 129, 64, 256, False, 0),
+             "bs8": (8, 251, 129, 64, 256, True, 0),
+             "m-129": (3, 1, 129, 64, 256, True, 0),
+             "n-70": (2, 7, 129, 64, 70, False, 0),
+             "off": (2, 5, 129, 64, 256, True, 1),
+             "k-300": (1, 9, 43, 300, 40, True, 0)}
+
+
+@pytest.mark.parametrize("shape", sorted(K7_SHAPES))
+def test_k7_matches_plain_and_repeats_exactly(dev, shape):
+    """K7 (``pw_unproj_kernel``, 3xTF32) against its plain version (1e-4,
+    chip_smoke's gate); two calls give the same bits."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, k, n, with_bias, off = K7_SHAPES[shape]
+    rng = np.random.default_rng(13)
+    xp = _t(rng, (b * t * f * k + off,), dev)[off:].view(b, t, f * k)
+    if shape.endswith("k6-dx"):  # K6's (Ci, Co) view, turned round
+        w = _t(rng, (k, n, 1, 1), dev, n ** -0.5)[:, :, 0, 0].t().t()
+    else:  # the layer's view of its (Co, Ci, 1, 1) weight
+        w = _t(rng, (n, k, 1, 1), dev, k ** -0.5)[:, :, 0, 0].t()
+    bias = _t(rng, (n,), dev) if with_bias else None
+    got = P.pw_unproj_packed(xp, w, bias, f)
+    torch.testing.assert_close(got, P.pw_unproj_packed_plain(xp, w, bias, f),
+                               atol=1e-4, rtol=0)
+    assert got.shape == (b, n, t, f)
+    assert torch.equal(got, P.pw_unproj_packed(xp, w, bias, f))
 
 
 # K6/K7 also at bs 8, with an M (T * F) a multiple of 4 (K6's 16-byte x

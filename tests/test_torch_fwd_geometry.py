@@ -193,15 +193,173 @@ def test_k2_forward_preset_geometry():
     assert sru_fused.k2_fwd_geometry(118, 32, 64)["bt"] == 1
 
 
+# K2 forward's held geometry (W_d's rows of a slice of units and X's two
+# slots in one block) before the streamed path came: (T, H, B) -> (units,
+# slices, bt, cols, shared bytes); the held path keeps every one
+HELD_K2 = {(57, 32, 500): (32, 1, 4, 64, 115_200),
+           (57, 48, 500): (48, 1, 4, 64, 191_232),
+           (57, 64, 500): (64, 1, 4, 32, 197_632),
+           (57, 80, 500): (40, 2, 4, 32, 164_480),
+           (57, 128, 500): (32, 4, 8, 32, 209_408),
+           (57, 268, 500): (8, 34, 8, 32, 230_272),
+           (57, 32, 1000): (32, 1, 8, 64, 115_200),
+           (118, 32, 64): (32, 1, 1, 64, 115_200)}
+
+
 def test_k2_forward_refuses_h_above_the_limit():
-    """The limit is H 268, where even a slice of 8 units (24 rows of W_d)
-    no longer fits beside X's two slots; H 80, once refused, takes two
-    slices of 40."""
-    assert sru_fused.k2_fwd_geometry(57, 80, 500)["units"] == 40
-    assert sru_fused.k2_fwd_geometry(57, 268, 500)["units"] == 8
-    for hdim in (269, 300):
-        with pytest.raises(ValueError):
-            sru_fused.k2_fwd_geometry(57, hdim, 500)
+    """H 268 is the held path's limit, where even a slice of 8 units (24
+    rows of W_d) no longer fits beside X's two slots. Above it K2 forward
+    is no longer refused: H 269, 300, 512 and 1024 stream the projection's
+    reduction, within one block's shared memory; H up to 268 keeps the
+    held geometry it had (H 80, once refused, two slices of 40)."""
+    for (t_len, hdim, bsz), held in HELD_K2.items():
+        geo = sru_fused.k2_fwd_geometry(t_len, hdim, bsz)
+        assert not geo["stream"]
+        assert (geo["units"], geo["slices"], geo["bt"], geo["cols"],
+                geo["smem"]) == held
+    assert sru_fused.k2_fwd_smem(268, 32, 8) <= kernel_lib.SMEM_PER_BLOCK
+    for hdim in (269, 300, 512, 1024):
+        assert sru_fused.k2_fwd_smem(hdim, 32, 8) > kernel_lib.SMEM_PER_BLOCK
+        geo = sru_fused.k2_fwd_geometry(57, hdim, 500)
+        assert geo["stream"] and geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("t_len,bsz", SITES)
+@pytest.mark.parametrize("hdim", [269, 300, 512, 1024])
+def test_k2_forward_streamed_geometry(t_len, bsz, hdim):
+    """Above H 268: the fewest equal slices of units whose U slot and ring
+    (``k2_fwd_stream_smem``, independent of H) fit one block; the C entry
+    streams exactly there (the held layout's bytes exceed a block's); the
+    launch rules of the held path (bt, cols, S) otherwise; every (step,
+    unit, column, direction) is scanned by one thread of one block."""
+    geo = sru_fused.k2_fwd_geometry(t_len, hdim, bsz)
+    bt, steps, units = geo["bt"], geo["steps"], geo["units"]
+    limit = kernel_lib.SMEM_PER_BLOCK
+    assert geo["stream"]
+    assert sru_fused.k2_fwd_smem(hdim, geo["cols"], units) > limit
+    assert geo["smem"] == sru_fused.k2_fwd_stream_smem(geo["cols"], units) \
+        <= limit
+    assert geo["kslices"] == -(-2 * hdim // sru_fused.FWD_K)
+    slices = geo["slices"]
+    assert slices == -(-hdim // units) and units <= sru_fused.FWD_THREADS
+    if slices > 1:
+        fewer = -(-hdim // (slices - 1))
+        assert fewer > sru_fused.FWD_THREADS or \
+            sru_fused.k2_fwd_stream_smem(32, fewer) > limit
+    assert steps * bt == geo["cols"] and geo["cols"] % (
+        16 * sru_fused.FWD_MT) == 0
+    assert units * bt <= sru_fused.FWD_THREADS
+    assert steps % min(steps, sru_fused.FWD_AHEAD) == 0
+    n_tiles = geo["grid"][0]
+    written = np.zeros((hdim, bsz), dtype=np.int64)
+    for tile in range(n_tiles):
+        for z in range(slices):
+            j0 = z * units
+            hs = min(units, hdim - j0)
+            assert hs > 0
+            for p in range(hs * bt):
+                j, b = j0 + p // bt, tile * bt + p % bt
+                if b < bsz:
+                    written[j, b] += 1
+    assert (written == 1).all()  # each step of the chunks, both directions
+
+
+@pytest.mark.parametrize("hdim,units", [(300, 100), (12, 12), (512, 103),
+                                        (1024, 114), (20, 8)])
+def test_k2_streamed_stages_and_w_rows(hdim, units):
+    """A chunk's reduction in stages of FWD_K rows: every row of X (2H)
+    once a chunk, rows past 2H zero; the warp-row walk of W_d's slice, (gate,
+    jl) stepped without division, is divmod(o, units) and reads each W_d
+    row gate H + j0 + jl of the block's units once; W_d's slice rows of 36
+    floats and X's rows put a fragment's lanes on 32 banks."""
+    ksl = -(-2 * hdim // sru_fused.FWD_K)
+    rows_seen = np.zeros(ksl * sru_fused.FWD_K, np.int32)
+    for kk in range(ksl):
+        rows_seen[kk * sru_fused.FWD_K:(kk + 1) * sru_fused.FWD_K] += 1
+    assert (rows_seen == 1).all() and ksl * sru_fused.FWD_K >= 2 * hdim
+    rows = -(-3 * units // (8 * sru_fused.FWD_NB)) * 8 * sru_fused.FWD_NB
+    warps = sru_fused.FWD_THREADS // 32
+    for j0 in range(0, hdim, units):
+        hs = min(units, hdim - j0)
+        got = []
+        for warp in range(warps):
+            gate, jl = warp // units, warp % units
+            for o in range(warp, rows, warps):
+                assert (gate, jl) == divmod(o, units)
+                if gate < 3 and jl < hs:
+                    got.append(gate * hdim + j0 + jl)
+                jl += warps
+                while jl >= units:
+                    jl -= units
+                    gate += 1
+        assert sorted(got) == sorted(g * hdim + j0 + jl for g in range(3)
+                                     for jl in range(hs))
+    kws = sru_fused.FWD_K + 4
+    assert len({(g * kws + q) % 32 for g in range(8) for q in range(4)}) == 32
+
+
+@pytest.mark.parametrize("n_chunks,ksl", [(1, 1), (1, 19), (2, 17), (3, 2),
+                                          (4, 64), (5, 1)])
+def test_k2_streamed_ring_and_u_slot(n_chunks, ksl):
+    """The streamed stage sequence: stage st = (chunk st // ksl, slice st %
+    ksl) into ring slot st % FWD_STAGES; stages 0 .. FWD_STAGES - 2 issued
+    before the loop; iteration st waits until FWD_STAGES - 2 groups are
+    pending, a barrier, issues stage st + FWD_STAGES - 1, projects stage st
+    into the U slot (from 0 at a chunk's first slice), and after a chunk's
+    last slice a barrier, then the scan of the chunk. No copy lands in a
+    slot a stage not yet done reads; every chunk's U is whole, from its own
+    slices in order, when scanned; the next write of U comes after the
+    barrier that follows the scan."""
+    stages = sru_fused.FWD_STAGES
+    total = n_chunks * ksl
+    slot_of, pending = {}, []
+    u = []  # the slices summed into the U slot since it was last reset
+    events = []  # ("barrier" | "scan n" | "write")
+
+    def issue(st):
+        pending.append([(st % stages, st)] if st < total else [])
+
+    for st in range(stages - 1):
+        issue(st)
+    for st in range(total):
+        while len(pending) > stages - 2:
+            for s, stage in pending.pop(0):
+                slot_of[s] = stage
+        events.append("barrier")
+        issue(st + stages - 1)
+        for s, _ in pending[-1]:
+            assert s != st % stages
+        assert slot_of[st % stages] == st
+        n, kk = divmod(st, ksl)
+        if kk == 0:
+            u = []
+        events.append("write")
+        u.append(st)
+        if kk == ksl - 1:
+            events.append("barrier")
+            assert u == list(range(n * ksl, (n + 1) * ksl))
+            events.append(f"scan {n}")
+    # each scan is followed by a barrier before the next write of U
+    for i, e in enumerate(events):
+        if e.startswith("scan"):
+            nxt = events[i + 1:]
+            if "write" in nxt:
+                assert "barrier" in nxt[:nxt.index("write")]
+
+
+def test_k2_streamed_constants_match_the_source():
+    path = os.path.join(kernel_lib.CSRC_DIR, "sru_fused.cu")
+    with open(path) as f:
+        src = f.read()
+    assert f"constexpr int kFwdK = {sru_fused.FWD_K};" in src
+    assert f"constexpr int kFwdStages = {sru_fused.FWD_STAGES};" in src
+    assert "constexpr long long kMaxSmem = 227 * 1024;" in src
+    assert 227 * 1024 == kernel_lib.SMEM_PER_BLOCK
+    assert "sru_hid_fwd_kernel<true>" in src and \
+        "sru_hid_fwd_kernel<false>" in src
+    # pointers x_f, x_r, wt, vb, h_f, h_r, c_f, c_r; T, H, B, bt, S, units
+    assert kernel_lib._SIGNATURES["sru_fused"]["sru_hidden_layer_fwd"] == \
+        (8, 6)
 
 
 @pytest.mark.parametrize("length,bsz", SITES)

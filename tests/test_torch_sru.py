@@ -65,6 +65,29 @@ def test_plain_k2_matches_pallas_interpret(t_len, h, bsz):
                                    rtol=RTOL)
 
 
+def test_plain_k2_matches_pallas_interpret_at_h_300():
+    """K2 above H 268, where the port's kernel streams its projection: the
+    plain version the card is held against agrees with the Pallas kernel,
+    whose (6H, 2H) weight block has no such limit. Dot products of 600
+    terms (scaled to unit variance), the same tolerances."""
+    t_len, h, bsz = 5, 300, 4
+    rng = np.random.default_rng(2)
+    x_f = (rng.standard_normal((t_len, h, bsz)) * 0.5).astype(np.float32)
+    x_r = (rng.standard_normal((t_len, h, bsz)) * 0.5).astype(np.float32)
+    wt = (rng.standard_normal((6 * h, 2 * h)) * (2 * h) ** -0.5).astype(
+        np.float32)
+    v, b = _vb(rng, h)
+    ref = jfused.sru_hidden_layer(
+        jnp.asarray(x_f), jnp.asarray(x_r), jnp.asarray(wt),
+        jfused._vb_pack(jnp.asarray(v), jnp.asarray(b)), True)
+    got = tfused.sru_hidden_layer(
+        torch.from_numpy(x_f), torch.from_numpy(x_r), torch.from_numpy(wt),
+        tfused.vb_pack(torch.from_numpy(v), torch.from_numpy(b)))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=RTOL)
+
+
 def _stack_params(rng, d_in0, h, n_layers):
     ws, wcs, bs = [], [], []
     for layer in range(n_layers):

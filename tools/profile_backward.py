@@ -18,10 +18,16 @@ path.
 at its serving site (bs 1 and 8: STFT 251 x 129, bottleneck 256 -> 64,
 the layer's strided w and a bias), its K7-dx site (bs 4, contiguous w, no
 bias) and at a bottleneck of 512 (bs 1; a tree whose K6 refuses it prints
-the refusal), and K5-wgrad ``dw_conv_packed_wgrad`` at its two bs-4 sites
-("same" and pre-select, 4 x 4 taps over 64 channels), each held to its
-plain version. ``--sweep`` (with ``--packed``, this tree's K5-wgrad
-launch interface) also launches K5-wgrad's C entry at the bs-4 "same"
+the refusal), K5-wgrad ``dw_conv_packed_wgrad`` at its two bs-4 sites
+("same" and pre-select, 4 x 4 taps over 64 channels), K5
+``dw_conv_packed`` at its bs-4 training sites (the "same" forward with a
+bias, and its dx: the flipped taps, pads (2, 1), no bias) and K7
+``pw_unproj_packed`` at its serving site (bs 1 and 8, 64 -> 256, the
+layer's strided w and a bias) and as K6's dx (bs 4, w^T of K6's strided
+weight, no bias), each held to its plain version and called twice
+(bit-identical), with its device time a launch (K5's also a packed bs-4
+step's: 16 launches a site). ``--sweep`` (with ``--packed``, this tree's
+K5-wgrad launch interface) also launches K5-wgrad's C entry at the bs-4 "same"
 site with other positions a thread (``p``) and runs a tile (``runs``)
 than ``ops/packed_tf.dw_wgrad_geometry`` picks, each held to the plain
 version, beside the picked geometry's device time.
@@ -167,6 +173,32 @@ def packed(t, sweep: bool) -> None:
     xp = t((4, T, F * C))
     same = ((K - 1) // 2, K - 1 - (K - 1) // 2)
     pre = ((K - 1) // 2,) * 2
+    w_v = t((C, K, K), 1.0 / K).permute(1, 2, 0)  # the layer's view
+    dx = (K - 1 - same[0], K - 1 - same[1])
+    for site, pads, w, b in (("same", same, w_v, bias),
+                             ("same dx", dx, torch.flip(w_v, (0, 1)), None)):
+        fn = lambda: P.dw_conv_packed(xp, w, b, F, C, pads, pads)  # noqa
+        got = fn()
+        err = (got - P.dw_conv_packed_plain(xp, w, b, F, C, pads, pads)
+               ).abs().max().item()
+        us, n, _ = device_us(fn, ("dw_conv_packed_kernel",))
+        print(f"K5 bs=4 site={site}: device {us:.2f} us a call ({n:g} "
+              f"launches), {16 * us / 1e3:.4f} ms a packed bs-4 step (16 "
+              f"calls), events {event_ms(fn) * 1e3:.2f} us, max "
+              f"abs err {err:.3e}, two calls bit-identical "
+              f"{torch.equal(got, fn())}")
+    w_out = t((CB_PK, C), C ** -0.5).t()  # the layer's (C, Cb) view
+    for bs, site, w, b in ((1, "residual", w_out, t((CB_PK,))),
+                           (8, "residual", w_out, t((CB_PK,))),
+                           (4, "K6 dx", t((C, CB_PK), CB_PK ** -0.5), None)):
+        x = xp if bs == 4 else t((bs, T, F * C))
+        fn = lambda: P.pw_unproj_packed(x, w, b, F)  # noqa: E731
+        got = fn()
+        err = (got - P.pw_unproj_packed_plain(x, w, b, F)).abs().max().item()
+        us, n, _ = device_us(fn, ("pw_unproj_kernel",))
+        print(f"K7 bs={bs} site={site}: device {us:.2f} us a call ({n:g} "
+              f"launches), events {event_ms(fn) * 1e3:.2f} us, max abs err "
+              f"{err:.3e}, two calls bit-identical {torch.equal(got, fn())}")
     for site, pads in (("same", same), ("pre-select", pre)):
         t_out, f_out = P.dw_geometry(T, F, K, K, pads, pads)
         g = t((4, t_out, f_out * C))
