@@ -1503,6 +1503,27 @@ def hold_train_step(res, ref, on: str, off: str, label: str = "training",
                              f"max rel error {stat_err:.3e}")
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time, us."""
+    return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+
+
+def device_kernels(prof) -> tuple:
+    """A profile's device kernels and copies, by device time, and the
+    device ms of the regions the code annotates (the optimizer's step):
+    such a region can appear on the device's timeline too, and would count
+    the kernels it covers twice."""
+    kernels, annotated = [], 0.0
+    for e in prof.key_averages():
+        if dev_us(e) <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            annotated += dev_us(e)
+        else:
+            kernels.append(e)
+    return sorted(kernels, key=dev_us, reverse=True), annotated / 1e3
+
+
 def profile_step(system, batch, generator, label: str,
                  also=None) -> None:
     """One more train step under the profiler: wall and device time, idle
@@ -1518,19 +1539,11 @@ def profile_step(system, batch, generator, label: str,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-
-    # the device's kernels and copies; a region the code annotates (the
-    # optimizer's step) can also appear on the device's timeline, and
-    # would count its kernels twice
-    kernels = sorted((e for e in prof.key_averages() if dev_us(e) > 0
-                      and e.device_type == torch.autograd.DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=dev_us, reverse=True)
+    kernels, annotated_ms = device_kernels(prof)
     dev_ms = sum(dev_us(e) for e in kernels) / 1e3
     print(f"{label}: profiled step wall {wall_ms:.3f} ms, device "
-          f"{dev_ms:.3f} ms, idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
+          f"{dev_ms:.3f} ms, idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}"
+          f"; annotated regions {annotated_ms:.3f} ms, not counted")
     for e in kernels[:12]:
         print(f"{label}: top kernel {dev_us(e) / 1e3:9.3f} ms "
               f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<5d} {e.key[:90]}")

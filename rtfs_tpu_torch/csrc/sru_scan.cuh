@@ -44,8 +44,8 @@
 // copy is issued kScanAhead steps before its own stores and reads only its
 // own step's rows, which no earlier step writes.
 //
-// Measured on the H100 (tools/scan_ahead.py, PERF.md): depth 8 with 2
-// steps a wait was the fastest of depths 4-16 and 1-2 steps a wait. K1's
+// Measured on the H100 (tools/kernel_variants.py scan, PERF.md): depth 8
+// with 2 steps a wait was the fastest of depths 4-16 and 1-2 a wait. K1's
 // launches read and write at ~74% of the bytes bound; streaming stores
 // and smaller blocks did not move them. Where the threads are fewest (K4
 // at the bs-4 time site: 2 warps an SM) a step costs each thread its

@@ -279,20 +279,27 @@ def dw_conv_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
     batch row and channel block, the rows split evenly); ``grid`` (runs,
     tiles_f, b blocks_c) is about DW_BLOCKS_PER_SM blocks an SM. ``fixed``:
     the taps are the template's (registers); ``slots`` the ring's rows.
-    Raises ValueError on an empty output and where the ring and taps do
-    not fit one block's shared memory."""
+    Where wide taps' ring and taps do not fit one block's shared memory,
+    the block takes fewer positions, then fewer quads. Raises ValueError
+    on an empty output and where even one quad at one position does not
+    fit."""
     if min(b, c, t_out, f_out, kt, kf) < 1:
         raise ValueError(f"dw_conv_packed: B {b}, C {c}, T {t_out}, "
                          f"F {f_out}, taps {kt} x {kf}")
     fixed = (kt, kf) == DW_FIXED
+    limit = kernel_lib.SMEM_PER_BLOCK
     quads = -(-c // 4)
-    qb = min(quads, DW_QUADS)
-    tiles_f = -(-f_out // (DW_THREADS // qb))
+    # the shared bytes grow linearly in qb and in ft
+    qb = min(quads, DW_QUADS, limit // dw_conv_smem(kt, kf, 1, 1, fixed))
+    if qb < 1:
+        raise ValueError(f"dw_conv_packed: {kt} x {kf} taps need "
+                         f"{dw_conv_smem(kt, kf, 1, 1, fixed)} bytes of "
+                         "shared memory a block")
+    nr = DW_AHEAD + (1 if fixed else kt)
+    ft_fit = (limit // (16 * qb) - kt * kf) // nr - kf + 1
+    tiles_f = -(-f_out // min(DW_THREADS // qb, ft_fit))
     ft = -(-f_out // tiles_f)
     smem = dw_conv_smem(kt, kf, qb, ft, fixed)
-    if smem > kernel_lib.SMEM_PER_BLOCK:
-        raise ValueError(f"dw_conv_packed: {kt} x {kf} taps need {smem} "
-                         "bytes of shared memory a block")
     blocks_c = -(-quads // qb)
     if tiles_f >= 65536 or b * blocks_c >= 65536:
         raise ValueError(f"dw_conv_packed: B {b}, C {c}, F {f_out}: grid "

@@ -454,7 +454,9 @@ def test_k5_matches_plain(dev, shape, pads, with_bias):
 # pre-select with bias, their dx on the flipped taps without), and odd
 # shapes: C 6 (no 16-byte chunks) and 70 (two channel blocks), an x 4
 # bytes off 16-byte alignment, taps 3 x 3, 5 x 5 and 1 x 4 (the runtime
-# taps' kernel); (B, T, F, C, kT, kF, x offset in floats)
+# taps' kernel), 17 x 17 and 24 x 24 (fewer positions, then fewer quads a
+# block, so that ring and taps fit); (B, T, F, C, kT, kF, x offset in
+# floats)
 K5_SITES = {"same": ((1, 2), True), "pre-select": ((1, 1), True),
             "same dx": ((2, 1), False), "pre-select dx": ((2, 2), False)}
 K5_SHAPES = {"bs1": (1, 251, 129, 64, 4, 4, 0),
@@ -463,7 +465,9 @@ K5_SHAPES = {"bs1": (1, 251, 129, 64, 4, 4, 0),
              "c70": (2, 11, 9, 70, 4, 4, 0), "off": (2, 17, 10, 64, 4, 4, 1),
              "taps-3x3": (2, 19, 21, 12, 3, 3, 0),
              "taps-5x5": (1, 23, 17, 64, 5, 5, 1),
-             "taps-1x4": (4, 9, 33, 8, 1, 4, 0)}
+             "taps-1x4": (4, 9, 33, 8, 1, 4, 0),
+             "taps-17x17": (1, 20, 129, 64, 17, 17, 0),
+             "taps-24x24": (1, 30, 40, 64, 24, 24, 1)}
 
 
 @pytest.mark.parametrize("site", sorted(K5_SITES))

@@ -30,8 +30,9 @@ from rtfs_tpu_torch.ops import packed_tf as P
 # (B, T_in, F_in, C, kT, kF, pads_t, pads_f): the four sites at the preset
 # (bs 1, 4, 8: "same" and pre-select, and their dx on the cotangent: the
 # flipped taps with pads k - 1 - lo / hi), then ragged shapes: C off the
-# quads, C over one channel block, taps other than the template's, an F
-# over one tile of positions
+# quads, C over one channel block, taps other than the template's (17 x 17:
+# fewer positions a block, so that ring and taps fit), an F over one tile
+# of positions
 K5 = {**{f"{site}-bs{b}": (b, 251 - (site == "pre dx"),
                            129 - (site == "pre dx"), 64, 4, 4, pads, pads)
          for b in (1, 4, 8)
@@ -41,6 +42,7 @@ K5 = {**{f"{site}-bs{b}": (b, 251 - (site == "pre dx"),
       "c70": (2, 11, 9, 70, 4, 4, (1, 2), (1, 2)),
       "taps-3x3": (2, 19, 21, 12, 3, 3, (1, 1), (1, 1)),
       "taps-5x5": (1, 23, 17, 64, 5, 5, (2, 2), (2, 2)),
+      "taps-17x17": (1, 6, 129, 64, 17, 17, (8, 8), (8, 8)),
       "taps-1x4": (4, 9, 33, 8, 1, 4, (0, 0), (1, 2)),
       "f-300": (1, 4, 300, 4, 4, 4, (1, 2), (1, 2)),
       "rows-long": (30, 12, 1100, 8, 4, 4, (1, 2), (1, 2))}
@@ -233,6 +235,25 @@ def test_k5_refuses_only_what_no_block_takes():
         P.dw_conv_geometry(1, 8, 0, 10, 4, 4)
     assert P.dw_conv_geometry(1, 4096, 10, 10, 9, 9)["blocks_c"] == 64
     assert P.dw_conv_geometry(2, 64, 7, 1, 4, 4)["ft"] == 1
+
+
+@pytest.mark.parametrize("taps, qb, ft", [(17, 16, 13), (24, 11, 3),
+                                          (40, 4, 7)])
+def test_k5_wide_taps_take_fewer_positions_then_fewer_quads(taps, qb, ft):
+    """Where 16 quads at 16 positions would not fit (17 x 17 taps at C 64,
+    F 129: 16 * 16 * (289 + 21 * 31) * 4 bytes), a block takes the most
+    positions that fit, and below one position, the most quads; the
+    smallest fitting block of the next position or quad would not fit."""
+    geo = P.dw_conv_geometry(1, 64, 6, 129, taps, taps)
+    assert (geo["qb"], geo["ft"]) == (qb, ft)
+    assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    assert P.dw_conv_smem(taps, taps, 16, 16, False) \
+        > kernel_lib.SMEM_PER_BLOCK
+    nxt = (P.dw_conv_smem(taps, taps, qb, -(-129 // (geo["tiles_f"] - 1)),
+                          False) if qb == 16
+           else P.dw_conv_smem(taps, taps, qb + 1, 1, False))
+    assert nxt > kernel_lib.SMEM_PER_BLOCK
+    assert geo["blocks_c"] * geo["qb"] >= 16
 
 
 @pytest.mark.parametrize("name", sorted(K5))

@@ -1,0 +1,296 @@
+#!/usr/bin/env python3
+"""Time a hand-written kernel built at other values of its constants, on one GPU.
+
+A kernel's variants are values of the ``constexpr int`` constants that
+shape it, given as ``A:B:..`` in the order of its row of ``KERNELS``:
+
+- ``scan``: the SRU backward adjoint scan (``csrc/sru_scan.cuh``), its
+  ring depth ``kScanAhead`` and the steps a wait ``kScanGroup``; K1
+  backward (``sru_dual_recurrence_bwd``) and K4 backward
+  (``sru_recurrence_bwd``) at the RTFS-Net-4 bs-4 training sites (freq T
+  57 over B 500, time T 118 over B 256, H 32), held to the plain versions
+  (1e-4 of each output's max), beside the bytes bound;
+- ``unproj``: K7 (``pw_unproj_kernel`` in ``csrc/packed_tf.cu``), its tile
+  of ``kUnprojM`` positions, ring of ``kUnprojStages`` and
+  ``kUnprojBlocks`` blocks an SM; the forward at bs 1 and 8 (the layer's
+  strided w, a bias) and K6's dx at bs 4 (w^T of K6's weight, no bias),
+  STFT 251 x 129, 64 -> 256 channels, held to the plain version (1e-4).
+
+Each variant is built from a copy of ``csrc/`` with the constants
+replaced, into ``rtfs_tpu_torch/_build/variants/`` (every nvcc at once),
+then runs in a process of its own (loaded into one process beside the
+library built from the same source, a variant's outputs came out wrong):
+checked, then timed with CUDA events, the variants in turns and then in
+reverse order. Usage::
+
+    python3 tools/kernel_variants.py scan [--variants 8:1 8:2 12:2]
+    python3 tools/kernel_variants.py unproj [--variants 128:3:1 64:3:2]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from rtfs_tpu_torch.ops import kernel_lib  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _t(rng, shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+        np.float32)).cuda()
+
+
+def _held(name, got, want, tol):
+    """Raise unless every output is within ``tol`` of its plain version's
+    max."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} output {i}: {err} on {scale}")
+
+
+def scan_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of the backward scan: K1 and K4
+    backward at the freq and time sites."""
+    from rtfs_tpu_torch.ops import sru_fused, sru_pallas
+
+    rng, h = np.random.default_rng(0), 32
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for site, (T, B) in {"freq": (57, 500), "time": (118, 256)}.items():
+        g1 = sru_fused.scan_bwd_geometry(T, h, B, 2)
+        u_f, u_r = _t(rng, (T, 4 * h, B)), _t(rng, (T, 4 * h, B))
+        vb, c_f, c_r = _t(rng, (8, h), 0.3), _t(rng, (T, h, B)), \
+            _t(rng, (T, h, B))
+        dh_f, dh_r = _t(rng, (T, h, B)), _t(rng, (T, h, B))
+        du_f, du_r = torch.empty_like(u_f), torch.empty_like(u_r)
+        part1 = torch.empty(g1["parts"], 8, h, device="cuda")
+        args1 = [a.data_ptr() for a in (u_f, u_r, vb, c_f, c_r, dh_f, dh_r,
+                                        du_f, du_r, part1)]
+
+        def k1(args=args1, g=g1, T=T, B=B):
+            st = libs["sru_fused"].sru_dual_recurrence_bwd(
+                *args, T, h, B, g["cols"], g["units"], stream)
+            assert st == 0, st
+
+        plain1 = functools.partial(sru_fused.sru_dual_recurrence_bwd_plain,
+                                   u_f, u_r, vb, c_f, c_r, dh_f, dh_r)
+        g4 = sru_fused.scan_bwd_geometry(T, h, B, 1)
+        u, x, vb4 = _t(rng, (T, 3 * h, B)), _t(rng, (T, h, B)), \
+            _t(rng, (4, h), 0.3)
+        c, dh = _t(rng, (T, h, B)), _t(rng, (T, h, B))
+        du, dx = torch.empty_like(u), torch.empty_like(x)
+        part4 = torch.empty(g4["parts"], 4, h, device="cuda")
+        args4 = [a.data_ptr() for a in (u, x, vb4, c, dh, du, dx, part4)]
+
+        def k4(args=args4, g=g4, T=T, B=B):
+            st = libs["sru_pallas"].sru_recurrence_bwd(
+                *args, T, h, B, 0, g["cols"], g["units"], stream)
+            assert st == 0, st
+
+        plain4 = functools.partial(sru_pallas.sru_recurrence_bwd_plain, u, x,
+                                   vb4, c, dh)
+        for kernel, fn, plain, got, dirs in (
+                ("K1", k1, plain1, (du_f, du_r, part1), 2),
+                ("K4", k4, plain4, (du, dx, part4), 1)):
+            name = f"{kernel} backward {site} T={T} B={B}"
+            out[name] = (fn, lambda n=name, p=plain, o=got: _held(
+                n, (*o[:-1], o[-1].sum(0)), p(), 1e-4),
+                40 * T * h * B * dirs / HBM_BYTES_PER_S * 1e6)
+    return out
+
+
+def unproj_sites(libs, values) -> dict:
+    """{site: (launch, check, None)} of K7: the forward at bs 1 and 8, K6's
+    dx at bs 4; its blocks from the variant's tile and blocks an SM."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    m_tile, _, per_sm = values
+    T, F, C, CB = 251, 129, 64, 256
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for site, bs in {"bs1 residual": 1, "bs8 residual": 8,
+                     "bs4 K6 dx": 4}.items():
+        xp = _t(rng, (bs, T, F * C))
+        if site.endswith("dx"):
+            w, b = _t(rng, (C, CB), CB ** -0.5), None
+        else:
+            w, b = _t(rng, (CB, C), C ** -0.5).t(), _t(rng, (CB,))
+        o = torch.empty(bs, CB, T, F, device="cuda")
+        tiles, n_tiles = bs * -(-(T * F) // m_tile), -(-CB // P.PROJ_N)
+        blocks = max(1, min(tiles, per_sm * kernel_lib.SMS // n_tiles))
+
+        def call(xp=xp, w=w, b=b, o=o, bs=bs, blocks=blocks):
+            st = libs["packed_tf"].pw_unproj_packed_fwd(
+                xp.data_ptr(), w.data_ptr(),
+                None if b is None else b.data_ptr(), o.data_ptr(), bs,
+                T * F, C, CB, *w.stride(), blocks, stream)
+            assert st == 0, st
+
+        out[site] = (call, lambda s=site, xp=xp, w=w, b=b, o=o: _held(
+            s, (o,), (P.pw_unproj_packed_plain(xp, w, b, F),), 1e-4), None)
+    return out
+
+
+# kernel: (source whose constants change, constants, libraries built from
+# the copy, a part of the kernel's name in ptxas' report, the sites,
+# default variants)
+KERNELS = {
+    "scan": ("sru_scan.cuh", ("kScanAhead", "kScanGroup"),
+             ("sru_fused", "sru_pallas"), "sru_scan_bwd", scan_sites,
+             ["8:1", "8:2", "12:1", "12:2", "16:1", "16:2"]),
+    "unproj": ("packed_tf.cu", ("kUnprojM", "kUnprojStages",
+                                "kUnprojBlocks"),
+               ("packed_tf",), "pw_unproj", unproj_sites,
+               ["128:3:1", "128:4:1", "64:3:2", "64:4:2", "32:4:4"]),
+}
+
+
+def _root(kernel: str, v: str) -> str:
+    return os.path.join(kernel_lib.BUILD_DIR, "variants", kernel,
+                        v.replace(":", "_"))
+
+
+def _values(kernel: str, v: str) -> tuple:
+    values = tuple(int(a) for a in v.split(":"))
+    if len(values) != len(KERNELS[kernel][1]):
+        raise ValueError(f"{kernel} variant {v}: give "
+                         f"{':'.join(KERNELS[kernel][1])}")
+    return values
+
+
+def build(kernel: str, v: str) -> list:
+    """Start nvcc for each library of one variant; returns [(process,
+    library path)]."""
+    source, consts, libs = KERNELS[kernel][:3]
+    root = _root(kernel, v)
+    csrc = os.path.join(root, "csrc")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(kernel_lib.CSRC_DIR, csrc)
+    path = os.path.join(csrc, source)
+    with open(path) as f:
+        src = f.read()
+    for name, value in zip(consts, _values(kernel, v)):
+        src, n = re.subn(rf"constexpr int {name} = \d+;",
+                         f"constexpr int {name} = {value};", src)
+        assert n == 1, name
+    with open(path, "w") as f:
+        f.write(src)
+    out = []
+    for name in libs:
+        lib = os.path.join(root, f"lib{name}.so")
+        cmd = [kernel_lib._nvcc(), *kernel_lib.NVCC_FLAGS, "-o", lib,
+               os.path.join(csrc, f"{name}.cu")]
+        out.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    lib))
+    return out
+
+
+def load(kernel: str, v: str) -> dict:
+    libs = {}
+    for name in KERNELS[kernel][2]:
+        lib = ctypes.CDLL(os.path.join(_root(kernel, v), f"lib{name}.so"))
+        for fn, (n_ptr, n_int) in kernel_lib._SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                          + [ctypes.c_void_p])
+            f.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def event_ms(fn, iters: int = 50) -> float:
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def worker(kernel: str, v: str) -> None:
+    """One variant in this process: each site checked against the plain
+    version, then timed; prints one JSON line {site: [ms, bound us]}."""
+    sites = KERNELS[kernel][4](load(kernel, v), _values(kernel, v))
+    res = {}
+    for site, (call, check, bound_us) in sites.items():
+        call()
+        torch.cuda.synchronize()
+        check()
+        res[site] = [event_ms(call), bound_us]
+    print(json.dumps(res))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("--variants", nargs="+")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a CUDA card", file=sys.stderr)
+        return 1
+    if args.worker:
+        worker(args.kernel, args.worker)
+        return 0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    variants = args.variants or KERNELS[args.kernel][5]
+    entry_part = KERNELS[args.kernel][3]
+    procs = {v: build(args.kernel, v) for v in variants}  # all nvcc at once
+    for v, built in procs.items():
+        for proc, path in built:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {path}:\n{log}")
+            entry = ""
+            for ln in log.splitlines():  # ptxas names the entry, then its use
+                if "Compiling entry function" in ln:
+                    entry = ln
+                elif "registers" in ln and entry_part in entry:
+                    print(f"variant {v} {os.path.basename(path)}: "
+                          f"{ln.split(':', 1)[-1].strip()}")
+    times = {v: [] for v in variants}
+    for order in (variants, variants[::-1]):  # in turns, then back
+        for v in order:
+            run = subprocess.run([sys.executable, __file__, args.kernel,
+                                  "--worker", v], capture_output=True,
+                                 text=True, timeout=300)
+            if run.returncode != 0:
+                raise RuntimeError(f"variant {v}:\n{run.stderr[-3000:]}")
+            times[v].append(json.loads(run.stdout.strip().splitlines()[-1]))
+    consts = ":".join(KERNELS[args.kernel][1])
+    for site in times[variants[0]][0]:
+        for v in variants:
+            us = " / ".join(f"{1e3 * run[site][0]:.2f}" for run in times[v])
+            bound = times[v][0][site][1]
+            print(f"{args.kernel} {consts}={v} {site}: us a launch {us}"
+                  + ("" if bound is None else f" (bound {bound:.2f}, bytes)")
+                  + f"; held to the plain version; {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
