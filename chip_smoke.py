@@ -79,7 +79,9 @@ one or outside the repository. Phases, any failure of which ends the run:
 9. Packed training (after phase 6): K5-wgrad ``dw_conv_packed_wgrad`` and
    pw-wgrad ``pw_packed_wgrad`` at the packed training shapes (batch 4)
    against their plain versions, twice (bit-identical), timed beside
-   bound, plain and one PyTorch call; each packed op's autograd Function
+   bound (pw-wgrad, a 3xTF32 product on the tensor cores: that route's,
+   the SIMT-f32 one printed beside it), plain and one PyTorch call; each
+   packed op's autograd Function
    (dx, dW, db through the kernels) against autograd through its plain
    forward on the same card inputs; one packed ``train_step`` at batch 1
    with dropout 0, with cuDNN and with it off, through phase 6's gates
@@ -91,8 +93,8 @@ one or outside the repository. Phases, any failure of which ends the run:
    parameters move; it prints ms per step of both, peak memory, and one
    profiled packed step's device time, idle share, top kernels and the
    shares of the packed kernels, of K6 and of K1 forward. (9b, last) the
-   profiler's device time per launch of K5-wgrad at its two sites, beside
-   its bound and the parent's figure.
+   profiler's device time per launch of K5-wgrad and of pw-wgrad (and its
+   sum) at their two sites, beside the bound and the parent's figure.
 10. Unidirectional (after phase 9): the preset with both DualPathRNNs'
    ``bidirectional`` false (``UNI_OVERRIDES``, applied by
    ``utils/parser.parse_overrides`` as the entries apply them), the path of
@@ -613,6 +615,8 @@ PARENT_FIGURES = {
                         "~106 us",
     "dw_conv_packed_wgrad": "3.2912 ms a packed bs-4 step by events, 16 "
                             "launches (~206 us a launch)",
+    "pw_packed_wgrad": "2.2718 ms a packed bs-4 step by events, 8 launches "
+                       "(~284 us a launch); SIMT float32",
     "sru_recurrence": "2.4664 ms a uni bs-8 forward by events, 32 launches;"
                       " ~70 us a launch of device time in a uni bs-4 step",
 }
@@ -621,7 +625,9 @@ PARENT_FIGURES = {
 def profile_redesigned(conf, geo, rng) -> None:
     """Phases 9b and 10e, last: the profiler's device microseconds per
     launch of K5-wgrad (``dw_wgrad_kernel`` and its ``sum_partials_kernel``)
-    at its two bs-4 sites and of K4 forward (``sru_rec_fwd_kernel``) at the
+    and of pw-wgrad (``pw_wgrad_kernel`` and its sum) at their two bs-4
+    sites, pw-wgrad's beside its 3xTF32 bound (bytes) and the SIMT-f32 one,
+    and of K4 forward (``sru_rec_fwd_kernel``) at the
     uni bs-8 serving sites and the bs-4 training sites (with c), beside
     the bound of the call and the parent's figure; after every timed
     phase, as 7b."""
@@ -657,6 +663,28 @@ def profile_redesigned(conf, geo, rng) -> None:
               f"; grid {wg['grid']} of {wg['threads']} threads, "
               f"{wg['smem']} bytes of shared memory; parent: "
               f"{PARENT_FIGURES['dw_conv_packed_wgrad']}")
+    Cb, r = g["Cb"], conf["audionet"]["audio_params"]["repeats"]
+    m = bs * T * Fq
+    nbytes, nops = 4 * (m * (Cb + C) + Cb * C), 2 * m * Cb * C
+    b_ms, b_by = tf32x3_bound_ms(nbytes, nops, nops)
+    f32_ms, _ = bound_ms(nbytes, nops)
+    pg = P.pw_wgrad_geometry(bs, T * Fq, Cb, C)
+    step_us = 0.0
+    for site, a, gg in (("K6 dW", t((bs, Cb, T, Fq)), xp),
+                        ("K7 dW", xp, t((bs, Cb, T, Fq)))):
+        fn = functools.partial(P.pw_packed_wgrad, a, gg)
+        us = _device_us(fn, "pw_wgrad_kernel")
+        sum_us = _device_us(fn, "sum_partials_kernel")
+        step_us += r * (us + sum_us)
+        print(f"kernel pw_packed_wgrad bs={bs} site={site}: device_us="
+              f"{us:.3f} + sum {sum_us:.3f}, bound_us={b_ms * 1e3:.3f} "
+              f"({b_by}, 3xTF32; SIMT-f32 {f32_ms * 1e3:.3f}), share of the "
+              f"bound {b_ms * 1e3 / (us + sum_us):.3f}; grid {pg['grid']} of "
+              f"{pg['threads']} threads, {pg['smem']} bytes of shared "
+              f"memory; parent: {PARENT_FIGURES['pw_packed_wgrad']}")
+    print(f"kernel pw_packed_wgrad per packed bs-{bs} step ({2 * r} "
+          f"launches): device {step_us / 1e3:.4f} ms, bound "
+          f"{2 * r * b_ms:.4f} ms (3xTF32), SIMT-f32 {2 * r * f32_ms:.4f}")
     H = geo["H"]
     vb = torch.cat([t((2, H), math.sqrt(1.0 / H)), t((2, H), 0.1)])
     for bs, with_c in ((8, False), (TRAIN_BATCH, True)):
@@ -1563,7 +1591,7 @@ def profile_step(system, batch, generator, label: str,
 PACKED_KERNEL_NAMES = ("dw_conv_packed_kernel", "pw_proj_kernel",
                        "pw_unproj_kernel",
                        "spatial_down_kernel", "spatial_up_kernel",
-                       "dw_wgrad_kernel", "pw_wgrad_partial_kernel",
+                       "dw_wgrad_kernel", "pw_wgrad_kernel",
                        "sum_partials_kernel")
 
 # the device kernels of the main path whose share phase 6 prints, as the
@@ -1654,10 +1682,11 @@ def train(conf, expect, label="training", also=None) -> tuple:
 def check_packed_wgrad_kernels(conf, rng) -> dict:
     """Phase 9, first: K5-wgrad and pw-wgrad against their plain versions
     at the packed training shapes (batch 4), each called twice (the two dW
-    must be bit-identical), timed with CUDA events beside its bound, its
-    plain version and one PyTorch call; returns per kernel the max relative
-    error and per-train-step sums of kernel, plain, bound and library
-    times."""
+    must be bit-identical), timed with CUDA events beside its bound (for
+    pw-wgrad, whose product runs in 3xTF32 on the tensor cores, that
+    route's, the SIMT-f32 one printed beside it), its plain version and
+    one PyTorch call; returns per kernel the max relative error and
+    per-train-step sums of kernel, plain, bound and library times."""
     import torch.nn.functional as Fn
 
     from rtfs_tpu_torch.ops import packed_tf as P
@@ -1693,7 +1722,7 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
             groups=C)[:, 0].permute(1, 2, 0)
 
     # (kernel, site, launches per step, kernel call, plain call, bytes,
-    #  flops, library call)
+    #  flops, library call); pw-wgrad's flops are all 3xTF32 products
     cases = [
         ("dw_conv_packed_wgrad", "same", 3 * r,
          lambda: P.dw_conv_packed_wgrad(xp, g_same, Fq, C, (k, k), same,
@@ -1722,6 +1751,7 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
     res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
            for name in ("dw_conv_packed_wgrad", "pw_packed_wgrad")}
+    simt_ms = 0.0  # pw-wgrad's SIMT-f32 bound a step, only printed
     for name, site, n, kern, plain, nbytes, nops, lib in cases:
         got, again, want, lib_out = kern(), kern(), plain(), lib()
         torch.cuda.synchronize()
@@ -1732,12 +1762,18 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
         plain_ms = time_cuda(plain, 3, warmup=1)
         lib_ms = time_cuda(lib, 50)
         b_ms, b_by = bound_ms(nbytes, nops)
+        route = ""
+        if name == "pw_packed_wgrad":
+            f32_ms = b_ms
+            simt_ms += n * f32_ms
+            b_ms, b_by = tf32x3_bound_ms(nbytes, nops, nops)
+            route = f", 3xTF32; SIMT-f32 bound_ms={f32_ms:.5f}"
         print(f"kernel {name} bs={bs} site={site}: max_abs_err={err:.3e} "
               f"max|dW|={scale:.3e} (tol {PACKED_WGRAD_REL_TOL:.0e} * max|dW|)"
               f"; library vs plain {lib_err:.3e}; two calls bit-identical "
               f"{torch.equal(got, again)}; ms={ms:.5f} plain_ms="
               f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}, {nbytes} B, "
-              f"{nops} flop) library_ms={lib_ms:.5f}")
+              f"{nops} flop{route}) library_ms={lib_ms:.5f}")
         if not max(err, lib_err) <= PACKED_WGRAD_REL_TOL * scale:
             raise AssertionError(f"{name} ({site}) disagrees with its plain "
                                  f"version or the library: {err:.3e}, "
@@ -1751,6 +1787,13 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
         e["bound_ms"] += n * b_ms
         e["library_ms"] += n * lib_ms
         e["bound_by"] = b_by
+    for name, e in res.items():
+        route = ("" if name != "pw_packed_wgrad" else
+                 f", 3xTF32; SIMT-f32 bound_ms={simt_ms:.4f}")
+        print(f"kernel {name} per packed bs-{bs} step: ms={e['ms']:.4f} "
+              f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}{route}) "
+              f"plain_ms={e['plain_ms']:.2f} library_ms="
+              f"{e['library_ms']:.4f}")
     return res
 
 
@@ -2358,8 +2401,8 @@ def main() -> int:
                                         conf_uni, geo, rng)
     phase("wide", wide, geo, rng)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
-    phase("9b, 10e K5-wgrad, K4 forward device time", profile_redesigned,
-          conf, geo, rng)
+    phase("9b, 10e K5-wgrad, pw-wgrad, K4 forward device time",
+          profile_redesigned, conf, geo, rng)
     phase("7c K5, K7 device time", profile_k5_k7, conf, rng)
 
     sources = {

@@ -146,12 +146,39 @@
 //     over the B*T*F positions, one side channel-planar (B, C, M) and the
 //     other channel-innermost (B, M, C): K6's dW reads the rank-4 x and the
 //     packed g, K7's the packed x and the rank-4 g. Bound on the H100:
-//     float32 operations (2*Ca*Cb flops per (Ca+Cb)*4 bytes). Design: K7's
-//     tiled product turned over: a block owns a 64 x 64 tile of dW and 1024
-//     positions of a batch row, stages 32-position slices of both sides in
-//     shared memory (loads in each side's contiguous order) and keeps a 4 x 4
-//     register tile a thread; it writes its tile's partial, and the same
-//     fixed-order second kernel sums the partials.
+//     bytes in 3xTF32 (2*Ca*Cb flops per (Ca+Cb)*4 bytes, ~26 a byte at
+//     256 x 64; SIMT float32 would bind by operations). A split-K product:
+//     a tiny dW and a reduction over B*M positions (129,516 at bs 4). The
+//     TPU carries one accumulator through its grid; here each block sums a
+//     chunk of one batch row's positions into one partial of dW and the
+//     fixed-order sum_partials_kernel adds the partials: no float atomics,
+//     two runs give bit-identical dW. Design (pw_wgrad_kernel): one wave of
+//     blocks, each owning a chunk of positions and a tile of kPwRows planar
+//     x kPwCols packed channels, at the presets' 256 x 64 two tiles, so the
+//     64-channel side is read twice (the two blocks of a chunk run at once,
+//     the second read mostly from L2) and the 256-channel side once. Both
+//     sides stream through a cp.async ring of kPwK-position stages in
+//     16-byte copies: a packed position's channels are contiguous; a planar
+//     row's positions start anywhere in a 16-byte block (M = 251 * 129 is
+//     odd), so each row lands shifted by its start's offset in its block,
+//     its middle blocks copied whole and its two ends element by element
+//     (zero past the chunk). The product runs on the tensor cores in 3xTF32
+//     with the big products summed apart (hk::mma3_apart): planar channels
+//     are the m16 rows, positions the k8 depth, packed channels the n8
+//     columns. A planar row's shift depends on its channel mod 4, so a
+//     block stages its rows grouped by channel mod 4 and each m16 tile
+//     takes 16 channels of one class: one shift a tile, and the A fragment
+//     reads of a warp hit 32 banks. The big products are added to a float32
+//     sum every kPwFlush stages, and the cross terms once at the end.
+//     Registers choose the tile: big, cross terms and sum of a 128 x 64 tile
+//     fit a thread's registers (~160-180 of 255 at 256 threads); for all
+//     256 x 64 of dW a block (each side read once) they do not (128 at 512
+//     threads: spills), so that tile keeps its sum in shared memory
+//     (kPwSharedSum), which with 3 stages leaves no room for 64-position
+//     stages and L1; measured (tools/kernel_variants.py pw_wgrad, PERF.md)
+//     it ran ~10% slower. The first design (SIMT float32 64 x 64 tiles,
+//     the 64-channel side read once per 64 rows of the other, plain loads,
+//     no overlap) took ~280 us a bs-4 launch, this one ~115.
 
 #include <cuda_runtime.h>
 
@@ -160,7 +187,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 64, kBN = 64;  // pw-wgrad's tile of dW
 // K5 (ops/packed_tf.py mirrors them): channel quads a block (64
 // channels), threads a block at most, input rows in flight ahead of the
 // row a step takes
@@ -203,8 +229,27 @@ constexpr int kK9Items = 4;   // K9: chunks a thread loads at once
 constexpr int kWgThreads = 256;
 constexpr int kWgMaxThreads = 1024;
 constexpr int kWgTaps = 4;
-constexpr int kPwPos = 1024;   // pw-wgrad positions per block
-constexpr int kPwK = 32;       // pw-wgrad positions per staged slice
+// pw-wgrad (ops/packed_tf.py mirrors them): a block's tile of dW is
+// kPwRows planar x kPwCols packed channels, kPwThreads threads as
+// (kPwRows / 32) x 2 warps of 32 x 32; kPwK positions a stage in a ring of
+// kPwStages; the float32 sum in shared memory where kPwSharedSum (else in
+// registers), the big products added to it every kPwFlush stages;
+// kPwRowThreads threads copy a planar row. Staged planar rows of kPwPS
+// floats (a row's kPwK positions, its shift of 0-3; 4 mod 32 banks),
+// packed positions of kPwQS (8 mod 32: the q x g lanes of a B fragment
+// read hit 32 banks), output tile rows of kPwOS (2 mod 8: the float2 sums
+// of a half warp hit 32 banks)
+constexpr int kPwRows = 128;
+constexpr int kPwCols = 64;
+constexpr int kPwK = 64;
+constexpr int kPwStages = 3;
+constexpr int kPwSharedSum = 0;
+constexpr int kPwFlush = 1;
+constexpr int kPwRowThreads = 1;
+constexpr int kPwThreads = 2 * kPwRows;
+constexpr int kPwPS = kPwK + 4;
+constexpr int kPwQS = kPwCols + 8;
+constexpr int kPwOS = kPwCols + 2;
 constexpr long long kMaxSmem = 227 * 1024;
 
 // a chunk of 4 floats at p: one 16-byte access where vec (every chunk of
@@ -1274,75 +1319,273 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
   hk::cp_async_wait_all();
 }
 
-// grid (ceil(M / kPwPos), ceil(Ca / 64) * ceil(Cb / 64), B), 256 threads.
-// kAPlanar (K6's dW): a (B, Ca, M), g (B, M, Cb); otherwise (K7's): a
-// (B, M, Ca), g (B, Cb, M). partial (B * gridDim.x, Ca, Cb).
-template <bool kAPlanar>
-__global__ void __launch_bounds__(kThreads)
-pw_wgrad_partial_kernel(const float* __restrict__ a,
-                        const float* __restrict__ g,
-                        float* __restrict__ partial, int M, int Ca, int Cb) {
-  __shared__ float a_s[kPwK][kBM + 1];
-  __shared__ float g_s[kPwK][kBN + 1];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int tiles_b = (Cb + kBN - 1) / kBN;
-  const int ca0 = (blockIdx.y / tiles_b) * kBM;
-  const int cb0 = (blockIdx.y % tiles_b) * kBN;
-  const int p_begin = blockIdx.x * kPwPos;
-  const int p_end = min(M, p_begin + kPwPos);
-  const float* ab = a + (long long)blockIdx.z * M * Ca;
-  const float* gb = g + (long long)blockIdx.z * M * Cb;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// pw-wgrad's shared floats: the ring of kPwStages stages of kPwRows
+// planar rows and kPwK packed positions, and the (kPwRows, kPwOS) output
+// tile, which holds the sum where kPwSharedSum and reuses the ring
+// otherwise (ops/packed_tf.pw_wgrad_smem)
+__host__ __device__ __forceinline__ int pw_wgrad_smem_floats() {
+  const int ring = kPwStages * (kPwRows * kPwPS + kPwK * kPwQS);
+  const int tile = kPwRows * kPwOS;
+  return kPwSharedSum ? ring + tile : (ring > tile ? ring : tile);
+}
 
-  for (int p0 = p_begin; p0 < p_end; p0 += kPwK) {
-    // the planar side loads positions fastest, the innermost side channels
-    for (int e = tid; e < kPwK * kBM; e += kThreads) {
-      const int pp = kAPlanar ? e % kPwK : e / kBM;
-      const int cc = kAPlanar ? e / kPwK : e % kBM;
-      const int p = p0 + pp, ch = ca0 + cc;
-      float v = 0.f;
-      if (p < p_end && ch < Ca)
-        v = kAPlanar ? ab[(long long)ch * M + p] : ab[(long long)p * Ca + ch];
-      a_s[pp][cc] = v;
+// The staged row of a tile's planar channel r (0 <= r < kPwRows): a block
+// of 64 channels holds its 16 channels of class r % 4 in 16 consecutive
+// rows, so the m16 tile t takes the channels 64 (t / 4) + 4 i + t % 4,
+// i < 16, one class, whose rows start at one offset in their 16-byte blocks
+__host__ __device__ __forceinline__ int pw_staged_row(int r) {
+  return (r & ~63) | ((r & 3) << 4) | ((r & 63) >> 2);
+}
+
+// grid (chunks, tiles_p * tiles_q, B), kPwThreads threads, one block an
+// SM. p (B, Cp, M) channel-planar, q (B, M, Cq) channel-innermost;
+// partial (B * chunks, Cp * Cq), each row dW (Cp, Cq) of one chunk, or
+// its transpose (Cq, Cp) where transposed (K7's dW: Ca is the packed
+// side); vec: Cq % 4 == 0 and q 16-byte aligned. Block (x, y, b) sums the
+// positions [x L, min(M, (x + 1) L)) of batch row b (L a multiple of kPwK)
+// into tile y = (planar tile, packed tile) of partial row b chunks + x.
+//
+// Its stages (kPwK positions each, the last ragged) run through a ring of
+// kPwStages slots: iteration s waits for stage s, issues stage s +
+// kPwStages - 1 into the slot iteration s - 1 read, then multiplies stage
+// s. A planar channel's staged row holds its kPwK positions from column
+// sh, sh its first position's offset in a 16-byte block of p, the same
+// for every stage (L and kPwK are multiples of 4) and for channels 4
+// apart (4 M is a multiple of 4): kPwRowThreads (R) threads copy a row,
+// thread R r + k its blocks k, k + R, .. (R 1: a warp copies a block of 32
+// rows at once, faster than 2-8 threads a row, PERF.md), the whole ones
+// as one 16-byte copy, the two that reach past the stage's window element
+// by element, positions past the chunk as zeros. Positions past the chunk
+// are zeros on the packed side too, so they add nothing; channels past Cp
+// or Cq are not copied and only reach outputs that are not written.
+//
+// Warp (wm, wn) multiplies m16 tiles 2 wm, 2 wm + 1 (32 planar channels)
+// by n8 tiles 4 wn .. 4 wn + 3 (32 packed channels) in 3xTF32, the big
+// products apart, and adds them to the float32 sum every kPwFlush stages
+// and at the last; each output is summed by one lane in one fixed order.
+// The sum plus the cross terms goes through the output tile in shared
+// memory (rows in channel order; it reuses the ring where the sum lives in
+// registers) to the partial, a row of 64 packed channels, or of the
+// planar channels where transposed, at a time.
+__global__ void __launch_bounds__(kPwThreads, 1)
+pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                float* __restrict__ partial, int M, int Cp, int Cq, int L,
+                int transposed, int vec) {
+  constexpr int kPStage = kPwRows * kPwPS;
+  constexpr int kStage = kPStage + kPwK * kPwQS;
+  constexpr int kBlocks = kPwK / 4 + 1;  // 16-byte blocks a planar row
+  constexpr int kWarpsM = kPwRows / 32;
+  static_assert(kPwK % 32 == 0 && kPwRows % 64 == 0 && kPwCols == 64,
+                "the bank layouts and the warp grid");
+  static_assert(kPwThreads == kWarpsM * 2 * 32, "a warp a 32 x 32 tile");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* o_s = kPwSharedSum ? ring + kPwStages * kStage : ring;
+  const int tid = threadIdx.x, b = blockIdx.z;
+  const int tiles_q = (Cq + kPwCols - 1) / kPwCols;
+  const int cp0 = (int)blockIdx.y / tiles_q * kPwRows;
+  const int cq0 = (int)blockIdx.y % tiles_q * kPwCols;
+  const int p_begin = (int)blockIdx.x * L;
+  const int p_end = min(M, p_begin + L);
+  const int ns = (p_end - p_begin + kPwK - 1) / kPwK;
+  // the offset of a planar row of class c in its 16-byte blocks: p's
+  // float index mod 4 with the row's start and the chunk's first position
+  const uint32_t p4 = (uint32_t)(reinterpret_cast<uintptr_t>(p) >> 2);
+  auto shift = [&](int c) {
+    return (int)((p4 + ((uint32_t)b * (uint32_t)Cp + (uint32_t)(cp0 + c)) *
+                           (uint32_t)M +
+                  (uint32_t)p_begin) &
+                 3u);
+  };
+
+  // the thread's planar copies: kPwRowThreads threads a channel row,
+  // kRowsPass rows a pass: channels cp0 + cr + pass kRowsPass (one
+  // class), blocks jk, jk + kPwRowThreads, ..
+  constexpr int kRowsPass = kPwThreads / kPwRowThreads;
+  static_assert(kRowsPass % 4 == 0, "a thread's rows share a class");
+  const int cr = tid / kPwRowThreads, jk = tid % kPwRowThreads;
+  const int c_sh = shift(cr & 3);
+  const float* c_row = p + ((long long)b * Cp + cp0 + cr) * M;
+  auto load_stage = [&](int s, int slot) {
+    if (s < ns) {
+      const int p0 = p_begin + s * kPwK, avail = p_end - p0;
+      float* ps = ring + slot * kStage;
+      float* qs = ps + kPStage;
+#pragma unroll
+      for (int pass = 0; pass < (kPwRows + kRowsPass - 1) / kRowsPass;
+           ++pass) {
+        const int r = cr + pass * kRowsPass;
+        if (r >= kPwRows || cp0 + r >= Cp) break;
+        float* dst = ps + pw_staged_row(r) * kPwPS;
+        // block j at src + 4 j
+        const float* src = c_row + (long long)pass * kRowsPass * M + p0 - c_sh;
+#pragma unroll
+        for (int jj = 0; jj < (kBlocks + kPwRowThreads - 1) / kPwRowThreads;
+             ++jj) {
+          const int j = jk + kPwRowThreads * jj;
+          const int lo = 4 * j - c_sh;  // its first position - p0
+          if (j >= kBlocks || lo + 4 <= 0 || lo >= kPwK) continue;
+          if (lo >= 0 && lo + 4 <= kPwK && lo + 4 <= avail) {
+            hk::cp_async16(dst + 4 * j, src + 4 * j, true);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (lo + e < 0 || lo + e >= kPwK) continue;
+              const bool ok = lo + e < avail;
+              hk::cp_async4(dst + 4 * j + e, ok ? src + 4 * j + e : p, ok);
+            }
+          }
+        }
+      }
+      // the packed positions p0 .., 16-byte chunks of kPwCols channels
+      for (int e = tid; e < kPwK * kPwCols / 4; e += kPwThreads) {
+        const int pp = e / (kPwCols / 4), c = 4 * (e % (kPwCols / 4));
+        float* d = qs + pp * kPwQS + c;
+        const bool in = pp < avail;
+        const float* src = q + ((long long)b * M + p0 + pp) * Cq + cq0 + c;
+        if (vec) {
+          const bool ok = in && cq0 + c < Cq;
+          hk::cp_async16(d, ok ? src : q, ok);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const bool ok = in && cq0 + c + k < Cq;
+            hk::cp_async4(d + k, ok ? src + k : q, ok);
+          }
+        }
+      }
     }
-    for (int e = tid; e < kPwK * kBN; e += kThreads) {
-      const int pp = kAPlanar ? e / kBN : e % kPwK;
-      const int cc = kAPlanar ? e % kBN : e / kPwK;
-      const int p = p0 + pp, ch = cb0 + cc;
-      float v = 0.f;
-      if (p < p_end && ch < Cb)
-        v = kAPlanar ? gb[(long long)p * Cb + ch] : gb[(long long)ch * M + p];
-      g_s[pp][cc] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int pp = 0; pp < kPwK; ++pp) {
-      float av[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[pp][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = g_s[pp][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
-    }
-    __syncthreads();
+    hk::cp_async_commit();
+  };
+  for (int s = 0; s < kPwStages - 1; ++s) load_stage(s, s);
+
+  if (kPwSharedSum) {
+    // the sum starts at 0; the first flush comes after the loop's barrier
+    for (int e = tid; e < kPwRows * kPwOS; e += kPwThreads) o_s[e] = 0.f;
   }
-  float* pb =
-      partial + ((long long)blockIdx.z * gridDim.x + blockIdx.x) * Ca * Cb;
+
+  // the lane's A fragment elements: staged rows 16 t + g (+ 8), columns
+  // q (+ 4) of its tile's class shift; B fragment elements: packed
+  // positions q (+ 4), channels 32 wn + 8 nj + g
+  const int warp = tid >> 5, wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int g = hk::lane_g(), qq = hk::lane_q();
+  int a_off[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ca = ca0 + ty + 16 * i;
-    if (ca >= Ca) continue;
+  for (int mi = 0; mi < 2; ++mi) {
+    const int t = 2 * wm + mi;
+    a_off[mi] = (16 * t + g) * kPwPS + shift(t & 3) + qq;
+  }
+  const int b_off = qq * kPwQS + 32 * wn + g;
+  // big: the big products since the last flush (on the tensor core);
+  // corr: the cross terms, on the tensor core throughout; acc: the
+  // float32 sum where it lives in registers
+  float big[2][4][4], corr[2][4][4], acc[2][4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cb = cb0 + tx + 16 * j;
-      if (cb < Cb) pb[(long long)ca * Cb + cb] = acc[i][j];
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        big[mi][nj][v] = corr[mi][nj][v] = acc[mi][nj][v] = 0.f;
+  // the lane's outputs in the output tile: D c0 (g, 2q), c1 (g, 2q + 1),
+  // c2 (g + 8, 2q), c3 (g + 8, 2q + 1) of m16 tile t, n8 tile nj are
+  // planar channel 64 (t / 4) + 4 g + t % 4 (+ 32), packed channel
+  // 32 wn + 8 nj + 2 q (+ 1)
+  auto out_at = [&](int mi, int nj) {
+    const int t = 2 * wm + mi;
+    return o_s + (64 * (t >> 2) + 4 * g + (t & 3)) * kPwOS + 32 * wn +
+           8 * nj + 2 * qq;
+  };
+  auto flush = [&]() {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        if (kPwSharedSum) {
+          float2* o = reinterpret_cast<float2*>(out_at(mi, nj));
+          float2* o8 = reinterpret_cast<float2*>(out_at(mi, nj) +
+                                                 32 * kPwOS);
+          float2 v = *o, v8 = *o8;
+          v.x += big[mi][nj][0];
+          v.y += big[mi][nj][1];
+          v8.x += big[mi][nj][2];
+          v8.y += big[mi][nj][3];
+          *o = v;
+          *o8 = v8;
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mi][nj][v] += big[mi][nj][v];
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) big[mi][nj][v] = 0.f;
+      }
+  };
+
+  int slot = 0, ld_slot = kPwStages - 1, since = 0;
+  for (int s = 0; s < ns; ++s) {
+    hk::cp_async_wait<kPwStages - 2>();
+    __syncthreads();  // stage s is in; every warp is done with stage s - 1
+    load_stage(s + kPwStages - 1, ld_slot);
+    if (++ld_slot == kPwStages) ld_slot = 0;
+    const float* ps = ring + slot * kStage;
+    const float* qs = ps + kPStage;
+#pragma unroll
+    for (int kk = 0; kk < kPwK; kk += 8) {
+      hk::FragA a[2];
+      hk::FragB bf[4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* pa = ps + a_off[mi] + kk;
+        hk::split(pa[0], a[mi].big[0], a[mi].small[0]);
+        hk::split(pa[8 * kPwPS], a[mi].big[1], a[mi].small[1]);
+        hk::split(pa[4], a[mi].big[2], a[mi].small[2]);
+        hk::split(pa[8 * kPwPS + 4], a[mi].big[3], a[mi].small[3]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const float* pb = qs + b_off + 8 * nj + kk * kPwQS;
+        hk::split(pb[0], bf[nj].big[0], bf[nj].small[0]);
+        hk::split(pb[4 * kPwQS], bf[nj].big[1], bf[nj].small[1]);
+      }
+      hk::mma3_apart(big, corr, a, bf);
+    }
+    if (++since == kPwFlush || s == ns - 1) {
+      flush();
+      since = 0;
+    }
+    if (++slot == kPwStages) slot = 0;
+  }
+  hk::cp_async_wait_all();
+  // the output tile: the sum (where it lives in registers, the tile
+  // reuses the ring: after every warp's last stage) plus the cross terms
+  if (!kPwSharedSum) __syncthreads();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      float* o[4] = {out_at(mi, nj), out_at(mi, nj) + 1,
+                     out_at(mi, nj) + 32 * kPwOS,
+                     out_at(mi, nj) + 32 * kPwOS + 1};
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        *o[v] = (kPwSharedSum ? *o[v] : acc[mi][nj][v]) + corr[mi][nj][v];
+    }
+  __syncthreads();
+  // the tile to its partial row, in the partial's order
+  float* part = partial + ((long long)b * gridDim.x + blockIdx.x) *
+                             ((long long)Cp * Cq);
+  const int rows = min(kPwRows, Cp - cp0), cols = min(kPwCols, Cq - cq0);
+  if (!transposed) {
+    for (int e = tid; e < kPwRows * kPwCols; e += kPwThreads) {
+      const int r = e / kPwCols, c = e % kPwCols;
+      if (r < rows && c < cols)
+        part[(long long)(cp0 + r) * Cq + cq0 + c] = o_s[r * kPwOS + c];
+    }
+  } else {
+    for (int e = tid; e < kPwRows * kPwCols; e += kPwThreads) {
+      const int c = e / kPwRows, r = e % kPwRows;
+      if (r < rows && c < cols)
+        part[(long long)(cq0 + c) * Cp + cp0 + r] = o_s[r * kPwOS + c];
     }
   }
 }
@@ -1595,25 +1838,34 @@ extern "C" int dw_conv_packed_wgrad(const void* x, const void* g,
 }
 
 // a_planar: a (B, Ca, M) rank-4 and g (B, M, Cb) packed (K6's dW), else a
-// (B, M, Ca) packed and g (B, Cb, M) rank-4 (K7's); out (Ca, Cb); partial
-// holds n_part = B * ceil(M / 1024) rows of Ca*Cb
+// (B, M, Ca) packed and g (B, Cb, M) rank-4 (K7's); out (Ca, Cb). L
+// positions a chunk of a batch row (a multiple of kPwK); partial holds
+// n_part = B * ceil(M / L) rows of Ca*Cb, one a (batch row, chunk)
+// (ops/packed_tf.pw_wgrad_geometry; the wrapper sizes it, and a grid of
+// another size is refused)
 extern "C" int pw_packed_wgrad(const void* a, const void* g, void* partial,
                                void* out, int B, int M, int Ca, int Cb,
-                               int a_planar, int n_part, void* stream) {
-  if (B < 1 || M < 1 || Ca < 1 || Cb < 1) return (int)cudaErrorInvalidValue;
-  const long long chunks = (M + kPwPos - 1) / kPwPos;
-  const long long tiles =
-      (long long)((Ca + kBM - 1) / kBM) * ((Cb + kBN - 1) / kBN);
+                               int a_planar, int L, int n_part,
+                               void* stream) {
+  if (B < 1 || M < 1 || Ca < 1 || Cb < 1 || L < 1 || L % kPwK)
+    return (int)cudaErrorInvalidValue;
+  const long long chunks = ((long long)M + L - 1) / L;
+  // the planar side is dW's rows, the packed side its columns
+  const int Cp = a_planar ? Ca : Cb, Cq = a_planar ? Cb : Ca;
+  const float* p = (const float*)(a_planar ? a : g);
+  const float* q = (const float*)(a_planar ? g : a);
+  const long long tiles = (long long)((Cp + kPwRows - 1) / kPwRows) *
+                          ((Cq + kPwCols - 1) / kPwCols);
   if (!grid_ok(tiles, B) || chunks * B != n_part)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)chunks, (unsigned)tiles, B);
-  if (a_planar)
-    pw_wgrad_partial_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)a, (const float*)g, (float*)partial, M, Ca, Cb);
-  else
-    pw_wgrad_partial_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)a, (const float*)g, (float*)partial, M, Ca, Cb);
-  const cudaError_t e = cudaGetLastError();
+  const size_t smem = (size_t)pw_wgrad_smem_floats() * sizeof(float);
+  cudaError_t e = allow_smem((const void*)pw_wgrad_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = Cq % 4 == 0 && aligned16(q);
+  pw_wgrad_kernel<<<dim3((unsigned)chunks, (unsigned)tiles, B), kPwThreads,
+                    smem, (cudaStream_t)stream>>>(
+      p, q, (float*)partial, M, Cp, Cq, L, !a_planar, vec);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_sum(partial, out, n_part, Ca * Cb, stream);
 }

@@ -57,7 +57,7 @@ _SIGNATURES = {
         "spatial_down_packed_fwd": (6, 8),
         "spatial_up_packed_fwd": (7, 9),
         "dw_conv_packed_wgrad": (4, 15),
-        "pw_packed_wgrad": (4, 6),
+        "pw_packed_wgrad": (4, 7),
     },
     "sru_pallas": {
         "sru_recurrence_fwd": (5, 6),

@@ -30,7 +30,9 @@ two weight-gradient kernels:
 - K5: dx is K5 on the cotangent with the taps flipped and complementary
   pads; dW is ``dw_conv_packed_wgrad`` (CUDA ``dw_conv_packed_wgrad``).
 - K6 / K7: dx of K6 is K7 with ``w.t()`` and dx of K7 is K6; dW of both
-  is ``pw_packed_wgrad`` (CUDA ``pw_packed_wgrad``).
+  is ``pw_packed_wgrad`` (CUDA ``pw_packed_wgrad``), a 3xTF32 tensor-core
+  product over chunks of positions, one partial a chunk
+  (``pw_wgrad_geometry``).
 - K8 / K9: each map's transpose (``SpatialMap.transposed``) is its VJP,
   so dx of K8 is K9 and dx of K9 is K8, one launch each.
 - Biases: a plain sum of the cotangent.
@@ -424,9 +426,78 @@ def pw_packed_wgrad_plain(a, g):
     return torch.einsum("btfi,botf->io", a.reshape(b, t, f, -1), g)
 
 
-# pw-wgrad's split, as csrc/packed_tf.cu launches it: a block per (1024
-# positions, batch row) writes one (Ca, Cb) partial
-PW_WGRAD_POSITIONS = 1024
+# pw-wgrad's kernel, ``kPw*`` in csrc/packed_tf.cu: a block's tile of dW
+# is PW_WGRAD_ROWS planar x PW_WGRAD_COLS packed channels, PW_WGRAD_THREADS
+# threads (warps of 32 x 32), one block an SM; PW_WGRAD_K positions a
+# stage in a ring of PW_WGRAD_STAGES; the float32 sum in shared memory
+# where PW_WGRAD_SHARED_SUM (else in registers), the big products added to
+# it every PW_WGRAD_FLUSH stages; PW_WGRAD_ROW_THREADS threads copy a
+# planar row; staged planar rows of PW_WGRAD_PS floats, packed positions
+# of PW_WGRAD_QS, output tile rows of PW_WGRAD_OS
+PW_WGRAD_ROWS, PW_WGRAD_COLS, PW_WGRAD_K = 128, 64, 64
+PW_WGRAD_STAGES = 3
+PW_WGRAD_SHARED_SUM = 0
+PW_WGRAD_FLUSH = 1
+PW_WGRAD_ROW_THREADS = 1
+PW_WGRAD_THREADS = 2 * PW_WGRAD_ROWS
+PW_WGRAD_PS = PW_WGRAD_K + 4
+PW_WGRAD_QS = PW_WGRAD_COLS + 8
+PW_WGRAD_OS = PW_WGRAD_COLS + 2
+
+
+def pw_wgrad_smem(rows: int = PW_WGRAD_ROWS, stages: int = PW_WGRAD_STAGES,
+                  shared_sum: int = PW_WGRAD_SHARED_SUM,
+                  k: int = PW_WGRAD_K) -> int:
+    """pw-wgrad's shared bytes (``pw_wgrad_smem_floats`` in the source):
+    the ring of ``stages`` stages of ``rows`` planar rows of k + 4 floats
+    and ``k`` packed positions of PW_WGRAD_QS, and the (rows, PW_WGRAD_OS)
+    output tile, beside the ring where it holds the sum (``shared_sum``),
+    in the ring's place otherwise."""
+    ring = stages * (rows * (k + 4) + k * PW_WGRAD_QS)
+    tile = rows * PW_WGRAD_OS
+    return 4 * (ring + tile if shared_sum else max(ring, tile))
+
+
+@functools.lru_cache(maxsize=None)
+def pw_wgrad_geometry(b: int, m: int, cp: int, cq: int,
+                      rows: int = PW_WGRAD_ROWS,
+                      k: int = PW_WGRAD_K) -> dict:
+    """pw-wgrad's launch, as ``pw_packed_wgrad`` runs it for a planar side
+    of ``cp`` channels and a packed side of ``cq`` (dW's rows and columns,
+    K6's layout) over ``b`` batch rows of ``m`` positions: ``tiles`` =
+    ``tiles_p`` x ``tiles_q`` tiles of ``rows`` x PW_WGRAD_COLS channels;
+    each batch row's positions in ``chunks`` chunks of ``chunk`` positions
+    (a multiple of ``k`` positions a stage; the last ragged), about one
+    wave of one block an SM over the ``grid`` (chunks, tiles, b);
+    ``parts`` = b chunks partials of dW, each written by the ``tiles``
+    blocks of one (batch row, chunk); ``stages`` a whole chunk's. ``rows``
+    and ``k`` are the kernel's constants, other values for
+    tools/kernel_variants.py. Raises ValueError on an empty side."""
+    if min(b, m, cp, cq) < 1:
+        raise ValueError(f"pw_packed_wgrad: B {b}, M {m}, channels {cp} x "
+                         f"{cq}")
+    tiles_p, tiles_q = -(-cp // rows), -(-cq // PW_WGRAD_COLS)
+    tiles = tiles_p * tiles_q
+    per_row = max(1, kernel_lib.SMS // (tiles * b))
+    chunk = -(-(-(-m // per_row)) // k) * k
+    chunks = -(-m // chunk)
+    return {"tiles_p": tiles_p, "tiles_q": tiles_q, "tiles": tiles,
+            "chunk": chunk, "chunks": chunks, "stages": chunk // k,
+            "grid": (chunks, tiles, b), "parts": b * chunks,
+            "threads": 2 * rows, "smem": pw_wgrad_smem(rows, k=k)}
+
+
+def pw_wgrad_launch_ints(a, g) -> tuple:
+    """The ints of pw-wgrad's launch on (a, g) as ``pw_packed_wgrad`` takes
+    them: B, M, Ca, Cb, whether a is the planar side, then
+    ``pw_wgrad_geometry``'s chunk and parts."""
+    a_planar = a.dim() == 4
+    four, packed = (a, g) if a_planar else (g, a)
+    b, cp, t, f = four.shape
+    cq = packed.shape[2] // f
+    geo = pw_wgrad_geometry(b, t * f, cp, cq)
+    ca, cb = (cp, cq) if a_planar else (cq, cp)
+    return (b, t * f, ca, cb, int(a_planar), geo["chunk"], geo["parts"])
 
 
 def pw_packed_wgrad(a, g):
@@ -442,16 +513,13 @@ def pw_packed_wgrad(a, g):
     if a.device.type == "cpu":
         return pw_packed_wgrad_plain(a, g)
     kernel_lib.check_cuda_f32("pw_packed_wgrad", a, g)
-    cp = packed.shape[2] // f
-    ca, cb = (c4, cp) if a_planar else (cp, c4)
-    m = t * f
-    n_part = b * -(-m // PW_WGRAD_POSITIONS)
-    partial = torch.empty(n_part, ca * cb, device=a.device)
+    ints = pw_wgrad_launch_ints(a, g)
+    ca, cb = ints[2:4]
+    partial = torch.empty(ints[-1], ca * cb, device=a.device)
     out = torch.empty(ca, cb, device=a.device)
     kernel_lib.launch(
         "packed_tf", "pw_packed_wgrad", a.device, a.data_ptr(), g.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), b, m, ca, cb, int(a_planar),
-        n_part)
+        partial.data_ptr(), out.data_ptr(), *ints)
     return out
 
 

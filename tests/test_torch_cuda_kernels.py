@@ -663,6 +663,59 @@ def test_pw_wgrad_matches_plain_and_repeats_exactly(dev, shape):
         assert torch.equal(got, P.pw_packed_wgrad(a, g))
 
 
+# pw-wgrad (B, T, F, packed channels, planar channels): the bs-4 training
+# shape; channels off every tile (48 x 200 both ways, 512 x 64 both ways:
+# two planar tiles, or eight packed ones); B 1 at an odd M below one stage
+# of positions; M a multiple of 4 with B 3
+PW_WGRAD_SHAPES = {"bs4-train": (4, 251, 129, 64, 256),
+                   "c200-ci48": (2, 17, 19, 200, 48),
+                   "c48-ci200": (2, 17, 19, 48, 200),
+                   "c64-ci512": (2, 9, 13, 64, 512),
+                   "c512-ci64": (2, 9, 13, 512, 64),
+                   "b1-m21": (1, 3, 7, 64, 256),
+                   "b3-m96": (3, 8, 12, 64, 256)}
+
+
+@pytest.mark.parametrize("shape", sorted(PW_WGRAD_SHAPES))
+def test_pw_wgrad_shapes_match_plain_and_repeat_exactly(dev, shape):
+    """pw-wgrad (3xTF32 on the tensor cores, one partial a chunk of
+    positions) against its plain version, K6's dW (planar a, packed g) and
+    K7's (packed a, planar g), to 1e-4 of max|dW|; two calls give the same
+    bits."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PW_WGRAD_SHAPES[shape]
+    rng = np.random.default_rng(14)
+    for a, g in (((b, ci, t, f), (b, t, f * c)),   # K6's dW
+                 ((b, t, f * c), (b, ci, t, f))):  # K7's dW
+        a, g = _t(rng, a, dev), _t(rng, g, dev)
+        got = P.pw_packed_wgrad(a, g)
+        _close((got,), (P.pw_packed_wgrad_plain(a, g),), rel=1e-4)
+        assert torch.equal(got, P.pw_packed_wgrad(a, g))
+
+
+def test_pw_wgrad_does_not_drift_on_positive_sums(dev):
+    """All-positive a and g at the bs-4 training shape, both layouts: every
+    product adds to the sum, so a bias toward zero adds up. Held against
+    float64 to 1e-4 of max|dW|: a sum kept in the tensor core's accumulator,
+    which rounds toward zero, over a batch row's 32,379 positions drifts
+    ~1.8e-4 of the result and over all 129,516 ~7e-4 (emulated in
+    tests/test_torch_pw_wgrad_geometry.py); the kernel adds its big
+    products to a float32 sum every few stages. Two calls give the same
+    bits."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PW_WGRAD_SHAPES["bs4-train"]
+    rng = np.random.default_rng(15)
+    for a, g in (((b, ci, t, f), (b, t, f * c)),
+                 ((b, t, f * c), (b, ci, t, f))):
+        a, g = _t(rng, a, dev).abs(), _t(rng, g, dev).abs()
+        got = P.pw_packed_wgrad(a, g)
+        want = P.pw_packed_wgrad_plain(a.double(), g.double())
+        _close((got.double(),), (want,), rel=1e-4)
+        assert torch.equal(got, P.pw_packed_wgrad(a, g))
+
+
 def test_packed_tdanet_block_gradients_card_match_cpu(dev):
     """A packed TDANet block's backward on the card (K5-K9 as dx, the two
     wgrad kernels) against the same block's on the CPU (plain versions):

@@ -14,17 +14,32 @@ shape it, given as ``A:B:..`` in the order of its row of ``KERNELS``:
   of ``kUnprojM`` positions, ring of ``kUnprojStages`` and
   ``kUnprojBlocks`` blocks an SM; the forward at bs 1 and 8 (the layer's
   strided w, a bias) and K6's dx at bs 4 (w^T of K6's weight, no bias),
-  STFT 251 x 129, 64 -> 256 channels, held to the plain version (1e-4).
+  STFT 251 x 129, 64 -> 256 channels, held to the plain version (1e-4);
+- ``pw_wgrad``: pw-wgrad (``pw_wgrad_kernel`` in ``csrc/packed_tf.cu``),
+  its tile of ``kPwRows`` planar channels (256: all of dW at the preset,
+  each operand read once; 128 or 64: the 64-channel side read twice or
+  four times), whether the float32 sum lives in shared memory
+  (``kPwSharedSum`` 1) or in registers (0), its ring of ``kPwStages``,
+  the stages a flush of the big products ``kPwFlush``, the positions a
+  stage ``kPwK`` and the threads that copy a planar row
+  ``kPwRowThreads``; K6's and K7's dW at bs 4 (256 x 64 channels over 4 x
+  251 x 129 positions), held to the plain version (1e-4 of max|dW|), with
+  the sum of the partials, beside the bytes bound.
 
-Each variant is built from a copy of ``csrc/`` with the constants
-replaced, into ``rtfs_tpu_torch/_build/variants/`` (every nvcc at once),
-then runs in a process of its own (loaded into one process beside the
-library built from the same source, a variant's outputs came out wrong):
-checked, then timed with CUDA events, the variants in turns and then in
-reverse order. Usage::
+A pw_wgrad variant may also take a part of the kernel out, ``A:B:..+nomma``
+(no products) or ``+nocopy`` (no copies), to time the rest (``PARTS``;
+such a variant is not held to the plain version). Each variant is built
+from a copy of ``csrc/`` with the constants replaced, into
+``rtfs_tpu_torch/_build/variants/`` (every nvcc at once), then runs in a
+process of its own (loaded into one process beside the library built
+from the same source, a variant's outputs came out wrong): checked, then
+timed with CUDA events, the variants in turns and then in reverse order.
+Usage::
 
     python3 tools/kernel_variants.py scan [--variants 8:1 8:2 12:2]
     python3 tools/kernel_variants.py unproj [--variants 128:3:1 64:3:2]
+    python3 tools/kernel_variants.py pw_wgrad [--variants 128:0:3:1:64:1
+        256:1:3:2:32:1 128:0:3:1:64:1+nomma]
 """
 
 from __future__ import annotations
@@ -147,6 +162,40 @@ def unproj_sites(libs, values) -> dict:
     return out
 
 
+def pw_wgrad_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of pw-wgrad: K6's dW (x4 planar,
+    g packed) and K7's (xp packed, g planar) at bs 4; its chunks from the
+    variant's tile."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    rows, _, _, _, k, _ = values
+    T, F, C, CB, bs = 251, 129, 64, 256, 4
+    m = T * F
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    geo = P.pw_wgrad_geometry(bs, m, CB, C, rows=rows, k=k)
+    part = torch.empty(geo["parts"], CB * C, device="cuda")
+    bound = 4 * bs * m * (CB + C) / HBM_BYTES_PER_S * 1e6
+    out = {}
+    for site, planar in {"bs4 K6 dW": True, "bs4 K7 dW": False}.items():
+        four, packed = _t(rng, (bs, CB, T, F)), _t(rng, (bs, T, F * C))
+        a, g = (four, packed) if planar else (packed, four)
+        o = torch.empty(CB, C, device="cuda") if planar else \
+            torch.empty(C, CB, device="cuda")
+        ca, cb = o.shape
+
+        def call(a=a, g=g, o=o, ca=ca, cb=cb, planar=planar):
+            st = libs["packed_tf"].pw_packed_wgrad(
+                a.data_ptr(), g.data_ptr(), part.data_ptr(), o.data_ptr(),
+                bs, m, ca, cb, int(planar), geo["chunk"], geo["parts"],
+                stream)
+            assert st == 0, st
+
+        out[site] = (call, lambda s=site, a=a, g=g, o=o: _held(
+            s, (o,), (P.pw_packed_wgrad_plain(a, g),), 1e-4), bound)
+    return out
+
+
 # kernel: (source whose constants change, constants, libraries built from
 # the copy, a part of the kernel's name in ptxas' report, the sites,
 # default variants)
@@ -158,16 +207,43 @@ KERNELS = {
                                 "kUnprojBlocks"),
                ("packed_tf",), "pw_unproj", unproj_sites,
                ["128:3:1", "128:4:1", "64:3:2", "64:4:2", "32:4:4"]),
+    "pw_wgrad": ("packed_tf.cu", ("kPwRows", "kPwSharedSum", "kPwStages",
+                                  "kPwFlush", "kPwK", "kPwRowThreads"),
+                 ("packed_tf",), "pw_wgrad", pw_wgrad_sites,
+                 ["128:0:3:1:64:1", "128:0:2:1:64:1", "128:0:3:1:32:1",
+                  "128:0:3:1:64:2", "256:1:3:2:32:1", "256:1:3:4:32:1",
+                  "256:1:2:4:32:1", "256:1:3:2:32:2", "256:0:3:1:32:1",
+                  "128:0:3:1:64:1+nomma", "128:0:3:1:64:1+nocopy"]),
+}
+
+# parts a variant may take out (``A:B:..+part``), each a text patch of
+# the source that must find its anchor: its time is then that of the rest
+# (not held to the plain version)
+PARTS = {
+    "pw_wgrad": {
+        # the products: the fragment loads and splits go with them
+        "nomma": ("      hk::mma3_apart(big, corr, a, bf);\n", ""),
+        # the copies: the ring's commits, waits and barriers stay
+        "nocopy": ("  auto load_stage = [&](int s, int slot) {\n"
+                   "    if (s < ns) {",
+                   "  auto load_stage = [&](int s, int slot) {\n"
+                   "    if (false) {"),
+    },
 }
 
 
 def _root(kernel: str, v: str) -> str:
     return os.path.join(kernel_lib.BUILD_DIR, "variants", kernel,
-                        v.replace(":", "_"))
+                        v.replace(":", "_").replace("+", "-"))
+
+
+def _parts(kernel: str, v: str) -> list:
+    """The parts variant ``v`` takes out: its patches of the source."""
+    return [PARTS[kernel][p] for p in v.split("+")[1:]]
 
 
 def _values(kernel: str, v: str) -> tuple:
-    values = tuple(int(a) for a in v.split(":"))
+    values = tuple(int(a) for a in v.split("+")[0].split(":"))
     if len(values) != len(KERNELS[kernel][1]):
         raise ValueError(f"{kernel} variant {v}: give "
                          f"{':'.join(KERNELS[kernel][1])}")
@@ -189,6 +265,9 @@ def build(kernel: str, v: str) -> list:
         src, n = re.subn(rf"constexpr int {name} = \d+;",
                          f"constexpr int {name} = {value};", src)
         assert n == 1, name
+    for old, new in _parts(kernel, v):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
     out = []
@@ -236,7 +315,8 @@ def worker(kernel: str, v: str) -> None:
     for site, (call, check, bound_us) in sites.items():
         call()
         torch.cuda.synchronize()
-        check()
+        if not _parts(kernel, v):
+            check()
         res[site] = [event_ms(call), bound_us]
     print(json.dumps(res))
 
@@ -269,7 +349,8 @@ def main() -> int:
             for ln in log.splitlines():  # ptxas names the entry, then its use
                 if "Compiling entry function" in ln:
                     entry = ln
-                elif "registers" in ln and entry_part in entry:
+                elif ("registers" in ln or "spill" in ln) and \
+                        entry_part in entry:
                     print(f"variant {v} {os.path.basename(path)}: "
                           f"{ln.split(':', 1)[-1].strip()}")
     times = {v: [] for v in variants}
@@ -286,9 +367,11 @@ def main() -> int:
         for v in variants:
             us = " / ".join(f"{1e3 * run[site][0]:.2f}" for run in times[v])
             bound = times[v][0][site][1]
+            held = ("held to the plain version" if not _parts(
+                args.kernel, v) else "parts taken out, not held")
             print(f"{args.kernel} {consts}={v} {site}: us a launch {us}"
                   + ("" if bound is None else f" (bound {bound:.2f}, bytes)")
-                  + f"; held to the plain version; {card}")
+                  + f"; {held}; {card}")
     return 0
 
 

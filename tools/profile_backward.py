@@ -19,7 +19,10 @@ at its serving site (bs 1 and 8: STFT 251 x 129, bottleneck 256 -> 64,
 the layer's strided w and a bias), its K7-dx site (bs 4, contiguous w, no
 bias) and at a bottleneck of 512 (bs 1; a tree whose K6 refuses it prints
 the refusal), K5-wgrad ``dw_conv_packed_wgrad`` at its two bs-4 sites
-("same" and pre-select, 4 x 4 taps over 64 channels), K5
+("same" and pre-select, 4 x 4 taps over 64 channels), pw-wgrad
+``pw_packed_wgrad`` at its two bs-4 sites (K6's dW: x4 (4, 256, T, F)
+and the packed g; K7's: the packed x and g (4, 256, T, F)), with its sum
+apart, K5
 ``dw_conv_packed`` at its bs-4 training sites (the "same" forward with a
 bias, and its dx: the flipped taps, pads (2, 1), no bias) and K7
 ``pw_unproj_packed`` at its serving site (bs 1 and 8, 64 -> 256, the
@@ -143,8 +146,8 @@ def sru_backward(t, tree: str, card: str) -> None:
 
 
 def packed(t, sweep: bool) -> None:
-    """K6 and K5-wgrad at their sites (``--packed``), and K5-wgrad's
-    launch geometries (``--sweep``)."""
+    """K6, K5, K7, K5-wgrad and pw-wgrad at their sites (``--packed``),
+    and K5-wgrad's launch geometries (``--sweep``)."""
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.ops import packed_tf as P
 
@@ -210,6 +213,22 @@ def packed(t, sweep: bool) -> None:
         print(f"K5-wgrad bs=4 site={site}: device {us:.2f} us a call ({n:g} "
               f"launches, with the sum), events {event_ms(fn) * 1e3:.2f} "
               f"us, max abs err {err:.3e} of max|dW|")
+    # pw-wgrad at its two bs-4 sites: K6's dW (x4 rank-4, g packed) and
+    # K7's (xp packed, g rank-4), 4 calls a site a packed bs-4 step
+    x4, gq = t((4, CB_PK, T, F)), t((4, CB_PK, T, F))
+    for site, a, g in (("K6 dW", x4, xp), ("K7 dW", xp, gq)):
+        fn = lambda: P.pw_packed_wgrad(a, g)  # noqa: E731
+        got = fn()
+        want = P.pw_packed_wgrad_plain(a, g)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        us, n, _ = device_us(fn, ("pw_wgrad", "sum_partials"))
+        part, _, names = device_us(fn, ("pw_wgrad",))
+        print(f"pw-wgrad bs=4 site={site}: device {us:.2f} us a call ({n:g} "
+              f"launches: {', '.join(names)} {part:.2f} + sum "
+              f"{us - part:.2f}), {4 * us / 1e3:.4f} ms a packed bs-4 step "
+              f"(4 calls), events {event_ms(fn) * 1e3:.2f} us, max abs err "
+              f"{err:.3e} of max|dW|, two calls bit-identical "
+              f"{torch.equal(got, fn())}")
     if not sweep:
         return
     dev = xp.device
@@ -252,7 +271,7 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--packed", action="store_true",
-                    help="K6 and K5-wgrad instead of the SRU backward")
+                    help="the packed kernels instead of the SRU backward")
     ap.add_argument("--sweep", action="store_true",
                     help="with --packed: K5-wgrad at other geometries")
     args = ap.parse_args()
