@@ -277,6 +277,18 @@ def tf32x3_bound_ms(bytes_moved: float, ops: float, product_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def products_bound_ms(bytes_moved: float, ops: float):
+    """The bound of a kernel whose operations are all 3xTF32 products."""
+    return tf32x3_bound_ms(bytes_moved, ops, ops)
+
+
+def pw_wgrad_cost(positions: int, cp: int, cq: int) -> tuple:
+    """pw-wgrad's bytes (each operand read once, dW written once) and
+    flops over ``positions`` positions of a ``cp``- and a ``cq``-channel
+    side."""
+    return 4 * (positions * (cp + cq) + cp * cq), 2 * positions * cp * cq
+
+
 def main_path_geometry(conf, samples: int = SAMPLES) -> dict:
     """(L, B-per-batch-item) of each DualPathRNN scan in the forward of
     ``samples``-long audio, from the preset: STFT frames, then the TDANet
@@ -664,9 +676,8 @@ def profile_redesigned(conf, geo, rng) -> None:
               f"{wg['smem']} bytes of shared memory; parent: "
               f"{PARENT_FIGURES['dw_conv_packed_wgrad']}")
     Cb, r = g["Cb"], conf["audionet"]["audio_params"]["repeats"]
-    m = bs * T * Fq
-    nbytes, nops = 4 * (m * (Cb + C) + Cb * C), 2 * m * Cb * C
-    b_ms, b_by = tf32x3_bound_ms(nbytes, nops, nops)
+    nbytes, nops = pw_wgrad_cost(bs * T * Fq, Cb, C)
+    b_ms, b_by = products_bound_ms(nbytes, nops)
     f32_ms, _ = bound_ms(nbytes, nops)
     pg = P.pw_wgrad_geometry(bs, T * Fq, Cb, C)
     step_us = 0.0
@@ -1721,8 +1732,10 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
             padded[pads], (C, 1, k, k), cl(gg, t_len, f_len),
             groups=C)[:, 0].permute(1, 2, 0)
 
+    pw_bytes, pw_ops = pw_wgrad_cost(m, Cb, C)
     # (kernel, site, launches per step, kernel call, plain call, bytes,
-    #  flops, library call); pw-wgrad's flops are all 3xTF32 products
+    #  flops, library call, bound: K5-wgrad's SIMT float32, pw-wgrad's
+    #  all 3xTF32 products)
     cases = [
         ("dw_conv_packed_wgrad", "same", 3 * r,
          lambda: P.dw_conv_packed_wgrad(xp, g_same, Fq, C, (k, k), same,
@@ -1730,29 +1743,29 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
          lambda: P.dw_conv_packed_wgrad_plain(xp, g_same, Fq, C, (k, k),
                                               same, same),
          4 * (2 * n_x + k * k * C), 2 * k * k * n_x,
-         dw_lib(same, g_same, T, Fq)),
+         dw_lib(same, g_same, T, Fq), bound_ms),
         ("dw_conv_packed_wgrad", "pre-select", r,
          lambda: P.dw_conv_packed_wgrad(xp, g_pre, Fq, C, (k, k), pre, pre),
          lambda: P.dw_conv_packed_wgrad_plain(xp, g_pre, Fq, C, (k, k), pre,
                                               pre),
          4 * (n_x + n_s + k * k * C), 2 * k * k * n_s,
-         dw_lib(pre, g_pre, t_conv, f_conv)),
+         dw_lib(pre, g_pre, t_conv, f_conv), bound_ms),
         ("pw_packed_wgrad", "K6 dW", r,
          lambda: P.pw_packed_wgrad(x4, gp),
-         lambda: P.pw_packed_wgrad_plain(x4, gp),
-         4 * (m * (Cb + C) + Cb * C), 2 * m * Cb * C,
-         lambda: torch.einsum("bitf,btfo->io", x4, gp.view(bs, T, Fq, C))),
+         lambda: P.pw_packed_wgrad_plain(x4, gp), pw_bytes, pw_ops,
+         lambda: torch.einsum("bitf,btfo->io", x4, gp.view(bs, T, Fq, C)),
+         products_bound_ms),
         ("pw_packed_wgrad", "K7 dW", r,
          lambda: P.pw_packed_wgrad(xq, g4),
-         lambda: P.pw_packed_wgrad_plain(xq, g4),
-         4 * (m * (Cb + C) + Cb * C), 2 * m * Cb * C,
-         lambda: torch.einsum("btfi,botf->io", xq.view(bs, T, Fq, C), g4)),
+         lambda: P.pw_packed_wgrad_plain(xq, g4), pw_bytes, pw_ops,
+         lambda: torch.einsum("btfi,botf->io", xq.view(bs, T, Fq, C), g4),
+         products_bound_ms),
     ]
     res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
            for name in ("dw_conv_packed_wgrad", "pw_packed_wgrad")}
-    simt_ms = 0.0  # pw-wgrad's SIMT-f32 bound a step, only printed
-    for name, site, n, kern, plain, nbytes, nops, lib in cases:
+    simt_ms = dict.fromkeys(res, 0.0)  # the SIMT-f32 bound, only printed
+    for name, site, n, kern, plain, nbytes, nops, lib, bound in cases:
         got, again, want, lib_out = kern(), kern(), plain(), lib()
         torch.cuda.synchronize()
         scale = want.abs().max().item()
@@ -1761,19 +1774,16 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
         ms = time_cuda(kern, 50)
         plain_ms = time_cuda(plain, 3, warmup=1)
         lib_ms = time_cuda(lib, 50)
-        b_ms, b_by = bound_ms(nbytes, nops)
-        route = ""
-        if name == "pw_packed_wgrad":
-            f32_ms = b_ms
-            simt_ms += n * f32_ms
-            b_ms, b_by = tf32x3_bound_ms(nbytes, nops, nops)
-            route = f", 3xTF32; SIMT-f32 bound_ms={f32_ms:.5f}"
+        b_ms, b_by = bound(nbytes, nops)
+        f32_ms, _ = bound_ms(nbytes, nops)
+        simt_ms[name] += n * f32_ms
         print(f"kernel {name} bs={bs} site={site}: max_abs_err={err:.3e} "
               f"max|dW|={scale:.3e} (tol {PACKED_WGRAD_REL_TOL:.0e} * max|dW|)"
               f"; library vs plain {lib_err:.3e}; two calls bit-identical "
               f"{torch.equal(got, again)}; ms={ms:.5f} plain_ms="
               f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}, {nbytes} B, "
-              f"{nops} flop{route}) library_ms={lib_ms:.5f}")
+              f"{nops} flop; SIMT-f32 bound_ms={f32_ms:.5f}) library_ms="
+              f"{lib_ms:.5f}")
         if not max(err, lib_err) <= PACKED_WGRAD_REL_TOL * scale:
             raise AssertionError(f"{name} ({site}) disagrees with its plain "
                                  f"version or the library: {err:.3e}, "
@@ -1788,10 +1798,9 @@ def check_packed_wgrad_kernels(conf, rng) -> dict:
         e["library_ms"] += n * lib_ms
         e["bound_by"] = b_by
     for name, e in res.items():
-        route = ("" if name != "pw_packed_wgrad" else
-                 f", 3xTF32; SIMT-f32 bound_ms={simt_ms:.4f}")
         print(f"kernel {name} per packed bs-{bs} step: ms={e['ms']:.4f} "
-              f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}{route}) "
+              f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}; SIMT-f32 "
+              f"bound_ms={simt_ms[name]:.4f}) "
               f"plain_ms={e['plain_ms']:.2f} library_ms="
               f"{e['library_ms']:.4f}")
     return res

@@ -173,10 +173,9 @@
 //     Registers choose the tile: big, cross terms and sum of a 128 x 64 tile
 //     fit a thread's registers (~160-180 of 255 at 256 threads); for all
 //     256 x 64 of dW a block (each side read once) they do not (128 at 512
-//     threads: spills), so that tile keeps its sum in shared memory
-//     (kPwSharedSum), which with 3 stages leaves no room for 64-position
-//     stages and L1; measured (tools/kernel_variants.py pw_wgrad, PERF.md)
-//     it ran ~10% slower. The first design (SIMT float32 64 x 64 tiles,
+//     threads: spills); such a tile with its sum in shared memory, which
+//     at 3 stages leaves room for 32-position stages only, ran ~10% slower
+//     (PERF.md, PR 13). The first design (SIMT float32 64 x 64 tiles,
 //     the 64-channel side read once per 64 rows of the other, plain loads,
 //     no overlap) took ~280 us a bs-4 launch, this one ~115.
 
@@ -232,20 +231,17 @@ constexpr int kWgTaps = 4;
 // pw-wgrad (ops/packed_tf.py mirrors them): a block's tile of dW is
 // kPwRows planar x kPwCols packed channels, kPwThreads threads as
 // (kPwRows / 32) x 2 warps of 32 x 32; kPwK positions a stage in a ring of
-// kPwStages; the float32 sum in shared memory where kPwSharedSum (else in
-// registers), the big products added to it every kPwFlush stages;
-// kPwRowThreads threads copy a planar row. Staged planar rows of kPwPS
-// floats (a row's kPwK positions, its shift of 0-3; 4 mod 32 banks),
-// packed positions of kPwQS (8 mod 32: the q x g lanes of a B fragment
-// read hit 32 banks), output tile rows of kPwOS (2 mod 8: the float2 sums
-// of a half warp hit 32 banks)
+// kPwStages; the float32 sum in registers, the big products added to it
+// every kPwFlush stages; a thread copies a planar row. Staged planar rows
+// of kPwPS floats (a row's kPwK positions, its shift of 0-3; 4 mod 32
+// banks), packed positions of kPwQS (8 mod 32: the q x g lanes of a B fragment
+// read hit 32 banks), output tile rows of kPwOS (2 mod 8: the pairs of
+// outputs of a half warp hit 32 banks)
 constexpr int kPwRows = 128;
 constexpr int kPwCols = 64;
 constexpr int kPwK = 64;
 constexpr int kPwStages = 3;
-constexpr int kPwSharedSum = 0;
 constexpr int kPwFlush = 1;
-constexpr int kPwRowThreads = 1;
 constexpr int kPwThreads = 2 * kPwRows;
 constexpr int kPwPS = kPwK + 4;
 constexpr int kPwQS = kPwCols + 8;
@@ -1320,13 +1316,12 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // pw-wgrad's shared floats: the ring of kPwStages stages of kPwRows
-// planar rows and kPwK packed positions, and the (kPwRows, kPwOS) output
-// tile, which holds the sum where kPwSharedSum and reuses the ring
-// otherwise (ops/packed_tf.pw_wgrad_smem)
+// planar rows and kPwK packed positions; the (kPwRows, kPwOS) output tile
+// reuses it (ops/packed_tf.pw_wgrad_smem)
 __host__ __device__ __forceinline__ int pw_wgrad_smem_floats() {
   const int ring = kPwStages * (kPwRows * kPwPS + kPwK * kPwQS);
   const int tile = kPwRows * kPwOS;
-  return kPwSharedSum ? ring + tile : (ring > tile ? ring : tile);
+  return ring > tile ? ring : tile;
 }
 
 // The staged row of a tile's planar channel r (0 <= r < kPwRows): a block
@@ -1351,11 +1346,10 @@ __host__ __device__ __forceinline__ int pw_staged_row(int r) {
 // s. A planar channel's staged row holds its kPwK positions from column
 // sh, sh its first position's offset in a 16-byte block of p, the same
 // for every stage (L and kPwK are multiples of 4) and for channels 4
-// apart (4 M is a multiple of 4): kPwRowThreads (R) threads copy a row,
-// thread R r + k its blocks k, k + R, .. (R 1: a warp copies a block of 32
-// rows at once, faster than 2-8 threads a row, PERF.md), the whole ones
-// as one 16-byte copy, the two that reach past the stage's window element
-// by element, positions past the chunk as zeros. Positions past the chunk
+// apart (4 M is a multiple of 4): thread r < kPwRows copies row r (a warp
+// copies a block of 32 rows at once), the whole blocks as one 16-byte
+// copy, the two that reach past the stage's window element by element,
+// positions past the chunk as zeros. Positions past the chunk
 // are zeros on the packed side too, so they add nothing; channels past Cp
 // or Cq are not copied and only reach outputs that are not written.
 //
@@ -1364,9 +1358,9 @@ __host__ __device__ __forceinline__ int pw_staged_row(int r) {
 // products apart, and adds them to the float32 sum every kPwFlush stages
 // and at the last; each output is summed by one lane in one fixed order.
 // The sum plus the cross terms goes through the output tile in shared
-// memory (rows in channel order; it reuses the ring where the sum lives in
-// registers) to the partial, a row of 64 packed channels, or of the
-// planar channels where transposed, at a time.
+// memory (rows in channel order, in the ring's place) to the partial, a
+// row of 64 packed channels, or of the planar channels where transposed,
+// at a time.
 __global__ void __launch_bounds__(kPwThreads, 1)
 pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
                 float* __restrict__ partial, int M, int Cp, int Cq, int L,
@@ -1380,7 +1374,7 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
   static_assert(kPwThreads == kWarpsM * 2 * 32, "a warp a 32 x 32 tile");
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
-  float* o_s = kPwSharedSum ? ring + kPwStages * kStage : ring;
+  float* o_s = ring;  // the output tile, after the last stage
   const int tid = threadIdx.x, b = blockIdx.z;
   const int tiles_q = (Cq + kPwCols - 1) / kPwCols;
   const int cp0 = (int)blockIdx.y / tiles_q * kPwRows;
@@ -1398,33 +1392,22 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
                  3u);
   };
 
-  // the thread's planar copies: kPwRowThreads threads a channel row,
-  // kRowsPass rows a pass: channels cp0 + cr + pass kRowsPass (one
-  // class), blocks jk, jk + kPwRowThreads, ..
-  constexpr int kRowsPass = kPwThreads / kPwRowThreads;
-  static_assert(kRowsPass % 4 == 0, "a thread's rows share a class");
-  const int cr = tid / kPwRowThreads, jk = tid % kPwRowThreads;
-  const int c_sh = shift(cr & 3);
-  const float* c_row = p + ((long long)b * Cp + cp0 + cr) * M;
+  // the thread's planar row: channel cp0 + tid, for tid < kPwRows
+  const bool copies = tid < kPwRows && cp0 + tid < Cp;
+  const int c_sh = shift(tid & 3);
+  const float* c_row = p + ((long long)b * Cp + cp0 + tid) * M;
   auto load_stage = [&](int s, int slot) {
     if (s < ns) {
       const int p0 = p_begin + s * kPwK, avail = p_end - p0;
       float* ps = ring + slot * kStage;
       float* qs = ps + kPStage;
+      if (copies) {
+        float* dst = ps + pw_staged_row(tid) * kPwPS;
+        const float* src = c_row + p0 - c_sh;  // block j at src + 4 j
 #pragma unroll
-      for (int pass = 0; pass < (kPwRows + kRowsPass - 1) / kRowsPass;
-           ++pass) {
-        const int r = cr + pass * kRowsPass;
-        if (r >= kPwRows || cp0 + r >= Cp) break;
-        float* dst = ps + pw_staged_row(r) * kPwPS;
-        // block j at src + 4 j
-        const float* src = c_row + (long long)pass * kRowsPass * M + p0 - c_sh;
-#pragma unroll
-        for (int jj = 0; jj < (kBlocks + kPwRowThreads - 1) / kPwRowThreads;
-             ++jj) {
-          const int j = jk + kPwRowThreads * jj;
+        for (int j = 0; j < kBlocks; ++j) {
           const int lo = 4 * j - c_sh;  // its first position - p0
-          if (j >= kBlocks || lo + 4 <= 0 || lo >= kPwK) continue;
+          if (lo + 4 <= 0 || lo >= kPwK) continue;
           if (lo >= 0 && lo + 4 <= kPwK && lo + 4 <= avail) {
             hk::cp_async16(dst + 4 * j, src + 4 * j, true);
           } else {
@@ -1459,11 +1442,6 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
   };
   for (int s = 0; s < kPwStages - 1; ++s) load_stage(s, s);
 
-  if (kPwSharedSum) {
-    // the sum starts at 0; the first flush comes after the loop's barrier
-    for (int e = tid; e < kPwRows * kPwOS; e += kPwThreads) o_s[e] = 0.f;
-  }
-
   // the lane's A fragment elements: staged rows 16 t + g (+ 8), columns
   // q (+ 4) of its tile's class shift; B fragment elements: packed
   // positions q (+ 4), channels 32 wn + 8 nj + g
@@ -1478,7 +1456,7 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
   const int b_off = qq * kPwQS + 32 * wn + g;
   // big: the big products since the last flush (on the tensor core);
   // corr: the cross terms, on the tensor core throughout; acc: the
-  // float32 sum where it lives in registers
+  // float32 sum
   float big[2][4][4], corr[2][4][4], acc[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -1500,25 +1478,12 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        if (kPwSharedSum) {
-          float2* o = reinterpret_cast<float2*>(out_at(mi, nj));
-          float2* o8 = reinterpret_cast<float2*>(out_at(mi, nj) +
-                                                 32 * kPwOS);
-          float2 v = *o, v8 = *o8;
-          v.x += big[mi][nj][0];
-          v.y += big[mi][nj][1];
-          v8.x += big[mi][nj][2];
-          v8.y += big[mi][nj][3];
-          *o = v;
-          *o8 = v8;
-        } else {
+      for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-          for (int v = 0; v < 4; ++v) acc[mi][nj][v] += big[mi][nj][v];
+        for (int v = 0; v < 4; ++v) {
+          acc[mi][nj][v] += big[mi][nj][v];
+          big[mi][nj][v] = 0.f;
         }
-#pragma unroll
-        for (int v = 0; v < 4; ++v) big[mi][nj][v] = 0.f;
-      }
   };
 
   int slot = 0, ld_slot = kPwStages - 1, since = 0;
@@ -1556,9 +1521,9 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
     if (++slot == kPwStages) slot = 0;
   }
   hk::cp_async_wait_all();
-  // the output tile: the sum (where it lives in registers, the tile
-  // reuses the ring: after every warp's last stage) plus the cross terms
-  if (!kPwSharedSum) __syncthreads();
+  // the output tile, in the ring's place after every warp's last stage:
+  // the sum plus the cross terms
+  __syncthreads();
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1568,7 +1533,7 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
                      out_at(mi, nj) + 32 * kPwOS + 1};
 #pragma unroll
       for (int v = 0; v < 4; ++v)
-        *o[v] = (kPwSharedSum ? *o[v] : acc[mi][nj][v]) + corr[mi][nj][v];
+        *o[v] = acc[mi][nj][v] + corr[mi][nj][v];
     }
   __syncthreads();
   // the tile to its partial row, in the partial's order

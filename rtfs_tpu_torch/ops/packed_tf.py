@@ -429,16 +429,13 @@ def pw_packed_wgrad_plain(a, g):
 # pw-wgrad's kernel, ``kPw*`` in csrc/packed_tf.cu: a block's tile of dW
 # is PW_WGRAD_ROWS planar x PW_WGRAD_COLS packed channels, PW_WGRAD_THREADS
 # threads (warps of 32 x 32), one block an SM; PW_WGRAD_K positions a
-# stage in a ring of PW_WGRAD_STAGES; the float32 sum in shared memory
-# where PW_WGRAD_SHARED_SUM (else in registers), the big products added to
-# it every PW_WGRAD_FLUSH stages; PW_WGRAD_ROW_THREADS threads copy a
+# stage in a ring of PW_WGRAD_STAGES; the float32 sum in registers, the
+# big products added to it every PW_WGRAD_FLUSH stages; a thread copies a
 # planar row; staged planar rows of PW_WGRAD_PS floats, packed positions
 # of PW_WGRAD_QS, output tile rows of PW_WGRAD_OS
 PW_WGRAD_ROWS, PW_WGRAD_COLS, PW_WGRAD_K = 128, 64, 64
 PW_WGRAD_STAGES = 3
-PW_WGRAD_SHARED_SUM = 0
 PW_WGRAD_FLUSH = 1
-PW_WGRAD_ROW_THREADS = 1
 PW_WGRAD_THREADS = 2 * PW_WGRAD_ROWS
 PW_WGRAD_PS = PW_WGRAD_K + 4
 PW_WGRAD_QS = PW_WGRAD_COLS + 8
@@ -446,16 +443,13 @@ PW_WGRAD_OS = PW_WGRAD_COLS + 2
 
 
 def pw_wgrad_smem(rows: int = PW_WGRAD_ROWS, stages: int = PW_WGRAD_STAGES,
-                  shared_sum: int = PW_WGRAD_SHARED_SUM,
                   k: int = PW_WGRAD_K) -> int:
     """pw-wgrad's shared bytes (``pw_wgrad_smem_floats`` in the source):
     the ring of ``stages`` stages of ``rows`` planar rows of k + 4 floats
-    and ``k`` packed positions of PW_WGRAD_QS, and the (rows, PW_WGRAD_OS)
-    output tile, beside the ring where it holds the sum (``shared_sum``),
-    in the ring's place otherwise."""
+    and ``k`` packed positions of PW_WGRAD_QS, or the (rows, PW_WGRAD_OS)
+    output tile in its place, whichever is larger."""
     ring = stages * (rows * (k + 4) + k * PW_WGRAD_QS)
-    tile = rows * PW_WGRAD_OS
-    return 4 * (ring + tile if shared_sum else max(ring, tile))
+    return 4 * max(ring, rows * PW_WGRAD_OS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -697,23 +697,38 @@ def test_pw_wgrad_shapes_match_plain_and_repeat_exactly(dev, shape):
 def test_pw_wgrad_does_not_drift_on_positive_sums(dev):
     """All-positive a and g at the bs-4 training shape, both layouts: every
     product adds to the sum, so a bias toward zero adds up. Held against
-    float64 to 1e-4 of max|dW|: a sum kept in the tensor core's accumulator,
-    which rounds toward zero, over a batch row's 32,379 positions drifts
-    ~1.8e-4 of the result and over all 129,516 ~7e-4 (emulated in
-    tests/test_torch_pw_wgrad_geometry.py); the kernel adds its big
-    products to a float32 sum every few stages. Two calls give the same
-    bits."""
+    float64 to 1e-4 of max|dW|, in the geometry's chunks and in one chunk a
+    batch row (its 32,379 positions in one block): a sum kept in the
+    tensor core's accumulator, which rounds toward zero, drifts ~1.8e-4 of
+    the result over such a chunk (emulated in
+    tests/test_torch_pw_wgrad_geometry.py; the kernel built with no flush
+    fails here, PERF.md); the kernel adds its big products to a float32
+    sum every few stages. Two calls give the same bits."""
+    from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.ops import packed_tf as P
 
     b, t, f, c, ci = PW_WGRAD_SHAPES["bs4-train"]
+    whole = -(-(t * f) // P.PW_WGRAD_K) * P.PW_WGRAD_K  # a chunk a row
     rng = np.random.default_rng(15)
     for a, g in (((b, ci, t, f), (b, t, f * c)),
                  ((b, t, f * c), (b, ci, t, f))):
         a, g = _t(rng, a, dev).abs(), _t(rng, g, dev).abs()
-        got = P.pw_packed_wgrad(a, g)
         want = P.pw_packed_wgrad_plain(a.double(), g.double())
-        _close((got.double(),), (want,), rel=1e-4)
-        assert torch.equal(got, P.pw_packed_wgrad(a, g))
+        ints = P.pw_wgrad_launch_ints(a, g)
+        assert ints[5] < whole  # the geometry's chunks are shorter
+        for chunk, parts in (ints[5:], (whole, b)):
+            def call():
+                partial = torch.empty(parts, want.numel(), device=dev)
+                out = torch.empty(want.shape, device=dev)
+                kernel_lib.launch(
+                    "packed_tf", "pw_packed_wgrad", dev, a.data_ptr(),
+                    g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                    *ints[:5], chunk, parts)
+                return out
+
+            got = call()
+            _close((got.double(),), (want,), rel=1e-4)
+            assert torch.equal(got, call())
 
 
 def test_packed_tdanet_block_gradients_card_match_cpu(dev):

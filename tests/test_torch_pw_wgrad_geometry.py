@@ -143,21 +143,19 @@ def test_the_grid_fills_the_sms(site):
 def test_shared_memory_fits_one_block():
     """The ring of 3 stages (128 planar rows of 68 floats, 64 packed
     positions of 72), the (128, 66) output tile reusing it: 159,744 bytes,
-    within one block's 227 KB. The variants of tools/kernel_variants.py
-    fit too: all 256 x 64 of dW a block with its sum in shared memory (the
-    (256, 66) tile beside the ring) at 3 stages of 32 positions (205,824),
-    not at 3 stages of 64 or 4 of 32."""
+    within one block's 227 KB. The default variants of
+    tools/kernel_variants.py fit too; all 256 x 64 of dW a block fits at 3
+    stages of 32 positions (138,240), not at 3 stages of 64."""
     assert P.pw_wgrad_smem() == 4 * 3 * (128 * 68 + 64 * 72) == 159_744
     assert P.pw_wgrad_smem() <= kernel_lib.SMEM_PER_BLOCK
-    assert P.pw_wgrad_smem(256, 3, 1, 32) == \
-        4 * (3 * (256 * 36 + 32 * 72) + 256 * 66) == 205_824
-    for rows, stages, shared_sum, k in ((128, 4, 0, 32), (128, 2, 0, 128),
-                                        (128, 3, 1, 64), (256, 3, 0, 32),
-                                        (256, 2, 1, 32), (64, 3, 0, 32)):
-        assert P.pw_wgrad_smem(rows, stages, shared_sum, k) <= \
-            kernel_lib.SMEM_PER_BLOCK
-    assert P.pw_wgrad_smem(256, 4, 1, 32) > kernel_lib.SMEM_PER_BLOCK
-    assert P.pw_wgrad_smem(256, 3, 1, 64) > kernel_lib.SMEM_PER_BLOCK
+    assert P.pw_wgrad_smem(256, 3, 32) == \
+        4 * 3 * (256 * 36 + 32 * 72) == 138_240
+    for rows, stages, k in ((128, 4, 32), (128, 2, 128), (128, 2, 64),
+                            (128, 3, 32), (256, 3, 32), (64, 3, 64),
+                            (64, 3, 32)):
+        assert P.pw_wgrad_smem(rows, stages, k) <= kernel_lib.SMEM_PER_BLOCK
+    assert P.pw_wgrad_smem(256, 3, 64) > kernel_lib.SMEM_PER_BLOCK
+    assert P.pw_wgrad_smem(128, 1, 32) == 4 * 128 * OS  # the tile's
     for b, m in SITES.values():
         assert P.pw_wgrad_geometry(b, m, 256, 64)["smem"] == P.pw_wgrad_smem()
     # the ring's slots, the packed part and the output tile start on
@@ -167,12 +165,10 @@ def test_shared_memory_fits_one_block():
 
 
 def _stage_planar(base4, b, cp, cp0, cr, m, p_begin, p_end, s):
-    """One stage's copies of the planar row of tile channel cr, as the
-    threads R (cr % rows_pass) + k (k < R = PW_WGRAD_ROW_THREADS) issue
-    them in pass cr // rows_pass (rows_pass = PW_WGRAD_THREADS / R rows a
-    pass), blocks k, k + R, ..: {slot column: the position it holds, or
-    None for a zero}, the positions read, and the 16-byte copies' (source
-    float index, slot column)."""
+    """One stage's copies of the planar row of tile channel cr, as thread
+    cr issues them: {slot column: the position it holds, or None for a
+    zero}, the positions read, and the 16-byte copies' (source float
+    index, slot column)."""
     sh = _shift(base4, b, cp, cp0, cr & 3, m, p_begin)
     p0 = p_begin + s * K
     avail = p_end - p0
@@ -185,25 +181,21 @@ def _stage_planar(base4, b, cp, cp0, cr, m, p_begin, p_end, s):
         if pos is not None:
             read.append(pos)
 
-    rows_pass = THREADS // P.PW_WGRAD_ROW_THREADS
-    assert _shift(base4, b, cp, cp0, (cr % rows_pass) & 3, m, p_begin) == sh
-    per_row = P.PW_WGRAD_ROW_THREADS
-    for jk in range(per_row):
-        for jj in range(-(-BLOCKS // per_row)):
-            j = jk + per_row * jj
-            lo = 4 * j - sh
-            if j >= BLOCKS or lo + 4 <= 0 or lo >= K:
-                continue
-            src = row + p0 - sh + 4 * j
-            if lo >= 0 and lo + 4 <= K and lo + 4 <= avail:
-                vec.append((src, 4 * j))
-                for e in range(4):
-                    put(4 * j + e, src + e - row)
-            else:
-                for e in range(4):
-                    if lo + e < 0 or lo + e >= K:
-                        continue
-                    put(4 * j + e, src + e - row if lo + e < avail else None)
+    assert cr < ROWS <= THREADS  # a thread a row
+    for j in range(BLOCKS):
+        lo = 4 * j - sh
+        if lo + 4 <= 0 or lo >= K:
+            continue
+        src = row + p0 - sh + 4 * j
+        if lo >= 0 and lo + 4 <= K and lo + 4 <= avail:
+            vec.append((src, 4 * j))
+            for e in range(4):
+                put(4 * j + e, src + e - row)
+        else:
+            for e in range(4):
+                if lo + e < 0 or lo + e >= K:
+                    continue
+                put(4 * j + e, src + e - row if lo + e < avail else None)
     return sh, slot, read, vec
 
 
@@ -293,13 +285,10 @@ def test_lanes_sum_the_output_tile_once_and_flush_without_conflicts():
     """The D elements of every lane (c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8,
     2q), c3 (g + 8, 2q + 1) of m16 tile t, n8 tile nj) are the (ROWS, COLS)
     output tile's elements once, at row 64 (t / 4) + 4 g + t % 4 (+ 32) of
-    the tile in channel order; a half warp's float2 sums (flush and end)
-    hit the 32 banks once."""
+    the tile in channel order (in the ring's place); a half warp's pairs
+    of outputs hit the 32 banks once."""
     warps_m = ROWS // 32
     tile = np.zeros((ROWS, COLS), np.int32)
-    # the output tile follows the ring where it holds the sum, else
-    # reuses it
-    ring = P.PW_WGRAD_STAGES * STAGE if P.PW_WGRAD_SHARED_SUM else 0
     for warp in range(THREADS // 32):
         wm, wn = warp % warps_m, warp // warps_m
         for mi in range(2):
@@ -313,7 +302,7 @@ def test_lanes_sum_the_output_tile_once_and_flush_without_conflicts():
                             row = _channel(t, g) + d_row
                             col = 32 * wn + 8 * nj + 2 * q
                             tile[row, col:col + 2] += 1
-                            off = ring + row * OS + col
+                            off = row * OS + col
                             assert off % 2 == 0
                             banks |= {off % 32, (off + 1) % 32}
                         assert len(banks) == 32
@@ -459,10 +448,8 @@ def _source():
 def test_constants_and_the_entry_match_the_source():
     src, consts = _source()
     assert (consts["kPwRows"], consts["kPwCols"], consts["kPwK"],
-            consts["kPwStages"], consts["kPwSharedSum"],
-            consts["kPwFlush"], consts["kPwRowThreads"]) == (
-                ROWS, COLS, K, P.PW_WGRAD_STAGES, P.PW_WGRAD_SHARED_SUM,
-                P.PW_WGRAD_FLUSH, P.PW_WGRAD_ROW_THREADS)
+            consts["kPwStages"], consts["kPwFlush"]) == (
+                ROWS, COLS, K, P.PW_WGRAD_STAGES, P.PW_WGRAD_FLUSH)
     assert "constexpr int kPwThreads = 2 * kPwRows;" in src
     assert "constexpr int kPwPS = kPwK + 4;" in src
     assert "constexpr int kPwQS = kPwCols + 8;" in src
@@ -513,10 +500,9 @@ def test_launch_ints_match_the_c_entry(a_planar, shape):
         P.pw_wgrad_geometry(0, 5, 1, 1)
 
 
-def test_the_variant_tools_parts_find_their_anchors():
-    """``tools/kernel_variants.py pw_wgrad`` takes parts of the kernel out
-    by text patches of the source: each anchor is in the source once, and
-    the tool's constants are the source's."""
+def test_the_variant_tools_constants_are_the_sources():
+    """``tools/kernel_variants.py pw_wgrad`` rebuilds the kernel at other
+    values of the source's constants, one ``A:B:..`` value each."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.dirname(
@@ -524,9 +510,7 @@ def test_the_variant_tools_parts_find_their_anchors():
     spec = importlib.util.spec_from_file_location("kernel_variants", path)
     kv = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(kv)
-    src, consts = _source()
-    for old, _ in kv.PARTS["pw_wgrad"].values():
-        assert src.count(old) == 1, old
+    _, consts = _source()
     names = kv.KERNELS["pw_wgrad"][1]
     assert all(name in consts for name in names)
     for v in kv.KERNELS["pw_wgrad"][5]:

@@ -18,28 +18,27 @@ shape it, given as ``A:B:..`` in the order of its row of ``KERNELS``:
 - ``pw_wgrad``: pw-wgrad (``pw_wgrad_kernel`` in ``csrc/packed_tf.cu``),
   its tile of ``kPwRows`` planar channels (256: all of dW at the preset,
   each operand read once; 128 or 64: the 64-channel side read twice or
-  four times), whether the float32 sum lives in shared memory
-  (``kPwSharedSum`` 1) or in registers (0), its ring of ``kPwStages``,
-  the stages a flush of the big products ``kPwFlush``, the positions a
-  stage ``kPwK`` and the threads that copy a planar row
-  ``kPwRowThreads``; K6's and K7's dW at bs 4 (256 x 64 channels over 4 x
-  251 x 129 positions), held to the plain version (1e-4 of max|dW|), with
-  the sum of the partials, beside the bytes bound.
+  four times), its ring of ``kPwStages``, the stages a flush of the big
+  products into the float32 sum ``kPwFlush`` (more than a chunk's stages,
+  e.g. 100000: they stay in the tensor core's accumulator for the whole
+  chunk) and the positions a stage ``kPwK``; K6's and K7's dW at bs 4
+  (256 x 64 channels over 4 x 251 x 129 positions) with the sum of the
+  partials, held to the plain version (1e-4 of max|dW|) beside the bytes
+  bound; then, to show drift, K6's dW of all-positive inputs in one chunk
+  a batch row (32,379 positions) held to the plain version in float64.
 
-A pw_wgrad variant may also take a part of the kernel out, ``A:B:..+nomma``
-(no products) or ``+nocopy`` (no copies), to time the rest (``PARTS``;
-such a variant is not held to the plain version). Each variant is built
-from a copy of ``csrc/`` with the constants replaced, into
-``rtfs_tpu_torch/_build/variants/`` (every nvcc at once), then runs in a
-process of its own (loaded into one process beside the library built
-from the same source, a variant's outputs came out wrong): checked, then
-timed with CUDA events, the variants in turns and then in reverse order.
-Usage::
+Each variant is built from a copy of ``csrc/`` with the constants
+replaced, into ``rtfs_tpu_torch/_build/variants/`` (every nvcc at once),
+then runs in a process of its own (loaded into one process beside the
+library built from the same source, a variant's outputs came out wrong):
+checked, then timed with CUDA events, the variants in turns and then in
+reverse order. Every site prints its error as a fraction of its output's
+max; the run fails if one is above 1e-4. Usage::
 
     python3 tools/kernel_variants.py scan [--variants 8:1 8:2 12:2]
     python3 tools/kernel_variants.py unproj [--variants 128:3:1 64:3:2]
-    python3 tools/kernel_variants.py pw_wgrad [--variants 128:0:3:1:64:1
-        256:1:3:2:32:1 128:0:3:1:64:1+nomma]
+    python3 tools/kernel_variants.py pw_wgrad [--variants 128:3:1:64
+        128:3:100000:64]
 """
 
 from __future__ import annotations
@@ -62,6 +61,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from rtfs_tpu_torch.ops import kernel_lib  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
+TOL = 1e-4  # of each output's max, every site
 
 
 def _t(rng, shape, scale=1.0):
@@ -69,13 +69,11 @@ def _t(rng, shape, scale=1.0):
         np.float32)).cuda()
 
 
-def _held(name, got, want, tol):
-    """Raise unless every output is within ``tol`` of its plain version's
-    max."""
-    for i, (g, w) in enumerate(zip(got, want)):
-        err, scale = (g - w).abs().max().item(), w.abs().max().item()
-        if not err <= tol * scale:
-            raise AssertionError(f"{name} output {i}: {err} on {scale}")
+def _err(got, want) -> float:
+    """The largest error of the outputs as a fraction of its plain
+    version's max."""
+    return max((g.double() - w.double()).abs().max().item()
+               / w.abs().max().item() for g, w in zip(got, want))
 
 
 def scan_sites(libs, values) -> dict:
@@ -123,8 +121,8 @@ def scan_sites(libs, values) -> dict:
                 ("K1", k1, plain1, (du_f, du_r, part1), 2),
                 ("K4", k4, plain4, (du, dx, part4), 1)):
             name = f"{kernel} backward {site} T={T} B={B}"
-            out[name] = (fn, lambda n=name, p=plain, o=got: _held(
-                n, (*o[:-1], o[-1].sum(0)), p(), 1e-4),
+            out[name] = (fn, lambda p=plain, o=got: _err(
+                (*o[:-1], o[-1].sum(0)), p()),
                 40 * T * h * B * dirs / HBM_BYTES_PER_S * 1e6)
     return out
 
@@ -157,42 +155,48 @@ def unproj_sites(libs, values) -> dict:
                 T * F, C, CB, *w.stride(), blocks, stream)
             assert st == 0, st
 
-        out[site] = (call, lambda s=site, xp=xp, w=w, b=b, o=o: _held(
-            s, (o,), (P.pw_unproj_packed_plain(xp, w, b, F),), 1e-4), None)
+        out[site] = (call, lambda xp=xp, w=w, b=b, o=o: _err(
+            (o,), (P.pw_unproj_packed_plain(xp, w, b, F),)), None)
     return out
 
 
 def pw_wgrad_sites(libs, values) -> dict:
     """{site: (launch, check, bound us)} of pw-wgrad: K6's dW (x4 planar,
-    g packed) and K7's (xp packed, g planar) at bs 4; its chunks from the
-    variant's tile."""
+    g packed) and K7's (xp packed, g planar) at bs 4, its chunks from the
+    variant's tile; then K6's dW of all-positive inputs, a batch row one
+    chunk, against float64."""
     from rtfs_tpu_torch.ops import packed_tf as P
 
-    rows, _, _, _, k, _ = values
+    rows, _, _, k = values
     T, F, C, CB, bs = 251, 129, 64, 256, 4
     m = T * F
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
     geo = P.pw_wgrad_geometry(bs, m, CB, C, rows=rows, k=k)
-    part = torch.empty(geo["parts"], CB * C, device="cuda")
+    part = torch.empty(max(geo["parts"], bs), CB * C, device="cuda")
     bound = 4 * bs * m * (CB + C) / HBM_BYTES_PER_S * 1e6
     out = {}
-    for site, planar in {"bs4 K6 dW": True, "bs4 K7 dW": False}.items():
+    for site, planar, chunk, parts in (
+            ("bs4 K6 dW", True, geo["chunk"], geo["parts"]),
+            ("bs4 K7 dW", False, geo["chunk"], geo["parts"]),
+            ("bs4 K6 dW positive, a chunk a row", True, -(-m // k) * k, bs)):
         four, packed = _t(rng, (bs, CB, T, F)), _t(rng, (bs, T, F * C))
+        if "positive" in site:
+            four, packed = four.abs(), packed.abs()
         a, g = (four, packed) if planar else (packed, four)
         o = torch.empty(CB, C, device="cuda") if planar else \
             torch.empty(C, CB, device="cuda")
         ca, cb = o.shape
 
-        def call(a=a, g=g, o=o, ca=ca, cb=cb, planar=planar):
+        def call(a=a, g=g, o=o, ca=ca, cb=cb, planar=planar, chunk=chunk,
+                 parts=parts):
             st = libs["packed_tf"].pw_packed_wgrad(
                 a.data_ptr(), g.data_ptr(), part.data_ptr(), o.data_ptr(),
-                bs, m, ca, cb, int(planar), geo["chunk"], geo["parts"],
-                stream)
+                bs, m, ca, cb, int(planar), chunk, parts, stream)
             assert st == 0, st
 
-        out[site] = (call, lambda s=site, a=a, g=g, o=o: _held(
-            s, (o,), (P.pw_packed_wgrad_plain(a, g),), 1e-4), bound)
+        out[site] = (call, lambda a=a, g=g, o=o: _err(
+            (o,), (P.pw_packed_wgrad_plain(a.double(), g.double()),)), bound)
     return out
 
 
@@ -207,43 +211,21 @@ KERNELS = {
                                 "kUnprojBlocks"),
                ("packed_tf",), "pw_unproj", unproj_sites,
                ["128:3:1", "128:4:1", "64:3:2", "64:4:2", "32:4:4"]),
-    "pw_wgrad": ("packed_tf.cu", ("kPwRows", "kPwSharedSum", "kPwStages",
-                                  "kPwFlush", "kPwK", "kPwRowThreads"),
+    "pw_wgrad": ("packed_tf.cu", ("kPwRows", "kPwStages", "kPwFlush",
+                                  "kPwK"),
                  ("packed_tf",), "pw_wgrad", pw_wgrad_sites,
-                 ["128:0:3:1:64:1", "128:0:2:1:64:1", "128:0:3:1:32:1",
-                  "128:0:3:1:64:2", "256:1:3:2:32:1", "256:1:3:4:32:1",
-                  "256:1:2:4:32:1", "256:1:3:2:32:2", "256:0:3:1:32:1",
-                  "128:0:3:1:64:1+nomma", "128:0:3:1:64:1+nocopy"]),
-}
-
-# parts a variant may take out (``A:B:..+part``), each a text patch of
-# the source that must find its anchor: its time is then that of the rest
-# (not held to the plain version)
-PARTS = {
-    "pw_wgrad": {
-        # the products: the fragment loads and splits go with them
-        "nomma": ("      hk::mma3_apart(big, corr, a, bf);\n", ""),
-        # the copies: the ring's commits, waits and barriers stay
-        "nocopy": ("  auto load_stage = [&](int s, int slot) {\n"
-                   "    if (s < ns) {",
-                   "  auto load_stage = [&](int s, int slot) {\n"
-                   "    if (false) {"),
-    },
+                 ["128:3:1:64", "128:2:1:64", "128:3:2:64", "128:3:1:32",
+                  "64:3:1:64", "256:3:1:32"]),
 }
 
 
 def _root(kernel: str, v: str) -> str:
     return os.path.join(kernel_lib.BUILD_DIR, "variants", kernel,
-                        v.replace(":", "_").replace("+", "-"))
-
-
-def _parts(kernel: str, v: str) -> list:
-    """The parts variant ``v`` takes out: its patches of the source."""
-    return [PARTS[kernel][p] for p in v.split("+")[1:]]
+                        v.replace(":", "_"))
 
 
 def _values(kernel: str, v: str) -> tuple:
-    values = tuple(int(a) for a in v.split("+")[0].split(":"))
+    values = tuple(int(a) for a in v.split(":"))
     if len(values) != len(KERNELS[kernel][1]):
         raise ValueError(f"{kernel} variant {v}: give "
                          f"{':'.join(KERNELS[kernel][1])}")
@@ -265,9 +247,6 @@ def build(kernel: str, v: str) -> list:
         src, n = re.subn(rf"constexpr int {name} = \d+;",
                          f"constexpr int {name} = {value};", src)
         assert n == 1, name
-    for old, new in _parts(kernel, v):
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
     out = []
@@ -309,15 +288,15 @@ def event_ms(fn, iters: int = 50) -> float:
 
 def worker(kernel: str, v: str) -> None:
     """One variant in this process: each site checked against the plain
-    version, then timed; prints one JSON line {site: [ms, bound us]}."""
+    version, then timed; prints one JSON line {site: [ms, bound us, error
+    as a fraction of the output's max]}."""
     sites = KERNELS[kernel][4](load(kernel, v), _values(kernel, v))
     res = {}
     for site, (call, check, bound_us) in sites.items():
         call()
         torch.cuda.synchronize()
-        if not _parts(kernel, v):
-            check()
-        res[site] = [event_ms(call), bound_us]
+        err = check()
+        res[site] = [event_ms(call), bound_us, err]
     print(json.dumps(res))
 
 
@@ -363,16 +342,19 @@ def main() -> int:
                 raise RuntimeError(f"variant {v}:\n{run.stderr[-3000:]}")
             times[v].append(json.loads(run.stdout.strip().splitlines()[-1]))
     consts = ":".join(KERNELS[args.kernel][1])
+    failed = 0
     for site in times[variants[0]][0]:
         for v in variants:
             us = " / ".join(f"{1e3 * run[site][0]:.2f}" for run in times[v])
             bound = times[v][0][site][1]
-            held = ("held to the plain version" if not _parts(
-                args.kernel, v) else "parts taken out, not held")
+            err = max(run[site][2] for run in times[v])
+            failed += not err <= TOL
             print(f"{args.kernel} {consts}={v} {site}: us a launch {us}"
                   + ("" if bound is None else f" (bound {bound:.2f}, bytes)")
-                  + f"; {held}; {card}")
-    return 0
+                  + f"; error {err:.3e} of max, "
+                  + ("held" if err <= TOL else "FAILS") + f" {TOL:.0e}; "
+                  + card)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
