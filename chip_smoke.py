@@ -129,6 +129,27 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    (K1 1 / K2 3 / K3 1 a DualPathRNN, as at the preset). K2 forward also
    at H 300 at the bs-1 sites (kernel only), where it streams its
    projection's reduction through shared memory.
+11. Files (after "wide"): training from files and evaluation, the path
+   of ``data.AVSpeechDataset``, ``data.PrefetchLoader`` and
+   ``rtfs_tpu_torch.test``. (a) ``tools/make_synth_corpus.py`` writes a
+   seed-0 LRS2-layout corpus (``FILE_CORPUS``: 32 / 2 / 5 mixtures of 2
+   s), and ``shorten_mixture`` cuts one ``tt`` mixture to 1.6 s; (b) the
+   loader's batches of ``tr``, copied to the card from pinned memory,
+   equal the synchronous ``AVSpeechDataset.batches()`` bit for bit; (c)
+   the train entry takes two epochs of the preset from ``tr`` / ``cv`` at
+   batch 4 (64 samples after n_src-1 doubling, 16 steps an epoch),
+   launching K1/K2/K3 8/24/8 forward and backward a step and 8/24/8 a
+   validation forward, and exports ``best_model.pt``; it prints each
+   epoch's seconds, wall ms a step and the loader's wait share (the
+   second epoch is the measurement); (d) after one untimed call of the
+   metrics, the evaluation entry scores that bundle on ``tt`` (10
+   utterances) on the card at bs 1, 2 and 3 (8/24/8 a forward) and on
+   the CPU at bs 1 and 3: the card's estimates (its example wavs) match
+   the CPU's at bs 1 and at bs 3 (whose batches pad the short
+   utterance's samples and end on a batch of one), and bs 2 (which pads
+   nothing) matches bs 1, to 1e-3 of max, and every row's si-snr,
+   si-snr_i, sdr and sdr_i to 1e-2 dB, stoi to 1e-3 and pesq to 2e-2; it
+   prints utterances a second on the card.
 
 The last lines are the ``kernels`` JSON object (15 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
@@ -2363,6 +2384,254 @@ def wide(geo, rng) -> None:
         hold_train_step(res, ref, on, off, label=f"wide H {h}", stats=False)
 
 
+# phase 11: the corpus's mixtures a split (2 s each, seed 0), the epochs
+# of the train entry (the last one's row is the measurement: the first
+# pays the step's warm-up), the tt mixture cut short (its index, its
+# samples: 1.6 s and 40 mouth frames) so that a bs-3 batch pads it, and
+# the evaluation rows' limits (the SNR columns in dB)
+FILE_CORPUS = {"tr": 32, "cv": 2, "tt": 5}
+FILE_EPOCHS = 2
+SHORT_MIXTURE = (1, 25600)
+EVAL_ROW_TOL = {"si-snr": 1e-2, "si-snr_i": 1e-2, "sdr": 1e-2, "sdr_i": 1e-2,
+                "stoi": 1e-3, "pesq": 2e-2}
+# the evaluation runs (label, batch size, on the CPU), and the pairs held
+# together: bs 2 pairs each mixture's two samples (n_src-1 doubling), so
+# it pads nothing and must equal bs 1; bs 3 pads the short mixture's
+# samples and ends on a batch of one, so it is held against the CPU at
+# the same batching
+FILE_EVAL_RUNS = (("card bs 1", 1, False), ("card bs 2", 2, False),
+                  ("card bs 3", 3, False), ("cpu bs 1", 1, True),
+                  ("cpu bs 3", 3, True))
+FILE_EVAL_PAIRS = (("card bs 1", "cpu bs 1"), ("card bs 2", "card bs 1"),
+                   ("card bs 3", "cpu bs 3"))
+
+
+def file_launches(steps: int, forwards: int) -> dict:
+    """K1/K2/K3 launches of ``steps`` train steps (``TRAIN_LAUNCHES`` each)
+    and ``forwards`` more forwards (validation or evaluation batches,
+    ``SERVE_LAUNCHES`` each)."""
+    out = {k: steps * v for k, v in TRAIN_LAUNCHES.items() if steps}
+    for k, v in SERVE_LAUNCHES.items():
+        if forwards:
+            out[k] = out.get(k, 0) + forwards * v
+    return out
+
+
+def shorten_mixture(split_dir: str, index: int, n_samples: int,
+                    sample_rate: int = 16000, fps: int = 25) -> str:
+    """Cut the ``index``-th mixture of an LRS2-layout split (``mix.json``,
+    ``s1.json``, ``s2.json``) to its first ``n_samples``: its mixture and
+    source wavs, its mouths to the frames that cover them, and the lengths
+    in the manifests. Returns the mixture's file name (the test set's
+    key)."""
+    import os
+
+    from rtfs_tpu_torch.data.wav import read_wav, write_wav
+
+    frames = -(-n_samples * fps // sample_rate)
+    for name in ("mix", "s1", "s2"):
+        path = os.path.join(split_dir, f"{name}.json")
+        with open(path) as f:
+            infos = json.load(f)
+        entry = infos[index]
+        write_wav(entry[0], read_wav(entry[0])[:n_samples], sample_rate)
+        if name != "mix":
+            with np.load(entry[1]) as z:
+                mouths = z["data"][:frames]
+            np.savez_compressed(entry[1], data=mouths)
+        entry[-1] = n_samples
+        with open(path, "w") as f:
+            json.dump(infos, f)
+    return os.path.basename(entry[0])
+
+
+def compare_rows(got: list, want: list, label: str) -> dict:
+    """The largest difference a column of ``EVAL_ROW_TOL`` between two
+    evaluation runs' rows (the same utterances in the same order); raises
+    where one passes its limit or a value is not finite."""
+    if [r["snt_id"] for r in got] != [r["snt_id"] for r in want]:
+        raise AssertionError(f"{label}: the runs scored other utterances")
+    worst = dict.fromkeys(EVAL_ROW_TOL, 0.0)
+    for g, w in zip(got, want):
+        for k, tol in EVAL_ROW_TOL.items():
+            d = abs(g[k] - w[k])
+            if not (math.isfinite(g[k]) and d <= tol):
+                raise AssertionError(f"{label}: {k} {g[k]} against {w[k]} "
+                                     f"(limit {tol}) for {g['snt_id']}")
+            worst[k] = max(worst[k], d)
+    print(f"{label}: largest row difference {worst} (limits {EVAL_ROW_TOL})")
+    return worst
+
+
+def files(conf) -> dict:
+    """Phase 11: train from files and evaluate. (a) A seed-0 corpus from
+    ``tools/make_synth_corpus.py`` (``FILE_CORPUS`` mixtures a split,
+    LRS2 layout), one ``tt`` mixture cut short (``SHORT_MIXTURE``). (b)
+    ``PrefetchLoader`` batches of ``tr``, pinned and copied to the card,
+    against the synchronous ``AVSpeechDataset.batches()`` over the same
+    plan, bit for bit. (c) ``train.main`` on the preset from ``tr`` /
+    ``cv``: ``FILE_EPOCHS`` epochs at batch 4, launching exactly
+    ``file_launches`` (8/24/8 forward and backward a step, 8/24/8 a
+    validation forward), and ``best_model.pt`` exported; the last epoch's
+    row is the measurement. (d) The evaluation entry ``rtfs_tpu_torch.
+    test`` on ``tt`` with that bundle, the metrics warmed first, in
+    ``FILE_EVAL_RUNS`` (8/24/8 a forward on the card): example wavs to
+    ``SERVE_REL_TOL`` of max and rows to ``EVAL_ROW_TOL`` for each pair of
+    ``FILE_EVAL_PAIRS``. Returns the launches of (c) and of the card's
+    bs-1 evaluation."""
+    import os
+    import tempfile
+
+    from rtfs_tpu_torch import test as eval_entry
+    from rtfs_tpu_torch.data import (AVSpeechDataset, PrefetchLoader,
+                                     pin_and_copy)
+    from rtfs_tpu_torch.data.wav import read_wav
+    from rtfs_tpu_torch.metrics import ALLMetricsTracker
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.train import main as train_main
+
+    data = conf["data"]
+    sr = data["sample_rate"]
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "tools", "make_synth_corpus.py"), "--out", corpus,
+             "--train", str(FILE_CORPUS["tr"]),
+             "--val", str(FILE_CORPUS["cv"]),
+             "--test", str(FILE_CORPUS["tt"]), "--seed", "0"],
+            check=True, capture_output=True, text=True, timeout=300)
+        split = {k: os.path.join(corpus, k) for k in FILE_CORPUS}
+        short = shorten_mixture(split["tt"], *SHORT_MIXTURE, sample_rate=sr)
+        n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, names in os.walk(corpus) for f in names)
+        print(f"files: corpus {FILE_CORPUS} mixtures of 2 s, tt's {short} "
+              f"cut to {SHORT_MIXTURE[1]} samples, {n_bytes} bytes, "
+              f"written in {time.perf_counter() - t0:.3f} s")
+
+        # (b) the loader's batches on the card against the synchronous path
+        kw = dict(n_src=conf["audionet"]["n_src"], sample_rate=sr,
+                  segment=data["segment"],
+                  normalize_audio=data.get("normalize_audio", False))
+        train_set = AVSpeechDataset(split["tr"], **kw)
+        t0 = time.perf_counter()
+        got = list(PrefetchLoader(train_set, TRAIN_BATCH, num_workers=8,
+                                  place=pin_and_copy("cuda")).epoch(
+                                      seed=0, epoch=0))
+        torch.cuda.synchronize()
+        t_loader = time.perf_counter() - t0
+        want = list(train_set.batches(TRAIN_BATCH, seed=0, epoch=0))
+        if len(got) != len(want) or not want:
+            raise AssertionError(f"files: loader gave {len(got)} batches, "
+                                 f"the synchronous path {len(want)}")
+        for g, w in zip(got, want):
+            if g.keys() != w.keys() or g["key"] != w["key"]:
+                raise AssertionError("files: loader batch keys differ")
+            for k in w:
+                if k != "key" and not (g[k].is_cuda and np.array_equal(
+                        g[k].cpu().numpy(), w[k])):
+                    raise AssertionError(f"files: loader field {k} differs")
+        print(f"files: {len(got)} loader batches of {TRAIN_BATCH} equal the "
+              f"synchronous path bit for bit; loader epoch "
+              f"{t_loader:.3f} s")
+        del got
+
+        # (c) the train entry from the files
+        val_forwards = len(AVSpeechDataset(split["cv"], **kw).batch_index_plan(
+            TRAIN_BATCH, shuffle=False))
+        kernel_lib.reset_launches()
+        t0 = time.perf_counter()
+        train_main.cli([
+            "--conf-dir", PRESET, "--data.train_dir", split["tr"],
+            "--data.valid_dir", split["cv"],
+            "--training.epochs", str(FILE_EPOCHS), "--log.path", root])
+        torch.cuda.synchronize()
+        train_launches = dict(kernel_lib.LAUNCHES)
+        exp_dir = os.path.join(root, conf["log"]["exp_name"])
+        with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = sum(r["steps"] for r in rows)
+        expect = file_launches(steps, len(rows) * val_forwards)
+        print(f"files: train entry {time.perf_counter() - t0:.3f} s, "
+              f"{len(rows)} epochs of {rows[-1]['steps']} steps and "
+              f"{val_forwards} validation forward(s), launches "
+              f"{train_launches} (expected {expect})")
+        if (len(rows) != FILE_EPOCHS or train_launches != expect
+                or steps != FILE_EPOCHS * (len(train_set) // TRAIN_BATCH)):
+            raise AssertionError(f"files: train launches {train_launches}")
+        for row in rows:
+            if not (math.isfinite(row["train_loss"])
+                    and math.isfinite(row["val_loss"])):
+                raise AssertionError(f"files: train row {row}")
+            print(f"files: epoch {row['epoch']}: {row['secs']} s (train "
+                  f"loop {row['train_secs']:.3f} s), wall ms a step "
+                  f"{row['train_secs'] / row['steps'] * 1e3:.3f}, loader "
+                  f"wait {row['loader_wait']:.4f} s (first batch "
+                  f"{row['loader_first_wait']:.4f}), wait share "
+                  f"{row['loader_wait'] / row['train_secs']:.4f}; train "
+                  f"loss {row['train_loss']:.4f}, val loss "
+                  f"{row['val_loss']:.4f}")
+        if not os.path.exists(os.path.join(exp_dir, "best_model.pt")):
+            raise AssertionError("files: no best_model.pt exported")
+
+        # (d) the evaluation entry: the metrics' first calls kept out of
+        # the timed runs, then the card's and the CPU's runs
+        t0 = time.perf_counter()
+        warm = np.random.default_rng(0).standard_normal(
+            (3, 2 * sr)).astype(np.float32)
+        ALLMetricsTracker(sample_rate=sr)(warm[0], warm[1:2], warm[2:3],
+                                          "warm")
+        print(f"files: the metrics' first call {time.perf_counter() - t0:.3f}"
+              f" s (kept out of the timed runs)")
+        runs = {}
+        for label, bs, cpu in FILE_EVAL_RUNS:
+            kernel_lib.reset_launches()
+            out = eval_entry.main([
+                "--conf-dir", os.path.join(exp_dir, "conf.json"),
+                "--test-dir", split["tt"], "--batch-size", str(bs),
+                "--save-examples", str(2 * FILE_CORPUS["tt"]),
+                *(["--cpu"] if cpu else [])])
+            if not cpu:
+                torch.cuda.synchronize()
+            launches = dict(kernel_lib.LAUNCHES)
+            n = out["utterances"]
+            expect = file_launches(0, 0 if cpu else -(-n // bs))
+            examples = os.path.join(exp_dir, "results", "examples")
+            est_files = sorted(f for f in os.listdir(examples) if "_est" in f)
+            print(f"files: eval {label}: {n} utterances, "
+                  f"{n / out['secs']:.3f} utterances/s with the metrics, "
+                  f"{n / out['forward_secs']:.3f} in the forward alone; "
+                  f"launches {launches} (expected {expect}); mean "
+                  f"{ {k: round(v, 4) for k, v in out['mean'].items()} }, "
+                  f"backends {out['backends']}")
+            if launches != expect or len(est_files) != n:
+                raise AssertionError(f"files: eval {label}: launches "
+                                     f"{launches}, examples {est_files}")
+            out["examples"] = [read_wav(os.path.join(examples, f))
+                               for f in est_files]
+            out["launches"] = launches
+            runs[label] = out
+            for f in os.listdir(examples):
+                os.remove(os.path.join(examples, f))
+    for label, ref in FILE_EVAL_PAIRS:
+        got, want = runs[label], runs[ref]
+        worst = 0.0
+        for g, w in zip(got["examples"], want["examples"], strict=True):
+            err = float(np.abs(g - w).max())
+            scale = float(np.abs(w).max())
+            if g.shape != w.shape or not err <= SERVE_REL_TOL * scale:
+                raise AssertionError(f"files: {label} against {ref}: "
+                                     f"estimate err {err} of max {scale}")
+            worst = max(worst, err / scale)
+        print(f"files: {label} against {ref}: estimates (the example wavs) "
+              f"max_abs_err {worst:.3e} of max|out| (tol "
+              f"{SERVE_REL_TOL:.0e})")
+        compare_rows(got["rows"], want["rows"], f"files: {label} against "
+                     f"{ref}")
+    return {"train": train_launches, "eval": runs["card bs 1"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2409,6 +2678,7 @@ def main() -> int:
     k4, uni_served, uni_trained = phase("10 unidirectional", unidirectional,
                                         conf_uni, geo, rng)
     phase("wide", wide, geo, rng)
+    file_run = phase("11 files", files, conf)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
     phase("9b, 10e K5-wgrad, pw-wgrad, K4 forward device time",
           profile_redesigned, conf, geo, rng)
@@ -2465,7 +2735,9 @@ def main() -> int:
     for name, (src, rep, fn) in sources.items():
         if name in kernels:  # forward: the serving run, per forward at bs 8
             entry = {"launches": launches.get(fn, 0), **kernels[name],
-                     "per_forward_at_batch": 8}
+                     "per_forward_at_batch": 8,
+                     "launches_in_file_training": file_run["train"].get(fn, 0),
+                     "launches_in_file_eval": file_run["eval"].get(fn, 0)}
         elif name in packed_kernels:  # packed: the packed entry's forward
             entry = {"launches": packed_run.get(fn, 0), **packed_kernels[name],
                      "per_forward_at_batch": 1,
@@ -2482,7 +2754,8 @@ def main() -> int:
                      "per_train_step_at_batch": TRAIN_BATCH}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],
-                     "per_train_step_at_batch": TRAIN_BATCH}
+                     "per_train_step_at_batch": TRAIN_BATCH,
+                     "launches_in_file_training": file_run["train"].get(fn, 0)}
         line["kernels"].append({"name": name, "route": "cuda", "source": src,
                                 "replaces": rep, **entry})
     print(f"total: {time.perf_counter() - t_start:.3f} s")

@@ -17,6 +17,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..utils.code_version import code_version
+
 
 class CheckpointManager:
     """Keeps the ``top_k`` checkpoints with the lowest validation loss and
@@ -94,12 +96,15 @@ def resolve_checkpoint_spec(spec: str, default: CheckpointManager):
 def export_model(path: str, model_conf: Dict[str, Any], model_state,
                  video_state=None, infos: Optional[Dict] = None) -> None:
     """Self-describing bundle: {model_name, model_args, state, infos}, the
-    ``best_model.pth`` analogue; ``load_exported`` reads it back."""
+    ``best_model.pth`` analogue; ``load_exported`` reads it back. ``infos``
+    pins the checkout's ``code_version``, which the evaluation entry checks
+    against the code it runs."""
     bundle = {
         "model_name": "AVNet",
         "model_args": model_conf,
         "state": {"model": model_state, "video_model": video_state or {}},
         "infos": {"software_versions": {"torch": str(torch.__version__)},
+                  "code_version": code_version(),
                   **(infos or {})},
     }
     torch.save(bundle, path)

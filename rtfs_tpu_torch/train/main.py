@@ -11,9 +11,18 @@ epoch LR divide, early stopping, ``metrics.jsonl``, top-5 checkpoints with
 resume, and a final ``best_model.pt`` export. Every dropout mask of the run
 draws from one ``torch.Generator`` seeded from ``--seed``.
 
-Runs on the card unless ``--device cpu``. Only the synthetic dataset is
-ported (``--data.synthetic true``); multi-device training, the threaded
-prefetch loader and TensorBoard are not.
+The data are the LRS2-layout files of ``data.train_dir`` and
+``data.valid_dir`` (``AVSpeechDataset``; ``tools/make_synth_corpus.py``
+writes such a corpus), read through the threaded ``PrefetchLoader`` with
+``training.num_workers`` decode threads (default 8), each batch copied to
+the device from pinned memory; or, with ``--data.synthetic true``, the
+synthetic set. ``conf.json`` and the exported bundle pin the checkout's
+``code_version``. Each epoch's row also gives the train loop's seconds and
+steps, the seconds it waited on the loader (``loader_wait``) and, of
+those, the wait for the epoch's first batch (``loader_first_wait``).
+
+Runs on the card unless ``--device cpu``. Multi-device training, joint
+video training, online mixing and TensorBoard are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..config import build_avnet, build_video_model, load_config
+from ..data.dataset import AVSpeechDataset
+from ..data.loader import PrefetchLoader, WaitTimer, pin_and_copy
 from ..data.synthetic import SyntheticAVDataset
+from ..utils.code_version import code_version
 from ..utils.parser import parse_overrides
 from .checkpoints import CheckpointManager, export_model, resolve_checkpoint_spec
 from .optim import EpochDivideLR, ReduceLROnPlateau, get_lr, make_optimizer, set_lr
@@ -35,18 +47,25 @@ from .system import AVSystem, make_generator
 
 
 def build_datasets(conf: Dict[str, Any]):
-    """(train, val) sets from the ``data`` group (``train.py:24-33``): the
-    synthetic set of ``synthetic_samples`` (default 64) samples."""
+    """(train, val) sets from the ``data`` group (``train.py:24-51``): the
+    synthetic set of ``synthetic_samples`` (default 64) samples, or the
+    manifests of ``train_dir`` and ``valid_dir`` (audio only where the
+    config has no ``videonet``)."""
     data = conf["data"]
-    if not data.get("synthetic"):
-        raise NotImplementedError(
-            "file datasets (AVSpeechDataset) are not ported; pass "
-            "--data.synthetic true")
-    n = data.get("synthetic_samples", 64)
     n_src = conf["audionet"]["n_src"]
-    return (SyntheticAVDataset(n_samples=n, n_src=n_src),
-            SyntheticAVDataset(n_samples=max(n // 4, 4), seed=123,
-                               n_src=n_src))
+    if data.get("synthetic"):
+        n = data.get("synthetic_samples", 64)
+        return (SyntheticAVDataset(n_samples=n, n_src=n_src),
+                SyntheticAVDataset(n_samples=max(n // 4, 4), seed=123,
+                                   n_src=n_src))
+    audio_only = not conf.get("videonet")
+    return tuple(
+        AVSpeechDataset(data[key], n_src=n_src,
+                        sample_rate=data["sample_rate"],
+                        segment=data["segment"],
+                        normalize_audio=data.get("normalize_audio", False),
+                        audio_only=audio_only)
+        for key in ("train_dir", "valid_dir"))
 
 
 def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
@@ -72,7 +91,8 @@ def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
                            conf["log"]["exp_name"])
     os.makedirs(exp_dir, exist_ok=True)
     with open(os.path.join(exp_dir, "conf.json"), "w") as f:
-        json.dump(conf, f, indent=2)
+        # the code state beside the config (train.py:94-98)
+        json.dump({**conf, "code_version": code_version()}, f, indent=2)
 
     train_set, val_set = build_datasets(conf)
     system = build_system(conf, device, seed)
@@ -102,6 +122,11 @@ def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
                            divide_by=tconf.get("divide_lr_by"),
                            period=conf["sche"].get("patience", 0) or 0)
     generator = make_generator(seed, device)
+    num_workers = tconf.get("num_workers") or 8
+    train_loader, val_loader = (
+        PrefetchLoader(d, batch_size, num_workers=num_workers,
+                       place=pin_and_copy(device))
+        for d in (train_set, val_set))
     best_val = float("inf")
     bad_epochs = 0
     patience = 15 if tconf.get("early_stop") else 10**9
@@ -109,14 +134,14 @@ def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
     with open(os.path.join(exp_dir, "metrics.jsonl"), "a") as metrics_log:
         for epoch in range(start_epoch, tconf["epochs"]):
             t0 = time.time()
-            train_losses = [
-                system.train_step(batch, generator)["train_loss"]
-                for batch in train_set.batches(batch_size, seed=seed,
-                                               epoch=epoch)]
-            val_losses = [system.val_step(batch)["val_loss"]
-                          for batch in val_set.batches(batch_size,
-                                                       shuffle=False)]
+            batches = WaitTimer(train_loader.epoch(seed=seed, epoch=epoch))
+            t_train = time.perf_counter()
+            train_losses = [system.train_step(batch, generator)["train_loss"]
+                            for batch in batches]
             train_loss = torch.stack(train_losses).mean().item()
+            t_train = time.perf_counter() - t_train
+            val_losses = [system.val_step(batch)["val_loss"]
+                          for batch in val_loader.epoch(shuffle=False)]
             val_loss = torch.stack(val_losses).mean().item()
 
             lr = get_lr(system.optimizer)
@@ -129,7 +154,10 @@ def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
             row = {"epoch": epoch, "train_loss": train_loss,
                    "val_loss": val_loss, "train_sisnr": -train_loss,
                    "val_sisnr": -val_loss, "learning_rate": lr,
-                   "secs": round(time.time() - t0, 1)}
+                   "secs": round(time.time() - t0, 1),
+                   "train_secs": t_train, "steps": batches.count,
+                   "loader_wait": batches.wait,
+                   "loader_first_wait": batches.first}
             print(json.dumps(row))
             metrics_log.write(json.dumps(row) + "\n")
             metrics_log.flush()
