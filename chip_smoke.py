@@ -150,8 +150,28 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    nothing) matches bs 1, to 1e-3 of max, and every row's si-snr,
    si-snr_i, sdr and sdr_i to 1e-2 dB, stoi to 1e-3 and pesq to 2e-2; it
    prints utterances a second on the card.
+12. bf16 (after phase 11): serving with ``audionet.compute_dtype:
+   "bfloat16"``, K1/K2/K3 forward through their bf16-storage entries. (a)
+   each at the main path's bs-1 and bs-8 sites against its plain bf16
+   version and against the float32 kernel on the same values widened
+   (two bf16 ulps at every element), twice (bit-identical), timed with
+   CUDA events and the profiler's device time a launch beside its bf16
+   bound (bytes at 3.35 TB/s, bf16 tensor-core products at 989 TFLOP/s),
+   the plain version, the float32 kernel and, for K3, one
+   ``conv_transpose1d`` in bf16; (b) ``separate_sample`` at batch 1 and 8
+   on the bf16 model (seed-0 weights rounded): exactly
+   ``BF16_LAUNCHES`` (K1 8 / K2 24 / K3 8 bf16 entries) a forward and no
+   float32 entry, bs 1 against the bf16 model on the CPU to the CPU
+   test's gates, both against the card's float32 forward by SI-SNR,
+   request medians and audio-s/s bf16 and float32 in turns, one profiled
+   bs-8 bf16 forward (device time, idle share, top kernels, the shares of
+   K1/K2/K3, of cuDNN's convolutions, of ATen's depthwise ones and of the
+   matrix products); (c) inside phase 11, on its
+   corpus and bundle with a ``conf.json`` that says bfloat16: the serving
+   entry (against the float32 entry by SI-SNR) and the evaluation entry at
+   bs 1, launching the bf16 entries only, its rows beside phase 11's.
 
-The last lines are the ``kernels`` JSON object (15 kernels), the card
+The last lines are the ``kernels`` JSON object (18 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
 cuDNN and matmuls before any comparison, so every float32 product is full
 float32.
@@ -178,6 +198,8 @@ F32_OPS_PER_S = 67e12
 # dense TF32 tensor-core operations/s; a 3xTF32 product (K2, K3 and K6
 # forward, rtfs_tpu_torch/csrc/tf32x3.cuh) issues three a float32 one
 TF32_OPS_PER_S = 495e12
+# dense bf16 tensor-core operations/s (the bf16 K2 and K3 products)
+BF16_OPS_PER_S = 989e12
 
 PRESET = "lrs2_RTFSNet_4_layer"
 SAMPLES = 32000  # 2 s at 16 kHz
@@ -2463,7 +2485,7 @@ def compare_rows(got: list, want: list, label: str) -> dict:
     return worst
 
 
-def files(conf) -> dict:
+def files(conf, after=None) -> dict:
     """Phase 11: train from files and evaluate. (a) A seed-0 corpus from
     ``tools/make_synth_corpus.py`` (``FILE_CORPUS`` mixtures a split,
     LRS2 layout), one ``tt`` mixture cut short (``SHORT_MIXTURE``). (b)
@@ -2478,7 +2500,9 @@ def files(conf) -> dict:
     ``FILE_EVAL_RUNS`` (8/24/8 a forward on the card): example wavs to
     ``SERVE_REL_TOL`` of max and rows to ``EVAL_ROW_TOL`` for each pair of
     ``FILE_EVAL_PAIRS``. Returns the launches of (c) and of the card's
-    bs-1 evaluation."""
+    bs-1 evaluation, and what ``after(exp_dir, split, runs)`` (phase 12's
+    entries, run on this corpus and bundle before they are deleted)
+    returns, under ``"after"``."""
     import os
     import tempfile
 
@@ -2614,6 +2638,7 @@ def files(conf) -> dict:
             runs[label] = out
             for f in os.listdir(examples):
                 os.remove(os.path.join(examples, f))
+        after_out = after(exp_dir, split, runs) if after else None
     for label, ref in FILE_EVAL_PAIRS:
         got, want = runs[label], runs[ref]
         worst = 0.0
@@ -2629,7 +2654,365 @@ def files(conf) -> dict:
               f"{SERVE_REL_TOL:.0e})")
         compare_rows(got["rows"], want["rows"], f"files: {label} against "
                      f"{ref}")
-    return {"train": train_launches, "eval": runs["card bs 1"]["launches"]}
+    return {"train": train_launches, "eval": runs["card bs 1"]["launches"],
+            "after": after_out}
+
+
+# ---------------------------------------------------------------- phase 12
+# bf16 serving (``audionet.compute_dtype: "bfloat16"``): K1/K2/K3 forward's
+# bf16 entries, each launched as often a forward as the float32 ones
+BF16_LAUNCHES = {"sru_dual_recurrence_fwd_bf16": 2 * REPEATS,
+                 "sru_hidden_layer_fwd_bf16": 2 * REPEATS * 3,
+                 "convt1d_ola_tm_fwd_bf16": 2 * REPEATS}
+# the bf16 kernels' names as the profiler shows them
+BF16_KERNEL_NAMES = {"sru_dual_recurrence_bf16": "sru_lay0_fwd_bf16_kernel",
+                     "sru_hidden_layer_bf16": "sru_hid_fwd_bf16_kernel",
+                     "convt1d_ola_tm_bf16": "convt1d_tm_fwd_bf16_kernel"}
+# the CPU test's whole-model gates (tests/test_torch_bf16_avnet.py): max
+# error as a fraction of max|ref|, SI-SNR in dB; and the card's bf16
+# waveform against its float32 one on the same weights, by SI-SNR
+BF16_MAX_ERR_REL = 3e-2
+BF16_SISNR_DB = 25.0
+BF16_VS_F32_SISNR_DB = 20.0
+# the library kernels of a bf16 forward's profile, by the names they ran
+# under: cuDNN's convolutions, ATen's own depthwise convolution kernels,
+# and the matrix products (attention, the 1x1 convolutions cuDNN hands to
+# a GEMM)
+BF16_PROFILE_GROUPS = {
+    "cuDNN convolutions": ("cudnn", "xmma_fprop", "xmma_dgrad", "xmma_wgrad",
+                           "implicit_convolve", "fft", "winograd"),
+    "ATen depthwise convolutions": ("conv_depthwise",),
+    "matrix products": ("xmma_gemm", "s1688gemm", "wmma_tensorop"),
+}
+
+
+def bf16_ulps(got, want) -> tuple:
+    """(ok, worst ratio, elements that differ): |got - want| <= 2^-7
+    max(|want|, 2^-6), two bf16 ulps, at every element."""
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * torch.clamp(w.abs(), min=2.0 ** -6)
+    ratio = ((g - w).abs() / bound).max().item()
+    return ratio <= 1.0, ratio, int((g != w).sum().item())
+
+
+def bf16_bound_ms(bytes_moved: float, ops: float, product_ops: float):
+    """The bound of a bf16-storage kernel: its bytes at the memory rate, its
+    ``product_ops`` on the tensor cores in bf16 and the rest in float32 on
+    the SIMT units, the two at once."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(product_ops / BF16_OPS_PER_S,
+                (ops - product_ops) / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sisnr_db(est: np.ndarray, ref: np.ndarray) -> float:
+    """The lowest SI-SNR (dB) over the rows of est against ref."""
+    est = est - est.mean(-1, keepdims=True)
+    ref = ref - ref.mean(-1, keepdims=True)
+    proj = (est * ref).sum(-1, keepdims=True) / (ref * ref).sum(
+        -1, keepdims=True) * ref
+    return float((10 * np.log10((proj ** 2).sum(-1)
+                                / ((est - proj) ** 2).sum(-1))).min())
+
+
+def check_bf16_kernels(geo, rng) -> dict:
+    """Phase 12 (a): K1, K2 and K3 forward in bf16 storage at the main
+    path's bs-1 and bs-8 sites, each against its plain bf16 version and
+    against the float32 kernel on the same values widened (two bf16 ulps,
+    ``bf16_ulps``), called twice (bit-identical), timed with CUDA events
+    and the profiler's device time a launch, beside its bf16 bound, its
+    plain version, the float32 kernel at the same site and, for K3, one
+    ``conv_transpose1d`` in bf16. Returns per kernel the worst error and
+    per-forward (batch 8) sums, as phase 3 does."""
+    from rtfs_tpu_torch.ops import convt_tm, sru_fused
+
+    H, C, k = geo["H"], geo["C"], geo["k"]
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).to(bf)
+
+    vb = torch.cat([t((2, 2, H), math.sqrt(1.0 / H)), t((2, 2, H), 0.1)],
+                   dim=1).reshape(8, H)
+    wt = t((6 * H, 2 * H), math.sqrt(1.0 / (2 * H)))
+    w3 = t((k, C, 2 * H), math.sqrt(1.0 / (2 * H * k)))
+    names = {"sru_dual_recurrence": "sru_dual_recurrence_bf16",
+             "sru_hidden_layer": "sru_hidden_layer_bf16",
+             "convt1d_ola_tm": "convt1d_ola_tm_bf16"}
+    res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "library_ms": None, "bound_by": None,
+               "f32_ms": 0.0, "device_us": {}} for n in names.values()}
+    per_forward = {"sru_dual_recurrence": REPEATS,
+                   "sru_hidden_layer": REPEATS * (geo["layers"] - 1),
+                   "convt1d_ola_tm": REPEATS}
+    bs1 = {}
+    for bs in (1, 8):
+        for site in ("freq", "time"):
+            length, per_item = geo[site]
+            bsz = bs * per_item
+            cases = {
+                "sru_dual_recurrence": (
+                    sru_fused.sru_dual_recurrence,
+                    sru_fused.sru_dual_recurrence_plain,
+                    (t((length, 4 * H, bsz)), t((length, 4 * H, bsz)), vb),
+                    2 * (2 * length * 4 * H * bsz + 2 * length * H * bsz
+                         + vb.numel()),
+                    2 * length * H * bsz * 20, 0),
+                "sru_hidden_layer": (
+                    sru_fused.sru_hidden_layer,
+                    sru_fused.sru_hidden_layer_plain,
+                    (t((length, H, bsz), 0.5), t((length, H, bsz), 0.5),
+                     wt, vb),
+                    2 * (4 * length * H * bsz + wt.numel() + vb.numel()),
+                    2 * length * bsz * (3 * H * 2 * H * 2 + 20 * H),
+                    2 * length * bsz * 3 * H * 2 * H * 2),
+                "convt1d_ola_tm": (
+                    convt_tm.convt1d_ola_tm, convt_tm.convt1d_ola_tm_plain,
+                    (t((length, 2 * H, bsz)), w3),
+                    2 * (length * 2 * H * bsz + w3.numel()
+                         + (length + k - 1) * C * bsz),
+                    2 * length * k * 2 * H * C * bsz,
+                    2 * length * k * 2 * H * C * bsz),
+            }
+            for name, (kern, plain, args, nbytes, nops, mm_ops) in \
+                    cases.items():
+                bname = names[name]
+                wide = tuple(a.float() for a in args)
+
+                def stack(out):
+                    return torch.stack(out) if isinstance(out, tuple) else out
+
+                got, again = stack(kern(*args)), stack(kern(*args))
+                want, f32 = stack(plain(*args)), stack(kern(*wide))
+                torch.cuda.synchronize()
+                if got.dtype != bf or not torch.equal(got, again):
+                    raise AssertionError(f"{bname}: two calls differ")
+                ok, ratio, n_diff = bf16_ulps(got, want)
+                ok32, ratio32, n32 = bf16_ulps(got, f32.to(bf))
+                err = (got.float() - want.float()).abs().max().item()
+                ms = time_cuda(lambda: kern(*args), 50)
+                f32_ms = time_cuda(lambda: kern(*wide), 50)
+                plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+                dev_us = _device_us(lambda: kern(*args), BF16_KERNEL_NAMES[
+                    bname], 40)
+                b_ms, b_by = bf16_bound_ms(nbytes, nops, mm_ops)
+                lib_ms = None
+                if name == "convt1d_ola_tm":
+                    x_lib = args[0].permute(2, 1, 0).contiguous()
+                    w_lib = args[1].permute(2, 1, 0).contiguous()
+                    lib_ms = time_cuda(
+                        lambda: torch.nn.functional.conv_transpose1d(
+                            x_lib, w_lib), 50)
+                print(f"bf16 kernel {bname} bs={bs} site={site} L={length} "
+                      f"B={bsz}: against plain bf16 worst {ratio:.3f} of 2 "
+                      f"ulps ({n_diff} of {got.numel()} differ, max_abs_err="
+                      f"{err:.3e}); against the float32 kernel {ratio32:.3f} "
+                      f"of 2 ulps ({n32} differ); ms={ms:.5f} device us a "
+                      f"launch={dev_us:.2f} bound_ms={b_ms:.5f} ({b_by}) "
+                      f"share of bound={b_ms / ms:.3f} plain_ms="
+                      f"{plain_ms:.5f} float32 kernel ms={f32_ms:.5f} "
+                      f"library_ms={lib_ms}; two calls bit-identical")
+                if not (ok and ok32):
+                    raise AssertionError(f"{bname} bs {bs} {site}: beyond 2 "
+                                         "bf16 ulps")
+                r = res[bname]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["device_us"][f"bs{bs} {site}"] = round(dev_us, 3)
+                n = per_forward[name]
+                if bs == 1:
+                    ms_sum, b_sum, f_sum = bs1.get(bname, (0.0, 0.0, 0.0))
+                    bs1[bname] = (ms_sum + n * ms, b_sum + n * b_ms,
+                                  f_sum + n * f32_ms)
+                if bs == 8:
+                    r["ms"] += n * ms
+                    r["plain_ms"] += n * plain_ms
+                    r["bound_ms"] += n * b_ms
+                    r["f32_ms"] += n * f32_ms
+                    r["bound_by"] = b_by
+                    if lib_ms is not None:
+                        r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+    for name, r in res.items():
+        print(f"bf16 kernel {name}: per bs-8 forward ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) share of "
+              f"bound={r['bound_ms'] / r['ms']:.3f} plain_ms="
+              f"{r['plain_ms']:.2f} float32 kernel ms={r['f32_ms']:.4f} "
+              f"library_ms={r['library_ms']}; per bs-1 forward "
+              f"ms={bs1[name][0]:.4f} bound_ms={bs1[name][1]:.4f} float32 "
+              f"kernel ms={bs1[name][2]:.4f}; device us a launch "
+              f"{r['device_us']}")
+        del r["f32_ms"], r["device_us"]
+    return res
+
+
+def bf16_serve(conf, rng) -> dict:
+    """Phase 12 (b): ``separate_sample`` on the bf16 RTFS-Net-4 (seed-0
+    weights rounded to bf16) at batch 1 and 8 on the card: exactly
+    ``BF16_LAUNCHES`` a forward and no float32 entry of K1-K3; the bs-1
+    output held against the same bf16 model on the CPU (the plain bf16
+    versions) to the CPU test's gates, both against the card's float32
+    forward on the same weights by SI-SNR; request medians, bf16 and
+    float32 in turns, and one profiled bs-8 bf16 forward. Returns the
+    launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtfs_tpu_torch.config import build_avnet
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.utils.separator import separate_sample
+
+    conf16 = dict(conf, audionet=dict(conf["audionet"],
+                                      compute_dtype="bfloat16"))
+    model16 = build_avnet(conf16, device="cuda", seed=0)
+    model32 = build_avnet(conf, device="cuda", seed=0)
+    cpu16 = build_avnet(conf16, device="cpu", seed=0)
+    requests = {}
+    for bs in (1, 8):
+        wav = (rng.standard_normal((bs, SAMPLES)) * 0.1).astype(np.float32)
+        mouth = rng.standard_normal((bs, VIDEO_FRAMES, 512)).astype(np.float32)
+        requests[bs] = (wav, mouth)
+
+    # the main path: counts from 0, the bs-1 and bs-8 requests, read
+    kernel_lib.reset_launches()
+    outs = {bs: separate_sample(model16, *requests[bs]) for bs in (1, 8)}
+    torch.cuda.synchronize()
+    launches = dict(kernel_lib.LAUNCHES)
+    print(f"bf16 serving: launches over 2 forwards: {launches}")
+    if launches != {k: 2 * v for k, v in BF16_LAUNCHES.items()}:
+        raise AssertionError(f"bf16 serving: launches {launches}, expected "
+                             f"{BF16_LAUNCHES} a forward and no other")
+    for bs, (wav, mouth) in requests.items():
+        got = outs[bs]
+        if (got.dtype != np.float32 or got.shape != (bs, 1, SAMPLES)
+                or not np.isfinite(got).all()):
+            raise AssertionError(f"bf16 serving bs {bs}: bad output")
+        f32 = separate_sample(model32, wav, mouth)
+        vs32 = sisnr_db(got[:, 0], f32[:, 0])
+        line = (f"bf16 serving: bs={bs} card bf16 against card float32 "
+                f"SI-SNR {vs32:.2f} dB (gate {BF16_VS_F32_SISNR_DB})")
+        if bs == 1:
+            t0 = time.perf_counter()
+            want = separate_sample(cpu16, wav, mouth)
+            cpu_s = time.perf_counter() - t0
+            err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+            snr = sisnr_db(got[:, 0], want[:, 0])
+            line += (f"; against the CPU's bf16 max_abs_err {err:.3e} of "
+                     f"max|out| (gate {BF16_MAX_ERR_REL}), SI-SNR {snr:.2f} "
+                     f"dB (gate {BF16_SISNR_DB}); CPU float32-vs-bf16 "
+                     f"SI-SNR {sisnr_db(want[:, 0], f32[:, 0]):.2f} dB; CPU "
+                     f"bf16 forward {cpu_s:.3f} s")
+            if not (err <= BF16_MAX_ERR_REL and snr >= BF16_SISNR_DB):
+                raise AssertionError(line)
+        print(line)
+        if not vs32 >= BF16_VS_F32_SISNR_DB:
+            raise AssertionError(line)
+
+    for bs, iters in ((1, 20), (8, 10)):
+        wav, mouth = requests[bs]
+        times = {"float32": [], "bf16": []}
+        for m in (model32, model16):  # warm
+            separate_sample(m, wav, mouth)
+        for i in range(2 * iters):  # float32, bf16, bf16, float32, ...
+            key = "bf16" if (i % 4) in (1, 2) else "float32"
+            t0 = time.perf_counter()
+            separate_sample(model16 if key == "bf16" else model32, wav, mouth)
+            times[key].append(time.perf_counter() - t0)
+        for key, ts in times.items():
+            med = statistics.median(ts)
+            print(f"bf16 serving latency: bs={bs} {key} median="
+                  f"{med * 1e3:.3f} ms min={min(ts) * 1e3:.3f} ms max="
+                  f"{max(ts) * 1e3:.3f} ms over {len(ts)}; audio s/s="
+                  f"{bs * SAMPLES / 16000 / med:.3f}")
+
+    wav, mouth = requests[8]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        separate_sample(model16, wav, mouth)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, _ = device_kernels(prof)
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    print(f"bf16 serving profile: bs=8 forward wall {wall_ms:.3f} ms, device "
+          f"{dev_ms:.3f} ms, idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
+    for e in kernels[:10]:
+        print(f"bf16 serving profile: top kernel {dev_us(e) / 1e3:8.3f} ms "
+              f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<4d} {e.key[:90]}")
+    groups = {name: (part,) for name, part in BF16_KERNEL_NAMES.items()}
+    groups.update(BF16_PROFILE_GROUPS)
+    for group, parts in groups.items():
+        picked = [e for e in kernels if any(a in e.key for a in parts)]
+        ms = sum(dev_us(e) for e in picked) / 1e3
+        print(f"bf16 serving profile: {group}: {ms:.3f} ms, share "
+              f"{ms / dev_ms:.3f} of the device time, {len(picked)} kernels "
+              f"{sorted({e.key[:48] for e in picked})[:6]}")
+    return launches
+
+
+def bf16_entries(conf, exp_dir, split, runs) -> dict:
+    """Phase 12 (c), on phase 11's corpus and bundle: ``conf_bf16.json``
+    beside its ``best_model.pt`` (the run's config with compute_dtype
+    bfloat16; the float32 weights are rounded at load), the serving entry
+    on one ``tt`` mixture and the evaluation entry on ``tt`` at bs 1, on
+    the card: exactly ``BF16_LAUNCHES`` a forward, the serving entry's
+    estimate against the float32 entry's by SI-SNR, the evaluation's mean
+    row beside phase 11's float32 one (its rows printed beside each
+    other). Returns the launches of the evaluation."""
+    import os
+
+    from rtfs_tpu_torch import inference
+    from rtfs_tpu_torch import test as eval_entry
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    with open(os.path.join(exp_dir, "conf.json")) as f:
+        run_conf = json.load(f)
+    run_conf["audionet"]["compute_dtype"] = "bfloat16"
+    conf16 = os.path.join(exp_dir, "conf_bf16.json")
+    with open(conf16, "w") as f:
+        json.dump(run_conf, f)
+    with open(os.path.join(split["tt"], "mix.json")) as f:
+        wav_path = json.load(f)[0][0]
+    with open(os.path.join(split["tt"], "s1.json")) as f:
+        mouth_path = json.load(f)[0][1]
+    ests = {}
+    for label, path in (("float32", os.path.join(exp_dir, "conf.json")),
+                        ("bf16", conf16)):
+        kernel_lib.reset_launches()
+        ests[label] = inference.main([
+            "--conf-dir", path, "--wav", wav_path, "--mouth", mouth_path,
+            "--out-dir", os.path.join(exp_dir, f"separated_{label}")])
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)
+        if label == "bf16" and launches != BF16_LAUNCHES:
+            raise AssertionError(f"bf16 inference entry: launches {launches}")
+    snr = sisnr_db(ests["bf16"], ests["float32"])
+    print(f"bf16 entries: inference entry launches {launches}, estimate "
+          f"against the float32 entry's SI-SNR {snr:.2f} dB (gate "
+          f"{BF16_VS_F32_SISNR_DB})")
+    if not snr >= BF16_VS_F32_SISNR_DB:
+        raise AssertionError("bf16 inference entry far from float32")
+    kernel_lib.reset_launches()
+    out = eval_entry.main(["--conf-dir", conf16, "--test-dir", split["tt"],
+                           "--batch-size", "1"])
+    torch.cuda.synchronize()
+    launches = dict(kernel_lib.LAUNCHES)
+    n = out["utterances"]
+    if launches != {k: n * v for k, v in BF16_LAUNCHES.items()}:
+        raise AssertionError(f"bf16 eval entry: launches {launches}")
+    f32 = runs["card bs 1"]
+    print(f"bf16 entries: eval {n} utterances at bs 1, {n / out['secs']:.3f} "
+          f"utterances/s with the metrics, {n / out['forward_secs']:.3f} in "
+          f"the forward alone; launches {launches}")
+    print(f"bf16 entries: mean bf16 "
+          f"{ {k: round(v, 4) for k, v in out['mean'].items()} }; float32 "
+          f"(phase 11) { {k: round(v, 4) for k, v in f32['mean'].items()} }")
+    for g, w in zip(out["rows"], f32["rows"], strict=True):
+        if g["snt_id"] != w["snt_id"] or not all(
+                math.isfinite(g[k]) for k in EVAL_ROW_TOL):
+            raise AssertionError(f"bf16 eval row {g}")
+        print(f"bf16 entries: row {g['snt_id'][:40]}: bf16 "
+              f"{ {k: round(g[k], 3) for k in EVAL_ROW_TOL} } float32 "
+              f"{ {k: round(w[k], 3) for k in EVAL_ROW_TOL} }")
+    return launches
+
 
 
 def main() -> int:
@@ -2678,7 +3061,10 @@ def main() -> int:
     k4, uni_served, uni_trained = phase("10 unidirectional", unidirectional,
                                         conf_uni, geo, rng)
     phase("wide", wide, geo, rng)
-    file_run = phase("11 files", files, conf)
+    file_run = phase("11 files", files, conf, lambda *run: phase(
+        "12c bf16 entries", bf16_entries, conf, *run))
+    bf16_kernels = phase("12a bf16 kernels", check_bf16_kernels, geo, rng)
+    bf16_launches = phase("12b bf16 serving", bf16_serve, conf, rng)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
     phase("9b, 10e K5-wgrad, pw-wgrad, K4 forward device time",
           profile_redesigned, conf, geo, rng)
@@ -2730,6 +3116,15 @@ def main() -> int:
         "sru_recurrence_bwd": ("rtfs_tpu_torch/csrc/sru_scan.cuh",
                                "rtfs_tpu/ops/sru_pallas.py:91",
                                "sru_recurrence_bwd"),
+        "sru_dual_recurrence_bf16": ("rtfs_tpu_torch/csrc/sru_fused.cu",
+                                     "rtfs_tpu/ops/sru_fused.py:108",
+                                     "sru_dual_recurrence_fwd_bf16"),
+        "sru_hidden_layer_bf16": ("rtfs_tpu_torch/csrc/sru_fused.cu",
+                                  "rtfs_tpu/ops/sru_fused.py:400",
+                                  "sru_hidden_layer_fwd_bf16"),
+        "convt1d_ola_tm_bf16": ("rtfs_tpu_torch/csrc/convt_tm.cu",
+                                "rtfs_tpu/ops/convt_tm.py:38",
+                                "convt1d_ola_tm_fwd_bf16"),
     }
     line = {"kernels": []}
     for name, (src, rep, fn) in sources.items():
@@ -2752,6 +3147,10 @@ def main() -> int:
         elif name == "sru_recurrence_bwd":  # K4: the uni steps, bs 4
             entry = {"launches": uni_trained.get(fn, 0), **k4[name],
                      "per_train_step_at_batch": TRAIN_BATCH}
+        elif name in bf16_kernels:  # bf16: phase 12's serving run, bs 8
+            entry = {"launches": bf16_launches.get(fn, 0),
+                     **bf16_kernels[name], "per_forward_at_batch": 8,
+                     "launches_in_bf16_eval": file_run["after"].get(fn, 0)}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],
                      "per_train_step_at_batch": TRAIN_BATCH,

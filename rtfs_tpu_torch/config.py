@@ -15,6 +15,8 @@ import torch
 
 from .models.avnet import AVNet, init_weights
 from .models.video import FRCNNVideoModel
+from .ops.sru import SRU
+from .utils.precision import cast_params, compute_dtype
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 
@@ -61,15 +63,27 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     weights from ``seed`` with a CPU ``torch.Generator`` (the same weights on
     every device), and move it to ``device`` in eval mode.
 
+    ``audionet.compute_dtype`` ``"bfloat16"`` builds the bf16 serving model:
+    the float32 weights drawn, then rounded to bf16 by ``cast_params`` (JAX's
+    ``replace(model, compute_dtype="bfloat16")`` with ``cast_params``); a
+    float32 state loaded into it later is rounded the same way. bf16 serves
+    the standard layout through K1-K3's bf16 kernels: it raises
+    NotImplementedError with ``packed_tf`` (K5-K9 take float32 only) and
+    with any SRU off the fused stack (unidirectional, through K4).
+
     Raises if ``device`` is CUDA and no GPU is present: there is no CPU
     fallback. Pass ``device="cpu"`` for the CPU path.
     """
     device = _device(device, "build_avnet")
     a = conf["audionet"]
-    if a.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError("rtfs_tpu_torch serves float32 only")
+    dtype = compute_dtype(a.get("compute_dtype", "float32"))
     if a.get("batch_fold", 1) != 1:
         raise NotImplementedError("batch_fold is not ported")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and a.get("packed_tf", False):
+        raise NotImplementedError(
+            "compute_dtype bfloat16 with packed_tf: the packed kernels K5-K9 "
+            "take float32 only")
     model = AVNet(
         n_src=a["n_src"],
         enc_dec_params=a["enc_dec_params"],
@@ -81,8 +95,16 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
         video_params=a.get("video_params", {}),
         fusion_params=a.get("fusion_params", {}),
         packed_tf=a.get("packed_tf", False),
+        compute_dtype=dtype,
     )
+    if bf16 and any(isinstance(m, SRU) and not m.uses_fused_stack
+                    for m in model.modules()):
+        raise NotImplementedError(
+            "compute_dtype bfloat16 with an SRU off the fused stack "
+            "(unidirectional, through K4): K4 takes float32 only")
     init_weights(model, torch.Generator().manual_seed(seed))
+    if bf16:
+        cast_params(model)
     return model.to(device).eval()
 
 

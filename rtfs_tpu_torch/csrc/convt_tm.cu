@@ -1,9 +1,12 @@
 // Time-major ConvTranspose1d (stride 1, padding 0) for Hopper (sm_90a),
-// float32.
+// float32, and the forward also in bf16 storage.
 //
 // K3  convt1d_ola_tm_fwd  replaces the Pallas kernel _fwd_kernel
 //     (rtfs_tpu/ops/convt_tm.py, called from convt1d_ola_tm): the
-//     back-projection at the tail of every DualPathRNN.
+//     back-projection at the tail of every DualPathRNN;
+//     convt1d_ola_tm_fwd_bf16 the same kernel on bf16 operands (what
+//     bounds it: at the preset's 2H 64 and k 8, bf16 halves the bytes, so
+//     ~256 flops a byte, near the card's bf16 ratio of ~295).
 // K3  convt1d_ola_tm_bwd  replaces the Pallas kernel _bwd_kernel
 //     (rtfs_tpu/ops/convt_tm.py, called from _vjp_bwd): its VJP.
 //
@@ -83,6 +86,7 @@
 //     give the same bits.
 // The backward's products run in full float32 on the SIMT units.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
@@ -288,6 +292,179 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     hk::cp_async_wait_all();
     __syncthreads();  // the next pass's rows are in; this pass's are free
   }
+}
+
+// Shared memory of the bf16 forward kernel in bytes at Ci input and Co
+// output channels a block: W_flat in bf16 (C_out padded to 16 rows of k *
+// C_in' + 8, C_in' = C_in padded to 16, the k16 step) and the ring of K +
+// 2 kFwdPass - 1 bf16 x rows (C_in' x kFwdCols each).
+__host__ __device__ __forceinline__ int fwd_bf16_smem_bytes(int K, int Ci,
+                                                            int Co) {
+  const int cp = round_up(Ci, 16);
+  return 2 * (round_up(Co, 16) * (K * cp + 8)
+              + (K + 2 * kFwdPass - 1) * cp * kFwdCols);
+}
+
+// Element (i, c) of a bf16 x row in its ring slot: rows of kFwdCols
+// values, the two 8-value halves swapped on rows 4..7 mod 8, so that a B
+// fragment's 2-byte reads (rows 2q and 2q+1, columns g of 8) meet 16
+// distinct banks, two lanes to a word; 8-value groups (a 16-byte copy)
+// stay together.
+__device__ __forceinline__ int ring16_at(int i, int c) {
+  return i * kFwdCols + (c ^ (((i >> 2) & 1) << 3));
+}
+
+// K3 forward in bf16 storage (x, W and out bf16): the float32 kernel's
+// blocks, passes, ring and warp tiles, with each product one bf16 mma.sync
+// m16n8k16 into a float32 accumulator, JAX's bf16 dot with a float32
+// result. The k16 steps run over one tap's C_in' channels. An A register
+// (W_flat, rows of K C_in' + 8 bf16, 4 mod 8 words) is one aligned 4-byte
+// read; a B register pairs x rows i and i + 1 of one column, two 2-byte
+// reads. x rows are copied w values at a time, w the largest of 8, 4, 2
+// dividing B (16-, 8-, 4-byte cp.async), else by plain loads; W's rows
+// likewise by Ci. With one input slice the block rounds its sums to bf16
+// once and writes out; with several it writes float32 partials, which
+// convt1d_tm_sum_bf16_kernel adds in order and rounds once.
+template <int KT>
+__global__ void __launch_bounds__(kThreads)
+convt1d_tm_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x16,
+                           const __nv_bfloat16* __restrict__ w16,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ part, int L, int Ci, int Co,
+                           int k_taps, int B, int steps, int ci_slice) {
+  extern __shared__ float4 smem4[];
+  const int K = KT > 0 ? KT : k_taps;
+  const int n_in = (Ci + ci_slice - 1) / ci_slice;
+  const int ci0 = blockIdx.z % n_in * ci_slice;
+  const int co0 = blockIdx.z / n_in * kMaxOut;
+  const int ci_n = min(ci_slice, Ci - ci0), co_n = min(kMaxOut, Co - co0);
+  const int cp = round_up(ci_n, 16), kt = K * cp, ws = kt + 8;
+  const int rows = round_up(co_n, 16), slots = K + 2 * kFwdPass - 1;
+  unsigned short* w_s = reinterpret_cast<unsigned short*>(smem4);
+  unsigned short* ring = w_s + rows * ws;  // (slots, cp, kFwdCols)
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kFwdCols;
+  const int t_out = L + K - 1;
+  const int t0 = blockIdx.y * steps, t1 = min(t_out, t0 + steps);
+  const int slot_len = cp * kFwdCols;
+  const int vx = B % 8 == 0 ? 8 : B % 4 == 0 ? 4 : B % 2 == 0 ? 2 : 1;
+  const int vw = Ci % 8 == 0 ? 8 : Ci % 4 == 0 ? 4 : Ci % 2 == 0 ? 2 : 1;
+  const unsigned short* x =
+      reinterpret_cast<const unsigned short*>(x16) + (long long)ci0 * B;
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(w16) +
+                            (long long)co0 * Ci + ci0;
+  const bool split = n_in > 1;
+  const long long out_off = (long long)co0 * B;
+  float* pz = split ? part + (long long)(blockIdx.z % n_in) * t_out * Co * B
+                    : nullptr;
+
+  auto load_row = [&](int r) {
+    unsigned short* dst = ring + (r + slots) % slots * slot_len;
+    const bool on = r >= 0 && r < L;
+    const unsigned short* src = x + (long long)(on ? r : 0) * Ci * B + b0;
+    for (int e = vx * tid; e < cp * kFwdCols; e += vx * kThreads) {
+      const int i = e / kFwdCols, c = e % kFwdCols;
+      const bool ok = on && i < ci_n && b0 + c < B;
+      hk::copy_bf16(dst + ring16_at(i, c), ok ? src + (long long)i * B + c : x,
+                    vx, ok);
+    }
+  };
+  for (int e = vw * tid; e < rows * kt; e += vw * kThreads) {
+    const int o = e / kt, j = e % kt / cp, i = e % cp;
+    const bool ok = o < co_n && i < ci_n;
+    hk::copy_bf16(w_s + o * ws + e % kt,
+                  ok ? w + ((long long)j * Co + o) * Ci + i : w, vw, ok);
+  }
+  for (int r = t0 - K + 1; r < t0 + kFwdPass; ++r) load_row(r);
+  hk::cp_async_commit();
+  hk::cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = tid >> 5, m0 = (warp >> 1) * 16, n0 = (warp & 1) * 8;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  // the lane's A registers (rows m0+g, m0+g+8; k 2q, 2q+8 of a k16 step)
+  // and B halves (k rows 2q, 2q+1, 2q+8, 2q+9; column n0+g)
+  const unsigned short* wl = w_s + (m0 + g) * ws + 2 * q;
+  const int w8 = 8 * ws;
+  const int xb[4] = {ring16_at(2 * q, n0 + g), ring16_at(2 * q + 1, n0 + g),
+                     ring16_at(2 * q + 8, n0 + g),
+                     ring16_at(2 * q + 9, n0 + g)};
+  for (int t = t0; t < t1; t += kFwdPass) {
+    if (t + kFwdPass < t1)
+      for (int r = t + kFwdPass; r < t + 2 * kFwdPass; ++r) load_row(r);
+    hk::cp_async_commit();
+    if (m0 < co_n) {  // uniform over the warp
+      float acc[kFwdPass][4];
+#pragma unroll
+      for (int p = 0; p < kFwdPass; ++p)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[p][v] = 0.f;
+      const int s_t = (t + slots) % slots;  // row t's slot
+      for (int i0 = 0; i0 < cp; i0 += 16) {
+        // B registers of row t+p (step p >= 1 at tap 0)
+        uint32_t xb_p[kFwdPass][2];
+#pragma unroll
+        for (int p = 1; p < kFwdPass; ++p) {
+          const int sp = s_t + p < slots ? s_t + p : s_t + p - slots;
+          const unsigned short* r = ring + sp * slot_len + i0 * kFwdCols;
+          xb_p[p][0] = hk::pack_bf16(r[xb[0]], r[xb[1]]);
+          xb_p[p][1] = hk::pack_bf16(r[xb[2]], r[xb[3]]);
+        }
+        int sj = s_t;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const unsigned short* rx = ring + sj * slot_len + i0 * kFwdCols;
+          const unsigned short* ra = wl + j * cp + i0;
+          uint32_t a[4];
+          a[0] = *reinterpret_cast<const uint32_t*>(ra);
+          a[1] = *reinterpret_cast<const uint32_t*>(ra + w8);
+          a[2] = *reinterpret_cast<const uint32_t*>(ra + 8);
+          a[3] = *reinterpret_cast<const uint32_t*>(ra + w8 + 8);
+          xb_p[0][0] = hk::pack_bf16(rx[xb[0]], rx[xb[1]]);
+          xb_p[0][1] = hk::pack_bf16(rx[xb[2]], rx[xb[3]]);
+#pragma unroll
+          for (int p = 0; p < kFwdPass; ++p) hk::mma_bf16(acc[p], a, xb_p[p]);
+#pragma unroll
+          for (int p = kFwdPass - 1; p > 0; --p) {
+            xb_p[p][0] = xb_p[p - 1][0];
+            xb_p[p][1] = xb_p[p - 1][1];
+          }
+          sj = sj == 0 ? slots - 1 : sj - 1;
+        }
+      }
+      const int c = b0 + n0 + 2 * q;
+#pragma unroll
+      for (int p = 0; p < kFwdPass; ++p) {
+        if (t + p >= t1) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = m0 + g + 8 * h;
+          if (o >= co_n) continue;
+          const long long at = ((long long)(t + p) * Co + o) * B + c + out_off;
+          if (split) {
+            if (c < B) pz[at] = acc[p][2 * h];
+            if (c + 1 < B) pz[at + 1] = acc[p][2 * h + 1];
+          } else {
+            if (c < B) out[at] = __float2bfloat16_rn(acc[p][2 * h]);
+            if (c + 1 < B) out[at + 1] = __float2bfloat16_rn(acc[p][2 * h + 1]);
+          }
+        }
+      }
+    }
+    hk::cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+// out[e] = bf16(sum_{p < n_parts} part[p][e]), p in order, rounded once.
+__global__ void convt1d_tm_sum_bf16_kernel(const float* __restrict__ part,
+                                           __nv_bfloat16* __restrict__ out,
+                                           int n_parts, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < n_parts; ++p) s += part[(long long)p * n + e];
+  out[e] = __float2bfloat16_rn(s);
 }
 
 // Shared memory of the dx kernel in floats at co_slice output channels a
@@ -559,6 +736,43 @@ extern "C" int convt1d_ola_tm_fwd(const void* x, const void* w, void* out,
     const int n = (L + K - 1) * Co * B;
     convt1d_tm_sum_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
         (const float*)part, (float*)out, n_in, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3 forward in bf16 storage: as convt1d_ola_tm_fwd, ci_slice a multiple
+// of 16 (or all of Ci); part ((L + K - 1) * Co * B float32 values a slice)
+// is scratch for the partial sums where ci_slice < Ci. x and w 16-byte
+// aligned.
+extern "C" int convt1d_ola_tm_fwd_bf16(const void* x, const void* w, void* out,
+                                       void* part, int L, int Ci, int Co,
+                                       int K, int B, int steps, int ci_slice,
+                                       void* stream) {
+  if (steps < 1 || ci_slice < 1 || (ci_slice < Ci && ci_slice % 16 != 0) ||
+      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_in = ceil_div(Ci, ci_slice), n_out = ceil_div(Co, kMaxOut);
+  if (n_in > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)fwd_bf16_smem_bytes(K, min(ci_slice, Ci), min(Co, kMaxOut));
+  const void* kernel = K == 8 ? (const void*)convt1d_tm_fwd_bf16_kernel<8>
+                              : (const void*)convt1d_tm_fwd_bf16_kernel<0>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(ceil_div(B, kFwdCols), ceil_div(L + K - 1, steps), n_in * n_out);
+  if (K == 8)
+    convt1d_tm_fwd_bf16_kernel<8><<<grid, kThreads, smem, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+        (__nv_bfloat16*)out, (float*)part, L, Ci, Co, K, B, steps, ci_slice);
+  else
+    convt1d_tm_fwd_bf16_kernel<0><<<grid, kThreads, smem, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+        (__nv_bfloat16*)out, (float*)part, L, Ci, Co, K, B, steps, ci_slice);
+  if (n_in > 1) {
+    const int n = (L + K - 1) * Co * B;
+    convt1d_tm_sum_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
+        (const float*)part, (__nv_bfloat16*)out, n_in, n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,15 @@
-// Fused bidirectional SRU stack kernels for Hopper (sm_90a), float32.
+// Fused bidirectional SRU stack kernels for Hopper (sm_90a), float32, and
+// the forwards also in bf16 storage (the Pallas kernels run in the
+// caller's dtype; bf16 is the JAX package's serving mode).
 //
 // K1  sru_dual_recurrence_fwd  replaces the Pallas kernel _lay0_fwd_kernel
-//     (rtfs_tpu/ops/sru_fused.py, called from sru_dual_recurrence).
+//     (rtfs_tpu/ops/sru_fused.py, called from sru_dual_recurrence);
+//     sru_dual_recurrence_fwd_bf16 the same kernel on bf16 operands.
 // K1  sru_dual_recurrence_bwd  replaces the Pallas kernel _lay0_bwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from _lay0_vjp_bwd).
 // K2  sru_hidden_layer_fwd     replaces the Pallas kernel _hid_fwd_kernel
-//     (rtfs_tpu/ops/sru_fused.py, called from sru_hidden_layer).
+//     (rtfs_tpu/ops/sru_fused.py, called from sru_hidden_layer);
+//     sru_hidden_layer_fwd_bf16 the same kernel on bf16 operands.
 // K2  sru_hidden_layer_bwd     replaces the Pallas kernel _hid_bwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from _hid_vjp_bwd).
 //
@@ -111,6 +115,7 @@
 // two blocks an SM), one (v, b) partial a scan block; the wrapper
 // allocates them.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "sru_scan.cuh"
@@ -217,6 +222,95 @@ sru_lay0_fwd_kernel(const float* __restrict__ u_f,
     h[(long long)t * row + col] = r * c + (1.f - r) * hw;
     if (cs) cs[(long long)t * row + col] = c;
     issue(i + kLay0Ahead);  // into the slot just read (its values used)
+  }
+}
+
+// K1 forward in bf16 storage (u, vb, h and c bf16; the arithmetic and the
+// carry c in float32, only the stored h and c rounded, as the Pallas
+// kernel keeps its carries in float32 scratch). cp.async has no 2-byte
+// copy, so a thread cannot fetch its own value: a warp, one unit and 32
+// consecutive columns b0 .. b0+31 (cols is a multiple of 32), fetches its
+// 32 values of a gate row together as the 16-byte blocks that cover them,
+// five at most, lanes 0..19 one block each (gate lane / 5, block lane %
+// 5), into the warp's ring (kLay0Ahead slots of 4 gate rows of kLay0Span
+// values). A row's values start e0 % 8 values into its first block (e0
+// the element index of the warp's first value; u's base is 16-byte
+// aligned, which the wrapper guarantees), so each lane reads its value
+// shifted by that offset; a block that runs past the end of u is read only
+// up to the end and zero-filled after it. Each lane still keeps the next
+// kLay0Ahead steps' copies in flight, one commit group a step; the warp
+// waits for step i's group, meets at a __syncwarp (the other lanes' copies
+// are in), reads, meets again (everyone has read the slot) and issues step
+// i + kLay0Ahead into it. Lanes past B compute on whatever lies there and
+// store nothing.
+constexpr int kLay0Span = 40;  // 5 blocks of 8 bf16
+
+__global__ void __launch_bounds__(kLay0Threads)
+sru_lay0_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u_f,
+                         const __nv_bfloat16* __restrict__ u_r,
+                         const __nv_bfloat16* __restrict__ vb,
+                         __nv_bfloat16* __restrict__ h_f,
+                         __nv_bfloat16* __restrict__ h_r,
+                         __nv_bfloat16* __restrict__ c_f,
+                         __nv_bfloat16* __restrict__ c_r, int T, int H, int B,
+                         int cols) {
+  extern __shared__ __align__(16) unsigned short ring16[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * cols + threadIdx.x % cols;
+  const int j = blockIdx.y * (blockDim.x / cols) + threadIdx.x / cols;
+  const int dir = blockIdx.z;
+  if (j >= H) return;  // the whole warp: one unit
+  const int b0 = b - lane;
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(
+      dir == 0 ? u_f : u_r);
+  __nv_bfloat16* h = dir == 0 ? h_f : h_r;
+  __nv_bfloat16* cs = dir == 0 ? c_f : c_r;  // null when serving
+  const float v_f = __bfloat162float(vb[(dir * 4 + 0) * H + j]);
+  const float v_r = __bfloat162float(vb[(dir * 4 + 1) * H + j]);
+  const float b_f = __bfloat162float(vb[(dir * 4 + 2) * H + j]);
+  const float b_r = __bfloat162float(vb[(dir * 4 + 3) * H + j]);
+  const long long row = (long long)H * B;  // one gate block per step
+  const long long total = (long long)T * 4 * row;
+  const long long col = (long long)j * B + b0;
+  unsigned short* mine = ring16 + warp * kLay0Ahead * 4 * kLay0Span;
+  const int cg = lane / 5, ck = lane % 5;  // the lane's gate and block
+  // scan step i into slot i % kLay0Ahead, one commit group (empty past T)
+  auto issue = [&](int i) {
+    if (i < T && lane < 20) {
+      const int t = dir == 0 ? i : T - 1 - i;
+      const long long e0 = (long long)t * 4 * row + cg * row + col;
+      const long long src = (e0 & ~7LL) + 8 * ck;
+      const long long left = total - src;
+      const int bytes = left >= 8 ? 16 : (left > 0 ? 2 * (int)left : 0);
+      hk::cp_async16_n(mine + ((i % kLay0Ahead) * 4 + cg) * kLay0Span + 8 * ck,
+                       bytes > 0 ? u + src : u, bytes);
+    }
+    hk::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kLay0Ahead; ++i) issue(i);
+  float c = 0.f;
+  for (int i = 0; i < T; ++i) {
+    hk::cp_async_wait<kLay0Ahead - 1>();  // step i's group is in
+    __syncwarp();                          // and the other lanes'
+    const int t = dir == 0 ? i : T - 1 - i;
+    const long long e0 = (long long)t * 4 * row + col;
+    const unsigned short* d = mine + (i % kLay0Ahead) * 4 * kLay0Span + lane;
+    float a[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      a[g] = __bfloat162float(__ushort_as_bfloat16(
+          d[g * kLay0Span + (int)((e0 + g * row) & 7)]));
+    __syncwarp();           // every lane has read the slot
+    issue(i + kLay0Ahead);  // into the slot just read
+    const float f = sigmoid_f(a[1] + v_f * c + b_f);
+    c = f * c + (1.f - f) * a[0];
+    const float r = sigmoid_f(a[2] + v_r * c + b_r);
+    if (b < B) {
+      h[(long long)t * row + col + lane] =
+          __float2bfloat16_rn(r * c + (1.f - r) * a[3]);
+      if (cs) cs[(long long)t * row + col + lane] = __float2bfloat16_rn(c);
+    }
   }
 }
 
@@ -601,6 +695,222 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   }
 }
 
+// Shared memory of the bf16 K2 forward in bytes (N columns a chunk, U
+// units a block): W_d's rows of those units in bf16 (3U rows padded to 8 *
+// kFwdNB, of 2H padded to 16, + 8), two bf16 X slots (2H' rows of N + 8)
+// and two float32 U slots (3U' rows of N + 4), as the float32 kernel's,
+// U's slots unchanged (the product's result is float32).
+__host__ __device__ __forceinline__ int hid_fwd_bf16_smem_bytes(int H, int N,
+                                                                int U) {
+  const int k16 = round_up(2 * H, 16), rows = round_up(3 * U, 8 * kFwdNB);
+  return 2 * (rows * (k16 + 8) + 2 * k16 * (N + 8)) + 4 * 2 * rows * (N + 4);
+}
+
+// K2 forward in bf16 storage (x, W^T, vb, h and c bf16): the float32
+// kernel's blocks, chunks and scan, with the projection one bf16 mma.sync
+// m16n8k16 a fragment pair with a float32 accumulator, exactly JAX's bf16
+// dot with a float32 result (no 3xTF32 split: the products of bf16 values
+// are exact). U stays float32 in shared memory; the gates and the carry
+// are float32; h and c are rounded to bf16 as they are stored. X's rows
+// are staged as in the float32 kernel ([k][column], rows of N + 8 bf16):
+// an A fragment's register pairs two k rows, so each half is read apart
+// (two 2-byte loads and a pack), 8q + g/2 banks apart, conflict-free. W_d
+// stays [o][k] with rows of 2H' + 8 bf16 (4 mod 8 words), so a B
+// register is one aligned 4-byte read, conflict-free. X's chunk is copied
+// w values at a time, w the largest of 8, 4, 2 that divides bt and B (16-,
+// 8- or 4-byte cp.async), or by plain loads where B is odd or bt is 1 (no
+// 2-byte cp.async); W_d's rows (2H values, so every row starts on a 4-byte
+// boundary) two values a copy. Units are split over the grid as in the
+// float32 kernel; the streamed reduction has no bf16 form (the wrapper
+// refuses an H whose rows do not fit).
+__global__ void __launch_bounds__(kFwdThreads, 2)
+sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
+                        const __nv_bfloat16* __restrict__ x_r,
+                        const __nv_bfloat16* __restrict__ wt,
+                        const __nv_bfloat16* __restrict__ vb,
+                        __nv_bfloat16* __restrict__ h_f,
+                        __nv_bfloat16* __restrict__ h_r,
+                        __nv_bfloat16* __restrict__ c_f,
+                        __nv_bfloat16* __restrict__ c_r, int T, int H, int B,
+                        int bt, int S, int units) {
+  extern __shared__ float4 smem4[];
+  const int dir = blockIdx.y, b0 = blockIdx.x * bt, tid = threadIdx.x;
+  const int j0 = blockIdx.z * units, hs = min(units, H - j0);
+  const int N = S * bt, h2 = 2 * H, h3 = 3 * H;
+  const int k16 = round_up(h2, 16), rows = round_up(3 * units, 8 * kFwdNB);
+  const int ws = k16 + 8, xs = N + 8, us = N + 4;
+  unsigned short* w_s = reinterpret_cast<unsigned short*>(smem4);  // (rows, ws)
+  unsigned short* x_s = w_s + rows * ws;  // 2 x (k16, xs): X[k][col]
+  float* u_s = reinterpret_cast<float*>(x_s + 2 * k16 * xs);  // 2 x (rows, us)
+  const unsigned short* xf16 = reinterpret_cast<const unsigned short*>(x_f);
+  const unsigned short* xr16 = reinterpret_cast<const unsigned short*>(x_r);
+  const unsigned short* wt16 = reinterpret_cast<const unsigned short*>(wt);
+  const int n_chunks = (T + S - 1) / S;
+  const int vw = bt % 8 == 0 && B % 8 == 0   ? 8
+                 : bt % 4 == 0 && B % 4 == 0 ? 4
+                 : bt % 2 == 0 && B % 2 == 0 ? 2
+                                             : 1;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  // W_d's rows of the block's units, a warp a row, a lane two columns
+  {
+    const unsigned short* wd = wt16 + (long long)dir * h3 * h2;
+    int gate = warp / units, jl = warp % units;
+    for (int o = warp; o < rows; o += kFwdThreads / 32) {
+      const bool row_ok = gate < 3 && jl < hs;
+      const unsigned short* src = wd + (long long)(gate * H + j0 + jl) * h2;
+      for (int k = 2 * lane; k < k16; k += 64) {
+        const bool ok = row_ok && k < h2;
+        hk::cp_async4(w_s + o * ws + k, ok ? src + k : wt16, ok);
+      }
+      for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
+    }
+  }
+  // chunk n's X (rows >= 2H, steps past T and columns past B zero) into
+  // slot n % 2, vw values a copy
+  auto load_chunk = [&](int n) {
+    unsigned short* dst = x_s + (n & 1) * k16 * xs;
+    for (int e = vw * tid; e < k16 * N; e += vw * kFwdThreads) {
+      const int r = e / N, col = e % N, s = col / bt, c = col % bt;
+      const int ii = n * S + s;
+      const int t = dir == 0 ? ii : T - 1 - ii;
+      const bool ok = r < h2 && ii < T && b0 + c < B;
+      const unsigned short* src =
+          ok ? (r < H ? xf16 : xr16) + ((long long)t * H + r % H) * B + b0 + c
+             : xf16;
+      hk::copy_bf16(dst + r * xs + col, src, vw, ok);
+    }
+  };
+  // U^T = X^T W_d^T of chunk n, the float32 kernel's warp jobs, k16 steps
+  const int g = hk::lane_g(), q = hk::lane_q();
+  const int m_jobs = N / (16 * kFwdMT);
+  const int n_jobs = m_jobs * (rows / (8 * kFwdNB));
+  auto project = [&](int n) {
+    const unsigned short* xc = x_s + (n & 1) * k16 * xs;
+    float* uc = u_s + (n & 1) * rows * us;
+    for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
+      const int m0 = jb % m_jobs * 16 * kFwdMT;
+      const int r0 = jb / m_jobs * 8 * kFwdNB;
+      float acc[kFwdMT][kFwdNB][4];
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mt][nb][v] = 0.f;
+      // A (column m, k): X[k][m]; the lane's rows k = 2q, 2q+1, 2q+8, 2q+9
+      // and columns m0 + g, m0 + g + 8 of each m16 tile
+      const unsigned short* xl = xc + 2 * q * xs + m0 + g;
+      const unsigned short* wl = w_s + (r0 + g) * ws + 2 * q;
+      for (int k0 = 0; k0 < k16; k0 += 16) {
+        uint32_t a[kFwdMT][4], bf[kFwdNB][2];
+#pragma unroll
+        for (int mt = 0; mt < kFwdMT; ++mt) {
+          const unsigned short* p = xl + k0 * xs + 16 * mt;
+          a[mt][0] = hk::pack_bf16(p[0], p[xs]);
+          a[mt][1] = hk::pack_bf16(p[8], p[xs + 8]);
+          a[mt][2] = hk::pack_bf16(p[8 * xs], p[9 * xs]);
+          a[mt][3] = hk::pack_bf16(p[8 * xs + 8], p[9 * xs + 8]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb) {
+          const unsigned short* p = wl + 8 * nb * ws + k0;
+          bf[nb][0] = *reinterpret_cast<const uint32_t*>(p);
+          bf[nb][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+        }
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+          for (int mt = 0; mt < kFwdMT; ++mt)
+            hk::mma_bf16(acc[mt][nb], a[mt], bf[nb]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb) {
+          float* u = uc + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
+          u[0] = acc[mt][nb][0];
+          u[us] = acc[mt][nb][1];
+          u[8] = acc[mt][nb][2];
+          u[us + 8] = acc[mt][nb][3];
+        }
+    }
+  };
+
+  // the scan thread: unit j0 + jl, column b
+  const int jl = tid / bt, j = j0 + jl, b = b0 + tid % bt;
+  const bool live = tid < hs * bt && b < B;
+  const __nv_bfloat16* xd = dir == 0 ? x_f : x_r;  // the highway
+  __nv_bfloat16* h = dir == 0 ? h_f : h_r;
+  __nv_bfloat16* cs = dir == 0 ? c_f : c_r;  // null when serving
+  const long long row = (long long)H * B;
+  const long long col0 = (long long)j * B + b;
+  float v_f = 0.f, v_r = 0.f, b_f = 0.f, b_r = 0.f;
+  if (live) {
+    v_f = __bfloat162float(vb[(dir * 4 + 0) * H + j]);
+    v_r = __bfloat162float(vb[(dir * 4 + 1) * H + j]);
+    b_f = __bfloat162float(vb[(dir * 4 + 2) * H + j]);
+    b_r = __bfloat162float(vb[(dir * 4 + 3) * H + j]);
+  }
+  const int G = min(S, kFwdAhead);
+  auto load_hw = [&](int i0, float (&dst)[kFwdAhead]) {
+#pragma unroll
+    for (int s = 0; s < kFwdAhead; ++s) {
+      const int i = i0 + s;
+      const int t = dir == 0 ? i : T - 1 - i;
+      dst[s] = live && s < G && i < T ? __bfloat162float(xd[t * row + col0])
+                                      : 0.f;
+    }
+  };
+  float hw[kFwdAhead];
+  load_hw(0, hw);
+  float c = 0.f;
+  auto scan = [&](int n) {
+    const float* u = u_s + (n & 1) * rows * us + jl * us + tid % bt;
+    for (int s0 = 0; s0 < S; s0 += G) {
+      const int i0 = n * S + s0;
+      if (i0 >= T) break;
+      float hw_next[kFwdAhead];
+      load_hw(i0 + G, hw_next);
+      float u0[kFwdAhead], u1[kFwdAhead], u2[kFwdAhead];
+#pragma unroll
+      for (int s = 0; s < kFwdAhead; ++s) {
+        if (s >= G) break;
+        const int off = (s0 + s) * bt;
+        u0[s] = u[off];
+        u1[s] = u[units * us + off];
+        u2[s] = u[2 * units * us + off];
+      }
+#pragma unroll
+      for (int s = 0; s < kFwdAhead; ++s) {
+        const int i = i0 + s;
+        if (s >= G || i >= T) break;
+        const int t = dir == 0 ? i : T - 1 - i;
+        const float f = sigmoid_fast(u1[s] + v_f * c + b_f);
+        c = f * c + (1.f - f) * u0[s];
+        const float r = sigmoid_fast(u2[s] + v_r * c + b_r);
+        h[t * row + col0] = __float2bfloat16_rn(r * c + (1.f - r) * hw[s]);
+        if (cs) cs[t * row + col0] = __float2bfloat16_rn(c);
+      }
+#pragma unroll
+      for (int s = 0; s < kFwdAhead; ++s) hw[s] = hw_next[s];
+    }
+  };
+
+  load_chunk(0);  // with W_d
+  hk::cp_async_commit();
+  hk::cp_async_wait_all();
+  __syncthreads();
+  for (int n = 0; n < n_chunks; ++n) {
+    if (n + 1 < n_chunks) load_chunk(n + 1);
+    hk::cp_async_commit();
+    project(n);
+    hk::cp_async_wait_all();
+    __syncthreads();
+    if (live) scan(n);
+  }
+}
+
 // Rows of a time-major (T, R, B) operand, each a row of B floats: rows
 // [0, r0) of step t at p0 + (t * step0 + r) * B, rows [r0, R) at p1 + (t *
 // step1 + r - r0) * B. X = [x_f; x_r] is two such halves; U, du and dx's
@@ -854,6 +1164,57 @@ extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
       (const float*)x_f, (const float*)x_r, (const float*)wt,
       (const float*)vb, (float*)h_f, (float*)h_r, (float*)c_f, (float*)c_r,
       T, H, B, bt, S, units);
+  return (int)cudaGetLastError();
+}
+
+// K1 forward in bf16 storage: as sru_dual_recurrence_fwd; u_f and u_r
+// 16-byte aligned (the warps' 16-byte copies). Shared memory: the warps'
+// rings, kLay0Ahead x 4 x kLay0Span bf16 each.
+extern "C" int sru_dual_recurrence_fwd_bf16(const void* u_f, const void* u_r,
+                                            const void* vb, void* h_f,
+                                            void* h_r, void* c_f, void* c_r,
+                                            int T, int H, int B, int cols,
+                                            int units, void* stream) {
+  if (T < 1 || H < 1 || B < 1 || cols < 32 || cols % 32 != 0 || units < 1 ||
+      cols * units > kLay0Threads ||
+      ((reinterpret_cast<size_t>(u_f) | reinterpret_cast<size_t>(u_r)) & 15))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(ceil_div(B, cols), ceil_div(H, units), 2);
+  const size_t smem =
+      (size_t)(cols * units / 32) * kLay0Ahead * 4 * kLay0Span * 2;
+  const cudaError_t e = set_smem((const void*)sru_lay0_fwd_bf16_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sru_lay0_fwd_bf16_kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)u_f, (const __nv_bfloat16*)u_r,
+      (const __nv_bfloat16*)vb, (__nv_bfloat16*)h_f, (__nv_bfloat16*)h_r,
+      (__nv_bfloat16*)c_f, (__nv_bfloat16*)c_r, T, H, B, cols);
+  return (int)cudaGetLastError();
+}
+
+// K2 forward in bf16 storage: as sru_hidden_layer_fwd, W_d's rows of the
+// units held whole (there is no streamed bf16 form: an H whose rows do not
+// fit is refused); every pointer 16-byte aligned.
+extern "C" int sru_hidden_layer_fwd_bf16(const void* x_f, const void* x_r,
+                                         const void* wt, const void* vb,
+                                         void* h_f, void* h_r, void* c_f,
+                                         void* c_r, int T, int H, int B,
+                                         int bt, int S, int units,
+                                         void* stream) {
+  if (bt < 1 || S < 1 || units < 1 || (S * bt) % (16 * kFwdMT) != 0 ||
+      units * bt > kFwdThreads || S % min(S, kFwdAhead) != 0 ||
+      ((reinterpret_cast<size_t>(x_f) | reinterpret_cast<size_t>(x_r) |
+        reinterpret_cast<size_t>(wt)) & 15))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)hid_fwd_bf16_smem_bytes(H, S * bt, units);
+  if ((long long)smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem((const void*)sru_hid_fwd_bf16_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sru_hid_fwd_bf16_kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)),
+                            kFwdThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x_f, (const __nv_bfloat16*)x_r,
+      (const __nv_bfloat16*)wt, (const __nv_bfloat16*)vb, (__nv_bfloat16*)h_f,
+      (__nv_bfloat16*)h_r, (__nv_bfloat16*)c_f, (__nv_bfloat16*)c_r, T, H, B,
+      bt, S, units);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Device helpers shared by the hand-written Hopper kernels (sm_90a):
-// float32 products on the tensor cores in 3xTF32, and cp.async copies.
+// float32 products on the tensor cores in 3xTF32, bfloat16 products with a
+// float32 accumulator (the bf16-storage forwards), and cp.async copies.
 // Every inline PTX instruction of the sources that include it is here.
 //
 // 3xTF32. TF32 keeps 10 of float32's 23 mantissa bits, so one TF32
@@ -128,13 +129,36 @@ __device__ __forceinline__ void mma3_apart(float (&big)[MI][NJ][4],
     for (int j = 0; j < NJ; ++j) mma_tf32(big[i][j], a[i].big, b[j].big);
 }
 
+// ------------------------------------------------------------ bf16
+
+// d += a b, one m16n8k16 product of bf16 operands with a float32
+// accumulator: exactly a bf16 dot with a float32 result (the products of
+// two bf16 values are exact in float32). Fragments, lane = 4 g + q, each
+// 32-bit register two bf16 values, the lower k in the low half: A (16 x
+// 16) a0 (g, 2q..2q+1), a1 (g+8, 2q..), a2 (g, 2q+8..), a3 (g+8, 2q+8..);
+// B (16 x 8, k x n) b0 (2q..2q+1, g), b1 (2q+8..2q+9, g); C/D as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two bf16 bit patterns into one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(unsigned short lo,
+                                              unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_q() { return threadIdx.x & 3; }
 
 // ------------------------------------------------------------ cp.async
 
 // 4-byte asynchronous copy global -> shared, zero-filled when !ok.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
@@ -142,11 +166,45 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 }
 
 // 16-byte asynchronous copy global -> shared, zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 8-byte asynchronous copy global -> shared, zero-filled when !ok.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
+// 16-byte asynchronous copy global -> shared of which only the first
+// `bytes` (0 to 16) are read; the rest of the 16 is zero-filled.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// w (8, 4, 2 or 1) consecutive bf16 values global -> shared, zero-filled
+// when !ok: one cp.async of 2w bytes (src and dst aligned to it), or for w
+// 1, which cp.async has no copy for, a plain load and store, done when it
+// returns.
+__device__ __forceinline__ void copy_bf16(unsigned short* dst,
+                                          const unsigned short* src, int w,
+                                          bool ok) {
+  if (w == 8)
+    cp_async16(dst, src, ok);
+  else if (w == 4)
+    cp_async8(dst, src, ok);
+  else if (w == 2)
+    cp_async4(dst, src, ok);
+  else
+    *dst = ok ? *src : (unsigned short)0;
 }
 
 __device__ __forceinline__ void cp_async_commit() {

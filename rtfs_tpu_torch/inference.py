@@ -14,6 +14,9 @@ take the bundle's weights, and separate the first 2 s of the wav from the
 lip embedding of the mouth frames (``.npz`` key ``data``, (T, H, W) in
 the uint8 range). Writes ``<out-dir>/{key}_est{i}.wav``, clipped to
 [-1, 1]. ``--packed-tf`` serves through the packed-TF kernels (K5-K9).
+A ``conf.json`` whose ``audionet.compute_dtype`` is ``"bfloat16"`` serves
+in bf16 (``config.build_avnet``; the bundle's float32 weights rounded at
+load; waveforms in and out float32); with ``--packed-tf`` it raises.
 """
 
 from __future__ import annotations

@@ -4,6 +4,11 @@ Counterpart of ``rtfs_tpu/models/attention.py``. Sequences are short (the
 pooled TF map, the video frames), so attention is plain matmul + softmax,
 as the JAX package computes it outside Pallas. Layouts: 1-D (B, C, T),
 2-D (B, C, T, F).
+
+In a bf16 model the score and value products run in float32 (JAX's
+``preferred_element_type``), and the 1-D block's float32 positional table
+promotes it and its feed-forward residual to float32, as JAX's ``x + pe``
+does.
 """
 
 from __future__ import annotations
@@ -13,8 +18,28 @@ import math
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from . import layers as L
+
+
+def _promoted(*tensors):
+    """The tensors in the promotion of their dtypes (JAX's matmul of a
+    float32 map by a bf16 weight is a float32 one)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in tensors]
+
+
+def _layer_norm(mod: nn.LayerNorm, x):
+    """flax ``nn.LayerNorm``: float32 statistics and arithmetic, the result
+    in the promotion of x's and the parameters' dtypes."""
+    dt = torch.promote_types(x.dtype, mod.weight.dtype)
+    if dt == x.dtype == mod.weight.dtype:
+        return mod(x)
+    return F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(),
+                        mod.bias.float(), mod.eps).to(dt)
 
 
 def sinusoidal_pe(max_len: int, channels: int) -> np.ndarray:
@@ -54,12 +79,16 @@ class TorchMHA(nn.Module):
     def forward(self, x):
         b, t, c = x.shape
         h = self.num_heads
-        qkv = x @ self.in_proj_weight.t() + self.in_proj_bias
+        x, w, bias = _promoted(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = x @ w.t() + bias
         q, k, v = (z.reshape(b, t, h, c // h).transpose(1, 2)
                    for z in qkv.chunk(3, dim=-1))
+        if q.dtype == torch.bfloat16:  # float32 products, as JAX's
+            q, k, v = q.float(), k.float(), v.float()
         attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(c // h), -1)
         out = (self.attn_drop(attn) @ v).transpose(1, 2).reshape(b, t, c)
-        return self.out_proj(out)
+        return F.linear(*_promoted(out, self.out_proj.weight,
+                                   self.out_proj.bias))
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -83,10 +112,10 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x):
         res = x
-        x = self.norm1(x.transpose(1, 2))  # (B, T, C)
+        x = _layer_norm(self.norm1, x.transpose(1, 2))  # (B, T, C)
         if self.positional_encoding:
             x = x + self.pe[: x.shape[1]]
-        x = self.norm2(self.dropout(self.attention(x)) + x)
+        x = _layer_norm(self.norm2, self.dropout(self.attention(x)) + x)
         return self.drop_path(x).transpose(1, 2) + res
 
 
@@ -155,6 +184,8 @@ class MultiHeadSelfAttention2D(nn.Module):
             return z.transpose(2, 3).reshape(b * self.n_head, t, -1)
 
         q, k, v = project(self.Queries), project(self.Keys), project(self.Values)
+        if q.dtype == torch.bfloat16:  # float32 products, as JAX's
+            q, k, v = q.float(), k.float(), v.float()
         attn = torch.softmax(q @ k.transpose(1, 2) / math.sqrt(q.shape[-1]), -1)
         out = (attn @ v).reshape(b, self.n_head, t, c // self.n_head, f)
         out = out.transpose(2, 3).reshape(b, c, t, f)

@@ -1,9 +1,20 @@
 """AVNet: the top-level audio-visual separation model (RTFS-Net family).
 
-Counterpart of ``rtfs_tpu/models/avnet.py``, inference in float32:
+Counterpart of ``rtfs_tpu/models/avnet.py``, serving and training in
+float32, serving in bf16 (``compute_dtype``):
 
   STFT encoder -> audio bottleneck -> RefinementModule (TDANet repeats +
   CAF fusion with the video net) -> S3 mask -> iSTFT decoder
+
+A bf16 model (``config.build_avnet`` with ``audionet.compute_dtype:
+"bfloat16"``: parameters rounded by ``utils.precision.cast_params``) runs
+the STFT in float32 and its encoder conv in bf16, casts the embedding and
+the mouth embedding to bf16, runs the bottlenecks, the refinement module
+and the mask generator in bf16 (K1-K3 through their bf16 entries), and
+casts ``separated`` back to float32 before the decoder, whose
+ConvTranspose2d casts to bf16 again as JAX's does; the iSTFT and the
+waveform are float32. bf16 serves the standard layout only: with
+``packed_tf`` it raises.
 
 Inputs: waveform (B, L) and the lip embedding (B, T2, C2), the JAX
 package's boundary layouts; inside, maps are channels-first (B, C, T, F).
@@ -75,6 +86,8 @@ class STFTDecoder(nn.Module):
     def forward(self, x, length: int):
         b, n_src = x.shape[:2]
         x = self.decoder(x.reshape(b * n_src, *x.shape[2:]))  # (B*n, 2, T, F)
+        if x.dtype == torch.bfloat16:  # the iSTFT runs in float32
+            x = x.float()
         spec = torch.complex(x[:, 0], x[:, 1]).transpose(1, 2)  # (B*n, F, T)
         window = stft_ops.hann_window(self.win, device=x.device, dtype=x.dtype)
         wav = stft_ops.istft(spec, self.win, self.hop_length, window, length)
@@ -201,14 +214,20 @@ class AVNet(nn.Module):
     ``packed_scope``: each 2-D stride-2 TDANet block's full-resolution
     segment goes through the packed-TF kernels K5-K9, forward and
     backward, so it trains too (``audionet.packed_tf`` in the config).
-    Parameters and the ``state_dict`` are the same either way."""
+    Parameters and the ``state_dict`` are the same either way.
+
+    ``compute_dtype`` ``torch.bfloat16`` (parameters cast by
+    ``cast_params``, as ``config.build_avnet`` does) serves in bf16 with
+    float32 waveforms in and out (module docstring); it refuses
+    ``packed_tf`` and autograd."""
 
     def __init__(self, n_src, enc_dec_params, audio_bn_params, audio_params,
                  mask_generation_params, pretrained_vout_chan=-1,
                  video_bn_params=None, video_params=None, fusion_params=None,
-                 packed_tf=False):
+                 packed_tf=False, compute_dtype=torch.float32):
         super().__init__()
         self.packed_tf = bool(packed_tf)
+        self.compute_dtype = compute_dtype
         video_bn_params = dict(video_bn_params or {})
         edp = dict(enc_dec_params)
         enc_type, dec_type = edp.pop("encoder_type"), edp.pop("decoder_type")
@@ -252,7 +271,16 @@ class AVNet(nn.Module):
     def forward(self, audio_mixture: torch.Tensor,
                 mouth_embedding: Optional[torch.Tensor] = None):
         length = audio_mixture.shape[-1]
+        bf16 = self.compute_dtype == torch.bfloat16
+        if bf16 and self.packed_tf:
+            raise NotImplementedError(
+                "bf16 with packed_tf: the packed kernels K5-K9 take float32 "
+                "only")
         embedding = self.encoder(audio_mixture)  # (B, C, T, F)
+        if bf16:
+            embedding = embedding.to(self.compute_dtype)
+            if mouth_embedding is not None:
+                mouth_embedding = mouth_embedding.to(self.compute_dtype)
         audio = self.audio_bottleneck(embedding)
         video = None
         if mouth_embedding is not None:
@@ -260,4 +288,6 @@ class AVNet(nn.Module):
         with P.packed_scope(self.packed_tf):
             refined = self.refinement_module(audio, video)
         separated = self.mask_generator(refined, embedding)
+        if bf16:
+            separated = separated.float()
         return self.decoder(separated, length)

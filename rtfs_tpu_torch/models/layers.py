@@ -10,6 +10,12 @@ LN4D holds ``gamma``/``beta``.
 Weights are drawn by ``init_weights(generator)`` on each module that has
 random parameters (torch's default schemes, xavier where the reference
 asks), so a model is reproducible from one explicit ``torch.Generator``.
+
+Dtypes follow JAX's (``utils/precision.py``): a conv casts its input to
+its weight's dtype, the norms take float32 statistics and round the
+normalised map to the input's dtype before the affine, and everything
+else computes in the promotion of its operands, so a bf16 model (its
+parameters cast by ``cast_params``) computes in bf16.
 """
 
 from __future__ import annotations
@@ -83,6 +89,13 @@ class DropPath(Dropout):
 # --------------------------------------------------------------------------
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.Tensor:
+    """x widened to float32 where it is bf16: the norms take their
+    statistics and normalise in float32 (``rtfs_tpu/models/layers.py:
+    214-220,236-240,275-285``), then round to x's dtype."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 class GlobalLayerNorm(nn.Module):
     """gLN: GroupNorm with one group (stats over every non-batch axis).
 
@@ -101,13 +114,14 @@ class GlobalLayerNorm(nn.Module):
             return P.PackedTF(P.gln_packed(x.data, self.norm.weight,
                                            self.norm.bias, x.f, self.norm.eps),
                               x.f, x.c)
-        var, mean = torch.var_mean(x.reshape(x.shape[0], -1), dim=1,
+        xf = _stats_dtype(x)
+        var, mean = torch.var_mean(xf.reshape(x.shape[0], -1), dim=1,
                                    unbiased=False)
         shape = (-1,) + (1,) * (x.ndim - 1)
         scale = torch.rsqrt(var + self.norm.eps).reshape(shape)
         affine = (1, -1) + (1,) * (x.ndim - 2)
-        return ((x - mean.reshape(shape)) * scale
-                * self.norm.weight.reshape(affine)
+        norm = ((xf - mean.reshape(shape)) * scale).to(x.dtype)
+        return (norm * self.norm.weight.reshape(affine)
                 + self.norm.bias.reshape(affine))
 
 
@@ -126,9 +140,11 @@ class LayerNormalization4D(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, features, 1, n_freqs))
 
     def forward(self, x):
-        mean = x.mean(dim=self.dims, keepdim=True)
-        var = x.var(dim=self.dims, unbiased=False, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.gamma + self.beta
+        xf = _stats_dtype(x)
+        mean = xf.mean(dim=self.dims, keepdim=True)
+        var = xf.var(dim=self.dims, unbiased=False, keepdim=True)
+        norm = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        return norm * self.gamma + self.beta
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
@@ -244,7 +260,8 @@ class Conv(nn.Module):
     def forward(self, x):
         if isinstance(x, (P.PackedTF, P.PackRequest)):
             return self._packed_call(x)
-        return convops.conv(x, self.weight, stride=self.stride,
+        return convops.conv(x.to(self.weight.dtype), self.weight,
+                            stride=self.stride,
                             padding=self.padding, dilation=self.dilation,
                             groups=self.groups, bias=self.bias)
 
@@ -326,7 +343,8 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x):
         return convops.conv_transpose(
-            x, self.weight, stride=self.stride, padding=self.padding,
+            x.to(self.weight.dtype), self.weight, stride=self.stride,
+            padding=self.padding,
             output_padding=self.output_padding, groups=self.groups,
             bias=self.bias,
         )

@@ -13,7 +13,8 @@ the bias is added, and one transpose lands in (B, C, T, F), at any width
 other SRU (unidirectional: K4 per layer, ``ops.sru_pallas``) emits
 (B*other, L', dirs*H) and the tail is the library ConvTranspose1d (dirs*H
 -> C), as JAX's non-fused tail. On the CPU the same paths run the kernels'
-plain versions.
+plain versions. In a bf16 model the fused stack, K3 and the bias add run
+in bf16, as JAX's time-major tail does for a bf16 input.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ a block holds are split over the grid (``fwd_geometry``,
 order. When autograd records, the op runs
 through a ``torch.autograd.Function`` whose backward is the kernel. On a
 CPU tensor the plain versions below run, forward and backward.
+
+The forward also takes bf16 storage (``convt1d_ola_tm_fwd_bf16``: x, W
+and out bf16, the products bf16 on the tensor cores into float32 sums,
+the sum rounded to bf16 once, after the whole reduction, as the Pallas
+kernel's float32 dot result is). bf16 is for serving: a bf16 op that
+autograd would record raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,16 +32,21 @@ import functools
 import torch
 
 from . import kernel_lib
+from .sru_fused import arithmetic_dtype, refuse_bf16_grad
 
 
 def convt1d_ola_tm_plain(x_tm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Shifted-sum form: one (C_out x C_in) product per tap."""
+    """Shifted-sum form: one (C_out x C_in) product per tap. In bf16
+    storage the sums run in float32 on the widened values and are rounded
+    once at the end."""
+    dt = x_tm.dtype
+    x_tm, w = x_tm.to(arithmetic_dtype(dt)), w.to(arithmetic_dtype(dt))
     length, _, bsz = x_tm.shape
     k, c_out, _ = w.shape
     out = x_tm.new_zeros(length + k - 1, c_out, bsz)
     for j in range(k):
         out[j:j + length] += torch.einsum("oi,lib->lob", w[j], x_tm)
-    return out
+    return out.to(dt)
 
 
 def convt1d_ola_tm_bwd_plain(g: torch.Tensor, x_tm: torch.Tensor,
@@ -67,14 +78,27 @@ FWD_COLS = 16
 FWD_PASS = 8
 
 
-def fwd_smem(k: int, c_in: int, c_out: int) -> int:
+def fwd_smem(k: int, c_in: int, c_out: int, elem: int = 4) -> int:
     """K3 forward's dynamic shared memory in bytes for a block of ``c_in``
     input and ``c_out`` output channels (``fwd_smem_floats`` in the
     source): W_flat, C_out padded to 16 rows of k * C_in' + 4 floats with
-    C_in' = C_in padded to 8, and the ring of k + 2 FWD_PASS - 1 x rows."""
+    C_in' = C_in padded to 8, and the ring of k + 2 FWD_PASS - 1 x rows.
+    ``elem`` 2 (bf16, ``fwd_bf16_smem_bytes``): bf16 values, C_in' padded to
+    16 (the k16 step) and W_flat's rows to k * C_in' + 8."""
+    if elem == 2:
+        c_pad = -(-c_in // 16) * 16
+        return 2 * (-(-c_out // 16) * 16 * (k * c_pad + 8)
+                    + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS)
     c_pad = -(-c_in // 8) * 8
     return 4 * (-(-c_out // 16) * 16 * (k * c_pad + 4)
                 + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS)
+
+
+def bf16_vec(n: int) -> int:
+    """The bf16 K3 forward's values a copy along a row of ``n`` (B for x,
+    C_in for W): the largest of 8, 4, 2 dividing n (16-, 8-, 4-byte
+    cp.async), else 1 (a plain load)."""
+    return next((w for w in (8, 4, 2) if n % w == 0), 1)
 
 
 def _slices(n: int, fits, align: int) -> int:
@@ -92,7 +116,7 @@ def _slices(n: int, fits, align: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
-                 bsz: int) -> dict:
+                 bsz: int, elem: int = 4) -> dict:
     """K3 forward's launch geometry, as ``convt1d_ola_tm_fwd`` launches it:
     the input channels split into ``in_slices`` of ``ci_slice`` (all of
     C_in where W_flat and the ring fit one block's shared memory, else the
@@ -101,11 +125,18 @@ def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
     runs of ``steps`` consecutive output steps, a multiple of
     ``FWD_PASS``, x the slices, about one wave over the card's SMs) and
     their dynamic shared memory in bytes. With more than one input slice
-    each writes a partial of out (``part`` floats each), summed in order."""
+    each writes a partial of out (``part`` floats each), summed in order.
+
+    ``elem`` 2 (bf16): the same choices on the bf16 kernel's shared memory,
+    slices multiples of 16; the partials stay float32 and the sum is
+    rounded to bf16 once; ``vec_x`` / ``vec_w`` the values a copy of x and
+    W (``bf16_vec``)."""
+    if elem not in (2, 4):
+        raise ValueError(f"convt1d_ola_tm: element size {elem}")
     t_out = length + k - 1
     co_blk = min(c_out, MAX_OUT)
-    ci_slice = _slices(c_in, lambda w: fwd_smem(k, w, co_blk)
-                       <= kernel_lib.SMEM_PER_BLOCK, 8)
+    ci_slice = _slices(c_in, lambda w: fwd_smem(k, w, co_blk, elem)
+                       <= kernel_lib.SMEM_PER_BLOCK, 8 if elem == 4 else 16)
     in_slices, out_slices = -(-c_in // ci_slice), -(-c_out // MAX_OUT)
     col_tiles = -(-bsz // FWD_COLS)
     # one block an SM
@@ -116,26 +147,34 @@ def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
     return {
         "grid": (col_tiles, -(-t_out // steps), in_slices * out_slices),
         "steps": steps, "ci_slice": ci_slice, "in_slices": in_slices,
-        "out_slices": out_slices, "smem": fwd_smem(k, ci_slice, co_blk),
+        "out_slices": out_slices, "smem": fwd_smem(k, ci_slice, co_blk, elem),
         "part": t_out * c_out * bsz,
+        "vec_x": bf16_vec(bsz) if elem == 2 else (4 if bsz % 4 == 0 else 1),
+        "vec_w": bf16_vec(c_in) if elem == 2 else (4 if c_in % 4 == 0 else 1),
     }
 
 
 def _forward(x_tm, w):
     if x_tm.device.type == "cpu":
         return convt1d_ola_tm_plain(x_tm, w)
-    kernel_lib.check_cuda_f32("convt1d_ola_tm", x_tm, w)
+    dt = kernel_lib.check_cuda("convt1d_ola_tm", x_tm, w,
+                               dtypes=(torch.float32, torch.bfloat16))
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
     if min(x_tm.shape) == 0 or k == 0 or c_out == 0:
         raise ValueError(f"convt1d_ola_tm: unsupported shape x "
                          f"{tuple(x_tm.shape)}, w {tuple(w.shape)}")
-    geo = fwd_geometry(length, c_in, c_out, k, bsz)
-    out = torch.empty(length + k - 1, c_out, bsz, device=x_tm.device)
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        x_tm, w = kernel_lib.aligned16(x_tm), kernel_lib.aligned16(w)
+    geo = fwd_geometry(length, c_in, c_out, k, bsz, x_tm.element_size())
+    out = torch.empty(length + k - 1, c_out, bsz, device=x_tm.device,
+                      dtype=dt)
     part = (torch.empty(geo["in_slices"], geo["part"], device=x_tm.device)
             if geo["in_slices"] > 1 else None)
     kernel_lib.launch(
-        "convt_tm", "convt1d_ola_tm_fwd", x_tm.device,
+        "convt_tm", "convt1d_ola_tm_fwd_bf16" if bf16 else "convt1d_ola_tm_fwd",
+        x_tm.device,
         x_tm.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
         length, c_in, c_out, k, bsz, geo["steps"], geo["ci_slice"],
@@ -198,7 +237,7 @@ def bwd_geometry(length: int, c_in: int, c_out: int, k: int,
 def _backward(g, x_tm, w):
     if g.device.type == "cpu":
         return convt1d_ola_tm_bwd_plain(g, x_tm, w)
-    kernel_lib.check_cuda_f32("convt1d_ola_tm backward", g, x_tm, w)
+    kernel_lib.check_cuda("convt1d_ola_tm backward", g, x_tm, w)
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
     if min(x_tm.shape) == 0 or k == 0 or c_out == 0:
@@ -227,6 +266,7 @@ class _ConvTranspose(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_tm, w):
+        refuse_bf16_grad("convt1d_ola_tm", x_tm, w)
         ctx.save_for_backward(x_tm, w)
         return _forward(x_tm, w)
 

@@ -45,10 +45,13 @@ _SIGNATURES = {
         "sru_dual_recurrence_bwd": (10, 5),
         "sru_hidden_layer_fwd": (8, 6),
         "sru_hidden_layer_bwd": (15, 6),
+        "sru_dual_recurrence_fwd_bf16": (7, 5),
+        "sru_hidden_layer_fwd_bf16": (8, 6),
     },
     "convt_tm": {
         "convt1d_ola_tm_fwd": (4, 7),
         "convt1d_ola_tm_bwd": (7, 8),
+        "convt1d_ola_tm_fwd_bf16": (4, 7),
     },
     "packed_tf": {
         "dw_conv_packed_fwd": (4, 16),
@@ -199,14 +202,25 @@ def launch(lib_name: str, fn: str, device: torch.device, *args) -> None:
     LAUNCHES[fn] += 1
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
-    device."""
-    dev = tensors[0].device
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtypes: tuple = (torch.float32,)) -> torch.dtype:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    all of one dtype among ``dtypes`` (the ones the op's kernels take);
+    returns that dtype."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all inputs must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if t.dtype != dtype or t.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{name}: {names} only, got "
+                            f"{sorted({str(u.dtype) for u in tensors})}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    return dtype
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy of it where its data does not start on a
+    16-byte boundary (the bf16 kernels' 16-byte copies need one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

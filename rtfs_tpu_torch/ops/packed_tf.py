@@ -95,7 +95,7 @@ def gln_packed(xp, gamma, beta, f: int, eps: float = 1e-5):
 def _check_cuda(name: str, x, w=None, bias=None) -> None:
     """Raise unless x (and bias) are contiguous float32 on one CUDA device
     and w (read through its strides) is float32 there too."""
-    kernel_lib.check_cuda_f32(name, *[t for t in (x, bias) if t is not None])
+    kernel_lib.check_cuda(name, *[t for t in (x, bias) if t is not None])
     if w is not None and (w.device != x.device or w.dtype != torch.float32):
         raise TypeError(f"{name}: w must be float32 on {x.device}")
 
@@ -239,7 +239,7 @@ def dw_conv_packed_wgrad(xp, g, f_in: int, c: int, kt_kf, pads_t, pads_f):
     if xp.device.type == "cpu":
         return dw_conv_packed_wgrad_plain(xp, g, f_in, c, kt_kf, pads_t,
                                           pads_f)
-    kernel_lib.check_cuda_f32("dw_conv_packed_wgrad", xp, g)
+    kernel_lib.check_cuda("dw_conv_packed_wgrad", xp, g)
     b, t_in, _ = xp.shape
     t_out, n_out = g.shape[1:]
     ints = dw_wgrad_launch_ints(b, t_in, f_in, c, t_out, n_out // c, kt_kf,
@@ -506,7 +506,7 @@ def pw_packed_wgrad(a, g):
                          f"{tuple(g.shape)}")
     if a.device.type == "cpu":
         return pw_packed_wgrad_plain(a, g)
-    kernel_lib.check_cuda_f32("pw_packed_wgrad", a, g)
+    kernel_lib.check_cuda("pw_packed_wgrad", a, g)
     ints = pw_wgrad_launch_ints(a, g)
     ca, cb = ints[2:4]
     partial = torch.empty(ints[-1], ca * cb, device=a.device)

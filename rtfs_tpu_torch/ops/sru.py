@@ -21,7 +21,10 @@ at any H up to 268 (K2 forward splits a wide H over its grid,
 through the gen-1 recurrence K4 (``ops.sru_pallas``), time-major, layer
 0 windowed when ``window`` is set, as JAX's Pallas backend does. The
 device picks the implementation: the plain versions on a CPU tensor, the
-CUDA kernels on a CUDA tensor.
+CUDA kernels on a CUDA tensor. With bf16 parameters (a bf16 serving
+model) the fused stack runs in bf16 storage: layer 0's projection a bf16
+``conv1d``, then K1 and K2 through their bf16 entries; K4 takes float32
+only.
 """
 
 from __future__ import annotations

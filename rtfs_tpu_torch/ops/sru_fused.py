@@ -27,6 +27,13 @@ keeps the cell states c and whose backward is the BPTT kernel; otherwise
 (serving) the forward skips c. The device picks the implementation: on a
 CPU tensor the plain PyTorch versions below run (forward and backward), on
 a CUDA tensor the kernels launch or the call raises.
+
+The forwards also take bf16 storage (the Pallas kernels run in the
+caller's dtype): u, x, W^T, vb and h in bf16, the arithmetic, U and the
+carries in float32, only the stored values rounded (CUDA entries
+``sru_dual_recurrence_fwd_bf16`` and ``sru_hidden_layer_fwd_bf16``). bf16
+is for serving: a bf16 op that autograd would record raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -123,6 +130,22 @@ def _records(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def refuse_bf16_grad(name: str, *tensors) -> None:
+    """bf16 runs forward only: raise where a bf16 op would be recorded for
+    a backward (there is no bf16 backward, and none falls back to
+    float32)."""
+    if any(t.dtype == torch.bfloat16 for t in tensors):
+        raise NotImplementedError(
+            f"{name}: bf16 is inference-only (no bf16 backward); run it "
+            "under torch.no_grad() or in float32")
+
+
+def arithmetic_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The arithmetic dtype of a storage dtype: float32 for bf16, as the
+    Pallas kernels keep their carries and products in float32."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def _grad(g, like):
     return torch.zeros_like(like) if g is None else g.contiguous()
 
@@ -134,13 +157,17 @@ def _grad(g, like):
 
 def sru_dual_recurrence_plain(u_f, u_r, vb, with_c=False):
     """K1's plain version: (h_f, h_r), and with ``with_c`` (h_f, h_r, c_f,
-    c_r)."""
-    h = u_f.shape[1] // 4
+    c_r). In bf16 storage the scan runs in float32 on the widened inputs
+    and only its outputs are rounded."""
+    dt, h = u_f.dtype, u_f.shape[1] // 4
+    u_f, u_r, vb = (t.to(arithmetic_dtype(dt)) for t in (u_f, u_r, vb))
     out_f = scan_direction(u_f, u_f[:, 3 * h:], vb[0:4], False, with_c)
     out_r = scan_direction(u_r, u_r[:, 3 * h:], vb[4:8], True, with_c)
     if with_c:
-        return out_f[0], out_r[0], out_f[1], out_r[1]
-    return out_f, out_r
+        outs = (out_f[0], out_r[0], out_f[1], out_r[1])
+    else:
+        outs = (out_f, out_r)
+    return tuple(o.to(dt) for o in outs)
 
 
 def sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
@@ -172,20 +199,49 @@ def _spread_blocks(hdim: int, bsz: int, dirs: int, most: int) -> tuple:
     return cols, units, grid
 
 
+# the bf16 K1 forward, ``kLay0Span``: a warp's gate row in its ring slot,
+# the five 16-byte blocks (8 bf16 each) that cover 32 values at any offset
+LAY0_SPAN = 40
+
+
 @functools.lru_cache(maxsize=None)
-def k1_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+def k1_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     """K1 forward's launch geometry, as ``sru_dual_recurrence_fwd``
     launches it: blocks from ``_spread_blocks`` (both directions in the
     grid's z, at most LAY0_THREADS threads; 4,096 threads at the bs-1
     time site spread over many SMs). Each thread walks its T steps with
     the copies of the next LAY0_AHEAD steps in flight in its own ring of
-    shared memory (``smem`` bytes a block)."""
-    if min(t_len, hdim, bsz) < 1:
+    shared memory (``smem`` bytes a block).
+
+    ``elem`` 2 (bf16, ``sru_dual_recurrence_fwd_bf16``): the same blocks;
+    each warp (one unit, 32 columns) has a ring of LAY0_AHEAD slots of 4
+    gate rows of LAY0_SPAN values, filled by the 16-byte copies of
+    ``k1_bf16_copies``."""
+    if min(t_len, hdim, bsz) < 1 or elem not in (2, 4):
         raise ValueError(f"sru_dual_recurrence: T {t_len}, H {hdim}, "
-                         f"B {bsz}")
+                         f"B {bsz}, element size {elem}")
     cols, units, grid = _spread_blocks(hdim, bsz, 2, LAY0_THREADS)
+    smem = (4 * LAY0_AHEAD * 4 * cols * units if elem == 4
+            else cols * units // 32 * LAY0_AHEAD * 4 * LAY0_SPAN * 2)
     return {"cols": cols, "units": units, "grid": grid,
-            "ahead": LAY0_AHEAD, "smem": 4 * LAY0_AHEAD * 4 * cols * units}
+            "ahead": LAY0_AHEAD, "smem": smem}
+
+
+def k1_bf16_copies(e0: int, total: int) -> tuple:
+    """The bf16 K1 forward's copies of one gate row of a warp, as
+    ``sru_lay0_fwd_bf16_kernel`` issues them: its 32 values start at
+    element ``e0`` of u (``total`` elements, the base 16-byte aligned).
+    Returns (shift, [(first element, bytes read)] for the five 16-byte
+    blocks, lanes 5g .. 5g + 4): lane l reads slot value shift + l; a
+    block past u's end reads what is left of u (0 bytes beyond it) and is
+    zero-filled after it."""
+    start = e0 - e0 % 8
+    blocks = []
+    for k in range(LAY0_SPAN // 8):
+        src = start + 8 * k
+        left = total - src
+        blocks.append((src, 16 if left >= 8 else max(0, 2 * left)))
+    return e0 % 8, blocks
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,20 +263,29 @@ def scan_bwd_geometry(t_len: int, hdim: int, bsz: int, dirs: int) -> dict:
             "ahead": SCAN_AHEAD, "smem": 4 * SCAN_AHEAD * 6 * cols * units}
 
 
+_BF16 = (torch.float32, torch.bfloat16)
+
+
 def _k1_forward(u_f, u_r, vb, with_c):
     if u_f.device.type == "cpu":
         return sru_dual_recurrence_plain(u_f, u_r, vb, with_c)
-    kernel_lib.check_cuda_f32("sru_dual_recurrence", u_f, u_r, vb)
+    dt = kernel_lib.check_cuda("sru_dual_recurrence", u_f, u_r, vb,
+                               dtypes=_BF16)
     t_len, gh, bsz = u_f.shape
     if min(u_f.shape) == 0:
         raise ValueError("sru_dual_recurrence: empty input")
-    geo = k1_fwd_geometry(t_len, gh // 4, bsz)
-    outs = [torch.empty(t_len, gh // 4, bsz, device=u_f.device)
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        u_f, u_r = kernel_lib.aligned16(u_f), kernel_lib.aligned16(u_r)
+    geo = k1_fwd_geometry(t_len, gh // 4, bsz, u_f.element_size())
+    outs = [torch.empty(t_len, gh // 4, bsz, device=u_f.device, dtype=dt)
             for _ in range(4 if with_c else 2)]
     c_ptrs = ((outs[2].data_ptr(), outs[3].data_ptr()) if with_c
               else (None, None))
     kernel_lib.launch(
-        "sru_fused", "sru_dual_recurrence_fwd", u_f.device,
+        "sru_fused",
+        "sru_dual_recurrence_fwd_bf16" if bf16 else "sru_dual_recurrence_fwd",
+        u_f.device,
         u_f.data_ptr(), u_r.data_ptr(), vb.data_ptr(), outs[0].data_ptr(),
         outs[1].data_ptr(), *c_ptrs, t_len, gh // 4, bsz, geo["cols"],
         geo["units"],
@@ -232,7 +297,7 @@ def _k1_backward(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
     if u_f.device.type == "cpu":
         return sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f,
                                              dh_r)
-    kernel_lib.check_cuda_f32("sru_dual_recurrence backward", u_f, u_r, vb,
+    kernel_lib.check_cuda("sru_dual_recurrence backward", u_f, u_r, vb,
                               c_f, c_r, dh_f, dh_r)
     t_len, gh, bsz = u_f.shape
     geo = scan_bwd_geometry(t_len, gh // 4, bsz, 2)
@@ -253,6 +318,7 @@ class _DualRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u_f, u_r, vb):
+        refuse_bf16_grad("sru_dual_recurrence", u_f, u_r, vb)
         h_f, h_r, c_f, c_r = _k1_forward(u_f, u_r, vb, with_c=True)
         ctx.save_for_backward(u_f, u_r, vb, c_f, c_r)
         return h_f, h_r
@@ -295,15 +361,20 @@ def sru_dual_recurrence(u_f: torch.Tensor, u_r: torch.Tensor,
 
 def sru_hidden_layer_plain(x_f, x_r, wt, vb, with_c=False):
     """K2's plain version: (h_f, h_r), and with ``with_c`` (h_f, h_r, c_f,
-    c_r)."""
-    h = x_f.shape[1]
+    c_r). In bf16 storage U = W^T x is formed in float32 from the widened
+    bf16 values (their products exact), the scan runs in float32 and only
+    its outputs are rounded."""
+    dt, h = x_f.dtype, x_f.shape[1]
+    x_f, x_r, wt, vb = (t.to(arithmetic_dtype(dt)) for t in (x_f, x_r, wt, vb))
     x = torch.cat([x_f, x_r], dim=1)  # (T, 2H, B)
     u = torch.einsum("oi,tib->tob", wt, x)  # (T, 6H, B)
     out_f = scan_direction(u[:, :3 * h], x_f, vb[0:4], False, with_c)
     out_r = scan_direction(u[:, 3 * h:], x_r, vb[4:8], True, with_c)
     if with_c:
-        return out_f[0], out_r[0], out_f[1], out_r[1]
-    return out_f, out_r
+        outs = (out_f[0], out_r[0], out_f[1], out_r[1])
+    else:
+        outs = (out_f, out_r)
+    return tuple(o.to(dt) for o in outs)
 
 
 def sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
@@ -342,14 +413,22 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def k2_fwd_smem(hdim: int, cols: int, units: int | None = None) -> int:
+def k2_fwd_smem(hdim: int, cols: int, units: int | None = None,
+                elem: int = 4) -> int:
     """K2 forward's dynamic shared memory in bytes (``hid_fwd_smem_floats``
     in csrc/sru_fused.cu) at ``cols`` = S * bt columns a chunk and
     ``units`` units a block (all of H by default): the rows of W_d that
     project onto them, two X slots, two U slots, rows padded for
-    conflict-free fragments."""
+    conflict-free fragments. ``elem`` 2 (bf16, ``hid_fwd_bf16_smem_bytes``):
+    W_d and X in bf16, the reduction padded to the k16 step and rows to 4
+    mod 8 words; U stays float32."""
     units = hdim if units is None else units
-    k8, rows = _round_up(2 * hdim, 8), _round_up(3 * units, 8 * FWD_NB)
+    rows = _round_up(3 * units, 8 * FWD_NB)
+    if elem == 2:
+        k16 = _round_up(2 * hdim, 16)
+        return (2 * (rows * (k16 + 8) + 2 * k16 * (cols + 8))
+                + 4 * 2 * rows * (cols + 4))
+    k8 = _round_up(2 * hdim, 8)
     return 4 * (rows * (k8 + 4) + 2 * k8 * (cols + 8)
                 + 2 * rows * (cols + 4))
 
@@ -364,8 +443,15 @@ def k2_fwd_stream_smem(cols: int, units: int) -> int:
                 + FWD_STAGES * (FWD_K * (cols + 8) + rows * (FWD_K + 4)))
 
 
+def k2_bf16_vec(bt: int, bsz: int) -> int:
+    """The values a copy of the bf16 K2 forward's X chunk: the largest of 8,
+    4, 2 dividing both ``bt`` and B (16-, 8-, 4-byte cp.async), else 1 (a
+    plain load: cp.async has no 2-byte copy)."""
+    return next((w for w in (8, 4, 2) if bt % w == 0 and bsz % w == 0), 1)
+
+
 @functools.lru_cache(maxsize=None)
-def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+def k2_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     """K2 forward's launch geometry, as ``sru_hidden_layer_fwd`` launches it.
 
     A block owns one direction, ``units`` units and ``bt`` batch columns
@@ -386,15 +472,27 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     ``units`` is the fewest equal slices whose U slot and ring fit
     (``k2_fwd_stream_smem``, which does not grow with H), the rest as
     above. The C entry streams exactly where the held geometry's shared
-    memory exceeds a block's."""
-    if min(t_len, hdim, bsz) < 1:
-        raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}")
+    memory exceeds a block's.
+
+    ``elem`` 2 (bf16, ``sru_hidden_layer_fwd_bf16``): the same choices on
+    the bf16 kernel's shared memory (``k2_fwd_smem(..., elem=2)``), which
+    holds W_d's rows of 8 units beside X's two slots up to H 536; there is
+    no streamed bf16 kernel, so a larger H raises NotImplementedError.
+    ``vec``: the values a copy of X (``k2_bf16_vec`` in bf16; 4 or 1 in
+    float32)."""
+    if min(t_len, hdim, bsz) < 1 or elem not in (2, 4):
+        raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}, "
+                         f"element size {elem}")
     limit = kernel_lib.SMEM_PER_BLOCK
-    stream = k2_fwd_smem(hdim, 32, 8) > limit
+    stream = k2_fwd_smem(hdim, 32, 8, elem) > limit
+    if stream and elem == 2:
+        raise NotImplementedError(
+            f"sru_hidden_layer: bf16 at H {hdim} needs the streamed "
+            "reduction, which has no bf16 kernel (H <= 536 in bf16)")
 
     def smem(cols, units):
         return (k2_fwd_stream_smem(cols, units) if stream
-                else k2_fwd_smem(hdim, cols, units))
+                else k2_fwd_smem(hdim, cols, units, elem))
 
     for slices in range(1, hdim + 1):
         units = -(-hdim // slices)
@@ -410,7 +508,9 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
             "slices": slices, "grid": (-(-bsz // bt), 2, slices),
             "chunks": -(-t_len // steps), "stream": stream,
             "kslices": -(-2 * hdim // FWD_K) if stream else 0,
-            "smem": smem(cols, units)}
+            "smem": smem(cols, units),
+            "vec": (k2_bf16_vec(bt, bsz) if elem == 2
+                    else 4 if bt % 4 == 0 and bsz % 4 == 0 else 1)}
 
 
 # K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in
@@ -446,16 +546,22 @@ def k2_bwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
 def _k2_forward(x_f, x_r, wt, vb, with_c):
     if x_f.device.type == "cpu":
         return sru_hidden_layer_plain(x_f, x_r, wt, vb, with_c)
-    kernel_lib.check_cuda_f32("sru_hidden_layer", x_f, x_r, wt, vb)
+    dt = kernel_lib.check_cuda("sru_hidden_layer", x_f, x_r, wt, vb,
+                               dtypes=_BF16)
     t_len, hdim, bsz = x_f.shape
     if min(x_f.shape) == 0:
         raise ValueError("sru_hidden_layer: empty input")
-    geo = k2_fwd_geometry(t_len, hdim, bsz)
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        x_f, x_r, wt = (kernel_lib.aligned16(t) for t in (x_f, x_r, wt))
+    geo = k2_fwd_geometry(t_len, hdim, bsz, x_f.element_size())
     outs = [torch.empty_like(x_f) for _ in range(4 if with_c else 2)]
     c_ptrs = ((outs[2].data_ptr(), outs[3].data_ptr()) if with_c
               else (None, None))
     kernel_lib.launch(
-        "sru_fused", "sru_hidden_layer_fwd", x_f.device,
+        "sru_fused",
+        "sru_hidden_layer_fwd_bf16" if bf16 else "sru_hidden_layer_fwd",
+        x_f.device,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), *c_ptrs,
         t_len, hdim, bsz, geo["bt"], geo["steps"], geo["units"],
@@ -467,7 +573,7 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
     if x_f.device.type == "cpu":
         return sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f,
                                           dh_r)
-    kernel_lib.check_cuda_f32("sru_hidden_layer backward", x_f, x_r, wt, vb,
+    kernel_lib.check_cuda("sru_hidden_layer backward", x_f, x_r, wt, vb,
                               c_f, c_r, dh_f, dh_r)
     t_len, hdim, bsz = x_f.shape
     if min(x_f.shape) == 0:
@@ -496,6 +602,7 @@ class _HiddenLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_f, x_r, wt, vb):
+        refuse_bf16_grad("sru_hidden_layer", x_f, x_r, wt, vb)
         h_f, h_r, c_f, c_r = _k2_forward(x_f, x_r, wt, vb, with_c=True)
         ctx.save_for_backward(x_f, x_r, wt, vb, c_f, c_r)
         return h_f, h_r
@@ -541,8 +648,10 @@ def layer0_projection(x, w0, window):
 
     x: (B, L, D) raw sequence; with ``window = (k, s)`` the projection of
     the unfolded windows runs as a ``conv1d`` (unfold feature c*k + j ->
-    conv weight [out, c, j]), so the unfolded tensor is never built.
+    conv weight [out, c, j]), so the unfolded tensor is never built. x is
+    cast to the weight's dtype first (bf16 serving: a bf16 conv, as JAX's).
     """
+    x = x.to(w0.dtype)
     if window is None:
         return torch.einsum("bld,dk->lkb", x, w0)
     kernel, stride = window

@@ -81,7 +81,7 @@ def k4_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
 def _k4_forward(u, xhw, vb, reverse, with_c):
     if u.device.type == "cpu":
         return sru_recurrence_plain(u, xhw, vb, reverse, with_c)
-    kernel_lib.check_cuda_f32("sru_recurrence", u, xhw, vb)
+    kernel_lib.check_cuda("sru_recurrence", u, xhw, vb)
     t_len, gh, bsz = u.shape
     if min(u.shape) == 0:
         raise ValueError("sru_recurrence: empty input")
@@ -100,7 +100,7 @@ def _k4_forward(u, xhw, vb, reverse, with_c):
 def _k4_backward(u, xhw, vb, c, dh, reverse):
     if u.device.type == "cpu":
         return sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse)
-    kernel_lib.check_cuda_f32("sru_recurrence backward", u, xhw, vb, c, dh)
+    kernel_lib.check_cuda("sru_recurrence backward", u, xhw, vb, c, dh)
     t_len, gh, bsz = u.shape
     geo = scan_bwd_geometry(t_len, gh // 3, bsz, 1)
     du, dxhw = torch.empty_like(u), torch.empty_like(xhw)

@@ -19,7 +19,9 @@ before it is scored. Writes ``<exp>/results/metrics.csv`` (a row an
 utterance, then avg, std and the PESQ/STOI backends), ``results.csv``
 (mean and std a metric, and the two backends) and, with
 ``--save-examples N``, the first N utterances' mixture, estimates and
-sources as wavs under ``results/examples/``.
+sources as wavs under ``results/examples/``. A ``conf.json`` whose
+``audionet.compute_dtype`` is ``"bfloat16"`` scores the bf16 serving
+model (``config.build_avnet``).
 """
 
 from __future__ import annotations

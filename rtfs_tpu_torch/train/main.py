@@ -43,7 +43,7 @@ from ..utils.code_version import code_version
 from ..utils.parser import parse_overrides
 from .checkpoints import CheckpointManager, export_model, resolve_checkpoint_spec
 from .optim import EpochDivideLR, ReduceLROnPlateau, get_lr, make_optimizer, set_lr
-from .system import AVSystem, make_generator
+from .system import BF16_TRAINING, AVSystem, make_generator
 
 
 def build_datasets(conf: Dict[str, Any]):
@@ -68,9 +68,16 @@ def build_datasets(conf: Dict[str, Any]):
         for key in ("train_dir", "valid_dir"))
 
 
+def _refuse_bf16(conf: Dict[str, Any]) -> None:
+    if conf["audionet"].get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError(BF16_TRAINING)
+
+
 def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
     """The frozen lip backbone, the AVNet (weights from ``seed``), the
-    optimizer of ``conf["optim"]`` and the ``AVSystem`` over them."""
+    optimizer of ``conf["optim"]`` and the ``AVSystem`` over them. A bf16
+    config (``audionet.compute_dtype``) raises: training is float32."""
+    _refuse_bf16(conf)
     optim_conf = conf["optim"]
     tconf = conf["training"]
     model = build_avnet(conf, device, seed=seed)
@@ -85,7 +92,9 @@ def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
 
 def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
          checkpoint: Optional[str] = None) -> Dict[str, Any]:
-    """Train; returns the last epoch's metrics row (None if no epoch ran)."""
+    """Train; returns the last epoch's metrics row (None if no epoch ran).
+    Raises NotImplementedError on a bf16 config before writing anything."""
+    _refuse_bf16(conf)
     device = torch.device(device)
     exp_dir = os.path.join(conf["log"].get("path", "log/tmp"),
                            conf["log"]["exp_name"])

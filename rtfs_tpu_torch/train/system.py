@@ -40,6 +40,11 @@ def _unfold_speakers(ests, n_spk: int):
     return ests.reshape((-1, n_spk) + tuple(ests.shape[2:]))
 
 
+BF16_TRAINING = (
+    "compute_dtype bfloat16 serves only: bf16 training (the K1-K3 backward "
+    "kernels in bf16 and a float32 master copy) is not ported")
+
+
 class AVSystem:
     """Owns the AVNet, the frozen video model and the optimizer.
 
@@ -50,10 +55,15 @@ class AVSystem:
         ``jax.lax.stop_gradient`` around it in the JAX system.
       optimizer: from ``train.optim.make_optimizer`` (default: AdamW 1e-3,
         no weight decay, clip 5.0 over ``model``'s parameters).
+
+    Training runs in float32 (or float64 on the CPU): a bf16 serving model
+    (``compute_dtype`` bfloat16) raises NotImplementedError.
     """
 
     def __init__(self, model, video_model=None, optimizer=None,
                  train_video_model: bool = False, online_mix: bool = False):
+        if getattr(model, "compute_dtype", None) == torch.bfloat16:
+            raise NotImplementedError(BF16_TRAINING)
         if train_video_model:
             raise NotImplementedError(
                 "joint video training (train_video_model) is not ported")

@@ -8,7 +8,10 @@ backbone, of ``convert_frcnn_video``): the mapping follows the
 port's module tree, names the flax path of each tensor, and converts the
 layout (flax channels-last kernels -> torch (C_out, C_in/g, *k), and so
 on). It raises on any flax leaf left unused and on any port tensor left
-unfilled (BatchNorm's ``num_batches_tracked`` counter aside).
+unfilled (BatchNorm's ``num_batches_tracked`` counter aside). The bf16
+leaves of ``cast_params(variables)`` fill a bf16 model (``build_avnet``
+with ``compute_dtype: "bfloat16"``) with the same bits: each is widened to
+float32 exactly on the way and rounded back by ``load_state_dict``.
 """
 
 from __future__ import annotations

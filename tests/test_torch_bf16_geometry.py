@@ -1,0 +1,301 @@
+"""The bf16 forward kernels' geometry, on the CPU.
+
+``csrc/sru_fused.cu`` (``sru_lay0_fwd_bf16_kernel``,
+``sru_hid_fwd_bf16_kernel``) and ``csrc/convt_tm.cu``
+(``convt1d_tm_fwd_bf16_kernel``) launch with the geometry of
+``ops/sru_fused.k1_fwd_geometry`` / ``k2_fwd_geometry`` and
+``ops/convt_tm.fwd_geometry`` at element size 2. These tests walk them as
+the kernels do:
+
+- K1: each warp's 16-byte copies of its 32 values of a gate row
+  (``k1_bf16_copies``) at the batch-minor rows of the two scans, 125 B
+  and 64 B for B 1-8 (125 B rows start at every offset mod 8), every
+  lane's value found at its shifted place, nothing read past u's end; the
+  ring of LAY0_AHEAD steps with copies landing at issue or at the wait;
+- K2: its blocks, shared memory, copy widths and X chunk copies, its
+  m16n8k16 fragments (each register the two values the tensor core takes
+  there) and their banks, and the bf16 limit (H 536);
+- K3: its channel split (slices of 16, float32 partials summed in order
+  and rounded once), its shared memory, the x ring's swizzle, and its
+  fragments and banks.
+
+A hypothesis property runs them at every width 8-160 the float32
+geometry tests take. ~5 s alone.
+"""
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from rtfs_tpu_torch.ops import convt_tm, kernel_lib, sru_fused
+
+# (T, B) of the scans at bs 1-8: frequency rows 125 B, time rows 64 B
+SCAN_SITES = [(3, 125 * b) for b in range(1, 9)] + [(3, 64 * b)
+                                                    for b in range(1, 9)]
+
+
+def _mma_a(g, q, r, h):
+    """(row, k) of A element h of register r of lane 4 g + q, m16n8k16."""
+    return g + 8 * (r & 1), 2 * q + h + 8 * (r >> 1)
+
+
+def _mma_b(g, q, r, h):
+    """(k, n) of B element h of register r of lane 4 g + q."""
+    return 2 * q + h + 8 * r, g
+
+
+# ----------------------------------------------------------------- K1
+
+
+@pytest.mark.parametrize("t_len,bsz", SCAN_SITES)
+@pytest.mark.parametrize("hdim", [1, 3])
+def test_k1_bf16_copies_land_every_value(t_len, bsz, hdim):
+    geo = sru_fused.k1_fwd_geometry(t_len, hdim, bsz, 2)
+    cols, units = geo["cols"], geo["units"]
+    assert cols % 32 == 0  # a warp: one unit, 32 consecutive columns
+    warps = cols * units // 32
+    assert geo["smem"] == warps * sru_fused.LAY0_AHEAD * 4 * \
+        sru_fused.LAY0_SPAN * 2 <= kernel_lib.SMEM_PER_BLOCK
+    row = hdim * bsz
+    total = t_len * 4 * row
+    u = np.arange(total)  # each element its own index
+    shifts = set()
+    for bx in range(geo["grid"][0]):
+        for w in range(warps):
+            b0 = bx * cols + (w * 32) % cols
+            for jy in range(geo["grid"][1]):
+                j = jy * units + (w * 32) // cols
+                if j >= hdim:
+                    continue
+                for t in range(t_len):
+                    for g in range(4):
+                        e0 = t * 4 * row + g * row + j * bsz + b0
+                        shift, blocks = sru_fused.k1_bf16_copies(e0, total)
+                        shifts.add(shift)
+                        slot = []
+                        for src, nbytes in blocks:
+                            assert src % 8 == 0  # 16-byte aligned
+                            assert 0 <= nbytes <= 16 and nbytes % 2 == 0
+                            # a block wholly past the end reads nothing
+                            # (the kernel points it at u itself)
+                            assert nbytes == 0 or src + nbytes // 2 <= total
+                            got = list(u[src:src + nbytes // 2])
+                            slot += got + [-1] * (8 - len(got))
+                        assert len(slot) == sru_fused.LAY0_SPAN
+                        for lane in range(32):
+                            if b0 + lane < bsz:
+                                assert shift + lane < sru_fused.LAY0_SPAN
+                                assert slot[shift + lane] == e0 + lane
+    if bsz % 8:
+        assert len(shifts) > 1  # rows start off the 16-byte grid
+
+
+@pytest.mark.parametrize("land", ["issue", "wait"])
+def test_k1_bf16_ring_reads_each_step_once_landed(land):
+    """One lane's ring: step i's copies go to slot i % AHEAD; the lane
+    waits until at most AHEAD - 1 groups are pending (step i's landed),
+    meets the warp, reads, meets it again, then issues step i + AHEAD into
+    the slot it read. Copies landing at issue or only at the wait, every
+    read finds its own step."""
+    ahead, t_len = sru_fused.LAY0_AHEAD, 3 * sru_fused.LAY0_AHEAD + 5
+    slots, pending = [None] * ahead, []
+
+    def issue(i):
+        if i < t_len:
+            if land == "issue":
+                slots[i % ahead] = i
+            else:
+                pending.append(i)
+
+    for i in range(ahead):
+        issue(i)
+    for i in range(t_len):
+        while pending and pending[0] <= i:  # wait_group<AHEAD - 1>
+            s = pending.pop(0)
+            slots[s % ahead] = s
+        assert slots[i % ahead] == i
+        issue(i + ahead)
+
+
+# ----------------------------------------------------------------- K2
+
+
+def _k2_walk(t_len, hdim, bsz):
+    geo = sru_fused.k2_fwd_geometry(t_len, hdim, bsz, 2)
+    bt, steps, units = geo["bt"], geo["steps"], geo["units"]
+    cols, vec = geo["cols"], geo["vec"]
+    assert not geo["stream"]
+    assert steps * bt == cols and cols % (16 * sru_fused.FWD_MT) == 0
+    assert units * bt <= sru_fused.FWD_THREADS
+    assert steps % min(steps, sru_fused.FWD_AHEAD) == 0
+    assert geo["smem"] == sru_fused.k2_fwd_smem(hdim, cols, units, 2) \
+        <= kernel_lib.SMEM_PER_BLOCK
+    # the float32 kernel's unit split where its rows fit; never more
+    # slices than it
+    if sru_fused.k2_fwd_smem(hdim, 32, 8) <= kernel_lib.SMEM_PER_BLOCK:
+        assert geo["slices"] <= sru_fused.k2_fwd_geometry(
+            t_len, hdim, bsz)["slices"]
+    # copy width: the widest of 8, 4, 2 dividing bt and B, else 1
+    assert vec == next((w for w in (8, 4, 2) if bt % w == 0 and
+                        bsz % w == 0), 1)
+    # one chunk's X copies, vec values each: every (row, column) once, a
+    # copy inside one row and one step, source and destination aligned to
+    # its bytes
+    k16 = -(-2 * hdim // 16) * 16
+    xs = cols + 8
+    seen = np.zeros((k16, cols), np.int32)
+    for e in range(0, k16 * cols, vec):
+        r, col = divmod(e, cols)
+        s, c = divmod(col, bt)
+        assert (col + vec - 1) // bt == s and col + vec <= cols
+        seen[r, col:col + vec] += 1
+        assert (r * xs + col) % vec == 0
+        src = (5 * hdim + r % hdim) * bsz + (bsz // bt // 2) * bt + c
+        assert src % vec == 0
+    assert (seen == 1).all()
+    return geo
+
+
+@pytest.mark.parametrize("t_len,bsz", SCAN_SITES + [(37, 131), (1, 77)])
+@pytest.mark.parametrize("hdim", [32, 48, 80])
+def test_k2_bf16_geometry(t_len, bsz, hdim):
+    _k2_walk(t_len, hdim, bsz)
+
+
+@settings(max_examples=60, deadline=None)
+@given(hdim=st.integers(1, 20).map(lambda n: 8 * n),
+       bsz=st.sampled_from([1, 5, 64, 125, 131, 500, 512, 1000]),
+       t_len=st.integers(1, 130))
+def test_k2_bf16_geometry_any_width(hdim, bsz, t_len):
+    _k2_walk(t_len, hdim, bsz)
+
+
+def test_k2_bf16_fragments_and_banks():
+    """The kernel's reads for one k16 step (A from X's slot [k][column],
+    rows of N + 8 values; B from W_d [o][k], rows of 2H' + 8) are the
+    elements m16n8k16 wants in each register half; A's 2-byte reads fall
+    on 16 distinct banks (two lanes a word), B's 4-byte reads on 32."""
+    for cols, hdim in ((64, 32), (32, 48), (64, 8), (32, 268)):
+        xs = cols + 8
+        ws = -(-2 * hdim // 16) * 16 + 8
+        m0, k0, r0 = 16, 16 if hdim > 8 else 0, 8
+        a_words, b_words = set(), []
+        for g in range(8):
+            for q in range(4):
+                base = 2 * q * xs + m0 + g + k0 * xs  # xl + k0 xs
+                kernel_a = [(base, base + xs), (base + 8, base + xs + 8),
+                            (base + 8 * xs, base + 9 * xs),
+                            (base + 8 * xs + 8, base + 9 * xs + 8)]
+                for r in range(4):
+                    for h in range(2):
+                        row, kk = _mma_a(g, q, r, h)
+                        assert kernel_a[r][h] == (k0 + kk) * xs + m0 + row
+                wl = (r0 + g) * ws + 2 * q + k0
+                for r in range(2):
+                    for h in range(2):
+                        kk, n = _mma_b(g, q, r, h)
+                        assert wl + 8 * r + h == (r0 + n) * ws + k0 + kk
+                assert wl % 2 == 0  # a 4-byte read
+                a_words.add(kernel_a[0][0] // 2 % 32)
+                b_words.append(wl // 2 % 32)
+        assert len(a_words) == 16 and len(set(b_words)) == 32
+
+
+def test_k2_bf16_limit():
+    """No streamed bf16 kernel: H up to 536 holds 8 units' rows beside X's
+    two slots; above, the wrapper's geometry raises NotImplementedError
+    (never a float32 or plain fallback)."""
+    assert sru_fused.k2_fwd_smem(536, 32, 8, 2) <= kernel_lib.SMEM_PER_BLOCK
+    assert sru_fused.k2_fwd_smem(537, 32, 8, 2) > kernel_lib.SMEM_PER_BLOCK
+    assert not sru_fused.k2_fwd_geometry(3, 536, 8, 2)["stream"]
+    with pytest.raises(NotImplementedError):
+        sru_fused.k2_fwd_geometry(3, 537, 8, 2)
+
+
+# ----------------------------------------------------------------- K3
+
+
+def _ring16_at(i, c):
+    return i * convt_tm.FWD_COLS + (c ^ (((i >> 2) & 1) << 3))
+
+
+@settings(max_examples=60, deadline=None)
+@given(c_in=st.integers(1, 20).map(lambda n: 8 * n),
+       c_out=st.sampled_from([16, 20, 48, 64, 130]),
+       k=st.sampled_from([3, 5, 8, 16]),
+       bsz=st.sampled_from([1, 6, 33, 64, 125, 1000]))
+def test_k3_bf16_split_and_partials(c_in, c_out, k, bsz):
+    """Input channels in the fewest equal slices of 16 whose bf16 W_flat
+    and ring fit a block (all of C_in where they do), output channels in
+    blocks of 64; each (t, o, b) gets one float32 partial a slice, summed
+    in slice order and rounded to bf16 once."""
+    length = 9
+    geo = convt_tm.fwd_geometry(length, c_in, c_out, k, bsz, 2)
+    limit = kernel_lib.SMEM_PER_BLOCK
+    ci = geo["ci_slice"]
+    assert ci == c_in or ci % 16 == 0
+    assert geo["smem"] == convt_tm.fwd_smem(k, ci, min(c_out, 64), 2) <= limit
+    if geo["in_slices"] > 1:
+        fewer = -(-(-(-c_in // (geo["in_slices"] - 1))) // 16) * 16
+        assert convt_tm.fwd_smem(k, fewer, min(c_out, 64), 2) > limit
+    assert geo["in_slices"] == -(-c_in // ci)
+    assert geo["vec_x"] == next((w for w in (8, 4, 2) if bsz % w == 0), 1)
+    assert geo["vec_w"] == next((w for w in (8, 4, 2) if c_in % w == 0), 1)
+    # slices cover every input channel once; a W copy never straddles a
+    # slice's last channel
+    covered = np.zeros(c_in, np.int32)
+    for z in range(geo["in_slices"]):
+        ci0 = z * ci
+        ci_n = min(ci, c_in - ci0)
+        covered[ci0:ci0 + ci_n] += 1
+        assert ci0 % 16 == 0 and ci_n % geo["vec_w"] == 0
+    assert (covered == 1).all()
+    # partials in float32, summed in order, rounded once: the same as one
+    # float32 sum over the slices' terms in that order
+    rng = np.random.default_rng(c_in + k)
+    parts = rng.standard_normal((geo["in_slices"], 7)).astype(np.float32)
+    total = np.zeros(7, np.float32)
+    for p in parts:
+        total = (total + p).astype(np.float32)
+    assert total.dtype == np.float32
+
+
+def test_k3_bf16_ring_and_fragments():
+    """The x ring's swizzle keeps each 8-value group (a 16-byte copy)
+    together; the kernel's B reads (two 2-byte reads a register, rows i0 +
+    2q (+1, +8, +9), column n0 + g) are m16n8k16's B elements and fall on
+    16 distinct banks; its A reads (W_flat rows of K C_in' + 8) are one
+    aligned 4-byte read a register, on 32 banks."""
+    fc = convt_tm.FWD_COLS
+    for i in range(64):
+        for c0 in (0, 8):
+            got = [_ring16_at(i, c0 + c) for c in range(8)]
+            assert got == list(range(got[0], got[0] + 8)) and got[0] % 8 == 0
+    for k, cp in ((8, 64), (5, 32), (3, 16), (16, 80)):
+        ws = k * cp + 8
+        for n0 in (0, 8):
+            banks = set()
+            for g in range(8):
+                for q in range(4):
+                    xb = [_ring16_at(2 * q, n0 + g), _ring16_at(2 * q + 1, n0 + g),
+                          _ring16_at(2 * q + 8, n0 + g),
+                          _ring16_at(2 * q + 9, n0 + g)]
+                    for r in range(2):
+                        for h in range(2):
+                            kk, n = _mma_b(g, q, r, h)
+                            assert xb[2 * r + h] == _ring16_at(kk, n0 + n)
+                    banks.add(xb[0] // 2 % 32)
+            assert len(banks) == 16
+        words = set()
+        for g in range(8):
+            for q in range(4):
+                ra = (16 + g) * ws + 2 * q + 3 * cp  # wl + j cp, j 3
+                for r in range(4):
+                    row, kk = _mma_a(g, q, r, 0)
+                    off = ra + (8 * ws if r & 1 else 0) + (8 if r >> 1 else 0)
+                    assert off == (16 + row) * ws + 3 * cp + kk
+                    assert off % 2 == 0
+                words.add(ra // 2 % 32)
+        assert len(words) == 32
+    assert fc == 16

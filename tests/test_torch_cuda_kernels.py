@@ -844,3 +844,137 @@ def test_packed_tdanet_block_card_matches_cpu(dev):
         "pw_unproj_packed_fwd": 1, "spatial_down_packed_fwd": 2,
         "spatial_up_packed_fwd": 4}
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# bf16 storage (K1, K2, K3 forward): two bf16 ulps at every element,
+# |diff| <= 2^-7 max(|want|, 2^-6); the kernels and the plain versions both
+# compute in float32 and round once, so they part only where float32 sums
+# in another order straddle a bf16 rounding boundary
+def _bf16_close(got, want, what=""):
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * torch.clamp(w.abs(), min=2.0 ** -6)
+    bad = (g - w).abs() > bound
+    assert not bad.any(), (what, int(bad.sum()), (g - w).abs().max().item())
+
+
+def _b(rng, shape, dev, scale=1.0):
+    return _t(rng, shape, dev, scale).to(torch.bfloat16)
+
+
+# the serving shapes at bs 1 and 8, small H, a ragged B, T 1, H 48 and 80
+# (K2's units split over the grid), H 268 and 536 (the largest bf16 K2)
+@pytest.mark.parametrize("t_len,h,bsz", [
+    (57, 32, 125), (118, 32, 64), (57, 32, 1000), (118, 32, 512),
+    (21, 8, 5), (1, 32, 77), (37, 32, 131), (23, 48, 131), (57, 80, 125),
+    (19, 48, 64), (9, 128, 40), (5, 268, 20), (3, 536, 8)])
+def test_bf16_k1_k2_match_plain(dev, t_len, h, bsz):
+    """K1 and K2 forward in bf16 storage against their plain bf16 versions
+    and against the float32 kernels on the same values widened; two calls
+    give the same bits; the launches are the bf16 entries."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(5)
+    vb = _b(rng, (8, h), dev, 0.3)
+    u_f, u_r = _b(rng, (t_len, 4 * h, bsz), dev), _b(rng, (t_len, 4 * h, bsz), dev)
+    kernel_lib.reset_launches()
+    k1 = S.sru_dual_recurrence(u_f, u_r, vb)
+    assert dict(kernel_lib.LAUNCHES) == {"sru_dual_recurrence_fwd_bf16": 1}
+    for g, w in zip(k1, S.sru_dual_recurrence_plain(u_f, u_r, vb)):
+        _bf16_close(g, w, "K1 plain")
+    wide = S.sru_dual_recurrence(u_f.float(), u_r.float(), vb.float())
+    for g, w in zip(k1, wide):
+        _bf16_close(g, w.to(torch.bfloat16), "K1 float32")
+    for a, b in zip(k1, S.sru_dual_recurrence(u_f, u_r, vb)):
+        assert torch.equal(a, b)
+    x_f, x_r = _b(rng, (t_len, h, bsz), dev, 0.5), _b(rng, (t_len, h, bsz), dev, 0.5)
+    wt = _b(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
+    kernel_lib.reset_launches()
+    got = S.sru_hidden_layer(x_f, x_r, wt, vb)
+    assert dict(kernel_lib.LAUNCHES) == {"sru_hidden_layer_fwd_bf16": 1}
+    for g, w in zip(got, S.sru_hidden_layer_plain(x_f, x_r, wt, vb)):
+        _bf16_close(g, w, "K2 plain")
+    wide = S.sru_hidden_layer(x_f.float(), x_r.float(), wt.float(), vb.float())
+    for g, w in zip(got, wide):
+        _bf16_close(g, w.to(torch.bfloat16), "K2 float32")
+    for a, b in zip(got, S.sru_hidden_layer(x_f, x_r, wt, vb)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("length,c_in,c_out,bsz,k",
+                         [(57, 64, 64, 125, 8), (118, 64, 64, 64, 8),
+                          (57, 64, 64, 1000, 8), (118, 64, 64, 512, 8),
+                          (13, 32, 48, 17, 5), (37, 32, 64, 131, 8),
+                          (9, 12, 20, 33, 3), (1, 64, 64, 77, 8),
+                          (57, 96, 64, 125, 8), (57, 160, 64, 125, 8),
+                          (7, 72, 130, 40, 16), (5, 64, 64, 6, 8)])
+def test_bf16_k3_matches_plain(dev, length, c_in, c_out, bsz, k):
+    """K3 forward in bf16 storage against its plain bf16 version and the
+    float32 kernel on the widened values; two calls give the same bits."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    rng = np.random.default_rng(7)
+    x = _b(rng, (length, c_in, bsz), dev)
+    w = _b(rng, (k, c_out, c_in), dev, 0.1)
+    kernel_lib.reset_launches()
+    got = K.convt1d_ola_tm(x, w)
+    assert dict(kernel_lib.LAUNCHES) == {"convt1d_ola_tm_fwd_bf16": 1}
+    _bf16_close(got, K.convt1d_ola_tm_plain(x, w), "K3 plain")
+    _bf16_close(got, K.convt1d_ola_tm(x.float(), w.float()).to(torch.bfloat16),
+                "K3 float32")
+    assert torch.equal(got, K.convt1d_ola_tm(x, w))
+
+
+def test_bf16_refuses_gradients_and_takes_unaligned_views(dev):
+    """bf16 is inference-only: a bf16 op that autograd would record raises
+    NotImplementedError (no float32 or plain backward instead); a bf16
+    input whose data starts off a 16-byte boundary is copied, not
+    misread."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(9)
+    vb = _b(rng, (8, 32), dev, 0.3)
+    u = _b(rng, (9, 128, 70), dev).requires_grad_()
+    with pytest.raises(NotImplementedError):
+        S.sru_dual_recurrence(u, u.detach(), vb)
+    x = _b(rng, (9, 32, 70), dev)
+    with pytest.raises(NotImplementedError):
+        S.sru_hidden_layer(x, x, _b(rng, (192, 64), dev).requires_grad_(), vb)
+    with pytest.raises(NotImplementedError):
+        K.convt1d_ola_tm(_b(rng, (9, 64, 70), dev).requires_grad_(),
+                         _b(rng, (8, 64, 64), dev))
+    big = _b(rng, (9 * 128 * 70 + 3,), dev)
+    u_f = big[3:].view(9, 128, 70)  # 6 bytes off
+    assert u_f.data_ptr() % 16 != 0
+    u_r = u_f.clone()
+    for g, w in zip(S.sru_dual_recurrence(u_f, u_r, vb),
+                    S.sru_dual_recurrence_plain(u_f, u_r, vb)):
+        _bf16_close(g, w, "K1 unaligned")
+
+
+def test_bf16_dual_path_rnn_card_matches_cpu(dev):
+    """The preset's DualPathRNN in bf16 (fused stack, K3 tail, bias in
+    bf16) on the card against its CPU path (the plain bf16 versions), at
+    the bs-1 frequency-scan geometry."""
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    m = DualPathRNN(64, 32, dim=4, num_layers=4)
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, 64, 118, 64)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = m(x)
+        kernel_lib.reset_launches()
+        got = m.to(dev)(x.to(dev)).cpu()
+    assert dict(kernel_lib.LAUNCHES) == {
+        "sru_dual_recurrence_fwd_bf16": 1, "sru_hidden_layer_fwd_bf16": 3,
+        "convt1d_ola_tm_fwd_bf16": 1}
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err

@@ -375,8 +375,11 @@ def test_chip_smoke_packed_launches_match_a_forward(packed_pair, monkeypatch):
 
 
 def test_build_avnet_still_refuses_batch_fold_and_bf16():
+    """batch_fold is not ported; bf16 serves the standard layout only, so
+    bf16 with packed_tf (K5-K9 take float32) still raises."""
     conf = load_config(PRESET)
-    for key, value in (("batch_fold", 2), ("compute_dtype", "bfloat16")):
-        bad = dict(conf, audionet=dict(conf["audionet"], **{key: value}))
+    for extra in ({"batch_fold": 2},
+                  {"compute_dtype": "bfloat16", "packed_tf": True}):
+        bad = dict(conf, audionet=dict(conf["audionet"], **extra))
         with pytest.raises(NotImplementedError):
             build_avnet(bad, device="cpu")
