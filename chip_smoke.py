@@ -170,8 +170,30 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    corpus and bundle with a ``conf.json`` that says bfloat16: the serving
    entry (against the float32 entry by SI-SNR) and the evaluation entry at
    bs 1, launching the bf16 entries only, its rows beside phase 11's.
+13. Packed bf16 (after phase 12): ``packed_tf`` with ``compute_dtype:
+   "bfloat16"``, the JAX bench's ``bf16_packed`` row: K5-K9 through their
+   bf16-storage entries beside K1-K3's. (a) K5-K9 at each site of a packed
+   bs-1 and bs-8 forward, and K2's streamed bf16 forward at H 600 and
+   1024, each against its plain bf16 version and the float32 kernel on
+   the widened values (two bf16 ulps), twice (bit-identical), timed with
+   CUDA events and the profiler's device time a launch beside its bf16
+   bound, the plain version, the float32 kernel and the bf16 library call
+   (``conv2d`` with groups C for K5, ``baddbmm`` on the same layout for
+   K6/K7, phase 7's pool, select and nearest calls for K8/K9); (b)
+   ``separate_sample`` on the packed bf16 model (seed-0 weights rounded)
+   at bs 1 and 8: exactly ``packed_bf16_launches`` (K5 16 / K6 4 / K7 4 /
+   K8 8 / K9 16 bf16 entries, with K1 8 / K2 24 / K3 8) a forward and no
+   float32 entry, bs 1 against the same model on the CPU to the CPU
+   test's gates, both against the card's standard bf16 and packed float32
+   forwards by SI-SNR, request medians of ``bench.py``'s three bs-1 rows
+   (standard float32, standard bf16, packed bf16) in turns and their
+   audio-s/s at bs 8, one profiled bs-1 and one bs-8 packed bf16 forward
+   (device time, idle share, top kernels, the shares of K5-K9, K1-K3,
+   cuDNN's convolutions and ATen's depthwise ones); (c) the serving entry
+   on a bundle whose ``conf.json`` says ``packed_tf`` and ``bfloat16``,
+   launching the bf16 entries only, against the float32 entry by SI-SNR.
 
-The last lines are the ``kernels`` JSON object (18 kernels), the card
+The last lines are the ``kernels`` JSON object (23 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
 cuDNN and matmuls before any comparison, so every float32 product is full
 float32.
@@ -446,16 +468,17 @@ def packed_geometry(conf, samples: int = SAMPLES) -> dict:
             "T2": (t + 2 * pad - k) // 2 + 1, "F2": (f + 2 * pad - k) // 2 + 1}
 
 
-def _map_cost(smap, c: int, bs: int) -> tuple:
+def _map_cost(smap, c: int, bs: int, elem: int = 4) -> tuple:
     """(bytes, flops) of a separable map: the distinct input values it
-    reads (weight-0 entries are skipped), the output, the map itself;
-    two flops a term."""
+    reads (weight-0 entries are skipped), the output, ``elem`` bytes a
+    value, the map itself; two flops a term."""
     ts, tw = smap.compact_t()
     rows = np.unique(ts[tw != 0])
     cols = np.unique(smap.fs[smap.fw != 0])
     n_t = (tw != 0).sum(1)          # terms per output row
     n_f = (smap.fw != 0).sum(1)     # terms per output column
-    nbytes = 4 * bs * c * (len(rows) * len(cols) + smap.t_out * smap.f_out) \
+    nbytes = elem * bs * c * (len(rows) * len(cols)
+                              + smap.t_out * smap.f_out) \
         + 8 * (ts.size + smap.fs.size)
     return nbytes, 2 * bs * c * int(n_t.sum()) * int(n_f.sum())
 
@@ -816,12 +839,13 @@ def profile_k5_k7(conf, rng) -> None:
               f"{PARENT_FIGURES['pw_unproj_packed']}")
 
 
-def _device_us(fn, kernel: str, iters: int = 20) -> float:
-    """The profiler's device microseconds per launch of ``kernel`` over
-    ``iters`` calls of ``fn``; nan (not measured) when the profiler saw
-    none of them."""
+def _device_us(fn, kernel, iters: int = 20) -> float:
+    """The profiler's device microseconds per launch of ``kernel`` (a name,
+    or a tuple of parts the name holds all of) over ``iters`` calls of
+    ``fn``; nan (not measured) when the profiler saw none of them."""
     from torch.profiler import ProfilerActivity, profile
 
+    parts = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -829,7 +853,7 @@ def _device_us(fn, kernel: str, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key
+    evs = [e for e in prof.key_averages() if all(p in e.key for p in parts)
            and e.device_type == torch.autograd.DeviceType.CUDA]
     count = sum(e.count for e in evs)
     if count != iters:
@@ -1172,47 +1196,63 @@ def serve(conf, rng, expect, label="serving") -> dict:
     return launches
 
 
+def write_bundle(root: str, confs: dict, rng) -> None:
+    """A serving bundle in ``root``: each of ``confs`` ({file name:
+    config}) as a JSON file, ``best_model.pt`` with the first config's
+    seed-0 float32 AVNet and lip backbone, a 2 s ``mix.wav`` and
+    VIDEO_FRAMES raw mouth frames ``mouth.npz`` from ``rng``."""
+    import os
+
+    from rtfs_tpu_torch.config import build_avnet, build_video_model
+    from rtfs_tpu_torch.data.wav import write_wav
+    from rtfs_tpu_torch.train.checkpoints import export_model
+
+    for name, c in confs.items():
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(c, f)
+    conf = next(iter(confs.values()))
+    export_model(os.path.join(root, "best_model.pt"), conf["audionet"],
+                 build_avnet(conf, device="cpu", seed=0).state_dict(),
+                 build_video_model(conf, device="cpu", seed=0).state_dict())
+    write_wav(os.path.join(root, "mix.wav"),
+              (rng.standard_normal(SAMPLES) * 0.1).astype(np.float32), 16000)
+    np.savez(os.path.join(root, "mouth.npz"), data=rng.integers(
+        0, 256, (VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE), dtype=np.uint8))
+
+
+def run_entry(root: str, conf_name: str, *extra) -> tuple:
+    """The serving entry on ``write_bundle``'s files with ``conf_name``;
+    returns (the estimates, its seconds)."""
+    import os
+
+    from rtfs_tpu_torch import inference
+
+    t0 = time.perf_counter()
+    out = inference.main([
+        "--conf-dir", os.path.join(root, conf_name),
+        "--wav", os.path.join(root, "mix.wav"),
+        "--mouth", os.path.join(root, "mouth.npz"),
+        "--out-dir", os.path.join(root, "out"), *extra])
+    return out, time.perf_counter() - t0
+
+
 def serve_packed(conf, rng) -> dict:
     """Phase 8: the serving entry from files on the card, packed and
     standard, and on the CPU packed; returns the launch counts of the
     card's packed run (the main path of the packed kernels)."""
-    import os
     import tempfile
 
-    from rtfs_tpu_torch import inference
-    from rtfs_tpu_torch.config import build_avnet, build_video_model
-    from rtfs_tpu_torch.data.wav import write_wav
     from rtfs_tpu_torch.ops import kernel_lib
-    from rtfs_tpu_torch.train.checkpoints import export_model
 
     with tempfile.TemporaryDirectory() as root:
-        with open(os.path.join(root, "conf.json"), "w") as f:
-            json.dump(conf, f)
-        export_model(os.path.join(root, "best_model.pt"), conf["audionet"],
-                     build_avnet(conf, device="cpu", seed=0).state_dict(),
-                     build_video_model(conf, device="cpu", seed=0).state_dict())
-        wav = (rng.standard_normal(SAMPLES) * 0.1).astype(np.float32)
-        write_wav(os.path.join(root, "mix.wav"), wav, 16000)
-        mouth = rng.integers(0, 256, (VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE),
-                             dtype=np.uint8)
-        np.savez(os.path.join(root, "mouth.npz"), data=mouth)
-
-        def run(*extra):
-            t0 = time.perf_counter()
-            out = inference.main([
-                "--conf-dir", os.path.join(root, "conf.json"),
-                "--wav", os.path.join(root, "mix.wav"),
-                "--mouth", os.path.join(root, "mouth.npz"),
-                "--out-dir", os.path.join(root, "out"), *extra])
-            return out, time.perf_counter() - t0
-
-        std, std_s = run()
+        write_bundle(root, {"conf.json": conf}, rng)
+        std, std_s = run_entry(root, "conf.json")
         # the main path of K5-K9: counts from 0, the packed entry run, read
         kernel_lib.reset_launches()
-        packed, packed_s = run("--packed-tf")
+        packed, packed_s = run_entry(root, "conf.json", "--packed-tf")
         torch.cuda.synchronize()
         launches = dict(kernel_lib.LAUNCHES)
-        cpu, cpu_s = run("--packed-tf", "--cpu")
+        cpu, cpu_s = run_entry(root, "conf.json", "--packed-tf", "--cpu")
     expect = {**SERVE_LAUNCHES, **packed_launches(conf)}
     print(f"serving from files: packed entry launches {launches} (expected "
           f"{expect}); entry wall s: card {std_s:.3f}, card packed "
@@ -2686,6 +2726,23 @@ BF16_PROFILE_GROUPS = {
 }
 
 
+# ---------------------------------------------------------------- phase 13
+# packed bf16 serving (``packed_tf`` with ``compute_dtype: "bfloat16"``,
+# the JAX bench's ``bf16_packed`` row): K5-K9's bf16 entries as often a
+# forward as the float32 packed ones, with K1-K3's bf16 entries
+
+
+def packed_bf16_launches(conf) -> dict:
+    """Launches of each bf16 entry per packed bf16 forward of ``conf``:
+    ``packed_launches`` under the bf16 entries' names, and
+    ``BF16_LAUNCHES`` scaled to the audio net's repeats.
+    tests/test_torch_bf16_packed.py holds it against a forward."""
+    scale = conf["audionet"]["audio_params"]["repeats"]
+    out = {f"{k}_bf16": v for k, v in packed_launches(conf).items()}
+    out.update({k: v * scale // REPEATS for k, v in BF16_LAUNCHES.items()})
+    return out
+
+
 def bf16_ulps(got, want) -> tuple:
     """(ok, worst ratio, elements that differ): |got - want| <= 2^-7
     max(|want|, 2^-6), two bf16 ulps, at every element."""
@@ -2778,60 +2835,33 @@ def check_bf16_kernels(geo, rng) -> dict:
             for name, (kern, plain, args, nbytes, nops, mm_ops) in \
                     cases.items():
                 bname = names[name]
-                wide = tuple(a.float() for a in args)
-
-                def stack(out):
-                    return torch.stack(out) if isinstance(out, tuple) else out
-
-                got, again = stack(kern(*args)), stack(kern(*args))
-                want, f32 = stack(plain(*args)), stack(kern(*wide))
-                torch.cuda.synchronize()
-                if got.dtype != bf or not torch.equal(got, again):
-                    raise AssertionError(f"{bname}: two calls differ")
-                ok, ratio, n_diff = bf16_ulps(got, want)
-                ok32, ratio32, n32 = bf16_ulps(got, f32.to(bf))
-                err = (got.float() - want.float()).abs().max().item()
-                ms = time_cuda(lambda: kern(*args), 50)
-                f32_ms = time_cuda(lambda: kern(*wide), 50)
-                plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
-                dev_us = _device_us(lambda: kern(*args), BF16_KERNEL_NAMES[
-                    bname], 40)
-                b_ms, b_by = bf16_bound_ms(nbytes, nops, mm_ops)
-                lib_ms = None
+                lib = None
                 if name == "convt1d_ola_tm":
-                    x_lib = args[0].permute(2, 1, 0).contiguous()
-                    w_lib = args[1].permute(2, 1, 0).contiguous()
-                    lib_ms = time_cuda(
-                        lambda: torch.nn.functional.conv_transpose1d(
-                            x_lib, w_lib), 50)
-                print(f"bf16 kernel {bname} bs={bs} site={site} L={length} "
-                      f"B={bsz}: against plain bf16 worst {ratio:.3f} of 2 "
-                      f"ulps ({n_diff} of {got.numel()} differ, max_abs_err="
-                      f"{err:.3e}); against the float32 kernel {ratio32:.3f} "
-                      f"of 2 ulps ({n32} differ); ms={ms:.5f} device us a "
-                      f"launch={dev_us:.2f} bound_ms={b_ms:.5f} ({b_by}) "
-                      f"share of bound={b_ms / ms:.3f} plain_ms="
-                      f"{plain_ms:.5f} float32 kernel ms={f32_ms:.5f} "
-                      f"library_ms={lib_ms}; two calls bit-identical")
-                if not (ok and ok32):
-                    raise AssertionError(f"{bname} bs {bs} {site}: beyond 2 "
-                                         "bf16 ulps")
+                    lib = functools.partial(
+                        torch.nn.functional.conv_transpose1d,
+                        args[0].permute(2, 1, 0).contiguous(),
+                        args[1].permute(2, 1, 0).contiguous())
+                c = _bf16_case(f"{bname} bs={bs} site={site} L={length} "
+                               f"B={bsz}", kern, plain, args, nbytes, nops,
+                               mm_ops, lib, BF16_KERNEL_NAMES[bname])
                 r = res[bname]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["device_us"][f"bs{bs} {site}"] = round(dev_us, 3)
+                r["max_abs_err"] = max(r["max_abs_err"], c["err"])
+                r["device_us"][f"bs{bs} {site}"] = round(c["dev_us"], 3)
                 n = per_forward[name]
                 if bs == 1:
                     ms_sum, b_sum, f_sum = bs1.get(bname, (0.0, 0.0, 0.0))
-                    bs1[bname] = (ms_sum + n * ms, b_sum + n * b_ms,
-                                  f_sum + n * f32_ms)
+                    bs1[bname] = (ms_sum + n * c["ms"],
+                                  b_sum + n * c["bound_ms"],
+                                  f_sum + n * c["f32_ms"])
                 if bs == 8:
-                    r["ms"] += n * ms
-                    r["plain_ms"] += n * plain_ms
-                    r["bound_ms"] += n * b_ms
-                    r["f32_ms"] += n * f32_ms
-                    r["bound_by"] = b_by
-                    if lib_ms is not None:
-                        r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+                    r["ms"] += n * c["ms"]
+                    r["plain_ms"] += n * c["plain_ms"]
+                    r["bound_ms"] += n * c["bound_ms"]
+                    r["f32_ms"] += n * c["f32_ms"]
+                    r["bound_by"] = c["bound_by"]
+                    if lib is not None:
+                        r["library_ms"] = ((r["library_ms"] or 0.0)
+                                           + n * c["library_ms"])
     for name, r in res.items():
         print(f"bf16 kernel {name}: per bs-8 forward ms={r['ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) share of "
@@ -2854,8 +2884,6 @@ def bf16_serve(conf, rng) -> dict:
     forward on the same weights by SI-SNR; request medians, bf16 and
     float32 in turns, and one profiled bs-8 bf16 forward. Returns the
     launch counts."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rtfs_tpu_torch.config import build_avnet
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.utils.separator import separate_sample
@@ -2923,27 +2951,11 @@ def bf16_serve(conf, rng) -> dict:
                   f"{max(ts) * 1e3:.3f} ms over {len(ts)}; audio s/s="
                   f"{bs * SAMPLES / 16000 / med:.3f}")
 
-    wav, mouth = requests[8]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        separate_sample(model16, wav, mouth)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, _ = device_kernels(prof)
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-    print(f"bf16 serving profile: bs=8 forward wall {wall_ms:.3f} ms, device "
-          f"{dev_ms:.3f} ms, idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
-    for e in kernels[:10]:
-        print(f"bf16 serving profile: top kernel {dev_us(e) / 1e3:8.3f} ms "
-              f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<4d} {e.key[:90]}")
-    groups = {name: (part,) for name, part in BF16_KERNEL_NAMES.items()}
-    groups.update(BF16_PROFILE_GROUPS)
-    for group, parts in groups.items():
-        picked = [e for e in kernels if any(a in e.key for a in parts)]
-        ms = sum(dev_us(e) for e in picked) / 1e3
-        print(f"bf16 serving profile: {group}: {ms:.3f} ms, share "
-              f"{ms / dev_ms:.3f} of the device time, {len(picked)} kernels "
-              f"{sorted({e.key[:48] for e in picked})[:6]}")
+    groups = {name: ((part,),) for name, part in BF16_KERNEL_NAMES.items()}
+    groups.update({name: tuple((p,) for p in parts)
+                   for name, parts in BF16_PROFILE_GROUPS.items()})
+    _profile_forward(model16, *requests[8], "bf16 serving profile: bs=8",
+                     groups)
     return launches
 
 
@@ -3015,6 +3027,382 @@ def bf16_entries(conf, exp_dir, split, runs) -> dict:
 
 
 
+# the packed bf16 kernels, as the kernels line names them: (the C entry,
+# the parts of the name the profiler shows for its device kernel)
+PACKED_BF16_KERNELS = {
+    "dw_conv_packed_bf16": ("dw_conv_packed_fwd_bf16",
+                            ("dw_conv_packed_kernel", "bfloat16")),
+    "pw_proj_packed_bf16": ("pw_proj_packed_fwd_bf16",
+                            ("pw_proj_bf16_kernel",)),
+    "pw_unproj_packed_bf16": ("pw_unproj_packed_fwd_bf16",
+                              ("pw_unproj_bf16_kernel",)),
+    "spatial_down_packed_bf16": ("spatial_down_packed_fwd_bf16",
+                                 ("spatial_down_kernel", "bfloat16")),
+    "spatial_up_packed_bf16": ("spatial_up_packed_fwd_bf16",
+                               ("spatial_up_kernel", "bfloat16")),
+}
+# K2 forward's widths where its bf16 kernel streams the reduction (above
+# H 536), run at the bs-1 frequency site's L and B
+K2_STREAM_H = (600, 1024)
+
+
+def _packed_bf16_sites(conf, rng, bs) -> list:
+    """Phase 13 (a): K5-K9's sites in a packed bf16 forward at batch
+    ``bs``, on fresh bf16 inputs: (kernel, site, launches a forward, the
+    op's call, its plain version's call, the arguments, bytes, flops, of
+    those the tensor cores' product flops, one PyTorch call of the same
+    function in bf16 or None)."""
+    import torch.nn.functional as Fn
+
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    g = packed_geometry(conf)
+    T, Fq, C, Cb, k, T2, F2 = (g[n] for n in ("T", "F", "C", "Cb", "k",
+                                              "T2", "F2"))
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).to(bf)
+
+    def cl(xp, tt, ff):  # a packed map as the channels-last (B, C, T, F)
+        return xp.view(xp.shape[0], tt, ff, C).permute(0, 3, 1, 2)
+
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
+    pool = P.cached_map("pool", T, T2, Fq, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, Fq)
+    xp, x4 = t((bs, T, Fq * C)), t((bs, Cb, T, Fq))
+    xs, x2 = t((bs, t_conv, f_conv * C)), t((bs, C, T2, F2))
+    w_dw, b_dw = t((C, 1, k, k), 1.0 / k), t((C,))
+    w_in, b_in = t((C, Cb, 1, 1), Cb ** -0.5), t((C,))
+    w_out, b_out = t((Cb, C, 1, 1), C ** -0.5), t((Cb,))
+    w_v = w_dw[:, 0].permute(1, 2, 0)
+    w_pi, w_po = w_in[:, :, 0, 0].t(), w_out[:, :, 0, 0].t()
+    n_x, n_s, m = bs * T * Fq * C, bs * t_conv * f_conv * C, bs * T * Fq
+    x_cl = cl(xp, T, Fq)
+    x3 = x4.view(bs, Cb, T * Fq).transpose(1, 2)  # (B, M, Cb) view
+    xp3 = xp.view(bs, T * Fq, C).transpose(1, 2)  # (B, C, M) view
+    sites = [
+        ("dw_conv_packed_bf16", "same", 12, P.dw_conv_packed,
+         P.dw_conv_packed_plain, (xp, w_v, b_dw, Fq, C, same, same),
+         2 * (2 * n_x + k * k * C + C), 2 * k * k * n_x, 0,
+         lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding="same", groups=C)),
+        ("dw_conv_packed_bf16", "pre-select", 4, P.dw_conv_packed,
+         P.dw_conv_packed_plain, (xp, w_v, b_dw, Fq, C, pre, pre),
+         2 * (n_x + n_s + k * k * C + C), 2 * k * k * n_s, 0,
+         lambda: Fn.conv2d(x_cl, w_dw, b_dw, padding=pre[0], groups=C)),
+        ("pw_proj_packed_bf16", "projection", 4, P.pw_proj_packed,
+         P.pw_proj_packed_plain, (x4, w_pi, b_in),
+         2 * (m * (Cb + C) + Cb * C + C), 2 * m * Cb * C, 2 * m * Cb * C,
+         lambda: torch.baddbmm(b_in.view(1, 1, C), x3,
+                               w_pi.expand(bs, Cb, C))),
+        ("pw_unproj_packed_bf16", "residual", 4, P.pw_unproj_packed,
+         P.pw_unproj_packed_plain, (xp, w_po, b_out, Fq),
+         2 * (m * (Cb + C) + Cb * C + Cb), 2 * m * Cb * C, 2 * m * Cb * C,
+         lambda: torch.baddbmm(b_out.view(1, Cb, 1),
+                               w_po.t().expand(bs, Cb, C), xp3)),
+    ]
+    for name, site, n, smap, x, lib in (
+            ("spatial_down_packed_bf16", "pool", 4, pool, xp,
+             lambda: Fn.adaptive_avg_pool2d(x_cl, (T2, F2))),
+            ("spatial_down_packed_bf16", "select", 4, sel, xs,
+             lambda: cl(xs, t_conv, f_conv)[:, :, ::2, ::2].contiguous()),
+            ("spatial_up_packed_bf16", "nearest", 16, up, x2,
+             lambda: Fn.interpolate(x2, size=(T, Fq), mode="nearest"))):
+        nbytes, nops = _map_cost(smap, C, bs, elem=2)
+        if name == "spatial_up_packed_bf16":
+            sites.append((name, site, n, P.spatial_up_packed,
+                          P.spatial_up_packed_plain, (x, smap), nbytes,
+                          nops, 0, lib))
+        else:
+            sites.append((name, site, n, P.spatial_down_packed,
+                          P.spatial_down_packed_plain, (x, smap, C), nbytes,
+                          nops, 0, lib))
+    return sites
+
+
+def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
+               parts) -> dict:
+    """One bf16 kernel at one site: against its plain bf16 version and the
+    float32 kernel on the same values widened (two bf16 ulps at every
+    element), two calls bit-identical; event ms, the profiler's device us
+    a launch, the bf16 bound, the plain version's, the float32 kernel's
+    and the library call's ms. Raises where a gate fails."""
+    def stack(out):
+        return torch.stack(out) if isinstance(out, tuple) else out
+
+    wide = tuple(a.float() if torch.is_tensor(a) else a for a in args)
+    got, again = stack(op(*args)), stack(op(*args))
+    want, f32 = stack(plain(*args)), stack(op(*wide))
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls differ")
+    ok, ratio, n_diff = bf16_ulps(got, want)
+    ok32, ratio32, n32 = bf16_ulps(got, f32.to(torch.bfloat16))
+    err = (got.float() - want.float()).abs().max().item()
+    ms = time_cuda(lambda: op(*args), 50)
+    f32_ms = time_cuda(lambda: op(*wide), 50)
+    plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+    lib_ms = time_cuda(lib, 50) if lib is not None else None
+    dev = _device_us(lambda: op(*args), parts, 40)
+    b_ms, b_by = bf16_bound_ms(nbytes, nops, mm_ops)
+    print(f"bf16 kernel {label}: against plain bf16 worst {ratio:.3f} of 2 "
+          f"ulps ({n_diff} of {got.numel()} differ, max_abs_err={err:.3e}); "
+          f"against the float32 kernel {ratio32:.3f} of 2 ulps ({n32} "
+          f"differ); ms={ms:.5f} device us a launch={dev:.2f} bound_ms="
+          f"{b_ms:.5f} ({b_by}, {nbytes} B, {nops} flop) share of bound="
+          f"{b_ms / ms:.3f} plain_ms={plain_ms:.5f} float32 kernel ms="
+          f"{f32_ms:.5f} library_ms="
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'}; two calls "
+          "bit-identical")
+    if not (ok and ok32):
+        raise AssertionError(f"{label}: beyond 2 bf16 ulps")
+    return {"err": err, "ms": ms, "dev_us": dev, "bound_ms": b_ms,
+            "bound_by": b_by, "plain_ms": plain_ms, "f32_ms": f32_ms,
+            "library_ms": lib_ms}
+
+
+def check_packed_bf16_kernels(conf, geo, rng) -> tuple:
+    """Phase 13 (a): K5-K9 in bf16 storage at each site of a packed bs-1
+    and bs-8 forward, and K2's streamed bf16 forward at ``K2_STREAM_H``
+    (``_bf16_case`` each). Returns per K5-K9 kernel the worst error and
+    its per-forward (batch 1) sums of kernel, plain, bound and library
+    times, and K2's streamed figures per H."""
+    from rtfs_tpu_torch.ops import sru_fused
+
+    res = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
+           for name in PACKED_BF16_KERNELS}
+    bs8 = {name: [0.0, 0.0, 0.0] for name in PACKED_BF16_KERNELS}
+    f32 = {name: 0.0 for name in PACKED_BF16_KERNELS}
+    for bs in (1, 8):
+        for (name, site, n, op, plain, args, nbytes, nops, mm_ops,
+             lib) in _packed_bf16_sites(conf, rng, bs):
+            r = _bf16_case(f"{name} bs={bs} site={site}", op, plain, args,
+                           nbytes, nops, mm_ops, lib,
+                           PACKED_BF16_KERNELS[name][1])
+            out = res[name]
+            out["max_abs_err"] = max(out["max_abs_err"], r["err"])
+            if bs == 1:
+                out["ms"] += n * r["ms"]
+                out["plain_ms"] += n * r["plain_ms"]
+                out["bound_ms"] += n * r["bound_ms"]
+                out["library_ms"] += n * r["library_ms"]
+                out["bound_by"] = r["bound_by"]
+                f32[name] += n * r["f32_ms"]
+            else:
+                for i, key in enumerate(("ms", "bound_ms", "f32_ms")):
+                    bs8[name][i] += n * r[key]
+    for name, r in res.items():
+        print(f"bf16 kernel {name}: per packed bs-1 forward ms={r['ms']:.4f}"
+              f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) share of "
+              f"bound={r['bound_ms'] / r['ms']:.3f} plain_ms="
+              f"{r['plain_ms']:.3f} float32 kernel ms={f32[name]:.4f} "
+              f"library_ms={r['library_ms']:.4f}; per packed bs-8 forward "
+              f"ms={bs8[name][0]:.4f} bound_ms={bs8[name][1]:.4f} float32 "
+              f"kernel ms={bs8[name][2]:.4f}")
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    length, bsz = geo["freq"]
+    streamed = {}
+    for h in K2_STREAM_H:
+        if not sru_fused.k2_fwd_geometry(length, h, bsz, 2)["stream"]:
+            raise AssertionError(f"K2 bf16 at H {h} does not stream")
+
+        def t(shape, scale):
+            return torch.from_numpy((rng.standard_normal(shape)
+                                     * scale).astype(np.float32)).to(dev).to(bf)
+
+        vb = t((8, h), 0.3)
+        wt = t((6 * h, 2 * h), (2 * h) ** -0.5)
+        args = (t((length, h, bsz), 0.5), t((length, h, bsz), 0.5), wt, vb)
+        r = _bf16_case(
+            f"sru_hidden_layer_bf16 streamed H={h} L={length} B={bsz}",
+            sru_fused.sru_hidden_layer, sru_fused.sru_hidden_layer_plain,
+            args, 2 * (4 * length * h * bsz + wt.numel() + vb.numel()),
+            2 * length * bsz * (3 * h * 2 * h * 2 + 20 * h),
+            2 * length * bsz * 3 * h * 2 * h * 2, None,
+            ("sru_hid_fwd_bf16_kernel", "true"))
+        streamed[f"H{h}"] = {"L": length, "B": bsz,
+                             "max_abs_err": r["err"], "ms": r["ms"],
+                             "device_us": r["dev_us"],
+                             "bound_ms": r["bound_ms"],
+                             "bound_by": r["bound_by"],
+                             "plain_ms": r["plain_ms"],
+                             "float32_kernel_ms": r["f32_ms"]}
+    return res, streamed
+
+
+def _profile_forward(model, wav, mouth, label, groups) -> None:
+    """One profiled ``separate_sample``: wall and device time, idle share,
+    the top kernels and the share of each group of kernel name parts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtfs_tpu_torch.utils.separator import separate_sample
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        separate_sample(model, wav, mouth)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, _ = device_kernels(prof)
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if not dev_ms > 0:
+        raise AssertionError(f"{label}: the profiler saw no device time")
+    print(f"{label}: forward wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms, "
+          f"idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
+    for e in kernels[:10]:
+        print(f"{label}: top kernel {dev_us(e) / 1e3:8.3f} ms "
+              f"{dev_us(e) / 1e3 / dev_ms:6.3f} x{e.count:<4d} {e.key[:90]}")
+    for group, alts in groups.items():
+        picked = [e for e in kernels
+                  if any(all(p in e.key for p in parts) for parts in alts)]
+        ms = sum(dev_us(e) for e in picked) / 1e3
+        print(f"{label}: {group}: {ms:.3f} ms, share {ms / dev_ms:.3f} of "
+              f"the device time, {len(picked)} kernels "
+              f"{sorted({e.key[:48] for e in picked})[:6]}")
+
+
+def packed_bf16_serve(conf, rng) -> dict:
+    """Phase 13 (b): ``separate_sample`` on the packed bf16 RTFS-Net-4
+    (seed-0 weights rounded to bf16) at batch 1 and 8: exactly
+    ``packed_bf16_launches`` a forward and no float32 entry; bs 1 against
+    the same model on the CPU to the CPU test's gates; both against the
+    card's standard bf16 and packed float32 forwards by SI-SNR; request
+    medians of ``bench.py``'s three bs-1 rows (standard float32, standard
+    bf16, packed bf16) in turns, and audio-s/s of the three at bs 8; one
+    profiled bs-1 and one bs-8 packed bf16 forward. Returns the launch
+    counts."""
+    from rtfs_tpu_torch.config import build_avnet
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.utils.separator import separate_sample
+
+    a = conf["audionet"]
+    conf16 = dict(conf, audionet=dict(a, compute_dtype="bfloat16"))
+    conf_p16 = dict(conf, audionet=dict(a, compute_dtype="bfloat16",
+                                        packed_tf=True))
+    conf_p32 = dict(conf, audionet=dict(a, packed_tf=True))
+    models = {"standard float32": build_avnet(conf, "cuda", 0),
+              "standard bf16": build_avnet(conf16, "cuda", 0),
+              "packed bf16": build_avnet(conf_p16, "cuda", 0),
+              "packed float32": build_avnet(conf_p32, "cuda", 0)}
+    p16 = models["packed bf16"]
+    cpu = build_avnet(conf_p16, "cpu", 0)
+    expect = packed_bf16_launches(conf)
+    requests = {}
+    for bs in (1, 8):
+        wav = (rng.standard_normal((bs, SAMPLES)) * 0.1).astype(np.float32)
+        mouth = rng.standard_normal((bs, VIDEO_FRAMES, 512)).astype(np.float32)
+        requests[bs] = (wav, mouth)
+
+    # the main path: counts from 0, the bs-1 and bs-8 requests, read
+    kernel_lib.reset_launches()
+    outs = {bs: separate_sample(p16, *requests[bs]) for bs in (1, 8)}
+    torch.cuda.synchronize()
+    launches = dict(kernel_lib.LAUNCHES)
+    print(f"packed bf16 serving: launches over 2 forwards: {launches}")
+    if launches != {k: 2 * v for k, v in expect.items()}:
+        raise AssertionError(f"packed bf16 serving: launches {launches}, "
+                             f"expected {expect} a forward and no other")
+    for bs, (wav, mouth) in requests.items():
+        got = outs[bs]
+        if (got.dtype != np.float32 or got.shape != (bs, 1, SAMPLES)
+                or not np.isfinite(got).all()):
+            raise AssertionError(f"packed bf16 serving bs {bs}: bad output")
+        line = f"packed bf16 serving: bs={bs}"
+        for other in ("standard bf16", "packed float32"):
+            snr = sisnr_db(got[:, 0],
+                           separate_sample(models[other], wav, mouth)[:, 0])
+            line += f"; against card {other} SI-SNR {snr:.2f} dB"
+            if not snr >= BF16_VS_F32_SISNR_DB:
+                raise AssertionError(f"{line} (gate {BF16_VS_F32_SISNR_DB})")
+        if bs == 1:
+            t0 = time.perf_counter()
+            want = separate_sample(cpu, wav, mouth)
+            cpu_s = time.perf_counter() - t0
+            err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+            snr = sisnr_db(got[:, 0], want[:, 0])
+            line += (f"; against the CPU's packed bf16 max_abs_err "
+                     f"{err:.3e} of max|out| (gate {BF16_MAX_ERR_REL}), "
+                     f"SI-SNR {snr:.2f} dB (gate {BF16_SISNR_DB}); CPU "
+                     f"forward {cpu_s:.3f} s")
+            if not (err <= BF16_MAX_ERR_REL and snr >= BF16_SISNR_DB):
+                raise AssertionError(line)
+        print(line + f" (SI-SNR gate {BF16_VS_F32_SISNR_DB})")
+
+    rows = ("standard float32", "standard bf16", "packed bf16")
+    for bs, iters in ((1, 20), (8, 8)):
+        wav, mouth = requests[bs]
+        times = {r: [] for r in rows}
+        for r in rows:  # warm
+            separate_sample(models[r], wav, mouth)
+        for i in range(iters):  # in turns, the order reversed every pass
+            for r in (rows if i % 2 == 0 else rows[::-1]):
+                t0 = time.perf_counter()
+                separate_sample(models[r], wav, mouth)
+                times[r].append(time.perf_counter() - t0)
+        for r, ts in times.items():
+            med = statistics.median(ts)
+            print(f"packed bf16 serving latency: bs={bs} {r} median="
+                  f"{med * 1e3:.3f} ms min={min(ts) * 1e3:.3f} ms max="
+                  f"{max(ts) * 1e3:.3f} ms over {len(ts)}; audio s/s="
+                  f"{bs * SAMPLES / 16000 / med:.3f}")
+
+    groups = {name: (parts,) for name, (_, parts)
+              in PACKED_BF16_KERNELS.items()}
+    groups["K5-K9 bf16"] = tuple(parts for _, parts
+                                 in PACKED_BF16_KERNELS.values())
+    groups["K1-K3 bf16"] = tuple((n,) for n in BF16_KERNEL_NAMES.values())
+    groups["cuDNN convolutions"] = tuple(
+        (n,) for n in BF16_PROFILE_GROUPS["cuDNN convolutions"])
+    groups["ATen depthwise convolutions"] = (("conv_depthwise",),)
+    for bs in (1, 8):
+        _profile_forward(p16, *requests[bs],
+                         f"packed bf16 serving profile: bs={bs}", groups)
+    return launches
+
+
+def packed_bf16_entries(conf, rng) -> dict:
+    """Phase 13 (c): the serving entry on a bundle (seed-0 float32
+    weights) whose ``conf.json`` says ``packed_tf`` and ``bfloat16``, on
+    the card: exactly ``packed_bf16_launches`` and nothing else, its
+    estimate against the same bundle served in float32 (standard layout)
+    by SI-SNR. Returns the launches."""
+    import tempfile
+
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    conf_p16 = json.loads(json.dumps(conf))
+    conf_p16["audionet"].update(packed_tf=True, compute_dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as root:
+        write_bundle(root, {"conf.json": conf, "conf_p16.json": conf_p16},
+                     rng)
+        ests, launches = {}, {}
+        for name in ("conf.json", "conf_p16.json"):
+            kernel_lib.reset_launches()
+            ests[name], secs = run_entry(root, name)
+            torch.cuda.synchronize()
+            launches[name] = dict(kernel_lib.LAUNCHES)
+            print(f"packed bf16 entries: {name} entry {secs:.3f} s, "
+                  f"launches {launches[name]}")
+    expect = packed_bf16_launches(conf)
+    if launches["conf_p16.json"] != expect:
+        raise AssertionError(f"packed bf16 inference entry: launches "
+                             f"{launches['conf_p16.json']} != {expect}")
+    est = ests["conf_p16.json"]
+    if est.shape != (1, SAMPLES) or not np.isfinite(est).all():
+        raise AssertionError(f"packed bf16 entry: bad output {est.shape}")
+    snr = sisnr_db(est, ests["conf.json"])
+    print(f"packed bf16 entries: estimate against the float32 entry's "
+          f"SI-SNR {snr:.2f} dB (gate {BF16_VS_F32_SISNR_DB})")
+    if not snr >= BF16_VS_F32_SISNR_DB:
+        raise AssertionError("packed bf16 inference entry far from float32")
+    return launches["conf_p16.json"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3065,6 +3453,12 @@ def main() -> int:
         "12c bf16 entries", bf16_entries, conf, *run))
     bf16_kernels = phase("12a bf16 kernels", check_bf16_kernels, geo, rng)
     bf16_launches = phase("12b bf16 serving", bf16_serve, conf, rng)
+    packed16, k2_streamed = phase("13a packed bf16 kernels",
+                                  check_packed_bf16_kernels, conf, geo, rng)
+    packed16_launches = phase("13b packed bf16 serving", packed_bf16_serve,
+                              conf, rng)
+    packed16_entry = phase("13c packed bf16 entries", packed_bf16_entries,
+                           conf, rng)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
     phase("9b, 10e K5-wgrad, pw-wgrad, K4 forward device time",
           profile_redesigned, conf, geo, rng)
@@ -3126,6 +3520,9 @@ def main() -> int:
                                 "rtfs_tpu/ops/convt_tm.py:38",
                                 "convt1d_ola_tm_fwd_bf16"),
     }
+    for name, (fn, _) in PACKED_BF16_KERNELS.items():
+        src, rep = sources[name[:-len("_bf16")]][:2]
+        sources[name] = (src, rep, fn)
     line = {"kernels": []}
     for name, (src, rep, fn) in sources.items():
         if name in kernels:  # forward: the serving run, per forward at bs 8
@@ -3150,7 +3547,16 @@ def main() -> int:
         elif name in bf16_kernels:  # bf16: phase 12's serving run, bs 8
             entry = {"launches": bf16_launches.get(fn, 0),
                      **bf16_kernels[name], "per_forward_at_batch": 8,
-                     "launches_in_bf16_eval": file_run["after"].get(fn, 0)}
+                     "launches_in_bf16_eval": file_run["after"].get(fn, 0),
+                     "launches_in_packed_bf16_serving":
+                         packed16_launches.get(fn, 0)}
+            if name == "sru_hidden_layer_bf16":
+                entry["streamed_route"] = k2_streamed
+        elif name in packed16:  # packed bf16: phase 13's serving run
+            entry = {"launches": packed16_launches.get(fn, 0),
+                     **packed16[name], "per_forward_at_batch": 1,
+                     "launches_in_packed_bf16_entry":
+                         packed16_entry.get(fn, 0)}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],
                      "per_train_step_at_batch": TRAIN_BATCH,
@@ -3158,6 +3564,7 @@ def main() -> int:
         line["kernels"].append({"name": name, "route": "cuda", "source": src,
                                 "replaces": rep, **entry})
     print(f"total: {time.perf_counter() - t_start:.3f} s")
+    print(f"packed bf16 launches a forward: {packed_bf16_launches(conf)}")
     print(json.dumps(line))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

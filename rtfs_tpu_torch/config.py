@@ -67,9 +67,10 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     the float32 weights drawn, then rounded to bf16 by ``cast_params`` (JAX's
     ``replace(model, compute_dtype="bfloat16")`` with ``cast_params``); a
     float32 state loaded into it later is rounded the same way. bf16 serves
-    the standard layout through K1-K3's bf16 kernels: it raises
-    NotImplementedError with ``packed_tf`` (K5-K9 take float32 only) and
-    with any SRU off the fused stack (unidirectional, through K4).
+    the standard layout through K1-K3's bf16 kernels and, with
+    ``packed_tf``, the packed layout through K1-K3's and K5-K9's; it
+    raises NotImplementedError with any SRU off the fused stack
+    (unidirectional, through K4).
 
     Raises if ``device`` is CUDA and no GPU is present: there is no CPU
     fallback. Pass ``device="cpu"`` for the CPU path.
@@ -80,10 +81,6 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     if a.get("batch_fold", 1) != 1:
         raise NotImplementedError("batch_fold is not ported")
     bf16 = dtype == torch.bfloat16
-    if bf16 and a.get("packed_tf", False):
-        raise NotImplementedError(
-            "compute_dtype bfloat16 with packed_tf: the packed kernels K5-K9 "
-            "take float32 only")
     model = AVNet(
         n_src=a["n_src"],
         enc_dec_params=a["enc_dec_params"],

@@ -1,7 +1,27 @@
 // Packed time-frequency kernels for Hopper (sm_90a), float32, forward and
-// weight gradients. The backward's dx passes are the forward kernels
-// themselves (K5 with flipped taps, K6 <-> K7, K8 <-> K9 through the
-// transposed maps); see rtfs_tpu_torch/ops/packed_tf.py.
+// weight gradients, and the forwards also in bf16 storage (the Pallas
+// kernels run in the caller's dtype; bf16 is the JAX package's serving
+// mode). The backward's dx passes are the forward kernels themselves (K5
+// with flipped taps, K6 <-> K7, K8 <-> K9 through the transposed maps);
+// see rtfs_tpu_torch/ops/packed_tf.py.
+//
+// bf16 storage (the *_fwd_bf16 entries): x, w, bias and out bf16, every
+// sum float32, each output rounded once as it is stored. K5, K8 and K9
+// are their float32 kernels with the element type a template argument (K5
+// widens its ring's 8-byte chunks of 4 channels as it reads them, K8/K9
+// their 8-byte chunks into the float32 tile; the maps stay float32; JAX's
+// float32 rank-4 side of K8/K9 is a Mosaic workaround that gives the same
+// values). K6 and K7 are new kernels (pw_proj_bf16_kernel,
+// pw_unproj_bf16_kernel): JAX's bf16 dot with a float32 result is one
+// bf16 mma.sync m16n8k16 a fragment pair (the products of bf16 values are
+// exact, so no 3xTF32 split), 128 x 64 tiles over all of K. Bound on the
+// H100: bytes, as in float32, half as many. The channels-first side of K6
+// and K7 has rows of M = 251 * 129 values, odd, so every other row starts
+// on a 2-byte boundary and cp.async (no 2-byte copy) cannot take them: K6
+// reads x's rows value by value (a warp 64 contiguous bytes), K7 stages
+// its output tile in shared memory and writes each channel's run of
+// positions value by value; their other side (a position's channels,
+// contiguous) goes in 16-byte loads or 4-byte stores.
 //
 // A packed map is (B, T, F*C) with the channel fastest (the JAX packed
 // layout); the port's rank-4 maps are channels-first (B, C, T, F). Each C
@@ -10,7 +30,8 @@
 // cudaGetLastError().
 //
 // K5  dw_conv_packed_fwd      replaces the Pallas kernel _make_dw_kernel
-//     (rtfs_tpu/ops/packed_tf.py, pallas_call in _dw_conv_fwd_impl):
+//     (rtfs_tpu/ops/packed_tf.py, pallas_call in _dw_conv_fwd_impl;
+//     dw_conv_packed_fwd_bf16 the same kernel on bf16 storage):
 //       out[b,t,f*C+c] = bias[c] + sum_{dt,df} w[dt,df,c]
 //                        * x[b, t+dt-pt_lo, (f+df-pf_lo)*C + c]
 //     with x = 0 outside [0,T_in) x [0,F_in) (the TPU folds that boundary
@@ -29,7 +50,8 @@
 //     overlap of loads and sums) took 5.7x as long (PERF.md).
 //
 // K6  pw_proj_packed_fwd      replaces _make_pw_proj_kernel
-//     (pallas_call in _pw_proj_impl): out[b, p, n] = bias[n] + sum_k
+//     (pallas_call in _pw_proj_impl; pw_proj_packed_fwd_bf16 on bf16
+//     storage, pw_proj_bf16_kernel): out[b, p, n] = bias[n] + sum_k
 //     x[b, k, p] w[k, n], p = t*F + f, rank-4 in, packed out; also K7's
 //     dx. Bound on the H100: bytes (2*K*N flops per (K+N)*4 bytes, ~26 a
 //     byte at K 256, N 64; 3xTF32 at 495 / 3 TFLOP/s would bind above
@@ -62,7 +84,8 @@
 //     wrote (ops/packed_tf.pw_proj_geometry mirrors the grid, the slices
 //     and the shared memory).
 // K7  pw_unproj_packed_fwd    replaces _make_pw_unproj_kernel
-//     (pallas_call in _pw_unproj_impl): out[b, n, p] = bias[n] + sum_k
+//     (pallas_call in _pw_unproj_impl; pw_unproj_packed_fwd_bf16 on bf16
+//     storage, pw_unproj_bf16_kernel): out[b, n, p] = bias[n] + sum_k
 //     x[b, p, k] w[k, n], packed in, rank-4 out; also K6's dx (w^T, a
 //     strided view). Bound on the H100: bytes (as K6, mirrored). Design
 //     (pw_unproj_kernel): K6's 3xTF32 product turned round, on its warp
@@ -76,10 +99,12 @@
 //     1.5x as long (PERF.md).
 //
 // K8  spatial_down_packed_fwd replaces _make_spatial_down_kernel
-//     (pallas_call in _spatial_down_impl): packed in, rank-4 out,
+//     (pallas_call in _spatial_down_impl; spatial_down_packed_fwd_bf16 on
+//     bf16 storage): packed in, rank-4 out,
 //       y[b,c,t2,f2] = sum_i tw[t2,i] sum_j fw[f2,j] x[b, ts[t2,i], fs[f2,j]*C + c]
 // K9  spatial_up_packed_fwd   replaces _make_spatial_up_kernel
-//     (pallas_call in _spatial_up_impl): rank-4 in, packed out,
+//     (pallas_call in _spatial_up_impl; spatial_up_packed_fwd_bf16 on bf16
+//     storage): rank-4 in, packed out,
 //       y[b,t,f*C+c] = sum_i tw[t,i] sum_j fw[f,j] x[b, c, ts[t,i], fs[f,j]]
 //     The TPU takes the T side as a dense matrix on its matrix unit; here it
 //     is the same (T_out, nnz) index/weight form as the F side (entries of
@@ -179,6 +204,7 @@
 //     the 64-channel side read once per 64 rows of the other, plain loads,
 //     no overlap) took ~280 us a bs-4 launch, this one ~115.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
@@ -246,6 +272,18 @@ constexpr int kPwThreads = 2 * kPwRows;
 constexpr int kPwPS = kPwK + 4;
 constexpr int kPwQS = kPwCols + 8;
 constexpr int kPwOS = kPwCols + 2;
+// K6 and K7 in bf16 storage (ops/packed_tf.py mirrors them): a tile of
+// kP16M positions x kP16N channels, kP16Threads threads as 4 (positions)
+// x 2 (channels) warps of 32 x 32; kP16K k a stage, two stages in shared
+// memory; staged rows padded by 8 bf16 (a bf16 pair a 4-byte word, so
+// the 8 g x 4 q lanes of a fragment read hit distinct banks, or share a
+// word)
+constexpr int kP16M = 128;
+constexpr int kP16N = 64;
+constexpr int kP16K = 32;
+constexpr int kP16Threads = 256;
+constexpr int kP16XS = kP16M + 8;  // K6: a staged k row of positions
+constexpr int kP16KS = kP16K + 8;  // a staged position's or channel's k
 constexpr long long kMaxSmem = 227 * 1024;
 
 // a chunk of 4 floats at p: one 16-byte access where vec (every chunk of
@@ -272,6 +310,55 @@ __device__ __forceinline__ void store_chunk(float* p, float4 v, int n,
   if (n > 3) p[3] = v.w;
 }
 
+// a chunk of 4 channels as float32: a float4 as it is, 4 bf16 in 8 bytes
+// widened (exact)
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// a chunk of 4 bf16 values at p, widened: one 8-byte access where vec
+// (every chunk of the row whole and 8-byte aligned), else the first n as
+// scalars
+__device__ __forceinline__ float4 load_chunk(const __nv_bfloat16* p, int n,
+                                             bool vec) {
+  if (vec) return widen(__ldg(reinterpret_cast<const uint2*>(p)));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = __bfloat162float(p[0]);
+  if (n > 1) v.y = __bfloat162float(p[1]);
+  if (n > 2) v.z = __bfloat162float(p[2]);
+  if (n > 3) v.w = __bfloat162float(p[3]);
+  return v;
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// v rounded to bf16 once, as a chunk of 4 at p: one 8-byte store where
+// vec, else the first n as scalars
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, float4 v, int n,
+                                            bool vec) {
+  const unsigned short e[4] = {bf16_bits(v.x), bf16_bits(v.y), bf16_bits(v.z),
+                               bf16_bits(v.w)};
+  if (vec) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        (uint32_t)e[0] | ((uint32_t)e[1] << 16),
+        (uint32_t)e[2] | ((uint32_t)e[3] << 16));
+    return;
+  }
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+  for (int k = 0; k < 4 && k < n; ++k) q[k] = e[k];
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 __device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
   return make_float4(fmaf(w, v.x, a.x), fmaf(w, v.y, a.y), fmaf(w, v.z, a.z),
                      fmaf(w, v.w, a.w));
@@ -279,6 +366,15 @@ __device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// a chunk of 4 values of E whole at p: 16 bytes aligned for float, 8 for
+// bf16
+__host__ __device__ __forceinline__ bool chunk_aligned(const float* p) {
+  return aligned16(p);
+}
+__host__ __device__ __forceinline__ bool chunk_aligned(const __nv_bfloat16* p) {
+  return (reinterpret_cast<size_t>(p) & 7) == 0;
 }
 
 __host__ __device__ __forceinline__ int round_up(int a, int m) {
@@ -766,6 +862,302 @@ pw_unproj_kernel(const float* __restrict__ x, const float* __restrict__ w,
   hk::cp_async_wait_all();
 }
 
+// The bf16 products of K6 and K7: a warp's 32 x 32 tile of one kP16K
+// stage, two k16 steps of bf16 mma.sync m16n8k16 with float32
+// accumulators (exactly JAX's bf16 dot with a float32 result: the
+// products of two bf16 values are exact). w_s is the stage's W as [n][k]
+// (rows of kP16KS), so a B register is one 4-byte read; the A fragments
+// come from `a_frag`, which K6 and K7 read from their own layouts.
+template <typename AFrag>
+__device__ __forceinline__ void p16_stage(float (&acc)[2][4][4],
+                                          const unsigned short* w_s, int n0,
+                                          AFrag a_frag) {
+  const int g = hk::lane_g(), q = hk::lane_q();
+#pragma unroll
+  for (int k0 = 0; k0 < kP16K; k0 += 16) {
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) a_frag(a[mt], mt, k0);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const unsigned short* p = w_s + (n0 + 8 * nb + g) * kP16KS + k0 + 2 * q;
+      b[nb][0] = *reinterpret_cast<const uint32_t*>(p);
+      b[nb][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) hk::mma_bf16(acc[mt][nb], a[mt], b[nb]);
+  }
+}
+
+// W's stage k0 .. k0 + kP16K - 1 of the tile's channels n0 .. n0 + kP16N
+// - 1 as [n][k] bf16 (zero past K and N), w (K, N) through its strides:
+// a thread 8 values, k fastest across the threads (the layers' weights
+// are 1x1 conv weights (N, K), k contiguous)
+__device__ __forceinline__ void p16_load_w(unsigned short (&v)[8],
+                                           const unsigned short* w, int K,
+                                           int N, int wsk, int wsn, int k0,
+                                           int n0) {
+  const int kk = threadIdx.x % kP16K;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = threadIdx.x / kP16K + i * (kP16Threads / kP16K);
+    const int k = k0 + kk;
+    v[i] = k < K && n0 + n < N
+               ? w[(long long)k * wsk + (long long)(n0 + n) * wsn]
+               : (unsigned short)0;
+  }
+}
+
+__device__ __forceinline__ void p16_store_w(const unsigned short (&v)[8],
+                                            unsigned short* w_s) {
+  const int kk = threadIdx.x % kP16K;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w_s[(threadIdx.x / kP16K + i * (kP16Threads / kP16K)) * kP16KS + kk] = v[i];
+}
+
+// K6 in bf16 storage. grid (ceil(M / kP16M), ceil(N / kP16N), B),
+// kP16Threads threads. x (B, K, M) rank-4 with M = T*F, w (K, N) through
+// its strides, bias (N) or null, out (B, M, N) packed; all bf16. Block
+// (x, y, b) forms the tile of positions m0 = x kP16M .. and channels n0 =
+// y kP16N .. of batch row b over all of K, kP16K k a stage: the stage's x
+// rows ([k][m], rows of kP16XS) and W ([n][k]) go through registers into
+// one of two shared stages, the next stage's global loads issued before
+// this stage's products. A k row of x starts anywhere (M = 251 * 129 at
+// the preset is odd, so every other row is 2-byte aligned only): its 128
+// positions are read as bf16 values, a warp 32 consecutive ones (64
+// bytes), with no alignment asked. An A register pairs two k rows, read
+// apart and packed. The epilogue adds the bias to the float32 sums, rounds
+// each output once and writes a channel pair as one 4-byte store where N
+// is even (a position's channels are contiguous), else value by value.
+// Each output is summed by one warp in one fixed order: two calls give
+// the same bits.
+__global__ void __launch_bounds__(kP16Threads)
+pw_proj_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ w,
+                    const __nv_bfloat16* __restrict__ bias,
+                    __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                    int wsk, int wsn) {
+  __shared__ __align__(16) unsigned short x_s[2][kP16K * kP16XS];
+  __shared__ __align__(16) unsigned short w_s[2][kP16N * kP16KS];
+  const int b = blockIdx.z, m0 = blockIdx.x * kP16M, n0 = blockIdx.y * kP16N;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+  const unsigned short* xb =
+      reinterpret_cast<const unsigned short*>(x) + (long long)b * K * M;
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(w);
+  // a thread's x values of a stage: position m0 + tid % kP16M of the k
+  // rows tid / kP16M + 2 i
+  constexpr int kRowsPer = kP16Threads / kP16M;
+  constexpr int kXPer = kP16K / kRowsPer;
+  unsigned short xv[kXPer], wv[8];
+  const int mm = tid % kP16M, r0 = tid / kP16M;
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kXPer; ++i) {
+      const int k = k0 + r0 + i * kRowsPer;
+      xv[i] = k < K && m0 + mm < M ? xb[(long long)k * M + m0 + mm]
+                                   : (unsigned short)0;
+    }
+    p16_load_w(wv, w16, K, N, wsk, wsn, k0, n0);
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kXPer; ++i)
+      x_s[buf][(r0 + i * kRowsPer) * kP16XS + mm] = xv[i];
+    p16_store_w(wv, w_s[buf]);
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nb][v] = 0.f;
+  const int stages = (K + kP16K - 1) / kP16K;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < stages) load((st + 1) * kP16K);
+    // A (position m, k) = x[k][m]: the lane's k 2q, 2q+1 (+8) and
+    // positions g, g + 8 of each m16 tile
+    const unsigned short* xs = x_s[buf] + 2 * q * kP16XS + wm + g;
+    p16_stage(acc, w_s[buf], wn, [&](uint32_t (&a)[4], int mt, int k0) {
+      const unsigned short* p = xs + k0 * kP16XS + 16 * mt;
+      a[0] = hk::pack_bf16(p[0], p[kP16XS]);
+      a[1] = hk::pack_bf16(p[8], p[kP16XS + 8]);
+      a[2] = hk::pack_bf16(p[8 * kP16XS], p[9 * kP16XS]);
+      a[3] = hk::pack_bf16(p[8 * kP16XS + 8], p[9 * kP16XS + 8]);
+    });
+    if (st + 1 < stages) store(buf ^ 1);
+    __syncthreads();
+  }
+  // D (position m, channel n): c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q),
+  // c3 (g+8, 2q+1)
+  unsigned short* ob = reinterpret_cast<unsigned short*>(out) +
+                       (long long)b * M * N;
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int n = n0 + wn + 8 * nb + 2 * q;
+      const float b0 = bias != nullptr && n < N ? to_f(bias[n]) : 0.f;
+      const float b1 = bias != nullptr && n + 1 < N ? to_f(bias[n + 1]) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * mt + g + 8 * h;
+        if (m >= M || n >= N) continue;
+        const unsigned short lo = bf16_bits(acc[mt][nb][2 * h] + b0);
+        const unsigned short hi = bf16_bits(acc[mt][nb][2 * h + 1] + b1);
+        unsigned short* o = ob + (long long)m * N + n;
+        if (pairs)
+          *reinterpret_cast<uint32_t*>(o) = (uint32_t)lo | ((uint32_t)hi << 16);
+        else {
+          o[0] = lo;
+          if (n + 1 < N) o[1] = hi;
+        }
+      }
+    }
+}
+
+// K7 in bf16 storage. grid (ceil(M / kP16M), ceil(N / kP16N), B),
+// kP16Threads threads. x (B, M, K) packed, w (K, N) through its strides,
+// bias (N) or null, out (B, N, M) rank-4; all bf16. Block (x, y, b) forms
+// the tile of positions m0 = x kP16M .. and channels n0 = y kP16N .. over
+// all of K, K6's stages and products; a stage's x is the tile's positions'
+// rows of kP16K k ([m][k], rows of kP16KS), contiguous in x, read 8 values
+// (16 bytes) a load where vec (K % 8 == 0, x 16-byte aligned), else value
+// by value; an A register is one 4-byte read. The epilogue adds the bias,
+// rounds each output once into a (kP16N, kP16M + 8) tile of bf16 in the
+// stages' shared memory, a channel a row, then writes each channel's run
+// of positions as consecutive values (a warp 64 bytes of one row of out).
+__global__ void __launch_bounds__(kP16Threads)
+pw_unproj_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ w,
+                      const __nv_bfloat16* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                      int wsk, int wsn, int vec) {
+  constexpr int kXStage = kP16M * kP16KS, kWStage = kP16N * kP16KS;
+  constexpr int kOS = kP16M + 8;  // a staged output row
+  static_assert(kP16N * kOS <= 2 * (kXStage + kWStage),
+                "the output tile fits the stages");
+  __shared__ __align__(16) unsigned short sm[2 * (kXStage + kWStage)];
+  const int b = blockIdx.z, m0 = blockIdx.x * kP16M, n0 = blockIdx.y * kP16N;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+  const unsigned short* xb =
+      reinterpret_cast<const unsigned short*>(x) + (long long)b * M * K;
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(w);
+  // a thread's x values of a stage: vec, two 16-byte blocks (positions
+  // tid / 4 and tid / 4 + 64, k 8 (tid % 4) ..); else 16 values (k
+  // tid % 32 of the positions tid / 32 + 8 i)
+  constexpr int kVecPer = kP16M * kP16K / 8 / kP16Threads;  // 2
+  constexpr int kScalarPer = kP16M * kP16K / kP16Threads;   // 16
+  uint4 xq[kVecPer];
+  unsigned short xv[kScalarPer], wv[8];
+  auto load = [&](int k0) {
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kVecPer; ++i) {
+        const int e = tid + i * kP16Threads, m = e / (kP16K / 8);
+        const int k = k0 + 8 * (e % (kP16K / 8));
+        xq[i] = m0 + m < M && k < K
+                    ? __ldg(reinterpret_cast<const uint4*>(
+                          xb + (long long)(m0 + m) * K + k))
+                    : make_uint4(0, 0, 0, 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kScalarPer; ++i) {
+        const int m = tid / kP16K + i * (kP16Threads / kP16K);
+        const int k = k0 + tid % kP16K;
+        xv[i] = m0 + m < M && k < K ? xb[(long long)(m0 + m) * K + k]
+                                    : (unsigned short)0;
+      }
+    }
+    p16_load_w(wv, w16, K, N, wsk, wsn, k0, n0);
+  };
+  auto store = [&](int buf) {
+    unsigned short* xs = sm + buf * (kXStage + kWStage);
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kVecPer; ++i) {
+        const int e = tid + i * kP16Threads;
+        *reinterpret_cast<uint4*>(xs + (e / (kP16K / 8)) * kP16KS +
+                                  8 * (e % (kP16K / 8))) = xq[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kScalarPer; ++i)
+        xs[(tid / kP16K + i * (kP16Threads / kP16K)) * kP16KS + tid % kP16K] =
+            xv[i];
+    }
+    p16_store_w(wv, xs + kXStage);
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nb][v] = 0.f;
+  const int stages = (K + kP16K - 1) / kP16K;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < stages) load((st + 1) * kP16K);
+    // A (position m, k) = x[m][k]: the lane's positions g, g + 8 of each
+    // m16 tile and k 2q, 2q+1 (+8), one 4-byte read a register
+    const unsigned short* xs = sm + buf * (kXStage + kWStage) +
+                               (wm + g) * kP16KS + 2 * q;
+    p16_stage(acc, sm + buf * (kXStage + kWStage) + kXStage, wn,
+              [&](uint32_t (&a)[4], int mt, int k0) {
+                const unsigned short* p = xs + 16 * mt * kP16KS + k0;
+                a[0] = *reinterpret_cast<const uint32_t*>(p);
+                a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * kP16KS);
+                a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+                a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * kP16KS + 8);
+              });
+    if (st + 1 < stages) store(buf ^ 1);
+    __syncthreads();
+  }
+  // D (position m, channel n): c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q),
+  // c3 (g+8, 2q+1), rounded into the tile [n][m] (the stages are done:
+  // the last barrier)
+  unsigned short* os = sm;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int nl = wn + 8 * nb + 2 * q, ml = wm + 16 * mt + g;
+      const float b0 =
+          bias != nullptr && n0 + nl < N ? to_f(bias[n0 + nl]) : 0.f;
+      const float b1 =
+          bias != nullptr && n0 + nl + 1 < N ? to_f(bias[n0 + nl + 1]) : 0.f;
+      os[nl * kOS + ml] = bf16_bits(acc[mt][nb][0] + b0);
+      os[(nl + 1) * kOS + ml] = bf16_bits(acc[mt][nb][1] + b1);
+      os[nl * kOS + ml + 8] = bf16_bits(acc[mt][nb][2] + b0);
+      os[(nl + 1) * kOS + ml + 8] = bf16_bits(acc[mt][nb][3] + b1);
+    }
+  __syncthreads();
+  unsigned short* ob = reinterpret_cast<unsigned short*>(out) +
+                       (long long)b * N * M;
+  for (int e = tid; e < kP16N * kP16M; e += kP16Threads) {
+    const int nl = e / kP16M, ml = e % kP16M;
+    if (n0 + nl < N && m0 + ml < M)
+      ob[(long long)(n0 + nl) * M + m0 + ml] = os[nl * kOS + ml];
+  }
+}
+
 // item e of a (rows, chunks) walk over a channels-first side, in groups of
 // 32 lanes: 4 neighbouring chunks of 8 neighbouring rows
 __device__ __forceinline__ void planar_item(int e, int rows, int& r, int& p) {
@@ -798,11 +1190,13 @@ __device__ __forceinline__ bool stage_map(
   return any;
 }
 
-// grid (T_out, B). x packed (B, T_in, F_in*C), out (B, C, T_out, F_out).
-// tile (round_up(F_out, 4), CS): the row's sums, channels fastest.
-template <int kNT, int kNF>
+// grid (T_out, B). x packed (B, T_in, F_in*C), out (B, C, T_out, F_out),
+// both of E (float, or bf16 storage: the sums in float32 in the tile,
+// each output rounded once as it is stored). tile (round_up(F_out, 4),
+// CS): the row's sums, channels fastest.
+template <int kNT, int kNF, typename E>
 __global__ void __launch_bounds__(kThreads, kMapBlocks)
-spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
+spatial_down_kernel(const E* __restrict__ x, E* __restrict__ out,
                     const int* __restrict__ ts, const float* __restrict__ tw,
                     const int* __restrict__ fs, const float* __restrict__ fw,
                     int T_in, int F_in, int C, int T_out, int F_out, int nt,
@@ -822,8 +1216,8 @@ spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
 
   // in: chunk (f2, q) = channels 4q.. of output f2, both sides applied
   if (any) {
-    const float* xb = x + (long long)b * T_in * F_in * C;
-    const bool vec = (C & 3) == 0 && aligned16(x);
+    const E* xb = x + (long long)b * T_in * F_in * C;
+    const bool vec = (C & 3) == 0 && chunk_aligned(x);
     const int n = F_out * CQ;
     for (int e0 = tid; e0 < n; e0 += kK8Items * kThreads) {
       float4 acc[kK8Items];
@@ -834,7 +1228,7 @@ spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
       for (int i = 0; i < NT; ++i) {
         const float wt = tw_s[i];
         if (wt == 0.f) continue;
-        const float* row = xb + (long long)ts_s[i] * F_in * C;
+        const E* row = xb + (long long)ts_s[i] * F_in * C;
         float4 s[kK8Items];
 #pragma unroll
         for (int u = 0; u < kK8Items; ++u)
@@ -872,7 +1266,7 @@ spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
 
   // out: chunk (c, p) = f2 4p.. of channel c
-  const bool vec = (F_out & 3) == 0 && aligned16(out);
+  const bool vec = (F_out & 3) == 0 && chunk_aligned(out);
   const int n = planar_items(C, FQ);
   for (int e = tid; e < n; e += kThreads) {
     int c, p;
@@ -890,10 +1284,10 @@ spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
 // grid (G, B): block g writes the output rows [rows[g], rows[g+1]), which
 // share one T row of the map. x (B, C, T_in, F_in), out packed
 // (B, T_out, F_out*C). tile (round_up(F_in, 4), CS): the T-combined input,
-// channels fastest.
-template <int kNT, int kNF>
+// channels fastest. x and out of E, as K8's.
+template <int kNT, int kNF, typename E>
 __global__ void __launch_bounds__(kThreads, kMapBlocks)
-spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
+spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
                   const int* __restrict__ ts, const float* __restrict__ tw,
                   const int* __restrict__ fs, const float* __restrict__ fw,
                   const int* __restrict__ rows, int T_in, int F_in, int C,
@@ -915,8 +1309,8 @@ spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
   // in: chunk (c, p) = f 4p.. of channel c, summed over the T row
   if (any) {
     const long long plane = (long long)T_in * F_in;
-    const float* xb = x + (long long)b * C * plane;
-    const bool vec = (F_in & 3) == 0 && aligned16(x);
+    const E* xb = x + (long long)b * C * plane;
+    const bool vec = (F_in & 3) == 0 && chunk_aligned(x);
     const int n = planar_items(C, FP);
     for (int e0 = tid; e0 < n; e0 += kK9Items * kThreads) {
       int c[kK9Items], p[kK9Items];
@@ -933,7 +1327,7 @@ spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
       for (int i = 0; i < NT; ++i) {
         const float wt = tw_s[i];
         if (wt == 0.f) continue;
-        const float* row = xb + (long long)ts_s[i] * F_in;
+        const E* row = xb + (long long)ts_s[i] * F_in;
         float4 v[kK9Items];
 #pragma unroll
         for (int u = 0; u < kK9Items; ++u)
@@ -958,7 +1352,7 @@ spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
 
   // out: chunk (f, q) = channels 4q.. of f, through the F side, to every
   // row of the run
-  const bool vec = (C & 3) == 0 && aligned16(out);
+  const bool vec = (C & 3) == 0 && chunk_aligned(out);
   const long long row_len = (long long)F_out * C;
   for (int e = tid; e < F_out * CQ; e += kThreads) {
     const int f = e / CQ, q = e % CQ;
@@ -973,7 +1367,7 @@ spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
                      tile + fs_s[f * NF + j] * CS + 4 * q),
                  s);
       }
-    float* o = out + ((long long)b * T_out + t0) * row_len +
+    E* o = out + ((long long)b * T_out + t0) * row_len +
                (long long)f * C + 4 * q;
     for (int t = t0; t < t1; ++t, o += row_len) store_chunk(o, s, C - 4 * q, vec);
   }
@@ -1151,6 +1545,56 @@ __host__ __device__ __forceinline__ int dw_smem_floats(int KT, int KF, int QB,
   return (KT * KF + nr * (FT + KF - 1)) * 4 * QB;
 }
 
+// K5's shared bytes in bf16 storage: the taps widened to float32 as
+// above, the ring's chunks 4 bf16 (8 bytes)
+__host__ __device__ __forceinline__ int dw_smem_bytes_bf16(int KT, int KF,
+                                                           int QB, int FT,
+                                                           bool fixed) {
+  const int nr = kDwAhead + (fixed ? 1 : KT);
+  return 16 * KT * KF * QB + 8 * nr * (FT + KF - 1) * QB;
+}
+
+// K5's ring chunk of 4 channels: a float4, or 4 bf16 in 8 bytes, widened
+// as it is read
+template <typename E>
+struct DwChunk;
+template <>
+struct DwChunk<float> {
+  using T = float4;
+};
+template <>
+struct DwChunk<__nv_bfloat16> {
+  using T = uint2;
+};
+
+// a chunk of 4 channels from src into the ring slot dst, zero-filled
+// when !ok: one 16-byte cp.async (float) or 8-byte (bf16)
+__device__ __forceinline__ void cp_chunk(float4* dst, const float* src,
+                                         bool ok) {
+  hk::cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void cp_chunk(uint2* dst, const __nv_bfloat16* src,
+                                         bool ok) {
+  hk::cp_async8(dst, src, ok);
+}
+
+// the first n (0-4) values of a chunk at src into dst, the rest zero:
+// 4-byte cp.async a value for float; plain loads and stores for bf16
+// (cp.async has no 2-byte copy), done when it returns
+__device__ __forceinline__ void cp_chunk_n(float4* dst, const float* src,
+                                           int n) {
+  float* d = reinterpret_cast<float*>(dst);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) hk::cp_async4(d + k, k < n ? src + k : src, k < n);
+}
+__device__ __forceinline__ void cp_chunk_n(uint2* dst,
+                                           const __nv_bfloat16* src, int n) {
+  unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+  const unsigned short* v = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) d[k] = k < n ? v[k] : (unsigned short)0;
+}
+
 // grid (runs, ceil(F_out / FT), B * blocks_c), block (QB, FT), KT_ / KF_
 // the taps or 0 (runtime KT, KF). x packed (B, T_in, F_in*C), w (KT, KF,
 // C) through its strides, bias (C) or null, out packed (B, T_out,
@@ -1176,10 +1620,19 @@ __host__ __device__ __forceinline__ int dw_smem_floats(int KT, int KF, int QB,
 // in that order, and is written by one thread: two calls give the same
 // bits. No division in a loop: the layout is 2-D and the ring's slots go
 // round by counters.
-template <int KT_, int KF_>
+//
+// E bf16 (bf16 storage: x, w, bias and out bf16): the ring holds the bf16
+// chunks (8-byte copies; 4-channel chunks stay 8-byte aligned where C % 4
+// == 0), each widened to float32 as it is read; the taps and the bias are
+// widened once; the sums are float32 and each output is rounded once as
+// it is stored, as the TPU kernel widens its bf16 window and weight
+// vectors into a float32 accumulator. Where the chunks go as scalars (C %
+// 4 != 0), the bf16 copies are plain loads (no 2-byte cp.async), stored
+// to the ring between the same barriers as the asynchronous copies.
+template <int KT_, int KF_, typename E>
 __global__ void __launch_bounds__(kDwThreads, 2)
-dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ out,
+dw_conv_packed_kernel(const E* __restrict__ x, const E* __restrict__ w,
+                      const E* __restrict__ bias, E* __restrict__ out,
                       int T_in, int F_in, int C, int T_out, int F_out, int KT,
                       int KF, int pt_lo, int pf_lo, int ws0, int ws1, int ws2,
                       int blocks_c, int vec) {
@@ -1189,15 +1642,17 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int QB = blockDim.x, FT = blockDim.y;
   const int quad = threadIdx.x, p = threadIdx.y;
   const int XW = FT + kf - 1, NR = kDwAhead + (kFixed ? 1 : kt);
-  float4* w_s = smem4;                // (kt kf, QB) taps
-  float4* ring = w_s + kt * kf * QB;  // NR rows of (XW, QB)
+  using Chunk = typename DwChunk<E>::T;
+  float4* w_s = smem4;  // (kt kf, QB) taps
+  Chunk* ring = reinterpret_cast<Chunk*>(w_s + kt * kf * QB);  // NR rows of
+                                                               // (XW, QB)
   const int b = blockIdx.z / blocks_c;
   const int c = (blockIdx.z - b * blocks_c) * 4 * QB + 4 * quad;
   const int f0 = blockIdx.y * FT, f = f0 + p;
   const int t_lo = (int)((long long)T_out * blockIdx.x / gridDim.x);
   const int t_hi = (int)((long long)T_out * (blockIdx.x + 1) / gridDim.x);
   const int steps = t_hi - t_lo + kt - 1;
-  const float* xb = x + (long long)b * T_in * F_in * C;
+  const E* xb = x + (long long)b * T_in * F_in * C;
 
   // the taps of the block's channels: thread (quad, p) stages taps p, p +
   // FT, .. of its quad ((dt, df) stepped along, no division in the loop)
@@ -1208,8 +1663,8 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        v[k] = c + k < C ? w[(long long)dt * ws0 + (long long)df * ws1 +
-                             (long long)(c + k) * ws2]
+        v[k] = c + k < C ? to_f(w[(long long)dt * ws0 + (long long)df * ws1 +
+                                  (long long)(c + k) * ws2])
                          : 0.f;
       w_s[tap * QB + quad] = make_float4(v[0], v[1], v[2], v[3]);
       dt += step_t;
@@ -1226,21 +1681,16 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (i < steps) {
       const int r = t_lo - pt_lo + i;
       const bool row_ok = r >= 0 && r < T_in;
-      const float* src = xb + (long long)(row_ok ? r : 0) * F_in * C + c;
-      float* dst = reinterpret_cast<float*>(ring + (slot * XW + p) * QB +
-                                            quad);
+      const E* src = xb + (long long)(row_ok ? r : 0) * F_in * C + c;
+      Chunk* dst = ring + (slot * XW + p) * QB + quad;
       for (int pp = p, fi = f0 - pf_lo + p; pp < XW;
-           pp += FT, fi += FT, dst += 4 * FT * QB) {
-        const bool ok = row_ok && fi >= 0 && fi < F_in;
-        const float* s = src + (long long)fi * C;
-        if (vec) {
-          hk::cp_async16(dst, ok && c < C ? s : x, ok && c < C);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            hk::cp_async4(dst + k, ok && c + k < C ? s + k : x,
-                          ok && c + k < C);
-        }
+           pp += FT, fi += FT, dst += FT * QB) {
+        const bool ok = row_ok && fi >= 0 && fi < F_in && c < C;
+        const E* s = src + (long long)fi * C;
+        if (vec)
+          cp_chunk(dst, ok ? s : x, ok);
+        else
+          cp_chunk_n(dst, ok ? s : x, ok ? min(4, C - c) : 0);
       }
     }
     hk::cp_async_commit();
@@ -1249,10 +1699,10 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const bool live = f < F_out && c < C;
   float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
   if (bias != nullptr && live)
-    bv = make_float4(bias[c], c + 1 < C ? bias[c + 1] : 0.f,
-                     c + 2 < C ? bias[c + 2] : 0.f,
-                     c + 3 < C ? bias[c + 3] : 0.f);
-  float* o = out + (((long long)b * T_out + t_lo) * F_out + f) * C + c;
+    bv = make_float4(to_f(bias[c]), c + 1 < C ? to_f(bias[c + 1]) : 0.f,
+                     c + 2 < C ? to_f(bias[c + 2]) : 0.f,
+                     c + 3 < C ? to_f(bias[c + 3]) : 0.f);
+  E* o = out + (((long long)b * T_out + t_lo) * F_out + f) * C + c;
   const long long o_row = (long long)F_out * C;
   // output row t_lo + i - (kt - 1) of the thread's chunk
   auto store = [&](float4 a, int i) {
@@ -1285,11 +1735,11 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       // that row i + kDwAhead takes
     issue(i + kDwAhead, ld);
     if (++ld == NR) ld = 0;
-    const float4* xr = ring + (rd * XW + p) * QB + quad;
+    const Chunk* xr = ring + (rd * XW + p) * QB + quad;
     if constexpr (kFixed) {
 #pragma unroll
       for (int df = 0; df < KF_; ++df) {
-        const float4 v = xr[df * QB];
+        const float4 v = widen(xr[df * QB]);
 #pragma unroll
         for (int j = 0; j < KT_; ++j) fma4v(v, wr[KT_ - 1 - j][df], acc[j]);
       }
@@ -1303,9 +1753,9 @@ dw_conv_packed_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (slot < 0) slot += NR;
       const float4* wq = w_s + quad;
       for (int dt = 0; dt < kt; ++dt) {
-        const float4* xq = ring + (slot * XW + p) * QB + quad;
+        const Chunk* xq = ring + (slot * XW + p) * QB + quad;
         for (int df = 0; df < kf; ++df, wq += QB)
-          fma4v(xq[df * QB], *wq, a);
+          fma4v(widen(xq[df * QB]), *wq, a);
         if (++slot == NR) slot = 0;
       }
       store(a, i);
@@ -1624,12 +2074,15 @@ size_t map_smem(int tile_rows, int C, int F_out, int NT, int NF) {
 // w is (KT, KF, C) through its strides (ws0, ws1, ws2); bias may be NULL.
 // QB quads a block's channels, FT positions its f tile, runs blocks a
 // tile, batch row and channel block (ops/packed_tf.dw_conv_geometry)
-extern "C" int dw_conv_packed_fwd(const void* x, const void* w,
-                                  const void* bias, void* out, int B, int T_in,
-                                  int F_in, int C, int T_out, int F_out,
-                                  int KT, int KF, int pt_lo, int pf_lo,
-                                  int ws0, int ws1, int ws2, int QB, int FT,
-                                  int runs, void* stream) {
+namespace {
+
+// K5's launch on elements E (float, or bf16 storage); see
+// dw_conv_packed_fwd
+template <typename E>
+int launch_dw_conv(const void* x, const void* w, const void* bias, void* out,
+                   int B, int T_in, int F_in, int C, int T_out, int F_out,
+                   int KT, int KF, int pt_lo, int pf_lo, int ws0, int ws1,
+                   int ws2, int QB, int FT, int runs, void* stream) {
   if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1 ||
       QB < 1 || QB > kDwQuads || FT < 1 || QB * FT > kDwThreads ||
       runs < 1 || runs > T_out)
@@ -1639,19 +2092,104 @@ extern "C" int dw_conv_packed_fwd(const void* x, const void* w,
   if (!grid_ok(tiles_f, B * blocks_c)) return (int)cudaErrorInvalidValue;
   // the taps of every preset as template arguments
   const bool fixed = KT == 4 && KF == 4;
-  const auto kernel = fixed ? dw_conv_packed_kernel<4, 4>
-                            : dw_conv_packed_kernel<0, 0>;
+  const auto kernel = fixed ? dw_conv_packed_kernel<4, 4, E>
+                            : dw_conv_packed_kernel<0, 0, E>;
   const size_t smem =
-      (size_t)dw_smem_floats(KT, KF, QB, FT, fixed) * sizeof(float);
+      sizeof(E) == 4
+          ? (size_t)dw_smem_floats(KT, KF, QB, FT, fixed) * sizeof(float)
+          : (size_t)dw_smem_bytes_bf16(KT, KF, QB, FT, fixed);
   cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out);
+  const bool vec = C % 4 == 0 && chunk_aligned((const E*)x) &&
+                   chunk_aligned((const E*)out);
   kernel<<<dim3(runs, (unsigned)tiles_f, (unsigned)(B * blocks_c)),
            dim3(QB, FT), smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias, (float*)out, T_in,
-      F_in, C, T_out, F_out, KT, KF, pt_lo, pf_lo, ws0, ws1, ws2,
-      (int)blocks_c, (int)vec);
+      (const E*)x, (const E*)w, (const E*)bias, (E*)out, T_in, F_in, C, T_out,
+      F_out, KT, KF, pt_lo, pf_lo, ws0, ws1, ws2, (int)blocks_c, (int)vec);
   return (int)cudaGetLastError();
+}
+
+// K8's launch on elements E; see spatial_down_packed_fwd
+template <typename E>
+int launch_spatial_down(const void* x, void* out, const void* ts,
+                        const void* tw, const void* fs, const void* fw, int B,
+                        int T_in, int F_in, int C, int T_out, int F_out,
+                        int NT, int NF, void* stream) {
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || NT < 1 || NF < 1 ||
+      !grid_ok(B, 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = map_smem(4 * ((F_out + 3) / 4), C, F_out, NT, NF);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_down_kernel<0, 0, E>,
+                                      spatial_down_kernel<1, 1, E>,
+                                      spatial_down_kernel<2, 2, E>,
+                                      spatial_down_kernel<3, 3, E>);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(T_out, B), kThreads, smem, (cudaStream_t)stream>>>(
+      (const E*)x, (E*)out, (const int*)ts, (const float*)tw, (const int*)fs,
+      (const float*)fw, T_in, F_in, C, T_out, F_out, NT, NF);
+  return (int)cudaGetLastError();
+}
+
+// K9's launch on elements E; see spatial_up_packed_fwd
+template <typename E>
+int launch_spatial_up(const void* x, void* out, const void* ts,
+                      const void* tw, const void* fs, const void* fw,
+                      const void* rows, int B, int T_in, int F_in, int C,
+                      int T_out, int F_out, int NT, int NF, int G,
+                      void* stream) {
+  if (B < 1 || C < 1 || F_in < 1 || T_out < 1 || F_out < 1 || NT < 1 ||
+      NF < 1 || G < 1 || G > T_out || !grid_ok(B, 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = map_smem(4 * ((F_in + 3) / 4), C, F_out, NT, NF);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_up_kernel<0, 0, E>,
+                                      spatial_up_kernel<1, 1, E>,
+                                      spatial_up_kernel<2, 2, E>,
+                                      spatial_up_kernel<3, 3, E>);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(G, B), kThreads, smem, (cudaStream_t)stream>>>(
+      (const E*)x, (E*)out, (const int*)ts, (const float*)tw, (const int*)fs,
+      (const float*)fw, (const int*)rows, T_in, F_in, C, T_out, F_out, NT,
+      NF);
+  return (int)cudaGetLastError();
+}
+
+// the grid of K6's and K7's bf16 kernels, or false where it is too large
+bool p16_grid(int B, int M, int N, dim3& grid) {
+  const long long mx = ((long long)M + kP16M - 1) / kP16M;
+  const long long ny = ((long long)N + kP16N - 1) / kP16N;
+  if (B < 1 || M < 1 || N < 1 || mx >= (1LL << 31) || !grid_ok(ny, B))
+    return false;
+  grid = dim3((unsigned)mx, (unsigned)ny, (unsigned)B);
+  return true;
+}
+
+}  // namespace
+
+extern "C" int dw_conv_packed_fwd(const void* x, const void* w,
+                                  const void* bias, void* out, int B, int T_in,
+                                  int F_in, int C, int T_out, int F_out,
+                                  int KT, int KF, int pt_lo, int pf_lo,
+                                  int ws0, int ws1, int ws2, int QB, int FT,
+                                  int runs, void* stream) {
+  return launch_dw_conv<float>(x, w, bias, out, B, T_in, F_in, C, T_out,
+                               F_out, KT, KF, pt_lo, pf_lo, ws0, ws1, ws2, QB,
+                               FT, runs, stream);
+}
+
+// K5 in bf16 storage: x, w, bias and out bf16, the launch as
+// dw_conv_packed_fwd's (the same blocks: ops/packed_tf.dw_conv_geometry)
+extern "C" int dw_conv_packed_fwd_bf16(const void* x, const void* w,
+                                       const void* bias, void* out, int B,
+                                       int T_in, int F_in, int C, int T_out,
+                                       int F_out, int KT, int KF, int pt_lo,
+                                       int pf_lo, int ws0, int ws1, int ws2,
+                                       int QB, int FT, int runs,
+                                       void* stream) {
+  return launch_dw_conv<__nv_bfloat16>(x, w, bias, out, B, T_in, F_in, C,
+                                       T_out, F_out, KT, KF, pt_lo, pf_lo, ws0,
+                                       ws1, ws2, QB, FT, runs, stream);
 }
 
 // x (B, K, M) rank-4 with M = T*F, w (K, N) through strides, out (B, M, N);
@@ -1721,20 +2259,21 @@ extern "C" int spatial_down_packed_fwd(const void* x, void* out,
                                        int T_in, int F_in, int C, int T_out,
                                        int F_out, int NT, int NF,
                                        void* stream) {
-  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || NT < 1 || NF < 1 ||
-      !grid_ok(B, 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = map_smem(4 * ((F_out + 3) / 4), C, F_out, NT, NF);
-  const auto kernel = pick_map_kernel(NT, NF, spatial_down_kernel<0, 0>,
-                                      spatial_down_kernel<1, 1>,
-                                      spatial_down_kernel<2, 2>,
-                                      spatial_down_kernel<3, 3>);
-  cudaError_t e = allow_smem((const void*)kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(T_out, B), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, (const int*)ts, (const float*)tw,
-      (const int*)fs, (const float*)fw, T_in, F_in, C, T_out, F_out, NT, NF);
-  return (int)cudaGetLastError();
+  return launch_spatial_down<float>(x, out, ts, tw, fs, fw, B, T_in, F_in, C,
+                                    T_out, F_out, NT, NF, stream);
+}
+
+// K8 in bf16 storage: x and out bf16 (the map float32), as
+// spatial_down_packed_fwd
+extern "C" int spatial_down_packed_fwd_bf16(const void* x, void* out,
+                                            const void* ts, const void* tw,
+                                            const void* fs, const void* fw,
+                                            int B, int T_in, int F_in, int C,
+                                            int T_out, int F_out, int NT,
+                                            int NF, void* stream) {
+  return launch_spatial_down<__nv_bfloat16>(x, out, ts, tw, fs, fw, B, T_in,
+                                            F_in, C, T_out, F_out, NT, NF,
+                                            stream);
 }
 
 // rows (G + 1): the starts of the runs of output rows one block writes,
@@ -1745,20 +2284,52 @@ extern "C" int spatial_up_packed_fwd(const void* x, void* out, const void* ts,
                                      int T_in, int F_in, int C, int T_out,
                                      int F_out, int NT, int NF, int G,
                                      void* stream) {
-  if (B < 1 || C < 1 || F_in < 1 || T_out < 1 || F_out < 1 || NT < 1 ||
-      NF < 1 || G < 1 || G > T_out || !grid_ok(B, 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = map_smem(4 * ((F_in + 3) / 4), C, F_out, NT, NF);
-  const auto kernel = pick_map_kernel(NT, NF, spatial_up_kernel<0, 0>,
-                                      spatial_up_kernel<1, 1>,
-                                      spatial_up_kernel<2, 2>,
-                                      spatial_up_kernel<3, 3>);
-  cudaError_t e = allow_smem((const void*)kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(G, B), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, (const int*)ts, (const float*)tw,
-      (const int*)fs, (const float*)fw, (const int*)rows, T_in, F_in, C,
-      T_out, F_out, NT, NF);
+  return launch_spatial_up<float>(x, out, ts, tw, fs, fw, rows, B, T_in, F_in,
+                                  C, T_out, F_out, NT, NF, G, stream);
+}
+
+// K9 in bf16 storage: x and out bf16 (the map float32), as
+// spatial_up_packed_fwd
+extern "C" int spatial_up_packed_fwd_bf16(const void* x, void* out,
+                                          const void* ts, const void* tw,
+                                          const void* fs, const void* fw,
+                                          const void* rows, int B, int T_in,
+                                          int F_in, int C, int T_out,
+                                          int F_out, int NT, int NF, int G,
+                                          void* stream) {
+  return launch_spatial_up<__nv_bfloat16>(x, out, ts, tw, fs, fw, rows, B,
+                                          T_in, F_in, C, T_out, F_out, NT, NF,
+                                          G, stream);
+}
+
+// K6 in bf16 storage: x (B, K, M) rank-4, w (K, N) through its strides,
+// bias (N) or NULL, out (B, M, N) packed, all bf16; one launch over all
+// of K (pw_proj_bf16_kernel)
+extern "C" int pw_proj_packed_fwd_bf16(const void* x, const void* w,
+                                       const void* bias, void* out, int B,
+                                       int M, int K, int N, int wsk, int wsn,
+                                       void* stream) {
+  dim3 grid;
+  if (K < 1 || !p16_grid(B, M, N, grid)) return (int)cudaErrorInvalidValue;
+  pw_proj_bf16_kernel<<<grid, kP16Threads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+      (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, M, K, N, wsk, wsn);
+  return (int)cudaGetLastError();
+}
+
+// K7 in bf16 storage: x (B, M, K) packed, w (K, N) through its strides,
+// bias (N) or NULL, out (B, N, M) rank-4, all bf16; one launch over all of
+// K (pw_unproj_bf16_kernel)
+extern "C" int pw_unproj_packed_fwd_bf16(const void* x, const void* w,
+                                         const void* bias, void* out, int B,
+                                         int M, int K, int N, int wsk,
+                                         int wsn, void* stream) {
+  dim3 grid;
+  if (K < 1 || !p16_grid(B, M, N, grid)) return (int)cudaErrorInvalidValue;
+  const int vec = K % 8 == 0 && aligned16(x);
+  pw_unproj_bf16_kernel<<<grid, kP16Threads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+      (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, M, K, N, wsk, wsn, vec);
   return (int)cudaGetLastError();
 }
 

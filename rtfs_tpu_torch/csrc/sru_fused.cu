@@ -9,7 +9,8 @@
 //     (rtfs_tpu/ops/sru_fused.py, called from _lay0_vjp_bwd).
 // K2  sru_hidden_layer_fwd     replaces the Pallas kernel _hid_fwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from sru_hidden_layer);
-//     sru_hidden_layer_fwd_bf16 the same kernel on bf16 operands.
+//     sru_hidden_layer_fwd_bf16 the same kernel on bf16 operands,
+//     streamed above H 536 as the float32 one is above H 268.
 // K2  sru_hidden_layer_bwd     replaces the Pallas kernel _hid_bwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from _hid_vjp_bwd).
 //
@@ -82,7 +83,8 @@
 // Above H 268 not even 8 units' rows of W_d fit beside X's two slots: the
 // block then streams the projection's reduction (kFwdK rows of X and
 // columns of W_d a stage through a cp.async ring, U summed in shared
-// memory), so its shared memory no longer grows with H.
+// memory), so its shared memory no longer grows with H; the bf16 kernel
+// does the same above H 536 (sru_hid_fwd_bf16_kernel<true>).
 // ops/sru_fused.k2_fwd_geometry picks bt, S and the slice so that the
 // grid fills the card where B allows. The scan's chain (two sigmoids a
 // step) and the product take about as long each at bs 8 (PERF.md).
@@ -706,6 +708,18 @@ __host__ __device__ __forceinline__ int hid_fwd_bf16_smem_bytes(int H, int N,
   return 2 * (rows * (k16 + 8) + 2 * k16 * (N + 8)) + 4 * 2 * rows * (N + 4);
 }
 
+// Shared memory of the streamed bf16 K2 forward in bytes (N columns a
+// chunk, U units a block): one float32 U slot (3U' rows of N + 4), then
+// the ring of kFwdStages stages, each kFwdK rows of X in bf16 (of N + 8)
+// and W_d's 3U' rows' kFwdK columns in bf16 (of kFwdK + 8, 20 words: the
+// 8 rows of a B fragment on distinct banks). It does not grow with H.
+__host__ __device__ __forceinline__ int hid_fwd_bf16_stream_smem_bytes(int N,
+                                                                       int U) {
+  const int rows = round_up(3 * U, 8 * kFwdNB);
+  return 4 * rows * (N + 4) +
+         2 * kFwdStages * (kFwdK * (N + 8) + rows * (kFwdK + 8));
+}
+
 // K2 forward in bf16 storage (x, W^T, vb, h and c bf16): the float32
 // kernel's blocks, chunks and scan, with the projection one bf16 mma.sync
 // m16n8k16 a fragment pair with a float32 accumulator, exactly JAX's bf16
@@ -721,8 +735,22 @@ __host__ __device__ __forceinline__ int hid_fwd_bf16_smem_bytes(int H, int N,
 // 8- or 4-byte cp.async), or by plain loads where B is odd or bt is 1 (no
 // 2-byte cp.async); W_d's rows (2H values, so every row starts on a 4-byte
 // boundary) two values a copy. Units are split over the grid as in the
-// float32 kernel; the streamed reduction has no bf16 form (the wrapper
-// refuses an H whose rows do not fit).
+// float32 kernel.
+//
+// kStream (where W_d's rows of even 8 units and X's two slots do not fit
+// one block, H above 536): the float32 kernel's streamed reduction in
+// bf16. The block keeps one float32 U slot; stage s is k slice s % ksl
+// (kFwdK = 32 rows of X's chunk s / ksl in bf16, two k16 steps, and the
+// same 32 columns of the block's rows of W_d) in ring slot s %
+// kFwdStages, the copies of the next kFwdStages - 1 stages in flight
+// while the warps multiply this one. Each warp adds its jobs' products of
+// the slice to their float32 U entries (its own entries, the slices in
+// order), and after a chunk's last slice a barrier, then the scan. A
+// plain-load copy of X (B odd, or bt 1: at the widths that stream bt is
+// 1) is a store to shared memory made after the barrier that ends the
+// slot's last reads, and read after the barrier that opens its stage, as
+// the cp.async copies are.
+template <bool kStream>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
                         const __nv_bfloat16* __restrict__ x_r,
@@ -741,10 +769,13 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
   const int ws = k16 + 8, xs = N + 8, us = N + 4;
   unsigned short* w_s = reinterpret_cast<unsigned short*>(smem4);  // (rows, ws)
   unsigned short* x_s = w_s + rows * ws;  // 2 x (k16, xs): X[k][col]
-  float* u_s = reinterpret_cast<float*>(x_s + 2 * k16 * xs);  // 2 x (rows, us)
+  // 2 x (rows, us): U[o][col]; kStream: one, first, then the ring
+  float* u_s = kStream ? reinterpret_cast<float*>(smem4)
+                       : reinterpret_cast<float*>(x_s + 2 * k16 * xs);
   const unsigned short* xf16 = reinterpret_cast<const unsigned short*>(x_f);
   const unsigned short* xr16 = reinterpret_cast<const unsigned short*>(x_r);
   const unsigned short* wt16 = reinterpret_cast<const unsigned short*>(wt);
+  const unsigned short* wd = wt16 + (long long)dir * h3 * h2;
   const int n_chunks = (T + S - 1) / S;
   const int vw = bt % 8 == 0 && B % 8 == 0   ? 8
                  : bt % 4 == 0 && B % 4 == 0 ? 4
@@ -753,8 +784,7 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
   const int warp = tid >> 5, lane = tid & 31;
 
   // W_d's rows of the block's units, a warp a row, a lane two columns
-  {
-    const unsigned short* wd = wt16 + (long long)dir * h3 * h2;
+  if constexpr (!kStream) {
     int gate = warp / units, jl = warp % units;
     for (int o = warp; o < rows; o += kFwdThreads / 32) {
       const bool row_ok = gate < 3 && jl < hs;
@@ -766,25 +796,70 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
       for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
     }
   }
-  // chunk n's X (rows >= 2H, steps past T and columns past B zero) into
-  // slot n % 2, vw values a copy
-  auto load_chunk = [&](int n) {
-    unsigned short* dst = x_s + (n & 1) * k16 * xs;
-    for (int e = vw * tid; e < k16 * N; e += vw * kFwdThreads) {
+  // rows k0 .. k0 + nr - 1 of chunk n's X (rows >= 2H, steps past T and
+  // columns past B zero) into dst, rows of xs, vw values a copy
+  auto load_x = [&](unsigned short* dst, int n, int k0, int nr) {
+    for (int e = vw * tid; e < nr * N; e += vw * kFwdThreads) {
       const int r = e / N, col = e % N, s = col / bt, c = col % bt;
-      const int ii = n * S + s;
+      const int ii = n * S + s, k = k0 + r;
       const int t = dir == 0 ? ii : T - 1 - ii;
-      const bool ok = r < h2 && ii < T && b0 + c < B;
+      const bool ok = k < h2 && ii < T && b0 + c < B;
       const unsigned short* src =
-          ok ? (r < H ? xf16 : xr16) + ((long long)t * H + r % H) * B + b0 + c
+          ok ? (k < H ? xf16 : xr16) + ((long long)t * H + k % H) * B + b0 + c
              : xf16;
       hk::copy_bf16(dst + r * xs + col, src, vw, ok);
     }
   };
-  // U^T = X^T W_d^T of chunk n, the float32 kernel's warp jobs, k16 steps
+  // U^T += X^T W_d^T over one k16 step, the float32 kernel's warp jobs:
+  // A (column m, k) = X[k][m], the lane's rows k = 2q, 2q+1, 2q+8, 2q+9
+  // and columns g, g + 8 of each m16 tile from xl; B from W_d's rows at wl
+  // (rows wstride apart)
   const int g = hk::lane_g(), q = hk::lane_q();
   const int m_jobs = N / (16 * kFwdMT);
   const int n_jobs = m_jobs * (rows / (8 * kFwdNB));
+  auto mma_step = [&](float (&acc)[kFwdMT][kFwdNB][4],
+                      const unsigned short* xl, const unsigned short* wl,
+                      int wstride) {
+    uint32_t a[kFwdMT][4], bf[kFwdNB][2];
+#pragma unroll
+    for (int mt = 0; mt < kFwdMT; ++mt) {
+      const unsigned short* p = xl + 16 * mt;
+      a[mt][0] = hk::pack_bf16(p[0], p[xs]);
+      a[mt][1] = hk::pack_bf16(p[8], p[xs + 8]);
+      a[mt][2] = hk::pack_bf16(p[8 * xs], p[9 * xs]);
+      a[mt][3] = hk::pack_bf16(p[8 * xs + 8], p[9 * xs + 8]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < kFwdNB; ++nb) {
+      const unsigned short* p = wl + 8 * nb * wstride;
+      bf[nb][0] = *reinterpret_cast<const uint32_t*>(p);
+      bf[nb][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+    }
+#pragma unroll
+    for (int nb = 0; nb < kFwdNB; ++nb)
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+        hk::mma_bf16(acc[mt][nb], a[mt], bf[nb]);
+  };
+  // a job's accumulators from U (zero where first) and back: D (column m,
+  // row o) c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1), U[o][m]
+  auto u_entry = [&](float* uc, int r0, int m0, int mt, int nb) {
+    return uc + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
+  };
+  auto store_u = [&](float (&acc)[kFwdMT][kFwdNB][4], float* uc, int r0,
+                     int m0) {
+#pragma unroll
+    for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < kFwdNB; ++nb) {
+        float* u = u_entry(uc, r0, m0, mt, nb);
+        u[0] = acc[mt][nb][0];
+        u[us] = acc[mt][nb][1];
+        u[8] = acc[mt][nb][2];
+        u[us + 8] = acc[mt][nb][3];
+      }
+  };
+  // U^T = X^T W_d^T of chunk n (held)
   auto project = [&](int n) {
     const unsigned short* xc = x_s + (n & 1) * k16 * xs;
     float* uc = u_s + (n & 1) * rows * us;
@@ -798,42 +873,11 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
         for (int nb = 0; nb < kFwdNB; ++nb)
 #pragma unroll
           for (int v = 0; v < 4; ++v) acc[mt][nb][v] = 0.f;
-      // A (column m, k): X[k][m]; the lane's rows k = 2q, 2q+1, 2q+8, 2q+9
-      // and columns m0 + g, m0 + g + 8 of each m16 tile
       const unsigned short* xl = xc + 2 * q * xs + m0 + g;
       const unsigned short* wl = w_s + (r0 + g) * ws + 2 * q;
-      for (int k0 = 0; k0 < k16; k0 += 16) {
-        uint32_t a[kFwdMT][4], bf[kFwdNB][2];
-#pragma unroll
-        for (int mt = 0; mt < kFwdMT; ++mt) {
-          const unsigned short* p = xl + k0 * xs + 16 * mt;
-          a[mt][0] = hk::pack_bf16(p[0], p[xs]);
-          a[mt][1] = hk::pack_bf16(p[8], p[xs + 8]);
-          a[mt][2] = hk::pack_bf16(p[8 * xs], p[9 * xs]);
-          a[mt][3] = hk::pack_bf16(p[8 * xs + 8], p[9 * xs + 8]);
-        }
-#pragma unroll
-        for (int nb = 0; nb < kFwdNB; ++nb) {
-          const unsigned short* p = wl + 8 * nb * ws + k0;
-          bf[nb][0] = *reinterpret_cast<const uint32_t*>(p);
-          bf[nb][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-        }
-#pragma unroll
-        for (int nb = 0; nb < kFwdNB; ++nb)
-#pragma unroll
-          for (int mt = 0; mt < kFwdMT; ++mt)
-            hk::mma_bf16(acc[mt][nb], a[mt], bf[nb]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < kFwdMT; ++mt)
-#pragma unroll
-        for (int nb = 0; nb < kFwdNB; ++nb) {
-          float* u = uc + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
-          u[0] = acc[mt][nb][0];
-          u[us] = acc[mt][nb][1];
-          u[8] = acc[mt][nb][2];
-          u[us + 8] = acc[mt][nb][3];
-        }
+      for (int k0 = 0; k0 < k16; k0 += 16)
+        mma_step(acc, xl + k0 * xs, wl + k0, ws);
+      store_u(acc, uc, r0, m0);
     }
   };
 
@@ -866,7 +910,8 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
   load_hw(0, hw);
   float c = 0.f;
   auto scan = [&](int n) {
-    const float* u = u_s + (n & 1) * rows * us + jl * us + tid % bt;
+    const float* u =
+        u_s + (kStream ? 0 : (n & 1) * rows * us) + jl * us + tid % bt;
     for (int s0 = 0; s0 < S; s0 += G) {
       const int i0 = n * S + s0;
       if (i0 >= T) break;
@@ -897,17 +942,102 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
     }
   };
 
-  load_chunk(0);  // with W_d
-  hk::cp_async_commit();
-  hk::cp_async_wait_all();
-  __syncthreads();
-  for (int n = 0; n < n_chunks; ++n) {
-    if (n + 1 < n_chunks) load_chunk(n + 1);
+  if constexpr (!kStream) {
+    load_x(x_s, 0, 0, k16);  // with W_d
     hk::cp_async_commit();
-    project(n);
     hk::cp_async_wait_all();
     __syncthreads();
-    if (live) scan(n);
+    for (int n = 0; n < n_chunks; ++n) {
+      if (n + 1 < n_chunks) load_x(x_s + ((n + 1) & 1) * k16 * xs, n + 1, 0,
+                                   k16);
+      hk::cp_async_commit();
+      project(n);
+      hk::cp_async_wait_all();
+      __syncthreads();
+      if (live) scan(n);
+    }
+  } else {
+    static_assert(kFwdK % 16 == 0 && kFwdK / 2 <= 32,
+                  "a slice is whole k16 steps; a lane copies two columns");
+    const int ksl = (h2 + kFwdK - 1) / kFwdK, total = n_chunks * ksl;
+    const int kws = kFwdK + 8;  // a row of W_d's slice: 20 words
+    const int slot_elems = kFwdK * xs + rows * kws;
+    // slots of (kFwdK, xs) X, then (rows, kws) W_d, bf16
+    unsigned short* ring = reinterpret_cast<unsigned short*>(u_s + rows * us);
+    // stage st into ring slot `slot`, one commit group (empty past the
+    // last): X's rows k0 .. k0 + kFwdK - 1 of chunk st / ksl and those
+    // columns of W_d's rows of the block's units, a warp a row, a lane
+    // two columns (2H is even: a pair never straddles the row's end)
+    auto load_stage = [&](int st, int slot) {
+      if (st < total) {
+        const int n = st / ksl, k0 = (st - n * ksl) * kFwdK;
+        unsigned short* xd_s = ring + slot * slot_elems;
+        unsigned short* wd_s = xd_s + kFwdK * xs;
+        load_x(xd_s, n, k0, kFwdK);
+        int gate = warp / units, jl = warp % units;
+        for (int o = warp; o < rows; o += kFwdThreads / 32) {
+          if (lane < kFwdK / 2) {
+            const int k = k0 + 2 * lane;
+            const bool ok = gate < 3 && jl < hs && k < h2;
+            hk::cp_async4(wd_s + o * kws + 2 * lane,
+                          ok ? wd + (long long)(gate * H + j0 + jl) * h2 + k
+                             : wt16,
+                          ok);
+          }
+          for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
+        }
+      }
+      hk::cp_async_commit();
+    };
+    // U^T += X^T W_d^T over the slice in `slot`, the sums carried in U
+    // (from 0 at the chunk's first slice)
+    auto project_slice = [&](int slot, bool first) {
+      const unsigned short* xc = ring + slot * slot_elems;
+      const unsigned short* wc = xc + kFwdK * xs;
+      for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
+        const int m0 = jb % m_jobs * 16 * kFwdMT;
+        const int r0 = jb / m_jobs * 8 * kFwdNB;
+        float acc[kFwdMT][kFwdNB][4];
+#pragma unroll
+        for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+          for (int nb = 0; nb < kFwdNB; ++nb) {
+            const float* u = u_entry(u_s, r0, m0, mt, nb);
+            acc[mt][nb][0] = first ? 0.f : u[0];
+            acc[mt][nb][1] = first ? 0.f : u[us];
+            acc[mt][nb][2] = first ? 0.f : u[8];
+            acc[mt][nb][3] = first ? 0.f : u[us + 8];
+          }
+        const unsigned short* xl = xc + 2 * q * xs + m0 + g;
+        const unsigned short* wl = wc + (r0 + g) * kws + 2 * q;
+#pragma unroll
+        for (int k0 = 0; k0 < kFwdK; k0 += 16)
+          mma_step(acc, xl + k0 * xs, wl + k0, kws);
+        store_u(acc, u_s, r0, m0);
+      }
+    };
+    int ld = 0, rd = 0, n = 0, kk = 0;  // ring slots; chunk and slice
+    for (int st = 0; st < kFwdStages - 1; ++st) {
+      load_stage(st, ld);
+      if (++ld == kFwdStages) ld = 0;
+    }
+    for (int st = 0; st < total; ++st) {
+      hk::cp_async_wait<kFwdStages - 2>();
+      __syncthreads();  // stage st is in; every warp is done with the slot
+                        // stage st + kFwdStages - 1 takes, and every scan
+                        // thread with U
+      load_stage(st + kFwdStages - 1, ld);
+      if (++ld == kFwdStages) ld = 0;
+      project_slice(rd, kk == 0);
+      if (++rd == kFwdStages) rd = 0;
+      if (++kk == ksl) {
+        kk = 0;
+        __syncthreads();  // U of chunk n is whole
+        if (live) scan(n);
+        ++n;
+      }
+    }
+    hk::cp_async_wait_all();
   }
 }
 
@@ -1192,8 +1322,9 @@ extern "C" int sru_dual_recurrence_fwd_bf16(const void* u_f, const void* u_r,
 }
 
 // K2 forward in bf16 storage: as sru_hidden_layer_fwd, W_d's rows of the
-// units held whole (there is no streamed bf16 form: an H whose rows do not
-// fit is refused); every pointer 16-byte aligned.
+// units held whole where they and X's two slots fit one block, the
+// reduction streamed (sru_hid_fwd_bf16_kernel<true>) where they do not;
+// every pointer 16-byte aligned.
 extern "C" int sru_hidden_layer_fwd_bf16(const void* x_f, const void* x_r,
                                          const void* wt, const void* vb,
                                          void* h_f, void* h_r, void* c_f,
@@ -1205,12 +1336,16 @@ extern "C" int sru_hidden_layer_fwd_bf16(const void* x_f, const void* x_r,
       ((reinterpret_cast<size_t>(x_f) | reinterpret_cast<size_t>(x_r) |
         reinterpret_cast<size_t>(wt)) & 15))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)hid_fwd_bf16_smem_bytes(H, S * bt, units);
+  size_t smem = (size_t)hid_fwd_bf16_smem_bytes(H, S * bt, units);
+  const bool streamed = (long long)smem > kMaxSmem;
+  if (streamed) smem = (size_t)hid_fwd_bf16_stream_smem_bytes(S * bt, units);
   if ((long long)smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem((const void*)sru_hid_fwd_bf16_kernel, smem);
+  const auto kernel = streamed ? sru_hid_fwd_bf16_kernel<true>
+                               : sru_hid_fwd_bf16_kernel<false>;
+  cudaError_t e = set_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sru_hid_fwd_bf16_kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)),
-                            kFwdThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)), kFwdThreads, smem,
+           (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x_f, (const __nv_bfloat16*)x_r,
       (const __nv_bfloat16*)wt, (const __nv_bfloat16*)vb, (__nv_bfloat16*)h_f,
       (__nv_bfloat16*)h_r, (__nv_bfloat16*)c_f, (__nv_bfloat16*)c_r, T, H, B,

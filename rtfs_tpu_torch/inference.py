@@ -16,7 +16,8 @@ the uint8 range). Writes ``<out-dir>/{key}_est{i}.wav``, clipped to
 [-1, 1]. ``--packed-tf`` serves through the packed-TF kernels (K5-K9).
 A ``conf.json`` whose ``audionet.compute_dtype`` is ``"bfloat16"`` serves
 in bf16 (``config.build_avnet``; the bundle's float32 weights rounded at
-load; waveforms in and out float32); with ``--packed-tf`` it raises.
+load; waveforms in and out float32), through K5-K9's bf16 entries where
+``audionet.packed_tf`` or ``--packed-tf`` asks for the packed layout.
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ the mouth embedding to bf16, runs the bottlenecks, the refinement module
 and the mask generator in bf16 (K1-K3 through their bf16 entries), and
 casts ``separated`` back to float32 before the decoder, whose
 ConvTranspose2d casts to bf16 again as JAX's does; the iSTFT and the
-waveform are float32. bf16 serves the standard layout only: with
-``packed_tf`` it raises.
+waveform are float32. With ``packed_tf`` the blocks' full-resolution
+segments run K5-K9 through their bf16 entries too (the JAX bench's
+``bf16_packed`` row, ``bench.py``).
 
 Inputs: waveform (B, L) and the lip embedding (B, T2, C2), the JAX
 package's boundary layouts; inside, maps are channels-first (B, C, T, F).
@@ -218,8 +219,8 @@ class AVNet(nn.Module):
 
     ``compute_dtype`` ``torch.bfloat16`` (parameters cast by
     ``cast_params``, as ``config.build_avnet`` does) serves in bf16 with
-    float32 waveforms in and out (module docstring); it refuses
-    ``packed_tf`` and autograd."""
+    float32 waveforms in and out (module docstring), in either layout; it
+    refuses autograd."""
 
     def __init__(self, n_src, enc_dec_params, audio_bn_params, audio_params,
                  mask_generation_params, pretrained_vout_chan=-1,
@@ -272,10 +273,6 @@ class AVNet(nn.Module):
                 mouth_embedding: Optional[torch.Tensor] = None):
         length = audio_mixture.shape[-1]
         bf16 = self.compute_dtype == torch.bfloat16
-        if bf16 and self.packed_tf:
-            raise NotImplementedError(
-                "bf16 with packed_tf: the packed kernels K5-K9 take float32 "
-                "only")
         embedding = self.encoder(audio_mixture)  # (B, C, T, F)
         if bf16:
             embedding = embedding.to(self.compute_dtype)

@@ -268,7 +268,9 @@ class Conv(nn.Module):
     def _packed_call(self, x):
         """Packed-TF dispatch (``rtfs_tpu/models/layers.py:_packed_call``):
         the same parameters through the packed kernels, for exactly the
-        convs of the RTFS block's full-resolution segment."""
+        convs of the RTFS block's full-resolution segment; the input cast
+        to the weight's dtype first, as every conv casts it (bf16
+        serving)."""
         out_chan, kernel = self.weight.shape[0], tuple(self.weight.shape[2:])
         in_chan = self.weight.shape[1] * self.groups
         stride = self.stride
@@ -284,11 +286,13 @@ class Conv(nn.Module):
                 raise NotImplementedError(
                     f"packed_tf: a packed projection needs a 2-D 1x1 dense "
                     f"conv, got k={kernel} groups={self.groups}")
-            out = P.pw_proj_packed(x.data, w1x1, self.bias)
+            out = P.pw_proj_packed(x.data.to(self.weight.dtype), w1x1,
+                                   self.bias)
             return P.PackedTF(out, x.shape[3], out_chan)
+        xd = x.data.to(self.weight.dtype)
         if pointwise:
             # 1x1 dense on a packed map: packed-world exit to rank-4
-            return P.pw_unproj_packed(x.data, w1x1, self.bias, x.f)
+            return P.pw_unproj_packed(xd, w1x1, self.bias, x.f)
         if (self.groups == in_chan == out_chan and len(kernel) == 2
                 and all(k > 1 for k in kernel)):
             # depthwise kT x kF conv (stride 1 'same' or stride-2 int pad)
@@ -299,7 +303,7 @@ class Conv(nn.Module):
                 pads_t = pads_f = (self.padding, self.padding)
             else:
                 raise NotImplementedError(f"packed_tf: padding {self.padding}")
-            out = P.dw_conv_packed(x.data, self.weight[:, 0].permute(1, 2, 0),
+            out = P.dw_conv_packed(xd, self.weight[:, 0].permute(1, 2, 0),
                                    self.bias, x.f, x.c, pads_t, pads_f)
             _, _, t, f = x.shape
             t_conv, f_conv = P.dw_geometry(t, f, kt, kf, pads_t, pads_f)

@@ -61,6 +61,11 @@ _SIGNATURES = {
         "spatial_up_packed_fwd": (7, 9),
         "dw_conv_packed_wgrad": (4, 15),
         "pw_packed_wgrad": (4, 7),
+        "dw_conv_packed_fwd_bf16": (4, 16),
+        "pw_proj_packed_fwd_bf16": (4, 6),
+        "pw_unproj_packed_fwd_bf16": (4, 6),
+        "spatial_down_packed_fwd_bf16": (6, 8),
+        "spatial_up_packed_fwd_bf16": (7, 9),
     },
     "sru_pallas": {
         "sru_recurrence_fwd": (5, 6),

@@ -43,6 +43,17 @@ the implementation, forward and backward: on a CPU tensor the plain
 PyTorch versions run, on a CUDA tensor the kernels launch or the call
 raises.
 
+The forwards also take bf16 storage (the Pallas kernels run in the
+caller's dtype; bf16 is the JAX package's serving mode): x, w, bias and
+the output in bf16, the sums in float32, each output rounded once (CUDA
+entries ``*_fwd_bf16``; K6 and K7 on the bf16 tensor cores, ``mma.sync``
+m16n8k16, ``pw_proj16_geometry``). K8's and K9's rank-4 side is bf16 too:
+JAX's float32 rank-4 block is a workaround for Mosaic on v5e, and bf16
+in, float32 inside, bf16 out gives the same values. On the card x, w and
+bias are of one dtype (a mixed call raises; nothing is cast to reach the
+float32 kernel). bf16 is for serving: a bf16 op that autograd would
+record raises ``NotImplementedError`` on either device.
+
 The model layers dispatch on ``PackedTF`` (a packed map flowing through a
 module) and ``PackRequest`` (a rank-4 map handed to the 1x1 projection
 that enters the packed world), inside ``packed_scope(True)``, which
@@ -60,6 +71,9 @@ import torch
 import torch.nn.functional as F
 
 from . import kernel_lib
+from .sru_fused import arithmetic_dtype, refuse_bf16_grad
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 # ---------------------------------------------------------------------------
 # Layout helpers
@@ -83,27 +97,54 @@ def unpack_tf(xp: torch.Tensor, f: int, c: int) -> torch.Tensor:
 def gln_packed(xp, gamma, beta, f: int, eps: float = 1e-5):
     """GlobalLayerNorm on a packed map: statistics over (T, F*C) of each
     batch row (gLN's statistics), the per-channel affine broadcast over the
-    innermost C."""
+    innermost C. A bf16 map's statistics and normalised values are float32
+    (the standard path's, ``layers.GlobalLayerNorm``), rounded to bf16
+    before the affine in bf16, as ``rtfs_tpu/ops/packed_tf.py:gln_packed``
+    does."""
     b, t, n = xp.shape
     c = n // f
-    var, mean = torch.var_mean(xp.reshape(b, -1), dim=1, unbiased=False)
+    xf = xp.to(arithmetic_dtype(xp.dtype))
+    var, mean = torch.var_mean(xf.reshape(b, -1), dim=1, unbiased=False)
     scale = torch.rsqrt(var + eps).reshape(b, 1, 1, 1)
-    y = (xp.reshape(b, t, f, c) - mean.reshape(b, 1, 1, 1)) * scale
+    y = ((xf.reshape(b, t, f, c) - mean.reshape(b, 1, 1, 1)) * scale).to(
+        xp.dtype)
     return (y * gamma + beta).reshape(b, t, n)
 
 
-def _check_cuda(name: str, x, w=None, bias=None) -> None:
-    """Raise unless x (and bias) are contiguous float32 on one CUDA device
-    and w (read through its strides) is float32 there too."""
-    kernel_lib.check_cuda(name, *[t for t in (x, bias) if t is not None])
-    if w is not None and (w.device != x.device or w.dtype != torch.float32):
-        raise TypeError(f"{name}: w must be float32 on {x.device}")
+def _check_cuda(name: str, x, w=None, bias=None) -> torch.dtype:
+    """Raise unless x (and bias) are contiguous on one CUDA device, all
+    float32 or all bf16, and w (read through its strides) is of that dtype
+    there too; returns the dtype."""
+    dt = kernel_lib.check_cuda(name, *[t for t in (x, bias) if t is not None],
+                               dtypes=_DTYPES)
+    if w is not None and (w.device != x.device or w.dtype != dt):
+        raise TypeError(f"{name}: w must be {str(dt)[6:]} on {x.device}, "
+                        f"got {str(w.dtype)[6:]} on {w.device}")
+    return dt
 
 
-def _records(*tensors) -> bool:
-    """True when autograd would record a call on these inputs."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+def _entry(fn: str, dtype: torch.dtype) -> str:
+    """The C entry of a forward for the storage dtype."""
+    return fn + "_bf16" if dtype == torch.bfloat16 else fn
+
+
+def _records(name: str, *tensors) -> bool:
+    """True when autograd would record a call on these inputs; raises
+    NotImplementedError where one of them is bf16 (no bf16 backward)."""
+    tensors = [t for t in tensors if t is not None]
+    rec = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if rec:
+        refuse_bf16_grad(name, *tensors)
+    return rec
+
+
+def _wide(*tensors):
+    """The tensors in their arithmetic dtype (bf16 widened to float32, the
+    others as they are; None stays None), each rounded first to the first
+    one's dtype, as the JAX ops cast w and bias to x's."""
+    dt = tensors[0].dtype
+    ad = arithmetic_dtype(dt)
+    return tuple(None if t is None else t.to(dt).to(ad) for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +163,10 @@ def dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f):
 
 
 def dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f):
-    """Explicit tap loop over the zero-padded (B, T, F, C) view."""
+    """Explicit tap loop over the zero-padded (B, T, F, C) view; in bf16
+    storage over the widened values, the output rounded once."""
+    dtype = xp.dtype
+    xp, w, bias = _wide(xp, w, bias)
     b, t_in, _ = xp.shape
     kt, kf, _ = w.shape
     t_out, f_out = dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f)
@@ -134,7 +178,7 @@ def dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f):
             out = out + w[dt, df] * x4[:, dt:dt + t_out, df:df + f_out]
     if bias is not None:
         out = out + bias
-    return out.reshape(b, t_out, f_out * c)
+    return out.reshape(b, t_out, f_out * c).to(dtype)
 
 
 def dw_conv_packed_wgrad_plain(xp, g, f_in, c, kt_kf, pads_t, pads_f):
@@ -326,15 +370,15 @@ def dw_conv_launch_ints(b, t_in, f_in, c, t_out, f_out, kt_kf, pads_t,
 def _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f):
     if xp.device.type == "cpu":
         return dw_conv_packed_plain(xp, w, bias, f_in, c, pads_t, pads_f)
-    _check_cuda("dw_conv_packed", xp, w, bias)
+    dt = _check_cuda("dw_conv_packed", xp, w, bias)
     kt, kf, _ = w.shape
     b, t_in, _ = xp.shape
     t_out, f_out = dw_geometry(t_in, f_in, kt, kf, pads_t, pads_f)
     if min(b, t_out, f_out, c) <= 0:
         raise ValueError(f"dw_conv_packed: empty output {t_out} x {f_out}")
-    out = torch.empty(b, t_out, f_out * c, device=xp.device)
+    out = torch.empty(b, t_out, f_out * c, device=xp.device, dtype=dt)
     kernel_lib.launch(
-        "packed_tf", "dw_conv_packed_fwd", xp.device,
+        "packed_tf", _entry("dw_conv_packed_fwd", dt), xp.device,
         xp.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         *dw_conv_launch_ints(b, t_in, f_in, c, t_out, f_out, (kt, kf),
@@ -389,7 +433,7 @@ def dw_conv_packed(xp, w, bias, f_in: int, c: int, pads_t, pads_f):
     if cw != c or xp.shape[2] != f_in * c:
         raise ValueError(f"dw_conv_packed: x {tuple(xp.shape)}, F {f_in}, "
                          f"C {c}, w {tuple(w.shape)}")
-    if _records(xp, w, bias):
+    if _records("dw_conv_packed", xp, w, bias):
         return _DwConv.apply(xp, w, bias, f_in, c, tuple(pads_t),
                              tuple(pads_f))
     return _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f)
@@ -401,19 +445,26 @@ def dw_conv_packed(xp, w, bias, f_in: int, c: int, pads_t, pads_f):
 
 
 def pw_proj_packed_plain(x4, w, bias):
+    """In bf16 storage a float32 product of the widened values (their
+    products exact) plus the bias, rounded once."""
+    dtype = x4.dtype
+    x4, w, bias = _wide(x4, w, bias)
     b, _, t, f = x4.shape
     out = torch.einsum("bitf,io->btfo", x4, w)
     if bias is not None:
         out = out + bias
-    return out.reshape(b, t, f * w.shape[1])
+    return out.reshape(b, t, f * w.shape[1]).to(dtype)
 
 
 def pw_unproj_packed_plain(xp, w, bias, f: int):
+    """As ``pw_proj_packed_plain``, packed in, rank-4 out."""
+    dtype = xp.dtype
+    xp, w, bias = _wide(xp, w, bias)
     b, t, n = xp.shape
     out = torch.einsum("btfi,io->botf", xp.reshape(b, t, f, n // f), w)
     if bias is not None:
         out = out + bias[:, None, None]
-    return out
+    return out.to(dtype)
 
 
 def pw_packed_wgrad_plain(a, g):
@@ -570,12 +621,41 @@ def pw_proj_launch_ints(x4, w) -> tuple:
     return (b, t * f, k, n, *w.stride(), geo["blocks"])
 
 
+# K6's and K7's bf16 kernels (``kP16*`` in csrc/packed_tf.cu): tiles of
+# PROJ16_M positions x PROJ16_N channels, PROJ16_THREADS threads, PROJ16_K
+# k a stage in two shared stages, one launch over all of K
+PROJ16_M, PROJ16_N, PROJ16_K = 128, 64, 32
+PROJ16_THREADS = 256
+
+
+def pw_proj16_geometry(b: int, m: int, k: int, n: int) -> dict:
+    """The launch of K6's and K7's bf16 kernels for x of ``b`` batch rows
+    of ``m`` positions and ``k`` channels into ``n``: ``grid``
+    (ceil(m / PROJ16_M), ceil(n / PROJ16_N), b), a block a tile of
+    positions and channels over all of k in ``stages`` stages. Raises
+    ValueError on an empty side or a grid the card does not take."""
+    if min(b, m, k, n) < 1:
+        raise ValueError(f"pw_proj_packed bf16: B {b}, M {m}, K {k}, N {n}")
+    grid = (-(-m // PROJ16_M), -(-n // PROJ16_N), b)
+    if grid[0] >= 2 ** 31 or max(grid[1:]) >= 65536:
+        raise ValueError(f"pw_proj_packed bf16: grid {grid} too large")
+    return {"grid": grid, "stages": -(-k // PROJ16_K),
+            "threads": PROJ16_THREADS}
+
+
 def _proj_forward(x4, w, bias):
     if x4.device.type == "cpu":
         return pw_proj_packed_plain(x4, w, bias)
-    _check_cuda("pw_proj_packed", x4, w, bias)
-    b, _, t, f = x4.shape
-    out = torch.empty(b, t, f * w.shape[1], device=x4.device)
+    dt = _check_cuda("pw_proj_packed", x4, w, bias)
+    b, k, t, f = x4.shape
+    out = torch.empty(b, t, f * w.shape[1], device=x4.device, dtype=dt)
+    if dt == torch.bfloat16:
+        pw_proj16_geometry(b, t * f, k, w.shape[1])
+        kernel_lib.launch(
+            "packed_tf", "pw_proj_packed_fwd_bf16", x4.device, x4.data_ptr(),
+            w.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), b, t * f, k, w.shape[1], *w.stride())
+        return out
     kernel_lib.launch(
         "packed_tf", "pw_proj_packed_fwd", x4.device, x4.data_ptr(),
         w.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -644,9 +724,18 @@ def pw_unproj_launch_ints(xp, w, f: int) -> tuple:
 def _unproj_forward(xp, w, bias, f):
     if xp.device.type == "cpu":
         return pw_unproj_packed_plain(xp, w, bias, f)
-    _check_cuda("pw_unproj_packed", xp, w, bias)
+    dt = _check_cuda("pw_unproj_packed", xp, w, bias)
     b, t, _ = xp.shape
-    out = torch.empty(b, w.shape[1], t, f, device=xp.device)
+    k, n = w.shape
+    out = torch.empty(b, n, t, f, device=xp.device, dtype=dt)
+    if dt == torch.bfloat16:
+        pw_proj16_geometry(b, t * f, k, n)
+        kernel_lib.launch(
+            "packed_tf", "pw_unproj_packed_fwd_bf16", xp.device,
+            xp.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), b,
+            t * f, k, n, *w.stride())
+        return out
     kernel_lib.launch(
         "packed_tf", "pw_unproj_packed_fwd", xp.device, xp.data_ptr(),
         w.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -708,7 +797,7 @@ def pw_proj_packed(x4, w, bias):
     if w.shape[0] != x4.shape[1]:
         raise ValueError(f"pw_proj_packed: x {tuple(x4.shape)}, w "
                          f"{tuple(w.shape)}")
-    if _records(x4, w, bias):
+    if _records("pw_proj_packed", x4, w, bias):
         return _PwProj.apply(x4, w, bias)
     return _proj_forward(x4, w, bias)
 
@@ -718,7 +807,7 @@ def pw_unproj_packed(xp, w, bias, f: int):
     if xp.shape[2] != f * w.shape[0]:
         raise ValueError(f"pw_unproj_packed: x {tuple(xp.shape)}, F {f}, w "
                          f"{tuple(w.shape)}")
-    if _records(xp, w, bias):
+    if _records("pw_unproj_packed", xp, w, bias):
         return _PwUnproj.apply(xp, w, bias, f)
     return _unproj_forward(xp, w, bias, f)
 
@@ -915,19 +1004,26 @@ def _f_side(x, fs, fw, axis):
 
 
 def spatial_down_packed_plain(xp, smap: SpatialMap, c: int):
-    """F side by gather, T side by the dense M (einsum), in xp's dtype."""
+    """F side by gather, T side by the dense M (einsum), in xp's dtype (in
+    bf16 storage over the widened values, rounded once)."""
+    dtype = xp.dtype
+    (xp,) = _wide(xp)
     b, t, n = xp.shape
     tens = smap.tensors(xp.device)
     col = _f_side(xp.reshape(b, t, n // c, c), tens["fs"], tens["fw"], 2)
-    return torch.einsum("st,btfc->bcsf", tens["m"].to(col.dtype), col)
+    return torch.einsum("st,btfc->bcsf", tens["m"].to(col.dtype),
+                        col).to(dtype)
 
 
 def spatial_up_packed_plain(x4, smap: SpatialMap):
+    """The T side by the dense M, then the F side, as K8's."""
+    dtype = x4.dtype
+    (x4,) = _wide(x4)
     b, c = x4.shape[:2]
     tens = smap.tensors(x4.device)
     y = torch.einsum("ts,bcsu->btuc", tens["m"].to(x4.dtype), x4)
     y = _f_side(y, tens["fs"], tens["fw"], 2)  # (B, T, F, C)
-    return y.reshape(b, smap.t_out, smap.f_out * c)
+    return y.reshape(b, smap.t_out, smap.f_out * c).to(dtype)
 
 
 # K8 / K9 launch geometry: MAP_PAD mirrors kMapPad of csrc/packed_tf.cu
@@ -986,11 +1082,11 @@ def _down_forward(xp, smap, c):
     dev = xp.device
     if dev.type == "cpu":
         return spatial_down_packed_plain(xp, smap, c)
-    _check_cuda("spatial_down_packed", xp)
+    dt = _check_cuda("spatial_down_packed", xp)
     b, _, n = xp.shape
     ptrs, ints = smap.launch_args(False, c, n // c, dev)
-    out = torch.empty(b, c, smap.t_out, smap.f_out, device=dev)
-    kernel_lib.launch("packed_tf", "spatial_down_packed_fwd", dev,
+    out = torch.empty(b, c, smap.t_out, smap.f_out, device=dev, dtype=dt)
+    kernel_lib.launch("packed_tf", _entry("spatial_down_packed_fwd", dt), dev,
                       xp.data_ptr(), out.data_ptr(), *ptrs, b, *ints)
     return out
 
@@ -999,11 +1095,11 @@ def _up_forward(x4, smap):
     dev = x4.device
     if dev.type == "cpu":
         return spatial_up_packed_plain(x4, smap)
-    _check_cuda("spatial_up_packed", x4)
+    dt = _check_cuda("spatial_up_packed", x4)
     b, c, _, f2 = x4.shape
     ptrs, ints = smap.launch_args(True, c, f2, dev)
-    out = torch.empty(b, smap.t_out, smap.f_out * c, device=dev)
-    kernel_lib.launch("packed_tf", "spatial_up_packed_fwd", dev,
+    out = torch.empty(b, smap.t_out, smap.f_out * c, device=dev, dtype=dt)
+    kernel_lib.launch("packed_tf", _entry("spatial_up_packed_fwd", dt), dev,
                       x4.data_ptr(), out.data_ptr(), *ptrs, b, *ints)
     return out
 
@@ -1045,7 +1141,7 @@ def spatial_down_packed(xp, smap: SpatialMap, c: int):
     if t != smap.t_in or n % c or smap.fs_max >= n // c:
         raise ValueError(f"spatial_down_packed: x {tuple(xp.shape)}, C {c}, "
                          f"map T {smap.t_in}")
-    if _records(xp):
+    if _records("spatial_down_packed", xp):
         return _SpatialDown.apply(xp, smap, c)
     return _down_forward(xp, smap, c)
 
@@ -1056,7 +1152,7 @@ def spatial_up_packed(x4, smap: SpatialMap):
     if t2 != smap.t_in or smap.fs_max >= f2:
         raise ValueError(f"spatial_up_packed: x {tuple(x4.shape)}, map T "
                          f"{smap.t_in}")
-    if _records(x4):
+    if _records("spatial_up_packed", x4):
         return _SpatialUp.apply(x4, smap)
     return _up_forward(x4, smap)
 

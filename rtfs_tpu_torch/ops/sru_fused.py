@@ -433,12 +433,17 @@ def k2_fwd_smem(hdim: int, cols: int, units: int | None = None,
                 + 2 * rows * (cols + 4))
 
 
-def k2_fwd_stream_smem(cols: int, units: int) -> int:
+def k2_fwd_stream_smem(cols: int, units: int, elem: int = 4) -> int:
     """The streamed K2 forward's dynamic shared memory in bytes
     (``hid_fwd_stream_smem_floats``): one U slot and the ring of
     FWD_STAGES stages, each FWD_K rows of X's chunk and those columns of
-    W_d's rows of the block's units. It does not depend on H."""
+    W_d's rows of the block's units. It does not depend on H. ``elem`` 2
+    (bf16, ``hid_fwd_bf16_stream_smem_bytes``): X and W_d in bf16, W_d's
+    rows of FWD_K + 8; U stays float32."""
     rows = _round_up(3 * units, 8 * FWD_NB)
+    if elem == 2:
+        return (4 * rows * (cols + 4)
+                + 2 * FWD_STAGES * (FWD_K * (cols + 8) + rows * (FWD_K + 8)))
     return 4 * (rows * (cols + 4)
                 + FWD_STAGES * (FWD_K * (cols + 8) + rows * (FWD_K + 4)))
 
@@ -475,23 +480,19 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     memory exceeds a block's.
 
     ``elem`` 2 (bf16, ``sru_hidden_layer_fwd_bf16``): the same choices on
-    the bf16 kernel's shared memory (``k2_fwd_smem(..., elem=2)``), which
-    holds W_d's rows of 8 units beside X's two slots up to H 536; there is
-    no streamed bf16 kernel, so a larger H raises NotImplementedError.
-    ``vec``: the values a copy of X (``k2_bf16_vec`` in bf16; 4 or 1 in
-    float32)."""
+    the bf16 kernel's shared memory (``k2_fwd_smem(..., elem=2)``, which
+    holds W_d's rows of 8 units beside X's two slots up to H 536, and
+    ``k2_fwd_stream_smem(..., elem=2)`` above, where the bf16 kernel
+    streams). ``vec``: the values a copy of X (``k2_bf16_vec`` in bf16; 4
+    or 1 in float32)."""
     if min(t_len, hdim, bsz) < 1 or elem not in (2, 4):
         raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}, "
                          f"element size {elem}")
     limit = kernel_lib.SMEM_PER_BLOCK
     stream = k2_fwd_smem(hdim, 32, 8, elem) > limit
-    if stream and elem == 2:
-        raise NotImplementedError(
-            f"sru_hidden_layer: bf16 at H {hdim} needs the streamed "
-            "reduction, which has no bf16 kernel (H <= 536 in bf16)")
 
     def smem(cols, units):
-        return (k2_fwd_stream_smem(cols, units) if stream
+        return (k2_fwd_stream_smem(cols, units, elem) if stream
                 else k2_fwd_smem(hdim, cols, units, elem))
 
     for slices in range(1, hdim + 1):

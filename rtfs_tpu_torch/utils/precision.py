@@ -20,7 +20,8 @@ parameters promote (``rtfs_tpu/models/avnet.py:711-784``):
 
 ``build_avnet`` applies ``cast_params`` when a config's
 ``audionet.compute_dtype`` is ``"bfloat16"``; the port's kernels K1-K3
-then run their bf16 entries. bf16 is for serving only.
+(and K5-K9 in the packed layout) then run their bf16 entries. bf16 is for
+serving only.
 """
 
 from __future__ import annotations

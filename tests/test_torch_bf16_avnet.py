@@ -299,10 +299,10 @@ def test_bf16_norms_take_float32_statistics(norm):
 
 
 def test_bf16_refusals():
-    """bf16 serves the standard layout only: packed_tf (K5-K9), an SRU off
-    the fused stack (K4) and batch_fold raise at build; packed_tf set on a
-    built bf16 model raises at the forward; the train entry raises before
-    it writes anything."""
+    """An SRU off the fused stack (K4) and batch_fold raise at build, and so
+    does float16; packed_tf, with K5-K9's bf16 entries, builds and serves,
+    whether set in the config or on a built bf16 model; the train entry
+    raises before it writes anything."""
     from rtfs_tpu_torch.train import main as train_main
     from rtfs_tpu_torch.train.system import AVSystem
 
@@ -311,8 +311,7 @@ def test_bf16_refusals():
     uni = json.loads(json.dumps(conf))
     for layer in ("layer_1", "layer_2"):
         uni["audionet"]["audio_params"]["layers"][layer]["bidirectional"] = False
-    for bad in (dict(conf, audionet=dict(a, packed_tf=True)), uni,
-                dict(conf, audionet=dict(a, batch_fold=2))):
+    for bad in (uni, dict(conf, audionet=dict(a, batch_fold=2))):
         with pytest.raises(NotImplementedError):
             build_avnet(bad, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -325,8 +324,15 @@ def test_bf16_refusals():
     with pytest.raises(NotImplementedError):
         AVSystem(model)
     model.packed_tf = True
-    with pytest.raises(NotImplementedError), torch.no_grad():
-        model(torch.zeros(1, 3968), torch.zeros(1, 8, 512))
+    packed = build_avnet(dict(small, audionet=dict(small["audionet"],
+                                                   packed_tf=True)),
+                         device="cpu")
+    assert packed.packed_tf
+    for m in (model, packed):
+        with torch.no_grad():
+            out = m(torch.full((1, 3968), 0.1), torch.zeros(1, 8, 512))
+        assert out.dtype == torch.float32 and out.shape == (1, 1, 3968)
+        assert torch.isfinite(out).all()
     with pytest.raises(NotImplementedError):
         train_main.build_system(small, "cpu")
     with pytest.raises(NotImplementedError):
@@ -334,11 +340,12 @@ def test_bf16_refusals():
                                          "exp_name": "x"}), "cpu")
 
 
-def test_bf16_bundle_serves_through_the_inference_entry(tmp_path):
-    """A run whose conf.json says bfloat16 and whose best_model.pt holds
-    float32 weights: the serving entry builds the bf16 model, rounds the
-    weights once at load, and gives what the same model gives by hand;
-    waveforms in and out are float32."""
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_bundle_serves_through_the_inference_entry(tmp_path, packed):
+    """A run whose conf.json says bfloat16 (and packed_tf, in the packed
+    case) and whose best_model.pt holds float32 weights: the serving entry
+    builds the bf16 model, rounds the weights once at load, and gives what
+    the same model gives by hand; waveforms in and out are float32."""
     conf = load_config(PRESET)
     conf["audionet"]["audio_params"]["repeats"] = 1
     conf["audionet"]["video_params"]["repeats"] = 1
@@ -347,6 +354,7 @@ def test_bf16_bundle_serves_through_the_inference_entry(tmp_path):
     export_model(str(tmp_path / "best_model.pt"), conf["audionet"],
                  model32.state_dict(), video.state_dict())
     conf16 = _bf16_conf(conf)
+    conf16["audionet"]["packed_tf"] = packed
     with open(tmp_path / "conf.json", "w") as f:
         json.dump(conf16, f)
     rng = np.random.default_rng(5)
@@ -361,6 +369,7 @@ def test_bf16_bundle_serves_through_the_inference_entry(tmp_path):
     model16 = build_avnet(conf16, device="cpu")
     model16.load_state_dict(model32.state_dict())
     assert next(model16.parameters()).dtype == torch.bfloat16
+    assert model16.packed_tf == packed
     mouth = preprocess_mouth(frames, train=False)
     with torch.inference_mode():
         emb = video(torch.from_numpy(mouth[None]))[0]

@@ -14,21 +14,29 @@ the kernels do:
   ring of LAY0_AHEAD steps with copies landing at issue or at the wait;
 - K2: its blocks, shared memory, copy widths and X chunk copies, its
   m16n8k16 fragments (each register the two values the tensor core takes
-  there) and their banks, and the bf16 limit (H 536);
+  there) and their banks, and the held kernel's limit (H 536), above
+  which it streams;
 - K3: its channel split (slices of 16, float32 partials summed in order
   and rounded once), its shared memory, the x ring's swizzle, and its
-  fragments and banks.
+  fragments and banks;
+- K6 and K7's bf16 kernels (``csrc/packed_tf.cu`` ``pw_proj_bf16_kernel``,
+  ``pw_unproj_bf16_kernel``): their constants and grid, each fragment
+  register read where the kernels read it from the staged tiles, a
+  block's tile as its warps form it, and the output tile's room.
 
 A hypothesis property runs them at every width 8-160 the float32
 geometry tests take. ~5 s alone.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from rtfs_tpu_torch.ops import convt_tm, kernel_lib, sru_fused
+from rtfs_tpu_torch.ops import convt_tm, kernel_lib, packed_tf, sru_fused
 
 # (T, B) of the scans at bs 1-8: frequency rows 125 B, time rows 64 B
 SCAN_SITES = [(3, 125 * b) for b in range(1, 9)] + [(3, 64 * b)
@@ -202,15 +210,33 @@ def test_k2_bf16_fragments_and_banks():
         assert len(a_words) == 16 and len(set(b_words)) == 32
 
 
-def test_k2_bf16_limit():
-    """No streamed bf16 kernel: H up to 536 holds 8 units' rows beside X's
-    two slots; above, the wrapper's geometry raises NotImplementedError
-    (never a float32 or plain fallback)."""
-    assert sru_fused.k2_fwd_smem(536, 32, 8, 2) <= kernel_lib.SMEM_PER_BLOCK
-    assert sru_fused.k2_fwd_smem(537, 32, 8, 2) > kernel_lib.SMEM_PER_BLOCK
-    assert not sru_fused.k2_fwd_geometry(3, 536, 8, 2)["stream"]
-    with pytest.raises(NotImplementedError):
-        sru_fused.k2_fwd_geometry(3, 537, 8, 2)
+@pytest.mark.parametrize("bsz", [1, 8, 33, 125])
+def test_k2_bf16_limit(bsz):
+    """H up to 536 holds 8 units' rows beside X's two slots (the held bf16
+    kernel); above, the bf16 kernel streams its reduction: every H up to
+    1024 gets a geometry whose streamed shared memory (one float32 U slot
+    and a ring of FWD_STAGES bf16 stages, ``hid_fwd_bf16_stream_smem_bytes``)
+    fits a block, the held one's does not (so the C entry streams exactly
+    there), its stages are whole k16 steps, and the scan threads fit the
+    block."""
+    limit = kernel_lib.SMEM_PER_BLOCK
+    assert sru_fused.k2_fwd_smem(536, 32, 8, 2) <= limit
+    assert sru_fused.k2_fwd_smem(537, 32, 8, 2) > limit
+    assert not sru_fused.k2_fwd_geometry(3, 536, bsz, 2)["stream"]
+    assert sru_fused.FWD_K % 16 == 0 and sru_fused.FWD_K // 2 <= 32
+    for h in (537, 600, 777, 1024):
+        geo = sru_fused.k2_fwd_geometry(3, h, bsz, 2)
+        units, cols = geo["units"], geo["cols"]
+        assert geo["stream"] and geo["kslices"] == -(-2 * h // sru_fused.FWD_K)
+        assert geo["smem"] == sru_fused.k2_fwd_stream_smem(cols, units, 2)
+        assert geo["smem"] <= limit
+        assert sru_fused.k2_fwd_smem(h, cols, units, 2) > limit
+        assert units * geo["bt"] <= sru_fused.FWD_THREADS
+        assert geo["slices"] * units >= h > (geo["slices"] - 1) * units
+        rows = -(-3 * units // (8 * sru_fused.FWD_NB)) * 8 * sru_fused.FWD_NB
+        assert geo["smem"] == (4 * rows * (cols + 4) + 2 * sru_fused.FWD_STAGES
+                               * (sru_fused.FWD_K * (cols + 8)
+                                  + rows * (sru_fused.FWD_K + 8)))
 
 
 # ----------------------------------------------------------------- K3
@@ -299,3 +325,115 @@ def test_k3_bf16_ring_and_fragments():
                 words.add(ra // 2 % 32)
         assert len(words) == 32
     assert fc == 16
+
+
+# ---------------------------------------------------------- K6 / K7 bf16
+
+
+def _packed_source():
+    with open(os.path.join(kernel_lib.CSRC_DIR, "packed_tf.cu")) as f:
+        src = f.read()
+    return src, {k: int(v) for k, v in
+                 re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_k6_k7_bf16_constants_and_grid_match_the_source():
+    src, consts = _packed_source()
+    assert (consts["kP16M"], consts["kP16N"], consts["kP16K"],
+            consts["kP16Threads"]) == (packed_tf.PROJ16_M, packed_tf.PROJ16_N,
+                                       packed_tf.PROJ16_K,
+                                       packed_tf.PROJ16_THREADS)
+    assert "constexpr int kP16XS = kP16M + 8;" in src
+    assert "constexpr int kP16KS = kP16K + 8;" in src
+    # 4 x 2 warps of 32 x 32
+    assert packed_tf.PROJ16_THREADS // 32 == (packed_tf.PROJ16_M // 32) * (
+        packed_tf.PROJ16_N // 32)
+    geo = packed_tf.pw_proj16_geometry(8, 251 * 129, 256, 64)
+    assert geo["grid"] == (-(-251 * 129 // 128), 1, 8) and geo["stages"] == 8
+    assert packed_tf.pw_proj16_geometry(1, 32379, 64, 256)["grid"] == (
+        253, 4, 1)
+    with pytest.raises(ValueError):
+        packed_tf.pw_proj16_geometry(70000, 10, 8, 8)
+    with pytest.raises(ValueError):
+        packed_tf.pw_proj16_geometry(1, 0, 8, 8)
+
+
+def _p16_tile(a_at, w_at, k_depth):
+    """The (128, 64) sums of one block as its 8 warps form them: warp w
+    owns positions 32 (w % 4) .. and channels 32 (w / 4) .., m16n8k16
+    fragments (``_mma_a`` / ``_mma_b``) over kP16K stages of two k16
+    steps; a_at(m, k) and w_at(k, n) as the stage holds them (zero past
+    the ends). Returns the float64 sums at the (m, n) each lane's c0-c3
+    name (c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1))."""
+    out = np.full((128, 64), np.nan)
+    for w in range(8):
+        wm, wn = (w & 3) * 32, (w >> 2) * 32
+        for mt in range(2):
+            for nb in range(4):
+                acc = np.zeros((32, 4))
+                for k0 in range(0, -(-k_depth // 32) * 32, 16):
+                    for lane in range(32):
+                        g, q = lane >> 2, lane & 3
+                        for v in range(4):  # D element v of the lane
+                            m = wm + 16 * mt + g + 8 * (v >> 1)
+                            n = wn + 8 * nb + 2 * q + (v & 1)
+                            acc[lane, v] += sum(
+                                a_at(m, k0 + k) * w_at(k0 + k, n)
+                                for k in range(16))
+                for lane in range(32):
+                    g, q = lane >> 2, lane & 3
+                    for v in range(4):
+                        m = wm + 16 * mt + g + 8 * (v >> 1)
+                        n = wn + 8 * nb + 2 * q + (v & 1)
+                        assert np.isnan(out[m, n])  # each output once
+                        out[m, n] = acc[lane, v]
+    return out
+
+
+def test_k6_k7_bf16_fragments_read_the_staged_tiles():
+    """K6's x stage ([k][m], rows of kP16XS) and K7's ([m][k], rows of
+    kP16KS), W's ([n][k]): each register of the m16n8k16 fragments, read
+    where the kernels read it, holds the A and B element the tensor core
+    takes there (``_mma_a`` / ``_mma_b``), and a block's tile is the
+    product; the 8 g x 4 q lanes of each 4-byte read hit distinct banks
+    or share a word."""
+    xs, ks = packed_tf.PROJ16_M + 8, packed_tf.PROJ16_K + 8
+    rng = np.random.default_rng(3)
+    k_depth = 40  # a ragged last stage
+    x = rng.standard_normal((128, 64))  # (m, k), zero past k_depth
+    x[:, k_depth:] = 0
+    w = rng.standard_normal((64, 64))   # (k, n)
+    w[k_depth:] = 0
+    for g in range(8):
+        for q in range(4):
+            for r in range(4):
+                for h in range(2):
+                    m, k = _mma_a(g, q, r, h)
+                    # K6: pack(p[0], p[xs]) etc. at xs-row 2q (+8) + h
+                    k6 = (2 * q + 8 * (r >> 1) + h, g + 8 * (r & 1))
+                    assert k6 == (k, m)
+                    # K7: a 4-byte read at row g (+8), k 2q (+8), half h
+                    k7 = (g + 8 * (r & 1), 2 * q + 8 * (r >> 1) + h)
+                    assert k7 == (m, k)
+            for r in range(2):
+                for h in range(2):
+                    assert _mma_b(g, q, r, h) == (2 * q + 8 * r + h, g)
+    # banks of the 4-byte reads: K7's A and both kernels' B rows of
+    # kP16KS bf16 (20 words), K6's A halves rows 2q apart of kP16XS
+    for rows in (ks,):
+        words = {(g * rows + 2 * q) // 2 % 32 for g in range(8)
+                 for q in range(4)}
+        assert len(words) == 32
+    k6_words = {((2 * q) * xs + g) // 2 for g in range(8) for q in range(4)}
+    assert len({wd % 32 for wd in k6_words}) == len(k6_words)
+    tile = _p16_tile(lambda m, k: x[m, k], lambda k, n: w[k, n], k_depth)
+    np.testing.assert_allclose(tile, x @ w, rtol=1e-12, atol=1e-12)
+
+
+def test_k7_bf16_output_tile_fits_the_stages():
+    """K7 stages its (64, 136) bf16 output tile in the two stages' shared
+    memory, which the last barrier has freed."""
+    stages = 2 * (packed_tf.PROJ16_M + packed_tf.PROJ16_N) * (
+        packed_tf.PROJ16_K + 8)
+    assert packed_tf.PROJ16_N * (packed_tf.PROJ16_M + 8) <= stages
+    assert 2 * stages <= 48 * 1024  # static shared memory

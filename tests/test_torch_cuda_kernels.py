@@ -978,3 +978,155 @@ def test_bf16_dual_path_rnn_card_matches_cpu(dev):
     assert got.dtype == torch.bfloat16
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+# K2 forward in bf16 above H 536, where W_d's rows of 8 units and X's two
+# slots do not fit one block: the streamed bf16 kernel, with B a multiple
+# of 8 (16-byte copies of X), B 33 (odd: plain loads) and T a multiple of
+# no chunk
+@pytest.mark.parametrize("t_len,h,bsz", [(5, 600, 20), (9, 600, 33),
+                                          (3, 1024, 8), (37, 537, 16)])
+def test_bf16_k2_streams_a_wide_h(dev, t_len, h, bsz):
+    """The streamed bf16 K2 forward against its plain bf16 version and the
+    float32 kernel on the widened values (two bf16 ulps), serving and with
+    c; two calls give the same bits; one bf16 launch each."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    assert S.k2_fwd_geometry(t_len, h, bsz, 2)["stream"]
+    rng = np.random.default_rng(14)
+    vb = _b(rng, (8, h), dev, 0.3)
+    x_f, x_r = (_b(rng, (t_len, h, bsz), dev, 0.5) for _ in range(2))
+    wt = _b(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
+    kernel_lib.reset_launches()
+    got = S.sru_hidden_layer(x_f, x_r, wt, vb)
+    assert dict(kernel_lib.LAUNCHES) == {"sru_hidden_layer_fwd_bf16": 1}
+    for g, w in zip(got, S.sru_hidden_layer_plain(x_f, x_r, wt, vb)):
+        _bf16_close(g, w, "K2 streamed plain")
+    wide = S.sru_hidden_layer(x_f.float(), x_r.float(), wt.float(), vb.float())
+    for g, w in zip(got, wide):
+        _bf16_close(g, w.to(torch.bfloat16), "K2 streamed float32")
+    with_c = S._k2_forward(x_f, x_r, wt, vb, with_c=True)
+    for g, w in zip(with_c, S.sru_hidden_layer_plain(x_f, x_r, wt, vb, True)):
+        _bf16_close(g, w, "K2 streamed plain, c")
+    for a, b in zip(got, S.sru_hidden_layer(x_f, x_r, wt, vb)):
+        assert torch.equal(a, b)
+
+
+# K5-K9 forward in bf16 storage: the packed serving shapes at bs 1 and 8
+# (STFT 251 x 129, hid 64, bottleneck 256, pooled 125 x 64; M = 32379 is
+# odd, so every other channel row of K6's x and K7's out starts on a
+# 2-byte boundary), a ragged shape (C 6: scalar chunks; F 7), C 37 and an
+# input 2 bytes off alignment; (B, T, F, C, Cb, offset in values)
+PACKED16_SHAPES = {"bs1": (1, 251, 129, 64, 256, 0),
+                   "bs8": (8, 251, 129, 64, 256, 0),
+                   "ragged": (3, 13, 7, 6, 20, 0),
+                   "odd-c": (1, 21, 18, 37, 70, 0),
+                   "off": (2, 17, 10, 64, 40, 1)}
+
+
+@pytest.mark.parametrize("shape", sorted(PACKED16_SHAPES))
+def test_bf16_packed_kernels_match_plain(dev, shape):
+    """K5 (both pads), K6, K7, K8 (pool and select) and K9 (nearest) in
+    bf16 storage against their plain bf16 versions and the float32 kernels
+    on the widened values, two bf16 ulps at every element; two calls give
+    the same bits; each launches its bf16 entry once."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, cb, off = PACKED16_SHAPES[shape]
+    rng = np.random.default_rng(15)
+
+    def x(*dims, scale=1.0):
+        flat = _b(rng, (int(np.prod(dims)) + off,), dev, scale)
+        return flat[off:].view(dims)
+
+    same, pre = (1, 2), (1, 1)
+    t2, f2 = (t - 2) // 2 + 1, (f - 2) // 2 + 1
+    pool = P.cached_map("pool", t, t2, f, f2)
+    sel = P.cached_map("select", t - 1, t2, f - 1, f2)
+    up = P.cached_map("nearest", t2, t, f2, f)
+    w_dw = _b(rng, (c, 1, 4, 4), dev, 0.25)[:, 0].permute(1, 2, 0)
+    w_in = _b(rng, (c, cb, 1, 1), dev, cb ** -0.5)[:, :, 0, 0].t()
+    w_out = _b(rng, (cb, c, 1, 1), dev, c ** -0.5)[:, :, 0, 0].t()
+    bias_c, bias_cb = _b(rng, (c,), dev), _b(rng, (cb,), dev)
+    xp = x(b, t, f * c)
+    cases = {  # entry: (op, plain, args)
+        "dw_conv_packed_fwd_bf16 same": (
+            P.dw_conv_packed, P.dw_conv_packed_plain,
+            (xp, w_dw, bias_c, f, c, same, same)),
+        "dw_conv_packed_fwd_bf16 pre": (
+            P.dw_conv_packed, P.dw_conv_packed_plain,
+            (xp, w_dw, None, f, c, pre, pre)),
+        "pw_proj_packed_fwd_bf16": (
+            P.pw_proj_packed, P.pw_proj_packed_plain,
+            (x(b, cb, t, f), w_in, bias_c)),
+        "pw_unproj_packed_fwd_bf16": (
+            P.pw_unproj_packed, P.pw_unproj_packed_plain,
+            (xp, w_out, bias_cb, f)),
+        "spatial_down_packed_fwd_bf16 pool": (
+            P.spatial_down_packed, P.spatial_down_packed_plain,
+            (xp, pool, c)),
+        "spatial_down_packed_fwd_bf16 select": (
+            P.spatial_down_packed, P.spatial_down_packed_plain,
+            (x(b, t - 1, (f - 1) * c), sel, c)),
+        "spatial_up_packed_fwd_bf16": (
+            P.spatial_up_packed, P.spatial_up_packed_plain,
+            (x(b, c, t2, f2), up)),
+    }
+    for name, (op, plain, args) in cases.items():
+        kernel_lib.reset_launches()
+        got = op(*args)
+        assert dict(kernel_lib.LAUNCHES) == {name.split()[0]: 1}, name
+        _bf16_close(got, plain(*args), f"{name} plain")
+        wide = tuple(a.float() if torch.is_tensor(a) else a for a in args)
+        _bf16_close(got, op(*wide).to(torch.bfloat16), f"{name} float32")
+        assert torch.equal(got, op(*args)), name
+
+
+def test_bf16_packed_refuses_mixed_dtypes_and_gradients(dev):
+    """A bf16 packed op with a float32 weight or bias raises (nothing is
+    cast to reach the float32 kernel); one that autograd would record
+    raises NotImplementedError (no bf16 backward)."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    rng = np.random.default_rng(16)
+    xp = _b(rng, (1, 9, 5 * 8), dev)
+    w = _b(rng, (8, 1, 4, 4), dev)[:, 0].permute(1, 2, 0)
+    with pytest.raises(TypeError):
+        P.dw_conv_packed(xp, w.float(), None, 5, 8, (1, 2), (1, 2))
+    with pytest.raises(TypeError):
+        P.pw_unproj_packed(xp, _b(rng, (8, 16), dev),
+                           _t(rng, (16,), dev), 5)
+    with pytest.raises(NotImplementedError):
+        P.dw_conv_packed(xp.requires_grad_(), w, None, 5, 8, (1, 2), (1, 2))
+    with pytest.raises(NotImplementedError):
+        P.spatial_up_packed(_b(rng, (1, 8, 4, 3), dev).requires_grad_(),
+                            P.cached_map("nearest", 4, 9, 3, 5))
+
+
+def test_bf16_packed_tdanet_block_card_matches_cpu(dev):
+    """A packed TDANet block in bf16 on the card (K5-K9's bf16 entries)
+    against the same block on the CPU (the plain bf16 versions): the
+    launches are the bf16 entries only, the outputs bf16 and close."""
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.separators import TDANetBlock
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    m = TDANetBlock(16, 8, kernel_size=4, upsampling_depth=2, is2d=True)
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.eval().to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 16, 21, 17)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad(), P.packed_scope(True):
+        want = m(x)
+        kernel_lib.reset_launches()
+        got = m.to(dev)(x.to(dev)).cpu()
+    assert kernel_lib.LAUNCHES == {
+        "dw_conv_packed_fwd_bf16": 4, "pw_proj_packed_fwd_bf16": 1,
+        "pw_unproj_packed_fwd_bf16": 1, "spatial_down_packed_fwd_bf16": 2,
+        "spatial_up_packed_fwd_bf16": 4}
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err

@@ -444,8 +444,9 @@ def test_constants_and_entries_match_the_source():
         == (P.DW_QUADS, P.DW_THREADS, P.DW_AHEAD)
     assert "__launch_bounds__(kDwThreads, 2)" in src
     assert P.DW_BLOCKS_PER_SM == 2
-    assert "dw_conv_packed_kernel<4, 4>" in src and \
-        "dw_conv_packed_kernel<0, 0>" in src
+    # the taps as template arguments, for float32 and bf16 storage
+    assert "dw_conv_packed_kernel<4, 4, E>" in src and \
+        "dw_conv_packed_kernel<0, 0, E>" in src
     assert re.search(r"constexpr int kUnprojXS = kProjK \+ 4;", src)
     assert re.search(r"constexpr int kUnprojOS = kUnprojM \+ 4;", src)
     assert re.search(r"constexpr int kUnprojThreads = kUnprojM / 16 \* 2 "
@@ -459,11 +460,14 @@ def test_constants_and_entries_match_the_source():
     k7 = src.split('extern "C" int pw_unproj_packed_fwd')[1]
     assert "for (int k0 = 0; k0 < K; k0 += kProjSlice)" in k7
     assert "k0 == 0 ? (const float*)bias : nullptr" in k7
-    for name in ("dw_conv_packed_fwd", "pw_unproj_packed_fwd"):
+    for name in ("dw_conv_packed_fwd", "pw_unproj_packed_fwd",
+                 "dw_conv_packed_fwd_bf16", "pw_proj_packed_fwd_bf16",
+                 "pw_unproj_packed_fwd_bf16", "spatial_down_packed_fwd_bf16",
+                 "spatial_up_packed_fwd_bf16"):
         assert _entry_counts(src, name) == \
             kernel_lib._SIGNATURES["packed_tf"][name]
     # no division in K5's loops: the ring's slots go round by counters
-    body = src.split("dw_conv_packed_kernel(const float*")[1].split(
+    body = src.split("dw_conv_packed_kernel(const E*")[1].split(
         "hk::cp_async_wait_all();")[0]
     loops = re.findall(r"for \((.*?)\)", body)
     assert loops and not any("/" in lp or "%" in lp for lp in loops)

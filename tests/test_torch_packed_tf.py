@@ -375,11 +375,16 @@ def test_chip_smoke_packed_launches_match_a_forward(packed_pair, monkeypatch):
 
 
 def test_build_avnet_still_refuses_batch_fold_and_bf16():
-    """batch_fold is not ported; bf16 serves the standard layout only, so
-    bf16 with packed_tf (K5-K9 take float32) still raises."""
+    """batch_fold is not ported and still raises, packed or not; bf16 with
+    packed_tf, refused while K5-K9 took float32 only, now builds the packed
+    bf16 model (K5-K9's bf16 entries), its parameters bf16."""
     conf = load_config(PRESET)
-    for extra in ({"batch_fold": 2},
-                  {"compute_dtype": "bfloat16", "packed_tf": True}):
+    for extra in ({"batch_fold": 2}, {"batch_fold": 2, "packed_tf": True}):
         bad = dict(conf, audionet=dict(conf["audionet"], **extra))
         with pytest.raises(NotImplementedError):
             build_avnet(bad, device="cpu")
+    both = dict(conf, audionet=dict(conf["audionet"], packed_tf=True,
+                                    compute_dtype="bfloat16"))
+    model = build_avnet(both, device="cpu")
+    assert model.packed_tf and model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
