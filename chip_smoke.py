@@ -192,8 +192,36 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    cuDNN's convolutions and ATen's depthwise ones); (c) the serving entry
    on a bundle whose ``conf.json`` says ``packed_tf`` and ``bfloat16``,
    launching the bf16 entries only, against the float32 entry by SI-SNR.
+14. bf16 training (after phase 13): the train system on the bf16 model,
+   the JAX bench's ``train_bf16`` row (bf16 parameters and AdamW moments,
+   no float32 master copy), K1/K2/K3 forward and backward through their
+   bf16-storage entries. (a) K1, K2 and K3 backward at each site of a
+   bs-4 and a bs-1 step (B 125, odd, at the bs-1 freq site), each against
+   its plain bf16 version on the card (two bf16 ulps, the floor relative
+   to the gradient's largest value; K2's dx bounded by its three
+   roundings) and the float32 backward kernel on the widened values (flat
+   cosine above 0.999), twice (bit-identical), timed with CUDA events and
+   the profiler's device time a call beside its bound (K1 bf16 bytes; K2
+   the larger of its bytes and its dx and dW products in 2xTF32 with its U
+   in bf16 on the tensor cores, its gates in float32; K3 bytes and bf16
+   products), the plain version, the float32 kernel and, for K3,
+   ``convolution_backward`` of a bf16 ``conv_transpose1d``; K1's and
+   K2's bf16 forwards' c outputs held against the plain bf16 c first;
+   (b) a bs-1 bf16 step at dropout 0 on the card against the same step
+   on the CPU and against the card's float32 step of the same rounded
+   weights: loss within 2e-2, gradients by flat cosine above 0.99 and
+   relative L2 below 0.15, the BatchNorm statistics float32 after it;
+   (c) 6 bf16 steps at bs 4 in turns with 6 float32 steps, each exactly
+   its dtype's entries (``BF16_TRAIN_LAUNCHES``: no float32 entry in a
+   bf16 step), the losses finite, the medians, each dtype's peak memory
+   and one profiled step of each; (d) the train entry with
+   ``--audionet.compute_dtype bfloat16`` on the synthetic set, one epoch
+   then a resume to two (bf16 entries only; a checkpoint of bf16
+   parameters and moments and float32 statistics), its ``best_model.pt``
+   served by the serving entry from the run's ``conf.json`` with exactly
+   ``BF16_LAUNCHES``.
 
-The last lines are the ``kernels`` JSON object (23 kernels), the card
+The last lines are the ``kernels`` JSON object (26 kernels), the card
 line, and ``{"ok": true, "device": {...}}``. TF32 is switched off for
 cuDNN and matmuls before any comparison, so every float32 product is full
 float32.
@@ -3403,6 +3431,475 @@ def packed_bf16_entries(conf, rng) -> dict:
     return launches["conf_p16.json"]
 
 
+# ---------------------------------------------------------------- phase 14
+# bf16 training (``compute_dtype: "bfloat16"`` in the train system, the
+# JAX bench's ``train_bf16`` row): K1/K2/K3 forward and backward through
+# their bf16 entries, each as often a step as the float32 ones, and no
+# float32 entry
+BF16_TRAIN_LAUNCHES = {f"{k}_bf16": v for k, v in TRAIN_LAUNCHES.items()}
+# the bf16 backward kernels' gate against the float32 kernel on the same
+# values widened (flat cosine), and the bf16 step's against another step:
+# the loss relative, the gradients as one flat vector by cosine and
+# relative L2 (JAX's own bf16 gradient gate, tests/test_sru_fused.py)
+BF16_BWD_COS = 0.999
+BF16_STEP_LOSS_REL = 2e-2
+BF16_STEP_COS = 0.99
+BF16_STEP_REL_L2 = 0.15
+
+
+def bf16_grad_ulps(got, want, scale=None) -> tuple:
+    """(ok, worst ratio, elements that differ): |got - want| <= 2^-7
+    max(|want|, scale, 2^-6 max|want|), two bf16 ulps with the floor
+    taken relative to the tensor's largest value (a gradient's scale is
+    its own). ``scale``: where want is a rounded sum of rounded terms (K2's
+    dx, the two directions' dx rounded apart, then added in bf16), the sum
+    of the terms' and the result's magnitudes at each element: float32
+    sums in another order can move each of the three roundings by one ulp,
+    at most 2^-7 of its value."""
+    g, w = got.float(), want.float()
+    floor = 2.0 ** -6 * max(w.abs().max().item(), 1e-30)
+    mag = w.abs() if scale is None else torch.maximum(w.abs(), scale)
+    bound = 2.0 ** -7 * torch.clamp(mag, min=floor)
+    ratio = ((g - w).abs() / bound).max().item()
+    return ratio <= 1.0, ratio, int((g != w).sum().item())
+
+
+def flat_cos_rel(got, want) -> tuple:
+    """(cosine, relative L2) of two lists of tensors as one flat vector
+    each, in float64."""
+    a = torch.cat([t.reshape(-1).double().cpu() for t in got])
+    b = torch.cat([t.reshape(-1).double().cpu() for t in want])
+    cos = (a @ b / (a.norm() * b.norm()).clamp(min=1e-300)).item()
+    return cos, ((a - b).norm() / b.norm().clamp(min=1e-300)).item()
+
+
+def _device_ms_a_call(fn, iters: int = 20) -> float:
+    """The profiler's device milliseconds per call of ``fn``: every device
+    kernel it launches, summed, over ``iters`` calls; nan (not measured)
+    when the profiler saw no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = device_kernels(prof)
+    if not kernels:
+        print("profiler: saw no device kernel; device time not measured")
+        return math.nan
+    return sum(dev_us(e) for e in kernels) / 1e3 / iters
+
+
+def check_bf16_backward_kernels(geo, rng) -> dict:
+    """Phase 14 (a): K1, K2 and K3 backward in bf16 storage at each site of
+    a bs-4 and a bs-1 train step (B 125 at the bs-1 freq site, odd), each
+    against its plain bf16 version on the card (two bf16 ulps,
+    ``bf16_grad_ulps``) and against the float32 backward kernel on the
+    same values widened (flat cosine above BF16_BWD_COS), called twice
+    (bit-identical), timed with CUDA events and the profiler's device time
+    a call, beside its bound, its plain version, the float32 kernel and,
+    for K3, ``convolution_backward`` of a bf16 ``conv_transpose1d``. K1's
+    and K2's bf16 forwards' c outputs, this backward's residuals, are held
+    against the plain bf16 c at two bf16 ulps first. Returns per kernel
+    the worst error and per-train-step (batch 4) sums."""
+    from rtfs_tpu_torch.ops import convt_tm, sru_fused
+
+    H, C, k = geo["H"], geo["C"], geo["k"]
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).to(bf)
+
+    per_site = {"sru_dual_recurrence_bwd_bf16": REPEATS,
+                "sru_hidden_layer_bwd_bf16": REPEATS * (geo["layers"] - 1),
+                "convt1d_ola_tm_bwd_bf16": REPEATS}
+    res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+               "f32_ms": 0.0, "device_ms": 0.0} for n in per_site}
+    bs1 = {n: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "f32_ms": 0.0}
+           for n in per_site}
+    vb = torch.cat([t((2, 2, H), math.sqrt(1.0 / H)), t((2, 2, H), 0.1)],
+                   dim=1).reshape(8, H)
+    wt = t((6 * H, 2 * H), math.sqrt(1.0 / (2 * H)))
+    w3 = t((k, C, 2 * H), math.sqrt(1.0 / (2 * H * k)))
+    for bs in (TRAIN_BATCH, 1):
+        for site in ("freq", "time"):
+            length, per_item = geo[site]
+            B = bs * per_item
+            tag = f"bs={bs} site={site} L={length} B={B}"
+            u = (t((length, 4 * H, B)), t((length, 4 * H, B)))
+            x = (t((length, H, B), 0.5), t((length, H, B), 0.5))
+            dh = (t((length, H, B), 0.1), t((length, H, B), 0.1))
+            x3, g3 = t((length, 2 * H, B)), t((length + k - 1, C, B), 0.1)
+            with torch.no_grad():
+                f1 = sru_fused._k1_forward(*u, vb, with_c=True)
+                f2 = sru_fused._k2_forward(*x, wt, vb, with_c=True)
+                p1 = sru_fused.sru_dual_recurrence_plain(*u, vb, True)
+                p2 = sru_fused.sru_hidden_layer_plain(*x, wt, vb, True)
+            for name, got, want in (("sru_dual_recurrence", f1, p1),
+                                    ("sru_hidden_layer", f2, p2)):
+                for i in (2, 3):
+                    ok, ratio, n_diff = bf16_ulps(got[i], want[i])
+                    print(f"bf16 training forward {name} {tag}: c "
+                          f"{'fr'[i - 2]} against plain bf16 worst "
+                          f"{ratio:.3f} of 2 ulps ({n_diff} of "
+                          f"{got[i].numel()} differ)")
+                    if not ok:
+                        raise AssertionError(f"{name} bf16 c output beyond "
+                                             "2 bf16 ulps")
+            c1, c2 = f1[2:], f2[2:]
+            cases = {
+                "sru_dual_recurrence_bwd_bf16": (
+                    lambda *a: sru_fused._k1_backward(*a),
+                    sru_fused.sru_dual_recurrence_bwd_plain,
+                    (*u, vb, *c1, *dh),
+                    # u, c, dh read, du written (both directions), bf16
+                    2 * (2 * length * 4 * H * B * 2 + 2 * length * H * B * 2
+                         + 16 * H),
+                    None, None),
+                "sru_hidden_layer_bwd_bf16": (
+                    lambda *a: sru_fused._k2_backward(*a),
+                    sru_fused.sru_hidden_layer_bwd_plain,
+                    (*x, wt, vb, *c2, *dh),
+                    # x, c, dh read, dx written; wt, vb read, dwt, dvb
+                    # written; bf16
+                    2 * (2 * length * H * B * 4 + 2 * (wt.numel()
+                                                        + vb.numel())),
+                    # U, dx and dW: each 2 x 6H x 2H flops a column and
+                    # step; ~30 flops of gates a (step, unit, column,
+                    # direction)
+                    2 * 6 * H * 2 * H * length * B,
+                    2 * length * H * B * 30),
+                "convt1d_ola_tm_bwd_bf16": (
+                    lambda *a: convt_tm._backward(*a),
+                    convt_tm.convt1d_ola_tm_bwd_plain,
+                    (g3, x3, w3),
+                    2 * ((length + k - 1) * C * B + 2 * length * 2 * H * B
+                         + 2 * w3.numel()),
+                    None, None),
+            }
+            for name, (kern, plain, args, nbytes, prod, other) in \
+                    cases.items():
+                wide = tuple(a.float() for a in args)
+                got, again = kern(*args), kern(*args)
+                want, f32 = plain(*args), kern(*wide)
+                torch.cuda.synchronize()
+                if not all(g.dtype == bf and torch.equal(g, a)
+                           for g, a in zip(got, again)):
+                    raise AssertionError(f"{name} {tag}: two calls differ")
+                worst, err = 0.0, 0.0
+                scales = [None] * len(got)
+                if name == "sru_hidden_layer_bwd_bf16":  # dx: two terms
+                    dxa, dxb = (v.to(bf).float().abs() for v in
+                                sru_fused.hidden_bwd_terms(*args)[:2])
+                    scales[:2] = (dxa[:, :H] + dxb[:, :H] + want[0].abs(),
+                                  dxa[:, H:] + dxb[:, H:] + want[1].abs())
+                for i, (g, w) in enumerate(zip(got, want)):
+                    ok, ratio, n_diff = bf16_grad_ulps(g, w, scales[i])
+                    worst = max(worst, ratio)
+                    err = max(err, (g.float() - w.float()).abs().max().item())
+                    print(f"bf16 kernel {name} {tag} output {i}: against "
+                          f"plain bf16 worst {ratio:.3f} of 2 ulps "
+                          f"({n_diff} of {g.numel()} differ)")
+                    if not ok:
+                        raise AssertionError(f"{name} {tag} output {i}: "
+                                             "beyond 2 bf16 ulps")
+                cos, rel = flat_cos_rel(got, f32)
+                print(f"bf16 kernel {name} {tag}: against the float32 "
+                      f"kernel on the widened values cosine {cos:.6f}, "
+                      f"relative L2 {rel:.3e} (gate cosine > {BF16_BWD_COS})")
+                if not cos > BF16_BWD_COS:
+                    raise AssertionError(f"{name} {tag}: far from float32")
+                ms = time_cuda(lambda: kern(*args), 30)
+                f32_ms = time_cuda(lambda: kern(*wide), 30)
+                plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
+                dev_ms = _device_ms_a_call(lambda: kern(*args))
+                lib_ms = None
+                if name == "convt1d_ola_tm_bwd_bf16":
+                    # the library's dx and dW of the same ConvTranspose1d
+                    xl = x3.permute(2, 1, 0).contiguous()
+                    wl = w3.permute(2, 1, 0).contiguous()
+                    gl = g3.permute(2, 1, 0).contiguous()
+                    lib_ms = time_cuda(
+                        lambda: torch.ops.aten.convolution_backward(
+                            gl, xl, wl, None, [1], [0], [1], True, [0], 1,
+                            [True, True, False]), 30)
+                    ops = 4 * length * k * 2 * H * C * B
+                    b_ms, b_by = bf16_bound_ms(nbytes, ops, ops)
+                elif prod is None:  # K1: bytes alone
+                    b_ms, b_by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+                else:  # K2: dx and dW 2xTF32, U bf16, the gates float32
+                    t_ops = max(2 * 2 * prod / TF32_OPS_PER_S
+                                + prod / BF16_OPS_PER_S,
+                                other / F32_OPS_PER_S) * 1e3
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                  else (t_ops, "operations"))
+                print(f"bf16 kernel {name} {tag}: ms={ms:.5f} device ms a "
+                      f"call={dev_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) share "
+                      f"of bound={b_ms / ms:.3f} plain_ms={plain_ms:.5f} "
+                      f"float32 kernel ms={f32_ms:.5f} library_ms="
+                      f"{'none' if lib_ms is None else f'{lib_ms:.5f}'}; two "
+                      "calls bit-identical")
+                n = per_site[name]
+                if bs == 1:
+                    for key, v in (("ms", ms), ("device_ms", dev_ms),
+                                   ("bound_ms", b_ms), ("f32_ms", f32_ms)):
+                        bs1[name][key] += n * v
+                    continue
+                r = res[name]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                               ("bound_ms", b_ms), ("f32_ms", f32_ms),
+                               ("device_ms", dev_ms)):
+                    r[key] += n * v
+                r["bound_by"] = b_by
+                if lib_ms is not None:
+                    r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+    for name, r in res.items():
+        print(f"bf16 kernel {name}: per bs-{TRAIN_BATCH} step ms={r['ms']:.4f}"
+              f" device ms={r['device_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) share of bound="
+              f"{r['bound_ms'] / r['ms']:.3f} plain_ms={r['plain_ms']:.2f} "
+              f"float32 kernel ms={r['f32_ms']:.4f} library_ms="
+              f"{r['library_ms']}; per bs-1 step ms={bs1[name]['ms']:.4f} "
+              f"device ms={bs1[name]['device_ms']:.4f} bound_ms="
+              f"{bs1[name]['bound_ms']:.4f} float32 kernel ms="
+              f"{bs1[name]['f32_ms']:.4f}")
+        del r["f32_ms"], r["device_ms"]
+    return res
+
+
+def _conf_dtype(conf, dtype: str) -> dict:
+    """A copy of ``conf`` whose audio net computes in ``dtype``."""
+    out = json.loads(json.dumps(conf))
+    out["audionet"]["compute_dtype"] = dtype
+    return out
+
+
+def _bf16_step_at(conf, batch, dev, rounded_f32=False) -> tuple:
+    """One train step at dropout 0 of a new system on ``dev``: the bf16
+    model of ``conf`` (seed-0 weights rounded to bf16), or with
+    ``rounded_f32`` the float32 model with those same rounded weights.
+    Returns (loss, the gradients as float64 on the CPU, {BatchNorm
+    statistic: tensor on the CPU, its dtype kept})."""
+    from rtfs_tpu_torch.train.main import build_system
+    from rtfs_tpu_torch.train.system import make_generator
+
+    c = _conf_dtype(_no_dropout(conf),
+                    "float32" if rounded_f32 else "bfloat16")
+    system = build_system(c, dev, seed=0)
+    if rounded_f32:
+        with torch.no_grad():
+            for tensor in (*system.model.parameters(),
+                           *system.model.buffers()):
+                if tensor.is_floating_point():
+                    tensor.copy_(tensor.to(torch.bfloat16))
+    t0 = time.perf_counter()
+    loss = system.train_step(batch, make_generator(0, dev))["train_loss"]
+    loss = loss.item()
+    secs = time.perf_counter() - t0
+    grads = []
+    for n, p in system.model.named_parameters():
+        if p.grad is None:
+            raise AssertionError(f"{n}: no gradient on {dev}")
+        grads.append(p.grad.to("cpu", torch.float64))
+    stats = {n: b.to("cpu") for n, b in system.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    print(f"bf16 training: {dev} {'float32 (rounded weights)' if rounded_f32 else 'bf16'} "
+          f"step at batch 1 (dropout 0) loss={loss:.9f} in {secs:.3f} s")
+    return loss, grads, stats
+
+
+def bf16_train_step(conf) -> None:
+    """Phase 14 (b): a bs-1 bf16 train step on the card against the same
+    step on the CPU port, from the same rounded seed-0 weights with
+    dropout 0, and against the card's float32 step of those weights: the
+    loss within BF16_STEP_LOSS_REL, the gradients as one flat vector by
+    cosine above BF16_STEP_COS and relative L2 below BF16_STEP_REL_L2; the
+    BatchNorm statistics come out float32."""
+    from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
+
+    data = SyntheticAVDataset(n_samples=1, seed=0)
+    batch = data.collate([data[0]])
+    card = _bf16_step_at(conf, batch, "cuda")
+    for label, ref in (("cpu bf16", _bf16_step_at(conf, batch, "cpu")),
+                       ("card float32", _bf16_step_at(conf, batch, "cuda",
+                                                      rounded_f32=True))):
+        rel = abs(card[0] - ref[0]) / abs(ref[0])
+        cos, rel_l2 = flat_cos_rel(card[1], ref[1])
+        print(f"bf16 training: card bf16 against {label}: loss "
+              f"{card[0]:.6f} / {ref[0]:.6f} (rel {rel:.3e}, gate "
+              f"{BF16_STEP_LOSS_REL}); gradients cosine {cos:.6f} (gate > "
+              f"{BF16_STEP_COS}), relative L2 {rel_l2:.4f} (gate < "
+              f"{BF16_STEP_REL_L2})")
+        if not (rel <= BF16_STEP_LOSS_REL and cos > BF16_STEP_COS
+                and rel_l2 < BF16_STEP_REL_L2):
+            raise AssertionError(f"bf16 train step far from {label}")
+    dtypes = {str(b.dtype) for b in card[2].values()}
+    print(f"bf16 training: {len(card[2])} BatchNorm statistics after the "
+          f"step, dtypes {dtypes}")
+    if not card[2] or dtypes != {"torch.float32"}:
+        raise AssertionError(f"BatchNorm statistics after a bf16 step: "
+                             f"{dtypes}")
+
+
+# the device kernels of the bf16 train step whose share phase 14 prints
+BF16_TRAIN_GROUPS = {
+    "K1 bf16 forward": ("sru_lay0_fwd_bf16_kernel",),
+    "K2 bf16 forward": ("sru_hid_fwd_bf16_kernel",),
+    "K3 bf16 forward": ("convt1d_tm_fwd_bf16_kernel",),
+    "K1 bf16 backward": ("sru_scan_bwd_kernel<11>",),
+    "K2 bf16 backward": ("sru_scan_bwd_kernel<12>", "sru_hid_bwd_"),
+    "K3 bf16 backward": ("convt1d_tm_dx_kernel<__nv_bfloat16",
+                         "convt1d_tm_wgrad_kernel<__nv_bfloat16",
+                         "convt1d_tm_sum_bf16_kernel"),
+}
+
+
+def bf16_train(conf) -> dict:
+    """Phase 14 (c): TRAIN_STEPS bf16 train steps at batch 4 in turns with
+    as many float32 steps (two systems from seed 0, the preset's
+    dropout), each step launching exactly its dtype's K1/K2/K3 entries
+    (``BF16_TRAIN_LAUNCHES``: no float32 entry in a bf16 step); the losses
+    finite, the medians of steps 2 on, each dtype's peak device memory,
+    one profiled step of each. Returns the bf16 steps' launches."""
+    from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.train.main import build_system
+    from rtfs_tpu_torch.train.system import make_generator
+
+    data = SyntheticAVDataset(n_samples=TRAIN_BATCH * TRAIN_STEPS, seed=0)
+    batches = list(data.batches(TRAIN_BATCH, seed=0, epoch=0))
+    runs = {"bf16": (build_system(_conf_dtype(conf, "bfloat16"), "cuda", 0),
+                     BF16_TRAIN_LAUNCHES),
+            "float32": (build_system(conf, "cuda", 0), TRAIN_LAUNCHES)}
+    gens = {tag: make_generator(0, "cuda") for tag in runs}
+    times = {tag: [] for tag in runs}
+    losses = {tag: [] for tag in runs}
+    peak = dict.fromkeys(runs, 0)
+    launches = {tag: collections.Counter() for tag in runs}
+    for batch in batches:
+        for tag, (system, expect) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernel_lib.reset_launches()
+            t0 = time.perf_counter()
+            losses[tag].append(system.train_step(batch, gens[tag])
+                               ["train_loss"])
+            torch.cuda.synchronize()
+            times[tag].append(time.perf_counter() - t0)
+            peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
+            if dict(kernel_lib.LAUNCHES) != expect:
+                raise AssertionError(f"bf16 training: a {tag} step launched "
+                                     f"{dict(kernel_lib.LAUNCHES)}, expected "
+                                     f"{expect}")
+            launches[tag].update(kernel_lib.LAUNCHES)
+    for tag, ts in times.items():
+        vals = [v.item() for v in losses[tag]]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"bf16 training: non-finite {tag} loss "
+                                 f"{vals}")
+        print(f"bf16 training: {tag} {len(ts)} steps at batch {TRAIN_BATCH} "
+              f"(in turns), losses {[round(v, 4) for v in vals]}; ms per "
+              f"step of steps 2-{len(ts)} median="
+              f"{statistics.median(ts[1:]) * 1e3:.3f} min="
+              f"{min(ts[1:]) * 1e3:.3f} max={max(ts[1:]) * 1e3:.3f} (first "
+              f"{ts[0] * 1e3:.3f}); peak device memory "
+              f"{peak[tag] / 2**20:.1f} MiB (both systems resident); "
+              f"launches {dict(launches[tag])}")
+    for tag, (system, _) in runs.items():
+        profile_step(system, batches[0], gens[tag], f"bf16 training {tag}",
+                     also=BF16_TRAIN_GROUPS if tag == "bf16"
+                     else MAIN_KERNEL_GROUPS)
+    return dict(launches["bf16"])
+
+
+def bf16_train_entry(conf, rng) -> dict:
+    """Phase 14 (d): the train entry on the synthetic set with
+    ``--audionet.compute_dtype bfloat16`` on the card, one epoch, then two
+    (it resumes from the first's checkpoint), launching only bf16 K1/K2/K3
+    entries; the checkpoint holds bf16 parameters and moments and float32
+    BatchNorm statistics; the exported ``best_model.pt`` served by the
+    serving entry from the run's ``conf.json``, exactly ``BF16_LAUNCHES``.
+    Returns the serving entry's launches."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from rtfs_tpu_torch import inference
+    from rtfs_tpu_torch.data.wav import write_wav
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.train import main as train_main
+    from rtfs_tpu_torch.train.checkpoints import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as root:
+        args = ["--conf-dir", PRESET, "--audionet.compute_dtype", "bfloat16",
+                "--data.synthetic", "true", "--data.synthetic_samples", "8",
+                "--log.path", root]
+        rows = []
+        for epochs in (1, 2):
+            kernel_lib.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rows.append(train_main.cli(args + ["--training.epochs",
+                                                   str(epochs)]))
+            torch.cuda.synchronize()
+            launched = dict(kernel_lib.LAUNCHES)
+            print(f"bf16 train entry: epochs={epochs} "
+                  f"{time.perf_counter() - t0:.3f} s, last row "
+                  f"{rows[-1]}, launches {launched}")
+            if (rows[-1] is None or not math.isfinite(rows[-1]["val_loss"])
+                    or not all(k.endswith("_bf16") for k in launched)):
+                raise AssertionError(f"bf16 train entry: {rows[-1]}, "
+                                     f"{launched}")
+            if epochs == 2 and "resumed from epoch 0" not in out.getvalue():
+                raise AssertionError("bf16 train entry did not resume")
+        exp_dir = os.path.join(root, conf["log"]["exp_name"])
+        state = CheckpointManager(exp_dir).restore()
+        kinds = collections.Counter(
+            (n.rsplit(".", 1)[-1] if "running" in n else "other", str(v.dtype))
+            for n, v in state["model"].items() if v.is_floating_point())
+        mu = {str(m.dtype) for m in state["optimizer"]["mu"]}
+        print(f"bf16 train entry: checkpoint of epoch 1 at step "
+              f"{state['step']}, model tensors by (kind, dtype) "
+              f"{dict(kinds)}, moments {mu}")
+        if (rows[-1]["epoch"] != 1 or mu != {"torch.bfloat16"}
+                or {d for (k, d) in kinds if k == "other"}
+                != {"torch.bfloat16"}
+                or {d for (k, d) in kinds if k != "other"}
+                != {"torch.float32"}):
+            raise AssertionError("bf16 train entry: checkpoint dtypes")
+        write_wav(os.path.join(root, "mix.wav"),
+                  (rng.standard_normal(SAMPLES) * 0.1).astype(np.float32),
+                  16000)
+        np.savez(os.path.join(root, "mouth.npz"), data=rng.integers(
+            0, 256, (VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE), dtype=np.uint8))
+        kernel_lib.reset_launches()
+        t0 = time.perf_counter()
+        est = inference.main([
+            "--conf-dir", os.path.join(exp_dir, "conf.json"),
+            "--wav", os.path.join(root, "mix.wav"),
+            "--mouth", os.path.join(root, "mouth.npz"),
+            "--out-dir", os.path.join(root, "out")])
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)
+    print(f"bf16 train entry: the bundle served in "
+          f"{time.perf_counter() - t0:.3f} s, launches {launches}")
+    if launches != BF16_LAUNCHES:
+        raise AssertionError(f"bf16 bundle served with {launches}, expected "
+                             f"{BF16_LAUNCHES}")
+    if est.shape != (1, SAMPLES) or not np.isfinite(est).all():
+        raise AssertionError(f"bf16 bundle: bad output {est.shape}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3459,6 +3956,11 @@ def main() -> int:
                               conf, rng)
     packed16_entry = phase("13c packed bf16 entries", packed_bf16_entries,
                            conf, rng)
+    bf16_bwd = phase("14a bf16 backward kernels", check_bf16_backward_kernels,
+                     geo, rng)
+    phase("14b bf16 train step", bf16_train_step, conf)
+    bf16_train_launches = phase("14c bf16 training", bf16_train, conf)
+    phase("14d bf16 train entry", bf16_train_entry, conf, rng)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
     phase("9b, 10e K5-wgrad, pw-wgrad, K4 forward device time",
           profile_redesigned, conf, geo, rng)
@@ -3519,6 +4021,15 @@ def main() -> int:
         "convt1d_ola_tm_bf16": ("rtfs_tpu_torch/csrc/convt_tm.cu",
                                 "rtfs_tpu/ops/convt_tm.py:38",
                                 "convt1d_ola_tm_fwd_bf16"),
+        "sru_dual_recurrence_bwd_bf16": ("rtfs_tpu_torch/csrc/sru_scan.cuh",
+                                         "rtfs_tpu/ops/sru_fused.py:159",
+                                         "sru_dual_recurrence_bwd_bf16"),
+        "sru_hidden_layer_bwd_bf16": ("rtfs_tpu_torch/csrc/sru_fused.cu",
+                                      "rtfs_tpu/ops/sru_fused.py:458",
+                                      "sru_hidden_layer_bwd_bf16"),
+        "convt1d_ola_tm_bwd_bf16": ("rtfs_tpu_torch/csrc/convt_tm.cu",
+                                    "rtfs_tpu/ops/convt_tm.py:59",
+                                    "convt1d_ola_tm_bwd_bf16"),
     }
     for name, (fn, _) in PACKED_BF16_KERNELS.items():
         src, rep = sources[name[:-len("_bf16")]][:2]
@@ -3557,6 +4068,9 @@ def main() -> int:
                      **packed16[name], "per_forward_at_batch": 1,
                      "launches_in_packed_bf16_entry":
                          packed16_entry.get(fn, 0)}
+        elif name in bf16_bwd:  # bf16 backward: phase 14's bf16 steps
+            entry = {"launches": bf16_train_launches.get(fn, 0),
+                     **bf16_bwd[name], "per_train_step_at_batch": TRAIN_BATCH}
         else:  # backward: the training run, per train step at bs 4
             entry = {"launches": train_launches.get(fn, 0), **bwd[name],
                      "per_train_step_at_batch": TRAIN_BATCH,

@@ -8,7 +8,11 @@
 //     bounds it: at the preset's 2H 64 and k 8, bf16 halves the bytes, so
 //     ~256 flops a byte, near the card's bf16 ratio of ~295).
 // K3  convt1d_ola_tm_bwd  replaces the Pallas kernel _bwd_kernel
-//     (rtfs_tpu/ops/convt_tm.py, called from _vjp_bwd): its VJP.
+//     (rtfs_tpu/ops/convt_tm.py, called from _vjp_bwd): its VJP;
+//     convt1d_ola_tm_bwd_bf16 the same kernels on bf16 operands (g, x, W
+//     in, dx and dW out bf16; each value widened exactly as it is loaded,
+//     the products and sums float32, dx and dW rounded once, as the
+//     Pallas kernel's float32 dot results and dW scratch are).
 //
 //   out[t, o, b] = sum_{j < k, 0 <= t-j < L} sum_i x[t-j, i, b] * W[j, o, i]
 //   dx[l, i, b]  = sum_{j < k} sum_o W[j, o, i] * g[l+j, o, b]
@@ -84,7 +88,11 @@
 //     thread an 8 x 4 register tile; one partial a chunk, summed in a
 //     fixed order (convt1d_tm_sum_kernel): no float atomics, so two calls
 //     give the same bits.
-// The backward's products run in full float32 on the SIMT units.
+// The backward's products run in full float32 on the SIMT units. In bf16
+// storage the same kernels widen each bf16 value as it is loaded (so the
+// shared tiles and their sizes are the float32 ones); cp.async has no
+// 2-byte copy, so the dx kernel's ring rows are plain loads there, which
+// the block waits for before its step's products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +124,17 @@ constexpr int kMaxIn = 64;
 constexpr int kThreads = 256;
 constexpr int kWgRows = 128;
 constexpr int kWgCols = 32;
+
+// a stored value widened (exactly) and a float32 result stored, in either
+// storage
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 __host__ __device__ __forceinline__ int round_up(int a, int m) {
   return (a + m - 1) / m * m;
@@ -486,9 +505,11 @@ __host__ __device__ __forceinline__ int dx_smem_floats(int K, int co_slice) {
 // taps j = q, q + 4, ...; within a group, (tx, ty) = (tid % 8, tid % 64 /
 // 8) owns C_in rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3. Group 0
 // adds the others' tiles in order and writes dx.
+// E: the storage of g and W (float or bf16), TO: of dx or its partial.
+template <typename E, typename TO>
 __global__ void __launch_bounds__(kThreads)
-convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
-                     float* __restrict__ dx, int L, int Ci, int Co, int K,
+convt1d_tm_dx_kernel(const E* __restrict__ g, const E* __restrict__ w,
+                     TO* __restrict__ dx, int L, int Ci, int Co, int K,
                      int B, int steps, int co_slice) {
   extern __shared__ float4 smem4[];
   const int n_in = (Ci + kMaxIn - 1) / kMaxIn;
@@ -511,11 +532,14 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
   // g row r (co_n x the tile's columns) into its ring slot r % (K+1)
   auto load_row = [&](int r) {
     float* dst = ring + (r % (K + 1)) * slot_len;
-    const float* src = g + (long long)r * Co * B + b0;
+    const E* src = g + (long long)r * Co * B + b0;
     for (int e = tid; e < slot_len; e += kThreads) {
       const int o = e / kDxCols, c = e % kDxCols;
       const bool ok = b0 + c < B;
-      cp_async4(dst + e, ok ? src + (long long)o * B + c : g, ok);
+      if constexpr (sizeof(E) == 4)
+        cp_async4(dst + e, ok ? src + (long long)o * B + c : g, ok);
+      else
+        dst[e] = ok ? to_float(src[(long long)o * B + c]) : 0.f;
     }
   };
   // W's slice, rows padded with zeros to kMaxIn, and the first K rows of
@@ -524,7 +548,13 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
   // (On the H100 at the preset, dx took 80 us a call this way, 92 with a
   // tap-by-tap loop and 84 with a division on every row.)
   const int gap = Co - co_n;
-  if (Ci % 4 == 0) {  // ci0 is a multiple of kMaxIn
+  if constexpr (sizeof(E) == 2) {
+    for (int e = tid; e < K * co_n * kMaxIn; e += kThreads) {
+      const int i = e % kMaxIn, jo = e / kMaxIn;
+      const int row = gap ? jo + jo / co_n * gap : jo;
+      w_s[e] = i < ci_n ? to_float(w[(long long)row * Ci + i]) : 0.f;
+    }
+  } else if (Ci % 4 == 0) {  // ci0 is a multiple of kMaxIn
     for (int e = 4 * tid; e < K * co_n * kMaxIn; e += 4 * kThreads) {
       const int i = e % kMaxIn, jo = e / kMaxIn;
       const int row = gap ? jo + jo / co_n * gap : jo;
@@ -583,14 +613,14 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
       for (int p = 0; p < 8; ++p) {
         const int i = 8 * ty + p;
         if (i >= ci_n) continue;
-        float* out = dx + ((long long)l * Ci + i) * B + b0;
+        TO* out = dx + ((long long)l * Ci + i) * B + b0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = 4 * tx + q;
           float v = acc[p][q];
           for (int r = 0; r < kDxGroups - 1; ++r)
             v += red[(r * kMaxIn + i) * kDxCols + c];
-          if (b0 + c < B) out[c] = v;
+          if (b0 + c < B) put(out + c, v);
         }
       }
     }
@@ -606,10 +636,12 @@ convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
 // 16, tid / 16) owns rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3.
 // A stage stages kWgCols columns of both operands transposed; a thread
 // loads one column (tid % 32) of rows tid / 32 + 8 r.
+// E: the storage of g and x (float or bf16); the partials are float32.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-convt1d_tm_wgrad_kernel(const float* __restrict__ g,
-                        const float* __restrict__ x, float* __restrict__ part,
-                        int L, int Ci, int Co, int K, int B, int cols) {
+convt1d_tm_wgrad_kernel(const E* __restrict__ g, const E* __restrict__ x,
+                        float* __restrict__ part, int L, int Ci, int Co,
+                        int K, int B, int cols) {
   __shared__ __align__(16) float a_s[kWgCols][kWgRows + 4];  // a_s[col][m]
   __shared__ __align__(16) float b_s[kWgCols][kMaxIn + 4];   // b_s[col][i]
   constexpr int kRowStep = kThreads / kWgCols;
@@ -631,17 +663,17 @@ convt1d_tm_wgrad_kernel(const float* __restrict__ g,
     const bool ok = col < c1;
     const int l = ok ? (int)(col / B) : 0;
     const int b = ok ? (int)(col - (long long)l * B) : 0;
-    const float* gl = g + (long long)l * Co * B + b;  // slab row m at m * B
-    const float* xl = x + (long long)l * Ci * B + b;
+    const E* gl = g + (long long)l * Co * B + b;  // slab row m at m * B
+    const E* xl = x + (long long)l * Ci * B + b;
 #pragma unroll
     for (int r = 0; r < kPerA; ++r) {
       const int m = m0 + r0 + kRowStep * r;
-      ra[r] = ok && m < M ? gl[(long long)m * B] : 0.f;
+      ra[r] = ok && m < M ? to_float(gl[(long long)m * B]) : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < kPerB; ++r) {
       const int i = n0 + r0 + kRowStep * r;
-      rb[r] = ok && i < Ci ? xl[(long long)i * B] : 0.f;
+      rb[r] = ok && i < Ci ? to_float(xl[(long long)i * B]) : 0.f;
     }
   };
   load(c0);
@@ -794,9 +826,10 @@ extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
   if (n_out > 1 && dx_part == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)dx_smem_floats(K, min(co_slice, Co)) * sizeof(float);
-  cudaError_t e = set_smem((const void*)convt1d_tm_dx_kernel, smem);
+  cudaError_t e =
+      set_smem((const void*)convt1d_tm_dx_kernel<float, float>, smem);
   if (e != cudaSuccess) return (int)e;
-  convt1d_tm_dx_kernel<<<dim3(ceil_div(B, kDxCols), ceil_div(L, steps),
+  convt1d_tm_dx_kernel<float, float><<<dim3(ceil_div(B, kDxCols), ceil_div(L, steps),
                               n_in * n_out),
                          kThreads, smem, st>>>(
       (const float*)g, (const float*)w,
@@ -808,7 +841,7 @@ extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
         (const float*)dx_part, (float*)dx, n_out, n);
   }
   const int n_chunks = ceil_div((long long)L * B, cols);
-  convt1d_tm_wgrad_kernel<<<dim3(ceil_div(Ci, kMaxIn),
+  convt1d_tm_wgrad_kernel<float><<<dim3(ceil_div(Ci, kMaxIn),
                                  ceil_div(K * Co, kWgRows), n_chunks),
                             kThreads, 0, st>>>(
       (const float*)g, (const float*)x, (float*)dw_part, L, Ci, Co, K, B,
@@ -816,5 +849,50 @@ extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
   const int n = K * Co * Ci;
   convt1d_tm_sum_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
       (const float*)dw_part, (float*)dw, n_chunks, n);
+  return (int)cudaGetLastError();
+}
+
+// K3 backward in bf16 storage: as convt1d_ola_tm_bwd on bf16 g, w and x,
+// writing bf16 dx and dw; dw_part and dx_part (where co_slice < Co) stay
+// float32, their sums rounded once. No alignment is asked of any pointer.
+extern "C" int convt1d_ola_tm_bwd_bf16(const void* g, const void* w,
+                                       const void* x, void* dx, void* dw,
+                                       void* dw_part, void* dx_part, int L,
+                                       int Ci, int Co, int K, int B,
+                                       int steps, int cols, int co_slice,
+                                       void* stream) {
+  if (steps < 1 || cols < 1 || co_slice < 1) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_in = ceil_div(Ci, kMaxIn), n_out = ceil_div(Co, co_slice);
+  if (n_out > 1 && dx_part == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)dx_smem_floats(K, min(co_slice, Co)) * sizeof(float);
+  const dim3 grid(ceil_div(B, kDxCols), ceil_div(L, steps), n_in * n_out);
+  if (n_out > 1) {
+    cudaError_t e =
+        set_smem((const void*)convt1d_tm_dx_kernel<bf, float>, smem);
+    if (e != cudaSuccess) return (int)e;
+    convt1d_tm_dx_kernel<bf, float><<<grid, kThreads, smem, st>>>(
+        (const bf*)g, (const bf*)w, (float*)dx_part, L, Ci, Co, K, B, steps,
+        min(co_slice, Co));
+    const int n = L * Ci * B;
+    convt1d_tm_sum_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
+        (const float*)dx_part, (bf*)dx, n_out, n);
+  } else {
+    cudaError_t e = set_smem((const void*)convt1d_tm_dx_kernel<bf, bf>, smem);
+    if (e != cudaSuccess) return (int)e;
+    convt1d_tm_dx_kernel<bf, bf><<<grid, kThreads, smem, st>>>(
+        (const bf*)g, (const bf*)w, (bf*)dx, L, Ci, Co, K, B, steps,
+        min(co_slice, Co));
+  }
+  const int n_chunks = ceil_div((long long)L * B, cols);
+  convt1d_tm_wgrad_kernel<bf><<<dim3(ceil_div(Ci, kMaxIn),
+                                     ceil_div(K * Co, kWgRows), n_chunks),
+                                kThreads, 0, st>>>(
+      (const bf*)g, (const bf*)x, (float*)dw_part, L, Ci, Co, K, B, cols);
+  const int n = K * Co * Ci;
+  convt1d_tm_sum_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
+      (const float*)dw_part, (bf*)dw, n_chunks, n);
   return (int)cudaGetLastError();
 }

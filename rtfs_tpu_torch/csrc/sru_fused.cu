@@ -1041,19 +1041,21 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
   }
 }
 
-// Rows of a time-major (T, R, B) operand, each a row of B floats: rows
-// [0, r0) of step t at p0 + (t * step0 + r) * B, rows [r0, R) at p1 + (t *
-// step1 + r - r0) * B. X = [x_f; x_r] is two such halves; U, du and dx's
-// halves are one each (r0 >= R).
-struct Rows {
-  float* p0;
-  float* p1;
+// Rows of a time-major (T, R, B) operand, each a row of B values (float,
+// or bf16 for the bf16 backward's X): rows [0, r0) of step t at p0 + (t *
+// step0 + r) * B, rows [r0, R) at p1 + (t * step1 + r - r0) * B. X = [x_f;
+// x_r] is two such halves; U, du and dx's halves are one each (r0 >= R).
+template <typename E>
+struct RowsT {
+  E* p0;
+  E* p1;
   int r0, step0, step1;
-  __device__ __forceinline__ float* row(int t, int r, int B) const {
+  __device__ __forceinline__ E* row(int t, int r, int B) const {
     return r < r0 ? p0 + ((long long)t * step0 + r) * B
                   : p1 + ((long long)t * step1 + r - r0) * B;
   }
 };
+using Rows = RowsT<float>;
 
 // C_t = op(A) B_t for every step t = blockIdx.z, where op(A)[m][k] is
 // A[m * lda + k], or A[k * lda + m] with TransA, B_t is (K, N) and C_t
@@ -1061,11 +1063,13 @@ struct Rows {
 // 64), ceil(M / 64), T), kGemmThreads threads: thread (tx, ty) = (tid %
 // 16, tid / 16) owns rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of
 // the tile. Each stage stages kStage rows of the reduction, the next
-// stage's loads in flight in registers while this one's FMAs run.
-template <bool TransA, bool Accum>
+// stage's loads in flight in registers while this one's FMAs run. A and
+// B_t may be bf16 (EA, EB: the bf16 backward's W and X), widened exactly
+// as they are loaded; the products and sums are float32.
+template <bool TransA, bool Accum, typename EA = float, typename EB = float>
 __global__ void __launch_bounds__(kGemmThreads)
-sru_hid_bwd_gemm_kernel(const float* __restrict__ A, int lda, Rows b, Rows c,
-                        int M, int K, int N) {
+sru_hid_bwd_gemm_kernel(const EA* __restrict__ A, int lda, RowsT<EB> b,
+                        Rows c, int M, int K, int N) {
   __shared__ __align__(16) float a_s[kStage][kTile + 4];  // a_s[k][m]
   __shared__ __align__(16) float b_s[kStage][kTile];      // b_s[k][n]
   constexpr int kPer = kStage * kTile / kGemmThreads;     // loads a thread
@@ -1087,9 +1091,9 @@ sru_hid_bwd_gemm_kernel(const float* __restrict__ A, int lda, Rows b, Rows c,
       const int gm = m0 + m, gk = k0 + k;
       const long long ia = TransA ? (long long)gk * lda + gm
                                   : (long long)gm * lda + gk;
-      ra[r] = gm < M && gk < K ? A[ia] : 0.f;
+      ra[r] = gm < M && gk < K ? load_value(A + ia) : 0.f;
       const int kb = k0 + e / kTile, gn = n0 + e % kTile;
-      rb[r] = kb < K && gn < N ? b.row(t, kb, N)[gn] : 0.f;
+      rb[r] = kb < K && gn < N ? load_value(b.row(t, kb, N) + gn) : 0.f;
     }
   };
   const int n_stages = (K + kStage - 1) / kStage;
@@ -1139,10 +1143,11 @@ sru_hid_bwd_gemm_kernel(const float* __restrict__ A, int lda, Rows b, Rows c,
 // of both operands transposed (column-major, rows of 68 floats); a thread
 // loads one column (tid % 32) of rows tid / 32 + 8 r, so it splits one
 // column index into (t, b) a stage, and a warp reads 32 consecutive
-// columns.
+// columns. b may be bf16 (EB: the bf16 backward's X), widened exactly.
+template <typename EB = float>
 __global__ void __launch_bounds__(kGemmThreads)
-sru_hid_bwd_wgrad_kernel(Rows a, Rows b, float* __restrict__ part, int M,
-                         int N, int T, int B, int cols) {
+sru_hid_bwd_wgrad_kernel(Rows a, RowsT<EB> b, float* __restrict__ part,
+                         int M, int N, int T, int B, int cols) {
   __shared__ __align__(16) float a_s[kWgCols][kTile + 4];  // a_s[col][m]
   __shared__ __align__(16) float b_s[kWgCols][kTile + 4];  // b_s[col][n]
   constexpr int kPer = kWgCols * kTile / kGemmThreads;
@@ -1167,7 +1172,7 @@ sru_hid_bwd_wgrad_kernel(Rows a, Rows b, float* __restrict__ part, int M,
     for (int r = 0; r < kPer; ++r) {
       const int gm = m0 + r0 + kRowStep * r, gn = n0 + r0 + kRowStep * r;
       ra[r] = ok && gm < M ? a.row(t, gm, B)[bb] : 0.f;
-      rb[r] = ok && gn < N ? b.row(t, gn, B)[bb] : 0.f;
+      rb[r] = ok && gn < N ? load_value(b.row(t, gn, B) + bb) : 0.f;
     }
   };
   load(c0);
@@ -1205,15 +1210,42 @@ sru_hid_bwd_wgrad_kernel(Rows a, Rows b, float* __restrict__ part, int M,
   }
 }
 
-// out[e] = sum_{p < n_parts} part[p][e], p in order.
+// out[e] = sum_{p < n_parts} part[p][e], p in order, in float32; a bf16
+// out rounded once.
+template <typename EO = float>
 __global__ void sru_hid_bwd_sum_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int n_parts,
+                                       EO* __restrict__ out, int n_parts,
                                        int n) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float s = 0.f;
   for (int p = 0; p < n_parts; ++p) s += part[(long long)p * n + e];
-  out[e] = s;
+  store_value(out + e, s);
+}
+
+// The bf16 backward's dx, as the Pallas kernel forms it: each direction's
+// dx = W_d du_d plus its highway term (on its own input's rows) in
+// float32, rounded to bf16 per direction, then the two added in bf16.
+// dxd (2, T, 2H, B) holds W_f du_f and W_r du_r, hw (2, T, H, B) the
+// highway terms; one thread a (t, i, b) of dx_f and dx_r.
+__global__ void sru_hid_bwd_dx_bf16_kernel(const float* __restrict__ dxd,
+                                           const float* __restrict__ hw,
+                                           __nv_bfloat16* __restrict__ dx_f,
+                                           __nv_bfloat16* __restrict__ dx_r,
+                                           int T, int H, int B) {
+  const long long hb = (long long)H * B, n = T * hb;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const long long t = e / hb, ib = e - t * hb;  // ib = i * B + b
+  const float* a = dxd + t * 2 * hb;            // W_f du_f at step t
+  const float* c = dxd + n * 2 + t * 2 * hb;    // W_r du_r
+  const float f0 = __bfloat162float(__float2bfloat16_rn(a[ib] + hw[e]));
+  const float f1 = __bfloat162float(__float2bfloat16_rn(c[ib]));
+  const float r0 = __bfloat162float(__float2bfloat16_rn(a[hb + ib]));
+  const float r1 =
+      __bfloat162float(__float2bfloat16_rn(c[hb + ib] + hw[n + e]));
+  dx_f[e] = __float2bfloat16_rn(f0 + f1);
+  dx_r[e] = __float2bfloat16_rn(r0 + r1);
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -1372,7 +1404,7 @@ extern "C" int sru_hidden_layer_bwd(
   const Rows u{(float*)ud, nullptr, h6, h6, 0};
   const Rows dx{(float*)dx_f, (float*)dx_r, H, H, H};
   // 1. U = W^T X for every step
-  sru_hid_bwd_gemm_kernel<false, false>
+  sru_hid_bwd_gemm_kernel<false, false, float, float>
       <<<dim3(ceil_div(B, kTile), ceil_div(h6, kTile), T), kGemmThreads, 0,
          st>>>((const float*)wt, h2, x, u, h6, h2, B);
   // 2. the adjoint scan: du over U, the highway term into dx
@@ -1389,19 +1421,112 @@ extern "C" int sru_hidden_layer_bwd(
                                            scan_units, 8LL * H, st);
   if (e != cudaSuccess) return (int)e;
   // 3. dx += W du (both directions in one sum over 6H)
-  sru_hid_bwd_gemm_kernel<true, true>
+  sru_hid_bwd_gemm_kernel<true, true, float, float>
       <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
          st>>>((const float*)wt, h2, u, dx, h2, h6, B);
   // 4. dW partials by split-K over the T * B columns
   const int n_chunks = ceil_div((long long)T * B, cols);
-  sru_hid_bwd_wgrad_kernel<<<dim3(ceil_div(h2, kTile), ceil_div(h6, kTile),
-                                  n_chunks),
-                             kGemmThreads, 0, st>>>(u, x, (float*)dw_part, h6,
-                                                    h2, T, B, cols);
+  sru_hid_bwd_wgrad_kernel<float>
+      <<<dim3(ceil_div(h2, kTile), ceil_div(h6, kTile), n_chunks),
+         kGemmThreads, 0, st>>>(u, x, (float*)dw_part, h6, h2, T, B, cols);
   // 5. the partials, in order
-  sru_hid_bwd_sum_kernel<<<ceil_div(h6 * h2, 256), 256, 0, st>>>(
+  sru_hid_bwd_sum_kernel<float><<<ceil_div(h6 * h2, 256), 256, 0, st>>>(
       (const float*)dw_part, (float*)dwt, n_chunks, h6 * h2);
-  sru_hid_bwd_sum_kernel<<<ceil_div(8 * H, 256), 256, 0, st>>>(
+  sru_hid_bwd_sum_kernel<float><<<ceil_div(8 * H, 256), 256, 0, st>>>(
       (const float*)dvb_part, (float*)dvb, ceil_div(B, scan_cols), 8 * H);
+  return (int)cudaGetLastError();
+}
+
+// K1 backward in bf16 storage (u, vb, c, dh and du bf16; the scan in
+// float32, each du value rounded once): as sru_dual_recurrence_bwd, the
+// scan's bf16 form (sru_scan_bwd_kernel<11>); dvb_part stays float32.
+// No alignment is asked of any pointer.
+extern "C" int sru_dual_recurrence_bwd_bf16(
+    const void* u_f, const void* u_r, const void* vb, const void* c_f,
+    const void* c_r, const void* dh_f, const void* dh_r, void* du_f,
+    void* du_r, void* dvb_part, int T, int H, int B, int cols, int units,
+    void* stream) {
+  using bf = __nv_bfloat16;
+  const long long hb = (long long)H * B, step = 4 * hb, hw = 3 * hb;
+  const long long u_last = (long long)T * step - 1, s_last = T * hb - 1;
+  const ScanIOT<bf, bf> io_f{(const bf*)u_f, (const bf*)u_f + hw, (bf*)du_f,
+                             (bf*)du_f + hw, step, step, step, step,
+                             (const bf*)c_f, (const bf*)dh_f, (const bf*)vb,
+                             (float*)dvb_part, 0, u_last, u_last - hw,
+                             s_last};
+  const ScanIOT<bf, bf> io_r{(const bf*)u_r, (const bf*)u_r + hw, (bf*)du_r,
+                             (bf*)du_r + hw, step, step, step, step,
+                             (const bf*)c_r, (const bf*)dh_r,
+                             (const bf*)vb + 4 * H, (float*)dvb_part + 4 * H,
+                             1, u_last, u_last - hw, s_last};
+  return (int)launch_scan_bwd<11>(io_f, io_r, 2, T, H, B, cols, units,
+                                  8LL * H, (cudaStream_t)stream);
+}
+
+// K2 backward in bf16 storage: x, wt, vb, c, dh in and dx, dwt, dvb out
+// bf16, everything between float32, as the Pallas kernel: U = W^T X from
+// the widened bf16 values (exact products, float32 sums), the scan's bf16
+// form (sru_scan_bwd_kernel<12>) reading U and writing du over it in
+// float32 and each direction's highway term into hw, each direction's dx
+// = W_d du_d in float32 into dxd, dW from float32 du and widened x; dx
+// rounded per direction and the two added in bf16
+// (sru_hid_bwd_dx_bf16_kernel), dW and dvb summed in float32 and rounded
+// once. Scratch from the wrapper, all float32: ud (T, 6H, B), dxd (2, T,
+// 2H, B), hw (2, T, H, B), dw_part and dvb_part as in
+// sru_hidden_layer_bwd. No alignment is asked of any pointer.
+extern "C" int sru_hidden_layer_bwd_bf16(
+    const void* x_f, const void* x_r, const void* wt, const void* vb,
+    const void* c_f, const void* c_r, const void* dh_f, const void* dh_r,
+    void* dx_f, void* dx_r, void* dwt, void* dvb, void* ud, void* dxd,
+    void* hw, void* dw_part, void* dvb_part, int T, int H, int B, int cols,
+    int scan_cols, int scan_units, void* stream) {
+  if (cols < 1 || !scan_layout_ok(T, H, B, scan_cols, scan_units))
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int h2 = 2 * H, h3 = 3 * H, h6 = 6 * H;
+  const long long hb = (long long)H * B, n = T * hb;
+  const RowsT<bf> x{(bf*)x_f, (bf*)x_r, H, H, H};
+  const Rows u{(float*)ud, nullptr, h6, h6, 0};
+  const Rows u_r{(float*)ud + 3 * hb, nullptr, h6, h6, 0};
+  const Rows dx_a{(float*)dxd, nullptr, h2, h2, 0};
+  const Rows dx_b{(float*)dxd + 2 * n, nullptr, h2, h2, 0};
+  // 1. U = W^T X for every step
+  sru_hid_bwd_gemm_kernel<false, false, bf, bf>
+      <<<dim3(ceil_div(B, kTile), ceil_div(h6, kTile), T), kGemmThreads, 0,
+         st>>>((const bf*)wt, h2, x, u, h6, h2, B);
+  // 2. the adjoint scan: du over U, the highway terms into hw
+  const long long step = 6LL * hb;
+  const ScanIOT<float, bf> io_f{
+      (const float*)ud, (const bf*)x_f, (float*)ud, (float*)hw, step, hb,
+      step, hb, (const bf*)c_f, (const bf*)dh_f, (const bf*)vb,
+      (float*)dvb_part, 0, 0, n - 1, n - 1};
+  const ScanIOT<float, bf> io_r{
+      (const float*)ud + 3 * hb, (const bf*)x_r, (float*)ud + 3 * hb,
+      (float*)hw + n, step, hb, step, hb, (const bf*)c_r, (const bf*)dh_r,
+      (const bf*)vb + 4 * H, (float*)dvb_part + 4 * H, 1, 0, n - 1, n - 1};
+  const cudaError_t e = launch_scan_bwd<12>(io_f, io_r, 2, T, H, B,
+                                            scan_cols, scan_units, 8LL * H,
+                                            st);
+  if (e != cudaSuccess) return (int)e;
+  // 3. each direction's dx = W_d du_d (W_d^T the direction's 3H rows of wt)
+  sru_hid_bwd_gemm_kernel<true, false, bf, float>
+      <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
+         st>>>((const bf*)wt, h2, u, dx_a, h2, h3, B);
+  sru_hid_bwd_gemm_kernel<true, false, bf, float>
+      <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
+         st>>>((const bf*)wt + (long long)h3 * h2, h2, u_r, dx_b, h2, h3, B);
+  sru_hid_bwd_dx_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
+      (const float*)dxd, (const float*)hw, (bf*)dx_f, (bf*)dx_r, T, H, B);
+  // 4. dW partials by split-K over the T * B columns
+  const int n_chunks = ceil_div((long long)T * B, cols);
+  sru_hid_bwd_wgrad_kernel<bf>
+      <<<dim3(ceil_div(h2, kTile), ceil_div(h6, kTile), n_chunks),
+         kGemmThreads, 0, st>>>(u, x, (float*)dw_part, h6, h2, T, B, cols);
+  // 5. the partials, in order, rounded once
+  sru_hid_bwd_sum_kernel<bf><<<ceil_div(h6 * h2, 256), 256, 0, st>>>(
+      (const float*)dw_part, (bf*)dwt, n_chunks, h6 * h2);
+  sru_hid_bwd_sum_kernel<bf><<<ceil_div(8 * H, 256), 256, 0, st>>>(
+      (const float*)dvb_part, (bf*)dvb, ceil_div(B, scan_cols), 8 * H);
   return (int)cudaGetLastError();
 }

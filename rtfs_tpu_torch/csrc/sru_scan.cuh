@@ -2,7 +2,10 @@
 // shared by three backward ops: K1 sru_dual_recurrence_bwd and K2
 // sru_hidden_layer_bwd (csrc/sru_fused.cu) and K4 sru_recurrence_bwd
 // (csrc/sru_pallas.cu). Each op says where its operands lie with one
-// ScanIO a direction; nothing is copied or flipped in memory.
+// ScanIO a direction; nothing is copied or flipped in memory. K1's and
+// K2's bf16 backwards (sru_dual_recurrence_bwd_bf16 and
+// sru_hidden_layer_bwd_bf16) run the same scan on bf16 storage (ScanTypes
+// below): the arithmetic stays float32, as in the Pallas kernels.
 //
 // The adjoints, per step in reverse scan order (a forward-running
 // recurrence from t = T-1 down with c_prev = c[t-1], a reverse-running one
@@ -55,7 +58,10 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "tf32x3.cuh"
 
@@ -78,39 +84,123 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 // c and dh are (T, H, B); vb holds the rows v_f, v_r, b_f, b_r of H; the
 // partial sums d(v_f, v_r, b_f, b_r) of column block x go to part + x *
 // part_stride + k * H. reverse: the recurrence ran t = T-1 .. 0, so the
-// scan walks t = 0 .. T-1.
-struct ScanIO {
-  const float* u;
-  const float* xhw;
-  float* du;
-  float* dhw;
+// scan walks t = 0 .. T-1. TU is the type of u, du and the highway term's
+// adjoint, TS that of the highway input, c, dh and vb. In bf16 storage,
+// u_last, xhw_last and s_last are the index of the last value of the
+// array that u, xhw and c (dh) point into, counted from that pointer.
+template <typename TU, typename TS>
+struct ScanIOT {
+  const TU* u;
+  const TS* xhw;
+  TU* du;
+  TU* dhw;
   long long u_step, xhw_step, du_step, dhw_step;
-  const float* c;
-  const float* dh;
-  const float* vb;
+  const TS* c;
+  const TS* dh;
+  const TS* vb;
   float* part;
   int reverse;
+  long long u_last, xhw_last, s_last;
 };
+using ScanIO = ScanIOT<float, float>;
+
+// The storage of each launch, by its Kernel number (which also tells the
+// launches apart in a profile): K1 (1), K2 (2) and K4 (4) in float32; K1
+// in bf16 (11): every operand bf16, du rounded once; K2 in bf16 (12): its
+// highway input, c, dh and vb bf16, U, du and the highway term's adjoint
+// float32 (the Pallas kernel's du never leaves float32).
+template <int Kernel>
+struct ScanTypes {
+  using TU = float;
+  using TS = float;
+};
+template <>
+struct ScanTypes<11> {
+  using TU = __nv_bfloat16;
+  using TS = __nv_bfloat16;
+};
+template <>
+struct ScanTypes<12> {
+  using TU = float;
+  using TS = __nv_bfloat16;
+};
+
+// Copy value e of src into a thread's ring slot (4 bytes). float32: one
+// 4-byte cp.async. bf16: cp.async has no 2-byte copy, so the thread copies
+// the 4-byte-aligned word that holds the value (any offset: B odd
+// included, no alignment asked of the caller; the word lies inside the
+// value's allocation) and takes its half when it reads the slot
+// (slot_value); where the value is the array's last (e == last) and opens
+// its word, only its 2 bytes are read.
+__device__ __forceinline__ void copy_value(float* dst, const float* src,
+                                           long long e, long long, bool ok) {
+  hk::cp_async4(dst, src + e, ok);
+}
+__device__ __forceinline__ void copy_value(float* dst,
+                                           const __nv_bfloat16* src,
+                                           long long e, long long last,
+                                           bool ok) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src + e);
+  const int bytes = !ok ? 0 : (e == last && !(a & 2)) ? 2 : 4;
+  hk::cp_async4_n(dst, reinterpret_cast<const void*>(a & ~uintptr_t(3)),
+                  bytes);
+}
+
+// Whether value e0 + i * step of base lies in the upper half of its word
+// (bf16), from parities alone.
+template <typename T>
+__device__ __forceinline__ unsigned upper_half(const T* base, long long e0,
+                                               long long step, int i) {
+  return (unsigned)(((reinterpret_cast<uintptr_t>(base) >> 1) ^
+                     (uintptr_t)e0 ^ (uintptr_t)(i & step)) & 1);
+}
+
+// A slot's value as float32: the float itself, or the bf16 half of the
+// word (upper or lower) widened, exactly.
+template <typename T>
+__device__ __forceinline__ float slot_value(const float* d, unsigned upper) {
+  if constexpr (sizeof(T) == 4) {
+    return *d;
+  } else {
+    const uint32_t w = __float_as_uint(*d);
+    return __uint_as_float(upper ? (w & 0xffff0000u) : (w << 16));
+  }
+}
+
+__device__ __forceinline__ float load_value(const float* p) { return *p; }
+__device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // grid (ceil(B / cols), ceil(H / units), directions), cols * units
 // threads, cols a multiple of 32: thread (column x * cols + tid % cols,
 // unit y * units + tid / cols) of direction z reads io0 (z = 0) or io1.
 // Kernel tells K1's launches (1), K2's (2) and K4's (4) apart in a
-// profile.
+// profile, and picks the storage (ScanTypes; 11 and 12 the bf16 ones).
 template <int Kernel>
 __global__ void __launch_bounds__(kScanThreads)
-sru_scan_bwd_kernel(ScanIO io0, ScanIO io1, int T, int H, int B, int cols,
-                    long long part_stride) {
+sru_scan_bwd_kernel(ScanIOT<typename ScanTypes<Kernel>::TU,
+                            typename ScanTypes<Kernel>::TS> io0,
+                    ScanIOT<typename ScanTypes<Kernel>::TU,
+                            typename ScanTypes<Kernel>::TS> io1,
+                    int T, int H, int B, int cols, long long part_stride) {
+  using TU = typename ScanTypes<Kernel>::TU;
+  using TS = typename ScanTypes<Kernel>::TS;
   extern __shared__ float ring[];  // (kScanAhead, 6, blockDim.x)
   __shared__ float red[kScanThreads / 32][4];
   const int nt = blockDim.x, tid = threadIdx.x;
   const int units = nt / cols, j0 = blockIdx.y * units;
   const int b = blockIdx.x * cols + tid % cols, j = j0 + tid / cols;
-  const ScanIO io = blockIdx.z == 0 ? io0 : io1;
+  const ScanIOT<TU, TS> io = blockIdx.z == 0 ? io0 : io1;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};  // d(v_f, v_r, b_f, b_r)
   if (b < B && j < H) {
-    const float v_f = io.vb[j], v_r = io.vb[H + j];
-    const float b_f = io.vb[2 * H + j], b_r = io.vb[3 * H + j];
+    const float v_f = load_value(io.vb + j), v_r = load_value(io.vb + H + j);
+    const float b_f = load_value(io.vb + 2 * H + j);
+    const float b_r = load_value(io.vb + 3 * H + j);
     const long long hb = (long long)H * B, col = (long long)j * B + b;
     // offsets of the next step to copy (scan index k = 0, 1, ... in
     // order) and of the next to store, each moved by one step at a time:
@@ -125,6 +215,7 @@ sru_scan_bwd_kernel(ScanIO io0, ScanIO io1, int T, int H, int B, int cols,
     const long long sx = io.reverse ? io.xhw_step : -io.xhw_step;
     const long long sd = io.reverse ? io.du_step : -io.du_step;
     const long long sw = io.reverse ? io.dhw_step : -io.dhw_step;
+    const long long ou0 = ou, ox0 = ox, og0 = og;  // scan index 0's
     float* mine = ring + tid;  // slot s, value v: mine[(6 s + v) nt]
     // scan step k into slot k % kScanAhead as one commit group: u0, u1,
     // u2, the highway term, dh and c_prev; zero past the scan's end (the
@@ -133,13 +224,13 @@ sru_scan_bwd_kernel(ScanIO io0, ScanIO io1, int T, int H, int B, int cols,
     auto issue = [&]() {
       float* d = mine + (k % kScanAhead) * 6 * nt;
       const bool ok = k < T, ok_c = k + 1 < T;
-      const float* ut = io.u + (ok ? ou : 0);
-      hk::cp_async4(d, ut, ok);
-      hk::cp_async4(d + nt, ut + hb, ok);
-      hk::cp_async4(d + 2 * nt, ut + 2 * hb, ok);
-      hk::cp_async4(d + 3 * nt, io.xhw + (ok ? ox : 0), ok);
-      hk::cp_async4(d + 4 * nt, io.dh + (ok ? og : 0), ok);
-      hk::cp_async4(d + 5 * nt, io.c + (ok_c ? og + dt : 0), ok_c);
+      const long long eu = ok ? ou : 0;
+      copy_value(d, io.u, eu, io.u_last, ok);
+      copy_value(d + nt, io.u, eu + hb, io.u_last, ok);
+      copy_value(d + 2 * nt, io.u, eu + 2 * hb, io.u_last, ok);
+      copy_value(d + 3 * nt, io.xhw, ok ? ox : 0, io.xhw_last, ok);
+      copy_value(d + 4 * nt, io.dh, ok ? og : 0, io.s_last, ok);
+      copy_value(d + 5 * nt, io.c, ok_c ? og + dt : 0, io.s_last, ok_c);
       hk::cp_async_commit();
       ++k;
       ou += su;
@@ -148,7 +239,7 @@ sru_scan_bwd_kernel(ScanIO io0, ScanIO io1, int T, int H, int B, int cols,
     };
 #pragma unroll
     for (int i = 0; i < kScanAhead; ++i) issue();
-    float c_t = io.c[t0 * hb + col];
+    float c_t = load_value(io.c + t0 * hb + col);
     float dc = 0.f;
     for (int i0 = 0; i0 < T; i0 += kScanGroup) {
       // the groups of steps i0 .. i0 + kScanGroup - 1 are in; the compiler
@@ -159,13 +250,15 @@ sru_scan_bwd_kernel(ScanIO io0, ScanIO io1, int T, int H, int B, int cols,
       float hw[kScanGroup], g[kScanGroup], cp[kScanGroup];
 #pragma unroll
       for (int s = 0; s < kScanGroup; ++s) {
-        const float* d = mine + ((i0 + s) % kScanAhead) * 6 * nt;
-        u0[s] = d[0];
-        u1[s] = d[nt];
-        u2[s] = d[2 * nt];
-        hw[s] = d[3 * nt];
-        g[s] = d[4 * nt];
-        cp[s] = d[5 * nt];
+        const int i = i0 + s;
+        const float* d = mine + (i % kScanAhead) * 6 * nt;
+        u0[s] = slot_value<TU>(d, upper_half(io.u, ou0, su, i));
+        u1[s] = slot_value<TU>(d + nt, upper_half(io.u, ou0 + hb, su, i));
+        u2[s] = slot_value<TU>(d + 2 * nt,
+                               upper_half(io.u, ou0 + 2 * hb, su, i));
+        hw[s] = slot_value<TS>(d + 3 * nt, upper_half(io.xhw, ox0, sx, i));
+        g[s] = slot_value<TS>(d + 4 * nt, upper_half(io.dh, og0, dt, i));
+        cp[s] = slot_value<TS>(d + 5 * nt, upper_half(io.c, og0 + dt, dt, i));
       }
       asm volatile("" ::: "memory");
 #pragma unroll
@@ -185,11 +278,11 @@ sru_scan_bwd_kernel(ScanIO io0, ScanIO io1, int T, int H, int B, int cols,
         if (i0 + s >= T) break;
         dc = g[s] * r[s] + dm[s] * v_r + dc;
         const float da = dc * (cp[s] - u0[s]) * f[s] * (1.f - f[s]);
-        float* dut = io.du + od;
-        dut[0] = dc * (1.f - f[s]);
-        dut[hb] = da;
-        dut[2 * hb] = dm[s];
-        io.dhw[ow] = g[s] * (1.f - r[s]);
+        TU* dut = io.du + od;
+        store_value(dut, dc * (1.f - f[s]));
+        store_value(dut + hb, da);
+        store_value(dut + 2 * hb, dm[s]);
+        store_value(io.dhw + ow, g[s] * (1.f - r[s]));
         od += sd;
         ow += sw;
         acc[0] += da * cp[s];
@@ -229,11 +322,16 @@ inline bool scan_layout_ok(int T, int H, int B, int cols, int units) {
 }
 
 // Launches the scan over dirs (1 or 2) directions; cudaErrorInvalidValue
-// for a block shape it does not take.
+// for a block shape it does not take. The ring holds a 4-byte word a value
+// in either storage, so its shared memory does not depend on the dtype.
 template <int Kernel>
-cudaError_t launch_scan_bwd(const ScanIO& io0, const ScanIO& io1, int dirs,
-                            int T, int H, int B, int cols, int units,
-                            long long part_stride, cudaStream_t stream) {
+cudaError_t launch_scan_bwd(
+    const ScanIOT<typename ScanTypes<Kernel>::TU,
+                  typename ScanTypes<Kernel>::TS>& io0,
+    const ScanIOT<typename ScanTypes<Kernel>::TU,
+                  typename ScanTypes<Kernel>::TS>& io1,
+    int dirs, int T, int H, int B, int cols, int units,
+    long long part_stride, cudaStream_t stream) {
   if (!scan_layout_ok(T, H, B, cols, units) || dirs < 1 || dirs > 2)
     return cudaErrorInvalidValue;
   const int threads = cols * units;

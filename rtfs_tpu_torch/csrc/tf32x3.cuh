@@ -165,6 +165,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// 4-byte asynchronous copy global -> shared of which only the first
+// `bytes` (0, 2 or 4) are read; the rest of the 4 is zero-filled.
+__device__ __forceinline__ void cp_async4_n(void* dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
 // 16-byte asynchronous copy global -> shared, zero-filled when !ok.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {

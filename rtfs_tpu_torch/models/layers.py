@@ -159,6 +159,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     puts the unbiased variance into ``running_var``). Names and buffers are
     torch's (``weight``, ``bias``, ``running_mean``, ``running_var``,
     ``num_batches_tracked``).
+
+    A bf16 input (a bf16 model, ``utils/precision.py``) follows flax: in
+    train mode the statistics are taken and the input normalised in
+    float32, the result rounded to bf16 once, and the running statistics
+    become float32 (flax's update promotes the bf16 ``batch_stats``). In
+    eval mode with float32 statistics the input is normalised in float32
+    and rounded once; with bf16 statistics (serving) as torch's
+    ``batch_norm`` does.
     """
 
     def __init__(self, features: int):
@@ -168,21 +176,36 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if x.dim() < 2:
             raise ValueError(f"BatchNorm expects rank >= 2, got {x.dim()}")
 
+    def _normalize(self, x, xf, mean, var):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        return ((xf - mean.reshape(shape)) * scale.reshape(shape)
+                + self.bias.to(xf.dtype).reshape(shape)).to(x.dtype)
+
     def forward(self, x):
         self._check_input_dim(x)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        var, mean = torch.var_mean(x, dim=[0, *range(2, x.ndim)],
+            if x.dtype == self.running_mean.dtype:
+                return F.batch_norm(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, False, 0.0,
+                                    self.eps)
+            dt = torch.promote_types(x.dtype, self.running_mean.dtype)
+            return self._normalize(x, x.to(dt), self.running_mean.to(dt),
+                                   self.running_var.to(dt))
+        xf = _stats_dtype(x)
+        var, mean = torch.var_mean(xf, dim=[0, *range(2, x.ndim)],
                                    unbiased=False)
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            if self.running_mean.dtype == xf.dtype:
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+            else:  # bf16 statistics: replaced by float32 ones
+                self.running_mean = torch.lerp(
+                    self.running_mean.to(xf.dtype), mean, self.momentum)
+                self.running_var = torch.lerp(
+                    self.running_var.to(xf.dtype), var, self.momentum)
             self.num_batches_tracked.add_(1)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        scale = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.reshape(shape)) * scale.reshape(shape)
-                + self.bias.reshape(shape))
+        return self._normalize(x, xf, mean, var)
 
 
 def make_norm(norm_type: Optional[str], features: int, n_freqs: int = -1):

@@ -18,11 +18,13 @@ order. When autograd records, the op runs
 through a ``torch.autograd.Function`` whose backward is the kernel. On a
 CPU tensor the plain versions below run, forward and backward.
 
-The forward also takes bf16 storage (``convt1d_ola_tm_fwd_bf16``: x, W
-and out bf16, the products bf16 on the tensor cores into float32 sums,
-the sum rounded to bf16 once, after the whole reduction, as the Pallas
-kernel's float32 dot result is). bf16 is for serving: a bf16 op that
-autograd would record raises ``NotImplementedError``.
+The op also takes bf16 storage: the forward (``convt1d_ola_tm_fwd_bf16``:
+x, W and out bf16, the products bf16 on the tensor cores into float32
+sums, the sum rounded to bf16 once, after the whole reduction, as the
+Pallas kernel's float32 dot result is) and the backward
+(``convt1d_ola_tm_bwd_bf16``: g, x and W in, dx and dW out bf16, the
+products of the widened values summed in float32 and each sum rounded
+once, as the Pallas VJP's dx dot and dW scratch are).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import functools
 import torch
 
 from . import kernel_lib
-from .sru_fused import arithmetic_dtype, refuse_bf16_grad
+from .sru_fused import arithmetic_dtype
 
 
 def convt1d_ola_tm_plain(x_tm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -52,7 +54,11 @@ def convt1d_ola_tm_plain(x_tm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def convt1d_ola_tm_bwd_plain(g: torch.Tensor, x_tm: torch.Tensor,
                              w: torch.Tensor):
     """K3 backward's plain version, tap by tap: dx[l] = sum_j W[j]^T g[l+j]
-    and dW[j] = sum_{l, b} g[l+j] x[l]^T. Returns (dx, dw)."""
+    and dW[j] = sum_{l, b} g[l+j] x[l]^T. Returns (dx, dw). In bf16
+    storage g is taken in x's dtype, as the Pallas VJP casts it, the sums
+    run in float32 on the widened values and each is rounded once."""
+    dt = x_tm.dtype
+    g, x_tm, w = (t.to(dt).to(arithmetic_dtype(dt)) for t in (g, x_tm, w))
     length = x_tm.shape[0]
     dx = torch.zeros_like(x_tm)
     dw = torch.empty_like(w)
@@ -60,7 +66,7 @@ def convt1d_ola_tm_bwd_plain(g: torch.Tensor, x_tm: torch.Tensor,
         g_j = g[j:j + length]
         dx += torch.einsum("oi,lob->lib", w[j], g_j)
         dw[j] = torch.einsum("lob,lib->oi", g_j, x_tm)
-    return dx, dw
+    return dx.to(dt), dw.to(dt)
 
 
 def _check(x_tm, w):
@@ -237,7 +243,8 @@ def bwd_geometry(length: int, c_in: int, c_out: int, k: int,
 def _backward(g, x_tm, w):
     if g.device.type == "cpu":
         return convt1d_ola_tm_bwd_plain(g, x_tm, w)
-    kernel_lib.check_cuda("convt1d_ola_tm backward", g, x_tm, w)
+    dt = kernel_lib.check_cuda("convt1d_ola_tm backward", g, x_tm, w,
+                               dtypes=(torch.float32, torch.bfloat16))
     length, c_in, bsz = x_tm.shape
     k, c_out, _ = w.shape
     if min(x_tm.shape) == 0 or k == 0 or c_out == 0:
@@ -251,7 +258,9 @@ def _backward(g, x_tm, w):
     dx_part = (torch.empty(geo["out_slices"], *x_tm.shape, device=dev)
                if geo["out_slices"] > 1 else None)
     kernel_lib.launch(
-        "convt_tm", "convt1d_ola_tm_bwd", dev,
+        "convt_tm",
+        "convt1d_ola_tm_bwd_bf16" if dt == torch.bfloat16
+        else "convt1d_ola_tm_bwd", dev,
         g.data_ptr(), w.data_ptr(), x_tm.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), dw_part.data_ptr(),
         None if dx_part is None else dx_part.data_ptr(),
@@ -266,7 +275,6 @@ class _ConvTranspose(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_tm, w):
-        refuse_bf16_grad("convt1d_ola_tm", x_tm, w)
         ctx.save_for_backward(x_tm, w)
         return _forward(x_tm, w)
 

@@ -28,12 +28,12 @@ keeps the cell states c and whose backward is the BPTT kernel; otherwise
 CPU tensor the plain PyTorch versions below run (forward and backward), on
 a CUDA tensor the kernels launch or the call raises.
 
-The forwards also take bf16 storage (the Pallas kernels run in the
-caller's dtype): u, x, W^T, vb and h in bf16, the arithmetic, U and the
-carries in float32, only the stored values rounded (CUDA entries
-``sru_dual_recurrence_fwd_bf16`` and ``sru_hidden_layer_fwd_bf16``). bf16
-is for serving: a bf16 op that autograd would record raises
-``NotImplementedError``.
+Both ops also take bf16 storage, forward and backward (the Pallas
+kernels run in the caller's dtype): u, x, W^T, vb, h, c and the gradients
+in bf16, the arithmetic, U, du of K2 and the carries in float32, only the
+stored values rounded, where the Pallas kernels and their VJPs round
+(CUDA entries ``sru_dual_recurrence_{fwd,bwd}_bf16`` and
+``sru_hidden_layer_{fwd,bwd}_bf16``).
 """
 
 from __future__ import annotations
@@ -131,8 +131,8 @@ def _records(*tensors) -> bool:
 
 
 def refuse_bf16_grad(name: str, *tensors) -> None:
-    """bf16 runs forward only: raise where a bf16 op would be recorded for
-    a backward (there is no bf16 backward, and none falls back to
+    """For an op whose bf16 backward is not ported (the packed ops): raise
+    where a bf16 op would be recorded for a backward (none falls back to
     float32)."""
     if any(t.dtype == torch.bfloat16 for t in tensors):
         raise NotImplementedError(
@@ -171,14 +171,21 @@ def sru_dual_recurrence_plain(u_f, u_r, vb, with_c=False):
 
 
 def sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
-    """K1 backward's plain version: (du_f, du_r) (T, 4H, B) and dvb (8, H)."""
-    h = u_f.shape[1] // 4
+    """K1 backward's plain version: (du_f, du_r) (T, 4H, B) and dvb (8, H).
+    In bf16 storage the scan runs in float32 on the widened values; du is
+    rounded once and dvb summed in float32 and rounded once
+    (``_lay0_bwd_kernel``, ``_lay0_vjp_bwd``)."""
+    dt, h = u_f.dtype, u_f.shape[1] // 4
+    u_f, u_r, vb, c_f, c_r, dh_f, dh_r = (
+        t.to(arithmetic_dtype(dt))
+        for t in (u_f, u_r, vb, c_f, c_r, dh_f, dh_r))
     du_f, dhw_f, dvb_f = scan_direction_bwd(u_f, u_f[:, 3 * h:], vb[0:4],
                                             c_f, dh_f, False)
     du_r, dhw_r, dvb_r = scan_direction_bwd(u_r, u_r[:, 3 * h:], vb[4:8],
                                             c_r, dh_r, True)
-    return (torch.cat([du_f, dhw_f], dim=1), torch.cat([du_r, dhw_r], dim=1),
-            torch.cat([dvb_f, dvb_r]))
+    return (torch.cat([du_f, dhw_f], dim=1).to(dt),
+            torch.cat([du_r, dhw_r], dim=1).to(dt),
+            torch.cat([dvb_f, dvb_r]).to(dt))
 
 
 def _spread_blocks(hdim: int, bsz: int, dirs: int, most: int) -> tuple:
@@ -297,20 +304,23 @@ def _k1_backward(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
     if u_f.device.type == "cpu":
         return sru_dual_recurrence_bwd_plain(u_f, u_r, vb, c_f, c_r, dh_f,
                                              dh_r)
-    kernel_lib.check_cuda("sru_dual_recurrence backward", u_f, u_r, vb,
-                              c_f, c_r, dh_f, dh_r)
+    dt = kernel_lib.check_cuda("sru_dual_recurrence backward", u_f, u_r, vb,
+                               c_f, c_r, dh_f, dh_r, dtypes=_BF16)
     t_len, gh, bsz = u_f.shape
     geo = scan_bwd_geometry(t_len, gh // 4, bsz, 2)
     du_f, du_r = torch.empty_like(u_f), torch.empty_like(u_r)
     dvb_part = torch.empty(geo["parts"], 8, gh // 4, device=u_f.device)
     kernel_lib.launch(
-        "sru_fused", "sru_dual_recurrence_bwd", u_f.device,
+        "sru_fused",
+        "sru_dual_recurrence_bwd_bf16" if dt == torch.bfloat16
+        else "sru_dual_recurrence_bwd",
+        u_f.device,
         u_f.data_ptr(), u_r.data_ptr(), vb.data_ptr(), c_f.data_ptr(),
         c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(), du_f.data_ptr(),
         du_r.data_ptr(), dvb_part.data_ptr(), t_len, gh // 4, bsz,
         geo["cols"], geo["units"],
     )
-    return du_f, du_r, dvb_part.sum(0)
+    return du_f, du_r, dvb_part.sum(0).to(dt)
 
 
 class _DualRecurrence(torch.autograd.Function):
@@ -318,7 +328,6 @@ class _DualRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u_f, u_r, vb):
-        refuse_bf16_grad("sru_dual_recurrence", u_f, u_r, vb)
         h_f, h_r, c_f, c_r = _k1_forward(u_f, u_r, vb, with_c=True)
         ctx.save_for_backward(u_f, u_r, vb, c_f, c_r)
         return h_f, h_r
@@ -377,21 +386,40 @@ def sru_hidden_layer_plain(x_f, x_r, wt, vb, with_c=False):
     return tuple(o.to(dt) for o in outs)
 
 
-def sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
-    """K2 backward's plain version: dx_f, dx_r (T, H, B), dwt (6H, 2H) and
-    dvb (8, H). U is recomputed from x, as the kernel does."""
-    h = x_f.shape[1]
+def hidden_bwd_terms(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
+    """K2 backward in the arithmetic dtype (float32 for bf16 storage), before
+    any rounding: each direction's dx (W_d du_d plus its highway term on
+    its own input's rows, (T, 2H, B) each), dwt (6H, 2H) and dvb (8, H).
+    U is recomputed from x, as the kernel does; du is never rounded."""
+    dt, h = x_f.dtype, x_f.shape[1]
+    x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r = (
+        t.to(arithmetic_dtype(dt))
+        for t in (x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r))
     x = torch.cat([x_f, x_r], dim=1)
     u = torch.einsum("oi,tib->tob", wt, x)
     du_f, dhw_f, dvb_f = scan_direction_bwd(u[:, :3 * h], x_f, vb[0:4], c_f,
                                             dh_f, False)
     du_r, dhw_r, dvb_r = scan_direction_bwd(u[:, 3 * h:], x_r, vb[4:8], c_r,
                                             dh_r, True)
+    dxa = torch.einsum("oi,tob->tib", wt[:3 * h], du_f)  # (T, 2H, B)
+    dxb = torch.einsum("oi,tob->tib", wt[3 * h:], du_r)
+    dxa[:, :h] += dhw_f
+    dxb[:, h:] += dhw_r
     du = torch.cat([du_f, du_r], dim=1)  # (T, 6H, B)
-    dx = torch.einsum("oi,tob->tib", wt, du)
-    dwt = torch.einsum("tob,tib->oi", du, x)
-    return (dx[:, :h] + dhw_f, dx[:, h:] + dhw_r, dwt,
-            torch.cat([dvb_f, dvb_r]))
+    return dxa, dxb, torch.einsum("tob,tib->oi", du, x), torch.cat(
+        [dvb_f, dvb_r])
+
+
+def sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
+    """K2 backward's plain version: dx_f, dx_r (T, H, B), dwt (6H, 2H) and
+    dvb (8, H) from ``hidden_bwd_terms``: each direction's dx rounded to
+    the storage dtype, then the two added in it (``_hid_bwd_kernel``'s dxa
+    and dxb, ``_hid_vjp_bwd``'s ``dxa + dxb``), dW and dvb rounded once."""
+    dt, h = x_f.dtype, x_f.shape[1]
+    dxa, dxb, dwt, dvb = hidden_bwd_terms(x_f, x_r, wt, vb, c_f, c_r, dh_f,
+                                          dh_r)
+    dx = dxa.to(dt) + dxb.to(dt)
+    return dx[:, :h], dx[:, h:], dwt.to(dt), dvb.to(dt)
 
 
 # K2 forward, ``kFwdThreads``, ``kFwdMT``, ``kFwdNB`` and ``kFwdAhead`` in
@@ -574,8 +602,8 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
     if x_f.device.type == "cpu":
         return sru_hidden_layer_bwd_plain(x_f, x_r, wt, vb, c_f, c_r, dh_f,
                                           dh_r)
-    kernel_lib.check_cuda("sru_hidden_layer backward", x_f, x_r, wt, vb,
-                              c_f, c_r, dh_f, dh_r)
+    dt = kernel_lib.check_cuda("sru_hidden_layer backward", x_f, x_r, wt,
+                               vb, c_f, c_r, dh_f, dh_r, dtypes=_BF16)
     t_len, hdim, bsz = x_f.shape
     if min(x_f.shape) == 0:
         raise ValueError("sru_hidden_layer backward: empty input")
@@ -586,12 +614,18 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
     ud = torch.empty(t_len, 6 * hdim, bsz, device=dev)  # U, then du
     dw_part = torch.empty(geo["chunks"], 6 * hdim, 2 * hdim, device=dev)
     dvb_part = torch.empty(geo["scan_blocks"], 8, hdim, device=dev)
+    # bf16: each direction's float32 dx and highway term, rounded apart
+    extra = ([torch.empty(2, t_len, 2 * hdim, bsz, device=dev),
+              torch.empty(2, t_len, hdim, bsz, device=dev)]
+             if dt == torch.bfloat16 else [])
     kernel_lib.launch(
-        "sru_fused", "sru_hidden_layer_bwd", dev,
+        "sru_fused",
+        "sru_hidden_layer_bwd_bf16" if extra else "sru_hidden_layer_bwd", dev,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         c_f.data_ptr(), c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(),
         dx_f.data_ptr(), dx_r.data_ptr(), dwt.data_ptr(), dvb.data_ptr(),
-        ud.data_ptr(), dw_part.data_ptr(), dvb_part.data_ptr(),
+        ud.data_ptr(), *(t.data_ptr() for t in extra), dw_part.data_ptr(),
+        dvb_part.data_ptr(),
         t_len, hdim, bsz, geo["cols"], geo["scan"]["cols"],
         geo["scan"]["units"],
     )
@@ -603,7 +637,6 @@ class _HiddenLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_f, x_r, wt, vb):
-        refuse_bf16_grad("sru_hidden_layer", x_f, x_r, wt, vb)
         h_f, h_r, c_f, c_r = _k2_forward(x_f, x_r, wt, vb, with_c=True)
         ctx.save_for_backward(x_f, x_r, wt, vb, c_f, c_r)
         return h_f, h_r

@@ -41,6 +41,7 @@ from ..data.loader import PrefetchLoader, WaitTimer, pin_and_copy
 from ..data.synthetic import SyntheticAVDataset
 from ..utils.code_version import code_version
 from ..utils.parser import parse_overrides
+from ..utils.precision import compute_dtype
 from .checkpoints import CheckpointManager, export_model, resolve_checkpoint_spec
 from .optim import EpochDivideLR, ReduceLROnPlateau, get_lr, make_optimizer, set_lr
 from .system import BF16_TRAINING, AVSystem, make_generator
@@ -69,14 +70,23 @@ def build_datasets(conf: Dict[str, Any]):
 
 
 def _refuse_bf16(conf: Dict[str, Any]) -> None:
-    if conf["audionet"].get("compute_dtype", "float32") != "float32":
+    """Raise, before anything is written, for a bf16 config whose training
+    is not ported: packed-TF or a unidirectional SRU (K4)."""
+    a = conf["audionet"]
+    if compute_dtype(a.get("compute_dtype", "float32")) != torch.bfloat16:
+        return
+    layers = a.get("audio_params", {}).get("layers", {}).values()
+    if a.get("packed_tf") or any(
+            isinstance(layer, dict) and layer.get("bidirectional") is False
+            for layer in layers):
         raise NotImplementedError(BF16_TRAINING)
 
 
 def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
     """The frozen lip backbone, the AVNet (weights from ``seed``), the
     optimizer of ``conf["optim"]`` and the ``AVSystem`` over them. A bf16
-    config (``audionet.compute_dtype``) raises: training is float32."""
+    config (``audionet.compute_dtype``) trains in bf16 (``AVSystem``); a
+    bf16 packed-TF or unidirectional one raises."""
     _refuse_bf16(conf)
     optim_conf = conf["optim"]
     tconf = conf["training"]
@@ -93,7 +103,8 @@ def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
 def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
          checkpoint: Optional[str] = None) -> Dict[str, Any]:
     """Train; returns the last epoch's metrics row (None if no epoch ran).
-    Raises NotImplementedError on a bf16 config before writing anything."""
+    Raises NotImplementedError on a bf16 config whose training is not
+    ported before writing anything."""
     _refuse_bf16(conf)
     device = torch.device(device)
     exp_dir = os.path.join(conf["log"].get("path", "log/tmp"),

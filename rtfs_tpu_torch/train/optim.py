@@ -2,11 +2,19 @@
 
 Counterpart of ``rtfs_tpu/train/optim.py``: the reference recipe is AdamW
 (lr 1e-3, weight decay 0.1) after a clip of the gradients' global norm to
-5.0 (``train.py:81-86,143``). The clip uses optax's formula
-(``clip_by_global_norm``: ``g * max_norm / ||g||`` once ``||g|| >=
-max_norm``), not ``torch.nn.utils.clip_grad_norm_``'s ``+1e-6``. Weight
-decay applies to every parameter, as ``optax.adamw`` without a mask does;
-``adam`` takes no weight decay, as ``optax.adam`` has none.
+5.0 (``train.py:81-86,143``), built there as optax's ``chain(
+clip_by_global_norm(5.0), inject_hyperparams(adamw)(lr))``. The port
+writes that chain out op by op (``OptaxAdam``), in the parameters' own
+dtype, with the constants rounded to it as JAX rounds them: so a bf16
+model trains on bf16 parameters with bf16 moments and no float32 master
+copy, as the JAX bench's ``train_bf16`` row does (``bench.py:321-345``),
+and its steps equal jitted optax's bit for bit on the same bf16 gradients
+(``tests/test_torch_bf16_train.py``). ``torch.optim.AdamW`` is not
+optax's formula. In float32 the steps agree with optax to a few float32
+ulps: XLA folds ``(mu / bc1) / (sqrt(nu / bc2) + eps)`` into one division
+and sums the squares in its own order. Weight decay applies to every
+parameter, as ``optax.adamw`` without a mask does; ``adam`` takes no
+weight decay, as ``optax.adam`` has none.
 """
 
 from __future__ import annotations
@@ -14,70 +22,127 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Optional
 
+import numpy as np
 import torch
 
-_FACTORIES = {
-    "adamw": lambda params, lr, wd: torch.optim.AdamW(
-        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd),
-    "adam": lambda params, lr, wd: torch.optim.Adam(
-        params, lr=lr, betas=(0.9, 0.999), eps=1e-8),
-}
+_DECAYS = {"adamw": True, "adam": False}
+# optax's defaults, which the reference recipe keeps
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a Python constant (a
+    weakly typed scalar) against an array of that dtype."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 @torch.no_grad()
 def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float):
-    """Scale every gradient by min(1, max_norm / ||g||) (optax formula),
-    on the device, without a host sync; returns the global norm."""
+    """optax's ``clip_by_global_norm`` on the gradients of ``params``, in
+    their dtype and on the device, without a host sync: each leaf's
+    squares summed in float32 and rounded to its dtype, the sums added in
+    leaf order (promoting as JAX does), the root taken; where the norm is
+    ``max_norm`` or more, each gradient becomes ``(g / norm) * max_norm``.
+    Returns the global norm."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return None
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    scale = torch.clamp(max_norm / norm, max=1.0)
-    torch._foreach_mul_(grads, scale)
+    sums = [torch.sum(g * g, dtype=torch.float32).to(g.dtype) for g in grads]
+    total = sums[0]
+    for part in sums[1:]:
+        total = total + part
+    norm = torch.sqrt(total)
+    keep = norm < _rounded(max_norm, norm.dtype)
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype)
+                            * _rounded(max_norm, g.dtype)))
     return norm
 
 
-class ClippedOptimizer:
-    """A torch optimizer behind a global-norm clip: ``step()`` clips the
-    gradients of every parameter, then steps."""
+class OptaxAdam:
+    """optax's ``chain(clip_by_global_norm(clip), adamw(lr, B1, B2, EPS,
+    weight_decay))`` (or ``adam``, ``weight_decay`` None) over ``params``,
+    op by op in each parameter's dtype with multi-tensor
+    (``torch._foreach_*``) ops: mu and nu in that dtype, the bias
+    corrections ``1 - b ** count`` in float32 and rounded to it, ``lr``
+    rounded to it. ``param_groups[0]["lr"]`` is the learning rate a
+    schedule sets."""
 
-    def __init__(self, inner: torch.optim.Optimizer,
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 weight_decay: Optional[float],
                  clip_grad_norm: Optional[float]):
-        self.inner = inner
+        self.params = list(params)
+        self.param_groups = [{"lr": lr, "params": self.params}]
+        self.weight_decay = weight_decay
         self.clip_grad_norm = clip_grad_norm
-        self.params = [p for g in inner.param_groups for p in g["params"]]
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
 
-    @property
-    def param_groups(self):
-        return self.inner.param_groups
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
 
-    def zero_grad(self, set_to_none: bool = True):
-        self.inner.zero_grad(set_to_none=set_to_none)
-
+    @torch.no_grad()
     def step(self):
         if self.clip_grad_norm is not None:
             clip_by_global_norm(self.params, self.clip_grad_norm)
-        self.inner.step()
+        self.count += 1
+        f32 = np.float32
+        bc = [f32(1) - f32(np.float64(f32(b)) ** self.count)
+              for b in (B1, B2)]
+        groups = {}
+        for p, m, v in zip(self.params, self.mu, self.nu):
+            if p.grad is not None:
+                groups.setdefault(p.dtype, []).append((p, p.grad, m, v))
+        for dt, rows in groups.items():
+            ps, gs, ms, vs = (list(r) for r in zip(*rows))
 
-    def state_dict(self):
-        return self.inner.state_dict()
+            def c(value, dt=dt):  # a constant, rounded to the group's dtype
+                return _rounded(value, dt)
 
-    def load_state_dict(self, state):
-        self.inner.load_state_dict(state)
+            # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+            torch._foreach_mul_(ms, c(B1))
+            torch._foreach_add_(ms, torch._foreach_mul(gs, c(1 - B1)))
+            g2 = torch._foreach_mul(gs, gs)
+            torch._foreach_mul_(g2, c(1 - B2))
+            torch._foreach_mul_(vs, c(B2))
+            torch._foreach_add_(vs, g2)
+            # (mu / bc1) / (sqrt(nu / bc2) + eps) [+ wd p], times -lr
+            den = torch._foreach_div(vs, c(bc[1]))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, c(EPS))
+            upd = torch._foreach_div(ms, c(bc[0]))
+            torch._foreach_div_(upd, den)
+            if self.weight_decay is not None:
+                torch._foreach_add_(upd, torch._foreach_mul(
+                    ps, c(self.weight_decay)))
+            torch._foreach_mul_(upd, -c(self.param_groups[0]["lr"]))
+            torch._foreach_add_(ps, upd)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "lr": self.param_groups[0]["lr"],
+                "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.param_groups[0]["lr"] = float(state["lr"])
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            for i, (m, t) in enumerate(zip(mine, theirs)):
+                mine[i] = t.to(m.device, m.dtype).clone()
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    optimizer: str = "adamw", lr: float = 1e-3,
                    weight_decay: float = 0.0,
-                   clip_grad_norm: Optional[float] = 5.0) -> ClippedOptimizer:
+                   clip_grad_norm: Optional[float] = 5.0) -> OptaxAdam:
     """String -> [global-norm clip] -> optimizer(lr, wd) over ``params``."""
     name = optimizer.lower()
-    if name not in _FACTORIES:  # rtfs_tpu's other names are not ported yet
+    if name not in _DECAYS:  # rtfs_tpu's other names are not ported yet
         raise NotImplementedError(f"optimizer '{optimizer}' is not ported; "
-                                  f"available: {sorted(_FACTORIES)}")
-    return ClippedOptimizer(_FACTORIES[name](list(params), lr, weight_decay),
-                            clip_grad_norm)
+                                  f"available: {sorted(_DECAYS)}")
+    return OptaxAdam(params, lr, weight_decay if _DECAYS[name] else None,
+                     clip_grad_norm)
 
 
 def get_lr(opt) -> float:

@@ -7,6 +7,16 @@ train mode with PIT neg-SNR (train) or in eval mode with PIT neg-SI-SDR
 global-norm clip and the optimizer step. BatchNorm statistics move in the
 train forward (``layers.BatchNorm``). One device; data-parallel training
 is not ported yet.
+
+A bf16 model (``compute_dtype`` bfloat16, ``config.build_avnet``) trains
+by the contract of the JAX bench's ``train_bf16`` row (``bench.py``):
+parameters and persistent buffers in bf16, rounded once at build; the
+gradients in bf16, through K1-K3's bf16 backward kernels; the clip and
+AdamW by optax's formula in the parameters' dtype, with bf16 moments and
+no float32 master copy (``train/optim.py``); the batch fed in float32, as
+JAX's ``AVSystem`` feeds it; the BatchNorm statistics float32 after the
+first step, as flax's. The packed-TF layout in bf16 (K5-K9 backward) and
+the unidirectional model (K4) are not ported in bf16 training.
 """
 
 from __future__ import annotations
@@ -41,8 +51,22 @@ def _unfold_speakers(ests, n_spk: int):
 
 
 BF16_TRAINING = (
-    "compute_dtype bfloat16 serves only: bf16 training (the K1-K3 backward "
-    "kernels in bf16 and a float32 master copy) is not ported")
+    "compute_dtype bfloat16 trains the standard layout only: bf16 training "
+    "of packed_tf (K5-K9 backward and the wgrads in bf16, ROADMAP Queue 2 "
+    "item 3) and of a unidirectional SRU (K4 in bf16, Queue 2 item 2) is "
+    "not ported")
+
+
+def _match_buffer_dtypes(model, state: dict) -> None:
+    """Give each floating buffer of ``model`` the dtype of its entry in
+    ``state``, so that ``load_state_dict`` keeps a bf16 run's float32
+    BatchNorm statistics rather than rounding them to bf16."""
+    for name, buf in model.named_buffers():
+        v = state.get(name)
+        if (buf is not None and torch.is_tensor(v) and v.is_floating_point()
+                and v.dtype != buf.dtype):
+            owner, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(owner), attr, buf.to(v.dtype))
 
 
 class AVSystem:
@@ -56,13 +80,16 @@ class AVSystem:
       optimizer: from ``train.optim.make_optimizer`` (default: AdamW 1e-3,
         no weight decay, clip 5.0 over ``model``'s parameters).
 
-    Training runs in float32 (or float64 on the CPU): a bf16 serving model
-    (``compute_dtype`` bfloat16) raises NotImplementedError.
+    Training runs in float32 (or float64 on the CPU), or in bf16 for a bf16
+    model of the standard layout (the module docstring); a bf16 packed-TF
+    model raises NotImplementedError.
     """
 
     def __init__(self, model, video_model=None, optimizer=None,
                  train_video_model: bool = False, online_mix: bool = False):
-        if getattr(model, "compute_dtype", None) == torch.bfloat16:
+        if (getattr(model, "compute_dtype", None) == torch.bfloat16
+                and getattr(model, "packed_tf", False)):
+            # (a unidirectional bf16 model already raises at build)
             raise NotImplementedError(BF16_TRAINING)
         if train_video_model:
             raise NotImplementedError(
@@ -77,10 +104,12 @@ class AVSystem:
         self.step = 0
 
     def _tensors(self, batch):
-        """The batch on the model's device in the model's dtype."""
+        """The batch on the model's device in the model's dtype, float32 for
+        a bf16 model (JAX feeds its bf16 model a float32 batch)."""
         p = next(self.model.parameters())
+        dtype = torch.float32 if p.dtype == torch.bfloat16 else p.dtype
         return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                   else v, dtype=p.dtype, device=p.device)
+                                   else v, dtype=dtype, device=p.device)
                 for k, v in batch.items() if k in ("mix", "src", "mouth")}
 
     def _forward_loss(self, batch, train: bool):
@@ -106,7 +135,7 @@ class AVSystem:
         self.model.train()
         L.set_dropout_generator(self.model, generator)
         loss = self._forward_loss(batch, train=True)
-        self.optimizer.zero_grad(set_to_none=True)
+        self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step()
         self.step += 1
@@ -131,6 +160,7 @@ class AVSystem:
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
+        _match_buffer_dtypes(self.model, state["model"])
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         if self.video_model is not None and state.get("video_model"):

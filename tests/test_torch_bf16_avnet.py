@@ -301,8 +301,10 @@ def test_bf16_norms_take_float32_statistics(norm):
 def test_bf16_refusals():
     """An SRU off the fused stack (K4) and batch_fold raise at build, and so
     does float16; packed_tf, with K5-K9's bf16 entries, builds and serves,
-    whether set in the config or on a built bf16 model; the train entry
-    raises before it writes anything."""
+    whether set in the config or on a built bf16 model. The standard bf16
+    model trains (AVSystem takes it); packed_tf in bf16 does not (no bf16
+    backward for K5-K9): AVSystem and the train entry raise, the entry
+    before it writes anything."""
     from rtfs_tpu_torch.train import main as train_main
     from rtfs_tpu_torch.train.system import AVSystem
 
@@ -321,9 +323,10 @@ def test_bf16_refusals():
     small["audionet"]["audio_params"]["repeats"] = 1
     small["audionet"]["video_params"]["repeats"] = 1
     model = build_avnet(small, device="cpu")
+    AVSystem(model)
+    model.packed_tf = True
     with pytest.raises(NotImplementedError):
         AVSystem(model)
-    model.packed_tf = True
     packed = build_avnet(dict(small, audionet=dict(small["audionet"],
                                                    packed_tf=True)),
                          device="cpu")
@@ -333,11 +336,13 @@ def test_bf16_refusals():
             out = m(torch.full((1, 3968), 0.1), torch.zeros(1, 8, 512))
         assert out.dtype == torch.float32 and out.shape == (1, 1, 3968)
         assert torch.isfinite(out).all()
+    small_packed = dict(small, audionet=dict(small["audionet"],
+                                              packed_tf=True))
     with pytest.raises(NotImplementedError):
-        train_main.build_system(small, "cpu")
+        train_main.build_system(small_packed, "cpu")
     with pytest.raises(NotImplementedError):
-        train_main.main(dict(small, log={"path": "/nonexistent/never",
-                                         "exp_name": "x"}), "cpu")
+        train_main.main(dict(small_packed, log={"path": "/nonexistent/never",
+                                                "exp_name": "x"}), "cpu")
 
 
 @pytest.mark.parametrize("packed", [False, True])

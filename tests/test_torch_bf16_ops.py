@@ -16,8 +16,9 @@ shapes cross a time chunk (``T_CHUNK + 9``), take odd batches and H 8 and
 - each side's max error against the float32 Pallas kernel on the same
   values widened, the port's no more than 1.5x JAX's.
 
-A bf16 op that autograd would record raises on the CPU too (the card's
-refusal is in tests/test_torch_cuda_kernels.py). ~25 s alone.
+A bf16 op that autograd records runs its plain bf16 backward on the CPU
+(K1-K3; tests/test_torch_bf16_train.py holds those against JAX's VJPs);
+a bf16 packed op raises. ~25 s alone.
 """
 
 import ml_dtypes
@@ -134,21 +135,54 @@ def test_k3_bf16_matches_pallas_interpret(length, c_in, c_out, bsz, k):
     _both_gates(got.float().numpy(), ref16, ref32, "K3")
 
 
-def test_bf16_ops_refuse_autograd_on_the_cpu():
-    """No bf16 backward: a recorded bf16 op raises, on the CPU as on the
-    card, rather than running a float32 or plain backward."""
+@pytest.mark.parametrize("op", ["k1", "k2", "k3", "packed"])
+def test_bf16_ops_refuse_autograd_on_the_cpu(op):
+    """K1, K2 and K3 take bf16 gradients, on the CPU through their plain
+    bf16 backward (the card's kernels are in tests/test_torch_cuda_kernels
+    .py): a recorded bf16 op's gradients are bf16 and equal the plain
+    backward's. A recorded bf16 packed op still raises (no bf16 backward
+    for K5-K9), rather than running a float32 or plain backward; not
+    recorded (serving) it runs."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
     rng = np.random.default_rng(3)
-    _, u = _bf(rng, (9, 32, 4))
     _, vb = _bf(rng, (8, 8))
-    with pytest.raises(NotImplementedError):
-        tfused.sru_dual_recurrence(u.requires_grad_(), u.detach(), vb)
-    _, x = _bf(rng, (9, 8, 4))
-    _, wt = _bf(rng, (48, 16))
-    with pytest.raises(NotImplementedError):
-        tfused.sru_hidden_layer(x, x, wt.requires_grad_(), vb)
-    _, x = _bf(rng, (9, 16, 4))
-    _, w = _bf(rng, (3, 8, 16))
-    with pytest.raises(NotImplementedError):
-        tconvt.convt1d_ola_tm(x.requires_grad_(), w)
-    with torch.no_grad():  # serving: not recorded, runs
-        assert tconvt.convt1d_ola_tm(x, w).dtype == torch.bfloat16
+    if op == "packed":
+        _, xp = _bf(rng, (2, 9, 4 * 8))
+        _, w = _bf(rng, (3, 3, 8))
+        with pytest.raises(NotImplementedError):
+            P.dw_conv_packed(xp.requires_grad_(), w, None, 4, 8, (1, 1),
+                             (1, 1))
+        with torch.no_grad():  # serving: not recorded, runs
+            assert P.dw_conv_packed(xp, w, None, 4, 8, (1, 1),
+                                    (1, 1)).dtype == torch.bfloat16
+        return
+    if op == "k1":
+        _, u_f = _bf(rng, (9, 32, 4))
+        _, u_r = _bf(rng, (9, 32, 4))
+        args, fwd = [u_f, u_r, vb], tfused.sru_dual_recurrence
+        c = tfused.sru_dual_recurrence_plain(u_f, u_r, vb, True)[2:]
+        plain = lambda dh: tfused.sru_dual_recurrence_bwd_plain(  # noqa: E731
+            u_f, u_r, vb, *c, *dh)
+    elif op == "k2":
+        _, x_f = _bf(rng, (9, 8, 5))
+        _, x_r = _bf(rng, (9, 8, 5))
+        _, wt = _bf(rng, (48, 16), 0.25)
+        args, fwd = [x_f, x_r, wt, vb], tfused.sru_hidden_layer
+        c = tfused.sru_hidden_layer_plain(x_f, x_r, wt, vb, True)[2:]
+        plain = lambda dh: tfused.sru_hidden_layer_bwd_plain(  # noqa: E731
+            x_f, x_r, wt, vb, *c, *dh)
+    else:
+        _, x = _bf(rng, (9, 16, 4))
+        _, w = _bf(rng, (3, 8, 16))
+        args, fwd = [x, w], tconvt.convt1d_ola_tm
+        plain = lambda g: tconvt.convt1d_ola_tm_bwd_plain(  # noqa: E731
+            *g, x, w)
+    ins = [a.clone().requires_grad_() for a in args]
+    outs = fwd(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [_bf(rng, tuple(o.shape), 0.1)[1] for o in outs]
+    grads = torch.autograd.grad(outs, ins, cots)
+    for g, w in zip(grads, plain(cots)):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        assert torch.equal(g, w)

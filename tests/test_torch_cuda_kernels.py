@@ -927,25 +927,53 @@ def test_bf16_k3_matches_plain(dev, length, c_in, c_out, bsz, k):
     assert torch.equal(got, K.convt1d_ola_tm(x, w))
 
 
-def test_bf16_refuses_gradients_and_takes_unaligned_views(dev):
-    """bf16 is inference-only: a bf16 op that autograd would record raises
-    NotImplementedError (no float32 or plain backward instead); a bf16
-    input whose data starts off a 16-byte boundary is copied, not
+@pytest.mark.parametrize("op", ["k1", "k2", "k3", "k4", "packed"])
+def test_bf16_refuses_gradients_and_takes_unaligned_views(dev, op):
+    """K1, K2 and K3 take bf16 gradients on the card, through their bf16
+    backward entries only (no float32 or plain backward instead); K4 takes
+    float32 only (TypeError) and a bf16 packed op that autograd would
+    record raises NotImplementedError (no bf16 backward for either yet); a
+    bf16 input whose data starts off a 16-byte boundary is copied, not
     misread."""
     from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
     from rtfs_tpu_torch.ops import sru_fused as S
+    from rtfs_tpu_torch.ops import sru_pallas as K4
 
     rng = np.random.default_rng(9)
     vb = _b(rng, (8, 32), dev, 0.3)
-    u = _b(rng, (9, 128, 70), dev).requires_grad_()
-    with pytest.raises(NotImplementedError):
-        S.sru_dual_recurrence(u, u.detach(), vb)
-    x = _b(rng, (9, 32, 70), dev)
-    with pytest.raises(NotImplementedError):
-        S.sru_hidden_layer(x, x, _b(rng, (192, 64), dev).requires_grad_(), vb)
-    with pytest.raises(NotImplementedError):
-        K.convt1d_ola_tm(_b(rng, (9, 64, 70), dev).requires_grad_(),
-                         _b(rng, (8, 64, 64), dev))
+    if op == "k4":
+        with pytest.raises(TypeError):
+            K4.sru_recurrence(_b(rng, (9, 96, 70), dev).requires_grad_(),
+                              _b(rng, (9, 32, 70), dev),
+                              _b(rng, (2, 32), dev), _b(rng, (2, 32), dev))
+        return
+    if op == "packed":
+        xp = _b(rng, (1, 9, 5 * 8), dev).requires_grad_()
+        w = _b(rng, (4, 4, 8), dev)
+        with pytest.raises(NotImplementedError):
+            P.dw_conv_packed(xp, w, None, 5, 8, (1, 2), (1, 2))
+        return
+    if op == "k1":
+        ins = [_b(rng, (9, 128, 70), dev), _b(rng, (9, 128, 70), dev), vb]
+        fwd, name = S.sru_dual_recurrence, "sru_dual_recurrence"
+    elif op == "k2":
+        ins = [_b(rng, (9, 32, 70), dev), _b(rng, (9, 32, 70), dev),
+               _b(rng, (192, 64), dev, 0.1), vb]
+        fwd, name = S.sru_hidden_layer, "sru_hidden_layer"
+    else:
+        ins = [_b(rng, (9, 64, 70), dev), _b(rng, (8, 64, 64), dev, 0.05)]
+        fwd, name = K.convt1d_ola_tm, "convt1d_ola_tm"
+    ins = [t.requires_grad_() for t in ins]
+    outs = fwd(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    kernel_lib.reset_launches()
+    grads = torch.autograd.grad(outs, ins, [torch.ones_like(o) for o in outs])
+    assert dict(kernel_lib.LAUNCHES) == {f"{name}_bwd_bf16": 1}
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    if op != "k1":
+        return
     big = _b(rng, (9 * 128 * 70 + 3,), dev)
     u_f = big[3:].view(9, 128, 70)  # 6 bytes off
     assert u_f.data_ptr() % 16 != 0
@@ -953,6 +981,149 @@ def test_bf16_refuses_gradients_and_takes_unaligned_views(dev):
     for g, w in zip(S.sru_dual_recurrence(u_f, u_r, vb),
                     S.sru_dual_recurrence_plain(u_f, u_r, vb)):
         _bf16_close(g, w, "K1 unaligned")
+
+
+def _bf16_grad_close(got, want, what="", scale=None):
+    """Two bf16 ulps of a gradient, the floor relative to its largest
+    value: |got - want| <= 2^-7 max(|want|, scale, 2^-6 max|want|)
+    (chip_smoke.bf16_grad_ulps)."""
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    g, w = got.float(), want.float()
+    mag = w.abs() if scale is None else torch.maximum(w.abs(), scale)
+    bound = 2.0 ** -7 * torch.clamp(mag, min=2.0 ** -6 * w.abs().max())
+    bad = (g - w).abs() > bound
+    assert not bad.any(), (what, int(bad.sum()), (g - w).abs().max().item())
+
+
+# the bs-1 and bs-4 training sites (freq L 57 / B 125 per item, time L 118
+# / B 64), ragged odd batches, H 8 and 48, T 1 and a T with an odd count
+@pytest.mark.parametrize("t_len,h,bsz", [
+    (57, 32, 125), (118, 32, 64), (57, 32, 500), (118, 32, 256),
+    (13, 8, 33), (5, 48, 7), (1, 32, 77), (37, 32, 131)])
+def test_bf16_k1_k2_backward_match_plain(dev, t_len, h, bsz):
+    """K1 and K2 backward in bf16 storage against their plain bf16
+    versions (two bf16 ulps; K2's dx scaled by its three roundings, the two
+    directions' dx rounded apart and their bf16 sum), against the float32
+    kernels on the same values widened (flat cosine above 0.999); two
+    calls give the same bits; the launches are the bf16 entries."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(12)
+    vb = _b(rng, (8, h), dev, 0.3)
+    dh = [_b(rng, (t_len, h, bsz), dev, 0.1) for _ in range(2)]
+    u = [_b(rng, (t_len, 4 * h, bsz), dev) for _ in range(2)]
+    x = [_b(rng, (t_len, h, bsz), dev, 0.5) for _ in range(2)]
+    wt = _b(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
+    c1 = S._k1_forward(*u, vb, with_c=True)[2:]
+    c2 = S._k2_forward(*x, wt, vb, with_c=True)[2:]
+    for kern, plain, args, entry in (
+            (S._k1_backward, S.sru_dual_recurrence_bwd_plain,
+             (*u, vb, *c1, *dh), "sru_dual_recurrence_bwd_bf16"),
+            (S._k2_backward, S.sru_hidden_layer_bwd_plain,
+             (*x, wt, vb, *c2, *dh), "sru_hidden_layer_bwd_bf16")):
+        kernel_lib.reset_launches()
+        got = kern(*args)
+        assert dict(kernel_lib.LAUNCHES) == {entry: 1}
+        want = plain(*args)
+        scales = [None] * len(got)
+        if entry == "sru_hidden_layer_bwd_bf16":
+            dxa, dxb = (t.to(torch.bfloat16).float().abs()
+                        for t in S.hidden_bwd_terms(*args)[:2])
+            scales[:2] = (dxa[:, :h] + dxb[:, :h] + want[0].float().abs(),
+                          dxa[:, h:] + dxb[:, h:] + want[1].float().abs())
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bf16_grad_close(g, w, f"{entry} {i}", scales[i])
+        f32 = kern(*(a.float() for a in args))
+        a = torch.cat([g.float().reshape(-1) for g in got]).double()
+        b = torch.cat([g.reshape(-1) for g in f32]).double()
+        assert (a @ b / (a.norm() * b.norm())).item() > 0.999
+        for p, q in zip(got, kern(*args)):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("length,c_in,c_out,bsz,k",
+                         [(57, 64, 64, 125, 8), (118, 64, 64, 256, 8),
+                          (13, 32, 48, 17, 5), (57, 160, 64, 125, 8),
+                          (7, 72, 130, 40, 16), (1, 64, 64, 77, 8)])
+def test_bf16_k3_backward_matches_plain(dev, length, c_in, c_out, bsz, k):
+    """K3 backward in bf16 storage against its plain bf16 version and the
+    float32 kernel on the widened values; two calls give the same bits
+    (wide input and output channels split over the grid included)."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    rng = np.random.default_rng(13)
+    x = _b(rng, (length, c_in, bsz), dev)
+    w = _b(rng, (k, c_out, c_in), dev, 0.1)
+    g = _b(rng, (length + k - 1, c_out, bsz), dev, 0.1)
+    kernel_lib.reset_launches()
+    got = K._backward(g, x, w)
+    assert dict(kernel_lib.LAUNCHES) == {"convt1d_ola_tm_bwd_bf16": 1}
+    for i, (a, b) in enumerate(zip(got, K.convt1d_ola_tm_bwd_plain(g, x, w))):
+        _bf16_grad_close(a, b, f"K3 {i}")
+    f32 = K._backward(g.float(), x.float(), w.float())
+    a = torch.cat([t.float().reshape(-1) for t in got]).double()
+    b = torch.cat([t.reshape(-1) for t in f32]).double()
+    assert (a @ b / (a.norm() * b.norm())).item() > 0.999
+    for p, q in zip(got, K._backward(g, x, w)):
+        assert torch.equal(p, q)
+
+
+def test_bf16_backward_refuses_mixed_dtypes(dev):
+    """A bf16 backward with one float32 operand raises: nothing is cast to
+    reach either kernel."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(14)
+    u = [_b(rng, (9, 32, 20), dev) for _ in range(2)]
+    c = [_b(rng, (9, 8, 20), dev) for _ in range(4)]
+    with pytest.raises(TypeError):
+        S._k1_backward(*u, _b(rng, (8, 8), dev), c[0].float(), *c[1:])
+    x = [_b(rng, (9, 8, 20), dev) for _ in range(2)]
+    with pytest.raises(TypeError):
+        S._k2_backward(*x, _t(rng, (48, 16), dev), _b(rng, (8, 8), dev), *c)
+    with pytest.raises(TypeError):
+        K._backward(_t(rng, (16, 8, 20), dev), _b(rng, (9, 16, 20), dev),
+                    _b(rng, (8, 8, 16), dev))
+
+
+def test_bf16_dual_path_rnn_gradients_card_match_cpu(dev):
+    """The preset's DualPathRNN block in bf16 (fused stack, K3 tail) on the
+    card against its CPU path (the plain bf16 versions), forward and
+    backward, at the bs-1 frequency-scan geometry: the launches are the
+    bf16 entries only; the parameters' and the input's gradients, as one
+    flat vector, within cosine 0.999 and relative L2 0.02."""
+    from rtfs_tpu_torch.models.avnet import init_weights
+    from rtfs_tpu_torch.models.rnn_blocks import DualPathRNN
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    m = DualPathRNN(64, 32, dim=4, num_layers=4)
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.to(torch.bfloat16)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((1, 64, 118, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    grads = {}
+    for d in ("cpu", dev):
+        m.to(d).zero_grad()
+        xi = x.detach().to(d).requires_grad_()
+        kernel_lib.reset_launches()
+        y = m(xi)
+        y.float().square().mean().backward()
+        if d != "cpu":
+            assert dict(kernel_lib.LAUNCHES) == {
+                "sru_dual_recurrence_fwd_bf16": 1,
+                "sru_hidden_layer_fwd_bf16": 3, "convt1d_ola_tm_fwd_bf16": 1,
+                "sru_dual_recurrence_bwd_bf16": 1,
+                "sru_hidden_layer_bwd_bf16": 3, "convt1d_ola_tm_bwd_bf16": 1}
+        grads[str(d)] = torch.cat(
+            [xi.grad.float().reshape(-1).cpu()]
+            + [p.grad.float().reshape(-1).cpu() for p in m.parameters()])
+    a, b = grads["cuda"].double(), grads["cpu"].double()
+    assert (a @ b / (a.norm() * b.norm())).item() > 0.999
+    assert ((a - b).norm() / b.norm()).item() < 0.02
 
 
 def test_bf16_dual_path_rnn_card_matches_cpu(dev):
