@@ -3715,33 +3715,35 @@ def _bf16_step_at(conf, batch, dev, rounded_f32=False) -> tuple:
     return loss, grads, stats
 
 
-def bf16_train_step(conf) -> None:
-    """Phase 14 (b): a bs-1 bf16 train step on the card against the same
-    step on the CPU port, from the same rounded seed-0 weights with
-    dropout 0, and against the card's float32 step of those weights: the
-    loss within BF16_STEP_LOSS_REL, the gradients as one flat vector by
-    cosine above BF16_STEP_COS and relative L2 below BF16_STEP_REL_L2; the
-    BatchNorm statistics come out float32."""
+def bf16_train_step(conf, label: str = "bf16 training") -> None:
+    """Phase 14 (b) (and 15 (c) for the unidirectional and packed models):
+    a bs-1 bf16 train step on the card against the same step on the CPU
+    port, from the same rounded seed-0 weights with dropout 0, and against
+    the card's float32 step of those weights: the loss within
+    BF16_STEP_LOSS_REL, the gradients as one flat vector by cosine above
+    BF16_STEP_COS and relative L2 below BF16_STEP_REL_L2; the BatchNorm
+    statistics come out float32."""
     from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
 
     data = SyntheticAVDataset(n_samples=1, seed=0)
     batch = data.collate([data[0]])
     card = _bf16_step_at(conf, batch, "cuda")
-    for label, ref in (("cpu bf16", _bf16_step_at(conf, batch, "cpu")),
-                       ("card float32", _bf16_step_at(conf, batch, "cuda",
-                                                      rounded_f32=True))):
+    for ref_label, ref in (("cpu bf16", _bf16_step_at(conf, batch, "cpu")),
+                           ("card float32", _bf16_step_at(
+                               conf, batch, "cuda", rounded_f32=True))):
         rel = abs(card[0] - ref[0]) / abs(ref[0])
         cos, rel_l2 = flat_cos_rel(card[1], ref[1])
-        print(f"bf16 training: card bf16 against {label}: loss "
+        print(f"{label}: card bf16 against {ref_label}: loss "
               f"{card[0]:.6f} / {ref[0]:.6f} (rel {rel:.3e}, gate "
               f"{BF16_STEP_LOSS_REL}); gradients cosine {cos:.6f} (gate > "
               f"{BF16_STEP_COS}), relative L2 {rel_l2:.4f} (gate < "
               f"{BF16_STEP_REL_L2})")
         if not (rel <= BF16_STEP_LOSS_REL and cos > BF16_STEP_COS
                 and rel_l2 < BF16_STEP_REL_L2):
-            raise AssertionError(f"bf16 train step far from {label}")
+            raise AssertionError(f"{label}: bf16 train step far from "
+                                 f"{ref_label}")
     dtypes = {str(b.dtype) for b in card[2].values()}
-    print(f"bf16 training: {len(card[2])} BatchNorm statistics after the "
+    print(f"{label}: {len(card[2])} BatchNorm statistics after the "
           f"step, dtypes {dtypes}")
     if not card[2] or dtypes != {"torch.float32"}:
         raise AssertionError(f"BatchNorm statistics after a bf16 step: "
@@ -3761,13 +3763,16 @@ BF16_TRAIN_GROUPS = {
 }
 
 
-def bf16_train(conf) -> dict:
-    """Phase 14 (c): TRAIN_STEPS bf16 train steps at batch 4 in turns with
-    as many float32 steps (two systems from seed 0, the preset's
-    dropout), each step launching exactly its dtype's K1/K2/K3 entries
-    (``BF16_TRAIN_LAUNCHES``: no float32 entry in a bf16 step); the losses
-    finite, the medians of steps 2 on, each dtype's peak device memory,
-    one profiled step of each. Returns the bf16 steps' launches."""
+def bf16_train(conf, expect=None, groups=None,
+               label: str = "bf16 training") -> dict:
+    """Phase 14 (c) (and 15 (d)): TRAIN_STEPS bf16 train steps at batch 4
+    in turns with as many float32 steps (two systems from seed 0, the
+    preset's dropout), each step launching exactly its dtype's entries
+    (``expect``: {"bf16": ..., "float32": ...}, by default K1/K2/K3's,
+    ``BF16_TRAIN_LAUNCHES`` and ``TRAIN_LAUNCHES``: no float32 entry in a
+    bf16 step); the losses finite, the medians of steps 2 on, each dtype's
+    peak device memory, one profiled step of each whose ``groups`` entry
+    (its kernel groups) is not None. Returns the bf16 steps' launches."""
     from rtfs_tpu_torch.data.synthetic import SyntheticAVDataset
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.train.main import build_system
@@ -3775,9 +3780,13 @@ def bf16_train(conf) -> dict:
 
     data = SyntheticAVDataset(n_samples=TRAIN_BATCH * TRAIN_STEPS, seed=0)
     batches = list(data.batches(TRAIN_BATCH, seed=0, epoch=0))
+    expect = expect or {"bf16": BF16_TRAIN_LAUNCHES,
+                        "float32": TRAIN_LAUNCHES}
+    groups = groups or {"bf16": BF16_TRAIN_GROUPS,
+                        "float32": MAIN_KERNEL_GROUPS}
     runs = {"bf16": (build_system(_conf_dtype(conf, "bfloat16"), "cuda", 0),
-                     BF16_TRAIN_LAUNCHES),
-            "float32": (build_system(conf, "cuda", 0), TRAIN_LAUNCHES)}
+                     expect["bf16"]),
+            "float32": (build_system(conf, "cuda", 0), expect["float32"])}
     gens = {tag: make_generator(0, "cuda") for tag in runs}
     times = {tag: [] for tag in runs}
     losses = {tag: [] for tag in runs}
@@ -3795,16 +3804,15 @@ def bf16_train(conf) -> dict:
             times[tag].append(time.perf_counter() - t0)
             peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
             if dict(kernel_lib.LAUNCHES) != expect:
-                raise AssertionError(f"bf16 training: a {tag} step launched "
+                raise AssertionError(f"{label}: a {tag} step launched "
                                      f"{dict(kernel_lib.LAUNCHES)}, expected "
                                      f"{expect}")
             launches[tag].update(kernel_lib.LAUNCHES)
     for tag, ts in times.items():
         vals = [v.item() for v in losses[tag]]
         if not all(math.isfinite(v) for v in vals):
-            raise AssertionError(f"bf16 training: non-finite {tag} loss "
-                                 f"{vals}")
-        print(f"bf16 training: {tag} {len(ts)} steps at batch {TRAIN_BATCH} "
+            raise AssertionError(f"{label}: non-finite {tag} loss {vals}")
+        print(f"{label}: {tag} {len(ts)} steps at batch {TRAIN_BATCH} "
               f"(in turns), losses {[round(v, 4) for v in vals]}; ms per "
               f"step of steps 2-{len(ts)} median="
               f"{statistics.median(ts[1:]) * 1e3:.3f} min="
@@ -3813,19 +3821,21 @@ def bf16_train(conf) -> dict:
               f"{peak[tag] / 2**20:.1f} MiB (both systems resident); "
               f"launches {dict(launches[tag])}")
     for tag, (system, _) in runs.items():
-        profile_step(system, batches[0], gens[tag], f"bf16 training {tag}",
-                     also=BF16_TRAIN_GROUPS if tag == "bf16"
-                     else MAIN_KERNEL_GROUPS)
+        if groups.get(tag) is not None:
+            profile_step(system, batches[0], gens[tag], f"{label} {tag}",
+                         also=groups[tag])
     return dict(launches["bf16"])
 
 
-def bf16_train_entry(conf, rng) -> dict:
-    """Phase 14 (d): the train entry on the synthetic set with
-    ``--audionet.compute_dtype bfloat16`` on the card, one epoch, then two
-    (it resumes from the first's checkpoint), launching only bf16 K1/K2/K3
-    entries; the checkpoint holds bf16 parameters and moments and float32
-    BatchNorm statistics; the exported ``best_model.pt`` served by the
-    serving entry from the run's ``conf.json``, exactly ``BF16_LAUNCHES``.
+def bf16_train_entry(conf, rng, extra=(), expect=None,
+                     label: str = "bf16 train entry") -> dict:
+    """Phase 14 (d) (and 15 (e), with the overrides ``extra``): the train
+    entry on the synthetic set with ``--audionet.compute_dtype bfloat16``
+    on the card, one epoch, then two (it resumes from the first's
+    checkpoint), launching only bf16 entries; the checkpoint holds bf16
+    parameters and moments and float32 BatchNorm statistics; the exported
+    ``best_model.pt`` served by the serving entry from the run's
+    ``conf.json``, exactly ``expect`` (``BF16_LAUNCHES`` by default).
     Returns the serving entry's launches."""
     import contextlib
     import io
@@ -3840,8 +3850,8 @@ def bf16_train_entry(conf, rng) -> dict:
 
     with tempfile.TemporaryDirectory() as root:
         args = ["--conf-dir", PRESET, "--audionet.compute_dtype", "bfloat16",
-                "--data.synthetic", "true", "--data.synthetic_samples", "8",
-                "--log.path", root]
+                *extra, "--data.synthetic", "true",
+                "--data.synthetic_samples", "8", "--log.path", root]
         rows = []
         for epochs in (1, 2):
             kernel_lib.reset_launches()
@@ -3852,22 +3862,21 @@ def bf16_train_entry(conf, rng) -> dict:
                                                    str(epochs)]))
             torch.cuda.synchronize()
             launched = dict(kernel_lib.LAUNCHES)
-            print(f"bf16 train entry: epochs={epochs} "
+            print(f"{label}: epochs={epochs} "
                   f"{time.perf_counter() - t0:.3f} s, last row "
                   f"{rows[-1]}, launches {launched}")
             if (rows[-1] is None or not math.isfinite(rows[-1]["val_loss"])
                     or not all(k.endswith("_bf16") for k in launched)):
-                raise AssertionError(f"bf16 train entry: {rows[-1]}, "
-                                     f"{launched}")
+                raise AssertionError(f"{label}: {rows[-1]}, {launched}")
             if epochs == 2 and "resumed from epoch 0" not in out.getvalue():
-                raise AssertionError("bf16 train entry did not resume")
+                raise AssertionError(f"{label} did not resume")
         exp_dir = os.path.join(root, conf["log"]["exp_name"])
         state = CheckpointManager(exp_dir).restore()
         kinds = collections.Counter(
             (n.rsplit(".", 1)[-1] if "running" in n else "other", str(v.dtype))
             for n, v in state["model"].items() if v.is_floating_point())
         mu = {str(m.dtype) for m in state["optimizer"]["mu"]}
-        print(f"bf16 train entry: checkpoint of epoch 1 at step "
+        print(f"{label}: checkpoint of epoch 1 at step "
               f"{state['step']}, model tensors by (kind, dtype) "
               f"{dict(kinds)}, moments {mu}")
         if (rows[-1]["epoch"] != 1 or mu != {"torch.bfloat16"}
@@ -3875,7 +3884,7 @@ def bf16_train_entry(conf, rng) -> dict:
                 != {"torch.bfloat16"}
                 or {d for (k, d) in kinds if k != "other"}
                 != {"torch.float32"}):
-            raise AssertionError("bf16 train entry: checkpoint dtypes")
+            raise AssertionError(f"{label}: checkpoint dtypes")
         write_wav(os.path.join(root, "mix.wav"),
                   (rng.standard_normal(SAMPLES) * 0.1).astype(np.float32),
                   16000)
@@ -3890,14 +3899,478 @@ def bf16_train_entry(conf, rng) -> dict:
             "--out-dir", os.path.join(root, "out")])
         torch.cuda.synchronize()
         launches = dict(kernel_lib.LAUNCHES)
-    print(f"bf16 train entry: the bundle served in "
+    expect = BF16_LAUNCHES if expect is None else expect
+    print(f"{label}: the bundle served in "
           f"{time.perf_counter() - t0:.3f} s, launches {launches}")
-    if launches != BF16_LAUNCHES:
-        raise AssertionError(f"bf16 bundle served with {launches}, expected "
-                             f"{BF16_LAUNCHES}")
+    if launches != expect:
+        raise AssertionError(f"{label}: bundle served with {launches}, "
+                             f"expected {expect}")
     if est.shape != (1, SAMPLES) or not np.isfinite(est).all():
-        raise AssertionError(f"bf16 bundle: bad output {est.shape}")
+        raise AssertionError(f"{label}: bad output {est.shape}")
     return launches
+
+
+# ---------------------------------------------------------------- phase 15
+# the unidirectional model in bf16, serving and training, and the packed
+# model's bf16 training: K4's bf16 entries both ways, K5-wgrad's and
+# pw-wgrad's on bf16 operands, and every packed dx through the bf16
+# forward entries; no float32 entry on either bf16 path
+
+
+def uni_bf16_launches(conf_uni, train: bool = False) -> dict:
+    """K4's bf16 launches per forward of the unidirectional model, or per
+    train step (a backward each)."""
+    n = k4_launches(conf_uni)
+    out = {"sru_recurrence_fwd_bf16": n}
+    if train:
+        out["sru_recurrence_bwd_bf16"] = n
+    return out
+
+
+def packed_bf16_train_launches(conf) -> dict:
+    """The bf16 entries a packed bf16 train step launches: K1-K3's both
+    ways and ``packed_train_launches`` under the bf16 names."""
+    return {f"{k}_bf16": v for k, v in
+            {**TRAIN_LAUNCHES, **packed_train_launches(conf)}.items()}
+
+
+# the device kernels of the two bf16 train steps whose share phase 15
+# prints, as the profiler names them
+BF16_UNI_GROUPS = {
+    "K4 bf16 forward": ("sru_rec_fwd_kernel<__nv_bfloat16>",),
+    "K4 bf16 backward": ("sru_scan_bwd_kernel<14>",),
+}
+BF16_PACKED_TRAIN_GROUPS = {
+    **BF16_TRAIN_GROUPS,
+    "K5-K9 bf16": (*(p for _, parts in PACKED_BF16_KERNELS.values()
+                     for p in parts[:1]),),
+    "K5-wgrad bf16": ("dw_wgrad_kernel<4, 4, __nv_bfloat16>",),
+    "pw-wgrad bf16": ("pw_wgrad_bf16_kernel",),
+    "wgrad sums": ("sum_partials_kernel",),
+}
+
+
+def _hold_bf16(name, tag, got, plain, f32, scale=None, cos_only=False):
+    """Hold one bf16 output against its plain bf16 version (two bf16 ulps,
+    ``bf16_grad_ulps``, ``scale`` the magnitudes its roundings may move)
+    and against the float32 kernel on the widened values: two bf16 ulps
+    of it rounded, or with ``cos_only`` the flat cosine above
+    BF16_BWD_COS. Returns (worst ratio, max abs error against plain)."""
+    ok, ratio, n_diff = bf16_grad_ulps(got, plain, scale)
+    err = (got.float() - plain.float()).abs().max().item()
+    line = (f"bf16 kernel {name} {tag}: against plain bf16 worst "
+            f"{ratio:.3f} of 2 ulps ({n_diff} of {got.numel()} differ)")
+    if cos_only:
+        cos, rel = flat_cos_rel([got], [f32])
+        line += f"; against float32 cosine {cos:.6f}, relative L2 {rel:.3e}"
+        ok = ok and cos > BF16_BWD_COS
+    else:
+        ok32, r32, _ = bf16_grad_ulps(got, f32.to(got.dtype), scale)
+        line += f"; against float32 rounded worst {r32:.3f} of 2 ulps"
+        ok = ok and ok32
+    print(line)
+    if not ok:
+        raise AssertionError(line)
+    return ratio, err
+
+
+def check_phase15_kernels(conf, geo, rng) -> dict:
+    """Phase 15 (a): K4 forward and backward in bf16 at the unidirectional
+    model's sites of a bs-1 and a bs-4 step (B 125 at the bs-1 freq site,
+    odd); K5-wgrad and pw-wgrad (K6's and K7's dW) on bf16 operands at the
+    packed bs-4 step's sites; each packed dx in bf16 (K5 on the flipped
+    taps, K6's through K7 and K7's through K6 on w^T, K8's through K9 and
+    K9's through K8 on the transposed maps) there. Each is held against
+    its plain bf16 version and the float32 kernel on the widened values
+    (``_hold_bf16``), called twice (bit-identical), timed with CUDA events
+    and the profiler's device time a call beside its bf16 bound, its plain
+    version, the float32 kernel and the library call where there is one
+    (K5-wgrad: ``convolution_backward`` of a grouped bf16 ``conv2d``;
+    pw-wgrad: one bf16 ``einsum``, a matrix product). Returns per new
+    kernel the worst error against plain and per-step sums (bs 4)."""
+    import torch.nn.functional as Fn
+
+    from rtfs_tpu_torch.ops import packed_tf as P
+    from rtfs_tpu_torch.ops import sru_pallas as K4
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    H = geo["H"]
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).to(bf)
+
+    names = ("sru_recurrence_bf16", "sru_recurrence_bwd_bf16",
+             "dw_conv_packed_wgrad_bf16", "pw_packed_wgrad_bf16")
+    res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+               "f32_ms": 0.0, "device_ms": 0.0, "f32_device_ms": 0.0}
+           for n in names}
+
+    def record(name, n, ms, plain_ms, b_ms, b_by, f32_ms, dev_ms, err,
+               lib_ms=None, f32_dev_ms=math.nan):
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                       ("f32_ms", f32_ms), ("device_ms", dev_ms),
+                       ("f32_device_ms", f32_dev_ms)):
+            r[key] += n * v
+        r["bound_by"] = b_by
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+
+    # K4 at the uni sites: a DualPathRNN of each site runs the layers once
+    # a repeat, K4_PER_SITE launches a forward (and a step's backward)
+    per_site = REPEATS * geo["layers"]
+    vb = torch.cat([t((2, H), math.sqrt(1.0 / H)), t((2, H), 0.1)])
+    for bs in (TRAIN_BATCH, 1):
+        for site in ("freq", "time"):
+            length, per_item = geo[site]
+            B = bs * per_item
+            tag = f"bs={bs} site={site} L={length} B={B}"
+            u, x = t((length, 3 * H, B)), t((length, H, B))
+            dh = t((length, H, B), 0.1)
+            fwd = lambda: K4._k4_forward(u, x, vb, False, True)  # noqa: E731
+            h, c = fwd()
+            again = fwd()
+            ph, pc = K4.sru_recurrence_plain(u, x, vb, with_c=True)
+            wide = tuple(a.float() for a in (u, x, vb))
+            fh, fc = K4._k4_forward(*wide, False, True)
+            if not all(torch.equal(a, b) for a, b in zip((h, c), again)):
+                raise AssertionError(f"K4 bf16 forward {tag}: two calls "
+                                     "differ")
+            err = max(_hold_bf16("sru_recurrence_bf16", f"{tag} h", h, ph,
+                                 fh)[1],
+                      _hold_bf16("sru_recurrence_bf16", f"{tag} c", c, pc,
+                                 fc)[1])
+            # u and xhw read, h and c written, bf16; ~20 flops a (step,
+            # unit, column) in float32
+            nbytes, nops = 2 * length * B * 6 * H, 20 * length * H * B
+            b_ms, b_by = bf16_bound_ms(nbytes, nops, 0)
+            ms = time_cuda(fwd, 30)
+            f32_ms = time_cuda(lambda: K4._k4_forward(*wide, False, True), 30)
+            plain_ms = time_cuda(lambda: K4.sru_recurrence_plain(
+                u, x, vb, with_c=True), 2, warmup=1)
+            dev_ms = _device_ms_a_call(fwd)
+            f32_dev_ms = _device_ms_a_call(
+                lambda: K4._k4_forward(*wide, False, True))
+            print(f"bf16 kernel sru_recurrence_bf16 {tag}: ms={ms:.5f} "
+                  f"device ms a call={dev_ms:.5f} bound_ms={b_ms:.5f} "
+                  f"({b_by}) share of bound={b_ms / ms:.3f} plain_ms="
+                  f"{plain_ms:.5f} float32 kernel ms={f32_ms:.5f} (device "
+                  f"{f32_dev_ms:.5f}) library_ms=none; two calls "
+                  "bit-identical")
+            if bs == TRAIN_BATCH:
+                record("sru_recurrence_bf16", per_site, ms, plain_ms, b_ms,
+                       b_by, f32_ms, dev_ms, err, None, f32_dev_ms)
+
+            bwd = lambda: K4._k4_backward(u, x, vb, c, dh, False)  # noqa
+            got, again = bwd(), bwd()
+            want = K4.sru_recurrence_bwd_plain(u, x, vb, c, dh)
+            f32 = K4._k4_backward(*wide, c.float(), dh.float(), False)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K4 bf16 backward {tag}: two calls "
+                                     "differ")
+            err = 0.0
+            for i, (g, w, f) in enumerate(zip(got, want, f32)):
+                # d(v, b) rounded a batch column (JAX's reduction): against
+                # float32's single rounding by cosine, as phase 14's
+                err = max(err, _hold_bf16("sru_recurrence_bwd_bf16",
+                                          f"{tag} output {i}", g, w, f,
+                                          cos_only=i == 2)[1])
+            # u, xhw, c, dh read, du, dxhw written, bf16; ~35 flops
+            nbytes, nops = 2 * length * B * 10 * H, 35 * length * H * B
+            b_ms, b_by = bf16_bound_ms(nbytes, nops, 0)
+            ms = time_cuda(bwd, 30)
+            f32_ms = time_cuda(lambda: K4._k4_backward(
+                *wide, c.float(), dh.float(), False), 30)
+            plain_ms = time_cuda(lambda: K4.sru_recurrence_bwd_plain(
+                u, x, vb, c, dh), 2, warmup=1)
+            dev_ms = _device_ms_a_call(bwd)
+            f32_dev_ms = _device_ms_a_call(lambda: K4._k4_backward(
+                *wide, c.float(), dh.float(), False))
+            print(f"bf16 kernel sru_recurrence_bwd_bf16 {tag}: ms={ms:.5f} "
+                  f"device ms a call={dev_ms:.5f} bound_ms={b_ms:.5f} "
+                  f"({b_by}) share of bound={b_ms / ms:.3f} plain_ms="
+                  f"{plain_ms:.5f} float32 kernel ms={f32_ms:.5f} (device "
+                  f"{f32_dev_ms:.5f}) library_ms=none; two calls "
+                  "bit-identical")
+            if bs == TRAIN_BATCH:
+                record("sru_recurrence_bwd_bf16", per_site, ms, plain_ms,
+                       b_ms, b_by, f32_ms, dev_ms, err, None, f32_dev_ms)
+
+    # the packed bs-4 step's sites
+    g = packed_geometry(conf)
+    T, Fq, C, Cb, k = (g[n] for n in ("T", "F", "C", "Cb", "k"))
+    T2, F2 = g["T2"], g["F2"]
+    r = conf["audionet"]["audio_params"]["repeats"]
+    bs = TRAIN_BATCH
+    same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    pre = ((k - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
+    xp, g_same = t((bs, T, Fq * C)), t((bs, T, Fq * C))
+    g_pre = t((bs, t_conv, f_conv * C))
+    x4, gp = t((bs, Cb, T, Fq)), t((bs, T, Fq * C))   # K6's dW
+    xq, g4 = t((bs, T, Fq * C)), t((bs, Cb, T, Fq))   # K7's dW
+    n_x, n_s, m = bs * T * Fq * C, bs * t_conv * f_conv * C, bs * T * Fq
+
+    def cl(v, t_len, f_len):  # a packed map as a channels-last (B, C, T, F)
+        return v.view(bs, t_len, f_len, C).permute(0, 3, 1, 2)
+
+    padded = {pads: Fn.pad(cl(xp, T, Fq), (*pads, *pads)).contiguous(
+        memory_format=torch.channels_last) for pads in (same, pre)}
+
+    def dw_lib(pads, gg, t_len, f_len):
+        return lambda: torch.nn.grad.conv2d_weight(
+            padded[pads], (C, 1, k, k), cl(gg, t_len, f_len), groups=C)
+
+    pw_ops = 2 * m * Cb * C
+    pw_bytes = 2 * m * (Cb + C) + 4 * Cb * C
+    # (kernel, site, launches a step, operands, call, plain call, bytes,
+    #  SIMT flops, tensor-core flops, library call)
+    wcases = [
+        ("dw_conv_packed_wgrad_bf16", "same", 3 * r, (xp, g_same),
+         lambda a, b: P.dw_conv_packed_wgrad(a, b, Fq, C, (k, k), same,
+                                             same),
+         lambda a, b: P.dw_conv_packed_wgrad_plain(
+             a.float(), b.float(), Fq, C, (k, k), same, same),
+         2 * 2 * n_x + 4 * k * k * C, 2 * k * k * n_x, 0,
+         dw_lib(same, g_same, T, Fq)),
+        ("dw_conv_packed_wgrad_bf16", "pre-select", r, (xp, g_pre),
+         lambda a, b: P.dw_conv_packed_wgrad(a, b, Fq, C, (k, k), pre, pre),
+         lambda a, b: P.dw_conv_packed_wgrad_plain(
+             a.float(), b.float(), Fq, C, (k, k), pre, pre),
+         2 * (n_x + n_s) + 4 * k * k * C, 2 * k * k * n_s, 0,
+         dw_lib(pre, g_pre, t_conv, f_conv)),
+        ("pw_packed_wgrad_bf16", "K6 dW", r, (x4, gp), P.pw_packed_wgrad,
+         P.pw_packed_wgrad_plain, pw_bytes, pw_ops, pw_ops,
+         lambda: torch.einsum("bitf,btfo->io", x4, gp.view(bs, T, Fq, C))),
+        ("pw_packed_wgrad_bf16", "K7 dW", r, (xq, g4), P.pw_packed_wgrad,
+         P.pw_packed_wgrad_plain, pw_bytes, pw_ops, pw_ops,
+         lambda: torch.einsum("btfi,botf->io", xq.view(bs, T, Fq, C), g4)),
+    ]
+    for name, site, n, ops_in, kern, plain, nbytes, nops, tc_ops, lib in \
+            wcases:
+        tag = f"bs={bs} site={site}"
+        got, again = kern(*ops_in), kern(*ops_in)
+        want = plain(*ops_in)
+        f32 = kern(*(a.float() for a in ops_in))
+        if got.dtype != torch.float32 or not torch.equal(got, again):
+            raise AssertionError(f"{name} {tag}: a float32 dW, two calls "
+                                 "the same bits")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        err32 = (got - f32).abs().max().item()
+        print(f"bf16 kernel {name} {tag}: float32 dW against plain "
+              f"{err:.3e}, against the float32 kernel {err32:.3e} of max "
+              f"{scale:.3e} (tol {PACKED_WGRAD_REL_TOL:.0e} x max)")
+        if not max(err, err32) <= PACKED_WGRAD_REL_TOL * scale:
+            raise AssertionError(f"{name} {tag}: far from plain or float32")
+        _hold_bf16(name, f"{tag} rounded", got.to(bf), want.to(bf),
+                   f32)
+        b_ms, b_by = bf16_bound_ms(nbytes, nops, tc_ops)
+        ms = time_cuda(lambda: kern(*ops_in), 30)
+        f32_ms = time_cuda(lambda: kern(*(a.float() for a in ops_in)), 30)
+        plain_ms = time_cuda(lambda: plain(*ops_in), 3, warmup=1)
+        lib_ms = time_cuda(lib, 30)
+        dev_ms = _device_ms_a_call(lambda: kern(*ops_in))
+        wide = tuple(a.float() for a in ops_in)
+        f32_dev_ms = _device_ms_a_call(lambda: kern(*wide))
+        print(f"bf16 kernel {name} {tag}: ms={ms:.5f} device ms a call="
+              f"{dev_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) share of bound="
+              f"{b_ms / ms:.3f} plain_ms={plain_ms:.5f} float32 kernel ms="
+              f"{f32_ms:.5f} (device {f32_dev_ms:.5f}) library_ms="
+              f"{lib_ms:.5f}")
+        record(name, n, ms, plain_ms, b_ms, b_by, f32_ms, dev_ms, err,
+               lib_ms, f32_dev_ms)
+
+    # every packed dx in bf16, through the bf16 forward entries
+    w_dw = t((k, k, C), 0.25)
+    w6 = t((Cb, C), Cb ** -0.5)   # K6: Cb -> C
+    w7 = t((C, Cb), C ** -0.5)    # K7: C -> Cb
+    pool = P.cached_map("pool", T, T2, Fq, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, Fq)
+    dxcases = [
+        ("K5 dx (same)", lambda a: P._dw_forward(
+            a, torch.flip(w_dw, (0, 1)), None, Fq, C,
+            (k - 1 - same[0], k - 1 - same[1]),
+            (k - 1 - same[0], k - 1 - same[1])),
+         P.dw_conv_packed_plain, g_same, (torch.flip(w_dw, (0, 1)), None,
+                                          Fq, C,
+                                          (k - 1 - same[0], k - 1 - same[1]),
+                                          (k - 1 - same[0],
+                                           k - 1 - same[1]))),
+        ("K6 dx (K7 on w^T)", lambda a: P._unproj_forward(a, w6.t(), None,
+                                                          Fq),
+         P.pw_unproj_packed_plain, gp, (w6.t(), None, Fq)),
+        ("K7 dx (K6 on w^T)", lambda a: P._proj_forward(a, w7.t(), None),
+         P.pw_proj_packed_plain, g4, (w7.t(), None)),
+        ("K8 dx (pool)", lambda a: P._up_forward(a, pool.transposed(Fq)),
+         P.spatial_up_packed_plain, t((bs, C, T2, F2)),
+         (pool.transposed(Fq),)),
+        ("K8 dx (select)", lambda a: P._up_forward(
+            a, sel.transposed(f_conv)),
+         P.spatial_up_packed_plain, t((bs, C, T2, F2)),
+         (sel.transposed(f_conv),)),
+        ("K9 dx", lambda a: P._down_forward(a, up.transposed(F2), C),
+         lambda a, smap: P.spatial_down_packed_plain(a, smap, C),
+         t((bs, T, Fq * C)), (up.transposed(F2),)),
+    ]
+    for label, kern, plain, cot, pargs in dxcases:
+        tag = f"bs={bs}"
+        got, again = kern(cot), kern(cot)
+        want = plain(cot, *pargs)
+        wide = tuple(a.float() if torch.is_tensor(a) else a for a in pargs)
+        if label.startswith(("K5", "K6", "K7")):
+            f32_kern = {"K5": P._dw_forward, "K6": P._unproj_forward,
+                        "K7": P._proj_forward}[label[:2]]
+            f32 = f32_kern(cot.float(), *wide)
+        elif label.startswith("K8"):
+            f32 = P._up_forward(cot.float(), *wide)
+        else:
+            f32 = P._down_forward(cot.float(), *wide, C)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two calls differ")
+        scale = None
+        if label == "K8 dx (pool)":
+            # JAX rounds each source's term and adds them in bf16: each
+            # rounding may move by an ulp of its term
+            tens = pool.transposed(Fq).tensors(dev)
+            y = torch.einsum("ts,bcsu->btuc", tens["m"], cot.float())
+            scale = sum((y.index_select(2, tens["fs"][:, j].long())
+                         * tens["fw"][:, j, None]).abs()
+                        for j in range(tens["fs"].shape[1])).reshape(
+                            got.shape) + want.float().abs()
+        _hold_bf16(label, tag, got, want, f32, scale)
+        ms = time_cuda(lambda: kern(cot), 30)
+        print(f"bf16 packed {label} {tag}: ms={ms:.5f} (a bf16 forward "
+              "entry, its launches counted with the forwards')")
+
+    for name, e in res.items():
+        print(f"bf16 kernel {name}: per bs-{TRAIN_BATCH} step ms="
+              f"{e['ms']:.4f} device ms={e['device_ms']:.4f} bound_ms="
+              f"{e['bound_ms']:.4f} ({e['bound_by']}) share of bound="
+              f"{e['bound_ms'] / e['ms']:.3f} plain_ms={e['plain_ms']:.2f} "
+              f"float32 kernel ms={e['f32_ms']:.4f} (device "
+              f"{e['f32_device_ms']:.4f}) library_ms={e['library_ms']}")
+        del e["f32_ms"], e["device_ms"], e["f32_device_ms"]
+    return res
+
+
+def uni_bf16_serve(conf_uni, rng) -> dict:
+    """Phase 15 (b): ``separate_sample`` on the bf16 unidirectional
+    RTFS-Net-4 (seed-0 weights rounded to bf16) at batch 1 and 8 on the
+    card: exactly ``uni_bf16_launches`` a forward and no other entry; the
+    bs-1 output against the same bf16 model on the CPU within
+    BF16_MAX_ERR_REL of max and BF16_SISNR_DB, both batches against the
+    card's float32 forward on the same weights at BF16_VS_F32_SISNR_DB;
+    request medians of bf16 and float32 in turns and one profiled bs-8
+    bf16 forward. Returns the launch counts."""
+    from rtfs_tpu_torch.config import build_avnet
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.utils.separator import separate_sample
+
+    conf16 = _conf_dtype(conf_uni, "bfloat16")
+    model16 = build_avnet(conf16, device="cuda", seed=0)
+    model32 = build_avnet(conf_uni, device="cuda", seed=0)
+    cpu16 = build_avnet(conf16, device="cpu", seed=0)
+    per_fwd = uni_bf16_launches(conf_uni)
+    requests = {}
+    for bs in (1, 8):
+        wav = (rng.standard_normal((bs, SAMPLES)) * 0.1).astype(np.float32)
+        mouth = rng.standard_normal((bs, VIDEO_FRAMES, 512)).astype(np.float32)
+        requests[bs] = (wav, mouth)
+
+    # the main path: counts from 0, the bs-1 and bs-8 requests, read
+    kernel_lib.reset_launches()
+    outs = {bs: separate_sample(model16, *requests[bs]) for bs in (1, 8)}
+    torch.cuda.synchronize()
+    launches = dict(kernel_lib.LAUNCHES)
+    print(f"uni bf16 serving: launches over 2 forwards: {launches}")
+    if launches != {k: 2 * v for k, v in per_fwd.items()}:
+        raise AssertionError(f"uni bf16 serving: launches {launches}, "
+                             f"expected {per_fwd} a forward and no other")
+    for bs, (wav, mouth) in requests.items():
+        got = outs[bs]
+        if (got.dtype != np.float32 or got.shape != (bs, 1, SAMPLES)
+                or not np.isfinite(got).all()):
+            raise AssertionError(f"uni bf16 serving bs {bs}: bad output")
+        f32 = separate_sample(model32, wav, mouth)
+        vs32 = sisnr_db(got[:, 0], f32[:, 0])
+        line = (f"uni bf16 serving: bs={bs} card bf16 against card float32 "
+                f"SI-SNR {vs32:.2f} dB (gate {BF16_VS_F32_SISNR_DB})")
+        if bs == 1:
+            t0 = time.perf_counter()
+            want = separate_sample(cpu16, wav, mouth)
+            cpu_s = time.perf_counter() - t0
+            err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+            snr = sisnr_db(got[:, 0], want[:, 0])
+            line += (f"; against the CPU's bf16 max_abs_err {err:.3e} of "
+                     f"max|out| (gate {BF16_MAX_ERR_REL}), SI-SNR {snr:.2f} "
+                     f"dB (gate {BF16_SISNR_DB}); CPU bf16 forward "
+                     f"{cpu_s:.3f} s")
+            if not (err <= BF16_MAX_ERR_REL and snr >= BF16_SISNR_DB):
+                raise AssertionError(line)
+        print(line)
+        if not vs32 >= BF16_VS_F32_SISNR_DB:
+            raise AssertionError(line)
+    for bs, iters in ((1, 6), (8, 4)):
+        wav, mouth = requests[bs]
+        times = {"float32": [], "bf16": []}
+        for mdl in (model32, model16):  # warm
+            separate_sample(mdl, wav, mouth)
+        for i in range(2 * iters):  # float32, bf16, bf16, float32, ...
+            key = "bf16" if (i % 4) in (1, 2) else "float32"
+            t0 = time.perf_counter()
+            separate_sample(model16 if key == "bf16" else model32, wav, mouth)
+            times[key].append(time.perf_counter() - t0)
+        for key, ts in times.items():
+            med = statistics.median(ts)
+            print(f"uni bf16 serving latency: bs={bs} {key} median="
+                  f"{med * 1e3:.3f} ms min={min(ts) * 1e3:.3f} ms max="
+                  f"{max(ts) * 1e3:.3f} ms over {len(ts)}; audio s/s="
+                  f"{bs * SAMPLES / 16000 / med:.3f}")
+    groups = {name: (parts,) for name, parts in BF16_UNI_GROUPS.items()}
+    _profile_forward(model16, *requests[8], "uni bf16 serving profile: bs=8",
+                     groups)
+    return launches
+
+
+def uni_and_packed_bf16(conf, conf_uni, geo, rng) -> tuple:
+    """Phase 15: (a) the kernels; (b) uni bf16 serving; (c) a bs-1 bf16
+    train step of each model against the CPU's and the card's float32;
+    (d) bs-4 steps of bf16 and float32 in turns for each, exact bf16
+    launches a step; (e) the train entry in bf16 for each, its bundle
+    served. Returns the kernels' results and the launches of the bs-4
+    bf16 steps (uni, packed) and of uni bf16 serving."""
+    kernels = phase("15a bf16 K4, wgrads and packed dx",
+                    check_phase15_kernels, conf, geo, rng)
+    served = phase("15b uni bf16 serving", uni_bf16_serve, conf_uni, rng)
+    pconf = dict(conf, audionet=dict(conf["audionet"], packed_tf=True))
+    phase("15c uni bf16 train step", bf16_train_step, conf_uni,
+          "uni bf16 training")
+    phase("15c packed bf16 train step", bf16_train_step, pconf,
+          "packed bf16 training")
+    per_step = uni_bf16_launches(conf_uni, train=True)
+    # the float32 steps' device time: phases 9 and 10's profiled steps
+    uni_trained = phase(
+        "15d uni bf16 training", bf16_train, conf_uni,
+        {"bf16": per_step,
+         "float32": {k[:-len("_bf16")]: v for k, v in per_step.items()}},
+        {"bf16": BF16_UNI_GROUPS, "float32": None}, "uni bf16 training")
+    packed_trained = phase(
+        "15d packed bf16 training", bf16_train, pconf,
+        {"bf16": packed_bf16_train_launches(conf),
+         "float32": {**TRAIN_LAUNCHES, **packed_train_launches(conf)}},
+        {"bf16": BF16_PACKED_TRAIN_GROUPS, "float32": None},
+        "packed bf16 training")
+    phase("15e uni bf16 train entry", bf16_train_entry, conf_uni, rng,
+          UNI_OVERRIDES, uni_bf16_launches(conf_uni), "uni bf16 train entry")
+    phase("15e packed bf16 train entry", bf16_train_entry, pconf, rng,
+          ("--audionet.packed_tf", "true"), packed_bf16_launches(conf),
+          "packed bf16 train entry")
+    return kernels, uni_trained, packed_trained, served
 
 
 def main() -> int:
@@ -3961,6 +4434,9 @@ def main() -> int:
     phase("14b bf16 train step", bf16_train_step, conf)
     bf16_train_launches = phase("14c bf16 training", bf16_train, conf)
     phase("14d bf16 train entry", bf16_train_entry, conf, rng)
+    k15, uni16_trained, packed16_trained, uni16_served = phase(
+        "15 unidirectional and packed bf16", uni_and_packed_bf16, conf,
+        conf_uni, geo, rng)
     phase("7b K6, K8/K9 device time", profile_map_kernels, conf, rng)
     phase("9b, 10e K5-wgrad, pw-wgrad, K4 forward device time",
           profile_redesigned, conf, geo, rng)
@@ -4030,6 +4506,18 @@ def main() -> int:
         "convt1d_ola_tm_bwd_bf16": ("rtfs_tpu_torch/csrc/convt_tm.cu",
                                     "rtfs_tpu/ops/convt_tm.py:59",
                                     "convt1d_ola_tm_bwd_bf16"),
+        "sru_recurrence_bf16": ("rtfs_tpu_torch/csrc/sru_pallas.cu",
+                                "rtfs_tpu/ops/sru_pallas.py:53",
+                                "sru_recurrence_fwd_bf16"),
+        "sru_recurrence_bwd_bf16": ("rtfs_tpu_torch/csrc/sru_scan.cuh",
+                                    "rtfs_tpu/ops/sru_pallas.py:91",
+                                    "sru_recurrence_bwd_bf16"),
+        "dw_conv_packed_wgrad_bf16": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                                      "rtfs_tpu/ops/packed_tf.py:305",
+                                      "dw_conv_packed_wgrad_bf16"),
+        "pw_packed_wgrad_bf16": ("rtfs_tpu_torch/csrc/packed_tf.cu",
+                                 "rtfs_tpu/ops/packed_tf.py:533",
+                                 "pw_packed_wgrad_bf16"),
     }
     for name, (fn, _) in PACKED_BF16_KERNELS.items():
         src, rep = sources[name[:-len("_bf16")]][:2]
@@ -4067,7 +4555,15 @@ def main() -> int:
             entry = {"launches": packed16_launches.get(fn, 0),
                      **packed16[name], "per_forward_at_batch": 1,
                      "launches_in_packed_bf16_entry":
-                         packed16_entry.get(fn, 0)}
+                         packed16_entry.get(fn, 0),
+                     "launches_in_packed_bf16_training":
+                         packed16_trained.get(fn, 0)}
+        elif name in k15:  # phase 15: the uni and packed bf16 steps, bs 4
+            entry = {"launches": (uni16_trained.get(fn, 0)
+                                  + packed16_trained.get(fn, 0)),
+                     **k15[name], "per_train_step_at_batch": TRAIN_BATCH}
+            if name == "sru_recurrence_bf16":
+                entry["launches_in_uni_bf16_serving"] = uni16_served.get(fn, 0)
         elif name in bf16_bwd:  # bf16 backward: phase 14's bf16 steps
             entry = {"launches": bf16_train_launches.get(fn, 0),
                      **bf16_bwd[name], "per_train_step_at_batch": TRAIN_BATCH}

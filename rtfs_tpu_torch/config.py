@@ -15,7 +15,6 @@ import torch
 
 from .models.avnet import AVNet, init_weights
 from .models.video import FRCNNVideoModel
-from .ops.sru import SRU
 from .utils.precision import cast_params, compute_dtype
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
@@ -67,10 +66,10 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
     the float32 weights drawn, then rounded to bf16 by ``cast_params`` (JAX's
     ``replace(model, compute_dtype="bfloat16")`` with ``cast_params``); a
     float32 state loaded into it later is rounded the same way. bf16 serves
-    the standard layout through K1-K3's bf16 kernels and, with
-    ``packed_tf``, the packed layout through K1-K3's and K5-K9's; it
-    raises NotImplementedError with any SRU off the fused stack
-    (unidirectional, through K4).
+    and trains the standard layout through K1-K3's bf16 kernels, with
+    ``packed_tf`` the packed layout through K1-K3's and K5-K9's, and a
+    model whose SRUs are off the fused stack (unidirectional) through
+    K4's.
 
     Raises if ``device`` is CUDA and no GPU is present: there is no CPU
     fallback. Pass ``device="cpu"`` for the CPU path.
@@ -94,11 +93,6 @@ def build_avnet(conf: Dict[str, Any], device: str | torch.device = "cuda",
         packed_tf=a.get("packed_tf", False),
         compute_dtype=dtype,
     )
-    if bf16 and any(isinstance(m, SRU) and not m.uses_fused_stack
-                    for m in model.modules()):
-        raise NotImplementedError(
-            "compute_dtype bfloat16 with an SRU off the fused stack "
-            "(unidirectional, through K4): K4 takes float32 only")
     init_weights(model, torch.Generator().manual_seed(seed))
     if bf16:
         cast_params(model)

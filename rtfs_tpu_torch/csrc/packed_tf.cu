@@ -1,9 +1,11 @@
 // Packed time-frequency kernels for Hopper (sm_90a), float32, forward and
-// weight gradients, and the forwards also in bf16 storage (the Pallas
-// kernels run in the caller's dtype; bf16 is the JAX package's serving
-// mode). The backward's dx passes are the forward kernels themselves (K5
-// with flipped taps, K6 <-> K7, K8 <-> K9 through the transposed maps);
-// see rtfs_tpu_torch/ops/packed_tf.py.
+// weight gradients, and both also in bf16 storage (the Pallas kernels run
+// in the caller's dtype: a bf16 packed model serves and trains in bf16).
+// The backward's dx passes are the forward kernels themselves (K5 with
+// flipped taps, K6 <-> K7, K8 <-> K9 through the transposed maps); see
+// rtfs_tpu_torch/ops/packed_tf.py. The weight gradients on bf16 operands
+// (dw_conv_packed_wgrad_bf16, pw_packed_wgrad_bf16) write a float32 dW,
+// as JAX's wgrad kernels do; the caller rounds it once.
 //
 // bf16 storage (the *_fwd_bf16 entries): x, w, bias and out bf16, every
 // sum float32, each output rounded once as it is stored. K5, K8 and K9
@@ -164,10 +166,16 @@
 //     row's in flight while the threads take this one: a row adds one x
 //     row (the tap rows before it are in the ring) and one g row. kT and
 //     kF are template arguments at the presets' 4 x 4, runtime values
-//     otherwise (kF in groups of kWgTaps taps).
+//     otherwise (kF in groups of kWgTaps taps). dw_conv_packed_wgrad_bf16
+//     is the same kernel on bf16 x and g: its ring holds 8-byte chunks of
+//     4 bf16 channels (8-byte copies; value by value with plain loads
+//     where C % 4 != 0), widened as they are read; the sums float32.
 //
 // pw-wgrad  pw_packed_wgrad     replaces _make_pw_wgrad_kernel
-//     (pallas_call in _pw_wgrad_impl): dW (Ca, Cb) = sum_p a[p,:]^T g[p,:]
+//     (pallas_call in _pw_wgrad_impl; pw_packed_wgrad_bf16 on bf16 a and
+//     g, pw_wgrad_bf16_kernel, one bf16 m16n8k16 a fragment pair on the
+//     float32 kernel's tiles and stages, below):
+//     dW (Ca, Cb) = sum_p a[p,:]^T g[p,:]
 //     over the B*T*F positions, one side channel-planar (B, C, M) and the
 //     other channel-innermost (B, M, C): K6's dW reads the rank-4 x and the
 //     packed g, K7's the packed x and the rank-4 g. Bound on the H100:
@@ -272,6 +280,13 @@ constexpr int kPwThreads = 2 * kPwRows;
 constexpr int kPwPS = kPwK + 4;
 constexpr int kPwQS = kPwCols + 8;
 constexpr int kPwOS = kPwCols + 2;
+// pw-wgrad in bf16 storage: kPw's tiles, stages and warps; staged planar
+// rows of kPw16PS bf16 (a row's kPwK positions from the 16-byte block
+// that holds its first, 8 blocks + 1; 144 bytes, 4 mod 32 words) and
+// packed positions of kPw16QS bf16 (144 bytes, 4 mod 32 words: the 8 g x
+// 4 q lanes of a fragment read hit distinct words or share one)
+constexpr int kPw16PS = kPwK + 8;
+constexpr int kPw16QS = kPwCols + 8;
 // K6 and K7 in bf16 storage (ops/packed_tf.py mirrors them): a tile of
 // kP16M positions x kP16N channels, kP16Threads threads as 4 (positions)
 // x 2 (channels) warps of 32 x 32; kP16K k a stage, two stages in shared
@@ -357,6 +372,20 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* p, float4 v, int n,
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// each value rounded to bf16 (nearest even), as float32
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)),
+                     __bfloat162float(__float2bfloat16_rn(v.z)),
+                     __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+// a + b of bf16 values, rounded to bf16: the float32 sum of two bf16
+// values rounded once, a bf16 add
+__device__ __forceinline__ float4 add_bf16(float4 a, float4 b) {
+  return round_bf16(make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
 }
 
 __device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
@@ -1351,7 +1380,11 @@ spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
   __syncthreads();
 
   // out: chunk (f, q) = channels 4q.. of f, through the F side, to every
-  // row of the run
+  // row of the run. bf16: each source's term rounded to bf16 and the
+  // terms added in bf16, in order, as JAX's K8 VJP sums one single-source
+  // pass a source of a transposed map, each in the cotangent's dtype
+  // (_spatial_down_bwd); with one source (every forward map) that is the
+  // single rounding of the float32 sum.
   const bool vec = (C & 3) == 0 && chunk_aligned(out);
   const long long row_len = (long long)F_out * C;
   for (int e = tid; e < F_out * CQ; e += kThreads) {
@@ -1362,15 +1395,59 @@ spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
       for (int j = 0; j < NF; ++j) {
         const float wf = fw_s[f * NF + j];
         if (wf == 0.f) continue;
-        s = fma4(wf,
-                 *reinterpret_cast<const float4*>(
-                     tile + fs_s[f * NF + j] * CS + 4 * q),
-                 s);
+        const float4 v = *reinterpret_cast<const float4*>(
+            tile + fs_s[f * NF + j] * CS + 4 * q);
+        if constexpr (sizeof(E) == 2)
+          s = add_bf16(s, round_bf16(make_float4(wf * v.x, wf * v.y,
+                                                 wf * v.z, wf * v.w)));
+        else
+          s = fma4(wf, v, s);
       }
     E* o = out + ((long long)b * T_out + t0) * row_len +
                (long long)f * C + 4 * q;
     for (int t = t0; t < t1; ++t, o += row_len) store_chunk(o, s, C - 4 * q, vec);
   }
+}
+
+// K5's and K5-wgrad's ring chunk of 4 channels: a float4, or 4 bf16 in 8
+// bytes, widened as it is read
+template <typename E>
+struct DwChunk;
+template <>
+struct DwChunk<float> {
+  using T = float4;
+};
+template <>
+struct DwChunk<__nv_bfloat16> {
+  using T = uint2;
+};
+
+// a chunk of 4 channels from src into the ring slot dst, zero-filled
+// when !ok: one 16-byte cp.async (float) or 8-byte (bf16)
+__device__ __forceinline__ void cp_chunk(float4* dst, const float* src,
+                                         bool ok) {
+  hk::cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void cp_chunk(uint2* dst, const __nv_bfloat16* src,
+                                         bool ok) {
+  hk::cp_async8(dst, src, ok);
+}
+
+// the first n (0-4) values of a chunk at src into dst, the rest zero:
+// 4-byte cp.async a value for float; plain loads and stores for bf16
+// (cp.async has no 2-byte copy), done when it returns
+__device__ __forceinline__ void cp_chunk_n(float4* dst, const float* src,
+                                           int n) {
+  float* d = reinterpret_cast<float*>(dst);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) hk::cp_async4(d + k, k < n ? src + k : src, k < n);
+}
+__device__ __forceinline__ void cp_chunk_n(uint2* dst,
+                                           const __nv_bfloat16* src, int n) {
+  unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+  const unsigned short* v = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) d[k] = k < n ? v[k] : (unsigned short)0;
 }
 
 // K5-wgrad's shared floats: the ring of kt + 2 x rows of FT + 4 G - 1
@@ -1383,6 +1460,16 @@ __host__ __device__ __forceinline__ int wgrad_smem_floats(int KT, int KF,
   const int G = (KF + kWgTaps - 1) / kWgTaps, FT = S * P;
   const int ring = ((KT + 2) * (FT + kWgTaps * G - 1) + 3 * FT) * 4 * QB;
   return max(ring, QB * G * KT * S * 16);
+}
+
+// K5-wgrad's shared bytes in bf16 storage: the ring's chunks 4 bf16 (8
+// bytes), or the end's exchange of 16 float32 sums a thread
+__host__ __device__ __forceinline__ int wgrad_smem_bytes_bf16(int KT, int KF,
+                                                              int QB, int S,
+                                                              int P) {
+  const int G = (KF + kWgTaps - 1) / kWgTaps, FT = S * P;
+  const int ring = ((KT + 2) * (FT + kWgTaps * G - 1) + 3 * FT) * QB;
+  return max(8 * ring, 4 * QB * G * KT * S * 16);
 }
 
 // float4 a += g * w, channel by channel
@@ -1415,18 +1502,19 @@ __device__ __forceinline__ void fma4v(float4 g, float4 w, float4& a) {
 // 4 kWgTaps FMAs). Rows of another batch row start the ring again. At
 // the end the segments' sums meet in shared memory and the seg-0 threads
 // add them in order: every partial is summed in one fixed order.
-template <int KT_, int KF_>
+template <int KT_, int KF_, typename E = float>
 __global__ void __launch_bounds__(KT_ ? kWgThreads : kWgMaxThreads)
-dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+dw_wgrad_kernel(const E* __restrict__ x, const E* __restrict__ g,
                 float* __restrict__ partial, int B, int T_in, int F_in,
                 int C, int T_out, int F_out, int KT, int KF, int pt_lo,
                 int pf_lo, int QB, int S, int P, int vec) {
   extern __shared__ float4 smem4[];
+  using Chunk = typename DwChunk<E>::T;
   const int kt = KT_ ? KT_ : KT, kf = KF_ ? KF_ : KF;
   const int G = (kf + kWgTaps - 1) / kWgTaps, NX = kt + 2;
   const int FT = S * P, XW = FT + kWgTaps * G - 1;
-  float4* xs = smem4;            // NX x rows of (XW, QB) float4
-  float4* gs = xs + NX * XW * QB;  // 3 g rows of (FT, QB) float4
+  Chunk* xs = reinterpret_cast<Chunk*>(smem4);  // NX x rows of (XW, QB)
+  Chunk* gs = xs + NX * XW * QB;                // 3 g rows of (FT, QB)
   const int tid = threadIdx.x, quad = tid % QB;
   const int grp = tid / QB % G, dt = tid / (QB * G) % kt;
   const int seg = tid / (QB * G * kt);
@@ -1438,21 +1526,16 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
   // one row of (positions, QB quads) from the packed row src (f of the
   // slot's position 0 at f_lo, f_max positions in the map; ok false for a
   // row off the map) into dst, zero off the map and past C
-  auto stage = [&](float4* dst, const float* src, int f_lo, int f_max,
+  auto stage = [&](Chunk* dst, const E* src, int f_lo, int f_max,
                    int positions, bool ok) {
-    float* d = reinterpret_cast<float*>(dst);
     for (int e = tid; e < positions * QB; e += blockDim.x) {
       const int p = e / QB, q = e - p * QB, f = f_lo + p, c = c0 + 4 * q;
-      const bool in = ok && f >= 0 && f < f_max;
-      const float* s = src + (long long)f * C + c;
-      if (vec) {
-        hk::cp_async16(d + 4 * e, in && c < C ? s : x, in && c < C);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          hk::cp_async4(d + 4 * e + k, in && c + k < C ? s + k : x,
-                        in && c + k < C);
-      }
+      const bool in = ok && f >= 0 && f < f_max && c < C;
+      const E* s = src + (long long)f * C + c;
+      if (vec)
+        cp_chunk(dst + e, in ? s : x, in);
+      else
+        cp_chunk_n(dst + e, in ? s : x, in ? min(4, C - c) : 0);
     }
   };
 
@@ -1464,8 +1547,8 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
     const int b = (int)(r / T_out), t_lo = (int)(r - (long long)b * T_out);
     const int n = (int)min(r_end - r, (long long)(T_out - t_lo));
     r += n;
-    const float* xb = x + (long long)b * T_in * F_in * C;
-    const float* gb = g + (long long)b * T_out * F_out * C;
+    const E* xb = x + (long long)b * T_in * F_in * C;
+    const E* gb = g + (long long)b * T_out * F_out * C;
     // step i's group: x rows j = 0 .. kt-1 (i = 0) or j = i + kt - 1 (the
     // input row t_lo - pt_lo + j, slot j % NX), and g row t_lo + i (slot
     // i % 3); empty past the run
@@ -1489,16 +1572,16 @@ dw_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
       __syncthreads();  // step i is in; every thread is done with step
                         // i - 1, whose slots step i + 2 takes
       issue(i + 2);
-      const float4* xr =
+      const Chunk* xr =
           xs + ((i + dt) % NX) * XW * QB + (seg * P + kWgTaps * grp) * QB + quad;
-      const float4* gr = gs + (i % 3) * FT * QB + seg * P * QB + quad;
+      const Chunk* gr = gs + (i % 3) * FT * QB + seg * P * QB + quad;
       float4 w[kWgTaps];
 #pragma unroll
-      for (int j = 0; j < kWgTaps - 1; ++j) w[j] = xr[j * QB];
+      for (int j = 0; j < kWgTaps - 1; ++j) w[j] = widen(xr[j * QB]);
 #pragma unroll 4
       for (int p = 0; p < P; ++p) {
-        w[kWgTaps - 1] = xr[(p + kWgTaps - 1) * QB];
-        const float4 gv = gr[p * QB];
+        w[kWgTaps - 1] = widen(xr[(p + kWgTaps - 1) * QB]);
+        const float4 gv = widen(gr[p * QB]);
 #pragma unroll
         for (int j = 0; j < kWgTaps; ++j) fma4v(gv, w[j], acc[j]);
 #pragma unroll
@@ -1552,47 +1635,6 @@ __host__ __device__ __forceinline__ int dw_smem_bytes_bf16(int KT, int KF,
                                                            bool fixed) {
   const int nr = kDwAhead + (fixed ? 1 : KT);
   return 16 * KT * KF * QB + 8 * nr * (FT + KF - 1) * QB;
-}
-
-// K5's ring chunk of 4 channels: a float4, or 4 bf16 in 8 bytes, widened
-// as it is read
-template <typename E>
-struct DwChunk;
-template <>
-struct DwChunk<float> {
-  using T = float4;
-};
-template <>
-struct DwChunk<__nv_bfloat16> {
-  using T = uint2;
-};
-
-// a chunk of 4 channels from src into the ring slot dst, zero-filled
-// when !ok: one 16-byte cp.async (float) or 8-byte (bf16)
-__device__ __forceinline__ void cp_chunk(float4* dst, const float* src,
-                                         bool ok) {
-  hk::cp_async16(dst, src, ok);
-}
-__device__ __forceinline__ void cp_chunk(uint2* dst, const __nv_bfloat16* src,
-                                         bool ok) {
-  hk::cp_async8(dst, src, ok);
-}
-
-// the first n (0-4) values of a chunk at src into dst, the rest zero:
-// 4-byte cp.async a value for float; plain loads and stores for bf16
-// (cp.async has no 2-byte copy), done when it returns
-__device__ __forceinline__ void cp_chunk_n(float4* dst, const float* src,
-                                           int n) {
-  float* d = reinterpret_cast<float*>(dst);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) hk::cp_async4(d + k, k < n ? src + k : src, k < n);
-}
-__device__ __forceinline__ void cp_chunk_n(uint2* dst,
-                                           const __nv_bfloat16* src, int n) {
-  unsigned short* d = reinterpret_cast<unsigned short*>(dst);
-  const unsigned short* v = reinterpret_cast<const unsigned short*>(src);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) d[k] = k < n ? v[k] : (unsigned short)0;
 }
 
 // grid (runs, ceil(F_out / FT), B * blocks_c), block (QB, FT), KT_ / KF_
@@ -1782,6 +1824,57 @@ __host__ __device__ __forceinline__ int pw_staged_row(int r) {
   return (r & ~63) | ((r & 3) << 4) | ((r & 63) >> 2);
 }
 
+// pw-wgrad's epilogue, in a block of kPwThreads threads as the kernels
+// lay their warps out (warp (wm, wn), lane (g, q)): each lane's float32
+// sums acc, its D fragments of m16 tiles 2 wm, 2 wm + 1 and n8 tiles 4 wn
+// .. 4 wn + 3, through the output tile o_s (kPwRows, kPwOS) in shared
+// memory (in the ring's place: it waits for every warp's last stage), to
+// the block's rows of partial row (blockIdx.z, blockIdx.x), a row of 64
+// packed channels, or of the planar channels where transposed, at a time.
+// D c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1) of m16
+// tile t, n8 tile nj are planar channel 64 (t / 4) + 4 g + t % 4 (+ 32),
+// packed channel 32 wn + 8 nj + 2 q (+ 1).
+__device__ __forceinline__ void pw_wgrad_store(const float (&acc)[2][4][4],
+                                               float* o_s, float* partial,
+                                               int Cp, int Cq, int cp0,
+                                               int cq0, int transposed) {
+  constexpr int kWarpsM = kPwRows / 32;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int g = hk::lane_g(), qq = hk::lane_q();
+  __syncthreads();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int t = 2 * wm + mi;
+      float* o = o_s + (64 * (t >> 2) + 4 * g + (t & 3)) * kPwOS + 32 * wn +
+                 8 * nj + 2 * qq;
+      o[0] = acc[mi][nj][0];
+      o[1] = acc[mi][nj][1];
+      o[32 * kPwOS] = acc[mi][nj][2];
+      o[32 * kPwOS + 1] = acc[mi][nj][3];
+    }
+  __syncthreads();
+  // the tile to its partial row, in the partial's order
+  float* part = partial + ((long long)blockIdx.z * gridDim.x + blockIdx.x) *
+                              ((long long)Cp * Cq);
+  const int rows = min(kPwRows, Cp - cp0), cols = min(kPwCols, Cq - cq0);
+  if (!transposed) {
+    for (int e = tid; e < kPwRows * kPwCols; e += kPwThreads) {
+      const int r = e / kPwCols, c = e % kPwCols;
+      if (r < rows && c < cols)
+        part[(long long)(cp0 + r) * Cq + cq0 + c] = o_s[r * kPwOS + c];
+    }
+  } else {
+    for (int e = tid; e < kPwRows * kPwCols; e += kPwThreads) {
+      const int c = e / kPwRows, r = e % kPwRows;
+      if (r < rows && c < cols)
+        part[(long long)(cq0 + c) * Cp + cp0 + r] = o_s[r * kPwOS + c];
+    }
+  }
+}
+
 // grid (chunks, tiles_p * tiles_q, B), kPwThreads threads, one block an
 // SM. p (B, Cp, M) channel-planar, q (B, M, Cq) channel-innermost;
 // partial (B * chunks, Cp * Cq), each row dW (Cp, Cq) of one chunk, or
@@ -1915,15 +2008,6 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
 #pragma unroll
       for (int v = 0; v < 4; ++v)
         big[mi][nj][v] = corr[mi][nj][v] = acc[mi][nj][v] = 0.f;
-  // the lane's outputs in the output tile: D c0 (g, 2q), c1 (g, 2q + 1),
-  // c2 (g + 8, 2q), c3 (g + 8, 2q + 1) of m16 tile t, n8 tile nj are
-  // planar channel 64 (t / 4) + 4 g + t % 4 (+ 32), packed channel
-  // 32 wn + 8 nj + 2 q (+ 1)
-  auto out_at = [&](int mi, int nj) {
-    const int t = 2 * wm + mi;
-    return o_s + (64 * (t >> 2) + 4 * g + (t & 3)) * kPwOS + 32 * wn +
-           8 * nj + 2 * qq;
-  };
   auto flush = [&]() {
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -1971,38 +2055,200 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
     if (++slot == kPwStages) slot = 0;
   }
   hk::cp_async_wait_all();
-  // the output tile, in the ring's place after every warp's last stage:
-  // the sum plus the cross terms
-  __syncthreads();
+  // the sum plus the cross terms, to the partial
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      float* o[4] = {out_at(mi, nj), out_at(mi, nj) + 1,
-                     out_at(mi, nj) + 32 * kPwOS,
-                     out_at(mi, nj) + 32 * kPwOS + 1};
+    for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-      for (int v = 0; v < 4; ++v)
-        *o[v] = acc[mi][nj][v] + corr[mi][nj][v];
+      for (int v = 0; v < 4; ++v) acc[mi][nj][v] += corr[mi][nj][v];
+  pw_wgrad_store(acc, o_s, partial, Cp, Cq, cp0, cq0, transposed);
+}
+
+// pw-wgrad's shared bytes in bf16 storage: the ring of kPwStages stages
+// of kPwRows planar rows (kPw16PS bf16) and kPwK packed positions
+// (kPw16QS bf16), or the float32 output tile in its place
+__host__ __device__ __forceinline__ int pw_wgrad_smem_bytes_bf16() {
+  const int ring = 2 * kPwStages * (kPwRows * kPw16PS + kPwK * kPw16QS);
+  const int tile = 4 * kPwRows * kPwOS;
+  return ring > tile ? ring : tile;
+}
+
+// pw-wgrad on bf16 storage: p and q bf16, partial float32; the grid,
+// blocks, chunks, warps and epilogue of pw_wgrad_kernel (above). JAX's
+// dot of bf16 operands with a float32 result is one bf16 mma.sync
+// m16n8k16 a fragment pair (the products of two bf16 values are exact in
+// float32), summed on the tensor core over one stage (kPwK = 64
+// positions, 4 k16 steps) and added to the float32 sum on the SIMT units
+// every stage, as the float32 kernel adds its big products: the tensor
+// core's sum rounds toward zero and drifts over a long K.
+//
+// A stage holds the raw bf16 values. A planar row's kPwK positions are
+// copied from the 16-byte block (8 values) that holds its first, at
+// column sh (its offset in that block: the rows of M = 251 * 129
+// positions start at every offset), whole blocks as 16-byte cp.async
+// copies and the blocks at the window's two ends value by value with
+// plain loads and stores (cp.async has no 2-byte copy), positions past
+// the chunk as zeros; thread r < kPwRows copies the channel whose row is
+// pw_staged_row(r), as the float32 kernel stages them. The packed
+// positions' 64 channels go as 16-byte copies where vec (Cq % 8 == 0, q
+// 16-byte aligned), else value by value. An A fragment register pairs two
+// neighbouring positions of one channel (offset sh + k, sh its row's: rows
+// g and g + 8 of a tile are channels 32 apart, whose rows share sh), a B
+// register two neighbouring positions of one packed channel (kPw16QS
+// apart); each is two 2-byte shared loads and a pack.
+__global__ void __launch_bounds__(kPwThreads, 1)
+pw_wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ p,
+                     const __nv_bfloat16* __restrict__ q,
+                     float* __restrict__ partial, int M, int Cp, int Cq,
+                     int L, int transposed, int vec) {
+  constexpr int kPStage = kPwRows * kPw16PS;
+  constexpr int kStage = kPStage + kPwK * kPw16QS;
+  constexpr int kBlocks = kPwK / 8 + 1;  // 16-byte blocks a planar row
+  constexpr int kWarpsM = kPwRows / 32;
+  static_assert(kPwK % 16 == 0 && kPwRows % 64 == 0 && kPwCols == 64,
+                "the staged rows and the warp grid");
+  extern __shared__ float4 smem4[];
+  unsigned short* ring = reinterpret_cast<unsigned short*>(smem4);
+  const unsigned short* pv = reinterpret_cast<const unsigned short*>(p);
+  const unsigned short* qv = reinterpret_cast<const unsigned short*>(q);
+  const int tid = threadIdx.x, b = blockIdx.z;
+  const int tiles_q = (Cq + kPwCols - 1) / kPwCols;
+  const int cp0 = (int)blockIdx.y / tiles_q * kPwRows;
+  const int cq0 = (int)blockIdx.y % tiles_q * kPwCols;
+  const int p_begin = (int)blockIdx.x * L;
+  const int p_end = min(M, p_begin + L);
+  const int ns = (p_end - p_begin + kPwK - 1) / kPwK;
+  // the offset of channel c's row in its 16-byte blocks: p's bf16 index
+  // mod 8 with the row's start and the chunk's first position (L and kPwK
+  // are multiples of 8, so every stage's is the same)
+  const uint32_t p2 = (uint32_t)(reinterpret_cast<uintptr_t>(p) >> 1);
+  auto shift = [&](int c) {
+    return (int)((p2 + ((uint32_t)b * (uint32_t)Cp + (uint32_t)(cp0 + c)) *
+                           (uint32_t)M +
+                  (uint32_t)p_begin) &
+                 7u);
+  };
+
+  // the thread's planar row: channel cp0 + tid, for tid < kPwRows
+  const bool copies = tid < kPwRows && cp0 + tid < Cp;
+  const int c_sh = shift(tid);
+  const unsigned short* c_row = pv + ((long long)b * Cp + cp0 + tid) * M;
+  auto load_stage = [&](int s, int slot) {
+    if (s < ns) {
+      const int p0 = p_begin + s * kPwK, avail = p_end - p0;
+      unsigned short* ps = ring + slot * kStage;
+      unsigned short* qs = ps + kPStage;
+      if (copies) {
+        unsigned short* dst = ps + pw_staged_row(tid) * kPw16PS;
+        const unsigned short* src = c_row + p0 - c_sh;  // block j: + 8 j
+#pragma unroll
+        for (int j = 0; j < kBlocks; ++j) {
+          const int lo = 8 * j - c_sh;  // its first position - p0
+          if (lo + 8 <= 0 || lo >= kPwK) continue;
+          if (lo >= 0 && lo + 8 <= kPwK && lo + 8 <= avail) {
+            hk::cp_async16(dst + 8 * j, src + 8 * j, true);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              if (lo + e < 0 || lo + e >= kPwK) continue;
+              dst[8 * j + e] =
+                  lo + e < avail ? src[8 * j + e] : (unsigned short)0;
+            }
+          }
+        }
+      }
+      // the packed positions p0 .., 16-byte chunks of 8 channels
+      for (int e = tid; e < kPwK * kPwCols / 8; e += kPwThreads) {
+        const int pp = e / (kPwCols / 8), c = 8 * (e % (kPwCols / 8));
+        unsigned short* d = qs + pp * kPw16QS + c;
+        const bool in = pp < avail;
+        const unsigned short* src =
+            qv + ((long long)b * M + p0 + pp) * Cq + cq0 + c;
+        if (vec) {
+          const bool ok = in && cq0 + c < Cq;
+          hk::cp_async16(d, ok ? src : qv, ok);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            d[k] = in && cq0 + c + k < Cq ? src[k] : (unsigned short)0;
+        }
+      }
     }
-  __syncthreads();
-  // the tile to its partial row, in the partial's order
-  float* part = partial + ((long long)b * gridDim.x + blockIdx.x) *
-                             ((long long)Cp * Cq);
-  const int rows = min(kPwRows, Cp - cp0), cols = min(kPwCols, Cq - cq0);
-  if (!transposed) {
-    for (int e = tid; e < kPwRows * kPwCols; e += kPwThreads) {
-      const int r = e / kPwCols, c = e % kPwCols;
-      if (r < rows && c < cols)
-        part[(long long)(cp0 + r) * Cq + cq0 + c] = o_s[r * kPwOS + c];
-    }
-  } else {
-    for (int e = tid; e < kPwRows * kPwCols; e += kPwThreads) {
-      const int c = e / kPwRows, r = e % kPwRows;
-      if (r < rows && c < cols)
-        part[(long long)(cq0 + c) * Cp + cp0 + r] = o_s[r * kPwOS + c];
-    }
+    hk::cp_async_commit();
+  };
+  for (int s = 0; s < kPwStages - 1; ++s) load_stage(s, s);
+
+  // the lane's A elements: staged rows 16 t + g (+ 8), columns sh + 2 q
+  // (+ 1, + 8, + 9) of its tile's channels; B elements: packed positions
+  // 2 q (+ 1, + 8, + 9), channel 32 wn + 8 nj + g
+  const int warp = tid >> 5, wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int g = hk::lane_g(), qq = hk::lane_q();
+  int a_off[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int t = 2 * wm + mi;
+    a_off[mi] = (16 * t + g) * kPw16PS + shift(64 * (t >> 2) + 4 * g +
+                                                (t & 3)) + 2 * qq;
   }
+  const int b_off = 2 * qq * kPw16QS + 32 * wn + g;
+  // big: the stage's sums on the tensor core; acc: the float32 sum
+  float big[2][4][4], acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) big[mi][nj][v] = acc[mi][nj][v] = 0.f;
+
+  int slot = 0, ld_slot = kPwStages - 1, since = 0;
+  for (int s = 0; s < ns; ++s) {
+    hk::cp_async_wait<kPwStages - 2>();
+    __syncthreads();  // stage s is in; every warp is done with stage s - 1
+    load_stage(s + kPwStages - 1, ld_slot);
+    if (++ld_slot == kPwStages) ld_slot = 0;
+    const unsigned short* ps = ring + slot * kStage;
+    const unsigned short* qs = ps + kPStage;
+#pragma unroll
+    for (int kk = 0; kk < kPwK; kk += 16) {
+      uint32_t a[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const unsigned short* pa = ps + a_off[mi] + kk;
+        a[mi][0] = hk::pack_bf16(pa[0], pa[1]);
+        a[mi][1] = hk::pack_bf16(pa[8 * kPw16PS], pa[8 * kPw16PS + 1]);
+        a[mi][2] = hk::pack_bf16(pa[8], pa[9]);
+        a[mi][3] = hk::pack_bf16(pa[8 * kPw16PS + 8], pa[8 * kPw16PS + 9]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const unsigned short* pb = qs + b_off + 8 * nj + kk * kPw16QS;
+        bf[nj][0] = hk::pack_bf16(pb[0], pb[kPw16QS]);
+        bf[nj][1] = hk::pack_bf16(pb[8 * kPw16QS], pb[9 * kPw16QS]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          hk::mma_bf16(big[mi][nj], a[mi], bf[nj]);
+    }
+    if (++since == kPwFlush || s == ns - 1) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            acc[mi][nj][v] += big[mi][nj][v];
+            big[mi][nj][v] = 0.f;
+          }
+      since = 0;
+    }
+    if (++slot == kPwStages) slot = 0;
+  }
+  hk::cp_async_wait_all();
+  pw_wgrad_store(acc, reinterpret_cast<float*>(smem4), partial, Cp, Cq, cp0,
+                 cq0, transposed);
 }
 
 // out[e] = sum_p partial[p, e] in a fixed order: thread row y sums the
@@ -2333,6 +2579,48 @@ extern "C" int pw_unproj_packed_fwd_bf16(const void* x, const void* w,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// K5-wgrad's launch on elements E (float, or bf16 storage), then the sum
+// of its partials; k44 / k00 the kernel with the presets' 4 x 4 taps as
+// template arguments and the generic one; see dw_conv_packed_wgrad
+template <typename E, typename Kernel>
+int launch_dw_wgrad(Kernel k44, Kernel k00, const void* x, const void* g,
+                    void* partial, void* out, int B, int T_in, int F_in,
+                    int C, int T_out, int F_out, int KT, int KF, int pt_lo,
+                    int pf_lo, int QB, int S, int P, int runs, int n_part,
+                    void* stream) {
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1 ||
+      QB < 1 || S < 1 || P < 1 || runs < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long threads =
+      (long long)QB * ((KF + kWgTaps - 1) / kWgTaps) * KT * S;
+  const long long tiles_f = (F_out + S * P - 1) / (S * P);
+  const long long blocks_c = ((C + 3) / 4 + QB - 1) / QB;
+  if (threads > kWgMaxThreads || !grid_ok(tiles_f, blocks_c) ||
+      tiles_f * runs != n_part)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = C % 4 == 0 && chunk_aligned((const E*)x) &&
+                   chunk_aligned((const E*)g);
+  const size_t smem =
+      sizeof(E) == 4
+          ? (size_t)wgrad_smem_floats(KT, KF, QB, S, P) * sizeof(float)
+          : (size_t)wgrad_smem_bytes_bf16(KT, KF, QB, S, P);
+  const Kernel kernel = KT == 4 && KF == 4 && threads <= kWgThreads ? k44
+                                                                    : k00;
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(runs, (unsigned)tiles_f, (unsigned)blocks_c), (int)threads,
+           smem, (cudaStream_t)stream>>>(
+      (const E*)x, (const E*)g, (float*)partial, B, T_in, F_in, C, T_out,
+      F_out, KT, KF, pt_lo, pf_lo, QB, S, P, (int)vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_sum(partial, out, n_part, KT * KF * C, stream);
+}
+
+}  // namespace
+
 // x (B, T_in, F_in*C), g (B, T_out, F_out*C) packed; out (KT, KF, C);
 // QB quads a block's channels, S segments of P positions a tile, runs
 // blocks a tile and channel block (ops/packed_tf.dw_wgrad_geometry);
@@ -2345,32 +2633,29 @@ extern "C" int dw_conv_packed_wgrad(const void* x, const void* g,
                                     int F_out, int KT, int KF, int pt_lo,
                                     int pf_lo, int QB, int S, int P, int runs,
                                     int n_part, void* stream) {
-  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || KT < 1 || KF < 1 ||
-      QB < 1 || S < 1 || P < 1 || runs < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long threads =
-      (long long)QB * ((KF + kWgTaps - 1) / kWgTaps) * KT * S;
-  const long long tiles_f = (F_out + S * P - 1) / (S * P);
-  const long long blocks_c = ((C + 3) / 4 + QB - 1) / QB;
-  if (threads > kWgMaxThreads || !grid_ok(tiles_f, blocks_c) ||
-      tiles_f * runs != n_part)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(g);
-  const size_t smem = (size_t)wgrad_smem_floats(KT, KF, QB, S, P) *
-                      sizeof(float);
   // the taps of every preset as template arguments
-  const auto kernel = KT == 4 && KF == 4 && threads <= kWgThreads
-                          ? dw_wgrad_kernel<4, 4>
-                          : dw_wgrad_kernel<0, 0>;
-  cudaError_t e = allow_smem((const void*)kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(runs, (unsigned)tiles_f, (unsigned)blocks_c), (int)threads,
-           smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (float*)partial, B, T_in, F_in, C,
-      T_out, F_out, KT, KF, pt_lo, pf_lo, QB, S, P, (int)vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_sum(partial, out, n_part, KT * KF * C, stream);
+  return launch_dw_wgrad<float>(dw_wgrad_kernel<4, 4>, dw_wgrad_kernel<0, 0>,
+                                x, g, partial, out, B, T_in, F_in, C, T_out,
+                                F_out, KT, KF, pt_lo, pf_lo, QB, S, P, runs,
+                                n_part, stream);
+}
+
+// K5-wgrad on bf16 storage: x and g bf16, partial and out float32 (JAX's
+// wgrad kernel writes a float32 dW from bf16 operands), the launch as
+// dw_conv_packed_wgrad's (ops/packed_tf.dw_wgrad_geometry with the bf16
+// ring's shared memory)
+extern "C" int dw_conv_packed_wgrad_bf16(const void* x, const void* g,
+                                         void* partial, void* out, int B,
+                                         int T_in, int F_in, int C,
+                                         int T_out, int F_out, int KT,
+                                         int KF, int pt_lo, int pf_lo,
+                                         int QB, int S, int P, int runs,
+                                         int n_part, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_dw_wgrad<bf>(dw_wgrad_kernel<4, 4, bf>,
+                             dw_wgrad_kernel<0, 0, bf>, x, g, partial, out,
+                             B, T_in, F_in, C, T_out, F_out, KT, KF, pt_lo,
+                             pf_lo, QB, S, P, runs, n_part, stream);
 }
 
 // a_planar: a (B, Ca, M) rank-4 and g (B, M, Cb) packed (K6's dW), else a
@@ -2400,6 +2685,35 @@ extern "C" int pw_packed_wgrad(const void* a, const void* g, void* partial,
   const int vec = Cq % 4 == 0 && aligned16(q);
   pw_wgrad_kernel<<<dim3((unsigned)chunks, (unsigned)tiles, B), kPwThreads,
                     smem, (cudaStream_t)stream>>>(
+      p, q, (float*)partial, M, Cp, Cq, L, !a_planar, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_sum(partial, out, n_part, Ca * Cb, stream);
+}
+
+// pw-wgrad on bf16 storage: a and g bf16, partial and out float32 (JAX's
+// wgrad kernel writes a float32 dW from bf16 operands); the arguments, the
+// grid and the partials as pw_packed_wgrad's (pw_wgrad_bf16_kernel)
+extern "C" int pw_packed_wgrad_bf16(const void* a, const void* g,
+                                    void* partial, void* out, int B, int M,
+                                    int Ca, int Cb, int a_planar, int L,
+                                    int n_part, void* stream) {
+  if (B < 1 || M < 1 || Ca < 1 || Cb < 1 || L < 1 || L % kPwK)
+    return (int)cudaErrorInvalidValue;
+  const long long chunks = ((long long)M + L - 1) / L;
+  const int Cp = a_planar ? Ca : Cb, Cq = a_planar ? Cb : Ca;
+  const __nv_bfloat16* p = (const __nv_bfloat16*)(a_planar ? a : g);
+  const __nv_bfloat16* q = (const __nv_bfloat16*)(a_planar ? g : a);
+  const long long tiles = (long long)((Cp + kPwRows - 1) / kPwRows) *
+                          ((Cq + kPwCols - 1) / kPwCols);
+  if (!grid_ok(tiles, B) || chunks * B != n_part)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)pw_wgrad_smem_bytes_bf16();
+  cudaError_t e = allow_smem((const void*)pw_wgrad_bf16_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = Cq % 8 == 0 && aligned16(q);
+  pw_wgrad_bf16_kernel<<<dim3((unsigned)chunks, (unsigned)tiles, B),
+                         kPwThreads, smem, (cudaStream_t)stream>>>(
       p, q, (float*)partial, M, Cp, Cq, L, !a_planar, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -1,9 +1,14 @@
-// Gen-1 SRU recurrence kernels for Hopper (sm_90a), float32.
+// Gen-1 SRU recurrence kernels for Hopper (sm_90a), float32 and bf16
+// storage.
 //
 // K4  sru_recurrence_fwd  replaces the Pallas kernel _fwd_kernel
 //     (rtfs_tpu/ops/sru_pallas.py, pallas_call in _sru_fwd_impl).
 // K4  sru_recurrence_bwd  replaces the Pallas kernel _bwd_kernel
 //     (rtfs_tpu/ops/sru_pallas.py, pallas_call in _sru_vjp_bwd).
+// sru_recurrence_{fwd,bwd}_bf16 are the same kernels on bf16 storage (a
+// bf16 model's U takes the compute dtype, and the Pallas kernels run in
+// it): the arithmetic and the carries float32, the stored values rounded
+// where the Pallas kernels round them.
 //
 // One direction of one SRU layer over a precomputed projection (sru
 // package v2.6 semantics: the reset gate reads the UPDATED cell, see
@@ -85,17 +90,29 @@ constexpr int kRecFwdAhead = 8;
 // kRecFwdAhead steps in flight, one commit group a step, waits for step
 // i's group, takes its four values and issues step i + kRecFwdAhead into
 // the slot they came from.
+//
+// E bf16 (sru_recurrence_fwd_bf16): u, xhw, vb, h and c bf16, as the
+// Pallas kernel on a bf16 model; a slot holds the 4-byte word that holds
+// the value (copy_value of sru_scan.cuh: cp.async has no 2-byte copy, and
+// where H * B is odd the rows start on 2-byte boundaries), and the value
+// is its half of the word, widened. The gates, the cell update and the
+// carry c are float32 (the Pallas body promotes bf16 u, v and b against
+// its float32 carry); only the stored h and c are rounded, and the carry
+// is never rounded between steps. u_last / x_last: the index of u's and
+// xhw's last value (bf16 only).
+template <typename E>
 __global__ void __launch_bounds__(kRecFwdThreads)
-sru_rec_fwd_kernel(const float* __restrict__ u, const float* __restrict__ xhw,
-                   const float* __restrict__ vb, float* __restrict__ h,
-                   float* __restrict__ cs, int T, int H, int B, int reverse,
-                   int cols) {
+sru_rec_fwd_kernel(const E* __restrict__ u, const E* __restrict__ xhw,
+                   const E* __restrict__ vb, E* __restrict__ h,
+                   E* __restrict__ cs, int T, int H, int B, int reverse,
+                   int cols, long long u_last, long long x_last) {
   extern __shared__ float ring[];  // (kRecFwdAhead, 4, blockDim.x)
   const int b = blockIdx.x * cols + threadIdx.x % cols;
   const int j = blockIdx.y * (blockDim.x / cols) + threadIdx.x / cols;
   if (b >= B || j >= H) return;
-  const float v_f = vb[j], v_r = vb[H + j];
-  const float b_f = vb[2 * H + j], b_r = vb[3 * H + j];
+  const float v_f = load_value(vb + j), v_r = load_value(vb + H + j);
+  const float b_f = load_value(vb + 2 * H + j);
+  const float b_r = load_value(vb + 3 * H + j);
   const long long row = (long long)H * B;  // one gate block per step
   const long long col = (long long)j * B + b;
   const int nt = blockDim.x;
@@ -105,11 +122,12 @@ sru_rec_fwd_kernel(const float* __restrict__ u, const float* __restrict__ xhw,
   auto issue = [&](int i) {
     if (i < T) {
       const int t = reverse ? T - 1 - i : i;
-      const float* ut = u + (long long)t * 3 * row + col;
+      const long long eu = (long long)t * 3 * row + col;
       float* d = mine + (i % kRecFwdAhead) * 4 * nt;
 #pragma unroll
-      for (int g = 0; g < 3; ++g) hk::cp_async4(d + g * nt, ut + g * row, true);
-      hk::cp_async4(d + 3 * nt, xhw + (long long)t * row + col, true);
+      for (int g = 0; g < 3; ++g)
+        copy_value(d + g * nt, u, eu + g * row, u_last, true);
+      copy_value(d + 3 * nt, xhw, (long long)t * row + col, x_last, true);
     }
     hk::cp_async_commit();
   };
@@ -119,15 +137,37 @@ sru_rec_fwd_kernel(const float* __restrict__ u, const float* __restrict__ xhw,
   for (int i = 0; i < T; ++i) {
     hk::cp_async_wait<kRecFwdAhead - 1>();  // step i's group is in
     const float* d = mine + (i % kRecFwdAhead) * 4 * nt;
-    const float u0 = d[0], u1 = d[nt], u2 = d[2 * nt], x = d[3 * nt];
-    const long long o = (long long)(reverse ? T - 1 - i : i) * row + col;
+    const int t = reverse ? T - 1 - i : i;
+    const long long o = (long long)t * row + col;
+    const long long eu = (long long)t * 3 * row + col;
+    const float u0 = slot_value<E>(d, upper_half(u, eu, 0, 0));
+    const float u1 = slot_value<E>(d + nt, upper_half(u, eu + row, 0, 0));
+    const float u2 =
+        slot_value<E>(d + 2 * nt, upper_half(u, eu + 2 * row, 0, 0));
+    const float x = slot_value<E>(d + 3 * nt, upper_half(xhw, o, 0, 0));
     const float f = sigmoid_f(u1 + v_f * c + b_f);
     c = f * c + (1.f - f) * u0;
     const float r = sigmoid_f(u2 + v_r * c + b_r);
-    h[o] = r * c + (1.f - r) * x;
-    if (cs) cs[o] = c;
+    store_value(h + o, r * c + (1.f - r) * x);
+    if (cs) store_value(cs + o, c);
     issue(i + kRecFwdAhead);  // into the slot just read (its values used)
   }
+}
+
+template <typename E>
+int launch_rec_fwd(const void* u, const void* xhw, const void* vb, void* h,
+                   void* c, int T, int H, int B, int reverse, int cols,
+                   int units, void* stream) {
+  if (T < 1 || H < 1 || B < 1 || cols < 32 || cols % 32 != 0 || units < 1 ||
+      cols * units > kRecFwdThreads)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + cols - 1) / cols, (H + units - 1) / units);
+  const size_t smem = (size_t)kRecFwdAhead * 4 * cols * units * sizeof(float);
+  const long long hb = (long long)H * B;
+  sru_rec_fwd_kernel<E><<<grid, cols * units, smem, (cudaStream_t)stream>>>(
+      (const E*)u, (const E*)xhw, (const E*)vb, (E*)h, (E*)c, T, H, B,
+      reverse, cols, 3 * T * hb - 1, T * hb - 1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -138,15 +178,18 @@ extern "C" int sru_recurrence_fwd(const void* u, const void* xhw,
                                   const void* vb, void* h, void* c, int T,
                                   int H, int B, int reverse, int cols,
                                   int units, void* stream) {
-  if (T < 1 || H < 1 || B < 1 || cols < 32 || cols % 32 != 0 || units < 1 ||
-      cols * units > kRecFwdThreads)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + cols - 1) / cols, (H + units - 1) / units);
-  const size_t smem = (size_t)kRecFwdAhead * 4 * cols * units * sizeof(float);
-  sru_rec_fwd_kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)xhw, (const float*)vb, (float*)h,
-      (float*)c, T, H, B, reverse, cols);
-  return (int)cudaGetLastError();
+  return launch_rec_fwd<float>(u, xhw, vb, h, c, T, H, B, reverse, cols,
+                               units, stream);
+}
+
+// K4 forward in bf16 storage: u, xhw, vb, h and c bf16, the launch as
+// sru_recurrence_fwd's (the same blocks and ring)
+extern "C" int sru_recurrence_fwd_bf16(const void* u, const void* xhw,
+                                       const void* vb, void* h, void* c,
+                                       int T, int H, int B, int reverse,
+                                       int cols, int units, void* stream) {
+  return launch_rec_fwd<__nv_bfloat16>(u, xhw, vb, h, c, T, H, B, reverse,
+                                       cols, units, stream);
 }
 
 // cols x units threads a block (ops/sru_fused.scan_bwd_geometry with one
@@ -164,4 +207,27 @@ extern "C" int sru_recurrence_bwd(const void* u, const void* xhw,
                   reverse != 0};
   return (int)launch_scan_bwd<4>(io, io, 1, T, H, B, cols, units, 4LL * H,
                                  (cudaStream_t)stream);
+}
+
+// K4 backward in bf16 storage: u, xhw, vb, c and dh in and du, dxhw out
+// bf16, the arithmetic float32 (sru_scan_bwd_kernel<14>); each thread's
+// (v, b) sums, one unit's over its batch column, rounded to bf16 before
+// the block adds them in float32, as the Pallas kernel writes one bf16
+// partial a batch column that jnp.sum widens, adds in float32 and rounds
+// once (the wrapper adds the blocks' float32 partials and rounds).
+extern "C" int sru_recurrence_bwd_bf16(const void* u, const void* xhw,
+                                       const void* vb, const void* c,
+                                       const void* dh, void* du, void* dxhw,
+                                       void* dvb_part, int T, int H, int B,
+                                       int reverse, int cols, int units,
+                                       void* stream) {
+  using bf = __nv_bfloat16;
+  const long long hb = (long long)H * B;
+  const ScanIOT<bf, bf> io{(const bf*)u, (const bf*)xhw, (bf*)du, (bf*)dxhw,
+                           3 * hb, hb, 3 * hb, hb, (const bf*)c,
+                           (const bf*)dh, (const bf*)vb, (float*)dvb_part,
+                           reverse != 0, 3 * T * hb - 1, T * hb - 1,
+                           T * hb - 1};
+  return (int)launch_scan_bwd<14>(io, io, 1, T, H, B, cols, units, 4LL * H,
+                                  (cudaStream_t)stream);
 }

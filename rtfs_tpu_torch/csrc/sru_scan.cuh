@@ -2,10 +2,11 @@
 // shared by three backward ops: K1 sru_dual_recurrence_bwd and K2
 // sru_hidden_layer_bwd (csrc/sru_fused.cu) and K4 sru_recurrence_bwd
 // (csrc/sru_pallas.cu). Each op says where its operands lie with one
-// ScanIO a direction; nothing is copied or flipped in memory. K1's and
-// K2's bf16 backwards (sru_dual_recurrence_bwd_bf16 and
-// sru_hidden_layer_bwd_bf16) run the same scan on bf16 storage (ScanTypes
-// below): the arithmetic stays float32, as in the Pallas kernels.
+// ScanIO a direction; nothing is copied or flipped in memory. K1's, K2's
+// and K4's bf16 backwards (sru_dual_recurrence_bwd_bf16,
+// sru_hidden_layer_bwd_bf16 and sru_recurrence_bwd_bf16) run the same
+// scan on bf16 storage (ScanTypes below): the arithmetic stays float32, as
+// in the Pallas kernels.
 //
 // The adjoints, per step in reverse scan order (a forward-running
 // recurrence from t = T-1 down with c_prev = c[t-1], a reverse-running one
@@ -108,21 +109,34 @@ using ScanIO = ScanIOT<float, float>;
 // launches apart in a profile): K1 (1), K2 (2) and K4 (4) in float32; K1
 // in bf16 (11): every operand bf16, du rounded once; K2 in bf16 (12): its
 // highway input, c, dh and vb bf16, U, du and the highway term's adjoint
-// float32 (the Pallas kernel's du never leaves float32).
+// float32 (the Pallas kernel's du never leaves float32); K4 in bf16 (14):
+// every operand bf16, as K1's, and each thread's (v, b) sums (one unit
+// over one batch column) rounded to bf16 before the block adds them
+// (kRoundParts: the Pallas kernel writes one bf16 partial a batch column,
+// which jnp.sum widens and adds in float32).
 template <int Kernel>
 struct ScanTypes {
   using TU = float;
   using TS = float;
+  static constexpr bool kRoundParts = false;
 };
 template <>
 struct ScanTypes<11> {
   using TU = __nv_bfloat16;
   using TS = __nv_bfloat16;
+  static constexpr bool kRoundParts = false;
 };
 template <>
 struct ScanTypes<12> {
   using TU = float;
   using TS = __nv_bfloat16;
+  static constexpr bool kRoundParts = false;
+};
+template <>
+struct ScanTypes<14> {
+  using TU = __nv_bfloat16;
+  using TS = __nv_bfloat16;
+  static constexpr bool kRoundParts = true;
 };
 
 // Copy value e of src into a thread's ring slot (4 bytes). float32: one
@@ -180,7 +194,8 @@ __device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
 // threads, cols a multiple of 32: thread (column x * cols + tid % cols,
 // unit y * units + tid / cols) of direction z reads io0 (z = 0) or io1.
 // Kernel tells K1's launches (1), K2's (2) and K4's (4) apart in a
-// profile, and picks the storage (ScanTypes; 11 and 12 the bf16 ones).
+// profile, and picks the storage (ScanTypes; 11, 12 and 14 the bf16
+// ones).
 template <int Kernel>
 __global__ void __launch_bounds__(kScanThreads)
 sru_scan_bwd_kernel(ScanIOT<typename ScanTypes<Kernel>::TU,
@@ -301,6 +316,8 @@ sru_scan_bwd_kernel(ScanIOT<typename ScanTypes<Kernel>::TU,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float v = acc[k];
+    if constexpr (ScanTypes<Kernel>::kRoundParts)
+      v = __bfloat162float(__float2bfloat16_rn(v));
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane == 0) red[warp][k] = v;
   }

@@ -14,7 +14,9 @@ other SRU (unidirectional: K4 per layer, ``ops.sru_pallas``) emits
 (B*other, L', dirs*H) and the tail is the library ConvTranspose1d (dirs*H
 -> C), as JAX's non-fused tail. On the CPU the same paths run the kernels'
 plain versions. In a bf16 model the fused stack, K3 and the bias add run
-in bf16, as JAX's time-major tail does for a bf16 input.
+in bf16, as JAX's time-major tail does for a bf16 input; off the fused
+stack K4 runs in bf16 and the library ConvTranspose1d takes its input in
+its bf16 weight's dtype (``layers.ConvTranspose``), as JAX's.
 """
 
 from __future__ import annotations

@@ -69,10 +69,14 @@ _SIGNATURES = {
         "pw_unproj_packed_fwd_bf16": (4, 6),
         "spatial_down_packed_fwd_bf16": (6, 8),
         "spatial_up_packed_fwd_bf16": (7, 9),
+        "dw_conv_packed_wgrad_bf16": (4, 15),
+        "pw_packed_wgrad_bf16": (4, 7),
     },
     "sru_pallas": {
         "sru_recurrence_fwd": (5, 6),
         "sru_recurrence_bwd": (8, 6),
+        "sru_recurrence_fwd_bf16": (5, 6),
+        "sru_recurrence_bwd_bf16": (8, 6),
     },
 }
 
@@ -226,6 +230,12 @@ def check_cuda(name: str, *tensors: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return dtype
+
+
+def entry(fn: str, dtype: torch.dtype) -> str:
+    """The C entry ``fn`` for storage ``dtype``: its ``_bf16`` form for
+    bf16."""
+    return fn + "_bf16" if dtype == torch.bfloat16 else fn
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:

@@ -43,16 +43,22 @@ the implementation, forward and backward: on a CPU tensor the plain
 PyTorch versions run, on a CUDA tensor the kernels launch or the call
 raises.
 
-The forwards also take bf16 storage (the Pallas kernels run in the
-caller's dtype; bf16 is the JAX package's serving mode): x, w, bias and
-the output in bf16, the sums in float32, each output rounded once (CUDA
-entries ``*_fwd_bf16``; K6 and K7 on the bf16 tensor cores, ``mma.sync``
-m16n8k16, ``pw_proj16_geometry``). K8's and K9's rank-4 side is bf16 too:
-JAX's float32 rank-4 block is a workaround for Mosaic on v5e, and bf16
-in, float32 inside, bf16 out gives the same values. On the card x, w and
-bias are of one dtype (a mixed call raises; nothing is cast to reach the
-float32 kernel). bf16 is for serving: a bf16 op that autograd would
-record raises ``NotImplementedError`` on either device.
+The ops also take bf16 storage, forward and backward (the Pallas kernels
+run in the caller's dtype: a bf16 packed model serves and trains in
+bf16): x, w, bias and the output in bf16, the sums in float32, each output
+rounded once (CUDA entries ``*_fwd_bf16``; K6 and K7 on the bf16 tensor
+cores, ``mma.sync`` m16n8k16, ``pw_proj16_geometry``). K8's and K9's
+rank-4 side is bf16 too: JAX's float32 rank-4 block is a workaround for
+Mosaic on v5e, and bf16 in, float32 inside, bf16 out gives the same
+values. On the card x, w and bias are of one dtype (a mixed call raises;
+nothing is cast to reach the float32 kernel). A bf16 backward runs as JAX's
+custom VJPs do in the cotangent's dtype: each dx is the bf16 forward entry
+on the cotangent (K9 through a transposed pool map rounds each source's
+term and adds the terms in bf16, as JAX sums one single-source pass a
+source); the weight gradients read the bf16 operands and write float32
+(``*_wgrad_bf16``), which is folded or transposed in float32 and rounded
+once to the weight's dtype; a bias gradient is the cotangent summed in
+float32, rounded once.
 
 The model layers dispatch on ``PackedTF`` (a packed map flowing through a
 module) and ``PackRequest`` (a rank-4 map handed to the 1x1 projection
@@ -71,7 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernel_lib
-from .sru_fused import arithmetic_dtype, refuse_bf16_grad
+from .sru_fused import arithmetic_dtype
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -123,19 +129,16 @@ def _check_cuda(name: str, x, w=None, bias=None) -> torch.dtype:
     return dt
 
 
-def _entry(fn: str, dtype: torch.dtype) -> str:
-    """The C entry of a forward for the storage dtype."""
-    return fn + "_bf16" if dtype == torch.bfloat16 else fn
+def _records(*tensors) -> bool:
+    """True when autograd would record a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
-def _records(name: str, *tensors) -> bool:
-    """True when autograd would record a call on these inputs; raises
-    NotImplementedError where one of them is bf16 (no bf16 backward)."""
-    tensors = [t for t in tensors if t is not None]
-    rec = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    if rec:
-        refuse_bf16_grad(name, *tensors)
-    return rec
+def _bias_grad(g, dims, dtype):
+    """A bias's gradient: the cotangent ``g`` summed over ``dims`` in its
+    arithmetic dtype, rounded once to ``dtype`` (the weight's, as JAX)."""
+    return g.to(arithmetic_dtype(g.dtype)).sum(dims).to(dtype)
 
 
 def _wide(*tensors):
@@ -207,20 +210,23 @@ WGRAD_QUADS = 16
 WGRAD_POS = 12
 
 
-def dw_wgrad_smem(kt: int, kf: int, qb: int, s: int, p: int) -> int:
-    """K5-wgrad's shared bytes (``wgrad_smem_floats`` in the source): the
-    ring of kt + 2 x rows of s p + WGRAD_TAPS G - 1 positions and 3 g rows
-    of s p positions, 4 qb floats a position (G = ceil(kf / WGRAD_TAPS)
-    tap groups), or the end's exchange of 16 sums a thread if larger."""
+def dw_wgrad_smem(kt: int, kf: int, qb: int, s: int, p: int,
+                  elem: int = 4) -> int:
+    """K5-wgrad's shared bytes (``wgrad_smem_floats`` in the source, and
+    ``wgrad_smem_bytes_bf16`` for ``elem`` 2): the ring of kt + 2 x rows of
+    s p + WGRAD_TAPS G - 1 positions and 3 g rows of s p positions, qb
+    chunks of 4 values of ``elem`` bytes a position (G = ceil(kf /
+    WGRAD_TAPS) tap groups), or the end's exchange of 16 float32 sums a
+    thread if larger."""
     groups = -(-kf // WGRAD_TAPS)
     ft = s * p
-    ring = ((kt + 2) * (ft + WGRAD_TAPS * groups - 1) + 3 * ft) * 4 * qb
-    return 4 * max(ring, qb * groups * kt * s * 16)
+    ring = ((kt + 2) * (ft + WGRAD_TAPS * groups - 1) + 3 * ft) * qb
+    return max(4 * elem * ring, 4 * qb * groups * kt * s * 16)
 
 
 @functools.lru_cache(maxsize=None)
 def dw_wgrad_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
-                      kf: int) -> dict:
+                      kf: int, elem: int = 4) -> dict:
     """K5-wgrad's launch, as ``dw_conv_packed_wgrad`` runs it: a thread
     owns a channel quad, a tap row and a group of WGRAD_TAPS taps (``units``
     = qb quads x kt x G a block) and a segment of ``p`` positions of the f
@@ -232,7 +238,8 @@ def dw_wgrad_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
     splits f_out evenly over the tiles' segments and is halved while the
     ring does not fit one block. Raises ValueError where no block takes
     the taps (kt G above WGRAD_MAX_THREADS, or the ring of 1 position a
-    thread above one block's shared memory)."""
+    thread above one block's shared memory). ``elem``: the operands' bytes
+    a value (2 for bf16, whose ring is half the bytes)."""
     if min(b, c, t_out, f_out, kt, kf) < 1:
         raise ValueError(f"dw_conv_packed_wgrad: B {b}, C {c}, T {t_out}, "
                          f"F {f_out}, taps {kt} x {kf}")
@@ -248,7 +255,7 @@ def dw_wgrad_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
     while True:
         tiles_f = -(-f_out // (s * p))
         p = -(-f_out // (tiles_f * s))
-        smem = dw_wgrad_smem(kt, kf, qb, s, p)
+        smem = dw_wgrad_smem(kt, kf, qb, s, p, elem)
         if smem <= kernel_lib.SMEM_PER_BLOCK or p == 1:
             break
         p = -(-p // 2)
@@ -268,10 +275,10 @@ def dw_wgrad_geometry(b: int, c: int, t_out: int, f_out: int, kt: int,
 
 
 def dw_wgrad_launch_ints(b, t_in, f_in, c, t_out, f_out, kt_kf, pads_t,
-                         pads_f) -> tuple:
+                         pads_f, elem: int = 4) -> tuple:
     """The ints of K5-wgrad's launch: the shapes, taps, low pads, then
     ``dw_wgrad_geometry``'s qb, s, p, runs and parts."""
-    geo = dw_wgrad_geometry(b, c, t_out, f_out, *kt_kf)
+    geo = dw_wgrad_geometry(b, c, t_out, f_out, *kt_kf, elem)
     return (b, t_in, f_in, c, t_out, f_out, *kt_kf, pads_t[0], pads_f[0],
             geo["qb"], geo["s"], geo["p"], geo["runs"], geo["parts"])
 
@@ -279,20 +286,24 @@ def dw_wgrad_launch_ints(b, t_in, f_in, c, t_out, f_out, kt_kf, pads_t,
 def dw_conv_packed_wgrad(xp, g, f_in: int, c: int, kt_kf, pads_t, pads_f):
     """The weight gradient of ``dw_conv_packed`` (``_dw_conv_wgrad_impl``
     folded over F): (kT, kF, C) from the input xp (B, T_in, F_in*C) and
-    the output's cotangent g (B, T_out, F_out*C)."""
+    the output's cotangent g (B, T_out, F_out*C); float32 on bf16
+    operands (their products and sums float32, as JAX's kernel), else in
+    their dtype."""
     if xp.device.type == "cpu":
-        return dw_conv_packed_wgrad_plain(xp, g, f_in, c, kt_kf, pads_t,
-                                          pads_f)
-    kernel_lib.check_cuda("dw_conv_packed_wgrad", xp, g)
+        ad = arithmetic_dtype(xp.dtype)
+        return dw_conv_packed_wgrad_plain(xp.to(ad), g.to(ad), f_in, c,
+                                          kt_kf, pads_t, pads_f)
+    dt = kernel_lib.check_cuda("dw_conv_packed_wgrad", xp, g, dtypes=_DTYPES)
     b, t_in, _ = xp.shape
     t_out, n_out = g.shape[1:]
     ints = dw_wgrad_launch_ints(b, t_in, f_in, c, t_out, n_out // c, kt_kf,
-                                pads_t, pads_f)
+                                pads_t, pads_f, xp.element_size())
     partial = torch.empty(ints[-1], kt_kf[0] * kt_kf[1] * c,
                           device=xp.device)
     out = torch.empty(kt_kf[0], kt_kf[1], c, device=xp.device)
     kernel_lib.launch(
-        "packed_tf", "dw_conv_packed_wgrad", xp.device,
+        "packed_tf", kernel_lib.entry("dw_conv_packed_wgrad", dt),
+        xp.device,
         xp.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
         *ints)
     return out
@@ -378,7 +389,7 @@ def _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f):
         raise ValueError(f"dw_conv_packed: empty output {t_out} x {f_out}")
     out = torch.empty(b, t_out, f_out * c, device=xp.device, dtype=dt)
     kernel_lib.launch(
-        "packed_tf", _entry("dw_conv_packed_fwd", dt), xp.device,
+        "packed_tf", kernel_lib.entry("dw_conv_packed_fwd", dt), xp.device,
         xp.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         *dw_conv_launch_ints(b, t_in, f_in, c, t_out, f_out, (kt, kf),
@@ -410,9 +421,9 @@ class _DwConv(torch.autograd.Function):
                              (kf - 1 - pads_f[0], kf - 1 - pads_f[1]))
         if ctx.needs_input_grad[1]:
             dw = dw_conv_packed_wgrad(xp, g, f_in, c, (kt, kf), pads_t,
-                                      pads_f)
+                                      pads_f).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.reshape(-1, c).sum(0)
+            db = _bias_grad(g.reshape(-1, c), 0, w.dtype)
         return dx, dw, db, None, None, None, None
 
 
@@ -433,7 +444,7 @@ def dw_conv_packed(xp, w, bias, f_in: int, c: int, pads_t, pads_f):
     if cw != c or xp.shape[2] != f_in * c:
         raise ValueError(f"dw_conv_packed: x {tuple(xp.shape)}, F {f_in}, "
                          f"C {c}, w {tuple(w.shape)}")
-    if _records("dw_conv_packed", xp, w, bias):
+    if _records(xp, w, bias):
         return _DwConv.apply(xp, w, bias, f_in, c, tuple(pads_t),
                              tuple(pads_f))
     return _dw_forward(xp, w, bias, f_in, c, pads_t, pads_f)
@@ -469,7 +480,10 @@ def pw_unproj_packed_plain(xp, w, bias, f: int):
 
 def pw_packed_wgrad_plain(a, g):
     """dW (Ca, Cb) = sum over (b, t, f) of a[.., ca] g[.., cb], one einsum;
-    one side is rank-4 (B, C, T, F), the other packed (B, T, F*C')."""
+    one side is rank-4 (B, C, T, F), the other packed (B, T, F*C'); in
+    float32 on bf16 operands (their products exact)."""
+    ad = arithmetic_dtype(a.dtype)
+    a, g = a.to(ad), g.to(ad)
     if a.dim() == 4:
         b, _, t, f = a.shape
         return torch.einsum("bitf,btfo->io", a, g.reshape(b, t, f, -1))
@@ -491,6 +505,24 @@ PW_WGRAD_THREADS = 2 * PW_WGRAD_ROWS
 PW_WGRAD_PS = PW_WGRAD_K + 4
 PW_WGRAD_QS = PW_WGRAD_COLS + 8
 PW_WGRAD_OS = PW_WGRAD_COLS + 2
+
+
+# pw-wgrad's bf16 kernel (``kPw16*`` in csrc/packed_tf.cu): kPw's tiles and
+# stages; a staged planar row of PW_WGRAD16_PS bf16 (its kPwK positions
+# from the 16-byte block that holds the first), packed positions of
+# PW_WGRAD16_QS bf16
+PW_WGRAD16_PS = PW_WGRAD_K + 8
+PW_WGRAD16_QS = PW_WGRAD_COLS + 8
+
+
+def pw_wgrad16_smem() -> int:
+    """pw-wgrad's bf16 kernel's shared bytes (``pw_wgrad_smem_bytes_bf16``
+    in the source): PW_WGRAD_STAGES stages of PW_WGRAD_ROWS planar rows
+    and PW_WGRAD_K packed positions in bf16, or the float32 output tile in
+    their place."""
+    ring = 2 * PW_WGRAD_STAGES * (PW_WGRAD_ROWS * PW_WGRAD16_PS
+                                  + PW_WGRAD_K * PW_WGRAD16_QS)
+    return max(ring, 4 * PW_WGRAD_ROWS * PW_WGRAD_OS)
 
 
 def pw_wgrad_smem(rows: int = PW_WGRAD_ROWS, stages: int = PW_WGRAD_STAGES,
@@ -548,7 +580,8 @@ def pw_wgrad_launch_ints(a, g) -> tuple:
 def pw_packed_wgrad(a, g):
     """The weight gradient of the packed 1x1 convs (``_pw_wgrad_impl``):
     dW (Ca, Cb) = sum over positions of a^T g. K6's is (x4 rank-4, g
-    packed), K7's (xp packed, g rank-4)."""
+    packed), K7's (xp packed, g rank-4). Float32 on bf16 operands (JAX's
+    kernel writes float32), else in their dtype."""
     a_planar = a.dim() == 4
     four, packed = (a, g) if a_planar else (g, a)
     b, c4, t, f = four.shape
@@ -557,14 +590,14 @@ def pw_packed_wgrad(a, g):
                          f"{tuple(g.shape)}")
     if a.device.type == "cpu":
         return pw_packed_wgrad_plain(a, g)
-    kernel_lib.check_cuda("pw_packed_wgrad", a, g)
+    dt = kernel_lib.check_cuda("pw_packed_wgrad", a, g, dtypes=_DTYPES)
     ints = pw_wgrad_launch_ints(a, g)
     ca, cb = ints[2:4]
     partial = torch.empty(ints[-1], ca * cb, device=a.device)
     out = torch.empty(ca, cb, device=a.device)
     kernel_lib.launch(
-        "packed_tf", "pw_packed_wgrad", a.device, a.data_ptr(), g.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), *ints)
+        "packed_tf", kernel_lib.entry("pw_packed_wgrad", dt), a.device,
+        a.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(), *ints)
     return out
 
 
@@ -760,9 +793,9 @@ class _PwProj(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _unproj_forward(g, w.t(), None, x4.shape[3])
         if ctx.needs_input_grad[1]:
-            dw = pw_packed_wgrad(x4, g)
+            dw = pw_packed_wgrad(x4, g).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.reshape(-1, w.shape[1]).sum(0)
+            db = _bias_grad(g.reshape(-1, w.shape[1]), 0, w.dtype)
         return dx, dw, db
 
 
@@ -783,9 +816,9 @@ class _PwUnproj(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _proj_forward(g, w.t(), None)
         if ctx.needs_input_grad[1]:
-            dw = pw_packed_wgrad(xp, g)
+            dw = pw_packed_wgrad(xp, g).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.sum((0, 2, 3))
+            db = _bias_grad(g, (0, 2, 3), w.dtype)
         return dx, dw, db, None
 
 
@@ -797,7 +830,7 @@ def pw_proj_packed(x4, w, bias):
     if w.shape[0] != x4.shape[1]:
         raise ValueError(f"pw_proj_packed: x {tuple(x4.shape)}, w "
                          f"{tuple(w.shape)}")
-    if _records("pw_proj_packed", x4, w, bias):
+    if _records(x4, w, bias):
         return _PwProj.apply(x4, w, bias)
     return _proj_forward(x4, w, bias)
 
@@ -807,7 +840,7 @@ def pw_unproj_packed(xp, w, bias, f: int):
     if xp.shape[2] != f * w.shape[0]:
         raise ValueError(f"pw_unproj_packed: x {tuple(xp.shape)}, F {f}, w "
                          f"{tuple(w.shape)}")
-    if _records("pw_unproj_packed", xp, w, bias):
+    if _records(xp, w, bias):
         return _PwUnproj.apply(xp, w, bias, f)
     return _unproj_forward(xp, w, bias, f)
 
@@ -1016,14 +1049,26 @@ def spatial_down_packed_plain(xp, smap: SpatialMap, c: int):
 
 
 def spatial_up_packed_plain(x4, smap: SpatialMap):
-    """The T side by the dense M, then the F side, as K8's."""
+    """The T side by the dense M, then the F side, as K8's. In bf16 storage
+    each source's term of the F side is rounded to bf16 and the terms are
+    added in bf16, in order: JAX's K8 VJP sums one single-source pass a
+    source of the transposed map, each in the cotangent's dtype (one
+    source, every forward map, is one rounding)."""
     dtype = x4.dtype
     (x4,) = _wide(x4)
     b, c = x4.shape[:2]
     tens = smap.tensors(x4.device)
     y = torch.einsum("ts,bcsu->btuc", tens["m"].to(x4.dtype), x4)
-    y = _f_side(y, tens["fs"], tens["fw"], 2)  # (B, T, F, C)
-    return y.reshape(b, smap.t_out, smap.f_out * c).to(dtype)
+    if dtype != torch.bfloat16:
+        y = _f_side(y, tens["fs"], tens["fw"], 2)  # (B, T, F, C)
+        return y.reshape(b, smap.t_out, smap.f_out * c).to(dtype)
+    fs, fw = tens["fs"], tens["fw"]
+    out = None
+    for i in range(fs.shape[1]):
+        part = (y.index_select(2, fs[:, i].long())
+                * fw[:, i, None].to(y.dtype)).to(dtype)
+        out = part if out is None else out + part
+    return out.reshape(b, smap.t_out, smap.f_out * c)
 
 
 # K8 / K9 launch geometry: MAP_PAD mirrors kMapPad of csrc/packed_tf.cu
@@ -1086,7 +1131,8 @@ def _down_forward(xp, smap, c):
     b, _, n = xp.shape
     ptrs, ints = smap.launch_args(False, c, n // c, dev)
     out = torch.empty(b, c, smap.t_out, smap.f_out, device=dev, dtype=dt)
-    kernel_lib.launch("packed_tf", _entry("spatial_down_packed_fwd", dt), dev,
+    kernel_lib.launch("packed_tf",
+                      kernel_lib.entry("spatial_down_packed_fwd", dt), dev,
                       xp.data_ptr(), out.data_ptr(), *ptrs, b, *ints)
     return out
 
@@ -1099,7 +1145,8 @@ def _up_forward(x4, smap):
     b, c, _, f2 = x4.shape
     ptrs, ints = smap.launch_args(True, c, f2, dev)
     out = torch.empty(b, smap.t_out, smap.f_out * c, device=dev, dtype=dt)
-    kernel_lib.launch("packed_tf", _entry("spatial_up_packed_fwd", dt), dev,
+    kernel_lib.launch("packed_tf",
+                      kernel_lib.entry("spatial_up_packed_fwd", dt), dev,
                       x4.data_ptr(), out.data_ptr(), *ptrs, b, *ints)
     return out
 
@@ -1141,7 +1188,7 @@ def spatial_down_packed(xp, smap: SpatialMap, c: int):
     if t != smap.t_in or n % c or smap.fs_max >= n // c:
         raise ValueError(f"spatial_down_packed: x {tuple(xp.shape)}, C {c}, "
                          f"map T {smap.t_in}")
-    if _records("spatial_down_packed", xp):
+    if _records(xp):
         return _SpatialDown.apply(xp, smap, c)
     return _down_forward(xp, smap, c)
 
@@ -1152,7 +1199,7 @@ def spatial_up_packed(x4, smap: SpatialMap):
     if t2 != smap.t_in or smap.fs_max >= f2:
         raise ValueError(f"spatial_up_packed: x {tuple(x4.shape)}, map T "
                          f"{smap.t_in}")
-    if _records("spatial_up_packed", x4):
+    if _records(x4):
         return _SpatialUp.apply(x4, smap)
     return _up_forward(x4, smap)
 

@@ -23,8 +23,8 @@ through the gen-1 recurrence K4 (``ops.sru_pallas``), time-major, layer
 device picks the implementation: the plain versions on a CPU tensor, the
 CUDA kernels on a CUDA tensor. With bf16 parameters (a bf16 serving
 model) the fused stack runs in bf16 storage: layer 0's projection a bf16
-``conv1d``, then K1 and K2 through their bf16 entries; K4 takes float32
-only.
+``conv1d``, then K1 and K2 through their bf16 entries; off the fused stack
+each layer's projection is a bf16 product and K4 runs its bf16 entries.
 """
 
 from __future__ import annotations

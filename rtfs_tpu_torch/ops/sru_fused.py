@@ -94,12 +94,13 @@ def scan_direction(u, xhw, vb_d, reverse, with_c=False):
     return (out, cs) if with_c else out
 
 
-def scan_direction_bwd(u, xhw, vb_d, c, dh, reverse):
+def scan_direction_bwd(u, xhw, vb_d, c, dh, reverse, columns=False):
     """Plain BPTT of one direction (the adjoints of ``_lay0_bwd_kernel`` /
     ``_hid_bwd_kernel``), walking time in reverse scan order.
 
     u: (T, >= 3H, B); xhw, c, dh: (T, H, B). Returns du (T, 3H, B) for the
-    rows [x~, f, r], d(highway) (T, H, B) and d(v_f, v_r, b_f, b_r) (4, H).
+    rows [x~, f, r], d(highway) (T, H, B) and d(v_f, v_r, b_f, b_r) (4, H),
+    or with ``columns`` its sums of each batch column apart, (4, H, B).
     """
     t_len, h = xhw.shape[0], xhw.shape[1]
     v_f, v_r, b_f, b_r = (vb_d[i][:, None] for i in range(4))
@@ -123,21 +124,11 @@ def scan_direction_bwd(u, xhw, vb_d, c, dh, reverse):
         dhw[t] = g * (1.0 - r)
         acc += torch.stack([da * c_prev, dm * c_t, da, dm])
         dc = dc * f + da * v_f
-    return du, dhw, acc.sum(-1)
+    return du, dhw, acc if columns else acc.sum(-1)
 
 
 def _records(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def refuse_bf16_grad(name: str, *tensors) -> None:
-    """For an op whose bf16 backward is not ported (the packed ops): raise
-    where a bf16 op would be recorded for a backward (none falls back to
-    float32)."""
-    if any(t.dtype == torch.bfloat16 for t in tensors):
-        raise NotImplementedError(
-            f"{name}: bf16 is inference-only (no bf16 backward); run it "
-            "under torch.no_grad() or in float32")
 
 
 def arithmetic_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -31,6 +31,14 @@ states c and whose backward is the BPTT kernel; otherwise (serving) the
 forward writes no c. On a CPU tensor the plain versions below run, forward
 and backward, through the same Function; on a CUDA tensor the kernels
 launch or the call raises.
+
+K4 also takes bf16 storage, forward and backward (a bf16 model's U takes
+the compute dtype, and the Pallas kernels run in it): u, xhw, vb, h, c and
+the gradients bf16, the arithmetic and the carries float32, only the
+stored values rounded (CUDA entries ``sru_recurrence_{fwd,bwd}_bf16``).
+d(v, b) is rounded as JAX's backward rounds it: one bf16 partial a batch
+column, those added in float32 and the sum rounded once. u, xhw and vb are
+of one dtype (a mixed call raises on the card).
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ import functools
 import torch
 
 from . import kernel_lib
-from .sru_fused import (_grad, _records, _spread_blocks, layer0_projection,
+from .sru_fused import (_BF16, _grad, _records, _spread_blocks,
+                        arithmetic_dtype, layer0_projection,
                         scan_bwd_geometry, scan_direction, scan_direction_bwd)
 
 # ``kRecFwdThreads`` and ``kRecFwdAhead`` in csrc/sru_pallas.cu: the K4
@@ -51,14 +60,31 @@ FWD_AHEAD = 8
 
 
 def sru_recurrence_plain(u, xhw, vb, reverse=False, with_c=False):
-    """K4's plain version: h (T, H, B), and with ``with_c`` (h, c)."""
-    return scan_direction(u, xhw, vb, reverse, with_c)
+    """K4's plain version: h (T, H, B), and with ``with_c`` (h, c). In bf16
+    storage the scan runs in float32 on the widened inputs, its carry never
+    rounded, and only h and c are rounded (``_fwd_kernel``)."""
+    dt = u.dtype
+    ad = arithmetic_dtype(dt)
+    out = scan_direction(u.to(ad), xhw.to(ad), vb.to(ad), reverse, with_c)
+    if dt == ad:
+        return out
+    return tuple(o.to(dt) for o in out) if with_c else out.to(dt)
 
 
 def sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse=False):
     """K4 backward's plain version: du (T, 3H, B), dxhw (T, H, B) and
-    d(v_f, v_r, b_f, b_r) (4, H)."""
-    return scan_direction_bwd(u, xhw, vb, c, dh, reverse)
+    d(v_f, v_r, b_f, b_r) (4, H). In bf16 storage the scan runs in float32
+    on the widened values and du, dxhw are rounded once; d(v, b) is each
+    batch column's float32 sum rounded to bf16, those added in float32 and
+    rounded once (``_bwd_kernel`` writes a bf16 partial a column, which
+    ``jnp.sum`` widens, adds and rounds)."""
+    dt = u.dtype
+    ad = arithmetic_dtype(dt)
+    if dt == ad:
+        return scan_direction_bwd(u, xhw, vb, c, dh, reverse)
+    du, dxhw, cols = scan_direction_bwd(
+        *(t.to(ad) for t in (u, xhw, vb, c, dh)), reverse, columns=True)
+    return du.to(dt), dxhw.to(dt), cols.to(dt).to(ad).sum(-1).to(dt)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,7 +107,7 @@ def k4_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
 def _k4_forward(u, xhw, vb, reverse, with_c):
     if u.device.type == "cpu":
         return sru_recurrence_plain(u, xhw, vb, reverse, with_c)
-    kernel_lib.check_cuda("sru_recurrence", u, xhw, vb)
+    dt = kernel_lib.check_cuda("sru_recurrence", u, xhw, vb, dtypes=_BF16)
     t_len, gh, bsz = u.shape
     if min(u.shape) == 0:
         raise ValueError("sru_recurrence: empty input")
@@ -89,8 +115,8 @@ def _k4_forward(u, xhw, vb, reverse, with_c):
     h = torch.empty_like(xhw)
     c = torch.empty_like(xhw) if with_c else None
     kernel_lib.launch(
-        "sru_pallas", "sru_recurrence_fwd", u.device, u.data_ptr(),
-        xhw.data_ptr(), vb.data_ptr(), h.data_ptr(),
+        "sru_pallas", kernel_lib.entry("sru_recurrence_fwd", dt), u.device,
+        u.data_ptr(), xhw.data_ptr(), vb.data_ptr(), h.data_ptr(),
         c.data_ptr() if with_c else None, t_len, gh // 3, bsz, int(reverse),
         geo["cols"], geo["units"],
     )
@@ -100,18 +126,19 @@ def _k4_forward(u, xhw, vb, reverse, with_c):
 def _k4_backward(u, xhw, vb, c, dh, reverse):
     if u.device.type == "cpu":
         return sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse)
-    kernel_lib.check_cuda("sru_recurrence backward", u, xhw, vb, c, dh)
+    dt = kernel_lib.check_cuda("sru_recurrence backward", u, xhw, vb, c, dh,
+                               dtypes=_BF16)
     t_len, gh, bsz = u.shape
     geo = scan_bwd_geometry(t_len, gh // 3, bsz, 1)
     du, dxhw = torch.empty_like(u), torch.empty_like(xhw)
     dvb_part = torch.empty(geo["parts"], 4, gh // 3, device=u.device)
     kernel_lib.launch(
-        "sru_pallas", "sru_recurrence_bwd", u.device, u.data_ptr(),
-        xhw.data_ptr(), vb.data_ptr(), c.data_ptr(), dh.data_ptr(),
-        du.data_ptr(), dxhw.data_ptr(), dvb_part.data_ptr(), t_len, gh // 3,
-        bsz, int(reverse), geo["cols"], geo["units"],
+        "sru_pallas", kernel_lib.entry("sru_recurrence_bwd", dt), u.device,
+        u.data_ptr(), xhw.data_ptr(), vb.data_ptr(), c.data_ptr(),
+        dh.data_ptr(), du.data_ptr(), dxhw.data_ptr(), dvb_part.data_ptr(),
+        t_len, gh // 3, bsz, int(reverse), geo["cols"], geo["units"],
     )
-    return du, dxhw, dvb_part.sum(0)
+    return du, dxhw, dvb_part.sum(0).to(dt)
 
 
 class _Recurrence(torch.autograd.Function):
@@ -166,7 +193,7 @@ def _directions(u, x, weight_c, bias, hidden, dirs, k):
     for d in range(dirs):
         u_d = u[:, d * k * hidden:(d + 1) * k * hidden]
         x_hw = (u_d[:, 3 * hidden:] if k == 4
-                else x[:, d * hidden:(d + 1) * hidden])
+                else x[:, d * hidden:(d + 1) * hidden].to(u.dtype))
         outs.append(sru_recurrence(
             u_d[:, :3 * hidden].contiguous(), x_hw.contiguous(),
             weight_c[d], bias[d], reverse=d == 1))
@@ -182,7 +209,8 @@ def sru_layer_tpu(x, weight, weight_c, bias, hidden: int,
     """
     dirs = 2 if bidirectional else 1
     k = 4 if x.shape[1] != dirs * hidden else 3
-    u = torch.matmul(weight.t(), x)  # (L, dirs*k*H, B)
+    # in the weight's dtype: a bf16 model's U is bf16, as JAX's
+    u = torch.matmul(weight.t(), x.to(weight.dtype))  # (L, dirs*k*H, B)
     return _directions(u, x, weight_c, bias, hidden, dirs, k)
 
 

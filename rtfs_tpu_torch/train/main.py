@@ -41,10 +41,9 @@ from ..data.loader import PrefetchLoader, WaitTimer, pin_and_copy
 from ..data.synthetic import SyntheticAVDataset
 from ..utils.code_version import code_version
 from ..utils.parser import parse_overrides
-from ..utils.precision import compute_dtype
 from .checkpoints import CheckpointManager, export_model, resolve_checkpoint_spec
 from .optim import EpochDivideLR, ReduceLROnPlateau, get_lr, make_optimizer, set_lr
-from .system import BF16_TRAINING, AVSystem, make_generator
+from .system import AVSystem, make_generator
 
 
 def build_datasets(conf: Dict[str, Any]):
@@ -69,25 +68,11 @@ def build_datasets(conf: Dict[str, Any]):
         for key in ("train_dir", "valid_dir"))
 
 
-def _refuse_bf16(conf: Dict[str, Any]) -> None:
-    """Raise, before anything is written, for a bf16 config whose training
-    is not ported: packed-TF or a unidirectional SRU (K4)."""
-    a = conf["audionet"]
-    if compute_dtype(a.get("compute_dtype", "float32")) != torch.bfloat16:
-        return
-    layers = a.get("audio_params", {}).get("layers", {}).values()
-    if a.get("packed_tf") or any(
-            isinstance(layer, dict) and layer.get("bidirectional") is False
-            for layer in layers):
-        raise NotImplementedError(BF16_TRAINING)
-
-
 def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
     """The frozen lip backbone, the AVNet (weights from ``seed``), the
     optimizer of ``conf["optim"]`` and the ``AVSystem`` over them. A bf16
-    config (``audionet.compute_dtype``) trains in bf16 (``AVSystem``); a
-    bf16 packed-TF or unidirectional one raises."""
-    _refuse_bf16(conf)
+    config (``audionet.compute_dtype``) trains in bf16 (``AVSystem``), in
+    either layout and with either SRU."""
     optim_conf = conf["optim"]
     tconf = conf["training"]
     model = build_avnet(conf, device, seed=seed)
@@ -103,10 +88,11 @@ def build_system(conf: Dict[str, Any], device, seed: int = 0) -> AVSystem:
 def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
          checkpoint: Optional[str] = None) -> Dict[str, Any]:
     """Train; returns the last epoch's metrics row (None if no epoch ran).
-    Raises NotImplementedError on a bf16 config whose training is not
-    ported before writing anything."""
-    _refuse_bf16(conf)
+    The system is built first, so that a config the port does not train
+    (``batch_fold``, ``train_video_model``) raises NotImplementedError
+    before anything is written."""
     device = torch.device(device)
+    system = build_system(conf, device, seed)
     exp_dir = os.path.join(conf["log"].get("path", "log/tmp"),
                            conf["log"]["exp_name"])
     os.makedirs(exp_dir, exist_ok=True)
@@ -115,7 +101,6 @@ def main(conf: Dict[str, Any], device: str = "cuda", seed: int = 0,
         json.dump({**conf, "code_version": code_version()}, f, indent=2)
 
     train_set, val_set = build_datasets(conf)
-    system = build_system(conf, device, seed)
     tconf, optim_conf = conf["training"], conf["optim"]
     batch_size = tconf["batch_size"]
 

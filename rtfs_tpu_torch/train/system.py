@@ -11,12 +11,13 @@ is not ported yet.
 A bf16 model (``compute_dtype`` bfloat16, ``config.build_avnet``) trains
 by the contract of the JAX bench's ``train_bf16`` row (``bench.py``):
 parameters and persistent buffers in bf16, rounded once at build; the
-gradients in bf16, through K1-K3's bf16 backward kernels; the clip and
-AdamW by optax's formula in the parameters' dtype, with bf16 moments and
-no float32 master copy (``train/optim.py``); the batch fed in float32, as
+gradients in bf16, through the bf16 backward kernels (K1-K3 in the
+standard layout, with K5-K9 and the two packed weight gradients in the
+packed-TF layout, K4 in a unidirectional model); the clip and AdamW by
+optax's formula in the parameters' dtype, with bf16 moments and no
+float32 master copy (``train/optim.py``); the batch fed in float32, as
 JAX's ``AVSystem`` feeds it; the BatchNorm statistics float32 after the
-first step, as flax's. The packed-TF layout in bf16 (K5-K9 backward) and
-the unidirectional model (K4) are not ported in bf16 training.
+first step, as flax's.
 """
 
 from __future__ import annotations
@@ -50,12 +51,6 @@ def _unfold_speakers(ests, n_spk: int):
     return ests.reshape((-1, n_spk) + tuple(ests.shape[2:]))
 
 
-BF16_TRAINING = (
-    "compute_dtype bfloat16 trains the standard layout only: bf16 training "
-    "of packed_tf (K5-K9 backward and the wgrads in bf16, ROADMAP Queue 2 "
-    "item 3) and of a unidirectional SRU (K4 in bf16, Queue 2 item 2) is "
-    "not ported")
-
 
 def _match_buffer_dtypes(model, state: dict) -> None:
     """Give each floating buffer of ``model`` the dtype of its entry in
@@ -81,16 +76,11 @@ class AVSystem:
         no weight decay, clip 5.0 over ``model``'s parameters).
 
     Training runs in float32 (or float64 on the CPU), or in bf16 for a bf16
-    model of the standard layout (the module docstring); a bf16 packed-TF
-    model raises NotImplementedError.
+    model, of either layout and either SRU (the module docstring).
     """
 
     def __init__(self, model, video_model=None, optimizer=None,
                  train_video_model: bool = False, online_mix: bool = False):
-        if (getattr(model, "compute_dtype", None) == torch.bfloat16
-                and getattr(model, "packed_tf", False)):
-            # (a unidirectional bf16 model already raises at build)
-            raise NotImplementedError(BF16_TRAINING)
         if train_video_model:
             raise NotImplementedError(
                 "joint video training (train_video_model) is not ported")

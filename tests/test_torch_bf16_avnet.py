@@ -299,50 +299,58 @@ def test_bf16_norms_take_float32_statistics(norm):
 
 
 def test_bf16_refusals():
-    """An SRU off the fused stack (K4) and batch_fold raise at build, and so
-    does float16; packed_tf, with K5-K9's bf16 entries, builds and serves,
-    whether set in the config or on a built bf16 model. The standard bf16
-    model trains (AVSystem takes it); packed_tf in bf16 does not (no bf16
-    backward for K5-K9): AVSystem and the train entry raise, the entry
-    before it writes anything."""
+    """batch_fold raises at build, and so does float16. An SRU off the
+    fused stack (unidirectional, K4), refused until K4 took bf16, now
+    builds in bf16 and serves; packed_tf, with K5-K9's bf16 entries,
+    builds and serves, whether set in the config or on a built bf16 model.
+    Every bf16 model trains (AVSystem and the train entry's build_system
+    take the standard, the packed and the unidirectional one, K4's and
+    K5-K9's bf16 backwards ported); the train entry still raises for
+    batch_fold before it writes anything."""
+    from rtfs_tpu_torch.ops.sru import SRU
     from rtfs_tpu_torch.train import main as train_main
     from rtfs_tpu_torch.train.system import AVSystem
 
     conf = _bf16_conf(load_config(PRESET))
     a = conf["audionet"]
-    uni = json.loads(json.dumps(conf))
-    for layer in ("layer_1", "layer_2"):
-        uni["audionet"]["audio_params"]["layers"][layer]["bidirectional"] = False
-    for bad in (uni, dict(conf, audionet=dict(a, batch_fold=2))):
-        with pytest.raises(NotImplementedError):
-            build_avnet(bad, device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_avnet(dict(conf, audionet=dict(a, batch_fold=2)), device="cpu")
     with pytest.raises(NotImplementedError):
         build_avnet(dict(conf, audionet=dict(a, compute_dtype="float16")),
                     device="cpu")
     small = json.loads(json.dumps(conf))
     small["audionet"]["audio_params"]["repeats"] = 1
     small["audionet"]["video_params"]["repeats"] = 1
+    uni = json.loads(json.dumps(small))
+    for layer in ("layer_1", "layer_2"):
+        uni["audionet"]["audio_params"]["layers"][layer]["bidirectional"] = False
+    uni_model = build_avnet(uni, device="cpu")
+    srus = [m for m in uni_model.modules() if isinstance(m, SRU)]
+    assert srus and not any(m.uses_fused_stack for m in srus)
+    assert {p.dtype for p in uni_model.parameters()} == {torch.bfloat16}
     model = build_avnet(small, device="cpu")
     AVSystem(model)
     model.packed_tf = True
-    with pytest.raises(NotImplementedError):
-        AVSystem(model)
+    AVSystem(model)
     packed = build_avnet(dict(small, audionet=dict(small["audionet"],
                                                    packed_tf=True)),
                          device="cpu")
     assert packed.packed_tf
-    for m in (model, packed):
+    AVSystem(uni_model)
+    for m in (model, packed, uni_model):
         with torch.no_grad():
             out = m(torch.full((1, 3968), 0.1), torch.zeros(1, 8, 512))
         assert out.dtype == torch.float32 and out.shape == (1, 1, 3968)
         assert torch.isfinite(out).all()
     small_packed = dict(small, audionet=dict(small["audionet"],
                                               packed_tf=True))
+    for trainable in (small_packed, uni):
+        assert train_main.build_system(trainable, "cpu").model.compute_dtype \
+            == torch.bfloat16
     with pytest.raises(NotImplementedError):
-        train_main.build_system(small_packed, "cpu")
-    with pytest.raises(NotImplementedError):
-        train_main.main(dict(small_packed, log={"path": "/nonexistent/never",
-                                                "exp_name": "x"}), "cpu")
+        train_main.main(dict(small_packed, audionet=dict(
+            small_packed["audionet"], batch_fold=2),
+            log={"path": "/nonexistent/never", "exp_name": "x"}), "cpu")
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -25,7 +25,18 @@ the kernels do:
   block's tile as its warps form it, and the output tile's room.
 
 A hypothesis property runs them at every width 8-160 the float32
-geometry tests take. ~5 s alone.
+geometry tests take.
+
+- K4's bf16 entries (``csrc/sru_pallas.cu``
+  ``sru_rec_fwd_kernel<__nv_bfloat16>`` and the scan's
+  ``sru_scan_bwd_kernel<14>``): each value read as the 4-byte word that
+  holds it, at rows of 125 B and 64 B values (B odd included), the array
+  at a 4-byte and a 2-byte boundary, nothing read past its end;
+- pw-wgrad's bf16 kernel (``pw_wgrad_bf16_kernel``): its planar rows
+  staged at their offset in a 16-byte block, the copies aligned, and
+  every m16n8k16 fragment register read where the kernel reads it.
+
+~7 s alone.
 """
 
 import os
@@ -437,3 +448,254 @@ def test_k7_bf16_output_tile_fits_the_stages():
         packed_tf.PROJ16_K + 8)
     assert packed_tf.PROJ16_N * (packed_tf.PROJ16_M + 8) <= stages
     assert 2 * stages <= 48 * 1024  # static shared memory
+
+
+# ----------------------------------------------------- K4 and the scan
+
+
+def _word_reads(base, e, last, ok=True):
+    """``copy_value`` of csrc/sru_scan.cuh on bf16: the 4-byte word that
+    holds value e of an array at byte address ``base`` (its last value at
+    ``last``): (word address, bytes read)."""
+    a = base + 2 * e
+    ok = np.asarray(ok, dtype=bool)
+    n = np.where(~ok, 0, np.where((e == last) & ((a & 2) == 0), 2, 4))
+    return a & ~3, n
+
+
+def _upper_half(base, e0, step, i):
+    """``upper_half``: whether value e0 + i step lies in the upper half of
+    its word, from parities alone."""
+    return ((base >> 1) ^ e0 ^ (i & step)) & 1
+
+
+def _read(buf, base, e0, step, i, last, ok=True):
+    """The float value ``slot_value`` takes from the word ``copy_value``
+    copied for value e0 + i step (zero where not ok), checking that no
+    byte outside the array is read."""
+    e = e0 + i * step
+    ok = np.asarray(ok, dtype=bool)
+    word, n = _word_reads(base, np.where(ok, e, 0), last, ok)
+    assert (word >= base & ~3).all()
+    assert (np.where(n > 0, word + n, 0) <= base + 2 * (last + 1)).all()
+    lo = buf[(word - (base & ~3)) // 2]
+    hi = np.where(n == 4, buf[np.minimum((word - (base & ~3)) // 2 + 1,
+                                         len(buf) - 1)], 0)
+    up = _upper_half(base, e0, step, i)
+    got = np.where(up == 1, hi, lo)
+    return np.where(ok, got, 0)
+
+
+def _array(n, base):
+    """An array of n values numbered 1 .. n (as ints, one a bf16 slot) at
+    byte address ``base``, in a buffer of 2-byte slots from its first
+    word (base & ~3), one slot past its end."""
+    pad = (base & 3) // 2
+    buf = np.concatenate([np.full(pad, -1), np.arange(1, n + 1),
+                          [-2]]).astype(np.int64)
+    return buf
+
+
+# the uni sites: frequency rows of 125 B values, time rows of 64 B, B odd
+# (bs 1, 3, 5: the rows start on 2-byte boundaries) and even
+K4_WORD_SITES = [(5, 125 * b) for b in (1, 2, 3, 5)] + [
+    (5, 64 * b) for b in (1, 3)] + [(3, 7)]
+
+
+@pytest.mark.parametrize("t_len,bsz", K4_WORD_SITES)
+@pytest.mark.parametrize("base", [256, 258])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k4_bf16_word_reads_take_every_value(t_len, bsz, base, reverse):
+    """K4 forward (``sru_rec_fwd_kernel<__nv_bfloat16>``) and backward
+    (``sru_scan_bwd_kernel<14>``) read each bf16 value as the 4-byte word
+    that holds it (cp.async has no 2-byte copy): at every (step, unit,
+    column) of u (T, 3H, B), xhw, c and dh (T, H, B), for u at a 4-byte
+    and at a 2-byte boundary, every value is the one the scan needs, and
+    no byte past the array is read (the last value, in a lower half,
+    reads 2 bytes)."""
+    hdim = 3
+    hb = hdim * bsz
+    t = np.arange(t_len)[:, None, None]
+    j = np.arange(hdim)[None, :, None]
+    b = np.arange(bsz)[None, None, :]
+    col = j * bsz + b
+    # the forward: step i's values at t = i or T-1-i
+    u_buf, x_buf = _array(t_len * 3 * hb, base), _array(t_len * hb, base)
+    u_last, x_last = t_len * 3 * hb - 1, t_len * hb - 1
+    steps = t_len - 1 - t if reverse else t
+    eu = steps * 3 * hb + col
+    for g in range(3):
+        got = _read(u_buf, base, eu + g * hb, 0, 0, u_last)
+        np.testing.assert_array_equal(got, eu + g * hb + 1)
+    ex = steps * hb + col
+    np.testing.assert_array_equal(_read(x_buf, base, ex, 0, 0, x_last),
+                                  ex + 1)
+    # the backward scan: scan index i, offsets moved by one step each
+    t0 = 0 if reverse else t_len - 1
+    su, sx = (3 * hb, hb) if reverse else (-3 * hb, -hb)
+    i = t  # the scan index
+    ou0, ox0, og0 = t0 * 3 * hb + col, t0 * hb + col, t0 * hb + col
+    for g in range(3):
+        want = ou0 + g * hb + i * su
+        np.testing.assert_array_equal(
+            _read(u_buf, base, ou0 + g * hb, su, i, u_last), want + 1)
+    np.testing.assert_array_equal(_read(x_buf, base, ox0, sx, i, x_last),
+                                  ox0 + i * sx + 1)
+    s_buf, s_last = _array(t_len * hb, base), t_len * hb - 1
+    np.testing.assert_array_equal(_read(s_buf, base, og0, sx, i, s_last),
+                                  og0 + i * sx + 1)  # dh
+    ok_c = i + 1 < t_len  # c_prev, zero past the scan's end
+    np.testing.assert_array_equal(
+        _read(s_buf, base, og0 + sx, sx, i, s_last, ok_c),
+        np.where(ok_c, og0 + sx + i * sx + 1, 0))
+
+
+def test_k4_bf16_entries_match_the_source():
+    """The bf16 entries of K4 take the float32 entries' arguments, and the
+    backward's scan is ScanTypes<14> (bf16 storage, (v, b) sums rounded a
+    batch column)."""
+    with open(os.path.join(kernel_lib.CSRC_DIR, "sru_pallas.cu")) as f:
+        src = f.read()
+    with open(os.path.join(kernel_lib.CSRC_DIR, "sru_scan.cuh")) as f:
+        scan = f.read()
+    sig = kernel_lib._SIGNATURES["sru_pallas"]
+    for fn in ("sru_recurrence_fwd", "sru_recurrence_bwd"):
+        assert sig[fn + "_bf16"] == sig[fn]
+        assert f'extern "C" int {fn}_bf16(' in src
+    assert "launch_scan_bwd<14>" in src and "launch_rec_fwd<__nv_bfloat16>" \
+        in src
+    spec = scan.split("struct ScanTypes<14> {")[1].split("};")[0]
+    assert "__nv_bfloat16" in spec and "kRoundParts = true" in spec
+
+
+# ------------------------------------------------------- pw-wgrad bf16
+
+
+def _pw16_stage(p_vals, base2, b, cp0, cp, m, p0, avail):
+    """pw_wgrad_bf16_kernel's planar side of one stage: the staged rows
+    (kPwRows, kPw16PS), as the kernel's threads copy them (16-byte blocks
+    of 8 values whole, the window's ends value by value, zero past the
+    chunk), and the 16-byte copies' (source, destination) bf16 offsets.
+    p_vals(c, pos) the value at planar channel c, position pos; base2 the
+    array's address in bf16 units."""
+    rows, k = packed_tf.PW_WGRAD_ROWS, packed_tf.PW_WGRAD_K
+    ps = packed_tf.PW_WGRAD16_PS
+    staged = np.full((rows, ps), np.nan)
+    copies = []
+    for tid in range(rows):
+        if cp0 + tid >= cp:
+            continue
+        row_e = (b * cp + cp0 + tid) * m  # the channel row's first value
+        sh = (base2 + row_e + p0) % 8
+        dst = _staged_row(tid)
+        for j in range(k // 8 + 1):
+            lo = 8 * j - sh
+            if lo + 8 <= 0 or lo >= k:
+                continue
+            whole = lo >= 0 and lo + 8 <= k and lo + 8 <= avail
+            if whole:
+                copies.append((base2 + row_e + p0 + lo, dst * ps + 8 * j))
+            for e in range(8):
+                if 0 <= lo + e < k:
+                    staged[dst, 8 * j + e] = (
+                        p_vals(cp0 + tid, p0 + lo + e) if lo + e < avail
+                        else 0.0)
+    return staged, copies
+
+
+def _staged_row(r):
+    return (r & ~63) | ((r & 3) << 4) | ((r & 63) >> 2)
+
+
+@pytest.mark.parametrize("m,base2,p0,avail", [
+    (251 * 129, 0, 0, 64), (251 * 129, 0, 128, 64), (251 * 129, 1, 64, 64),
+    (251 * 129, 3, 2048, 37), (96, 0, 0, 64), (21, 5, 0, 21)])
+def test_pw_wgrad_bf16_staging_and_fragments(m, base2, p0, avail):
+    """The bf16 pw-wgrad's stage and fragments: each planar row lands at
+    the offset of its first position in its 16-byte block (rows of M =
+    251 * 129 values start at every offset mod 8), its whole blocks copied
+    16-byte aligned on both sides; every A register (two neighbouring
+    positions of one channel, rows g and g + 8 of a tile 32 channels apart
+    with one offset) and B register (two neighbouring positions of one
+    packed channel) read where the kernel reads it holds the element the
+    m16n8k16 product takes there (``_mma_a`` / ``_mma_b``), zero past the
+    chunk; the output tile fits the ring's place."""
+    rows, k, cols = (packed_tf.PW_WGRAD_ROWS, packed_tf.PW_WGRAD_K,
+                     packed_tf.PW_WGRAD_COLS)
+    ps, qs = packed_tf.PW_WGRAD16_PS, packed_tf.PW_WGRAD16_QS
+    b, cp, cp0 = 1, 256, 128
+
+    def p_vals(c, pos):
+        return 1000.0 * c + pos
+
+    staged, copies = _pw16_stage(p_vals, base2, b, cp0, cp, m, p0, avail)
+    for src, dst in copies:
+        assert src % 8 == 0 and dst % 8 == 0  # 16-byte aligned both sides
+    # the packed side: position pp's channels at row pp of kPw16QS
+    q_stage = np.array([[pp * 10.0 + n if pp < avail else 0.0
+                         for n in range(qs)] for pp in range(k)])
+
+    def shift(c):
+        return (base2 + (b * cp + cp0 + c) * m + p0) % 8
+
+    warps_m = rows // 32
+    for warp in range(2 * warps_m):
+        wm, wn = warp % warps_m, warp // warps_m
+        for mi in range(2):
+            t = 2 * wm + mi
+            for g in range(8):
+                ch = 64 * (t >> 2) + 4 * g + (t & 3)
+                assert shift(ch + 32) == shift(ch)
+                a_off = (16 * t + g) * ps + shift(ch) + 0
+                for q in range(4):
+                    for kk in range(0, k, 16):
+                        pa = a_off + 2 * q + kk
+                        regs = [(pa, pa + 1), (pa + 8 * ps, pa + 8 * ps + 1),
+                                (pa + 8, pa + 9),
+                                (pa + 8 * ps + 8, pa + 8 * ps + 9)]
+                        for r, pair in enumerate(regs):
+                            for h, off in enumerate(pair):
+                                row, kk_ = _mma_a(g, q, r, h)
+                                want_c = ch + 32 * (row >= 8)
+                                pos = kk + kk_
+                                want = (p_vals(cp0 + want_c, p0 + pos)
+                                        if pos < avail else 0.0)
+                                got = staged.reshape(-1)[off]
+                                assert got == want, (t, g, q, r, h)
+        for nj in range(4):
+            for g in range(8):
+                for q in range(4):
+                    b_off = 2 * q * qs + 32 * wn + g
+                    for kk in range(0, k, 16):
+                        pb = b_off + 8 * nj + kk * qs
+                        regs = [(pb, pb + qs), (pb + 8 * qs, pb + 9 * qs)]
+                        for r, pair in enumerate(regs):
+                            for h, off in enumerate(pair):
+                                kq, n = _mma_b(g, q, r, h)
+                                pp = kk + kq
+                                want = (pp * 10.0 + 32 * wn + 8 * nj + n
+                                        if pp < avail else 0.0)
+                                assert q_stage.reshape(-1)[off] == want
+    # no staged column past the row is read: sh + 63 + 9 < kPw16PS
+    assert 7 + (k - 16) + 6 + 9 < ps
+    assert packed_tf.pw_wgrad16_smem() <= kernel_lib.SMEM_PER_BLOCK
+
+
+def test_pw_wgrad_bf16_constants_match_the_source():
+    src, consts = _packed_source()
+    assert "constexpr int kPw16PS = kPwK + 8;" in src
+    assert "constexpr int kPw16QS = kPwCols + 8;" in src
+    assert (packed_tf.PW_WGRAD16_PS, packed_tf.PW_WGRAD16_QS) == (
+        consts["kPwK"] + 8, consts["kPwCols"] + 8)
+    # 144-byte rows: 16-byte aligned copies; the B reads' words 8 q + g / 2
+    assert 2 * packed_tf.PW_WGRAD16_PS % 16 == 0
+    words = {(2 * q * packed_tf.PW_WGRAD16_QS + g) // 2 % 32
+             for g in range(8) for q in range(4)}
+    assert len(words) == 16  # each word shared by two lanes, none clash
+    sig = kernel_lib._SIGNATURES["packed_tf"]
+    assert sig["pw_packed_wgrad_bf16"] == sig["pw_packed_wgrad"]
+    assert sig["dw_conv_packed_wgrad_bf16"] == sig["dw_conv_packed_wgrad"]
+    body = src.split("pw_wgrad_bf16_kernel(const __nv_bfloat16*")[1].split(
+        'extern "C"')[0]
+    assert "atomic" not in body and "hk::mma_bf16" in body
+    assert "if (++since == kPwFlush || s == ns - 1)" in body

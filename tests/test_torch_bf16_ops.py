@@ -140,9 +140,11 @@ def test_bf16_ops_refuse_autograd_on_the_cpu(op):
     """K1, K2 and K3 take bf16 gradients, on the CPU through their plain
     bf16 backward (the card's kernels are in tests/test_torch_cuda_kernels
     .py): a recorded bf16 op's gradients are bf16 and equal the plain
-    backward's. A recorded bf16 packed op still raises (no bf16 backward
-    for K5-K9), rather than running a float32 or plain backward; not
-    recorded (serving) it runs."""
+    backward's. A recorded bf16 packed op (K5), refused while K5-K9 had no
+    bf16 backward, now takes bf16 gradients through its Function: dx the
+    plain bf16 forward on the flipped taps, dW the plain wgrad of the bf16
+    operands rounded once (no float32 backward instead); not recorded
+    (serving) it runs as before."""
     from rtfs_tpu_torch.ops import packed_tf as P
 
     rng = np.random.default_rng(3)
@@ -150,9 +152,16 @@ def test_bf16_ops_refuse_autograd_on_the_cpu(op):
     if op == "packed":
         _, xp = _bf(rng, (2, 9, 4 * 8))
         _, w = _bf(rng, (3, 3, 8))
-        with pytest.raises(NotImplementedError):
-            P.dw_conv_packed(xp.requires_grad_(), w, None, 4, 8, (1, 1),
-                             (1, 1))
+        ins = [xp.clone().requires_grad_(), w.clone().requires_grad_()]
+        out = P.dw_conv_packed(*ins, None, 4, 8, (1, 1), (1, 1))
+        _, g = _bf(rng, tuple(out.shape), 0.1)
+        dx, dw = torch.autograd.grad(out, ins, g)
+        assert dx.dtype == dw.dtype == torch.bfloat16
+        assert torch.equal(dx, P.dw_conv_packed_plain(
+            g, torch.flip(w, (0, 1)), None, 4, 8, (1, 1), (1, 1)))
+        assert torch.equal(dw, P.dw_conv_packed_wgrad_plain(
+            xp.float(), g.float(), 4, 8, (3, 3), (1, 1), (1, 1)).to(
+                torch.bfloat16))
         with torch.no_grad():  # serving: not recorded, runs
             assert P.dw_conv_packed(xp, w, None, 4, 8, (1, 1),
                                     (1, 1)).dtype == torch.bfloat16

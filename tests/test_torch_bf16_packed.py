@@ -269,24 +269,32 @@ def test_k2_bf16_at_h600_matches_pallas():
 
 
 def test_bf16_packed_ops_refuse_autograd_on_the_cpu():
-    """No bf16 backward: a recorded bf16 packed op raises on the CPU, as on
-    the card, rather than running a float32 or plain backward."""
+    """Refused while K5-K9 had no bf16 backward, a recorded bf16 packed op
+    now runs its autograd Function on the CPU and its gradients are bf16
+    (K5, K6 and K9 here; each against JAX's VJP in
+    tests/test_torch_bf16_packed_train.py), none through a float32
+    backward; not recorded (serving) it runs as before."""
     rng = np.random.default_rng(11)
     _, xp = _bf(rng, (B, T, F * C))
     _, w = _bf(rng, (4, 4, C))
-    with pytest.raises(NotImplementedError):
-        P.dw_conv_packed(xp.requires_grad_(), w, None, F, C, (1, 2), (1, 2))
     _, x4 = _bf(rng, (B, CI, T, F))
     _, wp = _bf(rng, (CI, C))
-    with pytest.raises(NotImplementedError):
-        P.pw_proj_packed(x4, wp.requires_grad_(), None)
     _, x4p = _bf(rng, (B, C, 6, 3))
-    with pytest.raises(NotImplementedError):
-        P.spatial_up_packed(x4p.requires_grad_(),
-                            P.cached_map("nearest", 6, T, 3, F))
+    up = P.cached_map("nearest", 6, T, 3, F)
+    for fn, args, grad in (
+            (P.dw_conv_packed, (xp, w, None, F, C, (1, 2), (1, 2)), (0, 1)),
+            (P.pw_proj_packed, (x4, wp, None), (1,)),
+            (P.spatial_up_packed, (x4p, up), (0,))):
+        args = [a.clone().requires_grad_() if i in grad else a
+                for i, a in enumerate(args)]
+        out = fn(*args)
+        assert out.dtype == torch.bfloat16 and out.grad_fn is not None
+        grads = torch.autograd.grad(out.float().square().sum(),
+                                    [args[i] for i in grad])
+        assert all(g.dtype == torch.bfloat16
+                   and torch.isfinite(g.float()).all() for g in grads)
     with torch.no_grad():  # serving: not recorded, runs
-        assert P.spatial_up_packed(
-            x4p, P.cached_map("nearest", 6, T, 3, F)).dtype == torch.bfloat16
+        assert P.spatial_up_packed(x4p, up).dtype == torch.bfloat16
 
 
 # ------------------------------------------------------------- the model

@@ -36,7 +36,10 @@ the bf16 parameters with bf16 moments, no float32 master copy.
 - (iv) The train entry on a micro bf16 config: a checkpoint with bf16
   parameters and moments and float32 statistics, a resume, the exported
   bundle served by the serving entry.
-- (v) The unidirectional and packed-TF bf16 training still raise.
+- (v) The unidirectional and packed-TF bf16 train systems build (their
+  steps are tests/test_torch_bf16_uni.py's and
+  tests/test_torch_bf16_packed_train.py's); batch_fold and joint video
+  training still raise.
 
 Torch on one thread; JAX kept on the CPU by tests/conftest.py.
 """
@@ -46,7 +49,6 @@ import dataclasses
 import functools
 import json
 import os
-import re
 
 import ml_dtypes
 import numpy as np
@@ -107,6 +109,14 @@ def grad_ulp_gate(got, ref, what, scale=None) -> None:
     print(f"{what}: {int((diff > 0).sum())} of {diff.size} elements differ, "
           f"worst {float((diff / bound).max()):.3f} of the bound")
     assert (diff <= bound).all(), (what, float((diff / bound).max()))
+
+
+def _ulp_ratio(got, ref):
+    """The largest |got - ref| / (2^-7 max(|ref|, 2^-6 max|ref|)):
+    ``grad_ulp_gate``'s margin, without asserting it."""
+    got, ref = _f32(got), _f32(ref)
+    bound = 2.0 ** -7 * np.maximum(np.abs(ref), 2.0 ** -6 * np.abs(ref).max())
+    return float((np.abs(got - ref) / bound).max())
 
 
 def _gates(got, ref16, ref32, what, scale=None):
@@ -279,19 +289,18 @@ def _port(a, params, stats, bf16=False):
                            {"params": params, "batch_stats": stats})
 
 
-@pytest.fixture(scope="module")
-def jax_bf16_step():
-    """rtfs_tpu's AVSystem step on the bf16 micro AVNet (``cast_params``
-    variables, ``optimizer.init`` of the bf16 parameters), with the fused
-    SRU Pallas kernels in interpret mode: its loss, clipped gradients, new
-    statistics and parameters after the step. The step is
-    ``AVSystem.train_step_fn``'s own composition (its ``_forward_loss``
+def jax_bf16_train_step(a):
+    """rtfs_tpu's AVSystem step on the bf16 model of the audionet group
+    ``a`` (``cast_params`` variables, ``optimizer.init`` of the bf16
+    parameters), with the SRU and packed Pallas kernels in interpret mode:
+    its loss, clipped gradients, new statistics and parameters after the
+    step, and the first operand's dtype of each ``pallas_call``. The step
+    is ``AVSystem.train_step_fn``'s own composition (its ``_forward_loss``
     under ``value_and_grad``, the optimizer's update,
     ``optax.apply_updates``), written out so that the gradients are
     returned too. XLA compiles it at backend optimisation level 0 without
-    LLVM's expensive passes, which saves seconds of compile time; every operation
-    keeps its dtype either way."""
-    a = _audionet(0.0)
+    LLVM's expensive passes, which saves seconds of compile time; every
+    operation keeps its dtype either way."""
     model, video = JAVNet(**a), _MouthEmbed()
     model16 = dataclasses.replace(model, compute_dtype="bfloat16")
     optimizer = jmake_optimizer("adamw", lr=LR, weight_decay=0.1)
@@ -330,6 +339,12 @@ def jax_bf16_step():
                 calls=calls)
 
 
+@pytest.fixture(scope="module")
+def jax_bf16_step():
+    """JAX's bf16 step of the micro AVNet (``jax_bf16_train_step``)."""
+    return jax_bf16_train_step(_audionet(0.0))
+
+
 def _flat(ts):
     return torch.cat([t.detach().reshape(-1).double() for t in ts])
 
@@ -339,37 +354,25 @@ def _cos_rel(a, b):
             float((a - b).norm() / b.norm()))
 
 
-def test_bf16_train_step_matches_jax(jax_bf16_step, monkeypatch):
-    r = jax_bf16_step
+def hold_bf16_train_step(r, patch=lambda: None):
+    """The port's bf16 step on ``r``'s rounded variables (``r`` from
+    ``jax_bf16_train_step``) against JAX's: the loss within 2e-2; the
+    gradients bf16, as one flat vector by cosine above 0.99 and relative
+    L2 below 0.15 (JAX's own bf16 gate, tests/test_sru_fused.py), and
+    against the port's float32 step of the same weights (which
+    tests/test_torch_train.py holds against JAX's) within 2x JAX bf16's
+    relative L2; the parameters after the step within 2 lr plus one bf16
+    ulp. ``patch`` runs between the float32 and the bf16 step (to count
+    the bf16 step's calls). Returns the bf16 and the float32 model after
+    their steps."""
     a = r["a"]
-    # JAX: each DualPathRNN call runs K1 and K2 forward and backward
-    # (two repeats of the shared block), all on bf16 operands
-    assert len(r["calls"]) == 8 and set(r["calls"]) == {"bfloat16"}, \
-        r["calls"]
-    # the float32 reference: the port's float32 step from the same rounded
-    # weights (tests/test_torch_train.py holds it against JAX's float32
-    # step, each gradient to 1e-3 of its max)
     model32 = _port(a, _np32(r["cast"]["params"]),
                     _np32(r["cast"]["batch_stats"]))
     AVSystem(model32, video_model=_TorchMouthEmbed(),
              optimizer=make_optimizer(model32.parameters(), "adamw", lr=LR,
                                       weight_decay=0.1)).train_step(
         r["batch"], torch.Generator().manual_seed(0))
-    counts = {"k1": 0, "k2": 0, "k3": 0}
-
-    def counted(key, fn):
-        def run(*args):
-            assert all(t.dtype == torch.bfloat16 for t in args)
-            counts[key] += 1
-            return fn(*args)
-        return run
-
-    monkeypatch.setattr(tfused, "_k1_backward",
-                        counted("k1", tfused._k1_backward))
-    monkeypatch.setattr(tfused, "_k2_backward",
-                        counted("k2", tfused._k2_backward))
-    monkeypatch.setattr(tconvt, "_backward", counted("k3", tconvt._backward))
-
+    patch()
     np_cast = jax.tree.map(np.asarray, r["cast"])
     model = _port(a, np_cast["params"], np_cast["batch_stats"], bf16=True)
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
@@ -377,7 +380,6 @@ def test_bf16_train_step_matches_jax(jax_bf16_step, monkeypatch):
                       optimizer=make_optimizer(model.parameters(), "adamw",
                                                lr=LR, weight_decay=0.1))
     loss = system.train_step(r["batch"], torch.Generator().manual_seed(0))
-    assert counts == {"k1": 2, "k2": 2, "k3": 2}
     assert loss["train_loss"].dtype == torch.float32
     assert loss["train_loss"].item() == pytest.approx(r["loss"], rel=2e-2)
 
@@ -395,12 +397,48 @@ def test_bf16_train_step_matches_jax(jax_bf16_step, monkeypatch):
           f"float32: port {rel_port32:.4f}, jax {rel_jax32:.4f}")
     assert cos > 0.99 and rel < 0.15
     assert rel_port32 <= 2 * rel_jax32
+    want_p = dict(_port(a, _np32(r["params2"]),
+                        _np32(r["new_stats"])).named_parameters())
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.bfloat16
+        torch.testing.assert_close(p.detach().float(), want_p[name].detach(),
+                                   atol=2 * LR, rtol=2.0 ** -7, msg=name)
+    return model, model32
+
+
+def test_bf16_train_step_matches_jax(jax_bf16_step, monkeypatch):
+    r = jax_bf16_step
+    a = r["a"]
+    # JAX: each DualPathRNN call runs K1 and K2 forward and backward
+    # (two repeats of the shared block), all on bf16 operands
+    assert len(r["calls"]) == 8 and set(r["calls"]) == {"bfloat16"}, \
+        r["calls"]
+    counts = {"k1": 0, "k2": 0, "k3": 0}
+
+    def counted(key, fn):
+        def run(*args):
+            assert all(t.dtype == torch.bfloat16 for t in args)
+            counts[key] += 1
+            return fn(*args)
+        return run
+
+    def patch():
+        monkeypatch.setattr(tfused, "_k1_backward",
+                            counted("k1", tfused._k1_backward))
+        monkeypatch.setattr(tfused, "_k2_backward",
+                            counted("k2", tfused._k2_backward))
+        monkeypatch.setattr(tconvt, "_backward",
+                            counted("k3", tconvt._backward))
+
+    model, model32 = hold_bf16_train_step(r, patch)
+    assert counts == {"k1": 2, "k2": 2, "k3": 2}
 
     # the statistics within 1e-2 of their scale: a running variance's
     # largest value; a running mean's largest value or, where larger, a
     # tenth of its layer's input scale, the root of the largest running
     # variance (after one step it holds a tenth of a batch mean, which
     # bf16 inputs move by their own rounding whatever the mean's size)
+    np_cast = jax.tree.map(np.asarray, r["cast"])
     want_s = _port(a, np_cast["params"], _np32(r["new_stats"])).state_dict()
     want32 = model32.state_dict()
     n_stats = 0
@@ -418,13 +456,6 @@ def test_bf16_train_step_matches_jax(jax_bf16_step, monkeypatch):
             assert err <= 1e-2 * scale, name
             n_stats += 1
     assert n_stats > 0
-
-    want_p = dict(_port(a, _np32(r["params2"]),
-                        _np32(r["new_stats"])).named_parameters())
-    for name, p in model.named_parameters():
-        assert p.dtype == torch.bfloat16
-        torch.testing.assert_close(p.detach().float(), want_p[name].detach(),
-                                   atol=2 * LR, rtol=2.0 ** -7, msg=name)
 
 
 # ------------------------------------------------------------------ (iii)
@@ -480,21 +511,19 @@ def test_clip_and_adamw_equal_jitted_optax(dtype, scale):
 # ------------------------------------------------------------------ (iv)
 
 
-def test_bf16_train_entry_checkpoints_resumes_and_serves(tmp_path, capsys,
-                                                         monkeypatch):
-    """The train entry on a bf16 micro config (the micro AVNet with the
-    real lip backbone, synthetic data cut to 64 ms and 4 mouth crops of 16
-    x 16): one epoch, then a resume to two; the checkpoint holds bf16
-    parameters and moments and float32 BatchNorm statistics; the exported
-    bundle serves through the serving entry from the run's conf.json."""
+def run_bf16_train_entry(tmp_path, capsys, monkeypatch, a, name):
+    """The train entry on the micro bf16 config of the audionet group
+    ``a`` (the real lip backbone, synthetic data cut to 64 ms and 4 mouth
+    crops of 16 x 16): one epoch, then a resume to two; the checkpoint
+    holds bf16 parameters and moments and float32 BatchNorm statistics.
+    Returns the run's directory."""
     monkeypatch.setattr(train_main, "SyntheticAVDataset", functools.partial(
         SyntheticAVDataset, segment=0.064, video_frames=4, mouth_size=16))
-    a = dict(_audionet(0.1), pretrained_vout_chan=512,
-             compute_dtype="bfloat16")
+    a = dict(a, pretrained_vout_chan=512, compute_dtype="bfloat16")
     conf = {**copy.deepcopy(MICRO_TRAIN_CONF), "audionet": a,
-            "log": {"path": str(tmp_path), "exp_name": "micro16"}}
+            "log": {"path": str(tmp_path), "exp_name": name}}
     conf["data"]["sample_rate"] = 16000
-    path = os.path.join(tmp_path, "micro16.json")
+    path = os.path.join(tmp_path, f"{name}.json")
     with open(path, "w") as f:
         json.dump(conf, f)
     row = train_main.cli(["--conf-dir", path, "--device", "cpu"])
@@ -503,26 +532,42 @@ def test_bf16_train_entry_checkpoints_resumes_and_serves(tmp_path, capsys,
                           "--training.epochs", "2"])
     assert "resumed from epoch 0" in capsys.readouterr().out
     assert row["epoch"] == 1 and np.isfinite(row["train_loss"])
-    exp = os.path.join(tmp_path, "micro16")
+    exp = os.path.join(tmp_path, name)
     state = CheckpointManager(exp).restore()
     assert state["step"] == 4
-    for name, v in state["model"].items():
+    for key, v in state["model"].items():
         if v.is_floating_point():
-            stat = name.endswith(("running_mean", "running_var"))
-            assert v.dtype == (torch.float32 if stat else torch.bfloat16), name
+            stat = key.endswith(("running_mean", "running_var"))
+            assert v.dtype == (torch.float32 if stat else torch.bfloat16), key
     assert {m.dtype for m in state["optimizer"]["mu"]} == {torch.bfloat16}
     with open(os.path.join(exp, "conf.json")) as f:
         assert json.load(f)["audionet"]["compute_dtype"] == "bfloat16"
+    return exp
 
+
+def serve_bundle(tmp_path, exp):
+    """The serving entry on a run's conf.json and bundle, on the CPU, with
+    a 1984-sample wav and 4 mouth frames: the estimate."""
     rng = np.random.default_rng(0)
     write_wav(str(tmp_path / "mix.wav"),
               (rng.standard_normal(1984) * 0.1).astype(np.float32), 16000)
     np.savez(tmp_path / "mouth.npz",
              data=rng.integers(0, 256, (4, 96, 96), dtype=np.uint8))
-    est = inference.main(["--conf-dir", os.path.join(exp, "conf.json"),
-                          "--wav", str(tmp_path / "mix.wav"),
-                          "--mouth", str(tmp_path / "mouth.npz"),
-                          "--out-dir", str(tmp_path / "out"), "--cpu"])
+    return inference.main(["--conf-dir", os.path.join(exp, "conf.json"),
+                           "--wav", str(tmp_path / "mix.wav"),
+                           "--mouth", str(tmp_path / "mouth.npz"),
+                           "--out-dir", str(tmp_path / "out"), "--cpu"])
+
+
+def test_bf16_train_entry_checkpoints_resumes_and_serves(tmp_path, capsys,
+                                                         monkeypatch):
+    """The train entry on a bf16 micro config (the micro AVNet with the
+    real lip backbone): one epoch, then a resume to two, the checkpoint's
+    dtypes (``run_bf16_train_entry``); the exported bundle serves through
+    the serving entry from the run's conf.json."""
+    exp = run_bf16_train_entry(tmp_path, capsys, monkeypatch,
+                               _audionet(0.1), "micro16")
+    est = serve_bundle(tmp_path, exp)
     assert est.shape == (1, 1984) and np.isfinite(est).all()
 
 
@@ -531,9 +576,15 @@ def test_bf16_train_entry_checkpoints_resumes_and_serves(tmp_path, capsys,
 
 @pytest.mark.parametrize("case", ["unidirectional", "packed_tf"])
 def test_bf16_training_still_refuses_k4_and_packed(case):
-    """A bf16 config with a unidirectional SRU (K4) or packed-TF raises in
-    the train entry before anything is written, and a built bf16
-    packed-TF model raises in AVSystem."""
+    """A bf16 config with a unidirectional SRU (K4) or packed-TF, refused
+    until K4's and K5-K9's bf16 backwards were ported, now builds its
+    train system (``AVSystem`` and the entry's ``build_system``) with bf16
+    parameters, its SRU off the fused stack or its model packed; what is
+    still not ported raises in the train entry before anything is
+    written: batch_fold (with the unidirectional config) and joint video
+    training (with the packed one)."""
+    from rtfs_tpu_torch.ops.sru import SRU
+
     conf = load_config("lrs2_RTFSNet_4_layer")
     conf["audionet"].update(compute_dtype="bfloat16")
     conf["audionet"]["audio_params"]["repeats"] = 1
@@ -542,10 +593,19 @@ def test_bf16_training_still_refuses_k4_and_packed(case):
         for layer in ("layer_1", "layer_2"):
             conf["audionet"]["audio_params"]["layers"][layer][
                 "bidirectional"] = False
+        bad = dict(conf, audionet=dict(conf["audionet"], batch_fold=2))
     else:
         conf["audionet"]["packed_tf"] = True
-        with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-            AVSystem(build_avnet(conf, device="cpu"))
-    with pytest.raises(NotImplementedError, match=re.escape("Queue 2")):
-        train_main.main(dict(conf, log={"path": "/nonexistent/never",
-                                        "exp_name": "x"}), "cpu")
+        bad = dict(conf, training=dict(conf["training"],
+                                       train_video_model=True))
+    system = AVSystem(build_avnet(conf, device="cpu"))
+    assert {p.dtype for p in system.model.parameters()} == {torch.bfloat16}
+    built = train_main.build_system(conf, "cpu")
+    sru = [m for m in built.model.modules() if isinstance(m, SRU)]
+    if case == "unidirectional":
+        assert sru and not any(m.uses_fused_stack for m in sru)
+    else:
+        assert built.model.packed_tf
+    with pytest.raises(NotImplementedError):
+        train_main.main(dict(bad, log={"path": "/nonexistent/never",
+                                       "exp_name": "x"}), "cpu")

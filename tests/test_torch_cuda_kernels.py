@@ -930,11 +930,11 @@ def test_bf16_k3_matches_plain(dev, length, c_in, c_out, bsz, k):
 @pytest.mark.parametrize("op", ["k1", "k2", "k3", "k4", "packed"])
 def test_bf16_refuses_gradients_and_takes_unaligned_views(dev, op):
     """K1, K2 and K3 take bf16 gradients on the card, through their bf16
-    backward entries only (no float32 or plain backward instead); K4 takes
-    float32 only (TypeError) and a bf16 packed op that autograd would
-    record raises NotImplementedError (no bf16 backward for either yet); a
-    bf16 input whose data starts off a 16-byte boundary is copied, not
-    misread."""
+    backward entries only (no float32 or plain backward instead); so do K4
+    and a packed op (K5 here), refused until their bf16 backwards were
+    ported: each bf16 backward entry launches once (K5: its dx on the
+    flipped taps and its wgrad); a bf16 input whose data starts off a
+    16-byte boundary is copied, not misread."""
     from rtfs_tpu_torch.ops import convt_tm as K
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.ops import packed_tf as P
@@ -944,16 +944,24 @@ def test_bf16_refuses_gradients_and_takes_unaligned_views(dev, op):
     rng = np.random.default_rng(9)
     vb = _b(rng, (8, 32), dev, 0.3)
     if op == "k4":
-        with pytest.raises(TypeError):
-            K4.sru_recurrence(_b(rng, (9, 96, 70), dev).requires_grad_(),
-                              _b(rng, (9, 32, 70), dev),
-                              _b(rng, (2, 32), dev), _b(rng, (2, 32), dev))
+        ins = [_b(rng, (9, 96, 70), dev), _b(rng, (9, 32, 70), dev),
+               _b(rng, (2, 32), dev), _b(rng, (2, 32), dev)]
+        ins = [t.requires_grad_() for t in ins]
+        out = K4.sru_recurrence(*ins)
+        kernel_lib.reset_launches()
+        grads = torch.autograd.grad(out, ins, torch.ones_like(out))
+        assert dict(kernel_lib.LAUNCHES) == {"sru_recurrence_bwd_bf16": 1}
+        assert all(g.dtype == torch.bfloat16 for g in grads)
         return
     if op == "packed":
         xp = _b(rng, (1, 9, 5 * 8), dev).requires_grad_()
-        w = _b(rng, (4, 4, 8), dev)
-        with pytest.raises(NotImplementedError):
-            P.dw_conv_packed(xp, w, None, 5, 8, (1, 2), (1, 2))
+        w = _b(rng, (4, 4, 8), dev).requires_grad_()
+        out = P.dw_conv_packed(xp, w, None, 5, 8, (1, 2), (1, 2))
+        kernel_lib.reset_launches()
+        grads = torch.autograd.grad(out, (xp, w), torch.ones_like(out))
+        assert dict(kernel_lib.LAUNCHES) == {
+            "dw_conv_packed_fwd_bf16": 1, "dw_conv_packed_wgrad_bf16": 1}
+        assert all(g.dtype == torch.bfloat16 for g in grads)
         return
     if op == "k1":
         ins = [_b(rng, (9, 128, 70), dev), _b(rng, (9, 128, 70), dev), vb]
@@ -1257,8 +1265,11 @@ def test_bf16_packed_kernels_match_plain(dev, shape):
 
 def test_bf16_packed_refuses_mixed_dtypes_and_gradients(dev):
     """A bf16 packed op with a float32 weight or bias raises (nothing is
-    cast to reach the float32 kernel); one that autograd would record
-    raises NotImplementedError (no bf16 backward)."""
+    cast to reach the float32 kernel); one that autograd records, refused
+    until K5-K9's bf16 backward was ported, now runs its backward through
+    the bf16 entries only (K5: its dx and wgrad; K9: K8 on the transposed
+    map)."""
+    from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.ops import packed_tf as P
 
     rng = np.random.default_rng(16)
@@ -1269,11 +1280,18 @@ def test_bf16_packed_refuses_mixed_dtypes_and_gradients(dev):
     with pytest.raises(TypeError):
         P.pw_unproj_packed(xp, _b(rng, (8, 16), dev),
                            _t(rng, (16,), dev), 5)
-    with pytest.raises(NotImplementedError):
-        P.dw_conv_packed(xp.requires_grad_(), w, None, 5, 8, (1, 2), (1, 2))
-    with pytest.raises(NotImplementedError):
-        P.spatial_up_packed(_b(rng, (1, 8, 4, 3), dev).requires_grad_(),
-                            P.cached_map("nearest", 4, 9, 3, 5))
+    xg, wg = xp.clone().requires_grad_(), w.detach().clone().requires_grad_()
+    out = P.dw_conv_packed(xg, wg, None, 5, 8, (1, 2), (1, 2))
+    kernel_lib.reset_launches()
+    torch.autograd.grad(out, (xg, wg), torch.ones_like(out))
+    assert dict(kernel_lib.LAUNCHES) == {"dw_conv_packed_fwd_bf16": 1,
+                                         "dw_conv_packed_wgrad_bf16": 1}
+    x4 = _b(rng, (1, 8, 4, 3), dev).requires_grad_()
+    out = P.spatial_up_packed(x4, P.cached_map("nearest", 4, 9, 3, 5))
+    kernel_lib.reset_launches()
+    (dx,) = torch.autograd.grad(out, (x4,), torch.ones_like(out))
+    assert dict(kernel_lib.LAUNCHES) == {"spatial_down_packed_fwd_bf16": 1}
+    assert dx.dtype == torch.bfloat16
 
 
 def test_bf16_packed_tdanet_block_card_matches_cpu(dev):
@@ -1301,3 +1319,250 @@ def test_bf16_packed_tdanet_block_card_matches_cpu(dev):
     assert got.dtype == torch.bfloat16
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+# ------------------------------------------------------------- bf16 K4,
+# K5-wgrad, pw-wgrad and the packed backward
+
+
+# the uni sites at bs 1 and 4 (freq L 57 / B 125 a batch item, time L 118
+# / B 64), odd batches (rows of 125 B and 64 B values start on 2-byte
+# boundaries, read a 4-byte word at a time), a T shorter than the scan's
+# ring and one step longer, one column, H 8 and 48
+K4_BF16_SHAPES = [(57, 32, 125), (118, 32, 64), (57, 32, 500),
+                  (118, 32, 256), (SCAN_AHEAD // 2, 32, 131),
+                  (SCAN_AHEAD + 1, 8, 33), (1, 32, 1), (37, 48, 77)]
+
+
+@pytest.mark.parametrize("t_len,h,bsz", K4_BF16_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bf16_k4_matches_plain(dev, t_len, h, bsz, reverse):
+    """K4 forward (serving and with c) and backward in bf16 storage
+    against their plain bf16 versions (two bf16 ulps; d(v, b) rounded a
+    batch column, as JAX) and the float32 kernels on the widened values;
+    two calls give the same bits; only the bf16 entries launch."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import sru_pallas as S
+
+    rng = np.random.default_rng(40)
+    u, x = _b(rng, (t_len, 3 * h, bsz), dev), _b(rng, (t_len, h, bsz), dev)
+    vb = _b(rng, (4, h), dev, 0.3)
+    dh = _b(rng, (t_len, h, bsz), dev, 0.1)
+    kernel_lib.reset_launches()
+    got_h = S._k4_forward(u, x, vb, reverse, False)
+    h_c, c = S._k4_forward(u, x, vb, reverse, True)
+    got = S._k4_backward(u, x, vb, c, dh, reverse)
+    assert dict(kernel_lib.LAUNCHES) == {"sru_recurrence_fwd_bf16": 2,
+                                         "sru_recurrence_bwd_bf16": 1}
+    want_h, want_c = S.sru_recurrence_plain(u, x, vb, reverse, with_c=True)
+    for g, w, what in ((got_h, want_h, "h"), (h_c, want_h, "h with c"),
+                       (c, want_c, "c")):
+        _bf16_close(g, w, f"K4 {what}")
+    assert torch.equal(got_h, h_c)
+    f32_h = S._k4_forward(u.float(), x.float(), vb.float(), reverse, False)
+    _bf16_close(got_h, f32_h.to(torch.bfloat16), "K4 h float32")
+    want = S.sru_recurrence_bwd_plain(u, x, vb, c, dh, reverse)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _bf16_grad_close(g, w, f"K4 backward {i}")
+    f32 = S._k4_backward(*(t.float() for t in (u, x, vb, c, dh)), reverse)
+    a = torch.cat([t.float().reshape(-1) for t in got]).double()
+    b = torch.cat([t.reshape(-1) for t in f32]).double()
+    assert (a @ b / (a.norm() * b.norm())).item() > 0.999
+    assert torch.equal(got_h, S._k4_forward(u, x, vb, reverse, False))
+    for p, q in zip(got, S._k4_backward(u, x, vb, c, dh, reverse)):
+        assert torch.equal(p, q)
+
+
+def test_bf16_k4_function_and_unaligned_views(dev):
+    """The bf16 Function's gradients against the plain bf16 backward on
+    the same card inputs, with u and xhw views whose data start 2 bytes
+    off a 4-byte word (copied by the layer, read a word at a time by the
+    kernel otherwise)."""
+    from rtfs_tpu_torch.ops import sru_pallas as S
+
+    rng = np.random.default_rng(41)
+    t_len, h, bsz = 45, 32, 125
+    big = _b(rng, (t_len * 3 * h * bsz + 1,), dev)
+    u = big[1:].view(t_len, 3 * h, bsz)
+    assert u.data_ptr() % 4 == 2
+    x, vb = _b(rng, (t_len, h, bsz), dev), _b(rng, (4, h), dev, 0.3)
+    h_got = S._k4_forward(u, x, vb, False, False)
+    _bf16_close(h_got, S.sru_recurrence_plain(u, x, vb), "K4 unaligned u")
+    ins = [t.clone().requires_grad_() for t in (u, x, vb[:2], vb[2:])]
+    dh = _b(rng, (t_len, h, bsz), dev, 0.1)
+    got = torch.autograd.grad(S.sru_recurrence(*ins), ins, dh)
+    _, c = S.sru_recurrence_plain(u, x, vb, with_c=True)
+    du, dx, dvb = S.sru_recurrence_bwd_plain(u, x, vb, c, dh)
+    for g, w, what in zip(got, (du, dx, dvb[:2], dvb[2:]),
+                          ("du", "dxhw", "dv", "db")):
+        _bf16_grad_close(g, w, f"K4 Function {what}")
+
+
+def test_bf16_k4_and_wgrads_refuse_mixed_dtypes(dev):
+    """A bf16 K4 or packed weight gradient with one float32 operand raises:
+    nothing is cast to reach either kernel."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+    from rtfs_tpu_torch.ops import sru_pallas as S
+
+    rng = np.random.default_rng(42)
+    u, x = _b(rng, (9, 24, 20), dev), _b(rng, (9, 8, 20), dev)
+    vb = _b(rng, (4, 8), dev)
+    with pytest.raises(TypeError):
+        S._k4_forward(u, x.float(), vb, False, False)
+    with pytest.raises(TypeError):
+        S._k4_backward(u, x, vb.float(), x, x, False)
+    xp = _b(rng, (1, 9, 5 * 8), dev)
+    with pytest.raises(TypeError):
+        P.dw_conv_packed_wgrad(xp, xp.float(), 5, 8, (4, 4), (1, 2), (1, 2))
+    with pytest.raises(TypeError):
+        P.pw_packed_wgrad(_b(rng, (1, 16, 9, 5), dev), xp.float())
+
+
+# K5-wgrad in bf16: the bs-4 training shape, ragged (C 6: values one by
+# one with plain loads), C 37 (a partial quad), C 72 (two channel blocks)
+# and an x 2 bytes off 8-byte alignment; (B, T, F, C, x offset in values)
+WGRAD16_SHAPES = {"bs4-train": (4, 251, 129, 64, 0), "ragged": (3, 13, 7, 6, 0),
+                  "odd-c": (2, 9, 11, 37, 0), "c-72": (1, 6, 7, 72, 0),
+                  "off": (2, 17, 10, 64, 1)}
+
+
+@pytest.mark.parametrize("shape", sorted(WGRAD16_SHAPES))
+@pytest.mark.parametrize("kt,pads", [(4, (1, 2)), (4, (1, 1)), (3, (1, 1))])
+def test_bf16_k5_wgrad_matches_plain(dev, shape, kt, pads):
+    """K5-wgrad on bf16 x and g (a float32 dW) against its plain version
+    (float32 on the widened operands) and the float32 kernel on the same
+    values widened, to 1e-4 of max|dW|; two calls give the same bits."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, off = WGRAD16_SHAPES[shape]
+    rng = np.random.default_rng(43)
+    t_out, f_out = P.dw_geometry(t, f, kt, kt, pads, pads)
+    flat = _b(rng, (b * t * f * c + off,), dev)
+    xp = flat[off:].view(b, t, f * c)
+    g = _b(rng, (b, t_out, f_out * c), dev)
+    kernel_lib.reset_launches()
+    got = P.dw_conv_packed_wgrad(xp, g, f, c, (kt, kt), pads, pads)
+    assert dict(kernel_lib.LAUNCHES) == {"dw_conv_packed_wgrad_bf16": 1}
+    assert got.dtype == torch.float32
+    want = P.dw_conv_packed_wgrad_plain(xp.float(), g.float(), f, c,
+                                        (kt, kt), pads, pads)
+    _close((got,), (want,), rel=1e-4)
+    f32 = P.dw_conv_packed_wgrad(xp.float(), g.float(), f, c, (kt, kt), pads,
+                                 pads)
+    _close((got,), (f32,), rel=1e-4)
+    assert torch.equal(got, P.dw_conv_packed_wgrad(xp, g, f, c, (kt, kt),
+                                                   pads, pads))
+
+
+@pytest.mark.parametrize("shape", sorted(PW_WGRAD_SHAPES))
+def test_bf16_pw_wgrad_matches_plain(dev, shape):
+    """pw-wgrad on bf16 a and g (bf16 m16n8k16 products, a float32 dW)
+    against its plain version and the float32 kernel on the widened
+    values, K6's dW and K7's, to 1e-4 of max|dW|; two calls give the same
+    bits; the bf16 entry launches."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PW_WGRAD_SHAPES[shape]
+    rng = np.random.default_rng(44)
+    for a, g in (((b, ci, t, f), (b, t, f * c)),   # K6's dW
+                 ((b, t, f * c), (b, ci, t, f))):  # K7's dW
+        a, g = _b(rng, a, dev), _b(rng, g, dev)
+        kernel_lib.reset_launches()
+        got = P.pw_packed_wgrad(a, g)
+        assert dict(kernel_lib.LAUNCHES) == {"pw_packed_wgrad_bf16": 1}
+        assert got.dtype == torch.float32
+        _close((got,), (P.pw_packed_wgrad_plain(a, g),), rel=1e-4)
+        _close((got,), (P.pw_packed_wgrad(a.float(), g.float()),), rel=1e-4)
+        assert torch.equal(got, P.pw_packed_wgrad(a, g))
+
+
+def test_bf16_pw_wgrad_does_not_drift_on_positive_sums(dev):
+    """test_pw_wgrad_does_not_drift_on_positive_sums on the bf16 entry:
+    all-positive bf16 a and g at the bs-4 training shape, both layouts,
+    against float64 to 1e-4 of max|dW|, in the geometry's chunks and in
+    one chunk a batch row: the tensor core's sum (toward zero) is added to
+    a float32 sum every stage."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PW_WGRAD_SHAPES["bs4-train"]
+    whole = -(-(t * f) // P.PW_WGRAD_K) * P.PW_WGRAD_K
+    rng = np.random.default_rng(45)
+    for a, g in (((b, ci, t, f), (b, t, f * c)),
+                 ((b, t, f * c), (b, ci, t, f))):
+        a, g = _b(rng, a, dev).abs(), _b(rng, g, dev).abs()
+        want = P.pw_packed_wgrad_plain(a.double(), g.double())
+        ints = P.pw_wgrad_launch_ints(a, g)
+        for chunk, parts in (ints[5:], (whole, b)):
+            def call():
+                partial = torch.empty(parts, want.numel(), device=dev)
+                out = torch.empty(want.shape, device=dev)
+                kernel_lib.launch(
+                    "packed_tf", "pw_packed_wgrad_bf16", dev, a.data_ptr(),
+                    g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                    *ints[:5], chunk, parts)
+                return out
+
+            got = call()
+            _close((got.double(),), (want,), rel=1e-4)
+            assert torch.equal(got, call())
+
+
+def test_bf16_packed_functions_gradients_card_match_cpu(dev):
+    """Every packed autograd Function in bf16 (dx, dW, db) on the card
+    against the same Function on the CPU (the plain versions) at the
+    packed bs-1 geometry: two bf16 ulps of each gradient's scale (float32
+    sums in another order, each rounded once; K8's dx through the pool map
+    with its source terms' magnitudes, as the CPU test's gate), the
+    launches the bf16 entries only."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, cb = 1, 251, 129, 64, 256
+    t2, f2 = (t - 2) // 2 + 1, (f - 2) // 2 + 1
+    rng = np.random.default_rng(46)
+
+    def x(*dims, scale=1.0):
+        return _b(rng, dims, "cpu", scale)
+
+    pool = P.cached_map("pool", t, t2, f, f2)
+    up = P.cached_map("nearest", t2, t, f2, f)
+    cases = {
+        "K5": (lambda xp, w, bias: P.dw_conv_packed(
+            xp, w, bias, f, c, (1, 2), (1, 2)),
+               (x(b, t, f * c), x(4, 4, c, scale=0.25), x(c, scale=0.1))),
+        "K6": (P.pw_proj_packed, (x(b, cb, t, f), x(cb, c, scale=cb ** -0.5),
+                                  x(c, scale=0.1))),
+        "K7": (lambda xp, w, bias: P.pw_unproj_packed(xp, w, bias, f),
+               (x(b, t, f * c), x(c, cb, scale=c ** -0.5),
+                x(cb, scale=0.1))),
+        "K8": (lambda xp: P.spatial_down_packed(xp, pool, c),
+               (x(b, t, f * c),)),
+        "K9": (lambda x4: P.spatial_up_packed(x4, up), (x(b, c, t2, f2),)),
+    }
+    for name, (fn, args) in cases.items():
+        grads, cot = {}, None
+        for d in ("cpu", dev):
+            ins = [a.to(d).requires_grad_() for a in args]
+            out = fn(*ins)
+            if cot is None:
+                cot = x(*out.shape, scale=0.1)
+            kernel_lib.reset_launches()
+            grads[str(d)] = [gr.cpu() for gr in torch.autograd.grad(
+                out, ins, cot.to(d))]
+            if d != "cpu":
+                assert kernel_lib.LAUNCHES and all(
+                    k.endswith("_bf16") for k in kernel_lib.LAUNCHES), name
+        for i, (g, w) in enumerate(zip(grads["cuda"], grads["cpu"])):
+            scale = None
+            if name == "K8":
+                tmap = pool.transposed(f)
+                tens = tmap.tensors(torch.device("cpu"))
+                y = torch.einsum("ts,bcsu->btuc", tens["m"], cot.float())
+                scale = sum((y.index_select(2, tens["fs"][:, j].long())
+                             * tens["fw"][:, j, None]).abs()
+                            for j in range(tens["fs"].shape[1])).reshape(
+                                w.shape) + w.float().abs()
+            _bf16_grad_close(g, w, f"{name} {i}", scale)
