@@ -725,6 +725,15 @@ PARENT_FIGURES = {
                        "(~284 us a launch); SIMT float32",
     "sru_recurrence": "2.4664 ms a uni bs-8 forward by events, 32 launches;"
                       " ~70 us a launch of device time in a uni bs-4 step",
+    "sru_hidden_layer_bwd_bf16": "5.5171-5.5679 ms a bs-4 step by events "
+                                 "(float32 kernel 4.0942-4.1223); device "
+                                 "4.7273-5.2821 ms, 193-223 us a call, 5.427 "
+                                 "in the profiled step (float32 3.909-3.915)",
+    "convt1d_ola_tm_bwd_bf16": "1.6383-1.6427 ms a bs-4 step by events "
+                               "(float32 kernel 1.3320-1.3392); device "
+                               "1.2189-1.6162 ms, 150-205 us a call, 1.760 in "
+                               "the profiled step; convolution_backward "
+                               "0.7129-1.0750 by events",
 }
 
 
@@ -3158,7 +3167,8 @@ def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
     float32 kernel on the same values widened (two bf16 ulps at every
     element), two calls bit-identical; event ms, the profiler's device us
     a launch, the bf16 bound, the plain version's, the float32 kernel's
-    and the library call's ms. Raises where a gate fails."""
+    and the library call's ms, and the library call's device us (all the
+    kernels of one call). Raises where a gate fails."""
     def stack(out):
         return torch.stack(out) if isinstance(out, tuple) else out
 
@@ -3175,6 +3185,7 @@ def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
     f32_ms = time_cuda(lambda: op(*wide), 50)
     plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
     lib_ms = time_cuda(lib, 50) if lib is not None else None
+    lib_dev = _device_ms_a_call(lib) * 1e3 if lib is not None else None
     dev = _device_us(lambda: op(*args), parts, 40)
     b_ms, b_by = bf16_bound_ms(nbytes, nops, mm_ops)
     print(f"bf16 kernel {label}: against plain bf16 worst {ratio:.3f} of 2 "
@@ -3184,8 +3195,9 @@ def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
           f"{b_ms:.5f} ({b_by}, {nbytes} B, {nops} flop) share of bound="
           f"{b_ms / ms:.3f} plain_ms={plain_ms:.5f} float32 kernel ms="
           f"{f32_ms:.5f} library_ms="
-          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'}; two calls "
-          "bit-identical")
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} (device us a "
+          f"call {'none' if lib_dev is None else f'{lib_dev:.2f}'}); two "
+          "calls bit-identical")
     if not (ok and ok32):
         raise AssertionError(f"{label}: beyond 2 bf16 ulps")
     return {"err": err, "ms": ms, "dev_us": dev, "bound_ms": b_ms,
@@ -3500,8 +3512,10 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
     ``bf16_grad_ulps``) and against the float32 backward kernel on the
     same values widened (flat cosine above BF16_BWD_COS), called twice
     (bit-identical), timed with CUDA events and the profiler's device time
-    a call, beside its bound, its plain version, the float32 kernel and,
-    for K3, ``convolution_backward`` of a bf16 ``conv_transpose1d``. K1's
+    a call, beside its bound, its plain version, the float32 kernel (both
+    ways) and, for K3, ``convolution_backward`` of a bf16
+    ``conv_transpose1d`` (both ways), and per step beside the figures of
+    K2's and K3's previous designs (``PARENT_FIGURES``). K1's
     and K2's bf16 forwards' c outputs, this backward's residuals, are held
     against the plain bf16 c at two bf16 ulps first. Returns per kernel
     the worst error and per-train-step (batch 4) sums."""
@@ -3519,9 +3533,10 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
                 "convt1d_ola_tm_bwd_bf16": REPEATS}
     res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_by": None, "library_ms": None,
-               "f32_ms": 0.0, "device_ms": 0.0} for n in per_site}
-    bs1 = {n: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "f32_ms": 0.0}
-           for n in per_site}
+               "f32_ms": 0.0, "device_ms": 0.0, "f32_device_ms": 0.0,
+               "library_device_ms": 0.0} for n in per_site}
+    bs1 = {n: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "f32_ms": 0.0,
+               "f32_device_ms": 0.0} for n in per_site}
     vb = torch.cat([t((2, 2, H), math.sqrt(1.0 / H)), t((2, 2, H), 0.1)],
                    dim=1).reshape(8, H)
     wt = t((6 * H, 2 * H), math.sqrt(1.0 / (2 * H)))
@@ -3618,59 +3633,79 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
                 f32_ms = time_cuda(lambda: kern(*wide), 30)
                 plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
                 dev_ms = _device_ms_a_call(lambda: kern(*args))
-                lib_ms = None
+                f32_dev = _device_ms_a_call(lambda: kern(*wide))
+                lib_ms = lib_dev = None
                 if name == "convt1d_ola_tm_bwd_bf16":
                     # the library's dx and dW of the same ConvTranspose1d
                     xl = x3.permute(2, 1, 0).contiguous()
                     wl = w3.permute(2, 1, 0).contiguous()
                     gl = g3.permute(2, 1, 0).contiguous()
-                    lib_ms = time_cuda(
-                        lambda: torch.ops.aten.convolution_backward(
+
+                    def lib():
+                        return torch.ops.aten.convolution_backward(
                             gl, xl, wl, None, [1], [0], [1], True, [0], 1,
-                            [True, True, False]), 30)
+                            [True, True, False])
+
+                    lib_ms = time_cuda(lib, 30)
+                    lib_dev = _device_ms_a_call(lib)
                     ops = 4 * length * k * 2 * H * C * B
                     b_ms, b_by = bf16_bound_ms(nbytes, ops, ops)
                 elif prod is None:  # K1: bytes alone
                     b_ms, b_by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
-                else:  # K2: dx and dW 2xTF32, U bf16, the gates float32
-                    t_ops = max(2 * 2 * prod / TF32_OPS_PER_S
-                                + prod / BF16_OPS_PER_S,
+                else:  # K2: U one bf16 product, dx and dW three each (du
+                    # in three bf16 parts), the gates float32
+                    t_ops = max(7 * prod / BF16_OPS_PER_S,
                                 other / F32_OPS_PER_S) * 1e3
                     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                                   else (t_ops, "operations"))
-                print(f"bf16 kernel {name} {tag}: ms={ms:.5f} device ms a "
-                      f"call={dev_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) share "
-                      f"of bound={b_ms / ms:.3f} plain_ms={plain_ms:.5f} "
-                      f"float32 kernel ms={f32_ms:.5f} library_ms="
-                      f"{'none' if lib_ms is None else f'{lib_ms:.5f}'}; two "
-                      "calls bit-identical")
+                print(f"bf16 kernel {name} {tag}: ms={ms:.5f} device us a "
+                      f"call={dev_ms * 1e3:.2f} bound_ms={b_ms:.5f} ({b_by}) "
+                      f"share of bound={b_ms / ms:.3f} (of the device time "
+                      f"{b_ms / dev_ms:.3f}) plain_ms={plain_ms:.5f} float32 "
+                      f"kernel ms={f32_ms:.5f} (device us a call "
+                      f"{f32_dev * 1e3:.2f}) library_ms="
+                      f"{'none' if lib_ms is None else f'{lib_ms:.5f}'}"
+                      f"{'' if lib_dev is None else f' (device us a call {lib_dev * 1e3:.2f})'}"
+                      "; two calls bit-identical")
                 n = per_site[name]
                 if bs == 1:
                     for key, v in (("ms", ms), ("device_ms", dev_ms),
-                                   ("bound_ms", b_ms), ("f32_ms", f32_ms)):
+                                   ("bound_ms", b_ms), ("f32_ms", f32_ms),
+                                   ("f32_device_ms", f32_dev)):
                         bs1[name][key] += n * v
                     continue
                 r = res[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 for key, v in (("ms", ms), ("plain_ms", plain_ms),
                                ("bound_ms", b_ms), ("f32_ms", f32_ms),
-                               ("device_ms", dev_ms)):
+                               ("device_ms", dev_ms),
+                               ("f32_device_ms", f32_dev)):
                     r[key] += n * v
                 r["bound_by"] = b_by
                 if lib_ms is not None:
                     r["library_ms"] = (r["library_ms"] or 0.0) + n * lib_ms
+                    r["library_device_ms"] = (r["library_device_ms"]
+                                              + n * lib_dev)
     for name, r in res.items():
         print(f"bf16 kernel {name}: per bs-{TRAIN_BATCH} step ms={r['ms']:.4f}"
               f" device ms={r['device_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) share of bound="
-              f"{r['bound_ms'] / r['ms']:.3f} plain_ms={r['plain_ms']:.2f} "
-              f"float32 kernel ms={r['f32_ms']:.4f} library_ms="
-              f"{r['library_ms']}; per bs-1 step ms={bs1[name]['ms']:.4f} "
-              f"device ms={bs1[name]['device_ms']:.4f} bound_ms="
+              f"{r['bound_ms'] / r['ms']:.3f} (of the device time "
+              f"{r['bound_ms'] / r['device_ms']:.3f}) plain_ms="
+              f"{r['plain_ms']:.2f} float32 kernel ms={r['f32_ms']:.4f} "
+              f"(device {r['f32_device_ms']:.4f}) library_ms="
+              f"{r['library_ms']} (device {r['library_device_ms']:.4f}); per "
+              f"bs-1 step ms={bs1[name]['ms']:.4f} device ms="
+              f"{bs1[name]['device_ms']:.4f} bound_ms="
               f"{bs1[name]['bound_ms']:.4f} float32 kernel ms="
-              f"{bs1[name]['f32_ms']:.4f}")
-        del r["f32_ms"], r["device_ms"]
+              f"{bs1[name]['f32_ms']:.4f} (device "
+              f"{bs1[name]['f32_device_ms']:.4f})"
+              + (f"; parent: {PARENT_FIGURES[name]}"
+                 if name in PARENT_FIGURES else ""))
+        for key in ("f32_ms", "device_ms", "f32_device_ms",
+                    "library_device_ms"):
+            del r[key]
     return res
 
 
@@ -3756,9 +3791,10 @@ BF16_TRAIN_GROUPS = {
     "K2 bf16 forward": ("sru_hid_fwd_bf16_kernel",),
     "K3 bf16 forward": ("convt1d_tm_fwd_bf16_kernel",),
     "K1 bf16 backward": ("sru_scan_bwd_kernel<11>",),
-    "K2 bf16 backward": ("sru_scan_bwd_kernel<12>", "sru_hid_bwd_"),
-    "K3 bf16 backward": ("convt1d_tm_dx_kernel<__nv_bfloat16",
-                         "convt1d_tm_wgrad_kernel<__nv_bfloat16",
+    "K2 bf16 backward": ("sru_hid_bwd_bf16_kernel",
+                         "sru_hid_bwd_dx_add_kernel",
+                         "sru_hid_bwd_sum_kernel<__nv_bfloat16>"),
+    "K3 bf16 backward": ("convt1d_tm_bwd_bf16_kernel",
                          "convt1d_tm_sum_bf16_kernel"),
 }
 

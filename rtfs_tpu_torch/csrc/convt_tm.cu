@@ -1,5 +1,5 @@
 // Time-major ConvTranspose1d (stride 1, padding 0) for Hopper (sm_90a),
-// float32, and the forward also in bf16 storage.
+// float32 and in bf16 storage.
 //
 // K3  convt1d_ola_tm_fwd  replaces the Pallas kernel _fwd_kernel
 //     (rtfs_tpu/ops/convt_tm.py, called from convt1d_ola_tm): the
@@ -9,10 +9,12 @@
 //     ~256 flops a byte, near the card's bf16 ratio of ~295).
 // K3  convt1d_ola_tm_bwd  replaces the Pallas kernel _bwd_kernel
 //     (rtfs_tpu/ops/convt_tm.py, called from _vjp_bwd): its VJP;
-//     convt1d_ola_tm_bwd_bf16 the same kernels on bf16 operands (g, x, W
-//     in, dx and dW out bf16; each value widened exactly as it is loaded,
-//     the products and sums float32, dx and dW rounded once, as the
-//     Pallas kernel's float32 dot results and dW scratch are).
+//     convt1d_ola_tm_bwd_bf16 its bf16 form (g, x, W in, dx and dW out
+//     bf16; both products bf16 mma.sync.m16n8k16 on the tensor cores into
+//     float32 sums, dx and dW rounded once, as the Pallas kernel's bf16
+//     dots with float32 results and its float32 dW scratch): dx and dW in
+//     one kernel over a window of g rows (convt1d_tm_bwd_bf16_kernel), one
+//     float32 dW partial a run of l steps and column tile.
 //
 //   out[t, o, b] = sum_{j < k, 0 <= t-j < L} sum_i x[t-j, i, b] * W[j, o, i]
 //   dx[l, i, b]  = sum_{j < k} sum_o W[j, o, i] * g[l+j, o, b]
@@ -88,11 +90,18 @@
 //     thread an 8 x 4 register tile; one partial a chunk, summed in a
 //     fixed order (convt1d_tm_sum_kernel): no float atomics, so two calls
 //     give the same bits.
-// The backward's products run in full float32 on the SIMT units. In bf16
-// storage the same kernels widen each bf16 value as it is loaded (so the
-// shared tiles and their sizes are the float32 ones); cp.async has no
-// 2-byte copy, so the dx kernel's ring rows are plain loads there, which
-// the block waits for before its step's products.
+// The float32 backward's products run in full float32 on the SIMT units.
+// The bf16 backward's run on the tensor cores, as JAX's bf16 dots do (the
+// products of bf16 values are exact in float32): what bounds it at the
+// preset is its bytes (g and x read, ~7.7 MB at the bs-4 freq site), since
+// one bf16 mma.sync does the work of 64 float32 FMAs. At step l both dx
+// (dx[l] = W_cat^T slab_l) and dW (dW_cat += slab_l x[l]^T) take the g rows
+// l .. l + k - 1, so one kernel (convt1d_tm_bwd_bf16_kernel) walks a
+// column tile's l steps with a ring of g rows and does both: each g row
+// is copied once a block and used by every tap of both products. The rows
+// are staged as they lie (b fastest: K-contiguous for dW's operands; dx's
+// take them by ldmatrix.trans), and dW's tensor-core accumulators are
+// flushed into float32 registers every pass of 8 l steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,17 +133,16 @@ constexpr int kMaxIn = 64;
 constexpr int kThreads = 256;
 constexpr int kWgRows = 128;
 constexpr int kWgCols = 32;
-
-// a stored value widened (exactly) and a float32 result stored, in either
-// storage
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+// bf16 backward (ops/convt_tm.py mirrors them): taps, output and input
+// channels a block (a larger K, C_out or C_in is split over the grid), its
+// threads (for dW a warp a tap and 32 output channels), l steps a pass and
+// passes in the ring (kDwStages - 1 of them in flight)
+constexpr int kDwTaps = 8;
+constexpr int kDwOut = 64;
+constexpr int kDwIn = 32;
+constexpr int kDwThreads = 512;
+constexpr int kDwPass = 8;
+constexpr int kDwStages = 3;
 
 __host__ __device__ __forceinline__ int round_up(int a, int m) {
   return (a + m - 1) / m * m;
@@ -505,11 +513,9 @@ __host__ __device__ __forceinline__ int dx_smem_floats(int K, int co_slice) {
 // taps j = q, q + 4, ...; within a group, (tx, ty) = (tid % 8, tid % 64 /
 // 8) owns C_in rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3. Group 0
 // adds the others' tiles in order and writes dx.
-// E: the storage of g and W (float or bf16), TO: of dx or its partial.
-template <typename E, typename TO>
 __global__ void __launch_bounds__(kThreads)
-convt1d_tm_dx_kernel(const E* __restrict__ g, const E* __restrict__ w,
-                     TO* __restrict__ dx, int L, int Ci, int Co, int K,
+convt1d_tm_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
+                     float* __restrict__ dx, int L, int Ci, int Co, int K,
                      int B, int steps, int co_slice) {
   extern __shared__ float4 smem4[];
   const int n_in = (Ci + kMaxIn - 1) / kMaxIn;
@@ -532,14 +538,11 @@ convt1d_tm_dx_kernel(const E* __restrict__ g, const E* __restrict__ w,
   // g row r (co_n x the tile's columns) into its ring slot r % (K+1)
   auto load_row = [&](int r) {
     float* dst = ring + (r % (K + 1)) * slot_len;
-    const E* src = g + (long long)r * Co * B + b0;
+    const float* src = g + (long long)r * Co * B + b0;
     for (int e = tid; e < slot_len; e += kThreads) {
       const int o = e / kDxCols, c = e % kDxCols;
       const bool ok = b0 + c < B;
-      if constexpr (sizeof(E) == 4)
-        cp_async4(dst + e, ok ? src + (long long)o * B + c : g, ok);
-      else
-        dst[e] = ok ? to_float(src[(long long)o * B + c]) : 0.f;
+      cp_async4(dst + e, ok ? src + (long long)o * B + c : g, ok);
     }
   };
   // W's slice, rows padded with zeros to kMaxIn, and the first K rows of
@@ -548,13 +551,7 @@ convt1d_tm_dx_kernel(const E* __restrict__ g, const E* __restrict__ w,
   // (On the H100 at the preset, dx took 80 us a call this way, 92 with a
   // tap-by-tap loop and 84 with a division on every row.)
   const int gap = Co - co_n;
-  if constexpr (sizeof(E) == 2) {
-    for (int e = tid; e < K * co_n * kMaxIn; e += kThreads) {
-      const int i = e % kMaxIn, jo = e / kMaxIn;
-      const int row = gap ? jo + jo / co_n * gap : jo;
-      w_s[e] = i < ci_n ? to_float(w[(long long)row * Ci + i]) : 0.f;
-    }
-  } else if (Ci % 4 == 0) {  // ci0 is a multiple of kMaxIn
+  if (Ci % 4 == 0) {  // ci0 is a multiple of kMaxIn
     for (int e = 4 * tid; e < K * co_n * kMaxIn; e += 4 * kThreads) {
       const int i = e % kMaxIn, jo = e / kMaxIn;
       const int row = gap ? jo + jo / co_n * gap : jo;
@@ -613,14 +610,14 @@ convt1d_tm_dx_kernel(const E* __restrict__ g, const E* __restrict__ w,
       for (int p = 0; p < 8; ++p) {
         const int i = 8 * ty + p;
         if (i >= ci_n) continue;
-        TO* out = dx + ((long long)l * Ci + i) * B + b0;
+        float* out = dx + ((long long)l * Ci + i) * B + b0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = 4 * tx + q;
           float v = acc[p][q];
           for (int r = 0; r < kDxGroups - 1; ++r)
             v += red[(r * kMaxIn + i) * kDxCols + c];
-          if (b0 + c < B) put(out + c, v);
+          if (b0 + c < B) out[c] = v;
         }
       }
     }
@@ -636,10 +633,8 @@ convt1d_tm_dx_kernel(const E* __restrict__ g, const E* __restrict__ w,
 // 16, tid / 16) owns rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3.
 // A stage stages kWgCols columns of both operands transposed; a thread
 // loads one column (tid % 32) of rows tid / 32 + 8 r.
-// E: the storage of g and x (float or bf16); the partials are float32.
-template <typename E>
 __global__ void __launch_bounds__(kThreads)
-convt1d_tm_wgrad_kernel(const E* __restrict__ g, const E* __restrict__ x,
+convt1d_tm_wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
                         float* __restrict__ part, int L, int Ci, int Co,
                         int K, int B, int cols) {
   __shared__ __align__(16) float a_s[kWgCols][kWgRows + 4];  // a_s[col][m]
@@ -663,17 +658,17 @@ convt1d_tm_wgrad_kernel(const E* __restrict__ g, const E* __restrict__ x,
     const bool ok = col < c1;
     const int l = ok ? (int)(col / B) : 0;
     const int b = ok ? (int)(col - (long long)l * B) : 0;
-    const E* gl = g + (long long)l * Co * B + b;  // slab row m at m * B
-    const E* xl = x + (long long)l * Ci * B + b;
+    const float* gl = g + (long long)l * Co * B + b;  // slab row m at m * B
+    const float* xl = x + (long long)l * Ci * B + b;
 #pragma unroll
     for (int r = 0; r < kPerA; ++r) {
       const int m = m0 + r0 + kRowStep * r;
-      ra[r] = ok && m < M ? to_float(gl[(long long)m * B]) : 0.f;
+      ra[r] = ok && m < M ? gl[(long long)m * B] : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < kPerB; ++r) {
       const int i = n0 + r0 + kRowStep * r;
-      rb[r] = ok && i < Ci ? to_float(xl[(long long)i * B]) : 0.f;
+      rb[r] = ok && i < Ci ? xl[(long long)i * B] : 0.f;
     }
   };
   load(c0);
@@ -707,6 +702,333 @@ convt1d_tm_wgrad_kernel(const E* __restrict__ g, const E* __restrict__ x,
     for (int s = 0; s < 4; ++s) {
       const int i = n0 + 4 * tx + s;
       if (i < Ci) out[(long long)m * Ci + i] = acc[p][s];
+    }
+  }
+}
+
+// Ring slots of the bf16 backward kernel: g rows (the passes in the ring
+// and a window of kDwTaps - 1 more) and x rows; W's rows (a tap and an
+// output channel) of kDwIn + 8 bf16 (80 bytes: the 8 rows of an
+// ldmatrix matrix meet 8 distinct 16-byte bank groups); the dx tile a
+// warp rounds and writes (16 input channels x 16 columns, rows of 24 bf16)
+constexpr int kDwSlotsG = kDwStages * kDwPass + kDwTaps - 1;
+constexpr int kDwSlotsX = kDwStages * kDwPass;
+constexpr int kDwWRow = kDwIn + 8;
+constexpr int kDwDxRow = 24;
+
+// Shared memory of the bf16 backward kernel in bytes: its ring of g rows
+// (kDwOut channels) and of x rows (kDwIn), kFwdCols columns each, W's
+// kDwTaps kDwOut rows and the warps' dx tiles.
+__host__ __device__ __forceinline__ int bwd_bf16_smem_bytes() {
+  return 2 * (kFwdCols * (kDwSlotsG * kDwOut + kDwSlotsX * kDwIn)
+              + kDwTaps * kDwOut * kDwWRow
+              + kDwThreads / 32 * 16 * kDwDxRow);
+}
+
+// n (at most 8) bf16 values from shared memory to dst, as copies of w
+// values (w the largest of 8, 4, 2, 1 dividing dst's element offset e,
+// 16-, 8-, 4- or 2-byte stores), value by value where fewer than w are
+// left.
+__device__ __forceinline__ void store_bf16_n(unsigned short* dst,
+                                             const unsigned short* src,
+                                             long long e, int n) {
+  const int a = (int)(e & 7);
+  const int w = a == 0 ? 8 : (a & 3) == 0 ? 4 : (a & 1) == 0 ? 2 : 1;
+  for (int s = 0; s < n; s += w) {
+    if (s + w > n) {
+      for (int v = s; v < n; ++v) dst[v] = src[v];
+    } else if (w == 8) {
+      *reinterpret_cast<uint4*>(dst + s) =
+          *reinterpret_cast<const uint4*>(src + s);
+    } else if (w == 4) {
+      *reinterpret_cast<uint2*>(dst + s) =
+          *reinterpret_cast<const uint2*>(src + s);
+    } else if (w == 2) {
+      *reinterpret_cast<uint32_t*>(dst + s) =
+          *reinterpret_cast<const uint32_t*>(src + s);
+    } else {
+      dst[s] = src[s];
+    }
+  }
+}
+
+// K3's bf16 backward on the tensor cores, dx and dW in one walk of a
+// window of g rows over l:
+//   dx[l][i][b]        = sum_j sum_o W[j][o][i] g[l + j][o][b]
+//   part[z][j][o][i]   = sum_{l in [l0, l1)} sum_{c < 16, b0 + c < B}
+//                        g[l + j][o][b0 + c] x[l][i][b0 + c]
+// for the block's column tile b0 = 16 (z % ceil(B / 16)) and run of l
+// steps [l0, l1), l0 = lsteps (z / ceil(B / 16)). Both products need g
+// rows l .. l + K - 1 at step l, so going from l to l + 1 the block needs
+// one new g row (and the x row l for dW): g and x are each read once a
+// block (g's window of K - 1 rows once more a run), where dx and dW apart
+// would read g twice. The rows are copied as they lie (b fastest) into a
+// ring (ring16_at's swizzle) and every fragment is one ldmatrix. grid
+// (ceil(Ci / kDwIn), ceil(K / kDwTaps) ceil(Co / kDwOut), ceil(B / 16)
+// ceil(L / lsteps)), kDwThreads threads, passes of kDwPass l steps,
+// kDwStages - 1 of them in flight.
+// - dW: warp w the tap j0 + w / 2 and output channels o0 + 32 (w % 2) +
+//   [0, 32) against the block's kDwIn input channels, 2 m16 x 4 n8
+//   fragments, one bf16 mma.sync.m16n8k16 each an l (K-contiguous A from
+//   the g row, B from the x row, both untransposed), exactly JAX's bf16
+//   dot with a float32 result. The tensor core's accumulators round
+//   toward zero, so they are added to float32 registers every pass and
+//   zeroed (pw-wgrad's flush). One float32 partial a block, written
+//   through shared memory in 16-byte stores of whole rows.
+// - dx: warp w the step lp + w / 2 of the pass and input channels 16 (w %
+//   2) + [0, 16), 2 n8 fragments over the 16 columns, summed over the
+//   block's taps and output channels in k16 steps (A = W^T by
+//   ldmatrix.trans from W's rows as they lie, B = the g row l + j by
+//   ldmatrix.trans), float32 and rounded once to bf16 as the Pallas
+//   kernel's dx; where K or C_out is split over the grid (more than
+//   kDwTaps taps or kDwOut channels), the block writes a float32 partial
+//   of dx instead (dx_part, one a grid row y), which
+//   convt1d_tm_sum_bf16_kernel adds in order and rounds once.
+// What costs time at these sizes is issuing instructions more than the
+// tensor cores: the copies take fixed channels and halves of rows a
+// thread, and the fragments' shared addresses step by adds.
+__global__ void __launch_bounds__(kDwThreads)
+convt1d_tm_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ g16,
+                           const __nv_bfloat16* __restrict__ w16,
+                           const __nv_bfloat16* __restrict__ x16,
+                           __nv_bfloat16* __restrict__ dx16,
+                           float* __restrict__ dx_part,
+                           float* __restrict__ part, int L, int Ci, int Co,
+                           int K, int B, int lsteps) {
+  extern __shared__ float4 smem4[];
+  constexpr int kSlotG = kDwOut * kFwdCols, kSlotX = kDwIn * kFwdCols;
+  unsigned short* gring = reinterpret_cast<unsigned short*>(smem4);
+  unsigned short* xring = gring + kDwSlotsG * kSlotG;
+  unsigned short* wt = xring + kDwSlotsX * kSlotX;  // (kDwTaps kDwOut, kDwWRow)
+  unsigned short* dxs = wt + kDwTaps * kDwOut * kDwWRow;
+  const unsigned short* g = reinterpret_cast<const unsigned short*>(g16);
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(w16);
+  const unsigned short* x = reinterpret_cast<const unsigned short*>(x16);
+  unsigned short* dx = reinterpret_cast<unsigned short*>(dx16);
+  const int tap_tiles = (K + kDwTaps - 1) / kDwTaps, nb = (B + 15) / 16;
+  const bool split = gridDim.y > 1;  // dx summed over the grid's rows y
+  const int i0 = blockIdx.x * kDwIn;
+  const int j0 = blockIdx.y % tap_tiles * kDwTaps;
+  const int o0 = blockIdx.y / tap_tiles * kDwOut;
+  const int b0 = blockIdx.z % nb * 16;
+  const int l0 = blockIdx.z / nb * lsteps, l1 = min(L, l0 + lsteps);
+  const int nj = min(kDwTaps, K - j0), no = min(kDwOut, Co - o0);
+  const int ni = min(kDwIn, Ci - i0);
+  const int n_pass = (l1 - l0 + kDwPass - 1) / kDwPass;
+  const int tid = threadIdx.x;
+
+  // the copies: thread tid takes the 8-value half tid % 2 of channel
+  // (tid / 2) % C of every row r = tid / (2 C) mod kDwThreads / (2 C) of a
+  // pass, C kDwOut for g and kDwIn for x; a half goes as copies of w
+  // values, w the largest of 8, 4, 2, 1 to which its first element's
+  // offset is aligned (16-, 8-, 4-byte cp.async; plain loads where it is
+  // odd), zero past B and past the block's channels
+  const int h = tid & 1, cg = (tid >> 1) % kDwOut, cx = (tid >> 1) % kDwIn;
+  const int c0 = b0 + 8 * h;
+  const int left_g = cg < no ? min(8, B - c0) : 0;
+  const int left_x = cx < ni ? min(8, B - c0) : 0;
+  const int dst_g = ring16_at(cg, 8 * h), dst_x = ring16_at(cx, 8 * h);
+  auto copy_half = [&](unsigned short* dst, const unsigned short* base,
+                       long long e0, int left) {
+    const int a = (int)(e0 & 7);
+    const int wv = a == 0 ? 8 : (a & 3) == 0 ? 4 : (a & 1) == 0 ? 2 : 1;
+    for (int s = 0; s < 8; s += wv) {
+      const int n = min(wv, max(0, left - s));
+      hk::copy_bf16_n(dst + s, n > 0 ? base + e0 + s : base, wv, n);
+    }
+  };
+  // W's rows (tap j0 + j, output channel o0 + o) of the block's input
+  // channels, four 8-value chunks each, zero past them, with pass 0
+  for (int u = tid; u < kDwTaps * kDwOut * 4; u += kDwThreads) {
+    const int row = u >> 2, c = u & 3, j = row / kDwOut, o = row % kDwOut;
+    const bool ok = j < nj && o < no;
+    copy_half(wt + row * kDwWRow + 8 * c, w,
+              ok ? ((long long)(j0 + j) * Co + o0 + o) * Ci + i0 + 8 * c : 0,
+              ok ? min(8, ni - 8 * c) : 0);
+  }
+  // pass p's rows into their slots, one commit group (empty past the
+  // last): the x rows of its l steps and the g rows it is the first to
+  // need (in the first pass its whole window, later the kDwPass rows past
+  // the previous pass's)
+  auto load_pass = [&](int p) {
+    if (p < n_pass) {
+      const int lp = l0 + p * kDwPass, le = min(l1, lp + kDwPass);
+      const int r0 = p == 0 ? lp + j0 : lp + j0 + nj - 1;
+      const int r1 = le + j0 + nj - 1;
+      for (int r = r0 + tid / (2 * kDwOut); r < r1;
+           r += kDwThreads / (2 * kDwOut))
+        copy_half(gring + r % kDwSlotsG * kSlotG + dst_g, g,
+                  ((long long)r * Co + o0 + cg) * B + c0, left_g);
+      for (int r = lp + tid / (2 * kDwIn); r < le;
+           r += kDwThreads / (2 * kDwIn))
+        copy_half(xring + r % kDwSlotsX * kSlotX + dst_x, x,
+                  ((long long)r * Ci + i0 + cx) * B + c0, left_x);
+    }
+    hk::cp_async_commit();
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g_ = hk::lane_g(), q = hk::lane_q();
+  const int jj = warp >> 1, oh = 32 * (warp & 1);
+  const bool active = jj < nj && oh < no;  // dW, uniform over the warp
+  const int sd = warp >> 1, mi_d = warp & 1;  // dx: step, channel half
+  const bool active_dx = 16 * mi_d < ni;
+  // ldmatrix: lane l addresses row l % 8 of matrix l / 8. dW's A
+  // matrices (rows 0-7 | 8-15) x (columns 0-7 | 8-15) row half first, B's
+  // (x rows 0-7 | 8-15, an n8 fragment each) x (columns 0-7 | 8-15) column
+  // half first; dx's (.trans) A (W's rows, k, 0-7 | 8-15) x (columns, m,
+  // 0-7 | 8-15) column half first, B (g's rows, k, 0-7 | 8-15) x (columns,
+  // n, 0-7 | 8-15) row half first. Byte addresses in slot 0, tap 0 and
+  // the first 16 output channels; a g slot is kSlotG bf16 further, an x
+  // slot kSlotX, 16 channels 16 rows.
+  const int mt = lane >> 3, rr = lane & 7;
+  const unsigned a_base = hk::smem_u32(gring);
+  const unsigned b_base = hk::smem_u32(xring);
+  const unsigned a_at0 =
+      a_base + 2 * ring16_at(oh + rr + 8 * (mt & 1), 8 * (mt >> 1));
+  const unsigned a_at1 =
+      a_base + 2 * ring16_at(oh + 16 + rr + 8 * (mt & 1), 8 * (mt >> 1));
+  const unsigned b_at0 = b_base + 2 * ring16_at(rr + 8 * (mt >> 1), 8 * (mt & 1));
+  const unsigned b_at1 =
+      b_base + 2 * ring16_at(16 + rr + 8 * (mt >> 1), 8 * (mt & 1));
+  const unsigned dxa_at = hk::smem_u32(
+      wt + (rr + 8 * (mt >> 1)) * kDwWRow + 16 * mi_d + 8 * (mt & 1));
+  const unsigned dxb_at = a_base + 2 * ring16_at(rr + 8 * (mt & 1), 8 * (mt >> 1));
+  unsigned short* dx_tile = dxs + warp * 16 * kDwDxRow;
+  float sum[2][4][4], acc[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) sum[a][b][v] = 0.f;
+
+  for (int p = 0; p < kDwStages - 1; ++p) load_pass(p);
+  for (int p = 0; p < n_pass; ++p) {
+    hk::cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // pass p is in; every warp is done with pass p - 1,
+                      // whose slots pass p + kDwStages - 1 takes
+    load_pass(p + kDwStages - 1);
+    const int lp = l0 + p * kDwPass, le = min(l1, lp + kDwPass);
+    if (active) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[a][b][v] = 0.f;
+      int sg = (lp + j0 + jj) % kDwSlotsG, sx = lp % kDwSlotsX;
+      for (int l = lp; l < le; ++l) {
+        const unsigned og = 2u * kSlotG * sg, ox = 2u * kSlotX * sx;
+        uint32_t a[2][4], b[4][2], t[4];
+        hk::ldsm_x4_at(a[0], a_at0 + og);
+        hk::ldsm_x4_at(a[1], a_at1 + og);
+        hk::ldsm_x4_at(t, b_at0 + ox);
+        b[0][0] = t[0];
+        b[0][1] = t[1];
+        b[1][0] = t[2];
+        b[1][1] = t[3];
+        hk::ldsm_x4_at(t, b_at1 + ox);
+        b[2][0] = t[0];
+        b[2][1] = t[1];
+        b[3][0] = t[2];
+        b[3][1] = t[3];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int n8 = 0; n8 < 4; ++n8)
+            hk::mma_bf16(acc[mi][n8], a[mi], b[n8]);
+        sg = sg + 1 == kDwSlotsG ? 0 : sg + 1;
+        sx = sx + 1 == kDwSlotsX ? 0 : sx + 1;
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) sum[a][b][v] += acc[a][b][v];
+    }
+    const int l = lp + sd;
+    if (l < le && active_dx) {  // uniform over the warp
+      float d[2][4] = {};
+      int sj = (l + j0) % kDwSlotsG;  // g row l + j0 + j
+      for (int j = 0; j < nj; ++j) {
+        const unsigned ga = dxb_at + 2u * kSlotG * sj;
+        const unsigned wa = dxa_at + 2u * kDwOut * kDwWRow * j;
+#pragma unroll
+        for (int ob = 0; ob < kDwOut / 16; ++ob) {
+          uint32_t a[4], t[4];
+          hk::ldsm_x4_trans_at(a, wa + 2u * 16 * kDwWRow * ob);
+          hk::ldsm_x4_trans_at(t, ga + 2u * 16 * kFwdCols * ob);
+          const uint32_t b0_[2] = {t[0], t[1]}, b1_[2] = {t[2], t[3]};
+          hk::mma_bf16(d[0], a, b0_);
+          hk::mma_bf16(d[1], a, b1_);
+        }
+        sj = sj + 1 == kDwSlotsG ? 0 : sj + 1;
+      }
+      // c0 (i g, b 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
+      const int ib = i0 + 16 * mi_d;
+      if (split) {
+        float* out = dx_part + (long long)blockIdx.y * L * Ci * B;
+#pragma unroll
+        for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int i = g_ + 8 * (v >> 1), c = b0 + 8 * n8 + 2 * q + (v & 1);
+            if (16 * mi_d + i < ni && c < B)
+              out[((long long)l * Ci + ib + i) * B + c] = d[n8][v];
+          }
+      } else {
+#pragma unroll
+        for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+                d[n8][2 * hh], d[n8][2 * hh + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(
+                dx_tile + (g_ + 8 * hh) * kDwDxRow + 8 * n8 + 2 * q) = v2;
+          }
+        __syncwarp();
+        // lane: channel lane / 2, columns 8 (lane % 2) + [0, 8)
+        const int i = lane >> 1, c = b0 + 8 * (lane & 1);
+        if (16 * mi_d + i < ni && c < B) {
+          const long long e = ((long long)l * Ci + ib + i) * B + c;
+          store_bf16_n(dx + e, dx_tile + i * kDwDxRow + 8 * (lane & 1), e,
+                       min(8, B - c));
+        }
+      }
+    }
+  }
+  hk::cp_async_wait_all();
+  __syncthreads();  // the ring is free: each warp's 32 x 32 dW sums go
+                    // through its own tile of it (rows of 36 floats)
+  constexpr int kTile = 32 * 36;
+  float* tile = reinterpret_cast<float*>(smem4) + warp * kTile;
+  if (!active) return;
+  // c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8)
+        *reinterpret_cast<float2*>(tile + (16 * mi + g_ + 8 * hh) * 36 + 8 * n8
+                                   + 2 * q) =
+            make_float2(sum[mi][n8][2 * hh], sum[mi][n8][2 * hh + 1]);
+  __syncwarp();
+  float* out = part + (((long long)blockIdx.z * K + j0 + jj) * Co + o0 + oh)
+                          * Ci + i0;
+  const int rows = min(32, no - oh);
+  if (ni == kDwIn && Ci % 4 == 0) {  // whole 16-byte-aligned rows
+    for (int e = lane; e < rows * 8; e += 32) {
+      const int o = e >> 3, c = 4 * (e & 7);
+      *reinterpret_cast<float4*>(out + (long long)o * Ci + c) =
+          *reinterpret_cast<const float4*>(tile + o * 36 + c);
+    }
+  } else {
+    for (int e = lane; e < rows * 32; e += 32) {
+      const int o = e >> 5, c = e & 31;
+      if (c < ni) out[(long long)o * Ci + c] = tile[o * 36 + c];
     }
   }
 }
@@ -827,9 +1149,9 @@ extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
   const size_t smem =
       (size_t)dx_smem_floats(K, min(co_slice, Co)) * sizeof(float);
   cudaError_t e =
-      set_smem((const void*)convt1d_tm_dx_kernel<float, float>, smem);
+      set_smem((const void*)convt1d_tm_dx_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  convt1d_tm_dx_kernel<float, float><<<dim3(ceil_div(B, kDxCols), ceil_div(L, steps),
+  convt1d_tm_dx_kernel<<<dim3(ceil_div(B, kDxCols), ceil_div(L, steps),
                               n_in * n_out),
                          kThreads, smem, st>>>(
       (const float*)g, (const float*)w,
@@ -841,7 +1163,7 @@ extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
         (const float*)dx_part, (float*)dx, n_out, n);
   }
   const int n_chunks = ceil_div((long long)L * B, cols);
-  convt1d_tm_wgrad_kernel<float><<<dim3(ceil_div(Ci, kMaxIn),
+  convt1d_tm_wgrad_kernel<<<dim3(ceil_div(Ci, kMaxIn),
                                  ceil_div(K * Co, kWgRows), n_chunks),
                             kThreads, 0, st>>>(
       (const float*)g, (const float*)x, (float*)dw_part, L, Ci, Co, K, B,
@@ -852,45 +1174,39 @@ extern "C" int convt1d_ola_tm_bwd(const void* g, const void* w, const void* x,
   return (int)cudaGetLastError();
 }
 
-// K3 backward in bf16 storage: as convt1d_ola_tm_bwd on bf16 g, w and x,
-// writing bf16 dx and dw; dw_part and dx_part (where co_slice < Co) stay
-// float32, their sums rounded once. No alignment is asked of any pointer.
+// K3 backward in bf16 storage: g, w and x in, dx and dw out bf16, by
+// convt1d_tm_bwd_bf16_kernel over runs of lsteps l steps for each tile of
+// 16 columns. dw_part (ceil(B / 16) ceil(L / lsteps), K, C_out, C_in)
+// float32, summed in order and rounded once; dx_part (ceil(K / 8)
+// ceil(C_out / 64), L, C_in, B) float32 where K or C_out is split over the
+// grid (more than 8 taps or 64 output channels), summed in order and
+// rounded once, else it may be null. g, w and x 16-byte aligned.
 extern "C" int convt1d_ola_tm_bwd_bf16(const void* g, const void* w,
                                        const void* x, void* dx, void* dw,
                                        void* dw_part, void* dx_part, int L,
                                        int Ci, int Co, int K, int B,
-                                       int steps, int cols, int co_slice,
-                                       void* stream) {
-  if (steps < 1 || cols < 1 || co_slice < 1) return (int)cudaErrorInvalidValue;
+                                       int lsteps, void* stream) {
   using bf = __nv_bfloat16;
+  if (lsteps < 1 ||
+      ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(w) |
+        reinterpret_cast<size_t>(x)) & 15))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_in = ceil_div(Ci, kMaxIn), n_out = ceil_div(Co, co_slice);
-  if (n_out > 1 && dx_part == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)dx_smem_floats(K, min(co_slice, Co)) * sizeof(float);
-  const dim3 grid(ceil_div(B, kDxCols), ceil_div(L, steps), n_in * n_out);
-  if (n_out > 1) {
-    cudaError_t e =
-        set_smem((const void*)convt1d_tm_dx_kernel<bf, float>, smem);
-    if (e != cudaSuccess) return (int)e;
-    convt1d_tm_dx_kernel<bf, float><<<grid, kThreads, smem, st>>>(
-        (const bf*)g, (const bf*)w, (float*)dx_part, L, Ci, Co, K, B, steps,
-        min(co_slice, Co));
+  const int n_y = ceil_div(K, kDwTaps) * ceil_div(Co, kDwOut);
+  if (n_y > 1 && dx_part == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)bwd_bf16_smem_bytes();
+  cudaError_t e = set_smem((const void*)convt1d_tm_bwd_bf16_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_chunks = ceil_div(B, 16) * ceil_div(L, lsteps);
+  convt1d_tm_bwd_bf16_kernel<<<dim3(ceil_div(Ci, kDwIn), n_y, n_chunks),
+                               kDwThreads, smem, st>>>(
+      (const bf*)g, (const bf*)w, (const bf*)x, (bf*)dx, (float*)dx_part,
+      (float*)dw_part, L, Ci, Co, K, B, lsteps);
+  if (n_y > 1) {
     const int n = L * Ci * B;
     convt1d_tm_sum_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
-        (const float*)dx_part, (bf*)dx, n_out, n);
-  } else {
-    cudaError_t e = set_smem((const void*)convt1d_tm_dx_kernel<bf, bf>, smem);
-    if (e != cudaSuccess) return (int)e;
-    convt1d_tm_dx_kernel<bf, bf><<<grid, kThreads, smem, st>>>(
-        (const bf*)g, (const bf*)w, (bf*)dx, L, Ci, Co, K, B, steps,
-        min(co_slice, Co));
+        (const float*)dx_part, (bf*)dx, n_y, n);
   }
-  const int n_chunks = ceil_div((long long)L * B, cols);
-  convt1d_tm_wgrad_kernel<bf><<<dim3(ceil_div(Ci, kMaxIn),
-                                     ceil_div(K * Co, kWgRows), n_chunks),
-                                kThreads, 0, st>>>(
-      (const bf*)g, (const bf*)x, (float*)dw_part, L, Ci, Co, K, B, cols);
   const int n = K * Co * Ci;
   convt1d_tm_sum_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
       (const float*)dw_part, (bf*)dw, n_chunks, n);

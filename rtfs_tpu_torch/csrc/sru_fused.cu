@@ -1,6 +1,6 @@
 // Fused bidirectional SRU stack kernels for Hopper (sm_90a), float32, and
-// the forwards also in bf16 storage (the Pallas kernels run in the
-// caller's dtype; bf16 is the JAX package's serving mode).
+// each also in bf16 storage (the Pallas kernels run in the caller's dtype;
+// bf16 is the JAX package's serving and bf16 training mode).
 //
 // K1  sru_dual_recurrence_fwd  replaces the Pallas kernel _lay0_fwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from sru_dual_recurrence);
@@ -12,7 +12,10 @@
 //     sru_hidden_layer_fwd_bf16 the same kernel on bf16 operands,
 //     streamed above H 536 as the float32 one is above H 268.
 // K2  sru_hidden_layer_bwd     replaces the Pallas kernel _hid_bwd_kernel
-//     (rtfs_tpu/ops/sru_fused.py, called from _hid_vjp_bwd).
+//     (rtfs_tpu/ops/sru_fused.py, called from _hid_vjp_bwd);
+//     sru_hidden_layer_bwd_bf16 its bf16 form, one fused kernel
+//     (sru_hid_bwd_bf16_kernel: U, the adjoint scan, dx and dW a chunk of
+//     steps at a time on chip, the products on bf16 mma.sync.m16n8k16).
 //
 // Recurrence (sru package v2.6 semantics; the reset gate reads the UPDATED
 // cell, see rtfs_tpu/ops/sru.py):
@@ -115,7 +118,9 @@
 // Nothing holds dW in registers across the
 // sequence, so any H is taken. Scratch: ud, one dW partial a chunk (about
 // two blocks an SM), one (v, b) partial a scan block; the wrapper
-// allocates them.
+// allocates them. The bf16 backward is not split so: one fused kernel
+// keeps U, du and dx on chip a chunk of steps at a time, the products on
+// the tensor cores (sru_hid_bwd_bf16_kernel, below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,9 +163,10 @@ constexpr long long kMaxSmem = 227 * 1024;
 // The K2 forward scan's sigmoid: the hardware exp2 and reciprocal, a few
 // ulp from sigmoid_f and free of the branch that the IEEE division takes
 // on its slow path; it shortens the scan's per-step chain (PERF.md).
-// K2's backward recomputes the gates with sigmoid_f from a U of its own,
-// formed in SIMT float32 rather than 3xTF32, so it differentiates a
-// forward a few ulp from this one (within the gradient gates).
+// K2's float32 backward recomputes the gates with sigmoid_f from a U of
+// its own, formed in SIMT float32 rather than 3xTF32, so it differentiates
+// a forward a few ulp from this one (within the gradient gates); the bf16
+// backward (sru_hid_bwd_bf16_kernel) uses this sigmoid, as its forward.
 __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }
@@ -1041,21 +1047,19 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
   }
 }
 
-// Rows of a time-major (T, R, B) operand, each a row of B values (float,
-// or bf16 for the bf16 backward's X): rows [0, r0) of step t at p0 + (t *
-// step0 + r) * B, rows [r0, R) at p1 + (t * step1 + r - r0) * B. X = [x_f;
-// x_r] is two such halves; U, du and dx's halves are one each (r0 >= R).
-template <typename E>
-struct RowsT {
-  E* p0;
-  E* p1;
+// Rows of a time-major (T, R, B) operand, each a row of B floats: rows
+// [0, r0) of step t at p0 + (t * step0 + r) * B, rows [r0, R) at p1 + (t *
+// step1 + r - r0) * B. X = [x_f; x_r] is two such halves; U, du and dx's
+// halves are one each (r0 >= R).
+struct Rows {
+  float* p0;
+  float* p1;
   int r0, step0, step1;
-  __device__ __forceinline__ E* row(int t, int r, int B) const {
+  __device__ __forceinline__ float* row(int t, int r, int B) const {
     return r < r0 ? p0 + ((long long)t * step0 + r) * B
                   : p1 + ((long long)t * step1 + r - r0) * B;
   }
 };
-using Rows = RowsT<float>;
 
 // C_t = op(A) B_t for every step t = blockIdx.z, where op(A)[m][k] is
 // A[m * lda + k], or A[k * lda + m] with TransA, B_t is (K, N) and C_t
@@ -1063,12 +1067,10 @@ using Rows = RowsT<float>;
 // 64), ceil(M / 64), T), kGemmThreads threads: thread (tx, ty) = (tid %
 // 16, tid / 16) owns rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of
 // the tile. Each stage stages kStage rows of the reduction, the next
-// stage's loads in flight in registers while this one's FMAs run. A and
-// B_t may be bf16 (EA, EB: the bf16 backward's W and X), widened exactly
-// as they are loaded; the products and sums are float32.
-template <bool TransA, bool Accum, typename EA = float, typename EB = float>
+// stage's loads in flight in registers while this one's FMAs run.
+template <bool TransA, bool Accum>
 __global__ void __launch_bounds__(kGemmThreads)
-sru_hid_bwd_gemm_kernel(const EA* __restrict__ A, int lda, RowsT<EB> b,
+sru_hid_bwd_gemm_kernel(const float* __restrict__ A, int lda, Rows b,
                         Rows c, int M, int K, int N) {
   __shared__ __align__(16) float a_s[kStage][kTile + 4];  // a_s[k][m]
   __shared__ __align__(16) float b_s[kStage][kTile];      // b_s[k][n]
@@ -1091,9 +1093,9 @@ sru_hid_bwd_gemm_kernel(const EA* __restrict__ A, int lda, RowsT<EB> b,
       const int gm = m0 + m, gk = k0 + k;
       const long long ia = TransA ? (long long)gk * lda + gm
                                   : (long long)gm * lda + gk;
-      ra[r] = gm < M && gk < K ? load_value(A + ia) : 0.f;
+      ra[r] = gm < M && gk < K ? A[ia] : 0.f;
       const int kb = k0 + e / kTile, gn = n0 + e % kTile;
-      rb[r] = kb < K && gn < N ? load_value(b.row(t, kb, N) + gn) : 0.f;
+      rb[r] = kb < K && gn < N ? b.row(t, kb, N)[gn] : 0.f;
     }
   };
   const int n_stages = (K + kStage - 1) / kStage;
@@ -1143,10 +1145,9 @@ sru_hid_bwd_gemm_kernel(const EA* __restrict__ A, int lda, RowsT<EB> b,
 // of both operands transposed (column-major, rows of 68 floats); a thread
 // loads one column (tid % 32) of rows tid / 32 + 8 r, so it splits one
 // column index into (t, b) a stage, and a warp reads 32 consecutive
-// columns. b may be bf16 (EB: the bf16 backward's X), widened exactly.
-template <typename EB = float>
+// columns.
 __global__ void __launch_bounds__(kGemmThreads)
-sru_hid_bwd_wgrad_kernel(Rows a, RowsT<EB> b, float* __restrict__ part,
+sru_hid_bwd_wgrad_kernel(Rows a, Rows b, float* __restrict__ part,
                          int M, int N, int T, int B, int cols) {
   __shared__ __align__(16) float a_s[kWgCols][kTile + 4];  // a_s[col][m]
   __shared__ __align__(16) float b_s[kWgCols][kTile + 4];  // b_s[col][n]
@@ -1172,7 +1173,7 @@ sru_hid_bwd_wgrad_kernel(Rows a, RowsT<EB> b, float* __restrict__ part,
     for (int r = 0; r < kPer; ++r) {
       const int gm = m0 + r0 + kRowStep * r, gn = n0 + r0 + kRowStep * r;
       ra[r] = ok && gm < M ? a.row(t, gm, B)[bb] : 0.f;
-      rb[r] = ok && gn < N ? load_value(b.row(t, gn, B) + bb) : 0.f;
+      rb[r] = ok && gn < N ? b.row(t, gn, B)[bb] : 0.f;
     }
   };
   load(c0);
@@ -1223,29 +1224,644 @@ __global__ void sru_hid_bwd_sum_kernel(const float* __restrict__ part,
   store_value(out + e, s);
 }
 
-// The bf16 backward's dx, as the Pallas kernel forms it: each direction's
-// dx = W_d du_d plus its highway term (on its own input's rows) in
-// float32, rounded to bf16 per direction, then the two added in bf16.
-// dxd (2, T, 2H, B) holds W_f du_f and W_r du_r, hw (2, T, H, B) the
-// highway terms; one thread a (t, i, b) of dx_f and dx_r.
-__global__ void sru_hid_bwd_dx_bf16_kernel(const float* __restrict__ dxd,
-                                           const float* __restrict__ hw,
-                                           __nv_bfloat16* __restrict__ dx_f,
-                                           __nv_bfloat16* __restrict__ dx_r,
-                                           int T, int H, int B) {
+// K2 backward in bf16 storage, one fused kernel (sru_hid_bwd_bf16_kernel):
+// the bf16 forward's shape turned round. A block of kBwdThreads threads
+// owns one direction, a tile of bt batch columns and a slice of `units`
+// units (all of H at the presets), keeps that slice's rows of W_d (3 x
+// units rows of W^T, bf16) in shared memory and walks T in chunks of S
+// steps in the direction's reverse scan order (t descending for the
+// forward direction, ascending for the reverse one). Per chunk of N = S *
+// bt columns (column s * bt + c for scan step s and batch column c):
+//   1. cp.async has brought the chunk's X = [x_f; x_r] (2H x N), c (the
+//      slice's units, S + 1 steps: c_t and c_prev) and dh (S steps) into
+//      one of two slots; the next chunk's copies go into the other, issued
+//      by the threads the scan leaves idle while it runs (where it leaves
+//      half of them), else by all before U;
+//   2. U = W_d X (3 units x N, depth 2H) on bf16 mma.sync.m16n8k16 into
+//      float32 shared memory: the Pallas kernel's jax.lax.dot(wt_f, x_t,
+//      preferred_element_type=f32);
+//   3. the adjoint scan (csrc/sru_scan.cuh's arithmetic, with the bf16
+//      forward's sigmoid_fast), one thread a (unit, column), dc in a
+//      register across chunks and the four (v, b) sums in registers, the
+//      gates of four steps before the chain in dc over them; it writes du,
+//      each value split into three bf16 parts (hi + mid + lo: the float32
+//      du of the Pallas kernel to ~2^-27), and the highway term dh (1 - r);
+//   4. dx = W_d^T du (2H x N, depth 3 units), three bf16 products a
+//      fragment pair (one a part of du, each exact in float32) into three
+//      float32 accumulators, added lo + mid, then hi, plus the highway term
+//      on the direction's own rows, rounded to bf16 per direction as the
+//      Pallas kernel's dxa_ref[t] = dx.astype(...), and stored to that
+//      direction's bf16 buffer (with several unit slices: float32 partials
+//      over the units);
+//   5. dW_d += du X^T (3 units x 2H, depth N), the three parts again, the
+//      tensor core's accumulators added every chunk to float32 sums in
+//      shared memory (a sum left in them over T steps would drift toward
+//      zero).
+// Every fragment comes from shared memory by ldmatrix (.trans for the
+// [k][m] and [k][n] tiles). At the end the block writes its dW and (v, b)
+// partials (one a batch tile), which sru_hid_bwd_sum_kernel<bf16> adds in
+// a fixed order and rounds once; sru_hid_bwd_dx_add_kernel adds the two
+// directions' bf16 dx in bf16 (JAX's caller: dx = dxa + dxb), after
+// summing a split's float32 partials in order and rounding each direction
+// once. U, du and dx never touch device memory in float32 at one slice; a
+// call reads x, c and dh once (c twice at chunk edges), writes bf16 dx
+// twice and reads it once.
+// What bounds it at the preset (H 32): the bytes (~15 MB at the bs-4 freq
+// site) and the products (~5 GFLOP of bf16 tensor-core work: U once, dx
+// and dW three times), 4-5 us each. In practice a block's chunk is a
+// sequence of dependent phases (U, the scan's S steps, dx and dW) with
+// one block an SM: clock64 stamps on the H100 gave ~50% of a chunk to dx
+// and dW (the mma.sync chains and the dx stores), ~30% to the scan, ~10%
+// each to U and the copies' issue (PERF.md).
+//
+// Units are sliced where W_d's rows, X's two slots and the dW sums do not
+// fit one block (ops/sru_fused.k2_bwd_bf16_geometry: H above the
+// presets'); each slice reads all of X and writes the dx partial of its
+// units. Shared memory (bytes, each region a multiple of 16), R = 3 units
+// rounded up to 16, K = 2H rounded up to 16:
+//   w_s  R x (K + 8) bf16      W_d's rows of the slice, [o][i]
+//   x_s  2 x K x (N + 8) bf16  X, [i][col]
+//   c_s  2 x units x (N + bt) bf16, dh_s 2 x units x N bf16
+//   u_s  R x (N + 8) float32   U, [o][col]
+//   d_s  3 x R x (N + 8) bf16  du's three parts, [o][col]
+//   h_s  units x N float32     the highway term
+//   w_f  R x (K + 8) float32   the dW sums, [o][i]
+// Rows of N + 8 and K + 8 bf16 (4 mod 8 words): ldmatrix's eight 16-byte
+// rows and the 4-byte reads meet distinct banks; rows of N + 8 and K + 8
+// floats keep a warp's float2 stores to U and the dW sums within two
+// wavefronts.
+//
+// kStream (where W_d's rows of even 8 units, X's two slots and the dW sums
+// do not fit one block, H above 384): nothing of the block's shared
+// memory grows with H. X's chunk and W_d's columns stream through a ring
+// of kBwdStages stages, each kBwdK rows of X (of N + 8) and the same kBwdK
+// columns of the slice's rows of W_d (of kBwdK + 8), twice a chunk: the
+// first pass sums U over the stages in float32 shared memory (each warp
+// its own entries, the stages in order), then the scan; the second pass
+// takes dx's rows and dW's columns of each stage's slice, the dW sums
+// added every chunk to the block's own rows of its dW partial in device
+// memory (read back from L2). The highway rows (the slice's units) come
+// with c and dh, two slots of units x N; a chunk's c, dh and highway
+// copies go with its first stage.
+constexpr int kBwdThreads = 512;
+constexpr int kBwdK = 32;
+constexpr int kBwdStages = 3;
+
+__host__ __device__ __forceinline__ int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+struct HidBwdSmem {
+  int w, x, c, dh, hx, u, d, h, wf, ring, total;
+  __host__ __device__ HidBwdSmem(int H, int N, int U, int bt, bool stream) {
+    const int R = round_up(3 * U, 16), K = round_up(2 * H, 16);
+    w = 0;
+    x = w + (stream ? 0 : align16(2 * R * (K + 8)));
+    c = x + (stream ? 0 : align16(2 * 2 * K * (N + 8)));
+    dh = c + align16(2 * 2 * U * (N + bt));
+    hx = dh + align16(2 * 2 * U * N);
+    u = hx + (stream ? align16(2 * 2 * U * N) : 0);
+    d = u + align16(4 * R * (N + 8));
+    h = d + align16(2 * 3 * R * (N + 8));
+    wf = h + align16(4 * U * N);
+    ring = wf + (stream ? 0 : align16(4 * R * (K + 8)));
+    total = ring + (stream ? align16(2 * kBwdStages *
+                                     (kBwdK * (N + 8) + R * (kBwdK + 8)))
+                           : 0);
+  }
+};
+
+// v = hi + mid + lo, each a bf16 bit pattern: hi = bf16(v), mid =
+// bf16(v - hi), lo = bf16(v - hi - mid); both differences are exact in
+// float32, so the three keep v to ~2^-27 |v|
+__device__ __forceinline__ void split3(float v, unsigned short& hi,
+                                       unsigned short& mid,
+                                       unsigned short& lo) {
+  const __nv_bfloat16 a = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(a);
+  const __nv_bfloat16 b = __float2bfloat16_rn(r1);
+  const float r2 = r1 - __bfloat162float(b);
+  hi = __bfloat16_as_ushort(a);
+  mid = __bfloat16_as_ushort(b);
+  lo = __bfloat16_as_ushort(__float2bfloat16_rn(r2));
+}
+
+// grid (ceil(B / bt), 2, ceil(H / units)), kBwdThreads threads; bt 1, 2, 4
+// or 8, units * bt <= kBwdThreads, N = S * bt a multiple of 16. Block
+// (tile, dir, z) owns units j0 .. j0 + hs - 1 (j0 = z units). dxd: with
+// one slice bf16 (2, T, 2H, B), each direction's dx rounded; else float32
+// (slices, 2, T, 2H, B), each slice's partial. dw_part (tiles, 6H, 2H) and
+// dvb_part (tiles, 8, H) float32, one partial a batch tile.
+template <bool kStream>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sru_hid_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
+                        const __nv_bfloat16* __restrict__ x_r,
+                        const __nv_bfloat16* __restrict__ wt,
+                        const __nv_bfloat16* __restrict__ vb,
+                        const __nv_bfloat16* __restrict__ c_f,
+                        const __nv_bfloat16* __restrict__ c_r,
+                        const __nv_bfloat16* __restrict__ dh_f,
+                        const __nv_bfloat16* __restrict__ dh_r,
+                        void* __restrict__ dxd, float* __restrict__ dw_part,
+                        float* __restrict__ dvb_part, int T, int H, int B,
+                        int bt, int S, int units) {
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  const int dir = blockIdx.y, tile = blockIdx.x, b0 = tile * bt;
+  const int j0 = blockIdx.z * units, hs = min(units, H - j0);
+  const bool split = gridDim.z > 1;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = hk::lane_g(), q = hk::lane_q();
+  const int N = S * bt, h2 = 2 * H, lbt = __ffs(bt) - 1;  // bt = 2^lbt
+  const int R = round_up(3 * units, 16), K = round_up(h2, 16);
+  const int ws = K + 8, xs = N + 8, cs = N + bt, us = N + 8, ds = N + 8;
+  const int wk = kBwdK + 8;  // a row of W_d's columns in a stage
+  const HidBwdSmem lay(H, N, units, bt, kStream);
+  unsigned short* w_s = reinterpret_cast<unsigned short*>(sm + lay.w);
+  unsigned short* x_s = reinterpret_cast<unsigned short*>(sm + lay.x);
+  unsigned short* c_s = reinterpret_cast<unsigned short*>(sm + lay.c);
+  unsigned short* dh_s = reinterpret_cast<unsigned short*>(sm + lay.dh);
+  unsigned short* hx_s = reinterpret_cast<unsigned short*>(sm + lay.hx);
+  float* u_s = reinterpret_cast<float*>(sm + lay.u);
+  unsigned short* d_s = reinterpret_cast<unsigned short*>(sm + lay.d);
+  float* h_s = reinterpret_cast<float*>(sm + lay.h);
+  float* w_f = reinterpret_cast<float*>(sm + lay.wf);
+  unsigned short* ring = reinterpret_cast<unsigned short*>(sm + lay.ring);
+  const int slot_elems = kBwdK * xs + R * wk;  // a stage: X, then W_d
+  const unsigned short* xf16 = reinterpret_cast<const unsigned short*>(x_f);
+  const unsigned short* xr16 = reinterpret_cast<const unsigned short*>(x_r);
+  const unsigned short* wt16 = reinterpret_cast<const unsigned short*>(wt);
+  const unsigned short* cd = reinterpret_cast<const unsigned short*>(
+      dir == 0 ? c_f : c_r);
+  const unsigned short* gd = reinterpret_cast<const unsigned short*>(
+      dir == 0 ? dh_f : dh_r);
+  const unsigned short* xd = dir == 0 ? xf16 : xr16;  // the highway input
+  const int n_chunks = (T + S - 1) / S;
+  const int vw = bt % 8 == 0 && B % 8 == 0   ? 8
+                 : bt % 4 == 0 && B % 4 == 0 ? 4
+                 : bt % 2 == 0 && B % 2 == 0 ? 2
+                                             : 1;
+  float* dwp = dw_part + (long long)tile * 6 * H * h2;
+  // the time step of scan step ii
+  auto t_of = [&](int ii) { return dir == 0 ? T - 1 - ii : ii; };
+  // dwt's row of row o = gate * units + jl of the slice, or -1 past it
+  auto dw_row = [&](int o) {
+    const int gate = o / units, jl = o % units;
+    return gate < 3 && jl < hs ? (dir * 3 + gate) * H + j0 + jl : -1;
+  };
+
+  // W_d's columns k0 .. k0 + nk - 1 of the slice's rows into dst (rows of
+  // `stride`): row o = gate * units + jl is wt's row (dir * 3 + gate) H +
+  // j0 + jl; zero past the slice, past 3 units and past 2H; two values a
+  // copy (2H is even: a pair never straddles a row's end)
+  auto load_w = [&](unsigned short* dst, int stride, int k0, int nk) {
+    for (int e = 2 * tid; e < R * nk; e += 2 * kBwdThreads) {
+      const int o = e / nk, i = e % nk, row = dw_row(o);
+      const bool ok = row >= 0 && k0 + i < h2;
+      hk::cp_async4(dst + o * stride + i,
+                    ok ? wt16 + (long long)row * h2 + k0 + i : wt16, ok);
+    }
+  };
+  // rows r < nr of chunk n's columns of the steps n S .. n S + ns - 1 into
+  // dst (rows of `stride`), vw values a copy: X's rows r0 + r (x_f's, then
+  // x_r's) or a (T, H, B) operand's rows j0 + r; zero past T, B, 2H or the
+  // slice
+  // The copies go to threads lt = tid - t0 of nt (all of them, or the ones
+  // the scan leaves idle).
+  int t0 = 0, nt = kBwdThreads;
+  auto load = [&](unsigned short* dst, int stride, int n, int ns, int nr,
+                  bool is_x, int r0, const unsigned short* src) {
+    // the thread's copies e = vw (lt + m nt), (r, col) = divmod(e, w),
+    // walked by adding the step's quotient and remainder
+    const int w = ns * bt, step = vw * nt, lt = tid - t0;
+    const int dr = step / w, dcol = step % w;
+    int r = vw * lt / w, col = vw * lt % w;
+    while (r < nr) {
+      const int s = col >> lbt, c = col & (bt - 1);
+      const int ii = n * S + s, k = r0 + r;
+      const bool ok = ii < T && b0 + c < B && (is_x ? k < h2 : r < hs);
+      const unsigned short* p = src;
+      if (ok) {
+        const long long t = t_of(ii);
+        p = is_x ? (k < H ? xf16 + (t * H + k) * B : xr16 + (t * H + k - H) * B)
+                 : src + (t * H + j0 + r) * B;
+        p += b0 + c;
+      }
+      hk::copy_bf16(dst + r * stride + col, p, vw, ok);
+      r += dr;
+      col += dcol;
+      if (col >= w) {
+        col -= w;
+        ++r;
+      }
+    }
+  };
+  // chunk n's c (S + 1 steps), dh and, streamed, the highway rows into
+  // their slot n % 2
+  auto load_aux = [&](int n) {
+    const int slot = n & 1;
+    load(c_s + slot * units * cs, cs, n, S + 1, units, false, 0, cd);
+    load(dh_s + slot * units * N, N, n, S, units, false, 0, gd);
+    if constexpr (kStream)
+      load(hx_s + slot * units * N, N, n, S, units, false, 0, xd);
+  };
+
+  // du's parts start at zero (rows past the slice's units stay so), and
+  // the dW sums (held)
+  for (int e = tid; e < 3 * R * ds; e += kBwdThreads) d_s[e] = 0;
+  if constexpr (!kStream)
+    for (int e = tid; e < R * ws; e += kBwdThreads) w_f[e] = 0.f;
+
+  // the scan thread: unit j0 + jl, column b0 + cc
+  const int jl = tid >> lbt, cc = tid & (bt - 1);
+  const bool scan_thread = tid < units * bt;
+  const bool live = jl < hs && b0 + cc < B && scan_thread;
+  float v_f = 0.f, v_r = 0.f, b_f = 0.f, b_r = 0.f;
+  if (live) {
+    v_f = __bfloat162float(vb[(dir * 4 + 0) * H + j0 + jl]);
+    v_r = __bfloat162float(vb[(dir * 4 + 1) * H + j0 + jl]);
+    b_f = __bfloat162float(vb[(dir * 4 + 2) * H + j0 + jl]);
+    b_r = __bfloat162float(vb[(dir * 4 + 3) * H + j0 + jl]);
+  }
+  float dc = 0.f, acc4[4] = {0.f, 0.f, 0.f, 0.f};
+  auto bf = [](unsigned short v) {
+    return __bfloat162float(__ushort_as_bfloat16(v));
+  };
+  const int own0 = dir * H + j0;  // dx's rows that take the highway term
+
+  // the fragments of a 16 x 16 tile at p (rows of `stride`) by ldmatrix
+  // .x4, lane l giving matrix l / 8's row l % 8: an A fragment from an
+  // [m][k] tile (matrices at m 0, 8, 0, 8 x k 0, 0, 8, 8) or a [k][m] one
+  // (.trans: k 0, 0, 8, 8 x m 0, 8, 0, 8); a B pair (two n8 tiles) from an
+  // [n][k] tile (n 0, 0, 8, 8 x k 0, 8, 0, 8) or a [k][n] one (.trans: k
+  // 0, 8, 0, 8 x n 0, 0, 8, 8)
+  const int lm = (tid & 31) >> 3, lr = tid & 7;
+  const int lo_a = lr + 8 * (lm & 1), hi_a = 8 * (lm >> 1);
+  auto ldsm_mk = [&](uint32_t (&r)[4], const unsigned short* p, int stride) {
+    hk::ldsm_x4(r, p + lo_a * stride + hi_a);
+  };
+  auto ldsm_nk = [&](uint32_t (&r)[4], const unsigned short* p, int stride) {
+    hk::ldsm_x4(r, p + (lr + hi_a) * stride + 8 * (lm & 1));
+  };
+  auto ldsm_kn = [&](uint32_t (&r)[4], const unsigned short* p, int stride) {
+    hk::ldsm_x4_trans(r, p + lo_a * stride + hi_a);
+  };
+  auto ldsm_km = [&](uint32_t (&r)[4], const unsigned short* p, int stride) {
+    hk::ldsm_x4_trans(r, p + (lr + hi_a) * stride + 8 * (lm & 1));
+  };
+
+  // U[o][col] (+)= W_d[o][k] X[k][col] over nk k16-aligned rows of X: A =
+  // W_d [o][k], B = X [k][col]; jobs of 16 rows x 16 columns
+  auto project = [&](const unsigned short* wb, int wstride,
+                     const unsigned short* xb, int nk, bool first) {
+    for (int jb = warp; jb < (R / 16) * (N / 16); jb += kBwdThreads / 32) {
+      const int o0 = jb / (N / 16) * 16, n0 = jb % (N / 16) * 16;
+      float acc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* pu = u_s + (o0 + g) * us + n0 + 8 * nt + 2 * q;
+        acc[nt][0] = first ? 0.f : pu[0];
+        acc[nt][1] = first ? 0.f : pu[1];
+        acc[nt][2] = first ? 0.f : pu[8 * us];
+        acc[nt][3] = first ? 0.f : pu[8 * us + 1];
+      }
+      for (int k0 = 0; k0 < nk; k0 += 16) {
+        uint32_t a[4], b[4];
+        ldsm_mk(a, wb + o0 * wstride + k0, wstride);
+        ldsm_kn(b, xb + k0 * xs + n0, xs);
+        hk::mma_bf16(acc[0], a, {b[0], b[1]});
+        hk::mma_bf16(acc[1], a, {b[2], b[3]});
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* pu = u_s + (o0 + g) * us + n0 + 8 * nt + 2 * q;
+        pu[0] = acc[nt][0];
+        pu[1] = acc[nt][1];
+        pu[8 * us] = acc[nt][2];
+        pu[8 * us + 1] = acc[nt][3];
+      }
+    }
+  };
+
+  // 3. the adjoint scan of chunk n over its steps, in scan order; hwp the
+  // highway rows (jl's at hwp + jl * hw_stride). kScanG steps at a time:
+  // their gates first (they read only loaded values), then the chain in dc
+  // over them, so that the gates' latencies overlap
+  constexpr int kScanG = 4;
+  auto scan = [&](int n, const unsigned short* hwp, int hw_stride) {
+    if (!scan_thread) return;
+    const unsigned short* ccur = c_s + (n & 1) * units * cs;
+    const unsigned short* gcur = dh_s + (n & 1) * units * N;
+    for (int s0 = 0; s0 < S; s0 += kScanG) {
+      float u0[kScanG], ct[kScanG], cp[kScanG], gg[kScanG], f[kScanG],
+          r[kScanG], dm[kScanG];
+      bool on[kScanG];
+#pragma unroll
+      for (int k = 0; k < kScanG; ++k) {
+        const int s = s0 + k, col = s * bt + cc;
+        on[k] = live && s < S && n * S + s < T;
+        if (!on[k]) continue;
+        u0[k] = u_s[jl * us + col];
+        const float u1 = u_s[(units + jl) * us + col];
+        const float u2 = u_s[(2 * units + jl) * us + col];
+        ct[k] = bf(ccur[jl * cs + col]);
+        cp[k] = bf(ccur[jl * cs + col + bt]);
+        gg[k] = bf(gcur[jl * N + col]);
+        const float xhw = bf(hwp[jl * hw_stride + col]);
+        f[k] = sigmoid_fast(u1 + v_f * cp[k] + b_f);
+        r[k] = sigmoid_fast(u2 + v_r * ct[k] + b_r);
+        dm[k] = gg[k] * (ct[k] - xhw) * r[k] * (1.f - r[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kScanG; ++k) {
+        const int s = s0 + k, col = s * bt + cc;
+        if (s >= S) break;
+        float du[3] = {0.f, 0.f, 0.f}, hw = 0.f;
+        if (on[k]) {
+          dc = gg[k] * r[k] + dm[k] * v_r + dc;
+          const float da = dc * (cp[k] - u0[k]) * f[k] * (1.f - f[k]);
+          du[0] = dc * (1.f - f[k]);
+          du[1] = da;
+          du[2] = dm[k];
+          hw = gg[k] * (1.f - r[k]);
+          acc4[0] += da * cp[k];
+          acc4[1] += dm[k] * ct[k];
+          acc4[2] += da;
+          acc4[3] += dm[k];
+          dc = dc * f[k] + da * v_f;
+        }
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          unsigned short p0, p1, p2;
+          split3(du[gate], p0, p1, p2);
+          const int at = (gate * units + jl) * ds + col;
+          d_s[at] = p0;
+          d_s[R * ds + at] = p1;
+          d_s[2 * R * ds + at] = p2;
+        }
+        h_s[jl * N + col] = hw;
+      }
+    }
+  };
+
+  // 4. dx's rows i0 .. i0 + 15 (wb: W_d's column i0 at wb + o * wstride),
+  // columns n0 .. n0 + 15 of chunk n: A = W_d^T, (i, o) = wb[o][i] ([k][m]),
+  // B = du's part [o][col] ([k][n]), one accumulator a part (three chains
+  // of mma.sync, not one), added lo + mid, then hi; then the highway term,
+  // and the store
+  auto dx_job = [&](int n, int i0, int n0, const unsigned short* wb,
+                    int wstride) {
+    float acc[3][2][4] = {};
+    for (int k0 = 0; k0 < R; k0 += 16) {
+      uint32_t a[4];
+      ldsm_km(a, wb + k0 * wstride, wstride);
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        uint32_t b[4];
+        ldsm_kn(b, d_s + part * R * ds + k0 * ds + n0, ds);
+        hk::mma_bf16(acc[part][0], a, {b[0], b[1]});
+        hk::mma_bf16(acc[part][1], a, {b[2], b[3]});
+      }
+    }
+    // c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1): a pair of
+    // columns 2q, 2q + 1 is one step's batch columns c, c + 1 where bt >= 2,
+    // stored as one 4-byte word where B is even (then c is, and the pair
+    // is aligned)
+    const bool pair = bt >= 2 && B % 2 == 0 && !split;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col0 = n0 + 8 * nt + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + g + 8 * h;
+        if (i >= h2) continue;
+        float val[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + e;
+          val[e] = acc[0][nt][2 * h + e] +
+                   (acc[1][nt][2 * h + e] + acc[2][nt][2 * h + e]);
+          if (i >= own0 && i < own0 + hs)
+            val[e] += h_s[(i - own0) * N + col];
+        }
+        const int s = col0 >> lbt, c = col0 & (bt - 1), ii = n * S + s;
+        if (ii >= T || b0 + c >= B) continue;
+        const long long at =
+            (((long long)dir * T + t_of(ii)) * h2 + i) * B + b0 + c;
+        if (pair && b0 + c + 1 < B) {
+          __nv_bfloat162 v2 = __floats2bfloat162_rn(val[0], val[1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              reinterpret_cast<__nv_bfloat16*>(dxd) + at) = v2;
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + e;
+          const int s1 = col >> lbt, c1 = col & (bt - 1), i1 = n * S + s1;
+          if (i1 >= T || b0 + c1 >= B) continue;
+          const long long at1 =
+              (((long long)dir * T + t_of(i1)) * h2 + i) * B + b0 + c1;
+          if (split)
+            reinterpret_cast<float*>(dxd)[(long long)blockIdx.z * 2 * T * h2 *
+                                              B + at1] = val[e];
+          else
+            reinterpret_cast<__nv_bfloat16*>(dxd)[at1] =
+                __float2bfloat16_rn(val[e]);
+        }
+      }
+    }
+  };
+  // 5. this chunk's dW over rows o0 .. o0 + 15 and columns i0 .. i0 + 15
+  // (xb: X's row i0 at xb): A = du's part [o][col] ([m][k]), B = X
+  // [i][col] ([n][k]), one accumulator a part; returns the sums in out,
+  // lo + mid, then hi
+  auto dw_job = [&](float (&out)[2][4], int o0, const unsigned short* xb) {
+    float acc[3][2][4] = {};
+    for (int k0 = 0; k0 < N; k0 += 16) {
+      uint32_t b[4];
+      ldsm_nk(b, xb + k0, xs);
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        uint32_t a[4];
+        ldsm_mk(a, d_s + part * R * ds + o0 * ds + k0, ds);
+        hk::mma_bf16(acc[part][0], a, {b[0], b[1]});
+        hk::mma_bf16(acc[part][1], a, {b[2], b[3]});
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        out[nt][v] = acc[0][nt][v] + (acc[1][nt][v] + acc[2][nt][v]);
+  };
+
+  if constexpr (!kStream) {
+    load_w(w_s, ws, 0, K);
+    const int dx_jobs = (K / 16) * (N / 16);
+    const int dw_jobs = (R / 16) * (K / 16);
+    load(x_s, xs, 0, S, K, true, 0, xf16);
+    load_aux(0);
+    hk::cp_async_commit();
+    // where the scan leaves at least half the threads idle, they issue the
+    // next chunk's copies while it runs; else every thread, before U
+    const bool spare = units * bt <= kBwdThreads / 2;
+    if (spare) {
+      t0 = units * bt;
+      nt = kBwdThreads - t0;
+    }
+    auto load_next = [&](int n) {
+      if (n + 1 < n_chunks) {
+        load(x_s + ((n + 1) & 1) * K * xs, xs, n + 1, S, K, true, 0, xf16);
+        load_aux(n + 1);
+      }
+      hk::cp_async_commit();
+    };
+    for (int n = 0; n < n_chunks; ++n) {
+      hk::cp_async_wait_all();
+      __syncthreads();  // chunk n is in; the last chunk's reads are done
+      if (!spare) load_next(n);
+      const unsigned short* xc = x_s + (n & 1) * K * xs;
+      project(w_s, ws, xc, K, true);  // 2. U = W_d X
+      __syncthreads();                // U is whole
+      if (spare && !scan_thread) load_next(n);
+      scan(n, xc + own0 * xs, xs);
+      __syncthreads();  // du and the highway term are whole
+      for (int jb = warp; jb < dx_jobs + dw_jobs; jb += kBwdThreads / 32) {
+        if (jb < dx_jobs) {
+          const int i0 = jb / (N / 16) * 16, n0 = jb % (N / 16) * 16;
+          dx_job(n, i0, n0, w_s + i0, ws);
+        } else {
+          const int jw = jb - dx_jobs;
+          const int o0 = jw / (K / 16) * 16, i0 = jw % (K / 16) * 16;
+          float acc[2][4];
+          dw_job(acc, o0, xc + i0 * xs);
+          // the chunk's sums into the float32 sums (this warp's entries)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float* pw = w_f + (o0 + g) * ws + i0 + 8 * nt + 2 * q;
+            pw[0] += acc[nt][0];
+            pw[1] += acc[nt][1];
+            pw[8 * ws] += acc[nt][2];
+            pw[8 * ws + 1] += acc[nt][3];
+          }
+        }
+      }
+    }
+    hk::cp_async_wait_all();
+    __syncthreads();  // the dW sums are whole; U is free
+    // the dW partial of the slice's rows
+    for (int e = tid; e < R * h2; e += kBwdThreads) {
+      const int o = e / h2, i = e % h2, row = dw_row(o);
+      if (row >= 0) dwp[(long long)row * h2 + i] = w_f[o * ws + i];
+    }
+  } else {
+    static_assert(kBwdK % 16 == 0, "a stage is whole k16 steps");
+    // stage st of chunk st / (2 ksl): pass (st / ksl) % 2 (U, then dx and
+    // dW) over X's rows and W_d's columns k0 = (st % ksl) kBwdK ..
+    const int ksl = (K + kBwdK - 1) / kBwdK, per_chunk = 2 * ksl;
+    const int total = n_chunks * per_chunk;
+    const int dx_jobs = (kBwdK / 16) * (N / 16);
+    const int dw_jobs = (R / 16) * (kBwdK / 16);
+    auto load_stage = [&](int st) {
+      if (st < total) {
+        const int n = st / per_chunk, r = st % per_chunk;
+        const int k0 = r % ksl * kBwdK;
+        unsigned short* xs_ = ring + st % kBwdStages * slot_elems;
+        load(xs_, xs, n, S, kBwdK, true, k0, xf16);
+        load_w(xs_ + kBwdK * xs, wk, k0, kBwdK);
+        if (r == 0) load_aux(n);
+      }
+      hk::cp_async_commit();
+    };
+    for (int st = 0; st < kBwdStages - 1; ++st) load_stage(st);
+    for (int st = 0; st < total; ++st) {
+      hk::cp_async_wait<kBwdStages - 2>();
+      __syncthreads();  // stage st is in; every warp is done with the slot
+                        // that stage st + kBwdStages - 1 takes
+      load_stage(st + kBwdStages - 1);
+      const int n = st / per_chunk, r = st % per_chunk;
+      const int sl = r % ksl, k0 = sl * kBwdK;
+      const unsigned short* xst = ring + st % kBwdStages * slot_elems;
+      const unsigned short* wst = xst + kBwdK * xs;
+      if (r < ksl) {  // 2. U += W_d's columns X's rows of the stage
+        project(wst, wk, xst, kBwdK, sl == 0);
+        if (sl == ksl - 1) {
+          __syncthreads();  // U is whole
+          scan(n, hx_s + (n & 1) * units * N, N);
+          __syncthreads();  // du and the highway term are whole
+        }
+        continue;
+      }
+      for (int jb = warp; jb < dx_jobs + dw_jobs; jb += kBwdThreads / 32) {
+        if (jb < dx_jobs) {  // dx's rows k0 .. k0 + kBwdK - 1
+          const int ii = jb / (N / 16) * 16, n0 = jb % (N / 16) * 16;
+          dx_job(n, k0 + ii, n0, wst + ii, wk);
+        } else {  // dW's columns k0 .. k0 + kBwdK - 1, into the partial
+          const int jw = jb - dx_jobs;
+          const int o0 = jw / (kBwdK / 16) * 16, ii = jw % (kBwdK / 16) * 16;
+          float acc[2][4];
+          dw_job(acc, o0, xst + ii * xs);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              const int row = dw_row(o0 + g + 8 * (v >> 1));
+              const int i = k0 + ii + 8 * nt + 2 * q + (v & 1);
+              if (row < 0 || i >= h2) continue;
+              float* p = dwp + (long long)row * h2 + i;
+              *p = n == 0 ? acc[nt][v] : *p + acc[nt][v];
+            }
+        }
+      }
+    }
+    hk::cp_async_wait_all();
+    __syncthreads();  // U is free
+  }
+
+  // the (v, b) sums of each unit over the tile's columns, in column order
+  float* red = u_s;  // (units, bt, 4)
+  if (scan_thread)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) red[(jl * bt + cc) * 4 + k] = acc4[k];
+  __syncthreads();
+  for (int e = tid; e < 4 * hs; e += kBwdThreads) {
+    const int j = e / 4, k = e % 4;
+    float s = 0.f;
+    for (int c = 0; c < bt; ++c) s += red[(j * bt + c) * 4 + k];
+    dvb_part[((long long)tile * 8 + dir * 4 + k) * H + j0 + j] = s;
+  }
+}
+
+// dx_f[t][j][b] and dx_r[t][j][b] (row H + j of each direction's dx): each
+// direction's dx, the sum of its n_parts partials in order (one at one
+// slice: bf16, rounded already), rounded to bf16, then the two added and
+// rounded (JAX's dx = dxa + dxb in bf16). One thread a (t, j, b).
+template <typename E>
+__global__ void sru_hid_bwd_dx_add_kernel(const E* __restrict__ dxd,
+                                          int n_parts,
+                                          __nv_bfloat16* __restrict__ dx_f,
+                                          __nv_bfloat16* __restrict__ dx_r,
+                                          int T, int H, int B) {
   const long long hb = (long long)H * B, n = T * hb;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const long long t = e / hb, ib = e - t * hb;  // ib = i * B + b
-  const float* a = dxd + t * 2 * hb;            // W_f du_f at step t
-  const float* c = dxd + n * 2 + t * 2 * hb;    // W_r du_r
-  const float f0 = __bfloat162float(__float2bfloat16_rn(a[ib] + hw[e]));
-  const float f1 = __bfloat162float(__float2bfloat16_rn(c[ib]));
-  const float r0 = __bfloat162float(__float2bfloat16_rn(a[hb + ib]));
-  const float r1 =
-      __bfloat162float(__float2bfloat16_rn(c[hb + ib] + hw[n + e]));
-  dx_f[e] = __float2bfloat16_rn(f0 + f1);
-  dx_r[e] = __float2bfloat16_rn(r0 + r1);
+  const long long t = e / hb, jb = e - t * hb;  // jb = j * B + b
+  float out[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // dx_f's rows j, dx_r's H + j
+    float sum = 0.f;
+#pragma unroll
+    for (int dir = 0; dir < 2; ++dir) {
+      float v = 0.f;
+      for (int p = 0; p < n_parts; ++p)
+        v += load_value(dxd + (((long long)p * 2 + dir) * T + t) * 2 * hb +
+                        half * hb + jb);
+      sum += __bfloat162float(__float2bfloat16_rn(v));
+    }
+    out[half] = sum;
+  }
+  dx_f[e] = __float2bfloat16_rn(out[0]);
+  dx_r[e] = __float2bfloat16_rn(out[1]);
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -1404,7 +2020,7 @@ extern "C" int sru_hidden_layer_bwd(
   const Rows u{(float*)ud, nullptr, h6, h6, 0};
   const Rows dx{(float*)dx_f, (float*)dx_r, H, H, H};
   // 1. U = W^T X for every step
-  sru_hid_bwd_gemm_kernel<false, false, float, float>
+  sru_hid_bwd_gemm_kernel<false, false>
       <<<dim3(ceil_div(B, kTile), ceil_div(h6, kTile), T), kGemmThreads, 0,
          st>>>((const float*)wt, h2, x, u, h6, h2, B);
   // 2. the adjoint scan: du over U, the highway term into dx
@@ -1421,12 +2037,12 @@ extern "C" int sru_hidden_layer_bwd(
                                            scan_units, 8LL * H, st);
   if (e != cudaSuccess) return (int)e;
   // 3. dx += W du (both directions in one sum over 6H)
-  sru_hid_bwd_gemm_kernel<true, true, float, float>
+  sru_hid_bwd_gemm_kernel<true, true>
       <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
          st>>>((const float*)wt, h2, u, dx, h2, h6, B);
   // 4. dW partials by split-K over the T * B columns
   const int n_chunks = ceil_div((long long)T * B, cols);
-  sru_hid_bwd_wgrad_kernel<float>
+  sru_hid_bwd_wgrad_kernel
       <<<dim3(ceil_div(h2, kTile), ceil_div(h6, kTile), n_chunks),
          kGemmThreads, 0, st>>>(u, x, (float*)dw_part, h6, h2, T, B, cols);
   // 5. the partials, in order
@@ -1464,69 +2080,53 @@ extern "C" int sru_dual_recurrence_bwd_bf16(
 }
 
 // K2 backward in bf16 storage: x, wt, vb, c, dh in and dx, dwt, dvb out
-// bf16, everything between float32, as the Pallas kernel: U = W^T X from
-// the widened bf16 values (exact products, float32 sums), the scan's bf16
-// form (sru_scan_bwd_kernel<12>) reading U and writing du over it in
-// float32 and each direction's highway term into hw, each direction's dx
-// = W_d du_d in float32 into dxd, dW from float32 du and widened x; dx
-// rounded per direction and the two added in bf16
-// (sru_hid_bwd_dx_bf16_kernel), dW and dvb summed in float32 and rounded
-// once. Scratch from the wrapper, all float32: ud (T, 6H, B), dxd (2, T,
-// 2H, B), hw (2, T, H, B), dw_part and dvb_part as in
-// sru_hidden_layer_bwd. No alignment is asked of any pointer.
+// bf16, as the Pallas kernel: sru_hid_bwd_bf16_kernel (bt batch columns, S
+// steps a chunk and `units` units a block, ops/sru_fused.
+// k2_bwd_bf16_geometry; <true> where `streamed`, which the geometry sets
+// where the held layout does not fit a block: the entry only checks that
+// the layout it names fits), then sru_hid_bwd_dx_add_kernel (each direction's
+// dx rounded, the two added in bf16) and sru_hid_bwd_sum_kernel<bf16> for
+// dW and d(v, b) (the batch tiles' partials in order, rounded once).
+// Scratch from the wrapper: dxd, bf16 (2, T, 2H, B) where one slice takes
+// all of H, else float32 (slices, 2, T, 2H, B); dw_part (tiles, 6H, 2H)
+// and dvb_part (tiles, 8, H) float32, tiles = ceil(B / bt). x, wt, c and
+// dh 16-byte aligned.
 extern "C" int sru_hidden_layer_bwd_bf16(
     const void* x_f, const void* x_r, const void* wt, const void* vb,
     const void* c_f, const void* c_r, const void* dh_f, const void* dh_r,
-    void* dx_f, void* dx_r, void* dwt, void* dvb, void* ud, void* dxd,
-    void* hw, void* dw_part, void* dvb_part, int T, int H, int B, int cols,
-    int scan_cols, int scan_units, void* stream) {
-  if (cols < 1 || !scan_layout_ok(T, H, B, scan_cols, scan_units))
-    return (int)cudaErrorInvalidValue;
+    void* dx_f, void* dx_r, void* dwt, void* dvb, void* dxd, void* dw_part,
+    void* dvb_part, int T, int H, int B, int bt, int S, int units,
+    int streamed, void* stream) {
   using bf = __nv_bfloat16;
+  if (T < 1 || H < 1 || B < 1 || bt < 1 || bt > 8 || (bt & (bt - 1)) ||
+      S < 1 || units < 1 || (S * bt) % 16 != 0 || units * bt > kBwdThreads ||
+      ((reinterpret_cast<size_t>(x_f) | reinterpret_cast<size_t>(x_r) |
+        reinterpret_cast<size_t>(wt) | reinterpret_cast<size_t>(c_f) |
+        reinterpret_cast<size_t>(c_r) | reinterpret_cast<size_t>(dh_f) |
+        reinterpret_cast<size_t>(dh_r)) & 15))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int h2 = 2 * H, h3 = 3 * H, h6 = 6 * H;
-  const long long hb = (long long)H * B, n = T * hb;
-  const RowsT<bf> x{(bf*)x_f, (bf*)x_r, H, H, H};
-  const Rows u{(float*)ud, nullptr, h6, h6, 0};
-  const Rows u_r{(float*)ud + 3 * hb, nullptr, h6, h6, 0};
-  const Rows dx_a{(float*)dxd, nullptr, h2, h2, 0};
-  const Rows dx_b{(float*)dxd + 2 * n, nullptr, h2, h2, 0};
-  // 1. U = W^T X for every step
-  sru_hid_bwd_gemm_kernel<false, false, bf, bf>
-      <<<dim3(ceil_div(B, kTile), ceil_div(h6, kTile), T), kGemmThreads, 0,
-         st>>>((const bf*)wt, h2, x, u, h6, h2, B);
-  // 2. the adjoint scan: du over U, the highway terms into hw
-  const long long step = 6LL * hb;
-  const ScanIOT<float, bf> io_f{
-      (const float*)ud, (const bf*)x_f, (float*)ud, (float*)hw, step, hb,
-      step, hb, (const bf*)c_f, (const bf*)dh_f, (const bf*)vb,
-      (float*)dvb_part, 0, 0, n - 1, n - 1};
-  const ScanIOT<float, bf> io_r{
-      (const float*)ud + 3 * hb, (const bf*)x_r, (float*)ud + 3 * hb,
-      (float*)hw + n, step, hb, step, hb, (const bf*)c_r, (const bf*)dh_r,
-      (const bf*)vb + 4 * H, (float*)dvb_part + 4 * H, 1, 0, n - 1, n - 1};
-  const cudaError_t e = launch_scan_bwd<12>(io_f, io_r, 2, T, H, B,
-                                            scan_cols, scan_units, 8LL * H,
-                                            st);
+  const HidBwdSmem lay(H, S * bt, units, bt, streamed != 0);
+  if (lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const auto kernel = streamed ? sru_hid_bwd_bf16_kernel<true>
+                               : sru_hid_bwd_bf16_kernel<false>;
+  cudaError_t e = set_smem((const void*)kernel, lay.total);
   if (e != cudaSuccess) return (int)e;
-  // 3. each direction's dx = W_d du_d (W_d^T the direction's 3H rows of wt)
-  sru_hid_bwd_gemm_kernel<true, false, bf, float>
-      <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
-         st>>>((const bf*)wt, h2, u, dx_a, h2, h3, B);
-  sru_hid_bwd_gemm_kernel<true, false, bf, float>
-      <<<dim3(ceil_div(B, kTile), ceil_div(h2, kTile), T), kGemmThreads, 0,
-         st>>>((const bf*)wt + (long long)h3 * h2, h2, u_r, dx_b, h2, h3, B);
-  sru_hid_bwd_dx_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
-      (const float*)dxd, (const float*)hw, (bf*)dx_f, (bf*)dx_r, T, H, B);
-  // 4. dW partials by split-K over the T * B columns
-  const int n_chunks = ceil_div((long long)T * B, cols);
-  sru_hid_bwd_wgrad_kernel<bf>
-      <<<dim3(ceil_div(h2, kTile), ceil_div(h6, kTile), n_chunks),
-         kGemmThreads, 0, st>>>(u, x, (float*)dw_part, h6, h2, T, B, cols);
-  // 5. the partials, in order, rounded once
-  sru_hid_bwd_sum_kernel<bf><<<ceil_div(h6 * h2, 256), 256, 0, st>>>(
-      (const float*)dw_part, (bf*)dwt, n_chunks, h6 * h2);
+  const int tiles = ceil_div(B, bt), slices = ceil_div(H, units);
+  kernel<<<dim3(tiles, 2, slices), kBwdThreads, lay.total, st>>>(
+      (const bf*)x_f, (const bf*)x_r, (const bf*)wt, (const bf*)vb,
+      (const bf*)c_f, (const bf*)c_r, (const bf*)dh_f, (const bf*)dh_r, dxd,
+      (float*)dw_part, (float*)dvb_part, T, H, B, bt, S, units);
+  const long long n = (long long)T * H * B;
+  if (slices > 1)
+    sru_hid_bwd_dx_add_kernel<float><<<ceil_div(n, 256), 256, 0, st>>>(
+        (const float*)dxd, slices, (bf*)dx_f, (bf*)dx_r, T, H, B);
+  else
+    sru_hid_bwd_dx_add_kernel<bf><<<ceil_div(n, 256), 256, 0, st>>>(
+        (const bf*)dxd, 1, (bf*)dx_f, (bf*)dx_r, T, H, B);
+  sru_hid_bwd_sum_kernel<bf><<<ceil_div(12 * H * H, 256), 256, 0, st>>>(
+      (const float*)dw_part, (bf*)dwt, tiles, 12 * H * H);
   sru_hid_bwd_sum_kernel<bf><<<ceil_div(8 * H, 256), 256, 0, st>>>(
-      (const float*)dvb_part, (bf*)dvb, ceil_div(B, scan_cols), 8 * H);
+      (const float*)dvb_part, (bf*)dvb, tiles, 8 * H);
   return (int)cudaGetLastError();
 }

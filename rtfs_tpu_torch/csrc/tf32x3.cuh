@@ -152,6 +152,56 @@ __device__ __forceinline__ uint32_t pack_bf16(unsigned short lo,
   return (uint32_t)lo | ((uint32_t)hi << 16);
 }
 
+// ldmatrix .x4: four 8 x 8 matrices of 16-bit values from shared memory,
+// lane l giving the address of row l % 8 of matrix l / 8 (8 values,
+// 16-byte aligned); register j of lane 4g + q holds matrix j's row g at
+// columns 2q and 2q + 1: an A fragment of m16n8k16 from an [m][k] tile,
+// or a B fragment pair from an [n][k] one.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// The shared-window address of p, and ldsm_x4 at such an address (a loop
+// then steps its addresses by plain adds).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// ldmatrix .x4 .trans: four 8 x 8 matrices of 16-bit values from shared
+// memory, lane l giving the address of row l % 8 of matrix l / 8 (8
+// values, 16-byte aligned); register j of lane 4g + q holds matrix j's
+// rows 2q and 2q + 1 at column g, the lower row in the low half: a B
+// fragment pair of m16n8k16 from a [k][n] tile, or an A fragment from a
+// [k][m] one, in one instruction instead of eight 2-byte loads and four
+// packs.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4],
+                                                 unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_q() { return threadIdx.x & 3; }
 
@@ -214,6 +264,26 @@ __device__ __forceinline__ void copy_bf16(unsigned short* dst,
     cp_async4(dst, src, ok);
   else
     *dst = ok ? *src : (unsigned short)0;
+}
+
+// w (8, 4, 2 or 1) consecutive bf16 values global -> shared of which only
+// the first n (0 to w) are read, the rest zero-filled: one cp.async of 2w
+// bytes reading 2n (src and dst aligned to 2w bytes; src a valid address
+// even where n is 0), or for w 1 a plain load and store.
+__device__ __forceinline__ void copy_bf16_n(unsigned short* dst,
+                                            const unsigned short* src, int w,
+                                            int n) {
+  if (w == 8) {
+    cp_async16_n(dst, src, 2 * n);
+  } else if (w == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src), "r"(2 * n));
+  } else if (w == 2) {
+    cp_async4_n(dst, src, 2 * n);
+  } else {
+    *dst = n > 0 ? *src : (unsigned short)0;
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -22,9 +22,11 @@ The op also takes bf16 storage: the forward (``convt1d_ola_tm_fwd_bf16``:
 x, W and out bf16, the products bf16 on the tensor cores into float32
 sums, the sum rounded to bf16 once, after the whole reduction, as the
 Pallas kernel's float32 dot result is) and the backward
-(``convt1d_ola_tm_bwd_bf16``: g, x and W in, dx and dW out bf16, the
-products of the widened values summed in float32 and each sum rounded
-once, as the Pallas VJP's dx dot and dW scratch are).
+(``convt1d_ola_tm_bwd_bf16``: g, x and W in, dx and dW out bf16, both
+products bf16 on the tensor cores into float32 sums and each sum rounded
+once, as the Pallas VJP's dx dot and dW scratch are): one kernel walks a
+window of g rows over l for a tile of 16 batch columns and takes dx and
+dW from it (``bwd_bf16_geometry``).
 """
 
 from __future__ import annotations
@@ -240,6 +242,78 @@ def bwd_geometry(length: int, c_in: int, c_out: int, k: int,
     }
 
 
+# K3's bf16 backward, ``kDwTaps``, ``kDwOut``, ``kDwIn``, ``kDwPass``,
+# ``kDwStages``, ``kDwWRow`` and ``kDwDxRow`` in csrc/convt_tm.cu: taps,
+# output and input channels a block, l steps a pass, passes in its ring,
+# W's rows and the dx tiles' rows in shared memory (bf16)
+DW16_TAPS = 8
+DW16_OUT = 64
+DW16_IN = 32
+DW16_PASS = 8
+DW16_STAGES = 3
+DW16_THREADS = 512
+DW16_WROW = DW16_IN + 8
+DW16_DXROW = 24
+
+
+def bwd_bf16_smem() -> int:
+    """K3's bf16 backward kernel's dynamic shared memory in bytes
+    (``bwd_bf16_smem_bytes``): its ring of DW16_STAGES passes of g rows
+    (DW16_OUT channels, and the window's DW16_TAPS - 1 rows more) and of
+    x rows (DW16_IN channels), FWD_COLS bf16 columns each, W's DW16_TAPS
+    DW16_OUT rows of DW16_WROW and each warp's 16 rows of dx of
+    DW16_DXROW."""
+    return 2 * (FWD_COLS * ((DW16_STAGES * DW16_PASS + DW16_TAPS - 1)
+                            * DW16_OUT + DW16_STAGES * DW16_PASS * DW16_IN)
+                + DW16_TAPS * DW16_OUT * DW16_WROW
+                + DW16_THREADS // 32 * 16 * DW16_DXROW)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_bf16_geometry(length: int, c_in: int, c_out: int, k: int,
+                      bsz: int) -> dict:
+    """K3's bf16 backward geometry, as ``convt1d_ola_tm_bwd_bf16`` launches
+    it (``convt1d_tm_bwd_bf16_kernel``): blocks of DW16_TAPS taps x
+    DW16_OUT output x DW16_IN input channels (``grid`` (input tiles, tap
+    tiles x output tiles, chunks)), each over one tile of 16 batch columns
+    and a run of ``lsteps`` steps l, about one block an SM. Each block
+    writes one float32 partial of dW (``chunks`` of them, summed in order)
+    and its dx rows; where K or C_out takes more than one grid row
+    (``dx_slices`` > 1), each row writes a float32 partial of dx
+    (``dx_part`` values) instead, summed in order."""
+    tiles_y = -(-k // DW16_TAPS) * -(-c_out // DW16_OUT)
+    tiles = -(-c_in // DW16_IN) * tiles_y
+    col_tiles = -(-bsz // 16)
+    runs = max(1, min(length, kernel_lib.SMS // (tiles * col_tiles)))
+    lsteps = -(-length // runs)
+    chunks = col_tiles * -(-length // lsteps)
+    return {"lsteps": lsteps, "chunks": chunks,
+            "grid": (-(-c_in // DW16_IN), tiles_y, chunks),
+            "dx_slices": tiles_y, "dx_part": length * c_in * bsz,
+            "smem": bwd_bf16_smem()}
+
+
+def _backward_bf16(g, x_tm, w):
+    length, c_in, bsz = x_tm.shape
+    k, c_out, _ = w.shape
+    geo = bwd_bf16_geometry(length, c_in, c_out, k, bsz)
+    dev = x_tm.device
+    g, x_tm, w = (kernel_lib.aligned16(t) for t in (g, x_tm, w))
+    dx = torch.empty_like(x_tm)
+    dw = torch.empty_like(w)
+    dw_part = torch.empty(geo["chunks"], k, c_out, c_in, device=dev)
+    dx_part = (torch.empty(geo["dx_slices"], geo["dx_part"], device=dev)
+               if geo["dx_slices"] > 1 else None)
+    kernel_lib.launch(
+        "convt_tm", "convt1d_ola_tm_bwd_bf16", dev,
+        g.data_ptr(), w.data_ptr(), x_tm.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), dw_part.data_ptr(),
+        None if dx_part is None else dx_part.data_ptr(),
+        length, c_in, c_out, k, bsz, geo["lsteps"],
+    )
+    return dx, dw
+
+
 def _backward(g, x_tm, w):
     if g.device.type == "cpu":
         return convt1d_ola_tm_bwd_plain(g, x_tm, w)
@@ -250,6 +324,8 @@ def _backward(g, x_tm, w):
     if min(x_tm.shape) == 0 or k == 0 or c_out == 0:
         raise ValueError(f"convt1d_ola_tm backward: unsupported shape x "
                          f"{tuple(x_tm.shape)}, w {tuple(w.shape)}")
+    if dt == torch.bfloat16:
+        return _backward_bf16(g, x_tm, w)
     geo = bwd_geometry(length, c_in, c_out, k, bsz)
     dev = x_tm.device
     dx = torch.empty_like(x_tm)
@@ -258,9 +334,7 @@ def _backward(g, x_tm, w):
     dx_part = (torch.empty(geo["out_slices"], *x_tm.shape, device=dev)
                if geo["out_slices"] > 1 else None)
     kernel_lib.launch(
-        "convt_tm",
-        "convt1d_ola_tm_bwd_bf16" if dt == torch.bfloat16
-        else "convt1d_ola_tm_bwd", dev,
+        "convt_tm", "convt1d_ola_tm_bwd", dev,
         g.data_ptr(), w.data_ptr(), x_tm.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), dw_part.data_ptr(),
         None if dx_part is None else dx_part.data_ptr(),

@@ -15,7 +15,9 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
   there (``k2_fwd_geometry``); the backward is split at the recurrence
   into U, the adjoint scan, dx and a split-K dW, launched by one C entry
   on scratch the wrapper allocates; CUDA kernels ``csrc/sru_fused.cu:
-  sru_hidden_layer_fwd`` and ``..._bwd``.
+  sru_hidden_layer_fwd`` and ``..._bwd``. The bf16 backward is one fused
+  kernel instead (``k2_bwd_bf16_geometry``): U, the scan, dx and dW a
+  chunk of steps at a time in shared memory, on bf16 tensor cores.
 - ``sru_stack``: layer 0's projection as a windowed ``conv1d`` over the raw
   sequence, one entry transpose to time-major, K1, then K2 per hidden layer,
   with the (h_f, h_r) pair chained in (T, H, B).
@@ -563,6 +565,107 @@ def k2_bwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     }
 
 
+# K2's bf16 backward (``sru_hid_bwd_bf16_kernel``), ``kBwdThreads``: threads
+# a block (one scan thread a unit and batch column of the block); streamed
+# (above H 384), ``kBwdK`` and ``kBwdStages``: X's rows and W_d's columns
+# a stage, stages in the ring
+BWD_THREADS = 512
+BWD_K = 32
+BWD_STAGES = 3
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def k2_bwd_bf16_smem(hdim: int, cols: int, units: int, bt: int,
+                     stream: bool = False) -> int:
+    """The bf16 K2 backward's dynamic shared memory in bytes (``HidBwdSmem``
+    in csrc/sru_fused.cu) at ``cols`` = S * bt columns a chunk, ``units``
+    units a block and ``bt`` batch columns: W_d's rows of the units (R =
+    3 units rounded up to 16, of K + 8 bf16, K = 2H rounded up to 16), two
+    X slots (K rows of cols + 8 bf16), two slots of c (S + 1 steps) and dh,
+    U (R rows of cols + 8 floats), du's three bf16 parts, the highway term
+    (float32) and the dW sums (R rows of K + 8 floats); each region a
+    multiple of 16 bytes. ``stream``: no W_d, X or dW sums held; two slots
+    of the highway rows and the ring of BWD_STAGES stages (BWD_K rows of X
+    of cols + 8 and R rows of W_d's BWD_K columns of BWD_K + 8, bf16): it
+    does not grow with H."""
+    rows, k = _round_up(3 * units, 16), _round_up(2 * hdim, 16)
+    common = (2 * 2 * units * (cols + bt), 2 * 2 * units * cols,
+              4 * rows * (cols + 8), 2 * 3 * rows * (cols + 8),
+              4 * units * cols)
+    if stream:
+        extra = (2 * 2 * units * cols,
+                 2 * BWD_STAGES * (BWD_K * (cols + 8) + rows * (BWD_K + 8)))
+    else:
+        extra = (2 * rows * (k + 8), 2 * 2 * k * (cols + 8),
+                 4 * rows * (k + 8))
+    return sum(_align16(n) for n in common + extra)
+
+
+@functools.lru_cache(maxsize=None)
+def k2_bwd_bf16_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+    """The bf16 K2 backward's launch geometry, as ``sru_hidden_layer_bwd_bf16``
+    launches it (``sru_hid_bwd_bf16_kernel``).
+
+    A block owns one direction, ``units`` units and ``bt`` batch columns
+    and walks T in chunks of ``steps`` (S) steps in its reverse scan order,
+    ``cols`` = S * bt columns a chunk (64, else 32, else 16: a multiple of
+    the k16 step of the dW product). ``units`` is all of H where a block
+    holds it (one scan thread a unit and column, the shared memory of
+    ``k2_bwd_bf16_smem`` within a block's at 16 columns), else the fewest
+    equal ``slices`` of H that fit; each slice then writes a float32
+    partial of dx (``dxd`` float32 (slices, 2, T, 2H, B)), else bf16 (2, T,
+    2H, B). Where not even 8 units fit (H above 384), ``stream``: the
+    kernel streams X and W_d's columns through a ring and keeps its dW sums
+    in its partial, and ``units`` is the fewest equal slices whose streamed
+    shared memory (which does not grow with H) fits. ``bt`` (8, 4, 2 or 1,
+    at most BWD_THREADS // units) minimizes waves x chunks, the waves of
+    ceil(B / bt) x 2 x slices blocks at the blocks an SM that the shared
+    memory allows (at most 2), the chunks ceil(T / S) a block walks in
+    turn; a tie takes the larger bt (fewer blocks reload W_d): at the bs-4
+    freq site (B 500) bt 8, 126 blocks, 8 chunks; at the time site (B 256)
+    bt 4, 128 blocks, 8 chunks. ``tiles`` = ceil(B / bt) dW and (v, b)
+    partials, summed in order. ``stream`` is passed to the C entry, which
+    launches the streamed kernel by it and checks that the layout fits."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_hidden_layer backward: T {t_len}, H {hdim}, "
+                         f"B {bsz}")
+    limit = kernel_lib.SMEM_PER_BLOCK
+    stream = k2_bwd_bf16_smem(hdim, 16, 8, 1) > limit
+
+    def smem(cols, units, bt):
+        return k2_bwd_bf16_smem(hdim, cols, units, bt, stream)
+
+    for slices in range(1, hdim + 1):
+        units = -(-hdim // slices)
+        if units <= BWD_THREADS and smem(16, units, 1) <= limit:
+            break
+    slices = -(-hdim // units)
+    best = None
+    for bt in (8, 4, 2, 1):
+        if bt * units > BWD_THREADS:
+            continue
+        cols = next((c for c in (64, 32, 16)
+                     if smem(c, units, bt) <= limit), None)
+        if cols is None:
+            continue
+        per_sm = max(1, min(2, kernel_lib.SMEM_PER_SM
+                            // (smem(cols, units, bt) + 1024)))
+        blocks = -(-bsz // bt) * 2 * slices
+        waves = -(-blocks // (kernel_lib.SMS * per_sm))
+        cost = waves * -(-t_len // (cols // bt))
+        if best is None or cost < best[0]:
+            best = (cost, bt, cols)
+    _, bt, cols = best
+    tiles = -(-bsz // bt)
+    return {"bt": bt, "steps": cols // bt, "cols": cols, "units": units,
+            "slices": slices, "grid": (tiles, 2, slices), "tiles": tiles,
+            "chunks": -(-t_len // (cols // bt)), "stream": stream,
+            "smem": smem(cols, units, bt), "vec": k2_bf16_vec(bt, bsz)}
+
+
 def _k2_forward(x_f, x_r, wt, vb, with_c):
     if x_f.device.type == "cpu":
         return sru_hidden_layer_plain(x_f, x_r, wt, vb, with_c)
@@ -598,6 +701,8 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
     t_len, hdim, bsz = x_f.shape
     if min(x_f.shape) == 0:
         raise ValueError("sru_hidden_layer backward: empty input")
+    if dt == torch.bfloat16:
+        return _k2_backward_bf16(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r)
     geo = k2_bwd_geometry(t_len, hdim, bsz)
     dev = x_f.device
     dx_f, dx_r = torch.empty_like(x_f), torch.empty_like(x_r)
@@ -605,20 +710,41 @@ def _k2_backward(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
     ud = torch.empty(t_len, 6 * hdim, bsz, device=dev)  # U, then du
     dw_part = torch.empty(geo["chunks"], 6 * hdim, 2 * hdim, device=dev)
     dvb_part = torch.empty(geo["scan_blocks"], 8, hdim, device=dev)
-    # bf16: each direction's float32 dx and highway term, rounded apart
-    extra = ([torch.empty(2, t_len, 2 * hdim, bsz, device=dev),
-              torch.empty(2, t_len, hdim, bsz, device=dev)]
-             if dt == torch.bfloat16 else [])
     kernel_lib.launch(
-        "sru_fused",
-        "sru_hidden_layer_bwd_bf16" if extra else "sru_hidden_layer_bwd", dev,
+        "sru_fused", "sru_hidden_layer_bwd", dev,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         c_f.data_ptr(), c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(),
         dx_f.data_ptr(), dx_r.data_ptr(), dwt.data_ptr(), dvb.data_ptr(),
-        ud.data_ptr(), *(t.data_ptr() for t in extra), dw_part.data_ptr(),
-        dvb_part.data_ptr(),
+        ud.data_ptr(), dw_part.data_ptr(), dvb_part.data_ptr(),
         t_len, hdim, bsz, geo["cols"], geo["scan"]["cols"],
         geo["scan"]["units"],
+    )
+    return dx_f, dx_r, dwt, dvb
+
+
+def _k2_backward_bf16(x_f, x_r, wt, vb, c_f, c_r, dh_f, dh_r):
+    t_len, hdim, bsz = x_f.shape
+    geo = k2_bwd_bf16_geometry(t_len, hdim, bsz)
+    dev = x_f.device
+    x_f, x_r, wt, c_f, c_r, dh_f, dh_r = (
+        kernel_lib.aligned16(t) for t in (x_f, x_r, wt, c_f, c_r, dh_f, dh_r))
+    dx_f, dx_r = torch.empty_like(x_f), torch.empty_like(x_r)
+    dwt, dvb = torch.empty_like(wt), torch.empty_like(vb)
+    # each direction's dx: rounded to bf16 at one slice, else float32
+    # partials of the slices
+    dxd = (torch.empty(2, t_len, 2 * hdim, bsz, device=dev, dtype=x_f.dtype)
+           if geo["slices"] == 1 else
+           torch.empty(geo["slices"], 2, t_len, 2 * hdim, bsz, device=dev))
+    dw_part = torch.empty(geo["tiles"], 6 * hdim, 2 * hdim, device=dev)
+    dvb_part = torch.empty(geo["tiles"], 8, hdim, device=dev)
+    kernel_lib.launch(
+        "sru_fused", "sru_hidden_layer_bwd_bf16", dev,
+        x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
+        c_f.data_ptr(), c_r.data_ptr(), dh_f.data_ptr(), dh_r.data_ptr(),
+        dx_f.data_ptr(), dx_r.data_ptr(), dwt.data_ptr(), dvb.data_ptr(),
+        dxd.data_ptr(), dw_part.data_ptr(), dvb_part.data_ptr(),
+        t_len, hdim, bsz, geo["bt"], geo["steps"], geo["units"],
+        int(geo["stream"]),
     )
     return dx_f, dx_r, dwt, dvb
 

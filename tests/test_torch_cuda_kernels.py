@@ -1004,10 +1004,14 @@ def _bf16_grad_close(got, want, what="", scale=None):
 
 
 # the bs-1 and bs-4 training sites (freq L 57 / B 125 per item, time L 118
-# / B 64), ragged odd batches, H 8 and 48, T 1 and a T with an odd count
+# / B 64), ragged odd batches, H 8 and 48, T 1 and a T with an odd count;
+# H 80 and 300, where K2's bf16 backward splits the units over the grid,
+# H 600, where it streams X and W_d through a ring, and H 64 over B 500,
+# where its scan takes every thread (the next chunk's copies go before U)
 @pytest.mark.parametrize("t_len,h,bsz", [
     (57, 32, 125), (118, 32, 64), (57, 32, 500), (118, 32, 256),
-    (13, 8, 33), (5, 48, 7), (1, 32, 77), (37, 32, 131)])
+    (13, 8, 33), (5, 48, 7), (1, 32, 77), (37, 32, 131), (19, 80, 64),
+    (9, 300, 40), (5, 600, 20), (7, 64, 500)])
 def test_bf16_k1_k2_backward_match_plain(dev, t_len, h, bsz):
     """K1 and K2 backward in bf16 storage against their plain bf16
     versions (two bf16 ulps; K2's dx scaled by its three roundings, the two
@@ -1053,7 +1057,8 @@ def test_bf16_k1_k2_backward_match_plain(dev, t_len, h, bsz):
 @pytest.mark.parametrize("length,c_in,c_out,bsz,k",
                          [(57, 64, 64, 125, 8), (118, 64, 64, 256, 8),
                           (13, 32, 48, 17, 5), (57, 160, 64, 125, 8),
-                          (7, 72, 130, 40, 16), (1, 64, 64, 77, 8)])
+                          (7, 72, 130, 40, 16), (1, 64, 64, 77, 8),
+                          (57, 64, 64, 500, 8)])
 def test_bf16_k3_backward_matches_plain(dev, length, c_in, c_out, bsz, k):
     """K3 backward in bf16 storage against its plain bf16 version and the
     float32 kernel on the widened values; two calls give the same bits
@@ -1076,6 +1081,69 @@ def test_bf16_k3_backward_matches_plain(dev, length, c_in, c_out, bsz, k):
     assert (a @ b / (a.norm() * b.norm())).item() > 0.999
     for p, q in zip(got, K._backward(g, x, w)):
         assert torch.equal(p, q)
+
+
+def test_bf16_k3_k2_wgrad_do_not_drift_on_positive_sums(dev):
+    """K3's and K2's bf16 dW kernels keep their sums in the tensor core's
+    accumulators (which round toward zero) for one pass or chunk only,
+    then add them to float32 sums. On all-positive inputs at the bs-4
+    training shapes, where every product adds to the sum and a bias toward
+    zero adds up, their float32 partials (before the bf16 rounding) summed
+    in float64 hold against dW in float64 to 1e-4 of max|dW|: K3 in the
+    geometry's runs of l steps and in one run of all of L a column tile
+    (57 k16 steps in one block), K2 (its x, dh and v, b positive) in its
+    batch tiles, each block a whole T. Two calls give the same bits."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(16)
+    length, c, bsz, k = 57, 64, 500, 8
+    x = _b(rng, (length, c, bsz), dev).abs()
+    w = _b(rng, (k, c, c), dev, 0.1)
+    g = _b(rng, (length + k - 1, c, bsz), dev, 0.1).abs()
+    want = K.convt1d_ola_tm_bwd_plain(g.double(), x.double(), w.double())[1]
+    geo = K.bwd_bf16_geometry(length, c, c, k, bsz)
+    assert geo["lsteps"] < length
+    for lsteps in (geo["lsteps"], length):
+        def call():
+            parts = torch.empty(-(-bsz // 16) * -(-length // lsteps), k, c,
+                                c, device=dev)
+            dx, dw = torch.empty_like(x), torch.empty_like(w)
+            kernel_lib.launch(
+                "convt_tm", "convt1d_ola_tm_bwd_bf16", dev, g.data_ptr(),
+                w.data_ptr(), x.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                parts.data_ptr(), None, length, c, c, k, bsz, lsteps)
+            return parts
+
+        got = call()
+        _close((got.double().sum(0),), (want,), rel=1e-4)
+        assert torch.equal(got, call())
+    t_len, h, bsz = 118, 32, 256
+    x = [_b(rng, (t_len, h, bsz), dev, 0.5).abs() for _ in range(2)]
+    dh = [_b(rng, (t_len, h, bsz), dev, 0.1).abs() for _ in range(2)]
+    wt = _b(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
+    vb = _b(rng, (8, h), dev, 0.3).abs()
+    c2 = S._k2_forward(*x, wt, vb, with_c=True)[2:]
+    want = S.hidden_bwd_terms(*(a.double() for a in (*x, wt, vb, *c2, *dh)))[2]
+    geo = S.k2_bwd_bf16_geometry(t_len, h, bsz)
+
+    def call():
+        dxd = torch.empty(2, t_len, 2 * h, bsz, device=dev, dtype=x[0].dtype)
+        parts = torch.empty(geo["tiles"], 6 * h, 2 * h, device=dev)
+        vparts = torch.empty(geo["tiles"], 8, h, device=dev)
+        outs = [torch.empty_like(t) for t in (x[0], x[1], wt, vb)]
+        kernel_lib.launch(
+            "sru_fused", "sru_hidden_layer_bwd_bf16", dev,
+            *(t.data_ptr() for t in (*x, wt, vb, *c2, *dh, *outs, dxd,
+                                     parts, vparts)),
+            t_len, h, bsz, geo["bt"], geo["steps"], geo["units"],
+            int(geo["stream"]))
+        return parts
+
+    got = call()
+    _close((got.double().sum(0),), (want,), rel=1e-4)
+    assert torch.equal(got, call())
 
 
 def test_bf16_backward_refuses_mixed_dtypes(dev):

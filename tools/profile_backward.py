@@ -12,7 +12,8 @@ each it prints the profiler's device time a launch of the op's kernels
 and their sum per bs-4 step (K1 and K3 4 calls a site, K2 12, K4 16 in
 the unidirectional model),
 beside the CUDA-event time a call, which also counts the wrapper's host
-path.
+path. ``--bf16`` runs the same ops on bf16 inputs (their bf16 entries, the
+bf16 train step's), with the cell states from the tree's bf16 forward.
 
 ``--packed`` runs the packed-TF kernels instead: K6 ``pw_proj_packed``
 at its serving site (bs 1 and 8: STFT 251 x 129, bottleneck 256 -> 64,
@@ -39,8 +40,8 @@ The wrappers' Python signatures are the same in every tree since K4 was
 ported (the packed weight gradients for ``--packed``), so two trees
 compare in turns in one call::
 
-    python3 tools/profile_backward.py [--packed] --tree _scratch/parent
-    python3 tools/profile_backward.py [--packed]
+    python3 tools/profile_backward.py [--packed | --bf16] --tree _scratch/parent
+    python3 tools/profile_backward.py [--packed | --bf16]
 """
 
 from __future__ import annotations
@@ -67,6 +68,15 @@ KERNELS = {"K1": ("sru_scan_bwd_kernel<1>",),
            "K3": ("convt1d_tm_dx_kernel", "convt1d_tm_wgrad_kernel",
                   "convt1d_tm_sum_kernel"),
            "K4": ("sru_rec_bwd_kernel", "sru_scan_bwd_kernel<4>")}
+# and in bf16 storage: the scan's bf16 forms, K2's products and scan or
+# its fused kernel (sru_hid_bwd_bf16_kernel, dx_add, sums), K3's kernels
+# in any tree's form (its fused kernel; W', dx and dW apart) and sums
+KERNELS_BF16 = {"K1": ("sru_scan_bwd_kernel<11>",),
+                "K2": ("sru_hid_bwd_", "sru_scan_bwd_kernel<12>"),
+                "K3": ("convt1d_tm_bwd_bf16_kernel",
+                       "convt1d_tm_wrev_bf16_kernel", "convt1d_tm_dx_",
+                       "convt1d_tm_wgrad_", "convt1d_tm_sum_bf16_kernel"),
+                "K4": ("sru_rec_bwd_kernel", "sru_scan_bwd_kernel<14>")}
 
 
 def event_ms(fn, iters: int = 30) -> float:
@@ -103,9 +113,17 @@ def device_us(fn, parts, iters: int = 20) -> tuple:
     return total / iters, launches, names
 
 
-def sru_backward(t, tree: str, card: str) -> None:
-    """The SRU backward wrappers at the bs-4 sites (the default mode)."""
+def sru_backward(t, tree: str, card: str, bf16: bool = False) -> None:
+    """The SRU backward wrappers at the bs-4 sites (the default mode; with
+    ``bf16`` on bf16 inputs)."""
     from rtfs_tpu_torch.ops import convt_tm, sru_fused, sru_pallas
+
+    if bf16:
+        t32 = t
+
+        def t(shape, scale=1.0):  # noqa: F811
+            return t32(shape, scale).to(torch.bfloat16)
+    kernels = KERNELS_BF16 if bf16 else KERNELS
 
     step = {op: [0.0, 0.0] for op in PER_SITE}  # device ms, event ms
     for site, (T, B) in SITES.items():
@@ -131,7 +149,7 @@ def sru_backward(t, tree: str, card: str) -> None:
                                                   False),
         }
         for op, fn in calls.items():
-            us, launches, names = device_us(fn, KERNELS[op])
+            us, launches, names = device_us(fn, kernels[op])
             ms = event_ms(fn)
             n = PER_SITE[op]
             step[op][0] += n * us / 1e3
@@ -140,9 +158,9 @@ def sru_backward(t, tree: str, card: str) -> None:
                   f"{us:.2f} us a call ({launches:g} launches a call of "
                   f"{', '.join(names)}), events {ms * 1e3:.2f} us a call")
     for op, (dev_ms, ev_ms) in step.items():
-        print(f"{op} backward per bs-4 step: device {dev_ms:.4f} ms, events "
-              f"{ev_ms:.4f} ms ({PER_SITE[op]} calls a site; tree {tree}; "
-              f"{card})")
+        print(f"{op} backward{' bf16' if bf16 else ''} per bs-4 step: "
+              f"device {dev_ms:.4f} ms, events {ev_ms:.4f} ms "
+              f"({PER_SITE[op]} calls a site; tree {tree}; {card})")
 
 
 def packed(t, sweep: bool) -> None:
@@ -274,6 +292,8 @@ def main() -> int:
                     help="the packed kernels instead of the SRU backward")
     ap.add_argument("--sweep", action="store_true",
                     help="with --packed: K5-wgrad at other geometries")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the SRU backward on bf16 inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_backward: needs a CUDA card", file=sys.stderr)
@@ -299,7 +319,7 @@ def main() -> int:
         packed(t, args.sweep)
         print(f"tree {tree}; {card}")
     else:
-        sru_backward(t, tree, card)
+        sru_backward(t, tree, card, args.bf16)
     return 0
 
 
