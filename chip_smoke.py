@@ -179,7 +179,10 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    CUDA events and the profiler's device time a launch beside its bf16
    bound, the plain version, the float32 kernel and the bf16 library call
    (``conv2d`` with groups C for K5, ``baddbmm`` on the same layout for
-   K6/K7, phase 7's pool, select and nearest calls for K8/K9); (b)
+   K6/K7); K8 and K9 (``spatial_{down,up}_bf16_kernel``) the same way
+   at all six sites of phase 7 and bs 1, 4 and 8, beside the
+   device time of phase 7's library call in bf16 (none for the transposed
+   select), summed per packed bs-1 and bs-8 forward and bs-4 step; (b)
    ``separate_sample`` on the packed bf16 model (seed-0 weights rounded)
    at bs 1 and 8: exactly ``packed_bf16_launches`` (K5 16 / K6 4 / K7 4 /
    K8 8 / K9 16 bf16 entries, with K1 8 / K2 24 / K3 8) a forward and no
@@ -188,10 +191,11 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    forwards by SI-SNR, request medians of ``bench.py``'s three bs-1 rows
    (standard float32, standard bf16, packed bf16) in turns and their
    audio-s/s at bs 8, one profiled bs-1 and one bs-8 packed bf16 forward
-   (device time, idle share, top kernels, the shares of K5-K9, K1-K3,
-   cuDNN's convolutions and ATen's depthwise ones); (c) the serving entry
-   on a bundle whose ``conf.json`` says ``packed_tf`` and ``bfloat16``,
-   launching the bf16 entries only, against the float32 entry by SI-SNR.
+   (device time, idle share, top kernels, the shares of K5-K7, K8, K9,
+   K1-K3, cuDNN's convolutions and ATen's depthwise ones); (c) the serving
+   entry on a bundle whose ``conf.json`` says ``packed_tf`` and
+   ``bfloat16``, launching the bf16 entries only, against the float32
+   entry by SI-SNR.
 14. bf16 training (after phase 13): the train system on the bf16 model,
    the JAX bench's ``train_bf16`` row (bf16 parameters and AdamW moments,
    no float32 master copy), K1/K2/K3 forward and backward through their
@@ -900,11 +904,11 @@ def _device_us(fn, kernel, iters: int = 20) -> float:
     return sum(float(e.self_device_time_total) for e in evs) / count
 
 
-def _map_sites(conf, rng, bs) -> list:
+def _map_sites(conf, rng, bs, dtype=torch.float32) -> list:
     """K8 and K9's six sites at the packed shapes and batch ``bs``, on
-    fresh N(0, 1) inputs: the three forward maps (pool 251 x 129 -> 125 x
-    64, the stride-2 select 250 x 128 -> 125 x 64, nearest 125 x 64 -> 251
-    x 129) and their transposes (each the other kernel's dx in training),
+    fresh N(0, 1) inputs in ``dtype``: the three forward maps (pool 251 x
+    129 -> 125 x 64, the stride-2 select 250 x 128 -> 125 x 64, nearest 125
+    x 64 -> 251 x 129) and their transposes (each the other kernel's dx in training),
     as (kernel, site, launches per packed forward, map, input, one PyTorch
     call of the same function and its result in the kernel's layout, or
     None where there is none)."""
@@ -924,7 +928,7 @@ def _map_sites(conf, rng, bs) -> list:
 
     def t(shape):
         return torch.from_numpy(
-            rng.standard_normal(shape).astype(np.float32)).to(dev)
+            rng.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
 
     def cl(xp, tt, ff):  # a packed map as the channels-last (B, C, T, F)
         return xp.view(xp.shape[0], tt, ff, C).permute(0, 3, 1, 2)
@@ -2780,11 +2784,16 @@ def packed_bf16_launches(conf) -> dict:
     return out
 
 
-def bf16_ulps(got, want) -> tuple:
+def bf16_ulps(got, want, scale=None) -> tuple:
     """(ok, worst ratio, elements that differ): |got - want| <= 2^-7
-    max(|want|, 2^-6), two bf16 ulps, at every element."""
+    max(|want|, 2^-6), two bf16 ulps, at every element. ``scale``: where
+    got is a bf16 sum of terms rounded to bf16 apart (K9 on a map whose
+    rows have several F sources: the transposed pool), the magnitude of
+    the terms at each element, added to |want| (the gradient gates'
+    convention)."""
     g, w = got.float(), want.float()
-    bound = 2.0 ** -7 * torch.clamp(w.abs(), min=2.0 ** -6)
+    mag = w.abs() if scale is None else w.abs() + scale
+    bound = 2.0 ** -7 * torch.clamp(mag, min=2.0 ** -6)
     ratio = ((g - w).abs() / bound).max().item()
     return ratio <= 1.0, ratio, int((g != w).sum().item())
 
@@ -3074,28 +3083,33 @@ PACKED_BF16_KERNELS = {
     "pw_unproj_packed_bf16": ("pw_unproj_packed_fwd_bf16",
                               ("pw_unproj_bf16_kernel",)),
     "spatial_down_packed_bf16": ("spatial_down_packed_fwd_bf16",
-                                 ("spatial_down_kernel", "bfloat16")),
+                                 ("spatial_down_bf16_kernel",)),
     "spatial_up_packed_bf16": ("spatial_up_packed_fwd_bf16",
-                               ("spatial_up_kernel", "bfloat16")),
+                               ("spatial_up_bf16_kernel",)),
 }
+# K8 / K9 bf16 launches at each site of phase 7's maps per packed forward
+# and per packed train step (K8's dx is K9 on the transposed pool and
+# select, K9's is K8 on the transposed nearest)
+MAP16_STEP_LAUNCHES = {"pool": 4, "select": 4, "nearest": 16,
+                       "transposed nearest": 16, "transposed pool": 4,
+                       "transposed select": 4}
 # K2 forward's widths where its bf16 kernel streams the reduction (above
 # H 536), run at the bs-1 frequency site's L and B
 K2_STREAM_H = (600, 1024)
 
 
 def _packed_bf16_sites(conf, rng, bs) -> list:
-    """Phase 13 (a): K5-K9's sites in a packed bf16 forward at batch
+    """Phase 13 (a): K5-K7's sites in a packed bf16 forward at batch
     ``bs``, on fresh bf16 inputs: (kernel, site, launches a forward, the
     op's call, its plain version's call, the arguments, bytes, flops, of
     those the tensor cores' product flops, one PyTorch call of the same
-    function in bf16 or None)."""
+    function in bf16 or None). K8 and K9: ``check_map16_kernels``."""
     import torch.nn.functional as Fn
 
     from rtfs_tpu_torch.ops import packed_tf as P
 
     g = packed_geometry(conf)
-    T, Fq, C, Cb, k, T2, F2 = (g[n] for n in ("T", "F", "C", "Cb", "k",
-                                              "T2", "F2"))
+    T, Fq, C, Cb, k = (g[n] for n in ("T", "F", "C", "Cb", "k"))
     dev, bf = torch.device("cuda"), torch.bfloat16
 
     def t(shape, scale=1.0):
@@ -3108,11 +3122,7 @@ def _packed_bf16_sites(conf, rng, bs) -> list:
     same = ((k - 1) // 2, k - 1 - (k - 1) // 2)
     pre = ((k - 1) // 2,) * 2
     t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
-    pool = P.cached_map("pool", T, T2, Fq, F2)
-    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
-    up = P.cached_map("nearest", T2, T, F2, Fq)
     xp, x4 = t((bs, T, Fq * C)), t((bs, Cb, T, Fq))
-    xs, x2 = t((bs, t_conv, f_conv * C)), t((bs, C, T2, F2))
     w_dw, b_dw = t((C, 1, k, k), 1.0 / k), t((C,))
     w_in, b_in = t((C, Cb, 1, 1), Cb ** -0.5), t((C,))
     w_out, b_out = t((Cb, C, 1, 1), C ** -0.5), t((Cb,))
@@ -3122,7 +3132,7 @@ def _packed_bf16_sites(conf, rng, bs) -> list:
     x_cl = cl(xp, T, Fq)
     x3 = x4.view(bs, Cb, T * Fq).transpose(1, 2)  # (B, M, Cb) view
     xp3 = xp.view(bs, T * Fq, C).transpose(1, 2)  # (B, C, M) view
-    sites = [
+    return [
         ("dw_conv_packed_bf16", "same", 12, P.dw_conv_packed,
          P.dw_conv_packed_plain, (xp, w_v, b_dw, Fq, C, same, same),
          2 * (2 * n_x + k * k * C + C), 2 * k * k * n_x, 0,
@@ -3142,27 +3152,10 @@ def _packed_bf16_sites(conf, rng, bs) -> list:
          lambda: torch.baddbmm(b_out.view(1, Cb, 1),
                                w_po.t().expand(bs, Cb, C), xp3)),
     ]
-    for name, site, n, smap, x, lib in (
-            ("spatial_down_packed_bf16", "pool", 4, pool, xp,
-             lambda: Fn.adaptive_avg_pool2d(x_cl, (T2, F2))),
-            ("spatial_down_packed_bf16", "select", 4, sel, xs,
-             lambda: cl(xs, t_conv, f_conv)[:, :, ::2, ::2].contiguous()),
-            ("spatial_up_packed_bf16", "nearest", 16, up, x2,
-             lambda: Fn.interpolate(x2, size=(T, Fq), mode="nearest"))):
-        nbytes, nops = _map_cost(smap, C, bs, elem=2)
-        if name == "spatial_up_packed_bf16":
-            sites.append((name, site, n, P.spatial_up_packed,
-                          P.spatial_up_packed_plain, (x, smap), nbytes,
-                          nops, 0, lib))
-        else:
-            sites.append((name, site, n, P.spatial_down_packed,
-                          P.spatial_down_packed_plain, (x, smap, C), nbytes,
-                          nops, 0, lib))
-    return sites
 
 
 def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
-               parts) -> dict:
+               parts, scale=None) -> dict:
     """One bf16 kernel at one site: against its plain bf16 version and the
     float32 kernel on the same values widened (two bf16 ulps at every
     element), two calls bit-identical; event ms, the profiler's device us
@@ -3179,7 +3172,7 @@ def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
     if got.dtype != torch.bfloat16 or not torch.equal(got, again):
         raise AssertionError(f"{label}: two calls differ")
     ok, ratio, n_diff = bf16_ulps(got, want)
-    ok32, ratio32, n32 = bf16_ulps(got, f32.to(torch.bfloat16))
+    ok32, ratio32, n32 = bf16_ulps(got, f32.to(torch.bfloat16), scale)
     err = (got.float() - want.float()).abs().max().item()
     ms = time_cuda(lambda: op(*args), 50)
     f32_ms = time_cuda(lambda: op(*wide), 50)
@@ -3236,6 +3229,7 @@ def check_packed_bf16_kernels(conf, geo, rng) -> tuple:
             else:
                 for i, key in enumerate(("ms", "bound_ms", "f32_ms")):
                     bs8[name][i] += n * r[key]
+    check_map16_kernels(conf, rng, res, bs8, f32)
     for name, r in res.items():
         print(f"bf16 kernel {name}: per packed bs-1 forward ms={r['ms']:.4f}"
               f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) share of "
@@ -3274,6 +3268,86 @@ def check_packed_bf16_kernels(conf, geo, rng) -> tuple:
                              "plain_ms": r["plain_ms"],
                              "float32_kernel_ms": r["f32_ms"]}
     return res, streamed
+
+
+def _library_device_us(lib) -> tuple:
+    """The device us a call of a library call (every kernel it launches):
+    the profiler over 20 calls, then over 100 if it saw none; else CUDA
+    events over 200 back-to-back calls, which time the device while its
+    queue stays full. (us, how it was measured)."""
+    for iters in (20, 100):
+        ms = _device_ms_a_call(lib, iters)
+        if not math.isnan(ms):
+            return ms * 1e3, f"profiler, {iters} calls"
+    return time_cuda(lib, 200) * 1e3, "events over 200 calls"
+
+
+def check_map16_kernels(conf, rng, res, bs8, f32) -> None:
+    """Phase 13 (a), K8 and K9 in bf16 storage: each of the six sites of
+    ``_map_sites`` on bf16 inputs at batch 1, 4 and 8 (``_bf16_case``),
+    with the device us a call of the site's library call
+    (``_library_device_us``); sums per packed bs-1 and bs-8 forward (into
+    ``res`` and ``bs8``, and the float32 kernel's into ``f32``) and per
+    packed bs-4 step (``MAP16_STEP_LAUNCHES``) of the kernels' device us,
+    the bound and the library's device us where the site has one."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    C = packed_geometry(conf)["C"]
+    sums = collections.defaultdict(lambda: [0.0, 0.0, 0.0])
+    for bs in (1, 4, 8):
+        for name, site, n, smap, x, lib, _ in _map_sites(
+                conf, rng, bs, torch.bfloat16):
+            name16 = f"{name}_bf16"
+            if name == "spatial_up_packed":
+                op, plain, args = (P.spatial_up_packed,
+                                   P.spatial_up_packed_plain, (x, smap))
+            else:
+                op, plain, args = (P.spatial_down_packed,
+                                   P.spatial_down_packed_plain, (x, smap, C))
+            nbytes, nops = _map_cost(smap, C, bs, elem=2)
+            scale = None
+            if name == "spatial_up_packed" and smap.fs.shape[1] > 1:
+                # terms rounded apart: their magnitudes, the map of |x|
+                # through |weights|
+                absmap = P.SpatialMap(np.abs(smap.m), smap.fs,
+                                      np.abs(smap.fw))
+                scale = P.spatial_up_packed_plain(x.float().abs(), absmap)
+            r = _bf16_case(f"{name16} bs={bs} site={site}", op, plain, args,
+                           nbytes, nops, 0, None,
+                           PACKED_BF16_KERNELS[name16][1], scale)
+            lib_us, how = _library_device_us(lib) if lib else (None, "")
+            print(f"bf16 map {name16} bs={bs} site={site}: device us a "
+                  f"launch {r['dev_us']:.2f}, bound us "
+                  f"{r['bound_ms'] * 1e3:.2f}, library device us a call "
+                  + ("none (no PyTorch call)" if lib is None else
+                     f"{lib_us:.2f} ({how}); kernel / library "
+                     f"{r['dev_us'] / lib_us:.3f}"))
+            out = res[name16]
+            out["max_abs_err"] = max(out["max_abs_err"], r["err"])
+            if bs == 1 and n:
+                lib_ms = time_cuda(lib, 50)
+                out["ms"] += n * r["ms"]
+                out["plain_ms"] += n * r["plain_ms"]
+                out["bound_ms"] += n * r["bound_ms"]
+                out["library_ms"] += n * lib_ms
+                out["bound_by"] = r["bound_by"]
+                f32[name16] += n * r["f32_ms"]
+            elif bs == 8 and n:
+                for i, key in enumerate(("ms", "bound_ms", "f32_ms")):
+                    bs8[name16][i] += n * r[key]
+            for key, calls in ((f"bs-{bs} forward", n if bs != 4 else 0),
+                               ("bs-4 step", MAP16_STEP_LAUNCHES[site]
+                                if bs == 4 else 0)):
+                if calls:
+                    agg = sums[(name16, key)]
+                    agg[0] += calls * r["dev_us"]
+                    agg[1] += calls * r["bound_ms"] * 1e3
+                    agg[2] += calls * (lib_us or 0.0)
+    for (name16, key), (us, bound, lib_us) in sorted(sums.items()):
+        print(f"bf16 map {name16} per packed {key}: device ms "
+              f"{us / 1e3:.4f}, bound ms {bound / 1e3:.4f} (share "
+              f"{bound / us:.3f}), library device ms {lib_us / 1e3:.4f} "
+              "(the sites that have one)")
 
 
 def _profile_forward(model, wav, mouth, label, groups) -> None:
@@ -3395,6 +3469,9 @@ def packed_bf16_serve(conf, rng) -> dict:
               in PACKED_BF16_KERNELS.items()}
     groups["K5-K9 bf16"] = tuple(parts for _, parts
                                  in PACKED_BF16_KERNELS.values())
+    groups["K5-K7 bf16"] = tuple(parts for name, (_, parts)
+                                 in PACKED_BF16_KERNELS.items()
+                                 if not name.startswith("spatial_"))
     groups["K1-K3 bf16"] = tuple((n,) for n in BF16_KERNEL_NAMES.values())
     groups["cuDNN convolutions"] = tuple(
         (n,) for n in BF16_PROFILE_GROUPS["cuDNN convolutions"])
@@ -3487,8 +3564,10 @@ def flat_cos_rel(got, want) -> tuple:
 
 def _device_ms_a_call(fn, iters: int = 20) -> float:
     """The profiler's device milliseconds per call of ``fn``: every device
-    kernel it launches, summed, over ``iters`` calls; nan (not measured)
-    when the profiler saw no device kernel."""
+    kernel it launches, summed, over the calls the profiler saw (its most
+    launched kernel's count, at most ``iters``: it can drop launches, and
+    dividing by ``iters`` then read low by up to 5x, PERF.md); nan (not
+    measured) when the profiler saw no device kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3502,7 +3581,10 @@ def _device_ms_a_call(fn, iters: int = 20) -> float:
     if not kernels:
         print("profiler: saw no device kernel; device time not measured")
         return math.nan
-    return sum(dev_us(e) for e in kernels) / 1e3 / iters
+    seen = min(iters, max(e.count for e in kernels))
+    if seen < iters:
+        print(f"profiler: saw {seen} of {iters} calls")
+    return sum(dev_us(e) for e in kernels) / 1e3 / seen
 
 
 def check_bf16_backward_kernels(geo, rng) -> dict:
@@ -3980,6 +4062,10 @@ BF16_PACKED_TRAIN_GROUPS = {
     **BF16_TRAIN_GROUPS,
     "K5-K9 bf16": (*(p for _, parts in PACKED_BF16_KERNELS.values()
                      for p in parts[:1]),),
+    "K5-K7 bf16": (*(p for name, (_, parts) in PACKED_BF16_KERNELS.items()
+                     if not name.startswith("spatial_") for p in parts[:1]),),
+    "K8 bf16": PACKED_BF16_KERNELS["spatial_down_packed_bf16"][1],
+    "K9 bf16": PACKED_BF16_KERNELS["spatial_up_packed_bf16"][1],
     "K5-wgrad bf16": ("dw_wgrad_kernel<4, 4, __nv_bfloat16>",),
     "pw-wgrad bf16": ("pw_wgrad_bf16_kernel",),
     "wgrad sums": ("sum_partials_kernel",),

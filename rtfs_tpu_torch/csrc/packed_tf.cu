@@ -8,12 +8,13 @@
 // as JAX's wgrad kernels do; the caller rounds it once.
 //
 // bf16 storage (the *_fwd_bf16 entries): x, w, bias and out bf16, every
-// sum float32, each output rounded once as it is stored. K5, K8 and K9
-// are their float32 kernels with the element type a template argument (K5
-// widens its ring's 8-byte chunks of 4 channels as it reads them, K8/K9
-// their 8-byte chunks into the float32 tile; the maps stay float32; JAX's
-// float32 rank-4 side of K8/K9 is a Mosaic workaround that gives the same
-// values). K6 and K7 are new kernels (pw_proj_bf16_kernel,
+// sum float32, each output rounded once as it is stored. K5 is its
+// float32 kernel with the element type a template argument (it widens its
+// ring's 8-byte chunks of 4 channels as it reads them). K8 and K9 are
+// their own kernels (spatial_down_bf16_kernel, spatial_up_bf16_kernel,
+// below; the maps stay float32; JAX's float32 rank-4 side of K8/K9 is a
+// Mosaic workaround that gives the same values). K6 and K7 are new
+// kernels (pw_proj_bf16_kernel,
 // pw_unproj_bf16_kernel): JAX's bf16 dot with a float32 result is one
 // bf16 mma.sync m16n8k16 a fragment pair (the products of bf16 values are
 // exact, so no 3xTF32 split), 128 x 64 tiles over all of K. Bound on the
@@ -143,6 +144,28 @@
 //     each packed chunk from the tile through the F side and stores it to
 //     every row of the run. A run with no source writes 0 without reading
 //     x. The wrapper refuses a tile larger than a block's shared memory.
+//     In bf16 storage (spatial_down_bf16_kernel, spatial_up_bf16_kernel)
+//     the same sums, in the same order, by kernels built for the small
+//     bs-1 maps (~5 MB a call at the preset): the float32 kernels' one
+//     block a row filled under a quarter of the card at bs 1, staged the
+//     map behind a barrier before the first load and moved 8-byte
+//     chunks, 0.14-0.26 of the bound. Both move 16-byte chunks of 8
+//     values on both sides (value by value where C, the row or a pointer
+//     is not aligned to them), read the map through the read-only cache
+//     (no staging before the first loads), and issue a chunk's loads
+//     (K8: its NT x NF; K9: kUp16Items chunks' NT) before their sums. K8:
+//     a block writes kDown16F output f2 of one row (500 blocks of 128
+//     threads at bs 1), a thread forms 8 channels of one f2, and a
+//     float32 tile turns them round so that each channel's run of f2
+//     leaves as 16-byte chunks. K9: a block writes a run of rows (K9's
+//     runs, as above) for a block of fb output f; the wrapper picks fb so
+//     that the launch has about 4 x 132 blocks or more (5 blocks of 26 f
+//     a run at bs 1, one of all 129 at bs 8) and the tile fits, and gives
+//     each block the 16-byte input chunks its f's sources lie in
+//     (ops/packed_tf.map16_geometry). K9 rounds each F source's term to
+//     bf16 and adds the terms in bf16, in order, as JAX's K8 VJP sums one
+//     single-source pass a source (one source, every forward map, is one
+//     rounding).
 
 // K5-wgrad dw_conv_packed_wgrad replaces _make_dw_wgrad_kernel
 //     (pallas_call in _dw_conv_wgrad_impl), folded over F as the JAX
@@ -257,6 +280,21 @@ constexpr int kMapPad = 4;     // K8/K9 tile: floats past round_up(C, 4) a row
 constexpr int kMapBlocks = 4;  // K8/K9 blocks an SM: at most 64 registers
 constexpr int kK8Items = 2;   // K8: chunks a thread loads at once
 constexpr int kK9Items = 4;   // K9: chunks a thread loads at once
+// K8 and K9 in bf16 storage (ops/packed_tf.py mirrors them): a K8 block
+// kDown16F output f2 of one row, kDown16Threads threads, kDown16Blocks an
+// SM (at most 85 registers); a K9 block kUp16Threads threads, kUp16Blocks
+// an SM (at most 42 registers), each thread staging kUp16Items chunks at
+// once (half where NT > 1); their float32 tiles' rows round_up(C, 8) +
+// kMap16Pad floats (a row's 8-channel chunks 16-byte aligned; 4 mod 32
+// banks). tools/kernel_variants.py maps16 times other values: 2 items and
+// 6 blocks beat 4 and 4 by 1.3 us at bs 1 and 1 us at bs 8 (PERF.md)
+constexpr int kDown16Threads = 128;
+constexpr int kDown16F = 16;
+constexpr int kDown16Blocks = 6;
+constexpr int kUp16Threads = 256;
+constexpr int kUp16Blocks = 6;
+constexpr int kUp16Items = 2;
+constexpr int kMap16Pad = 4;
 // K5-wgrad (ops/packed_tf.py mirrors them): threads a block when the taps
 // are template arguments, and at most; the taps of a thread's window
 constexpr int kWgThreads = 256;
@@ -335,20 +373,6 @@ __device__ __forceinline__ float4 widen(uint2 v) {
                      __uint_as_float(v.y & 0xffff0000u));
 }
 
-// a chunk of 4 bf16 values at p, widened: one 8-byte access where vec
-// (every chunk of the row whole and 8-byte aligned), else the first n as
-// scalars
-__device__ __forceinline__ float4 load_chunk(const __nv_bfloat16* p, int n,
-                                             bool vec) {
-  if (vec) return widen(__ldg(reinterpret_cast<const uint2*>(p)));
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (n > 0) v.x = __bfloat162float(p[0]);
-  if (n > 1) v.y = __bfloat162float(p[1]);
-  if (n > 2) v.z = __bfloat162float(p[2]);
-  if (n > 3) v.w = __bfloat162float(p[3]);
-  return v;
-}
-
 __device__ __forceinline__ unsigned short bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
@@ -372,20 +396,6 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* p, float4 v, int n,
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// each value rounded to bf16 (nearest even), as float32
-__device__ __forceinline__ float4 round_bf16(float4 v) {
-  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
-                     __bfloat162float(__float2bfloat16_rn(v.y)),
-                     __bfloat162float(__float2bfloat16_rn(v.z)),
-                     __bfloat162float(__float2bfloat16_rn(v.w)));
-}
-
-// a + b of bf16 values, rounded to bf16: the float32 sum of two bf16
-// values rounded once, a bf16 add
-__device__ __forceinline__ float4 add_bf16(float4 a, float4 b) {
-  return round_bf16(make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
 }
 
 __device__ __forceinline__ float4 fma4(float w, float4 v, float4 a) {
@@ -1219,13 +1229,11 @@ __device__ __forceinline__ bool stage_map(
   return any;
 }
 
-// grid (T_out, B). x packed (B, T_in, F_in*C), out (B, C, T_out, F_out),
-// both of E (float, or bf16 storage: the sums in float32 in the tile,
-// each output rounded once as it is stored). tile (round_up(F_out, 4),
-// CS): the row's sums, channels fastest.
-template <int kNT, int kNF, typename E>
+// grid (T_out, B). x packed (B, T_in, F_in*C), out (B, C, T_out, F_out).
+// tile (round_up(F_out, 4), CS): the row's sums, channels fastest.
+template <int kNT, int kNF>
 __global__ void __launch_bounds__(kThreads, kMapBlocks)
-spatial_down_kernel(const E* __restrict__ x, E* __restrict__ out,
+spatial_down_kernel(const float* __restrict__ x, float* __restrict__ out,
                     const int* __restrict__ ts, const float* __restrict__ tw,
                     const int* __restrict__ fs, const float* __restrict__ fw,
                     int T_in, int F_in, int C, int T_out, int F_out, int nt,
@@ -1245,7 +1253,7 @@ spatial_down_kernel(const E* __restrict__ x, E* __restrict__ out,
 
   // in: chunk (f2, q) = channels 4q.. of output f2, both sides applied
   if (any) {
-    const E* xb = x + (long long)b * T_in * F_in * C;
+    const float* xb = x + (long long)b * T_in * F_in * C;
     const bool vec = (C & 3) == 0 && chunk_aligned(x);
     const int n = F_out * CQ;
     for (int e0 = tid; e0 < n; e0 += kK8Items * kThreads) {
@@ -1257,7 +1265,7 @@ spatial_down_kernel(const E* __restrict__ x, E* __restrict__ out,
       for (int i = 0; i < NT; ++i) {
         const float wt = tw_s[i];
         if (wt == 0.f) continue;
-        const E* row = xb + (long long)ts_s[i] * F_in * C;
+        const float* row = xb + (long long)ts_s[i] * F_in * C;
         float4 s[kK8Items];
 #pragma unroll
         for (int u = 0; u < kK8Items; ++u)
@@ -1313,10 +1321,10 @@ spatial_down_kernel(const E* __restrict__ x, E* __restrict__ out,
 // grid (G, B): block g writes the output rows [rows[g], rows[g+1]), which
 // share one T row of the map. x (B, C, T_in, F_in), out packed
 // (B, T_out, F_out*C). tile (round_up(F_in, 4), CS): the T-combined input,
-// channels fastest. x and out of E, as K8's.
-template <int kNT, int kNF, typename E>
+// channels fastest.
+template <int kNT, int kNF>
 __global__ void __launch_bounds__(kThreads, kMapBlocks)
-spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
+spatial_up_kernel(const float* __restrict__ x, float* __restrict__ out,
                   const int* __restrict__ ts, const float* __restrict__ tw,
                   const int* __restrict__ fs, const float* __restrict__ fw,
                   const int* __restrict__ rows, int T_in, int F_in, int C,
@@ -1338,7 +1346,7 @@ spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
   // in: chunk (c, p) = f 4p.. of channel c, summed over the T row
   if (any) {
     const long long plane = (long long)T_in * F_in;
-    const E* xb = x + (long long)b * C * plane;
+    const float* xb = x + (long long)b * C * plane;
     const bool vec = (F_in & 3) == 0 && chunk_aligned(x);
     const int n = planar_items(C, FP);
     for (int e0 = tid; e0 < n; e0 += kK9Items * kThreads) {
@@ -1356,7 +1364,7 @@ spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
       for (int i = 0; i < NT; ++i) {
         const float wt = tw_s[i];
         if (wt == 0.f) continue;
-        const E* row = xb + (long long)ts_s[i] * F_in;
+        const float* row = xb + (long long)ts_s[i] * F_in;
         float4 v[kK9Items];
 #pragma unroll
         for (int u = 0; u < kK9Items; ++u)
@@ -1380,11 +1388,7 @@ spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
   __syncthreads();
 
   // out: chunk (f, q) = channels 4q.. of f, through the F side, to every
-  // row of the run. bf16: each source's term rounded to bf16 and the
-  // terms added in bf16, in order, as JAX's K8 VJP sums one single-source
-  // pass a source of a transposed map, each in the cotangent's dtype
-  // (_spatial_down_bwd); with one source (every forward map) that is the
-  // single rounding of the float32 sum.
+  // row of the run
   const bool vec = (C & 3) == 0 && chunk_aligned(out);
   const long long row_len = (long long)F_out * C;
   for (int e = tid; e < F_out * CQ; e += kThreads) {
@@ -1397,15 +1401,316 @@ spatial_up_kernel(const E* __restrict__ x, E* __restrict__ out,
         if (wf == 0.f) continue;
         const float4 v = *reinterpret_cast<const float4*>(
             tile + fs_s[f * NF + j] * CS + 4 * q);
-        if constexpr (sizeof(E) == 2)
-          s = add_bf16(s, round_bf16(make_float4(wf * v.x, wf * v.y,
-                                                 wf * v.z, wf * v.w)));
-        else
-          s = fma4(wf, v, s);
+        s = fma4(wf, v, s);
       }
-    E* o = out + ((long long)b * T_out + t0) * row_len +
+    float* o = out + ((long long)b * T_out + t0) * row_len +
                (long long)f * C + 4 * q;
     for (int t = t0; t < t1; ++t, o += row_len) store_chunk(o, s, C - 4 * q, vec);
+  }
+}
+
+// 8 bf16 values (16 bytes) widened to float32 (exact)
+__device__ __forceinline__ void widen8(const uint4& v, float (&o)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    o[2 * k] = __uint_as_float(w[k] << 16);
+    o[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// the 16 bytes of 8 bf16 values at p: one 16-byte load where vec, else the
+// first n value by value and zero past them
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int n,
+                                       bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (k < n) w[k >> 1] |= (uint32_t)q[k] << (16 * (k & 1));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// v rounded to bf16 (each value once) as 8 values at p: one 16-byte store
+// where vec, else the first n value by value
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8],
+                                       int n, bool vec) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = (uint32_t)bf16_bits(v[2 * k]) |
+           ((uint32_t)bf16_bits(v[2 * k + 1]) << 16);
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (k < n) q[k] = (unsigned short)(w[k >> 1] >> (16 * (k & 1)));
+}
+
+// a[k] += w * (the 8 bf16 values of raw)[k], each an FMA
+__device__ __forceinline__ void fma8(float w, const uint4& raw,
+                                     float (&a)[8]) {
+  float v[8];
+  widen8(raw, v);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = fmaf(w, v[k], a[k]);
+}
+
+__device__ __forceinline__ float rbf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// K8 in bf16 storage. grid (ceil(F_out / kDown16F), T_out, B): block (j,
+// t2) writes output f2 [j kDown16F, (j + 1) kDown16F) of row t2 of a batch
+// row, every channel. x packed (B, T_in, F_in*C), out (B, C, T_out,
+// F_out), both bf16; the map float32 (ts/tw (T_out, NT), fs/fw (F_out,
+// NF)), read through the read-only cache, no staging. A thread forms
+// chunk (f2, 8 channels): the map's terms, then every one of its NT x NF
+// 16-byte loads (NT, NF template arguments) before the sums, F side then
+// T side in float32 as the float32 kernel sums them; the (kDown16F, CS)
+// float32 tile turns the sums round, and each channel's run of f2 leaves
+// as 16-byte chunks, rounded once.
+template <int kNT, int kNF>
+__global__ void __launch_bounds__(kDown16Threads, kDown16Blocks)
+spatial_down_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                         __nv_bfloat16* __restrict__ out,
+                         const int* __restrict__ ts,
+                         const float* __restrict__ tw,
+                         const int* __restrict__ fs,
+                         const float* __restrict__ fw, int T_in, int F_in,
+                         int C, int T_out, int F_out, int nt, int nf,
+                         int vec_in, int vec_out) {
+  const int NT = kNT > 0 ? kNT : nt, NF = kNF > 0 ? kNF : nf;
+  const int CS = round_up(C, 8) + kMap16Pad, CQ = (C + 7) >> 3;
+  const int j = blockIdx.x, t2 = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int f0 = j * kDown16F, nfb = min(kDown16F, F_out - f0);
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  const int* tsr = ts + (long long)t2 * NT;
+  const float* twr = tw + (long long)t2 * NT;
+  bool any = false;
+  for (int i = 0; i < NT; ++i) any |= __ldg(twr + i) != 0.f;
+
+  // in: chunk (f2, q) = channels 8q.. of output f2; neighbouring threads on
+  // neighbouring chunks (a 128-byte f block of 64 channels a quarter warp)
+  if (any) {
+    const __nv_bfloat16* xb = x + (long long)b * T_in * F_in * C;
+    for (int e = tid; e < nfb * CQ; e += kDown16Threads) {
+      const int fl = e / CQ, q = e - fl * CQ, f2 = f0 + fl;
+      const __nv_bfloat16* xq = xb + 8 * q;
+      const int* fsr = fs + (long long)f2 * NF;
+      const float* fwr = fw + (long long)f2 * NF;
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if constexpr (kNT > 0) {
+        float wt[kNT], wf[kNF];
+        int tr[kNT], fc[kNF];
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          wt[i] = __ldg(twr + i);
+          tr[i] = __ldg(tsr + i);
+        }
+#pragma unroll
+        for (int u = 0; u < kNF; ++u) {
+          wf[u] = __ldg(fwr + u);
+          fc[u] = __ldg(fsr + u);
+        }
+        uint4 raw[kNT][kNF];
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int u = 0; u < kNF; ++u)
+            raw[i][u] = wt[i] != 0.f && wf[u] != 0.f
+                            ? load8(xq + ((long long)tr[i] * F_in + fc[u]) * C,
+                                    C - 8 * q, vec_in)
+                            : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          if (wt[i] == 0.f) continue;
+          float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < kNF; ++u)
+            if (wf[u] != 0.f) fma8(wf[u], raw[i][u], s);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = fmaf(wt[i], s[k], acc[k]);
+        }
+      } else {
+        for (int i = 0; i < NT; ++i) {
+          const float wt = __ldg(twr + i);
+          if (wt == 0.f) continue;
+          const __nv_bfloat16* row = xq + (long long)__ldg(tsr + i) * F_in * C;
+          float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          for (int u = 0; u < NF; ++u) {
+            const float wf = __ldg(fwr + u);
+            if (wf != 0.f)
+              fma8(wf, load8(row + (long long)__ldg(fsr + u) * C, C - 8 * q,
+                             vec_in),
+                   s);
+          }
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = fmaf(wt, s[k], acc[k]);
+        }
+      }
+      float4* d = reinterpret_cast<float4*>(tile + fl * CS + 8 * q);
+      d[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      d[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+  }
+  __syncthreads();
+
+  // out: chunk (c, p) = f2 f0 + 8p.. of channel c; neighbouring threads on
+  // the chunks of one channel, then on neighbouring channels (kDown16F 16:
+  // a channel's 32 contiguous bytes a thread pair)
+  const int P8 = (nfb + 7) >> 3;
+  for (int e = tid; e < C * P8; e += kDown16Threads) {
+    const int c = e / P8, p = e - c * P8;
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = any ? tile[(8 * p + k) * CS + c] : 0.f;
+    store8(out + (((long long)b * C + c) * T_out + t2) * F_out + f0 + 8 * p,
+           v, nfb - 8 * p, vec_out);
+  }
+}
+
+// K9 in bf16 storage. grid (nF, G, B): block (j, g) writes output f [j fb,
+// j fb + fb) of the rows [rows[g], rows[g+1]) of a batch row, which share
+// their T terms: rts/rtw (G, NT), those of the run's first row. x (B, C,
+// T_in, F_in), out packed (B, T_out, F_out*C), both bf16; the map and the
+// plan read through the read-only cache, no staging before the loads. fr
+// (nF, 2): the block stages input f [8 fr[j][0], 8 (fr[j][0] + fr[j][1])),
+// the 16-byte chunks that hold every source of its f (fr[j][1] 0: none).
+// Shared memory: the block's F terms fw/fs (fb, NF), then the
+// (tile_rows, CS) float32 tile of the T-combined input, channels fastest.
+// A thread stages chunk (c, p) of 8 f of a channel (the run's NT 16-byte
+// loads before their sums, a warp 16 channels x 2 chunks: 32 contiguous
+// bytes of each of 16 rows; the tile's scalar stores at most two to a
+// bank), then forms chunk (f, 8 channels) through the F side and stores it
+// to every row of the run: neighbouring threads on neighbouring chunks,
+// 16 bytes each.
+template <int kNT, int kNF>
+__global__ void __launch_bounds__(kUp16Threads, kUp16Blocks)
+spatial_up_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                       __nv_bfloat16* __restrict__ out,
+                       const int* __restrict__ rts,
+                       const float* __restrict__ rtw,
+                       const int* __restrict__ fs,
+                       const float* __restrict__ fw,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ fr, int T_in, int F_in, int C,
+                       int T_out, int F_out, int nt, int nf, int fb,
+                       int vec_in, int vec_out) {
+  const int NT = kNT > 0 ? kNT : nt, NF = kNF > 0 ? kNF : nf;
+  const int CS = round_up(C, 8) + kMap16Pad, CQ = (C + 7) >> 3;
+  const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int f0 = j * fb, nfb = min(fb, F_out - f0);
+  const int t0 = __ldg(rows + g), t1 = __ldg(rows + g + 1);
+  const int lo = __ldg(fr + 2 * j), n8 = __ldg(fr + 2 * j + 1);
+  const int* tsr = rts + (long long)g * NT;
+  const float* twr = rtw + (long long)g * NT;
+  extern __shared__ float4 smem4[];
+  float* fw_s = reinterpret_cast<float*>(smem4);
+  int* fs_s = reinterpret_cast<int*>(fw_s + fb * NF);
+  float* tile = fw_s + round_up(2 * fb * NF, 4);
+  bool any = false;
+  for (int i = 0; i < NT; ++i) any |= __ldg(twr + i) != 0.f;
+  const bool staged = any && n8 > 0;
+
+  if (staged) {
+    // in: chunk (c, p) = f 8 (lo + p).. of channel c, summed over the T
+    // terms in float32 as the float32 kernel sums them
+    const long long plane = (long long)T_in * F_in;
+    const __nv_bfloat16* xb = x + (long long)b * C * plane;
+    const int cg = (C + 15) >> 4;
+    const int n_in = 32 * cg * ((n8 + 1) >> 1);
+    // kU items a thread at once, their loads issued before their sums
+    constexpr int kU = kNT > 1 ? kUp16Items / 2 : kUp16Items;
+    for (int e0 = tid; e0 < n_in; e0 += kU * kUp16Threads) {
+      int c[kU], f8[kU];
+      bool ok[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + u * kUp16Threads, lane = e & 31, grp = e >> 5;
+        c[u] = (grp % cg) * 16 + (lane >> 1);
+        const int p = (grp / cg) * 2 + (lane & 1);
+        ok[u] = e < n_in && c[u] < C && p < n8;
+        f8[u] = 8 * (lo + p);
+      }
+      uint4 raw[kU][kNT > 0 ? kNT : 1];
+      if constexpr (kNT > 0) {
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          const float wt = __ldg(twr + i);
+          const long long row = (long long)__ldg(tsr + i) * F_in;
+#pragma unroll
+          for (int u = 0; u < kU; ++u)
+            raw[u][i] = ok[u] && wt != 0.f
+                            ? load8(xb + c[u] * plane + row + f8[u],
+                                    F_in - f8[u], vec_in)
+                            : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (!ok[u]) continue;
+        const __nv_bfloat16* xc = xb + c[u] * plane + f8[u];
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if constexpr (kNT > 0) {
+#pragma unroll
+          for (int i = 0; i < kNT; ++i) {
+            const float wt = __ldg(twr + i);
+            if (wt != 0.f) fma8(wt, raw[u][i], acc);
+          }
+        } else {
+          for (int i = 0; i < NT; ++i) {
+            const float wt = __ldg(twr + i);
+            if (wt != 0.f)
+              fma8(wt, load8(xc + (long long)__ldg(tsr + i) * F_in,
+                             F_in - f8[u], vec_in),
+                   acc);
+          }
+        }
+        float* d = tile + (f8[u] - 8 * lo) * CS + c[u];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) d[k * CS] = acc[k];
+      }
+    }
+    // the block's F terms, each source as its row of the tile
+    for (int e = tid; e < nfb * NF; e += kUp16Threads) {
+      fw_s[e] = __ldg(fw + (long long)f0 * NF + e);
+      fs_s[e] = __ldg(fs + (long long)f0 * NF + e) - 8 * lo;
+    }
+  }
+  __syncthreads();
+
+  // out: chunk (f, q) = channels 8q.. of f. Each source's term rounded to
+  // bf16 and the terms added in bf16, in order, as JAX's K8 VJP sums one
+  // single-source pass a source of a transposed map, each in the
+  // cotangent's dtype (_spatial_down_bwd); with one source (every forward
+  // map) that is the single rounding of the float32 sum.
+  const long long row_len = (long long)F_out * C;
+  __nv_bfloat16* ob =
+      out + ((long long)b * T_out + t0) * row_len + (long long)f0 * C;
+  for (int e = tid; e < nfb * CQ; e += kUp16Threads) {
+    const int fl = e / CQ, q = e - fl * CQ;
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (staged)
+#pragma unroll
+      for (int u = 0; u < NF; ++u) {
+        const float wf = fw_s[fl * NF + u];
+        if (wf == 0.f) continue;
+        const float4* v4 = reinterpret_cast<const float4*>(
+            tile + fs_s[fl * NF + u] * CS + 8 * q);
+        const float4 a = v4[0], c4 = v4[1];
+        const float v[8] = {a.x, a.y, a.z, a.w, c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s[k] = rbf(s[k] + rbf(wf * v[k]));
+      }
+    __nv_bfloat16* o = ob + (long long)fl * C + 8 * q;
+    for (int t = t0; t < t1; ++t, o += row_len)
+      store8(o, s, C - 8 * q, vec_out);
   }
 }
 
@@ -2355,8 +2660,7 @@ int launch_dw_conv(const void* x, const void* w, const void* bias, void* out,
   return (int)cudaGetLastError();
 }
 
-// K8's launch on elements E; see spatial_down_packed_fwd
-template <typename E>
+// K8's launch; see spatial_down_packed_fwd
 int launch_spatial_down(const void* x, void* out, const void* ts,
                         const void* tw, const void* fs, const void* fw, int B,
                         int T_in, int F_in, int C, int T_out, int F_out,
@@ -2365,20 +2669,19 @@ int launch_spatial_down(const void* x, void* out, const void* ts,
       !grid_ok(B, 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = map_smem(4 * ((F_out + 3) / 4), C, F_out, NT, NF);
-  const auto kernel = pick_map_kernel(NT, NF, spatial_down_kernel<0, 0, E>,
-                                      spatial_down_kernel<1, 1, E>,
-                                      spatial_down_kernel<2, 2, E>,
-                                      spatial_down_kernel<3, 3, E>);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_down_kernel<0, 0>,
+                                      spatial_down_kernel<1, 1>,
+                                      spatial_down_kernel<2, 2>,
+                                      spatial_down_kernel<3, 3>);
   cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(T_out, B), kThreads, smem, (cudaStream_t)stream>>>(
-      (const E*)x, (E*)out, (const int*)ts, (const float*)tw, (const int*)fs,
+      (const float*)x, (float*)out, (const int*)ts, (const float*)tw, (const int*)fs,
       (const float*)fw, T_in, F_in, C, T_out, F_out, NT, NF);
   return (int)cudaGetLastError();
 }
 
-// K9's launch on elements E; see spatial_up_packed_fwd
-template <typename E>
+// K9's launch; see spatial_up_packed_fwd
 int launch_spatial_up(const void* x, void* out, const void* ts,
                       const void* tw, const void* fs, const void* fw,
                       const void* rows, int B, int T_in, int F_in, int C,
@@ -2388,16 +2691,84 @@ int launch_spatial_up(const void* x, void* out, const void* ts,
       NF < 1 || G < 1 || G > T_out || !grid_ok(B, 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = map_smem(4 * ((F_in + 3) / 4), C, F_out, NT, NF);
-  const auto kernel = pick_map_kernel(NT, NF, spatial_up_kernel<0, 0, E>,
-                                      spatial_up_kernel<1, 1, E>,
-                                      spatial_up_kernel<2, 2, E>,
-                                      spatial_up_kernel<3, 3, E>);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_up_kernel<0, 0>,
+                                      spatial_up_kernel<1, 1>,
+                                      spatial_up_kernel<2, 2>,
+                                      spatial_up_kernel<3, 3>);
   cudaError_t e = allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(G, B), kThreads, smem, (cudaStream_t)stream>>>(
-      (const E*)x, (E*)out, (const int*)ts, (const float*)tw, (const int*)fs,
+      (const float*)x, (float*)out, (const int*)ts, (const float*)tw, (const int*)fs,
       (const float*)fw, (const int*)rows, T_in, F_in, C, T_out, F_out, NT,
       NF);
+  return (int)cudaGetLastError();
+}
+
+// K8 bf16's shared bytes: its (kDown16F, CS) float32 tile
+// (ops/packed_tf.map_geometry)
+size_t down16_smem(int C) {
+  return (size_t)kDown16F * (round_up(C, 8) + kMap16Pad) * sizeof(float);
+}
+
+// K9 bf16's: the block's F terms (fb, NF) as floats and ints, then the
+// (tile_rows, CS) float32 tile (ops/packed_tf.map_geometry)
+size_t up16_smem(int tile_rows, int C, int fb, int NF) {
+  return ((size_t)round_up(2 * fb * NF, 4) +
+          (size_t)tile_rows * (round_up(C, 8) + kMap16Pad)) *
+         sizeof(float);
+}
+
+// K8's launch in bf16 storage; see spatial_down_packed_fwd_bf16
+int launch_spatial_down_bf16(const void* x, void* out, const void* ts,
+                             const void* tw, const void* fs, const void* fw,
+                             int B, int T_in, int F_in, int C, int T_out,
+                             int F_out, int NT, int NF, void* stream) {
+  if (B < 1 || C < 1 || T_out < 1 || F_out < 1 || NT < 1 || NF < 1 ||
+      !grid_ok(T_out, B))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = down16_smem(C);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_down_bf16_kernel<0, 0>,
+                                      spatial_down_bf16_kernel<1, 1>,
+                                      spatial_down_bf16_kernel<2, 2>,
+                                      spatial_down_bf16_kernel<3, 3>);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec_in = C % 8 == 0 && aligned16(x);
+  const int vec_out = F_out % 8 == 0 && aligned16(out);
+  kernel<<<dim3((F_out + kDown16F - 1) / kDown16F, T_out, B), kDown16Threads,
+           smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (__nv_bfloat16*)out, (const int*)ts,
+      (const float*)tw, (const int*)fs, (const float*)fw, T_in, F_in, C, T_out,
+      F_out, NT, NF, vec_in, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// K9's launch in bf16 storage; see spatial_up_packed_fwd_bf16
+int launch_spatial_up_bf16(const void* x, void* out, const void* rts,
+                           const void* rtw, const void* fs, const void* fw,
+                           const void* rows, const void* fr, int B, int T_in,
+                           int F_in, int C, int T_out, int F_out, int NT,
+                           int NF, int G, int nF, int fb, int tile_rows,
+                           void* stream) {
+  if (B < 1 || C < 1 || F_in < 1 || T_out < 1 || F_out < 1 || NT < 1 ||
+      NF < 1 || G < 1 || G > T_out || nF < 1 || fb < 1 ||
+      (long long)(nF - 1) * fb >= F_out || (long long)nF * fb < F_out ||
+      tile_rows < 0 || tile_rows % 8 != 0 || !grid_ok(G, B))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = up16_smem(tile_rows, C, fb, NF);
+  const auto kernel = pick_map_kernel(NT, NF, spatial_up_bf16_kernel<0, 0>,
+                                      spatial_up_bf16_kernel<1, 1>,
+                                      spatial_up_bf16_kernel<2, 2>,
+                                      spatial_up_bf16_kernel<3, 3>);
+  cudaError_t e = allow_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec_in = F_in % 8 == 0 && aligned16(x);
+  const int vec_out = C % 8 == 0 && aligned16(out);
+  kernel<<<dim3(nF, G, B), kUp16Threads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (__nv_bfloat16*)out, (const int*)rts,
+      (const float*)rtw, (const int*)fs, (const float*)fw, (const int*)rows,
+      (const int*)fr, T_in, F_in, C, T_out, F_out, NT, NF, fb, vec_in,
+      vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -2505,21 +2876,20 @@ extern "C" int spatial_down_packed_fwd(const void* x, void* out,
                                        int T_in, int F_in, int C, int T_out,
                                        int F_out, int NT, int NF,
                                        void* stream) {
-  return launch_spatial_down<float>(x, out, ts, tw, fs, fw, B, T_in, F_in, C,
-                                    T_out, F_out, NT, NF, stream);
+  return launch_spatial_down(x, out, ts, tw, fs, fw, B, T_in, F_in, C, T_out,
+                             F_out, NT, NF, stream);
 }
 
-// K8 in bf16 storage: x and out bf16 (the map float32), as
-// spatial_down_packed_fwd
+// K8 in bf16 storage (spatial_down_bf16_kernel): x and out bf16, the map
+// float32 as spatial_down_packed_fwd's
 extern "C" int spatial_down_packed_fwd_bf16(const void* x, void* out,
                                             const void* ts, const void* tw,
                                             const void* fs, const void* fw,
                                             int B, int T_in, int F_in, int C,
                                             int T_out, int F_out, int NT,
                                             int NF, void* stream) {
-  return launch_spatial_down<__nv_bfloat16>(x, out, ts, tw, fs, fw, B, T_in,
-                                            F_in, C, T_out, F_out, NT, NF,
-                                            stream);
+  return launch_spatial_down_bf16(x, out, ts, tw, fs, fw, B, T_in, F_in, C,
+                                  T_out, F_out, NT, NF, stream);
 }
 
 // rows (G + 1): the starts of the runs of output rows one block writes,
@@ -2530,22 +2900,26 @@ extern "C" int spatial_up_packed_fwd(const void* x, void* out, const void* ts,
                                      int T_in, int F_in, int C, int T_out,
                                      int F_out, int NT, int NF, int G,
                                      void* stream) {
-  return launch_spatial_up<float>(x, out, ts, tw, fs, fw, rows, B, T_in, F_in,
-                                  C, T_out, F_out, NT, NF, G, stream);
+  return launch_spatial_up(x, out, ts, tw, fs, fw, rows, B, T_in, F_in, C,
+                           T_out, F_out, NT, NF, G, stream);
 }
 
-// K9 in bf16 storage: x and out bf16 (the map float32), as
-// spatial_up_packed_fwd
+// K9 in bf16 storage (spatial_up_bf16_kernel): x and out bf16, fs/fw as
+// spatial_up_packed_fwd's; the plan of ops/packed_tf.map_geometry: rts/rtw
+// (G, NT) the T terms of each run's first row, rows (G + 1) the runs, fr
+// (nF, 2) the staged input chunks of each block of fb output f, tile_rows
+// the most of them (8 f a chunk)
 extern "C" int spatial_up_packed_fwd_bf16(const void* x, void* out,
-                                          const void* ts, const void* tw,
+                                          const void* rts, const void* rtw,
                                           const void* fs, const void* fw,
-                                          const void* rows, int B, int T_in,
-                                          int F_in, int C, int T_out,
-                                          int F_out, int NT, int NF, int G,
-                                          void* stream) {
-  return launch_spatial_up<__nv_bfloat16>(x, out, ts, tw, fs, fw, rows, B,
-                                          T_in, F_in, C, T_out, F_out, NT, NF,
-                                          G, stream);
+                                          const void* rows, const void* fr,
+                                          int B, int T_in, int F_in, int C,
+                                          int T_out, int F_out, int NT,
+                                          int NF, int G, int nF, int fb,
+                                          int tile_rows, void* stream) {
+  return launch_spatial_up_bf16(x, out, rts, rtw, fs, fw, rows, fr, B, T_in,
+                                F_in, C, T_out, F_out, NT, NF, G, nF, fb,
+                                tile_rows, stream);
 }
 
 // K6 in bf16 storage: x (B, K, M) rank-4, w (K, N) through its strides,

@@ -68,7 +68,7 @@ _SIGNATURES = {
         "pw_proj_packed_fwd_bf16": (4, 6),
         "pw_unproj_packed_fwd_bf16": (4, 6),
         "spatial_down_packed_fwd_bf16": (6, 8),
-        "spatial_up_packed_fwd_bf16": (7, 9),
+        "spatial_up_packed_fwd_bf16": (8, 12),
         "dw_conv_packed_wgrad_bf16": (4, 15),
         "pw_packed_wgrad_bf16": (4, 7),
     },

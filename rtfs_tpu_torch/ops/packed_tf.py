@@ -995,24 +995,36 @@ class SpatialMap:
         return self._on[device]
 
     def launch_args(self, up: bool, c: int, f_in: int,
-                    device: torch.device) -> tuple:
+                    device: torch.device, dtype: torch.dtype = torch.float32,
+                    b: int = 1) -> tuple:
         """The map's part of a K9 (``up``) or K8 launch for ``c`` channels
-        and an input F side of ``f_in`` blocks on ``device``: (pointers into
-        ``tensors(device)``, ints after the batch size), as
-        ``spatial_{up,down}_packed_fwd`` take them; built once, after
-        ``map_geometry`` has checked that the tile fits."""
-        key = (up, c, f_in, device)
+        and an input F side of ``f_in`` blocks on ``device`` in storage
+        ``dtype``: (pointers, ints after the batch size), as
+        ``spatial_{up,down}_packed_fwd`` (or their ``_bf16`` forms) take
+        them; built once, after ``map_geometry`` has checked that the tile
+        fits. K9 in bf16 takes its plan for batch size ``b``: the T terms
+        of each run's first row, the runs, the F blocks' staged chunks."""
+        b = b if up and dtype == torch.bfloat16 else 1
+        key = (up, c, f_in, device, dtype, b)
         if key not in self._launch:
-            map_geometry(self, up, c, f_in)
-            tens = self.tensors(device)
+            geo = map_geometry(self, up, c, f_in, dtype, b)
+            tens = dict(self.tensors(device))
             names = ("ts", "tw", "fs", "fw") + (("rows",) if up else ())
             ints = (self.t_in, f_in, c, self.t_out, self.f_out,
                     tens["ts"].shape[1], self.fs.shape[1])
             if up:
                 ints += (tens["rows"].numel() - 1,)
+            if up and dtype == torch.bfloat16:
+                first = tens["rows"][:-1].long()
+                tens.update(ts=tens["ts"][first].contiguous(),
+                            tw=tens["tw"][first].contiguous(),
+                            fr=torch.from_numpy(geo["fr"]).to(device))
+                names += ("fr",)
+                ints += (len(geo["fr"]), geo["fb"], geo["tile_rows"])
+            # the plan's tensors kept alive beside their pointers
             self._launch[key] = (tuple(tens[n].data_ptr() for n in names),
-                                 ints)
-        return self._launch[key]
+                                 ints, tens)
+        return self._launch[key][:2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -1100,14 +1112,18 @@ def row_runs(ts, tw, limit: int = MAP_ROWS) -> np.ndarray:
     return np.asarray(starts, np.int32)
 
 
-def map_geometry(smap: SpatialMap, up: bool, c: int, f_in: int) -> dict:
+def map_geometry(smap: SpatialMap, up: bool, c: int, f_in: int,
+                 dtype: torch.dtype = torch.float32, b: int = 1) -> dict:
     """K9's (``up``) or K8's launch on ``smap`` for ``c`` channels and an
     input F side of ``f_in`` blocks, as csrc/packed_tf.cu runs it: ``rows``
     holds the first output row of each block, then T_out (K9: the runs of
     ``row_runs``; K8: one row a block); ``tile_rows`` the tile's rows
     (round_up(f_in, 4) for K9, round_up(F_out, 4) for K8); ``smem`` a
-    block's shared bytes. Raises ValueError when they exceed one block's
+    block's shared bytes. In bf16 storage ``map16_geometry``'s plan (for
+    batch size ``b``). Raises ValueError when they exceed one block's
     shared memory."""
+    if dtype == torch.bfloat16:
+        return map16_geometry(smap, up, c, f_in, b)
     ts, tw = smap.compact_t()
     if up:
         rows, tile_rows = row_runs(ts, tw), _round4(f_in)
@@ -1115,12 +1131,72 @@ def map_geometry(smap: SpatialMap, up: bool, c: int, f_in: int) -> dict:
         rows = np.arange(smap.t_out + 1, dtype=np.int32)
         tile_rows = _round4(smap.f_out)
     smem = map_smem(tile_rows, c, smap.f_out, ts.shape[1], smap.fs.shape[1])
+    _check_map_smem(smem, up, c, f_in, smap.f_out)
+    return {"rows": rows, "tile_rows": tile_rows, "smem": smem}
+
+
+def _check_map_smem(smem: int, up: bool, c: int, f_in: int, f_out: int):
     if smem > kernel_lib.SMEM_PER_BLOCK:
         raise ValueError(
             f"spatial_{'up' if up else 'down'}_packed: C {c}, F in {f_in} / "
-            f"out {smap.f_out} need {smem} bytes of shared memory a block, "
+            f"out {f_out} need {smem} bytes of shared memory a block, "
             f"more than {kernel_lib.SMEM_PER_BLOCK}")
-    return {"rows": rows, "tile_rows": tile_rows, "smem": smem}
+
+
+# K8 / K9 in bf16 storage (spatial_{down,up}_bf16_kernel), mirroring
+# csrc/packed_tf.cu: 16-byte chunks of 8 values on both sides
+MAP16_PAD = 4  # floats past round_up(C, 8) in a row of a tile
+DOWN16_F = 16  # K8: output f2 a block
+MAP16_BLOCKS = 4 * kernel_lib.SMS  # K9: the fewest blocks a launch aims at
+
+
+def _up16_split(smap: SpatialMap, n_f: int, cs: int) -> tuple:
+    """K9 bf16's output f cut into ``n_f`` blocks of ``fb``: (fb, fr,
+    tile_rows, smem), ``fr`` each block's staged input chunks of 8 f."""
+    fb = -(-smap.f_out // n_f)
+    n_f = -(-smap.f_out // fb)
+    fr = np.zeros((n_f, 2), np.int32)
+    for j in range(n_f):
+        blk = slice(j * fb, (j + 1) * fb)
+        src = smap.fs[blk][smap.fw[blk] != 0]
+        if src.size:
+            lo = int(src.min()) // 8
+            fr[j] = (lo, int(src.max()) // 8 - lo + 1)
+    tile_rows = 8 * int(fr[:, 1].max())
+    smem = 4 * (-(-2 * fb * smap.fs.shape[1] // 4) * 4 + tile_rows * cs)
+    return fb, fr, tile_rows, smem
+
+
+def map16_geometry(smap: SpatialMap, up: bool, c: int, f_in: int,
+                   b: int = 1) -> dict:
+    """The bf16 kernels' launch on ``smap`` for ``c`` channels, an input F
+    side of ``f_in`` blocks and batch size ``b``. K8: a block ``DOWN16_F``
+    output f2 of one row, ``grid`` (ceil(F_out / DOWN16_F), T_out); its
+    (DOWN16_F, CS) float32 tile. K9: ``row_runs``'s runs (``rows``), each
+    split into ``grid[0]`` blocks of ``fb`` output f, as few as give
+    ``MAP16_BLOCKS`` blocks over the batch (a block of 8 f at most) and
+    fit the shared memory; ``fr`` (nF, 2) the input chunks of 8 f a block
+    stages (the first, the count; (0, 0) where its f have no source),
+    ``tile_rows`` the most rows a block's tile takes. CS = round_up(c, 8) +
+    MAP16_PAD; ``smem`` a block's shared bytes. Raises ValueError where
+    they exceed one block's shared memory."""
+    cs = -(-c // 8) * 8 + MAP16_PAD
+    if not up:
+        smem = 4 * DOWN16_F * cs
+        _check_map_smem(smem, up, c, f_in, smap.f_out)
+        return {"grid": (-(-smap.f_out // DOWN16_F), smap.t_out),
+                "smem": smem}
+    ts, tw = smap.compact_t()
+    rows = row_runs(ts, tw)
+    most = -(-smap.f_out // 8)
+    n_f = min(most, -(-MAP16_BLOCKS // ((len(rows) - 1) * b)))
+    fb, fr, tile_rows, smem = _up16_split(smap, n_f, cs)
+    while smem > kernel_lib.SMEM_PER_BLOCK and n_f < most:
+        n_f = min(most, 2 * n_f)
+        fb, fr, tile_rows, smem = _up16_split(smap, n_f, cs)
+    _check_map_smem(smem, up, c, f_in, smap.f_out)
+    return {"rows": rows, "grid": (len(fr), len(rows) - 1), "fb": fb,
+            "fr": fr, "tile_rows": tile_rows, "smem": smem}
 
 
 def _down_forward(xp, smap, c):
@@ -1129,7 +1205,7 @@ def _down_forward(xp, smap, c):
         return spatial_down_packed_plain(xp, smap, c)
     dt = _check_cuda("spatial_down_packed", xp)
     b, _, n = xp.shape
-    ptrs, ints = smap.launch_args(False, c, n // c, dev)
+    ptrs, ints = smap.launch_args(False, c, n // c, dev, dt)
     out = torch.empty(b, c, smap.t_out, smap.f_out, device=dev, dtype=dt)
     kernel_lib.launch("packed_tf",
                       kernel_lib.entry("spatial_down_packed_fwd", dt), dev,
@@ -1143,7 +1219,7 @@ def _up_forward(x4, smap):
         return spatial_up_packed_plain(x4, smap)
     dt = _check_cuda("spatial_up_packed", x4)
     b, c, _, f2 = x4.shape
-    ptrs, ints = smap.launch_args(True, c, f2, dev)
+    ptrs, ints = smap.launch_args(True, c, f2, dev, dt, b)
     out = torch.empty(b, smap.t_out, smap.f_out * c, device=dev, dtype=dt)
     kernel_lib.launch("packed_tf",
                       kernel_lib.entry("spatial_up_packed_fwd", dt), dev,

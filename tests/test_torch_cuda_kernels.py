@@ -1389,6 +1389,87 @@ def test_bf16_packed_tdanet_block_card_matches_cpu(dev):
     assert err <= 2e-2 * want.float().abs().max().item(), err
 
 
+# K8 / K9 in bf16 storage (spatial_{down,up}_bf16_kernel): MAP_SHAPES and
+# the training batch; their inputs also 2 and 8 bytes off a 16-byte
+# boundary (value-by-value chunks) on the ragged and serving shapes
+MAP16_SHAPES = {**MAP_SHAPES, "training-bs4": (4, 251, 129, 64)}
+
+
+@pytest.mark.parametrize("shape", sorted(MAP16_SHAPES))
+def test_k8_k9_bf16_match_plain_and_float32(dev, shape):
+    """bf16 K8 and K9 at the three maps and their transposes against the
+    plain bf16 versions and the float32 kernels on the widened values, two
+    bf16 ulps (the transposed pool, a bf16 sum of terms rounded apart:
+    two ulps of the terms' magnitude beside the float32 kernel), two calls
+    bit-identical, one launch of the bf16 entry each."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c = MAP16_SHAPES[shape]
+    t2, f2 = (t - 2) // 2 + 1, (f - 2) // 2 + 1
+    pool = P.cached_map("pool", t, t2, f, f2)
+    sel = P.cached_map("select", t - 1, t2, f - 1, f2)
+    up = P.cached_map("nearest", t2, t, f2, f)
+    rng = np.random.default_rng(20)
+    down_fn = (P.spatial_down_packed, P.spatial_down_packed_plain)
+    up_fn = (P.spatial_up_packed, P.spatial_up_packed_plain)
+    offsets = (0, 1, 4) if shape in ("ragged", "serving") else (0,)
+    for off in offsets:
+        def x(*dims):
+            flat = _b(rng, (int(np.prod(dims)) + off,), dev)
+            return flat[off:].view(dims)
+
+        cases = [  # (entry, kernel and plain, arguments)
+            ("down pool", down_fn, (x(b, t, f * c), pool, c)),
+            ("down select", down_fn, (x(b, t - 1, (f - 1) * c), sel, c)),
+            ("up nearest", up_fn, (x(b, c, t2, f2), up)),
+            ("down transposed nearest", down_fn,
+             (x(b, t, f * c), up.transposed(f2), c)),
+            ("up transposed pool", up_fn, (x(b, c, t2, f2),
+                                           pool.transposed(f))),
+            ("up transposed select", up_fn, (x(b, c, t2, f2),
+                                             sel.transposed(f - 1))),
+        ]
+        for name, (kern, plain), args in cases:
+            what = f"{name} {shape} off {off}"
+            kernel_lib.reset_launches()
+            got = kern(*args)
+            entry = ("spatial_up_packed_fwd_bf16" if name.startswith("up")
+                     else "spatial_down_packed_fwd_bf16")
+            assert dict(kernel_lib.LAUNCHES) == {entry: 1}, what
+            _bf16_close(got, plain(*args), what)
+            f32 = kern(args[0].float(), *args[1:]).to(torch.bfloat16)
+            smap = args[1]
+            if name.startswith("up") and smap.fs.shape[1] > 1:
+                absmap = P.SpatialMap(np.abs(smap.m), smap.fs,
+                                      np.abs(smap.fw))
+                mag = P.spatial_up_packed_plain(args[0].float().abs(),
+                                                absmap)
+                g, w = got.float(), f32.float()
+                bound = 2.0 ** -7 * torch.clamp(w.abs() + mag,
+                                                min=2.0 ** -6)
+                assert not ((g - w).abs() > bound).any(), what
+            else:
+                _bf16_close(got, f32, f"{what} float32")
+            assert torch.equal(got, kern(*args)), what
+
+
+def test_k8_k9_bf16_refuse_a_tile_larger_than_shared_memory(dev):
+    """The bf16 plan's tiles: K8's 16 f2 x C and K9's staged chunks x C
+    float32; at C 8192 neither fits a block, and the wrappers raise."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    pool = P.cached_map("pool", 2, 1, 2, 1)
+    c = 8192
+    with pytest.raises(ValueError, match="shared memory"):
+        P.spatial_down_packed(torch.zeros(1, 2, 2 * c, device=dev,
+                                          dtype=torch.bfloat16), pool, c)
+    with pytest.raises(ValueError, match="shared memory"):
+        P.spatial_up_packed(torch.zeros(1, c, 1, 1, device=dev,
+                                        dtype=torch.bfloat16),
+                            pool.transposed(2))
+
+
 # ------------------------------------------------------------- bf16 K4,
 # K5-wgrad, pw-wgrad and the packed backward
 

@@ -25,7 +25,17 @@ shape it, given as ``A:B:..`` in the order of its row of ``KERNELS``:
   (256 x 64 channels over 4 x 251 x 129 positions) with the sum of the
   partials, held to the plain version (1e-4 of max|dW|) beside the bytes
   bound; then, to show drift, K6's dW of all-positive inputs in one chunk
-  a batch row (32,379 positions) held to the plain version in float64.
+  a batch row (32,379 positions) held to the plain version in float64;
+- ``maps16``: K8 and K9 in bf16 storage (``spatial_down_bf16_kernel``,
+  ``spatial_up_bf16_kernel``): K8's output f2 a block ``kDown16F``, its
+  threads ``kDown16Threads`` and blocks an SM ``kDown16Blocks``; K9's
+  staged chunks a thread at once ``kUp16Items`` and blocks an SM
+  ``kUp16Blocks``; the six map sites of the packed TDANet block (pool,
+  select, nearest and their transposes at STFT 251 x 129, 64 channels) at
+  bs 1 and 8, the launches from the wrappers' plan, held to the plain
+  bf16 versions (two bf16 ulps: the error printed is the worst element's
+  share of them) and timed by the profiler's device time a launch (CUDA
+  events over back-to-back launches of a few-us kernel time the host).
 
 Each variant is built from a copy of ``csrc/`` with the constants
 replaced, into ``rtfs_tpu_torch/_build/variants/`` (every nvcc at once),
@@ -33,12 +43,15 @@ then runs in a process of its own (loaded into one process beside the
 library built from the same source, a variant's outputs came out wrong):
 checked, then timed with CUDA events, the variants in turns and then in
 reverse order. Every site prints its error as a fraction of its output's
-max; the run fails if one is above 1e-4. Usage::
+max (``maps16``: of two bf16 ulps); the run fails if one is above 1e-4
+(``maps16``: 1). Usage::
 
     python3 tools/kernel_variants.py scan [--variants 8:1 8:2 12:2]
     python3 tools/kernel_variants.py unproj [--variants 128:3:1 64:3:2]
     python3 tools/kernel_variants.py pw_wgrad [--variants 128:3:1:64
         128:3:100000:64]
+    python3 tools/kernel_variants.py maps16 [--variants 16:128:6:2:6
+        16:128:6:4:4]
 """
 
 from __future__ import annotations
@@ -200,22 +213,106 @@ def pw_wgrad_sites(libs, values) -> dict:
     return out
 
 
+def maps16_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of K8 and K9 in bf16 at the six
+    map sites, bs 1 and 8, through the C entries with the wrappers' plan;
+    the check the worst element's share of two bf16 ulps."""
+    from chip_smoke import _map_cost
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    T, F, C, K = 251, 129, 64, 4
+    T2, F2 = (T - 2) // 2 + 1, (F - 2) // 2 + 1
+    t_conv, f_conv = P.dw_geometry(T, F, K, K, (1, 1), (1, 1))
+    pool = P.cached_map("pool", T, T2, F, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, F)
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    out = {}
+    for bs in (1, 8):
+        for site, up_, smap, shape in (
+                ("pool", False, pool, (bs, T, F * C)),
+                ("select", False, sel, (bs, t_conv, f_conv * C)),
+                ("nearest", True, up, (bs, C, T2, F2)),
+                ("transposed nearest", False, up.transposed(F2),
+                 (bs, T, F * C)),
+                ("transposed pool", True, pool.transposed(F),
+                 (bs, C, T2, F2)),
+                ("transposed select", True, sel.transposed(f_conv),
+                 (bs, C, T2, F2))):
+            x = _t(rng, shape).to(bf)
+            if up_:
+                o = torch.empty(bs, smap.t_out, smap.f_out * C, device=dev,
+                                dtype=bf)
+                want = P.spatial_up_packed_plain(x, smap)
+                ptrs, ints = smap.launch_args(True, C, shape[3], dev, bf, bs)
+                fn = libs["packed_tf"].spatial_up_packed_fwd_bf16
+            else:
+                o = torch.empty(bs, C, smap.t_out, smap.f_out, device=dev,
+                                dtype=bf)
+                want = P.spatial_down_packed_plain(x, smap, C)
+                ptrs, ints = smap.launch_args(False, C, shape[2] // C, dev,
+                                              bf)
+                fn = libs["packed_tf"].spatial_down_packed_fwd_bf16
+            nbytes = _map_cost(smap, C, bs, elem=2)[0]
+
+            def call(fn=fn, x=x, o=o, ptrs=ptrs, ints=ints, bs=bs):
+                st = fn(x.data_ptr(), o.data_ptr(), *ptrs, bs, *ints, stream)
+                assert st == 0, st
+
+            def check(o=o, want=want):
+                g, w = o.float(), want.float()
+                return ((g - w).abs() / (2.0 ** -7 * torch.clamp(
+                    w.abs(), min=2.0 ** -6))).max().item()
+
+            out[f"bs{bs} {site}"] = (call, check,
+                                     nbytes / HBM_BYTES_PER_S * 1e6)
+    return out
+
+
+def device_ms(fn, parts, iters: int = 50) -> float:
+    """The profiler's device ms a call of the kernels whose names hold
+    one of ``parts``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(e.self_device_time_total) for e in prof.key_averages()
+             if any(p in e.key for p in parts))
+    return us / iters / 1e3
+
+
 # kernel: (source whose constants change, constants, libraries built from
 # the copy, a part of the kernel's name in ptxas' report, the sites,
-# default variants)
+# default variants, the error a site may have, the kernels' names to time
+# by the profiler or None for CUDA events)
 KERNELS = {
     "scan": ("sru_scan.cuh", ("kScanAhead", "kScanGroup"),
              ("sru_fused", "sru_pallas"), "sru_scan_bwd", scan_sites,
-             ["8:1", "8:2", "12:1", "12:2", "16:1", "16:2"]),
+             ["8:1", "8:2", "12:1", "12:2", "16:1", "16:2"], TOL, None),
     "unproj": ("packed_tf.cu", ("kUnprojM", "kUnprojStages",
                                 "kUnprojBlocks"),
                ("packed_tf",), "pw_unproj", unproj_sites,
-               ["128:3:1", "128:4:1", "64:3:2", "64:4:2", "32:4:4"]),
+               ["128:3:1", "128:4:1", "64:3:2", "64:4:2", "32:4:4"], TOL,
+               None),
     "pw_wgrad": ("packed_tf.cu", ("kPwRows", "kPwStages", "kPwFlush",
                                   "kPwK"),
                  ("packed_tf",), "pw_wgrad", pw_wgrad_sites,
                  ["128:3:1:64", "128:2:1:64", "128:3:2:64", "128:3:1:32",
-                  "64:3:1:64", "256:3:1:32"]),
+                  "64:3:1:64", "256:3:1:32"], TOL, None),
+    "maps16": ("packed_tf.cu", ("kDown16F", "kDown16Threads",
+                                "kDown16Blocks", "kUp16Items",
+                                "kUp16Blocks"),
+               ("packed_tf",), "spatial_", maps16_sites,
+               ["16:128:6:2:6", "16:128:6:4:4", "32:256:4:2:6",
+                "8:64:12:2:6"], 1.0,
+               ("spatial_down_bf16_kernel", "spatial_up_bf16_kernel")),
 }
 
 
@@ -291,12 +388,14 @@ def worker(kernel: str, v: str) -> None:
     version, then timed; prints one JSON line {site: [ms, bound us, error
     as a fraction of the output's max]}."""
     sites = KERNELS[kernel][4](load(kernel, v), _values(kernel, v))
+    parts = KERNELS[kernel][7]
     res = {}
     for site, (call, check, bound_us) in sites.items():
         call()
         torch.cuda.synchronize()
         err = check()
-        res[site] = [event_ms(call), bound_us, err]
+        ms = event_ms(call) if parts is None else device_ms(call, parts)
+        res[site] = [ms, bound_us, err]
     print(json.dumps(res))
 
 
@@ -342,17 +441,18 @@ def main() -> int:
                 raise RuntimeError(f"variant {v}:\n{run.stderr[-3000:]}")
             times[v].append(json.loads(run.stdout.strip().splitlines()[-1]))
     consts = ":".join(KERNELS[args.kernel][1])
+    tol = KERNELS[args.kernel][6]
     failed = 0
     for site in times[variants[0]][0]:
         for v in variants:
             us = " / ".join(f"{1e3 * run[site][0]:.2f}" for run in times[v])
             bound = times[v][0][site][1]
             err = max(run[site][2] for run in times[v])
-            failed += not err <= TOL
+            failed += not err <= tol
             print(f"{args.kernel} {consts}={v} {site}: us a launch {us}"
                   + ("" if bound is None else f" (bound {bound:.2f}, bytes)")
-                  + f"; error {err:.3e} of max, "
-                  + ("held" if err <= TOL else "FAILS") + f" {TOL:.0e}; "
+                  + f"; error {err:.3e}, "
+                  + ("held" if err <= tol else "FAILS") + f" {tol:.0e}; "
                   + card)
     return 1 if failed else 0
 

@@ -36,17 +36,37 @@ site with other positions a thread (``p``) and runs a tile (``runs``)
 than ``ops/packed_tf.dw_wgrad_geometry`` picks, each held to the plain
 version, beside the picked geometry's device time.
 
+``--packed --bf16`` runs K8 ``spatial_down_packed`` and K9
+``spatial_up_packed`` in bf16 storage at their six sites (pool 251 x 129
+-> 125 x 64, the stride-2 select 250 x 128 -> 125 x 64, nearest 125 x 64
+-> 251 x 129 and the three transposes, each the other kernel's dx) at bs
+1, 4 and 8, each against its plain bf16 version (two bf16 ulps) and twice
+(bit-identical), with its device time a launch beside the bf16 bound
+(bytes: the distinct values read and written, 2 bytes each, and the map)
+and the device time of one PyTorch call of the same function in the same
+run (``adaptive_avg_pool2d``, a strided slice, ``interpolate``,
+``upsample_nearest2d_backward``, ``_adaptive_avg_pool2d_backward``; none
+for the transposed select), summed per packed bs-1 and bs-8 forward and
+per packed bs-4 step; the float32 K8 and K9 at the same sites (bs 1 and
+8), their device time and a hash of their outputs (the same inputs in
+either tree); then K6 ``pw_proj_packed`` in bf16 against
+``torch.baddbmm`` by device time at bs 1, 4 and 8, in turns over 5
+repeats.
+
 The wrappers' Python signatures are the same in every tree since K4 was
 ported (the packed weight gradients for ``--packed``), so two trees
 compare in turns in one call::
 
-    python3 tools/profile_backward.py [--packed | --bf16] --tree _scratch/parent
-    python3 tools/profile_backward.py [--packed | --bf16]
+    python3 tools/profile_backward.py [--packed] [--bf16] --tree _scratch/parent
+    python3 tools/profile_backward.py [--packed] [--bf16]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import importlib.util
+import math
 import os
 import subprocess
 import sys
@@ -93,8 +113,9 @@ def event_ms(fn, iters: int = 30) -> float:
 
 
 def device_us(fn, parts, iters: int = 20) -> tuple:
-    """(device us a call of the kernels whose names hold one of ``parts``,
-    their launches a call, their names)."""
+    """(device us a call of the kernels whose names hold one of ``parts``
+    (a part may be a tuple of strings the name holds all of; None: every
+    kernel), their launches a call, their names)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -104,12 +125,18 @@ def device_us(fn, parts, iters: int = 20) -> tuple:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+
+    def named(key):
+        return parts is None or any(
+            all(q in key for q in ((p,) if isinstance(p, str) else p))
+            for p in parts)
+
     picked = [e for e in prof.key_averages()
-              if any(p in e.key for p in parts)
+              if named(e.key) and float(e.self_device_time_total) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(float(e.self_device_time_total) for e in picked)
     launches = sum(e.count for e in picked) / iters
-    names = sorted({e.key.split("(")[0].split("::")[-1] for e in picked})
+    names = sorted({e.key.split("(")[0][:60] for e in picked})
     return total / iters, launches, names
 
 
@@ -284,6 +311,159 @@ def packed(t, sweep: bool) -> None:
                   f"{mark}")
 
 
+# K8 / K9 in bf16 storage, as either tree's profiler names them: the
+# bf16 kernels, or the float32 kernels templated on bf16 before them
+MAP16_KERNELS = {"K8": ("spatial_down_bf16_kernel",
+                        ("spatial_down_kernel", "bfloat16")),
+                 "K9": ("spatial_up_bf16_kernel",
+                        ("spatial_up_kernel", "bfloat16"))}
+
+
+def _own_smoke():
+    """This checkout's ``chip_smoke`` (its bytes count and memory rate),
+    whatever ``--tree``."""
+    spec = importlib.util.spec_from_file_location(
+        "yardstick_chip_smoke", os.path.join(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def maps_bf16(t) -> None:
+    """K8 and K9 in bf16 storage at their six sites and bs 1, 4 and 8
+    (``--packed --bf16``), then K6 bf16 against ``baddbmm``."""
+    import torch.nn.functional as Fn
+
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    smoke = _own_smoke()
+    bf = torch.bfloat16
+    T, F, C, K = T_PK, F_PK, C_PK, K_PK
+    T2, F2 = (T - 2) // 2 + 1, (F - 2) // 2 + 1
+    pre = ((K - 1) // 2,) * 2
+    t_conv, f_conv = P.dw_geometry(T, F, K, K, pre, pre)
+    pool = P.cached_map("pool", T, T2, F, F2)
+    sel = P.cached_map("select", t_conv, T2, f_conv, F2)
+    up = P.cached_map("nearest", T2, T, F2, F)
+    aten = torch.ops.aten
+
+    def cl(xp, tt, ff):  # a packed map as the channels-last (B, C, T, F)
+        return xp.view(xp.shape[0], tt, ff, C).permute(0, 3, 1, 2)
+
+    # (kernel, site, launches a packed forward, a packed bs-4 step)
+    sites = (("K8", "pool", 4, 4), ("K8", "select", 4, 4),
+             ("K9", "nearest", 16, 16), ("K8", "transposed nearest", 0, 16),
+             ("K9", "transposed pool", 0, 4),
+             ("K9", "transposed select", 0, 4))
+    total = {}
+    for bs in (1, 4, 8):
+        xp, xs = t((bs, T, F * C)).to(bf), t((bs, t_conv, f_conv * C)).to(bf)
+        x2, g2 = t((bs, C, T2, F2)).to(bf), t((bs, C, T2, F2)).to(bf)
+        calls = {
+            "pool": (pool, xp, lambda: Fn.adaptive_avg_pool2d(
+                cl(xp, T, F), (T2, F2))),
+            "select": (sel, xs, lambda: cl(xs, t_conv, f_conv)[
+                :, :, ::2, ::2].contiguous()),
+            "nearest": (up, x2, lambda: Fn.interpolate(
+                x2, size=(T, F), mode="nearest")),
+            "transposed nearest": (up.transposed(F2), xp,
+                                   lambda: aten.upsample_nearest2d_backward(
+                                       cl(xp, T, F), [T, F],
+                                       [bs, C, T2, F2])),
+            "transposed pool": (pool.transposed(F), g2,
+                                lambda: aten._adaptive_avg_pool2d_backward(
+                                    g2, cl(xp, T, F))),
+            "transposed select": (sel.transposed(f_conv), g2, None),
+        }
+        for op, site, n_fwd, n_step in sites:
+            smap, x, lib = calls[site]
+            if op == "K8":
+                fn = lambda: P.spatial_down_packed(x, smap, C)  # noqa
+                want = P.spatial_down_packed_plain(x, smap, C)
+            else:
+                fn = lambda: P.spatial_up_packed(x, smap)  # noqa
+                want = P.spatial_up_packed_plain(x, smap)
+            got = fn()
+            g, w = got.float(), want.float()
+            ulps = ((g - w).abs() / (2.0 ** -7 * torch.clamp(
+                w.abs(), min=2.0 ** -6))).max().item()
+            same = torch.equal(got, fn())
+            # one launch a call: the time of the launches the profiler saw
+            us, n, names = device_us(fn, MAP16_KERNELS[op], 50)
+            us = us / n if n else math.nan
+            lib_us, lib_n, lib_names = device_us(lib, None, 50) if lib \
+                else (math.nan, 0, ["none"])
+            lib_ev = event_ms(lib, 200) * 1e3 if lib else math.nan
+            bound = (smoke._map_cost(smap, C, bs, elem=2)[0]
+                     / smoke.HBM_BYTES_PER_S * 1e6)
+            print(f"{op} bf16 bs={bs} site={site}: device {us:.2f} us a "
+                  f"launch ({n:g} launches a call of {', '.join(names)}), "
+                  f"library {lib_us:.2f} us a call ({lib_n:g} kernels a "
+                  f"call: {', '.join(lib_names)}; events over 200 calls "
+                  f"{lib_ev:.2f}), bound {bound:.2f} us "
+                  f"(bytes), share of bound {bound / us:.3f}; worst "
+                  f"{ulps:.3f} of 2 bf16 ulps against plain, two calls "
+                  f"bit-identical {same}")
+            for key, n_calls in ((f"bs-{bs} forward", n_fwd),
+                                 ("bs-4 step", n_step if bs == 4 else 0)):
+                if n_calls and not math.isnan(us):
+                    agg = total.setdefault((op, key), [0.0, 0.0, 0.0])
+                    agg[0] += n_calls * us
+                    agg[1] += n_calls * bound
+                    agg[2] += n_calls * (0.0 if math.isnan(lib_us)
+                                         else lib_us)
+    for (op, key), (us, bound, lib_us) in sorted(total.items()):
+        print(f"{op} bf16 per packed {key}: device {us / 1e3:.4f} ms, "
+              f"bound {bound / 1e3:.4f} ms (share {bound / us:.3f}), "
+              f"library {lib_us / 1e3:.4f} ms (the sites that have one)")
+
+    # the float32 K8 / K9 at the same sites: device time, and a hash of
+    # the outputs (the inputs come from the same seed in either tree)
+    for bs in (1, 8):
+        xp, xs = t((bs, T, F * C)), t((bs, t_conv, f_conv * C))
+        x2 = t((bs, C, T2, F2))
+        ins = {"pool": (pool, xp), "select": (sel, xs), "nearest": (up, x2),
+               "transposed nearest": (up.transposed(F2), xp),
+               "transposed pool": (pool.transposed(F), x2),
+               "transposed select": (sel.transposed(f_conv), x2)}
+        for op, site, _, _ in sites:
+            smap, x = ins[site]
+            if op == "K8":
+                fn = lambda: P.spatial_down_packed(x, smap, C)  # noqa
+                parts = ("spatial_down_kernel",)
+            else:
+                fn = lambda: P.spatial_up_packed(x, smap)  # noqa
+                parts = ("spatial_up_kernel",)
+            digest = hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest()
+            us, n, _ = device_us(fn, parts, 50)
+            us = us / n if n else math.nan
+            print(f"{op} float32 bs={bs} site={site}: device {us:.2f} us a "
+                  f"launch ({n:g} launches a call), output sha1 "
+                  f"{digest[:16]}")
+
+    # K6 bf16 against one baddbmm, in turns, 5 repeats a batch
+    w = t((C, CB_PK), CB_PK ** -0.5).to(bf).t()  # the layer's view
+    b_in = t((C,)).to(bf)
+    for bs in (1, 4, 8):
+        x4 = t((bs, CB_PK, T, F)).to(bf)
+        x3 = x4.view(bs, CB_PK, T * F).transpose(1, 2)
+        kern = lambda: P.pw_proj_packed(x4, w, b_in)  # noqa: E731
+        lib = lambda: torch.baddbmm(  # noqa: E731
+            b_in.view(1, 1, C), x3, w.expand(bs, CB_PK, C))
+        runs = {"kernel": [], "baddbmm": []}
+        for i in range(5):
+            order = (("kernel", kern), ("baddbmm", lib))
+            for name, fn in (order if i % 2 == 0 else order[::-1]):
+                parts = ("pw_proj_bf16_kernel",) if name == "kernel" else None
+                runs[name].append(device_us(fn, parts, 20)[0])
+        print(f"K6 bf16 bs={bs}: device us a call in turns, kernel "
+              f"{[round(v, 2) for v in runs['kernel']]}, baddbmm "
+              f"{[round(v, 2) for v in runs['baddbmm']]}; medians "
+              f"{np.median(runs['kernel']):.2f} / "
+              f"{np.median(runs['baddbmm']):.2f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -293,7 +473,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="with --packed: K5-wgrad at other geometries")
     ap.add_argument("--bf16", action="store_true",
-                    help="the SRU backward on bf16 inputs")
+                    help="the SRU backward on bf16 inputs; with --packed: "
+                         "K8 and K9 in bf16, and K6 bf16 against baddbmm")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_backward: needs a CUDA card", file=sys.stderr)
@@ -315,7 +496,10 @@ def main() -> int:
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
             np.float32)).to(dev)
 
-    if args.packed:
+    if args.packed and args.bf16:
+        maps_bf16(t)
+        print(f"tree {tree}; {card}")
+    elif args.packed:
         packed(t, args.sweep)
         print(f"tree {tree}; {card}")
     else:
