@@ -152,13 +152,15 @@ Wide (after phase 10): widths above the preset's, on the same kernels.
    prints utterances a second on the card.
 12. bf16 (after phase 11): serving with ``audionet.compute_dtype:
    "bfloat16"``, K1/K2/K3 forward through their bf16-storage entries. (a)
-   each at the main path's bs-1 and bs-8 sites against its plain bf16
-   version and against the float32 kernel on the same values widened
+   each at the main path's bs-1, bs-4 and bs-8 sites against its plain
+   bf16 version and against the float32 kernel on the same values widened
    (two bf16 ulps at every element), twice (bit-identical), timed with
    CUDA events and the profiler's device time a launch beside its bf16
    bound (bytes at 3.35 TB/s, bf16 tensor-core products at 989 TFLOP/s),
    the plain version, the float32 kernel and, for K3, one
-   ``conv_transpose1d`` in bf16; (b) ``separate_sample`` at batch 1 and 8
+   ``conv_transpose1d`` in bf16 (events, and the device time of every
+   kernel of a call), with each kernel's device ms a forward at each
+   batch; (b) ``separate_sample`` at batch 1 and 8
    on the bf16 model (seed-0 weights rounded): exactly
    ``BF16_LAUNCHES`` (K1 8 / K2 24 / K3 8 bf16 entries) a forward and no
    float32 entry, bs 1 against the bf16 model on the CPU to the CPU
@@ -2820,13 +2822,15 @@ def sisnr_db(est: np.ndarray, ref: np.ndarray) -> float:
 
 def check_bf16_kernels(geo, rng) -> dict:
     """Phase 12 (a): K1, K2 and K3 forward in bf16 storage at the main
-    path's bs-1 and bs-8 sites, each against its plain bf16 version and
-    against the float32 kernel on the same values widened (two bf16 ulps,
-    ``bf16_ulps``), called twice (bit-identical), timed with CUDA events
-    and the profiler's device time a launch, beside its bf16 bound, its
-    plain version, the float32 kernel at the same site and, for K3, one
-    ``conv_transpose1d`` in bf16. Returns per kernel the worst error and
-    per-forward (batch 8) sums, as phase 3 does."""
+    path's bs-1, bs-4 and bs-8 sites, each against its plain bf16 version
+    and against the float32 kernel on the same values widened (two bf16
+    ulps, ``bf16_ulps``), called twice (bit-identical), timed with CUDA
+    events and the profiler's device time a launch, beside its bf16
+    bound, its plain version, the float32 kernel at the same site and,
+    for K3, one ``conv_transpose1d`` in bf16 (events and its device time
+    a call, every kernel of it). Prints per kernel the device ms of a
+    forward at each batch (K3's beside the library's). Returns per kernel
+    the worst error and per-forward (batch 8) sums, as phase 3 does."""
     from rtfs_tpu_torch.ops import convt_tm, sru_fused
 
     H, C, k = geo["H"], geo["C"], geo["k"]
@@ -2850,7 +2854,8 @@ def check_bf16_kernels(geo, rng) -> dict:
                    "sru_hidden_layer": REPEATS * (geo["layers"] - 1),
                    "convt1d_ola_tm": REPEATS}
     bs1 = {}
-    for bs in (1, 8):
+    device = {n: {} for n in names.values()}  # per batch: [kernel, library]
+    for bs in (1, 4, 8):
         for site in ("freq", "time"):
             length, per_item = geo[site]
             bsz = bs * per_item
@@ -2894,6 +2899,10 @@ def check_bf16_kernels(geo, rng) -> dict:
                 r["max_abs_err"] = max(r["max_abs_err"], c["err"])
                 r["device_us"][f"bs{bs} {site}"] = round(c["dev_us"], 3)
                 n = per_forward[name]
+                dev_sum = device[bname].setdefault(bs, [0.0, 0.0])
+                dev_sum[0] += n * c["dev_us"] / 1e3
+                if c["library_dev_us"] is not None:
+                    dev_sum[1] += n * c["library_dev_us"] / 1e3
                 if bs == 1:
                     ms_sum, b_sum, f_sum = bs1.get(bname, (0.0, 0.0, 0.0))
                     bs1[bname] = (ms_sum + n * c["ms"],
@@ -2917,6 +2926,11 @@ def check_bf16_kernels(geo, rng) -> dict:
               f"ms={bs1[name][0]:.4f} bound_ms={bs1[name][1]:.4f} float32 "
               f"kernel ms={bs1[name][2]:.4f}; device us a launch "
               f"{r['device_us']}")
+        for bs, (k_ms, lib_ms) in device[name].items():
+            print(f"bf16 kernel {name}: device ms a bs-{bs} forward "
+                  f"{k_ms:.4f}" + (f" (library, every kernel of a call: "
+                                   f"{lib_ms:.4f})" if lib_ms else "")
+                  + f"; {card_line()}")
         del r["f32_ms"], r["device_us"]
     return res
 
@@ -3094,7 +3108,7 @@ MAP16_STEP_LAUNCHES = {"pool": 4, "select": 4, "nearest": 16,
                        "transposed nearest": 16, "transposed pool": 4,
                        "transposed select": 4}
 # K2 forward's widths where its bf16 kernel streams the reduction (above
-# H 536), run at the bs-1 frequency site's L and B
+# H 504, 272 where B is not a multiple of 4), run at the bs-1 frequency site's L and B
 K2_STREAM_H = (600, 1024)
 
 
@@ -3179,7 +3193,10 @@ def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
     plain_ms = time_cuda(lambda: plain(*args), 3, warmup=1)
     lib_ms = time_cuda(lib, 50) if lib is not None else None
     lib_dev = _device_ms_a_call(lib) * 1e3 if lib is not None else None
-    dev = _device_us(lambda: op(*args), parts, 40)
+    for _ in range(3):  # the profiler can drop every launch of a site
+        dev = _device_us(lambda: op(*args), parts, 40)
+        if not math.isnan(dev):
+            break
     b_ms, b_by = bf16_bound_ms(nbytes, nops, mm_ops)
     print(f"bf16 kernel {label}: against plain bf16 worst {ratio:.3f} of 2 "
           f"ulps ({n_diff} of {got.numel()} differ, max_abs_err={err:.3e}); "
@@ -3195,7 +3212,7 @@ def _bf16_case(label, op, plain, args, nbytes, nops, mm_ops, lib,
         raise AssertionError(f"{label}: beyond 2 bf16 ulps")
     return {"err": err, "ms": ms, "dev_us": dev, "bound_ms": b_ms,
             "bound_by": b_by, "plain_ms": plain_ms, "f32_ms": f32_ms,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "library_dev_us": lib_dev}
 
 
 def check_packed_bf16_kernels(conf, geo, rng) -> tuple:
@@ -3243,7 +3260,7 @@ def check_packed_bf16_kernels(conf, geo, rng) -> tuple:
     length, bsz = geo["freq"]
     streamed = {}
     for h in K2_STREAM_H:
-        if not sru_fused.k2_fwd_geometry(length, h, bsz, 2)["stream"]:
+        if not sru_fused.k2_fwd_bf16_geometry(length, h, bsz)["stream"]:
             raise AssertionError(f"K2 bf16 at H {h} does not stream")
 
         def t(shape, scale):
@@ -3259,7 +3276,7 @@ def check_packed_bf16_kernels(conf, geo, rng) -> tuple:
             args, 2 * (4 * length * h * bsz + wt.numel() + vb.numel()),
             2 * length * bsz * (3 * h * 2 * h * 2 + 20 * h),
             2 * length * bsz * 3 * h * 2 * h * 2, None,
-            ("sru_hid_fwd_bf16_kernel", "true"))
+            "sru_hid_fwd_bf16_stream_kernel")
         streamed[f"H{h}"] = {"L": length, "B": bsz,
                              "max_abs_err": r["err"], "ms": r["ms"],
                              "device_us": r["dev_us"],

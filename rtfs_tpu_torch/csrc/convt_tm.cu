@@ -321,166 +321,351 @@ convt1d_tm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Shared memory of the bf16 forward kernel in bytes at Ci input and Co
-// output channels a block: W_flat in bf16 (C_out padded to 16 rows of k *
-// C_in' + 8, C_in' = C_in padded to 16, the k16 step) and the ring of K +
-// 2 kFwdPass - 1 bf16 x rows (C_in' x kFwdCols each).
-__host__ __device__ __forceinline__ int fwd_bf16_smem_bytes(int K, int Ci,
-                                                            int Co) {
-  const int cp = round_up(Ci, 16);
-  return 2 * (round_up(Co, 16) * (K * cp + 8)
-              + (K + 2 * kFwdPass - 1) * cp * kFwdCols);
-}
-
-// Element (i, c) of a bf16 x row in its ring slot: rows of kFwdCols
-// values, the two 8-value halves swapped on rows 4..7 mod 8, so that a B
-// fragment's 2-byte reads (rows 2q and 2q+1, columns g of 8) meet 16
-// distinct banks, two lanes to a word; 8-value groups (a 16-byte copy)
+// Element (i, c) of a bf16 row of kFwdCols columns in a ring slot (the
+// bf16 backward's g and x rows): the two 8-value halves swapped on rows
+// 4..7 mod 8, so that 2-byte reads of rows 2q and 2q+1 at column g meet
+// 16 distinct banks, two lanes to a word; 8-value groups (a 16-byte copy)
 // stay together.
 __device__ __forceinline__ int ring16_at(int i, int c) {
   return i * kFwdCols + (c ^ (((i >> 2) & 1) << 3));
 }
 
-// K3 forward in bf16 storage (x, W and out bf16): the float32 kernel's
-// blocks, passes, ring and warp tiles, with each product one bf16 mma.sync
-// m16n8k16 into a float32 accumulator, JAX's bf16 dot with a float32
-// result. The k16 steps run over one tap's C_in' channels. An A register
-// (W_flat, rows of K C_in' + 8 bf16, 4 mod 8 words) is one aligned 4-byte
-// read; a B register pairs x rows i and i + 1 of one column, two 2-byte
-// reads. x rows are copied w values at a time, w the largest of 8, 4, 2
-// dividing B (16-, 8-, 4-byte cp.async), else by plain loads; W's rows
-// likewise by Ci. With one input slice the block rounds its sums to bf16
-// once and writes out; with several it writes float32 partials, which
-// convt1d_tm_sum_bf16_kernel adds in order and rounds once.
+// K3 forward in bf16 storage (x, W and out bf16), convt1d_tm_fwd_bf16_kernel:
+// out[t] = W_flat window_t on bf16 mma.sync m16n8k16 with float32
+// accumulators (JAX's bf16 dot with a float32 result), each output
+// rounded to bf16 once, after the whole reduction.
+//
+// What bounds it: at the bs-8 sites ~3.7 GFLOP and ~15 MB a launch, 3.7 us
+// of the tensor cores and 4.6 us of bytes. Its first design, the
+// float32 kernel's blocks with bf16 operands, took 31.5 us there and 29
+// us at the bs-1 freq site (PERF.md): x rows were copied value by value
+// where B is odd, a block held 16 columns and loaded all of W_flat for a
+// single pass at bs 1 (64 blocks on 132 SMs), B fragments were four 2-byte
+// reads and two packs, outputs 2-byte stores, and the copies ran one pass
+// ahead with a wait for all of them every pass.
+//
+// The design. A block keeps W_flat's rows of `mb` output channels (64, 32
+// or 16; W_flat[o][j C_in' + i] = W[j][co0 + o][ci0 + i], rows of K C_in'
+// + 8 bf16) in shared memory and walks work items: an item is one pass of
+// kFwd16Pass output steps for one tile of `nc` batch columns (32 or 16).
+// The items of a grid row (one slice of the input channels and one block
+// of output channels, blockIdx.z) are split into gridDim.x equal runs in
+// tile-major order, so that the grid fills the card however the batch
+// divides (ops/convt_tm.fwd_bf16_geometry); a block loads W once and
+// walks its run, the passes of one tile in a row. x rows ([i][column],
+// rows of nc + 8 bf16) pass through a ring of K - 1 + kFwd16Stages
+// kFwd16Pass slots: the copies of a pass's rows are one commit group,
+// issued two passes ahead and waited for a pass behind (cp.async.
+// wait_group 1), one barrier a pass. A copy is vec values (the largest of
+// 8, 4, 2 dividing B); where B is odd a row of a channel starts anywhere
+// in a 16-byte block, so it is copied as the nc / 8 + 1 aligned 16-byte
+// blocks from the one that holds its first value, and realigned in place
+// after its wait (a thread a row of a channel: five word reads and one
+// 16-byte store per 8 values): no copy is of one value. Warp (wm, wn) owns output channels 16
+// wm .. + 15 and columns 16 wn .. + 15 for every step of a pass: tap j's
+// A fragment (ldmatrix from W_flat) serves all kFwd16Pass steps and both
+// n8 tiles, and step t + p at tap j reads the x row that step t + p - 1
+// read at tap j - 1, so one ldmatrix .trans a tap brings the new row's B
+// fragments and the rest pass on in registers: 16 mma.sync a pair of
+// ldmatrix. Outputs go through a 16 x 16 bf16 tile of the warp's own in
+// shared memory and leave as 16-byte stores (vec values where B is not a
+// multiple of 8), a step at a time. Wider channels are split over the
+// grid's z as in the float32 kernel: input channels in the fewest equal
+// slices (multiples of 16) whose W_flat and ring fit, each writing a
+// float32 partial of out, which convt1d_tm_sum_bf16_kernel adds in order
+// and rounds once; one slice (C_in <= 64 at k 8, the presets') writes out.
+constexpr int kFwd16Pass = 8;
+constexpr int kFwd16Stages = 3;
+constexpr int kFwd16Cols = 32;
+// the staging tile a warp: 16 rows of 16 outputs + 8 (48 bytes)
+constexpr int kFwd16Stage = 24;
+// the warps a block at least (the copies' issue: a thread's copies are
+// issued one after another, so more threads copy faster): 4 where two
+// blocks share an SM (their registers: ~195 a thread), 8 where a block
+// holds it alone
+constexpr int kFwd16MinWarps = 4;
+constexpr int kFwd16SoloWarps = 8;
+
+// Shared memory of the bf16 forward in bytes at ci input channels, mb
+// output channels and nc columns a block: W_flat (mb rows of K C_in' + 8,
+// C_in' = ci padded to 16), the ring of K - 1 + kFwd16Stages kFwd16Pass x
+// rows (C_in' x (nc + 8) each) and each warp's staging tile.
+__host__ __device__ __forceinline__ int fwd_bf16_smem_bytes(int K, int ci,
+                                                            int mb, int nc) {
+  const int cp = round_up(ci, 16);
+  return 2 * (mb * (K * cp + 8) +
+              (K - 1 + kFwd16Stages * kFwd16Pass) * cp * (nc + 8) +
+              (mb / 16) * (nc / 16) * 16 * kFwd16Stage);
+}
+
+// grid (blocks, 1, n_in * n_out), 32 max(4 or 8, (mb / 16) (nc / 16))
+// threads (warps past the tile's only copy: a small tile's few warps would
+// take its copies' issue alone); n_in =
+// ceil(Ci / ci_slice) slices of the input channels, n_out = ceil(Co / mb)
+// blocks of the output channels. Block (x, 0, z) takes input channels
+// ci0 .. ci0 + ci_slice - 1 (ci0 = (z % n_in) ci_slice) and output
+// channels co0 .. co0 + mb - 1 (co0 = (z / n_in) mb), and items [x items
+// / blocks, (x + 1) items / blocks) of the items = ceil(B / nc) tiles x
+// ceil((L + K - 1) / kFwd16Pass) passes, item = tile * passes + pass,
+// writing out (or its partial z % n_in where n_in > 1) at those columns
+// and steps. KT > 0 fixes the tap count (the preset's 8) so that the tap
+// loop unrolls and the B fragments pass on by register renaming.
 template <int KT>
 __global__ void __launch_bounds__(kThreads)
 convt1d_tm_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x16,
                            const __nv_bfloat16* __restrict__ w16,
                            __nv_bfloat16* __restrict__ out,
                            float* __restrict__ part, int L, int Ci, int Co,
-                           int k_taps, int B, int steps, int ci_slice) {
+                           int k_taps, int B, int nc, int mb, int ci_slice) {
   extern __shared__ float4 smem4[];
+  constexpr int P = kFwd16Pass;
   const int K = KT > 0 ? KT : k_taps;
   const int n_in = (Ci + ci_slice - 1) / ci_slice;
   const int ci0 = blockIdx.z % n_in * ci_slice;
-  const int co0 = blockIdx.z / n_in * kMaxOut;
-  const int ci_n = min(ci_slice, Ci - ci0), co_n = min(kMaxOut, Co - co0);
-  const int cp = round_up(ci_n, 16), kt = K * cp, ws = kt + 8;
-  const int rows = round_up(co_n, 16), slots = K + 2 * kFwdPass - 1;
+  const int co0 = blockIdx.z / n_in * mb;
+  const int ci_n = min(ci_slice, Ci - ci0), co_n = min(mb, Co - co0);
+  const int cp = round_up(ci_n, 16), kt = K * cp, ws = kt + 8, xs = nc + 8;
+  const int slots = K - 1 + kFwd16Stages * P, slot_len = cp * xs;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = blockDim.x;
   unsigned short* w_s = reinterpret_cast<unsigned short*>(smem4);
-  unsigned short* ring = w_s + rows * ws;  // (slots, cp, kFwdCols)
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kFwdCols;
-  const int t_out = L + K - 1;
-  const int t0 = blockIdx.y * steps, t1 = min(t_out, t0 + steps);
-  const int slot_len = cp * kFwdCols;
+  unsigned short* ring = w_s + mb * ws;  // (slots, cp, xs)
+  unsigned short* stage = ring + slots * slot_len + warp * 16 * kFwd16Stage;
+  const int t_out = L + K - 1, passes = (t_out + P - 1) / P;
+  const int tiles = (B + nc - 1) / nc, items = tiles * passes;
+  const int it0 = (int)((long long)blockIdx.x * items / gridDim.x);
+  const int it1 = (int)((long long)(blockIdx.x + 1) * items / gridDim.x);
   const int vx = B % 8 == 0 ? 8 : B % 4 == 0 ? 4 : B % 2 == 0 ? 2 : 1;
   const int vw = Ci % 8 == 0 ? 8 : Ci % 4 == 0 ? 4 : Ci % 2 == 0 ? 2 : 1;
   const unsigned short* x =
       reinterpret_cast<const unsigned short*>(x16) + (long long)ci0 * B;
+  const unsigned short* x_all = reinterpret_cast<const unsigned short*>(x16);
+  const long long x_total = (long long)L * Ci * B;
   const unsigned short* w = reinterpret_cast<const unsigned short*>(w16) +
                             (long long)co0 * Ci + ci0;
   const bool split = n_in > 1;
-  const long long out_off = (long long)co0 * B;
   float* pz = split ? part + (long long)(blockIdx.z % n_in) * t_out * Co * B
                     : nullptr;
+  const int segb = nc / 8 + 1;  // 16-byte blocks of a raw channel row
 
-  auto load_row = [&](int r) {
-    unsigned short* dst = ring + (r + slots) % slots * slot_len;
-    const bool on = r >= 0 && r < L;
-    const unsigned short* src = x + (long long)(on ? r : 0) * Ci * B + b0;
-    for (int e = vx * tid; e < cp * kFwdCols; e += vx * kThreads) {
-      const int i = e / kFwdCols, c = e % kFwdCols;
-      const bool ok = on && i < ci_n && b0 + c < B;
-      hk::copy_bf16(dst + ring16_at(i, c), ok ? src + (long long)i * B + c : x,
-                    vx, ok);
-    }
-  };
-  for (int e = vw * tid; e < rows * kt; e += vw * kThreads) {
+  // W_flat, zero-padded, one copy of vw values each
+  for (int e = vw * tid; e < mb * kt; e += vw * nthreads) {
     const int o = e / kt, j = e % kt / cp, i = e % cp;
     const bool ok = o < co_n && i < ci_n;
     hk::copy_bf16(w_s + o * ws + e % kt,
                   ok ? w + ((long long)j * Co + o) * Ci + i : w, vw, ok);
   }
-  for (int r = t0 - K + 1; r < t0 + kFwdPass; ++r) load_row(r);
-  hk::cp_async_commit();
-  hk::cp_async_wait_all();
-  __syncthreads();
 
-  const int warp = tid >> 5, m0 = (warp >> 1) * 16, n0 = (warp & 1) * 8;
+  // x rows r0 .. r1 - 1 of column tile b0 (zero outside [0, L), past the
+  // slice and past B) into their slots, every thread of the block copying;
+  // where B is odd, each channel row's nc / 8 + 1 aligned 16-byte blocks
+  // from the one holding its first value (realigned later)
+  const int lnc = __ffs(nc) - 1, lvx = __ffs(vx) - 1;
+  auto load_rows = [&](int r0, int r1, int b0) {
+    if (vx > 1) {
+      const int per_row = (cp * nc) >> lvx;  // copies a row
+      for (int e = tid; e < (r1 - r0) * per_row; e += nthreads) {
+        const int rr = e / per_row, f = (e - rr * per_row) << lvx;
+        const int r = r0 + rr, i = f >> lnc, c = f & (nc - 1);
+        const bool ok = r >= 0 && r < L && i < ci_n && b0 + c < B;
+        hk::copy_bf16(ring + (r + slots) % slots * slot_len + i * xs + c,
+                      ok ? x + ((long long)r * Ci + i) * B + b0 + c : x, vx,
+                      ok);
+      }
+    } else {
+      for (int e = tid; e < (r1 - r0) * cp * segb; e += nthreads) {
+        const int rs = e / segb, m = e - rs * segb;
+        const int rr = rs / cp, i = rs - rr * cp, r = r0 + rr;
+        const bool on = r >= 0 && r < L && i < ci_n;
+        const long long v0 =
+            ((((long long)r * Ci + ci0 + i) * B + b0) & ~7LL) + 8 * m;
+        const long long left = x_total - v0;
+        const int bytes = !on ? 0 : left >= 8 ? 16 : left > 0 ? 2 * left : 0;
+        hk::cp_async16_n(ring + (r + slots) % slots * slot_len + i * xs + 8 * m,
+                         bytes ? x_all + v0 : x_all, bytes);
+      }
+    }
+  };
+  // B odd: rows r0 .. r1 - 1 realigned in place, a thread a channel row:
+  // value c of the row is block value c + sh (sh its first value's place
+  // in its 16-byte block, 0-7), zero outside [0, L), past the slice and
+  // past B; 8 values at a time, in order, each reading the five words from
+  // the one that holds value c8 + sh before writing four
+  auto realign = [&](int r0, int r1, int b0) {
+    for (int e = tid; e < (r1 - r0) * cp; e += nthreads) {
+      const int r = r0 + e / cp, i = e % cp;
+      uint32_t* row = reinterpret_cast<uint32_t*>(
+          ring + (r + slots) % slots * slot_len + i * xs);
+      const bool on = r >= 0 && r < L && i < ci_n;
+      const int sh = on ? (int)((((long long)r * Ci + ci0 + i) * B + b0) & 7)
+                        : 0;
+      for (int c8 = 0; c8 < nc; c8 += 8) {
+        uint32_t v[5], o[4];
+#pragma unroll
+        for (int m = 0; m < 5; ++m) v[m] = row[(c8 + sh) / 2 + m];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          uint32_t pair = sh & 1 ? __funnelshift_r(v[m], v[m + 1], 16) : v[m];
+          const int c = b0 + c8 + 2 * m;
+          if (!on || c >= B) pair = 0;
+          else if (c + 1 >= B) pair &= 0xffffu;
+          o[m] = pair;
+        }
+        *reinterpret_cast<uint4*>(row + c8 / 2) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  };
+
+  // warps past the tile's (mb / 16) (nc / 16) only copy
+  const bool computes = warp < (mb / 16) * (nc / 16);
+  const int wm = warp % (mb / 16), wn = warp / (mb / 16) % (nc / 16);
+  const int m0 = wm * 16, n0 = wn * 16;
   const int g = hk::lane_g(), q = hk::lane_q();
-  // the lane's A registers (rows m0+g, m0+g+8; k 2q, 2q+8 of a k16 step)
-  // and B halves (k rows 2q, 2q+1, 2q+8, 2q+9; column n0+g)
-  const unsigned short* wl = w_s + (m0 + g) * ws + 2 * q;
-  const int w8 = 8 * ws;
-  const int xb[4] = {ring16_at(2 * q, n0 + g), ring16_at(2 * q + 1, n0 + g),
-                     ring16_at(2 * q + 8, n0 + g),
-                     ring16_at(2 * q + 9, n0 + g)};
-  for (int t = t0; t < t1; t += kFwdPass) {
-    if (t + kFwdPass < t1)
-      for (int r = t + kFwdPass; r < t + 2 * kFwdPass; ++r) load_row(r);
+  const int lm = lane >> 3, lr = lane & 7;
+  const int lo = lr + 8 * (lm & 1), hi = 8 * (lm >> 1);
+  // the lane's ldmatrix rows: A (W_flat [o][k]: o 0, 8, 0, 8 x k 0, 0, 8,
+  // 8) and B (.trans, an x row's [i][column]: i 0, 8, 0, 8 x columns 0,
+  // 0, 8, 8)
+  const unsigned a_at = hk::smem_u32(w_s + (m0 + lo) * ws + hi);
+  const unsigned ring_at = hk::smem_u32(ring + lo * xs + n0 + hi);
+
+  int it = it0;
+  while (it < it1) {
+    // a segment: passes p0 .. p1 - 1 of one tile
+    const int tile = it / passes, p0 = it % passes;
+    const int p1 = min(passes, p0 + (it1 - it));
+    it += p1 - p0;
+    const int b0 = tile * nc;
+    __syncthreads();  // every warp is done with the last segment's ring
+    // passes p0 .. p0 + kFwd16Stages - 2 in flight, one group each (the
+    // first with W_flat at the block's first segment, and the window's
+    // K - 1 rows before it)
+    load_rows(p0 * P - K + 1, p0 * P + P, b0);
     hk::cp_async_commit();
-    if (m0 < co_n) {  // uniform over the warp
-      float acc[kFwdPass][4];
 #pragma unroll
-      for (int p = 0; p < kFwdPass; ++p)
+    for (int d = 1; d < kFwd16Stages - 1; ++d) {
+      if (p0 + d < p1) load_rows((p0 + d) * P, (p0 + d + 1) * P, b0);
+      hk::cp_async_commit();
+    }
+    for (int pass = p0; pass < p1; ++pass) {
+      const int t = pass * P;
+      hk::cp_async_wait<kFwd16Stages - 2>();  // this thread's copies of it
+      __syncthreads();  // everyone's; pass - 1 is done with its rows
+      if (vx == 1) {
+        realign(pass == p0 ? t - K + 1 : t, t + P, b0);
+        __syncthreads();
+      }
+      // the slots of rows t - P - K + 1 .. t - K, which pass - 1 read
+      const int ahead = pass + kFwd16Stages - 1;
+      if (ahead < p1) load_rows(ahead * P, ahead * P + P, b0);
+      hk::cp_async_commit();
+      if (!computes || m0 >= co_n) continue;  // uniform over the warp
+      float acc[P][2][4];
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[p][v] = 0.f;
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[p][nt][v] = 0.f;
       const int s_t = (t + slots) % slots;  // row t's slot
       for (int i0 = 0; i0 < cp; i0 += 16) {
-        // B registers of row t+p (step p >= 1 at tap 0)
-        uint32_t xb_p[kFwdPass][2];
+        const unsigned i_at = ring_at + 2 * i0 * xs;
+        // B fragments of row t + p (step p >= 1 at tap 0)
+        uint32_t xb[P][4];
 #pragma unroll
-        for (int p = 1; p < kFwdPass; ++p) {
+        for (int p = 1; p < P; ++p) {
           const int sp = s_t + p < slots ? s_t + p : s_t + p - slots;
-          const unsigned short* r = ring + sp * slot_len + i0 * kFwdCols;
-          xb_p[p][0] = hk::pack_bf16(r[xb[0]], r[xb[1]]);
-          xb_p[p][1] = hk::pack_bf16(r[xb[2]], r[xb[3]]);
+          hk::ldsm_x4_trans_at(xb[p], i_at + 2 * sp * slot_len);
         }
         int sj = s_t;
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-          const unsigned short* rx = ring + sj * slot_len + i0 * kFwdCols;
-          const unsigned short* ra = wl + j * cp + i0;
           uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(ra);
-          a[1] = *reinterpret_cast<const uint32_t*>(ra + w8);
-          a[2] = *reinterpret_cast<const uint32_t*>(ra + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(ra + w8 + 8);
-          xb_p[0][0] = hk::pack_bf16(rx[xb[0]], rx[xb[1]]);
-          xb_p[0][1] = hk::pack_bf16(rx[xb[2]], rx[xb[3]]);
+          hk::ldsm_x4_at(a, a_at + 2 * (j * cp + i0));
+          hk::ldsm_x4_trans_at(xb[0], i_at + 2 * sj * slot_len);
 #pragma unroll
-          for (int p = 0; p < kFwdPass; ++p) hk::mma_bf16(acc[p], a, xb_p[p]);
-#pragma unroll
-          for (int p = kFwdPass - 1; p > 0; --p) {
-            xb_p[p][0] = xb_p[p - 1][0];
-            xb_p[p][1] = xb_p[p - 1][1];
+          for (int p = 0; p < P; ++p) {
+            hk::mma_bf16(acc[p][0], a, {xb[p][0], xb[p][1]});
+            hk::mma_bf16(acc[p][1], a, {xb[p][2], xb[p][3]});
           }
+#pragma unroll
+          for (int p = P - 1; p > 0; --p)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) xb[p][v] = xb[p - 1][v];
           sj = sj == 0 ? slots - 1 : sj - 1;
         }
       }
-      const int c = b0 + n0 + 2 * q;
+      // D (row o, column): c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3
+      if (split) {
 #pragma unroll
-      for (int p = 0; p < kFwdPass; ++p) {
-        if (t + p >= t1) break;
+        for (int p = 0; p < P; ++p) {
+          if (t + p >= t_out) break;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int o = m0 + g + 8 * h;
-          if (o >= co_n) continue;
-          const long long at = ((long long)(t + p) * Co + o) * B + c + out_off;
-          if (split) {
-            if (c < B) pz[at] = acc[p][2 * h];
-            if (c + 1 < B) pz[at + 1] = acc[p][2 * h + 1];
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int o = m0 + g + 8 * h, c = b0 + n0 + 8 * nt + 2 * q;
+              if (o >= co_n) continue;
+              float* dst = pz + ((long long)(t + p) * Co + co0 + o) * B + c;
+              if (c < B) dst[0] = acc[p][nt][2 * h];
+              if (c + 1 < B) dst[1] = acc[p][nt][2 * h + 1];
+            }
+        }
+        continue;
+      }
+      // the warp's 16 x 16 tile of a step, rounded, through its staging
+      // tile: lane l then stores row l / 2's columns 8 (l % 2) .. + 7, vx
+      // values a store
+      const int srow = lane >> 1, scol = 8 * (lane & 1);
+      const int o_st = m0 + srow, c_st = b0 + n0 + scol;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (t + p >= t_out) break;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+                acc[p][nt][2 * h], acc[p][nt][2 * h + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(
+                stage + (g + 8 * h) * kFwd16Stage + 8 * nt + 2 * q) = v2;
+          }
+        __syncwarp();
+        const uint4 chunk =
+            *reinterpret_cast<const uint4*>(stage + srow * kFwd16Stage + scol);
+        if (o_st < co_n) {
+          unsigned short* dst = reinterpret_cast<unsigned short*>(out) +
+                                ((long long)(t + p) * Co + co0 + o_st) * B +
+                                c_st;
+          const uint32_t w4[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
+          if (vx == 8) {
+            if (c_st < B) *reinterpret_cast<uint4*>(dst) = chunk;
+          } else if (vx == 4) {
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              if (c_st + 4 * m < B)
+                *reinterpret_cast<uint2*>(dst + 4 * m) =
+                    make_uint2(w4[2 * m], w4[2 * m + 1]);
           } else {
-            if (c < B) out[at] = __float2bfloat16_rn(acc[p][2 * h]);
-            if (c + 1 < B) out[at + 1] = __float2bfloat16_rn(acc[p][2 * h + 1]);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              if (c_st + 2 * m >= B) break;
+              if (vx == 2) {
+                *reinterpret_cast<uint32_t*>(dst + 2 * m) = w4[m];
+              } else {
+                dst[2 * m] = (unsigned short)(w4[m] & 0xffffu);
+                if (c_st + 2 * m + 1 < B)
+                  dst[2 * m + 1] = (unsigned short)(w4[m] >> 16);
+              }
+            }
           }
         }
+        __syncwarp();
       }
     }
-    hk::cp_async_wait_all();
-    __syncthreads();
   }
+  hk::cp_async_wait_all();
 }
 
 // out[e] = bf16(sum_{p < n_parts} part[p][e]), p in order, rounded once.
@@ -1094,35 +1279,43 @@ extern "C" int convt1d_ola_tm_fwd(const void* x, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
-// K3 forward in bf16 storage: as convt1d_ola_tm_fwd, ci_slice a multiple
-// of 16 (or all of Ci); part ((L + K - 1) * Co * B float32 values a slice)
-// is scratch for the partial sums where ci_slice < Ci. x and w 16-byte
-// aligned.
+// K3 forward in bf16 storage (ops/convt_tm.fwd_bf16_geometry): nc (16 or
+// 32) columns and mb (16, 32 or 64) output channels a block, ci_slice
+// input channels (a multiple of 16, or all of Ci), `blocks` blocks a grid
+// row (each a run of the row's items); part ((L + K - 1) * Co * B float32
+// values a slice) is scratch for the partial sums where ci_slice < Ci.
+// x and w 16-byte aligned.
 extern "C" int convt1d_ola_tm_fwd_bf16(const void* x, const void* w, void* out,
                                        void* part, int L, int Ci, int Co,
-                                       int K, int B, int steps, int ci_slice,
+                                       int K, int B, int nc, int mb,
+                                       int ci_slice, int blocks,
                                        void* stream) {
-  if (steps < 1 || ci_slice < 1 || (ci_slice < Ci && ci_slice % 16 != 0) ||
+  if (L < 1 || Ci < 1 || Co < 1 || K < 1 || B < 1 || blocks < 1 ||
+      (nc != 16 && nc != kFwd16Cols) || (mb != 16 && mb != 32 && mb != 64) ||
+      ci_slice < 1 || (ci_slice < Ci && ci_slice % 16 != 0) ||
       ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_in = ceil_div(Ci, ci_slice), n_out = ceil_div(Co, kMaxOut);
+  const int n_in = ceil_div(Ci, ci_slice), n_out = ceil_div(Co, mb);
   if (n_in > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      (size_t)fwd_bf16_smem_bytes(K, min(ci_slice, Ci), min(Co, kMaxOut));
+      (size_t)fwd_bf16_smem_bytes(K, min(ci_slice, Ci), mb, nc);
   const void* kernel = K == 8 ? (const void*)convt1d_tm_fwd_bf16_kernel<8>
                               : (const void*)convt1d_tm_fwd_bf16_kernel<0>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(ceil_div(B, kFwdCols), ceil_div(L + K - 1, steps), n_in * n_out);
+  const dim3 grid(blocks, 1, n_in * n_out);
+  const bool solo = 2 * (smem + 1024) > 233472;  // one block an SM
+  const int threads = 32 * max(solo ? kFwd16SoloWarps : kFwd16MinWarps,
+                               (mb / 16) * (nc / 16));
   if (K == 8)
-    convt1d_tm_fwd_bf16_kernel<8><<<grid, kThreads, smem, st>>>(
+    convt1d_tm_fwd_bf16_kernel<8><<<grid, threads, smem, st>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-        (__nv_bfloat16*)out, (float*)part, L, Ci, Co, K, B, steps, ci_slice);
+        (__nv_bfloat16*)out, (float*)part, L, Ci, Co, K, B, nc, mb, ci_slice);
   else
-    convt1d_tm_fwd_bf16_kernel<0><<<grid, kThreads, smem, st>>>(
+    convt1d_tm_fwd_bf16_kernel<0><<<grid, threads, smem, st>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-        (__nv_bfloat16*)out, (float*)part, L, Ci, Co, K, B, steps, ci_slice);
+        (__nv_bfloat16*)out, (float*)part, L, Ci, Co, K, B, nc, mb, ci_slice);
   if (n_in > 1) {
     const int n = (L + K - 1) * Co * B;
     convt1d_tm_sum_bf16_kernel<<<ceil_div(n, 256), 256, 0, st>>>(

@@ -9,8 +9,9 @@
 //     (rtfs_tpu/ops/sru_fused.py, called from _lay0_vjp_bwd).
 // K2  sru_hidden_layer_fwd     replaces the Pallas kernel _hid_fwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from sru_hidden_layer);
-//     sru_hidden_layer_fwd_bf16 the same kernel on bf16 operands,
-//     streamed above H 536 as the float32 one is above H 268.
+//     sru_hidden_layer_fwd_bf16 its bf16 form, producer and scan warps
+//     handing over chunk slots (sru_hid_fwd_bf16_kernel), streamed where
+//     that does not fit a block, as the float32 one is above H 268.
 // K2  sru_hidden_layer_bwd     replaces the Pallas kernel _hid_bwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from _hid_vjp_bwd);
 //     sru_hidden_layer_bwd_bf16 its bf16 form, one fused kernel
@@ -86,8 +87,10 @@
 // Above H 268 not even 8 units' rows of W_d fit beside X's two slots: the
 // block then streams the projection's reduction (kFwdK rows of X and
 // columns of W_d a stage through a cp.async ring, U summed in shared
-// memory), so its shared memory no longer grows with H; the bf16 kernel
-// does the same above H 536 (sru_hid_fwd_bf16_kernel<true>).
+// memory), so its shared memory no longer grows with H; the bf16 forward
+// does the same where its held kernel does not fit
+// (sru_hid_fwd_bf16_stream_kernel). The bf16 forward's held kernel
+// (sru_hid_fwd_bf16_kernel) is designed apart, below.
 // ops/sru_fused.k2_fwd_geometry picks bt, S and the slice so that the
 // grid fills the card where B allows. The scan's chain (two sigmoids a
 // step) and the product take about as long each at bs 8 (PERF.md).
@@ -166,7 +169,8 @@ constexpr long long kMaxSmem = 227 * 1024;
 // K2's float32 backward recomputes the gates with sigmoid_f from a U of
 // its own, formed in SIMT float32 rather than 3xTF32, so it differentiates
 // a forward a few ulp from this one (within the gradient gates); the bf16
-// backward (sru_hid_bwd_bf16_kernel) uses this sigmoid, as its forward.
+// backward (sru_hid_bwd_bf16_kernel) uses this sigmoid, and the bf16
+// forward the same ex2 and rcp with its constants folded off the chain.
 __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }
@@ -703,17 +707,6 @@ sru_hid_fwd_kernel(const float* __restrict__ x_f, const float* __restrict__ x_r,
   }
 }
 
-// Shared memory of the bf16 K2 forward in bytes (N columns a chunk, U
-// units a block): W_d's rows of those units in bf16 (3U rows padded to 8 *
-// kFwdNB, of 2H padded to 16, + 8), two bf16 X slots (2H' rows of N + 8)
-// and two float32 U slots (3U' rows of N + 4), as the float32 kernel's,
-// U's slots unchanged (the product's result is float32).
-__host__ __device__ __forceinline__ int hid_fwd_bf16_smem_bytes(int H, int N,
-                                                                int U) {
-  const int k16 = round_up(2 * H, 16), rows = round_up(3 * U, 8 * kFwdNB);
-  return 2 * (rows * (k16 + 8) + 2 * k16 * (N + 8)) + 4 * 2 * rows * (N + 4);
-}
-
 // Shared memory of the streamed bf16 K2 forward in bytes (N columns a
 // chunk, U units a block): one float32 U slot (3U' rows of N + 4), then
 // the ring of kFwdStages stages, each kFwdK rows of X in bf16 (of N + 8)
@@ -726,38 +719,94 @@ __host__ __device__ __forceinline__ int hid_fwd_bf16_stream_smem_bytes(int N,
          2 * kFwdStages * (kFwdK * (N + 8) + rows * (kFwdK + 8));
 }
 
-// K2 forward in bf16 storage (x, W^T, vb, h and c bf16): the float32
-// kernel's blocks, chunks and scan, with the projection one bf16 mma.sync
-// m16n8k16 a fragment pair with a float32 accumulator, exactly JAX's bf16
-// dot with a float32 result (no 3xTF32 split: the products of bf16 values
-// are exact). U stays float32 in shared memory; the gates and the carry
-// are float32; h and c are rounded to bf16 as they are stored. X's rows
-// are staged as in the float32 kernel ([k][column], rows of N + 8 bf16):
-// an A fragment's register pairs two k rows, so each half is read apart
-// (two 2-byte loads and a pack), 8q + g/2 banks apart, conflict-free. W_d
-// stays [o][k] with rows of 2H' + 8 bf16 (4 mod 8 words), so a B
-// register is one aligned 4-byte read, conflict-free. X's chunk is copied
-// w values at a time, w the largest of 8, 4, 2 that divides bt and B (16-,
-// 8- or 4-byte cp.async), or by plain loads where B is odd or bt is 1 (no
-// 2-byte cp.async); W_d's rows (2H values, so every row starts on a 4-byte
-// boundary) two values a copy. Units are split over the grid as in the
-// float32 kernel.
+// K2 forward in bf16 storage (x, W^T, vb, h and c bf16), held
+// (sru_hid_fwd_bf16_kernel): U = W_d X a chunk of S steps at a time on
+// bf16 mma.sync m16n8k16 with float32 accumulators (JAX's bf16 dot with a
+// float32 result: the products of bf16 values are exact), the gates and
+// the carry in float32, h and c rounded to bf16 as they are stored.
 //
-// kStream (where W_d's rows of even 8 units and X's two slots do not fit
-// one block, H above 536): the float32 kernel's streamed reduction in
-// bf16. The block keeps one float32 U slot; stage s is k slice s % ksl
-// (kFwdK = 32 rows of X's chunk s / ksl in bf16, two k16 steps, and the
-// same 32 columns of the block's rows of W_d) in ring slot s %
-// kFwdStages, the copies of the next kFwdStages - 1 stages in flight
-// while the warps multiply this one. Each warp adds its jobs' products of
-// the slice to their float32 U entries (its own entries, the slices in
-// order), and after a chunk's last slice a barrier, then the scan. A
-// plain-load copy of X (B odd, or bt 1: at the widths that stream bt is
-// 1) is a store to shared memory made after the barrier that ends the
-// slot's last reads, and read after the barrier that opens its stage, as
-// the cp.async copies are.
-template <bool kStream>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+// What bounds it: its bytes (x read, h written: ~15 MB, ~4.5 us at the
+// bs-8 sites) and the recurrence's chain (two MUFU ops, ~25 ns a step:
+// ~3 us over L 118); the product (~1.4 GFLOP at bs 8) is ~2 us of the
+// tensor cores. Its first design took 40-56 us at bs 8 and 31-45
+// at bs 1 (PERF.md): one warp group did the copy, the product and the
+// scan of a chunk in turn, the scan waited for the next chunk's copy, and
+// at bs 1 (bt 1, B odd) every copy of X was a synchronous 2-byte load.
+//
+// The design. A block owns one direction, bt batch columns and a slice of
+// `units` units (ops/sru_fused.k2_fwd_bf16_geometry: all of H where a
+// block holds it, and the widest bt whose grid fills the card; each X
+// value a block copies serves all its units, so the units are split only
+// where no bt fills the card). Its warps have two roles:
+//   - kFwd16Prod producer warps copy X's chunks and W_d's rows of the
+//     slice, and form U of a chunk into one of two float32 U slots, every
+//     fragment by ldmatrix (A = W_d [o][k], B = X [k][column], .trans);
+//   - ceil(units bt / 32) scan warps, one thread a (unit, column), walk a
+//     chunk's S steps from its U slot with c in a register, the highway
+//     term (the direction's own input row) read from the chunk's X slot.
+// The roles hand over slots by named barriers: the producers arrive on
+// FULL[n % 2] when U of chunk n is in slot n % 2 and sync on EMPTY[n % 2]
+// before they write it again; the scan threads sync on FULL and arrive on
+// EMPTY when chunk n's scan is done. So chunk n + 1's product runs while
+// chunk n is scanned. X lies in a ring of kFwd16Ahead + 2 chunk slots
+// ([k][column], rows of N + 8 bf16), one commit group a chunk, the copies
+// of chunk n + kFwd16Ahead issued at chunk n (after EMPTY: the slot they
+// take, chunk n - 2's, has been scanned) and waited for kFwd16Ahead - 1
+// chunks behind their issue, then one producer barrier for all their
+// copies. A product job is 16 rows of U by all the chunk's columns: one A
+// fragment a k16 step serves N / 16 independent pairs of products.
+// A copy is vw values, vw the largest of 8, 4, 2 that divides bt and B.
+// Where B is odd (vw 1: cp.async has no 2-byte copy and a row's values
+// start at either half of a word), each (row, step) of bt values is copied
+// as the bt / 2 + 1 words from the one that holds its first value into a
+// ring of kFwd16Ahead + 1 raw slots, and the producers realign it into the
+// X slot (zero past 2H, T and B) after its wait: every copy is a 4-byte
+// cp.async. Shared memory (bytes, each region a multiple of 16), R = 3
+// units rounded up to 16, K = 2H rounded up to 16:
+//   w    R x (K + 8) bf16                W_d's rows of the slice, [o][k]
+//   x    (kFwd16Ahead + 2) x K x (N + 8) bf16  X's chunks, [k][column]
+//   raw  (kFwd16Ahead + 1) x K x S x (bt / 2 + 1) words, where vw is 1
+//   u    2 x R x (N + max(bt, 2)) float32 U's slots, [o][column]
+// Rows of N + 8 and K + 8 bf16 (4 mod 8 words) keep ldmatrix's eight
+// 16-byte rows on distinct banks; U's rows of N + bt floats keep a scan
+// warp's reads (bt columns of 32 / bt units) on distinct banks.
+constexpr int kFwd16Prod = 6;
+constexpr int kFwd16ScanMax = 256;
+constexpr int kFwd16Ahead = 2;
+constexpr int kFwd16XSlots = kFwd16Ahead + 2;
+constexpr int kFwd16RawSlots = kFwd16Ahead + 1;
+// the named barriers: FULL[2], EMPTY[2], the producers'
+constexpr int kBarFull = 1, kBarEmpty = 3, kBarProd = 5;
+
+struct HidFwd16Smem {
+  int w, x, raw, u, total;
+  __host__ __device__ HidFwd16Smem(int H, int N, int U, int bt, int vw) {
+    const int R = round_up(3 * U, 16), K = round_up(2 * H, 16), S = N / bt;
+    w = 0;
+    x = w + round_up(2 * R * (K + 8), 16);
+    raw = x + round_up(2 * kFwd16XSlots * K * (N + 8), 16);
+    u = raw + (vw == 1 ? round_up(4 * kFwd16RawSlots * K * S * (bt / 2 + 1),
+                                  16)
+                       : 0);
+    total = u + round_up(4 * 2 * R * (N + (bt > 2 ? bt : 2)), 16);
+  }
+};
+
+// The values a copy of X's chunk: the largest of 8, 4, 2 dividing bt and
+// B, else 1 (B odd, or bt 1: the word copies)
+__host__ __device__ __forceinline__ int hid_fwd16_vec(int bt, int B) {
+  return bt % 8 == 0 && B % 8 == 0   ? 8
+         : bt % 4 == 0 && B % 4 == 0 ? 4
+         : bt % 2 == 0 && B % 2 == 0 ? 2
+                                     : 1;
+}
+
+// grid (ceil(B / bt), 2, ceil(H / units)), 32 (kFwd16Prod + ceil(units bt
+// / 32)) threads; bt 1, 2, 4 or 8, N = S bt 16, 32 or 64. Block (tile,
+// dir, z) owns units j0 .. j0 + hs - 1 (j0 = z units) and columns b0 ..
+// b0 + bt - 1. Scan thread p (tid - 32 kFwd16Prod) takes unit j0 + p / bt
+// of column b0 + p % bt.
+__global__ void __launch_bounds__(kFwd16Prod * 32 + kFwd16ScanMax, 2)
 sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
                         const __nv_bfloat16* __restrict__ x_r,
                         const __nv_bfloat16* __restrict__ wt,
@@ -768,40 +817,275 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
                         __nv_bfloat16* __restrict__ c_r, int T, int H, int B,
                         int bt, int S, int units) {
   extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  const int dir = blockIdx.y, b0 = blockIdx.x * bt, tid = threadIdx.x;
+  const int j0 = blockIdx.z * units, hs = min(units, H - j0);
+  const int N = S * bt, h2 = 2 * H;
+  const int R = round_up(3 * units, 16), K = round_up(h2, 16);
+  const int ws = K + 8, xs = N + 8, us = N + (bt > 2 ? bt : 2);
+  const int vw = hid_fwd16_vec(bt, B);
+  const HidFwd16Smem lay(H, N, units, bt, vw);
+  unsigned short* w_s = reinterpret_cast<unsigned short*>(sm + lay.w);
+  unsigned short* x_s = reinterpret_cast<unsigned short*>(sm + lay.x);
+  unsigned short* raw = reinterpret_cast<unsigned short*>(sm + lay.raw);
+  float* u_s = reinterpret_cast<float*>(sm + lay.u);
+  const unsigned short* xf16 = reinterpret_cast<const unsigned short*>(x_f);
+  const unsigned short* xr16 = reinterpret_cast<const unsigned short*>(x_r);
+  const unsigned short* wt16 = reinterpret_cast<const unsigned short*>(wt);
+  const int n_chunks = (T + S - 1) / S;
+  const int n_prod = 32 * kFwd16Prod, n_all = blockDim.x;
+  const int lbt = __ffs(bt) - 1, lS = __ffs(S) - 1, lN = __ffs(N) - 1;
+  const int lvw = __ffs(vw) - 1;
+
+  if (tid < n_prod) {
+    // ------------------------------------------------------- producers
+    const int warp = tid >> 5;
+    const int seg = bt / 2 + 1;  // words a raw (row, step)
+    const long long total = (long long)T * H * B;  // values of x_f, x_r
+    // x_d's element of X row k (< 2H) at scan step ii, column b0
+    auto x_elem = [&](int k, int ii) {
+      const long long t = dir == 0 ? ii : T - 1 - ii;
+      return (t * H + (k < H ? k : k - H)) * B + b0;
+    };
+    // W_d's rows of the slice: row o = gate * units + jl is wt's row (3 dir
+    // + gate) H + j0 + jl; zero past the slice, past 3 units and past 2H;
+    // two values a copy (2H is even)
+    for (int e = 2 * tid; e < R * K; e += 2 * n_prod) {
+      const int o = e / K, k = e - o * K, gate = o / units;
+      const int jl = o - gate * units;
+      const bool ok = gate < 3 && jl < hs && k < h2;
+      hk::cp_async4(
+          w_s + o * ws + k,
+          ok ? wt16 + ((long long)(3 * dir + gate) * H + j0 + jl) * h2 + k
+             : wt16,
+          ok);
+    }
+    // chunk n's copies, one commit group (empty past the last chunk)
+    auto issue = [&](int n) {
+      if (n < n_chunks && vw > 1) {
+        unsigned short* dst = x_s + (n % kFwd16XSlots) * K * xs;
+        for (int e = tid << lvw; e < K * N; e += n_prod << lvw) {
+          const int k = e >> lN, col = e & (N - 1);
+          const int c = col & (bt - 1), ii = n * S + (col >> lbt);
+          const bool ok = k < h2 && ii < T && b0 + c < B;
+          hk::copy_bf16(dst + k * xs + col,
+                        ok ? (k < H ? xf16 : xr16) + x_elem(k, ii) + c : xf16,
+                        vw, ok);
+        }
+      } else if (n < n_chunks) {
+        // the words of (row k, step s) from the one holding its first
+        // value, as many values of each as lie in x (0, 2 or 4 bytes)
+        unsigned short* dst = raw + (n % kFwd16RawSlots) * K * S * 2 * seg;
+        for (int e = tid; e < K * S * seg; e += n_prod) {
+          const int ks = e / seg, m = e - ks * seg;
+          const int k = ks >> lS, ii = n * S + (ks & (S - 1));
+          int bytes = 0;
+          const unsigned short* src = xf16;
+          if (k < h2 && ii < T) {
+            const long long w = (x_elem(k, ii) >> 1) + m;
+            const long long left = total - 2 * w;
+            bytes = left >= 2 ? 4 : left == 1 ? 2 : 0;
+            src = (k < H ? xf16 : xr16) + 2 * w;
+          }
+          hk::cp_async4_n(dst + (ks * seg + m) * 2, src, bytes);
+        }
+      }
+      hk::cp_async_commit();
+    };
+    // chunk n's raw words into its X slot: X[k][s bt + c] is the (k, s)
+    // segment's value c from the first value's half of its word; zero past
+    // 2H, T and B
+    auto realign = [&](int n) {
+      const unsigned short* src = raw + (n % kFwd16RawSlots) * K * S * 2 * seg;
+      unsigned short* dst = x_s + (n % kFwd16XSlots) * K * xs;
+      for (int ks = tid; ks < K * S; ks += n_prod) {
+        const int k = ks >> lS, s = ks & (S - 1), ii = n * S + s;
+        const bool on = k < h2 && ii < T;
+        const int sh = on ? (int)(x_elem(k, ii) & 1) : 0;
+        const unsigned short* p = src + ks * 2 * seg + sh;
+        for (int c = 0; c < bt; ++c)
+          dst[k * xs + (s << lbt) + c] =
+              on && b0 + c < B ? p[c] : (unsigned short)0;
+      }
+    };
+    // U[o][column] = W_d[o][k] X[k][column] of chunk n into U slot n % 2:
+    // a job is 16 rows x the chunk's N columns, each k16 step one A
+    // fragment for N / 16 B fragment pairs (independent accumulators), the
+    // fragments by ldmatrix .x4 (A from the [o][k] tile, matrices at o 0,
+    // 8, 0, 8 x k 0, 0, 8, 8; B, .trans, from the [k][column] tile, k 0, 8,
+    // 0, 8 x columns 0, 0, 8, 8)
+    const int g = hk::lane_g(), q = hk::lane_q();
+    const int lm = (tid & 31) >> 3, lr = tid & 7;
+    const int lo = lr + 8 * (lm & 1), hi = 8 * (lm >> 1);
+    const int n16 = N >> 4;  // 1, 2 or 4 column tiles
+    auto project = [&](int n) {
+      const unsigned short* xc = x_s + (n % kFwd16XSlots) * K * xs;
+      float* uc = u_s + (n & 1) * R * us;
+      const unsigned b_at = hk::smem_u32(xc + lo * xs + hi);
+      for (int o0 = 16 * warp; o0 < R; o0 += 16 * kFwd16Prod) {
+        float acc[4][2][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[nt][h][v] = 0.f;
+        const unsigned a_at = hk::smem_u32(w_s + (o0 + lo) * ws + hi);
+        for (int k0 = 0; k0 < K; k0 += 16) {
+          uint32_t a[4];
+          hk::ldsm_x4_at(a, a_at + 2 * k0);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (nt < n16) {
+              uint32_t b[4];
+              hk::ldsm_x4_trans_at(b, b_at + 2 * (k0 * xs + 16 * nt));
+              hk::mma_bf16(acc[nt][0], a, {b[0], b[1]});
+              hk::mma_bf16(acc[nt][1], a, {b[2], b[3]});
+            }
+          }
+        }
+        // D (row o, column): c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= n16) break;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* pu = uc + (o0 + g) * us + 16 * nt + 8 * h + 2 * q;
+            *reinterpret_cast<float2*>(pu) =
+                make_float2(acc[nt][h][0], acc[nt][h][1]);
+            *reinterpret_cast<float2*>(pu + 8 * us) =
+                make_float2(acc[nt][h][2], acc[nt][h][3]);
+          }
+        }
+      }
+    };
+
+    for (int n = 0; n < kFwd16Ahead; ++n) issue(n);  // W_d with chunk 0
+    for (int n = 0; n < n_chunks; ++n) {
+      // U slot n % 2 and X slot (n + kFwd16Ahead) % kFwd16XSlots are
+      // free: chunk n - 2 is scanned
+      if (n >= 2) hk::bar_sync(kBarEmpty + (n & 1), n_all);
+      hk::cp_async_wait<kFwd16Ahead - 1>();  // this thread's copies of n
+      hk::bar_sync(kBarProd, n_prod);  // everyone's; chunk n - 1 projected
+      issue(n + kFwd16Ahead);
+      if (vw == 1) {
+        realign(n);
+        hk::bar_sync(kBarProd, n_prod);
+      }
+      project(n);
+      hk::bar_arrive(kBarFull + (n & 1), n_all);
+    }
+    hk::cp_async_wait_all();
+  } else {
+    // ------------------------------------------------------- scan
+    const int p = tid - n_prod, jl = p >> lbt, cc = p & (bt - 1);
+    const int j = j0 + jl, b = b0 + cc;
+    const bool live = jl < hs && b < B;
+    __nv_bfloat16* h = dir == 0 ? h_f : h_r;
+    __nv_bfloat16* cs = dir == 0 ? c_f : c_r;  // null when serving
+    const long long row = (long long)H * B, col0 = (long long)j * B + b;
+    float v_f = 0.f, v_r = 0.f, b_f = 0.f, b_r = 0.f;
+    if (live) {
+      v_f = __bfloat162float(vb[(dir * 4 + 0) * H + j]);
+      v_r = __bfloat162float(vb[(dir * 4 + 1) * H + j]);
+      b_f = __bfloat162float(vb[(dir * 4 + 2) * H + j]);
+      b_r = __bfloat162float(vb[(dir * 4 + 3) * H + j]);
+    }
+    // sigmoid(u + v c + b) = 1 / (1 + 2^(-log2(e) (u + b) - log2(e) v c)):
+    // the step's -log2(e) (u + b) is formed off the chain, so the chain in
+    // c is one FMA, ex2, an add, rcp and the FMA of c (and h's the same)
+    constexpr float kNegLog2e = -1.4426950408889634f;
+    const float nv_f = kNegLog2e * v_f, nv_r = kNegLog2e * v_r;
+    float c = 0.f;
+    constexpr int kG = 8;  // steps whose loads go before their chain
+    for (int n = 0; n < n_chunks; ++n) {
+      hk::bar_sync(kBarFull + (n & 1), n_all);
+      if (live) {
+        const float* u = u_s + (n & 1) * R * us + jl * us + cc;
+        // the highway: this direction's own input, X's row dir H + j
+        const unsigned short* xh = x_s +
+                                   (n % kFwd16XSlots) * K * xs +
+                                   (dir * H + j) * xs + cc;
+        const int steps = min(S, T - n * S);
+        for (int s0 = 0; s0 < steps; s0 += kG) {
+          float u0[kG], u1[kG], u2[kG], hw[kG];
+#pragma unroll
+          for (int k = 0; k < kG; ++k) {
+            const int off = (s0 + k) << lbt;
+            if (s0 + k < steps) {
+              u0[k] = u[off];
+              u1[k] = u[units * us + off];
+              u2[k] = u[2 * units * us + off];
+              hw[k] = __bfloat162float(__ushort_as_bfloat16(xh[off]));
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kG; ++k) {
+            if (s0 + k >= steps) break;
+            const int i = n * S + s0 + k;
+            const long long t = dir == 0 ? i : T - 1 - i;
+            const float f = hk::rcp_approx(
+                1.f + hk::ex2_approx(fmaf(nv_f, c, kNegLog2e * (u1[k] + b_f))));
+            c = fmaf(f, c - u0[k], u0[k]);
+            const float r = hk::rcp_approx(
+                1.f + hk::ex2_approx(fmaf(nv_r, c, kNegLog2e * (u2[k] + b_r))));
+            h[t * row + col0] = __float2bfloat16_rn(fmaf(r, c - hw[k], hw[k]));
+            if (cs) cs[t * row + col0] = __float2bfloat16_rn(c);
+          }
+        }
+      }
+      if (n + 2 < n_chunks) hk::bar_arrive(kBarEmpty + (n & 1), n_all);
+    }
+  }
+}
+
+// K2 forward in bf16 storage where W_d's rows of even a few units and the
+// held kernel's X ring do not fit one block (ops/sru_fused.
+// k2_fwd_bf16_geometry's `stream`: H above 504, 272 where B is not a multiple of 4): the
+// float32 kernel's streamed reduction (sru_hid_fwd_kernel<true>) in bf16,
+// its first bf16 design, kept. The block keeps one float32 U slot;
+// stage s is k slice s % ksl (kFwdK = 32 rows of X's chunk s / ksl in
+// bf16, two k16 steps, and the same 32 columns of the block's rows of W_d)
+// in ring slot s % kFwdStages, the copies of the next kFwdStages - 1
+// stages in flight while the warps multiply this one. Each warp adds its
+// jobs' products of the slice to their float32 U entries (its own
+// entries, the slices in order), and after a chunk's last slice a
+// barrier, then the scan (one thread a unit and column, the highway read
+// from memory kFwdAhead steps ahead). X's chunk is copied w values at a
+// time, w the largest of 8, 4, 2 that divides bt and B, or by plain loads
+// where B is odd or bt is 1: such a copy is a store to shared memory made
+// after the barrier that ends the slot's last reads, and read after the
+// barrier that opens its stage, as the cp.async copies are. A fragments
+// pair two k rows of X ([k][column], rows of N + 8 bf16): two 2-byte
+// reads and a pack a register; B registers are aligned 4-byte reads of
+// W_d's [o][k] rows.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+sru_hid_fwd_bf16_stream_kernel(const __nv_bfloat16* __restrict__ x_f,
+                               const __nv_bfloat16* __restrict__ x_r,
+                               const __nv_bfloat16* __restrict__ wt,
+                               const __nv_bfloat16* __restrict__ vb,
+                               __nv_bfloat16* __restrict__ h_f,
+                               __nv_bfloat16* __restrict__ h_r,
+                               __nv_bfloat16* __restrict__ c_f,
+                               __nv_bfloat16* __restrict__ c_r, int T, int H,
+                               int B, int bt, int S, int units) {
+  static_assert(kFwdK % 16 == 0 && kFwdK / 2 <= 32,
+                "a slice is whole k16 steps; a lane copies two columns");
+  extern __shared__ float4 smem4[];
   const int dir = blockIdx.y, b0 = blockIdx.x * bt, tid = threadIdx.x;
   const int j0 = blockIdx.z * units, hs = min(units, H - j0);
   const int N = S * bt, h2 = 2 * H, h3 = 3 * H;
-  const int k16 = round_up(h2, 16), rows = round_up(3 * units, 8 * kFwdNB);
-  const int ws = k16 + 8, xs = N + 8, us = N + 4;
-  unsigned short* w_s = reinterpret_cast<unsigned short*>(smem4);  // (rows, ws)
-  unsigned short* x_s = w_s + rows * ws;  // 2 x (k16, xs): X[k][col]
-  // 2 x (rows, us): U[o][col]; kStream: one, first, then the ring
-  float* u_s = kStream ? reinterpret_cast<float*>(smem4)
-                       : reinterpret_cast<float*>(x_s + 2 * k16 * xs);
+  const int rows = round_up(3 * units, 8 * kFwdNB);
+  const int xs = N + 8, us = N + 4;
+  float* u_s = reinterpret_cast<float*>(smem4);  // (rows, us): U[o][col]
   const unsigned short* xf16 = reinterpret_cast<const unsigned short*>(x_f);
   const unsigned short* xr16 = reinterpret_cast<const unsigned short*>(x_r);
   const unsigned short* wt16 = reinterpret_cast<const unsigned short*>(wt);
   const unsigned short* wd = wt16 + (long long)dir * h3 * h2;
   const int n_chunks = (T + S - 1) / S;
-  const int vw = bt % 8 == 0 && B % 8 == 0   ? 8
-                 : bt % 4 == 0 && B % 4 == 0 ? 4
-                 : bt % 2 == 0 && B % 2 == 0 ? 2
-                                             : 1;
+  const int vw = hid_fwd16_vec(bt, B);
   const int warp = tid >> 5, lane = tid & 31;
 
-  // W_d's rows of the block's units, a warp a row, a lane two columns
-  if constexpr (!kStream) {
-    int gate = warp / units, jl = warp % units;
-    for (int o = warp; o < rows; o += kFwdThreads / 32) {
-      const bool row_ok = gate < 3 && jl < hs;
-      const unsigned short* src = wd + (long long)(gate * H + j0 + jl) * h2;
-      for (int k = 2 * lane; k < k16; k += 64) {
-        const bool ok = row_ok && k < h2;
-        hk::cp_async4(w_s + o * ws + k, ok ? src + k : wt16, ok);
-      }
-      for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
-    }
-  }
   // rows k0 .. k0 + nr - 1 of chunk n's X (rows >= 2H, steps past T and
   // columns past B zero) into dst, rows of xs, vw values a copy
   auto load_x = [&](unsigned short* dst, int n, int k0, int nr) {
@@ -816,10 +1100,9 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
       hk::copy_bf16(dst + r * xs + col, src, vw, ok);
     }
   };
-  // U^T += X^T W_d^T over one k16 step, the float32 kernel's warp jobs:
-  // A (column m, k) = X[k][m], the lane's rows k = 2q, 2q+1, 2q+8, 2q+9
-  // and columns g, g + 8 of each m16 tile from xl; B from W_d's rows at wl
-  // (rows wstride apart)
+  // U^T += X^T W_d^T over one k16 step: A (column m, k) = X[k][m], the
+  // lane's rows k = 2q, 2q+1, 2q+8, 2q+9 and columns g, g + 8 of each m16
+  // tile from xl; B from W_d's rows at wl (rows wstride apart)
   const int g = hk::lane_g(), q = hk::lane_q();
   const int m_jobs = N / (16 * kFwdMT);
   const int n_jobs = m_jobs * (rows / (8 * kFwdNB));
@@ -847,44 +1130,10 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
       for (int mt = 0; mt < kFwdMT; ++mt)
         hk::mma_bf16(acc[mt][nb], a[mt], bf[nb]);
   };
-  // a job's accumulators from U (zero where first) and back: D (column m,
-  // row o) c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1), U[o][m]
-  auto u_entry = [&](float* uc, int r0, int m0, int mt, int nb) {
-    return uc + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
-  };
-  auto store_u = [&](float (&acc)[kFwdMT][kFwdNB][4], float* uc, int r0,
-                     int m0) {
-#pragma unroll
-    for (int mt = 0; mt < kFwdMT; ++mt)
-#pragma unroll
-      for (int nb = 0; nb < kFwdNB; ++nb) {
-        float* u = u_entry(uc, r0, m0, mt, nb);
-        u[0] = acc[mt][nb][0];
-        u[us] = acc[mt][nb][1];
-        u[8] = acc[mt][nb][2];
-        u[us + 8] = acc[mt][nb][3];
-      }
-  };
-  // U^T = X^T W_d^T of chunk n (held)
-  auto project = [&](int n) {
-    const unsigned short* xc = x_s + (n & 1) * k16 * xs;
-    float* uc = u_s + (n & 1) * rows * us;
-    for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
-      const int m0 = jb % m_jobs * 16 * kFwdMT;
-      const int r0 = jb / m_jobs * 8 * kFwdNB;
-      float acc[kFwdMT][kFwdNB][4];
-#pragma unroll
-      for (int mt = 0; mt < kFwdMT; ++mt)
-#pragma unroll
-        for (int nb = 0; nb < kFwdNB; ++nb)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[mt][nb][v] = 0.f;
-      const unsigned short* xl = xc + 2 * q * xs + m0 + g;
-      const unsigned short* wl = w_s + (r0 + g) * ws + 2 * q;
-      for (int k0 = 0; k0 < k16; k0 += 16)
-        mma_step(acc, xl + k0 * xs, wl + k0, ws);
-      store_u(acc, uc, r0, m0);
-    }
+  // a job's accumulator entries in U: D (column m, row o) c0 (g, 2q), c1
+  // (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1), U[o][m]
+  auto u_entry = [&](int r0, int m0, int mt, int nb) {
+    return u_s + (r0 + 8 * nb + 2 * q) * us + m0 + 16 * mt + g;
   };
 
   // the scan thread: unit j0 + jl, column b
@@ -916,8 +1165,7 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
   load_hw(0, hw);
   float c = 0.f;
   auto scan = [&](int n) {
-    const float* u =
-        u_s + (kStream ? 0 : (n & 1) * rows * us) + jl * us + tid % bt;
+    const float* u = u_s + jl * us + tid % bt;
     for (int s0 = 0; s0 < S; s0 += G) {
       const int i0 = n * S + s0;
       if (i0 >= T) break;
@@ -948,103 +1196,94 @@ sru_hid_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x_f,
     }
   };
 
-  if constexpr (!kStream) {
-    load_x(x_s, 0, 0, k16);  // with W_d
-    hk::cp_async_commit();
-    hk::cp_async_wait_all();
-    __syncthreads();
-    for (int n = 0; n < n_chunks; ++n) {
-      if (n + 1 < n_chunks) load_x(x_s + ((n + 1) & 1) * k16 * xs, n + 1, 0,
-                                   k16);
-      hk::cp_async_commit();
-      project(n);
-      hk::cp_async_wait_all();
-      __syncthreads();
-      if (live) scan(n);
-    }
-  } else {
-    static_assert(kFwdK % 16 == 0 && kFwdK / 2 <= 32,
-                  "a slice is whole k16 steps; a lane copies two columns");
-    const int ksl = (h2 + kFwdK - 1) / kFwdK, total = n_chunks * ksl;
-    const int kws = kFwdK + 8;  // a row of W_d's slice: 20 words
-    const int slot_elems = kFwdK * xs + rows * kws;
-    // slots of (kFwdK, xs) X, then (rows, kws) W_d, bf16
-    unsigned short* ring = reinterpret_cast<unsigned short*>(u_s + rows * us);
-    // stage st into ring slot `slot`, one commit group (empty past the
-    // last): X's rows k0 .. k0 + kFwdK - 1 of chunk st / ksl and those
-    // columns of W_d's rows of the block's units, a warp a row, a lane
-    // two columns (2H is even: a pair never straddles the row's end)
-    auto load_stage = [&](int st, int slot) {
-      if (st < total) {
-        const int n = st / ksl, k0 = (st - n * ksl) * kFwdK;
-        unsigned short* xd_s = ring + slot * slot_elems;
-        unsigned short* wd_s = xd_s + kFwdK * xs;
-        load_x(xd_s, n, k0, kFwdK);
-        int gate = warp / units, jl = warp % units;
-        for (int o = warp; o < rows; o += kFwdThreads / 32) {
-          if (lane < kFwdK / 2) {
-            const int k = k0 + 2 * lane;
-            const bool ok = gate < 3 && jl < hs && k < h2;
-            hk::cp_async4(wd_s + o * kws + 2 * lane,
-                          ok ? wd + (long long)(gate * H + j0 + jl) * h2 + k
-                             : wt16,
-                          ok);
-          }
-          for (jl += kFwdThreads / 32; jl >= units; jl -= units) ++gate;
+  const int ksl = (h2 + kFwdK - 1) / kFwdK, total = n_chunks * ksl;
+  const int kws = kFwdK + 8;  // a row of W_d's slice: 20 words
+  const int slot_elems = kFwdK * xs + rows * kws;
+  // slots of (kFwdK, xs) X, then (rows, kws) W_d, bf16
+  unsigned short* ring = reinterpret_cast<unsigned short*>(u_s + rows * us);
+  // stage st into ring slot `slot`, one commit group (empty past the
+  // last): X's rows k0 .. k0 + kFwdK - 1 of chunk st / ksl and those
+  // columns of W_d's rows of the block's units, a warp a row, a lane two
+  // columns (2H is even: a pair never straddles the row's end)
+  auto load_stage = [&](int st, int slot) {
+    if (st < total) {
+      const int n = st / ksl, k0 = (st - n * ksl) * kFwdK;
+      unsigned short* xd_s = ring + slot * slot_elems;
+      unsigned short* wd_s = xd_s + kFwdK * xs;
+      load_x(xd_s, n, k0, kFwdK);
+      int gate = warp / units, jw = warp % units;
+      for (int o = warp; o < rows; o += kFwdThreads / 32) {
+        if (lane < kFwdK / 2) {
+          const int k = k0 + 2 * lane;
+          const bool ok = gate < 3 && jw < hs && k < h2;
+          hk::cp_async4(wd_s + o * kws + 2 * lane,
+                        ok ? wd + (long long)(gate * H + j0 + jw) * h2 + k
+                           : wt16,
+                        ok);
         }
-      }
-      hk::cp_async_commit();
-    };
-    // U^T += X^T W_d^T over the slice in `slot`, the sums carried in U
-    // (from 0 at the chunk's first slice)
-    auto project_slice = [&](int slot, bool first) {
-      const unsigned short* xc = ring + slot * slot_elems;
-      const unsigned short* wc = xc + kFwdK * xs;
-      for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
-        const int m0 = jb % m_jobs * 16 * kFwdMT;
-        const int r0 = jb / m_jobs * 8 * kFwdNB;
-        float acc[kFwdMT][kFwdNB][4];
-#pragma unroll
-        for (int mt = 0; mt < kFwdMT; ++mt)
-#pragma unroll
-          for (int nb = 0; nb < kFwdNB; ++nb) {
-            const float* u = u_entry(u_s, r0, m0, mt, nb);
-            acc[mt][nb][0] = first ? 0.f : u[0];
-            acc[mt][nb][1] = first ? 0.f : u[us];
-            acc[mt][nb][2] = first ? 0.f : u[8];
-            acc[mt][nb][3] = first ? 0.f : u[us + 8];
-          }
-        const unsigned short* xl = xc + 2 * q * xs + m0 + g;
-        const unsigned short* wl = wc + (r0 + g) * kws + 2 * q;
-#pragma unroll
-        for (int k0 = 0; k0 < kFwdK; k0 += 16)
-          mma_step(acc, xl + k0 * xs, wl + k0, kws);
-        store_u(acc, u_s, r0, m0);
-      }
-    };
-    int ld = 0, rd = 0, n = 0, kk = 0;  // ring slots; chunk and slice
-    for (int st = 0; st < kFwdStages - 1; ++st) {
-      load_stage(st, ld);
-      if (++ld == kFwdStages) ld = 0;
-    }
-    for (int st = 0; st < total; ++st) {
-      hk::cp_async_wait<kFwdStages - 2>();
-      __syncthreads();  // stage st is in; every warp is done with the slot
-                        // stage st + kFwdStages - 1 takes, and every scan
-                        // thread with U
-      load_stage(st + kFwdStages - 1, ld);
-      if (++ld == kFwdStages) ld = 0;
-      project_slice(rd, kk == 0);
-      if (++rd == kFwdStages) rd = 0;
-      if (++kk == ksl) {
-        kk = 0;
-        __syncthreads();  // U of chunk n is whole
-        if (live) scan(n);
-        ++n;
+        for (jw += kFwdThreads / 32; jw >= units; jw -= units) ++gate;
       }
     }
-    hk::cp_async_wait_all();
+    hk::cp_async_commit();
+  };
+  // U^T += X^T W_d^T over the slice in `slot`, the sums carried in U
+  // (from 0 at the chunk's first slice)
+  auto project_slice = [&](int slot, bool first) {
+    const unsigned short* xc = ring + slot * slot_elems;
+    const unsigned short* wc = xc + kFwdK * xs;
+    for (int jb = warp; jb < n_jobs; jb += kFwdThreads / 32) {
+      const int m0 = jb % m_jobs * 16 * kFwdMT;
+      const int r0 = jb / m_jobs * 8 * kFwdNB;
+      float acc[kFwdMT][kFwdNB][4];
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb) {
+          const float* u = u_entry(r0, m0, mt, nb);
+          acc[mt][nb][0] = first ? 0.f : u[0];
+          acc[mt][nb][1] = first ? 0.f : u[us];
+          acc[mt][nb][2] = first ? 0.f : u[8];
+          acc[mt][nb][3] = first ? 0.f : u[us + 8];
+        }
+      const unsigned short* xl = xc + 2 * q * xs + m0 + g;
+      const unsigned short* wl = wc + (r0 + g) * kws + 2 * q;
+#pragma unroll
+      for (int k0 = 0; k0 < kFwdK; k0 += 16)
+        mma_step(acc, xl + k0 * xs, wl + k0, kws);
+#pragma unroll
+      for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < kFwdNB; ++nb) {
+          float* u = u_entry(r0, m0, mt, nb);
+          u[0] = acc[mt][nb][0];
+          u[us] = acc[mt][nb][1];
+          u[8] = acc[mt][nb][2];
+          u[us + 8] = acc[mt][nb][3];
+        }
+    }
+  };
+  int ld = 0, rd = 0, n = 0, kk = 0;  // ring slots; chunk and slice
+  for (int st = 0; st < kFwdStages - 1; ++st) {
+    load_stage(st, ld);
+    if (++ld == kFwdStages) ld = 0;
   }
+  for (int st = 0; st < total; ++st) {
+    hk::cp_async_wait<kFwdStages - 2>();
+    __syncthreads();  // stage st is in; every warp is done with the slot
+                      // stage st + kFwdStages - 1 takes, and every scan
+                      // thread with U
+    load_stage(st + kFwdStages - 1, ld);
+    if (++ld == kFwdStages) ld = 0;
+    project_slice(rd, kk == 0);
+    if (++rd == kFwdStages) rd = 0;
+    if (++kk == ksl) {
+      kk = 0;
+      __syncthreads();  // U of chunk n is whole
+      if (live) scan(n);
+      ++n;
+    }
+  }
+  hk::cp_async_wait_all();
 }
 
 // Rows of a time-major (T, R, B) operand, each a row of B floats: rows
@@ -1969,35 +2208,56 @@ extern "C" int sru_dual_recurrence_fwd_bf16(const void* u_f, const void* u_r,
   return (int)cudaGetLastError();
 }
 
-// K2 forward in bf16 storage: as sru_hidden_layer_fwd, W_d's rows of the
-// units held whole where they and X's two slots fit one block, the
-// reduction streamed (sru_hid_fwd_bf16_kernel<true>) where they do not;
-// every pointer 16-byte aligned.
+// K2 forward in bf16 storage (ops/sru_fused.k2_fwd_bf16_geometry): held
+// (sru_hid_fwd_bf16_kernel: bt 1, 2, 4 or 8 columns, chunks of S steps, S
+// bt 16, 32 or 64, units a block, at most kFwd16ScanMax / bt) or, where
+// `streamed`, sru_hid_fwd_bf16_stream_kernel (the float32 kernel's
+// streamed geometry); x_f, x_r and wt 16-byte aligned.
 extern "C" int sru_hidden_layer_fwd_bf16(const void* x_f, const void* x_r,
                                          const void* wt, const void* vb,
                                          void* h_f, void* h_r, void* c_f,
                                          void* c_r, int T, int H, int B,
                                          int bt, int S, int units,
-                                         void* stream) {
-  if (bt < 1 || S < 1 || units < 1 || (S * bt) % (16 * kFwdMT) != 0 ||
-      units * bt > kFwdThreads || S % min(S, kFwdAhead) != 0 ||
+                                         int streamed, void* stream) {
+  if (T < 1 || H < 1 || B < 1 || bt < 1 || S < 1 || units < 1 ||
       ((reinterpret_cast<size_t>(x_f) | reinterpret_cast<size_t>(x_r) |
         reinterpret_cast<size_t>(wt)) & 15))
     return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)hid_fwd_bf16_smem_bytes(H, S * bt, units);
-  const bool streamed = (long long)smem > kMaxSmem;
-  if (streamed) smem = (size_t)hid_fwd_bf16_stream_smem_bytes(S * bt, units);
+  const dim3 grid(ceil_div(B, bt), 2, ceil_div(H, units));
+  const auto* xf = (const __nv_bfloat16*)x_f;
+  const auto* xr = (const __nv_bfloat16*)x_r;
+  const auto* w = (const __nv_bfloat16*)wt;
+  const auto* v = (const __nv_bfloat16*)vb;
+  auto* hf = (__nv_bfloat16*)h_f;
+  auto* hr = (__nv_bfloat16*)h_r;
+  auto* cf = (__nv_bfloat16*)c_f;
+  auto* cr = (__nv_bfloat16*)c_r;
+  if (streamed) {
+    if ((S * bt) % (16 * kFwdMT) != 0 || units * bt > kFwdThreads ||
+        S % min(S, kFwdAhead) != 0)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)hid_fwd_bf16_stream_smem_bytes(S * bt, units);
+    if ((long long)smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    const cudaError_t e =
+        set_smem((const void*)sru_hid_fwd_bf16_stream_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    sru_hid_fwd_bf16_stream_kernel<<<grid, kFwdThreads, smem,
+                                     (cudaStream_t)stream>>>(
+        xf, xr, w, v, hf, hr, cf, cr, T, H, B, bt, S, units);
+    return (int)cudaGetLastError();
+  }
+  const int N = S * bt;
+  if ((bt & (bt - 1)) || bt > 8 || (N != 16 && N != 32 && N != 64) ||
+      units * bt > kFwd16ScanMax)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)HidFwd16Smem(H, N, units, bt, hid_fwd16_vec(bt, B)).total;
   if ((long long)smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const auto kernel = streamed ? sru_hid_fwd_bf16_kernel<true>
-                               : sru_hid_fwd_bf16_kernel<false>;
-  cudaError_t e = set_smem((const void*)kernel, smem);
+  const cudaError_t e = set_smem((const void*)sru_hid_fwd_bf16_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(ceil_div(B, bt), 2, ceil_div(H, units)), kFwdThreads, smem,
-           (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x_f, (const __nv_bfloat16*)x_r,
-      (const __nv_bfloat16*)wt, (const __nv_bfloat16*)vb, (__nv_bfloat16*)h_f,
-      (__nv_bfloat16*)h_r, (__nv_bfloat16*)c_f, (__nv_bfloat16*)c_r, T, H, B,
-      bt, S, units);
+  const int threads = 32 * (kFwd16Prod + ceil_div(units * bt, 32));
+  sru_hid_fwd_bf16_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      xf, xr, w, v, hf, hr, cf, cr, T, H, B, bt, S, units);
   return (int)cudaGetLastError();
 }
 

@@ -202,6 +202,38 @@ __device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// ------------------------------------------------------------ MUFU
+
+// 2^x and 1 / x on the special-function unit (ex2.approx and rcp.approx,
+// flushing subnormals, the instructions __expf and __fdividef lower to);
+// not volatile, so the compiler schedules them with the arithmetic
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------------------ named barriers
+
+// Barrier `id` (1-15; 0 is __syncthreads') over `count` threads, a
+// multiple of 32: bar_sync waits for all of them, bar_arrive counts this
+// thread in and goes on. Shared-memory writes made before either are
+// visible to the threads that pass the barrier's bar_sync: a producer's
+// bar_arrive and its consumers' bar_sync hand over a buffer.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_q() { return threadIdx.x & 3; }
 

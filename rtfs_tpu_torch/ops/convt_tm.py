@@ -21,7 +21,8 @@ CPU tensor the plain versions below run, forward and backward.
 The op also takes bf16 storage: the forward (``convt1d_ola_tm_fwd_bf16``:
 x, W and out bf16, the products bf16 on the tensor cores into float32
 sums, the sum rounded to bf16 once, after the whole reduction, as the
-Pallas kernel's float32 dot result is) and the backward
+Pallas kernel's float32 dot result is; its blocks walk runs of passes
+over column tiles, ``fwd_bf16_geometry``) and the backward
 (``convt1d_ola_tm_bwd_bf16``: g, x and W in, dx and dW out bf16, both
 products bf16 on the tensor cores into float32 sums and each sum rounded
 once, as the Pallas VJP's dx dot and dW scratch are): one kernel walks a
@@ -86,26 +87,20 @@ FWD_COLS = 16
 FWD_PASS = 8
 
 
-def fwd_smem(k: int, c_in: int, c_out: int, elem: int = 4) -> int:
+def fwd_smem(k: int, c_in: int, c_out: int) -> int:
     """K3 forward's dynamic shared memory in bytes for a block of ``c_in``
     input and ``c_out`` output channels (``fwd_smem_floats`` in the
     source): W_flat, C_out padded to 16 rows of k * C_in' + 4 floats with
-    C_in' = C_in padded to 8, and the ring of k + 2 FWD_PASS - 1 x rows.
-    ``elem`` 2 (bf16, ``fwd_bf16_smem_bytes``): bf16 values, C_in' padded to
-    16 (the k16 step) and W_flat's rows to k * C_in' + 8."""
-    if elem == 2:
-        c_pad = -(-c_in // 16) * 16
-        return 2 * (-(-c_out // 16) * 16 * (k * c_pad + 8)
-                    + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS)
+    C_in' = C_in padded to 8, and the ring of k + 2 FWD_PASS - 1 x rows."""
     c_pad = -(-c_in // 8) * 8
     return 4 * (-(-c_out // 16) * 16 * (k * c_pad + 4)
                 + (k + 2 * FWD_PASS - 1) * c_pad * FWD_COLS)
 
 
 def bf16_vec(n: int) -> int:
-    """The bf16 K3 forward's values a copy along a row of ``n`` (B for x,
-    C_in for W): the largest of 8, 4, 2 dividing n (16-, 8-, 4-byte
-    cp.async), else 1 (a plain load)."""
+    """The bf16 K3 forward's values a copy along a row of ``n`` (B for x
+    and out, C_in for W): the largest of 8, 4, 2 dividing n (16-, 8-,
+    4-byte accesses), else 1 (x's rows then go as words, realigned)."""
     return next((w for w in (8, 4, 2) if n % w == 0), 1)
 
 
@@ -124,7 +119,7 @@ def _slices(n: int, fits, align: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
-                 bsz: int, elem: int = 4) -> dict:
+                 bsz: int) -> dict:
     """K3 forward's launch geometry, as ``convt1d_ola_tm_fwd`` launches it:
     the input channels split into ``in_slices`` of ``ci_slice`` (all of
     C_in where W_flat and the ring fit one block's shared memory, else the
@@ -134,17 +129,11 @@ def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
     ``FWD_PASS``, x the slices, about one wave over the card's SMs) and
     their dynamic shared memory in bytes. With more than one input slice
     each writes a partial of out (``part`` floats each), summed in order.
-
-    ``elem`` 2 (bf16): the same choices on the bf16 kernel's shared memory,
-    slices multiples of 16; the partials stay float32 and the sum is
-    rounded to bf16 once; ``vec_x`` / ``vec_w`` the values a copy of x and
-    W (``bf16_vec``)."""
-    if elem not in (2, 4):
-        raise ValueError(f"convt1d_ola_tm: element size {elem}")
+    The bf16 kernel's geometry is ``fwd_bf16_geometry``."""
     t_out = length + k - 1
     co_blk = min(c_out, MAX_OUT)
-    ci_slice = _slices(c_in, lambda w: fwd_smem(k, w, co_blk, elem)
-                       <= kernel_lib.SMEM_PER_BLOCK, 8 if elem == 4 else 16)
+    ci_slice = _slices(c_in, lambda w: fwd_smem(k, w, co_blk)
+                       <= kernel_lib.SMEM_PER_BLOCK, 8)
     in_slices, out_slices = -(-c_in // ci_slice), -(-c_out // MAX_OUT)
     col_tiles = -(-bsz // FWD_COLS)
     # one block an SM
@@ -155,10 +144,102 @@ def fwd_geometry(length: int, c_in: int, c_out: int, k: int,
     return {
         "grid": (col_tiles, -(-t_out // steps), in_slices * out_slices),
         "steps": steps, "ci_slice": ci_slice, "in_slices": in_slices,
-        "out_slices": out_slices, "smem": fwd_smem(k, ci_slice, co_blk, elem),
+        "out_slices": out_slices, "smem": fwd_smem(k, ci_slice, co_blk),
         "part": t_out * c_out * bsz,
-        "vec_x": bf16_vec(bsz) if elem == 2 else (4 if bsz % 4 == 0 else 1),
-        "vec_w": bf16_vec(c_in) if elem == 2 else (4 if c_in % 4 == 0 else 1),
+        "vec_x": 4 if bsz % 4 == 0 else 1,
+        "vec_w": 4 if c_in % 4 == 0 else 1,
+    }
+
+
+# the bf16 K3 forward (``convt1d_tm_fwd_bf16_kernel``), ``kFwd16Pass``,
+# ``kFwd16Stages``, ``kFwd16Cols``, ``kFwd16Stage`` in
+# csrc/convt_tm.cu: output steps a pass (an item of work), passes in the
+# ring of x rows, the widest column tile, a warp's staging row (bf16)
+FWD16_PASS = 8
+FWD16_STAGES = 3
+FWD16_COLS = 32
+FWD16_STAGE = 24
+# ``kFwd16MinWarps`` / ``kFwd16SoloWarps``: the warps a block at least
+# where two blocks share an SM / where a block holds it alone (past the
+# tile's, a warp only copies)
+FWD16_MIN_WARPS = 4
+FWD16_SOLO_WARPS = 8
+# (columns, output channels) of a block, in the order the geometry tries
+# them: the widest tile first, then fewer output channels a block
+FWD16_TILES = ((32, 64), (16, 64), (32, 32), (16, 32), (32, 16), (16, 16))
+
+
+def fwd_bf16_smem(k: int, c_in: int, mb: int, nc: int) -> int:
+    """The bf16 K3 forward's dynamic shared memory in bytes
+    (``fwd_bf16_smem_bytes``) at ``c_in`` input channels, ``mb`` output
+    channels and ``nc`` columns a block: W_flat (mb rows of k C_in' + 8
+    bf16, C_in' = C_in padded to 16), the ring of k - 1 + FWD16_STAGES
+    FWD16_PASS x rows (C_in' rows of nc + 8) and each warp's 16 x
+    FWD16_STAGE staging tile."""
+    cp = -(-c_in // 16) * 16
+    return 2 * (mb * (k * cp + 8)
+                + (k - 1 + FWD16_STAGES * FWD16_PASS) * cp * (nc + 8)
+                + (mb // 16) * (nc // 16) * 16 * FWD16_STAGE)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_bf16_geometry(length: int, c_in: int, c_out: int, k: int,
+                      bsz: int, nc: int = 0, mb: int = 0) -> dict:
+    """The bf16 K3 forward's launch geometry, as ``convt1d_ola_tm_fwd_bf16``
+    launches it (``convt1d_tm_fwd_bf16_kernel``).
+
+    A block holds W_flat's rows of ``mb`` output channels and walks items,
+    an item FWD16_PASS output steps of one tile of ``nc`` columns:
+    ``items`` = ceil(B / nc) tiles x ceil((L + k - 1) / FWD16_PASS)
+    ``passes`` a grid row, a grid row (z) a slice of ``ci_slice`` input
+    channels (all of C_in where W_flat and the ring fit, else the fewest
+    equal slices, multiples of 16, that do) and a block of mb output
+    channels. (nc, mb) is the first of FWD16_TILES whose items over the
+    grid rows fill the card's SMs (else the one with the most), and each
+    row's items are split into ``blocks`` equal runs in tile-major order,
+    as many as fit the card at once (``per_sm`` blocks an SM by shared
+    memory and threads) or the items, whichever is fewer: at the bs-8
+    sites 32-column tiles of all 64 channels, 132 blocks of ~2 passes; at
+    bs 4 16 columns; at bs 1 16 columns of 16 channels, 64 x 4 blocks of
+    one pass. ``vec_x`` / ``vec_w`` the values a copy of x (and a store of
+    out) and of W (``bf16_vec``). ``nc`` and ``mb`` force the tile (a
+    variant)."""
+    limit = kernel_lib.SMEM_PER_BLOCK
+    t_out = length + k - 1
+    passes = -(-t_out // FWD16_PASS)
+    best = None
+    for tnc, tmb in ((nc, mb),) if nc else FWD16_TILES:
+        try:
+            ci_slice = _slices(c_in, lambda w: fwd_bf16_smem(
+                k, w, tmb, tnc) <= limit, 16)
+        except ValueError:
+            continue
+        in_slices, out_slices = -(-c_in // ci_slice), -(-c_out // tmb)
+        items = -(-bsz // tnc) * passes
+        rows = in_slices * out_slices
+        cand = (tnc, tmb, ci_slice, in_slices, out_slices, items, rows)
+        if best is None or items * rows > best[5] * best[6]:
+            best = cand
+        if items * rows >= kernel_lib.SMS:
+            best = cand
+            break
+    if best is None:
+        raise ValueError("convt1d_ola_tm: 16 channels do not fit a block")
+    tnc, tmb, ci_slice, in_slices, out_slices, items, rows = best
+    smem = fwd_bf16_smem(k, ci_slice, tmb, tnc)
+    solo = 2 * (smem + 1024) > kernel_lib.SMEM_PER_SM
+    threads = 32 * max(FWD16_SOLO_WARPS if solo else FWD16_MIN_WARPS,
+                       (tmb // 16) * (tnc // 16))
+    per_sm = max(1, min(kernel_lib.SMEM_PER_SM // (smem + 1024),
+                        2048 // threads))
+    blocks = min(items, -(-kernel_lib.SMS * per_sm // rows))
+    return {
+        "nc": tnc, "mb": tmb, "grid": (blocks, 1, rows), "blocks": blocks,
+        "items": items, "passes": passes, "threads": threads,
+        "per_sm": per_sm, "ci_slice": ci_slice, "in_slices": in_slices,
+        "out_slices": out_slices, "smem": smem,
+        "part": t_out * c_out * bsz,
+        "vec_x": bf16_vec(bsz), "vec_w": bf16_vec(c_in),
     }
 
 
@@ -175,7 +256,12 @@ def _forward(x_tm, w):
     bf16 = dt == torch.bfloat16
     if bf16:
         x_tm, w = kernel_lib.aligned16(x_tm), kernel_lib.aligned16(w)
-    geo = fwd_geometry(length, c_in, c_out, k, bsz, x_tm.element_size())
+    if bf16:
+        geo = fwd_bf16_geometry(length, c_in, c_out, k, bsz)
+        tile = (geo["nc"], geo["mb"], geo["ci_slice"], geo["blocks"])
+    else:
+        geo = fwd_geometry(length, c_in, c_out, k, bsz)
+        tile = (geo["steps"], geo["ci_slice"])
     out = torch.empty(length + k - 1, c_out, bsz, device=x_tm.device,
                       dtype=dt)
     part = (torch.empty(geo["in_slices"], geo["part"], device=x_tm.device)
@@ -185,7 +271,7 @@ def _forward(x_tm, w):
         x_tm.device,
         x_tm.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
-        length, c_in, c_out, k, bsz, geo["steps"], geo["ci_slice"],
+        length, c_in, c_out, k, bsz, *tile,
     )
     return out
 

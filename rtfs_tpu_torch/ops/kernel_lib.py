@@ -46,14 +46,14 @@ _SIGNATURES = {
         "sru_hidden_layer_fwd": (8, 6),
         "sru_hidden_layer_bwd": (15, 6),
         "sru_dual_recurrence_fwd_bf16": (7, 5),
-        "sru_hidden_layer_fwd_bf16": (8, 6),
+        "sru_hidden_layer_fwd_bf16": (8, 7),
         "sru_dual_recurrence_bwd_bf16": (10, 5),
         "sru_hidden_layer_bwd_bf16": (15, 7),
     },
     "convt_tm": {
         "convt1d_ola_tm_fwd": (4, 7),
         "convt1d_ola_tm_bwd": (7, 8),
-        "convt1d_ola_tm_fwd_bf16": (4, 7),
+        "convt1d_ola_tm_fwd_bf16": (4, 9),
         "convt1d_ola_tm_bwd_bf16": (7, 6),
     },
     "packed_tf": {

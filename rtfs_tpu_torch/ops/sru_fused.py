@@ -17,7 +17,9 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
   on scratch the wrapper allocates; CUDA kernels ``csrc/sru_fused.cu:
   sru_hidden_layer_fwd`` and ``..._bwd``. The bf16 backward is one fused
   kernel instead (``k2_bwd_bf16_geometry``): U, the scan, dx and dW a
-  chunk of steps at a time in shared memory, on bf16 tensor cores.
+  chunk of steps at a time in shared memory, on bf16 tensor cores; the
+  bf16 forward's producer warps copy and project a chunk while its scan
+  warps walk the one before (``k2_fwd_bf16_geometry``).
 - ``sru_stack``: layer 0's projection as a windowed ``conv1d`` over the raw
   sequence, one entry transpose to time-major, K1, then K2 per hidden layer,
   with the (h_f, h_r) pair chained in (T, H, B).
@@ -434,21 +436,14 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def k2_fwd_smem(hdim: int, cols: int, units: int | None = None,
-                elem: int = 4) -> int:
+def k2_fwd_smem(hdim: int, cols: int, units: int | None = None) -> int:
     """K2 forward's dynamic shared memory in bytes (``hid_fwd_smem_floats``
     in csrc/sru_fused.cu) at ``cols`` = S * bt columns a chunk and
     ``units`` units a block (all of H by default): the rows of W_d that
     project onto them, two X slots, two U slots, rows padded for
-    conflict-free fragments. ``elem`` 2 (bf16, ``hid_fwd_bf16_smem_bytes``):
-    W_d and X in bf16, the reduction padded to the k16 step and rows to 4
-    mod 8 words; U stays float32."""
+    conflict-free fragments."""
     units = hdim if units is None else units
     rows = _round_up(3 * units, 8 * FWD_NB)
-    if elem == 2:
-        k16 = _round_up(2 * hdim, 16)
-        return (2 * (rows * (k16 + 8) + 2 * k16 * (cols + 8))
-                + 4 * 2 * rows * (cols + 4))
     k8 = _round_up(2 * hdim, 8)
     return 4 * (rows * (k8 + 4) + 2 * k8 * (cols + 8)
                 + 2 * rows * (cols + 4))
@@ -470,14 +465,34 @@ def k2_fwd_stream_smem(cols: int, units: int, elem: int = 4) -> int:
 
 
 def k2_bf16_vec(bt: int, bsz: int) -> int:
-    """The values a copy of the bf16 K2 forward's X chunk: the largest of 8,
-    4, 2 dividing both ``bt`` and B (16-, 8-, 4-byte cp.async), else 1 (a
-    plain load: cp.async has no 2-byte copy)."""
+    """The values a copy of the bf16 K2 kernels' X chunk: the largest of 8,
+    4, 2 dividing both ``bt`` and B (16-, 8-, 4-byte cp.async), else 1 (B
+    odd or bt 1: cp.async has no 2-byte copy)."""
     return next((w for w in (8, 4, 2) if bt % w == 0 and bsz % w == 0), 1)
 
 
+def _k2_fwd_blocks(hdim: int, bsz: int, smem) -> tuple:
+    """(units, slices, bt, cols) of the float32 K2 forward's blocks (and of
+    the streamed bf16 one) on the shared memory ``smem(cols, units)``: the
+    fewest equal slices of H whose scan threads and 32-column chunks fit a
+    block, the largest bt of 8, 4, 2, 1 (at most FWD_THREADS // units)
+    whose grid fills the card's SMs, else 1, and chunks of 64 columns, or
+    32 where 64 do not fit."""
+    limit = kernel_lib.SMEM_PER_BLOCK
+    for slices in range(1, hdim + 1):
+        units = -(-hdim // slices)
+        if units <= FWD_THREADS and smem(32, units) <= limit:
+            break
+    slices = -(-hdim // units)
+    choices = [bt for bt in (8, 4, 2, 1) if bt <= FWD_THREADS // units]
+    bt = next((bt for bt in choices
+               if 2 * slices * -(-bsz // bt) >= kernel_lib.SMS), choices[-1])
+    cols = next(c for c in (64, 32) if smem(c, units) <= limit)
+    return units, slices, bt, cols
+
+
 @functools.lru_cache(maxsize=None)
-def k2_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
+def k2_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     """K2 forward's launch geometry, as ``sru_hidden_layer_fwd`` launches it.
 
     A block owns one direction, ``units`` units and ``bt`` batch columns
@@ -498,41 +513,149 @@ def k2_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     ``units`` is the fewest equal slices whose U slot and ring fit
     (``k2_fwd_stream_smem``, which does not grow with H), the rest as
     above. The C entry streams exactly where the held geometry's shared
-    memory exceeds a block's.
-
-    ``elem`` 2 (bf16, ``sru_hidden_layer_fwd_bf16``): the same choices on
-    the bf16 kernel's shared memory (``k2_fwd_smem(..., elem=2)``, which
-    holds W_d's rows of 8 units beside X's two slots up to H 536, and
-    ``k2_fwd_stream_smem(..., elem=2)`` above, where the bf16 kernel
-    streams). ``vec``: the values a copy of X (``k2_bf16_vec`` in bf16; 4
-    or 1 in float32)."""
-    if min(t_len, hdim, bsz) < 1 or elem not in (2, 4):
-        raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}, "
-                         f"element size {elem}")
-    limit = kernel_lib.SMEM_PER_BLOCK
-    stream = k2_fwd_smem(hdim, 32, 8, elem) > limit
+    memory exceeds a block's. ``vec``: the values a copy of X (4 or 1).
+    The bf16 kernels' geometry is ``k2_fwd_bf16_geometry``."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}")
+    stream = k2_fwd_smem(hdim, 32, 8) > kernel_lib.SMEM_PER_BLOCK
 
     def smem(cols, units):
-        return (k2_fwd_stream_smem(cols, units, elem) if stream
-                else k2_fwd_smem(hdim, cols, units, elem))
+        return (k2_fwd_stream_smem(cols, units) if stream
+                else k2_fwd_smem(hdim, cols, units))
 
-    for slices in range(1, hdim + 1):
-        units = -(-hdim // slices)
-        if units <= FWD_THREADS and smem(32, units) <= limit:
-            break
-    slices = -(-hdim // units)
-    choices = [bt for bt in (8, 4, 2, 1) if bt <= FWD_THREADS // units]
-    bt = next((bt for bt in choices
-               if 2 * slices * -(-bsz // bt) >= kernel_lib.SMS), choices[-1])
-    cols = next(c for c in (64, 32) if smem(c, units) <= limit)
+    units, slices, bt, cols = _k2_fwd_blocks(hdim, bsz, smem)
     steps = cols // bt
     return {"bt": bt, "steps": steps, "cols": cols, "units": units,
             "slices": slices, "grid": (-(-bsz // bt), 2, slices),
             "chunks": -(-t_len // steps), "stream": stream,
             "kslices": -(-2 * hdim // FWD_K) if stream else 0,
             "smem": smem(cols, units),
-            "vec": (k2_bf16_vec(bt, bsz) if elem == 2
-                    else 4 if bt % 4 == 0 and bsz % 4 == 0 else 1)}
+            "vec": 4 if bt % 4 == 0 and bsz % 4 == 0 else 1}
+
+
+# the bf16 K2 forward (``sru_hid_fwd_bf16_kernel``), ``kFwd16Prod``,
+# ``kFwd16ScanMax`` and ``kFwd16Ahead`` in csrc/sru_fused.cu: its producer
+# warps (copies and the product), the scan threads a block at most (one a
+# unit and column), and the chunks its copies run ahead; X's ring holds
+# FWD16_AHEAD + 2 chunks, the word copies' (B odd) FWD16_AHEAD + 1
+FWD16_PROD = 6
+FWD16_SCAN_MAX = 256
+FWD16_AHEAD = 2
+
+
+def k2_fwd_bf16_smem(hdim: int, cols: int, units: int, bt: int,
+                     vec: int) -> int:
+    """The bf16 K2 forward's dynamic shared memory in bytes
+    (``HidFwd16Smem`` in csrc/sru_fused.cu) at ``cols`` = S * bt columns a
+    chunk, ``units`` units a block and ``bt`` batch columns: W_d's rows of
+    the units (R = 3 units rounded up to 16, of K + 8 bf16, K = 2H rounded
+    up to 16), X's ring of FWD16_AHEAD + 2 chunks (K rows of cols + 8
+    bf16), where ``vec`` is 1 the ring of FWD16_AHEAD + 1 word copies (K x
+    S segments of bt // 2 + 1 words), and two float32 U slots (R rows of
+    cols + max(bt, 2)); each region a multiple of 16 bytes."""
+    rows, k = _round_up(3 * units, 16), _round_up(2 * hdim, 16)
+    raw = (4 * (FWD16_AHEAD + 1) * k * (cols // bt) * (bt // 2 + 1)
+           if vec == 1 else 0)
+    return sum(_align16(n) for n in (
+        2 * rows * (k + 8), 2 * (FWD16_AHEAD + 2) * k * (cols + 8), raw,
+        4 * 2 * rows * (cols + max(bt, 2))))
+
+
+@functools.lru_cache(maxsize=None)
+def k2_fwd_bf16_geometry(t_len: int, hdim: int, bsz: int, bt: int = 0,
+                         cols: int = 0) -> dict:
+    """The bf16 K2 forward's launch geometry, as
+    ``sru_hidden_layer_fwd_bf16`` launches it.
+
+    Held (``sru_hid_fwd_bf16_kernel``): a block owns one direction,
+    ``units`` units and ``bt`` batch columns, and walks T in chunks of
+    ``steps`` (S) steps, ``cols`` = S * bt columns a chunk (64, else 32,
+    else 16: whole m16 tiles of the product); its ``threads`` are
+    FWD16_PROD producer warps and one scan thread a unit and column. What
+    bounds the copies of X is their count of requests, not their bytes: a
+    row of a step is bt contiguous values, so ``bt`` is 8 (a copy of 8 or
+    16 bytes) where B is a multiple of 4, else 1 (a word a row and step,
+    B odd). ``units`` is all of H where one block holds it (H * bt <=
+    FWD16_SCAN_MAX and the shared memory of ``k2_fwd_bf16_smem`` at 16
+    columns within a block's), else the fewest equal ``slices`` that fit,
+    and more slices (each block copying all of X for fewer units) until
+    the grid (ceil(B / bt) tiles x 2 directions x the slices) fills the
+    card's SMs: bs 8 freq (B 1000) 32 units, 250 blocks; bs 8 time (B 512)
+    16, 256; bs 4 16 / 11, 252 / 192; bs 1 freq (B 125) bt 1, 32 units,
+    250 blocks; bs 1 time (B 64) 3, 176.
+    ``cols`` is the widest chunk whose blocks all fit the card at once
+    (``per_sm`` blocks an SM by shared memory and threads, at most the
+    kernel's launch bounds' 2): 64 columns, 32 at bs 1. ``vec``: the
+    values a copy of X (``k2_bf16_vec``; 1 where B is odd or
+    bt is 1: the kernel copies words and realigns them). ``bt`` and
+    ``cols`` force those choices (a variant).
+
+    Where no held plan fits a block (H above 504 where B is a multiple of
+    4, above 272 otherwise), ``stream``: the streamed kernel
+    (``sru_hid_fwd_bf16_stream_kernel``) on the float32 kernel's streamed
+    blocks (``_k2_fwd_blocks`` on ``k2_fwd_stream_smem(..., elem=2)``);
+    ``stream`` is passed to the C entry, which launches by it."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_hidden_layer: T {t_len}, H {hdim}, B {bsz}")
+    limit = kernel_lib.SMEM_PER_BLOCK
+
+    def chunks(units, b):
+        """The chunk widths whose scan threads and shared memory fit."""
+        vec = k2_bf16_vec(b, bsz)
+        return [c for c in ((cols,) if cols else (64, 32, 16))
+                if c >= b and units * b <= FWD16_SCAN_MAX and
+                k2_fwd_bf16_smem(hdim, c, units, b, vec) <= limit]
+
+    def fill(b, slices):
+        return -(-bsz // b) * 2 * slices >= kernel_lib.SMS
+
+    held = [s for s in range(1, hdim + 1)
+            if s == -(-hdim // -(-hdim // s))]  # slice counts, each distinct
+    # the columns a block: 8 where a copy of X is then 8 or 16 bytes (B a
+    # multiple of 4), else 1 (B odd or 2 mod 4: a word a row and step)
+    bts = ((bt,) if bt else (8,) if bsz % 4 == 0 and bsz >= 8 else (1,))
+    plan = next(((-(-hdim // s), s) for s in held
+                 if any(chunks(-(-hdim // s), b) for b in bts)), None)
+    if plan is None and not bt:
+        bts = (1,)
+        plan = next(((-(-hdim // s), s) for s in held
+                     if chunks(-(-hdim // s), 1)), None)
+    if plan is not None:
+        units, slices = plan
+        b = bts[0]
+        if not fill(b, slices):
+            # more slices until the grid fills the card
+            units, slices = next(((-(-hdim // s), s) for s in held
+                                  if s > slices and fill(b, s)
+                                  and chunks(-(-hdim // s), b)),
+                                 (units, slices))
+        vec, blocks = k2_bf16_vec(b, bsz), -(-bsz // b) * 2 * slices
+        threads = 32 * (FWD16_PROD + -(-units * b // 32))
+        # the widest chunk whose blocks all fit the card at once (shared
+        # memory, threads, registers at the kernel's launch bounds)
+        per_sm = {c: min(kernel_lib.SMEM_PER_SM // (k2_fwd_bf16_smem(
+            hdim, c, units, b, vec) + 1024), 2048 // threads, 2)
+            for c in chunks(units, b)}
+        c = next((c for c, n in per_sm.items()
+                  if kernel_lib.SMS * n >= blocks), max(per_sm,
+                                                        key=per_sm.get))
+        return {"bt": b, "steps": c // b, "cols": c, "units": units,
+                "slices": slices, "grid": (-(-bsz // b), 2, slices),
+                "blocks": blocks, "chunks": -(-t_len // (c // b)),
+                "threads": threads, "per_sm": per_sm[c],
+                "stream": False, "kslices": 0, "vec": vec,
+                "smem": k2_fwd_bf16_smem(hdim, c, units, b, vec)}
+
+    def smem(c, u):
+        return k2_fwd_stream_smem(c, u, 2)
+
+    units, slices, b, c = _k2_fwd_blocks(hdim, bsz, smem)
+    return {"bt": b, "steps": c // b, "cols": c, "units": units,
+            "slices": slices, "grid": (-(-bsz // b), 2, slices),
+            "blocks": -(-bsz // b) * 2 * slices,
+            "chunks": -(-t_len // (c // b)), "threads": FWD_THREADS,
+            "stream": True, "kslices": -(-2 * hdim // FWD_K),
+            "vec": k2_bf16_vec(b, bsz), "smem": smem(c, units)}
 
 
 # K2 backward's products, ``kTile``, ``kStage`` and ``kWgCols`` in
@@ -677,7 +800,10 @@ def _k2_forward(x_f, x_r, wt, vb, with_c):
     bf16 = dt == torch.bfloat16
     if bf16:
         x_f, x_r, wt = (kernel_lib.aligned16(t) for t in (x_f, x_r, wt))
-    geo = k2_fwd_geometry(t_len, hdim, bsz, x_f.element_size())
+        geo = k2_fwd_bf16_geometry(t_len, hdim, bsz)
+        extra = (int(geo["stream"]),)
+    else:
+        geo, extra = k2_fwd_geometry(t_len, hdim, bsz), ()
     outs = [torch.empty_like(x_f) for _ in range(4 if with_c else 2)]
     c_ptrs = ((outs[2].data_ptr(), outs[3].data_ptr()) if with_c
               else (None, None))
@@ -687,7 +813,7 @@ def _k2_forward(x_f, x_r, wt, vb, with_c):
         x_f.device,
         x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), *c_ptrs,
-        t_len, hdim, bsz, geo["bt"], geo["steps"], geo["units"],
+        t_len, hdim, bsz, geo["bt"], geo["steps"], geo["units"], *extra,
     )
     return tuple(outs)
 

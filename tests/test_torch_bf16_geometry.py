@@ -3,22 +3,24 @@
 ``csrc/sru_fused.cu`` (``sru_lay0_fwd_bf16_kernel``,
 ``sru_hid_fwd_bf16_kernel``) and ``csrc/convt_tm.cu``
 (``convt1d_tm_fwd_bf16_kernel``) launch with the geometry of
-``ops/sru_fused.k1_fwd_geometry`` / ``k2_fwd_geometry`` and
-``ops/convt_tm.fwd_geometry`` at element size 2. These tests walk them as
-the kernels do:
+``ops/sru_fused.k1_fwd_geometry`` (element size 2) /
+``k2_fwd_bf16_geometry`` and ``ops/convt_tm.fwd_bf16_geometry``. These
+tests walk them as the kernels do:
 
 - K1: each warp's 16-byte copies of its 32 values of a gate row
   (``k1_bf16_copies``) at the batch-minor rows of the two scans, 125 B
   and 64 B for B 1-8 (125 B rows start at every offset mod 8), every
   lane's value found at its shifted place, nothing read past u's end; the
   ring of LAY0_AHEAD steps with copies landing at issue or at the wait;
-- K2: its blocks, shared memory, copy widths and X chunk copies, its
-  m16n8k16 fragments (each register the two values the tensor core takes
-  there) and their banks, and the held kernel's limit (H 536), above
-  which it streams;
-- K3: its channel split (slices of 16, float32 partials summed in order
-  and rounded once), its shared memory, the x ring's swizzle, and its
-  fragments and banks;
+- K2 (``sru_hid_fwd_bf16_kernel``, ``k2_fwd_bf16_geometry``): its
+  blocks, shared memory, the candidate it picks, copy widths and X chunk
+  copies (or, where B is odd, the words that hold each row), its
+  ldmatrix rows as m16n8k16 fragments and their banks, the scan warps'
+  banks, and the held kernel's limit, above which it streams;
+- K3 (``convt1d_tm_fwd_bf16_kernel``, ``fwd_bf16_geometry``): its tile,
+  channel split (slices of 16, float32 partials summed in order and
+  rounded once) and shared memory, the x ring's and W_flat's ldmatrix
+  rows as fragments and their banks, the output staging tile;
 - K6 and K7's bf16 kernels (``csrc/packed_tf.cu`` ``pw_proj_bf16_kernel``,
   ``pw_unproj_bf16_kernel``): their constants and grid, each fragment
   register read where the kernels read it from the staged tiles, a
@@ -141,37 +143,75 @@ def test_k1_bf16_ring_reads_each_step_once_landed(land):
 
 
 def _k2_walk(t_len, hdim, bsz):
-    geo = sru_fused.k2_fwd_geometry(t_len, hdim, bsz, 2)
+    """The bf16 K2 forward's geometry (``k2_fwd_bf16_geometry``) as
+    ``sru_hid_fwd_bf16_kernel`` walks it: its blocks and shared memory,
+    the candidate it picks, and one chunk's copies of X."""
+    geo = sru_fused.k2_fwd_bf16_geometry(t_len, hdim, bsz)
     bt, steps, units = geo["bt"], geo["steps"], geo["units"]
-    cols, vec = geo["cols"], geo["vec"]
+    cols, vec, slices = geo["cols"], geo["vec"], geo["slices"]
+    limit = kernel_lib.SMEM_PER_BLOCK
     assert not geo["stream"]
-    assert steps * bt == cols and cols % (16 * sru_fused.FWD_MT) == 0
-    assert units * bt <= sru_fused.FWD_THREADS
-    assert steps % min(steps, sru_fused.FWD_AHEAD) == 0
-    assert geo["smem"] == sru_fused.k2_fwd_smem(hdim, cols, units, 2) \
-        <= kernel_lib.SMEM_PER_BLOCK
-    # the float32 kernel's unit split where its rows fit; never more
-    # slices than it
-    if sru_fused.k2_fwd_smem(hdim, 32, 8) <= kernel_lib.SMEM_PER_BLOCK:
-        assert geo["slices"] <= sru_fused.k2_fwd_geometry(
-            t_len, hdim, bsz)["slices"]
-    # copy width: the widest of 8, 4, 2 dividing bt and B, else 1
+    assert bt in (8, 4, 2, 1) and cols in (16, 32, 64)
+    assert steps * bt == cols and geo["chunks"] == -(-t_len // steps)
+    assert units * bt <= sru_fused.FWD16_SCAN_MAX
+    assert geo["grid"] == (-(-bsz // bt), 2, slices)
+    assert (slices - 1) * units < hdim <= slices * units
+    assert geo["smem"] == sru_fused.k2_fwd_bf16_smem(hdim, cols, units, bt,
+                                                     vec) <= limit
+    # copy width: the widest of 8, 4, 2 dividing bt and B, else words
     assert vec == next((w for w in (8, 4, 2) if bt % w == 0 and
                         bsz % w == 0), 1)
-    # one chunk's X copies, vec values each: every (row, column) once, a
-    # copy inside one row and one step, source and destination aligned to
-    # its bytes
+    # the pick: bt 8 where B is a multiple of 4 (8- or 16-byte copies)
+    # and it fits, else 1; the fewest slices that fit, then more until the
+    # grid fills the card where any does; the chunk the widest whose
+    # blocks are all resident, where one is
+    def fits(u, b, c=16):
+        return u * b <= sru_fused.FWD16_SCAN_MAX and sru_fused.k2_fwd_bf16_smem(
+            hdim, c, u, b, sru_fused.k2_bf16_vec(b, bsz)) <= limit
+
+    def fill(b, n):
+        return -(-bsz // b) * 2 * n >= kernel_lib.SMS
+
+    wide = bsz % 4 == 0 and bsz >= 8 and any(
+        fits(-(-hdim // n), 8) for n in range(1, hdim + 1))
+    assert bt == (8 if wide else 1)
+    first = next(n for n in range(1, hdim + 1) if fits(-(-hdim // n), bt))
+    first = -(-hdim // -(-hdim // first))
+    if fill(bt, first):
+        assert slices == first
+    else:
+        assert slices >= first and (fill(bt, slices) or not any(
+            fill(bt, n) and fits(-(-hdim // n), bt)
+            for n in range(first, hdim + 1)))
+    if geo["blocks"] <= kernel_lib.SMS * geo["per_sm"]:
+        for c in (64, 32):
+            if c > cols and fits(units, bt, c):
+                wider = sru_fused.k2_fwd_bf16_smem(hdim, c, units, bt, vec)
+                assert kernel_lib.SMS * min(
+                    kernel_lib.SMEM_PER_SM // (wider + 1024),
+                    2048 // geo["threads"], 2) < geo["blocks"]
+    # one chunk's X copies at the middle tile and every step: vec values
+    # a copy (every (row, column) once, inside one step's columns, source
+    # and destination aligned to its bytes), or each (row, step)'s words
+    # from the one holding its first value, covering its bt values
     k16 = -(-2 * hdim // 16) * 16
-    xs = cols + 8
+    xs, b0 = cols + 8, (bsz // bt // 2) * bt
     seen = np.zeros((k16, cols), np.int32)
-    for e in range(0, k16 * cols, vec):
-        r, col = divmod(e, cols)
-        s, c = divmod(col, bt)
-        assert (col + vec - 1) // bt == s and col + vec <= cols
-        seen[r, col:col + vec] += 1
-        assert (r * xs + col) % vec == 0
-        src = (5 * hdim + r % hdim) * bsz + (bsz // bt // 2) * bt + c
-        assert src % vec == 0
+    for t in range(min(t_len, 3)):
+        first = (t * hdim + np.arange(k16) % hdim) * bsz + b0
+        if vec > 1:
+            for e in range(0, k16 * cols, vec):
+                r, col = divmod(e, cols)
+                c = col % bt
+                assert c + vec <= bt and (r * xs + col) % vec == 0
+                assert (first[r] + c) % vec == 0
+                if t == 0:
+                    seen[r, col:col + vec] += 1
+        else:
+            seg = bt // 2 + 1
+            assert (2 * (first >> 1) + 2 * seg >= first + bt).all()
+            assert (first - 2 * (first >> 1) <= 1).all()
+            seen += 1 if t == 0 else 0
     assert (seen == 1).all()
     return geo
 
@@ -190,58 +230,107 @@ def test_k2_bf16_geometry_any_width(hdim, bsz, t_len):
     _k2_walk(t_len, hdim, bsz)
 
 
+def _ldsm(addr, trans):
+    """ldmatrix .x4 on an emulated tile: ``addr(lane)`` the element index
+    lane gives (matrix lane // 8's row lane % 8); returns, for lane 4 g +
+    q, its 4 registers as pairs of element indices (the lower first)."""
+    out = {}
+    for g in range(8):
+        for q in range(4):
+            regs = []
+            for j in range(4):
+                if trans:
+                    regs.append((addr(8 * j + 2 * q) + g,
+                                 addr(8 * j + 2 * q + 1) + g))
+                else:
+                    a = addr(8 * j + g) + 2 * q
+                    regs.append((a, a + 1))
+            out[(g, q)] = regs
+    return out
+
+
+def _ldsm_banks_free(addr):
+    """Each of the four matrices' eight 16-byte rows on distinct banks."""
+    for j in range(4):
+        banks = {(2 * addr(8 * j + r) // 4 + w) % 32 for r in range(8)
+                 for w in range(4)}
+        if len(banks) != 32 or any(2 * addr(8 * j + r) % 16
+                                   for r in range(8)):
+            return False
+    return True
+
+
 def test_k2_bf16_fragments_and_banks():
-    """The kernel's reads for one k16 step (A from X's slot [k][column],
-    rows of N + 8 values; B from W_d [o][k], rows of 2H' + 8) are the
-    elements m16n8k16 wants in each register half; A's 2-byte reads fall
-    on 16 distinct banks (two lanes a word), B's 4-byte reads on 32."""
-    for cols, hdim in ((64, 32), (32, 48), (64, 8), (32, 268)):
-        xs = cols + 8
-        ws = -(-2 * hdim // 16) * 16 + 8
-        m0, k0, r0 = 16, 16 if hdim > 8 else 0, 8
-        a_words, b_words = set(), []
-        for g in range(8):
-            for q in range(4):
-                base = 2 * q * xs + m0 + g + k0 * xs  # xl + k0 xs
-                kernel_a = [(base, base + xs), (base + 8, base + xs + 8),
-                            (base + 8 * xs, base + 9 * xs),
-                            (base + 8 * xs + 8, base + 9 * xs + 8)]
-                for r in range(4):
-                    for h in range(2):
-                        row, kk = _mma_a(g, q, r, h)
-                        assert kernel_a[r][h] == (k0 + kk) * xs + m0 + row
-                wl = (r0 + g) * ws + 2 * q + k0
+    """The kernel's ldmatrix rows give m16n8k16's fragments: A from W_d's
+    [o][k] rows of K + 8 bf16, B (.trans) from X's [k][column] rows of N +
+    8, each matrix's 8 rows on distinct banks; the scan warps' reads of U
+    (rows of N + max(bt, 2) floats: bt columns of 32 / bt units a warp)
+    on distinct banks but at bt 1 (two lanes a bank), and of the highway
+    row of X (2-byte reads, rows of N + 8) at most 4 lanes' words a
+    bank."""
+    for cols, hdim in ((64, 32), (32, 48), (16, 8), (64, 80)):
+        k16 = -(-2 * hdim // 16) * 16
+        ws, xs = k16 + 8, cols + 8
+        o0, k0, n0 = 16, 16 if k16 > 16 else 0, cols - 16
+        # the lane's rows: lo = lr + 8 (lm & 1), hi = 8 (lm >> 1)
+        lo = lambda l: l % 8 + 8 * ((l // 8) & 1)  # noqa: E731
+        hi = lambda l: 8 * (l // 16)  # noqa: E731
+        a_at = lambda l: (o0 + lo(l)) * ws + k0 + hi(l)  # noqa: E731
+        b_at = lambda l: (k0 + lo(l)) * xs + n0 + hi(l)  # noqa: E731
+        a, b = _ldsm(a_at, False), _ldsm(b_at, True)
+        for (g, q), regs in a.items():
+            for r in range(4):
+                for h in range(2):
+                    row, kk = _mma_a(g, q, r, h)
+                    assert regs[r][h] == (o0 + row) * ws + k0 + kk
+        for (g, q), regs in b.items():
+            for nt in range(2):
                 for r in range(2):
                     for h in range(2):
                         kk, n = _mma_b(g, q, r, h)
-                        assert wl + 8 * r + h == (r0 + n) * ws + k0 + kk
-                assert wl % 2 == 0  # a 4-byte read
-                a_words.add(kernel_a[0][0] // 2 % 32)
-                b_words.append(wl // 2 % 32)
-        assert len(a_words) == 16 and len(set(b_words)) == 32
+                        assert regs[2 * nt + r][h] == \
+                            (k0 + kk) * xs + n0 + 8 * nt + n
+        assert _ldsm_banks_free(a_at) and _ldsm_banks_free(b_at)
+        for bt in (8, 4, 2, 1):
+            us = cols + max(bt, 2)
+            lanes = [(l // bt, l % bt) for l in range(32)]
+            u_banks = [(jl * us + 3 * bt + c) % 32 for jl, c in lanes]
+            worst = max(u_banks.count(x) for x in set(u_banks))
+            assert worst == (2 if bt == 1 else 1), (cols, bt)
+            hw_words = {}
+            for jl, c in lanes:
+                w = ((7 + jl) * xs + 3 * bt + c) // 2
+                hw_words.setdefault(w % 32, set()).add(w)
+            assert max(len(v) for v in hw_words.values()) <= 4
 
 
 @pytest.mark.parametrize("bsz", [1, 8, 33, 125])
 def test_k2_bf16_limit(bsz):
-    """H up to 536 holds 8 units' rows beside X's two slots (the held bf16
-    kernel); above, the bf16 kernel streams its reduction: every H up to
-    1024 gets a geometry whose streamed shared memory (one float32 U slot
-    and a ring of FWD_STAGES bf16 stages, ``hid_fwd_bf16_stream_smem_bytes``)
-    fits a block, the held one's does not (so the C entry streams exactly
-    there), its stages are whole k16 steps, and the scan threads fit the
-    block."""
+    """The held bf16 kernel takes every H up to where not even a slice of
+    one unit with chunks of 16 columns fits a block at its bt (its X ring
+    grows with H: H 504 where B is a multiple of 4, 272 else); above, the kernel streams its reduction (the float32 kernel's
+    streamed blocks, one float32 U slot and a ring of FWD_STAGES bf16
+    stages, ``hid_fwd_bf16_stream_smem_bytes``, which does not grow with
+    H): every H up to 1024 gets a geometry that fits, the streamed stages
+    whole k16 steps, the scan threads inside the block."""
     limit = kernel_lib.SMEM_PER_BLOCK
-    assert sru_fused.k2_fwd_smem(536, 32, 8, 2) <= limit
-    assert sru_fused.k2_fwd_smem(537, 32, 8, 2) > limit
-    assert not sru_fused.k2_fwd_geometry(3, 536, bsz, 2)["stream"]
+
+    def held(h):
+        return any(sru_fused.k2_fwd_bf16_smem(
+            h, 16, 1, b, sru_fused.k2_bf16_vec(b, bsz)) <= limit
+            for b in ((8, 1) if bsz % 4 == 0 and bsz >= 8 else (1,)))
+
+    top = max(h for h in range(8, 1025, 8) if held(h))
+    assert all(held(h) for h in range(8, top + 1, 8))
+    assert top == (504 if bsz % 4 == 0 and bsz >= 8 else 272)
+    assert not sru_fused.k2_fwd_bf16_geometry(3, top, bsz)["stream"]
     assert sru_fused.FWD_K % 16 == 0 and sru_fused.FWD_K // 2 <= 32
-    for h in (537, 600, 777, 1024):
-        geo = sru_fused.k2_fwd_geometry(3, h, bsz, 2)
+    for h in (top + 8, 600, 777, 1024):
+        geo = sru_fused.k2_fwd_bf16_geometry(3, h, bsz)
         units, cols = geo["units"], geo["cols"]
         assert geo["stream"] and geo["kslices"] == -(-2 * h // sru_fused.FWD_K)
         assert geo["smem"] == sru_fused.k2_fwd_stream_smem(cols, units, 2)
-        assert geo["smem"] <= limit
-        assert sru_fused.k2_fwd_smem(h, cols, units, 2) > limit
+        assert geo["smem"] <= limit and geo["threads"] == sru_fused.FWD_THREADS
         assert units * geo["bt"] <= sru_fused.FWD_THREADS
         assert geo["slices"] * units >= h > (geo["slices"] - 1) * units
         rows = -(-3 * units // (8 * sru_fused.FWD_NB)) * 8 * sru_fused.FWD_NB
@@ -253,10 +342,6 @@ def test_k2_bf16_limit(bsz):
 # ----------------------------------------------------------------- K3
 
 
-def _ring16_at(i, c):
-    return i * convt_tm.FWD_COLS + (c ^ (((i >> 2) & 1) << 3))
-
-
 @settings(max_examples=60, deadline=None)
 @given(c_in=st.integers(1, 20).map(lambda n: 8 * n),
        c_out=st.sampled_from([16, 20, 48, 64, 130]),
@@ -264,19 +349,27 @@ def _ring16_at(i, c):
        bsz=st.sampled_from([1, 6, 33, 64, 125, 1000]))
 def test_k3_bf16_split_and_partials(c_in, c_out, k, bsz):
     """Input channels in the fewest equal slices of 16 whose bf16 W_flat
-    and ring fit a block (all of C_in where they do), output channels in
-    blocks of 64; each (t, o, b) gets one float32 partial a slice, summed
-    in slice order and rounded to bf16 once."""
+    and ring fit a block at the picked tile (all of C_in where they do),
+    output channels in blocks of mb; the tile is the first of
+    FWD16_TILES whose items over the grid rows fill the card; each (t, o,
+    b) gets one float32 partial a slice, summed in slice order and
+    rounded to bf16 once."""
     length = 9
-    geo = convt_tm.fwd_geometry(length, c_in, c_out, k, bsz, 2)
+    geo = convt_tm.fwd_bf16_geometry(length, c_in, c_out, k, bsz)
     limit = kernel_lib.SMEM_PER_BLOCK
-    ci = geo["ci_slice"]
+    ci, nc, mb = geo["ci_slice"], geo["nc"], geo["mb"]
+    assert (nc, mb) in convt_tm.FWD16_TILES
     assert ci == c_in or ci % 16 == 0
-    assert geo["smem"] == convt_tm.fwd_smem(k, ci, min(c_out, 64), 2) <= limit
+    assert geo["smem"] == convt_tm.fwd_bf16_smem(k, ci, mb, nc) <= limit
     if geo["in_slices"] > 1:
         fewer = -(-(-(-c_in // (geo["in_slices"] - 1))) // 16) * 16
-        assert convt_tm.fwd_smem(k, fewer, min(c_out, 64), 2) > limit
+        assert convt_tm.fwd_bf16_smem(k, fewer, mb, nc) > limit
     assert geo["in_slices"] == -(-c_in // ci)
+    assert geo["out_slices"] == -(-c_out // mb)
+    assert geo["grid"] == (geo["blocks"], 1,
+                           geo["in_slices"] * geo["out_slices"])
+    assert geo["items"] == -(-bsz // nc) * -(-(length + k - 1) // 8)
+    assert 1 <= geo["blocks"] <= geo["items"]
     assert geo["vec_x"] == next((w for w in (8, 4, 2) if bsz % w == 0), 1)
     assert geo["vec_w"] == next((w for w in (8, 4, 2) if c_in % w == 0), 1)
     # slices cover every input channel once; a W copy never straddles a
@@ -299,43 +392,50 @@ def test_k3_bf16_split_and_partials(c_in, c_out, k, bsz):
 
 
 def test_k3_bf16_ring_and_fragments():
-    """The x ring's swizzle keeps each 8-value group (a 16-byte copy)
-    together; the kernel's B reads (two 2-byte reads a register, rows i0 +
-    2q (+1, +8, +9), column n0 + g) are m16n8k16's B elements and fall on
-    16 distinct banks; its A reads (W_flat rows of K C_in' + 8) are one
-    aligned 4-byte read a register, on 32 banks."""
-    fc = convt_tm.FWD_COLS
-    for i in range(64):
-        for c0 in (0, 8):
-            got = [_ring16_at(i, c0 + c) for c in range(8)]
-            assert got == list(range(got[0], got[0] + 8)) and got[0] % 8 == 0
-    for k, cp in ((8, 64), (5, 32), (3, 16), (16, 80)):
-        ws = k * cp + 8
-        for n0 in (0, 8):
-            banks = set()
-            for g in range(8):
-                for q in range(4):
-                    xb = [_ring16_at(2 * q, n0 + g), _ring16_at(2 * q + 1, n0 + g),
-                          _ring16_at(2 * q + 8, n0 + g),
-                          _ring16_at(2 * q + 9, n0 + g)]
+    """The x ring's rows ([i][column], nc + 8 bf16) and W_flat's (k C_in' +
+    8) give m16n8k16's fragments through ldmatrix (B .trans), every
+    matrix's 8 rows on distinct banks; a warp's staging tile (16 rows of
+    FWD16_STAGE bf16) takes its 4-byte writes on 32 distinct banks and
+    gives each lane an aligned 16-byte chunk; an output chunk starts on a
+    16-byte boundary where B is a multiple of 8."""
+    lo = lambda l: l % 8 + 8 * ((l // 8) & 1)  # noqa: E731
+    hi = lambda l: 8 * (l // 16)  # noqa: E731
+    for nc in (16, 32):
+        xs = nc + 8
+        for i0, n0 in ((0, 0), (16, nc - 16)):
+            b_at = lambda l: (i0 + lo(l)) * xs + n0 + hi(l)  # noqa: E731
+            regs = _ldsm(b_at, True)
+            for (g, q), rr in regs.items():
+                for nt in range(2):
                     for r in range(2):
                         for h in range(2):
                             kk, n = _mma_b(g, q, r, h)
-                            assert xb[2 * r + h] == _ring16_at(kk, n0 + n)
-                    banks.add(xb[0] // 2 % 32)
-            assert len(banks) == 16
-        words = set()
-        for g in range(8):
-            for q in range(4):
-                ra = (16 + g) * ws + 2 * q + 3 * cp  # wl + j cp, j 3
-                for r in range(4):
-                    row, kk = _mma_a(g, q, r, 0)
-                    off = ra + (8 * ws if r & 1 else 0) + (8 if r >> 1 else 0)
-                    assert off == (16 + row) * ws + 3 * cp + kk
-                    assert off % 2 == 0
-                words.add(ra // 2 % 32)
-        assert len(words) == 32
-    assert fc == 16
+                            assert rr[2 * nt + r][h] == \
+                                (i0 + kk) * xs + n0 + 8 * nt + n
+            assert _ldsm_banks_free(b_at)
+    for k, cp in ((8, 64), (5, 32), (3, 16), (16, 80)):
+        ws = k * cp + 8
+        a_at = lambda l: (16 + lo(l)) * ws + 3 * cp + 16 + hi(l)  # noqa
+        if cp < 32:
+            a_at = lambda l: (16 + lo(l)) * ws + 2 * cp + hi(l)  # noqa
+        regs = _ldsm(a_at, False)
+        base = a_at(0) - 16 * ws
+        for (g, q), rr in regs.items():
+            for r in range(4):
+                for h in range(2):
+                    row, kk = _mma_a(g, q, r, h)
+                    assert rr[r][h] == base + (16 + row) * ws + kk
+        assert _ldsm_banks_free(a_at)
+    st_ = convt_tm.FWD16_STAGE
+    banks = {((g + 8 * h) * st_ + 8 * nt + 2 * q) // 2 % 32
+             for g in range(8) for q in range(4) for h in (0,)
+             for nt in (0,)}
+    assert len(banks) == 32
+    for lane in range(32):
+        assert (2 * ((lane >> 1) * st_ + 8 * (lane & 1))) % 16 == 0
+    for bsz in (64, 512, 1000):
+        for t, o, b0 in ((0, 0, 0), (7, 63, 32), (3, 5, 16 + 8)):
+            assert 2 * ((t * 64 + o) * bsz + b0) % 16 == 0
 
 
 # ---------------------------------------------------------- K6 / K7 bf16

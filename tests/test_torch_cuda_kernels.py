@@ -863,7 +863,7 @@ def _b(rng, shape, dev, scale=1.0):
 
 
 # the serving shapes at bs 1 and 8, small H, a ragged B, T 1, H 48 and 80
-# (K2's units split over the grid), H 268 and 536 (the largest bf16 K2)
+# (K2's units split over the grid), H 268 (held) and 536 (streamed)
 @pytest.mark.parametrize("t_len,h,bsz", [
     (57, 32, 125), (118, 32, 64), (57, 32, 1000), (118, 32, 512),
     (21, 8, 5), (1, 32, 77), (37, 32, 131), (23, 48, 131), (57, 80, 125),
@@ -925,6 +925,97 @@ def test_bf16_k3_matches_plain(dev, length, c_in, c_out, bsz, k):
     _bf16_close(got, K.convt1d_ola_tm(x.float(), w.float()).to(torch.bfloat16),
                 "K3 float32")
     assert torch.equal(got, K.convt1d_ola_tm(x, w))
+
+
+# the redesigned bf16 forwards (K2 ``sru_hid_fwd_bf16_kernel``, K3
+# ``convt1d_tm_fwd_bf16_kernel``): the six main-path sites (bs 1, 4 and 8
+# at freq L 57 over B 125 bs and time L 118 over B 64 bs, H 32), B odd
+# with bt 8 and with bt 1 (the word copies), bt 2 and 4, H 48 and 80 (the
+# units split over the grid); bt 0 is the geometry's own choice
+FWD16_SITES = [(57, 125), (118, 64), (57, 500), (118, 256), (57, 1000),
+               (118, 512)]
+
+
+@pytest.mark.parametrize("t_len,h,bsz,bt", [
+    *((t, 32, b, 0) for t, b in FWD16_SITES), (37, 32, 131, 8),
+    (37, 32, 131, 1), (21, 32, 250, 2), (13, 32, 12, 4), (23, 48, 131, 0),
+    (19, 80, 64, 0), (9, 80, 125, 0)])
+@pytest.mark.parametrize("with_c", [False, True])
+def test_bf16_k2_redesign_matches_plain_and_float32(dev, t_len, h, bsz, bt,
+                                                    with_c):
+    """The bf16 K2 forward at the geometry's (or a forced) bt against its
+    plain bf16 version and the float32 kernel on the widened values (two
+    bf16 ulps), serving and with c; two calls give the same bits."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    rng = np.random.default_rng(21)
+    vb = _b(rng, (8, h), dev, 0.3)
+    x_f, x_r = (_b(rng, (t_len, h, bsz), dev, 0.5) for _ in range(2))
+    wt = _b(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
+    geo = S.k2_fwd_bf16_geometry(t_len, h, bsz, bt=bt)
+    assert not geo["stream"] and (bt == 0 or geo["bt"] == bt)
+
+    def call():
+        outs = [torch.empty_like(x_f) for _ in range(4 if with_c else 2)]
+        c_ptrs = ((outs[2].data_ptr(), outs[3].data_ptr()) if with_c
+                  else (None, None))
+        kernel_lib.launch(
+            "sru_fused", "sru_hidden_layer_fwd_bf16", dev, x_f.data_ptr(),
+            x_r.data_ptr(), wt.data_ptr(), vb.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), *c_ptrs, t_len, h, bsz, geo["bt"],
+            geo["steps"], geo["units"], 0)
+        return outs
+
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    want = S.sru_hidden_layer_plain(x_f, x_r, wt, vb, with_c)
+    wide = S._k2_forward(x_f.float(), x_r.float(), wt.float(), vb.float(),
+                         with_c)
+    for i, (g, a, w, f) in enumerate(zip(got, again, want, wide)):
+        assert torch.equal(g, a), i
+        _bf16_close(g, w, f"K2 plain {i}")
+        _bf16_close(g, f.to(torch.bfloat16), f"K2 float32 {i}")
+
+
+@pytest.mark.parametrize("length,c_in,bsz,tile", [
+    *((t, 64, b, None) for t, b in FWD16_SITES), (37, 64, 131, None),
+    (37, 64, 131, (32, 64)), (57, 64, 125, (16, 32)),
+    (118, 64, 64, (32, 16)), (20, 48, 21, (16, 64)), (9, 96, 40, None)])
+def test_bf16_k3_redesign_matches_plain_and_float32(dev, length, c_in, bsz,
+                                                    tile):
+    """The bf16 K3 forward at the geometry's (or a forced) tile of columns
+    and output channels against its plain bf16 version and the float32
+    kernel on the widened values (two bf16 ulps); two calls give the same
+    bits; C_in 96 splits the input channels (float32 partials)."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+    from rtfs_tpu_torch.ops import kernel_lib
+
+    rng = np.random.default_rng(22)
+    k, c_out = 8, 64
+    x = _b(rng, (length, c_in, bsz), dev)
+    w = _b(rng, (k, c_out, c_in), dev, (c_in * k) ** -0.5)
+    geo = K.fwd_bf16_geometry(length, c_in, c_out, k, bsz,
+                              *(tile or (0, 0)))
+
+    def call():
+        out = torch.empty(length + k - 1, c_out, bsz, device=dev,
+                          dtype=torch.bfloat16)
+        part = (torch.empty(geo["in_slices"], geo["part"], device=dev)
+                if geo["in_slices"] > 1 else None)
+        kernel_lib.launch(
+            "convt_tm", "convt1d_ola_tm_fwd_bf16", dev, x.data_ptr(),
+            w.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), length, c_in, c_out,
+            k, bsz, geo["nc"], geo["mb"], geo["ci_slice"], geo["blocks"])
+        return out
+
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _bf16_close(got, K.convt1d_ola_tm_plain(x, w), "K3 plain")
+    _bf16_close(got, K.convt1d_ola_tm(x.float(), w.float()).to(
+        torch.bfloat16), "K3 float32")
 
 
 @pytest.mark.parametrize("op", ["k1", "k2", "k3", "k4", "packed"])
@@ -1227,10 +1318,10 @@ def test_bf16_dual_path_rnn_card_matches_cpu(dev):
     assert err <= 2e-2 * want.float().abs().max().item(), err
 
 
-# K2 forward in bf16 above H 536, where W_d's rows of 8 units and X's two
-# slots do not fit one block: the streamed bf16 kernel, with B a multiple
-# of 8 (16-byte copies of X), B 33 (odd: plain loads) and T a multiple of
-# no chunk
+# K2 forward in bf16 where its held kernel does not fit one block (H above
+# 504, above 272 where B is not a multiple of 4): the streamed bf16 kernel, with B a
+# multiple of 8 (16-byte copies of X), B 33 (odd: plain loads) and T a
+# multiple of no chunk
 @pytest.mark.parametrize("t_len,h,bsz", [(5, 600, 20), (9, 600, 33),
                                           (3, 1024, 8), (37, 537, 16)])
 def test_bf16_k2_streams_a_wide_h(dev, t_len, h, bsz):
@@ -1240,7 +1331,7 @@ def test_bf16_k2_streams_a_wide_h(dev, t_len, h, bsz):
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.ops import sru_fused as S
 
-    assert S.k2_fwd_geometry(t_len, h, bsz, 2)["stream"]
+    assert S.k2_fwd_bf16_geometry(t_len, h, bsz)["stream"]
     rng = np.random.default_rng(14)
     vb = _b(rng, (8, h), dev, 0.3)
     x_f, x_r = (_b(rng, (t_len, h, bsz), dev, 0.5) for _ in range(2))

@@ -37,6 +37,23 @@ shape it, given as ``A:B:..`` in the order of its row of ``KERNELS``:
   share of them) and timed by the profiler's device time a launch (CUDA
   events over back-to-back launches of a few-us kernel time the host).
 
+- ``k2fwd16``: K2 forward in bf16 (``sru_hid_fwd_bf16_kernel``), its
+  producer warps ``kFwd16Prod`` (the warp roles: copies and the product
+  against one scan thread a unit and column) and the chunks its copies
+  run ahead ``kFwd16Ahead`` (its ring's depth), then two launch choices
+  that ``ops/sru_fused.k2_fwd_bf16_geometry`` otherwise makes, bt (the
+  batch columns a block, against the unit split it implies; 0: the
+  geometry's) and the chunk's columns (S bt; 0: the geometry's); the
+  six RTFS-Net-4 forward sites (bs 1, 4, 8 at freq L 57 over B 125 bs and
+  time L 118 over B 64 bs, H 32), serving, held to the plain bf16 version
+  (the error printed is the worst element's share of two bf16 ulps) and
+  timed by the profiler's device time a launch;
+- ``k3fwd16``: K3 forward in bf16 (``convt1d_tm_fwd_bf16_kernel``), its
+  ring depth in passes ``kFwd16Stages``, then the column tile and the
+  output channels a block (0: the geometry's,
+  ``ops/convt_tm.fwd_bf16_geometry``); the same six sites (2H 64 -> 64
+  channels, 8 taps), as ``k2fwd16``.
+
 Each variant is built from a copy of ``csrc/`` with the constants
 replaced, into ``rtfs_tpu_torch/_build/variants/`` (every nvcc at once),
 then runs in a process of its own (loaded into one process beside the
@@ -52,6 +69,10 @@ max (``maps16``: of two bf16 ulps); the run fails if one is above 1e-4
         128:3:100000:64]
     python3 tools/kernel_variants.py maps16 [--variants 16:128:6:2:6
         16:128:6:4:4]
+    python3 tools/kernel_variants.py k2fwd16 [--variants 6:2:0:0 4:2:0:0
+        6:3:0:0 6:2:1:0]
+    python3 tools/kernel_variants.py k3fwd16 [--variants 3:0:0 2:0:0
+        3:32:64 3:16:64]
 """
 
 from __future__ import annotations
@@ -272,6 +293,95 @@ def maps16_sites(libs, values) -> dict:
     return out
 
 
+# the six forward sites of the bf16 K2 and K3: (L, B per batch item)
+FWD16_SITES = {"freq": (57, 125), "time": (118, 64)}
+
+
+def _bf16_ulp_share(got, want) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (2.0 ** -7 * torch.clamp(
+        w.abs(), min=2.0 ** -6))).max().item()
+
+
+def k2fwd16_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of the bf16 K2 forward at the six
+    sites, through its C entry at the variant's bt and chunk columns; the
+    check the worst element's share of two bf16 ulps."""
+    from rtfs_tpu_torch.ops import sru_fused as S
+
+    prod, ahead, bt, cols = values
+    S.FWD16_PROD, S.FWD16_AHEAD = prod, ahead
+    h, rng = 32, np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for bs in (1, 4, 8):
+        for site, (T, per) in FWD16_SITES.items():
+            B = bs * per
+            x_f, x_r = (_t(rng, (T, h, B), 0.5).bfloat16() for _ in range(2))
+            wt = _t(rng, (6 * h, 2 * h), (2 * h) ** -0.5).bfloat16()
+            vb = _t(rng, (8, h), 0.3).bfloat16()
+            h_f, h_r = torch.empty_like(x_f), torch.empty_like(x_r)
+            geo = S.k2_fwd_bf16_geometry(T, h, B, bt=bt, cols=cols)
+
+            def call(x_f=x_f, x_r=x_r, wt=wt, vb=vb, h_f=h_f, h_r=h_r,
+                     geo=geo, T=T, B=B):
+                st = libs["sru_fused"].sru_hidden_layer_fwd_bf16(
+                    x_f.data_ptr(), x_r.data_ptr(), wt.data_ptr(),
+                    vb.data_ptr(), h_f.data_ptr(), h_r.data_ptr(), None,
+                    None, T, h, B, geo["bt"], geo["steps"], geo["units"], 0,
+                    stream)
+                assert st == 0, st
+
+            def check(x_f=x_f, x_r=x_r, wt=wt, vb=vb, h_f=h_f, h_r=h_r):
+                want = S.sru_hidden_layer_plain(x_f, x_r, wt, vb)
+                return max(_bf16_ulp_share(g, w)
+                           for g, w in zip((h_f, h_r), want))
+
+            nbytes = 2 * (4 * T * h * B + wt.numel() + vb.numel())
+            out[f"bs{bs} {site} L={T} B={B}"] = (
+                call, check, nbytes / HBM_BYTES_PER_S * 1e6,
+                f"bt {geo['bt']} units {geo['units']} cols {geo['cols']} "
+                f"blocks {geo['blocks']}")
+    return out
+
+
+def k3fwd16_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of the bf16 K3 forward at the six
+    sites, through its C entry at the variant's ring depth and tile."""
+    from rtfs_tpu_torch.ops import convt_tm as K
+
+    stages, nc, mb = values
+    K.FWD16_STAGES = stages
+    c, k, rng = 64, 8, np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for bs in (1, 4, 8):
+        for site, (L, per) in FWD16_SITES.items():
+            B = bs * per
+            x = _t(rng, (L, c, B)).bfloat16()
+            w = _t(rng, (k, c, c), (c * k) ** -0.5).bfloat16()
+            o = torch.empty(L + k - 1, c, B, device="cuda",
+                            dtype=torch.bfloat16)
+            geo = K.fwd_bf16_geometry(L, c, c, k, B, nc, mb)
+
+            def call(x=x, w=w, o=o, geo=geo, L=L, B=B):
+                st = libs["convt_tm"].convt1d_ola_tm_fwd_bf16(
+                    x.data_ptr(), w.data_ptr(), o.data_ptr(), None, L, c, c,
+                    k, B, geo["nc"], geo["mb"], geo["ci_slice"],
+                    geo["blocks"], stream)
+                assert st == 0, st
+
+            def check(x=x, w=w, o=o):
+                return _bf16_ulp_share(o, K.convt1d_ola_tm_plain(x, w))
+
+            nbytes = 2 * (L * c * B + w.numel() + (L + k - 1) * c * B)
+            out[f"bs{bs} {site} L={L} B={B}"] = (
+                call, check, nbytes / HBM_BYTES_PER_S * 1e6,
+                f"nc {geo['nc']} mb {geo['mb']} blocks "
+                f"{geo['blocks']}x{geo['grid'][2]}")
+    return out
+
+
 def device_ms(fn, parts, iters: int = 50) -> float:
     """The profiler's device ms a call of the kernels whose names hold
     one of ``parts``."""
@@ -291,7 +401,8 @@ def device_ms(fn, parts, iters: int = 50) -> float:
 # kernel: (source whose constants change, constants, libraries built from
 # the copy, a part of the kernel's name in ptxas' report, the sites,
 # default variants, the error a site may have, the kernels' names to time
-# by the profiler or None for CUDA events)
+# by the profiler or None for CUDA events[, launch choices after the
+# constants in a variant, passed to the sites only])
 KERNELS = {
     "scan": ("sru_scan.cuh", ("kScanAhead", "kScanGroup"),
              ("sru_fused", "sru_pallas"), "sru_scan_bwd", scan_sites,
@@ -313,6 +424,14 @@ KERNELS = {
                ["16:128:6:2:6", "16:128:6:4:4", "32:256:4:2:6",
                 "8:64:12:2:6"], 1.0,
                ("spatial_down_bf16_kernel", "spatial_up_bf16_kernel")),
+    "k2fwd16": ("sru_fused.cu", ("kFwd16Prod", "kFwd16Ahead"), ("sru_fused",),
+                "sru_hid_fwd_bf16_kernel", k2fwd16_sites,
+                ["6:2:0:0", "4:2:0:0", "8:2:0:0", "6:3:0:0", "6:2:1:0"], 1.0,
+                ("sru_hid_fwd_bf16_kernel",), 2),
+    "k3fwd16": ("convt_tm.cu", ("kFwd16Stages",), ("convt_tm",),
+                "convt1d_tm_fwd_bf16", k3fwd16_sites,
+                ["3:0:0", "2:0:0", "3:32:64", "3:16:64"], 1.0,
+                ("convt1d_tm_fwd_bf16_kernel",), 2),
 }
 
 
@@ -321,11 +440,17 @@ def _root(kernel: str, v: str) -> str:
                         v.replace(":", "_"))
 
 
+def _launch_choices(kernel: str) -> int:
+    row = KERNELS[kernel]
+    return row[8] if len(row) > 8 else 0
+
+
 def _values(kernel: str, v: str) -> tuple:
     values = tuple(int(a) for a in v.split(":"))
-    if len(values) != len(KERNELS[kernel][1]):
+    if len(values) != len(KERNELS[kernel][1]) + _launch_choices(kernel):
         raise ValueError(f"{kernel} variant {v}: give "
-                         f"{':'.join(KERNELS[kernel][1])}")
+                         f"{':'.join(KERNELS[kernel][1])} and "
+                         f"{_launch_choices(kernel)} launch choices")
     return values
 
 
@@ -390,12 +515,12 @@ def worker(kernel: str, v: str) -> None:
     sites = KERNELS[kernel][4](load(kernel, v), _values(kernel, v))
     parts = KERNELS[kernel][7]
     res = {}
-    for site, (call, check, bound_us) in sites.items():
+    for site, (call, check, bound_us, *note) in sites.items():
         call()
         torch.cuda.synchronize()
         err = check()
         ms = event_ms(call) if parts is None else device_ms(call, parts)
-        res[site] = [ms, bound_us, err]
+        res[site] = [ms, bound_us, err, *note]
     print(json.dumps(res))
 
 
@@ -440,7 +565,8 @@ def main() -> int:
             if run.returncode != 0:
                 raise RuntimeError(f"variant {v}:\n{run.stderr[-3000:]}")
             times[v].append(json.loads(run.stdout.strip().splitlines()[-1]))
-    consts = ":".join(KERNELS[args.kernel][1])
+    consts = ":".join(KERNELS[args.kernel][1]
+                      + ("launch",) * _launch_choices(args.kernel))
     tol = KERNELS[args.kernel][6]
     failed = 0
     for site in times[variants[0]][0]:
@@ -449,7 +575,9 @@ def main() -> int:
             bound = times[v][0][site][1]
             err = max(run[site][2] for run in times[v])
             failed += not err <= tol
-            print(f"{args.kernel} {consts}={v} {site}: us a launch {us}"
+            note = times[v][0][site][3:]
+            print(f"{args.kernel} {consts}={v} {site}"
+                  + (f" ({note[0]})" if note else "") + f": us a launch {us}"
                   + ("" if bound is None else f" (bound {bound:.2f}, bytes)")
                   + f"; error {err:.3e}, "
                   + ("held" if err <= tol else "FAILS") + f" {tol:.0e}; "

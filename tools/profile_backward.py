@@ -53,17 +53,29 @@ either tree); then K6 ``pw_proj_packed`` in bf16 against
 ``torch.baddbmm`` by device time at bs 1, 4 and 8, in turns over 5
 repeats.
 
+``--fwd16`` runs K2 ``sru_hidden_layer`` and K3 ``convt1d_ola_tm``
+forward in bf16 storage at the six RTFS-Net-4 forward sites (freq L 57
+over B 125 bs, time L 118 over B 64 bs, bs 1, 4 and 8), each against its
+plain bf16 version (two bf16 ulps) and twice (bit-identical), with its
+device time a launch (K2 with ``c`` written, the training forward, too),
+their sums per bs-1 / 4 / 8 forward (12 K2 and 4 K3 calls a site), and
+the float32 kernels at the same sites on the widened values: their device
+time and a hash of their outputs (the same inputs in either tree), and
+``conv_transpose1d`` in bf16 by device time (every kernel of a call).
+
 The wrappers' Python signatures are the same in every tree since K4 was
 ported (the packed weight gradients for ``--packed``), so two trees
 compare in turns in one call::
 
-    python3 tools/profile_backward.py [--packed] [--bf16] --tree _scratch/parent
+    python3 tools/profile_backward.py [--packed] [--bf16] [--fwd16] \
+        --tree _scratch/parent
     python3 tools/profile_backward.py [--packed] [--bf16]
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import importlib.util
 import math
@@ -136,7 +148,8 @@ def device_us(fn, parts, iters: int = 20) -> tuple:
               and e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(float(e.self_device_time_total) for e in picked)
     launches = sum(e.count for e in picked) / iters
-    names = sorted({e.key.split("(")[0][:60] for e in picked})
+    names = sorted({e.key.replace("void ", "").replace(
+        "(anonymous namespace)::", "").split("(")[0][:60] for e in picked})
     return total / iters, launches, names
 
 
@@ -319,6 +332,91 @@ MAP16_KERNELS = {"K8": ("spatial_down_bf16_kernel",
                         ("spatial_up_kernel", "bfloat16"))}
 
 
+# calls per forward of K2 and K3 at each site (12 K2, 4 K3: three hidden
+# layers of two DualPathRNNs a repeat, 4 repeats, at each site)
+FWD_PER_SITE = {"K2": 12, "K3": 4}
+FWD_SITES = {"freq": (57, 125), "time": (118, 64)}
+
+
+def forward16(t, tree: str, card: str) -> None:
+    """K2 and K3 forward in bf16 at the six forward sites (``--fwd16``),
+    and their float32 kernels' device time and output hashes."""
+    from rtfs_tpu_torch.ops import convt_tm, sru_fused
+
+    smoke = _own_smoke()
+    bf = torch.bfloat16
+    wt = t((6 * H, 2 * H), (2 * H) ** -0.5)
+    vb = t((8, H), 0.3)
+    w3 = t((8, 64, 2 * H), (16 * H) ** -0.5)
+    per = {}
+    for bs in (1, 4, 8):
+        for site, (T, per_item) in FWD_SITES.items():
+            B = bs * per_item
+            x_f, x_r = t((T, H, B), 0.5), t((T, H, B), 0.5)
+            x3 = t((T, 2 * H, B))
+            ops = {
+                "K2": (lambda a, b, c, d: sru_fused._k2_forward(
+                    a, b, c, d, with_c=False), sru_fused.sru_hidden_layer_plain,
+                    (x_f, x_r, wt, vb), ("sru_hid_fwd",)),
+                "K2 with c": (lambda a, b, c, d: sru_fused._k2_forward(
+                    a, b, c, d, with_c=True), functools.partial(
+                        sru_fused.sru_hidden_layer_plain, with_c=True),
+                    (x_f, x_r, wt, vb), ("sru_hid_fwd",)),
+                "K3": (convt_tm._forward, convt_tm.convt1d_ola_tm_plain,
+                       (x3, w3), ("convt1d_tm_fwd", "convt1d_tm_sum")),
+            }
+            for op, (fn, plain, args, parts) in ops.items():
+                a16 = tuple(a.to(bf) for a in args)
+                got, again = fn(*a16), fn(*a16)
+                want = plain(*a16)
+                got = got if isinstance(got, tuple) else (got,)
+                again = again if isinstance(again, tuple) else (again,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, a) for g, a in zip(got, again))
+                ratio = max(smoke.bf16_ulps(g, w)[1]
+                            for g, w in zip(got, want))
+                for _ in range(3):  # the profiler can drop every launch
+                    us, launches, names = device_us(lambda: fn(*a16), parts)
+                    if launches:
+                        break
+                f32 = fn(*args)
+                f32 = f32 if isinstance(f32, tuple) else (f32,)
+                digest = hashlib.sha1(b"".join(
+                    o.cpu().numpy().tobytes() for o in f32)).hexdigest()[:12]
+                for _ in range(3):
+                    us32, n32, _ = device_us(lambda: fn(*args), parts)
+                    if n32:
+                        break
+                line = (f"{op} forward bf16 bs={bs} site={site} L={T} B={B}: "
+                        f"device {us:.2f} us a call ({launches:g} launches "
+                        f"of {', '.join(names)}); against plain bf16 "
+                        f"{ratio:.3f} of 2 ulps; two calls "
+                        f"{'bit-identical' if same else 'DIFFER'}; float32 "
+                        f"kernel {us32:.2f} us, outputs {digest}")
+                if op == "K3":
+                    lib = functools.partial(
+                        torch.nn.functional.conv_transpose1d,
+                        a16[0].permute(2, 1, 0).contiguous(),
+                        a16[1].permute(2, 1, 0).contiguous())
+                    lib_us = device_us(lib, None)[0]
+                    line += f"; conv_transpose1d bf16 {lib_us:.2f} us a call"
+                    per.setdefault((bs, "library"), 0.0)
+                    per[(bs, "library")] += FWD_PER_SITE["K3"] * lib_us
+                print(line)
+                if ratio > 1.0 or not same:
+                    raise AssertionError(line)
+                key = op.split()[0]
+                if op != "K2 with c":
+                    per.setdefault((bs, key), 0.0)
+                    per[(bs, key)] += FWD_PER_SITE[key] * us
+    for bs in (1, 4, 8):
+        print(f"bf16 forward bs={bs}: K2 {per[(bs, 'K2')] / 1e3:.4f} ms, K3 "
+              f"{per[(bs, 'K3')] / 1e3:.4f} ms of device a forward "
+              f"(conv_transpose1d {per[(bs, 'library')] / 1e3:.4f}); tree "
+              f"{tree}; {card}")
+
+
 def _own_smoke():
     """This checkout's ``chip_smoke`` (its bytes count and memory rate),
     whatever ``--tree``."""
@@ -472,6 +570,9 @@ def main() -> int:
                     help="the packed kernels instead of the SRU backward")
     ap.add_argument("--sweep", action="store_true",
                     help="with --packed: K5-wgrad at other geometries")
+    ap.add_argument("--fwd16", action="store_true",
+                    help="K2 and K3 forward in bf16 at the six forward "
+                         "sites, and their float32 kernels")
     ap.add_argument("--bf16", action="store_true",
                     help="the SRU backward on bf16 inputs; with --packed: "
                          "K8 and K9 in bf16, and K6 bf16 against baddbmm")
@@ -496,7 +597,9 @@ def main() -> int:
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
             np.float32)).to(dev)
 
-    if args.packed and args.bf16:
+    if args.fwd16:
+        forward16(t, tree, card)
+    elif args.packed and args.bf16:
         maps_bf16(t)
         print(f"tree {tree}; {card}")
     elif args.packed:
