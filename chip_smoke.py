@@ -2748,7 +2748,7 @@ BF16_LAUNCHES = {"sru_dual_recurrence_fwd_bf16": 2 * REPEATS,
                  "sru_hidden_layer_fwd_bf16": 2 * REPEATS * 3,
                  "convt1d_ola_tm_fwd_bf16": 2 * REPEATS}
 # the bf16 kernels' names as the profiler shows them
-BF16_KERNEL_NAMES = {"sru_dual_recurrence_bf16": "sru_lay0_fwd_bf16_kernel",
+BF16_KERNEL_NAMES = {"sru_dual_recurrence_bf16": "sru_lay0_fwd16_kernel",
                      "sru_hidden_layer_bf16": "sru_hid_fwd_bf16_kernel",
                      "convt1d_ola_tm_bf16": "convt1d_tm_fwd_bf16_kernel"}
 # the CPU test's whole-model gates (tests/test_torch_bf16_avnet.py): max
@@ -2829,8 +2829,10 @@ def check_bf16_kernels(geo, rng) -> dict:
     bound, its plain version, the float32 kernel at the same site and,
     for K3, one ``conv_transpose1d`` in bf16 (events and its device time
     a call, every kernel of it). Prints per kernel the device ms of a
-    forward at each batch (K3's beside the library's). Returns per kernel
-    the worst error and per-forward (batch 8) sums, as phase 3 does."""
+    forward at each batch (K3's beside the library's), and K1's device us
+    a launch and share of its bound at each of the six sites. Returns per
+    kernel the worst error and per-forward (batch 8) sums, as phase 3
+    does."""
     from rtfs_tpu_torch.ops import convt_tm, sru_fused
 
     H, C, k = geo["H"], geo["C"], geo["k"]
@@ -2898,6 +2900,13 @@ def check_bf16_kernels(geo, rng) -> dict:
                 r = res[bname]
                 r["max_abs_err"] = max(r["max_abs_err"], c["err"])
                 r["device_us"][f"bs{bs} {site}"] = round(c["dev_us"], 3)
+                if name == "sru_dual_recurrence":
+                    bound_us = c["bound_ms"] * 1e3
+                    print(f"bf16 K1 forward bs={bs} site={site} L={length} "
+                          f"B={bsz}: device us a launch {c['dev_us']:.2f}, "
+                          f"bound us {bound_us:.2f} ({c['bound_by']}), share "
+                          f"of bound {bound_us / c['dev_us']:.3f}; "
+                          f"{card_line()}")
                 n = per_forward[name]
                 dev_sum = device[bname].setdefault(bs, [0.0, 0.0])
                 dev_sum[0] += n * c["dev_us"] / 1e3
@@ -3616,8 +3625,10 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
     ``conv_transpose1d`` (both ways), and per step beside the figures of
     K2's and K3's previous designs (``PARENT_FIGURES``). K1's
     and K2's bf16 forwards' c outputs, this backward's residuals, are held
-    against the plain bf16 c at two bf16 ulps first. Returns per kernel
-    the worst error and per-train-step (batch 4) sums."""
+    against the plain bf16 c at two bf16 ulps first. K1 also at the bs-8
+    sites, so that its device us a call and share of its bound print at
+    all six. Returns per kernel the worst error and per-train-step (batch
+    4) sums."""
     from rtfs_tpu_torch.ops import convt_tm, sru_fused
 
     H, C, k = geo["H"], geo["C"], geo["k"]
@@ -3640,7 +3651,8 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
                    dim=1).reshape(8, H)
     wt = t((6 * H, 2 * H), math.sqrt(1.0 / (2 * H)))
     w3 = t((k, C, 2 * H), math.sqrt(1.0 / (2 * H * k)))
-    for bs in (TRAIN_BATCH, 1):
+    # bs 8: K1 alone, so that its device time is printed at all six sites
+    for bs in (TRAIN_BATCH, 1, 8):
         for site in ("freq", "time"):
             length, per_item = geo[site]
             B = bs * per_item
@@ -3651,11 +3663,15 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
             x3, g3 = t((length, 2 * H, B)), t((length + k - 1, C, B), 0.1)
             with torch.no_grad():
                 f1 = sru_fused._k1_forward(*u, vb, with_c=True)
-                f2 = sru_fused._k2_forward(*x, wt, vb, with_c=True)
                 p1 = sru_fused.sru_dual_recurrence_plain(*u, vb, True)
-                p2 = sru_fused.sru_hidden_layer_plain(*x, wt, vb, True)
+                f2 = p2 = None
+                if bs != 8:
+                    f2 = sru_fused._k2_forward(*x, wt, vb, with_c=True)
+                    p2 = sru_fused.sru_hidden_layer_plain(*x, wt, vb, True)
             for name, got, want in (("sru_dual_recurrence", f1, p1),
                                     ("sru_hidden_layer", f2, p2)):
+                if got is None:
+                    continue
                 for i in (2, 3):
                     ok, ratio, n_diff = bf16_ulps(got[i], want[i])
                     print(f"bf16 training forward {name} {tag}: c "
@@ -3665,7 +3681,7 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
                     if not ok:
                         raise AssertionError(f"{name} bf16 c output beyond "
                                              "2 bf16 ulps")
-            c1, c2 = f1[2:], f2[2:]
+            c1, c2 = f1[2:], (f2 or (None,) * 4)[2:]
             cases = {
                 "sru_dual_recurrence_bwd_bf16": (
                     lambda *a: sru_fused._k1_backward(*a),
@@ -3698,6 +3714,8 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
             }
             for name, (kern, plain, args, nbytes, prod, other) in \
                     cases.items():
+                if bs == 8 and name != "sru_dual_recurrence_bwd_bf16":
+                    continue
                 wide = tuple(a.float() for a in args)
                 got, again = kern(*args), kern(*args)
                 want, f32 = plain(*args), kern(*wide)
@@ -3767,6 +3785,14 @@ def check_bf16_backward_kernels(geo, rng) -> dict:
                       f"{'none' if lib_ms is None else f'{lib_ms:.5f}'}"
                       f"{'' if lib_dev is None else f' (device us a call {lib_dev * 1e3:.2f})'}"
                       "; two calls bit-identical")
+                if name == "sru_dual_recurrence_bwd_bf16":
+                    print(f"bf16 K1 backward {tag}: device us a call "
+                          f"{dev_ms * 1e3:.2f}, bound us {b_ms * 1e3:.2f} "
+                          f"({b_by}), share of bound {b_ms / dev_ms:.3f}; "
+                          f"float32 kernel device us a call "
+                          f"{f32_dev * 1e3:.2f}; {card_line()}")
+                if bs == 8:
+                    continue
                 n = per_site[name]
                 if bs == 1:
                     for key, v in (("ms", ms), ("device_ms", dev_ms),
@@ -3886,10 +3912,10 @@ def bf16_train_step(conf, label: str = "bf16 training") -> None:
 
 # the device kernels of the bf16 train step whose share phase 14 prints
 BF16_TRAIN_GROUPS = {
-    "K1 bf16 forward": ("sru_lay0_fwd_bf16_kernel",),
+    "K1 bf16 forward": ("sru_lay0_fwd16_kernel",),
     "K2 bf16 forward": ("sru_hid_fwd_bf16_kernel",),
     "K3 bf16 forward": ("convt1d_tm_fwd_bf16_kernel",),
-    "K1 bf16 backward": ("sru_scan_bwd_kernel<11>",),
+    "K1 bf16 backward": ("sru_lay0_bwd16_kernel",),
     "K2 bf16 backward": ("sru_hid_bwd_bf16_kernel",
                          "sru_hid_bwd_dx_add_kernel",
                          "sru_hid_bwd_sum_kernel<__nv_bfloat16>"),
@@ -4636,7 +4662,7 @@ def main() -> int:
         "convt1d_ola_tm_bf16": ("rtfs_tpu_torch/csrc/convt_tm.cu",
                                 "rtfs_tpu/ops/convt_tm.py:38",
                                 "convt1d_ola_tm_fwd_bf16"),
-        "sru_dual_recurrence_bwd_bf16": ("rtfs_tpu_torch/csrc/sru_scan.cuh",
+        "sru_dual_recurrence_bwd_bf16": ("rtfs_tpu_torch/csrc/sru_fused.cu",
                                          "rtfs_tpu/ops/sru_fused.py:159",
                                          "sru_dual_recurrence_bwd_bf16"),
         "sru_hidden_layer_bwd_bf16": ("rtfs_tpu_torch/csrc/sru_fused.cu",

@@ -4,9 +4,12 @@
 //
 // K1  sru_dual_recurrence_fwd  replaces the Pallas kernel _lay0_fwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from sru_dual_recurrence);
-//     sru_dual_recurrence_fwd_bf16 the same kernel on bf16 operands.
+//     sru_dual_recurrence_fwd_bf16 its bf16 form, a warp's copies a group
+//     of steps at a time (sru_lay0_fwd16_kernel).
 // K1  sru_dual_recurrence_bwd  replaces the Pallas kernel _lay0_bwd_kernel
-//     (rtfs_tpu/ops/sru_fused.py, called from _lay0_vjp_bwd).
+//     (rtfs_tpu/ops/sru_fused.py, called from _lay0_vjp_bwd);
+//     sru_dual_recurrence_bwd_bf16 its bf16 form, designed as the bf16
+//     forward (sru_lay0_bwd16_kernel).
 // K2  sru_hidden_layer_fwd     replaces the Pallas kernel _hid_fwd_kernel
 //     (rtfs_tpu/ops/sru_fused.py, called from sru_hidden_layer);
 //     sru_hidden_layer_fwd_bf16 its bf16 form, producer and scan warps
@@ -60,7 +63,8 @@
 // no block is half idle. The backward scan (sru_scan.cuh) is bound by its
 // bytes: it keeps each thread's next kScanAhead steps of copies in flight
 // in the same kind of ring, with blocks spread the same way
-// (ops/sru_fused.scan_bwd_geometry). K2 does 2*3H*2H
+// (ops/sru_fused.scan_bwd_geometry). K1's bf16 forms are designed apart
+// (sru_lay0_fwd16_kernel, below). K2 does 2*3H*2H
 // flops per column, step and direction for ~16H bytes, so by the roofline
 // it is bound by operations. The projection's input is the previous
 // layer's output, complete before the launch, so only c is sequential:
@@ -127,6 +131,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sru_scan.cuh"
 #include "tf32x3.cuh"
@@ -237,92 +243,375 @@ sru_lay0_fwd_kernel(const float* __restrict__ u_f,
   }
 }
 
-// K1 forward in bf16 storage (u, vb, h and c bf16; the arithmetic and the
-// carry c in float32, only the stored h and c rounded, as the Pallas
-// kernel keeps its carries in float32 scratch). cp.async has no 2-byte
-// copy, so a thread cannot fetch its own value: a warp, one unit and 32
-// consecutive columns b0 .. b0+31 (cols is a multiple of 32), fetches its
-// 32 values of a gate row together as the 16-byte blocks that cover them,
-// five at most, lanes 0..19 one block each (gate lane / 5, block lane %
-// 5), into the warp's ring (kLay0Ahead slots of 4 gate rows of kLay0Span
-// values). A row's values start e0 % 8 values into its first block (e0
-// the element index of the warp's first value; u's base is 16-byte
-// aligned, which the wrapper guarantees), so each lane reads its value
-// shifted by that offset; a block that runs past the end of u is read only
-// up to the end and zero-filled after it. Each lane still keeps the next
-// kLay0Ahead steps' copies in flight, one commit group a step; the warp
-// waits for step i's group, meets at a __syncwarp (the other lanes' copies
-// are in), reads, meets again (everyone has read the slot) and issues step
-// i + kLay0Ahead into it. Lanes past B compute on whatever lies there and
-// store nothing.
-constexpr int kLay0Span = 40;  // 5 blocks of 8 bf16
+// K1 in bf16 storage, forward (sru_lay0_fwd16_kernel) and backward
+// (sru_lay0_bwd16_kernel): u, vb, h, c, dh and du bf16; the arithmetic
+// and the carries (c forward, dc backward) float32, only the stored values
+// rounded, as the Pallas kernels keep their carries in float32 scratch.
+//
+// What bounds them on the H100 (PERF.md; tools/phase_split.py --k1 splits
+// a launch). Both move 2 bytes a value for a few flops, so by the roofline
+// they are bound by bytes; where the threads are few (bs 1: about a warp
+// an SM) a launch takes T steps of one warp, and a warp issues in order,
+// so a step costs its instructions and the latencies it waits on, not its
+// chain alone (~25 ns for the forward's carry on this card). A first
+// design copied a step at a time, 8 steps ahead: each step a lane waited
+// for its copies, met its warp twice and redid the copies' 64-bit address
+// arithmetic, and its gates took the accurate sigmoid, so a step cost
+// 10-30 times its chain. The design:
+//   - a warp owns one unit and 32 consecutive batch columns, a lane a
+//     column; cp.async has no 2-byte copy, so the warp copies a row's 32
+//     values of a step as the five 16-byte blocks that cover them (a slot
+//     row of kL16Span values from the 16-byte boundary below the first;
+//     u's, c's and dh's bases 16-byte aligned, which the wrappers make
+//     sure of), and each lane reads its value shifted by the first's
+//     offset mod 8; a block that runs past the array's end reads only up
+//     to it;
+//   - copies go a group of kL16Group steps at a time, one commit group,
+//     issued `Ahead` groups before the group is read into a ring of Ahead
+//     + 1 group slots: lane l < 5 R (R rows a step: 4 forward, 6 backward)
+//     owns block l % 5 of row l / 5 and copies it for the group's steps,
+//     its source moved by one step's stride each. A lane waits and meets
+//     its warp once a group, and refills the slot of the group read before
+//     that meeting, so it needs no second one. A row's offset mod 8 is
+//     the same in every group (a group moves it by a multiple of 8), so
+//     each lane works its read offsets out once;
+//   - a full group runs without a branch: its reads go before its chain,
+//     the stores are predicated, and the gates take the hardware ex2 and
+//     rcp with their constants folded off the chain (sigmoid(u + v c + b)
+//     = 1 / (1 + 2^(-log2(e) (u + b) - log2(e) v c))), so the compiler can
+//     overlap a step's r, h and stores with the next step's chain;
+//   - the backward's (v, b) sums stay in registers and are reduced per
+//     unit within the block (a warp lies in one unit) into one float32
+//     partial a column block, which the caller adds in a fixed order: no
+//     float atomics, so two calls give the same bits.
+constexpr int kL16Group = 8;     // steps a group: one commit group, one wait
+constexpr int kL16FwdAhead = 3;  // groups in flight ahead of the one read
+constexpr int kL16BwdAhead = 2;
+constexpr int kL16Span = 40;     // a row's slot: 5 blocks of 8 bf16
+constexpr float kNegLog2e = -1.4426950408889634f;
 
+__device__ __forceinline__ float bf16_at(const unsigned short* p) {
+  return __bfloat162float(__ushort_as_bfloat16(*p));
+}
+
+// One lane's block of a row: at scan step i < lim it copies the 16 bytes
+// at element x = (e + i step) & ~7 of `base` (the row's array moved by 8 k
+// for block k), of which left - x elements lie inside the array (left: its
+// length - 8 k); `dst` is the block's place in a step of a group slot (row
+// r: r kL16Span + 8 k).
+struct L16Block {
+  const unsigned short* base;
+  long long e, step, left;
+  int lim, dst;
+};
+
+// The lane's copies of group n (one commit group; none where it owns no
+// block), R rows a step of kL16Span values in the group slot.
+template <int R>
+__device__ __forceinline__ void l16_copy_group(unsigned short* slot, int n,
+                                               bool owner, const L16Block& w) {
+  if (owner) {
+    long long e = w.e + (long long)(n * kL16Group) * w.step;
+#pragma unroll
+    for (int s = 0; s < kL16Group; ++s) {
+      const long long src = e & ~7LL, left = w.left - src;
+      if (n * kL16Group + s < w.lim && left > 0)
+        hk::cp_async16_n(slot + s * R * kL16Span + w.dst, w.base + src,
+                         left >= 8 ? 16 : 2 * (int)left);
+      e += w.step;
+    }
+  }
+  hk::cp_async_commit();
+}
+
+// A value's offset in its slot row: its element mod 8 (in 32 bits, which
+// keeps it), plus the lane.
+__device__ __forceinline__ int l16_offset(long long t, unsigned stride,
+                                          unsigned add, int lane) {
+  return (int)(((unsigned)t * stride + add) & 7u) + lane;
+}
+
+// grid (ceil(B / cols), ceil(H / units), 2), cols * units threads, cols a
+// multiple of 32 (ops/sru_fused.k1_fwd_geometry): warp (unit j, columns
+// b0 .. b0 + 31) of direction blockIdx.z, its ring of kL16FwdAhead + 1
+// group slots of 4 gate rows a step; kWithC: c stored too (training).
+// Lanes past B compute on whatever their slot holds and store nothing.
+template <bool kWithC>
 __global__ void __launch_bounds__(kLay0Threads)
-sru_lay0_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u_f,
-                         const __nv_bfloat16* __restrict__ u_r,
-                         const __nv_bfloat16* __restrict__ vb,
-                         __nv_bfloat16* __restrict__ h_f,
-                         __nv_bfloat16* __restrict__ h_r,
-                         __nv_bfloat16* __restrict__ c_f,
-                         __nv_bfloat16* __restrict__ c_r, int T, int H, int B,
-                         int cols) {
+sru_lay0_fwd16_kernel(const __nv_bfloat16* __restrict__ u_f,
+                      const __nv_bfloat16* __restrict__ u_r,
+                      const __nv_bfloat16* __restrict__ vb,
+                      __nv_bfloat16* __restrict__ h_f,
+                      __nv_bfloat16* __restrict__ h_r,
+                      __nv_bfloat16* __restrict__ c_f,
+                      __nv_bfloat16* __restrict__ c_r, int T, int H, int B,
+                      int cols) {
+  constexpr int kSlots = kL16FwdAhead + 1, kSlot = kL16Group * 4 * kL16Span;
   extern __shared__ __align__(16) unsigned short ring16[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * cols + threadIdx.x % cols;
   const int j = blockIdx.y * (blockDim.x / cols) + threadIdx.x / cols;
   const int dir = blockIdx.z;
   if (j >= H) return;  // the whole warp: one unit
-  const int b0 = b - lane;
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(
-      dir == 0 ? u_f : u_r);
-  __nv_bfloat16* h = dir == 0 ? h_f : h_r;
-  __nv_bfloat16* cs = dir == 0 ? c_f : c_r;  // null when serving
-  const float v_f = __bfloat162float(vb[(dir * 4 + 0) * H + j]);
-  const float v_r = __bfloat162float(vb[(dir * 4 + 1) * H + j]);
+  const float nv_f = kNegLog2e * __bfloat162float(vb[(dir * 4 + 0) * H + j]);
+  const float nv_r = kNegLog2e * __bfloat162float(vb[(dir * 4 + 1) * H + j]);
   const float b_f = __bfloat162float(vb[(dir * 4 + 2) * H + j]);
   const float b_r = __bfloat162float(vb[(dir * 4 + 3) * H + j]);
-  const long long row = (long long)H * B;  // one gate block per step
-  const long long total = (long long)T * 4 * row;
-  const long long col = (long long)j * B + b0;
-  unsigned short* mine = ring16 + warp * kLay0Ahead * 4 * kLay0Span;
-  const int cg = lane / 5, ck = lane % 5;  // the lane's gate and block
-  // scan step i into slot i % kLay0Ahead, one commit group (empty past T)
-  auto issue = [&](int i) {
-    if (i < T && lane < 20) {
-      const int t = dir == 0 ? i : T - 1 - i;
-      const long long e0 = (long long)t * 4 * row + cg * row + col;
-      const long long src = (e0 & ~7LL) + 8 * ck;
-      const long long left = total - src;
-      const int bytes = left >= 8 ? 16 : (left > 0 ? 2 * (int)left : 0);
-      hk::cp_async16_n(mine + ((i % kLay0Ahead) * 4 + cg) * kLay0Span + 8 * ck,
-                       bytes > 0 ? u + src : u, bytes);
-    }
-    hk::cp_async_commit();
+  const long long row = (long long)H * B;
+  const long long col = (long long)j * B + (b - lane);
+  const long long t0 = dir == 0 ? 0 : T - 1;  // scan step 0's t
+  unsigned short* mine = ring16 + warp * kSlots * kSlot;
+  const int r_own = lane / 5, k_own = lane - 5 * r_own;
+  const L16Block w{
+      reinterpret_cast<const unsigned short*>(dir == 0 ? u_f : u_r) +
+          8 * k_own,
+      t0 * 4 * row + r_own * row + col, dir == 0 ? 4 * row : -4 * row,
+      (long long)T * 4 * row - 8 * k_own, T, r_own * kL16Span + 8 * k_own};
+  const bool owner = lane < 4 * 5;
+  auto issue = [&](int n) {
+    l16_copy_group<4>(mine + (n % kSlots) * kSlot, n, owner, w);
   };
 #pragma unroll
-  for (int i = 0; i < kLay0Ahead; ++i) issue(i);
-  float c = 0.f;
-  for (int i = 0; i < T; ++i) {
-    hk::cp_async_wait<kLay0Ahead - 1>();  // step i's group is in
-    __syncwarp();                          // and the other lanes'
-    const int t = dir == 0 ? i : T - 1 - i;
-    const long long e0 = (long long)t * 4 * row + col;
-    const unsigned short* d = mine + (i % kLay0Ahead) * 4 * kLay0Span + lane;
-    float a[4];
+  for (int n = 0; n < kL16FwdAhead; ++n) issue(n);
+  // read offsets of gate row r at steps of parity p (4 row even, or moving
+  // them by 4: period 2)
+  const unsigned row4 = (unsigned)(4 * row), row1 = (unsigned)row;
+  int rd[2][4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      a[g] = __bfloat162float(__ushort_as_bfloat16(
-          d[g * kLay0Span + (int)((e0 + g * row) & 7)]));
-    __syncwarp();           // every lane has read the slot
-    issue(i + kLay0Ahead);  // into the slot just read
-    const float f = sigmoid_f(a[1] + v_f * c + b_f);
-    c = f * c + (1.f - f) * a[0];
-    const float r = sigmoid_f(a[2] + v_r * c + b_r);
-    if (b < B) {
-      h[(long long)t * row + col + lane] =
-          __float2bfloat16_rn(r * c + (1.f - r) * a[3]);
-      if (cs) cs[(long long)t * row + col + lane] = __float2bfloat16_rn(c);
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      rd[p][r] = l16_offset(dir == 0 ? p : t0 - p, row4,
+                            r * row1 + (unsigned)col, lane);
+  const bool live = b < B;
+  const long long step = dir == 0 ? row : -row;
+  const long long first = t0 * row + col + lane;
+  __nv_bfloat16* hp = (dir == 0 ? h_f : h_r) + first;
+  __nv_bfloat16* cp = kWithC ? (dir == 0 ? c_f : c_r) + first : nullptr;
+  float c = 0.f;
+  // group n's steps from its slot; kFull: all kL16Group of them
+  auto group = [&](auto full, int n) {
+    constexpr bool kFull = decltype(full)::value;
+    const int steps = kFull ? kL16Group : T - n * kL16Group;
+    const unsigned short* d = mine + (n % kSlots) * kSlot;
+    float a0[kL16Group], x1[kL16Group], x2[kL16Group], a3[kL16Group];
+#pragma unroll
+    for (int s = 0; s < kL16Group; ++s) {
+      if (kFull || s < steps) {
+        const unsigned short* ds = d + s * 4 * kL16Span;
+        const int* o = rd[s & 1];
+        a0[s] = bf16_at(ds + o[0]);
+        x1[s] = kNegLog2e * (bf16_at(ds + kL16Span + o[1]) + b_f);
+        x2[s] = kNegLog2e * (bf16_at(ds + 2 * kL16Span + o[2]) + b_r);
+        a3[s] = bf16_at(ds + 3 * kL16Span + o[3]);
+      }
     }
+#pragma unroll
+    for (int s = 0; s < kL16Group; ++s) {
+      if (!kFull && s >= steps) break;
+      const float f =
+          hk::rcp_approx(1.f + hk::ex2_approx(fmaf(nv_f, c, x1[s])));
+      c = fmaf(f, c - a0[s], a0[s]);
+      const float r =
+          hk::rcp_approx(1.f + hk::ex2_approx(fmaf(nv_r, c, x2[s])));
+      const __nv_bfloat16 hv = __float2bfloat16_rn(fmaf(r, c - a3[s], a3[s]));
+      if (live) *hp = hv;
+      hp += step;
+      if constexpr (kWithC) {
+        const __nv_bfloat16 cv = __float2bfloat16_rn(c);
+        if (live) *cp = cv;
+        cp += step;
+      }
+    }
+  };
+  const int groups = (T + kL16Group - 1) / kL16Group;
+  for (int n = 0; n < groups; ++n) {
+    hk::cp_async_wait<kL16FwdAhead - 1>();  // this lane's copies of group n
+    __syncwarp();  // the warp's; and every lane is past group n - 1's reads
+    issue(n + kL16FwdAhead);  // into group n - 1's slot
+    if ((n + 1) * kL16Group <= T)
+      group(std::true_type{}, n);
+    else
+      group(std::false_type{}, n);
+  }
+  hk::cp_async_wait_all();
+}
+
+// grid (ceil(B / cols), ceil(H / units), 2), cols * units threads
+// (ops/sru_fused.k1_bwd_bf16_geometry): warp (unit j, columns b0 .. b0 +
+// 31) of direction blockIdx.z walks its steps in reverse scan order (t =
+// T-1 .. 0 for the forward-running direction, c_prev = c[t-1]; t = 0 ..
+// T-1 for the reverse-running one, c_prev = c[t+1]; 0 at the scan's end),
+// its ring of kL16BwdAhead + 1 group slots of 6 rows a step: u0, u1, u2,
+// the highway term, dh and c_prev. The adjoints are sru_scan.cuh's; the
+// (v, b) sums of column block x go to part[x * 8H + dir * 4H + k H + j].
+// Lanes past B compute on whatever their slot holds, store nothing and
+// leave their sums out.
+__global__ void __launch_bounds__(kLay0Threads)
+sru_lay0_bwd16_kernel(const __nv_bfloat16* __restrict__ u_f,
+                      const __nv_bfloat16* __restrict__ u_r,
+                      const __nv_bfloat16* __restrict__ vb,
+                      const __nv_bfloat16* __restrict__ c_f,
+                      const __nv_bfloat16* __restrict__ c_r,
+                      const __nv_bfloat16* __restrict__ dh_f,
+                      const __nv_bfloat16* __restrict__ dh_r,
+                      __nv_bfloat16* __restrict__ du_f,
+                      __nv_bfloat16* __restrict__ du_r,
+                      float* __restrict__ part, int T, int H, int B,
+                      int cols) {
+  constexpr int kSlots = kL16BwdAhead + 1, kSlot = kL16Group * 6 * kL16Span;
+  constexpr int kSub = 4;  // steps whose values and gates go together
+  extern __shared__ __align__(16) unsigned short ring16[];
+  __shared__ float red[kLay0Threads / 32][4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int units = blockDim.x / cols, j0 = blockIdx.y * units;
+  const int b = blockIdx.x * cols + tid % cols, j = j0 + tid / cols;
+  const int dir = blockIdx.z;
+  const bool live = b < B && j < H;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // d(v_f, v_r, b_f, b_r)
+  if (j < H) {  // the whole warp: one unit
+    const unsigned short* cst = reinterpret_cast<const unsigned short*>(
+        dir == 0 ? c_f : c_r);
+    const float v_f = __bfloat162float(vb[(dir * 4 + 0) * H + j]);
+    const float v_r = __bfloat162float(vb[(dir * 4 + 1) * H + j]);
+    const float b_f = __bfloat162float(vb[(dir * 4 + 2) * H + j]);
+    const float b_r = __bfloat162float(vb[(dir * 4 + 3) * H + j]);
+    const float nv_f = kNegLog2e * v_f, nv_r = kNegLog2e * v_r;
+    const long long row = (long long)H * B, n_hb = (long long)T * row;
+    const long long col = (long long)j * B + (b - lane);
+    // scan step i: t = T-1-i (direction 0) or i; c_prev at the next step's
+    // t, none at the last
+    const long long t0 = dir == 0 ? T - 1 : 0, dt = dir == 0 ? -1 : 1;
+    unsigned short* mine = ring16 + warp * kSlots * kSlot;
+    const int r_own = lane / 5, k_own = lane - 5 * r_own;
+    const bool u_own = r_own < 4;
+    const L16Block w{
+        reinterpret_cast<const unsigned short*>(
+            u_own ? (dir == 0 ? u_f : u_r)
+                  : r_own == 4 ? (dir == 0 ? dh_f : dh_r)
+                               : (dir == 0 ? c_f : c_r)) +
+            8 * k_own,
+        u_own ? t0 * 4 * row + r_own * row + col
+              : (r_own == 4 ? t0 : t0 + dt) * row + col,
+        (u_own ? 4 * row : row) * dt,
+        (u_own ? 4 * n_hb : n_hb) - 8 * k_own,
+        r_own == 5 ? T - 1 : T, r_own * kL16Span + 8 * k_own};
+    const bool owner = lane < 6 * 5;
+    auto issue = [&](int n) {
+      l16_copy_group<6>(mine + (n % kSlots) * kSlot, n, owner, w);
+    };
+#pragma unroll
+    for (int n = 0; n < kL16BwdAhead; ++n) issue(n);
+    // read offsets: u's rows at steps of parity p (period 2), dh's at step
+    // s of a group (period 8); c_prev's at s is dh's at s + 1
+    const unsigned row4 = (unsigned)(4 * row), row1 = (unsigned)row;
+    int ru[2][4], rh[kL16Group];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        ru[p][r] = l16_offset(t0 + dt * p, row4, r * row1 + (unsigned)col,
+                              lane);
+#pragma unroll
+    for (int s = 0; s < kL16Group; ++s)
+      rh[s] = l16_offset(t0 + dt * s, row1, (unsigned)col, lane);
+    float c_t = b < B ? bf16_at(cst + t0 * row + col + lane) : 0.f;
+    const long long step = 4 * row * dt;
+    __nv_bfloat16* dup = (dir == 0 ? du_f : du_r) + t0 * 4 * row + col +
+                         lane;
+    float dc = 0.f;
+    // group n's steps from its slot; kFull: all kL16Group of them, none
+    // the scan's last
+    auto group = [&](auto full, int n) {
+      constexpr bool kFull = decltype(full)::value;
+      const int steps = kFull ? kL16Group : T - n * kL16Group;
+      const unsigned short* d = mine + (n % kSlots) * kSlot;
+#pragma unroll
+      for (int sg = 0; sg < kL16Group; sg += kSub) {
+        if (!kFull && sg >= steps) break;
+        float u0[kSub], u1[kSub], u2[kSub], hw[kSub], g[kSub], cp[kSub];
+#pragma unroll
+        for (int q = 0; q < kSub; ++q) {
+          const int s = sg + q;
+          if (kFull || s < steps) {
+            const unsigned short* ds = d + s * 6 * kL16Span;
+            const int* o = ru[s & 1];
+            u0[q] = bf16_at(ds + o[0]);
+            u1[q] = bf16_at(ds + kL16Span + o[1]);
+            u2[q] = bf16_at(ds + 2 * kL16Span + o[2]);
+            hw[q] = bf16_at(ds + 3 * kL16Span + o[3]);
+            g[q] = bf16_at(ds + 4 * kL16Span + rh[s]);
+            cp[q] = kFull || n * kL16Group + s + 1 < T
+                        ? bf16_at(ds + 5 * kL16Span +
+                                  rh[(s + 1) % kL16Group])
+                        : 0.f;
+          }
+        }
+        // the gates, off the chain
+        float ct[kSub], f[kSub], r[kSub], dm[kSub];
+#pragma unroll
+        for (int q = 0; q < kSub; ++q) {
+          ct[q] = q == 0 ? c_t : cp[q - 1];
+          f[q] = hk::rcp_approx(1.f + hk::ex2_approx(fmaf(
+                     nv_f, cp[q], kNegLog2e * (u1[q] + b_f))));
+          r[q] = hk::rcp_approx(1.f + hk::ex2_approx(fmaf(
+                     nv_r, ct[q], kNegLog2e * (u2[q] + b_r))));
+          dm[q] = g[q] * (ct[q] - hw[q]) * r[q] * (1.f - r[q]);
+        }
+        // the chain in dc
+#pragma unroll
+        for (int q = 0; q < kSub; ++q) {
+          if (!kFull && sg + q >= steps) break;
+          dc = g[q] * r[q] + dm[q] * v_r + dc;
+          const float da = dc * (cp[q] - u0[q]) * f[q] * (1.f - f[q]);
+          const __nv_bfloat16 d0 = __float2bfloat16_rn(dc * (1.f - f[q]));
+          const __nv_bfloat16 d1 = __float2bfloat16_rn(da);
+          const __nv_bfloat16 d2 = __float2bfloat16_rn(dm[q]);
+          const __nv_bfloat16 d3 = __float2bfloat16_rn(g[q] * (1.f - r[q]));
+          if (live) {
+            dup[0] = d0;
+            dup[row] = d1;
+            dup[2 * row] = d2;
+            dup[3 * row] = d3;
+          }
+          dup += step;
+          acc[0] += da * cp[q];
+          acc[1] += dm[q] * ct[q];
+          acc[2] += da;
+          acc[3] += dm[q];
+          dc = dc * f[q] + da * v_f;
+        }
+        c_t = cp[kSub - 1];
+      }
+    };
+    const int groups = (T + kL16Group - 1) / kL16Group;
+    for (int n = 0; n < groups; ++n) {
+      hk::cp_async_wait<kL16BwdAhead - 1>();  // this lane's copies of n
+      __syncwarp();  // the warp's; every lane is past group n - 1's reads
+      issue(n + kL16BwdAhead);  // into group n - 1's slot
+      // full: all its steps there, and not the scan's last (no c_prev)
+      if ((n + 1) * kL16Group < T)
+        group(std::true_type{}, n);
+      else
+        group(std::false_type{}, n);
+    }
+    hk::cp_async_wait_all();
+  }
+  // the (v, b) sums of each unit over the block's live columns: each
+  // warp's by shuffles, then the unit's cols / 32 warps in order
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float v = live ? acc[k] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  const int per = cols / 32;
+  if (tid < 4 * units && j0 + tid / 4 < H) {
+    const int uu = tid / 4, k = tid % 4;
+    float s = 0.f;
+    for (int w = 0; w < per; ++w) s += red[uu * per + w][k];
+    part[(long long)blockIdx.x * 8 * H + (dir * 4 + k) * H + j0 + uu] = s;
   }
 }
 
@@ -2184,9 +2473,10 @@ extern "C" int sru_hidden_layer_fwd(const void* x_f, const void* x_r,
   return (int)cudaGetLastError();
 }
 
-// K1 forward in bf16 storage: as sru_dual_recurrence_fwd; u_f and u_r
-// 16-byte aligned (the warps' 16-byte copies). Shared memory: the warps'
-// rings, kLay0Ahead x 4 x kLay0Span bf16 each.
+// K1 forward in bf16 storage: as sru_dual_recurrence_fwd
+// (sru_lay0_fwd16_kernel); u_f and u_r 16-byte aligned (the warps' 16-byte
+// copies). Shared memory: the warps' rings, kL16FwdAhead + 1 group slots
+// of kL16Group x 4 x kL16Span bf16 each.
 extern "C" int sru_dual_recurrence_fwd_bf16(const void* u_f, const void* u_r,
                                             const void* vb, void* h_f,
                                             void* h_r, void* c_f, void* c_r,
@@ -2197,11 +2487,13 @@ extern "C" int sru_dual_recurrence_fwd_bf16(const void* u_f, const void* u_r,
       ((reinterpret_cast<size_t>(u_f) | reinterpret_cast<size_t>(u_r)) & 15))
     return (int)cudaErrorInvalidValue;
   dim3 grid(ceil_div(B, cols), ceil_div(H, units), 2);
-  const size_t smem =
-      (size_t)(cols * units / 32) * kLay0Ahead * 4 * kLay0Span * 2;
-  const cudaError_t e = set_smem((const void*)sru_lay0_fwd_bf16_kernel, smem);
+  const size_t smem = (size_t)(cols * units / 32) * (kL16FwdAhead + 1) *
+                      kL16Group * 4 * kL16Span * 2;
+  const auto kernel = c_f ? sru_lay0_fwd16_kernel<true>
+                          : sru_lay0_fwd16_kernel<false>;
+  const cudaError_t e = set_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sru_lay0_fwd_bf16_kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)u_f, (const __nv_bfloat16*)u_r,
       (const __nv_bfloat16*)vb, (__nv_bfloat16*)h_f, (__nv_bfloat16*)h_r,
       (__nv_bfloat16*)c_f, (__nv_bfloat16*)c_r, T, H, B, cols);
@@ -2314,29 +2606,33 @@ extern "C" int sru_hidden_layer_bwd(
 }
 
 // K1 backward in bf16 storage (u, vb, c, dh and du bf16; the scan in
-// float32, each du value rounded once): as sru_dual_recurrence_bwd, the
-// scan's bf16 form (sru_scan_bwd_kernel<11>); dvb_part stays float32.
-// No alignment is asked of any pointer.
+// float32, each du value rounded once): as sru_dual_recurrence_bwd, in
+// sru_lay0_bwd16_kernel (cols x units threads a block, ops/sru_fused.
+// k1_bwd_bf16_geometry); dvb_part (ceil(B / cols), 8, H) stays float32.
+// u, c and dh 16-byte aligned (the warps' 16-byte copies).
 extern "C" int sru_dual_recurrence_bwd_bf16(
     const void* u_f, const void* u_r, const void* vb, const void* c_f,
     const void* c_r, const void* dh_f, const void* dh_r, void* du_f,
     void* du_r, void* dvb_part, int T, int H, int B, int cols, int units,
     void* stream) {
   using bf = __nv_bfloat16;
-  const long long hb = (long long)H * B, step = 4 * hb, hw = 3 * hb;
-  const long long u_last = (long long)T * step - 1, s_last = T * hb - 1;
-  const ScanIOT<bf, bf> io_f{(const bf*)u_f, (const bf*)u_f + hw, (bf*)du_f,
-                             (bf*)du_f + hw, step, step, step, step,
-                             (const bf*)c_f, (const bf*)dh_f, (const bf*)vb,
-                             (float*)dvb_part, 0, u_last, u_last - hw,
-                             s_last};
-  const ScanIOT<bf, bf> io_r{(const bf*)u_r, (const bf*)u_r + hw, (bf*)du_r,
-                             (bf*)du_r + hw, step, step, step, step,
-                             (const bf*)c_r, (const bf*)dh_r,
-                             (const bf*)vb + 4 * H, (float*)dvb_part + 4 * H,
-                             1, u_last, u_last - hw, s_last};
-  return (int)launch_scan_bwd<11>(io_f, io_r, 2, T, H, B, cols, units,
-                                  8LL * H, (cudaStream_t)stream);
+  if (T < 1 || H < 1 || B < 1 || cols < 32 || cols % 32 != 0 || units < 1 ||
+      cols * units > kLay0Threads ||
+      ((reinterpret_cast<size_t>(u_f) | reinterpret_cast<size_t>(u_r) |
+        reinterpret_cast<size_t>(c_f) | reinterpret_cast<size_t>(c_r) |
+        reinterpret_cast<size_t>(dh_f) | reinterpret_cast<size_t>(dh_r)) &
+       15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(B, cols), ceil_div(H, units), 2);
+  const size_t smem = (size_t)(cols * units / 32) * (kL16BwdAhead + 1) *
+                      kL16Group * 6 * kL16Span * 2;
+  const cudaError_t e = set_smem((const void*)sru_lay0_bwd16_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sru_lay0_bwd16_kernel<<<grid, cols * units, smem, (cudaStream_t)stream>>>(
+      (const bf*)u_f, (const bf*)u_r, (const bf*)vb, (const bf*)c_f,
+      (const bf*)c_r, (const bf*)dh_f, (const bf*)dh_r, (bf*)du_f, (bf*)du_r,
+      (float*)dvb_part, T, H, B, cols);
+  return (int)cudaGetLastError();
 }
 
 // K2 backward in bf16 storage: x, wt, vb, c, dh in and dx, dwt, dvb out

@@ -2,12 +2,12 @@
 // shared by three backward ops: K1 sru_dual_recurrence_bwd and K2
 // sru_hidden_layer_bwd (csrc/sru_fused.cu) and K4 sru_recurrence_bwd
 // (csrc/sru_pallas.cu). Each op says where its operands lie with one
-// ScanIO a direction; nothing is copied or flipped in memory. K1's and
-// K4's bf16 backwards (sru_dual_recurrence_bwd_bf16 and
-// sru_recurrence_bwd_bf16) run the same scan on bf16 storage (ScanTypes
-// below): the arithmetic stays float32, as in the Pallas kernels. K2's
-// bf16 backward (sru_hid_bwd_bf16_kernel in csrc/sru_fused.cu) runs the
-// same adjoints inside its fused kernel.
+// ScanIO a direction; nothing is copied or flipped in memory. K4's bf16
+// backward (sru_recurrence_bwd_bf16) runs the same scan on bf16 storage
+// (ScanTypes below): the arithmetic stays float32, as in the Pallas
+// kernels. K1's and K2's bf16 backwards run the same adjoints in kernels
+// of their own (sru_lay0_bwd16_kernel and sru_hid_bwd_bf16_kernel in
+// csrc/sru_fused.cu).
 //
 // The adjoints, per step in reverse scan order (a forward-running
 // recurrence from t = T-1 down with c_prev = c[t-1], a reverse-running one
@@ -107,22 +107,15 @@ struct ScanIOT {
 using ScanIO = ScanIOT<float, float>;
 
 // The storage of each launch, by its Kernel number (which also tells the
-// launches apart in a profile): K1 (1), K2 (2) and K4 (4) in float32; K1
-// in bf16 (11): every operand bf16, du rounded once; K4 in bf16 (14):
-// every operand bf16, as K1's, and each thread's (v, b) sums (one unit
-// over one batch column) rounded to bf16 before the block adds them
-// (kRoundParts: the Pallas kernel writes one bf16 partial a batch column,
-// which jnp.sum widens and adds in float32).
+// launches apart in a profile): K1 (1), K2 (2) and K4 (4) in float32; K4
+// in bf16 (14): every operand bf16, du rounded once, and each thread's
+// (v, b) sums (one unit over one batch column) rounded to bf16 before the
+// block adds them (kRoundParts: the Pallas kernel writes one bf16 partial
+// a batch column, which jnp.sum widens and adds in float32).
 template <int Kernel>
 struct ScanTypes {
   using TU = float;
   using TS = float;
-  static constexpr bool kRoundParts = false;
-};
-template <>
-struct ScanTypes<11> {
-  using TU = __nv_bfloat16;
-  using TS = __nv_bfloat16;
   static constexpr bool kRoundParts = false;
 };
 template <>
@@ -187,8 +180,7 @@ __device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
 // threads, cols a multiple of 32: thread (column x * cols + tid % cols,
 // unit y * units + tid / cols) of direction z reads io0 (z = 0) or io1.
 // Kernel tells K1's launches (1), K2's (2) and K4's (4) apart in a
-// profile, and picks the storage (ScanTypes; 11 and 14 the bf16
-// ones).
+// profile, and picks the storage (ScanTypes; 14 the bf16 one).
 template <int Kernel>
 __global__ void __launch_bounds__(kScanThreads)
 sru_scan_bwd_kernel(ScanIOT<typename ScanTypes<Kernel>::TU,

@@ -8,7 +8,9 @@ Counterpart of ``rtfs_tpu/ops/sru_fused.py``, forward and backward:
   LAY0_AHEAD steps ahead of the chain through a cp.async ring, blocks
   from ``k1_fwd_geometry``) and ``..._bwd`` (the adjoint scan of
   ``csrc/sru_scan.cuh``, shared with K2's backward and K4's, blocks from
-  ``scan_bwd_geometry``).
+  ``scan_bwd_geometry``); in bf16 storage a kernel each way in which a
+  warp copies its rows' 16-byte blocks a group of LAY16_GROUP steps at a
+  time (``k1_bf16_group_copies``).
 - ``sru_hidden_layer`` (K2): one hidden layer (k = 3, highway = input); the
   forward kernel projects U = W^T [h_f; h_r] a chunk of steps at a time on
   the tensor cores (3xTF32) into shared memory and scans the chunk from
@@ -62,6 +64,16 @@ LAY0_AHEAD = 8
 SCAN_THREADS = 128
 SCAN_AHEAD = 8
 SCAN_GROUP = 2
+# K1's bf16 kernels (``sru_lay0_fwd16_kernel``, ``sru_lay0_bwd16_kernel``):
+# ``kL16Group``, steps a group (one commit group, one wait);
+# ``kL16FwdAhead`` / ``kL16BwdAhead``, groups in flight ahead of the one
+# read, in a ring of that many + 1 group slots a warp; ``kL16Span``, a
+# row's slot: the five 16-byte blocks (8 bf16 each) that cover 32 values
+# at any offset
+LAY16_GROUP = 8
+LAY16_FWD_AHEAD = 3
+LAY16_BWD_AHEAD = 2
+LAY16_SPAN = 40
 
 
 def vb_pack(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -201,11 +213,6 @@ def _spread_blocks(hdim: int, bsz: int, dirs: int, most: int) -> tuple:
     return cols, units, grid
 
 
-# the bf16 K1 forward, ``kLay0Span``: a warp's gate row in its ring slot,
-# the five 16-byte blocks (8 bf16 each) that cover 32 values at any offset
-LAY0_SPAN = 40
-
-
 @functools.lru_cache(maxsize=None)
 def k1_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     """K1 forward's launch geometry, as ``sru_dual_recurrence_fwd``
@@ -216,34 +223,58 @@ def k1_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     shared memory (``smem`` bytes a block).
 
     ``elem`` 2 (bf16, ``sru_dual_recurrence_fwd_bf16``): the same blocks;
-    each warp (one unit, 32 columns) has a ring of LAY0_AHEAD slots of 4
-    gate rows of LAY0_SPAN values, filled by the 16-byte copies of
-    ``k1_bf16_copies``."""
+    each warp (one unit, 32 columns) has a ring of LAY16_FWD_AHEAD + 1
+    group slots, each LAY16_GROUP steps of 4 gate rows of LAY16_SPAN
+    values, filled by the copies of ``k1_bf16_group_copies``."""
     if min(t_len, hdim, bsz) < 1 or elem not in (2, 4):
         raise ValueError(f"sru_dual_recurrence: T {t_len}, H {hdim}, "
                          f"B {bsz}, element size {elem}")
     cols, units, grid = _spread_blocks(hdim, bsz, 2, LAY0_THREADS)
     smem = (4 * LAY0_AHEAD * 4 * cols * units if elem == 4
-            else cols * units // 32 * LAY0_AHEAD * 4 * LAY0_SPAN * 2)
+            else k1_bf16_ring_bytes(cols * units // 32, 4, LAY16_FWD_AHEAD))
     return {"cols": cols, "units": units, "grid": grid,
-            "ahead": LAY0_AHEAD, "smem": smem}
+            "ahead": LAY0_AHEAD if elem == 4 else LAY16_FWD_AHEAD,
+            "smem": smem}
 
 
-def k1_bf16_copies(e0: int, total: int) -> tuple:
-    """The bf16 K1 forward's copies of one gate row of a warp, as
-    ``sru_lay0_fwd_bf16_kernel`` issues them: its 32 values start at
-    element ``e0`` of u (``total`` elements, the base 16-byte aligned).
-    Returns (shift, [(first element, bytes read)] for the five 16-byte
-    blocks, lanes 5g .. 5g + 4): lane l reads slot value shift + l; a
-    block past u's end reads what is left of u (0 bytes beyond it) and is
-    zero-filled after it."""
-    start = e0 - e0 % 8
-    blocks = []
-    for k in range(LAY0_SPAN // 8):
-        src = start + 8 * k
-        left = total - src
-        blocks.append((src, 16 if left >= 8 else max(0, 2 * left)))
-    return e0 % 8, blocks
+def k1_bf16_ring_bytes(warps: int, rows: int, ahead: int) -> int:
+    """Shared memory of a K1 bf16 block: ``warps`` rings of ``ahead`` + 1
+    group slots, each LAY16_GROUP steps of ``rows`` rows of LAY16_SPAN
+    bf16 values."""
+    return warps * (ahead + 1) * LAY16_GROUP * rows * LAY16_SPAN * 2
+
+
+@functools.lru_cache(maxsize=None)
+def k1_bwd_bf16_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+    """K1 backward's launch geometry in bf16 storage, as
+    ``sru_dual_recurrence_bwd_bf16`` launches ``sru_lay0_bwd16_kernel``:
+    the bf16 forward's blocks; each warp has a ring of LAY16_BWD_AHEAD + 1
+    group slots of 6 rows a step (u0, u1, u2, the highway term, dh and
+    c_prev). Each block writes the (v, b) sums of its ``cols`` columns for
+    each of its units: ``parts`` = grid[0] float32 partials a unit and
+    direction, which the caller adds in order."""
+    if min(t_len, hdim, bsz) < 1:
+        raise ValueError(f"sru_dual_recurrence backward: T {t_len}, H "
+                         f"{hdim}, B {bsz}")
+    cols, units, grid = _spread_blocks(hdim, bsz, 2, LAY0_THREADS)
+    return {"cols": cols, "units": units, "grid": grid, "parts": grid[0],
+            "ahead": LAY16_BWD_AHEAD,
+            "smem": k1_bf16_ring_bytes(cols * units // 32, 6,
+                                       LAY16_BWD_AHEAD)}
+
+
+def k1_bf16_group_copies(rows: int) -> list:
+    """Which copies each lane of a warp issues for a group of K1's bf16
+    kernels (``l16_copy_group``), ``rows`` rows a step (4 forward, 6
+    backward): [(lane, step in the group, row, block)]. A row's 32 values
+    starting at element e0 are covered by the five 16-byte blocks from
+    element e0 - e0 % 8 on (the slot row; lane l reads value e0 % 8 + l of
+    it); a block past the array's end reads what is left of it, or is not
+    copied. Lane l < 5 rows owns block l % 5 of row l // 5 and copies it
+    for each of the group's LAY16_GROUP steps, into the group slot's row
+    step x rows + row at value 8 block; the other lanes copy nothing."""
+    return [(lane, s, lane // 5, lane % 5) for lane in range(5 * rows)
+            for s in range(LAY16_GROUP)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,7 +333,12 @@ def _k1_backward(u_f, u_r, vb, c_f, c_r, dh_f, dh_r):
     dt = kernel_lib.check_cuda("sru_dual_recurrence backward", u_f, u_r, vb,
                                c_f, c_r, dh_f, dh_r, dtypes=_BF16)
     t_len, gh, bsz = u_f.shape
-    geo = scan_bwd_geometry(t_len, gh // 4, bsz, 2)
+    if dt == torch.bfloat16:
+        u_f, u_r, c_f, c_r, dh_f, dh_r = (kernel_lib.aligned16(t) for t in (
+            u_f, u_r, c_f, c_r, dh_f, dh_r))
+        geo = k1_bwd_bf16_geometry(t_len, gh // 4, bsz)
+    else:
+        geo = scan_bwd_geometry(t_len, gh // 4, bsz, 2)
     du_f, du_r = torch.empty_like(u_f), torch.empty_like(u_r)
     dvb_part = torch.empty(geo["parts"], 8, gh // 4, device=u_f.device)
     kernel_lib.launch(

@@ -1,17 +1,19 @@
 """The bf16 forward kernels' geometry, on the CPU.
 
-``csrc/sru_fused.cu`` (``sru_lay0_fwd_bf16_kernel``,
+``csrc/sru_fused.cu`` (``sru_lay0_fwd16_kernel`` and its backward,
 ``sru_hid_fwd_bf16_kernel``) and ``csrc/convt_tm.cu``
 (``convt1d_tm_fwd_bf16_kernel``) launch with the geometry of
 ``ops/sru_fused.k1_fwd_geometry`` (element size 2) /
 ``k2_fwd_bf16_geometry`` and ``ops/convt_tm.fwd_bf16_geometry``. These
 tests walk them as the kernels do:
 
-- K1: each warp's 16-byte copies of its 32 values of a gate row
-  (``k1_bf16_copies``) at the batch-minor rows of the two scans, 125 B
-  and 64 B for B 1-8 (125 B rows start at every offset mod 8), every
-  lane's value found at its shifted place, nothing read past u's end; the
-  ring of LAY0_AHEAD steps with copies landing at issue or at the wait;
+- K1 (``sru_lay0_fwd16_kernel``, ``sru_lay0_bwd16_kernel``): each
+  warp's 16-byte copies of a group of steps (``k1_bf16_group_copies``)
+  at B 125, 131, 64 and 1000, T 1, 5 and 118, rows H B odd and even,
+  every value of u (and of dh and c backward) read once at its lane's
+  shifted place, nothing read past an array's end; the ring of AHEAD + 1
+  group slots with copies landing at issue or at the wait; the constants
+  against the source;
 - K2 (``sru_hid_fwd_bf16_kernel``, ``k2_fwd_bf16_geometry``): its
   blocks, shared memory, the candidate it picks, copy widths and X chunk
   copies (or, where B is odd, the words that hold each row), its
@@ -69,74 +71,204 @@ def _mma_b(g, q, r, h):
 # ----------------------------------------------------------------- K1
 
 
-@pytest.mark.parametrize("t_len,bsz", SCAN_SITES)
-@pytest.mark.parametrize("hdim", [1, 3])
-def test_k1_bf16_copies_land_every_value(t_len, bsz, hdim):
-    geo = sru_fused.k1_fwd_geometry(t_len, hdim, bsz, 2)
+def _k1_bf16_walk(kind, t_len, hdim, bsz):
+    """A K1 bf16 kernel (``sru_lay0_fwd16_kernel`` for ``kind`` "fwd",
+    ``sru_lay0_bwd16_kernel`` for "bwd") walked as it runs, every warp of
+    every block, both directions: each group's copies
+    (``k1_bf16_group_copies``, five 16-byte blocks a row) into a
+    slot of element ids, then each live lane's reads of its steps, at the
+    kernel's shift. Returns {array: reads of each element} for u, and for
+    the backward dh and c (c_t of the scan's first step is read directly,
+    not copied)."""
+    fwd = kind == "fwd"
+    n_rows = 4 if fwd else 6
+    geo = (sru_fused.k1_fwd_geometry(t_len, hdim, bsz, 2) if fwd
+           else sru_fused.k1_bwd_bf16_geometry(t_len, hdim, bsz))
     cols, units = geo["cols"], geo["units"]
     assert cols % 32 == 0  # a warp: one unit, 32 consecutive columns
-    warps = cols * units // 32
-    assert geo["smem"] == warps * sru_fused.LAY0_AHEAD * 4 * \
-        sru_fused.LAY0_SPAN * 2 <= kernel_lib.SMEM_PER_BLOCK
-    row = hdim * bsz
-    total = t_len * 4 * row
-    u = np.arange(total)  # each element its own index
-    shifts = set()
-    for bx in range(geo["grid"][0]):
-        for w in range(warps):
-            b0 = bx * cols + (w * 32) % cols
-            for jy in range(geo["grid"][1]):
-                j = jy * units + (w * 32) // cols
-                if j >= hdim:
+    threads = cols * units
+    ahead = sru_fused.LAY16_FWD_AHEAD if fwd else sru_fused.LAY16_BWD_AHEAD
+    assert geo["ahead"] == ahead
+    assert geo["smem"] == (threads // 32) * (ahead + 1) * \
+        sru_fused.LAY16_GROUP * n_rows * sru_fused.LAY16_SPAN * 2 \
+        <= kernel_lib.SMEM_PER_BLOCK
+    if not fwd:
+        assert geo["parts"] == geo["grid"][0]
+    gx, gy, gz = geo["grid"]
+    assert (gx, gy, gz) == (-(-bsz // cols), -(-hdim // units), 2)
+    # every warp whose unit is in range: its unit and first column
+    js, b0s = [], []
+    for x in range(gx):
+        for y in range(gy):
+            for wi in range(threads // 32):
+                jj = y * units + (wi * 32) // cols
+                if jj < hdim:
+                    js.append(jj)
+                    b0s.append(x * cols + (wi * 32) % cols)
+    j, b0 = np.array(js, np.int64), np.array(b0s, np.int64)
+    row, group, span = hdim * bsz, sru_fused.LAY16_GROUP, sru_fused.LAY16_SPAN
+    col = j * bsz + b0
+    lanes = np.arange(32)
+    live = (b0[:, None] + lanes[None, :]) < bsz
+    sizes = {"u": t_len * 4 * row, "dh": t_len * row, "c": t_len * row}
+    base = {"u": 0, "dh": 1 << 40, "c": 2 << 40}  # an id: array, element
+    reads = {a: np.zeros((2, n), np.int64) for a, n in sizes.items()}
+    plan = sru_fused.k1_bf16_group_copies(n_rows)
+    # a lane owns one block of one row, copied for each step of the group
+    assert sorted(plan) == sorted(
+        (lane, s, lane // 5, lane % 5) for lane in range(5 * n_rows)
+        for s in range(group))
+    assert 5 * n_rows <= 32
+
+    def element(d, i, r):
+        """(array, element of each warp's first value) of scan step i's
+        row r, or None: the kernels' rows lambdas."""
+        if fwd:
+            t = i if d == 0 else t_len - 1 - i
+            return "u", t * 4 * row + r * row + col
+        t = t_len - 1 - i if d == 0 else i
+        if r < 4:
+            return "u", t * 4 * row + r * row + col
+        if r == 4:
+            return "dh", t * row + col
+        if i + 1 >= t_len:
+            return None
+        return "c", (t - 1 if d == 0 else t + 1) * row + col
+
+    for d in range(2):
+        for n in range(-(-t_len // group)):
+            slot = np.full((len(j), group * n_rows, span), -1, np.int64)
+            for lane, s, r, k in plan:
+                i = n * group + s
+                got = element(d, i, r) if i < t_len else None
+                if got is None:
                     continue
-                for t in range(t_len):
-                    for g in range(4):
-                        e0 = t * 4 * row + g * row + j * bsz + b0
-                        shift, blocks = sru_fused.k1_bf16_copies(e0, total)
-                        shifts.add(shift)
-                        slot = []
-                        for src, nbytes in blocks:
-                            assert src % 8 == 0  # 16-byte aligned
-                            assert 0 <= nbytes <= 16 and nbytes % 2 == 0
-                            # a block wholly past the end reads nothing
-                            # (the kernel points it at u itself)
-                            assert nbytes == 0 or src + nbytes // 2 <= total
-                            got = list(u[src:src + nbytes // 2])
-                            slot += got + [-1] * (8 - len(got))
-                        assert len(slot) == sru_fused.LAY0_SPAN
-                        for lane in range(32):
-                            if b0 + lane < bsz:
-                                assert shift + lane < sru_fused.LAY0_SPAN
-                                assert slot[shift + lane] == e0 + lane
-    if bsz % 8:
-        assert len(shifts) > 1  # rows start off the 16-byte grid
+                arr, e0 = got
+                src = e0 - e0 % 8 + 8 * k
+                left = sizes[arr] - src
+                # 16 bytes, or what is left; no copy at or past the end
+                nvals = np.clip(left, 0, 8)
+                assert (src % 8 == 0).all()  # 16-byte aligned
+                assert ((nvals == 0) | (src + nvals <= sizes[arr])).all()
+                for m in range(8):
+                    hit = nvals > m
+                    slot[hit, s * n_rows + r, 8 * k + m] = (
+                        base[arr] + src[hit] + m)
+            for s in range(min(group, t_len - n * group)):
+                i = n * group + s
+                for r in range(n_rows):
+                    got = element(d, i, r)
+                    if got is None:
+                        continue
+                    arr, e0 = got
+                    # the kernels' shift, worked out once a lane: the
+                    # element mod 8 in 32 bits at group 0's step of the
+                    # same parity (u's rows) or the same step (dh; c_prev
+                    # at the next one's)
+                    t0 = ((0 if d == 0 else t_len - 1) if fwd else
+                          (t_len - 1 if d == 0 else 0))
+                    dt = (1 if d == 0 else -1) if fwd else (
+                        -1 if d == 0 else 1)
+                    row4, row1 = (np.uint32(4 * row % 2 ** 32),
+                                  np.uint32(row % 2 ** 32))
+                    c32 = (col % 2 ** 32).astype(np.uint32)
+                    if r < 4:
+                        tp = np.uint32((t0 + dt * (s & 1)) % 2 ** 32)
+                        e = tp * row4 + np.uint32(r) * row1 + c32
+                    else:
+                        q = s if r == 4 else (s + 1) % group
+                        e = np.uint32((t0 + dt * q) % 2 ** 32) * row1 + c32
+                    shift = e.astype(np.uint32) & 7
+                    assert (shift.astype(np.int64) == e0 % 8).all()
+                    pos = shift.astype(np.int64)[:, None] + lanes[None, :]
+                    assert (pos < span).all()
+                    val = slot[np.arange(len(j))[:, None], s * n_rows + r,
+                               pos]
+                    want = base[arr] + e0[:, None] + lanes[None, :]
+                    assert (val[live] == want[live]).all()
+                    np.add.at(reads[arr][d], (e0[:, None] + lanes)[live], 1)
+        if not fwd:  # the first step's c_t, read directly
+            t0 = t_len - 1 if d == 0 else 0
+            np.add.at(reads["c"][d], ((t0 * row + col)[:, None]
+                                      + lanes)[live], 1)
+    return reads if not fwd else {"u": reads["u"]}
 
 
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("t_len", [1, 5, 118])
+@pytest.mark.parametrize("bsz", [125, 131, 64, 1000])
+@pytest.mark.parametrize("hdim", [3, 8])  # rows H B odd where B is, even
+def test_k1_bf16_group_copies_read_every_value_once(kind, t_len, bsz, hdim):
+    """Every (t, unit, column, direction) of each row a K1 bf16 kernel
+    reads (the forward's u; the backward's u, dh and c) is copied by its
+    warp's group, lands at the slot place its lane reads, and is read
+    exactly once; no copy reads past its array, and rows start at every
+    offset mod 8 where B is odd."""
+    reads = _k1_bf16_walk(kind, t_len, hdim, bsz)
+    for arr, got in reads.items():
+        assert (got == 1).all(), (arr, int((got != 1).sum()))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("t_len", [1, 5, 118])
 @pytest.mark.parametrize("land", ["issue", "wait"])
-def test_k1_bf16_ring_reads_each_step_once_landed(land):
-    """One lane's ring: step i's copies go to slot i % AHEAD; the lane
-    waits until at most AHEAD - 1 groups are pending (step i's landed),
-    meets the warp, reads, meets it again, then issues step i + AHEAD into
-    the slot it read. Copies landing at issue or only at the wait, every
-    read finds its own step."""
-    ahead, t_len = sru_fused.LAY0_AHEAD, 3 * sru_fused.LAY0_AHEAD + 5
-    slots, pending = [None] * ahead, []
+def test_k1_bf16_ring_reads_each_group_once_landed(kind, t_len, land):
+    """One lane's ring of AHEAD + 1 group slots: group n's copies go to
+    slot n % (AHEAD + 1) as one commit group (empty past T); at group n the
+    lane waits until at most AHEAD - 1 groups are pending (n's landed),
+    meets its warp, issues group n + AHEAD into the slot of group n - 1
+    (read before the meeting), then reads group n. Copies landing at issue
+    or only at the wait, every read finds its own group, and no slot is
+    refilled before its group is read."""
+    ahead = (sru_fused.LAY16_FWD_AHEAD if kind == "fwd"
+             else sru_fused.LAY16_BWD_AHEAD)
+    n_slots, group = ahead + 1, sru_fused.LAY16_GROUP
+    n_groups = -(-t_len // group)
+    slots, pending, read = [None] * n_slots, [], []
 
-    def issue(i):
-        if i < t_len:
-            if land == "issue":
-                slots[i % ahead] = i
-            else:
-                pending.append(i)
+    def issue(n):
+        if n * group >= t_len:  # an empty commit group
+            pending.append(None)
+        elif land == "issue":
+            assert slots[n % n_slots] in (None, *read)
+            slots[n % n_slots] = n
+            pending.append(None)
+        else:
+            pending.append(n)
 
-    for i in range(ahead):
-        issue(i)
-    for i in range(t_len):
-        while pending and pending[0] <= i:  # wait_group<AHEAD - 1>
-            s = pending.pop(0)
-            slots[s % ahead] = s
-        assert slots[i % ahead] == i
-        issue(i + ahead)
+    for n in range(ahead):
+        issue(n)
+    for n in range(n_groups):
+        while len(pending) > ahead - 1:  # wait_group<AHEAD - 1>
+            m = pending.pop(0)
+            if m is not None:
+                assert slots[m % n_slots] in (None, *read)
+                slots[m % n_slots] = m
+        assert (n + ahead) % n_slots == (n - 1) % n_slots
+        issue(n + ahead)
+        assert slots[n % n_slots] == n
+        read.append(n)
+    assert read == list(range(n_groups))
+
+
+def test_k1_bf16_constants_and_entries():
+    """The Python mirrors equal csrc/sru_fused.cu's constants, and the two
+    C entries keep their signatures."""
+    path = os.path.join(kernel_lib.CSRC_DIR, "sru_fused.cu")
+    with open(path) as f:
+        src = f.read()
+    for name, value in (("kL16Group", sru_fused.LAY16_GROUP),
+                        ("kL16FwdAhead", sru_fused.LAY16_FWD_AHEAD),
+                        ("kL16BwdAhead", sru_fused.LAY16_BWD_AHEAD),
+                        ("kL16Span", sru_fused.LAY16_SPAN),
+                        ("kLay0Threads", sru_fused.LAY0_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert sru_fused.LAY16_SPAN == 5 * 8  # 32 values at any offset mod 8
+    for copy in ("l16_copy_group<4>", "l16_copy_group<6>"):
+        assert copy in src
+    sig = kernel_lib._SIGNATURES["sru_fused"]
+    assert sig["sru_dual_recurrence_fwd_bf16"] == (7, 5)
+    assert sig["sru_dual_recurrence_bwd_bf16"] == (10, 5)
 
 
 # ----------------------------------------------------------------- K2

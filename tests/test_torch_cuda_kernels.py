@@ -863,15 +863,20 @@ def _b(rng, shape, dev, scale=1.0):
 
 
 # the serving shapes at bs 1 and 8, small H, a ragged B, T 1, H 48 and 80
-# (K2's units split over the grid), H 268 (held) and 536 (streamed)
+# (K2's units split over the grid), H 268 (held) and 536 (streamed); for
+# K1's group copies B 125, 131 and 1000 at T 1 and 5 (shorter than a group
+# and than the ring), H 48
 @pytest.mark.parametrize("t_len,h,bsz", [
     (57, 32, 125), (118, 32, 64), (57, 32, 1000), (118, 32, 512),
     (21, 8, 5), (1, 32, 77), (37, 32, 131), (23, 48, 131), (57, 80, 125),
-    (19, 48, 64), (9, 128, 40), (5, 268, 20), (3, 536, 8)])
+    (19, 48, 64), (9, 128, 40), (5, 268, 20), (3, 536, 8), (1, 48, 125),
+    (5, 48, 131), (5, 32, 1000), (1, 32, 131), (5, 48, 125),
+    (1, 48, 1000)])
 def test_bf16_k1_k2_match_plain(dev, t_len, h, bsz):
     """K1 and K2 forward in bf16 storage against their plain bf16 versions
-    and against the float32 kernels on the same values widened; two calls
-    give the same bits; the launches are the bf16 entries."""
+    and against the float32 kernels on the same values widened; K1 also
+    with c (the training forward); two calls give the same bits; the
+    launches are the bf16 entries."""
     from rtfs_tpu_torch.ops import kernel_lib
     from rtfs_tpu_torch.ops import sru_fused as S
 
@@ -887,6 +892,14 @@ def test_bf16_k1_k2_match_plain(dev, t_len, h, bsz):
     for g, w in zip(k1, wide):
         _bf16_close(g, w.to(torch.bfloat16), "K1 float32")
     for a, b in zip(k1, S.sru_dual_recurrence(u_f, u_r, vb)):
+        assert torch.equal(a, b)
+    k1c = S._k1_forward(u_f, u_r, vb, with_c=True)
+    want = S.sru_dual_recurrence_plain(u_f, u_r, vb, with_c=True)
+    for i, (g, w) in enumerate(zip(k1c, want)):
+        _bf16_close(g, w, f"K1 with c, output {i}")
+    for a, b in zip(k1c, S._k1_forward(u_f, u_r, vb, with_c=True)):
+        assert torch.equal(a, b)
+    for a, b in zip(k1c, k1):  # h as served
         assert torch.equal(a, b)
     x_f, x_r = _b(rng, (t_len, h, bsz), dev, 0.5), _b(rng, (t_len, h, bsz), dev, 0.5)
     wt = _b(rng, (6 * h, 2 * h), dev, (2 * h) ** -0.5)
@@ -1102,7 +1115,8 @@ def _bf16_grad_close(got, want, what="", scale=None):
 @pytest.mark.parametrize("t_len,h,bsz", [
     (57, 32, 125), (118, 32, 64), (57, 32, 500), (118, 32, 256),
     (13, 8, 33), (5, 48, 7), (1, 32, 77), (37, 32, 131), (19, 80, 64),
-    (9, 300, 40), (5, 600, 20), (7, 64, 500)])
+    (9, 300, 40), (5, 600, 20), (7, 64, 500), (1, 48, 125), (5, 48, 131),
+    (5, 32, 1000), (1, 32, 131), (5, 48, 1000), (57, 32, 1000)])
 def test_bf16_k1_k2_backward_match_plain(dev, t_len, h, bsz):
     """K1 and K2 backward in bf16 storage against their plain bf16
     versions (two bf16 ulps; K2's dx scaled by its three roundings, the two

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split a launch of the first bf16 K2 and K3 forward kernels into phases.
+"""Split a launch of the first bf16 K1, K2 and K3 kernels into phases.
 
 The kernels are ``sru_hid_fwd_bf16_kernel<false>`` (K2) and
 ``convt1d_tm_fwd_bf16_kernel<8>`` (K3) as a tree had them before their
@@ -39,11 +39,29 @@ prologue's issue) and scan thread 0 (its FULL wait and the scan), K3's
 thread 0 (a segment's issue, a pass's wait and barrier, realign, issue,
 product and stores).
 
+``--k1`` splits K1's bf16 kernels instead, at the six sites (forward
+serving, backward on the tree's own training forward's c): the first
+ones (``sru_lay0_fwd_bf16_kernel``, the scan ``sru_scan_bwd_kernel<11>``;
+a tree before their redesign) by thread 0's stamps, per step: wait,
+read, issue, gates (and chain), chain or stores; with ``--redesigned`` the
+redesigned ones (``sru_lay0_fwd16_kernel``, ``sru_lay0_bwd16_kernel``),
+per group: wait and meeting, issue, reads, gates, chain and stores. Each
+run also times the kernels as built, and ``--probe`` launches with one
+part taken out (``_K1_PROBES``: the copies after the prologue, the
+stores, ``sigmoid_f`` folded to ex2 / rcp, the scan's word reads) or
+with a loop that holds the carry's chain alone on registers
+(``fwd-chain``, ``fwd-chain-fold``, ``scan-chain``): the floor of a
+step. Per site it prints the device us a launch and ns a step (us / T);
+every variant's library is built at once, then timed alone.
+
 The stamps cost a few instructions of thread 0 between phases; the
 device time beside them is the stamped kernel's. Usage::
 
     python3 tools/phase_split.py --tree _scratch/parent [--scan-only]
     python3 tools/phase_split.py --tree . --redesigned
+    python3 tools/phase_split.py --k1 --tree _scratch/parent \
+        [--probe fwd-chain-fold scan-chain ...]
+    python3 tools/phase_split.py --k1 --tree . --redesigned
 """
 
 from __future__ import annotations
@@ -333,6 +351,383 @@ def redesigned_csrc(tree: str, out: str) -> str:
     return csrc
 
 
+# ------------------------------------------------------------------ K1
+# K1's bf16 forward (``sru_lay0_fwd_bf16_kernel``) and the bf16 adjoint
+# scan (``sru_scan_bwd_kernel<11>``) as a tree had them before their
+# redesign: counters 0-4 the forward's, 8-12 the scan's. SPLV(i, v) stamps
+# only once v is computed (the timer read predicated on it), so a phase
+# that ends in arithmetic holds that arithmetic's latency.
+_STAMP_AFTER = r"""
+__device__ __forceinline__ unsigned long long split_stamp_after(float v) {
+  unsigned long long t;
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.eq.f32 p, %1, %1;\n\t"
+               "@p mov.u64 %0, %%globaltimer;\n\t"
+               "@!p mov.u64 %0, %%globaltimer;\n}"
+               : "=l"(t) : "f"(v) : "memory");
+  return t;
+}
+#define SPLV(i, v) { const unsigned long long s1_ = split_stamp_after(v); \
+  ph[i] += s1_ - s0; s0 = s1_; }
+"""
+_K1F_START = "sru_lay0_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ u_f,"
+_K1F_LOOP = """  float c = 0.f;
+  for (int i = 0; i < T; ++i) {
+    hk::cp_async_wait<kLay0Ahead - 1>();  // step i's group is in
+    __syncwarp();                          // and the other lanes'
+"""
+_K1F_READ_END = """    __syncwarp();           // every lane has read the slot
+"""
+_K1F_ISSUE = """    issue(i + kLay0Ahead);  // into the slot just read
+"""
+_K1F_GATES = """    const float r = sigmoid_f(a[2] + v_r * c + b_r);
+"""
+_K1F_END = """      if (cs) cs[(long long)t * row + col + lane] = __float2bfloat16_rn(c);
+    }
+"""
+_K1F_STAMPS = [
+    (_K1F_LOOP, "  unsigned long long ph[5] = {0, 0, 0, 0, 0};\n"
+     "  unsigned long long s0 = split_stamp();\n", "    SPL(0)\n"),
+    (_K1F_READ_END, "", "    SPL(1)\n"),
+    (_K1F_ISSUE, "", "    SPL(2)\n"),
+    (_K1F_GATES, "", "    SPLV(3, r * c)\n"),
+    (_K1F_END, "", "    SPL(4)\n"),
+    ("}\n\n__host__ __device__ __forceinline__ int round_up(",
+     "  if (threadIdx.x == 0) {\n    for (int k = 0; k < 5; ++k) "
+     "atomicAdd(&g_split_sum[k], ph[k]);\n    atomicAdd(&g_split_blocks[0], "
+     "1ull);\n  }\n", ""),
+]
+_K1B_START = "sru_scan_bwd_kernel(ScanIOT<typename ScanTypes<Kernel>::TU,"
+_K1B_LOOP = """    for (int i0 = 0; i0 < T; i0 += kScanGroup) {
+      // the groups of steps i0 .. i0 + kScanGroup - 1 are in; the compiler
+      // barriers keep the slots' reads between the wait and the refill
+      hk::cp_async_wait<kScanAhead - kScanGroup>();
+      asm volatile("" ::: "memory");
+"""
+_K1B_READ_END = """      asm volatile("" ::: "memory");
+#pragma unroll
+      for (int s = 0; s < kScanGroup; ++s) issue();  // i0 + kScanAhead + s
+"""
+_K1B_GATES = """      // the chain in dc
+"""
+_K1B_CHAIN = """      c_t = cp[kScanGroup - 1];
+"""
+_K1B_END = """    hk::cp_async_wait_all();  // the zero-fill copies past the end
+"""
+_K1B_STAMPS = [
+    (_K1B_LOOP, "    unsigned long long ph[5] = {0, 0, 0, 0, 0};\n"
+     "    unsigned long long s0 = split_stamp();\n", "      SPLV(0, 0.f)\n"),
+    (_K1B_READ_END, "      SPLV(1, u0[0] + u1[0] + u2[0] + hw[0] + g[0] + "
+     "cp[0] + u0[1] + u1[1] + u2[1] + hw[1] + g[1] + cp[1])\n",
+     "      SPL(2)\n"),
+    (_K1B_GATES, "      SPLV(3, f[0] + r[0] + dm[0] + f[1] + r[1] + dm[1])\n",
+     ""),
+    (_K1B_CHAIN, "      SPLV(4, dc)\n", ""),
+    (_K1B_END, "", "    if (Kernel == 11 && tid == 0) {\n      for (int k "
+     "= 0; k < 5; ++k) atomicAdd(&g_split_sum[8 + k], ph[k]);\n      "
+     "atomicAdd(&g_split_blocks[1], 1ull);\n    }\n"),
+]
+_K1_NAMES = {"fwd": ("wait", "read", "issue", "gates and chain", "stores"),
+             "scan": ("wait", "read", "issue", "gates", "chain and stores")}
+_NEG_LOG2E = "-1.4426950408889634f"
+
+
+def _fold(v: str, c: str, u: str, bias: str) -> str:
+    """The folded sigmoid(u + v c + b) of K2's bf16 forward: ex2
+    and rcp, -log2(e) (u + b) off the chain."""
+    return (f"hk::rcp_approx(1.f + hk::ex2_approx(fmaf({_NEG_LOG2E} * {v}, "
+            f"{c}, {_NEG_LOG2E} * ({u} + {bias}))))")
+
+
+# probes of the first K1 bf16 kernels (``--k1 --probe``): (kernel, edits)
+# with each edit (anchor, replacement) in that kernel
+_K1_PROBES = {
+    # the forward's copies after the prologue taken out
+    "fwd-nocopy": ("fwd", [(_K1F_ISSUE, "    hk::cp_async_commit();\n")]),
+    # h and c stored at the last step only (the chain kept)
+    "fwd-nostore": ("fwd", [("    if (b < B) {\n      h[(long long)t",
+                             "    if (b < B && i == T - 1) {\n      h["
+                             "(long long)t")]),
+    # sigmoid_f replaced by the folded ex2 / rcp sigmoid
+    "fwd-fold": ("fwd", [(
+        """    const float f = sigmoid_f(a[1] + v_f * c + b_f);
+    c = f * c + (1.f - f) * a[0];
+    const float r = sigmoid_f(a[2] + v_r * c + b_r);
+""", f"""    const float f = {_fold("v_f", "c", "a[1]", "b_f")};
+    c = fmaf(f, c - a[0], a[0]);
+    const float r = {_fold("v_r", "c", "a[2]", "b_r")};
+""")]),
+    # the loop holds the carry's chain alone on values in registers (no
+    # copy, read or store but the last), with sigmoid_f or folded
+    "fwd-chain": ("fwd", [(_K1F_LOOP, """  float c = 0.f;
+  const float q0 = 0.01f * lane, q1 = 0.3f - q0;
+  for (int i = 0; i < T; ++i) {
+    const float f = sigmoid_f(q1 + v_f * c + b_f);
+    c = f * c + (1.f - f) * q0;
+  }
+  if (b < B) h[col + lane] = __float2bfloat16_rn(c);
+  hk::cp_async_wait_all();
+  return;
+  for (int i = 0; i < T; ++i) {
+    hk::cp_async_wait<kLay0Ahead - 1>();
+    __syncwarp();
+""")]),
+    "fwd-chain-fold": ("fwd", [(_K1F_LOOP, f"""  float c = 0.f;
+  const float q0 = 0.01f * lane, q1 = 0.3f - q0;
+  for (int i = 0; i < T; ++i) {{
+    const float f = {_fold("v_f", "c", "q1", "b_f")};
+    c = fmaf(f, c - q0, q0);
+  }}
+  if (b < B) h[col + lane] = __float2bfloat16_rn(c);
+  hk::cp_async_wait_all();
+  return;
+  for (int i = 0; i < T; ++i) {{
+    hk::cp_async_wait<kLay0Ahead - 1>();
+    __syncwarp();
+""")]),
+    # the scan's copies after the prologue taken out
+    "scan-nocopy": ("scan", [(
+        "      for (int s = 0; s < kScanGroup; ++s) issue();  // i0 + "
+        "kScanAhead + s\n",
+        "      for (int s = 0; s < kScanGroup; ++s) "
+        "hk::cp_async_commit();\n")]),
+    # du and dhw stored at the last step only
+    "scan-nostore": ("scan", [("        TU* dut = io.du + od;\n",
+                               "        TU* dut = io.du + od;\n"
+                               "        if (i0 + s == T - 1) {\n"),
+                              ("        store_value(io.dhw + ow, g[s] * (1.f "
+                               "- r[s]));\n",
+                               "        store_value(io.dhw + ow, g[s] * (1.f "
+                               "- r[s]));\n        }\n")]),
+    # the gates' sigmoid_f replaced by the folded one
+    "scan-fold": ("scan", [(
+        """        f[s] = sigmoid_f(u1[s] + v_f * cp[s] + b_f);
+        r[s] = sigmoid_f(u2[s] + v_r * ct[s] + b_r);
+""", f"""        f[s] = {_fold("v_f", "cp[s]", "u1[s]", "b_f")};
+        r[s] = {_fold("v_r", "ct[s]", "u2[s]", "b_r")};
+""")]),
+    # the word reads (and their halves) replaced by values in registers
+    # (the copies kept)
+    "scan-noword": ("scan", [(
+        """        u0[s] = slot_value<TU>(d, upper_half(io.u, ou0, su, i));
+        u1[s] = slot_value<TU>(d + nt, upper_half(io.u, ou0 + hb, su, i));
+        u2[s] = slot_value<TU>(d + 2 * nt,
+                               upper_half(io.u, ou0 + 2 * hb, su, i));
+        hw[s] = slot_value<TS>(d + 3 * nt, upper_half(io.xhw, ox0, sx, i));
+        g[s] = slot_value<TS>(d + 4 * nt, upper_half(io.dh, og0, dt, i));
+        cp[s] = slot_value<TS>(d + 5 * nt, upper_half(io.c, og0 + dt, dt, i));
+""", """        (void)d;
+        const float z = 1e-3f * (float)i;
+        u0[s] = z; u1[s] = z + v_f; u2[s] = z + v_r; hw[s] = z + b_f;
+        g[s] = z + b_r; cp[s] = 0.5f - z;
+""")]),
+    # the loop holds dc's chain alone on values in registers
+    # the redesigned kernels (``--k1 --redesigned --probe``): copies after
+    # the prologue out, or the stores but the last step's
+    "fwd16-nocopy": ("fwd16", [(
+        "    issue(n + kL16FwdAhead);  // into group n - 1's slot\n",
+        "    hk::cp_async_commit();\n")]),
+    "fwd16-nostore": ("fwd16", [
+        ("      if (live) *hp = hv;\n",
+         "      if (live && n * kL16Group + s == T - 1) *hp = hv;\n"),
+        ("        if (live) *cp = cv;\n",
+         "        if (live && n * kL16Group + s == T - 1) *cp = cv;\n")]),
+    "bwd16-nocopy": ("bwd16", [(
+        "      issue(n + kL16BwdAhead);  // into group n - 1's slot\n",
+        "      hk::cp_async_commit();\n")]),
+    "bwd16-nostore": ("bwd16", [(
+        "          if (live) {\n            dup[0] = d0;",
+        "          if (live && n * kL16Group + sg + q == T - 1) {\n"
+        "            dup[0] = d0;")]),
+    "scan-chain": ("scan", [("    float dc = 0.f;\n",
+                             "    float dc = 0.f;\n    int i0_end_ = 0;\n"),
+                            (_K1B_LOOP, """    {
+      const float gr = v_f + b_r, dv = b_f * v_r, kk = 0.2f * v_f;
+      const float fv = 0.7f;
+      for (int i = 0; i < T; ++i) {
+        dc = gr + dv + dc;
+        const float da = dc * kk;
+        dc = dc * fv + da * v_f;
+      }
+      store_value(io.du + od, dc);
+      i0_end_ = T;
+    }
+    for (int i0 = i0_end_; i0 < T; i0 += kScanGroup) {
+      hk::cp_async_wait<kScanAhead - kScanGroup>();
+      asm volatile("" ::: "memory");
+""")]),
+}
+
+
+# the redesigned K1 bf16 kernels' stamps (``--k1 --redesigned``): the
+# forward's counters 0-3, the backward's 8-12, a group at a time
+_K1F_NEW_START = "sru_lay0_fwd16_kernel(const __nv_bfloat16* __restrict__ u_f,"
+_K1F_NEW = [  # in the order of the source
+    ("  float c = 0.f;\n  // group n's steps from its slot; kFull: all "
+     "kL16Group of them\n", "  unsigned long long ph[4] = {0, 0, 0, 0};\n"
+     "  unsigned long long s0 = split_stamp();\n", ""),
+    ("#pragma unroll\n    for (int s = 0; s < kL16Group; ++s) {\n"
+     "      if (!kFull && s >= steps) break;\n",
+     "    SPLV(2, a0[0] + x1[0] + x2[0] + a3[0])\n", ""),
+    ("  };\n  const int groups = (T + kL16Group - 1) / kL16Group;\n",
+     "    SPLV(3, c)\n", ""),
+    ("    __syncwarp();  // the warp's; and every lane is past group n - 1's "
+     "reads\n", "", "    SPL(0)\n"),
+    ("    issue(n + kL16FwdAhead);  // into group n - 1's slot\n", "",
+     "    SPL(1)\n"),
+    ("  hk::cp_async_wait_all();\n}\n",
+     "  if (threadIdx.x == 0) {\n    for (int k = 0; k < 4; ++k) "
+     "atomicAdd(&g_split_sum[k], ph[k]);\n    atomicAdd(&g_split_blocks[0], "
+     "1ull);\n  }\n", ""),
+]
+_K1B_NEW_START = "sru_lay0_bwd16_kernel(const __nv_bfloat16* __restrict__ u_f,"
+_K1B_NEW = [  # in the order of the source
+    ("    float dc = 0.f;\n    // group n's steps", "    unsigned long long "
+     "ph[5] = {0, 0, 0, 0, 0};\n    unsigned long long s0 = split_stamp();\n",
+     ""),
+    ("        // the gates, off the chain\n",
+     "        SPLV(2, u0[0] + g[0] + cp[0])\n", ""),
+    ("        // the chain in dc\n", "        SPLV(3, f[0] + r[0] + dm[0])\n",
+     ""),
+    ("        c_t = cp[kSub - 1];\n", "", "        SPLV(4, dc)\n"),
+    ("      __syncwarp();  // the warp's; every lane is past group n - 1's "
+     "reads\n", "", "      SPL(0)\n"),
+    ("      issue(n + kL16BwdAhead);  // into group n - 1's slot\n", "",
+     "      SPL(1)\n"),
+    ("    hk::cp_async_wait_all();\n  }\n",
+     "    if (tid == 0) {\n      for (int k = 0; k < 5; ++k) "
+     "atomicAdd(&g_split_sum[8 + k], ph[k]);\n      atomicAdd("
+     "&g_split_blocks[1], 1ull);\n    }\n", ""),
+]
+_K1_NEW_NAMES = {"fwd": ("wait and meeting", "issue", "reads",
+                         "chain and stores"),
+                 "scan": ("wait and meeting", "issue", "reads", "gates",
+                          "chain and stores")}
+
+
+# the K1 kernels' names as the profiler shows them, before and after their
+# redesign
+K1_KERNELS = {"fwd": ("sru_lay0_fwd_bf16_kernel", "sru_lay0_fwd16_kernel"),
+              "scan": ("sru_scan_bwd_kernel<11>", "sru_lay0_bwd16_kernel")}
+
+
+def k1_csrc(tree: str, out: str, variant: str) -> str:
+    """A copy of ``tree``'s csrc/ for a K1 ``variant``: "k1base" (as it
+    is), "k1stamps" (the first kernels stamped), "k1redesigned" (the
+    redesigned ones stamped) or "k1probe:NAME" (one ``_K1_PROBES`` edit);
+    returns its path."""
+    csrc = os.path.join(out, "csrc")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "rtfs_tpu_torch", "csrc"), csrc)
+    fused, scan = (os.path.join(csrc, n) for n in ("sru_fused.cu",
+                                                   "sru_scan.cuh"))
+    srcs = {}
+    for path in (fused, scan):
+        with open(path) as f:
+            srcs[path] = f.read()
+    if variant == "k1base":
+        return csrc
+    if variant.startswith("k1probe:"):
+        kernel, edits = _K1_PROBES[variant[8:]]
+        path, start = {"fwd": (fused, _K1F_START), "scan": (scan, _K1B_START),
+                       "fwd16": (fused, _K1F_NEW_START),
+                       "bwd16": (fused, _K1B_NEW_START)}[kernel]
+        srcs[path] = _patch(srcs[path], start, edits)
+    else:
+        new = variant == "k1redesigned"
+        srcs[scan] = srcs[scan].replace(
+            "namespace {\n", _STAMP_HEAD + _STAMP_MACRO + _STAMP_AFTER
+            + "namespace {\n", 1)
+        for path, start, edits in (
+                (fused, _K1F_NEW_START if new else _K1F_START,
+                 _K1F_NEW if new else _K1F_STAMPS),
+                (scan if not new else fused,
+                 _K1B_NEW_START if new else _K1B_START,
+                 _K1B_NEW if new else _K1B_STAMPS)):
+            srcs[path] = _insert(srcs[path], start, edits)
+        srcs[fused] += _STAMP_TAIL
+    for path, src in srcs.items():
+        with open(path, "w") as f:
+            f.write(src)
+    return csrc
+
+
+def worker_k1(tree: str, variant: str, build_only: bool = False) -> dict:
+    """Build the K1 ``variant`` (``k1_csrc``) through the tree's
+    kernel_lib and run K1's bf16 forward (serving, no c) and backward at
+    the six sites; {site: {phase: us a block, "device_us": .., "ns_step":
+    ..}}."""
+    sys.path.insert(0, tree)
+    from rtfs_tpu_torch.ops import kernel_lib, sru_fused
+
+    assert kernel_lib.__file__.startswith(tree), kernel_lib.__file__
+    out = os.path.join(HERE, "rtfs_tpu_torch", "_build", "split",
+                       variant.replace(":", "_"))
+    kernel_lib.CSRC_DIR = k1_csrc(tree, out, variant)
+    kernel_lib.BUILD_DIR = os.path.join(out, "lib")
+    if build_only:
+        kernel_lib.library("sru_fused")
+        return {}
+    spec = importlib.util.spec_from_file_location(
+        "profile_backward", os.path.join(HERE, "tools", "profile_backward.py"))
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    rng = np.random.default_rng(0)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev).to(bf)
+
+    vb = t((8, H), 0.3)
+    stamped = variant in ("k1stamps", "k1redesigned")
+    kind = (_K1_PROBES[variant[8:]][0] if variant.startswith("k1probe:")
+            else None)
+    only = {"fwd16": "fwd", "bwd16": "scan"}.get(kind, kind)
+    lib = kernel_lib.library("sru_fused")
+    res = {}
+    for bs in (1, 4, 8):
+        for site, (length, per) in SITES.items():
+            bsz = bs * per
+            u_f, u_r = t((length, 4 * H, bsz)), t((length, 4 * H, bsz))
+            dh_f, dh_r = t((length, H, bsz), 0.1), t((length, H, bsz), 0.1)
+            with torch.no_grad():
+                c = sru_fused._k1_forward(u_f, u_r, vb, with_c=True)[2:]
+            ops = {"fwd": lambda: sru_fused._k1_forward(u_f, u_r, vb, False),
+                   "scan": lambda: sru_fused._k1_backward(
+                       u_f, u_r, vb, *c, dh_f, dh_r)}
+            for name, fn in ops.items():
+                if only not in (None, name):
+                    continue
+                base = 0 if name == "fwd" else 8
+                fn()
+                torch.cuda.synchronize()
+                iters = 20
+                buf = (ctypes.c_ulonglong * 18)()
+                if stamped:
+                    assert lib.phase_split_clear() == 0
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+                    assert lib.phase_split_read(ctypes.byref(buf)) == 0
+                for _ in range(3):  # the profiler can drop every launch
+                    us, n, _ = pb.device_us(fn, K1_KERNELS[name])
+                    if n:
+                        break
+                us = us / n if n else float("nan")
+                row = {"device_us": round(us, 3),
+                       "ns_step": round(us * 1e3 / length, 1)}
+                if stamped:
+                    blocks = buf[16 + base // 8]
+                    for i, ph in enumerate(_K1_NAMES[name] if variant ==
+                                           "k1stamps" else
+                                           _K1_NEW_NAMES[name]):
+                        row[ph] = round(buf[base + i] / max(blocks, 1) / 1e3,
+                                        3)
+                    row["blocks"] = blocks // iters
+                res[f"K1 {name} bs{bs} {site} L={length} B={bsz}"] = row
+    return res
+
+
 def worker(tree: str, variant: str) -> dict:
     """Build the stamped copy (``variant``: "stamps", "scan" or
     "redesigned") through the tree's kernel_lib and run the six sites;
@@ -410,40 +805,73 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True)
     ap.add_argument("--scan-only", action="store_true")
-    ap.add_argument("--probe", nargs="+", choices=sorted(_K2_PROBES),
-                    help="also time the redesigned K2 with one part of its "
-                         "work taken out")
+    ap.add_argument("--probe", nargs="+",
+                    choices=sorted(_K2_PROBES) + sorted(_K1_PROBES),
+                    help="also time the redesigned K2 (with --k1: the first "
+                         "K1 bf16 kernels) with one part of its work taken "
+                         "out")
+    ap.add_argument("--k1", action="store_true",
+                    help="K1's bf16 forward and the bf16 scan <11> (with "
+                         "--redesigned: their redesigned kernels) instead "
+                         "of K2 and K3")
     ap.add_argument("--redesigned", action="store_true",
                     help="stamp the redesigned kernels (this repository's "
                          "form) instead of the first ones")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--build-only", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("phase_split: needs a CUDA card", file=sys.stderr)
         return 1
     tree = os.path.abspath(args.tree)
     if args.worker:
-        print(json.dumps(worker(tree, args.worker)))
+        if args.worker.startswith("k1"):
+            print(json.dumps(worker_k1(tree, args.worker, args.build_only)))
+        else:
+            print(json.dumps(worker(tree, args.worker)))
         return 0
+    probes = set(args.probe or ())
+    if probes - set(_K1_PROBES if args.k1 else _K2_PROBES):
+        ap.error(f"--probe {sorted(probes)}: not probes of "
+                 f"{'K1' if args.k1 else 'K2'}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    variants = (["redesigned"] if args.redesigned else
-                ["stamps"] + (["scan"] if args.scan_only else []))
-    variants += [f"probe:{p}" for p in args.probe or []]
+    if args.k1:
+        variants = ["k1base",
+                    "k1redesigned" if args.redesigned else "k1stamps"]
+        variants += [f"k1probe:{p}" for p in args.probe or []]
+    else:
+        variants = (["redesigned"] if args.redesigned else
+                    ["stamps"] + (["scan"] if args.scan_only else []))
+        variants += [f"probe:{p}" for p in args.probe or []]
+    if args.k1:  # every variant's library built at once, then timed alone
+        builds = [subprocess.Popen(
+            [sys.executable, __file__, "--tree", tree, "--worker", v,
+             "--build-only"], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True) for v in variants]
+        for v, proc in zip(variants, builds):
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{v} build:\n{err[-4000:]}")
+    failed = False
     for variant in variants:
         run = subprocess.run([sys.executable, __file__, "--tree", tree,
                               "--worker", variant], capture_output=True,
                              text=True, timeout=600)
-        if run.returncode != 0:
-            raise RuntimeError(f"{variant}:\n{run.stderr[-4000:]}")
+        if run.returncode != 0:  # the other variants still run
+            print(f"split {variant} FAILED:\n{run.stderr[-3000:]}")
+            failed = True
+            continue
         for site, row in json.loads(
                 run.stdout.strip().splitlines()[-1]).items():
             label = ("scan alone (U given)" if variant == "scan" else
-                     f"probe {variant[6:]}" if variant.startswith("probe:")
+                     "as built" if variant == "k1base" else
+                     f"probe {variant.split(':')[1]}" if ":" in variant
                      else "phases, us a block")
             print(f"split {site} {label}: {row}; {card}")
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@ each it prints the profiler's device time a launch of the op's kernels
 and their sum per bs-4 step (K1 and K3 4 calls a site, K2 12, K4 16 in
 the unidirectional model),
 beside the CUDA-event time a call, which also counts the wrapper's host
-path. ``--bf16`` runs the same ops on bf16 inputs (their bf16 entries, the
-bf16 train step's), with the cell states from the tree's bf16 forward.
+path, and a hash of its outputs' bits (the same inputs in either tree).
+``--bf16`` runs the same ops on bf16 inputs (their bf16 entries, the bf16
+train step's), with the cell states from the tree's bf16 forward.
 
 ``--packed`` runs the packed-TF kernels instead: K6 ``pw_proj_packed``
 at its serving site (bs 1 and 8: STFT 251 x 129, bottleneck 256 -> 64,
@@ -53,12 +54,13 @@ either tree); then K6 ``pw_proj_packed`` in bf16 against
 ``torch.baddbmm`` by device time at bs 1, 4 and 8, in turns over 5
 repeats.
 
-``--fwd16`` runs K2 ``sru_hidden_layer`` and K3 ``convt1d_ola_tm``
-forward in bf16 storage at the six RTFS-Net-4 forward sites (freq L 57
-over B 125 bs, time L 118 over B 64 bs, bs 1, 4 and 8), each against its
-plain bf16 version (two bf16 ulps) and twice (bit-identical), with its
-device time a launch (K2 with ``c`` written, the training forward, too),
-their sums per bs-1 / 4 / 8 forward (12 K2 and 4 K3 calls a site), and
+``--fwd16`` runs K1 ``sru_dual_recurrence``, K2 ``sru_hidden_layer``
+and K3 ``convt1d_ola_tm`` forward in bf16 storage at the six RTFS-Net-4
+forward sites (freq L 57 over B 125 bs, time L 118 over B 64 bs, bs 1, 4
+and 8), each against its plain bf16 version (two bf16 ulps) and twice
+(bit-identical), with its device time a launch (K1 and K2 with ``c``
+written, the training forward, too), their sums per bs-1 / 4 / 8
+forward (4 K1, 12 K2 and 4 K3 calls a site), and
 the float32 kernels at the same sites on the widened values: their device
 time and a hash of their outputs (the same inputs in either tree), and
 ``conv_transpose1d`` in bf16 by device time (every kernel of a call).
@@ -100,10 +102,11 @@ KERNELS = {"K1": ("sru_scan_bwd_kernel<1>",),
            "K3": ("convt1d_tm_dx_kernel", "convt1d_tm_wgrad_kernel",
                   "convt1d_tm_sum_kernel"),
            "K4": ("sru_rec_bwd_kernel", "sru_scan_bwd_kernel<4>")}
-# and in bf16 storage: the scan's bf16 forms, K2's products and scan or
-# its fused kernel (sru_hid_bwd_bf16_kernel, dx_add, sums), K3's kernels
-# in any tree's form (its fused kernel; W', dx and dW apart) and sums
-KERNELS_BF16 = {"K1": ("sru_scan_bwd_kernel<11>",),
+# and in bf16 storage: K1's scan form or its own kernel, the scan's bf16
+# forms, K2's products and scan or its fused kernel
+# (sru_hid_bwd_bf16_kernel, dx_add, sums), K3's kernels in any tree's form
+# (its fused kernel; W', dx and dW apart) and sums
+KERNELS_BF16 = {"K1": ("sru_scan_bwd_kernel<11>", "sru_lay0_bwd16_kernel"),
                 "K2": ("sru_hid_bwd_", "sru_scan_bwd_kernel<12>"),
                 "K3": ("convt1d_tm_bwd_bf16_kernel",
                        "convt1d_tm_wrev_bf16_kernel", "convt1d_tm_dx_",
@@ -196,11 +199,20 @@ def sru_backward(t, tree: str, card: str, bf16: bool = False) -> None:
             step[op][1] += n * ms
             print(f"{op} backward site={site} T={T} B={B}: device "
                   f"{us:.2f} us a call ({launches:g} launches a call of "
-                  f"{', '.join(names)}), events {ms * 1e3:.2f} us a call")
+                  f"{', '.join(names)}), events {ms * 1e3:.2f} us a call, "
+                  f"outputs {_digest(fn())}")
     for op, (dev_ms, ev_ms) in step.items():
         print(f"{op} backward{' bf16' if bf16 else ''} per bs-4 step: "
               f"device {dev_ms:.4f} ms, events {ev_ms:.4f} ms "
               f"({PER_SITE[op]} calls a site; tree {tree}; {card})")
+
+
+def _digest(outs) -> str:
+    """A hash of an op's outputs' bits (the same inputs in either tree)."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return hashlib.sha1(b"".join(
+        o.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        for o in outs)).hexdigest()[:12]
 
 
 def packed(t, sweep: bool) -> None:
@@ -332,15 +344,17 @@ MAP16_KERNELS = {"K8": ("spatial_down_bf16_kernel",
                         ("spatial_up_kernel", "bfloat16"))}
 
 
-# calls per forward of K2 and K3 at each site (12 K2, 4 K3: three hidden
-# layers of two DualPathRNNs a repeat, 4 repeats, at each site)
-FWD_PER_SITE = {"K2": 12, "K3": 4}
+# calls per forward of K1, K2 and K3 at each site (4 K1, 12 K2, 4 K3: one
+# layer-0 and three hidden layers of two DualPathRNNs a repeat, 4 repeats,
+# at each site)
+FWD_PER_SITE = {"K1": 4, "K2": 12, "K3": 4}
 FWD_SITES = {"freq": (57, 125), "time": (118, 64)}
 
 
 def forward16(t, tree: str, card: str) -> None:
-    """K2 and K3 forward in bf16 at the six forward sites (``--fwd16``),
-    and their float32 kernels' device time and output hashes."""
+    """K1, K2 and K3 forward in bf16 at the six forward sites
+    (``--fwd16``), and their float32 kernels' device time and output
+    hashes."""
     from rtfs_tpu_torch.ops import convt_tm, sru_fused
 
     smoke = _own_smoke()
@@ -354,7 +368,16 @@ def forward16(t, tree: str, card: str) -> None:
             B = bs * per_item
             x_f, x_r = t((T, H, B), 0.5), t((T, H, B), 0.5)
             x3 = t((T, 2 * H, B))
+            u_f, u_r = t((T, 4 * H, B)), t((T, 4 * H, B))
             ops = {
+                "K1": (lambda a, b, c: sru_fused._k1_forward(
+                    a, b, c, with_c=False),
+                    sru_fused.sru_dual_recurrence_plain, (u_f, u_r, vb),
+                    ("sru_lay0_fwd",)),
+                "K1 with c": (lambda a, b, c: sru_fused._k1_forward(
+                    a, b, c, with_c=True), functools.partial(
+                        sru_fused.sru_dual_recurrence_plain, with_c=True),
+                    (u_f, u_r, vb), ("sru_lay0_fwd",)),
                 "K2": (lambda a, b, c, d: sru_fused._k2_forward(
                     a, b, c, d, with_c=False), sru_fused.sru_hidden_layer_plain,
                     (x_f, x_r, wt, vb), ("sru_hid_fwd",)),
@@ -380,10 +403,7 @@ def forward16(t, tree: str, card: str) -> None:
                     us, launches, names = device_us(lambda: fn(*a16), parts)
                     if launches:
                         break
-                f32 = fn(*args)
-                f32 = f32 if isinstance(f32, tuple) else (f32,)
-                digest = hashlib.sha1(b"".join(
-                    o.cpu().numpy().tobytes() for o in f32)).hexdigest()[:12]
+                digest = _digest(fn(*args))
                 for _ in range(3):
                     us32, n32, _ = device_us(lambda: fn(*args), parts)
                     if n32:
@@ -407,11 +427,12 @@ def forward16(t, tree: str, card: str) -> None:
                 if ratio > 1.0 or not same:
                     raise AssertionError(line)
                 key = op.split()[0]
-                if op != "K2 with c":
+                if not op.endswith("with c"):
                     per.setdefault((bs, key), 0.0)
                     per[(bs, key)] += FWD_PER_SITE[key] * us
     for bs in (1, 4, 8):
-        print(f"bf16 forward bs={bs}: K2 {per[(bs, 'K2')] / 1e3:.4f} ms, K3 "
+        print(f"bf16 forward bs={bs}: K1 {per[(bs, 'K1')] / 1e3:.4f} ms, "
+              f"K2 {per[(bs, 'K2')] / 1e3:.4f} ms, K3 "
               f"{per[(bs, 'K3')] / 1e3:.4f} ms of device a forward "
               f"(conv_transpose1d {per[(bs, 'library')] / 1e3:.4f}); tree "
               f"{tree}; {card}")
@@ -571,8 +592,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="with --packed: K5-wgrad at other geometries")
     ap.add_argument("--fwd16", action="store_true",
-                    help="K2 and K3 forward in bf16 at the six forward "
-                         "sites, and their float32 kernels")
+                    help="K1, K2 and K3 forward in bf16 at the six "
+                         "forward sites, and their float32 kernels")
     ap.add_argument("--bf16", action="store_true",
                     help="the SRU backward on bf16 inputs; with --packed: "
                          "K8 and K9 in bf16, and K6 bf16 against baddbmm")
