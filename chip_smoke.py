@@ -4098,7 +4098,7 @@ def packed_bf16_train_launches(conf) -> dict:
 # the device kernels of the two bf16 train steps whose share phase 15
 # prints, as the profiler names them
 BF16_UNI_GROUPS = {
-    "K4 bf16 forward": ("sru_rec_fwd_kernel<__nv_bfloat16>",),
+    "K4 bf16 forward": ("sru_rec_fwd16_kernel",),
     "K4 bf16 backward": ("sru_scan_bwd_kernel<14>",),
 }
 BF16_PACKED_TRAIN_GROUPS = {
@@ -4110,7 +4110,7 @@ BF16_PACKED_TRAIN_GROUPS = {
     "K8 bf16": PACKED_BF16_KERNELS["spatial_down_packed_bf16"][1],
     "K9 bf16": PACKED_BF16_KERNELS["spatial_up_packed_bf16"][1],
     "K5-wgrad bf16": ("dw_wgrad_kernel<4, 4, __nv_bfloat16>",),
-    "pw-wgrad bf16": ("pw_wgrad_bf16_kernel",),
+    "pw-wgrad bf16": ("pw_wgrad16_kernel",),
     "wgrad sums": ("sum_partials_kernel",),
 }
 
@@ -4141,9 +4141,11 @@ def _hold_bf16(name, tag, got, plain, f32, scale=None, cos_only=False):
 
 def check_phase15_kernels(conf, geo, rng) -> dict:
     """Phase 15 (a): K4 forward and backward in bf16 at the unidirectional
-    model's sites of a bs-1 and a bs-4 step (B 125 at the bs-1 freq site,
-    odd); K5-wgrad and pw-wgrad (K6's and K7's dW) on bf16 operands at the
-    packed bs-4 step's sites; each packed dx in bf16 (K5 on the flipped
+    model's sites at bs 1, 4 and 8 (B 125 at the bs-1 freq site, odd),
+    the forward also at H 48 and 80 and reversed; K5-wgrad at the packed
+    bs-4 step's sites and pw-wgrad (K6's and K7's dW) on bf16 operands at
+    the packed bs-1, bs-4 and bs-8 sites, beside the library call's device
+    time (``_library_device_us``); each packed dx in bf16 (K5 on the flipped
     taps, K6's through K7 and K7's through K6 on w^T, K8's through K9 and
     K9's through K8 on the transposed maps) there. Each is held against
     its plain bf16 version and the float32 kernel on the widened values
@@ -4188,7 +4190,7 @@ def check_phase15_kernels(conf, geo, rng) -> dict:
     # a repeat, K4_PER_SITE launches a forward (and a step's backward)
     per_site = REPEATS * geo["layers"]
     vb = torch.cat([t((2, H), math.sqrt(1.0 / H)), t((2, H), 0.1)])
-    for bs in (TRAIN_BATCH, 1):
+    for bs in (TRAIN_BATCH, 1, 8):
         for site in ("freq", "time"):
             length, per_item = geo[site]
             B = bs * per_item
@@ -4264,6 +4266,25 @@ def check_phase15_kernels(conf, geo, rng) -> dict:
                 record("sru_recurrence_bwd_bf16", per_site, ms, plain_ms,
                        b_ms, b_by, f32_ms, dev_ms, err, None, f32_dev_ms)
 
+    # K4's bf16 forward at the wide phase's widths and reversed (the
+    # width-2H route's second direction), bs-1 freq site: h and c
+    length, per_item = geo["freq"]
+    for hw, reverse in ((48, False), (80, False), (H, True), (80, True)):
+        tag = f"H={hw} reverse={reverse} L={length} B={per_item}"
+        u, x = t((length, 3 * hw, per_item)), t((length, hw, per_item))
+        vbw = torch.cat([t((2, hw), math.sqrt(1.0 / hw)), t((2, hw), 0.1)])
+        fwd = lambda: K4._k4_forward(u, x, vbw, reverse, True)  # noqa: E731
+        got, again = fwd(), fwd()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4 bf16 forward {tag}: two calls differ")
+        want = K4.sru_recurrence_plain(u, x, vbw, reverse, with_c=True)
+        f32 = K4._k4_forward(u.float(), x.float(), vbw.float(), reverse,
+                             True)
+        for what, g, w, f in zip("hc", got, want, f32):
+            _hold_bf16("sru_recurrence_bf16", f"{tag} {what}", g, w, f)
+        print(f"bf16 kernel sru_recurrence_bf16 {tag}: device ms a call="
+              f"{_device_ms_a_call(fwd):.5f}; two calls bit-identical")
+
     # the packed bs-4 step's sites
     g = packed_geometry(conf)
     T, Fq, C, Cb, k = (g[n] for n in ("T", "F", "C", "Cb", "k"))
@@ -4275,9 +4296,8 @@ def check_phase15_kernels(conf, geo, rng) -> dict:
     t_conv, f_conv = P.dw_geometry(T, Fq, k, k, pre, pre)
     xp, g_same = t((bs, T, Fq * C)), t((bs, T, Fq * C))
     g_pre = t((bs, t_conv, f_conv * C))
-    x4, gp = t((bs, Cb, T, Fq)), t((bs, T, Fq * C))   # K6's dW
-    xq, g4 = t((bs, T, Fq * C)), t((bs, Cb, T, Fq))   # K7's dW
-    n_x, n_s, m = bs * T * Fq * C, bs * t_conv * f_conv * C, bs * T * Fq
+    gp, g4 = t((bs, T, Fq * C)), t((bs, Cb, T, Fq))  # K6's, K7's dx
+    n_x, n_s = bs * T * Fq * C, bs * t_conv * f_conv * C
 
     def cl(v, t_len, f_len):  # a packed map as a channels-last (B, C, T, F)
         return v.view(bs, t_len, f_len, C).permute(0, 3, 1, 2)
@@ -4289,8 +4309,22 @@ def check_phase15_kernels(conf, geo, rng) -> dict:
         return lambda: torch.nn.grad.conv2d_weight(
             padded[pads], (C, 1, k, k), cl(gg, t_len, f_len), groups=C)
 
-    pw_ops = 2 * m * Cb * C
-    pw_bytes = 2 * m * (Cb + C) + 4 * Cb * C
+    def pw_cases(bs_pw):
+        """pw-wgrad's two sites at batch bs_pw, as wcases' entries."""
+        m_pw = bs_pw * T * Fq
+        ops, nb = 2 * m_pw * Cb * C, 2 * m_pw * (Cb + C) + 4 * Cb * C
+        a6, g6 = t((bs_pw, Cb, T, Fq)), t((bs_pw, T, Fq * C))
+        a7, g7 = t((bs_pw, T, Fq * C)), t((bs_pw, Cb, T, Fq))
+        return [
+            ("pw_packed_wgrad_bf16", f"K6 dW bs={bs_pw}", r, (a6, g6),
+             P.pw_packed_wgrad, P.pw_packed_wgrad_plain, nb, ops, ops,
+             lambda: torch.einsum("bitf,btfo->io", a6,
+                                  g6.view(bs_pw, T, Fq, C))),
+            ("pw_packed_wgrad_bf16", f"K7 dW bs={bs_pw}", r, (a7, g7),
+             P.pw_packed_wgrad, P.pw_packed_wgrad_plain, nb, ops, ops,
+             lambda: torch.einsum("btfi,botf->io",
+                                  a7.view(bs_pw, T, Fq, C), g7))]
+
     # (kernel, site, launches a step, operands, call, plain call, bytes,
     #  SIMT flops, tensor-core flops, library call)
     wcases = [
@@ -4307,16 +4341,11 @@ def check_phase15_kernels(conf, geo, rng) -> dict:
              a.float(), b.float(), Fq, C, (k, k), pre, pre),
          2 * (n_x + n_s) + 4 * k * k * C, 2 * k * k * n_s, 0,
          dw_lib(pre, g_pre, t_conv, f_conv)),
-        ("pw_packed_wgrad_bf16", "K6 dW", r, (x4, gp), P.pw_packed_wgrad,
-         P.pw_packed_wgrad_plain, pw_bytes, pw_ops, pw_ops,
-         lambda: torch.einsum("bitf,btfo->io", x4, gp.view(bs, T, Fq, C))),
-        ("pw_packed_wgrad_bf16", "K7 dW", r, (xq, g4), P.pw_packed_wgrad,
-         P.pw_packed_wgrad_plain, pw_bytes, pw_ops, pw_ops,
-         lambda: torch.einsum("btfi,botf->io", xq.view(bs, T, Fq, C), g4)),
+        *pw_cases(bs), *pw_cases(1), *pw_cases(8),
     ]
     for name, site, n, ops_in, kern, plain, nbytes, nops, tc_ops, lib in \
             wcases:
-        tag = f"bs={bs} site={site}"
+        tag = f"bs={bs} site={site}" if "bs=" not in site else site
         got, again = kern(*ops_in), kern(*ops_in)
         want = plain(*ops_in)
         f32 = kern(*(a.float() for a in ops_in))
@@ -4341,13 +4370,16 @@ def check_phase15_kernels(conf, geo, rng) -> dict:
         dev_ms = _device_ms_a_call(lambda: kern(*ops_in))
         wide = tuple(a.float() for a in ops_in)
         f32_dev_ms = _device_ms_a_call(lambda: kern(*wide))
+        lib_us, lib_how = _library_device_us(lib)
         print(f"bf16 kernel {name} {tag}: ms={ms:.5f} device ms a call="
               f"{dev_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) share of bound="
-              f"{b_ms / ms:.3f} plain_ms={plain_ms:.5f} float32 kernel ms="
-              f"{f32_ms:.5f} (device {f32_dev_ms:.5f}) library_ms="
-              f"{lib_ms:.5f}")
-        record(name, n, ms, plain_ms, b_ms, b_by, f32_ms, dev_ms, err,
-               lib_ms, f32_dev_ms)
+              f"{b_ms / ms:.3f} (device {b_ms / dev_ms:.3f}) plain_ms="
+              f"{plain_ms:.5f} float32 kernel ms={f32_ms:.5f} (device "
+              f"{f32_dev_ms:.5f}) library_ms={lib_ms:.5f} (device "
+              f"{lib_us / 1e3:.5f}, {lib_how})")
+        if "bs=" not in site or site.endswith(f"bs={bs}"):  # the bs-4 step
+            record(name, n, ms, plain_ms, b_ms, b_by, f32_ms, dev_ms, err,
+                   lib_ms, f32_dev_ms)
 
     # every packed dx in bf16, through the bf16 forward entries
     w_dw = t((k, k, C), 0.25)

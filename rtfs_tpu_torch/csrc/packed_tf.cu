@@ -196,8 +196,7 @@
 //
 // pw-wgrad  pw_packed_wgrad     replaces _make_pw_wgrad_kernel
 //     (pallas_call in _pw_wgrad_impl; pw_packed_wgrad_bf16 on bf16 a and
-//     g, pw_wgrad_bf16_kernel, one bf16 m16n8k16 a fragment pair on the
-//     float32 kernel's tiles and stages, below):
+//     g, pw_wgrad16_kernel, a design of its own, below):
 //     dW (Ca, Cb) = sum_p a[p,:]^T g[p,:]
 //     over the B*T*F positions, one side channel-planar (B, C, M) and the
 //     other channel-innermost (B, M, C): K6's dW reads the rank-4 x and the
@@ -235,6 +234,7 @@
 //     the 64-channel side read once per 64 rows of the other, plain loads,
 //     no overlap) took ~280 us a bs-4 launch, this one ~115.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -318,13 +318,6 @@ constexpr int kPwThreads = 2 * kPwRows;
 constexpr int kPwPS = kPwK + 4;
 constexpr int kPwQS = kPwCols + 8;
 constexpr int kPwOS = kPwCols + 2;
-// pw-wgrad in bf16 storage: kPw's tiles, stages and warps; staged planar
-// rows of kPw16PS bf16 (a row's kPwK positions from the 16-byte block
-// that holds its first, 8 blocks + 1; 144 bytes, 4 mod 32 words) and
-// packed positions of kPw16QS bf16 (144 bytes, 4 mod 32 words: the 8 g x
-// 4 q lanes of a fragment read hit distinct words or share one)
-constexpr int kPw16PS = kPwK + 8;
-constexpr int kPw16QS = kPwCols + 8;
 // K6 and K7 in bf16 storage (ops/packed_tf.py mirrors them): a tile of
 // kP16M positions x kP16N channels, kP16Threads threads as 4 (positions)
 // x 2 (channels) warps of 32 x 32; kP16K k a stage, two stages in shared
@@ -2370,106 +2363,186 @@ pw_wgrad_kernel(const float* __restrict__ p, const float* __restrict__ q,
   pw_wgrad_store(acc, o_s, partial, Cp, Cq, cp0, cq0, transposed);
 }
 
-// pw-wgrad's shared bytes in bf16 storage: the ring of kPwStages stages
-// of kPwRows planar rows (kPw16PS bf16) and kPwK packed positions
-// (kPw16QS bf16), or the float32 output tile in its place
-__host__ __device__ __forceinline__ int pw_wgrad_smem_bytes_bf16() {
-  const int ring = 2 * kPwStages * (kPwRows * kPw16PS + kPwK * kPw16QS);
-  const int tile = 4 * kPwRows * kPwOS;
+// pw-wgrad on bf16 storage (pw_wgrad16_kernel): p and q bf16, dW float32
+// (JAX's wgrad kernel writes a float32 dW from bf16 operands), the
+// product one bf16 mma.sync m16n8k16 a fragment pair (the products of two
+// bf16 values are exact in float32).
+//
+// What bounds it on the H100 (PERF.md; tools/phase_split.py --pw16 splits
+// a launch of the first design): bytes, 2 (Cp + Cq) bytes a position for
+// 2 Cp Cq flops (~26 flops a byte at 256 x 64 against ~295 for the bf16
+// tensor cores). The first bf16 kernel ran the float32 kernel's 128 x 64
+// tiles (so the 64-channel side was read twice), built every fragment
+// register from two 2-byte shared loads and a pack (a planar row staged
+// at its own shift mod 8), and copied each planar row's two end blocks
+// value by value. The design:
+//   - a block owns all kPw16Rows x kPw16Cols of dW (at the presets' 256 x
+//     64 the whole of it), so each side is read once; 8 warps, warp w the
+//     32 planar channels w + 8 i of the tile against its 64 packed
+//     channels: 16 m16n8 sums a lane, a float32 sum beside each (128
+//     registers);
+//   - a planar row is staged from the 16-byte boundary at or below its
+//     window's first position, in whole 16-byte copies: the positions of
+//     channel c's row start at offset d_c mod 8 in their blocks (M = 251
+//     x 129 is odd), and channels 8 apart share d (8 M is a multiple of
+//     8), so the block stages its channels grouped by c mod 8 (staged row
+//     32 (c % 8) + c / 8: warp w's two m16 tiles one class) and each
+//     class covers its own window of positions, shifted down by d: chunk
+//     x's positions for class d are [x L - d, (x + 1) L - d) (the last
+//     chunk's run to M, one stage more where d needs it), which tile a
+//     batch row's positions once per class. The A fragments then come by
+//     ldmatrix from aligned rows;
+//   - the packed side is shifted instead: a stage holds kPw16K + 8
+//     packed positions, from 8 before the stage's first (a halo), each a
+//     128-byte row (64 channels), so an ldmatrix .trans can start at any
+//     position: warp w reads its B fragments from the stage's row 8 - d_w
+//     on. Positions outside [0, M) are zero on the packed side, so a
+//     planar value read there (the row's neighbour, or the zero fill past
+//     the array's end) adds nothing;
+//   - stages of kPw16K positions stream through a cp.async ring of
+//     kPw16Stages; the tensor core sums a stage (4 k16 steps, its first
+//     product into a zeroed accumulator) and the stage's sum is added to
+//     the float32 sum on the SIMT units: the tensor core's sum rounds
+//     toward zero and drifts over a long K (the card test
+//     test_bf16_pw_wgrad_does_not_drift_on_positive_sums);
+//   - blocks are grouped in clusters of kPw16Cluster consecutive chunks;
+//     after its last stage each block puts its tile in its shared memory
+//     and rank r of the cluster adds the kPw16Cluster tiles' r-th share
+//     of rows in rank order (distributed shared memory, a row at a time)
+//     into one partial, in the partial's layout (dW's, or its transpose
+//     for K7's, turned round in a staging tile of the block's own: reading
+//     the remote tiles a column at a time made K7's dW take half as long
+//     again as K6's), so a launch writes 1 / kPw16Cluster of the partials
+//     a block each would; the fixed-order sum_partials_kernel adds the
+//     partials, each written once, so two calls give the same bits. Clusters
+//     of 2 beat 1, 4 and 8 (tools/kernel_variants.py pw16): the ~128
+//     blocks of a launch, one an SM and a cluster's in one GPC, did not
+//     all fit in one wave in clusters of 4 or 8.
+//
+// Staged planar rows of kPw16PS bf16 and packed positions of kPw16QS (144
+// bytes, 36 words: the 8 rows of an ldmatrix matrix hit 8 distinct
+// 4-bank groups, and a quarter warp's 16-byte copies into one row or
+// consecutive rows likewise); the output tile's rows kPw16OS floats (an
+// odd stride: a lane's D values of one register land 2 to a bank), and
+// the transpose's staging rows kPw16Rows / kPw16Cluster + 1 (a warp's
+// column writes hit 32 banks).
+constexpr int kPw16Rows = 256;
+constexpr int kPw16Cols = 64;
+constexpr int kPw16K = 64;
+constexpr int kPw16Stages = 4;
+constexpr int kPw16Cluster = 2;
+constexpr int kPw16Threads = 256;
+constexpr int kPw16PS = kPw16K + 8;
+constexpr int kPw16QS = kPw16Cols + 8;
+constexpr int kPw16OS = kPw16Cols + 1;
+
+// pw-wgrad's shared bytes in bf16 storage: the ring of kPw16Stages stages
+// of kPw16Rows planar rows and kPw16K + 8 packed positions, or in its
+// place the float32 output tile and the staging tile of a rank's
+// transposed share (ops/packed_tf.pw_wgrad16_smem)
+__host__ __device__ __forceinline__ int pw_wgrad16_smem_bytes() {
+  const int ring =
+      2 * kPw16Stages * (kPw16Rows * kPw16PS + (kPw16K + 8) * kPw16QS);
+  const int tile = 4 * (kPw16Rows * kPw16OS +
+                       kPw16Cols * (kPw16Rows / kPw16Cluster + 1));
   return ring > tile ? ring : tile;
 }
 
-// pw-wgrad on bf16 storage: p and q bf16, partial float32; the grid,
-// blocks, chunks, warps and epilogue of pw_wgrad_kernel (above). JAX's
-// dot of bf16 operands with a float32 result is one bf16 mma.sync
-// m16n8k16 a fragment pair (the products of two bf16 values are exact in
-// float32), summed on the tensor core over one stage (kPwK = 64
-// positions, 4 k16 steps) and added to the float32 sum on the SIMT units
-// every stage, as the float32 kernel adds its big products: the tensor
-// core's sum rounds toward zero and drifts over a long K.
+// grid (round_up(chunks, kPw16Cluster), tiles_p * tiles_q, B), clusters
+// of kPw16Cluster blocks along x, kPw16Threads threads, one block an SM.
+// p (B, Cp, M) channel-planar, 16-byte aligned; q (B, M, Cq)
+// channel-innermost; vec: Cq % 8 == 0 and q 16-byte aligned (else the
+// packed side value by value). Block (x, y, b) sums chunk x of batch row
+// b (positions [x L - d, (x + 1) L - d) for a planar channel of class d,
+// above; L a multiple of kPw16K; none for x past the last chunk) into
+// tile y = (planar tile, packed tile); cluster (x / kPw16Cluster, y, b)
+// writes partial row b ceil(chunks / kPw16Cluster) + x / kPw16Cluster of
+// (B ceil(chunks / kPw16Cluster), Cp * Cq), dW (Cp, Cq) or its transpose
+// (Cq, Cp) where transposed (K7's dW: Ca is the packed side).
 //
-// A stage holds the raw bf16 values. A planar row's kPwK positions are
-// copied from the 16-byte block (8 values) that holds its first, at
-// column sh (its offset in that block: the rows of M = 251 * 129
-// positions start at every offset), whole blocks as 16-byte cp.async
-// copies and the blocks at the window's two ends value by value with
-// plain loads and stores (cp.async has no 2-byte copy), positions past
-// the chunk as zeros; thread r < kPwRows copies the channel whose row is
-// pw_staged_row(r), as the float32 kernel stages them. The packed
-// positions' 64 channels go as 16-byte copies where vec (Cq % 8 == 0, q
-// 16-byte aligned), else value by value. An A fragment register pairs two
-// neighbouring positions of one channel (offset sh + k, sh its row's: rows
-// g and g + 8 of a tile are channels 32 apart, whose rows share sh), a B
-// register two neighbouring positions of one packed channel (kPw16QS
-// apart); each is two 2-byte shared loads and a pack.
-__global__ void __launch_bounds__(kPwThreads, 1)
-pw_wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ p,
-                     const __nv_bfloat16* __restrict__ q,
-                     float* __restrict__ partial, int M, int Cp, int Cq,
-                     int L, int transposed, int vec) {
-  constexpr int kPStage = kPwRows * kPw16PS;
-  constexpr int kStage = kPStage + kPwK * kPw16QS;
-  constexpr int kBlocks = kPwK / 8 + 1;  // 16-byte blocks a planar row
-  constexpr int kWarpsM = kPwRows / 32;
-  static_assert(kPwK % 16 == 0 && kPwRows % 64 == 0 && kPwCols == 64,
-                "the staged rows and the warp grid");
+// Stage s of a chunk (p0 = x L + s kPw16K): thread t copies the 16-byte
+// block t % 8 of the planar rows of channels i + 8 (t / 8), i < 8 (staged
+// rows 32 i + t / 8), from element (b Cp + c) M + p0 - d_i of p on (zero
+// past p's end; channels past Cp not copied: they reach only outputs
+// that are not written), and the packed positions p0 - 8 .. p0 + kPw16K
+// - 1 as 16-byte chunks of 8 channels (zero outside [0, M) or past Cq).
+// Iteration s waits for stage s, issues stage s + kPw16Stages - 1 into
+// the slot iteration s - 1 read, then multiplies stage s: warp w's A
+// fragments from its staged rows 32 w .. 32 w + 31 at column kk, its B
+// fragments from packed row 8 - d_w + kk on.
+__global__ void __cluster_dims__(kPw16Cluster, 1, 1)
+    __launch_bounds__(kPw16Threads, 1)
+pw_wgrad16_kernel(const __nv_bfloat16* __restrict__ p,
+                  const __nv_bfloat16* __restrict__ q,
+                  float* __restrict__ partial, int M, int Cp, int Cq, int L,
+                  int chunks, int transposed, int vec) {
+  constexpr int kPStage = kPw16Rows * kPw16PS;
+  constexpr int kQRows = kPw16K + 8;
+  constexpr int kStage = kPStage + kQRows * kPw16QS;
+  constexpr int kBlocks = kPw16K / 8;  // 16-byte blocks a staged row
+  constexpr int kRowsPass = kPw16Threads / kBlocks;
+  static_assert(kPw16Rows == 256 && kPw16Cols == 64 && kPw16K % 16 == 0 &&
+                    kPw16Threads == 32 * 8,
+                "warp w: the 32 channels of class w against 64 packed");
+  static_assert(kPw16Threads % kBlocks == 0 && kPw16Rows % kRowsPass == 0,
+                "whole passes of the block's threads over the staged rows");
   extern __shared__ float4 smem4[];
   unsigned short* ring = reinterpret_cast<unsigned short*>(smem4);
   const unsigned short* pv = reinterpret_cast<const unsigned short*>(p);
   const unsigned short* qv = reinterpret_cast<const unsigned short*>(q);
   const int tid = threadIdx.x, b = blockIdx.z;
-  const int tiles_q = (Cq + kPwCols - 1) / kPwCols;
-  const int cp0 = (int)blockIdx.y / tiles_q * kPwRows;
-  const int cq0 = (int)blockIdx.y % tiles_q * kPwCols;
-  const int p_begin = (int)blockIdx.x * L;
-  const int p_end = min(M, p_begin + L);
-  const int ns = (p_end - p_begin + kPwK - 1) / kPwK;
-  // the offset of channel c's row in its 16-byte blocks: p's bf16 index
-  // mod 8 with the row's start and the chunk's first position (L and kPwK
-  // are multiples of 8, so every stage's is the same)
-  const uint32_t p2 = (uint32_t)(reinterpret_cast<uintptr_t>(p) >> 1);
-  auto shift = [&](int c) {
-    return (int)((p2 + ((uint32_t)b * (uint32_t)Cp + (uint32_t)(cp0 + c)) *
-                           (uint32_t)M +
-                  (uint32_t)p_begin) &
+  const int tiles_q = (Cq + kPw16Cols - 1) / kPw16Cols;
+  const int cp0 = (int)blockIdx.y / tiles_q * kPw16Rows;
+  const int cq0 = (int)blockIdx.y % tiles_q * kPw16Cols;
+  const int x = blockIdx.x;
+  const long long xl = (long long)x * L;
+  // stages: L / kPw16K, the last chunk's to M for every class, none past
+  const int ns = x < chunks - 1 ? L / kPw16K
+                 : x == chunks - 1
+                     ? (int)((M - xl + 7 + kPw16K - 1) / kPw16K)
+                     : 0;
+  // the class of channel cp0 + i (i < 8): the offset of its chunk's first
+  // position in its 16-byte block (p is aligned)
+  auto shift = [&](int i) {
+    return (int)(((uint32_t)((long long)b * Cp + cp0 + i) * (uint32_t)M +
+                  (uint32_t)xl) &
                  7u);
   };
-
-  // the thread's planar row: channel cp0 + tid, for tid < kPwRows
-  const bool copies = tid < kPwRows && cp0 + tid < Cp;
-  const int c_sh = shift(tid);
-  const unsigned short* c_row = pv + ((long long)b * Cp + cp0 + tid) * M;
+  int d_cls[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d_cls[i] = shift(i);
+  // the thread's planar copies: block jb of staged rows j kRowsPass + rp
+  // (one pass of the block's threads a j), staged row sr holding channel
+  // sr / 32 + 8 (sr % 32) of the tile, class sr / 32
+  const int jb = tid % kBlocks, rp = tid / kBlocks;
+  const long long n_p = (long long)gridDim.z * Cp * M;  // p's values
+  const int rows = Cp - cp0;  // valid planar channels of the tile
   auto load_stage = [&](int s, int slot) {
     if (s < ns) {
-      const int p0 = p_begin + s * kPwK, avail = p_end - p0;
       unsigned short* ps = ring + slot * kStage;
       unsigned short* qs = ps + kPStage;
-      if (copies) {
-        unsigned short* dst = ps + pw_staged_row(tid) * kPw16PS;
-        const unsigned short* src = c_row + p0 - c_sh;  // block j: + 8 j
+      const long long p0s = xl + (long long)s * kPw16K + 8 * jb;
 #pragma unroll
-        for (int j = 0; j < kBlocks; ++j) {
-          const int lo = 8 * j - c_sh;  // its first position - p0
-          if (lo + 8 <= 0 || lo >= kPwK) continue;
-          if (lo >= 0 && lo + 8 <= kPwK && lo + 8 <= avail) {
-            hk::cp_async16(dst + 8 * j, src + 8 * j, true);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              if (lo + e < 0 || lo + e >= kPwK) continue;
-              dst[8 * j + e] =
-                  lo + e < avail ? src[8 * j + e] : (unsigned short)0;
-            }
-          }
+      for (int j = 0; j < kPw16Rows / kRowsPass; ++j) {
+        const int sr = j * kRowsPass + rp, cls = sr >> 5;
+        const int ch = cls + 8 * (sr & 31);
+        if (ch < rows) {
+          const long long e =
+              ((long long)b * Cp + cp0 + ch) * M + p0s - d_cls[cls];
+          const long long left = n_p - e;
+          const int bytes = left >= 8 ? 16 : left > 0 ? 2 * (int)left : 0;
+          hk::cp_async16_n(ps + sr * kPw16PS + 8 * jb, bytes ? pv + e : pv,
+                           bytes);
         }
       }
-      // the packed positions p0 .., 16-byte chunks of 8 channels
-      for (int e = tid; e < kPwK * kPwCols / 8; e += kPwThreads) {
-        const int pp = e / (kPwCols / 8), c = 8 * (e % (kPwCols / 8));
+      const long long p0 = xl + (long long)s * kPw16K - 8;
+      for (int e = tid; e < kQRows * kPw16Cols / 8; e += kPw16Threads) {
+        const int pp = e >> 3, c = 8 * (e & 7);
+        const long long pos = p0 + pp;
         unsigned short* d = qs + pp * kPw16QS + c;
-        const bool in = pp < avail;
+        const bool in = pos >= 0 && pos < M;
         const unsigned short* src =
-            qv + ((long long)b * M + p0 + pp) * Cq + cq0 + c;
+            qv + ((long long)b * M + pos) * Cq + cq0 + c;
         if (vec) {
           const bool ok = in && cq0 + c < Cq;
           hk::cp_async16(d, ok ? src : qv, ok);
@@ -2482,78 +2555,126 @@ pw_wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ p,
     }
     hk::cp_async_commit();
   };
-  for (int s = 0; s < kPwStages - 1; ++s) load_stage(s, s);
-
-  // the lane's A elements: staged rows 16 t + g (+ 8), columns sh + 2 q
-  // (+ 1, + 8, + 9) of its tile's channels; B elements: packed positions
-  // 2 q (+ 1, + 8, + 9), channel 32 wn + 8 nj + g
-  const int warp = tid >> 5, wm = warp % kWarpsM, wn = warp / kWarpsM;
-  const int g = hk::lane_g(), qq = hk::lane_q();
-  int a_off[2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int t = 2 * wm + mi;
-    a_off[mi] = (16 * t + g) * kPw16PS + shift(64 * (t >> 2) + 4 * g +
-                                                (t & 3)) + 2 * qq;
-  }
-  const int b_off = 2 * qq * kPw16QS + 32 * wn + g;
-  // big: the stage's sums on the tensor core; acc: the float32 sum
-  float big[2][4][4], acc[2][4][4];
+  for (int s = 0; s < kPw16Stages - 1; ++s) load_stage(s, s);
+
+  // warp w: A from staged rows 32 w + 16 mi + (lane's row), B from packed
+  // row 8 - d_w + (lane's row); the lane's row and column in an x4
+  // ldmatrix: matrix l / 8's row l % 8 at rows + 8 ((l / 8) & 1), columns
+  // + 8 (l / 16)
+  const int lane = tid & 31, w = tid >> 5;
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  const unsigned a_at =
+      hk::smem_u32(ring + (32 * w + lr) * kPw16PS + lc);
+  const unsigned b_at =
+      hk::smem_u32(ring + kPStage + (8 - d_cls[w] + lr) * kPw16QS + lc);
+  float big[2][8][4], acc[2][8][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
+    for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) big[mi][nj][v] = acc[mi][nj][v] = 0.f;
+      for (int v = 0; v < 4; ++v) acc[mi][nj][v] = 0.f;
 
-  int slot = 0, ld_slot = kPwStages - 1, since = 0;
+  int slot = 0, ld_slot = kPw16Stages - 1;
   for (int s = 0; s < ns; ++s) {
-    hk::cp_async_wait<kPwStages - 2>();
+    hk::cp_async_wait<kPw16Stages - 2>();
     __syncthreads();  // stage s is in; every warp is done with stage s - 1
-    load_stage(s + kPwStages - 1, ld_slot);
-    if (++ld_slot == kPwStages) ld_slot = 0;
-    const unsigned short* ps = ring + slot * kStage;
-    const unsigned short* qs = ps + kPStage;
+    load_stage(s + kPw16Stages - 1, ld_slot);
+    if (++ld_slot == kPw16Stages) ld_slot = 0;
+    const unsigned st = 2u * slot * kStage;  // the slot's byte offset
 #pragma unroll
-    for (int kk = 0; kk < kPwK; kk += 16) {
-      uint32_t a[2][4], bf[4][2];
+    for (int kk = 0; kk < kPw16K; kk += 16) {
+      uint32_t a[2][4], bq[8][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const unsigned short* pa = ps + a_off[mi] + kk;
-        a[mi][0] = hk::pack_bf16(pa[0], pa[1]);
-        a[mi][1] = hk::pack_bf16(pa[8 * kPw16PS], pa[8 * kPw16PS + 1]);
-        a[mi][2] = hk::pack_bf16(pa[8], pa[9]);
-        a[mi][3] = hk::pack_bf16(pa[8 * kPw16PS + 8], pa[8 * kPw16PS + 9]);
-      }
+      for (int mi = 0; mi < 2; ++mi)
+        hk::ldsm_x4_at(a[mi], a_at + st + 2 * (16 * mi * kPw16PS + kk));
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const unsigned short* pb = qs + b_off + 8 * nj + kk * kPw16QS;
-        bf[nj][0] = hk::pack_bf16(pb[0], pb[kPw16QS]);
-        bf[nj][1] = hk::pack_bf16(pb[8 * kPw16QS], pb[9 * kPw16QS]);
+      for (int np = 0; np < 4; ++np) {
+        uint32_t r[4];
+        hk::ldsm_x4_trans_at(r, b_at + st + 2 * (kk * kPw16QS + 16 * np));
+        bq[2 * np][0] = r[0];
+        bq[2 * np][1] = r[1];
+        bq[2 * np + 1][0] = r[2];
+        bq[2 * np + 1][1] = r[3];
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          hk::mma_bf16(big[mi][nj], a[mi], bf[nj]);
+        for (int nj = 0; nj < 8; ++nj) {
+          if (kk == 0)
+            hk::mma_bf16_zero(big[mi][nj], a[mi], bq[nj]);
+          else
+            hk::mma_bf16(big[mi][nj], a[mi], bq[nj]);
+        }
     }
-    if (++since == kPwFlush || s == ns - 1) {
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
+      for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            acc[mi][nj][v] += big[mi][nj][v];
-            big[mi][nj][v] = 0.f;
-          }
-      since = 0;
-    }
-    if (++slot == kPwStages) slot = 0;
+        for (int v = 0; v < 4; ++v) acc[mi][nj][v] += big[mi][nj][v];
+    if (++slot == kPw16Stages) slot = 0;
   }
   hk::cp_async_wait_all();
-  pw_wgrad_store(acc, reinterpret_cast<float*>(smem4), partial, Cp, Cq, cp0,
-                 cq0, transposed);
+  __syncthreads();  // every warp is done with the ring
+
+  // the tile to shared memory, a planar channel a row: D c0 (g, 2q), c1
+  // (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1) of warp w's m16 tile
+  // mi, n8 tile nj are planar channel w + 8 (16 mi + g) (+ 64), packed
+  // channel 8 nj + 2 q (+ 1)
+  float* o_s = reinterpret_cast<float*>(smem4);
+  const int g = hk::lane_g(), qq = hk::lane_q();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+      float* o = o_s + (w + 128 * mi + 8 * g) * kPw16OS + 8 * nj + 2 * qq;
+      o[0] = acc[mi][nj][0];
+      o[1] = acc[mi][nj][1];
+      o[64 * kPw16OS] = acc[mi][nj][2];
+      o[64 * kPw16OS + 1] = acc[mi][nj][3];
+    }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's tile is in its shared memory
+  const int rank = (int)cluster.block_rank();
+  const float* tiles[kPw16Cluster];
+#pragma unroll
+  for (int k = 0; k < kPw16Cluster; ++k)
+    tiles[k] = cluster.map_shared_rank(o_s, k);
+  float* part = partial + ((long long)b * (gridDim.x / kPw16Cluster) +
+                           x / kPw16Cluster) *
+                              ((long long)Cp * Cq);
+  const int cols = min(kPw16Cols, Cq - cq0);
+  // rank r's share: rows r0 .. r0 + kQRowsR - 1 of the tile, read from
+  // the cluster's tiles a row at a time (a warp's reads one 128-byte
+  // row); the transpose goes through a staging tile of this block's own
+  // (columns a row, past o_s) so that its writes are rows of dW^T
+  constexpr int kQRowsR = kPw16Rows / kPw16Cluster;
+  const int r0 = rank * kQRowsR;
+  float* stg = o_s + kPw16Rows * kPw16OS;  // (kPw16Cols, kQRowsR + 1)
+  for (int e = tid; e < kQRowsR * kPw16Cols; e += kPw16Threads) {
+    const int r = e / kPw16Cols, c = e % kPw16Cols;
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPw16Cluster; ++k)
+      v += tiles[k][(r0 + r) * kPw16OS + c];
+    if (transposed)
+      stg[c * (kQRowsR + 1) + r] = v;
+    else if (r0 + r < rows && c < cols)
+      part[(long long)(cp0 + r0 + r) * Cq + cq0 + c] = v;
+  }
+  if (transposed) {
+    __syncthreads();
+    for (int e = tid; e < kQRowsR * kPw16Cols; e += kPw16Threads) {
+      const int c = e / kQRowsR, r = e % kQRowsR;
+      if (r0 + r < rows && c < cols)
+        part[(long long)(cq0 + c) * Cp + cp0 + r0 + r] =
+            stg[c * (kQRowsR + 1) + r];
+    }
+  }
+  cluster.sync();  // no block leaves while its tile is read
 }
 
 // out[e] = sum_p partial[p, e] in a fixed order: thread row y sums the
@@ -3065,30 +3186,34 @@ extern "C" int pw_packed_wgrad(const void* a, const void* g, void* partial,
   return launch_sum(partial, out, n_part, Ca * Cb, stream);
 }
 
-// pw-wgrad on bf16 storage: a and g bf16, partial and out float32 (JAX's
-// wgrad kernel writes a float32 dW from bf16 operands); the arguments, the
-// grid and the partials as pw_packed_wgrad's (pw_wgrad_bf16_kernel)
+// pw-wgrad on bf16 storage (pw_wgrad16_kernel): a and g bf16, the planar
+// one 16-byte aligned, partial and out float32; the arguments as
+// pw_packed_wgrad's, L a multiple of kPw16K and n_part = B
+// ceil(chunks / kPw16Cluster), one partial a cluster
+// (ops/packed_tf.pw_wgrad16_geometry)
 extern "C" int pw_packed_wgrad_bf16(const void* a, const void* g,
                                     void* partial, void* out, int B, int M,
                                     int Ca, int Cb, int a_planar, int L,
                                     int n_part, void* stream) {
-  if (B < 1 || M < 1 || Ca < 1 || Cb < 1 || L < 1 || L % kPwK)
+  if (B < 1 || M < 1 || Ca < 1 || Cb < 1 || L < 1 || L % kPw16K)
     return (int)cudaErrorInvalidValue;
   const long long chunks = ((long long)M + L - 1) / L;
+  const long long groups = (chunks + kPw16Cluster - 1) / kPw16Cluster;
   const int Cp = a_planar ? Ca : Cb, Cq = a_planar ? Cb : Ca;
   const __nv_bfloat16* p = (const __nv_bfloat16*)(a_planar ? a : g);
   const __nv_bfloat16* q = (const __nv_bfloat16*)(a_planar ? g : a);
-  const long long tiles = (long long)((Cp + kPwRows - 1) / kPwRows) *
-                          ((Cq + kPwCols - 1) / kPwCols);
-  if (!grid_ok(tiles, B) || chunks * B != n_part)
+  const long long tiles = (long long)((Cp + kPw16Rows - 1) / kPw16Rows) *
+                          ((Cq + kPw16Cols - 1) / kPw16Cols);
+  if (!grid_ok(tiles, B) || groups * B != n_part || !aligned16(p))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)pw_wgrad_smem_bytes_bf16();
-  cudaError_t e = allow_smem((const void*)pw_wgrad_bf16_kernel, smem);
+  const size_t smem = (size_t)pw_wgrad16_smem_bytes();
+  cudaError_t e = allow_smem((const void*)pw_wgrad16_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int vec = Cq % 8 == 0 && aligned16(q);
-  pw_wgrad_bf16_kernel<<<dim3((unsigned)chunks, (unsigned)tiles, B),
-                         kPwThreads, smem, (cudaStream_t)stream>>>(
-      p, q, (float*)partial, M, Cp, Cq, L, !a_planar, vec);
+  pw_wgrad16_kernel<<<dim3((unsigned)(groups * kPw16Cluster),
+                           (unsigned)tiles, B),
+                      kPw16Threads, smem, (cudaStream_t)stream>>>(
+      p, q, (float*)partial, M, Cp, Cq, L, (int)chunks, !a_planar, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_sum(partial, out, n_part, Ca * Cb, stream);

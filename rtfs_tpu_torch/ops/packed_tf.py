@@ -507,22 +507,75 @@ PW_WGRAD_QS = PW_WGRAD_COLS + 8
 PW_WGRAD_OS = PW_WGRAD_COLS + 2
 
 
-# pw-wgrad's bf16 kernel (``kPw16*`` in csrc/packed_tf.cu): kPw's tiles and
-# stages; a staged planar row of PW_WGRAD16_PS bf16 (its kPwK positions
-# from the 16-byte block that holds the first), packed positions of
-# PW_WGRAD16_QS bf16
-PW_WGRAD16_PS = PW_WGRAD_K + 8
-PW_WGRAD16_QS = PW_WGRAD_COLS + 8
+# pw-wgrad's bf16 kernel (``kPw16*`` in csrc/packed_tf.cu,
+# ``pw_wgrad16_kernel``): a block's tile of dW is PW16_ROWS planar x
+# PW16_COLS packed channels, PW16_THREADS threads (warp w the planar
+# channels of class w), one block an SM; PW16_K positions a stage in a
+# ring of PW16_STAGES, the packed side with 8 positions before the
+# stage's first; clusters of PW16_CLUSTER blocks (chunks) sum their tiles
+# into one partial; staged planar rows of PW16_PS bf16, packed positions
+# of PW16_QS, output tile rows of PW16_OS floats
+PW16_ROWS, PW16_COLS, PW16_K = 256, 64, 64
+PW16_STAGES = 4
+PW16_CLUSTER = 2
+PW16_THREADS = 256
+PW16_PS = PW16_K + 8
+PW16_QS = PW16_COLS + 8
+PW16_OS = PW16_COLS + 1
 
 
 def pw_wgrad16_smem() -> int:
-    """pw-wgrad's bf16 kernel's shared bytes (``pw_wgrad_smem_bytes_bf16``
-    in the source): PW_WGRAD_STAGES stages of PW_WGRAD_ROWS planar rows
-    and PW_WGRAD_K packed positions in bf16, or the float32 output tile in
-    their place."""
-    ring = 2 * PW_WGRAD_STAGES * (PW_WGRAD_ROWS * PW_WGRAD16_PS
-                                  + PW_WGRAD_K * PW_WGRAD16_QS)
-    return max(ring, 4 * PW_WGRAD_ROWS * PW_WGRAD_OS)
+    """pw-wgrad's bf16 kernel's shared bytes (``pw_wgrad16_smem_bytes`` in
+    the source): PW16_STAGES stages of PW16_ROWS planar rows and PW16_K +
+    8 packed positions in bf16, or in their place the float32 output
+    tile and the staging tile of a cluster rank's transposed share."""
+    ring = 2 * PW16_STAGES * (PW16_ROWS * PW16_PS + (PW16_K + 8) * PW16_QS)
+    tile = PW16_ROWS * PW16_OS + PW16_COLS * (PW16_ROWS // PW16_CLUSTER + 1)
+    return max(ring, 4 * tile)
+
+
+@functools.lru_cache(maxsize=None)
+def pw_wgrad16_geometry(b: int, m: int, cp: int, cq: int, k: int = PW16_K,
+                        cluster: int = PW16_CLUSTER) -> dict:
+    """pw-wgrad's launch on bf16 operands, as ``pw_packed_wgrad_bf16``
+    runs it for a planar side of ``cp`` channels and a packed side of
+    ``cq`` over ``b`` batch rows of ``m`` positions: ``tiles`` = ``tiles_p``
+    x ``tiles_q`` tiles of PW16_ROWS x PW16_COLS; each batch row's
+    positions in ``chunks`` chunks of ``chunk`` positions (a multiple of
+    PW16_K; the last ragged), about one wave of one block an SM over a grid
+    of (``gx``, tiles, b), ``gx`` the chunks rounded up to whole clusters
+    of PW16_CLUSTER (the blocks past the last chunk sum nothing), one SM's
+    worth of clusters kept free (a cluster's blocks must share a GPC);
+    ``parts`` = b gx / PW16_CLUSTER partials of dW, one a cluster and
+    tile. ``stages``: an interior chunk's. ``k`` and ``cluster`` are the
+    kernel's constants, other values for tools/kernel_variants.py. Raises
+    ValueError on an empty side."""
+    if min(b, m, cp, cq) < 1:
+        raise ValueError(f"pw_packed_wgrad: B {b}, M {m}, channels {cp} x "
+                         f"{cq}")
+    tiles_p, tiles_q = -(-cp // PW16_ROWS), -(-cq // PW16_COLS)
+    tiles = tiles_p * tiles_q
+    blocks = (kernel_lib.SMS // cluster - 1) * cluster
+    per_row = max(1, blocks // (tiles * b))
+    chunk = -(-(-(-m // per_row)) // k) * k
+    chunks = -(-m // chunk)
+    gx = -(-chunks // cluster) * cluster
+    return {"tiles_p": tiles_p, "tiles_q": tiles_q, "tiles": tiles,
+            "chunk": chunk, "chunks": chunks, "stages": chunk // k,
+            "gx": gx, "grid": (gx, tiles, b), "parts": b * gx // cluster,
+            "threads": PW16_THREADS, "smem": pw_wgrad16_smem()}
+
+
+def pw16_stages(m: int, chunk: int, chunks: int, x: int) -> int:
+    """The stages block x of a batch row runs (``ns`` in
+    ``pw_wgrad16_kernel``): an interior chunk's chunk / PW16_K; the last
+    chunk's up to m for every class (its positions shifted down by up to
+    7); none past the last chunk."""
+    if x < chunks - 1:
+        return chunk // PW16_K
+    if x == chunks - 1:
+        return -(-(m - x * chunk + 7) // PW16_K)
+    return 0
 
 
 def pw_wgrad_smem(rows: int = PW_WGRAD_ROWS, stages: int = PW_WGRAD_STAGES,
@@ -565,14 +618,16 @@ def pw_wgrad_geometry(b: int, m: int, cp: int, cq: int,
 
 
 def pw_wgrad_launch_ints(a, g) -> tuple:
-    """The ints of pw-wgrad's launch on (a, g) as ``pw_packed_wgrad`` takes
-    them: B, M, Ca, Cb, whether a is the planar side, then
-    ``pw_wgrad_geometry``'s chunk and parts."""
+    """The ints of pw-wgrad's launch on (a, g) as ``pw_packed_wgrad`` (on
+    bf16 operands ``pw_packed_wgrad_bf16``) takes them: B, M, Ca, Cb,
+    whether a is the planar side, then ``pw_wgrad_geometry``'s (or
+    ``pw_wgrad16_geometry``'s) chunk and parts."""
     a_planar = a.dim() == 4
     four, packed = (a, g) if a_planar else (g, a)
     b, cp, t, f = four.shape
     cq = packed.shape[2] // f
-    geo = pw_wgrad_geometry(b, t * f, cp, cq)
+    geo = (pw_wgrad16_geometry if a.dtype == torch.bfloat16
+           else pw_wgrad_geometry)(b, t * f, cp, cq)
     ca, cb = (cp, cq) if a_planar else (cq, cp)
     return (b, t * f, ca, cb, int(a_planar), geo["chunk"], geo["parts"])
 
@@ -591,6 +646,9 @@ def pw_packed_wgrad(a, g):
     if a.device.type == "cpu":
         return pw_packed_wgrad_plain(a, g)
     dt = kernel_lib.check_cuda("pw_packed_wgrad", a, g, dtypes=_DTYPES)
+    if dt == torch.bfloat16:  # the planar side's 16-byte copies
+        a, g = (kernel_lib.aligned16(a), g) if a_planar else (
+            a, kernel_lib.aligned16(g))
     ints = pw_wgrad_launch_ints(a, g)
     ca, cb = ints[2:4]
     partial = torch.empty(ints[-1], ca * cb, device=a.device)

@@ -6,7 +6,9 @@ Counterpart of ``rtfs_tpu/ops/sru_pallas.py``, forward and backward:
   precomputed projection u (T, 3H, B) = [x~, f, r] and highway xhw
   (T, H, B); CUDA kernels ``csrc/sru_pallas.cu:sru_recurrence_fwd`` (its
   loads kept FWD_AHEAD steps ahead of the chain through a cp.async ring,
-  blocks from ``k4_fwd_geometry``) and ``..._bwd`` (the adjoint scan of
+  blocks from ``k4_fwd_geometry``; in bf16 ``sru_rec_fwd16_kernel``, a
+  warp's copies a group of REC16_GROUP steps at a time) and
+  ``..._bwd`` (the adjoint scan of
   ``csrc/sru_scan.cuh``, shared with the fused stack's backwards, blocks
   from ``sru_fused.scan_bwd_geometry``).
   ``reverse=True`` walks t = T-1 .. 0 (the kernel's flag), where the JAX
@@ -35,7 +37,9 @@ launch or the call raises.
 K4 also takes bf16 storage, forward and backward (a bf16 model's U takes
 the compute dtype, and the Pallas kernels run in it): u, xhw, vb, h, c and
 the gradients bf16, the arithmetic and the carries float32, only the
-stored values rounded (CUDA entries ``sru_recurrence_{fwd,bwd}_bf16``).
+stored values rounded (CUDA entries ``sru_recurrence_{fwd,bwd}_bf16``;
+the forward asks for 16-byte aligned u and xhw, and the wrapper copies an
+unaligned view).
 d(v, b) is rounded as JAX's backward rounds it: one bf16 partial a batch
 column, those added in float32 and the sum rounded once. u, xhw and vb are
 of one dtype (a mixed call raises on the card).
@@ -57,6 +61,12 @@ from .sru_fused import (_BF16, _grad, _records, _spread_blocks,
 # the loads of its next FWD_AHEAD steps in flight in its own ring
 FWD_THREADS = 128
 FWD_AHEAD = 8
+# the bf16 forward's (``kRec16*``): a warp's ring of REC16_AHEAD + 1 group
+# slots, each REC16_GROUP steps of 4 rows of REC16_SPAN values (the five
+# 16-byte blocks that cover a row's 32)
+REC16_GROUP = 8
+REC16_AHEAD = 3
+REC16_SPAN = 40
 
 
 def sru_recurrence_plain(u, xhw, vb, reverse=False, with_c=False):
@@ -88,7 +98,7 @@ def sru_recurrence_bwd_plain(u, xhw, vb, c, dh, reverse=False):
 
 
 @functools.lru_cache(maxsize=None)
-def k4_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
+def k4_fwd_geometry(t_len: int, hdim: int, bsz: int, elem: int = 4) -> dict:
     """K4 forward's launch geometry, as ``sru_recurrence_fwd`` launches
     it: K1 forward's (``sru_fused.k1_fwd_geometry``) over one direction,
     blocks of ``cols`` columns x ``units`` units from
@@ -96,12 +106,21 @@ def k4_fwd_geometry(t_len: int, hdim: int, bsz: int) -> dict:
     threads at the bs-1 freq site spread over many SMs); each thread walks
     its T steps with the copies of the next FWD_AHEAD steps (u's three gate
     rows and the highway) in flight in its own ring of shared memory
-    (``smem`` bytes a block)."""
-    if min(t_len, hdim, bsz) < 1:
-        raise ValueError(f"sru_recurrence: T {t_len}, H {hdim}, B {bsz}")
+    (``smem`` bytes a block).
+
+    ``elem`` 2 (bf16, ``sru_rec_fwd16_kernel``): the same blocks; each
+    warp (one unit, 32 columns) has a ring of REC16_AHEAD + 1 group slots,
+    each REC16_GROUP steps of 4 rows of REC16_SPAN values, a group's 32
+    (step, row) copies one a lane (five 16-byte cp.async)."""
+    if min(t_len, hdim, bsz) < 1 or elem not in (2, 4):
+        raise ValueError(f"sru_recurrence: T {t_len}, H {hdim}, B {bsz}, "
+                         f"element size {elem}")
     cols, units, grid = _spread_blocks(hdim, bsz, 1, FWD_THREADS)
+    warp = (REC16_AHEAD + 1) * REC16_GROUP * 4 * REC16_SPAN * 2
     return {"cols": cols, "units": units, "grid": grid[:2],
-            "ahead": FWD_AHEAD, "smem": 4 * FWD_AHEAD * 4 * cols * units}
+            "ahead": FWD_AHEAD if elem == 4 else REC16_AHEAD,
+            "smem": (4 * FWD_AHEAD * 4 * cols * units if elem == 4
+                     else cols * units // 32 * warp)}
 
 
 def _k4_forward(u, xhw, vb, reverse, with_c):
@@ -111,7 +130,9 @@ def _k4_forward(u, xhw, vb, reverse, with_c):
     t_len, gh, bsz = u.shape
     if min(u.shape) == 0:
         raise ValueError("sru_recurrence: empty input")
-    geo = k4_fwd_geometry(t_len, gh // 3, bsz)
+    if dt == torch.bfloat16:
+        u, xhw = kernel_lib.aligned16(u), kernel_lib.aligned16(xhw)
+    geo = k4_fwd_geometry(t_len, gh // 3, bsz, dt.itemsize)
     h = torch.empty_like(xhw)
     c = torch.empty_like(xhw) if with_c else None
     kernel_lib.launch(

@@ -31,16 +31,22 @@ tests walk them as the kernels do:
 A hypothesis property runs them at every width 8-160 the float32
 geometry tests take.
 
-- K4's bf16 entries (``csrc/sru_pallas.cu``
-  ``sru_rec_fwd_kernel<__nv_bfloat16>`` and the scan's
-  ``sru_scan_bwd_kernel<14>``): each value read as the 4-byte word that
-  holds it, at rows of 125 B and 64 B values (B odd included), the array
-  at a 4-byte and a 2-byte boundary, nothing read past its end;
-- pw-wgrad's bf16 kernel (``pw_wgrad_bf16_kernel``): its planar rows
-  staged at their offset in a 16-byte block, the copies aligned, and
-  every m16n8k16 fragment register read where the kernel reads it.
+- K4's bf16 backward (the scan's ``sru_scan_bwd_kernel<14>``): each
+  value read as the 4-byte word that holds it, at rows of 125 B and 64 B
+  values (B odd included), the array at a 4-byte and a 2-byte boundary,
+  nothing read past its end;
+- K4's bf16 forward (``csrc/sru_pallas.cu`` ``sru_rec_fwd16_kernel``):
+  every warp's copies of a group of steps over u's three gate rows and
+  xhw's highway row at H 3, 8, 32, 80, B 125, 131, 64, 1000, T 1, 5, 118,
+  both directions, every value read once at its lane's offset (all
+  offsets mod 8 where B is odd); the ring of group slots; the constants;
+- pw-wgrad's bf16 kernel (``pw_wgrad16_kernel``): each class's shifted
+  windows over the chunks (every position once, the packed stage's halo
+  zero outside the row) at the packed sites, an emulation of its
+  staging in float64 against sum_p a^T g, its ldmatrix fragments and
+  banks, the output tile and the cluster's shares, the constants.
 
-~7 s alone.
+~17 s alone (the K4 bf16 walks ~4 s, pw-wgrad's ~3 s).
 """
 
 import os
@@ -51,7 +57,8 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from rtfs_tpu_torch.ops import convt_tm, kernel_lib, packed_tf, sru_fused
+from rtfs_tpu_torch.ops import (convt_tm, kernel_lib, packed_tf, sru_fused,
+                                sru_pallas)
 
 # (T, B) of the scans at bs 1-8: frequency rows 125 B, time rows 64 B
 SCAN_SITES = [(3, 125 * b) for b in range(1, 9)] + [(3, 64 * b)
@@ -738,9 +745,11 @@ K4_WORD_SITES = [(5, 125 * b) for b in (1, 2, 3, 5)] + [
 @pytest.mark.parametrize("base", [256, 258])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_k4_bf16_word_reads_take_every_value(t_len, bsz, base, reverse):
-    """K4 forward (``sru_rec_fwd_kernel<__nv_bfloat16>``) and backward
-    (``sru_scan_bwd_kernel<14>``) read each bf16 value as the 4-byte word
-    that holds it (cp.async has no 2-byte copy): at every (step, unit,
+    """The bf16 word reads of csrc/sru_scan.cuh (``copy_value``,
+    ``upper_half``, ``slot_value``), which K4's backward scan
+    (``sru_scan_bwd_kernel<14>``) takes, read each bf16 value as the
+    4-byte word that holds it (cp.async has no 2-byte copy), at a fixed
+    offset (step 0) and moved by the scan's steps: at every (step, unit,
     column) of u (T, 3H, B), xhw, c and dh (T, H, B), for u at a 4-byte
     and at a 2-byte boundary, every value is the one the scan needs, and
     no byte past the array is read (the last value, in a lower half,
@@ -783,7 +792,8 @@ def test_k4_bf16_word_reads_take_every_value(t_len, bsz, base, reverse):
 
 
 def test_k4_bf16_entries_match_the_source():
-    """The bf16 entries of K4 take the float32 entries' arguments, and the
+    """The bf16 entries of K4 take the float32 entries' arguments, the
+    forward launches its own kernel (``launch_rec_fwd16``), and the
     backward's scan is ScanTypes<14> (bf16 storage, (v, b) sums rounded a
     batch column)."""
     with open(os.path.join(kernel_lib.CSRC_DIR, "sru_pallas.cu")) as f:
@@ -794,140 +804,412 @@ def test_k4_bf16_entries_match_the_source():
     for fn in ("sru_recurrence_fwd", "sru_recurrence_bwd"):
         assert sig[fn + "_bf16"] == sig[fn]
         assert f'extern "C" int {fn}_bf16(' in src
-    assert "launch_scan_bwd<14>" in src and "launch_rec_fwd<__nv_bfloat16>" \
-        in src
+    assert "launch_scan_bwd<14>" in src and "launch_rec_fwd16(" in src
+    assert "launch_rec_fwd<__nv_bfloat16>" not in src
     spec = scan.split("struct ScanTypes<14> {")[1].split("};")[0]
     assert "__nv_bfloat16" in spec and "kRoundParts = true" in spec
 
 
+# the new K4 bf16 forward (``sru_rec_fwd16_kernel``): a warp's copies a
+# group of REC16_GROUP steps at a time over u's three gate rows and xhw's
+# highway row, a (step, row) a lane
+
+
+def _k4_16_warps(hdim, bsz):
+    """The live warps of the bf16 K4 forward's grid: (unit j, first
+    column b0) arrays, and the geometry."""
+    geo = sru_pallas.k4_fwd_geometry(1, hdim, bsz, 2)
+    cols, units = geo["cols"], geo["units"]
+    assert cols % 32 == 0 and cols * units <= sru_pallas.FWD_THREADS
+    js, b0s = [], []
+    for x in range(geo["grid"][0]):
+        for y in range(geo["grid"][1]):
+            for wi in range(cols * units // 32):
+                j = y * units + (wi * 32) // cols
+                b0 = x * cols + (wi * 32) % cols
+                if j < hdim and b0 < bsz:  # else the whole warp returns
+                    js.append(j)
+                    b0s.append(b0)
+    return np.array(js, np.int64), np.array(b0s, np.int64), geo
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t_len", [1, 5, 118])
+@pytest.mark.parametrize("bsz", [125, 131, 64, 1000])
+@pytest.mark.parametrize("hdim", [3, 8, 32, 80])
+def test_k4_bf16_group_copies_read_every_value_once(hdim, bsz, t_len,
+                                                    reverse):
+    """``sru_rec_fwd16_kernel`` walked as it runs, every warp: lane l
+    copies row l % 4 (u's gate rows, then xhw's highway) of its group's
+    step l // 4 as the REC16_SPAN values from the 16-byte boundary below
+    the row's first, five 16-byte copies, or where that would pass the
+    array's end its blocks that start inside it (the last cut there);
+    each live lane then reads slot row 4 s + r at the offset it worked out
+    once from group 0 (the row's first element mod 8 in 32 bits) plus its
+    lane. Every (t, row, unit, column) of u and xhw is read exactly once,
+    as the value the recurrence needs there, at rows starting at every
+    offset mod 8 where B is odd; no copy reads past its array, and every
+    copy is 16-byte aligned on both sides."""
+    js, b0s, geo = _k4_16_warps(hdim, bsz)
+    row = hdim * bsz
+    group, span = sru_pallas.REC16_GROUP, sru_pallas.REC16_SPAN
+    assert geo["smem"] == geo["cols"] * geo["units"] // 32 * (
+        sru_pallas.REC16_AHEAD + 1) * group * 4 * span * 2
+    assert geo["smem"] <= kernel_lib.SMEM_PER_BLOCK
+    col = js * bsz + b0s                     # (W,) the warp's first element
+    lanes = np.arange(32)
+    s_own, r_own = lanes // 4, lanes % 4     # the lane's (step, row)
+    stride = np.where(r_own == 3, row, 3 * row)
+    size = t_len * stride                    # its array's values
+    r_off = np.where(r_own == 3, 0, r_own * row)
+    t0, dt = (t_len - 1, -1) if reverse else (0, 1)
+    # the read offsets, once a lane: group 0's step s, in 32 bits
+    m32 = 2 ** 32
+    t_s = (t0 + dt * s_own) % m32
+    e32 = (t_s * (stride % m32) + r_off + col[:, None]) % m32
+    rd = (e32 & 7)                           # (W, 32) for (s, r) = lane
+    seen = set()
+    reads = {"u": np.zeros(t_len * 3 * row, np.int8),
+             "xhw": np.zeros(t_len * row, np.int8)}
+    live = (b0s[:, None] + lanes[None, :]) < bsz  # (W, lane)
+    for n in range(-(-t_len // group)):
+        i = n * group + s_own                # the copy's scan step
+        valid = i < t_len
+        t = t_len - 1 - i if reverse else i
+        e = t * stride + r_off + col[:, None]    # (W, 32) row's first value
+        src = e - e % 8                      # 16-byte aligned both sides
+        assert ((4 * s_own + r_own) * span * 2 % 16 == 0).all()
+        # copied: [src, min(src + span, size)), five 16-byte blocks
+        # where that is all of it; the lane's read of (s, r) at slot place
+        # rd + lane holds element src + rd + lane, the value e + lane
+        assert (~valid[None, :] | (src + rd == e)).all()
+        assert (rd + 31 < span).all()
+        seen.update(np.unique(e[:, valid] % 8).tolist())
+        for lc in np.flatnonzero(valid):  # each copy's reads, live lanes
+            got = (e[:, lc][:, None] + lanes[None, :])[live]
+            assert (got < size[lc]).all()
+            reads["xhw" if r_own[lc] == 3 else "u"][got] += 1
+    for arr, got in reads.items():
+        assert (got == 1).all(), (arr, int((got != 1).sum()))
+    if bsz % 2 and t_len > 1:
+        assert seen == set(range(8))
+
+
+@pytest.mark.parametrize("t_len", [1, 5, 8, 9, 118])
+@pytest.mark.parametrize("land", ["issue", "wait"])
+def test_k4_bf16_ring_reads_each_group_once_landed(t_len, land):
+    """One lane's ring of REC16_AHEAD + 1 group slots: group n's copies go
+    to slot n % (AHEAD + 1) as one commit group (empty past T); at group n
+    the lane waits until at most AHEAD - 1 groups are pending (n's
+    landed), meets its warp, issues group n + AHEAD into the slot of group
+    n - 1 (read before the meeting), then reads group n. Copies landing
+    at issue or only at the wait, every read finds its own group, and no
+    slot is refilled before its group is read."""
+    ahead, group = sru_pallas.REC16_AHEAD, sru_pallas.REC16_GROUP
+    n_slots, n_groups = ahead + 1, -(-t_len // group)
+    slots, pending, read = [None] * n_slots, [], []
+
+    def issue(n):
+        if n * group >= t_len:  # an empty commit group
+            pending.append(None)
+        elif land == "issue":
+            assert slots[n % n_slots] in (None, *read)
+            slots[n % n_slots] = n
+            pending.append(None)
+        else:
+            pending.append(n)
+
+    for n in range(ahead):
+        issue(n)
+    for n in range(n_groups):
+        while len(pending) > ahead - 1:  # wait_group<AHEAD - 1>
+            m = pending.pop(0)
+            if m is not None:
+                assert slots[m % n_slots] in (None, *read)
+                slots[m % n_slots] = m
+        assert (n + ahead) % n_slots == (n - 1) % n_slots
+        issue(n + ahead)
+        assert slots[n % n_slots] == n
+        read.append(n)
+    assert read == list(range(n_groups))
+
+
+def test_k4_bf16_forward_constants_match_the_source():
+    """The Python mirrors equal csrc/sru_pallas.cu's constants; a group of
+    REC16_GROUP steps of 4 rows is one copy a lane; a slot row covers 32
+    values at any offset mod 8 in whole 16-byte blocks."""
+    with open(os.path.join(kernel_lib.CSRC_DIR, "sru_pallas.cu")) as f:
+        src = f.read()
+    for name, value in (("kRec16Group", sru_pallas.REC16_GROUP),
+                        ("kRec16Ahead", sru_pallas.REC16_AHEAD),
+                        ("kRec16Span", sru_pallas.REC16_SPAN),
+                        ("kRecFwdThreads", sru_pallas.FWD_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert sru_pallas.REC16_GROUP * 4 == 32
+    assert sru_pallas.REC16_SPAN == 5 * 8 and 7 + 31 < sru_pallas.REC16_SPAN
+    # a block's rings fit the default 48 KB (the kernel asks for no more)
+    warp = (sru_pallas.REC16_AHEAD + 1) * sru_pallas.REC16_GROUP * 4 * \
+        sru_pallas.REC16_SPAN * 2
+    assert sru_pallas.FWD_THREADS // 32 * warp <= 48 * 1024
+    assert "rec16_warp_smem() <= 48 * 1024" in src
+    body = src.split("sru_rec_fwd16_kernel(const __nv_bfloat16*")[1].split(
+        "constexpr int rec16_warp_smem()")[0]
+    assert "hk::cp_async16(dst + 8 * k, from + 8 * k, true)" in body
+    assert "hk::cp_async_wait<kRec16Ahead - 1>()" in body
+    assert "sigmoid_f" not in body and "hk::ex2_approx" in body
+
+
 # ------------------------------------------------------- pw-wgrad bf16
+# ``pw_wgrad16_kernel``: a block all PW16_ROWS x PW16_COLS of dW, planar
+# rows staged from their 16-byte boundary grouped by class (the first
+# position's offset mod 8), each class's window of positions shifted
+# down by its class, the packed side's stage 8 positions longer
 
 
-def _pw16_stage(p_vals, base2, b, cp0, cp, m, p0, avail):
-    """pw_wgrad_bf16_kernel's planar side of one stage: the staged rows
-    (kPwRows, kPw16PS), as the kernel's threads copy them (16-byte blocks
-    of 8 values whole, the window's ends value by value, zero past the
-    chunk), and the 16-byte copies' (source, destination) bf16 offsets.
-    p_vals(c, pos) the value at planar channel c, position pos; base2 the
-    array's address in bf16 units."""
-    rows, k = packed_tf.PW_WGRAD_ROWS, packed_tf.PW_WGRAD_K
-    ps = packed_tf.PW_WGRAD16_PS
-    staged = np.full((rows, ps), np.nan)
-    copies = []
-    for tid in range(rows):
-        if cp0 + tid >= cp:
-            continue
-        row_e = (b * cp + cp0 + tid) * m  # the channel row's first value
-        sh = (base2 + row_e + p0) % 8
-        dst = _staged_row(tid)
-        for j in range(k // 8 + 1):
-            lo = 8 * j - sh
-            if lo + 8 <= 0 or lo >= k:
-                continue
-            whole = lo >= 0 and lo + 8 <= k and lo + 8 <= avail
-            if whole:
-                copies.append((base2 + row_e + p0 + lo, dst * ps + 8 * j))
-            for e in range(8):
-                if 0 <= lo + e < k:
-                    staged[dst, 8 * j + e] = (
-                        p_vals(cp0 + tid, p0 + lo + e) if lo + e < avail
-                        else 0.0)
-    return staged, copies
+def _pw16_class(b, c, cp, m, xl):
+    """The class of planar channel c of batch row b at chunk start xl: its
+    element's offset in a 16-byte block (p aligned)."""
+    return ((b * cp + c) * m + xl) % 8
 
 
-def _staged_row(r):
-    return (r & ~63) | ((r & 3) << 4) | ((r & 63) >> 2)
+# (B, M, Cp, Cq, chunk): the packed sites (the geometry's chunks at bs 1,
+# 4, 8; one chunk a batch row, as the drift test launches it), and small
+# ragged ones (M below a stage, M odd, two tiles a side, Cq not a
+# multiple of 8)
+PW16_SITES = [(1, 32379, 256, 64, None), (4, 32379, 256, 64, None),
+              (8, 32379, 256, 64, None), (4, 32379, 256, 64, 32384),
+              (2, 323, 48, 200, None), (2, 323, 200, 48, None),
+              (1, 21, 256, 64, None), (3, 96, 256, 64, 64)]
 
 
-@pytest.mark.parametrize("m,base2,p0,avail", [
-    (251 * 129, 0, 0, 64), (251 * 129, 0, 128, 64), (251 * 129, 1, 64, 64),
-    (251 * 129, 3, 2048, 37), (96, 0, 0, 64), (21, 5, 0, 21)])
-def test_pw_wgrad_bf16_staging_and_fragments(m, base2, p0, avail):
-    """The bf16 pw-wgrad's stage and fragments: each planar row lands at
-    the offset of its first position in its 16-byte block (rows of M =
-    251 * 129 values start at every offset mod 8), its whole blocks copied
-    16-byte aligned on both sides; every A register (two neighbouring
-    positions of one channel, rows g and g + 8 of a tile 32 channels apart
-    with one offset) and B register (two neighbouring positions of one
-    packed channel) read where the kernel reads it holds the element the
-    m16n8k16 product takes there (``_mma_a`` / ``_mma_b``), zero past the
-    chunk; the output tile fits the ring's place."""
-    rows, k, cols = (packed_tf.PW_WGRAD_ROWS, packed_tf.PW_WGRAD_K,
-                     packed_tf.PW_WGRAD_COLS)
-    ps, qs = packed_tf.PW_WGRAD16_PS, packed_tf.PW_WGRAD16_QS
-    b, cp, cp0 = 1, 256, 128
+@pytest.mark.parametrize("b,m,cp,cq,chunk", PW16_SITES)
+def test_pw_wgrad_bf16_chunks_cover_each_position_once_a_class(b, m, cp, cq,
+                                                               chunk):
+    """Each class d of planar channel covers [x L - d, (x + 1) L - d) in
+    chunk x (the last chunk to m, one stage more where d needs it; none
+    past it): over a batch row's chunks and stages every position of [0,
+    m) once, each stage's window inside the packed stage (8 positions
+    before its first on), which holds zeros outside [0, m); the grid
+    rounds the chunks up to whole clusters, one partial a cluster."""
+    geo = packed_tf.pw_wgrad16_geometry(b, m, cp, cq)
+    k, cl = packed_tf.PW16_K, packed_tf.PW16_CLUSTER
+    if chunk is None:
+        chunk, chunks, gx = geo["chunk"], geo["chunks"], geo["gx"]
+        assert geo["grid"][0] * geo["tiles"] * b <= kernel_lib.SMS
+        assert geo["parts"] == b * gx // cl
+    else:
+        chunks = -(-m // chunk)
+        gx = -(-chunks // cl) * cl
+    assert chunk % k == 0 and gx % cl == 0 and (chunks - 1) * chunk < m
+    for d in range(8):
+        hits = np.zeros(m + 2 * k + 16, np.int64)  # positions -8 ..
+        for x in range(gx):
+            ns = packed_tf.pw16_stages(m, chunk, chunks, x)
+            assert ns == (0 if x >= chunks else chunk // k if x < chunks - 1
+                          else -(-(m - x * chunk + 7) // k))
+            for s in range(ns):
+                p0 = x * chunk + s * k
+                lo = p0 - d   # the class's window, in the packed stage
+                assert p0 - 8 <= lo and lo + k <= p0 + k
+                hits[lo + 8:lo + k + 8] += 1
+        assert (hits[8:m + 8] == 1).all(), d  # [0, m) once
+        # past m and before 0 the packed side is zero: anything may be hit
 
-    def p_vals(c, pos):
-        return 1000.0 * c + pos
 
-    staged, copies = _pw16_stage(p_vals, base2, b, cp0, cp, m, p0, avail)
-    for src, dst in copies:
-        assert src % 8 == 0 and dst % 8 == 0  # 16-byte aligned both sides
-    # the packed side: position pp's channels at row pp of kPw16QS
-    q_stage = np.array([[pp * 10.0 + n if pp < avail else 0.0
-                         for n in range(qs)] for pp in range(k)])
+def _pw16_emulate(p, q, b_len, m, cp, cq, chunk, transposed):
+    """dW as pw_wgrad16_kernel forms it, in float64: every block (chunk,
+    tile, batch row) stages its planar rows from the flat p (16-byte
+    blocks from the class's boundary, zeros past p's end) and its packed
+    positions p0 - 8 .. p0 + K - 1 (zeros outside [0, m) and past cq),
+    warp w multiplies the channels of class w by the packed rows 8 - d_w
+    on; the cluster's blocks and the partials are added."""
+    k, rows_t, cols_t = packed_tf.PW16_K, packed_tf.PW16_ROWS, \
+        packed_tf.PW16_COLS
+    flat = p.reshape(-1)
+    n_p = flat.size
+    chunks = -(-m // chunk)
+    gx = -(-chunks // packed_tf.PW16_CLUSTER) * packed_tf.PW16_CLUSTER
+    dw = np.zeros((cp, cq))
+    for b in range(b_len):
+        for cp0 in range(0, cp, rows_t):
+            for cq0 in range(0, cq, cols_t):
+                rows = min(rows_t, cp - cp0)
+                for x in range(gx):
+                    xl = x * chunk
+                    d = np.array([_pw16_class(b, cp0 + c, cp, m, xl)
+                                  for c in range(rows)])
+                    # channels 8 apart share a class: a warp's one shift
+                    assert all(d[c] == d[c % 8] for c in range(rows))
+                    for s in range(packed_tf.pw16_stages(m, chunk, chunks,
+                                                         x)):
+                        p0 = xl + s * k
+                        e = ((b * cp + cp0 + np.arange(rows))[:, None] * m
+                             + p0 - d[:, None] + np.arange(k)[None, :])
+                        assert ((e - np.arange(k)) % 8 == 0).all()
+                        a = np.where(e < n_p, flat[np.minimum(e, n_p - 1)],
+                                     0.0)
+                        pos = p0 - 8 + np.arange(k + 8)
+                        inside = (pos >= 0) & (pos < m)
+                        qs = np.zeros((k + 8, cols_t))
+                        ncol = min(cols_t, cq - cq0)
+                        qs[inside, :ncol] = q[b, pos[inside],
+                                              cq0:cq0 + ncol]
+                        for w in range(min(8, rows)):
+                            ch = np.arange(w, rows, 8)
+                            bq = qs[8 - d[w]:8 - d[w] + k]
+                            dw[cp0 + ch, cq0:cq0 + ncol] += (
+                                a[ch] @ bq)[:, :ncol]
+    return dw.T if transposed else dw
 
-    def shift(c):
-        return (base2 + (b * cp + cp0 + c) * m + p0) % 8
 
-    warps_m = rows // 32
-    for warp in range(2 * warps_m):
-        wm, wn = warp % warps_m, warp // warps_m
+@pytest.mark.parametrize("b,m,cp,cq,chunk", [
+    (2, 37, 20, 24, 64), (1, 300, 256, 64, 64), (3, 96, 40, 8, 64),
+    (2, 200, 300, 70, 128), (2, 251, 16, 64, None), (1, 1000, 64, 64, 192)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_pw_wgrad_bf16_emulated_sum_takes_each_product_once(b, m, cp, cq,
+                                                           chunk, transposed):
+    """The kernel's staging and windows emulated in float64 on random
+    data give sum_p a^T g: each (position, planar, packed) product once,
+    the values the planar copies read outside a row's chunk (its
+    neighbours, zeros past p's end) meeting packed zeros; ragged tiles,
+    many chunks and a last chunk that needs one stage more."""
+    rng = np.random.default_rng(23)
+    if chunk is None:
+        chunk = packed_tf.pw_wgrad16_geometry(b, m, cp, cq)["chunk"]
+    p = rng.standard_normal((b, cp, m))
+    q = rng.standard_normal((b, m, cq))
+    want = np.einsum("bcm,bmn->cn", p, q)
+    got = _pw16_emulate(p, q, b, m, cp, cq, chunk, transposed)
+    np.testing.assert_allclose(got, want.T if transposed else want,
+                               rtol=0, atol=1e-9)
+
+
+def test_pw_wgrad_bf16_ldmatrix_fragments_and_banks():
+    """Warp w's ldmatrix reads: A (x4) from staged rows 32 w + 16 mi + the
+    lane's row at column kk + 8 (l / 16) give m16n8k16's A fragment of
+    the tile's channels w + 8 (16 mi + row) at positions kk + k; B (x4
+    .trans) from packed row 8 - d_w + kk + the lane's row, channels 16 np
+    + 8 (l / 16), give the B fragments of n8 tiles 2 np and 2 np + 1 at
+    the same positions; each matrix's 8 rows on distinct banks, 16-byte
+    aligned, for every class d; the planar and packed copies of a
+    quarter warp conflict-free."""
+    ps, qs = packed_tf.PW16_PS, packed_tf.PW16_QS
+    lr = lambda l: (l & 7) + 8 * ((l >> 3) & 1)  # noqa: E731
+    lc = lambda l: 8 * (l >> 4)  # noqa: E731
+    for w in range(8):
         for mi in range(2):
-            t = 2 * wm + mi
-            for g in range(8):
-                ch = 64 * (t >> 2) + 4 * g + (t & 3)
-                assert shift(ch + 32) == shift(ch)
-                a_off = (16 * t + g) * ps + shift(ch) + 0
-                for q in range(4):
-                    for kk in range(0, k, 16):
-                        pa = a_off + 2 * q + kk
-                        regs = [(pa, pa + 1), (pa + 8 * ps, pa + 8 * ps + 1),
-                                (pa + 8, pa + 9),
-                                (pa + 8 * ps + 8, pa + 8 * ps + 9)]
-                        for r, pair in enumerate(regs):
-                            for h, off in enumerate(pair):
-                                row, kk_ = _mma_a(g, q, r, h)
-                                want_c = ch + 32 * (row >= 8)
-                                pos = kk + kk_
-                                want = (p_vals(cp0 + want_c, p0 + pos)
-                                        if pos < avail else 0.0)
-                                got = staged.reshape(-1)[off]
-                                assert got == want, (t, g, q, r, h)
-        for nj in range(4):
-            for g in range(8):
-                for q in range(4):
-                    b_off = 2 * q * qs + 32 * wn + g
-                    for kk in range(0, k, 16):
-                        pb = b_off + 8 * nj + kk * qs
-                        regs = [(pb, pb + qs), (pb + 8 * qs, pb + 9 * qs)]
-                        for r, pair in enumerate(regs):
-                            for h, off in enumerate(pair):
+            for kk in range(0, packed_tf.PW16_K, 16):
+                at = lambda l: (32 * w + 16 * mi + lr(l)) * ps + kk + lc(l)  # noqa
+                regs = _ldsm(at, False)
+                for (g, q), rr in regs.items():
+                    for r in range(4):
+                        for h in range(2):
+                            row, kq = _mma_a(g, q, r, h)
+                            assert rr[r][h] == (32 * w + 16 * mi + row) * ps \
+                                + kk + kq
+                assert _ldsm_banks_free(at)
+        for d in range(8):
+            for np_ in range(4):
+                kk = 16 * (d % 4)
+                at = lambda l: (8 - d + kk + lr(l)) * qs + 16 * np_ + lc(l)  # noqa
+                regs = _ldsm(at, True)
+                for (g, q), rr in regs.items():
+                    for nt in range(2):
+                        for r in range(2):
+                            for h in range(2):
                                 kq, n = _mma_b(g, q, r, h)
-                                pp = kk + kq
-                                want = (pp * 10.0 + 32 * wn + 8 * nj + n
-                                        if pp < avail else 0.0)
-                                assert q_stage.reshape(-1)[off] == want
-    # no staged column past the row is read: sh + 63 + 9 < kPw16PS
-    assert 7 + (k - 16) + 6 + 9 < ps
-    assert packed_tf.pw_wgrad16_smem() <= kernel_lib.SMEM_PER_BLOCK
+                                assert rr[2 * nt + r][h] == \
+                                    (8 - d + kk + kq) * qs + 16 * np_ \
+                                    + 8 * nt + n
+                assert _ldsm_banks_free(at)
+    # the planar copies: thread t's 16-byte block t % 8 of staged row 32 i
+    # + t / 8; a quarter warp's 8 blocks one row, 32 banks
+    for i in range(8):
+        for quarter in range(32):
+            words = {((32 * i + t // 8) * ps + 8 * (t % 8)) // 2 % 32 + v
+                     for t in range(8 * quarter % 256, 8 * quarter % 256 + 8)
+                     for v in range(4)}
+            assert len({x % 32 for x in words}) == 32
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_pw_wgrad_bf16_tile_and_cluster_shares(transposed):
+    """Every (planar, packed) channel pair of the tile is one lane's D
+    value (warp w, m16 tile mi, n8 tile nj: channel w + 8 (16 mi + g) (+
+    64), packed 8 nj + 2 q (+ 1)), written once to the output tile; the
+    cluster's ranks each add one share of its rows, read a row at a
+    time (a warp's 32 reads one row, 32 banks), together every entry
+    once; for the transpose a rank turns its share round in a staging
+    tile (a warp's writes down a column and its reads along a row each
+    hit 32 banks) and writes rows of dW^T."""
+    rows, cols, os_ = (packed_tf.PW16_ROWS, packed_tf.PW16_COLS,
+                       packed_tf.PW16_OS)
+    hits = np.zeros((rows, cols), np.int64)
+    for w in range(8):
+        for lane in range(32):
+            g, q = lane // 4, lane % 4
+            for mi in range(2):
+                for nj in range(8):
+                    for v in range(4):
+                        r = w + 128 * mi + 8 * g + 64 * (v >> 1)
+                        c = 8 * nj + 2 * q + (v & 1)
+                        hits[r, c] += 1
+    assert (hits == 1).all()
+    cl, threads = packed_tf.PW16_CLUSTER, packed_tf.PW16_THREADS
+    qrows = rows // cl
+    got = np.zeros((rows, cols), np.int64)
+    for rank in range(cl):
+        staged = np.zeros((cols, qrows), np.int64)
+        for e0 in range(0, qrows * cols, threads):
+            for e in range(e0, e0 + threads):
+                r, c = e // cols, e % cols
+                got[rank * qrows + r, c] += 1
+                staged[c, r] += 1
+            for e1 in range(e0, e0 + threads, 32):  # one warp
+                reads = {((rank * qrows + e // cols) * os_ + e % cols) % 32
+                         for e in range(e1, e1 + 32)}
+                writes = {((e % cols) * (qrows + 1) + e // cols) % 32
+                          for e in range(e1, e1 + 32)}
+                assert len(reads) == 32 and (len(writes) == 32
+                                             or not transposed)
+        if transposed:
+            assert (staged == 1).all()
+            for e1 in range(0, qrows * cols, 32):  # the staged rows out
+                banks = {((e // qrows) * (qrows + 1) + e % qrows) % 32
+                         for e in range(e1, e1 + 32)}
+                assert len(banks) == 32
+    assert (got == 1).all()
 
 
 def test_pw_wgrad_bf16_constants_match_the_source():
+    """The Python mirrors equal csrc/packed_tf.cu's kPw16* constants and
+    shared bytes; the entries keep their signatures; the kernel takes its
+    fragments by ldmatrix, adds its stage sums to a float32 sum every
+    stage, and uses no atomics."""
     src, consts = _packed_source()
-    assert "constexpr int kPw16PS = kPwK + 8;" in src
-    assert "constexpr int kPw16QS = kPwCols + 8;" in src
-    assert (packed_tf.PW_WGRAD16_PS, packed_tf.PW_WGRAD16_QS) == (
-        consts["kPwK"] + 8, consts["kPwCols"] + 8)
-    # 144-byte rows: 16-byte aligned copies; the B reads' words 8 q + g / 2
-    assert 2 * packed_tf.PW_WGRAD16_PS % 16 == 0
-    words = {(2 * q * packed_tf.PW_WGRAD16_QS + g) // 2 % 32
-             for g in range(8) for q in range(4)}
-    assert len(words) == 16  # each word shared by two lanes, none clash
+    for name, value in (("kPw16Rows", packed_tf.PW16_ROWS),
+                        ("kPw16Cols", packed_tf.PW16_COLS),
+                        ("kPw16K", packed_tf.PW16_K),
+                        ("kPw16Stages", packed_tf.PW16_STAGES),
+                        ("kPw16Cluster", packed_tf.PW16_CLUSTER),
+                        ("kPw16Threads", packed_tf.PW16_THREADS)):
+        assert consts[name] == value, name
+    assert "constexpr int kPw16PS = kPw16K + 8;" in src
+    assert "constexpr int kPw16QS = kPw16Cols + 8;" in src
+    assert "constexpr int kPw16OS = kPw16Cols + 1;" in src
+    assert (packed_tf.PW16_PS, packed_tf.PW16_QS, packed_tf.PW16_OS) == (
+        72, 72, 65)
+    assert 2 * packed_tf.PW16_PS % 16 == 0 and packed_tf.PW16_OS % 2 == 1
+    assert packed_tf.pw_wgrad16_smem() == 188928 <= kernel_lib.SMEM_PER_BLOCK
+    assert 4 * (packed_tf.PW16_ROWS * packed_tf.PW16_OS + packed_tf.PW16_COLS
+                * (packed_tf.PW16_ROWS // packed_tf.PW16_CLUSTER + 1)) < 188928
+    assert packed_tf.PW16_K == packed_tf.PW_WGRAD_K  # the drift test's chunk
     sig = kernel_lib._SIGNATURES["packed_tf"]
     assert sig["pw_packed_wgrad_bf16"] == sig["pw_packed_wgrad"]
     assert sig["dw_conv_packed_wgrad_bf16"] == sig["dw_conv_packed_wgrad"]
-    body = src.split("pw_wgrad_bf16_kernel(const __nv_bfloat16*")[1].split(
+    body = src.split("pw_wgrad16_kernel(const __nv_bfloat16*")[1].split(
         'extern "C"')[0]
-    assert "atomic" not in body and "hk::mma_bf16" in body
-    assert "if (++since == kPwFlush || s == ns - 1)" in body
+    assert "atomic" not in body and "hk::ldsm_x4_trans_at" in body
+    assert "hk::mma_bf16_zero(big[mi][nj], a[mi], bq[nj])" in body
+    assert "acc[mi][nj][v] += big[mi][nj][v]" in body
+    assert "pw_wgrad_bf16_kernel" not in src

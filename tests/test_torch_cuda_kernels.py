@@ -1579,13 +1579,15 @@ def test_k8_k9_bf16_refuse_a_tile_larger_than_shared_memory(dev):
 # K5-wgrad, pw-wgrad and the packed backward
 
 
-# the uni sites at bs 1 and 4 (freq L 57 / B 125 a batch item, time L 118
-# / B 64), odd batches (rows of 125 B and 64 B values start on 2-byte
-# boundaries, read a 4-byte word at a time), a T shorter than the scan's
-# ring and one step longer, one column, H 8 and 48
+# the uni sites at bs 1, 4 and 8 (freq L 57 / B 125 a batch item, time L
+# 118 / B 64), odd batches (rows of 125 B and 64 B values start on 2-byte
+# boundaries: the forward's 16-byte copies start at every offset mod 8, the
+# scan reads a 4-byte word at a time), a T shorter than the scan's ring
+# and one step longer, one column, H 8, 48 and 80 (the wide phase's)
 K4_BF16_SHAPES = [(57, 32, 125), (118, 32, 64), (57, 32, 500),
-                  (118, 32, 256), (SCAN_AHEAD // 2, 32, 131),
-                  (SCAN_AHEAD + 1, 8, 33), (1, 32, 1), (37, 48, 77)]
+                  (118, 32, 256), (57, 32, 1000), (118, 32, 512),
+                  (SCAN_AHEAD // 2, 32, 131), (SCAN_AHEAD + 1, 8, 33),
+                  (1, 32, 1), (37, 48, 77), (118, 48, 64), (57, 80, 125)]
 
 
 @pytest.mark.parametrize("t_len,h,bsz", K4_BF16_SHAPES)
@@ -1613,8 +1615,10 @@ def test_bf16_k4_matches_plain(dev, t_len, h, bsz, reverse):
                        (c, want_c, "c")):
         _bf16_close(g, w, f"K4 {what}")
     assert torch.equal(got_h, h_c)
-    f32_h = S._k4_forward(u.float(), x.float(), vb.float(), reverse, False)
+    f32_h, f32_c = S._k4_forward(u.float(), x.float(), vb.float(), reverse,
+                                 True)
     _bf16_close(got_h, f32_h.to(torch.bfloat16), "K4 h float32")
+    _bf16_close(c, f32_c.to(torch.bfloat16), "K4 c float32")
     want = S.sru_recurrence_bwd_plain(u, x, vb, c, dh, reverse)
     for i, (g, w) in enumerate(zip(got, want)):
         _bf16_grad_close(g, w, f"K4 backward {i}")
@@ -1727,6 +1731,36 @@ def test_bf16_pw_wgrad_matches_plain(dev, shape):
         got = P.pw_packed_wgrad(a, g)
         assert dict(kernel_lib.LAUNCHES) == {"pw_packed_wgrad_bf16": 1}
         assert got.dtype == torch.float32
+        _close((got,), (P.pw_packed_wgrad_plain(a, g),), rel=1e-4)
+        _close((got,), (P.pw_packed_wgrad(a.float(), g.float()),), rel=1e-4)
+        assert torch.equal(got, P.pw_packed_wgrad(a, g))
+
+
+# pw-wgrad's packed sites at bs 1 and 8 (bs 4: PW_WGRAD_SHAPES'
+# "bs4-train"), and C 60 (the packed side value by value)
+PW_WGRAD16_SITES = {"bs1": (1, 251, 129, 64, 256),
+                    "bs8": (8, 251, 129, 64, 256),
+                    "c60-ci100": (2, 9, 13, 60, 100)}
+
+
+@pytest.mark.parametrize("shape", sorted(PW_WGRAD16_SITES))
+def test_bf16_pw_wgrad_sites_match_plain(dev, shape):
+    """test_bf16_pw_wgrad_matches_plain at the packed bs-1 and bs-8
+    sites and a packed side of 60 channels, with the planar operand a view
+    2 bytes off 16-byte alignment (copied by the wrapper)."""
+    from rtfs_tpu_torch.ops import kernel_lib
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    b, t, f, c, ci = PW_WGRAD16_SITES[shape]
+    rng = np.random.default_rng(46)
+    for planar_first in (True, False):
+        flat = _b(rng, (b * ci * t * f + 1,), dev)
+        four = flat[1:].view(b, ci, t, f)
+        packed = _b(rng, (b, t, f * c), dev)
+        a, g = (four, packed) if planar_first else (packed, four)
+        kernel_lib.reset_launches()
+        got = P.pw_packed_wgrad(a, g)
+        assert dict(kernel_lib.LAUNCHES) == {"pw_packed_wgrad_bf16": 1}
         _close((got,), (P.pw_packed_wgrad_plain(a, g),), rel=1e-4)
         _close((got,), (P.pw_packed_wgrad(a.float(), g.float()),), rel=1e-4)
         assert torch.equal(got, P.pw_packed_wgrad(a, g))

@@ -48,6 +48,15 @@ shape it, given as ``A:B:..`` in the order of its row of ``KERNELS``:
   time L 118 over B 64 bs, H 32), serving, held to the plain bf16 version
   (the error printed is the worst element's share of two bf16 ulps) and
   timed by the profiler's device time a launch;
+- ``pw16``: pw-wgrad on bf16 operands (``pw_wgrad16_kernel``), its
+  positions a stage ``kPw16K``, ring ``kPw16Stages`` and blocks a cluster
+  ``kPw16Cluster`` (whose tiles are summed into one partial); K6's and
+  K7's dW at bs 1, 4 and 8, held to the plain version (1e-4), timed with
+  the partials' sum by the profiler's device time;
+- ``k4fwd16``: K4's bf16 forward (``sru_rec_fwd16_kernel``), the groups
+  its copies run ahead ``kRec16Ahead`` (at most 3: a block's rings fit
+  the default 48 KB of shared memory); the six uni sites with c, as
+  ``k2fwd16``;
 - ``k3fwd16``: K3 forward in bf16 (``convt1d_tm_fwd_bf16_kernel``), its
   ring depth in passes ``kFwd16Stages``, then the column tile and the
   output channels a block (0: the geometry's,
@@ -73,6 +82,8 @@ max (``maps16``: of two bf16 ulps); the run fails if one is above 1e-4
         6:3:0:0 6:2:1:0]
     python3 tools/kernel_variants.py k3fwd16 [--variants 3:0:0 2:0:0
         3:32:64 3:16:64]
+    python3 tools/kernel_variants.py pw16 [--variants 64:4:2 128:2:2]
+    python3 tools/kernel_variants.py k4fwd16 [--variants 3 2 1]
 """
 
 from __future__ import annotations
@@ -382,6 +393,82 @@ def k3fwd16_sites(libs, values) -> dict:
     return out
 
 
+def pw16_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of pw-wgrad on bf16 operands
+    (``pw_wgrad16_kernel`` and its sum): K6's dW (x4 planar, g packed) and
+    K7's (xp packed, g planar) at bs 1, 4 and 8, the chunks from the
+    variant's positions a stage and cluster; held to the plain version
+    (1e-4 of max|dW|) beside the bf16 bytes bound."""
+    from rtfs_tpu_torch.ops import packed_tf as P
+
+    k, _, cluster = values
+    T, F, C, CB = 251, 129, 64, 256
+    m = T * F
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for bs in (1, 4, 8):
+        geo = P.pw_wgrad16_geometry(bs, m, CB, C, k=k, cluster=cluster)
+        part = torch.empty(geo["parts"], CB * C, device="cuda")
+        bound = 2 * bs * m * (CB + C) / HBM_BYTES_PER_S * 1e6
+        four = _t(rng, (bs, CB, T, F)).to(torch.bfloat16)
+        packed = _t(rng, (bs, T, F * C)).to(torch.bfloat16)
+        for site, planar in ((f"bs{bs} K6 dW", True),
+                             (f"bs{bs} K7 dW", False)):
+            a, g = (four, packed) if planar else (packed, four)
+            o = torch.empty((CB, C) if planar else (C, CB), device="cuda")
+            ca, cb = o.shape
+
+            def call(a=a, g=g, o=o, ca=ca, cb=cb, planar=planar, bs=bs,
+                     chunk=geo["chunk"], parts=geo["parts"], part=part):
+                st = libs["packed_tf"].pw_packed_wgrad_bf16(
+                    a.data_ptr(), g.data_ptr(), part.data_ptr(),
+                    o.data_ptr(), bs, m, ca, cb, int(planar), chunk, parts,
+                    stream)
+                assert st == 0, st
+
+            out[site] = (call, lambda a=a, g=g, o=o: _err(
+                (o,), (P.pw_packed_wgrad_plain(a, g),)), bound)
+    return out
+
+
+def k4fwd16_sites(libs, values) -> dict:
+    """{site: (launch, check, bound us)} of K4's bf16 forward with c
+    (``sru_rec_fwd16_kernel<true>``) at the six uni sites (bs 1, 4, 8;
+    freq T 57 over B 125 bs, time T 118 over B 64 bs; H 32), held to the
+    plain bf16 version (the worst element's share of two bf16 ulps)."""
+    from rtfs_tpu_torch.ops import sru_pallas as S
+
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf, hd = torch.bfloat16, 32
+    vb = _t(rng, (4, hd), 0.3).to(bf)
+    out = {}
+    for bs in (1, 4, 8):
+        for site, (T, per) in (("freq", (57, 125)), ("time", (118, 64))):
+            B = bs * per
+            u, x = _t(rng, (T, 3 * hd, B)).to(bf), _t(rng, (T, hd, B)).to(bf)
+            h, c = torch.empty_like(x), torch.empty_like(x)
+            geo = S.k4_fwd_geometry(T, hd, B, 2)
+            want = S.sru_recurrence_plain(u.cpu(), x.cpu(), vb.cpu(),
+                                          with_c=True)
+
+            def call(u=u, x=x, h=h, c=c, T=T, B=B, geo=geo):
+                st = libs["sru_pallas"].sru_recurrence_fwd_bf16(
+                    u.data_ptr(), x.data_ptr(), vb.data_ptr(), h.data_ptr(),
+                    c.data_ptr(), T, hd, B, 0, geo["cols"], geo["units"],
+                    stream)
+                assert st == 0, st
+
+            def check(h=h, c=c, want=want):
+                return max(_bf16_ulp_share(g.cpu(), w)
+                           for g, w in zip((h, c), want))
+
+            out[f"bs{bs} {site} T={T} B={B}"] = (
+                call, check, 2 * T * B * 6 * hd / HBM_BYTES_PER_S * 1e6)
+    return out
+
+
 def device_ms(fn, parts, iters: int = 50) -> float:
     """The profiler's device ms a call of the kernels whose names hold
     one of ``parts``."""
@@ -428,6 +515,13 @@ KERNELS = {
                 "sru_hid_fwd_bf16_kernel", k2fwd16_sites,
                 ["6:2:0:0", "4:2:0:0", "8:2:0:0", "6:3:0:0", "6:2:1:0"], 1.0,
                 ("sru_hid_fwd_bf16_kernel",), 2),
+    "pw16": ("packed_tf.cu", ("kPw16K", "kPw16Stages", "kPw16Cluster"),
+             ("packed_tf",), "pw_wgrad16", pw16_sites,
+             ["64:4:2", "64:4:1", "64:4:4", "64:4:8", "64:3:2", "128:2:2",
+              "32:8:2"], TOL, ("pw_wgrad16_kernel", "sum_partials_kernel")),
+    "k4fwd16": ("sru_pallas.cu", ("kRec16Ahead",), ("sru_pallas",),
+                "sru_rec_fwd16", k4fwd16_sites, ["3", "2", "1"], 1.0,
+                ("sru_rec_fwd16_kernel",)),
     "k3fwd16": ("convt_tm.cu", ("kFwd16Stages",), ("convt_tm",),
                 "convt1d_tm_fwd_bf16", k3fwd16_sites,
                 ["3:0:0", "2:0:0", "3:32:64", "3:16:64"], 1.0,

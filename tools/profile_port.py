@@ -46,6 +46,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 OWN_KERNELS = ("sru_lay0_fwd_kernel", "sru_hid_fwd_kernel",
                "convt1d_tm_fwd_kernel", "sru_rec_fwd_kernel",
+               "sru_rec_fwd16_kernel",
                "sru_lay0_fwd_bf16_kernel", "sru_lay0_fwd16_kernel",
                "sru_hid_fwd_bf16", "convt1d_tm_fwd_bf16")
 
